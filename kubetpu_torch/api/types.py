@@ -1,0 +1,853 @@
+# Port copy of kubetpu/api/types.py, verbatim apart from this note (no JAX in it).
+"""Typed cluster objects — the scheduling-relevant envelope of the reference's
+``staging/src/k8s.io/api/core/v1`` types.
+
+These are plain Python dataclasses, deliberately flat (no nested Container
+lists on the hot path): a Pod carries its *aggregated* resource request, which
+the reference computes in ``computePodResourceRequest``
+(pkg/scheduler/framework/plugins/noderesources/fit.go:317) as
+``max(sum(containers), max(initContainers)) + overhead``. Use
+``kubetpu.api.requests.pod_requests`` to aggregate from containers when
+constructing pods from full specs.
+
+Canonical resource units (reference: apimachinery resource.Quantity, reduced
+to int64 canonical form exactly as NodeInfo.Resource does):
+  - cpu:               millicores (int)
+  - memory:            bytes (int)
+  - ephemeral-storage: bytes (int)
+  - pods:              count (int, node allocatable only)
+  - any other name:    extended/scalar resource, opaque int quantity
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from dataclasses import dataclass, field
+from typing import Mapping, Sequence
+
+# Canonical resource names (reference: k8s.io/api/core/v1/types.go ResourceName).
+CPU = "cpu"
+MEMORY = "memory"
+EPHEMERAL_STORAGE = "ephemeral-storage"
+PODS = "pods"
+
+# Defaults the reference applies for scoring when a pod does not specify a
+# request (pkg/scheduler/util/pod_resources.go:28-31). Used only by the
+# NonZeroRequested view, never by the Fit filter.
+DEFAULT_MILLI_CPU_REQUEST = 100
+DEFAULT_MEMORY_REQUEST = 200 * 1024 * 1024
+
+# Score bounds (staging/src/k8s.io/kube-scheduler/framework: MaxNodeScore=100).
+MAX_NODE_SCORE = 100
+MIN_NODE_SCORE = 0
+MAX_TOTAL_SCORE = (1 << 63) - 1
+
+ResourceList = Mapping[str, int]
+
+
+class Operator(str, enum.Enum):
+    """Label/node-selector requirement operator
+    (reference: k8s.io/api/core/v1 NodeSelectorOperator + metav1 LabelSelectorOperator)."""
+
+    IN = "In"
+    NOT_IN = "NotIn"
+    EXISTS = "Exists"
+    DOES_NOT_EXIST = "DoesNotExist"
+    GT = "Gt"
+    LT = "Lt"
+
+
+@dataclass(frozen=True)
+class Requirement:
+    """One match expression: ``key op values``."""
+
+    key: str
+    operator: Operator
+    values: tuple[str, ...] = ()
+
+
+@dataclass(frozen=True)
+class LabelSelector:
+    """metav1.LabelSelector: match_labels AND all match_expressions.
+
+    An empty selector matches everything; ``None`` (where allowed) matches
+    nothing — callers encode that distinction, as the reference does.
+    """
+
+    match_labels: tuple[tuple[str, str], ...] = ()
+    match_expressions: tuple[Requirement, ...] = ()
+
+    @staticmethod
+    def of(labels: Mapping[str, str] | None = None,
+           exprs: Sequence[Requirement] = ()) -> "LabelSelector":
+        return LabelSelector(
+            match_labels=tuple(sorted((labels or {}).items())),
+            match_expressions=tuple(exprs),
+        )
+
+
+@dataclass(frozen=True)
+class NodeSelectorTerm:
+    """One term of a NodeSelector: AND of its expressions (+ match_fields on
+    metadata.name). Terms are ORed."""
+
+    match_expressions: tuple[Requirement, ...] = ()
+    match_fields: tuple[Requirement, ...] = ()  # only metadata.name supported
+
+
+@dataclass(frozen=True)
+class NodeSelector:
+    """OR of terms (reference: k8s.io/api/core/v1 NodeSelector)."""
+
+    terms: tuple[NodeSelectorTerm, ...] = ()
+
+
+@dataclass(frozen=True)
+class PreferredSchedulingTerm:
+    weight: int  # 1..100
+    term: NodeSelectorTerm = NodeSelectorTerm()
+
+
+class TaintEffect(str, enum.Enum):
+    NO_SCHEDULE = "NoSchedule"
+    PREFER_NO_SCHEDULE = "PreferNoSchedule"
+    NO_EXECUTE = "NoExecute"
+
+
+@dataclass(frozen=True)
+class Taint:
+    key: str
+    value: str = ""
+    effect: TaintEffect = TaintEffect.NO_SCHEDULE
+
+
+class TolerationOperator(str, enum.Enum):
+    EXISTS = "Exists"
+    EQUAL = "Equal"
+
+
+@dataclass(frozen=True)
+class Toleration:
+    """Reference semantics (component-helpers/scheduling/corev1/helpers.go
+    Toleration.ToleratesTaint): empty key + Exists tolerates everything;
+    empty effect matches all effects."""
+
+    key: str = ""
+    operator: TolerationOperator = TolerationOperator.EQUAL
+    value: str = ""
+    effect: TaintEffect | None = None  # None = all effects
+    # v1 TolerationSeconds: how long a NoExecute taint is tolerated before
+    # eviction (None = forever; consumed by the tainteviction controller)
+    toleration_seconds: float | None = None
+
+
+@dataclass(frozen=True)
+class PodAffinityTerm:
+    """Reference: k8s.io/api/core/v1 PodAffinityTerm. The selector matches
+    labels of candidate (existing) pods; namespaces + namespace_selector pick
+    which namespaces those pods may live in (empty namespaces + None selector
+    = the incoming pod's own namespace)."""
+
+    topology_key: str
+    selector: LabelSelector | None = None
+    namespaces: tuple[str, ...] = ()
+    namespace_selector: LabelSelector | None = None  # None = no selector
+
+
+@dataclass(frozen=True)
+class WeightedPodAffinityTerm:
+    weight: int  # 1..100
+    term: PodAffinityTerm = None  # type: ignore[assignment]
+
+
+@dataclass(frozen=True)
+class PodAffinity:
+    required: tuple[PodAffinityTerm, ...] = ()
+    preferred: tuple[WeightedPodAffinityTerm, ...] = ()
+
+
+@dataclass(frozen=True)
+class NodeAffinity:
+    required: NodeSelector | None = None
+    preferred: tuple[PreferredSchedulingTerm, ...] = ()
+
+
+@dataclass(frozen=True)
+class Affinity:
+    node_affinity: NodeAffinity | None = None
+    pod_affinity: PodAffinity | None = None
+    pod_anti_affinity: PodAffinity | None = None
+
+
+class UnsatisfiableConstraintAction(str, enum.Enum):
+    DO_NOT_SCHEDULE = "DoNotSchedule"
+    SCHEDULE_ANYWAY = "ScheduleAnyway"
+
+
+@dataclass(frozen=True)
+class TopologySpreadConstraint:
+    """Reference: k8s.io/api/core/v1 TopologySpreadConstraint."""
+
+    max_skew: int
+    topology_key: str
+    when_unsatisfiable: UnsatisfiableConstraintAction
+    selector: LabelSelector | None = None
+    min_domains: int | None = None
+    # Honor|Ignore; reference defaults: nodeAffinityPolicy=Honor, nodeTaintsPolicy=Ignore
+    node_affinity_policy: str = "Honor"
+    node_taints_policy: str = "Ignore"
+    match_label_keys: tuple[str, ...] = ()
+
+
+@dataclass(frozen=True)
+class ContainerPort:
+    host_port: int
+    protocol: str = "TCP"
+    host_ip: str = ""
+
+
+@dataclass(frozen=True)
+class Pod:
+    """A pod as the scheduler sees it. ``requests`` is the aggregated resource
+    request (fit.go:317 semantics — aggregate with api.requests.pod_requests
+    if building from containers)."""
+
+    name: str
+    namespace: str = "default"
+    uid: str = ""
+    labels: tuple[tuple[str, str], ...] = ()
+    requests: tuple[tuple[str, int], ...] = ()  # canonical units, sorted
+    # NonZeroRequested scoring view (types.go:1035 CalculateResource). The
+    # 100mCPU/200MiB defaults are PER CONTAINER, so this must be aggregated
+    # from containers (api.requests.pod_nonzero_requests). None = derive from
+    # ``requests`` assuming a single container.
+    nonzero: tuple[tuple[str, int], ...] | None = None
+    node_name: str = ""          # assigned node ("" = pending)
+    node_selector: tuple[tuple[str, str], ...] = ()  # spec.nodeSelector (ANDed equality)
+    affinity: Affinity | None = None
+    tolerations: tuple[Toleration, ...] = ()
+    topology_spread_constraints: tuple[TopologySpreadConstraint, ...] = ()
+    priority: int = 0
+    ports: tuple[ContainerPort, ...] = ()
+    scheduling_gates: tuple[str, ...] = ()
+    images: tuple[str, ...] = ()          # container images, for ImageLocality
+    preemption_policy: str = "PreemptLowerPriority"  # or "Never"
+    creation_index: int = 0  # monotonic stand-in for creationTimestamp
+    # spec.schedulingGroup.podGroupName (core/v1 types.go:4641
+    # PodSchedulingGroup) — names a PodGroup in the pod's namespace; drives
+    # gang / workload-aware scheduling. "" = not a group member.
+    scheduling_group: str = ""
+    # spec.volumes, PVC references only (the volume plugin family)
+    volumes: tuple[PodVolume, ...] = ()
+    # spec.resourceClaims with template instances resolved to claim names
+    # (the DynamicResources plugin family)
+    resource_claims: tuple["PodResourceClaim", ...] = ()
+    # spec.schedulerName — selects the profile (profile.go:46 Map); pods
+    # naming an unknown profile are not this scheduler's to place
+    scheduler_name: str = "default-scheduler"
+    # status.phase slice (Pending/Running/Succeeded/Failed) — maintained by
+    # the node agent (kubetpu.kubelet), consumed by podgc
+    phase: str = "Pending"
+    # metadata.ownerReferences slice: the controller that stamped this pod
+    # ("kind/namespace/name"), consumed by replicaset adoption
+    owner: str = ""
+    # the feature set InferForPodScheduling derives from the spec
+    # (component-helpers/nodedeclaredfeatures) — explicit here because the
+    # envelope carries aggregated specs; NodeDeclaredFeatures Filter
+    # requires it to be a subset of the node's declared_features
+    required_node_features: tuple[str, ...] = ()
+    # restartPolicy: Never + finite workload (the batch/Job shape): the
+    # node agent transitions Running -> Succeeded instead of running forever
+    terminates: bool = False
+    # metadata.finalizers: a DELETE with finalizers present soft-deletes
+    # (deletion_timestamp set, object retained) until every finalizer is
+    # cleared — registry/store.go's graceful-deletion/finalizer gate; the
+    # Job controller's tracking finalizer rides this
+    finalizers: tuple[str, ...] = ()
+    # metadata.deletionTimestamp (epoch seconds): non-None = terminating;
+    # the node agent winds the pod down, and the store removes the object
+    # on the first update that sees finalizers empty
+    deletion_timestamp: float | None = None
+    # attribution-plane stamps, set ONCE by the apiserver at REST create
+    # (sched.flightrecorder): a trace id plus the create's perf_counter
+    # second — carried through the watch frame so the scheduler can charge
+    # api_ingest/e2e latency to the right pod. Zero values = never stamped
+    # (direct-mode harnesses feed the informer seam without an apiserver).
+    # perf_counter is PROCESS/HOST-monotonic: the stamp is only comparable
+    # when apiserver and scheduler share a host (the in-process stack);
+    # the recorder sanity-gates it and degrades to delivery-based
+    # attribution for a foreign clock domain. Neither field joins the
+    # encode signatures (encoder._static_*), so unique stamps cannot
+    # break template-keyed row sharing.
+    trace_id: str = ""
+    ingest_ts: float = 0.0
+
+    def labels_dict(self) -> dict[str, str]:
+        return dict(self.labels)
+
+    def requests_dict(self) -> dict[str, int]:
+        return dict(self.requests)
+
+    def nonzero_requests(self) -> dict[str, int]:
+        """The NonZeroRequested view used by resource *scoring* only
+        (pkg/scheduler/framework/types.go:1035, util/pod_resources.go)."""
+        if self.nonzero is not None:
+            return dict(self.nonzero)
+        out = dict(self.requests)
+        if out.get(CPU, 0) == 0:
+            out[CPU] = DEFAULT_MILLI_CPU_REQUEST
+        if out.get(MEMORY, 0) == 0:
+            out[MEMORY] = DEFAULT_MEMORY_REQUEST
+        return out
+
+    def with_node(self, node_name: str) -> "Pod":
+        return dataclasses.replace(self, node_name=node_name)
+
+
+@dataclass(frozen=True)
+class PodVolume:
+    """The scheduling slice of v1.Volume: only PVC references matter to the
+    volume plugins (volumezone/volume_zone.go Filter: 'Currently this is
+    only supported with PersistentVolumeClaims'); other volume sources are
+    node-agnostic."""
+
+    name: str
+    pvc_name: str = ""          # persistentVolumeClaim.claimName ("" = other source)
+    read_only: bool = False
+
+
+# v1.PersistentVolumeAccessMode values the restrictions/binding plugins read
+READ_WRITE_ONCE_POD = "ReadWriteOncePod"
+
+
+@dataclass(frozen=True)
+class PersistentVolume:
+    """The scheduling slice of v1.PersistentVolume: zone/region labels
+    (VolumeZone), spec.nodeAffinity.required (VolumeBinding bound-PV check),
+    class/capacity/access (the WaitForFirstConsumer binding search), the CSI
+    driver (NodeVolumeLimits counting), and the claim binding."""
+
+    name: str
+    labels: tuple[tuple[str, str], ...] = ()
+    node_affinity: NodeSelector | None = None
+    storage_class: str = ""
+    capacity: int = 0                           # storage bytes
+    access_modes: tuple[str, ...] = ()
+    claim_ref: str = ""                         # "ns/name" of bound PVC
+    driver: str = ""                            # CSI driver name
+
+    def labels_dict(self) -> dict[str, str]:
+        return dict(self.labels)
+
+
+@dataclass(frozen=True)
+class PersistentVolumeClaim:
+    """The scheduling slice of v1.PersistentVolumeClaim."""
+
+    name: str
+    namespace: str = "default"
+    volume_name: str = ""                       # bound PV ("" = unbound)
+    storage_class: str = ""
+    access_modes: tuple[str, ...] = ()
+    request: int = 0                            # requested storage bytes
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+# storagev1.VolumeBindingMode
+BINDING_IMMEDIATE = "Immediate"
+BINDING_WAIT_FOR_FIRST_CONSUMER = "WaitForFirstConsumer"
+
+# provisioner value that means "no dynamic provisioning"
+NO_PROVISIONER = "kubernetes.io/no-provisioner"
+
+
+@dataclass(frozen=True)
+class StorageClass:
+    """The scheduling slice of storagev1.StorageClass."""
+
+    name: str
+    binding_mode: str = BINDING_IMMEDIATE
+    provisioner: str = NO_PROVISIONER
+
+
+# --------------------------------------------------------------------------
+# Dynamic Resource Allocation (resource.k8s.io/v1 — GA in the 1.37 snapshot;
+# staging/src/k8s.io/api/resource/v1/types.go). The scheduling slice only:
+# device classes select devices via CEL, ResourceSlices publish per-node
+# device inventories, ResourceClaims request devices, and an allocation in
+# claim status pins the claim (and its pods) to a node.
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Device:
+    """One device in a ResourceSlice pool (resource/v1 types.go Device):
+    a name plus typed attributes (string/int/bool, qualified names) and
+    integer capacities."""
+
+    name: str
+    attributes: tuple[tuple[str, object], ...] = ()
+    capacity: tuple[tuple[str, int], ...] = ()
+
+    def attributes_dict(self) -> dict:
+        return dict(self.attributes)
+
+
+@dataclass(frozen=True)
+class CELSelector:
+    """DeviceSelector.cel.expression — a CEL expression over ``device``.
+    kubetpu evaluates the structured subset the in-tree perf/e2e configs
+    use (see state.dra.parse_cel); anything else fails loudly at
+    class/claim validation, like a CEL compile error in the reference."""
+
+    expression: str
+
+
+@dataclass(frozen=True)
+class DeviceClass:
+    """resource/v1 DeviceClass: named selector bundle
+    (dra/templates/deviceclass.yaml shape)."""
+
+    name: str
+    selectors: tuple[CELSelector, ...] = ()
+
+
+@dataclass(frozen=True)
+class ResourceSlice:
+    """resource/v1 ResourceSlice: one driver's device pool. Node-local
+    (``node_name``) is the common case; ``all_nodes`` / ``node_selector``
+    publish network-attached devices reachable from many nodes."""
+
+    name: str
+    driver: str
+    pool: str
+    node_name: str = ""
+    all_nodes: bool = False
+    node_selector: NodeSelector | None = None
+    devices: tuple[Device, ...] = ()
+
+
+@dataclass(frozen=True)
+class DeviceSubRequest:
+    """One alternative of a prioritized-list request
+    (DeviceRequest.firstAvailable, resource/v1 types.go)."""
+
+    name: str
+    device_class_name: str
+    selectors: tuple[CELSelector, ...] = ()
+    count: int = 1
+
+
+# resourceapi.FirstAvailableDeviceRequestMaxSize — the Score contribution of
+# choosing alternative i is (MAX - i) (dynamicresources.go computeScore)
+FIRST_AVAILABLE_MAX = 8
+
+
+@dataclass(frozen=True)
+class DeviceRequest:
+    """ResourceClaim spec.devices.requests[] — either ``exactly`` (class +
+    selectors + count | all) or a ``first_available`` prioritized list."""
+
+    name: str
+    device_class_name: str = ""
+    selectors: tuple[CELSelector, ...] = ()
+    count: int = 1
+    all_devices: bool = False          # allocationMode: All
+    first_available: tuple[DeviceSubRequest, ...] = ()
+
+
+@dataclass(frozen=True)
+class DeviceConstraint:
+    """spec.devices.constraints[]: all devices allocated for ``requests``
+    (empty = every request) must share the ``match_attribute`` value."""
+
+    match_attribute: str
+    requests: tuple[str, ...] = ()
+
+
+@dataclass(frozen=True)
+class DeviceResult:
+    """status.allocation.devices.results[] — one concrete device."""
+
+    request: str
+    driver: str
+    pool: str
+    device: str
+
+
+@dataclass(frozen=True)
+class ClaimAllocation:
+    """status.allocation: devices + the node the claim is usable from
+    ('' = available everywhere, the network-attached case)."""
+
+    node_name: str
+    results: tuple[DeviceResult, ...] = ()
+
+
+# resourceclaim.ReservedForMaxSize — max pods sharing one claim
+RESERVED_FOR_MAX = 256
+
+
+@dataclass(frozen=True)
+class ResourceClaim:
+    """resource/v1 ResourceClaim (scheduling slice): device requests +
+    constraints, and the allocation/reservedFor status the scheduler both
+    reads and (via Reserve/PreBind) writes."""
+
+    name: str
+    namespace: str = "default"
+    uid: str = ""
+    requests: tuple[DeviceRequest, ...] = ()
+    constraints: tuple[DeviceConstraint, ...] = ()
+    allocation: ClaimAllocation | None = None
+    reserved_for: tuple[str, ...] = ()   # pod uids
+    # owning pod ("Pod/<ns>/<name>") for template-stamped instances — the
+    # resourceclaim controller GCs claims whose pod is gone
+    owner: str = ""
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass(frozen=True)
+class PodResourceClaim:
+    """spec.resourceClaims[]: either a direct ``claim_name`` reference or a
+    ``template`` (resourceClaimTemplateName) the resourceclaim controller
+    resolves into a per-pod claim instance, recording the resolved name
+    here (status.resourceClaimStatuses)."""
+
+    name: str
+    claim_name: str = ""
+    template: str = ""
+
+
+@dataclass(frozen=True)
+class Service:
+    """The scheduling slice of v1.Service: its selector feeds the DEFAULT
+    PodTopologySpread constraints (component-helpers DefaultSelector merges
+    the selectors of services/controllers owning the pod;
+    podtopologyspread/common.go:62 buildDefaultConstraints)."""
+
+    name: str
+    namespace: str = "default"
+    selector: tuple[tuple[str, str], ...] = ()
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass(frozen=True)
+class GangPolicy:
+    """GangSchedulingPolicy (scheduling/v1alpha3 types.go:237): the group is
+    admitted only when ``min_count`` pods can be scheduled together."""
+
+    min_count: int = 1
+
+
+@dataclass(frozen=True)
+class PodGroup:
+    """The scheduling slice of scheduling/v1alpha3 PodGroup (types.go:339):
+    gang policy + topology constraint keys (SchedulingConstraints.Topology,
+    types.go:595 — all pods of the group colocate within one domain of each
+    key; currently a single key, like the reference)."""
+
+    name: str
+    namespace: str = "default"
+    gang: GangPolicy | None = None
+    topology_keys: tuple[str, ...] = ()
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass(frozen=True)
+class ResourceClaimTemplate:
+    """resource/v1 ResourceClaimTemplate: the claim spec to stamp per pod
+    (dra/templates/resourceclaimtemplate.yaml shape)."""
+
+    name: str
+    namespace: str = "default"
+    requests: tuple[DeviceRequest, ...] = ()
+    constraints: tuple[DeviceConstraint, ...] = ()
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass(frozen=True)
+class StatefulSet:
+    """The slice of apps/v1 StatefulSet the control loop consumes: stable
+    ordinal identities (<name>-0 … <name>-N−1), ordered scale-up (pod i
+    waits for pod i−1 Running) and reverse-ordered scale-down
+    (pkg/controller/statefulset's OrderedReady management policy)."""
+
+    name: str
+    namespace: str = "default"
+    replicas: int = 1
+    selector: LabelSelector | None = None
+    template: "Pod | None" = None
+    pod_management_policy: str = "OrderedReady"   # or "Parallel"
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass(frozen=True)
+class Job:
+    """The slice of batch/v1 Job the control loop consumes: desired
+    completions under a parallelism bound, a backoff limit on failures,
+    and the derived status (pkg/controller/job syncJob's inputs/outputs)."""
+
+    name: str
+    namespace: str = "default"
+    completions: int = 1
+    parallelism: int = 1
+    backoff_limit: int = 6
+    template: "Pod | None" = None
+    # status (written by the controller)
+    succeeded: int = 0
+    failed: int = 0
+    complete: bool = False
+    failed_state: bool = False
+    # uncountedTerminatedPods (batch/v1 JobStatus): pod keys whose
+    # termination is COUNTED in succeeded/failed but whose objects may not
+    # be removed yet — the exactly-once bridge across controller restarts
+    uncounted: tuple[str, ...] = ()
+    # spec.ttlSecondsAfterFinished (ttlafterfinished controller): delete
+    # the Job this long after it finishes; None = keep forever
+    ttl_seconds_after_finished: float | None = None
+    # status.completionTime (epoch seconds), stamped when complete/failed
+    completion_time: float | None = None
+    # owning controller ("CronJob/<ns>/<name>"), "" = standalone
+    owner: str = ""
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass(frozen=True)
+class CronJob:
+    """The slice of batch/v1 CronJob the control loop consumes: a 5-field
+    cron ``schedule`` stamping Job instances (pkg/controller/cronjob
+    ``syncCronJob``), a ``suspend`` gate, and concurrency policy (Allow |
+    Forbid | Replace)."""
+
+    name: str
+    namespace: str = "default"
+    schedule: str = "* * * * *"
+    suspend: bool = False
+    concurrency_policy: str = "Allow"     # Allow | Forbid | Replace
+    # the Job prototype (spec.jobTemplate)
+    completions: int = 1
+    parallelism: int = 1
+    backoff_limit: int = 6
+    ttl_seconds_after_finished: float | None = None
+    template: "Pod | None" = None
+    # status
+    last_schedule_time: float | None = None
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass(frozen=True)
+class ResourceQuota:
+    """core/v1 ResourceQuota slice: per-namespace hard caps on object
+    counts and aggregate resource requests (pkg/controller/resourcequota
+    recomputes ``used``; the apiserver's quota admission rejects writes
+    that would exceed ``hard``)."""
+
+    name: str
+    namespace: str = "default"
+    hard: tuple[tuple[str, int], ...] = ()   # "pods" | "requests.cpu" | "requests.memory"
+    used: tuple[tuple[str, int], ...] = ()
+
+    def hard_dict(self) -> dict[str, int]:
+        return dict(self.hard)
+
+    def used_dict(self) -> dict[str, int]:
+        return dict(self.used)
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass(frozen=True)
+class Deployment:
+    """The scheduling-relevant slice of apps/v1 Deployment: desired
+    replicas, selector, pod template, and the rollout strategy knobs
+    (pkg/controller/deployment rolling.go consumes maxSurge /
+    maxUnavailable)."""
+
+    name: str
+    namespace: str = "default"
+    replicas: int = 1
+    selector: LabelSelector | None = None
+    template: "Pod | None" = None
+    strategy: str = "RollingUpdate"      # or "Recreate"
+    max_surge: int = 1
+    max_unavailable: int = 0
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass(frozen=True)
+class NodeHeartbeat:
+    """The coordination.k8s.io Lease slice kubelets renew per node
+    (pkg/kubelet/nodelease; consumed by the nodelifecycle controller)."""
+
+    node_name: str
+    renew_time: float
+
+
+@dataclass(frozen=True)
+class LeaderElectionRecord:
+    """The coordination Lease slice leader election CASes
+    (client-go tools/leaderelection LeaderElectionRecord)."""
+
+    holder_identity: str
+    lease_duration_s: float
+    acquire_time: float
+    renew_time: float
+    leader_transitions: int = 0
+
+
+@dataclass(frozen=True)
+class ReplicaSet:
+    """The scheduling-relevant slice of apps/v1 ReplicaSet: desired replica
+    count, the selector that claims pods, and the pod template to stamp
+    (pkg/controller/replicaset syncReplicaSet's inputs)."""
+
+    name: str
+    namespace: str = "default"
+    replicas: int = 1
+    selector: LabelSelector | None = None
+    template: "Pod | None" = None     # prototype; name/uid/owner stamped
+    # the owning controller ("Deployment/<ns>/<name>"), "" = standalone
+    owner: str = ""
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass(frozen=True)
+class Event:
+    """events.k8s.io/v1 Event (the slice the control plane emits):
+    what happened (``reason``/``note``/``type``) to which object
+    (``regarding`` — "Kind/<ns>/<name>"), reported by whom, how many times
+    (series aggregation — client-go tools/events' EventSeries)."""
+
+    name: str
+    namespace: str = "default"
+    regarding: str = ""                   # "Kind/<ns>/<name>"
+    reason: str = ""                      # e.g. "Scheduled", "FailedScheduling"
+    note: str = ""
+    type: str = "Normal"                  # Normal | Warning
+    reporting_controller: str = ""
+    count: int = 1
+    first_timestamp: float = 0.0
+    last_timestamp: float = 0.0
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass(frozen=True)
+class DaemonSet:
+    """The slice of apps/v1 DaemonSet the control loop consumes: one pod
+    per eligible node (pkg/controller/daemon daemon_controller.go
+    ``nodeShouldRunDaemonPod``). Daemon pods are scheduled by the default
+    scheduler pinned via required node affinity on ``metadata.name`` —
+    the reference's post-1.12 shape (util.ReplaceDaemonSetPodNodeName-
+    NodeAffinity)."""
+
+    name: str
+    namespace: str = "default"
+    selector: LabelSelector | None = None
+    template: "Pod | None" = None
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass(frozen=True)
+class Namespace:
+    """The slice of v1.Namespace affinity needs: its labels, matched by
+    PodAffinityTerm.namespace_selector (framework/types.go
+    AffinityTerm.Matches takes nsLabels)."""
+
+    name: str
+    labels: tuple[tuple[str, str], ...] = ()
+
+    def labels_dict(self) -> dict[str, str]:
+        return dict(self.labels)
+
+
+@dataclass(frozen=True)
+class PodDisruptionBudget:
+    """The slice of policy/v1 PodDisruptionBudget preemption consumes
+    (framework/plugins/defaultpreemption/default_preemption.go:406
+    filterPodsWithPDBViolation): namespace-scoped label selector,
+    ``status.disruptionsAllowed``, and ``status.disruptedPods`` (victims
+    already processed by the API server don't double-count)."""
+
+    name: str
+    namespace: str = "default"
+    selector: LabelSelector | None = None
+    disruptions_allowed: int = 0
+    disrupted_pods: tuple[str, ...] = ()
+    # spec (policy/v1): exactly one of the two; the disruption controller
+    # derives status.disruptionsAllowed from it
+    min_available: int | None = None
+    max_unavailable: int | None = None
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass(frozen=True)
+class ImageState:
+    """Summary of one image on a node (fwk.ImageStateSummary)."""
+
+    size_bytes: int
+    num_nodes: int = 1
+
+
+@dataclass(frozen=True)
+class Node:
+    name: str
+    labels: tuple[tuple[str, str], ...] = ()
+    allocatable: tuple[tuple[str, int], ...] = ()  # includes "pods" count
+    taints: tuple[Taint, ...] = ()
+    unschedulable: bool = False
+    images: tuple[tuple[str, ImageState], ...] = ()
+    # status.declaredFeatures (core/v1 types.go:6828, +featureGate=
+    # NodeDeclaredFeatures): kubelet-declared feature names
+    declared_features: tuple[str, ...] = ()
+
+    def labels_dict(self) -> dict[str, str]:
+        return dict(self.labels)
+
+    def allocatable_dict(self) -> dict[str, int]:
+        return dict(self.allocatable)
+
+
+def freeze_map(m: Mapping[str, int] | Mapping[str, str] | None):
+    return tuple(sorted((m or {}).items()))

@@ -1,0 +1,181 @@
+# Port copy of kubetpu/api/wrappers.py, verbatim apart from this note (no JAX in it).
+"""Object builders for tests and workloads — the analog of
+``pkg/scheduler/testing/wrappers.go``."""
+
+from __future__ import annotations
+
+from typing import Mapping, Sequence
+
+from . import types as t
+from .requests import pod_nonzero_requests, pod_requests
+
+
+def make_node(
+    name: str,
+    cpu_milli: int = 4000,
+    memory: int = 16 * 1024**3,
+    pods: int = 110,
+    ephemeral: int = 0,
+    labels: Mapping[str, str] | None = None,
+    taints: Sequence[t.Taint] = (),
+    extended: Mapping[str, int] | None = None,
+    unschedulable: bool = False,
+    images: Mapping[str, t.ImageState] | None = None,
+    declared_features: Sequence[str] = (),
+) -> t.Node:
+    alloc: dict[str, int] = {t.CPU: cpu_milli, t.MEMORY: memory, t.PODS: pods}
+    if ephemeral:
+        alloc[t.EPHEMERAL_STORAGE] = ephemeral
+    for k, v in (extended or {}).items():
+        alloc[k] = v
+    return t.Node(
+        name=name,
+        labels=t.freeze_map(labels),
+        allocatable=t.freeze_map(alloc),
+        declared_features=tuple(sorted(declared_features)),
+        taints=tuple(taints),
+        unschedulable=unschedulable,
+        images=tuple(sorted((images or {}).items())),
+    )
+
+
+def make_pod(
+    name: str,
+    namespace: str = "default",
+    cpu_milli: int = 0,
+    memory: int = 0,
+    labels: Mapping[str, str] | None = None,
+    requests: Mapping[str, int] | None = None,
+    containers: Sequence[Mapping[str, int]] | None = None,
+    init_containers: Sequence[Mapping[str, int]] = (),
+    init_restartable: Sequence[bool] | None = None,
+    overhead: Mapping[str, int] | None = None,
+    node_name: str = "",
+    node_selector: Mapping[str, str] | None = None,
+    affinity: t.Affinity | None = None,
+    tolerations: Sequence[t.Toleration] = (),
+    spread: Sequence[t.TopologySpreadConstraint] = (),
+    priority: int = 0,
+    host_ports: Sequence[int] = (),
+    protocols: Sequence[str] = (),
+    gates: Sequence[str] = (),
+    images: Sequence[str] = (),
+    creation_index: int = 0,
+    preemption_policy: str = "PreemptLowerPriority",
+    scheduling_group: str = "",
+    pvcs: Sequence[str] = (),
+    claims: Sequence[str] = (),
+    required_features: Sequence[str] = (),
+    scheduler_name: str = "default-scheduler",
+) -> t.Pod:
+    nonzero = None
+    if containers is not None:
+        req = pod_requests(
+            containers, init_containers, overhead,
+            init_restartable=init_restartable,
+        )
+        nonzero = t.freeze_map(
+            pod_nonzero_requests(
+                containers, init_containers, overhead,
+                init_restartable=init_restartable,
+            )
+        )
+    else:
+        req = dict(requests or {})
+        if cpu_milli:
+            req[t.CPU] = cpu_milli
+        if memory:
+            req[t.MEMORY] = memory
+    ports = tuple(
+        t.ContainerPort(host_port=p, protocol=(protocols[i] if i < len(protocols) else "TCP"))
+        for i, p in enumerate(host_ports)
+    )
+    return t.Pod(
+        name=name,
+        namespace=namespace,
+        uid=f"{namespace}/{name}",
+        labels=t.freeze_map(labels),
+        requests=t.freeze_map(req),
+        nonzero=nonzero,
+        node_name=node_name,
+        node_selector=t.freeze_map(node_selector),
+        affinity=affinity,
+        tolerations=tuple(tolerations),
+        topology_spread_constraints=tuple(spread),
+        priority=priority,
+        ports=ports,
+        scheduling_gates=tuple(gates),
+        images=tuple(images),
+        creation_index=creation_index,
+        preemption_policy=preemption_policy,
+        scheduling_group=scheduling_group,
+        volumes=tuple(
+            t.PodVolume(name=f"vol-{i}", pvc_name=c)
+            for i, c in enumerate(pvcs)
+        ),
+        resource_claims=tuple(
+            t.PodResourceClaim(name=f"claim-{i}", claim_name=c)
+            for i, c in enumerate(claims)
+        ),
+        required_node_features=tuple(sorted(required_features)),
+        scheduler_name=scheduler_name,
+    )
+
+
+def make_pod_group(
+    name: str,
+    namespace: str = "default",
+    min_count: int | None = None,
+    topology_keys: Sequence[str] = (),
+) -> t.PodGroup:
+    """A PodGroup with an optional gang policy (min_count) and topology
+    constraint keys (scheduling/v1alpha3 PodGroupSpec)."""
+    return t.PodGroup(
+        name=name,
+        namespace=namespace,
+        gang=t.GangPolicy(min_count=min_count) if min_count else None,
+        topology_keys=tuple(topology_keys),
+    )
+
+
+def req_in(key: str, *values: str) -> t.Requirement:
+    return t.Requirement(key, t.Operator.IN, tuple(values))
+
+
+def req_exists(key: str) -> t.Requirement:
+    return t.Requirement(key, t.Operator.EXISTS)
+
+
+def node_affinity_required(*terms: t.NodeSelectorTerm) -> t.Affinity:
+    return t.Affinity(node_affinity=t.NodeAffinity(required=t.NodeSelector(tuple(terms))))
+
+
+def pod_affinity_term(
+    topology_key: str,
+    match_labels: Mapping[str, str] | None = None,
+    exprs: Sequence[t.Requirement] = (),
+    namespaces: Sequence[str] = (),
+    namespace_selector: t.LabelSelector | None = None,
+) -> t.PodAffinityTerm:
+    return t.PodAffinityTerm(
+        topology_key=topology_key,
+        selector=t.LabelSelector.of(match_labels, exprs),
+        namespaces=tuple(namespaces),
+        namespace_selector=namespace_selector,
+    )
+
+
+def spread_constraint(
+    max_skew: int,
+    topology_key: str,
+    when: t.UnsatisfiableConstraintAction = t.UnsatisfiableConstraintAction.DO_NOT_SCHEDULE,
+    match_labels: Mapping[str, str] | None = None,
+    min_domains: int | None = None,
+) -> t.TopologySpreadConstraint:
+    return t.TopologySpreadConstraint(
+        max_skew=max_skew,
+        topology_key=topology_key,
+        when_unsatisfiable=when,
+        selector=t.LabelSelector.of(match_labels),
+        min_domains=min_domains,
+    )

@@ -1,0 +1,102 @@
+"""Greedy assignment: pods one at a time against the running node state.
+
+Port of ``kubetpu/assign/greedy.py``. The reference runs the greedy scan as
+one ``lax.scan`` that XLA fuses into a single device program. Eager
+PyTorch would split each step into dozens of launches, so on a CUDA batch
+``greedy_assign_device`` launches the hand-written ``greedy_scan`` kernel
+(``kernels/csrc/greedy_scan.cu``): one persistent block that loops over the
+pods on the device. ``greedy_assign_plain`` is the plain PyTorch version,
+a Python loop over pods that calls ``feasible_and_scores`` for one pod
+against the running state; it is what a CPU batch runs and what the
+kernel is held to.
+
+The reference schedules pods strictly one at a time: ``scheduleOne`` pops a
+pod, filters + scores all nodes against the *current* cache (which includes
+all previously assumed pods), picks the best node (``selectHost``,
+schedule_one.go:605), and assumes the pod onto it (cache.AssumePod,
+backend/cache/cache.go:397) before the next pod starts.
+
+Tie-breaking: the reference picks uniformly at random among max-score nodes
+(schedule_one.go:1037 reservoir sample). kubetpu and this port take the
+FIRST max-score node in snapshot order — deterministic and replayable.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..framework import runtime as rt
+
+
+def _pod_view(b: rt.DeviceBatch, i: int) -> rt.DeviceBatch:
+    """P=1 view of pod ``i`` over the same nodes."""
+
+    def row(a):
+        return None if a is None else a[i:i + 1]
+
+    return dataclasses.replace(
+        b,
+        requests=b.requests[i:i + 1],
+        nonzero_requests=b.nonzero_requests[i:i + 1],
+        pod_valid=b.pod_valid[i:i + 1],
+        static_sig=row(b.static_sig),
+        score_sig=row(b.score_sig),
+        image_sig=row(b.image_sig),
+        image_count=row(b.image_count),
+        pod_ports=b.pod_ports[i:i + 1],
+        pod_priority=row(b.pod_priority),
+    )
+
+
+def greedy_assign_plain(b: rt.DeviceBatch, params: rt.ScoreParams):
+    """The plain PyTorch greedy loop. Returns ``(assignments (P,) int32 node
+    index or -1, final_state)``; ``final_state`` has the reference's seven
+    slots ``(requested, nonzero_requested, pod_count, node_ports,
+    spread_counts, pa_sums, nominated_active)``, the last three None in this
+    slice. Runs on whatever device ``b`` lives on, with no host sync inside
+    the loop."""
+    n = b.alloc.shape[0]
+    node_iota = torch.arange(n, dtype=torch.int32, device=b.device)
+    requested = b.requested
+    nonzero = b.nonzero_requested
+    pod_count = b.pod_count
+    node_ports = b.node_ports
+    chosen_all = []
+    for i in range(b.requests.shape[0]):
+        view = _pod_view(b, i)
+        mask, score = rt.feasible_and_scores(
+            view, params,
+            requested=requested, nonzero_requested=nonzero,
+            pod_count=pod_count, node_ports=node_ports,
+        )
+        mask, score = mask[0], score[0]
+        feasible = torch.any(mask)
+        best = torch.argmax(torch.where(mask, score, -1)).to(torch.int32)
+        chosen = torch.where(feasible, best, -1).to(torch.int32)
+        onehot = (node_iota == chosen) & feasible           # (N,) bool
+        oh64 = onehot.to(torch.int64)[:, None]
+        requested = requested + oh64 * view.requests[0][None, :]
+        nonzero = nonzero + oh64 * view.nonzero_requests[0][None, :]
+        pod_count = pod_count + onehot.to(pod_count.dtype)
+        node_ports = node_ports | (onehot[:, None] & view.pod_ports[0][None, :])
+        chosen_all.append(chosen)
+    assignments = (
+        torch.stack(chosen_all) if chosen_all
+        else torch.empty(0, dtype=torch.int32, device=b.device)
+    )
+    return assignments, (
+        requested, nonzero, pod_count, node_ports, None, None, None,
+    )
+
+
+def greedy_assign_device(b: rt.DeviceBatch, params: rt.ScoreParams):
+    """Run the greedy assignment. A CUDA batch launches the ``greedy_scan``
+    kernel; a CPU batch runs ``greedy_assign_plain``. Same return shape as
+    ``greedy_assign_plain``."""
+    if b.device.type == "cpu":
+        return greedy_assign_plain(b, params)
+    from ..kernels import greedy_scan
+
+    return greedy_scan(b, params)

@@ -1,0 +1,35 @@
+"""``python -m kubetpu_torch.perf``: run one scheduler_perf workload in
+direct mode and print its result as one JSON line.
+
+    python -m kubetpu_torch.perf --case SchedulingBasic \\
+        --workload 5000Nodes_10000Pods [--device cuda] [--max-batch 1024]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+from . import TEST_CASES, run_workload
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m kubetpu_torch.perf")
+    ap.add_argument("--case", default="SchedulingBasic", choices=sorted(TEST_CASES))
+    ap.add_argument("--workload", default="5000Nodes_10000Pods")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--max-batch", type=int, default=1024)
+    return ap
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    res = run_workload(
+        args.case, args.workload, device=args.device, max_batch=args.max_batch
+    )
+    print(json.dumps(res.to_json()))
+    return 0 if res.scheduled == res.measure_pods else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,214 @@
+"""scheduler_perf runner — drive the port's scheduler loop through an op list.
+
+Reduced fork of ``kubetpu/perf/runner.py``: the direct mode only (no HTTP
+apiserver, no churn, no federation), for the ops of the slice's workloads.
+The op lists drive the port's ``Scheduler`` through its informer seam, as
+the reference's direct mode drives kubetpu's.
+
+Throughput definition: measured-phase scheduled pods / measured-phase wall
+seconds — the average the reference's threshold selector asserts on
+(scheduler_perf.go:352-359 "SchedulingThroughput / Average").
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+from dataclasses import dataclass, field
+from typing import Callable
+
+import torch
+
+from ..api import types as t
+from ..framework import config as C
+from ..sched.scheduler import Scheduler
+from . import workloads as W
+
+
+@dataclass
+class WorkloadResult:
+    case_name: str
+    workload_name: str
+    threshold: float | None
+    device: str                       # where the device work ran
+    measure_pods: int
+    scheduled: int                    # measured pods bound in the window
+    duration_s: float
+    throughput: float                 # pods/s, the SchedulingThroughput avg
+    attempts: int
+    cycles: int
+    bound_total: int = 0              # every pod bound over the run
+    # mean wall ms per measured cycle of each region (Scheduler.CycleTiming)
+    cycle_ms: dict = field(default_factory=dict)
+    upload_bytes_per_cycle: float = 0.0
+
+    def to_json(self) -> dict:
+        return {
+            "case": self.case_name, "workload": self.workload_name,
+            "device": self.device, "measure_pods": self.measure_pods,
+            "scheduled": self.scheduled, "bound_total": self.bound_total,
+            "duration_s": self.duration_s, "pods_per_s": self.throughput,
+            "threshold": self.threshold, "attempts": self.attempts,
+            "cycles": self.cycles, "cycle_ms": self.cycle_ms,
+            "upload_bytes_per_cycle": self.upload_bytes_per_cycle,
+        }
+
+
+class _Client:
+    """API-server stand-in: binds land here and feed the informer handlers
+    back on the loop thread via a pending queue (the watch-event delivery
+    the reference gets from the apiserver)."""
+
+    def __init__(self) -> None:
+        self.sched: Scheduler | None = None
+        self.bound: list[tuple[str, str]] = []
+        self._events: collections.deque = collections.deque()
+        # bind-time counts per namespace: the throughput collector's view
+        self.bound_by_ns: collections.Counter = collections.Counter()
+
+    def bind(self, pod: t.Pod, node_name: str) -> None:
+        self.bound.append((pod.name, node_name))
+        self.bound_by_ns[pod.namespace] += 1
+        self._events.append((pod, pod.with_node(node_name)))
+
+    def patch_status(self, pod: t.Pod, reason: str, message: str = "") -> None:
+        pass
+
+    def deliver(self) -> None:
+        """Drain informer events (bind echoes) on the loop thread."""
+        while self._events:
+            old, new = self._events.popleft()
+            self.sched.on_pod_update(old, new)
+
+
+def _cycle_ms(timings: list) -> dict:
+    if not timings:
+        return {}
+    n = len(timings)
+    return {
+        region: 1e3 * sum(getattr(c, region + "_s") for c in timings) / n
+        for region in ("snapshot", "encode", "upload", "kernel", "bind")
+    }
+
+
+def run_workload(
+    case: W.TestCase | str,
+    workload: W.Workload | str,
+    device="cuda",
+    max_batch: int = 1024,
+    profile: C.Profile | None = None,
+    timeout_s: float = 1800.0,
+    stall_s: float = 15.0,
+    on_scheduler: Callable[[Scheduler], None] | None = None,
+) -> WorkloadResult:
+    """Execute one (test case, workload) pair in direct mode on ``device``
+    and return the measurement. ``stall_s`` is how long zero progress must
+    persist before a phase gives up. The kernels are built before the
+    measured phase starts (``Scheduler.warmup``). ``on_scheduler`` is
+    called once with the run's Scheduler before any op runs, so a caller
+    can inspect it during and after the run."""
+    if isinstance(case, str):
+        case = W.TEST_CASES[case]
+    if isinstance(workload, str):
+        workload = next(w for w in case.workloads if w.name == workload)
+    params = dict(workload.params)
+
+    client = _Client()
+    sched = Scheduler(
+        client, profile=profile or C.Profile(), max_batch=max_batch,
+        device=device,
+    )
+    client.sched = sched
+    if on_scheduler is not None:
+        on_scheduler(sched)
+
+    measured = 0
+    duration = 0.0
+    attempts0 = cycles0 = timings0 = 0
+    op_ns_counter = 0
+
+    def settle(target: int, namespaces: tuple[str, ...] = ()) -> tuple[int, float]:
+        """Run cycles until ``target`` pods of the op's ``namespaces`` are
+        BOUND (or stall). Returns (bound, wall seconds)."""
+
+        def bound_now() -> int:
+            return sum(client.bound_by_ns[ns] for ns in namespaces)
+
+        start = bound_now()
+        done = 0
+        t0 = time.perf_counter()
+        deadline = t0 + timeout_s
+        last_progress = t0
+        while done < target:
+            now = time.perf_counter()
+            if now > deadline:
+                break
+            res = sched.schedule_batch()
+            client.deliver()
+            before = done
+            done = bound_now() - start
+            if done == before and res["scheduled"] == 0:
+                # pods may simply be in backoff (max 10 s by default): only
+                # a sustained quiet period is a real stall
+                if now - last_progress > stall_s:
+                    break
+                time.sleep(0.005)
+            else:
+                last_progress = now
+        return done, time.perf_counter() - t0
+
+    for op_i, op in enumerate(case.ops):
+        if isinstance(op, W.CreateNodesOp):
+            n = op.count or params[op.count_param]
+            factory = op.template or W.node_default
+            for i in range(n):
+                sched.on_node_add(factory(i, op.zones))
+        elif isinstance(op, W.CreatePodsOp):
+            count = params[op.count_param]
+            template = op.template or case.default_pod_template
+            ns = op.namespace or f"namespace-{op_ns_counter}"
+            op_ns_counter += 1
+            prefix = f"{'measure' if op.collect_metrics else 'init'}-{op_i}"
+            if op.collect_metrics:
+                sched.warmup()
+                attempts0 = sched.metrics.schedule_attempts
+                cycles0 = sched.metrics.cycles
+                timings0 = len(sched.metrics.cycle_timings)
+            for j in range(count):
+                sched.on_pod_add(template(f"{prefix}-{ns}-{j}", ns))
+            if op.skip_wait:
+                continue
+            done, secs = settle(count, (ns,))
+            if op.collect_metrics:
+                measured += done
+                duration += secs
+        else:
+            raise TypeError(f"op {op!r} is not in the port's first slice")
+
+    client.deliver()
+    timings = sched.metrics.cycle_timings[timings0:]
+    result = WorkloadResult(
+        case_name=case.name,
+        workload_name=workload.name,
+        threshold=workload.threshold,
+        device=(
+            torch.cuda.get_device_name(sched.device)
+            if sched.device.type == "cuda" else str(sched.device)
+        ),
+        measure_pods=sum(
+            params[op.count_param]
+            for op in case.ops
+            if isinstance(op, W.CreatePodsOp) and op.collect_metrics
+        ),
+        scheduled=measured,
+        bound_total=len(client.bound),
+        duration_s=duration,
+        throughput=measured / duration if duration > 0 else 0.0,
+        attempts=sched.metrics.schedule_attempts - attempts0,
+        cycles=sched.metrics.cycles - cycles0,
+        cycle_ms=_cycle_ms(timings),
+        upload_bytes_per_cycle=(
+            sum(c.upload_bytes for c in timings) / len(timings) if timings else 0.0
+        ),
+    )
+    return result

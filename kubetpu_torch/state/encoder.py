@@ -1,0 +1,1189 @@
+# Port copy of kubetpu/state/encoder.py, verbatim apart from this note (no JAX in it).
+"""Snapshot → tensor encoding (the tensorization layer, SURVEY §7.2).
+
+Replaces the reference's per-node object walks with a two-step scheme:
+
+1. **Host (numpy)**: label keys/values, taints, ports and selectors are
+   interned (``Vocab``); every *distinct* selector/toleration/port signature
+   among the pending pods is evaluated once against all N nodes, vectorized
+   over nodes, yielding per-signature ``(N,)`` masks. Pods gather their
+   signature's mask — O(distinct_signatures × N), not O(pods × N) Python.
+2. **Device (jnp)**: only integer/bool tensors cross the host↔device
+   boundary: ``(N, R)`` allocatable/requested, ``(P, R)`` requests, ``(P, N)``
+   static masks and static score addends. The dynamic kernels (resource fit,
+   spread, inter-pod affinity) run entirely on device.
+
+This file covers the *static* per-pod-per-node facts:
+  - NodeName        (schedule_one's trivial predicate)
+  - NodeUnschedulable (plugins/nodeunschedulable — toleration-aware)
+  - TaintToleration Filter + Score raw counts (plugins/tainttoleration)
+  - NodeAffinity Filter (required) + Score raw weights (plugins/nodeaffinity)
+  - spec.nodeSelector (part of NodeAffinity plugin's Filter)
+plus the NodePorts *dynamic*-filter tensors (interned port triples + conflict
+matrix — usage evolves as the batch assigns pods, so the conflict check runs
+on device, not here). Resource tensors for NodeResourcesFit/LeastAllocated/
+BalancedAllocation are encoded here too; their kernels live in ``kubetpu.ops``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Sequence
+
+import numpy as np
+
+from .. import names
+from ..api import types as t
+from ..api.selectors import (
+    count_intolerable_prefer_no_schedule,
+    find_untolerated_taint,
+    node_selector_term_matches,
+    requirement_matches,
+    tolerates,
+)
+from .snapshot import NodeInfo, Snapshot
+from .vocab import Vocab
+
+BASE_RESOURCES = (t.CPU, t.MEMORY, t.EPHEMERAL_STORAGE)
+
+# the default static-score plugin set (profile=None callers)
+DEFAULT_SCORES = frozenset({names.NODE_AFFINITY, names.TAINT_TOLERATION})
+
+_UNSCHEDULABLE_TAINT = t.Taint(
+    key="node.kubernetes.io/unschedulable", effect=t.TaintEffect.NO_SCHEDULE
+)
+
+
+def round_up(n: int, minimum: int = 8) -> int:
+    """Pad to a compile-cache bucket (XLA static shapes; SURVEY §7 'Hard
+    parts: dynamic shapes'): next power of two up to 1024, then next multiple
+    of 1024 — power-of-two padding wastes up to 2× compute at cluster scale
+    (10k pods → 16384 scan steps), and the cache-hit benefit saturates once
+    shapes are large."""
+    v = minimum
+    while v < n and v < 1024:
+        v <<= 1
+    if n <= v:
+        return v
+    return (n + 1023) // 1024 * 1024
+
+
+def shard_aligned(n: int, multiple: int) -> int:
+    """Round a padded node capacity up to a per-shard bucket boundary: a
+    mesh of ``multiple`` shards needs capacity % multiple == 0 or the
+    sharded resident block degrades to replication. ONE place computes
+    this (runtime.encode_batch_static and the bench's capacity planner
+    both call it), so a mesh's bucket padding can never disagree with the
+    encoder's — at 100k nodes a mismatched bucket re-pads ~100 MB of
+    node-axis tensors per cycle."""
+    if multiple <= 1:
+        return n
+    return (n + multiple - 1) // multiple * multiple
+
+
+def bucket_ladder(n: int, minimum: int = 8) -> list[int]:
+    """Every padded size ``round_up`` can produce for inputs in [1, n] —
+    the compile-cache bucket ladder. Warming all of them at startup means a
+    churning queue (whose batch sizes wander the ladder) never pays XLA
+    compilation mid-cycle."""
+    top = round_up(n, minimum)
+    out = [minimum]
+    while out[-1] < top:
+        v = out[-1]
+        out.append(v << 1 if v < 1024 else v + 1024)
+    return out
+
+
+def resource_axis(snapshot: Snapshot, pods: Sequence[t.Pod]) -> list[str]:
+    """Fixed resource vocabulary: base resources then sorted scalars seen in
+    node allocatable or pod requests."""
+    scalars: set[str] = set()
+    for info in snapshot.nodes.values():
+        for k, _ in info.node.allocatable:
+            if k not in BASE_RESOURCES and k != t.PODS:
+                scalars.add(k)
+    for p in pods:
+        for k, _ in p.requests:
+            if k not in BASE_RESOURCES and k != t.PODS:
+                scalars.add(k)
+    return list(BASE_RESOURCES) + sorted(scalars)
+
+
+# singleton scalars stay dense while few (cheap; preserves full preemption
+# semantics for the common handful-of-scalar-types cluster); past this many
+# distinct singletons they ALL fold, keeping the resource axis STABLE
+# across cycles (a per-cycle-varying axis would defeat encode_snapshot's
+# prev-row reuse in exactly the per-node-unique workload folding targets)
+FOLD_SINGLETON_THRESHOLD = 8
+
+
+def batch_resource_axis(
+    snapshot: Snapshot, pods: Sequence[t.Pod]
+) -> tuple[list[str], frozenset]:
+    """The BATCH's resource axis: base resources plus the scalars the batch
+    actually requests (node-advertised-but-unrequested scalars never enter a
+    fit comparison, so they would be dead columns — the DRA/extended
+    per-node-unique resource shape advertises thousands).
+
+    Returns ``(resource_names, folded)``: when a batch carries more than
+    FOLD_SINGLETON_THRESHOLD distinct single-pod scalars, every singleton
+    folds into the static mask — a singleton has no in-batch capacity
+    contention by construction, so its availability check is a pure static
+    per-node mask (encode_pod_batch), and the dense axis (base + multi-pod
+    scalars) stays identical cycle to cycle. Known deviation: a pod blocked
+    ONLY on a folded resource reads as statically infeasible, so preemption
+    won't hunt victims for it (the reference can preempt to free extended
+    resources); multi-pod scalars always keep full dense preemption
+    semantics.
+    """
+    import collections
+
+    counts: collections.Counter = collections.Counter()
+    for p in pods:
+        for k, v in p.requests:
+            if k not in BASE_RESOURCES and k != t.PODS and v > 0:
+                counts[k] += 1
+    multi = sorted(k for k, c in counts.items() if c > 1)
+    singles = sorted(k for k, c in counts.items() if c == 1)
+    if len(singles) > FOLD_SINGLETON_THRESHOLD:
+        folded = frozenset(singles)
+        dense = multi
+    else:
+        folded = frozenset()
+        dense = multi + singles
+    return list(BASE_RESOURCES) + sorted(dense), folded
+
+
+@dataclass
+class NodeTensors:
+    """Numpy-side encoded snapshot. Node-axis arrays may be allocated at a
+    larger padded capacity (``encode_snapshot(pad_nodes=…)``); rows past
+    ``num_nodes`` are zero (no allocatable → infeasible everywhere)."""
+
+    resource_names: list[str]
+    node_names: list[str]
+    alloc: np.ndarray              # (≥N, R) int64
+    requested: np.ndarray          # (≥N, R) int64 (exact, Fit filter view)
+    nonzero_requested: np.ndarray  # (≥N, R) int64 (scoring view)
+    pod_count: np.ndarray          # (≥N,) int32
+    allowed_pods: np.ndarray       # (≥N,) int32
+    # host-side helpers for signature evaluation
+    infos: list[NodeInfo] = field(repr=False, default_factory=list)
+    key_vocab: Vocab = field(repr=False, default_factory=Vocab)
+    val_vocab: Vocab = field(repr=False, default_factory=Vocab)
+    node_label: np.ndarray | None = field(repr=False, default=None)  # (N, K) int32
+    # per-node cache generation each row was last encoded at — enables the
+    # incremental ``encode_snapshot(…, prev=…)`` refresh (only rows whose
+    # generation moved are rewritten, the UpdateSnapshot O(Δ) philosophy)
+    node_gens: dict = field(repr=False, default_factory=dict)
+    # node name → row index (maintained across the append-incremental
+    # branch so dirty-candidate names resolve in O(1))
+    name_to_idx: dict = field(repr=False, default_factory=dict)
+    # --- O(Δ) informer-to-tensor sync bookkeeping ------------------------
+    # the backing Cache these tensors were encoded from (snapshot.
+    # cache_token), the cache's order epoch at that time, and the highest
+    # cache generation folded in: together they let the incremental
+    # refresh (a) skip the O(N) node-name list compare (order epoch pins
+    # set+order), (b) scan only the recency index's Δ instead of all N
+    # rows, and (c) extend in place when every structural change since was
+    # an append (an autoscaler add-wave at 100k nodes must not pay a full
+    # O(N) re-encode per cycle)
+    src_token: object = field(repr=False, default=None)
+    src_order_epoch: int = field(repr=False, default=-1)
+    gens_watermark: int = field(repr=False, default=0)
+    # --- delta-upload + pipeline-staleness bookkeeping -------------------
+    # row indices re-encoded but not yet shipped to the device-resident
+    # node block (runtime.ResidentNodeState consumes + clears); None means
+    # "freshly (re)built — everything needs a full upload"
+    pending_device_rows: set | None = field(repr=False, default=None)
+    # outcome of the LAST encode_snapshot call on this object: which rows it
+    # re-encoded, whether any re-encoded row's VALUES actually differ from
+    # what was there before (a bind confirmation replaces a pod with
+    # identical accounting → rows re-encode to the same values), and whether
+    # any node OBJECT was replaced (labels/taints/images may differ — facts
+    # outside the resource rows). The pipelined scheduler uses these to
+    # decide whether a dispatched-but-unsynced cycle saw stale state.
+    last_dirty_rows: tuple = field(repr=False, default=())
+    last_values_changed: bool = field(repr=False, default=False)
+    last_nodes_replaced: bool = field(repr=False, default=False)
+    # a dirty row whose POD SET content (uids, labels, host ports) changed —
+    # facts that feed affinity/spread/port tensors without moving the
+    # resource rows (a bind confirmation replaces a pod with identical
+    # content and does NOT set this)
+    last_pods_mutated: bool = field(repr=False, default=False)
+    # per-node content signature backing the check above
+    pod_content_sigs: dict = field(repr=False, default_factory=dict)
+    # row indices of nodes with any in-use host-port triple, maintained by
+    # ``_encode_node_row`` (a pod add/remove touches its node's generation,
+    # so every port change re-encodes the row) — the per-cycle port encode
+    # walks THIS set, not all N nodes (an O(N)-python-per-cycle wall at
+    # 100k nodes for the port-free steady state)
+    nodes_with_ports: set = field(repr=False, default_factory=set)
+    # memoized dense topology coordinates (state.topology.TopologyTensors);
+    # cleared by ``_refresh_tensors`` whenever a node object was replaced
+    # or appended, since labels may have moved under the coordinates
+    topo_memo: object = field(repr=False, default=None)
+
+    @property
+    def num_nodes(self) -> int:
+        return len(self.node_names)
+
+    @property
+    def num_resources(self) -> int:
+        return len(self.resource_names)
+
+    def diff_rows(self, other: "NodeTensors") -> "list[int] | None":
+        """Row indices whose resource/count values differ from ``other``
+        (vectorized over the full padded capacity). None when the two are
+        not comparable — different padded capacity or resource axis. The
+        incremental-reshard path of ``runtime.ResidentNodeState`` uses this
+        to turn a node add/delete (which rebuilds the NodeTensors object)
+        into a dirty-row delta upload instead of a full re-upload."""
+        if (
+            other.alloc.shape != self.alloc.shape
+            or other.resource_names != self.resource_names
+        ):
+            return None
+        changed = (
+            np.any(self.alloc != other.alloc, axis=1)
+            | np.any(self.requested != other.requested, axis=1)
+            | np.any(self.nonzero_requested != other.nonzero_requested, axis=1)
+            | (self.pod_count != other.pod_count)
+            | (self.allowed_pods != other.allowed_pods)
+        )
+        return np.flatnonzero(changed).tolist()
+
+    # ---- label machinery -------------------------------------------------
+    def _ensure_label_matrix(self) -> np.ndarray:
+        if self.node_label is None or self.node_label.shape[1] < len(self.key_vocab):
+            K = len(self.key_vocab)
+            # allocated at the padded node CAPACITY (like the resource
+            # arrays) so the append-incremental branch writes new rows in
+            # place instead of forcing an O(N·K) rebuild per add-wave cycle
+            mat = np.full((self.alloc.shape[0], K), -1, dtype=np.int32)
+            for i, info in enumerate(self.infos):
+                for k, v in info.node.labels:
+                    mat[i, self.key_vocab.get(k)] = self.val_vocab.intern(v)
+            self.node_label = mat
+        return self.node_label
+
+    def requirement_mask(self, req: t.Requirement) -> np.ndarray:
+        """(N,) bool — vectorized over nodes via interned label ids."""
+        kid = self.key_vocab.get(req.key)
+        if kid < 0:
+            # Key never appears on any node: In/Exists/Gt/Lt fail everywhere,
+            # NotIn/DoesNotExist succeed everywhere.
+            ok = req.operator in (t.Operator.NOT_IN, t.Operator.DOES_NOT_EXIST)
+            return np.full(self.num_nodes, ok, dtype=bool)
+        col = self._ensure_label_matrix()[: self.num_nodes, kid]
+        op = req.operator
+        if op == t.Operator.EXISTS:
+            return col >= 0
+        if op == t.Operator.DOES_NOT_EXIST:
+            return col < 0
+        if op == t.Operator.IN:
+            vids = [self.val_vocab.get(v) for v in req.values]
+            vids = np.array([v for v in vids if v >= 0], dtype=np.int32)
+            return np.isin(col, vids) & (col >= 0)
+        if op == t.Operator.NOT_IN:
+            vids = [self.val_vocab.get(v) for v in req.values]
+            vids = np.array([v for v in vids if v >= 0], dtype=np.int32)
+            return ~np.isin(col, vids) | (col < 0)
+        # Gt/Lt: rare — fall back to scalar evaluation per node.
+        out = np.zeros(self.num_nodes, dtype=bool)
+        for i, info in enumerate(self.infos):
+            out[i] = requirement_matches(req, info.node.labels_dict())
+        return out
+
+    def term_mask(self, term: t.NodeSelectorTerm) -> np.ndarray:
+        if not term.match_expressions and not term.match_fields:
+            return np.zeros(self.num_nodes, dtype=bool)
+        m = np.ones(self.num_nodes, dtype=bool)
+        for req in term.match_expressions:
+            m &= self.requirement_mask(req)
+        if term.match_fields:
+            names = np.array(
+                [
+                    node_selector_term_matches(
+                        t.NodeSelectorTerm(match_fields=term.match_fields),
+                        {},
+                        n,
+                    )
+                    for n in self.node_names
+                ],
+                dtype=bool,
+            )
+            m &= names
+        return m
+
+    def node_selector_mask(self, sel: t.NodeSelector) -> np.ndarray:
+        m = np.zeros(self.num_nodes, dtype=bool)
+        for term in sel.terms:
+            m |= self.term_mask(term)
+        return m
+
+    def topology_values(self, topo_key: str) -> np.ndarray:
+        """(N,) int32 domain id per node for a topology label key; -1 absent."""
+        kid = self.key_vocab.get(topo_key)
+        if kid < 0:
+            return np.full(self.num_nodes, -1, dtype=np.int32)
+        return self._ensure_label_matrix()[: self.num_nodes, kid].copy()
+
+
+def _encode_node_row(
+    nt: NodeTensors, i: int, info: NodeInfo, ridx: dict
+) -> None:
+    """(Re)write row ``i`` of the resource/count arrays from ``info``."""
+    nt.alloc[i, :] = 0
+    nt.requested[i, :] = 0
+    nt.nonzero_requested[i, :] = 0
+    nt.allowed_pods[i] = 0
+    for k, v in info.node.allocatable:
+        if k == t.PODS:
+            nt.allowed_pods[i] = v
+        else:
+            j = ridx.get(k)
+            if j is not None:
+                nt.alloc[i, j] = v
+    for k, v in info.requested.items():
+        j = ridx.get(k)
+        if j is not None:
+            nt.requested[i, j] = v
+    for k, v in info.nonzero_requested.items():
+        j = ridx.get(k)
+        if j is not None:
+            nt.nonzero_requested[i, j] = v
+    nt.pod_count[i] = len(info.pods)
+    if info.port_triples:
+        nt.nodes_with_ports.add(i)
+    else:
+        nt.nodes_with_ports.discard(i)
+
+
+def _pod_content_sig(info: NodeInfo) -> int:
+    """Order-independent signature of the node's pod-set facts that feed
+    tensors OUTSIDE the resource rows: uids (membership), labels (affinity/
+    spread selectors) and ports (NodePorts). Resource changes are covered by
+    the row-value diff; this catches a label or hostPort mutation on an
+    otherwise resource-identical pod. XOR-combined so no sort is needed —
+    the per-dirty-row cost is O(pods on the node) hashes flat."""
+    h = 0
+    for uid, p in info.pods.items():
+        h ^= hash((uid, p.labels, p.ports))
+    return h
+
+
+def encode_snapshot(
+    snapshot: Snapshot, resource_names: Sequence[str] | None = None,
+    pods: Sequence[t.Pod] = (),
+    pad_nodes: int | None = None,
+    prev: NodeTensors | None = None,
+    track_changes: bool = True,
+) -> NodeTensors:
+    """``pad_nodes``: allocate node-axis arrays at this capacity up front
+    (rows past the real node count stay zero = infeasible), avoiding a
+    full-array ``np.pad`` copy downstream.
+
+    ``prev``: a NodeTensors from an earlier snapshot of the SAME cache —
+    when the node order, resource axis and capacity still match, only rows
+    whose cache generation moved are re-encoded (cache.go:190 UpdateSnapshot
+    O(Δ) semantics on the tensor side). The returned object may BE ``prev``,
+    mutated in place; device uploads copy, so this is safe once the previous
+    cycle's arrays are on device.
+
+    ``track_changes``: maintain the value-diff / pod-content-signature
+    staleness flags (``last_values_changed`` / ``last_pods_mutated``) the
+    PIPELINED scheduler consumes. The serial loop never reads them — False
+    skips the per-dirty-row copies, comparisons and content hashing, and
+    sets the flags conservatively True whenever any row was dirty."""
+    rnames = list(resource_names) if resource_names else resource_axis(snapshot, pods)
+    infos = snapshot.node_infos()
+    N, R = len(infos), len(rnames)
+    NP = max(pad_nodes or N, N)
+    node_names: list[str] | None = None
+
+    if (
+        prev is not None
+        and prev.resource_names == rnames
+        and prev.alloc.shape[0] >= NP
+        and prev.alloc.shape[1] == R
+    ):
+        n_prev = len(prev.node_names)
+        cache_match = (
+            prev.src_token is not None
+            and prev.src_token is snapshot.cache_token
+        )
+        same_set = appended = False
+        if N == n_prev:
+            # order epoch pins node set + order: the O(N) name-list compare
+            # only runs for cacheless (hand-built) snapshots
+            if cache_match and prev.src_order_epoch == snapshot.order_epoch:
+                same_set = True
+                node_names = prev.node_names
+            else:
+                node_names = [info.node.name for info in infos]
+                same_set = prev.node_names == node_names
+        elif N > n_prev:
+            if cache_match and snapshot.appends_only_since(
+                prev.src_order_epoch
+            ):
+                appended = True
+            else:
+                node_names = [info.node.name for info in infos]
+                appended = node_names[:n_prev] == prev.node_names
+        if same_set or appended:
+            return _refresh_tensors(
+                snapshot, prev, infos, rnames,
+                appended_from=n_prev if appended else None,
+                track_changes=track_changes, cache_match=cache_match,
+            )
+
+    if node_names is None:
+        node_names = [info.node.name for info in infos]
+    ridx = {r: i for i, r in enumerate(rnames)}
+    alloc = np.zeros((NP, R), dtype=np.int64)
+    requested = np.zeros((NP, R), dtype=np.int64)
+    nonzero = np.zeros((NP, R), dtype=np.int64)
+    pod_count = np.zeros(NP, dtype=np.int32)
+    allowed = np.zeros(NP, dtype=np.int32)
+    key_vocab, val_vocab = Vocab(), Vocab()
+    nt = NodeTensors(
+        resource_names=rnames,
+        node_names=node_names,
+        alloc=alloc,
+        requested=requested,
+        nonzero_requested=nonzero,
+        pod_count=pod_count,
+        allowed_pods=allowed,
+        infos=infos,
+        key_vocab=key_vocab,
+        val_vocab=val_vocab,
+        node_gens={
+            name: snapshot.node_generation.get(name) for name in node_names
+        },
+        name_to_idx={name: i for i, name in enumerate(node_names)},
+        src_token=snapshot.cache_token,
+        src_order_epoch=snapshot.order_epoch,
+        gens_watermark=snapshot.cache_watermark,
+    )
+    for i, info in enumerate(infos):
+        _encode_node_row(nt, i, info, ridx)
+        if track_changes:
+            # seed the content signatures so a post-rebuild bind
+            # confirmation (identical content) doesn't read as a mutation
+            nt.pod_content_sigs[info.node.name] = _pod_content_sig(info)
+        for k, v in info.node.labels:
+            key_vocab.intern(k)
+            val_vocab.intern(v)
+    return nt
+
+
+def _refresh_tensors(
+    snapshot: Snapshot,
+    prev: NodeTensors,
+    infos: "list[NodeInfo]",
+    rnames: list[str],
+    appended_from: int | None,
+    track_changes: bool,
+    cache_match: bool,
+) -> NodeTensors:
+    """Incremental refresh of ``prev`` in place (the returned object IS
+    ``prev``): re-encode pre-existing rows whose cache generation moved,
+    and — when ``appended_from`` is given — encode the freshly APPENDED
+    node rows into the spare padded capacity (an autoscaler add-wave
+    extends the tensors instead of paying a full O(N) rebuild per cycle).
+
+    Dirty discovery is O(Δ) when the snapshot's backing cache is the one
+    these tensors were built from: the cache's recency index names the
+    candidates (``Snapshot.dirty_since``) instead of a full O(N) gen scan
+    — each candidate is still gen-checked, so a superset is harmless."""
+    ridx = {r: i for i, r in enumerate(rnames)}
+    gens = prev.node_gens
+    dirty: list[int] = []
+    values_changed = False
+    nodes_replaced = False
+    pods_mutated = False
+    N = len(infos)
+    n_old = appended_from if appended_from is not None else N
+
+    cand: list[int] | None = None
+    if cache_match:
+        names_c = snapshot.dirty_since(prev.gens_watermark)
+        if names_c is not None:
+            idx_of = prev.name_to_idx
+            cand = sorted(
+                i for i in (idx_of.get(nm, -1) for nm in names_c)
+                if 0 <= i < n_old
+            )
+    for i in (range(n_old) if cand is None else cand):
+        info = infos[i]
+        name = info.node.name
+        gen = snapshot.node_generation.get(name)
+        if gens.get(name) == gen:
+            continue
+        dirty.append(i)
+        old_row = None
+        if track_changes:
+            psig = _pod_content_sig(info)
+            if prev.pod_content_sigs.get(name) != psig:
+                pods_mutated = True
+                prev.pod_content_sigs[name] = psig
+            if not values_changed:
+                old_row = (
+                    prev.alloc[i].copy(), prev.requested[i].copy(),
+                    prev.nonzero_requested[i].copy(),
+                    int(prev.pod_count[i]), int(prev.allowed_pods[i]),
+                )
+        _encode_node_row(prev, i, info, ridx)
+        if old_row is not None and not (
+            int(prev.pod_count[i]) == old_row[3]
+            and int(prev.allowed_pods[i]) == old_row[4]
+            and np.array_equal(prev.alloc[i], old_row[0])
+            and np.array_equal(prev.requested[i], old_row[1])
+            and np.array_equal(prev.nonzero_requested[i], old_row[2])
+        ):
+            values_changed = True
+        if prev.infos[i].node is not info.node:
+            nodes_replaced = True
+            # node object replaced: labels may differ — refresh vocab and
+            # the label-matrix row (new keys force a lazy full rebuild)
+            kv, vv = prev.key_vocab, prev.val_vocab
+            before = len(kv)
+            for k, v in info.node.labels:
+                kv.intern(k)
+                vv.intern(v)
+            if prev.node_label is not None:
+                if len(kv) > before or len(kv) > prev.node_label.shape[1]:
+                    prev.node_label = None
+                else:
+                    prev.node_label[i, :] = -1
+                    for k, v in info.node.labels:
+                        prev.node_label[i, kv.get(k)] = vv.intern(v)
+        gens[name] = gen
+
+    if appended_from is not None:
+        # the add-wave extension: encode ONLY the appended rows; existing
+        # rows, vocab ids and the label matrix stay valid (node index is
+        # position in the order, and appends preserve the prefix)
+        kv, vv = prev.key_vocab, prev.val_vocab
+        keys_before = len(kv)
+        new_names: list[str] = []
+        for i in range(appended_from, N):
+            info = infos[i]
+            name = info.node.name
+            _encode_node_row(prev, i, info, ridx)
+            gens[name] = snapshot.node_generation.get(name)
+            prev.name_to_idx[name] = i
+            new_names.append(name)
+            if track_changes:
+                prev.pod_content_sigs[name] = _pod_content_sig(info)
+            for k, v in info.node.labels:
+                kv.intern(k)
+                vv.intern(v)
+            dirty.append(i)
+        prev.node_names.extend(new_names)
+        if prev.node_label is not None:
+            if len(kv) > keys_before or len(kv) > prev.node_label.shape[1]:
+                prev.node_label = None   # new keys: lazy full rebuild
+            else:
+                for i in range(appended_from, N):
+                    prev.node_label[i, :] = -1
+                    for k, v in infos[i].node.labels:
+                        prev.node_label[i, kv.get(k)] = vv.intern(v)
+        # the node SET changed: a pipelined in-flight cycle must replay
+        nodes_replaced = True
+
+    prev.infos = infos
+    prev.src_token = snapshot.cache_token
+    prev.src_order_epoch = snapshot.order_epoch
+    if cache_match:
+        prev.gens_watermark = snapshot.cache_watermark
+    else:
+        # adopting a NEW backing cache: its generation space is unrelated
+        # to the old watermark — reset so the next O(Δ) walk cannot skip
+        # dirty rows that live below a stale-high watermark
+        prev.gens_watermark = 0
+    prev.last_dirty_rows = tuple(dirty)
+    if not track_changes and dirty:
+        # flags not maintained: report "changed" so a consumer that
+        # does read them errs toward a replay, never toward staleness
+        values_changed = True
+        pods_mutated = True
+    prev.last_values_changed = values_changed
+    prev.last_nodes_replaced = nodes_replaced
+    prev.last_pods_mutated = pods_mutated
+    if nodes_replaced:
+        # replaced/appended node objects may carry different topology
+        # labels — the dense coordinate memo no longer describes them
+        prev.topo_memo = None
+    if prev.pending_device_rows is not None:
+        prev.pending_device_rows.update(dirty)
+    return prev
+
+
+# --------------------------------------------------------------------------
+# Pod batch encoding
+# --------------------------------------------------------------------------
+
+def _static_filter_signature(pod: t.Pod):
+    """Everything that determines the pod's static (P,N) feasibility mask.
+    NodePorts is NOT here: port usage changes as the batch assigns pods, so
+    it is a dynamic filter (interned triples + conflict matrix below)."""
+    na = pod.affinity.node_affinity if pod.affinity else None
+    return (
+        pod.node_selector,
+        na.required if na else None,
+        pod.tolerations,
+    )
+
+
+def _static_score_signature(pod: t.Pod):
+    na = pod.affinity.node_affinity if pod.affinity else None
+    return (na.preferred if na else (), pod.tolerations)
+
+
+# --------------------------------------------------------------------------
+# Template-keyed row builders — pure functions of (node static facts, pod
+# signature), shared by the batch encoder and the event-time encode cache
+# (state.encode_cache): one build per distinct TEMPLATE, gathered by every
+# pod stamped from it, across pods and across cycles.
+# --------------------------------------------------------------------------
+
+def build_request_row(
+    pod: t.Pod, ridx: dict, R: int, folded_resources: frozenset,
+    dense_items: Sequence[tuple[int, int]] = (),
+) -> tuple[np.ndarray, np.ndarray, bool]:
+    """``(requests (R,), nonzero (R,), unknown)`` on the given resource
+    axis. ``unknown``: the pod requests a resource absent from the axis
+    (and not folded) — statically infeasible everywhere."""
+    req_row = np.zeros(R, dtype=np.int64)
+    nz_row = np.zeros(R, dtype=np.int64)
+    unknown = False
+    for k, v in pod.requests:
+        j = ridx.get(k)
+        if j is not None:
+            req_row[j] = v
+        elif v > 0 and k != t.PODS and k not in folded_resources:
+            unknown = True
+    for k, v in pod.nonzero_requests().items():
+        j = ridx.get(k)
+        if j is not None:
+            nz_row[j] = v
+    for pid, count in dense_items:
+        j = ridx.get(f"dra/pool{pid}")
+        if j is not None:
+            req_row[j] = count
+            nz_row[j] = count
+    return req_row, nz_row, unknown
+
+
+def build_static_filter_row(
+    nt: "NodeTensors", ctx, pod: t.Pod, f: frozenset,
+    feat_req: tuple, unknown: bool,
+) -> np.ndarray:
+    """The PURE-STATIC (N,) feasibility row for a pod signature: node
+    selector + required node affinity, taints, unschedulable, declared
+    features, spec.nodeName, unknown-resource. Batch-coupled parts
+    (volumes, DRA, folded scalars, in-batch RWOP) are layered onto a COPY
+    by the batch encoder — they never enter the cached row. ``ctx`` is an
+    ``encode_cache.NodeCtx`` (taint/unschedulable/feature hoists)."""
+    N = nt.num_nodes
+    m = np.ones(N, dtype=bool)
+    if names.NODE_AFFINITY in f:
+        # spec.nodeSelector — ANDed equality terms (NodeAffinity Filter)
+        for k, v in pod.node_selector:
+            m &= nt.requirement_mask(t.Requirement(k, t.Operator.IN, (v,)))
+        # required node affinity
+        na = pod.affinity.node_affinity if pod.affinity else None
+        if na and na.required is not None:
+            m &= nt.node_selector_mask(na.required)
+    if names.TAINT_TOLERATION in f and ctx.tainted_nodes:
+        # taints (NoSchedule/NoExecute) — dedupe by node taint tuple
+        taint_ok: dict[tuple, bool] = {}
+        for n_i, taints in ctx.tainted_nodes:
+            ok = taint_ok.get(taints)
+            if ok is None:
+                ok = find_untolerated_taint(taints, pod.tolerations) is None
+                taint_ok[taints] = ok
+            if not ok:
+                m[n_i] = False
+    if names.NODE_UNSCHEDULABLE in f and ctx.any_unsched:
+        # unschedulable nodes pass only if the pod tolerates the taint
+        tolerated = any(
+            tolerates(tol, _UNSCHEDULABLE_TAINT) for tol in pod.tolerations
+        )
+        if not tolerated:
+            m &= ~ctx.node_unsched
+    if feat_req:
+        # NodeDeclaredFeatures Filter (nodedeclaredfeatures.go:
+        # reqs ⊆ node.status.declaredFeatures, failures
+        # UnschedulableAndUnresolvable)
+        want = set(feat_req)
+        if ctx.node_feature_sets is None:
+            m[:] = False   # no node declares anything
+        else:
+            m &= np.array(
+                [want <= s for s in ctx.node_feature_sets], dtype=bool
+            )
+    # NodeName (spec.nodeName pre-assignment) — exact match only
+    if pod.node_name and names.NODE_NAME in f:
+        m &= np.array(
+            [n == pod.node_name for n in nt.node_names], dtype=bool
+        )
+    if unknown:
+        m[:] = False
+    return m
+
+
+def build_static_score_rows(
+    nt: "NodeTensors", ctx, pod: t.Pod, want_na: bool, want_tt: bool,
+) -> tuple[np.ndarray, np.ndarray]:
+    """``(node_affinity_raw (N,), taint_prefer_raw (N,))`` for a static
+    score signature."""
+    N = nt.num_nodes
+    na_vec = np.zeros(N, dtype=np.int64)
+    na = pod.affinity.node_affinity if pod.affinity else None
+    if na and want_na:
+        for pref in na.preferred:
+            tm = nt.term_mask(pref.term)
+            na_vec += pref.weight * tm.astype(np.int64)
+    tt_vec = np.zeros(N, dtype=np.int64)
+    if want_tt and ctx.tainted_nodes:
+        prefer_cache: dict[tuple, int] = {}
+        for n_i, taints in ctx.tainted_nodes:
+            c = prefer_cache.get(taints)
+            if c is None:
+                c = count_intolerable_prefer_no_schedule(
+                    taints, pod.tolerations
+                )
+                prefer_cache[taints] = c
+            tt_vec[n_i] = c
+    return na_vec, tt_vec
+
+
+@dataclass
+class PodBatch:
+    """Numpy-side encoded pending-pod batch.
+
+    Static per-(pod,node) facts are **signature-compressed**: pods sharing a
+    static-filter (or static-score) signature share one ``(N,)`` row, so the
+    arrays are ``(S, N)`` with a per-pod ``(P,)`` row index — the device
+    gathers rows inside the jitted program. Replicated workloads (the
+    scheduler_perf shape, runtime/batch.go:61-64's identical-signature
+    observation) have S ≪ P, which turns the dominant host→device transfer
+    (O(P·N) int64) into O(S·N).
+
+    Port tensors (NodePorts, plugins/nodeports — a *dynamic* filter because
+    assignments during the batch occupy ports): distinct
+    ``(hostPort, protocol, hostIP)`` triples across pending pods and node
+    usage are interned to ids 0..K-1; ``port_conflict[k, l]`` says triple k
+    conflicts with an in-use triple l (same port+protocol, and equal hostIP
+    or either side the 0.0.0.0 wildcard). A pod fits a node iff
+    ``~any(pod_ports @ port_conflict @ node_ports^T)``; the greedy scan ORs
+    the winner's ``pod_ports`` row into the node's usage row.
+    """
+
+    pods: list[t.Pod]
+    requests: np.ndarray            # (P, R) int64
+    nonzero_requests: np.ndarray    # (P, R) int64
+    priority: np.ndarray            # (P,) int32
+    # None when no pod has any static constraint (= all-True over valid
+    # rows). (S, N) bool, one row per distinct static-filter signature.
+    static_mask: np.ndarray | None  # (S, N) bool — all static filters ANDed
+    static_sig: np.ndarray | None   # (P,) int32 — row of static_mask per pod
+    # None unless requested via enabled_scores. (S2, N), one row per
+    # distinct static-score signature.
+    node_affinity_raw: np.ndarray | None  # (S2, N) — Σ matched preferred weights
+    taint_prefer_raw: np.ndarray | None   # (S2, N) — intolerable PreferNoSchedule
+    score_sig: np.ndarray | None    # (P,) int32 — row per pod
+    pod_ports: np.ndarray           # (P, K) bool — triples the pod wants
+    node_ports: np.ndarray          # (N, K) bool — triples in use on the node
+    port_conflict: np.ndarray       # (K, K) bool
+    port_vocab: Vocab | None = None  # triple→id table (shared w/ preemption)
+
+    @property
+    def num_pods(self) -> int:
+        return len(self.pods)
+
+    # --- per-pod dense views (tests / host-side debugging) ---------------
+    def static_row(self, i: int) -> np.ndarray | None:
+        if self.static_mask is None:
+            return None
+        return self.static_mask[self.static_sig[i]]
+
+    def na_row(self, i: int) -> np.ndarray | None:
+        if self.node_affinity_raw is None:
+            return None
+        return self.node_affinity_raw[self.score_sig[i]]
+
+    def tt_row(self, i: int) -> np.ndarray | None:
+        if self.taint_prefer_raw is None:
+            return None
+        return self.taint_prefer_raw[self.score_sig[i]]
+
+
+def _pod_port_triples(pod: t.Pod) -> list[tuple[int, str, str]]:
+    return [
+        (cp.host_port, cp.protocol or "TCP", cp.host_ip or "0.0.0.0")
+        for cp in pod.ports
+        if cp.host_port > 0
+    ]
+
+
+def _encode_ports(
+    nt: NodeTensors, pods: Sequence[t.Pod],
+    pad_pods: int | None = None, pad_nodes: int | None = None,
+    extra_triples: Sequence[tuple[int, str, str]] = (),
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, Vocab]:
+    """Intern port triples → (pod_ports (P,K), node_ports (N,K),
+    port_conflict (K,K), vocab). K is at least 1 (all-False dummy) so
+    downstream einsums never see a zero axis. ``extra_triples`` (e.g. from
+    nominated pods not in this batch) join the vocab + conflict matrix so
+    callers can build their own rows against it."""
+    vocab = Vocab()
+    P, N = len(pods), nt.num_nodes
+    pod_rows: list[tuple[int, list[int]]] = []
+    for i, p in enumerate(pods):
+        if p.ports:
+            row = vocab.intern_all(_pod_port_triples(p))
+            if row:
+                pod_rows.append((i, row))
+    # NodeInfo refcounts its in-use triples incrementally (UsedPorts), and
+    # ``nodes_with_ports`` indexes the bearing rows, so this is
+    # O(nodes-with-ports × triples) flat — the port-free steady state pays
+    # nothing per node (at 100k nodes even a truthiness sweep was a
+    # per-cycle python wall)
+    node_rows: list[tuple[int, list[int]]] = []
+    for i in sorted(nt.nodes_with_ports):
+        info = nt.infos[i]
+        if info.port_triples:
+            node_rows.append(
+                (i, [vocab.intern(tr) for tr in info.port_triples])
+            )
+    for tr in extra_triples:
+        vocab.intern(tr)
+
+    K = max(len(vocab), 1)
+    pod_ports = np.zeros((max(pad_pods or P, P), K), dtype=bool)
+    node_ports = np.zeros((max(pad_nodes or N, N), K), dtype=bool)
+    for i, row in pod_rows:
+        pod_ports[i, row] = True
+    for i, row in node_rows:
+        node_ports[i, row] = True
+    conflict = np.zeros((K, K), dtype=bool)
+    if len(vocab):
+        # vectorized triple-vs-triple conflict: same port+protocol, and
+        # equal hostIP or either side the 0.0.0.0 wildcard
+        items = [vocab.lookup(k) for k in range(len(vocab))]
+        port_a = np.array([p_ for p_, _, _ in items])
+        proto_a = np.array([r_ for _, r_, _ in items])
+        ip_a = np.array([i_ for _, _, i_ in items])
+        same = (port_a[:, None] == port_a[None, :]) & (
+            proto_a[:, None] == proto_a[None, :]
+        )
+        wild = (
+            (ip_a[:, None] == "0.0.0.0")
+            | (ip_a[None, :] == "0.0.0.0")
+            | (ip_a[:, None] == ip_a[None, :])
+        )
+        conflict[: len(items), : len(items)] = same & wild
+    return pod_ports, node_ports, conflict, vocab
+
+
+def encode_pod_batch(
+    nt: NodeTensors,
+    pods: Sequence[t.Pod],
+    enabled_filters: frozenset[str] | None = None,
+    pad_pods: int | None = None,
+    enabled_scores: frozenset[str] | None = None,
+    extra_port_triples: Sequence[tuple[int, str, str]] = (),
+    volume_state=None,
+    folded_resources: frozenset = frozenset(),
+    folded_nominated: Sequence[tuple[str, Sequence[tuple[str, int]]]] = (),
+    dra_state=None,
+    cache=None,
+) -> PodBatch:
+    """``enabled_filters`` is the profile's Filter plugin set (names from
+    ``kubetpu.names``); None enables everything. Disabled static predicates
+    are left out of ``static_mask``, mirroring a KubeSchedulerConfiguration
+    that disables the plugin. ``enabled_scores`` likewise gates the static
+    raw-score tensors (NodeAffinity preferred, TaintToleration prefer-count).
+
+    ``pad_pods``: allocate pod-axis arrays at this capacity (rows past the
+    real pod count stay zero / all-False-mask = never assigned). The node
+    axis inherits ``nt``'s capacity. Avoids ``np.pad`` copies downstream.
+
+    ``cache``: an ``encode_cache.EncodeCache`` — static filter/score/request
+    rows become gathers over template-keyed rows that persist across pods
+    AND cycles (pre-built at informer delivery when the scheduler wires the
+    event-time hooks). None = the original build-per-batch behavior; the
+    per-batch signature dedupe below is retained either way, so cached and
+    fresh encodes are bit-identical by construction.
+    """
+    f = names.ALL_FILTERS if enabled_filters is None else enabled_filters
+    sc = DEFAULT_SCORES if enabled_scores is None else enabled_scores
+    ridx = {r: i for i, r in enumerate(nt.resource_names)}
+    P, N, R = len(pods), nt.num_nodes, nt.num_resources
+    PP = max(pad_pods or P, P)
+    NC = nt.alloc.shape[0]  # node capacity (≥ N)
+    if cache is not None:
+        cache.sync_nodes(nt)
+        cache.sync_request_axis(tuple(nt.resource_names), folded_resources)
+        ctx = cache.node_ctx(nt)
+        sigs = [cache.pod_sigs(p) for p in pods]
+    else:
+        from .encode_cache import build_node_ctx
+
+        ctx = build_node_ctx(nt)
+        sigs = [
+            (_static_filter_signature(p), _static_score_signature(p))
+            for p in pods
+        ]
+    requests = np.zeros((PP, R), dtype=np.int64)
+    nonzero = np.zeros((PP, R), dtype=np.int64)
+    priority = np.zeros(PP, dtype=np.int32)
+    # Pods requesting a resource absent from the snapshot's axis can fit
+    # nowhere (no node advertises it: request > 0 - 0); mark them infeasible
+    # everywhere instead of silently dropping the request.
+    unknown_resource = np.zeros(P, dtype=bool)
+    # DRA (state.dra): per-pod analyses are precomputed+cached by
+    # encode_batch; dense pool requests join the request rows through
+    # columns named "dra/pool<id>" already present in the resource axis
+    want_dra = dra_state is not None and names.DYNAMIC_RESOURCES in f
+    dra_of: dict[int, object] = {}
+    if want_dra:
+        for i, p in enumerate(pods):
+            d = dra_state.analyze(p)
+            if d.any_work:
+                dra_of[i] = d
+    # Request rows dedupe heavily across a batch (replicated workloads) —
+    # build each distinct (requests, nonzero) row once per batch, and per
+    # TEMPLATE across cycles when the encode cache is on (DRA-coupled rows
+    # depend on the allocator state and stay per-batch).
+    row_cache: dict[tuple, tuple[np.ndarray, np.ndarray, bool]] = {}
+    for i, p in enumerate(pods):
+        d = dra_of.get(i)
+        dense_items = d.dense if d is not None else ()
+        key = (p.requests, p.nonzero, dense_items)
+        entry = row_cache.get(key)
+        if entry is None:
+            if cache is not None and not dense_items:
+                entry = cache.request_row(
+                    key,
+                    lambda p=p: build_request_row(
+                        p, ridx, R, folded_resources, ()
+                    ),
+                )
+            else:
+                entry = build_request_row(
+                    p, ridx, R, folded_resources, dense_items
+                )
+            row_cache[key] = entry
+        requests[i], nonzero[i], unknown_resource[i] = entry
+        priority[i] = p.priority
+
+    # distinct static-filter signatures → one (N,) mask ROW each; pods carry
+    # the row index. Pod-specific deviations (spec.nodeName, unknown
+    # resources) fold into the signature key so a row is a pure function of
+    # its key. The PURE-STATIC part of the row (build_static_filter_row) is
+    # cacheable across cycles; batch-coupled extras (volumes, DRA, folded
+    # scalars, in-batch RWOP) are layered onto a copy.
+    sig_ids: dict = {}
+    sig_rows: list[np.ndarray] = []
+    sig_trivial: list[bool] = []
+    static_sig = np.zeros(PP, dtype=np.int32)
+    any_nontrivial = False
+
+    # folded-scalar availability: one pass over nodes builds per-resource
+    # (node, available) occurrence lists — O(node scalar entries), not
+    # O(folded × N). A folded resource is requested by exactly one batch
+    # pod, so static masking is exact (no in-batch contention to couple).
+    # Nominated preemptors' folded requests are charged to their nominated
+    # node for EVERY batch pod (the dense path gates by priority via
+    # resource_fit_mask_nominated; folding charges conservatively —
+    # a higher-priority pod may be held off a unit a nominee reserved).
+    fold_avail: dict[str, list[tuple[int, int]]] = {}
+    if folded_resources:
+        nom_charge: dict[tuple[str, str], int] = {}
+        for node_name, reqs in folded_nominated:
+            for k, v in reqs:
+                if k in folded_resources:
+                    nom_charge[(k, node_name)] = (
+                        nom_charge.get((k, node_name), 0) + v
+                    )
+        for n_i, info in enumerate(nt.infos):
+            for k, cap in info.node.allocatable:
+                if k in folded_resources:
+                    avail = cap - info.requested.get(k, 0)
+                    avail -= nom_charge.get((k, info.node.name), 0)
+                    fold_avail.setdefault(k, []).append((n_i, avail))
+
+    # in-batch ReadWriteOncePod guard: an RWOP claim taken by an EARLIER pod
+    # of this batch rejects later users this cycle (the reference's per-pod
+    # loop sees the first pod's assume; the batch must not co-schedule them)
+    seen_rwop: set[str] = set()
+    for i, p in enumerate(pods):
+        vol_sig = None
+        rwop_dup = False
+        folded_items: tuple = ()
+        if folded_resources:
+            folded_items = tuple(
+                (k, v) for k, v in p.requests
+                if k in folded_resources and v > 0
+            )
+        if volume_state is not None and p.volumes:
+            vol_sig = (
+                p.namespace,
+                tuple(v.pvc_name for v in p.volumes if v.pvc_name),
+            )
+            if names.VOLUME_RESTRICTIONS in f:
+                for v in p.volumes:
+                    if not v.pvc_name:
+                        continue
+                    pk = f"{p.namespace}/{v.pvc_name}"
+                    pvc = volume_state.pvcs.get(pk)
+                    if pvc is not None and t.READ_WRITE_ONCE_POD in pvc.access_modes:
+                        if pk in seen_rwop:
+                            rwop_dup = True
+                        seen_rwop.add(pk)
+        d = dra_of.get(i)
+        dra_sig = (
+            (d.blocked, d.pin, d.host_specs) if d is not None else None
+        )
+        feat_req = (
+            p.required_node_features
+            if names.NODE_DECLARED_FEATURES in f else ()
+        )
+        # the cacheable half of the key: everything build_static_filter_row
+        # consumes (pure function of node static facts + these parts)
+        base_key = (
+            sigs[i][0],
+            feat_req,
+            p.node_name if names.NODE_NAME in f else "",
+            bool(unknown_resource[i]) and names.NODE_RESOURCES_FIT in f,
+            f,
+        )
+        sig = (base_key, vol_sig, rwop_dup, folded_items, dra_sig)
+        sid = sig_ids.get(sig)
+        if sid is None:
+            def build(p=p, base_key=base_key):
+                return build_static_filter_row(
+                    nt, ctx, p, f, base_key[1], base_key[3]
+                )
+
+            if cache is not None:
+                base, base_trivial = cache.filter_row(base_key, build, p)
+            else:
+                base = build()
+                base_trivial = bool(base.all())
+            extras = (
+                vol_sig is not None or rwop_dup or dra_sig is not None
+                or (folded_items and names.NODE_RESOURCES_FIT in f)
+            )
+            if extras:
+                m = base.copy()
+                if vol_sig is not None:
+                    # the volume plugin family (zone/binding/restrictions/
+                    # limits)
+                    vm = volume_state.mask_for(p.namespace, p.volumes, nt, f)
+                    if vm is not None:
+                        m &= vm
+                if rwop_dup:
+                    m[:] = False
+                if dra_sig is not None:
+                    # DynamicResources static contributions
+                    # (dynamicresources.go Filter :734): blocked claims
+                    # reject everywhere; an allocated claim pins to its
+                    # node; host-path specs AND in the exact allocator's
+                    # per-node feasibility
+                    blocked_, pin_, host_specs_ = dra_sig
+                    if blocked_:
+                        m[:] = False
+                    else:
+                        if pin_:
+                            m &= np.array(
+                                [n == pin_ for n in nt.node_names], dtype=bool
+                            )
+                        for spec in host_specs_:
+                            m &= dra_state.spec_mask(spec, nt)
+                if folded_items and names.NODE_RESOURCES_FIT in f:
+                    for k, v in folded_items:
+                        fm = np.zeros(N, dtype=bool)
+                        for n_i, avail in fold_avail.get(k, ()):
+                            if avail >= v:
+                                fm[n_i] = True
+                        m &= fm
+                trivial = bool(m.all())
+            else:
+                m = base
+                trivial = base_trivial
+            sid = len(sig_rows)
+            sig_ids[sig] = sid
+            sig_rows.append(m)
+            sig_trivial.append(trivial)
+        static_sig[i] = sid
+        if not sig_trivial[sid]:
+            any_nontrivial = True
+
+    static_mask: np.ndarray | None = None
+    if any_nontrivial:
+        static_mask = np.zeros((len(sig_rows), NC), dtype=bool)
+        for s, m in enumerate(sig_rows):
+            static_mask[s, :N] = m
+    else:
+        static_sig = None
+
+    # distinct static-score signatures → one (N,) raw-score ROW each
+    want_na = names.NODE_AFFINITY in sc
+    want_tt = names.TAINT_TOLERATION in sc
+    na_raw = tt_raw = score_sig = None
+    if want_na or want_tt:
+        score_ids: dict = {}
+        score_rows: list[tuple[np.ndarray, np.ndarray]] = []
+        score_sig = np.zeros(PP, dtype=np.int32)
+        for i, p in enumerate(pods):
+            ssig = sigs[i][1]
+            sid = score_ids.get(ssig)
+            if sid is None:
+                def build_sc(p=p):
+                    return build_static_score_rows(nt, ctx, p, want_na, want_tt)
+
+                if cache is not None:
+                    entry = cache.score_row(
+                        (ssig, want_na, want_tt), build_sc, p,
+                    )
+                else:
+                    entry = build_sc()
+                sid = len(score_rows)
+                score_ids[ssig] = sid
+                score_rows.append(entry)
+            score_sig[i] = sid
+        S2 = max(len(score_rows), 1)
+        if want_na:
+            na_raw = np.zeros((S2, NC), dtype=np.int64)
+            for s, (nv, _) in enumerate(score_rows):
+                na_raw[s, :N] = nv
+        if want_tt:
+            tt_raw = np.zeros((S2, NC), dtype=np.int64)
+            for s, (_, tv) in enumerate(score_rows):
+                tt_raw[s, :N] = tv
+
+    pod_ports, node_ports, port_conflict, port_vocab = _encode_ports(
+        nt, pods, pad_pods=PP, pad_nodes=NC,
+        extra_triples=extra_port_triples,
+    )
+    return PodBatch(
+        pods=list(pods),
+        requests=requests,
+        nonzero_requests=nonzero,
+        priority=priority,
+        static_mask=static_mask,
+        static_sig=static_sig,
+        node_affinity_raw=na_raw,
+        taint_prefer_raw=tt_raw,
+        score_sig=score_sig,
+        pod_ports=pod_ports,
+        node_ports=node_ports,
+        port_conflict=port_conflict,
+        port_vocab=port_vocab,
+    )

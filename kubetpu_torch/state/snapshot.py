@@ -1,0 +1,514 @@
+# Port copy of kubetpu/state/snapshot.py, verbatim apart from this note and
+# the DRA index: dynamic resources are not ported yet (ROADMAP A-queue), so
+# ``Cache.dra`` is None and the encoder never sees claims.
+"""Host-side scheduler cache + snapshot.
+
+The analog of ``pkg/scheduler/backend/cache`` (cache.go:59 cacheImpl,
+snapshot.go Snapshot): a mutable cache of nodes and assigned/assumed pods with
+per-node aggregates, and an immutable point-in-time snapshot the scoring
+kernels are generated from.
+
+Semantics mirrored from the reference:
+- ``assume_pod`` (cache.go:397 AssumePod): optimistically add the pod to its
+  nominated node before the bind API call lands; ``finish_binding`` starts the
+  expiry clock; ``forget_pod`` rolls back.
+- ``update_snapshot`` (cache.go:190): incremental — only nodes whose
+  generation advanced since the last snapshot are re-copied. The cache keeps
+  a recency-ordered index of touched nodes so the per-cycle refresh walks
+  only the Δ touched since the snapshot's watermark, not all N nodes.
+- NodeInfo aggregates: ``requested`` (exact) and ``nonzero_requested``
+  (scoring view with 100 mCPU / 200 MiB defaults,
+  pkg/scheduler/util/pod_resources.go) are maintained on add/remove.
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+from dataclasses import dataclass, field
+
+from ..api import types as t
+
+
+@dataclass
+class NodeInfo:
+    """Mutable per-node accounting — the analog of fwk.NodeInfo."""
+
+    node: t.Node
+    pods: dict[str, t.Pod] = field(default_factory=dict)  # uid -> pod
+    requested: dict[str, int] = field(default_factory=dict)
+    nonzero_requested: dict[str, int] = field(default_factory=dict)
+    # refcounted (hostPort, protocol, hostIP) triples in use on this node
+    # (fwk.NodeInfo.UsedPorts) — maintained here so the per-cycle port
+    # encoding is O(nodes-with-ports), not O(all pods)
+    port_triples: dict[tuple[int, str, str], int] = field(default_factory=dict)
+    generation: int = 0
+
+    def add_pod(self, pod: t.Pod) -> None:
+        self.pods[pod.uid] = pod
+        for k, v in pod.requests:
+            self.requested[k] = self.requested.get(k, 0) + v
+        for k, v in pod.nonzero_requests().items():
+            self.nonzero_requested[k] = self.nonzero_requested.get(k, 0) + v
+        for cp in pod.ports:
+            if cp.host_port > 0:
+                tr = (cp.host_port, cp.protocol or "TCP", cp.host_ip or "0.0.0.0")
+                self.port_triples[tr] = self.port_triples.get(tr, 0) + 1
+
+    def remove_pod(self, pod: t.Pod) -> None:
+        if pod.uid not in self.pods:
+            return
+        del self.pods[pod.uid]
+        for k, v in pod.requests:
+            self.requested[k] = self.requested.get(k, 0) - v
+        for k, v in pod.nonzero_requests().items():
+            self.nonzero_requested[k] = self.nonzero_requested.get(k, 0) - v
+        for cp in pod.ports:
+            if cp.host_port > 0:
+                tr = (cp.host_port, cp.protocol or "TCP", cp.host_ip or "0.0.0.0")
+                left = self.port_triples.get(tr, 0) - 1
+                if left > 0:
+                    self.port_triples[tr] = left
+                else:
+                    self.port_triples.pop(tr, None)
+
+    def clone(self) -> "NodeInfo":
+        return NodeInfo(
+            node=self.node,
+            pods=dict(self.pods),
+            requested=dict(self.requested),
+            nonzero_requested=dict(self.nonzero_requested),
+            port_triples=dict(self.port_triples),
+            generation=self.generation,
+        )
+
+
+def _pod_has_affinity(pod: "t.Pod") -> bool:
+    """podaffinity.has_any_affinity, inlined to avoid a cycle with the
+    encoder import chain."""
+    a = pod.affinity
+    if a is None:
+        return False
+    pa, paa = a.pod_affinity, a.pod_anti_affinity
+    return bool(
+        (pa is not None and (pa.required or pa.preferred))
+        or (paa is not None and (paa.required or paa.preferred))
+    )
+
+
+@dataclass
+class Snapshot:
+    """Immutable point-in-time view handed to the tensorizer.
+
+    ``node_order`` is the stable iteration order (insertion order, as the
+    reference's nodeTree/snapshot list is) — node *index* in every device
+    tensor is the position in this list.
+    """
+
+    nodes: dict[str, NodeInfo] = field(default_factory=dict)
+    node_order: list[str] = field(default_factory=list)
+    generation: int = 0
+    # per-node cache generation this snapshot last copied (owned by this
+    # snapshot so several snapshots can be refreshed independently)
+    node_generation: dict[str, int] = field(default_factory=dict)
+    # O(Δ) refresh bookkeeping: the cache this snapshot came from, the
+    # highest cache generation it has folded in, and the cache's node-set
+    # epoch at that time (any add/remove invalidates the fast path)
+    cache_token: object = None
+    cache_watermark: int = 0
+    order_epoch: int = -1
+    namespaces_generation: int = -1
+    # namespace name → labels (the nsLister view affinity terms match)
+    namespaces: dict[str, dict[str, str]] = field(default_factory=dict)
+    # object listers' view (pv/pvc/storageclass/service), copied on change only
+    pvs: dict[str, "t.PersistentVolume"] = field(default_factory=dict)
+    pvcs: dict[str, "t.PersistentVolumeClaim"] = field(default_factory=dict)  # "ns/name"
+    storage_classes: dict[str, "t.StorageClass"] = field(default_factory=dict)
+    services: dict[str, "t.Service"] = field(default_factory=dict)  # "ns/name"
+    volumes_generation: int = -1
+    # the Cache's DRA index, SHARED by reference (single-owner loop thread:
+    # encode and Reserve both run on it, like the volume listers' dicts)
+    dra: object = None
+    # assigned/assumed pods carrying any (anti)affinity — lets the encoder
+    # skip the whole template-group/affinity pass in O(1) on affinity-free
+    # clusters (the SchedulingBasic steady state)
+    pods_with_affinity: int = 0
+
+    def node_infos(self) -> list[NodeInfo]:
+        return [self.nodes[n] for n in self.node_order]
+
+    def dirty_since(self, watermark: int) -> "list[str] | None":
+        """Node names touched in the backing cache past ``watermark``
+        (cache generations) — the O(Δ) candidate set the tensor encoder
+        scans instead of all N nodes (the informer-to-tensor sync was an
+        O(N)-python-per-cycle wall at 100k nodes). None when the snapshot
+        has no live cache behind it (hand-built test snapshots): callers
+        fall back to the full scan. The list may be a SUPERSET of what
+        this snapshot has folded in — consumers must still gen-check each
+        candidate, never trust membership alone."""
+        cache = self.cache_token
+        if cache is None:
+            return None
+        touched = getattr(cache, "touched_since", None)
+        if touched is None:
+            return None
+        return touched(watermark)
+
+    def appends_only_since(self, order_epoch: int) -> bool:
+        """True when every node-set change in the backing cache since
+        ``order_epoch`` appended to the order (no removals) — the
+        precondition for the encoder's append-incremental branch (a wave
+        of node ADDS extends the tensors in place instead of the full
+        O(N) rebuild per event). False without a live cache."""
+        cache = self.cache_token
+        if cache is None:
+            return False
+        fn = getattr(cache, "appends_only_since", None)
+        return bool(fn(order_epoch)) if fn is not None else False
+
+    def num_nodes(self) -> int:
+        return len(self.node_order)
+
+    def all_pods(self) -> list[t.Pod]:
+        return [p for n in self.node_order for p in self.nodes[n].pods.values()]
+
+
+class Cache:
+    """The scheduler cache (cache.go:59). Thread-safety is the caller's
+    problem in this framework: the scheduling loop owns the cache and applies
+    informer deltas between batch cycles (single-writer, like the reference's
+    serialized scheduling cycle)."""
+
+    def __init__(self, ttl_seconds: float = 30.0, clock=time.monotonic) -> None:
+        self._nodes: dict[str, NodeInfo] = {}
+        self._node_order: list[str] = []
+        self._pods: dict[str, t.Pod] = {}       # uid -> pod (assigned or assumed)
+        self._assumed: dict[str, float | None] = {}  # uid -> bind-finished deadline
+        self._last_gen = 0
+        # recency-ordered dirty-node index: node name -> generation at last
+        # touch, most recent LAST — update_snapshot walks it backwards and
+        # stops at the snapshot's watermark, so the per-cycle refresh is
+        # O(nodes touched since last refresh), not O(all nodes)
+        self._touched: "collections.OrderedDict[str, int]" = collections.OrderedDict()
+        # bumped on every node add/remove (the snapshot fast path requires an
+        # unchanged node set + order)
+        self._order_epoch = 0
+        # the order epoch at the last NON-append structural change (a node
+        # removal): epochs past this are pure appends, which the encoder's
+        # append-incremental branch can extend in place
+        self._nonappend_epoch = 0
+        self._ns_gen = 0
+        self._ttl = ttl_seconds
+        self._clock = clock
+        self._deleted_nodes: dict[str, NodeInfo] = {}
+        self._aff_pods = 0   # cached pods carrying any (anti)affinity
+        self._namespaces: dict[str, dict[str, str]] = {}
+        self._pvs: dict[str, t.PersistentVolume] = {}
+        self._pvcs: dict[str, t.PersistentVolumeClaim] = {}
+        self._storage_classes: dict[str, t.StorageClass] = {}
+        self._services: dict[str, t.Service] = {}
+        self._volumes_gen = 0  # object-lister generation (pv/pvc/sc/service)
+        # DRA listers are not ported: no DraIndex, and the port's encoder
+        # raises on any pod with resource claims
+        self.dra = None
+
+    # --- services (the DefaultSelector feed) -----------------------------
+    def add_service(self, svc: "t.Service") -> None:
+        self._services[svc.key] = svc
+        self._volumes_gen += 1
+
+    update_service = add_service
+
+    def remove_service(self, key: str) -> None:
+        if self._services.pop(key, None) is not None:
+            self._volumes_gen += 1
+
+    # --- volumes (pv/pvc/storageclass listers) ---------------------------
+    def add_pv(self, pv: "t.PersistentVolume") -> None:
+        self._pvs[pv.name] = pv
+        self._volumes_gen += 1
+
+    update_pv = add_pv
+
+    def remove_pv(self, name: str) -> None:
+        if self._pvs.pop(name, None) is not None:
+            self._volumes_gen += 1
+
+    def add_pvc(self, pvc: "t.PersistentVolumeClaim") -> None:
+        self._pvcs[pvc.key] = pvc
+        self._volumes_gen += 1
+
+    update_pvc = add_pvc
+
+    def remove_pvc(self, key: str) -> None:
+        if self._pvcs.pop(key, None) is not None:
+            self._volumes_gen += 1
+
+    def add_storage_class(self, sc: "t.StorageClass") -> None:
+        self._storage_classes[sc.name] = sc
+        self._volumes_gen += 1
+
+    update_storage_class = add_storage_class
+
+    def remove_storage_class(self, name: str) -> None:
+        if self._storage_classes.pop(name, None) is not None:
+            self._volumes_gen += 1
+
+    # --- namespaces ------------------------------------------------------
+    def add_namespace(self, ns: "t.Namespace") -> None:
+        self._namespaces[ns.name] = ns.labels_dict()
+        self._ns_gen += 1
+
+    update_namespace = add_namespace
+
+    def remove_namespace(self, name: str) -> None:
+        if self._namespaces.pop(name, None) is not None:
+            self._ns_gen += 1
+
+    # --- generations -----------------------------------------------------
+    def _next_gen(self) -> int:
+        self._last_gen += 1
+        return self._last_gen
+
+    def _touch(self, info: NodeInfo) -> None:
+        """Advance the node's generation and move it to the tail of the
+        recency index (the snapshot fast path's work list)."""
+        info.generation = self._next_gen()
+        self._touched[info.node.name] = info.generation
+        self._touched.move_to_end(info.node.name)
+
+    def touched_since(self, watermark: int) -> list[str]:
+        """Node names touched past generation ``watermark``, newest first —
+        a backwards walk of the recency index that stops at the watermark,
+        so cost is O(Δ touched), not O(all nodes). The tensor encoder uses
+        this as its dirty-row candidate set (Snapshot.dirty_since)."""
+        out: list[str] = []
+        for name in reversed(self._touched):
+            if self._touched[name] <= watermark:
+                break
+            out.append(name)
+        return out
+
+    def appends_only_since(self, order_epoch: int) -> bool:
+        """True when every structural node-set change since ``order_epoch``
+        was an append (add_node / placeholder insert) — no removal reindexed
+        the order (Snapshot.appends_only_since)."""
+        return self._nonappend_epoch <= order_epoch
+
+    # --- nodes -----------------------------------------------------------
+    def add_node(self, node: t.Node) -> None:
+        info = self._nodes.get(node.name)
+        if info is None:
+            # A node deleted while its pods were still assigned keeps its
+            # accounting in _deleted_nodes; a re-add (node flap) restores it.
+            info = self._deleted_nodes.pop(node.name, None)
+            if info is None:
+                info = NodeInfo(node=node)
+            self._nodes[node.name] = info
+            self._node_order.append(node.name)
+            self._order_epoch += 1
+        info.node = node
+        self._touch(info)
+
+    def update_node(self, node: t.Node) -> None:
+        self.add_node(node)
+
+    def has_node(self, name: str) -> bool:
+        return name in self._nodes
+
+    def get_node_info(self, name: str) -> NodeInfo | None:
+        """Live NodeInfo view (single-owner loop access — lifecycle plugins
+        read labels without forcing a snapshot refresh)."""
+        return self._nodes.get(name)
+
+    # live lister views (satisfy the VolumeState snapshot-like protocol)
+    @property
+    def pvs(self) -> dict:
+        return self._pvs
+
+    @property
+    def pvcs(self) -> dict:
+        return self._pvcs
+
+    @property
+    def storage_classes(self) -> dict:
+        return self._storage_classes
+
+    def remove_node(self, name: str) -> None:
+        """cache.go RemoveNode semantics: the NodeInfo must survive while pods
+        are still assigned to it (pod deletes arrive on a different watch);
+        it is kept out of the snapshot but retains its accounting until the
+        last pod drains."""
+        info = self._nodes.pop(name, None)
+        if info is None:
+            return
+        self._node_order.remove(name)
+        self._order_epoch += 1
+        self._nonappend_epoch = self._order_epoch   # removal reindexes order
+        self._touched.pop(name, None)
+        if info.pods:
+            self._deleted_nodes[name] = info
+
+    # --- pods ------------------------------------------------------------
+    def add_pod(self, pod: t.Pod) -> None:
+        """An assigned pod observed from the watch (AddPod). Idempotent: a
+        relisted duplicate Add replaces the previous accounting instead of
+        double-counting (the reference cache errors on duplicate adds;
+        replace-on-add keeps aggregates correct under informer resyncs)."""
+        if pod.uid in self._pods:
+            # Confirmation of an assumed pod, or a duplicate/resynced Add:
+            # replace the previous view.
+            self._remove_pod_internal(self._pods[pod.uid])
+            self._assumed.pop(pod.uid, None)
+        self._add_pod_internal(pod)
+
+    def update_pod(self, old: t.Pod, new: t.Pod) -> None:
+        """The cached state, not the caller's ``old``, is what gets removed
+        (cache.go:560 UpdatePod uses currState) — informer deltas can carry a
+        stale view whose node/requests diverge from what we accounted."""
+        cached = self._pods.get(old.uid, old)
+        self._remove_pod_internal(cached)
+        self._add_pod_internal(new)
+
+    def remove_pod(self, pod: t.Pod) -> None:
+        """cache.go:583 RemovePod: remove the CACHED pod — a Delete event may
+        arrive with node_name unset (bind never observed) and must still drop
+        the accounting from whichever node we assumed it onto."""
+        self._assumed.pop(pod.uid, None)
+        cached = self._pods.get(pod.uid, pod)
+        self._remove_pod_internal(cached)
+
+    def assume_pod(self, pod: t.Pod) -> None:
+        """cache.go:397 AssumePod — pod must carry node_name."""
+        if not pod.node_name:
+            raise ValueError("assumed pod must have node_name set")
+        if pod.uid in self._pods:
+            raise KeyError(f"pod {pod.uid} already in cache")
+        self._add_pod_internal(pod)
+        self._assumed[pod.uid] = None  # no expiry until binding finishes
+
+    def finish_binding(self, uid: str) -> None:
+        if uid in self._assumed:
+            self._assumed[uid] = self._clock() + self._ttl
+
+    def forget_pod(self, pod: t.Pod) -> None:
+        if pod.uid in self._assumed:
+            del self._assumed[pod.uid]
+            self._remove_pod_internal(pod)
+
+    def has_pod(self, uid: str) -> bool:
+        """Is the pod (assigned or assumed) still present? Preemption's
+        eligibility gate polls this: a victim whose informer delete hasn't
+        arrived is 'terminating' (default_preemption.go:364)."""
+        return uid in self._pods
+
+    def is_assumed(self, uid: str) -> bool:
+        return uid in self._assumed
+
+    def cleanup_expired(self) -> list[str]:
+        """Expire assumed pods whose bind never confirmed (cache.go expiry
+        goroutine). Returns expired uids."""
+        now = self._clock()
+        expired = [
+            uid for uid, dl in self._assumed.items() if dl is not None and dl < now
+        ]
+        for uid in expired:
+            pod = self._pods[uid]
+            del self._assumed[uid]
+            self._remove_pod_internal(pod)
+        return expired
+
+    def _add_pod_internal(self, pod: t.Pod) -> None:
+        if not pod.node_name:
+            raise ValueError(f"cached pod {pod.uid} must have node_name set")
+        if _pod_has_affinity(pod):
+            self._aff_pods += 1
+        self._pods[pod.uid] = pod
+        info = self._nodes.get(pod.node_name)
+        if info is None and pod.node_name in self._deleted_nodes:
+            info = self._deleted_nodes[pod.node_name]
+        if info is None:
+            # Pod on an unknown node: create a placeholder (the reference
+            # keeps such pods in an imaginary nodeInfo too).
+            info = NodeInfo(node=t.Node(name=pod.node_name))
+            self._nodes[pod.node_name] = info
+            self._node_order.append(pod.node_name)
+            self._order_epoch += 1
+        info.add_pod(pod)
+        self._touch(info)
+
+    def _remove_pod_internal(self, pod: t.Pod) -> None:
+        known = self._pods.pop(pod.uid, None)
+        if known is not None and _pod_has_affinity(known):
+            self._aff_pods -= 1
+        info = self._nodes.get(pod.node_name)
+        if info is None:
+            info = self._deleted_nodes.get(pod.node_name)
+        if info is not None:
+            info.remove_pod(pod)
+            self._touch(info)
+            if not info.pods and pod.node_name in self._deleted_nodes:
+                del self._deleted_nodes[pod.node_name]
+
+    # --- snapshot --------------------------------------------------------
+    def update_snapshot(self, snapshot: Snapshot | None = None) -> Snapshot:
+        """Incremental snapshot refresh (cache.go:190): clone only nodes whose
+        generation moved; preserve node order.
+
+        Fast path: a snapshot previously refreshed from THIS cache whose node
+        set/order hasn't changed walks the recency index backwards from the
+        newest touch down to its watermark — O(nodes touched since the last
+        refresh). Any node add/remove (or a foreign snapshot) falls back to
+        the full O(N) scan."""
+        if snapshot is None:
+            snapshot = Snapshot()
+        if (
+            snapshot.cache_token is self
+            and snapshot.order_epoch == self._order_epoch
+        ):
+            # O(Δ): only nodes touched past the watermark need a re-clone
+            for name in reversed(self._touched):
+                gen = self._touched[name]
+                if gen <= snapshot.cache_watermark:
+                    break
+                info = self._nodes.get(name)
+                if info is None:
+                    continue  # deleted-node accounting (not snapshotted)
+                snapshot.nodes[name] = info.clone()
+                snapshot.node_generation[name] = info.generation
+        else:
+            new_nodes: dict[str, NodeInfo] = {}
+            new_gens: dict[str, int] = {}
+            for name in self._node_order:
+                info = self._nodes[name]
+                prev = snapshot.nodes.get(name)
+                if prev is not None and snapshot.node_generation.get(name) == info.generation:
+                    new_nodes[name] = prev
+                else:
+                    new_nodes[name] = info.clone()
+                new_gens[name] = info.generation
+            snapshot.nodes = new_nodes
+            snapshot.node_generation = new_gens
+            snapshot.node_order = list(self._node_order)
+            snapshot.cache_token = self
+            snapshot.order_epoch = self._order_epoch
+        snapshot.cache_watermark = self._last_gen
+        if snapshot.namespaces_generation != self._ns_gen:
+            # namespace labels are read-only per object: copy per CHANGE,
+            # not per refresh (the per-cycle dict rebuild was hot-loop waste)
+            snapshot.namespaces = {
+                k: dict(v) for k, v in self._namespaces.items()
+            }
+            snapshot.namespaces_generation = self._ns_gen
+        if snapshot.volumes_generation != self._volumes_gen:
+            # lister objects are immutable values: a shallow dict copy per
+            # CHANGE (not per refresh) gives the snapshot a stable view
+            snapshot.pvs = dict(self._pvs)
+            snapshot.pvcs = dict(self._pvcs)
+            snapshot.storage_classes = dict(self._storage_classes)
+            snapshot.services = dict(self._services)
+            snapshot.volumes_generation = self._volumes_gen
+        snapshot.dra = self.dra
+        snapshot.pods_with_affinity = self._aff_pods
+        snapshot.generation = self._next_gen()
+        return snapshot

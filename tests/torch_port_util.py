@@ -1,0 +1,147 @@
+"""Helpers shared by the ``test_torch_*`` parity tests: carry kubetpu's
+cluster objects and device batches across to the PyTorch port.
+
+The port keeps its own copies of the host types (``kubetpu_torch.api``), so
+a kubetpu object is rebuilt field for field as the port's same-named class.
+Device batches cross as numpy leaves (``jax.device_get``), keyed by the
+reference's field names.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import importlib
+
+import jax
+
+import kubetpu  # noqa: F401  (x64 on before any kernel runs)
+from kubetpu.api import types as kt
+from kubetpu.api.wrappers import make_node, make_pod
+from kubetpu.framework import runtime as krt
+from kubetpu.perf import workloads as KW
+from kubetpu.state.snapshot import Cache
+
+from kubetpu_torch.framework import runtime as prt
+from kubetpu_torch.state.snapshot import Cache as PortCache
+
+
+def to_port(obj):
+    """Rebuild a kubetpu host object (dataclass / enum / container tree) as
+    the port's same-named class."""
+    if isinstance(obj, enum.Enum):
+        cls = _port_class(type(obj))
+        return cls[obj.name] if cls is not type(obj) else obj
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        cls = _port_class(type(obj))
+        kw = {}
+        late = {}
+        for f in dataclasses.fields(obj):
+            v = to_port(getattr(obj, f.name))
+            (kw if f.init else late)[f.name] = v
+        new = cls(**kw)
+        for k, v in late.items():
+            object.__setattr__(new, k, v)
+        return new
+    if isinstance(obj, tuple):
+        return tuple(to_port(v) for v in obj)
+    if isinstance(obj, list):
+        return [to_port(v) for v in obj]
+    if isinstance(obj, frozenset):
+        return frozenset(to_port(v) for v in obj)
+    if isinstance(obj, dict):
+        return {to_port(k): to_port(v) for k, v in obj.items()}
+    return obj
+
+
+def _port_class(cls):
+    mod = cls.__module__
+    if not mod.startswith("kubetpu."):
+        return cls
+    port_mod = importlib.import_module("kubetpu_torch." + mod[len("kubetpu."):])
+    return getattr(port_mod, cls.__qualname__)
+
+
+def port_cache(cache) -> PortCache:
+    """The port's Cache holding the same nodes (in order) and pods."""
+    pc = PortCache()
+    for name in cache._node_order:
+        pc.add_node(to_port(cache._nodes[name].node))
+    for pod in cache._pods.values():
+        pc.add_pod(to_port(pod))
+    return pc
+
+
+def jax_leaves(b: "krt.DeviceBatch") -> dict:
+    """numpy leaves of a kubetpu DeviceBatch keyed by field name."""
+    host = jax.device_get(b)
+    out = {f.name: getattr(host.nodes, f.name)
+           for f in dataclasses.fields(host.nodes)}
+    for f in dataclasses.fields(host):
+        if f.name != "nodes":
+            out[f.name] = getattr(host, f.name)
+    return out
+
+
+def port_batch_from_jax(b: "krt.DeviceBatch", device="cpu") -> "prt.DeviceBatch":
+    return prt.device_batch_from_numpy(jax_leaves(b), device)
+
+
+def port_params(params: "krt.ScoreParams") -> "prt.ScoreParams":
+    return prt.score_params_from_dict(dataclasses.asdict(params))
+
+
+def images_cluster(rng, num_nodes=30, num_pending=20):
+    """Nodes carrying images and zone labels; pods with images, preferred
+    node affinity and PreferNoSchedule tolerations."""
+    cache = Cache()
+    imgs = [f"img-{i}" for i in range(5)]
+    for i in range(num_nodes):
+        node_images = {
+            im: kt.ImageState(size_bytes=int(rng.integers(10, 900)) * 1024**2,
+                              num_nodes=int(rng.integers(1, num_nodes)))
+            for im in imgs if rng.random() < 0.4
+        }
+        taints = ()
+        if rng.random() < 0.3:
+            taints = (kt.Taint(key="k", value="v",
+                               effect=kt.TaintEffect.PREFER_NO_SCHEDULE),)
+        cache.add_node(make_node(
+            f"n-{i}", cpu_milli=int(rng.integers(1000, 8000)),
+            memory=int(rng.integers(1, 16)) * 1024**3,
+            labels={"zone": f"z{i % 3}"}, taints=taints, images=node_images,
+        ))
+    pending = []
+    for j in range(num_pending):
+        kw = {}
+        if rng.random() < 0.5:
+            kw["images"] = list(rng.choice(imgs, size=2, replace=False))
+        if rng.random() < 0.5:
+            kw["affinity"] = kt.Affinity(node_affinity=kt.NodeAffinity(preferred=(
+                kt.PreferredSchedulingTerm(int(rng.integers(1, 100)), kt.NodeSelectorTerm(
+                    (kt.Requirement("zone", kt.Operator.IN, (f"z{j % 3}",)),))),
+            )))
+        pending.append(make_pod(f"p-{j}", cpu_milli=int(rng.integers(0, 2000)),
+                                memory=int(rng.integers(0, 4)) * 1024**3,
+                                creation_index=j, **kw))
+    return cache, pending
+
+
+def basic_cluster(num_nodes=100, num_bound=60, num_pending=40):
+    cache = Cache()
+    nodes = [KW.node_default(i) for i in range(num_nodes)]
+    for n in nodes:
+        cache.add_node(n)
+    for j in range(num_bound):
+        cache.add_pod(KW.pod_default(f"init-{j}", "namespace-0").with_node(
+            nodes[j % num_nodes].name))
+    pending = [KW.pod_default(f"m-{j}", "namespace-1") for j in range(num_pending)]
+    return cache, pending
+
+
+def encoded_pair(cache, pending, profile):
+    """kubetpu's encoded batch and params, and the port's batch carried
+    across from it (``device_batch_from_numpy`` on CPU) with its params."""
+    kb = krt.encode_batch(cache.update_snapshot(), pending, profile)
+    kp = krt.score_params(profile, kb.resource_names)
+    return kb.device, kp, port_batch_from_jax(kb.device), port_params(kp)
