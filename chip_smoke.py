@@ -16,19 +16,34 @@ final ``ok`` line is not printed):
 3. kernels vs plain: on seeded encoded batches — one SchedulingBasic cycle
    at 1024 pods × 5120 padded nodes, a mixed cluster (static masks, host
    ports, images, node-affinity preferences, taints, an extended
-   resource) under all three scoring strategies, and a saturated batch —
+   resource) under all three scoring strategies, a saturated batch, a
+   mixed inter-pod affinity cluster (several zones, a zone key missing on
+   some nodes, required affinity with the self-affinity escape, required
+   anti-affinity, existing pods' anti-affinity, preferred terms of both
+   signs) and one SchedulingPodAffinity cycle at 1024 × 5120 —
    ``filter_score`` must equal the plain ``feasible_and_scores`` (mask and
-   int64 total) and the ``greedy_scan`` engine must equal
-   ``greedy_assign_plain`` (assignments and final node state) exactly, on
+   int64 total), the ``greedy_scan`` engine must equal
+   ``greedy_assign_plain`` (assignments, final node state and affinity
+   sums) and the batched engine's ``batched_round`` rounds must equal
+   ``batched_assign_plain`` (the same, and the round count) exactly, on
    CUDA tensors;
-4. main path: ``run_workload("SchedulingBasic", "5000Nodes_10000Pods",
-   device="cuda")`` with the launch counts reset just before and read just
-   after; checks that all 11000 pods are bound, that no node exceeds its
-   allocatable or its pod count, and that the first cycle's kernel
-   assignments equal the plain greedy loop's on the same batch;
+4. main paths, each with the launch counts reset just before it and read
+   just after: ``run_workload("SchedulingBasic", "5000Nodes_10000Pods",
+   device="cuda")`` on the greedy engine, then
+   ``run_workload("SchedulingPodAffinity", "5000Nodes_5000Pods",
+   engine="batched", device="cuda")``; each checks that all its pods are
+   bound, that no node exceeds its allocatable or its pod count, that its
+   kernels were launched, and that the first cycle's kernel assignments
+   equal the plain engine's on the same batch;
 5. prints the kernels' JSON line, the card line, and the ``ok`` line last.
 
 Tolerance everywhere: exact (integer masks, scores and assignments).
+
+``python3 chip_smoke.py --time-basic ROOT`` instead times only
+``filter_score`` and the ``greedy_scan`` engine of the checkout at ``ROOT``
+on the SchedulingBasic cycle and prints one JSON line. Run it on two
+checkouts in turns (parent, change, change, parent) to compare the two on
+one card within one call.
 """
 
 from __future__ import annotations
@@ -183,6 +198,86 @@ def mixed_case(seed=0, n_nodes=2000, n_bound=3000, n_pending=512):
     return _cache_with(nodes, bound), pending
 
 
+def affinity_case(seed=0, n_nodes=2000, n_bound=3000, n_pending=512):
+    """A seeded inter-pod affinity cluster with every slot kind: three
+    zones and nodes without a zone label, assigned pods carrying required
+    (anti-)affinity and preferred terms, pending pods with required zone
+    affinity (some matching their own terms: the self-affinity escape on an
+    app no pod runs yet), required hostname and zone anti-affinity, and
+    preferred affinity and anti-affinity of both signs."""
+    import numpy as np
+
+    from kubetpu_torch.api import types as t
+    from kubetpu_torch.api.wrappers import make_node, make_pod, pod_affinity_term
+
+    zone, host = "topology.kubernetes.io/zone", "kubernetes.io/hostname"
+    apps = ["web", "db", "cache", "fresh"]
+    rng = np.random.default_rng(seed)
+
+    def affinity():
+        app = str(rng.choice(apps))
+        key = zone if rng.random() < 0.6 else host
+        term = pod_affinity_term(key, match_labels={"app": app})
+        weighted = t.WeightedPodAffinityTerm(int(rng.integers(1, 101)), term)
+        kind = rng.random()
+        if kind < 0.25:
+            return t.Affinity(pod_affinity=t.PodAffinity(required=(term,)))
+        if kind < 0.45:
+            return t.Affinity(pod_anti_affinity=t.PodAffinity(required=(term,)))
+        if kind < 0.75:
+            return t.Affinity(pod_affinity=t.PodAffinity(preferred=(weighted,)))
+        return t.Affinity(pod_anti_affinity=t.PodAffinity(preferred=(weighted,)))
+
+    nodes = []
+    for i in range(n_nodes):
+        labels = {host: f"node-{i}"}
+        if rng.random() < 0.9:
+            labels[zone] = f"z{i % 3}"
+        nodes.append(make_node(
+            f"node-{i}", cpu_milli=int(rng.integers(2000, 16001)),
+            memory=int(rng.integers(4, 64)) * 1024**3,
+            pods=int(rng.integers(8, 110)), labels=labels,
+        ))
+    bound = []
+    for j in range(n_bound):
+        node = nodes[int(rng.integers(0, n_nodes))]
+        bound.append(make_pod(
+            f"existing-{j}", cpu_milli=int(rng.integers(0, 501)),
+            memory=int(rng.integers(0, 4)) * 256 * 1024**2, node_name=node.name,
+            labels={"app": str(rng.choice(apps[:3]))},
+            affinity=affinity() if rng.random() < 0.2 else None,
+        ))
+    pending = []
+    for j in range(n_pending):
+        pending.append(make_pod(
+            f"pending-{j}", cpu_milli=int(rng.integers(0, 2001)),
+            memory=int(rng.integers(0, 8)) * 256 * 1024**2, creation_index=j,
+            labels={"app": str(rng.choice(apps))},
+            affinity=affinity() if rng.random() < 0.7 else None,
+        ))
+    return _cache_with(nodes, bound), pending
+
+
+def podaffinity_case(n_nodes=5000, n_bound=5000, n_pending=1024):
+    """A SchedulingPodAffinity cycle: node_default nodes all in zone1, the
+    init pods of pod_with_pod_affinity already bound round-robin in
+    sched-0, a full batch of measured pods pending in sched-1."""
+    from kubetpu_torch.api import types as t
+    from kubetpu_torch.perf import workloads as W
+
+    nodes = [W.node_default(i, ("zone1",)) for i in range(n_nodes)]
+    bound = [
+        W.pod_with_pod_affinity(f"init-{j}", "sched-0").with_node(nodes[j % n_nodes].name)
+        for j in range(n_bound)
+    ]
+    pending = [W.pod_with_pod_affinity(f"measure-{j}", "sched-1")
+               for j in range(n_pending)]
+    cache = _cache_with(nodes, bound)
+    for i in range(2):
+        cache.add_namespace(t.Namespace(name=f"sched-{i}"))
+    return cache, pending
+
+
 def saturated_case(n_nodes=64, n_pending=512):
     """More pods than capacity: most of the batch ends unschedulable (-1)."""
     from kubetpu_torch.api.wrappers import make_node, make_pod
@@ -236,13 +331,19 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def f64_ops_per_pair(params) -> int:
-    """float64 operations of the balanced score for one (pod, node) pair:
-    per side, each present resource costs a divide, a min, an add, a
+def f64_ops_per_pair(params, b) -> int:
+    """float64 operations for one (pod, node) pair: the balanced score's
+    (per side, each present resource costs a divide, a min, an add, a
     subtract, a multiply, an abs and two adds; then a mean divide, the std
-    divide or sqrt, and the final subtract and multiply."""
+    divide or sqrt, and the final subtract and multiply) and, with affinity
+    score rows, the affinity normalize's (two conversions, a multiply and a
+    divide)."""
     n_bal = sum(1 for w in params.balanced_weights if w > 0)
-    return 2 * (8 * n_bal + 4) if params.w_balanced else 0
+    ops = 2 * (8 * n_bal + 4) if params.w_balanced else 0
+    pa = b.podaffinity
+    if pa is not None and params.w_interpod and pa.has_score_work:
+        ops += 4
+    return ops
 
 
 def _max_abs(a, b) -> int:
@@ -253,14 +354,42 @@ def _max_abs(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-def check_case(name, b, params, results):
-    """Hold both kernels to their plain versions on one batch. Returns the
-    largest absolute difference seen (0 when exact)."""
+STATE_SLOTS = (0, 1, 2, 3, 5)   # node state and affinity sums; 4, 6 are None
+
+
+def _engine_err(name, ka, ks, pa, ps) -> int:
+    """Largest difference between two engines' outputs; raises unless they
+    are equal (assignments and every state slot)."""
+    import torch
+
+    err = _max_abs(ka, pa)
+    same = torch.equal(ka, pa)
+    for i in range(7):
+        if ks[i] is None and ps[i] is None:
+            continue
+        if ks[i] is None or ps[i] is None or i not in STATE_SLOTS:
+            raise AssertionError(f"{name}: state slot {i} differs in presence")
+        err = max(err, _max_abs(ks[i], ps[i]))
+        same = same and torch.equal(ks[i], ps[i])
+    if not same:
+        raise AssertionError(f"{name}: kernel differs from the plain version (max abs err {err})")
+    return err
+
+
+def check_case(name, b, params, results, batched=True):
+    """Hold the kernels to their plain versions on one batch: filter_score,
+    the greedy_scan engine and (when ``batched``) the batched_round rounds.
+    Returns the greedy kernel's assignments."""
     import torch
 
     from kubetpu_torch import kernels
+    from kubetpu_torch.assign.batched import batched_assign_plain
     from kubetpu_torch.assign.greedy import greedy_assign_plain
     from kubetpu_torch.framework import runtime as rt
+
+    def note(kernel, err):
+        results[kernel]["cases"].append(name)
+        results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
 
     km, kt = kernels.filter_score(b, params)
     pm, pt = rt.feasible_and_scores(b, params)
@@ -269,55 +398,92 @@ def check_case(name, b, params, results):
     if not (torch.equal(km, pm) and torch.equal(kt, pt)):
         raise AssertionError(f"{name}: filter_score differs from the plain version "
                              f"(max abs err {err_fs})")
+    note("filter_score", err_fs)
     ka, ks = kernels.greedy_scan(b, params)
     pa, ps = greedy_assign_plain(b, params)
     torch.cuda.synchronize()
-    err_gs = _max_abs(ka, pa)
-    for i in range(4):
-        err_gs = max(err_gs, _max_abs(ks[i], ps[i]))
-    if not torch.equal(ka, pa) or not all(torch.equal(ks[i], ps[i]) for i in range(4)):
-        raise AssertionError(f"{name}: greedy_scan differs from greedy_assign_plain "
-                             f"(max abs err {err_gs})")
-    n_unsched = int((ka[: int(b.pod_valid.sum().item())] < 0).sum().item())
+    note("greedy_scan", _engine_err(f"{name} greedy_scan", ka, ks, pa, ps))
+    n_valid = int(b.pod_valid.sum().item())
+    extra = ""
+    if batched:
+        k_rounds, p_rounds = [], []
+        va, vs = kernels.batched_assign(b, params, rounds_out=k_rounds)
+        wa, ws = batched_assign_plain(b, params, rounds_out=p_rounds)
+        torch.cuda.synchronize()
+        err = _engine_err(f"{name} batched_round", va, vs, wa, ws)
+        if k_rounds != p_rounds:
+            raise AssertionError(f"{name}: batched rounds {k_rounds} != plain {p_rounds}")
+        note("batched_round", err)
+        extra = (f", batched: {k_rounds[0]} rounds, unschedulable "
+                 f"{int((va[:n_valid] < 0).sum().item())}")
+    pa_rows = "none" if b.podaffinity is None else tuple(b.podaffinity.base_sums.shape)
     log(f"kernels vs plain [{name}]: P={b.requests.shape[0]} N={b.alloc.shape[0]} "
-        f"R={b.alloc.shape[1]} K={b.port_conflict.shape[0]} exact "
-        f"(feasible pairs {int(km.sum().item())}, unschedulable {n_unsched})")
-    results["filter_score"]["cases"].append(name)
-    results["greedy_scan"]["cases"].append(name)
-    results["filter_score"]["max_abs_err"] = max(results["filter_score"]["max_abs_err"], err_fs)
-    results["greedy_scan"]["max_abs_err"] = max(results["greedy_scan"]["max_abs_err"], err_gs)
+        f"R={b.alloc.shape[1]} K={b.port_conflict.shape[0]} affinity rows x domains "
+        f"{pa_rows}: exact (feasible pairs {int(km.sum().item())}, greedy "
+        f"unschedulable {int((ka[:n_valid] < 0).sum().item())}{extra})")
     return ka
+
+
+def affinity_profiles():
+    from kubetpu_torch.framework import config as C
+
+    return {
+        "default": C.Profile(),
+        # the affinity filter and a heavier affinity score, nothing else
+        # that normalizes
+        "interpod": C.Profile(
+            filters=C.PluginSet(enabled=(
+                (C.NODE_RESOURCES_FIT, 1), (C.INTER_POD_AFFINITY, 1),
+            )),
+            scores=C.PluginSet(enabled=(
+                (C.NODE_RESOURCES_FIT, 1), (C.INTER_POD_AFFINITY, 2),
+            )),
+            default_spread_constraints=(),
+        ),
+    }
+
+
+def _bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    bytes_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / FP64_FLOPS
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def kernels_phase():
     import torch
 
     from kubetpu_torch import kernels
+    from kubetpu_torch.assign.batched import batched_assign_plain
     from kubetpu_torch.assign.greedy import greedy_assign_plain
     from kubetpu_torch.framework import config as C
     from kubetpu_torch.framework import runtime as rt
 
-    results = {
-        "filter_score": {"cases": [], "max_abs_err": 0},
-        "greedy_scan": {"cases": [], "max_abs_err": 0},
-    }
-    # the SchedulingBasic cycle: the main path's shapes, and the timings
+    results = {k: {"cases": [], "max_abs_err": 0}
+               for k in ("filter_score", "greedy_scan", "batched_round")}
+    # the SchedulingBasic cycle: the greedy main path's shapes and timings
     cache, pending = basic_case()
     b, params = encode(cache, pending, C.Profile())
     ka = check_case("SchedulingBasic 1024x5120", b, params, results)
     for name, prof in profiles().items():
         cache_m, pending_m = mixed_case(seed=1)
         bm, pm = encode(cache_m, pending_m, prof)
-        check_case(f"mixed/{name}", bm, pm, results)
+        check_case(f"mixed/{name}", bm, pm, results, batched=name == "least")
     cache_s, pending_s = saturated_case()
     bs, ps = encode(cache_s, pending_s, C.Profile())
     check_case("saturated", bs, ps, results)
+    for name, prof in affinity_profiles().items():
+        cache_a, pending_a = affinity_case(seed=2)
+        ba, pa_ = encode(cache_a, pending_a, prof)
+        check_case(f"affinity/{name}", ba, pa_, results)
+    # the SchedulingPodAffinity cycle: the batched main path's shapes
+    cache_p, pending_p = podaffinity_case()
+    bp, pp = encode(cache_p, pending_p, C.Profile())
+    check_case("SchedulingPodAffinity 1024x5120", bp, pp, results)
 
     P, N = b.requests.shape[0], b.alloc.shape[0]
     in_bytes = rt.batch_nbytes(b)
     state_bytes = sum(int(x.nbytes) for x in (b.requested, b.nonzero_requested,
                                               b.pod_count, b.node_ports))
-    pair_ops = f64_ops_per_pair(params)
     # the greedy engine scores every pair once at the batch's start, and
     # each step again for the nodes earlier pods of the batch landed on
     a_host = ka.cpu().tolist()
@@ -327,18 +493,38 @@ def kernels_phase():
         rescored += len(seen)
         if j >= 0:
             seen.add(j)
+    rounds: list = []
+    kernels.batched_assign(bp, pp, rounds_out=rounds)
+    Pp, Np = bp.requests.shape[0], bp.alloc.shape[0]
+    pa_bytes = int(bp.podaffinity.base_sums.nbytes)
+    p_state = sum(int(x.nbytes) for x in (bp.requested, bp.nonzero_requested,
+                                          bp.pod_count, bp.node_ports))
     timing = {
         "filter_score": {
             "ms": cuda_ms(lambda: kernels.filter_score(b, params), 20),
             "plain_ms": cuda_ms(lambda: rt.feasible_and_scores(b, params), 5),
             "bytes": in_bytes + P * N * (1 + 8),
-            "ops": P * N * pair_ops,
+            "ops": P * N * f64_ops_per_pair(params, b),
+            "shape": [P, N],
+            "podaffinity_ms": cuda_ms(lambda: kernels.filter_score(bp, pp), 20),
+            "podaffinity_plain_ms": cuda_ms(lambda: rt.feasible_and_scores(bp, pp), 5),
         },
         "greedy_scan": {
             "ms": cuda_ms(lambda: kernels.greedy_scan(b, params), 10),
             "plain_ms": cuda_ms(lambda: greedy_assign_plain(b, params), 1),
             "bytes": in_bytes + P * 4 + state_bytes,
-            "ops": (P * N + rescored) * pair_ops,
+            "ops": (P * N + rescored) * f64_ops_per_pair(params, b),
+            "shape": [P, N],
+            "podaffinity_ms": cuda_ms(lambda: kernels.greedy_scan(bp, pp), 5),
+            "podaffinity_plain_ms": cuda_ms(lambda: greedy_assign_plain(bp, pp), 1),
+        },
+        "batched_round": {
+            "ms": cuda_ms(lambda: kernels.batched_assign(bp, pp), 10),
+            "plain_ms": cuda_ms(lambda: batched_assign_plain(bp, pp), 3),
+            "bytes": rt.batch_nbytes(bp) + Pp * 4 + p_state + pa_bytes,
+            "ops": rounds[0] * Pp * Np * f64_ops_per_pair(pp, bp),
+            "shape": [Pp, Np],
+            "rounds": rounds[0],
         },
     }
     out = []
@@ -346,43 +532,64 @@ def kernels_phase():
         ("filter_score", "kubetpu_torch/kernels/csrc/filter_score.cu",
          "kubetpu/framework/runtime.py:1578"),
         ("greedy_scan", "kubetpu_torch/kernels/csrc/greedy_scan.cu",
-         "kubetpu/assign/greedy.py:106"),
+         "kubetpu/assign/greedy.py:107"),
+        ("batched_round", "kubetpu_torch/kernels/csrc/batched_round.cu",
+         "kubetpu/assign/batched.py:135"),
     ):
         tm = timing[name]
-        bytes_ms = 1e3 * tm["bytes"] / HBM_BYTES_PER_S
-        ops_ms = 1e3 * tm["ops"] / FP64_FLOPS
-        out.append({
+        bound_ms, bound_by = _bound(tm["bytes"], tm["ops"])
+        line = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": None, "result": "equal to the plain version",
             "max_abs_err": results[name]["max_abs_err"],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
-            "cases": results[name]["cases"], "shape": [P, N],
-        })
-        log(f"timing [{name}] at P={P} N={N}: kernel {tm['ms']:.4f} ms, plain "
-            f"{tm['plain_ms']:.4f} ms, bound {max(bytes_ms, ops_ms):.6f} ms")
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "cases": results[name]["cases"], "shape": tm["shape"],
+        }
+        for k in ("podaffinity_ms", "podaffinity_plain_ms", "rounds"):
+            if k in tm:
+                line[k] = tm[k]
+        out.append(line)
+        log(f"timing [{name}] at P={tm['shape'][0]} N={tm['shape'][1]}: kernel "
+            f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, bound {bound_ms:.6f} ms "
+            f"({bound_by})")
+    for name in ("filter_score", "greedy_scan"):
+        log(f"timing [{name}] on the SchedulingPodAffinity batch: kernel "
+            f"{timing[name]['podaffinity_ms']:.4f} ms, plain "
+            f"{timing[name]['podaffinity_plain_ms']:.4f} ms")
     torch.cuda.synchronize()
     return out
 
 
-# --------------------------------------------------------- 4. main path
-def main_path_phase(card: str) -> dict:
+# -------------------------------------------------------- 4. main paths
+def _check_capacity(sched) -> None:
+    """Every node's exact requests within allocatable, pods within 110."""
+    for info in sched.cache.update_snapshot().node_infos():
+        alloc = dict(info.node.allocatable)
+        for k, v in info.requested.items():
+            if v > alloc.get(k, 0):
+                raise AssertionError(f"{info.node.name}: {k} {v} > {alloc.get(k, 0)}")
+        if len(info.pods) > alloc.get("pods", 0):
+            raise AssertionError(f"{info.node.name}: {len(info.pods)} pods")
+
+
+def run_path(card, case, workload, engine, expected, plain, kernel_names) -> dict:
+    """Drive one main path with the launch counts set to 0 just before it
+    and read just after; check it and print its JSON line. Returns the
+    launch counts."""
     import torch
 
     from kubetpu_torch import kernels
-    from kubetpu_torch.assign.greedy import greedy_assign_plain
     from kubetpu_torch.perf import run_workload
 
     captured: dict = {}
 
     def observe(sched):
         captured["sched"] = sched
-        engine = sched._assign_device
+        engine_fn = sched._assign_device
 
         def first_cycle_recorder(b, params):
-            out = engine(b, params)
+            out = engine_fn(b, params)
             if "first" not in captured:
                 captured["first"] = (b, params, out[0].clone())
             return out
@@ -391,38 +598,34 @@ def main_path_phase(card: str) -> dict:
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    res = run_workload("SchedulingBasic", "5000Nodes_10000Pods", device="cuda",
+    res = run_workload(case, workload, engine=engine, device="cuda",
                        on_scheduler=observe)
     wall = time.perf_counter() - t0
     launches = dict(kernels.launch_counts)
 
     sched = captured["sched"]
-    expected = 1000 + 10000
     if res.bound_total != expected or res.scheduled != res.measure_pods:
-        raise AssertionError(f"main path bound {res.bound_total} of {expected} pods")
-    # capacity: every node's exact requests within allocatable, pods <= 110
-    for info in sched.cache.update_snapshot().node_infos():
-        alloc = dict(info.node.allocatable)
-        for k, v in info.requested.items():
-            if v > alloc.get(k, 0):
-                raise AssertionError(f"{info.node.name}: {k} {v} > {alloc.get(k, 0)}")
-        if len(info.pods) > alloc.get("pods", 0):
-            raise AssertionError(f"{info.node.name}: {len(info.pods)} pods")
+        raise AssertionError(f"{case}/{workload}: bound {res.bound_total} of {expected} pods")
+    _check_capacity(sched)
     b, params, first = captured["first"]
-    plain, _ = greedy_assign_plain(b, params)
+    want, _ = plain(b, params)
     torch.cuda.synchronize()
-    if not torch.equal(first, plain):
-        raise AssertionError("first cycle: kernel assignments differ from the plain greedy")
-    for name in ("filter_score", "greedy_scan"):
+    if not torch.equal(first, want):
+        raise AssertionError(f"{case}: first cycle's kernel assignments differ from the "
+                             "plain engine's")
+    for name in kernel_names:
         if launches[name] < 1:
-            raise AssertionError(f"main path never launched {name}")
+            raise AssertionError(f"{case}/{workload}: main path never launched {name}")
+    rounds = [c.rounds for c in sched.metrics.cycle_timings]
     line = {
         "main_path": {
-            "workload": "SchedulingBasic/5000Nodes_10000Pods",
+            "workload": f"{case}/{workload}", "engine": engine,
             "pods_bound": res.bound_total, "pods_per_s": res.throughput,
             "measured_pods": res.scheduled, "measured_s": res.duration_s,
             "cycles": res.cycles, "cycle_ms": res.cycle_ms,
             "upload_bytes_per_cycle": res.upload_bytes_per_cycle,
+            "rounds_per_cycle": res.rounds_per_cycle,
+            "rounds_by_cycle": rounds if engine == "batched" else None,
             "run_s": wall, "launches": launches, "first_cycle_equal": True,
             "card": card,
         }
@@ -431,7 +634,43 @@ def main_path_phase(card: str) -> dict:
     return launches
 
 
+def main_path_phase(card: str) -> list[dict]:
+    from kubetpu_torch.assign.batched import batched_assign_plain
+    from kubetpu_torch.assign.greedy import greedy_assign_plain
+
+    return [
+        run_path(card, "SchedulingBasic", "5000Nodes_10000Pods", "greedy",
+                 1000 + 10000, greedy_assign_plain, ("filter_score", "greedy_scan")),
+        run_path(card, "SchedulingPodAffinity", "5000Nodes_5000Pods", "batched",
+                 5000 + 5000, batched_assign_plain, ("filter_score", "batched_round")),
+    ]
+
+
+def time_basic(root: str) -> int:
+    """The ``--time-basic ROOT`` mode: CUDA-event medians of the checkout
+    at ``root``'s ``filter_score`` and ``greedy_scan`` engine on the
+    SchedulingBasic cycle (1024 pods x 5120 padded nodes)."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    card = device_phase()
+    from kubetpu_torch import kernels
+    from kubetpu_torch.framework import config as C
+
+    kernels.build()
+    cache, pending = basic_case()
+    b, params = encode(cache, pending, C.Profile())
+    log(json.dumps({
+        "time_basic": {
+            "root": root, "card": card,
+            "filter_score_ms": cuda_ms(lambda: kernels.filter_score(b, params), 20),
+            "greedy_scan_ms": cuda_ms(lambda: kernels.greedy_scan(b, params), 10),
+        }
+    }))
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-basic":
+        return time_basic(sys.argv[2])
     if not (ROOT / "kubetpu_torch" / "kernels" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run from the root of a kubetpu checkout "
                          "(kubetpu_torch/ not found beside this script)")
@@ -440,9 +679,9 @@ def main() -> int:
     card = device_phase()
     build_phase()
     kernel_lines = kernels_phase()
-    launches = main_path_phase(card)
+    path_launches = main_path_phase(card)
     for k in kernel_lines:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = sum(launches[k["name"]] for launches in path_launches)
     import torch
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -1,4 +1,5 @@
-"""Assignment engines. The slice ports the greedy engine; the batched and
-packing engines are ROADMAP Queue A items 6 and 11."""
+"""Assignment engines: greedy and batched. The packing engine is ROADMAP
+Queue A item 11."""
 
+from .batched import batched_assign_device, batched_assign_plain  # noqa: F401
 from .greedy import greedy_assign_device, greedy_assign_plain  # noqa: F401

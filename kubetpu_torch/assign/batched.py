@@ -1,0 +1,212 @@
+"""Batched assignment — capacity-coupled rounds instead of a per-pod scan.
+
+Port of ``kubetpu/assign/batched.py``. The reference solves the whole batch
+as a small number of *rounds* under one ``lax.while_loop``, each round:
+
+1. Score all still-unassigned pods against the CURRENT node state (the same
+   ``feasible_and_scores`` composition the greedy scan steps through).
+2. **Tie-spread argmax** (``_tie_spread_choice``): pods whose (max score,
+   tie set) coincide are fanned across their tie set by rank instead of all
+   piling onto the first max.
+3. **One-per-node queue-order acceptance** (``_accept``): of the pods that
+   chose a node, only the first in queue order is admitted this round
+   (capacity checked); the queue-order prefix before the first rejection
+   commits, and the rest are rescored next round against the updated state.
+
+On a CUDA batch ``batched_assign_device`` launches the hand-written
+``batched_round`` kernels (``kernels/csrc/batched_round.cu``), one round
+after another from the host; ``batched_assign_plain`` is the plain
+PyTorch version, the reference's round body op for op, which a CPU batch
+runs and the kernels are held to.
+
+The reference hashes tie rows in uint64. PyTorch has no uint64 ``<<`` or
+comparison, so the hash is int64 here: wrapping multiply, sum, xor and
+shift give the same bits, and grouping reads only equality of the hash
+(with the queue index as tiebreak), so the signed sort order changes no
+rank.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..framework import runtime as rt
+
+# plain int, as in the reference: the masked score of an infeasible pair
+I64_MIN = -(2**62)
+_HASH_MUL = 2654435761
+_U32 = 0xFFFFFFFF
+
+
+def tie_weights(n: int, device) -> torch.Tensor:
+    """(N,) int64 per-node hash weights: the reference's uint32
+    ``iota * 2654435761 + 1`` (wrapping at 2^32), widened."""
+    iota = torch.arange(n, dtype=torch.int64, device=device)
+    return (iota * _HASH_MUL + 1) & _U32
+
+
+def _tie_spread_choice(mask, score, active):
+    """Per-pod target node: the rank-r pod of each (max score, tie set)
+    group takes the (r mod |ties|)-th tie node. Returns (P,) int32, -1 = no
+    feasible node."""
+    p, n = mask.shape
+    dev = mask.device
+    feasible = mask & active[:, None]
+    any_f = torch.any(feasible, dim=1)
+    masked = torch.where(feasible, score, I64_MIN)
+    best = torch.max(masked, dim=1).values                  # (P,)
+    ties = feasible & (masked == best[:, None])             # (P, N)
+
+    # group hash: a deterministic projection of the tie row and the max
+    # score (a collision only merges two groups' rank counters)
+    w = tie_weights(n, dev)
+    h = torch.sum(torch.where(ties, w[None, :], 0), dim=1)
+    h = h ^ (best << 1)
+    h = torch.where(any_f & active, h, 0)
+
+    # rank of each pod within its hash group, by pod (queue) order: a
+    # stable sort by hash keeps queue order inside a group
+    iota = torch.arange(p, dtype=torch.int32, device=dev)
+    sh, si = torch.sort(h, stable=True)
+    new_seg = torch.ones(p, dtype=torch.bool, device=dev)
+    new_seg[1:] = sh[1:] != sh[:-1]
+    seg_start = torch.where(new_seg, iota, 0)
+    seg_start = torch.cummax(seg_start, dim=0).values
+    rank_sorted = iota - seg_start
+    rank = torch.zeros(p, dtype=torch.int32, device=dev)
+    rank[si] = rank_sorted
+
+    cnt = torch.sum(ties, dim=1).to(torch.int32)            # (P,)
+    r = torch.where(cnt > 0, rank % torch.clamp(cnt, min=1), 0)
+    # the (r+1)-th True column of the tie row
+    csum = torch.cumsum(ties.to(torch.int32), dim=1)        # (P, N)
+    choice = torch.argmax((csum == (r[:, None] + 1)).to(torch.int8), dim=1)
+    return torch.where(any_f & active, choice.to(torch.int32), -1).to(torch.int32)
+
+
+def _accept(choice, requests, free, count_room, check_capacity=True):
+    """Queue-order admission, at most ONE pod per node per round.
+
+    ``choice`` (P,) target node (-1 = none); ``free`` (N, R) remaining
+    resources; ``count_room`` (N,) remaining pod slots. ``check_capacity``
+    mirrors the profile's NodeResourcesFit *filter*: without it the greedy
+    scan overcommits a node, so the rounds must not re-impose capacity."""
+    p = requests.shape[0]
+    n = free.shape[0]
+    dev = choice.device
+    key = torch.where(choice >= 0, choice, n).to(torch.int64)   # inactive last
+    # sort by (key, queue index): a stable sort keeps queue order per node
+    sk, si = torch.sort(key, stable=True)
+    first = torch.ones(p, dtype=torch.bool, device=dev)
+    first[1:] = sk[1:] != sk[:-1]
+    node = torch.clamp(sk, max=n - 1)
+    ok = first & (sk < n)
+    if check_capacity:
+        s_req = requests[si]
+        ok = (
+            ok
+            & torch.all(s_req <= free[node], dim=1)
+            & (count_room[node] >= 1)
+        )
+    accepted = torch.zeros(p, dtype=torch.bool, device=dev)
+    accepted[si] = ok
+    return accepted & (choice >= 0)
+
+
+def batched_assign_plain(
+    b: rt.DeviceBatch, params: rt.ScoreParams, max_rounds: int = 0,
+    rounds_out: list | None = None,
+):
+    """The plain PyTorch round loop. Same contract as
+    ``greedy.greedy_assign_plain``: returns ``(assignments (P,) int32 node
+    index or -1, final_state)`` with the 7-slot final-state tuple. The loop
+    condition is read on the host once per round. ``rounds_out``, when
+    given, receives the number of rounds run."""
+    p = b.requests.shape[0]
+    n = b.alloc.shape[0]
+    dev = b.device
+    cap = max_rounds or p
+    iota_p = torch.arange(p, dtype=torch.int32, device=dev)
+    pa = b.podaffinity
+
+    requested = b.requested
+    nonzero = b.nonzero_requested
+    pod_count = b.pod_count
+    node_ports = b.node_ports
+    pa_sums = None if pa is None else pa.base_sums
+    active = b.pod_valid
+    assignments = torch.full((p,), -1, dtype=torch.int32, device=dev)
+    progress = True
+    rounds = 0
+    while progress and rounds < cap and bool(torch.any(active)):
+        mask, score = rt.feasible_and_scores(
+            b, params,
+            requested=requested, nonzero_requested=nonzero,
+            pod_count=pod_count, node_ports=node_ports, pa_sums=pa_sums,
+        )
+        choice = _tie_spread_choice(mask, score, active)
+        accepted = _accept(
+            choice, b.requests,
+            free=b.alloc - requested,
+            count_room=b.allowed_pods - pod_count,
+            check_capacity=params.filter_fit,
+        )
+        # commit only the queue-order prefix before the FIRST rejection;
+        # pods with no feasible node inside it finalize as unschedulable
+        rejected = active & (choice >= 0) & ~accepted
+        first_rej = torch.min(torch.where(rejected, iota_p, p))
+        commit = accepted & (iota_p < first_rej)
+        finalize = active & (choice < 0) & (iota_p < first_rej)
+        accepted = commit
+        seg = torch.where(accepted, choice, n).long()       # N = drop bucket
+        a64 = accepted.to(torch.int64)
+
+        def seg_sum(vals):
+            out = torch.zeros((n + 1,) + vals.shape[1:], dtype=vals.dtype,
+                              device=dev)
+            return out.index_add_(0, seg, vals)[:n]
+
+        requested = requested + seg_sum(b.requests * a64[:, None])
+        nonzero = nonzero + seg_sum(b.nonzero_requests * a64[:, None])
+        pod_count = pod_count + seg_sum(accepted.to(pod_count.dtype))
+        node_ports = node_ports | (
+            seg_sum(b.pod_ports.to(torch.int64) * a64[:, None]) > 0
+        )
+        if pa_sums is not None:
+            r_rows, d = pa_sums.shape
+            safe_choice = torch.clamp(choice, min=0).long()
+            dcol = pa.node_domain[:, safe_choice].T           # (P, R)
+            valid = (dcol >= 0) & accepted[:, None]
+            inc = torch.where(valid, pa.update, 0)            # (P, R)
+            flat_ids = torch.where(
+                valid,
+                torch.arange(r_rows, device=dev)[None, :] * d
+                + torch.clamp(dcol, min=0),
+                r_rows * d,                                   # drop bucket
+            ).long()
+            flat = torch.zeros(r_rows * d + 1, dtype=torch.int64, device=dev)
+            flat.index_add_(0, flat_ids.reshape(-1), inc.reshape(-1))
+            pa_sums = pa_sums + flat[: r_rows * d].reshape(r_rows, d)
+        assignments = torch.where(accepted, choice, assignments)
+        active = active & ~accepted & ~finalize
+        progress = bool(torch.any(accepted | finalize))
+        rounds += 1
+    if rounds_out is not None:
+        rounds_out.append(rounds)
+    return assignments, (
+        requested, nonzero, pod_count, node_ports, None, pa_sums, None,
+    )
+
+
+def batched_assign_device(
+    b: rt.DeviceBatch, params: rt.ScoreParams, max_rounds: int = 0,
+    rounds_out: list | None = None,
+):
+    """Run the batched assignment. A CUDA batch launches the
+    ``batched_round`` kernels; a CPU batch runs ``batched_assign_plain``.
+    Same return shape as ``batched_assign_plain``."""
+    if b.device.type == "cpu":
+        return batched_assign_plain(b, params, max_rounds, rounds_out)
+    from ..kernels import batched_assign
+
+    return batched_assign(b, params, max_rounds, rounds_out)

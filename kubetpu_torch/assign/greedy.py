@@ -47,6 +47,22 @@ def _pod_view(b: rt.DeviceBatch, i: int) -> rt.DeviceBatch:
         image_count=row(b.image_count),
         pod_ports=b.pod_ports[i:i + 1],
         pod_priority=row(b.pod_priority),
+        podaffinity=_pa_view(b.podaffinity, i),
+    )
+
+
+def _pa_view(pa, i: int):
+    if pa is None:
+        return None
+    return dataclasses.replace(
+        pa,
+        update=pa.update[i:i + 1],
+        fa_rows=pa.fa_rows[i:i + 1],
+        fa_self=pa.fa_self[i:i + 1],
+        ra_rows=pa.ra_rows[i:i + 1],
+        ea_rows=pa.ea_rows[i:i + 1],
+        score_rows=pa.score_rows[i:i + 1],
+        score_vals=pa.score_vals[i:i + 1],
     )
 
 
@@ -54,22 +70,25 @@ def greedy_assign_plain(b: rt.DeviceBatch, params: rt.ScoreParams):
     """The plain PyTorch greedy loop. Returns ``(assignments (P,) int32 node
     index or -1, final_state)``; ``final_state`` has the reference's seven
     slots ``(requested, nonzero_requested, pod_count, node_ports,
-    spread_counts, pa_sums, nominated_active)``, the last three None in this
-    slice. Runs on whatever device ``b`` lives on, with no host sync inside
-    the loop."""
+    spread_counts, pa_sums, nominated_active)``; ``pa_sums`` is None without
+    a ``podaffinity`` leaf, and the spread and nomination slots are always
+    None in this slice. Runs on whatever device ``b`` lives on, with no host
+    sync inside the loop."""
     n = b.alloc.shape[0]
     node_iota = torch.arange(n, dtype=torch.int32, device=b.device)
     requested = b.requested
     nonzero = b.nonzero_requested
     pod_count = b.pod_count
     node_ports = b.node_ports
+    pa = b.podaffinity
+    pa_sums = None if pa is None else pa.base_sums
     chosen_all = []
     for i in range(b.requests.shape[0]):
         view = _pod_view(b, i)
         mask, score = rt.feasible_and_scores(
             view, params,
             requested=requested, nonzero_requested=nonzero,
-            pod_count=pod_count, node_ports=node_ports,
+            pod_count=pod_count, node_ports=node_ports, pa_sums=pa_sums,
         )
         mask, score = mask[0], score[0]
         feasible = torch.any(mask)
@@ -81,13 +100,26 @@ def greedy_assign_plain(b: rt.DeviceBatch, params: rt.ScoreParams):
         nonzero = nonzero + oh64 * view.nonzero_requests[0][None, :]
         pod_count = pod_count + onehot.to(pod_count.dtype)
         node_ports = node_ports | (onehot[:, None] & view.pod_ports[0][None, :])
+        if pa_sums is not None:
+            # interpodaffinity updateWithPod (filtering.go:75): add the
+            # assigned pod's increments into each row at the chosen node's
+            # domain (no-op when the node lacks the row's topology key)
+            dcol = torch.where(
+                chosen >= 0, pa.node_domain[:, torch.clamp(chosen, min=0).long()],
+                -1,
+            )                                                   # (R,)
+            inc = torch.where(dcol >= 0, pa.update[i], 0)
+            rows = torch.arange(pa_sums.shape[0], device=b.device)
+            pa_sums = pa_sums.index_put(
+                (rows, torch.clamp(dcol, min=0).long()), inc, accumulate=True
+            )
         chosen_all.append(chosen)
     assignments = (
         torch.stack(chosen_all) if chosen_all
         else torch.empty(0, dtype=torch.int32, device=b.device)
     )
     return assignments, (
-        requested, nonzero, pod_count, node_ports, None, None, None,
+        requested, nonzero, pod_count, node_ports, None, pa_sums, None,
     )
 
 

@@ -1,7 +1,7 @@
 """Framework runtime — compose filter/score kernels per profile.
 
-Port of ``kubetpu/framework/runtime.py``, narrowed to the first slice: the
-default profile's greedy cycle with no spread, inter-pod affinity,
+Port of ``kubetpu/framework/runtime.py``, narrowed to the slices ported so
+far: the default profile's cycle with inter-pod affinity, and no spread,
 nominations, extenders, DRA, volumes or topology. Host encode is the
 reference's numpy code; the device batch is a frozen dataclass of torch
 tensors on the caller's device, uploaded in one host→device copy.
@@ -31,8 +31,10 @@ import torch
 
 from ..api import types as t
 from ..ops import filters as F
+from ..ops import podaffinity as PA
 from ..ops import scores as S
 from ..state import encoder as enc
+from ..state import podaffinity as enc_podaffinity
 from ..state.snapshot import Snapshot
 from . import config as C
 
@@ -51,15 +53,38 @@ class DeviceNodeState:
 
 
 @dataclass(frozen=True)
+class PodAffinityDevice:
+    """Device-side InterPodAffinity rows (see state.podaffinity)."""
+
+    node_domain: torch.Tensor  # (R, N) int32
+    has_key: torch.Tensor      # (R, N) bool
+    base_sums: torch.Tensor    # (R, D) int64 — scan state init
+    update: torch.Tensor       # (P, R) int64
+    fa_rows: torch.Tensor      # (P, CA) int32
+    fa_self: torch.Tensor      # (P,) bool
+    ra_rows: torch.Tensor      # (P, CR) int32
+    ea_rows: torch.Tensor      # (P, CE) int32
+    score_rows: torch.Tensor   # (P, CS) int32
+    score_vals: torch.Tensor   # (P, CS) int64
+    has_filter_work: bool = False
+    has_score_work: bool = False
+
+
+PA_FIELDS = tuple(
+    f.name for f in dataclasses.fields(PodAffinityDevice)
+    if f.name not in ("has_filter_work", "has_score_work")
+)
+
+
+@dataclass(frozen=True)
 class DeviceBatch:
     """Padded device-resident scheduling problem: P pods × N nodes × R
     resources. Padding rows/cols are masked out (``node_valid``/``pod_valid``
     False, ``static_mask`` False on pads) so kernels need no special cases.
 
     Same field names and ``None`` leaves as the reference's pytree. The
-    leaves typed ``object`` (spread, pod affinity, topology) and the
-    nomination, extender and DRA leaves belong to later slices and are
-    always None here."""
+    leaves typed ``object`` (spread, topology) and the nomination, extender
+    and DRA leaves belong to later slices and are always None here."""
 
     # persistent node-state block
     nodes: DeviceNodeState
@@ -86,7 +111,7 @@ class DeviceBatch:
     nominated_ports: torch.Tensor | None = None
     nominated_pod_idx: torch.Tensor | None = None
     spread: object | None = None
-    podaffinity: object | None = None
+    podaffinity: PodAffinityDevice | None = None
     static_sig: torch.Tensor | None = None  # (P,) int32 row into static_mask
     score_sig: torch.Tensor | None = None   # (P,) int32 row into na/tt raws
     image_sig: torch.Tensor | None = None   # (P,) int32 row into image sums
@@ -138,7 +163,6 @@ LATER_SLICE_LEAVES = {
     "nominated_ports": "Queue A item 8 (preemption and nominations)",
     "nominated_pod_idx": "Queue A item 8 (preemption and nominations)",
     "spread": "Queue A item 7 (PodTopologySpread, kernel B7)",
-    "podaffinity": "Queue A item 7 (InterPodAffinity, kernel B8)",
     "extender_mask": "Queue A item 9 (extender bridge)",
     "extender_score": "Queue A item 9 (extender bridge)",
     "dra_score_raw": "Queue A (DynamicResources)",
@@ -170,14 +194,24 @@ def device_batch_from_numpy(
     host→device copy: the leaves are packed into one 16-byte-aligned byte
     buffer, uploaded, and viewed back as typed tensors (each view is
     contiguous). This is the port's ``jax.device_put`` — and how a test
-    carries ``jax.device_get`` of kubetpu's batch across."""
+    carries ``jax.device_get`` of kubetpu's batch across.
+
+    The ``podaffinity`` leaf is any object with ``PodAffinityDevice``'s
+    attributes (kubetpu's, or ``state.podaffinity.PodAffinityTensors``);
+    its arrays ride in the same buffer."""
     check_slice_leaves(leaves, "device_batch_from_numpy")
     arrays = {}
     for name in NODE_FIELDS + POD_FIELDS:
         a = leaves.get(name)
-        if a is None or name in LATER_SLICE_LEAVES:
+        if a is None or name in LATER_SLICE_LEAVES or name == "podaffinity":
             continue
         arrays[name] = np.ascontiguousarray(np.asarray(a))
+    pa = leaves.get("podaffinity")
+    if pa is not None:
+        for f in PA_FIELDS:
+            arrays["podaffinity." + f] = np.ascontiguousarray(
+                np.asarray(getattr(pa, f))
+            )
     offsets = {}
     total = 0
     for name, a in arrays.items():
@@ -194,9 +228,14 @@ def device_batch_from_numpy(
         dtype = torch.from_numpy(np.empty(0, dtype=a.dtype)).dtype
         tensors[name] = raw.view(dtype).view(a.shape)
     nodes = DeviceNodeState(**{n: tensors[n] for n in NODE_FIELDS})
-    return DeviceBatch(
-        nodes=nodes, **{n: tensors.get(n) for n in POD_FIELDS}
-    )
+    pods = {n: tensors.get(n) for n in POD_FIELDS}
+    if pa is not None:
+        pods["podaffinity"] = PodAffinityDevice(
+            **{f: tensors["podaffinity." + f] for f in PA_FIELDS},
+            has_filter_work=bool(pa.has_filter_work),
+            has_score_work=bool(pa.has_score_work),
+        )
+    return DeviceBatch(nodes=nodes, **pods)
 
 
 def batch_nbytes(b: DeviceBatch) -> int:
@@ -206,6 +245,8 @@ def batch_nbytes(b: DeviceBatch) -> int:
         v = getattr(b, n)
         if isinstance(v, torch.Tensor):
             total += int(v.nbytes)
+    if b.podaffinity is not None:
+        total += sum(int(getattr(b.podaffinity, f).nbytes) for f in PA_FIELDS)
     return total
 
 
@@ -294,8 +335,8 @@ def _image_tensors(
 @dataclass
 class StaticBatch:
     """The host half of an encoded batch: the snapshot's node tensors, the
-    pod batch, and the image leaves, all numpy. ``finalize_batch`` turns it
-    into the device batch."""
+    pod batch, the image leaves and the inter-pod affinity rows, all numpy.
+    ``finalize_batch`` turns it into the device batch."""
 
     pods: list
     nt: "enc.NodeTensors"
@@ -309,27 +350,20 @@ class StaticBatch:
     img_counts: "np.ndarray | None"
     node_valid: np.ndarray
     pod_valid: np.ndarray
+    pa: "enc_podaffinity.PodAffinityTensors | None" = None
 
 
 def _check_slice_pods(
     snapshot: Snapshot, pods: Sequence[t.Pod], profile: "C.Profile | None"
 ) -> None:
     """Raise NotImplementedError for inputs whose encode would produce a
-    leaf of a later slice (the reference would build spread, pod-affinity,
-    DRA or volume state for them)."""
+    leaf of a later slice (the reference would build spread, DRA or volume
+    state for them)."""
     for p in pods:
         if p.topology_spread_constraints:
             raise NotImplementedError(
                 f"pod {p.namespace}/{p.name}: topology spread constraints "
                 "are ROADMAP Queue A item 7 (kernel B7), not yet ported"
-            )
-        if p.affinity is not None and (
-            p.affinity.pod_affinity is not None
-            or p.affinity.pod_anti_affinity is not None
-        ):
-            raise NotImplementedError(
-                f"pod {p.namespace}/{p.name}: inter-pod (anti-)affinity is "
-                "ROADMAP Queue A item 7 (kernel B8), not yet ported"
             )
         if p.resource_claims:
             raise NotImplementedError(
@@ -341,11 +375,6 @@ def _check_slice_pods(
                 f"pod {p.namespace}/{p.name}: PVC volumes are not yet "
                 "ported (ROADMAP Queue A)"
             )
-    if snapshot.pods_with_affinity:
-        raise NotImplementedError(
-            "assigned pods carry inter-pod (anti-)affinity: ROADMAP Queue A "
-            "item 7 (kernel B8), not yet ported"
-        )
     defaults = profile.default_spread_constraints if profile is not None else ()
     if defaults and snapshot.services and (
         profile is None
@@ -392,8 +421,12 @@ def encode_batch_static(
     track_changes: bool = True,
 ) -> StaticBatch:
     """The host encode (the reference's stage 1, narrowed to the slice):
-    node tensors, the pod batch and the image rows, all numpy. ``prev_nt``
-    and ``track_changes`` as in ``encode_batch``."""
+    node tensors, the pod batch, the image rows and the inter-pod affinity
+    rows, all numpy. ``prev_nt`` and ``track_changes`` as in
+    ``encode_batch``. (The reference encodes affinity in its stage 2,
+    ``finalize_batch``, because its pipeline pre-encodes stage 1 before the
+    cluster state is final; the port's cycle is serial, so the whole host
+    encode is here and ``finalize_batch`` only ships leaves.)"""
     _check_slice_pods(snapshot, pods, profile)
     N, P = snapshot.num_nodes(), len(pods)
     NP = enc.round_up(N) if pad else N
@@ -423,6 +456,28 @@ def encode_batch_static(
         _image_tensors(nt, pods, pad_pods=PP)
         if want_img else (None, None, None)
     )
+    want_interpod = profile is None or (
+        profile.has_filter(C.INTER_POD_AFFINITY)
+        or profile.has_score(C.INTER_POD_AFFINITY)
+    )
+    # affinity-free cluster fast path: the cache counts assigned pods
+    # carrying any (anti)affinity, so a SchedulingBasic-shaped cycle skips
+    # the template-group pass and the affinity encoder in O(pending)
+    # attribute checks
+    want_pa = want_interpod and not (
+        snapshot.pods_with_affinity == 0
+        and not any(enc_podaffinity.has_any_affinity(p) for p in pods)
+    )
+    pa = None
+    if want_pa:
+        pa = enc_podaffinity.encode_pod_affinity(
+            nt, pods,
+            hard_pod_affinity_weight=(
+                profile.hard_pod_affinity_weight if profile is not None else 1
+            ),
+            pad_pods=PP,
+            namespaces=snapshot.namespaces,
+        )
     node_valid = np.zeros(nt.alloc.shape[0], dtype=bool)
     node_valid[:N] = True
     pod_valid = np.zeros(PP, dtype=bool)
@@ -440,14 +495,15 @@ def encode_batch_static(
         img_counts=img_counts,
         node_valid=node_valid,
         pod_valid=pod_valid,
+        pa=pa,
     )
 
 
 def finalize_batch(sb: StaticBatch, device="cuda") -> EncodedBatch:
     """Build the device batch of a StaticBatch on ``device``: the numpy
     leaves the reference's ``finalize_batch`` hands to ``jax.device_put``
-    (later slices' leaves absent), shipped in one copy
-    (``device_batch_from_numpy``)."""
+    (later slices' leaves absent), the affinity rows included, shipped in
+    one copy (``device_batch_from_numpy``)."""
     nt, pb = sb.nt, sb.pb
     has_na = sb.want_na and pb.node_affinity_raw is not None
     has_tt = sb.want_tt and pb.taint_prefer_raw is not None
@@ -476,6 +532,7 @@ def finalize_batch(sb: StaticBatch, device="cuda") -> EncodedBatch:
         node_ports=pb.node_ports,
         port_conflict=pb.port_conflict,
         pod_priority=pb.priority,
+        podaffinity=sb.pa,
     ), device)
     return EncodedBatch(
         device=dev,
@@ -576,11 +633,13 @@ def filter_components(
     requested: torch.Tensor | None = None,
     pod_count: torch.Tensor | None = None,
     node_ports: torch.Tensor | None = None,
+    pa_sums: torch.Tensor | None = None,
 ):
-    """Per-plugin Filter masks, un-ANDed. Returns ``(static, fit,
-    ports_ok)``; an entry is None when the plugin is disabled. (The
-    reference also returns the spread and affinity verdicts and their
-    state; those leaves are not in this slice.)"""
+    """Per-plugin Filter masks, un-ANDed. Returns ``(static, fit, ports_ok,
+    pa_ok, pa_state)``; a mask entry is None when the plugin is disabled or
+    has no work, ``pa_state`` is the affinity sums the verdict read (None
+    without a ``podaffinity`` leaf). (The reference also returns the spread
+    verdict and its counts; that leaf is not in this slice.)"""
     check_slice_leaves(batch_leaves(b), "filter_components")
     req = b.requested if requested is None else requested
     pc = b.pod_count if pod_count is None else pod_count
@@ -605,7 +664,16 @@ def filter_components(
             wants_conf[:, None, :] & ports[None, :, :], dim=-1
         )                                                     # (P, N)
         ports_ok = ~conflict
-    return static, fit, ports_ok
+    pa = b.podaffinity
+    pa_state = None
+    pa_ok = None
+    if pa is not None:
+        pa_state = pa.base_sums if pa_sums is None else pa_sums
+        if p.filter_interpod and pa.has_filter_work:
+            pa_ok = PA.affinity_filter_pod(
+                pa, pa_state, pa.fa_rows, pa.fa_self, pa.ra_rows, pa.ea_rows
+            )
+    return static, fit, ports_ok, pa_ok, pa_state
 
 
 def feasible_and_scores(
@@ -615,14 +683,15 @@ def feasible_and_scores(
     nonzero_requested: torch.Tensor | None = None,
     pod_count: torch.Tensor | None = None,
     node_ports: torch.Tensor | None = None,
+    pa_sums: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The full Filter + Score composition for a batch against ONE snapshot
     state. Returns ``(mask (P,N) bool, total (P,N) int64)``.
 
     Optional ``requested``/``nonzero_requested``/``pod_count``/``node_ports``
-    override the batch's node usage — the greedy loop threads its running
-    state through here, so this one function is both the one-shot and the
-    stepped semantics."""
+    and ``pa_sums`` override the batch's node usage and affinity sums — the
+    engines thread their running state through here, so this one function
+    is both the one-shot and the stepped semantics."""
     req = b.requested if requested is None else requested
     nz = b.nonzero_requested if nonzero_requested is None else nonzero_requested
     dev = b.device
@@ -631,11 +700,12 @@ def feasible_and_scores(
     scal = torch.tensor(p.is_scalar, dtype=torch.bool, device=dev)
 
     # --- Filter ----------------------------------------------------------
-    static, fit, ports_ok = filter_components(
+    static, fit, ports_ok, pa_ok, pa_state = filter_components(
         b, p, requested=requested, pod_count=pod_count, node_ports=node_ports,
+        pa_sums=pa_sums,
     )
     mask = static
-    for part in (fit, ports_ok):
+    for part in (fit, ports_ok, pa_ok):
         if part is not None:
             mask = mask & part
 
@@ -665,6 +735,12 @@ def feasible_and_scores(
     if p.w_image and b.image_sum_scores is not None:
         img = _rows(b.image_sum_scores, b.image_sig)
         total = total + p.w_image * S.image_locality_score(img, b.image_count)
+    pa = b.podaffinity
+    if pa is not None and p.w_interpod and pa.has_score_work:
+        pa_sc = PA.affinity_score_pod(
+            pa, pa_state, pa.score_rows, pa.score_vals, mask
+        )
+        total = total + p.w_interpod * pa_sc
     return mask, total
 
 

@@ -1,9 +1,10 @@
-"""The hand-written CUDA kernels of the main path, and their wrappers.
+"""The hand-written CUDA kernels of the main paths, and their wrappers.
 
-``csrc/filter_score.cu`` and ``csrc/greedy_scan.cu`` (both built on
-``csrc/score_common.cuh``) are compiled at first use, for ``sm_90a``, one
-``nvcc`` per source started together, each into a shared library with a
-plain C interface that ``ctypes`` loads. No PyTorch header is compiled, so
+``csrc/filter_score.cu``, ``csrc/greedy_scan.cu`` and
+``csrc/batched_round.cu`` (all built on ``csrc/score_common.cuh``) are
+compiled at first use, for ``sm_90a``, one ``nvcc`` per source started
+together, each into a shared library with a plain C interface that
+``ctypes`` loads. No PyTorch header is compiled, so
 a build takes seconds. Outputs go to ``build/kubetpu_torch_kernels/`` under
 the repository root, keyed by a hash of the sources and flags.
 
@@ -12,8 +13,9 @@ anything else, allocates its outputs with ``torch.empty``, launches on the
 current CUDA stream, raises if the launch was refused, and adds one to its
 entry of ``launch_counts``. No wrapper falls back to the plain version: the
 callers (``framework.runtime.filter_score_batch``,
-``assign.greedy.greedy_assign_device``) choose the plain version only for a
-batch that lives on the CPU.
+``assign.greedy.greedy_assign_device``,
+``assign.batched.batched_assign_device``) choose the plain version only for
+a batch that lives on the CPU.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from ..framework import config as C
 from ..framework import runtime as rt
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("filter_score.cu", "greedy_scan.cu")
+SOURCES = ("filter_score.cu", "greedy_scan.cu", "batched_round.cu")
 HEADERS = ("score_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kubetpu_torch_kernels"
 NVCC_FLAGS = (
@@ -46,7 +48,14 @@ NVCC_FLAGS = (
 
 # launches of each kernel since the last reset_launch_counts(); chip_smoke
 # reads them around the main path to show the path went through the kernels
-launch_counts = {"filter_score": 0, "greedy_scan": 0}
+launch_counts = {"filter_score": 0, "greedy_scan": 0, "batched_round": 0}
+
+# ctypes argument types of each library's entry point
+_ARGTYPES = {
+    "filter_score": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p],
+    "greedy_scan": [ctypes.c_void_p] * 12,
+    "batched_round": [ctypes.c_void_p] * 14,
+}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -111,8 +120,7 @@ def build() -> dict[str, ctypes.CDLL]:
             name = src.replace(".cu", "")
             lib = ctypes.CDLL(str(out_dir / ("lib" + name + ".so")))
             fn = getattr(lib, "kt_" + name)
-            n_args = {"filter_score": 5, "greedy_scan": 10}[name]
-            fn.argtypes = [ctypes.c_void_p] * n_args
+            fn.argtypes = _ARGTYPES[name]
             fn.restype = ctypes.c_int
             err = getattr(lib, f"kt_{name}_error")
             err.argtypes = [ctypes.c_int]
@@ -139,6 +147,17 @@ class ScoreArgs(ctypes.Structure):
             "P", "N", "R", "K", "B", "strategy", "w_fit", "w_balanced",
             "w_na", "w_taint", "w_image", "filter_fit", "filter_ports",
         )
+    ] + [
+        (name, ctypes.c_void_p) for name in (
+            "pa_node_domain", "pa_has_key", "pa_sums", "pa_row_total",
+            "pa_update", "pa_fa_rows", "pa_fa_self", "pa_ra_rows",
+            "pa_ea_rows", "pa_score_rows", "pa_score_vals",
+        )
+    ] + [
+        (name, ctypes.c_int64) for name in (
+            "pa_R", "pa_D", "pa_CA", "pa_CR", "pa_CE", "pa_CS", "pa_filter",
+            "w_interpod",
+        )
     ]
 
 
@@ -164,9 +183,12 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
     return x.data_ptr()
 
 
-def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str):
+def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str, state=None):
     """Validate the batch for the kernels and pack their argument struct.
-    Returns ``(args, keepalive)``."""
+    ``state``, when given, is a running ``(requested, nonzero_requested,
+    pod_count, node_ports, pa_sums)`` the kernels read in place of the
+    batch's (``pa_sums`` None without affinity rows). Returns ``(args,
+    keepalive)``."""
     rt.check_slice_leaves(rt.batch_leaves(b), where)
     dev = b.alloc.device
     if dev.type != "cuda":
@@ -179,14 +201,17 @@ def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str):
     if P > 65535:
         raise ValueError(f"{where}: P={P} exceeds the grid's y extent")
     i64, i32, u8 = torch.int64, torch.int32, torch.bool
+    req, nz, pc, ports, pa_sums = state or (
+        b.requested, b.nonzero_requested, b.pod_count, b.node_ports, None
+    )
     a = ScoreArgs()
     a.alloc = _check("alloc", b.alloc, i64, (N, R), dev)
-    a.requested = _check("requested", b.requested, i64, (N, R), dev)
-    a.nonzero_requested = _check("nonzero_requested", b.nonzero_requested, i64, (N, R), dev)
-    a.pod_count = _check("pod_count", b.pod_count, i32, (N,), dev)
+    a.requested = _check("requested", req, i64, (N, R), dev)
+    a.nonzero_requested = _check("nonzero_requested", nz, i64, (N, R), dev)
+    a.pod_count = _check("pod_count", pc, i32, (N,), dev)
     a.allowed_pods = _check("allowed_pods", b.allowed_pods, i32, (N,), dev)
     a.node_valid = _check("node_valid", b.node_valid, u8, (N,), dev)
-    a.node_ports = _check("node_ports", b.node_ports, u8, (N, K), dev)
+    a.node_ports = _check("node_ports", ports, u8, (N, K), dev)
     a.requests = _check("requests", b.requests, i64, (P, R), dev)
     a.nonzero_requests = _check("nonzero_requests", b.nonzero_requests, i64, (P, R), dev)
     a.pod_valid = _check("pod_valid", b.pod_valid, u8, (P,), dev)
@@ -238,7 +263,33 @@ def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str):
     a.w_fit, a.w_balanced = p.w_fit, p.w_balanced
     a.w_na, a.w_taint, a.w_image = p.w_node_affinity, p.w_taint, p.w_image
     a.filter_fit, a.filter_ports = int(p.filter_fit), int(p.filter_ports)
-    return a, params
+    keep = [params]
+    pa = b.podaffinity
+    if pa is not None:
+        RA, D = pa.base_sums.shape
+        sums = pa.base_sums if pa_sums is None else pa_sums
+        a.pa_node_domain = _check("pa.node_domain", pa.node_domain, i32, (RA, N), dev)
+        a.pa_has_key = _check("pa.has_key", pa.has_key, u8, (RA, N), dev)
+        a.pa_sums = _check("pa_sums", sums, i64, (RA, D), dev)
+        a.pa_update = _check("pa.update", pa.update, i64, (P, RA), dev)
+        slots = {}
+        for name in ("fa_rows", "ra_rows", "ea_rows", "score_rows"):
+            leaf = getattr(pa, name)
+            slots[name] = leaf.shape[1] if leaf.dim() == 2 else -1
+            setattr(a, "pa_" + name,
+                    _check("pa." + name, leaf, i32, (P, slots[name]), dev))
+        a.pa_fa_self = _check("pa.fa_self", pa.fa_self, u8, (P,), dev)
+        a.pa_score_vals = _check(
+            "pa.score_vals", pa.score_vals, i64, (P, slots["score_rows"]), dev)
+        row_total = torch.empty((RA,), dtype=i64, device=dev)
+        keep.append(row_total)
+        a.pa_row_total = row_total.data_ptr()
+        a.pa_R, a.pa_D = RA, D
+        a.pa_CA, a.pa_CR = slots["fa_rows"], slots["ra_rows"]
+        a.pa_CE, a.pa_CS = slots["ea_rows"], slots["score_rows"]
+        a.pa_filter = int(p.filter_interpod and pa.has_filter_work)
+        a.w_interpod = p.w_interpod if pa.has_score_work else 0
+    return a, keep
 
 
 def _raise_on(lib: ctypes.CDLL, name: str, code: int) -> None:
@@ -247,12 +298,21 @@ def _raise_on(lib: ctypes.CDLL, name: str, code: int) -> None:
         raise RuntimeError(f"{name} launch failed: {msg} (cudaError {code})")
 
 
-def _filter_score(b: rt.DeviceBatch, p: rt.ScoreParams, want_total: bool):
+def _filter_score(b: rt.DeviceBatch, p: rt.ScoreParams, want_total: bool,
+                  with_pa: bool = True):
     """Launch ``filter_score``: ``(mask, base, total)``, ``total`` None
-    unless ``want_total`` (then the normalize pass runs too)."""
+    unless ``want_total`` (then the normalize pass runs too). Without
+    ``with_pa`` the mask leaves out the InterPodAffinity filter."""
     a, keep = _score_args(b, p, "filter_score")
+    out = _launch_filter_score(a, b.alloc.device, want_total, with_pa)
+    del keep
+    return out
+
+
+def _launch_filter_score(a: ScoreArgs, dev, want_total: bool, with_pa: bool):
+    """``_filter_score`` on packed arguments (the caller keeps their
+    tensors alive)."""
     lib = build()["filter_score"]
-    dev = b.alloc.device
     mask = torch.empty((a.P, a.N), dtype=torch.bool, device=dev)
     base = torch.empty((a.P, a.N), dtype=torch.int64, device=dev)
     total = (
@@ -262,10 +322,9 @@ def _filter_score(b: rt.DeviceBatch, p: rt.ScoreParams, want_total: bool):
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.kt_filter_score(
         ctypes.byref(a), mask.data_ptr(), base.data_ptr(),
-        None if total is None else total.data_ptr(), stream)
+        None if total is None else total.data_ptr(), int(with_pa), stream)
     _raise_on(lib, "filter_score", code)
     launch_counts["filter_score"] += 1
-    del keep
     return mask, base, total
 
 
@@ -278,11 +337,13 @@ def filter_score(b: rt.DeviceBatch, p: rt.ScoreParams):
 
 def greedy_scan(b: rt.DeviceBatch, p: rt.ScoreParams):
     """The greedy engine on the card: ``filter_score`` scores every pair
-    against the batch's starting state, then the ``greedy_scan`` kernel
-    walks the pods. Returns ``(assignments (P,) int32, final_state)`` with
-    the reference's seven state slots (the last three None), equal to
-    ``assign.greedy.greedy_assign_plain(b, p)``."""
-    mask0, base0, _ = _filter_score(b, p, want_total=False)
+    against the batch's starting state (its mask without the affinity
+    filter), then the ``greedy_scan`` kernel walks the pods. Returns
+    ``(assignments (P,) int32, final_state)`` with the reference's seven
+    state slots (slot 5 the affinity sums, None without affinity rows;
+    slots 4 and 6 None), equal to ``assign.greedy.greedy_assign_plain(b,
+    p)``."""
+    mask0, base0, _ = _filter_score(b, p, want_total=False, with_pa=False)
     a, keep = _score_args(b, p, "greedy_scan")
     lib = build()["greedy_scan"]
     dev = b.alloc.device
@@ -292,12 +353,68 @@ def greedy_scan(b: rt.DeviceBatch, p: rt.ScoreParams):
     pc = torch.empty_like(b.pod_count)
     ports = torch.empty_like(b.node_ports)
     touched = torch.empty((a.N,), dtype=torch.uint8, device=dev)
+    pa = b.podaffinity
+    pa_sums = None if pa is None else torch.empty_like(pa.base_sums)
+    row_total = None if pa is None else torch.empty(
+        (pa.base_sums.shape[0],), dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.kt_greedy_scan(
         ctypes.byref(a), mask0.data_ptr(), base0.data_ptr(), touched.data_ptr(),
         assignments.data_ptr(), req.data_ptr(), nz.data_ptr(), pc.data_ptr(),
-        ports.data_ptr(), stream)
+        ports.data_ptr(), None if pa is None else pa_sums.data_ptr(),
+        None if pa is None else row_total.data_ptr(), stream)
     _raise_on(lib, "greedy_scan", code)
     launch_counts["greedy_scan"] += 1
     del keep
-    return assignments, (req, nz, pc, ports, None, None, None)
+    return assignments, (req, nz, pc, ports, None, pa_sums, None)
+
+
+def batched_assign(b: rt.DeviceBatch, p: rt.ScoreParams, max_rounds: int = 0,
+                   rounds_out: list | None = None):
+    """The batched engine on the card: each round launches ``filter_score``
+    over the whole batch against the round's state (affinity included),
+    then the ``batched_round`` kernels, which choose, accept, commit and
+    update the state in place; the host reads the round's two flags
+    (progress, any pod still active) to decide on the next round. Returns
+    ``(assignments (P,) int32, final_state)`` with the seven state slots,
+    equal to ``assign.batched.batched_assign_plain(b, p, max_rounds)``;
+    ``rounds_out``, when given, receives the number of rounds."""
+    P = b.requests.shape[0]
+    if P > 1024:
+        raise ValueError(f"batched_round: P={P} exceeds the sorting block's 1024 pods")
+    pa = b.podaffinity
+    state = (
+        b.requested.clone(), b.nonzero_requested.clone(), b.pod_count.clone(),
+        b.node_ports.clone(), None if pa is None else pa.base_sums.clone(),
+    )
+    req, nz, pc, ports, pa_sums = state
+    # the state tensors are updated in place, so one argument struct
+    # serves every round's filter_score and batched_round launches
+    a, keep = _score_args(b, p, "batched_round", state)
+    lib = build()["batched_round"]
+    dev = b.alloc.device
+    active = b.pod_valid.clone()
+    assignments = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    stats64 = torch.empty((3, P), dtype=torch.int64, device=dev)
+    stats32 = torch.empty((2, P), dtype=torch.int32, device=dev)
+    flags = torch.empty((2,), dtype=torch.int32, device=dev)
+    cap = max_rounds or P
+    rounds = 0
+    progress, still = True, bool(torch.any(active))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    while progress and still and rounds < cap:
+        mask, _, total = _launch_filter_score(a, dev, want_total=True, with_pa=True)
+        code = lib.kt_batched_round(
+            ctypes.byref(a), mask.data_ptr(), total.data_ptr(), req.data_ptr(),
+            nz.data_ptr(), pc.data_ptr(), ports.data_ptr(),
+            None if pa_sums is None else pa_sums.data_ptr(), active.data_ptr(),
+            assignments.data_ptr(), stats64.data_ptr(), stats32.data_ptr(),
+            flags.data_ptr(), stream)
+        _raise_on(lib, "batched_round", code)
+        launch_counts["batched_round"] += 1
+        progress, still = (bool(v) for v in flags.tolist())
+        rounds += 1
+    del keep
+    if rounds_out is not None:
+        rounds_out.append(rounds)
+    return assignments, (req, nz, pc, ports, None, pa_sums, None)

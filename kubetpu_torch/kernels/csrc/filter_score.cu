@@ -1,64 +1,80 @@
 // filter_score: the one-shot Filter+Score of a batch, every pod against the
 // same node state: the (P, N) mask, the (P, N) int64 base score (fit,
 // balanced and image terms, weighted) and, when asked for, the (P, N) int64
-// total (base plus the normalized node-affinity and taint terms).
+// total (base plus the normalized node-affinity, taint and InterPodAffinity
+// terms).
 //
 // Replaces kubetpu/framework/runtime.py:1578 filter_score_batch (jit), i.e.
 // :1471 feasible_and_scores with :1363 filter_components and :1356
-// masked_normalize, which XLA fused into one device program. On the main
-// path it is the parallel half of the greedy engine: greedy_scan reads its
-// mask and base score for every node that no earlier pod of the batch
-// landed on, and recomputes only the nodes that changed.
+// masked_normalize, and the vmapped kubetpu/ops/podaffinity.py:32
+// affinity_filter_pod / :75 affinity_score_pod inside them, which XLA
+// fused into one device program. On the main path it is the parallel half
+// of both engines: greedy_scan reads its mask (without the affinity
+// filter, which moves with every assignment) and base score for every node
+// that no earlier pod of the batch landed on; each batched round scores the
+// whole batch with it against the round's state.
 //
-// Bound: memory. Per pair the kernel reads a few int64 node rows that stay
-// in L2 across the pod axis; what must reach device memory is the (P, N)
-// outputs (9 bytes a pair, 17 with the total), so the least time is those
-// bytes over the card's bandwidth. Design: launch (a) is one thread per
-// pair on a 2-D grid (x = nodes, y = pods), so neighbouring threads touch
-// neighbouring node rows and the writes coalesce; launch (b), only when
-// the total is asked for, is one block per pod that reduces the feasible
-// maximum of the node-affinity and taint raw rows and writes the total.
+// Bound: memory. Per pair the kernel reads a few int64 node rows and the
+// pod's affinity slots, which stay in L2 across the pod axis; what must
+// reach device memory is the (P, N) outputs (9 bytes a pair, 17 with the
+// total), so the least time is those bytes over the card's bandwidth.
+// Design: launch (0), only with affinity rows, sums each (RA, D) row over
+// its domains (the self-affinity escape reads the total); launch (a) is
+// one thread per pair on a 2-D grid (x = nodes, y = pods), so neighbouring
+// threads touch neighbouring node rows and the writes coalesce; launch (b),
+// only when the total is asked for, is one block per pod that reduces the
+// feasible maxima of the node-affinity and taint raw rows and the feasible
+// min and max of the affinity raw score, and writes the total.
 #include "score_common.cuh"
 
 namespace {
 
 constexpr int kPairThreads = 256;
 constexpr int kRowThreads = 512;
+constexpr int kTotalThreads = 256;
 
-__global__ void filter_score_pairs(ScoreArgs a, uint8_t* mask, int64_t* base) {
+__global__ void filter_score_row_totals(ScoreArgs a) {
+  kt::pa_row_totals(a, a.pa_sums, a.pa_row_total,
+                    (int64_t)blockIdx.x * blockDim.x + threadIdx.x,
+                    (int64_t)gridDim.x * blockDim.x);
+}
+
+__global__ void filter_score_pairs(ScoreArgs a, uint8_t* mask, int64_t* base, int with_pa) {
   const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t p = blockIdx.y;
   if (n >= a.N) return;
-  const bool ok = kt::pair_feasible(a, p, n, a.requested, a.pod_count, a.node_ports);
+  bool ok = kt::pair_feasible(a, p, n, a.requested, a.pod_count, a.node_ports);
+  if (ok && with_pa && a.pa_filter)
+    ok = kt::pa_feasible(a, a.pa_sums, kt::pa_escape(a, a.pa_row_total, p), p, n);
   mask[p * a.N + n] = ok;
   base[p * a.N + n] = kt::base_score(a, p, n, a.requested, a.nonzero_requested);
 }
 
 __global__ void filter_score_normalize(ScoreArgs a, const uint8_t* mask, const int64_t* base,
                                        int64_t* total) {
-  __shared__ int64_t s_na[33];
-  __shared__ int64_t s_tt[33];
+  __shared__ int64_t s_m[4][33];
   const int64_t p = blockIdx.x;
   const int64_t N = a.N;
-  const bool normalize = a.na_raw != nullptr || a.tt_raw != nullptr;
-  const int64_t row = normalize ? (int64_t)a.score_sig[p] * N : 0;
+  const bool normalize = a.na_raw != nullptr || a.tt_raw != nullptr || a.w_interpod;
+  const int64_t row =
+      (a.na_raw != nullptr || a.tt_raw != nullptr) ? (int64_t)a.score_sig[p] * N : 0;
   const uint8_t* m = mask + p * N;
-  int64_t mx_na = 0, mx_tt = 0;
+  int64_t mx[4];
+  kt::init_norm(mx);
   if (normalize) {
     for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
       if (!m[n]) continue;
-      if (a.na_raw != nullptr) mx_na = kt::imax(mx_na, a.na_raw[row + n]);
-      if (a.tt_raw != nullptr) mx_tt = kt::imax(mx_tt, a.tt_raw[row + n]);
+      const int64_t pa_r = a.w_interpod ? kt::pa_raw(a, a.pa_sums, p, n) : 0;
+      kt::fold_norm(a, row, n, pa_r, mx);
     }
-    kt::block_max2(mx_na, mx_tt, s_na, s_tt);
+    kt::block_max_norm(a, mx, s_m);
   }
   for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
     int64_t s = base[p * N + n];
     if (normalize) {
       const bool ok = m[n];
-      const int64_t na = (ok && a.na_raw != nullptr) ? a.na_raw[row + n] : 0;
-      const int64_t tt = (ok && a.tt_raw != nullptr) ? a.tt_raw[row + n] : 0;
-      s += kt::normalized_terms(a, na, tt, mx_na, mx_tt);
+      const int64_t pa_r = (ok && a.w_interpod) ? kt::pa_raw(a, a.pa_sums, p, n) : 0;
+      s += kt::norm_terms(a, row, n, ok, pa_r, mx);
     }
     total[p * N + n] = s;
   }
@@ -66,17 +82,27 @@ __global__ void filter_score_normalize(ScoreArgs a, const uint8_t* mask, const i
 
 }  // namespace
 
-// Launches pass (a), and pass (b) when `total` is not null, on `stream`.
-// Returns the cudaError_t of the launches (0 = all were accepted); the
-// caller raises on anything else.
+// Launches pass (0) when `with_pa` and the batch has affinity rows, pass
+// (a), and pass (b) when `total` is not null, on `stream`. Without
+// `with_pa` the mask leaves out the InterPodAffinity filter (greedy_scan
+// evaluates it per step). Returns the cudaError_t of the launches (0 = all
+// were accepted); the caller raises on anything else.
 extern "C" int kt_filter_score(const ScoreArgs* args, void* mask, void* base, void* total,
-                               void* stream) {
-  const ScoreArgs a = *args;
+                               int with_pa, void* stream) {
+  ScoreArgs a = *args;
+  const int pa = with_pa && a.pa_node_domain != nullptr;
+  if (!pa) a.w_interpod = 0;
   if (a.P == 0 || a.N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pa && a.pa_R > 0) {
+    filter_score_row_totals<<<(unsigned)((a.pa_R + kTotalThreads - 1) / kTotalThreads),
+                              kTotalThreads, 0, s>>>(a);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   dim3 grid((unsigned)((a.N + kPairThreads - 1) / kPairThreads), (unsigned)a.P);
   filter_score_pairs<<<grid, kPairThreads, 0, s>>>(a, static_cast<uint8_t*>(mask),
-                                                   static_cast<int64_t*>(base));
+                                                   static_cast<int64_t*>(base), pa);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || total == nullptr) return (int)err;
   filter_score_normalize<<<(unsigned)a.P, kRowThreads, 0, s>>>(

@@ -1,7 +1,7 @@
 // greedy_scan: the greedy assignment of a batch, pods one at a time against
 // the running node state, on the device.
 //
-// Replaces kubetpu/assign/greedy.py:106 greedy_assign_device (jit): a
+// Replaces kubetpu/assign/greedy.py:107 greedy_assign_device (jit): a
 // lax.scan over the pods whose every step re-runs the Filter+Score
 // composition for one pod against the carried state, takes the FIRST
 // max-score feasible node (greedy.py:17-20) and applies a one-hot update.
@@ -17,16 +17,30 @@
 // the state needs no atomics and no fences. A node no earlier pod of the
 // batch landed on still has the batch's starting state, so its verdict and
 // base score for pod p are exactly filter_score's mask0[p, n] and
-// base0[p, n]; only touched nodes are recomputed (score_common.cuh). Per
-// step: (1) when node-affinity or taint rows are present, the block
-// reduces their maxima over the feasible nodes (masked_normalize divides
-// by the max over feasible nodes only, and that set shrinks as capacity
-// fills); (2) each thread scores its feasible nodes and keeps its best by
-// the key (score, -index); the block reduces that key, which keeps the
-// reference's first maximum; (3) the owner of the chosen node applies the
-// update and marks it touched. One block uses one of the card's 132 SMs:
-// spreading the node axis over a thread-block cluster is later work
-// (ROADMAP).
+// base0[p, n]; only touched nodes are recomputed (score_common.cuh).
+//
+// InterPodAffinity breaks that reuse rule: one assignment adds to the
+// carried (RA, D) sums at a whole topology domain, which moves the affinity
+// verdict and score of every node in that domain (on a one-zone cluster,
+// every node). So filter_score's mask0 leaves the affinity filter out, and
+// each step evaluates the affinity filter and raw score of every node
+// afresh from the running sums (O(slots) gathers a node); only the
+// resource terms of untouched nodes are reused. The sums and their per-row
+// totals (for the self-affinity escape) live in global memory, written by
+// one thread per row after each step's argmax and read by all threads
+// after a block barrier.
+//
+// Per step: (1) when node-affinity, taint or affinity-score rows are
+// present, the block reduces the normalize inputs over the feasible nodes
+// (masked_normalize divides by the max over feasible nodes only, and the
+// affinity normalize by the feasible max - min; that set shrinks as
+// capacity fills); (2) each thread scores its feasible nodes and keeps its
+// best by the key (score, -index); the block reduces that key, which keeps
+// the reference's first maximum; (3) the owner of the chosen node applies
+// the resource update and marks it touched, and thread r adds the pod's
+// increment to affinity row r at the chosen node's domain
+// (greedy.py:157-168). One block uses one of the card's 132 SMs: spreading
+// the node axis over a thread-block cluster is later work (ROADMAP).
 #include "score_common.cuh"
 
 namespace {
@@ -52,15 +66,22 @@ __device__ __forceinline__ void warp_best(int64_t& s, int64_t& n) {
   }
 }
 
+// kPA: the batch has affinity rows. The kernel is built twice, so that a
+// batch without them runs code with no affinity branches at all.
+template <bool kPA>
 __global__ void __launch_bounds__(kThreads, 1)
 greedy_scan_kernel(ScoreArgs a, const uint8_t* mask0, const int64_t* base0, uint8_t* touched,
                    int32_t* assignments, int64_t* req, int64_t* nz, int32_t* pc,
-                   uint8_t* ports) {
+                   uint8_t* ports, int64_t* pa_sums, int64_t* row_total) {
+  __shared__ int64_t s_m[4][33];
   __shared__ int64_t s_x[33];
   __shared__ int64_t s_y[33];
   const int64_t N = a.N, R = a.R, K = a.K;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
+  if (!kPA) a.w_interpod = 0;
+  const bool pa = kPA;
+  const bool pa_filter = kPA && a.pa_filter;
 
   // the running state starts as the batch's node state (owner rows only)
   for (int64_t n = tid; n < N; n += kThreads) {
@@ -72,33 +93,43 @@ greedy_scan_kernel(ScoreArgs a, const uint8_t* mask0, const int64_t* base0, uint
     for (int64_t k = 0; k < K; ++k) ports[n * K + k] = a.node_ports[n * K + k];
     touched[n] = 0;
   }
+  if (pa) {
+    for (int64_t i = tid; i < a.pa_R * a.pa_D; i += kThreads) pa_sums[i] = a.pa_sums[i];
+    kt::pa_row_totals(a, a.pa_sums, row_total, tid, kThreads);
+    __syncthreads();
+  }
 
-  const bool normalize = a.na_raw != nullptr || a.tt_raw != nullptr;
+  const bool na_tt = a.na_raw != nullptr || a.tt_raw != nullptr;
+  const bool normalize = na_tt || a.w_interpod;
   for (int64_t p = 0; p < a.P; ++p) {
     const uint8_t* m0 = mask0 + p * N;
     const int64_t* b0 = base0 + p * N;
-    // (1) feasible maxima of the node-affinity and taint raw rows
-    int64_t mx_na = 0, mx_tt = 0;
-    const int64_t row = normalize ? (int64_t)a.score_sig[p] * N : 0;
+    const int64_t row = na_tt ? (int64_t)a.score_sig[p] * N : 0;
+    const bool escape = pa_filter && kt::pa_escape(a, row_total, p);
+    // (1) the normalize inputs over the feasible nodes
+    int64_t mx[4];
+    kt::init_norm(mx);
     if (normalize) {
       for (int64_t n = tid; n < N; n += kThreads) {
-        const bool ok = touched[n] ? kt::pair_feasible(a, p, n, req, pc, ports) : m0[n];
+        bool ok = touched[n] ? kt::pair_feasible(a, p, n, req, pc, ports) : m0[n];
+        if (ok && pa_filter) ok = kt::pa_feasible(a, pa_sums, escape, p, n);
         if (!ok) continue;
-        if (a.na_raw != nullptr) mx_na = kt::imax(mx_na, a.na_raw[row + n]);
-        if (a.tt_raw != nullptr) mx_tt = kt::imax(mx_tt, a.tt_raw[row + n]);
+        const int64_t pa_r = a.w_interpod ? kt::pa_raw(a, pa_sums, p, n) : 0;
+        kt::fold_norm(a, row, n, pa_r, mx);
       }
-      kt::block_max2(mx_na, mx_tt, s_x, s_y);
+      kt::block_max_norm(a, mx, s_m);
     }
     // (2) best feasible node of this thread, then of the block
     int64_t best_s = 0, best_n = -1;
     for (int64_t n = tid; n < N; n += kThreads) {
       const bool t = touched[n];
-      if (!(t ? kt::pair_feasible(a, p, n, req, pc, ports) : m0[n])) continue;
+      bool ok = t ? kt::pair_feasible(a, p, n, req, pc, ports) : m0[n];
+      if (ok && pa_filter) ok = kt::pa_feasible(a, pa_sums, escape, p, n);
+      if (!ok) continue;
       int64_t s = t ? kt::base_score(a, p, n, req, nz) : b0[n];
       if (normalize) {
-        const int64_t na = a.na_raw != nullptr ? a.na_raw[row + n] : 0;
-        const int64_t tt = a.tt_raw != nullptr ? a.tt_raw[row + n] : 0;
-        s += kt::normalized_terms(a, na, tt, mx_na, mx_tt);
+        const int64_t pa_r = a.w_interpod ? kt::pa_raw(a, pa_sums, p, n) : 0;
+        s += kt::norm_terms(a, row, n, true, pa_r, mx);
       }
       if (better(s, n, best_s, best_n)) {
         best_s = s;
@@ -132,25 +163,42 @@ greedy_scan_kernel(ScoreArgs a, const uint8_t* mask0, const int64_t* base0, uint
         ports[chosen * K + k] = ports[chosen * K + k] | a.pod_ports[p * K + k];
       touched[chosen] = 1;
     }
+    if (pa) {
+      // interpodaffinity updateWithPod: row r at the chosen node's domain
+      if (chosen >= 0) {
+        for (int64_t r = tid; r < a.pa_R; r += kThreads) {
+          const int32_t dom = a.pa_node_domain[r * N + chosen];
+          if (dom < 0) continue;
+          const int64_t inc = a.pa_update[p * a.pa_R + r];
+          pa_sums[r * a.pa_D + dom] += inc;
+          row_total[r] += inc;
+        }
+      }
+      __syncthreads();
+    }
   }
 }
 
 }  // namespace
 
 // Launches the scan on `stream`. mask0 and base0 are filter_score's (P, N)
-// mask and base score of the same batch; `touched` is (N,) scratch. The
-// outputs are written whole by the kernel. Returns the cudaError_t of the
-// launch (0 = accepted).
+// mask (without the affinity filter) and base score of the same batch;
+// `touched` is (N,) scratch. With affinity rows, pa_sums (RA, D) receives
+// the final sums and row_total (RA,) is scratch; both are null without.
+// The outputs are written whole by the kernel. Returns the cudaError_t of
+// the launch (0 = accepted).
 extern "C" int kt_greedy_scan(const ScoreArgs* args, const void* mask0, const void* base0,
                               void* touched, void* assignments, void* req, void* nz, void* pc,
-                              void* ports, void* stream) {
+                              void* ports, void* pa_sums, void* row_total, void* stream) {
   const ScoreArgs a = *args;
   if (a.N == 0 && a.P == 0) return 0;
-  greedy_scan_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = pa_sums != nullptr ? greedy_scan_kernel<true> : greedy_scan_kernel<false>;
+  kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const uint8_t*>(mask0), static_cast<const int64_t*>(base0),
       static_cast<uint8_t*>(touched), static_cast<int32_t*>(assignments),
       static_cast<int64_t*>(req), static_cast<int64_t*>(nz), static_cast<int32_t*>(pc),
-      static_cast<uint8_t*>(ports));
+      static_cast<uint8_t*>(ports), static_cast<int64_t*>(pa_sums),
+      static_cast<int64_t*>(row_total));
   return (int)cudaGetLastError();
 }
 

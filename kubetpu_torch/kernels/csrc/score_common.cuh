@@ -1,5 +1,6 @@
 // Filter verdict and raw plugin scores of ONE (pod, node) pair, shared by
-// the filter_score and greedy_scan kernels so the two cannot drift apart.
+// the filter_score, greedy_scan and batched_round kernels so they cannot
+// drift apart.
 //
 // Replaces, fused per pair, the jitted jnp compositions of the JAX package:
 //   kubetpu/ops/filters.py:22 resource_fit_mask (+ :76 the single-pod form)
@@ -8,13 +9,18 @@
 //     (+ :101 _trunc_div, :108 broken_linear, :21 _weighted_mean)
 //   kubetpu/ops/scores.py:174 balanced_allocation_score (+ :156 _balanced_std)
 //   kubetpu/ops/scores.py:215 default_normalize, :227 image_locality_score
+//   kubetpu/ops/podaffinity.py:24 _slot_counts, :32 affinity_filter_pod,
+//     :75 affinity_score_pod (InterPodAffinity: gathers from the carried
+//     (R, D) sums at the node's domain, and the min-max normalize in f64)
 //
 // Exactness: every integer is int64 as in the reference (which runs with
 // jax x64). `//` in the reference floors; C++ `/` truncates, so floordiv()
 // is used wherever the reference floors. The balanced score is float64 with
 // explicitly rounded intrinsics (__dadd_rn, __dmul_rn, __ddiv_rn,
 // __dsqrt_rn): no fused multiply-add can change a rounding, and the sums
-// over R run in index order, as the plain PyTorch version's loop does.
+// over R run in index order, as the plain PyTorch version's loop does. The
+// affinity normalize, 100 * (raw - min) / (max - min) truncated to int64, is
+// float64 through the same intrinsics.
 #pragma once
 
 #include <cstdint>
@@ -52,6 +58,22 @@ struct ScoreArgs {
   int64_t strategy;                  // 0 least, 1 most, 2 requested-to-capacity
   int64_t w_fit, w_balanced, w_na, w_taint, w_image;
   int64_t filter_fit, filter_ports;
+  // InterPodAffinity rows (kubetpu_torch.framework.runtime.PodAffinityDevice);
+  // pa_node_domain is null when the batch has no podaffinity leaf
+  const int32_t* pa_node_domain;     // (RA, N), -1 = key absent
+  const uint8_t* pa_has_key;         // (RA, N)
+  const int64_t* pa_sums;            // (RA, D) the sums the verdict reads
+  int64_t* pa_row_total;             // (RA,) scratch: sum over D of pa_sums
+  const int64_t* pa_update;          // (P, RA)
+  const int32_t* pa_fa_rows;         // (P, CA), -1 = unused slot
+  const uint8_t* pa_fa_self;         // (P,)
+  const int32_t* pa_ra_rows;         // (P, CR)
+  const int32_t* pa_ea_rows;         // (P, CE)
+  const int32_t* pa_score_rows;      // (P, CS)
+  const int64_t* pa_score_vals;      // (P, CS)
+  int64_t pa_R, pa_D, pa_CA, pa_CR, pa_CE, pa_CS;
+  int64_t pa_filter;                 // filter_interpod and has_filter_work
+  int64_t w_interpod;                // 0 unless w_interpod and has_score_work
 };
 
 namespace kt {
@@ -251,6 +273,76 @@ __device__ __forceinline__ int64_t normalized_terms(const ScoreArgs& a, int64_t 
   return total;
 }
 
+// ---- InterPodAffinity (kubetpu/ops/podaffinity.py) ----------------------
+
+// count at node n's domain for row r (0 where the node lacks the row's key)
+__device__ __forceinline__ int64_t pa_count(const ScoreArgs& a, const int64_t* sums,
+                                            int64_t r, int64_t n) {
+  const int32_t dom = a.pa_node_domain[r * a.N + n];
+  return dom >= 0 ? sums[r * a.pa_D + dom] : 0;
+}
+
+// the self-affinity escape of pod p (filtering.go:414): no pod anywhere
+// matches its required-affinity rows, and the pod matches its own terms.
+// row_total[r] is the sum over all domains of the sums row r.
+__device__ __forceinline__ bool pa_escape(const ScoreArgs& a, const int64_t* row_total,
+                                          int64_t p) {
+  int64_t set_total = 0;
+  for (int64_t c = 0; c < a.pa_CA; ++c) {
+    const int32_t rid = a.pa_fa_rows[p * a.pa_CA + c];
+    if (rid >= 0) set_total += row_total[rid];
+  }
+  return set_total == 0 && a.pa_fa_self[p];
+}
+
+// InterPodAffinity Filter of one pair against the sums given
+__device__ __forceinline__ bool pa_feasible(const ScoreArgs& a, const int64_t* sums,
+                                            bool escape, int64_t p, int64_t n) {
+  // incoming required affinity (satisfyPodAffinity)
+  bool any_fa = false, keys_ok = true, pods_exist = true;
+  for (int64_t c = 0; c < a.pa_CA; ++c) {
+    const int32_t rid = a.pa_fa_rows[p * a.pa_CA + c];
+    if (rid < 0) continue;
+    any_fa = true;
+    keys_ok = keys_ok && a.pa_has_key[rid * a.N + n];
+    pods_exist = pods_exist && pa_count(a, sums, rid, n) > 0;
+  }
+  if (any_fa && !(keys_ok && (pods_exist || escape))) return false;
+  // incoming required anti-affinity (satisfyPodAntiAffinity)
+  for (int64_t c = 0; c < a.pa_CR; ++c) {
+    const int32_t rid = a.pa_ra_rows[p * a.pa_CR + c];
+    if (rid >= 0 && a.pa_has_key[rid * a.N + n] && pa_count(a, sums, rid, n) > 0)
+      return false;
+  }
+  // existing pods' anti-affinity (satisfyExistingPodsAntiAffinity)
+  for (int64_t c = 0; c < a.pa_CE; ++c) {
+    const int32_t rid = a.pa_ea_rows[p * a.pa_CE + c];
+    if (rid >= 0 && pa_count(a, sums, rid, n) > 0) return false;
+  }
+  return true;
+}
+
+// InterPodAffinity raw score of one pair: sum of weight * count, int64
+__device__ __forceinline__ int64_t pa_raw(const ScoreArgs& a, const int64_t* sums,
+                                          int64_t p, int64_t n) {
+  int64_t raw = 0;
+  for (int64_t c = 0; c < a.pa_CS; ++c) {
+    const int32_t rid = a.pa_score_rows[p * a.pa_CS + c];
+    if (rid >= 0) raw += a.pa_score_vals[p * a.pa_CS + c] * pa_count(a, sums, rid, n);
+  }
+  return raw;
+}
+
+// min-max normalize of a feasible pair's raw score against the feasible
+// row's min and max: int64(100 * (raw - mn) / (mx - mn)), 0 when equal
+__device__ __forceinline__ int64_t pa_normalize(int64_t raw, int64_t mn, int64_t mx) {
+  const int64_t diff = mx - mn;
+  if (diff <= 0) return 0;
+  const double f = __ddiv_rn(__dmul_rn((double)kMaxNodeScore, __ll2double_rn(raw - mn)),
+                             __ll2double_rn(diff));
+  return (int64_t)f;
+}
+
 // block-wide reduction helpers (blockDim.x a multiple of 32, <= 1024)
 __device__ __forceinline__ int64_t warp_max(int64_t v) {
   for (int off = 16; off > 0; off >>= 1) v = imax(v, __shfl_down_sync(0xffffffffu, v, off));
@@ -281,6 +373,83 @@ __device__ __forceinline__ void block_max2(int64_t& x, int64_t& y, int64_t* sx, 
   __syncthreads();
   x = sx[32];
   y = sy[32];
+}
+
+// max of four values over the block; s holds 4 x 33 int64. Every thread
+// gets the results.
+__device__ __forceinline__ void block_max4(int64_t (&v)[4], int64_t (*s)[33]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  for (int i = 0; i < 4; ++i) {
+    v[i] = warp_max(v[i]);
+    if (lane == 0) s[i][warp] = v[i];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    for (int i = 0; i < 4; ++i) {
+      int64_t x = lane < nwarps ? s[i][lane] : INT64_MIN;
+      x = warp_max(x);
+      if (lane == 0) s[i][32] = x;
+    }
+  }
+  __syncthreads();
+  for (int i = 0; i < 4; ++i) v[i] = s[i][32];
+}
+
+// block_max4 over fold_norm's maxima; without affinity score rows only the
+// node-affinity and taint maxima are reduced (the cheaper two-value form)
+__device__ __forceinline__ void block_max_norm(const ScoreArgs& a, int64_t (&m)[4],
+                                               int64_t (*s)[33]) {
+  if (a.w_interpod)
+    block_max4(m, s);
+  else
+    block_max2(m[0], m[1], s[0], s[1]);
+}
+
+// the normalize inputs of one pair that passed Filter, folded into the
+// running maxima: node-affinity and taint raws, the affinity raw's max and
+// its negated min (so that all four reduce by max)
+__device__ __forceinline__ void fold_norm(const ScoreArgs& a, int64_t row, int64_t n,
+                                          int64_t pa_r, int64_t (&m)[4]) {
+  if (a.na_raw != nullptr) m[0] = imax(m[0], a.na_raw[row + n]);
+  if (a.tt_raw != nullptr) m[1] = imax(m[1], a.tt_raw[row + n]);
+  if (a.w_interpod) {
+    m[2] = imax(m[2], pa_r);
+    m[3] = imax(m[3], -pa_r);
+  }
+}
+
+// start values of fold_norm's maxima: the node-affinity and taint maxima
+// start at 0 (masked_normalize zeroes infeasible raws), the affinity ones at
+// the most negative value
+__device__ __forceinline__ void init_norm(int64_t (&m)[4]) {
+  m[0] = 0;
+  m[1] = 0;
+  m[2] = INT64_MIN;
+  m[3] = INT64_MIN;
+}
+
+// the normalized terms of a pair given the reduced maxima. An infeasible
+// pair (ok false) still gets the node-affinity and taint terms of a zero
+// raw, as masked_normalize gives it; its affinity term is 0.
+__device__ __forceinline__ int64_t norm_terms(const ScoreArgs& a, int64_t row, int64_t n,
+                                              bool ok, int64_t pa_r, const int64_t (&m)[4]) {
+  const int64_t na = (ok && a.na_raw != nullptr) ? a.na_raw[row + n] : 0;
+  const int64_t tt = (ok && a.tt_raw != nullptr) ? a.tt_raw[row + n] : 0;
+  int64_t s = normalized_terms(a, na, tt, m[0], m[1]);
+  if (ok && a.w_interpod) s += a.w_interpod * pa_normalize(pa_r, -m[3], m[2]);
+  return s;
+}
+
+// sum over D of each affinity sums row, one row per thread of the grid
+__device__ __forceinline__ void pa_row_totals(const ScoreArgs& a, const int64_t* sums,
+                                              int64_t* row_total, int64_t first,
+                                              int64_t stride) {
+  for (int64_t r = first; r < a.pa_R; r += stride) {
+    int64_t t = 0;
+    for (int64_t d = 0; d < a.pa_D; ++d) t += sums[r * a.pa_D + d];
+    row_total[r] = t;
+  }
 }
 
 }  // namespace kt

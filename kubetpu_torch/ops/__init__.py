@@ -1,1 +1,1 @@
-from . import filters, scores  # noqa: F401
+from . import filters, podaffinity, scores  # noqa: F401

@@ -2,7 +2,10 @@
 direct mode and print its result as one JSON line.
 
     python -m kubetpu_torch.perf --case SchedulingBasic \\
-        --workload 5000Nodes_10000Pods [--device cuda] [--max-batch 1024]
+        --workload 5000Nodes_10000Pods [--engine greedy|batched] \\
+        [--device cuda] [--max-batch 1024]
+    python -m kubetpu_torch.perf --case SchedulingPodAffinity \\
+        --workload 5000Nodes_5000Pods --engine batched
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m kubetpu_torch.perf")
     ap.add_argument("--case", default="SchedulingBasic", choices=sorted(TEST_CASES))
     ap.add_argument("--workload", default="5000Nodes_10000Pods")
+    ap.add_argument("--engine", default="greedy", choices=("greedy", "batched"))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--max-batch", type=int, default=1024)
     return ap
@@ -25,7 +29,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     res = run_workload(
-        args.case, args.workload, device=args.device, max_batch=args.max_batch
+        args.case, args.workload, device=args.device,
+        max_batch=args.max_batch, engine=args.engine,
     )
     print(json.dumps(res.to_json()))
     return 0 if res.scheduled == res.measure_pods else 1

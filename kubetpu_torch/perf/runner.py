@@ -41,6 +41,9 @@ class WorkloadResult:
     # mean wall ms per measured cycle of each region (Scheduler.CycleTiming)
     cycle_ms: dict = field(default_factory=dict)
     upload_bytes_per_cycle: float = 0.0
+    engine: str = "greedy"
+    # batched engine: mean rounds per measured cycle (0 on greedy)
+    rounds_per_cycle: float = 0.0
 
     def to_json(self) -> dict:
         return {
@@ -51,6 +54,7 @@ class WorkloadResult:
             "threshold": self.threshold, "attempts": self.attempts,
             "cycles": self.cycles, "cycle_ms": self.cycle_ms,
             "upload_bytes_per_cycle": self.upload_bytes_per_cycle,
+            "engine": self.engine, "rounds_per_cycle": self.rounds_per_cycle,
         }
 
 
@@ -96,13 +100,15 @@ def run_workload(
     workload: W.Workload | str,
     device="cuda",
     max_batch: int = 1024,
+    engine: str = "greedy",
     profile: C.Profile | None = None,
     timeout_s: float = 1800.0,
     stall_s: float = 15.0,
     on_scheduler: Callable[[Scheduler], None] | None = None,
 ) -> WorkloadResult:
     """Execute one (test case, workload) pair in direct mode on ``device``
-    and return the measurement. ``stall_s`` is how long zero progress must
+    with the ``engine`` (``"greedy"`` or ``"batched"``) and return the
+    measurement. ``stall_s`` is how long zero progress must
     persist before a phase gives up. The kernels are built before the
     measured phase starts (``Scheduler.warmup``). ``on_scheduler`` is
     called once with the run's Scheduler before any op runs, so a caller
@@ -116,7 +122,7 @@ def run_workload(
     client = _Client()
     sched = Scheduler(
         client, profile=profile or C.Profile(), max_batch=max_batch,
-        device=device,
+        engine=engine, device=device,
     )
     client.sched = sched
     if on_scheduler is not None:
@@ -163,6 +169,13 @@ def run_workload(
             factory = op.template or W.node_default
             for i in range(n):
                 sched.on_node_add(factory(i, op.zones))
+        elif isinstance(op, W.CreateNamespacesOp):
+            # namespace objects carry labels for affinity namespaceSelectors
+            n = params[op.count_param] if op.count_param else op.count
+            for i in range(n):
+                sched.on_namespace_add(t.Namespace(
+                    name=f"{op.prefix}-{i}", labels=op.labels,
+                ))
         elif isinstance(op, W.CreatePodsOp):
             count = params[op.count_param]
             template = op.template or case.default_pod_template
@@ -183,7 +196,7 @@ def run_workload(
                 measured += done
                 duration += secs
         else:
-            raise TypeError(f"op {op!r} is not in the port's first slice")
+            raise TypeError(f"op {op!r} is not in the port's slices yet")
 
     client.deliver()
     timings = sched.metrics.cycle_timings[timings0:]
@@ -209,6 +222,10 @@ def run_workload(
         cycle_ms=_cycle_ms(timings),
         upload_bytes_per_cycle=(
             sum(c.upload_bytes for c in timings) / len(timings) if timings else 0.0
+        ),
+        engine=engine,
+        rounds_per_cycle=(
+            sum(c.rounds for c in timings) / len(timings) if timings else 0.0
         ),
     )
     return result

@@ -1,11 +1,13 @@
 """scheduler_perf workload definitions — op lists + object templates.
 
-Port copy of ``kubetpu/perf/workloads.py``, trimmed to the first slice:
-the ``SchedulingBasic`` test case (misc/performance-config.yaml:20 in the
-reference) with its two direct-mode workloads, the ``node_default`` /
-``pod_default`` templates and the two ops it uses. Everything kept is
-verbatim apart from the trim: ``node_default`` drops the rack/TPU-slice
-label option, which SchedulingBasic never sets.
+Port copy of ``kubetpu/perf/workloads.py``, trimmed to the slices ported
+so far: the ``SchedulingBasic`` test case (misc/performance-config.yaml:20
+in the reference) and the ``SchedulingPodAffinity`` test case
+(affinity/performance-config.yaml:96), each with its two direct-mode
+workloads, the ``node_default`` / ``pod_default`` /
+``pod_with_pod_affinity`` templates and the three ops they use. Everything
+kept is verbatim apart from the trim: ``node_default`` drops the
+rack/TPU-slice label option, which neither case sets.
 
 Mirrors the reference harness's shape
 (test/integration/scheduler_perf/scheduler_perf.go:756
@@ -25,7 +27,7 @@ from dataclasses import dataclass
 from typing import Callable, Mapping
 
 from ..api import types as t
-from ..api.wrappers import make_node, make_pod
+from ..api.wrappers import make_node, make_pod, pod_affinity_term
 
 ZONE_KEY = "topology.kubernetes.io/zone"
 HOSTNAME_KEY = "kubernetes.io/hostname"
@@ -56,6 +58,20 @@ def pod_default(name: str, namespace: str) -> t.Pod:
     return make_pod(name, namespace=namespace, **_POD_REQ)
 
 
+def pod_with_pod_affinity(name: str, namespace: str) -> t.Pod:
+    """templates/pod-with-pod-affinity.yaml: color=blue, required zone
+    affinity to color=blue across sched-0/sched-1."""
+    term = pod_affinity_term(
+        ZONE_KEY, match_labels={"color": "blue"},
+        namespaces=("sched-1", "sched-0"),
+    )
+    return make_pod(
+        name, namespace=namespace, labels={"color": "blue"},
+        affinity=t.Affinity(pod_affinity=t.PodAffinity(required=(term,))),
+        **_POD_REQ,
+    )
+
+
 # ---------------------------------------------------------------------------
 # op list (operations.go analogs)
 # ---------------------------------------------------------------------------
@@ -73,6 +89,18 @@ class CreateNodesOp:
     zones: tuple[str, ...] = ()
     count: int = 0
     template: Callable[[int, tuple[str, ...]], t.Node] | None = None
+
+
+@dataclass(frozen=True)
+class CreateNamespacesOp:
+    """operations.go createNamespacesOp. ``labels`` models
+    namespaceTemplatePath (templates/namespace-with-labels.yaml);
+    ``count_param`` overrides ``count`` when set."""
+
+    prefix: str = "sched"
+    count: int = 2
+    count_param: str = ""
+    labels: tuple[tuple[str, str], ...] = ()
 
 
 @dataclass(frozen=True)
@@ -131,5 +159,28 @@ _case(TestCase(
         Workload("5000Nodes_10000Pods",
                  {"initNodes": 5000, "initPods": 1000, "measurePods": 10000},
                  threshold=680, labels=("performance",)),
+    ),
+))
+
+_case(TestCase(
+    name="SchedulingPodAffinity",
+    source="affinity/performance-config.yaml:96 (threshold 70 — the hardest quadratic workload)",
+    default_pod_template=pod_with_pod_affinity,
+    ops=(
+        CreateNodesOp("initNodes", zones=("zone1",)),
+        CreateNamespacesOp("sched", 2),
+        CreatePodsOp("initPods", namespace="sched-0"),
+        CreatePodsOp("measurePods", collect_metrics=True, namespace="sched-1"),
+    ),
+    workloads=(
+        Workload("500Nodes", {"initNodes": 500, "initPods": 500, "measurePods": 1000},
+                 threshold=700, threshold_note=(
+                     "70 pods/s 5k floor x10: the quadratic PreScore cost "
+                     "scales ~linearly with node count, so at 1/10 the "
+                     "nodes the reference would run ~10x its floor — the "
+                     "scaled floor keeps vs_baseline conservative")),
+        Workload("5000Nodes_5000Pods",
+                 {"initNodes": 5000, "initPods": 5000, "measurePods": 5000},
+                 threshold=70, labels=("performance",)),
     ),
 ))

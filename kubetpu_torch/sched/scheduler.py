@@ -1,24 +1,26 @@
 """The batched scheduler loop — reduced fork of ``kubetpu/sched/scheduler.py``.
 
-The first slice of the port: the serial greedy cycle of one or more
-profiles, in direct mode, with synchronous binding. What it keeps of the
-reference, line for line where the logic is host logic: the informer
-handlers for nodes and pods, ``schedule_batch`` → ``_schedule_batch_serial``
-→ ``_profile_cycle`` → ``_launch_cycle`` / ``_finish_cycle``,
-``_handle_unschedulable``, the greedy engine seam and ``run_until_idle``.
+The slices of the port so far: the serial cycle of one or more profiles
+on the greedy or the batched engine, in direct mode, with synchronous
+binding. What it keeps of the reference, line for line where the logic is
+host logic: the informer handlers for nodes, pods and namespaces,
+``schedule_batch`` → ``_schedule_batch_serial`` → ``_profile_cycle`` →
+``_launch_cycle`` / ``_finish_cycle``, ``_handle_unschedulable``, the
+engine seam and ``run_until_idle``.
 
 The device calls of the reference's cycle become torch calls: the encoded
 batch is uploaded to the scheduler's ``device`` in one copy, the engine
-launches the ``greedy_scan`` kernel on a CUDA device (the plain PyTorch
-loop on the CPU), and ``jax.device_get`` of the assignments becomes
-``.cpu()``. Each cycle leaves a ``CycleTiming`` record (snapshot, encode,
-upload, kernel, bind), each region timed with ``time.perf_counter`` and
+launches its kernels on a CUDA device (``greedy_scan``, or the
+``batched_round`` rounds; the plain PyTorch loops on the CPU), and
+``jax.device_get`` of the assignments becomes ``.cpu()``. Each cycle leaves
+a ``CycleTiming`` record (snapshot, encode, upload, kernel, bind, and the
+batched engine's rounds), each region timed with ``time.perf_counter`` and
 closed by a synchronize of the cycle's stream on a CUDA device.
 
-Not in this slice (each raises when asked for): the pipelined cycle, the
+Not in these slices (each raises when asked for): the pipelined cycle, the
 device mesh, the encode cache, the flight recorder, preemption, extenders,
-gangs, DRA, volumes, the sentinel, the batched and packing engines and the
-metrics registry.
+gangs, DRA, volumes, the sentinel, the packing engine and the metrics
+registry.
 
 Reference semantics kept: the reference pops ONE pod per cycle
 (``ScheduleOne``); here a BATCH is popped and assigned by the greedy engine,
@@ -39,6 +41,7 @@ import torch
 
 from .. import names as N
 from ..api import types as t
+from ..assign.batched import batched_assign_device
 from ..assign.greedy import greedy_assign_device
 from ..framework import config as C
 from ..framework import runtime as rt
@@ -65,6 +68,7 @@ class CycleTiming:
     kernel_s: float
     bind_s: float = 0.0
     upload_bytes: int = 0
+    rounds: int = 0                  # batched engine: rounds of the cycle
 
 
 @dataclass
@@ -120,8 +124,10 @@ class Scheduler:
         (default: the hand-written kernels) or ``"cpu"`` (the plain
         PyTorch versions). The other arguments name features of later
         slices; anything but their default raises NotImplementedError."""
-        if engine != "greedy":
-            raise _not_ported(f"engine {engine!r}", "Queue A items 6 and 11")
+        if engine == "packing":
+            raise _not_ported("engine 'packing'", "Queue A item 11 (kernel B14)")
+        if engine not in ("greedy", "batched"):
+            raise ValueError(f"unknown engine {engine!r}")
         if pipeline:
             raise _not_ported("the pipelined cycle", "Queue A item 5 (kernel B5)")
         if mesh not in (None, "off"):
@@ -146,8 +152,11 @@ class Scheduler:
             self.profiles.setdefault("default-scheduler", profile)
         else:
             self.profiles = {p.name: p for p in self.cfg.profiles}
-        self._assign_device = greedy_assign_device
+        self._assign_device = (
+            greedy_assign_device if engine == "greedy" else self._batched_assign
+        )
         self.engine = engine
+        self._rounds = 0
         self.cache = Cache(clock=clock)
         self.clock = clock
         self.max_batch = max_batch
@@ -176,6 +185,13 @@ class Scheduler:
 
             kernels.build()
 
+    def _batched_assign(self, b: rt.DeviceBatch, params: rt.ScoreParams):
+        """The batched engine, keeping the cycle's round count."""
+        rounds: list = []
+        out = batched_assign_device(b, params, rounds_out=rounds)
+        self._rounds = rounds[0]
+        return out
+
     def _sync(self) -> None:
         """Wait for the cycle's stream (the reference's block_until_ready)."""
         if self.device.type == "cuda":
@@ -201,6 +217,16 @@ class Scheduler:
         self.queue.on_event(
             ClusterEvent(EventResource.NODE, ActionType.ADD), None, node
         )
+
+    def on_namespace_add(self, ns: t.Namespace) -> None:
+        """nsLister feed — namespace labels drive affinity-term
+        namespaceSelectors (AffinityTerm.Matches nsLabels)."""
+        self.cache.add_namespace(ns)
+
+    on_namespace_update = on_namespace_add
+
+    def on_namespace_delete(self, ns: t.Namespace) -> None:
+        self.cache.remove_namespace(ns.name)
 
     def on_pod_add(self, pod: t.Pod) -> None:
         if not pod.node_name and self._profile_for(pod) is None:
@@ -344,6 +370,7 @@ class Scheduler:
                 snapshot_s=t_enc - t_snap, encode_s=t_up - t_enc,
                 upload_s=t_dev - t_up, kernel_s=0.0,
                 upload_bytes=batch.upload_bytes,
+                rounds=self._rounds if self.engine == "batched" else 0,
             )
             return _LaunchedCycle(
                 profile=profile, batch_infos=batch_infos, batch=batch,

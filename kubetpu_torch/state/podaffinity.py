@@ -1,0 +1,551 @@
+"""InterPodAffinity tensorization.
+
+Reference: pkg/scheduler/framework/plugins/interpodaffinity/
+- filtering.go:44 preFilterState — three topology-pair count maps:
+  affinityCounts (existing pods matching ALL of the incoming pod's required
+  affinity terms), antiAffinityCounts (existing pods matching ANY incoming
+  required anti-affinity term, per term), existingAntiAffinityCounts
+  (existing pods whose own required anti-affinity terms match the incoming
+  pod); Filter checks at :364-419.
+- scoring.go:81 processExistingPod — topologyScore contributions from the
+  incoming pod's preferred terms, existing pods' required-affinity terms
+  (× HardPodAffinityWeight), and existing pods' preferred terms; NormalizeScore
+  :258 is min-max over filtered nodes.
+
+Tensorization: every distinct *count row* is interned. A row is a (term,
+grouping) pair whose per-topology-value counts the reference keeps in a Go
+map; here each row carries:
+
+- ``node_domain (N,)``: interned id of each node's value for the row's
+  topology key (−1 when absent),
+- ``base_sums (D,)``: per-domain counts from existing (assigned) pods,
+- an update column in ``update (P, R)``: how much an in-batch assignment of
+  pending pod p adds to the row on the chosen node's domain
+  (preFilterState.updateWithPod / AddPod semantics, filtering.go:75).
+
+Row kinds:
+- FA (incoming required affinity, one row per (term-set, term)): counts pods
+  matching ALL terms of the set; Filter needs every FA row of the pod > 0 at
+  the node's domain, with the self-affinity escape (filtering.go:414).
+- RA (incoming required anti-affinity, one row per term): node infeasible if
+  count > 0 at its domain.
+- EA (required anti-affinity terms of existing/assignable pods, one row per
+  distinct term): node infeasible for pod p if the term matches p
+  (``ea_match (P, R)``) and count > 0 at the node's domain.
+- SC (scoring): one row per distinct (term, weight-source); ``score_w (P, R)``
+  carries the signed weight each pending pod contributes/receives
+  (+w incoming preferred affinity, −w incoming preferred anti-affinity,
+  +HardPodAffinityWeight × existing required-affinity match, ±w existing
+  preferred terms).
+
+Namespace semantics: a term's namespaces default to the owner pod's namespace
+(framework.NewPodInfo defaultNamespaces); a non-nil namespace_selector is
+evaluated against the target pod's NAMESPACE labels (AffinityTerm.Matches,
+framework/types.go — nsLabels come from the nsLister snapshot,
+GetNamespaceLabelsSnapshot). ``encode_pod_affinity`` takes the snapshot's
+namespace→labels map; a namespace absent from the map matches as if it had
+no labels (empty selector matches, non-empty doesn't), which is also the
+reference behavior for an unsynced namespace.
+"""
+
+# Port copy of kubetpu/state/podaffinity.py, verbatim: its relative imports
+# resolve to this package's own api, encoder, vocab and encode_cache.
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+
+from ..api import selectors as sel
+from ..api import types as t
+from .encoder import NodeTensors
+from .vocab import Vocab
+
+
+def term_matches(
+    term: t.PodAffinityTerm,
+    owner_ns: str,
+    target_ns: str,
+    target_labels: dict,
+    ns_labels: "dict[str, str] | None" = None,
+) -> bool:
+    """AffinityTerm.Matches (framework/types.go) against a (labels,
+    namespace) TEMPLATE rather than a pod object: namespace membership OR
+    namespace-selector match (against the labels of the target's
+    namespace), AND label selector match. Pods stamped from one controller
+    template share (labels, namespace), so match verdicts are per-template
+    facts — the encode cache memoizes them across cycles."""
+    namespaces = term.namespaces or (owner_ns,)
+    ns_ok = target_ns in namespaces
+    if not ns_ok and term.namespace_selector is not None:
+        ns_ok = sel.label_selector_matches(term.namespace_selector, ns_labels or {})
+    if not ns_ok:
+        return False
+    if term.selector is None:
+        return False
+    return sel.label_selector_matches(term.selector, target_labels)
+
+
+def term_matches_pod(
+    term: t.PodAffinityTerm,
+    owner_ns: str,
+    pod: t.Pod,
+    ns_labels: "dict[str, str] | None" = None,
+) -> bool:
+    return term_matches(term, owner_ns, pod.namespace, pod.labels_dict(), ns_labels)
+
+
+def _req_affinity_terms(pod: t.Pod) -> tuple[t.PodAffinityTerm, ...]:
+    a = pod.affinity.pod_affinity if pod.affinity else None
+    return a.required if a else ()
+
+
+def _req_anti_terms(pod: t.Pod) -> tuple[t.PodAffinityTerm, ...]:
+    a = pod.affinity.pod_anti_affinity if pod.affinity else None
+    return a.required if a else ()
+
+
+def _pref_affinity_terms(pod: t.Pod) -> tuple[t.WeightedPodAffinityTerm, ...]:
+    a = pod.affinity.pod_affinity if pod.affinity else None
+    return a.preferred if a else ()
+
+
+def _pref_anti_terms(pod: t.Pod) -> tuple[t.WeightedPodAffinityTerm, ...]:
+    a = pod.affinity.pod_anti_affinity if pod.affinity else None
+    return a.preferred if a else ()
+
+
+def affinity_has_terms(a: "t.Affinity | None") -> bool:
+    if a is None:
+        return False
+    pa, paa = a.pod_affinity, a.pod_anti_affinity
+    return bool(
+        (pa is not None and (pa.required or pa.preferred))
+        or (paa is not None and (paa.required or paa.preferred))
+    )
+
+
+def has_any_affinity(pod: t.Pod) -> bool:
+    return affinity_has_terms(pod.affinity)
+
+
+def source_row_specs(aff: "t.Affinity | None", ns: str) -> tuple:
+    """The rows a pod shaped ``(affinity, namespace)`` maintains as an
+    existing/assigned pod, as ``(vocab_key, meta, inc)`` specs: EA (its
+    required anti-affinity terms), SCH (its required affinity terms,
+    scored × HardPodAffinityWeight), SCP (its preferred terms, signed).
+    A pure function of the TEMPLATE — the encode cache memoizes it, so a
+    1000-pod deployment contributes one spec computation, not 1000
+    per-pod ``existing_rows`` walks per cycle."""
+    pa = aff.pod_affinity if aff else None
+    paa = aff.pod_anti_affinity if aff else None
+    out: list[tuple] = []
+    for term in (paa.required if paa else ()):
+        out.append((
+            ("EA", term.topology_key, ("eterm", term, ns)),
+            dict(term=term, ns=ns), 1,
+        ))
+    for term in (pa.required if pa else ()):
+        out.append((
+            ("SCH", term.topology_key, ("hterm", term, ns)),
+            dict(term=term, ns=ns), 1,
+        ))
+    for wt in (pa.preferred if pa else ()):
+        out.append((
+            ("SCP", wt.term.topology_key, ("pterm", wt.term, ns, wt.weight, 1)),
+            dict(term=wt.term, ns=ns, weight=wt.weight, sign=1), 1,
+        ))
+    for wt in (paa.preferred if paa else ()):
+        out.append((
+            ("SCP", wt.term.topology_key, ("pterm", wt.term, ns, wt.weight, -1)),
+            dict(term=wt.term, ns=ns, weight=wt.weight, sign=-1), 1,
+        ))
+    return tuple(out)
+
+
+@dataclass
+class PodAffinityTensors:
+    """Numpy-side encoding; None from the encoder when nothing to do."""
+
+    # rows
+    node_domain: np.ndarray   # (R, N) int32, -1 = key absent
+    has_key: np.ndarray       # (R, N) bool
+    base_sums: np.ndarray     # (R, D) int64
+    update: np.ndarray        # (P, R) int64 — increment when pod p is assigned
+    # filtering — per-pod row-id slots (−1 unused) so kernels touch only the
+    # rows a pod actually uses, not all R (the dense (R, N) gather per scan
+    # step was the dominant cost at 5k nodes)
+    fa_rows: np.ndarray       # (P, CA) int32 row id, -1 unused
+    fa_self: np.ndarray       # (P,) bool — pod matches all its own aff terms
+    ra_rows: np.ndarray       # (P, CR) int32 row id, -1 unused
+    ea_rows: np.ndarray       # (P, CE) int32 — EA rows whose term matches pod p
+    # scoring — slots + signed weights
+    score_rows: np.ndarray    # (P, CS) int32
+    score_vals: np.ndarray    # (P, CS) int64
+    has_filter_work: bool
+    has_score_work: bool
+
+    @property
+    def num_rows(self) -> int:
+        return self.node_domain.shape[0]
+
+    @property
+    def max_domains(self) -> int:
+        return self.base_sums.shape[1]
+
+
+def encode_pod_affinity(
+    nt: NodeTensors,
+    pods: Sequence[t.Pod],
+    hard_pod_affinity_weight: int = 1,
+    pad_pods: int | None = None,
+    namespaces: "dict[str, dict[str, str]] | None" = None,
+    cache=None,
+    groups: dict | None = None,
+) -> PodAffinityTensors | None:
+    """Build affinity tensors; None when neither pending pods nor existing
+    pods carry any (anti)affinity. ``namespaces`` is the snapshot's
+    namespace→labels map, matched by namespace selectors.
+
+    ``groups``: precomputed template groups
+    (``encode_cache.collect_pod_groups``) — ``{template_key(pod):
+    (N,) counts}`` with key[0:3] = (labels, ns, affinity); None builds
+    them here. The base-sum accumulation is
+    per (row × template) numpy segment sums over these count vectors, not
+    per (row × existing pod) Python — the r05 fullstack trace's dominant
+    encode cost. ``cache``: an ``encode_cache.EncodeCache`` whose
+    persistent term-spec and match-verdict stores carry the per-template
+    facts across cycles (the caller must have synced its namespace
+    generation — ``runtime.finalize_batch`` does)."""
+    ns_map = namespaces or {}
+
+    def ns_labels_of(q: t.Pod) -> dict[str, str]:
+        return ns_map.get(q.namespace, {})
+
+    P = len(pods)
+    N = nt.num_nodes
+    NC = nt.alloc.shape[0]
+    PP = max(pad_pods or P, P)
+
+    from .encode_cache import collapse_label_groups, groups_for, pod_gids_for
+
+    groups = groups_for(nt, cache, groups)
+    any_existing_aff = any(
+        affinity_has_terms(key[2]) for key in groups
+    )
+    any_pending_aff = any(has_any_affinity(p) for p in pods)
+    if not any_existing_aff and not any_pending_aff:
+        return None
+
+    row_vocab = Vocab()
+    row_meta: list[dict] = []
+    row_keys: list[tuple] = []   # interned vocab key per row — the STABLE
+    #                              identity the cross-cycle match cache keys on
+
+    def row(kind: str, key: str, match_fn_sig, meta) -> int:
+        vk = (kind, key, match_fn_sig)
+        rid = row_vocab.intern(vk)
+        if rid == len(row_meta):
+            row_meta.append(dict(kind=kind, key=key, **meta))
+            row_keys.append(vk)
+        return rid
+
+    def row_from_spec(spec) -> int:
+        vk, meta, _inc = spec
+        rid = row_vocab.intern(vk)
+        if rid == len(row_meta):
+            row_meta.append(dict(kind=vk[0], key=vk[1], **meta))
+            row_keys.append(vk)
+        return rid
+
+    # per-pod TEMPLATE ids: the whole pending-pod side (incoming rows,
+    # fa_self, update row, EA/SC slots) is a pure function of the template,
+    # so it is computed once per distinct template in the batch and copied
+    # to every pod stamped from it
+    pod_gid = pod_gids_for(pods, cache)
+
+    # ---- collect rows ----------------------------------------------------
+    fa_slots: list[list[int]] = [[] for _ in range(P)]
+    ra_slots: list[list[int]] = [[] for _ in range(P)]
+    fa_self = np.zeros(PP, dtype=bool)
+
+    tmpl_in: dict[int, tuple] = {}   # gid -> (fa rids, fa_self, ra rids)
+    for i, p in enumerate(pods):
+        ent = tmpl_in.get(pod_gid[i])
+        if ent is None:
+            fa_list: list[int] = []
+            ra_list: list[int] = []
+            fself = False
+            aff = _req_affinity_terms(p)
+            if aff:
+                set_sig = (tuple(aff), p.namespace)
+                for term in aff:
+                    rid = row(
+                        "FA", term.topology_key, ("set", set_sig),
+                        dict(terms=aff, ns=p.namespace),
+                    )
+                    fa_list.append(rid)
+                fself = all(
+                    term_matches_pod(tm, p.namespace, p, ns_labels_of(p))
+                    for tm in aff
+                )
+            for term in _req_anti_terms(p):
+                rid = row(
+                    "RA", term.topology_key, ("term", term, p.namespace),
+                    dict(term=term, ns=p.namespace),
+                )
+                ra_list.append(rid)
+            for wt in _pref_affinity_terms(p):
+                row(
+                    "SCI", wt.term.topology_key,
+                    ("pref", wt.term, p.namespace),
+                    dict(term=wt.term, ns=p.namespace),
+                )
+            for wt in _pref_anti_terms(p):
+                row(
+                    "SCI", wt.term.topology_key,
+                    ("pref", wt.term, p.namespace),
+                    dict(term=wt.term, ns=p.namespace),
+                )
+            ent = (fa_list, fself, ra_list)
+            tmpl_in[pod_gid[i]] = ent
+        fa_slots[i] = list(ent[0])
+        fa_self[i] = ent[1]
+        ra_slots[i] = list(ent[2])
+
+    # rows driven by existing/assignable pods' own terms, per TEMPLATE
+    # (source_row_specs — memoized across cycles by the encode cache).
+    # Pending pods also contribute: once assigned in-batch they become
+    # "existing" for later pods.
+    def specs_of(aff, ns: str) -> tuple:
+        if not affinity_has_terms(aff):
+            return ()
+        if cache is not None:
+            key = (aff, ns)
+            got = cache.aff_row_specs.get(key)
+            if got is None:
+                got = source_row_specs(aff, ns)
+                cache.aff_row_specs.put(key, got)
+            return got
+        return source_row_specs(aff, ns)
+
+    group_list: list[tuple] = []   # (labels, ns, specs, counts vec)
+    for key, vec in groups.items():
+        labels, ns, aff = key[0], key[1], key[2]
+        specs = specs_of(aff, ns)
+        for spec in specs:
+            row_from_spec(spec)
+        group_list.append((labels, ns, specs, vec))
+    # per-template pending source specs (the per-pod specs_of lookup was a
+    # deep (affinity, ns) hash per pod per cycle)
+    _specs_of_gid: dict[int, tuple] = {}
+    pend_specs: list[tuple] = []
+    for i, p in enumerate(pods):
+        sp_ = _specs_of_gid.get(pod_gid[i])
+        if sp_ is None:
+            sp_ = specs_of(p.affinity, p.namespace)
+            _specs_of_gid[pod_gid[i]] = sp_
+        pend_specs.append(sp_)
+    for sp_ in _specs_of_gid.values():
+        for spec in sp_:
+            row_from_spec(spec)
+
+    R = len(row_meta)
+    if R == 0:
+        return None
+
+    # ---- per-row node domains + base sums --------------------------------
+    key_domains: dict[str, tuple[np.ndarray, int]] = {}
+
+    def domains_for(key: str) -> tuple[np.ndarray, int]:
+        got = key_domains.get(key)
+        if got is None:
+            vals = nt.topology_values(key)          # (N,) interned label ids
+            dom = np.full(N, -1, dtype=np.int32)
+            present = vals >= 0
+            n_dom = 0
+            if present.any():
+                uniq, first, inv = np.unique(
+                    vals[present], return_index=True, return_inverse=True
+                )
+                # first-seen (node-order) domain ids — the same ids the
+                # per-node Vocab interning loop used to produce
+                rank = np.empty(len(uniq), dtype=np.int32)
+                rank[np.argsort(first, kind="stable")] = np.arange(
+                    len(uniq), dtype=np.int32
+                )
+                dom[present] = rank[inv]
+                n_dom = len(uniq)
+            got = (dom, n_dom)
+            key_domains[key] = got
+        return got
+
+    row_domains = [domains_for(m["key"]) for m in row_meta]
+    D = max((n for _, n in row_domains), default=1) or 1
+
+    node_domain = np.full((R, NC), -1, dtype=np.int32)
+    has_key = np.zeros((R, NC), dtype=bool)
+    base_sums = np.zeros((R, D), dtype=np.int64)
+    for r, (dom, _n) in enumerate(row_domains):
+        node_domain[r, :N] = dom
+        has_key[r, :N] = dom >= 0
+
+    # does a pod shaped (labels, ns) drive row r's count — as the TARGET of
+    # the row's incoming terms (FA/RA/SCI) or of an existing pod's own term
+    # (EA/SCH/SCP)? One verdict per (row, template), persisted across
+    # cycles by the encode cache (keyed on the stable row vocab key).
+    local_match: dict = {}
+
+    def match_group(r: int, labels, ns: str, ld: dict) -> bool:
+        key = (row_keys[r], labels, ns)
+        store = cache.match if cache is not None else None
+        got = store.get(key) if store is not None else local_match.get(key)
+        if got is None:
+            meta = row_meta[r]
+            nsl = ns_map.get(ns, {})
+            if meta["kind"] == "FA":
+                got = all(
+                    term_matches(tm, meta["ns"], ns, ld, nsl)
+                    for tm in meta["terms"]
+                )
+            else:   # single-term rows: RA/SCI/EA/SCH/SCP
+                got = term_matches(meta["term"], meta["ns"], ns, ld, nsl)
+            if store is not None:
+                store.put(key, got)
+            else:
+                local_match[key] = got
+        return got
+
+    # target side: FA/RA/SCI rows count matching existing pods — segment-sum
+    # each matching template's per-node counts into the row's domains
+    lgroups = collapse_label_groups(groups)
+    for r, meta in enumerate(row_meta):
+        if meta["kind"] not in ("FA", "RA", "SCI"):
+            continue
+        dom, _n = row_domains[r]
+        valid = dom >= 0
+        if not valid.any():
+            continue
+        agg = None
+        for (labels, ns), (vec, ld) in lgroups.items():
+            if match_group(r, labels, ns, ld):
+                agg = vec if agg is None else agg + vec
+        if agg is not None:
+            np.add.at(base_sums[r], dom[valid], agg[valid])
+    # source side: rows maintained by existing pods' OWN terms — per
+    # template, inc × its per-node counts into the row's domains
+    for _labels, _ns, specs, vec in group_list:
+        for vk, _meta, inc in specs:
+            rid = row_vocab.get(vk)
+            dom, _n = row_domains[rid]
+            valid = dom >= 0
+            if valid.any():
+                np.add.at(base_sums[rid], dom[valid], inc * vec[valid])
+
+    # ---- update matrix (in-batch assignment increments) ------------------
+    update = np.zeros((PP, R), dtype=np.int64)
+    tmpl_update: dict[int, np.ndarray] = {}
+    for i, p in enumerate(pods):
+        row_u = tmpl_update.get(pod_gid[i])
+        if row_u is None:
+            ld = p.labels_dict()
+            row_u = np.zeros(R, dtype=np.int64)
+            for r, meta in enumerate(row_meta):
+                if meta["kind"] in ("FA", "RA", "SCI") and match_group(
+                    r, p.labels, p.namespace, ld
+                ):
+                    row_u[r] += 1
+            for vk, _meta, inc in pend_specs[i]:
+                row_u[row_vocab.get(vk)] += inc
+            tmpl_update[pod_gid[i]] = row_u
+        update[i] = row_u
+
+    # ---- filtering tensors ----------------------------------------------
+    CA = max((len(s) for s in fa_slots), default=1) or 1
+    CR = max((len(s) for s in ra_slots), default=1) or 1
+    fa_rows = np.full((PP, CA), -1, dtype=np.int32)
+    ra_rows = np.full((PP, CR), -1, dtype=np.int32)
+    for i in range(P):
+        for c, rid in enumerate(fa_slots[i]):
+            fa_rows[i, c] = rid
+        for c, rid in enumerate(ra_slots[i]):
+            ra_rows[i, c] = rid
+
+    ea_lists: list[list[int]] = []
+    tmpl_ea: dict[int, list[int]] = {}
+    for i, p in enumerate(pods):
+        lst = tmpl_ea.get(pod_gid[i])
+        if lst is None:
+            ld = p.labels_dict()
+            lst = [
+                r for r, meta in enumerate(row_meta)
+                if meta["kind"] == "EA"
+                and match_group(r, p.labels, p.namespace, ld)
+            ]
+            tmpl_ea[pod_gid[i]] = lst
+        ea_lists.append(lst)
+    CE = max((len(x) for x in ea_lists), default=1) or 1
+    ea_rows = np.full((PP, CE), -1, dtype=np.int32)
+    for i, lst in enumerate(ea_lists):
+        ea_rows[i, : len(lst)] = lst
+
+    # ---- scoring slots ---------------------------------------------------
+    sc_lists: list[list[tuple[int, int]]] = []
+    tmpl_sc: dict[int, list] = {}
+    for i, p in enumerate(pods):
+        got_sc = tmpl_sc.get(pod_gid[i])
+        if got_sc is not None:
+            sc_lists.append(got_sc)
+            continue
+        ld = p.labels_dict()
+        w: dict[int, int] = {}
+        # incoming preferred terms: row counts matching existing pods; the
+        # pod's own weight applies (scoring.go:98/:105)
+        for wt in _pref_affinity_terms(p):
+            rid = row_vocab.get(("SCI", wt.term.topology_key, ("pref", wt.term, p.namespace)))
+            if rid >= 0:
+                w[rid] = w.get(rid, 0) + wt.weight
+        for wt in _pref_anti_terms(p):
+            rid = row_vocab.get(("SCI", wt.term.topology_key, ("pref", wt.term, p.namespace)))
+            if rid >= 0:
+                w[rid] = w.get(rid, 0) - wt.weight
+        # existing pods' terms vs this pod (scoring.go:110-124)
+        for r, meta in enumerate(row_meta):
+            if meta["kind"] == "SCH" and hard_pod_affinity_weight > 0:
+                if match_group(r, p.labels, p.namespace, ld):
+                    w[r] = w.get(r, 0) + hard_pod_affinity_weight
+            elif meta["kind"] == "SCP":
+                if match_group(r, p.labels, p.namespace, ld):
+                    w[r] = w.get(r, 0) + meta["sign"] * meta["weight"]
+        lst = sorted(w.items())
+        tmpl_sc[pod_gid[i]] = lst
+        sc_lists.append(lst)
+    CS = max((len(x) for x in sc_lists), default=1) or 1
+    score_rows = np.full((PP, CS), -1, dtype=np.int32)
+    score_vals = np.zeros((PP, CS), dtype=np.int64)
+    for i, lst in enumerate(sc_lists):
+        for c, (rid, val) in enumerate(lst):
+            score_rows[i, c] = rid
+            score_vals[i, c] = val
+
+    has_filter_work = bool(
+        (fa_rows >= 0).any() or (ra_rows >= 0).any() or (ea_rows >= 0).any()
+    )
+    has_score_work = bool((score_rows >= 0).any())
+
+    return PodAffinityTensors(
+        node_domain=node_domain,
+        has_key=has_key,
+        base_sums=base_sums,
+        update=update,
+        fa_rows=fa_rows,
+        fa_self=fa_self,
+        ra_rows=ra_rows,
+        ea_rows=ea_rows,
+        score_rows=score_rows,
+        score_vals=score_vals,
+        has_filter_work=has_filter_work,
+        has_score_work=has_score_work,
+    )

@@ -3,7 +3,8 @@
 Same inputs as the filter/score parity tests, carried across as numpy
 leaves: assignments and the final-state slots 0-3 (requested, nonzero
 requested, pod count, node ports) must be equal bit for bit; slots 4-6
-are None in both (no spread, affinity or nominations in the slice).
+are None in both (these clusters carry no spread, affinity or
+nominations; ``test_torch_podaffinity.py`` holds slot 5 with affinity).
 Includes a saturated batch (more pods than capacity: -1s) and an all-ties
 batch (identical nodes: the reference's first max).
 """

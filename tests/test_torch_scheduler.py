@@ -105,7 +105,7 @@ def test_saturated_cluster_bound_map_equal():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(engine="batched"), dict(pipeline=True), dict(mesh="auto"),
+    dict(engine="packing"), dict(pipeline=True), dict(mesh="auto"),
     dict(encode_cache=True), dict(flight_recorder=True),
     dict(dispatcher_workers=2),
 ])
