@@ -20,21 +20,32 @@ final ``ok`` line is not printed):
    mixed inter-pod affinity cluster (several zones, a zone key missing on
    some nodes, required affinity with the self-affinity escape, required
    anti-affinity, existing pods' anti-affinity, preferred terms of both
-   signs) and one SchedulingPodAffinity cycle at 1024 × 5120 —
-   ``filter_score`` must equal the plain ``feasible_and_scores`` (mask and
-   int64 total), the ``greedy_scan`` engine must equal
-   ``greedy_assign_plain`` (assignments, final node state and affinity
-   sums) and the batched engine's ``batched_round`` rounds must equal
-   ``batched_assign_plain`` (the same, and the round count) exactly, on
-   CUDA tensors;
+   signs), one SchedulingPodAffinity cycle at 1024 × 5120, a mixed
+   topology-spread cluster under two profiles (hard and soft zone and
+   hostname constraints — hostname signatures make the domain axis as wide
+   as the node axis — minDomains above the zone count, a key no node
+   carries, ignored nodes, the Honor policies, and a Service's default
+   constraints), the same with the domain bitmaps forced into global
+   memory, and one TopologySpreading and one PreferredTopologySpreading
+   cycle at 1024 × 5120 — ``filter_score`` must equal the plain
+   ``feasible_and_scores`` (mask and int64 total), the ``greedy_scan``
+   engine must equal ``greedy_assign_plain`` (assignments, final node
+   state, spread counts and affinity sums) and the batched engine's
+   ``batched_round`` rounds must equal ``batched_assign_plain`` (the same,
+   and the round count) exactly, on CUDA tensors;
 4. main paths, each with the launch counts reset just before it and read
-   just after: ``run_workload("SchedulingBasic", "5000Nodes_10000Pods",
-   device="cuda")`` on the greedy engine, then
-   ``run_workload("SchedulingPodAffinity", "5000Nodes_5000Pods",
-   engine="batched", device="cuda")``; each checks that all its pods are
-   bound, that no node exceeds its allocatable or its pod count, that its
-   kernels were launched, and that the first cycle's kernel assignments
-   equal the plain engine's on the same batch;
+   just after, through ``run_workload(..., device="cuda")``:
+   ``SchedulingBasic/5000Nodes_10000Pods`` on the greedy engine,
+   ``SchedulingPodAffinity/5000Nodes_5000Pods`` on the batched engine,
+   ``TopologySpreading/5000Nodes_5000Pods`` on the batched engine,
+   ``PreferredTopologySpreading/5000Nodes_5000Pods`` on the greedy engine
+   and ``DefaultTopologySpreading/500Nodes`` on the greedy engine; each
+   checks that all its pods are bound, that no node exceeds its
+   allocatable or its pod count, that its kernels were launched, and that
+   the first cycle's kernel assignments (and the first cycle's with a
+   spread leaf) equal the plain engine's on the same batch;
+   TopologySpreading also checks that the bound color=blue pods' per-zone
+   counts differ by at most its maxSkew, 5;
 5. prints the kernels' JSON line, the card line, and the ``ok`` line last.
 
 Tolerance everywhere: exact (integer masks, scores and assignments).
@@ -278,6 +289,108 @@ def podaffinity_case(n_nodes=5000, n_bound=5000, n_pending=1024):
     return cache, pending
 
 
+def spread_case(seed=0, n_nodes=2000, n_bound=3000, n_pending=512):
+    """A seeded topology-spread cluster with every kind of slot: three zones
+    with the zone label missing on some nodes, NoSchedule taints, assigned
+    pods of three apps in two namespaces, and pending pods with hard and
+    soft zone and hostname constraints (hostname signatures make the domain
+    axis as wide as the node axis), minDomains above the zone count, a
+    topology key no node carries (hard: infeasible everywhere; soft: every
+    node ignored), node selectors and taint tolerations under the Honor
+    policies, and pods with no constraints of their own that a Service
+    selects (the profile's default constraints)."""
+    import dataclasses
+
+    import numpy as np
+
+    from kubetpu_torch.api import types as t
+    from kubetpu_torch.api.wrappers import make_node, make_pod, spread_constraint
+
+    zone, host = "topology.kubernetes.io/zone", "kubernetes.io/hostname"
+    hard = t.UnsatisfiableConstraintAction.DO_NOT_SCHEDULE
+    soft = t.UnsatisfiableConstraintAction.SCHEDULE_ANYWAY
+    apps = ["web", "db", "cache", "fresh"]
+    rng = np.random.default_rng(seed)
+    nodes = []
+    for i in range(n_nodes):
+        labels = {host: f"node-{i}"}
+        if rng.random() < 0.9:
+            labels[zone] = f"z{i % 3}"
+        if rng.random() < 0.4:
+            labels["disktype"] = "ssd"
+        taints = ()
+        if rng.random() < 0.1:
+            taints = (t.Taint(key="dedicated", value="gpu",
+                              effect=t.TaintEffect.NO_SCHEDULE),)
+        nodes.append(make_node(
+            f"node-{i}", cpu_milli=int(rng.integers(2000, 16001)),
+            memory=int(rng.integers(4, 64)) * 1024**3,
+            pods=int(rng.integers(8, 110)), labels=labels, taints=taints,
+        ))
+    bound = []
+    for j in range(n_bound):
+        node = nodes[int(rng.integers(0, n_nodes))]
+        bound.append(make_pod(
+            f"existing-{j}", cpu_milli=int(rng.integers(0, 501)),
+            memory=int(rng.integers(0, 4)) * 256 * 1024**2, node_name=node.name,
+            namespace=str(rng.choice(["default", "other"])),
+            labels={"app": str(rng.choice(apps[:3]))},
+        ))
+
+    def constraint(app):
+        key = str(rng.choice([zone, zone, host, "example.com/rack"],
+                             p=[0.45, 0.1, 0.4, 0.05]))
+        c = spread_constraint(
+            int(rng.integers(1, 6)), key,
+            when=hard if rng.random() < 0.5 else soft,
+            match_labels={"app": app},
+            min_domains=4 if key == zone and rng.random() < 0.3 else None,
+        )
+        if rng.random() < 0.3:
+            c = dataclasses.replace(c, node_taints_policy="Honor")
+        if rng.random() < 0.2:
+            c = dataclasses.replace(c, node_affinity_policy="Ignore")
+        return c
+
+    pending = []
+    for j in range(n_pending):
+        app = str(rng.choice(apps))
+        kw = {}
+        if rng.random() < 0.7:
+            kw["spread"] = tuple(constraint(app) for _ in range(int(rng.integers(1, 3))))
+        if rng.random() < 0.2:
+            kw["node_selector"] = {"disktype": "ssd"}
+        if rng.random() < 0.5:
+            kw["tolerations"] = [t.Toleration(
+                key="dedicated", operator=t.TolerationOperator.EQUAL,
+                value="gpu", effect=None)]
+        pending.append(make_pod(
+            f"pending-{j}", cpu_milli=int(rng.integers(0, 2001)),
+            memory=int(rng.integers(0, 8)) * 256 * 1024**2, creation_index=j,
+            labels={"app": app}, **kw,
+        ))
+    cache = _cache_with(nodes, bound)
+    cache.add_service(t.Service(name="web", namespace="default",
+                                selector=(("app", "web"),)))
+    return cache, pending
+
+
+def topology_case(template, n_nodes=5000, n_init=5000, n_spread=1000, n_pending=1024):
+    """A TopologySpreading / PreferredTopologySpreading cycle: node_default
+    nodes round-robin over zones moon-1/2/3, the pod_default init pods and
+    ``n_spread`` pods of ``template`` already bound round-robin, a full
+    batch of ``template`` pods pending."""
+    from kubetpu_torch.perf import workloads as W
+
+    nodes = [W.node_default(i, ("moon-1", "moon-2", "moon-3")) for i in range(n_nodes)]
+    bound = [W.pod_default(f"init-{j}", "namespace-0").with_node(nodes[j % n_nodes].name)
+             for j in range(n_init)]
+    bound += [template(f"spread-{j}", "namespace-1").with_node(nodes[j % n_nodes].name)
+              for j in range(n_spread)]
+    pending = [template(f"measure-{j}", "namespace-1") for j in range(n_pending)]
+    return _cache_with(nodes, bound), pending
+
+
 def saturated_case(n_nodes=64, n_pending=512):
     """More pods than capacity: most of the batch ends unschedulable (-1)."""
     from kubetpu_torch.api.wrappers import make_node, make_pod
@@ -346,6 +459,18 @@ def f64_ops_per_pair(params, b) -> int:
     return ops
 
 
+def spread_f64_ops(params, b) -> int:
+    """float64 operations of one spread score of every (pod, node) pair:
+    per ScheduleAnyway slot a conversion, a multiply and two adds (the
+    maxSkew - 1 term and the running sum), then the rounding of the sum."""
+    sp = b.spread
+    if sp is None or not (params.w_spread and sp.has_soft):
+        return 0
+    n_soft = int(((sp.sig_idx >= 0) & (sp.action == 1)).sum().item())
+    n_pods = int(sp.sig_idx.shape[0])
+    return b.alloc.shape[0] * (4 * n_soft + n_pods)
+
+
 def _max_abs(a, b) -> int:
     import torch
 
@@ -354,7 +479,7 @@ def _max_abs(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-STATE_SLOTS = (0, 1, 2, 3, 5)   # node state and affinity sums; 4, 6 are None
+STATE_SLOTS = (0, 1, 2, 3, 4, 5)   # node state, spread counts, affinity sums; 6 is None
 
 
 def _engine_err(name, ka, ks, pa, ps) -> int:
@@ -417,9 +542,12 @@ def check_case(name, b, params, results, batched=True):
         extra = (f", batched: {k_rounds[0]} rounds, unschedulable "
                  f"{int((va[:n_valid] < 0).sum().item())}")
     pa_rows = "none" if b.podaffinity is None else tuple(b.podaffinity.base_sums.shape)
+    sp_sigs = ("none" if b.spread is None else
+               f"{tuple(b.spread.domain_present.shape)} slots {b.spread.sig_idx.shape[1]}")
     log(f"kernels vs plain [{name}]: P={b.requests.shape[0]} N={b.alloc.shape[0]} "
         f"R={b.alloc.shape[1]} K={b.port_conflict.shape[0]} affinity rows x domains "
-        f"{pa_rows}: exact (feasible pairs {int(km.sum().item())}, greedy "
+        f"{pa_rows}, spread signatures x domains {sp_sigs}: exact (feasible pairs "
+        f"{int(km.sum().item())}, greedy "
         f"unschedulable {int((ka[:n_valid] < 0).sum().item())}{extra})")
     return ka
 
@@ -443,10 +571,111 @@ def affinity_profiles():
     }
 
 
+def spread_profiles():
+    from kubetpu_torch.framework import config as C
+
+    return {
+        "default": C.Profile(),
+        # the spread filter and a heavier spread score beside the fit terms
+        "spread": C.Profile(
+            filters=C.PluginSet(enabled=(
+                (C.NODE_RESOURCES_FIT, 1), (C.POD_TOPOLOGY_SPREAD, 1),
+            )),
+            scores=C.PluginSet(enabled=(
+                (C.NODE_RESOURCES_FIT, 1), (C.POD_TOPOLOGY_SPREAD, 2),
+            )),
+            default_spread_constraints=(),
+        ),
+    }
+
+
+def spread_checks(results, scale=1.0):
+    """Phase 3's spread batches: the mixed spread cluster under both
+    profiles, then one TopologySpreading and one PreferredTopologySpreading
+    cycle at the main paths' shapes. Returns the two cycles' batches."""
+    from kubetpu_torch import kernels
+    from kubetpu_torch.framework import config as C
+    from kubetpu_torch.perf import workloads as W
+
+    for name, prof in spread_profiles().items():
+        cache_s, pending_s = spread_case(
+            seed=3, n_nodes=int(2000 * scale), n_bound=int(3000 * scale),
+            n_pending=int(512 * scale))
+        bs, ps = encode(cache_s, pending_s, prof)
+        check_case(f"spread/{name}", bs, ps, results)
+    # the domain bitmaps in global memory, as a signature with more domains
+    # than shared memory holds bits for would have them
+    limit = kernels._SMEM_LIMIT
+    kernels._SMEM_LIMIT = 16
+    try:
+        cache_s, pending_s = spread_case(seed=4, n_nodes=int(1000 * scale),
+                                         n_bound=int(1500 * scale), n_pending=int(256 * scale))
+        bs, ps = encode(cache_s, pending_s, C.Profile())
+        check_case("spread/default, domain bitmaps in global memory", bs, ps, results)
+    finally:
+        kernels._SMEM_LIMIT = limit
+    out = {}
+    for name, template in (("TopologySpreading", W.pod_with_topology_spreading),
+                           ("PreferredTopologySpreading",
+                            W.pod_with_preferred_topology_spreading)):
+        cache_t, pending_t = topology_case(
+            template, n_nodes=int(5000 * scale), n_init=int(5000 * scale),
+            n_spread=int(1000 * scale), n_pending=int(1024 * scale))
+        bt, pt = encode(cache_t, pending_t, C.Profile())
+        check_case(f"{name} {bt.requests.shape[0]}x{bt.alloc.shape[0]}", bt, pt, results)
+        out[name] = (bt, pt)
+    return out
+
+
 def _bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     bytes_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
     ops_ms = 1e3 * ops / FP64_FLOPS
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _spread_timing(case, b, params, kernel) -> dict:
+    """Time one kernel (its engine, for the scan and the rounds) and its
+    plain version on a topology-spreading cycle's batch, with the bound of
+    that work: the batch's bytes (the (P, N) ``ignored`` rows included)
+    read once and the kernel's outputs written once, over HBM bandwidth,
+    against its float64 operations over the FP64 rate."""
+    from kubetpu_torch import kernels
+    from kubetpu_torch.assign.batched import batched_assign_plain
+    from kubetpu_torch.assign.greedy import greedy_assign_plain
+    from kubetpu_torch.framework import runtime as rt
+
+    P, N = b.requests.shape[0], b.alloc.shape[0]
+    in_bytes = rt.batch_nbytes(b)
+    state = sum(int(x.nbytes) for x in (b.requested, b.nonzero_requested,
+                                        b.pod_count, b.node_ports, b.spread.node_count))
+    per_pair = f64_ops_per_pair(params, b)
+    out = {"batch": f"{case} {P}x{N}"}
+    if kernel == "filter_score":
+        out["ms"] = cuda_ms(lambda: kernels.filter_score(b, params), 20)
+        out["plain_ms"] = cuda_ms(lambda: rt.feasible_and_scores(b, params), 5)
+        work = (in_bytes + P * N * (1 + 8), P * N * per_pair + spread_f64_ops(params, b))
+    elif kernel == "greedy_scan":
+        out["ms"] = cuda_ms(lambda: kernels.greedy_scan(b, params), 5)
+        out["plain_ms"] = cuda_ms(lambda: greedy_assign_plain(b, params), 1)
+        # every step rescores the nodes the batch's earlier pods landed on
+        seen: set = set()
+        rescored = 0
+        for j in kernels.greedy_scan(b, params)[0].cpu().tolist():
+            rescored += len(seen)
+            if j >= 0:
+                seen.add(j)
+        work = (in_bytes + P * 4 + state,
+                (P * N + rescored) * per_pair + spread_f64_ops(params, b))
+    else:
+        rounds: list = []
+        kernels.batched_assign(b, params, rounds_out=rounds)
+        out["ms"] = cuda_ms(lambda: kernels.batched_assign(b, params), 10)
+        out["plain_ms"] = cuda_ms(lambda: batched_assign_plain(b, params), 3)
+        out["rounds"] = rounds[0]
+        work = (in_bytes + P * 4 + state,
+                rounds[0] * (P * N * per_pair + spread_f64_ops(params, b)))
+    out["bound_ms"], out["bound_by"] = _bound(*work)
+    return out
 
 
 def kernels_phase():
@@ -479,6 +708,8 @@ def kernels_phase():
     cache_p, pending_p = podaffinity_case()
     bp, pp = encode(cache_p, pending_p, C.Profile())
     check_case("SchedulingPodAffinity 1024x5120", bp, pp, results)
+    # the spread batches, and the TopologySpreading / Preferred cycles
+    spread = spread_checks(results)
 
     P, N = b.requests.shape[0], b.alloc.shape[0]
     in_bytes = rt.batch_nbytes(b)
@@ -527,6 +758,12 @@ def kernels_phase():
             "rounds": rounds[0],
         },
     }
+    timing["filter_score"]["spread"] = _spread_timing(
+        "TopologySpreading", *spread["TopologySpreading"], "filter_score")
+    timing["greedy_scan"]["spread"] = _spread_timing(
+        "PreferredTopologySpreading", *spread["PreferredTopologySpreading"], "greedy_scan")
+    timing["batched_round"]["spread"] = _spread_timing(
+        "TopologySpreading", *spread["TopologySpreading"], "batched_round")
     out = []
     for name, src, replaces in (
         ("filter_score", "kubetpu_torch/kernels/csrc/filter_score.cu",
@@ -546,7 +783,7 @@ def kernels_phase():
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "cases": results[name]["cases"], "shape": tm["shape"],
         }
-        for k in ("podaffinity_ms", "podaffinity_plain_ms", "rounds"):
+        for k in ("podaffinity_ms", "podaffinity_plain_ms", "rounds", "spread"):
             if k in tm:
                 line[k] = tm[k]
         out.append(line)
@@ -557,6 +794,11 @@ def kernels_phase():
         log(f"timing [{name}] on the SchedulingPodAffinity batch: kernel "
             f"{timing[name]['podaffinity_ms']:.4f} ms, plain "
             f"{timing[name]['podaffinity_plain_ms']:.4f} ms")
+    for name in ("filter_score", "greedy_scan", "batched_round"):
+        sp = timing[name]["spread"]
+        log(f"timing [{name}] on the {sp['batch']} batch: kernel {sp['ms']:.4f} ms, "
+            f"plain {sp['plain_ms']:.4f} ms, bound {sp['bound_ms']:.6f} ms "
+            f"({sp['bound_by']})")
     torch.cuda.synchronize()
     return out
 
@@ -573,10 +815,31 @@ def _check_capacity(sched) -> None:
             raise AssertionError(f"{info.node.name}: {len(info.pods)} pods")
 
 
-def run_path(card, case, workload, engine, expected, plain, kernel_names) -> dict:
+def zone_skew(sched, labels=(("color", "blue"),)) -> dict:
+    """Per-zone count of the bound pods carrying ``labels``, and its max -
+    min: TopologySpreading's measured pods spread over zone with maxSkew 5
+    (DoNotSchedule), so the skew must stay within 5."""
+    from kubetpu_torch.perf.workloads import ZONE_KEY
+
+    counts: dict = {}
+    for info in sched.cache.update_snapshot().node_infos():
+        zone = dict(info.node.labels).get(ZONE_KEY)
+        counts.setdefault(zone, 0)
+        for q in info.pods.values():
+            if all(dict(q.labels).get(k) == v for k, v in labels):
+                counts[zone] += 1
+    skew = max(counts.values()) - min(counts.values())
+    if skew > 5:
+        raise AssertionError(f"zone skew {skew} > maxSkew 5: {counts}")
+    return {"zone_counts": counts, "zone_skew": skew}
+
+
+def run_path(card, case, workload, engine, expected, plain, kernel_names,
+             check=None) -> dict:
     """Drive one main path with the launch counts set to 0 just before it
-    and read just after; check it and print its JSON line. Returns the
-    launch counts."""
+    and read just after; check it and print its JSON line. ``check``, when
+    given, takes the run's Scheduler, raises on a fault and returns more
+    fields for the line. Returns the launch counts."""
     import torch
 
     from kubetpu_torch import kernels
@@ -592,6 +855,8 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names) -> dic
             out = engine_fn(b, params)
             if "first" not in captured:
                 captured["first"] = (b, params, out[0].clone())
+            if b.spread is not None and "first_spread" not in captured:
+                captured["first_spread"] = (b, params, out[0].clone())
             return out
 
         sched._assign_device = first_cycle_recorder
@@ -607,16 +872,21 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names) -> dic
     if res.bound_total != expected or res.scheduled != res.measure_pods:
         raise AssertionError(f"{case}/{workload}: bound {res.bound_total} of {expected} pods")
     _check_capacity(sched)
-    b, params, first = captured["first"]
-    want, _ = plain(b, params)
-    torch.cuda.synchronize()
-    if not torch.equal(first, want):
-        raise AssertionError(f"{case}: first cycle's kernel assignments differ from the "
-                             "plain engine's")
+    # the run's first cycle, and its first cycle with a spread leaf
+    for key in ("first", "first_spread"):
+        if key not in captured:
+            continue
+        b, params, first = captured[key]
+        want, _ = plain(b, params)
+        torch.cuda.synchronize()
+        if not torch.equal(first, want):
+            raise AssertionError(f"{case}: {key} cycle's kernel assignments differ from "
+                                 "the plain engine's")
     for name in kernel_names:
         if launches[name] < 1:
             raise AssertionError(f"{case}/{workload}: main path never launched {name}")
     rounds = [c.rounds for c in sched.metrics.cycle_timings]
+    extra = check(sched) if check is not None else {}
     line = {
         "main_path": {
             "workload": f"{case}/{workload}", "engine": engine,
@@ -627,7 +897,8 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names) -> dic
             "rounds_per_cycle": res.rounds_per_cycle,
             "rounds_by_cycle": rounds if engine == "batched" else None,
             "run_s": wall, "launches": launches, "first_cycle_equal": True,
-            "card": card,
+            "first_spread_cycle_equal": True if "first_spread" in captured else None,
+            "card": card, **extra,
         }
     }
     log(json.dumps(line))
@@ -643,6 +914,13 @@ def main_path_phase(card: str) -> list[dict]:
                  1000 + 10000, greedy_assign_plain, ("filter_score", "greedy_scan")),
         run_path(card, "SchedulingPodAffinity", "5000Nodes_5000Pods", "batched",
                  5000 + 5000, batched_assign_plain, ("filter_score", "batched_round")),
+        run_path(card, "TopologySpreading", "5000Nodes_5000Pods", "batched",
+                 5000 + 5000, batched_assign_plain, ("filter_score", "batched_round"),
+                 check=zone_skew),
+        run_path(card, "PreferredTopologySpreading", "5000Nodes_5000Pods", "greedy",
+                 5000 + 5000, greedy_assign_plain, ("filter_score", "greedy_scan")),
+        run_path(card, "DefaultTopologySpreading", "500Nodes", "greedy",
+                 1000 + 1000, greedy_assign_plain, ("filter_score", "greedy_scan")),
     ]
 
 

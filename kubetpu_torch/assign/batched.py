@@ -134,6 +134,8 @@ def batched_assign_plain(
     pod_count = b.pod_count
     node_ports = b.node_ports
     pa_sums = None if pa is None else pa.base_sums
+    sp = b.spread
+    spread_counts = None if sp is None else sp.node_count
     active = b.pod_valid
     assignments = torch.full((p,), -1, dtype=torch.int32, device=dev)
     progress = True
@@ -142,7 +144,8 @@ def batched_assign_plain(
         mask, score = rt.feasible_and_scores(
             b, params,
             requested=requested, nonzero_requested=nonzero,
-            pod_count=pod_count, node_ports=node_ports, pa_sums=pa_sums,
+            pod_count=pod_count, node_ports=node_ports,
+            spread_counts=spread_counts, pa_sums=pa_sums,
         )
         choice = _tie_spread_choice(mask, score, active)
         accepted = _accept(
@@ -172,6 +175,12 @@ def batched_assign_plain(
         node_ports = node_ports | (
             seg_sum(b.pod_ports.to(torch.int64) * a64[:, None]) > 0
         )
+        if spread_counts is not None:
+            # the reference's int32 einsum of pod_match_sig with the
+            # accepted one-hots, as a segment sum over the chosen nodes
+            # (CUDA has no integer matmul)
+            upd = seg_sum(sp.pod_match_sig.to(spread_counts.dtype)).T  # (S, N)
+            spread_counts = spread_counts + upd * sp.eligible.to(upd.dtype)
         if pa_sums is not None:
             r_rows, d = pa_sums.shape
             safe_choice = torch.clamp(choice, min=0).long()
@@ -194,7 +203,8 @@ def batched_assign_plain(
     if rounds_out is not None:
         rounds_out.append(rounds)
     return assignments, (
-        requested, nonzero, pod_count, node_ports, None, pa_sums, None,
+        requested, nonzero, pod_count, node_ports, spread_counts, pa_sums,
+        None,
     )
 
 

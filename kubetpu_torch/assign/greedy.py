@@ -47,6 +47,7 @@ def _pod_view(b: rt.DeviceBatch, i: int) -> rt.DeviceBatch:
         image_count=row(b.image_count),
         pod_ports=b.pod_ports[i:i + 1],
         pod_priority=row(b.pod_priority),
+        spread=_spread_view(b.spread, i),
         podaffinity=_pa_view(b.podaffinity, i),
     )
 
@@ -66,14 +67,29 @@ def _pa_view(pa, i: int):
     )
 
 
+def _spread_view(sp, i: int):
+    if sp is None:
+        return None
+    return dataclasses.replace(
+        sp,
+        sig_idx=sp.sig_idx[i:i + 1],
+        action=sp.action[i:i + 1],
+        max_skew=sp.max_skew[i:i + 1],
+        min_domains=sp.min_domains[i:i + 1],
+        self_match=sp.self_match[i:i + 1],
+        pod_match_sig=sp.pod_match_sig[i:i + 1],
+        ignored=sp.ignored[i:i + 1],
+    )
+
+
 def greedy_assign_plain(b: rt.DeviceBatch, params: rt.ScoreParams):
     """The plain PyTorch greedy loop. Returns ``(assignments (P,) int32 node
     index or -1, final_state)``; ``final_state`` has the reference's seven
     slots ``(requested, nonzero_requested, pod_count, node_ports,
-    spread_counts, pa_sums, nominated_active)``; ``pa_sums`` is None without
-    a ``podaffinity`` leaf, and the spread and nomination slots are always
-    None in this slice. Runs on whatever device ``b`` lives on, with no host
-    sync inside the loop."""
+    spread_counts, pa_sums, nominated_active)``; ``spread_counts`` is None
+    without a ``spread`` leaf, ``pa_sums`` without a ``podaffinity`` leaf,
+    and the nomination slot is always None in this slice. Runs on whatever
+    device ``b`` lives on, with no host sync inside the loop."""
     n = b.alloc.shape[0]
     node_iota = torch.arange(n, dtype=torch.int32, device=b.device)
     requested = b.requested
@@ -82,13 +98,16 @@ def greedy_assign_plain(b: rt.DeviceBatch, params: rt.ScoreParams):
     node_ports = b.node_ports
     pa = b.podaffinity
     pa_sums = None if pa is None else pa.base_sums
+    sp = b.spread
+    spread_counts = None if sp is None else sp.node_count
     chosen_all = []
     for i in range(b.requests.shape[0]):
         view = _pod_view(b, i)
         mask, score = rt.feasible_and_scores(
             view, params,
             requested=requested, nonzero_requested=nonzero,
-            pod_count=pod_count, node_ports=node_ports, pa_sums=pa_sums,
+            pod_count=pod_count, node_ports=node_ports,
+            spread_counts=spread_counts, pa_sums=pa_sums,
         )
         mask, score = mask[0], score[0]
         feasible = torch.any(mask)
@@ -100,6 +119,12 @@ def greedy_assign_plain(b: rt.DeviceBatch, params: rt.ScoreParams):
         nonzero = nonzero + oh64 * view.nonzero_requests[0][None, :]
         pod_count = pod_count + onehot.to(pod_count.dtype)
         node_ports = node_ports | (onehot[:, None] & view.pod_ports[0][None, :])
+        if spread_counts is not None:
+            # updateWithPod (podtopologyspread/filtering.go:181): +1 in every
+            # signature whose selector+namespace the assigned pod matches,
+            # on the chosen node, when that node is eligible for it
+            upd = sp.pod_match_sig[i][:, None] & sp.eligible & onehot[None, :]
+            spread_counts = spread_counts + upd.to(spread_counts.dtype)
         if pa_sums is not None:
             # interpodaffinity updateWithPod (filtering.go:75): add the
             # assigned pod's increments into each row at the chosen node's
@@ -119,7 +144,8 @@ def greedy_assign_plain(b: rt.DeviceBatch, params: rt.ScoreParams):
         else torch.empty(0, dtype=torch.int32, device=b.device)
     )
     return assignments, (
-        requested, nonzero, pod_count, node_ports, None, pa_sums, None,
+        requested, nonzero, pod_count, node_ports, spread_counts, pa_sums,
+        None,
     )
 
 

@@ -1,10 +1,11 @@
 """Framework runtime — compose filter/score kernels per profile.
 
 Port of ``kubetpu/framework/runtime.py``, narrowed to the slices ported so
-far: the default profile's cycle with inter-pod affinity, and no spread,
-nominations, extenders, DRA, volumes or topology. Host encode is the
-reference's numpy code; the device batch is a frozen dataclass of torch
-tensors on the caller's device, uploaded in one host→device copy.
+far: the default profile's cycle with inter-pod affinity and topology
+spread, and no nominations, extenders, DRA, volumes or topology slices.
+Host encode is the reference's numpy code; the device batch is a frozen
+dataclass of torch tensors on the caller's device, uploaded in one
+host→device copy.
 
 The analog of ``pkg/scheduler/framework/runtime/framework.go``: the reference
 runs, per pod, PreFilter → parallel per-node Filter → PreScore → parallel
@@ -33,8 +34,10 @@ from ..api import types as t
 from ..ops import filters as F
 from ..ops import podaffinity as PA
 from ..ops import scores as S
+from ..ops import spread as SP
 from ..state import encoder as enc
 from ..state import podaffinity as enc_podaffinity
+from ..state import spread as enc_spread
 from ..state.snapshot import Snapshot
 from . import config as C
 
@@ -77,14 +80,49 @@ PA_FIELDS = tuple(
 
 
 @dataclass(frozen=True)
+class SpreadDevice:
+    """Device-side spread tensors (see state.spread.SpreadTensors)."""
+
+    eligible: torch.Tensor        # (S, N) bool
+    node_domain: torch.Tensor     # (S, N) int32
+    node_count: torch.Tensor      # (S, N) int32 — base counts (scan state init)
+    has_key: torch.Tensor         # (S, N) bool
+    domain_present: torch.Tensor  # (S, D) bool
+    num_domains: torch.Tensor     # (S,) int32
+    is_hostname: torch.Tensor     # (S,) bool
+    sig_idx: torch.Tensor         # (P, C) int32
+    action: torch.Tensor          # (P, C) int8
+    max_skew: torch.Tensor        # (P, C) int32
+    min_domains: torch.Tensor     # (P, C) int32
+    self_match: torch.Tensor      # (P, C) int32
+    pod_match_sig: torch.Tensor   # (P, S) bool
+    ignored: torch.Tensor         # (P, N) bool
+    has_hard: bool = False
+    has_soft: bool = False
+
+
+SP_FIELDS = tuple(
+    f.name for f in dataclasses.fields(SpreadDevice)
+    if f.name not in ("has_hard", "has_soft")
+)
+# the leaves that hold their own dataclass of tensors: (class, tensor
+# fields, static flags)
+NESTED = {
+    "podaffinity": (PodAffinityDevice, PA_FIELDS,
+                    ("has_filter_work", "has_score_work")),
+    "spread": (SpreadDevice, SP_FIELDS, ("has_hard", "has_soft")),
+}
+
+
+@dataclass(frozen=True)
 class DeviceBatch:
     """Padded device-resident scheduling problem: P pods × N nodes × R
     resources. Padding rows/cols are masked out (``node_valid``/``pod_valid``
     False, ``static_mask`` False on pads) so kernels need no special cases.
 
     Same field names and ``None`` leaves as the reference's pytree. The
-    leaves typed ``object`` (spread, topology) and the nomination, extender
-    and DRA leaves belong to later slices and are always None here."""
+    ``topology`` leaf and the nomination, extender and DRA leaves belong to
+    later slices and are always None here."""
 
     # persistent node-state block
     nodes: DeviceNodeState
@@ -110,7 +148,7 @@ class DeviceBatch:
     nominated_gate: torch.Tensor | None = None
     nominated_ports: torch.Tensor | None = None
     nominated_pod_idx: torch.Tensor | None = None
-    spread: object | None = None
+    spread: SpreadDevice | None = None
     podaffinity: PodAffinityDevice | None = None
     static_sig: torch.Tensor | None = None  # (P,) int32 row into static_mask
     score_sig: torch.Tensor | None = None   # (P,) int32 row into na/tt raws
@@ -162,7 +200,6 @@ LATER_SLICE_LEAVES = {
     "nominated_gate": "Queue A item 8 (preemption and nominations)",
     "nominated_ports": "Queue A item 8 (preemption and nominations)",
     "nominated_pod_idx": "Queue A item 8 (preemption and nominations)",
-    "spread": "Queue A item 7 (PodTopologySpread, kernel B7)",
     "extender_mask": "Queue A item 9 (extender bridge)",
     "extender_score": "Queue A item 9 (extender bridge)",
     "dra_score_raw": "Queue A (DynamicResources)",
@@ -196,22 +233,24 @@ def device_batch_from_numpy(
     contiguous). This is the port's ``jax.device_put`` — and how a test
     carries ``jax.device_get`` of kubetpu's batch across.
 
-    The ``podaffinity`` leaf is any object with ``PodAffinityDevice``'s
-    attributes (kubetpu's, or ``state.podaffinity.PodAffinityTensors``);
-    its arrays ride in the same buffer."""
+    The ``podaffinity`` and ``spread`` leaves are any objects with
+    ``PodAffinityDevice``'s / ``SpreadDevice``'s attributes (kubetpu's, or
+    the port encoders' ``PodAffinityTensors`` / ``SpreadTensors``); their
+    arrays ride in the same buffer."""
     check_slice_leaves(leaves, "device_batch_from_numpy")
     arrays = {}
     for name in NODE_FIELDS + POD_FIELDS:
         a = leaves.get(name)
-        if a is None or name in LATER_SLICE_LEAVES or name == "podaffinity":
+        if a is None or name in LATER_SLICE_LEAVES or name in NESTED:
             continue
         arrays[name] = np.ascontiguousarray(np.asarray(a))
-    pa = leaves.get("podaffinity")
-    if pa is not None:
-        for f in PA_FIELDS:
-            arrays["podaffinity." + f] = np.ascontiguousarray(
-                np.asarray(getattr(pa, f))
-            )
+    for name, (_, fields, _) in NESTED.items():
+        obj = leaves.get(name)
+        if obj is not None:
+            for f in fields:
+                arrays[name + "." + f] = np.ascontiguousarray(
+                    np.asarray(getattr(obj, f))
+                )
     offsets = {}
     total = 0
     for name, a in arrays.items():
@@ -229,12 +268,13 @@ def device_batch_from_numpy(
         tensors[name] = raw.view(dtype).view(a.shape)
     nodes = DeviceNodeState(**{n: tensors[n] for n in NODE_FIELDS})
     pods = {n: tensors.get(n) for n in POD_FIELDS}
-    if pa is not None:
-        pods["podaffinity"] = PodAffinityDevice(
-            **{f: tensors["podaffinity." + f] for f in PA_FIELDS},
-            has_filter_work=bool(pa.has_filter_work),
-            has_score_work=bool(pa.has_score_work),
-        )
+    for name, (cls, fields, flags) in NESTED.items():
+        obj = leaves.get(name)
+        if obj is not None:
+            pods[name] = cls(
+                **{f: tensors[name + "." + f] for f in fields},
+                **{f: bool(getattr(obj, f)) for f in flags},
+            )
     return DeviceBatch(nodes=nodes, **pods)
 
 
@@ -245,8 +285,10 @@ def batch_nbytes(b: DeviceBatch) -> int:
         v = getattr(b, n)
         if isinstance(v, torch.Tensor):
             total += int(v.nbytes)
-    if b.podaffinity is not None:
-        total += sum(int(getattr(b.podaffinity, f).nbytes) for f in PA_FIELDS)
+    for name, (_, fields, _) in NESTED.items():
+        obj = getattr(b, name)
+        if obj is not None:
+            total += sum(int(getattr(obj, f).nbytes) for f in fields)
     return total
 
 
@@ -335,8 +377,9 @@ def _image_tensors(
 @dataclass
 class StaticBatch:
     """The host half of an encoded batch: the snapshot's node tensors, the
-    pod batch, the image leaves and the inter-pod affinity rows, all numpy.
-    ``finalize_batch`` turns it into the device batch."""
+    pod batch, the image leaves, the inter-pod affinity rows and the spread
+    tensors, all numpy. ``finalize_batch`` turns it into the device
+    batch."""
 
     pods: list
     nt: "enc.NodeTensors"
@@ -351,20 +394,16 @@ class StaticBatch:
     node_valid: np.ndarray
     pod_valid: np.ndarray
     pa: "enc_podaffinity.PodAffinityTensors | None" = None
+    sp: "enc_spread.SpreadTensors | None" = None
 
 
 def _check_slice_pods(
     snapshot: Snapshot, pods: Sequence[t.Pod], profile: "C.Profile | None"
 ) -> None:
     """Raise NotImplementedError for inputs whose encode would produce a
-    leaf of a later slice (the reference would build spread, DRA or volume
-    state for them)."""
+    leaf of a later slice (the reference would build DRA or volume state
+    for them)."""
     for p in pods:
-        if p.topology_spread_constraints:
-            raise NotImplementedError(
-                f"pod {p.namespace}/{p.name}: topology spread constraints "
-                "are ROADMAP Queue A item 7 (kernel B7), not yet ported"
-            )
         if p.resource_claims:
             raise NotImplementedError(
                 f"pod {p.namespace}/{p.name}: resource claims (DRA) are not "
@@ -375,16 +414,6 @@ def _check_slice_pods(
                 f"pod {p.namespace}/{p.name}: PVC volumes are not yet "
                 "ported (ROADMAP Queue A)"
             )
-    defaults = profile.default_spread_constraints if profile is not None else ()
-    if defaults and snapshot.services and (
-        profile is None
-        or profile.has_filter(C.POD_TOPOLOGY_SPREAD)
-        or profile.has_score(C.POD_TOPOLOGY_SPREAD)
-    ):
-        raise NotImplementedError(
-            "services give pods default topology spread constraints: "
-            "ROADMAP Queue A item 7 (kernel B7), not yet ported"
-        )
 
 
 def encode_batch(
@@ -421,8 +450,8 @@ def encode_batch_static(
     track_changes: bool = True,
 ) -> StaticBatch:
     """The host encode (the reference's stage 1, narrowed to the slice):
-    node tensors, the pod batch, the image rows and the inter-pod affinity
-    rows, all numpy. ``prev_nt`` and ``track_changes`` as in
+    node tensors, the pod batch, the image rows, the inter-pod affinity
+    rows and the spread tensors, all numpy. ``prev_nt`` and ``track_changes`` as in
     ``encode_batch``. (The reference encodes affinity in its stage 2,
     ``finalize_batch``, because its pipeline pre-encodes stage 1 before the
     cluster state is final; the port's cycle is serial, so the whole host
@@ -468,8 +497,15 @@ def encode_batch_static(
         snapshot.pods_with_affinity == 0
         and not any(enc_podaffinity.has_any_affinity(p) for p in pods)
     )
+    # template groups of the existing pods, shared by the affinity and
+    # spread encoders (one pass over the assigned pods, built only if
+    # either needs it)
+    groups = None
     pa = None
     if want_pa:
+        from ..state.encode_cache import collect_pod_groups
+
+        groups = collect_pod_groups(nt)
         pa = enc_podaffinity.encode_pod_affinity(
             nt, pods,
             hard_pod_affinity_weight=(
@@ -477,6 +513,27 @@ def encode_batch_static(
             ),
             pad_pods=PP,
             namespaces=snapshot.namespaces,
+            groups=groups,
+        )
+    want_spread = profile is None or (
+        profile.has_filter(C.POD_TOPOLOGY_SPREAD)
+        or profile.has_score(C.POD_TOPOLOGY_SPREAD)
+    )
+    sp = None
+    if want_spread:
+        defaults = (
+            profile.default_spread_constraints if profile is not None else ()
+        )
+        sp = enc_spread.encode_spread(
+            nt, pods, pad_pods=PP,
+            default_constraints=defaults,
+            default_selector_of=(
+                enc_spread.default_selector_from_services(snapshot)
+                if defaults and snapshot.services else None
+            ),
+            # reuse the affinity encoder's group pass when it ran; spread
+            # builds its own only past its cheap no-constraints early-out
+            groups=groups,
         )
     node_valid = np.zeros(nt.alloc.shape[0], dtype=bool)
     node_valid[:N] = True
@@ -496,14 +553,15 @@ def encode_batch_static(
         node_valid=node_valid,
         pod_valid=pod_valid,
         pa=pa,
+        sp=sp,
     )
 
 
 def finalize_batch(sb: StaticBatch, device="cuda") -> EncodedBatch:
     """Build the device batch of a StaticBatch on ``device``: the numpy
     leaves the reference's ``finalize_batch`` hands to ``jax.device_put``
-    (later slices' leaves absent), the affinity rows included, shipped in
-    one copy (``device_batch_from_numpy``)."""
+    (later slices' leaves absent), the affinity rows and spread tensors
+    included, shipped in one copy (``device_batch_from_numpy``)."""
     nt, pb = sb.nt, sb.pb
     has_na = sb.want_na and pb.node_affinity_raw is not None
     has_tt = sb.want_tt and pb.taint_prefer_raw is not None
@@ -533,6 +591,7 @@ def finalize_batch(sb: StaticBatch, device="cuda") -> EncodedBatch:
         port_conflict=pb.port_conflict,
         pod_priority=pb.priority,
         podaffinity=sb.pa,
+        spread=sb.sp,
     ), device)
     return EncodedBatch(
         device=dev,
@@ -633,13 +692,14 @@ def filter_components(
     requested: torch.Tensor | None = None,
     pod_count: torch.Tensor | None = None,
     node_ports: torch.Tensor | None = None,
+    spread_counts: torch.Tensor | None = None,
     pa_sums: torch.Tensor | None = None,
 ):
     """Per-plugin Filter masks, un-ANDed. Returns ``(static, fit, ports_ok,
-    pa_ok, pa_state)``; a mask entry is None when the plugin is disabled or
-    has no work, ``pa_state`` is the affinity sums the verdict read (None
-    without a ``podaffinity`` leaf). (The reference also returns the spread
-    verdict and its counts; that leaf is not in this slice.)"""
+    spread_ok, pa_ok, sp_counts, pa_state)``; a mask entry is None when the
+    plugin is disabled or has no work; ``sp_counts`` / ``pa_state`` are the
+    spread counts and affinity sums the verdicts read (None without the
+    leaf)."""
     check_slice_leaves(batch_leaves(b), "filter_components")
     req = b.requested if requested is None else requested
     pc = b.pod_count if pod_count is None else pod_count
@@ -664,6 +724,16 @@ def filter_components(
             wants_conf[:, None, :] & ports[None, :, :], dim=-1
         )                                                     # (P, N)
         ports_ok = ~conflict
+    sp = b.spread
+    sp_counts = None
+    spread_ok = None
+    if sp is not None:
+        sp_counts = sp.node_count if spread_counts is None else spread_counts
+        if p.filter_spread and sp.has_hard:
+            spread_ok = SP.spread_filter_pod(
+                sp, sp_counts, sp.sig_idx, sp.action, sp.max_skew,
+                sp.min_domains, sp.self_match,
+            )
     pa = b.podaffinity
     pa_state = None
     pa_ok = None
@@ -673,7 +743,7 @@ def filter_components(
             pa_ok = PA.affinity_filter_pod(
                 pa, pa_state, pa.fa_rows, pa.fa_self, pa.ra_rows, pa.ea_rows
             )
-    return static, fit, ports_ok, pa_ok, pa_state
+    return static, fit, ports_ok, spread_ok, pa_ok, sp_counts, pa_state
 
 
 def feasible_and_scores(
@@ -683,15 +753,17 @@ def feasible_and_scores(
     nonzero_requested: torch.Tensor | None = None,
     pod_count: torch.Tensor | None = None,
     node_ports: torch.Tensor | None = None,
+    spread_counts: torch.Tensor | None = None,
     pa_sums: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The full Filter + Score composition for a batch against ONE snapshot
     state. Returns ``(mask (P,N) bool, total (P,N) int64)``.
 
-    Optional ``requested``/``nonzero_requested``/``pod_count``/``node_ports``
-    and ``pa_sums`` override the batch's node usage and affinity sums — the
-    engines thread their running state through here, so this one function
-    is both the one-shot and the stepped semantics."""
+    Optional ``requested``/``nonzero_requested``/``pod_count``/``node_ports``,
+    ``spread_counts`` and ``pa_sums`` override the batch's node usage,
+    spread counts and affinity sums — the engines thread their running
+    state through here, so this one function is both the one-shot and the
+    stepped semantics."""
     req = b.requested if requested is None else requested
     nz = b.nonzero_requested if nonzero_requested is None else nonzero_requested
     dev = b.device
@@ -700,12 +772,15 @@ def feasible_and_scores(
     scal = torch.tensor(p.is_scalar, dtype=torch.bool, device=dev)
 
     # --- Filter ----------------------------------------------------------
-    static, fit, ports_ok, pa_ok, pa_state = filter_components(
-        b, p, requested=requested, pod_count=pod_count, node_ports=node_ports,
-        pa_sums=pa_sums,
+    static, fit, ports_ok, spread_ok, pa_ok, sp_counts, pa_state = (
+        filter_components(
+            b, p, requested=requested, pod_count=pod_count,
+            node_ports=node_ports, spread_counts=spread_counts,
+            pa_sums=pa_sums,
+        )
     )
     mask = static
-    for part in (fit, ports_ok, pa_ok):
+    for part in (fit, ports_ok, spread_ok, pa_ok):
         if part is not None:
             mask = mask & part
 
@@ -735,6 +810,13 @@ def feasible_and_scores(
     if p.w_image and b.image_sum_scores is not None:
         img = _rows(b.image_sum_scores, b.image_sig)
         total = total + p.w_image * S.image_locality_score(img, b.image_count)
+    sp = b.spread
+    if sp is not None and p.w_spread and sp.has_soft:
+        spread_sc = SP.spread_score_pod(
+            sp, sp_counts, sp.sig_idx, sp.action, sp.max_skew, sp.ignored,
+            mask,
+        )
+        total = total + p.w_spread * spread_sc
     pa = b.podaffinity
     if pa is not None and p.w_interpod and pa.has_score_work:
         pa_sc = PA.affinity_score_pod(

@@ -52,9 +52,9 @@ launch_counts = {"filter_score": 0, "greedy_scan": 0, "batched_round": 0}
 
 # ctypes argument types of each library's entry point
 _ARGTYPES = {
-    "filter_score": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p],
-    "greedy_scan": [ctypes.c_void_p] * 12,
-    "batched_round": [ctypes.c_void_p] * 14,
+    "filter_score": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p],
+    "greedy_scan": [ctypes.c_void_p] * 13 + [ctypes.c_int64, ctypes.c_void_p],
+    "batched_round": [ctypes.c_void_p] * 15,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -88,7 +88,10 @@ def build() -> dict[str, ctypes.CDLL]:
     """Compile (once per source hash) and load every kernel library. All
     ``nvcc`` processes start together and are waited for; a failed build
     raises with the compiler's output. ``build_log`` keeps each source's
-    compiler output (``-Xptxas=-v``: registers, spills, shared memory)."""
+    compiler output (``-Xptxas=-v``: registers, spills, shared memory).
+    Each library reports ``sizeof(ScoreArgs)`` as compiled; a size that
+    differs from the ctypes mirror's raises (a layout that drifts would
+    read garbage with no error)."""
     with _lock:
         if _libs:
             return _libs
@@ -125,6 +128,14 @@ def build() -> dict[str, ctypes.CDLL]:
             err = getattr(lib, f"kt_{name}_error")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
+            size = getattr(lib, f"kt_{name}_args_size")
+            size.argtypes = []
+            size.restype = ctypes.c_int64
+            if size() != ctypes.sizeof(ScoreArgs):
+                raise RuntimeError(
+                    f"{src}: sizeof(ScoreArgs) is {size()} bytes, the ctypes "
+                    f"mirror's {ctypes.sizeof(ScoreArgs)}: the two layouts differ"
+                )
             libs[name] = lib
         _libs.update(libs)
         return _libs
@@ -158,7 +169,24 @@ class ScoreArgs(ctypes.Structure):
             "pa_R", "pa_D", "pa_CA", "pa_CR", "pa_CE", "pa_CS", "pa_filter",
             "w_interpod",
         )
+    ] + [
+        (name, ctypes.c_void_p) for name in (
+            "sp_eligible", "sp_node_domain", "sp_has_key", "sp_domain_present",
+            "sp_num_domains", "sp_is_hostname", "sp_counts", "sp_sums",
+            "sp_min_match", "sp_sig_idx", "sp_action", "sp_max_skew",
+            "sp_min_domains", "sp_self_match", "sp_pod_match_sig", "sp_ignored",
+            "sp_bits",
+        )
+    ] + [
+        (name, ctypes.c_int64) for name in (
+            "sp_S", "sp_D", "sp_C", "sp_filter", "w_spread",
+        )
     ]
+
+# dynamic shared memory a spread-scoring block takes at most: static and
+# dynamic shared memory together stay under the 48 KiB a launch gets
+# without opting in (the blocks' static arrays take about 2 KiB)
+_SMEM_LIMIT = 40 * 1024
 
 
 _STRATEGIES = {
@@ -183,12 +211,16 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
     return x.data_ptr()
 
 
-def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str, state=None):
+def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str, state=None,
+                bits_blocks: int = 0):
     """Validate the batch for the kernels and pack their argument struct.
     ``state``, when given, is a running ``(requested, nonzero_requested,
-    pod_count, node_ports, pa_sums)`` the kernels read in place of the
-    batch's (``pa_sums`` None without affinity rows). Returns ``(args,
-    keepalive)``."""
+    pod_count, node_ports, pa_sums, spread_counts)`` the kernels read in
+    place of the batch's (``pa_sums`` None without affinity rows,
+    ``spread_counts`` None without a spread leaf). ``bits_blocks`` is the
+    number of blocks that each need a domain bitmap of their own when the
+    bitmap does not fit in shared memory (see ``_spread_smem``). Returns
+    ``(args, keepalive)``."""
     rt.check_slice_leaves(rt.batch_leaves(b), where)
     dev = b.alloc.device
     if dev.type != "cuda":
@@ -201,8 +233,8 @@ def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str, state=None):
     if P > 65535:
         raise ValueError(f"{where}: P={P} exceeds the grid's y extent")
     i64, i32, u8 = torch.int64, torch.int32, torch.bool
-    req, nz, pc, ports, pa_sums = state or (
-        b.requested, b.nonzero_requested, b.pod_count, b.node_ports, None
+    req, nz, pc, ports, pa_sums, sp_counts = state or (
+        b.requested, b.nonzero_requested, b.pod_count, b.node_ports, None, None
     )
     a = ScoreArgs()
     a.alloc = _check("alloc", b.alloc, i64, (N, R), dev)
@@ -289,7 +321,58 @@ def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str, state=None):
         a.pa_CE, a.pa_CS = slots["ea_rows"], slots["score_rows"]
         a.pa_filter = int(p.filter_interpod and pa.has_filter_work)
         a.w_interpod = p.w_interpod if pa.has_score_work else 0
+    sp = b.spread
+    if sp is not None:
+        S, D = sp.domain_present.shape
+        C = sp.sig_idx.shape[1]
+        counts = sp.node_count if sp_counts is None else sp_counts
+        a.sp_eligible = _check("sp.eligible", sp.eligible, u8, (S, N), dev)
+        a.sp_node_domain = _check("sp.node_domain", sp.node_domain, i32, (S, N), dev)
+        a.sp_has_key = _check("sp.has_key", sp.has_key, u8, (S, N), dev)
+        a.sp_domain_present = _check(
+            "sp.domain_present", sp.domain_present, u8, (S, D), dev)
+        a.sp_num_domains = _check("sp.num_domains", sp.num_domains, i32, (S,), dev)
+        a.sp_is_hostname = _check("sp.is_hostname", sp.is_hostname, u8, (S,), dev)
+        a.sp_counts = _check("spread_counts", counts, i32, (S, N), dev)
+        for name, dtype in (("sig_idx", i32), ("action", torch.int8),
+                            ("max_skew", i32), ("min_domains", i32),
+                            ("self_match", i32)):
+            setattr(a, "sp_" + name,
+                    _check("sp." + name, getattr(sp, name), dtype, (P, C), dev))
+        a.sp_pod_match_sig = _check(
+            "sp.pod_match_sig", sp.pod_match_sig, u8, (P, S), dev)
+        a.sp_ignored = _check("sp.ignored", sp.ignored, u8, (P, N), dev)
+        sums = torch.empty((S, D + 1), dtype=i64, device=dev)
+        min_match = torch.empty((S,), dtype=i64, device=dev)
+        keep += [sums, min_match]
+        a.sp_sums, a.sp_min_match = sums.data_ptr(), min_match.data_ptr()
+        if bits_blocks and _spread_smem(C, D)[1]:
+            bits = torch.empty((bits_blocks, (D + 31) // 32), dtype=torch.int32,
+                               device=dev)
+            keep.append(bits)
+            a.sp_bits = bits.data_ptr()
+        a.sp_S, a.sp_D, a.sp_C = S, D, C
+        a.sp_filter = int(p.filter_spread and sp.has_hard)
+        a.w_spread = p.w_spread if sp.has_soft else 0
     return a, keep
+
+
+def _spread_smem(C: int, D: int) -> tuple[int, bool]:
+    """Dynamic shared memory of a spread-scoring block: C float64 slot
+    weights and, when it fits beside them, the ceil(D / 32)-word domain
+    bitmap. Returns ``(bytes, bitmap_in_global)``."""
+    weights = 8 * C
+    bitmap = 4 * ((D + 31) // 32)
+    if weights + bitmap <= _SMEM_LIMIT:
+        return weights + bitmap, False
+    return weights, True
+
+
+def _smem(b: rt.DeviceBatch) -> int:
+    sp = b.spread
+    if sp is None:
+        return 0
+    return _spread_smem(sp.sig_idx.shape[1], sp.domain_present.shape[1])[0]
 
 
 def _raise_on(lib: ctypes.CDLL, name: str, code: int) -> None:
@@ -299,19 +382,22 @@ def _raise_on(lib: ctypes.CDLL, name: str, code: int) -> None:
 
 
 def _filter_score(b: rt.DeviceBatch, p: rt.ScoreParams, want_total: bool,
-                  with_pa: bool = True):
+                  dynamic: bool = True):
     """Launch ``filter_score``: ``(mask, base, total)``, ``total`` None
     unless ``want_total`` (then the normalize pass runs too). Without
-    ``with_pa`` the mask leaves out the InterPodAffinity filter."""
-    a, keep = _score_args(b, p, "filter_score")
-    out = _launch_filter_score(a, b.alloc.device, want_total, with_pa)
+    ``dynamic`` the mask leaves out the InterPodAffinity and
+    PodTopologySpread filters (the ones that move with each assignment)."""
+    a, keep = _score_args(b, p, "filter_score", bits_blocks=b.requests.shape[0])
+    out = _launch_filter_score(a, b.alloc.device, want_total, dynamic, _smem(b))
     del keep
     return out
 
 
-def _launch_filter_score(a: ScoreArgs, dev, want_total: bool, with_pa: bool):
+def _launch_filter_score(a: ScoreArgs, dev, want_total: bool, dynamic: bool,
+                         smem: int):
     """``_filter_score`` on packed arguments (the caller keeps their
-    tensors alive)."""
+    tensors alive); ``smem`` is the normalize pass's dynamic shared
+    memory."""
     lib = build()["filter_score"]
     mask = torch.empty((a.P, a.N), dtype=torch.bool, device=dev)
     base = torch.empty((a.P, a.N), dtype=torch.int64, device=dev)
@@ -322,7 +408,7 @@ def _launch_filter_score(a: ScoreArgs, dev, want_total: bool, with_pa: bool):
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.kt_filter_score(
         ctypes.byref(a), mask.data_ptr(), base.data_ptr(),
-        None if total is None else total.data_ptr(), int(with_pa), stream)
+        None if total is None else total.data_ptr(), int(dynamic), smem, stream)
     _raise_on(lib, "filter_score", code)
     launch_counts["filter_score"] += 1
     return mask, base, total
@@ -337,14 +423,14 @@ def filter_score(b: rt.DeviceBatch, p: rt.ScoreParams):
 
 def greedy_scan(b: rt.DeviceBatch, p: rt.ScoreParams):
     """The greedy engine on the card: ``filter_score`` scores every pair
-    against the batch's starting state (its mask without the affinity
-    filter), then the ``greedy_scan`` kernel walks the pods. Returns
+    against the batch's starting state (its mask without the affinity and
+    spread filters), then the ``greedy_scan`` kernel walks the pods. Returns
     ``(assignments (P,) int32, final_state)`` with the reference's seven
-    state slots (slot 5 the affinity sums, None without affinity rows;
-    slots 4 and 6 None), equal to ``assign.greedy.greedy_assign_plain(b,
-    p)``."""
-    mask0, base0, _ = _filter_score(b, p, want_total=False, with_pa=False)
-    a, keep = _score_args(b, p, "greedy_scan")
+    state slots (slot 4 the spread counts, None without a spread leaf; slot
+    5 the affinity sums, None without affinity rows; slot 6 None), equal to
+    ``assign.greedy.greedy_assign_plain(b, p)``."""
+    mask0, base0, _ = _filter_score(b, p, want_total=False, dynamic=False)
+    a, keep = _score_args(b, p, "greedy_scan", bits_blocks=1)
     lib = build()["greedy_scan"]
     dev = b.alloc.device
     assignments = torch.empty((a.P,), dtype=torch.int32, device=dev)
@@ -357,24 +443,32 @@ def greedy_scan(b: rt.DeviceBatch, p: rt.ScoreParams):
     pa_sums = None if pa is None else torch.empty_like(pa.base_sums)
     row_total = None if pa is None else torch.empty(
         (pa.base_sums.shape[0],), dtype=torch.int64, device=dev)
+    sp = b.spread
+    sp_counts = None if sp is None else torch.empty_like(sp.node_count)
+    ok_buf = None if sp is None else torch.empty((a.N,), dtype=torch.uint8, device=dev)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.kt_greedy_scan(
         ctypes.byref(a), mask0.data_ptr(), base0.data_ptr(), touched.data_ptr(),
         assignments.data_ptr(), req.data_ptr(), nz.data_ptr(), pc.data_ptr(),
-        ports.data_ptr(), None if pa is None else pa_sums.data_ptr(),
-        None if pa is None else row_total.data_ptr(), stream)
+        ports.data_ptr(), ptr(pa_sums), ptr(row_total), ptr(sp_counts),
+        ptr(ok_buf), _smem(b), stream)
     _raise_on(lib, "greedy_scan", code)
     launch_counts["greedy_scan"] += 1
     del keep
-    return assignments, (req, nz, pc, ports, None, pa_sums, None)
+    return assignments, (req, nz, pc, ports, sp_counts, pa_sums, None)
 
 
 def batched_assign(b: rt.DeviceBatch, p: rt.ScoreParams, max_rounds: int = 0,
                    rounds_out: list | None = None):
     """The batched engine on the card: each round launches ``filter_score``
     over the whole batch against the round's state (affinity included),
-    then the ``batched_round`` kernels, which choose, accept, commit and
-    update the state in place; the host reads the round's two flags
+    (its spread domain sums derived afresh from the running counts), then
+    the ``batched_round`` kernels, which choose, accept, commit and update
+    the state in place; the host reads the round's two flags
     (progress, any pod still active) to decide on the next round. Returns
     ``(assignments (P,) int32, final_state)`` with the seven state slots,
     equal to ``assign.batched.batched_assign_plain(b, p, max_rounds)``;
@@ -383,14 +477,17 @@ def batched_assign(b: rt.DeviceBatch, p: rt.ScoreParams, max_rounds: int = 0,
     if P > 1024:
         raise ValueError(f"batched_round: P={P} exceeds the sorting block's 1024 pods")
     pa = b.podaffinity
+    sp = b.spread
     state = (
         b.requested.clone(), b.nonzero_requested.clone(), b.pod_count.clone(),
         b.node_ports.clone(), None if pa is None else pa.base_sums.clone(),
+        None if sp is None else sp.node_count.clone(),
     )
-    req, nz, pc, ports, pa_sums = state
+    req, nz, pc, ports, pa_sums, sp_counts = state
     # the state tensors are updated in place, so one argument struct
     # serves every round's filter_score and batched_round launches
-    a, keep = _score_args(b, p, "batched_round", state)
+    a, keep = _score_args(b, p, "batched_round", state, bits_blocks=P)
+    smem = _smem(b)
     lib = build()["batched_round"]
     dev = b.alloc.device
     active = b.pod_valid.clone()
@@ -403,11 +500,13 @@ def batched_assign(b: rt.DeviceBatch, p: rt.ScoreParams, max_rounds: int = 0,
     progress, still = True, bool(torch.any(active))
     stream = torch.cuda.current_stream(dev).cuda_stream
     while progress and still and rounds < cap:
-        mask, _, total = _launch_filter_score(a, dev, want_total=True, with_pa=True)
+        mask, _, total = _launch_filter_score(
+            a, dev, want_total=True, dynamic=True, smem=smem)
         code = lib.kt_batched_round(
             ctypes.byref(a), mask.data_ptr(), total.data_ptr(), req.data_ptr(),
             nz.data_ptr(), pc.data_ptr(), ports.data_ptr(),
-            None if pa_sums is None else pa_sums.data_ptr(), active.data_ptr(),
+            None if pa_sums is None else pa_sums.data_ptr(),
+            None if sp_counts is None else sp_counts.data_ptr(), active.data_ptr(),
             assignments.data_ptr(), stats64.data_ptr(), stats32.data_ptr(),
             flags.data_ptr(), stream)
         _raise_on(lib, "batched_round", code)
@@ -417,4 +516,4 @@ def batched_assign(b: rt.DeviceBatch, p: rt.ScoreParams, max_rounds: int = 0,
     del keep
     if rounds_out is not None:
         rounds_out.append(rounds)
-    return assignments, (req, nz, pc, ports, None, pa_sums, None)
+    return assignments, (req, nz, pc, ports, sp_counts, pa_sums, None)

@@ -26,8 +26,10 @@
 //
 // Bound: latency. The work that needs the whole card is filter_score's; the
 // round body is four short launches with P blocks at most. Design notes:
-// each node takes at most one pod a round, so the resource, pod-count and
-// port updates are plain writes by the pod's thread; the affinity sums
+// each node takes at most one pod a round, so the resource, pod-count,
+// port and spread-count updates are plain writes by the pod's thread (the
+// next round's filter_score derives the spread domain sums afresh from the
+// counts); the affinity sums
 // take 64-bit atomic adds, since several pods can land in one domain
 // (integer adds, so the order does not change the result). P <= 1024: one
 // thread per pod in the sorting blocks. The loop over rounds runs on the
@@ -40,38 +42,10 @@ constexpr int kRowThreads = 256;
 constexpr int kSortThreads = 1024;
 constexpr int64_t kI64Min = -(1LL << 62);  // the reference's I64_MIN
 
-struct MaxOp {
-  __device__ int64_t operator()(int64_t x, int64_t y) const { return x > y ? x : y; }
-};
-struct MinOp {
-  __device__ int64_t operator()(int64_t x, int64_t y) const { return x < y ? x : y; }
-};
-struct SumOp {
-  // wrapping add (uint64 arithmetic, as the reference's uint64 hash)
-  __device__ int64_t operator()(int64_t x, int64_t y) const {
-    return (int64_t)((unsigned long long)x + (unsigned long long)y);
-  }
-};
-
-// reduce v over the block with op; every thread gets the result.
-// s holds 33 values; ident is the op's identity.
-template <typename Op>
-__device__ __forceinline__ int64_t block_reduce(int64_t v, Op op, int64_t ident, int64_t* s) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  for (int off = 16; off > 0; off >>= 1) v = op(v, __shfl_down_sync(0xffffffffu, v, off));
-  if (lane == 0) s[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int64_t x = lane < nwarps ? s[lane] : ident;
-    for (int off = 16; off > 0; off >>= 1) x = op(x, __shfl_down_sync(0xffffffffu, x, off));
-    if (lane == 0) s[32] = x;
-  }
-  __syncthreads();
-  const int64_t out = s[32];
-  __syncthreads();
-  return out;
-}
+using kt::block_reduce;
+using kt::MaxOp;
+using kt::MinOp;
+using kt::SumOp;
 
 __device__ __forceinline__ int64_t tie_weight(int64_t n) {
   return (n * 2654435761LL + 1) & 0xFFFFFFFFLL;
@@ -229,8 +203,8 @@ __global__ void round_pick(ScoreArgs a, const uint8_t* mask, const int64_t* tota
 // (4) one-per-node acceptance, prefix commit, finalize and the state update
 __global__ void __launch_bounds__(kSortThreads, 1)
 round_accept(ScoreArgs a, const int32_t* choice, int64_t* req, int64_t* nz, int32_t* pc,
-             uint8_t* ports, int64_t* pa_sums, uint8_t* active, int32_t* assignments,
-             int32_t* flags) {
+             uint8_t* ports, int64_t* pa_sums, int32_t* sp_counts, uint8_t* active,
+             int32_t* assignments, int32_t* flags) {
   __shared__ int64_t s_key[kSortThreads];
   __shared__ int32_t s_idx[kSortThreads];
   __shared__ uint8_t s_acc[kSortThreads];
@@ -283,6 +257,13 @@ round_accept(ScoreArgs a, const int32_t* choice, int64_t* req, int64_t* nz, int3
                     (unsigned long long)a.pa_update[p * a.pa_R + row]);
         }
       }
+      if (sp_counts != nullptr) {
+        // spread updateWithPod: +1 at node c in every signature the pod
+        // matches and c is eligible for; c takes no other pod this round
+        for (int64_t sg = 0; sg < a.sp_S; ++sg)
+          if (a.sp_pod_match_sig[p * a.sp_S + sg] && a.sp_eligible[sg * N + c])
+            sp_counts[sg * N + c] += 1;
+      }
       assignments[p] = c;
     }
     if (commit || finalize) {
@@ -303,16 +284,17 @@ round_accept(ScoreArgs a, const int32_t* choice, int64_t* req, int64_t* nz, int3
 }  // namespace
 
 // One round on `stream`, after filter_score wrote `mask` and `total` (P, N)
-// against the round's state. req / nz / pc / ports / pa_sums are the
-// running state (pa_sums null without affinity rows), updated in place;
+// against the round's state. req / nz / pc / ports / pa_sums / sp_counts
+// are the running state (pa_sums null without affinity rows, sp_counts
+// without a spread leaf), updated in place;
 // active (P,) and assignments (P,) likewise. stats64 is (3, P) int64 and
 // stats32 (2, P) int32 scratch; flags (2,) int32 receives (progress, any
 // pod still active). Returns the cudaError_t of the launches (0 = all were
 // accepted).
 extern "C" int kt_batched_round(const ScoreArgs* args, const void* mask, const void* total,
                                 void* req, void* nz, void* pc, void* ports, void* pa_sums,
-                                void* active, void* assignments, void* stats64, void* stats32,
-                                void* flags, void* stream) {
+                                void* sp_counts, void* active, void* assignments,
+                                void* stats64, void* stats32, void* flags, void* stream) {
   const ScoreArgs a = *args;
   if (a.P == 0) return 0;
   if (a.P > kSortThreads) return (int)cudaErrorInvalidValue;
@@ -337,9 +319,12 @@ extern "C" int kt_batched_round(const ScoreArgs* args, const void* mask, const v
   round_accept<<<1, kSortThreads, 0, s>>>(
       a, choice, static_cast<int64_t*>(req), static_cast<int64_t*>(nz),
       static_cast<int32_t*>(pc), static_cast<uint8_t*>(ports), static_cast<int64_t*>(pa_sums),
-      act, static_cast<int32_t*>(assignments), static_cast<int32_t*>(flags));
+      static_cast<int32_t*>(sp_counts), act, static_cast<int32_t*>(assignments),
+      static_cast<int32_t*>(flags));
   return (int)cudaGetLastError();
 }
+
+extern "C" int64_t kt_batched_round_args_size() { return (int64_t)sizeof(ScoreArgs); }
 
 extern "C" const char* kt_batched_round_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,30 +1,39 @@
 // filter_score: the one-shot Filter+Score of a batch, every pod against the
 // same node state: the (P, N) mask, the (P, N) int64 base score (fit,
 // balanced and image terms, weighted) and, when asked for, the (P, N) int64
-// total (base plus the normalized node-affinity, taint and InterPodAffinity
-// terms).
+// total (base plus the normalized node-affinity, taint, InterPodAffinity
+// and PodTopologySpread terms).
 //
 // Replaces kubetpu/framework/runtime.py:1578 filter_score_batch (jit), i.e.
 // :1471 feasible_and_scores with :1363 filter_components and :1356
 // masked_normalize, and the vmapped kubetpu/ops/podaffinity.py:32
-// affinity_filter_pod / :75 affinity_score_pod inside them, which XLA
-// fused into one device program. On the main path it is the parallel half
+// affinity_filter_pod / :75 affinity_score_pod and kubetpu/ops/spread.py:40
+// spread_filter_pod / :69 spread_score_pod (with :32 _domain_sums) inside
+// them, which XLA fused into one device program. On the main path it is the parallel half
 // of both engines: greedy_scan reads its mask (without the affinity
 // filter, which moves with every assignment) and base score for every node
 // that no earlier pod of the batch landed on; each batched round scores the
-// whole batch with it against the round's state.
+// whole batch with it against the round's state. The scan's start mask
+// leaves out the affinity and spread filters, which move with every
+// assignment.
 //
 // Bound: memory. Per pair the kernel reads a few int64 node rows and the
 // pod's affinity slots, which stay in L2 across the pod axis; what must
 // reach device memory is the (P, N) outputs (9 bytes a pair, 17 with the
 // total), so the least time is those bytes over the card's bandwidth.
 // Design: launch (0), only with affinity rows, sums each (RA, D) row over
-// its domains (the self-affinity escape reads the total); launch (a) is
-// one thread per pair on a 2-D grid (x = nodes, y = pods), so neighbouring
-// threads touch neighbouring node rows and the writes coalesce; launch (b),
-// only when the total is asked for, is one block per pod that reduces the
-// feasible maxima of the node-affinity and taint raw rows and the feasible
-// min and max of the affinity raw score, and writes the total.
+// its domains (the self-affinity escape reads the total); launch (0s),
+// only with a spread leaf, is one block per signature that sums its
+// counts over eligible nodes into the (S, D+1) domain sums (slot D is
+// domain -1's bucket) and reduces its minMatch over present domains;
+// launch (a) is one thread per pair on a 2-D grid (x = nodes, y = pods),
+// so neighbouring threads touch neighbouring node rows and the writes
+// coalesce; launch (b), only when the total is asked for, is one block per
+// pod that reduces the feasible maxima of the node-affinity and taint raw
+// rows, the feasible min and max of the affinity raw score and, for a
+// spread-scored pod, each soft slot's domain count `size` (a bitmap over
+// the domains, in shared memory when it fits, else in global scratch) and
+// the scored min and max of the rounded spread raw, and writes the total.
 #include "score_common.cuh"
 
 namespace {
@@ -39,6 +48,17 @@ __global__ void filter_score_row_totals(ScoreArgs a) {
                     (int64_t)gridDim.x * blockDim.x);
 }
 
+__global__ void filter_score_spread_sums(ScoreArgs a) {
+  __shared__ int64_t s_red[33];
+  const int64_t s = blockIdx.x, D1 = a.sp_D + 1;
+  for (int64_t d = threadIdx.x; d < D1; d += blockDim.x) a.sp_sums[s * D1 + d] = 0;
+  __syncthreads();
+  kt::sp_accumulate(a, a.sp_counts, a.sp_sums, s, a.sp_S);
+  __syncthreads();
+  const int64_t mm = kt::sp_min_over_domains(a, a.sp_sums, s, s_red);
+  if (threadIdx.x == 0) a.sp_min_match[s] = mm;
+}
+
 __global__ void filter_score_pairs(ScoreArgs a, uint8_t* mask, int64_t* base, int with_pa) {
   const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t p = blockIdx.y;
@@ -46,35 +66,51 @@ __global__ void filter_score_pairs(ScoreArgs a, uint8_t* mask, int64_t* base, in
   bool ok = kt::pair_feasible(a, p, n, a.requested, a.pod_count, a.node_ports);
   if (ok && with_pa && a.pa_filter)
     ok = kt::pa_feasible(a, a.pa_sums, kt::pa_escape(a, a.pa_row_total, p), p, n);
+  if (ok && a.sp_filter) ok = kt::sp_feasible(a, a.sp_sums, a.sp_min_match, p, n);
   mask[p * a.N + n] = ok;
   base[p * a.N + n] = kt::base_score(a, p, n, a.requested, a.nonzero_requested);
 }
 
+// dynamic shared memory: C doubles of slot weights, then the domain bitmap
+// when a.sp_bits is null
 __global__ void filter_score_normalize(ScoreArgs a, const uint8_t* mask, const int64_t* base,
                                        int64_t* total) {
-  __shared__ int64_t s_m[4][33];
+  __shared__ int64_t s_m[kt::kNorm][33];
+  extern __shared__ __align__(16) unsigned char s_dyn[];
   const int64_t p = blockIdx.x;
   const int64_t N = a.N;
-  const bool normalize = a.na_raw != nullptr || a.tt_raw != nullptr || a.w_interpod;
+  const bool sp_score = a.w_spread && kt::sp_any_soft(a, p);
+  const bool normalize =
+      a.na_raw != nullptr || a.tt_raw != nullptr || a.w_interpod || sp_score;
   const int64_t row =
       (a.na_raw != nullptr || a.tt_raw != nullptr) ? (int64_t)a.score_sig[p] * N : 0;
   const uint8_t* m = mask + p * N;
-  int64_t mx[4];
+  double* weight = reinterpret_cast<double*>(s_dyn);
+  if (sp_score) {
+    uint32_t* bits = a.sp_bits != nullptr
+                         ? a.sp_bits + p * ((a.sp_D + 31) / 32)
+                         : reinterpret_cast<uint32_t*>(s_dyn + a.sp_C * sizeof(double));
+    kt::sp_weights(a, p, m, bits, weight, s_m[0]);
+  }
+  int64_t mx[kt::kNorm];
   kt::init_norm(mx);
   if (normalize) {
     for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
       if (!m[n]) continue;
       const int64_t pa_r = a.w_interpod ? kt::pa_raw(a, a.pa_sums, p, n) : 0;
-      kt::fold_norm(a, row, n, pa_r, mx);
+      kt::fold_norm(a, row, n, pa_r,
+                    kt::sp_scored_raw(a, sp_score, a.sp_counts, a.sp_sums, weight, p, n), mx);
     }
-    kt::block_max_norm(a, mx, s_m);
+    kt::block_max_norm(a, sp_score, mx, s_m);
   }
   for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
     int64_t s = base[p * N + n];
     if (normalize) {
       const bool ok = m[n];
       const int64_t pa_r = (ok && a.w_interpod) ? kt::pa_raw(a, a.pa_sums, p, n) : 0;
-      s += kt::norm_terms(a, row, n, ok, pa_r, mx);
+      const int64_t sp =
+          ok ? kt::sp_scored_raw(a, sp_score, a.sp_counts, a.sp_sums, weight, p, n) : -1;
+      s += kt::norm_terms(a, row, n, ok, pa_r, sp, mx);
     }
     total[p * N + n] = s;
   }
@@ -82,18 +118,31 @@ __global__ void filter_score_normalize(ScoreArgs a, const uint8_t* mask, const i
 
 }  // namespace
 
-// Launches pass (0) when `with_pa` and the batch has affinity rows, pass
-// (a), and pass (b) when `total` is not null, on `stream`. Without
-// `with_pa` the mask leaves out the InterPodAffinity filter (greedy_scan
-// evaluates it per step). Returns the cudaError_t of the launches (0 = all
-// were accepted); the caller raises on anything else.
+// Launches pass (0) when `dynamic` and the batch has affinity rows, pass
+// (0s) when `dynamic` and the batch has a spread leaf, pass (a), and pass
+// (b) when `total` is not null, on `stream`. Without `dynamic` the mask
+// leaves out the InterPodAffinity and PodTopologySpread filters, the ones
+// that move with each assignment (greedy_scan evaluates them per step).
+// `smem` is pass (b)'s dynamic shared memory in bytes (at most 40 KiB).
+// Returns the cudaError_t of the launches (0 = all were accepted); the
+// caller raises on anything else.
 extern "C" int kt_filter_score(const ScoreArgs* args, void* mask, void* base, void* total,
-                               int with_pa, void* stream) {
+                               int dynamic, int64_t smem, void* stream) {
   ScoreArgs a = *args;
-  const int pa = with_pa && a.pa_node_domain != nullptr;
+  const int pa = dynamic && a.pa_node_domain != nullptr;
   if (!pa) a.w_interpod = 0;
+  const int sp = dynamic && a.sp_node_domain != nullptr;
+  if (!sp) {
+    a.sp_filter = 0;
+    a.w_spread = 0;
+  }
   if (a.P == 0 || a.N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sp && (a.sp_filter || a.w_spread) && a.sp_S > 0) {
+    filter_score_spread_sums<<<(unsigned)a.sp_S, kRowThreads, 0, s>>>(a);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   if (pa && a.pa_R > 0) {
     filter_score_row_totals<<<(unsigned)((a.pa_R + kTotalThreads - 1) / kTotalThreads),
                               kTotalThreads, 0, s>>>(a);
@@ -105,11 +154,13 @@ extern "C" int kt_filter_score(const ScoreArgs* args, void* mask, void* base, vo
                                                    static_cast<int64_t*>(base), pa);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || total == nullptr) return (int)err;
-  filter_score_normalize<<<(unsigned)a.P, kRowThreads, 0, s>>>(
+  filter_score_normalize<<<(unsigned)a.P, kRowThreads, (size_t)smem, s>>>(
       a, static_cast<const uint8_t*>(mask), static_cast<const int64_t*>(base),
       static_cast<int64_t*>(total));
   return (int)cudaGetLastError();
 }
+
+extern "C" int64_t kt_filter_score_args_size() { return (int64_t)sizeof(ScoreArgs); }
 
 extern "C" const char* kt_filter_score_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

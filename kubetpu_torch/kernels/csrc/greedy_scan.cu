@@ -30,6 +30,20 @@
 // one thread per row after each step's argmax and read by all threads
 // after a block barrier.
 //
+// PodTopologySpread breaks it the same way: one assignment adds one match
+// to a whole domain, which moves the skew verdict of every node in it and
+// the global minMatch every verdict reads, and the score's `size` (domains
+// holding a scored node) moves with each step's feasible set. So the
+// start mask leaves the spread filter out too, and with a spread leaf the
+// scan carries the (S, N) counts (the final state's slot 4) and their
+// (S, D+1) domain sums in global memory: after each argmax one thread per
+// signature adds the pod's match at the chosen node to both, and before
+// each step the block reduces every signature's minMatch afresh (hard
+// constraints only). Each step then stores every node's verdict in an
+// (N,) scratch row, derives each soft slot's size from it (a domain
+// bitmap, popcounts, a block sum), and folds the rounded spread raw's min
+// and max into the normalize reduction.
+//
 // Per step: (1) when node-affinity, taint or affinity-score rows are
 // present, the block reduces the normalize inputs over the feasible nodes
 // (masked_normalize divides by the max over feasible nodes only, and the
@@ -66,22 +80,36 @@ __device__ __forceinline__ void warp_best(int64_t& s, int64_t& n) {
   }
 }
 
-// kPA: the batch has affinity rows. The kernel is built twice, so that a
-// batch without them runs code with no affinity branches at all.
-template <bool kPA>
+// kPA: the batch has affinity rows; kSP: it has a spread leaf. The kernel
+// is built four times, so that a batch without them runs code with no
+// affinity or spread branches at all. Dynamic shared memory (kSP only):
+// sp_C doubles of slot weights, then the domain bitmap when a.sp_bits is
+// null.
+template <bool kPA, bool kSP>
 __global__ void __launch_bounds__(kThreads, 1)
 greedy_scan_kernel(ScoreArgs a, const uint8_t* mask0, const int64_t* base0, uint8_t* touched,
                    int32_t* assignments, int64_t* req, int64_t* nz, int32_t* pc,
-                   uint8_t* ports, int64_t* pa_sums, int64_t* row_total) {
-  __shared__ int64_t s_m[4][33];
+                   uint8_t* ports, int64_t* pa_sums, int64_t* row_total, int32_t* sp_counts,
+                   uint8_t* ok_buf) {
+  __shared__ int64_t s_m[kt::kNorm][33];
   __shared__ int64_t s_x[33];
   __shared__ int64_t s_y[33];
+  extern __shared__ __align__(16) unsigned char s_dyn[];
   const int64_t N = a.N, R = a.R, K = a.K;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   if (!kPA) a.w_interpod = 0;
+  if (!kSP) {
+    a.w_spread = 0;
+    a.sp_filter = 0;
+  }
   const bool pa = kPA;
   const bool pa_filter = kPA && a.pa_filter;
+  const int64_t S = a.sp_S, D1 = a.sp_D + 1;
+  double* weight = reinterpret_cast<double*>(s_dyn);
+  uint32_t* bits = a.sp_bits != nullptr
+                       ? a.sp_bits
+                       : reinterpret_cast<uint32_t*>(s_dyn + a.sp_C * sizeof(double));
 
   // the running state starts as the batch's node state (owner rows only)
   for (int64_t n = tid; n < N; n += kThreads) {
@@ -98,6 +126,14 @@ greedy_scan_kernel(ScoreArgs a, const uint8_t* mask0, const int64_t* base0, uint
     kt::pa_row_totals(a, a.pa_sums, row_total, tid, kThreads);
     __syncthreads();
   }
+  if constexpr (kSP) {
+    // the running counts start as the batch's, their domain sums from them
+    for (int64_t i = tid; i < S * N; i += kThreads) sp_counts[i] = a.sp_counts[i];
+    for (int64_t i = tid; i < S * D1; i += kThreads) a.sp_sums[i] = 0;
+    __syncthreads();
+    kt::sp_accumulate(a, sp_counts, a.sp_sums, 0, 1);
+    __syncthreads();
+  }
 
   const bool na_tt = a.na_raw != nullptr || a.tt_raw != nullptr;
   const bool normalize = na_tt || a.w_interpod;
@@ -106,30 +142,51 @@ greedy_scan_kernel(ScoreArgs a, const uint8_t* mask0, const int64_t* base0, uint
     const int64_t* b0 = base0 + p * N;
     const int64_t row = na_tt ? (int64_t)a.score_sig[p] * N : 0;
     const bool escape = pa_filter && kt::pa_escape(a, row_total, p);
-    // (1) the normalize inputs over the feasible nodes
-    int64_t mx[4];
-    kt::init_norm(mx);
-    if (normalize) {
-      for (int64_t n = tid; n < N; n += kThreads) {
-        bool ok = touched[n] ? kt::pair_feasible(a, p, n, req, pc, ports) : m0[n];
-        if (ok && pa_filter) ok = kt::pa_feasible(a, pa_sums, escape, p, n);
-        if (!ok) continue;
-        const int64_t pa_r = a.w_interpod ? kt::pa_raw(a, pa_sums, p, n) : 0;
-        kt::fold_norm(a, row, n, pa_r, mx);
+    const bool sp_score = kSP && a.w_spread && kt::sp_any_soft(a, p);
+    // the pair's verdict against the running state
+    auto feasible = [&](int64_t n) {
+      bool ok = touched[n] ? kt::pair_feasible(a, p, n, req, pc, ports) : m0[n];
+      if (ok && pa_filter) ok = kt::pa_feasible(a, pa_sums, escape, p, n);
+      if (kSP && ok && a.sp_filter) ok = kt::sp_feasible(a, a.sp_sums, a.sp_min_match, p, n);
+      return ok;
+    };
+    // the rounded spread raw of a feasible node, -1 when it is not scored
+    auto spread_raw = [&](int64_t n) {
+      return kt::sp_scored_raw(a, sp_score, sp_counts, a.sp_sums, weight, p, n);
+    };
+    if constexpr (kSP) {
+      // (0) every signature's minMatch against the running sums, then
+      // every node's verdict and each soft slot's size
+      if (a.sp_filter) {
+        for (int64_t sg = 0; sg < S; ++sg) {
+          const int64_t mm = kt::sp_min_over_domains(a, a.sp_sums, sg, s_x);
+          if (tid == 0) a.sp_min_match[sg] = mm;
+        }
+        __syncthreads();
       }
-      kt::block_max_norm(a, mx, s_m);
+      for (int64_t n = tid; n < N; n += kThreads) ok_buf[n] = feasible(n);
+      __syncthreads();
+      if (sp_score) kt::sp_weights(a, p, ok_buf, bits, weight, s_x);
+    }
+    // (1) the normalize inputs over the feasible nodes
+    int64_t mx[kt::kNorm];
+    kt::init_norm(mx);
+    if (normalize || sp_score) {
+      for (int64_t n = tid; n < N; n += kThreads) {
+        if (!(kSP ? ok_buf[n] : feasible(n))) continue;
+        const int64_t pa_r = a.w_interpod ? kt::pa_raw(a, pa_sums, p, n) : 0;
+        kt::fold_norm(a, row, n, pa_r, spread_raw(n), mx);
+      }
+      kt::block_max_norm(a, sp_score, mx, s_m);
     }
     // (2) best feasible node of this thread, then of the block
     int64_t best_s = 0, best_n = -1;
     for (int64_t n = tid; n < N; n += kThreads) {
-      const bool t = touched[n];
-      bool ok = t ? kt::pair_feasible(a, p, n, req, pc, ports) : m0[n];
-      if (ok && pa_filter) ok = kt::pa_feasible(a, pa_sums, escape, p, n);
-      if (!ok) continue;
-      int64_t s = t ? kt::base_score(a, p, n, req, nz) : b0[n];
-      if (normalize) {
+      if (!(kSP ? ok_buf[n] : feasible(n))) continue;
+      int64_t s = touched[n] ? kt::base_score(a, p, n, req, nz) : b0[n];
+      if (normalize || sp_score) {
         const int64_t pa_r = a.w_interpod ? kt::pa_raw(a, pa_sums, p, n) : 0;
-        s += kt::norm_terms(a, row, n, true, pa_r, mx);
+        s += kt::norm_terms(a, row, n, true, pa_r, spread_raw(n), mx);
       }
       if (better(s, n, best_s, best_n)) {
         best_s = s;
@@ -174,33 +231,54 @@ greedy_scan_kernel(ScoreArgs a, const uint8_t* mask0, const int64_t* base0, uint
           row_total[r] += inc;
         }
       }
-      __syncthreads();
     }
+    if constexpr (kSP) {
+      // spread updateWithPod (filtering.go:181): +1 at the chosen node in
+      // every signature the pod matches and the node is eligible for
+      if (chosen >= 0) {
+        for (int64_t sg = tid; sg < S; sg += kThreads) {
+          if (!a.sp_pod_match_sig[p * S + sg] || !a.sp_eligible[sg * N + chosen]) continue;
+          sp_counts[sg * N + chosen] += 1;
+          const int32_t dom = a.sp_node_domain[sg * N + chosen];
+          a.sp_sums[sg * D1 + (dom >= 0 ? dom : a.sp_D)] += 1;
+        }
+      }
+    }
+    if (pa || kSP) __syncthreads();
   }
 }
 
 }  // namespace
 
 // Launches the scan on `stream`. mask0 and base0 are filter_score's (P, N)
-// mask (without the affinity filter) and base score of the same batch;
-// `touched` is (N,) scratch. With affinity rows, pa_sums (RA, D) receives
-// the final sums and row_total (RA,) is scratch; both are null without.
-// The outputs are written whole by the kernel. Returns the cudaError_t of
-// the launch (0 = accepted).
+// mask (without the affinity and spread filters) and base score of the
+// same batch; `touched` is (N,) scratch. With affinity rows, pa_sums (RA,
+// D) receives the final sums and row_total (RA,) is scratch; both are null
+// without. With a spread leaf, sp_counts (S, N) receives the final counts
+// and ok_buf (N,) is scratch, as are a.sp_sums, a.sp_min_match and
+// a.sp_bits; both are null without. `smem` is the dynamic shared memory in
+// bytes (at most 40 KiB). The outputs are written whole by the kernel.
+// Returns the cudaError_t of the launch (0 = accepted).
 extern "C" int kt_greedy_scan(const ScoreArgs* args, const void* mask0, const void* base0,
                               void* touched, void* assignments, void* req, void* nz, void* pc,
-                              void* ports, void* pa_sums, void* row_total, void* stream) {
+                              void* ports, void* pa_sums, void* row_total, void* sp_counts,
+                              void* ok_buf, int64_t smem, void* stream) {
   const ScoreArgs a = *args;
   if (a.N == 0 && a.P == 0) return 0;
-  auto kernel = pa_sums != nullptr ? greedy_scan_kernel<true> : greedy_scan_kernel<false>;
-  kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const bool pa = pa_sums != nullptr, sp = sp_counts != nullptr;
+  auto kernel = pa ? (sp ? greedy_scan_kernel<true, true> : greedy_scan_kernel<true, false>)
+                   : (sp ? greedy_scan_kernel<false, true> : greedy_scan_kernel<false, false>);
+  kernel<<<1, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const uint8_t*>(mask0), static_cast<const int64_t*>(base0),
       static_cast<uint8_t*>(touched), static_cast<int32_t*>(assignments),
       static_cast<int64_t*>(req), static_cast<int64_t*>(nz), static_cast<int32_t*>(pc),
       static_cast<uint8_t*>(ports), static_cast<int64_t*>(pa_sums),
-      static_cast<int64_t*>(row_total));
+      static_cast<int64_t*>(row_total), static_cast<int32_t*>(sp_counts),
+      static_cast<uint8_t*>(ok_buf));
   return (int)cudaGetLastError();
 }
+
+extern "C" int64_t kt_greedy_scan_args_size() { return (int64_t)sizeof(ScoreArgs); }
 
 extern "C" const char* kt_greedy_scan_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -12,6 +12,10 @@
 //   kubetpu/ops/podaffinity.py:24 _slot_counts, :32 affinity_filter_pod,
 //     :75 affinity_score_pod (InterPodAffinity: gathers from the carried
 //     (R, D) sums at the node's domain, and the min-max normalize in f64)
+//   kubetpu/ops/spread.py:32 _domain_sums, :40 spread_filter_pod, :69
+//     spread_score_pod (PodTopologySpread: per-signature domain sums of the
+//     carried (S, N) counts, the skew verdict against minMatch, and the
+//     log-weighted raw score with its normalize)
 //
 // Exactness: every integer is int64 as in the reference (which runs with
 // jax x64). `//` in the reference floors; C++ `/` truncates, so floordiv()
@@ -20,7 +24,12 @@
 // __dsqrt_rn): no fused multiply-add can change a rounding, and the sums
 // over R run in index order, as the plain PyTorch version's loop does. The
 // affinity normalize, 100 * (raw - min) / (max - min) truncated to int64, is
-// float64 through the same intrinsics.
+// float64 through the same intrinsics. The spread raw score is
+// cnt * log(size + 2) + (maxSkew - 1) as a rounded multiply then a rounded
+// add (__dmul_rn, __dadd_rn), summed over the pod's slots in slot order, and
+// rounded half to even (__double2ll_rn, as jnp.round / torch.round; not
+// round() or llround(), which round half away from zero). log() of a double
+// is libdevice's, the same function torch's CUDA log calls.
 #pragma once
 
 #include <cstdint>
@@ -74,11 +83,36 @@ struct ScoreArgs {
   int64_t pa_R, pa_D, pa_CA, pa_CR, pa_CE, pa_CS;
   int64_t pa_filter;                 // filter_interpod and has_filter_work
   int64_t w_interpod;                // 0 unless w_interpod and has_score_work
+  // PodTopologySpread (kubetpu_torch.framework.runtime.SpreadDevice);
+  // sp_node_domain is null when the batch has no spread leaf
+  const uint8_t* sp_eligible;        // (S, N)
+  const int32_t* sp_node_domain;     // (S, N), -1 = not a counted domain
+  const uint8_t* sp_has_key;         // (S, N)
+  const uint8_t* sp_domain_present;  // (S, D)
+  const int32_t* sp_num_domains;     // (S,)
+  const uint8_t* sp_is_hostname;     // (S,)
+  const int32_t* sp_counts;          // (S, N) the counts the verdicts read
+  int64_t* sp_sums;                  // (S, D+1) scratch: domain sums; D = -1's bucket
+  int64_t* sp_min_match;             // (S,) scratch: min sum over present domains
+  const int32_t* sp_sig_idx;         // (P, C), -1 = unused slot
+  const int8_t* sp_action;           // (P, C) 0 DoNotSchedule, 1 ScheduleAnyway
+  const int32_t* sp_max_skew;        // (P, C)
+  const int32_t* sp_min_domains;     // (P, C)
+  const int32_t* sp_self_match;      // (P, C)
+  const uint8_t* sp_pod_match_sig;   // (P, S)
+  const uint8_t* sp_ignored;         // (P, N)
+  uint32_t* sp_bits;                 // domain bitmaps in global memory, null
+                                     // when they fit in shared memory
+  int64_t sp_S, sp_D, sp_C;
+  int64_t sp_filter;                 // filter_spread and has_hard
+  int64_t w_spread;                  // 0 unless w_spread and has_soft
 };
 
 namespace kt {
 
 constexpr int64_t kMaxNodeScore = 100;
+constexpr int kNorm = 6;                     // values fold_norm reduces
+constexpr int64_t kBig = 2147483647;         // spread.py's _BIG (int32 max)
 
 // floor division for b > 0 (the reference's `//`)
 __device__ __forceinline__ int64_t floordiv(int64_t a, int64_t b) {
@@ -343,7 +377,116 @@ __device__ __forceinline__ int64_t pa_normalize(int64_t raw, int64_t mn, int64_t
   return (int64_t)f;
 }
 
+// ---- PodTopologySpread (kubetpu/ops/spread.py) -------------------------
+
+// any ScheduleAnyway slot: a pod without one Skips the score (scoring.go:149)
+__device__ __forceinline__ bool sp_any_soft(const ScoreArgs& a, int64_t p) {
+  for (int64_t c = 0; c < a.sp_C; ++c)
+    if (a.sp_sig_idx[p * a.sp_C + c] >= 0 && a.sp_action[p * a.sp_C + c] == 1) return true;
+  return false;
+}
+
+// matchNum of node n for signature s: its domain's sum, 0 for domain -1
+__device__ __forceinline__ int64_t sp_match(const ScoreArgs& a, const int64_t* sums,
+                                            int64_t s, int64_t n) {
+  const int32_t dom = a.sp_node_domain[s * a.N + n];
+  return dom >= 0 ? sums[s * (a.sp_D + 1) + dom] : 0;
+}
+
+// the hard-constraint verdict of a pair (spread_filter_pod): every
+// DoNotSchedule slot needs the node to carry its key and
+// matchNum + selfMatch - minMatch <= maxSkew, where minMatch is 0 when the
+// signature counts fewer domains than the slot's minDomains. int64 throughout.
+__device__ __forceinline__ bool sp_feasible(const ScoreArgs& a, const int64_t* sums,
+                                            const int64_t* min_match, int64_t p, int64_t n) {
+  const int64_t C = a.sp_C;
+  for (int64_t c = 0; c < C; ++c) {
+    const int32_t sid = a.sp_sig_idx[p * C + c];
+    if (sid < 0 || a.sp_action[p * C + c] != 0) continue;
+    if (!a.sp_has_key[sid * a.N + n]) return false;
+    const int64_t mm =
+        a.sp_num_domains[sid] < a.sp_min_domains[p * C + c] ? 0 : min_match[sid];
+    if (sp_match(a, sums, sid, n) + a.sp_self_match[p * C + c] - mm > a.sp_max_skew[p * C + c])
+      return false;
+  }
+  return true;
+}
+
+// the rounded raw spread score of a pair: over the pod's ScheduleAnyway
+// slots in order, cnt * weight[c] + (maxSkew - 1) where the node carries
+// the key; cnt is the node's own count for a hostname signature (not gated
+// by eligibility, scoring.go:217), else its domain's sum. Rounded half to
+// even.
+__device__ __forceinline__ int64_t sp_raw(const ScoreArgs& a, const int32_t* counts,
+                                          const int64_t* sums, const double* weight,
+                                          int64_t p, int64_t n) {
+  const int64_t C = a.sp_C;
+  double raw = 0.0;
+  for (int64_t c = 0; c < C; ++c) {
+    const int32_t sid = a.sp_sig_idx[p * C + c];
+    if (sid < 0 || a.sp_action[p * C + c] != 1 || !a.sp_has_key[sid * a.N + n]) continue;
+    const int64_t cnt =
+        a.sp_is_hostname[sid] ? (int64_t)counts[sid * a.N + n] : sp_match(a, sums, sid, n);
+    const double contrib =
+        __dadd_rn(__dmul_rn(__ll2double_rn(cnt), weight[c]),
+                  __dadd_rn(__ll2double_rn(a.sp_max_skew[p * C + c]), -1.0));
+    raw = __dadd_rn(raw, contrib);
+  }
+  return __double2ll_rn(raw);
+}
+
+// the rounded spread raw of a feasible pair when the pod is spread-scored
+// (sp_score) and the node not ignored, else -1, which fold_norm and
+// norm_terms skip
+__device__ __forceinline__ int64_t sp_scored_raw(const ScoreArgs& a, bool sp_score,
+                                                 const int32_t* counts, const int64_t* sums,
+                                                 const double* weight, int64_t p, int64_t n) {
+  if (!sp_score || a.sp_ignored[p * a.N + n]) return -1;
+  return sp_raw(a, counts, sums, weight, p, n);
+}
+
+// NormalizeScore (scoring.go:229) of a scored pair's rounded raw s against
+// the scored nodes' min and max; only called for scored pairs, where
+// max + min - s cannot wrap
+__device__ __forceinline__ int64_t sp_normalize(int64_t s, int64_t mn, int64_t mx) {
+  if (mx == 0) return kMaxNodeScore;
+  return floordiv(kMaxNodeScore * (mx + mn - s), mx);
+}
+
 // block-wide reduction helpers (blockDim.x a multiple of 32, <= 1024)
+struct MaxOp {
+  __device__ int64_t operator()(int64_t x, int64_t y) const { return x > y ? x : y; }
+};
+struct MinOp {
+  __device__ int64_t operator()(int64_t x, int64_t y) const { return x < y ? x : y; }
+};
+struct SumOp {
+  // wrapping add (uint64 arithmetic, as the reference's uint64 hash)
+  __device__ int64_t operator()(int64_t x, int64_t y) const {
+    return (int64_t)((unsigned long long)x + (unsigned long long)y);
+  }
+};
+
+// reduce v over the block with op; every thread gets the result.
+// s holds 33 values; ident is the op's identity.
+template <typename Op>
+__device__ __forceinline__ int64_t block_reduce(int64_t v, Op op, int64_t ident, int64_t* s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  for (int off = 16; off > 0; off >>= 1) v = op(v, __shfl_down_sync(0xffffffffu, v, off));
+  if (lane == 0) s[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    int64_t x = lane < nwarps ? s[lane] : ident;
+    for (int off = 16; off > 0; off >>= 1) x = op(x, __shfl_down_sync(0xffffffffu, x, off));
+    if (lane == 0) s[32] = x;
+  }
+  __syncthreads();
+  const int64_t out = s[32];
+  __syncthreads();
+  return out;
+}
+
 __device__ __forceinline__ int64_t warp_max(int64_t v) {
   for (int off = 16; off > 0; off >>= 1) v = imax(v, __shfl_down_sync(0xffffffffu, v, off));
   return v;
@@ -375,69 +518,84 @@ __device__ __forceinline__ void block_max2(int64_t& x, int64_t& y, int64_t* sx, 
   y = sy[32];
 }
 
-// max of four values over the block; s holds 4 x 33 int64. Every thread
-// gets the results.
-__device__ __forceinline__ void block_max4(int64_t (&v)[4], int64_t (*s)[33]) {
+// max of K values over the block; s holds K x 33 int64. Every thread gets
+// the results.
+template <int K>
+__device__ __forceinline__ void block_maxk(int64_t (&v)[kNorm], int64_t (*s)[33]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = (blockDim.x + 31) >> 5;
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < K; ++i) {
     v[i] = warp_max(v[i]);
     if (lane == 0) s[i][warp] = v[i];
   }
   __syncthreads();
   if (warp == 0) {
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < K; ++i) {
       int64_t x = lane < nwarps ? s[i][lane] : INT64_MIN;
       x = warp_max(x);
       if (lane == 0) s[i][32] = x;
     }
   }
   __syncthreads();
-  for (int i = 0; i < 4; ++i) v[i] = s[i][32];
+  for (int i = 0; i < K; ++i) v[i] = s[i][32];
 }
 
-// block_max4 over fold_norm's maxima; without affinity score rows only the
-// node-affinity and taint maxima are reduced (the cheaper two-value form)
-__device__ __forceinline__ void block_max_norm(const ScoreArgs& a, int64_t (&m)[4],
-                                               int64_t (*s)[33]) {
-  if (a.w_interpod)
-    block_max4(m, s);
+// the reduction of fold_norm's maxima over the block: the node-affinity and
+// taint maxima always (the cheap two-value form when nothing else
+// normalizes), the affinity pair with affinity score rows, the spread pair
+// when the pod is spread-scored (sp_score)
+__device__ __forceinline__ void block_max_norm(const ScoreArgs& a, bool sp_score,
+                                               int64_t (&m)[kNorm], int64_t (*s)[33]) {
+  if (sp_score)
+    block_maxk<6>(m, s);
+  else if (a.w_interpod)
+    block_maxk<4>(m, s);
   else
     block_max2(m[0], m[1], s[0], s[1]);
 }
 
 // the normalize inputs of one pair that passed Filter, folded into the
 // running maxima: node-affinity and taint raws, the affinity raw's max and
-// its negated min (so that all four reduce by max)
+// its negated min, and (when sp >= 0, i.e. the pair is spread-scored) the
+// rounded spread raw's max and negated min, so that all six reduce by max
 __device__ __forceinline__ void fold_norm(const ScoreArgs& a, int64_t row, int64_t n,
-                                          int64_t pa_r, int64_t (&m)[4]) {
+                                          int64_t pa_r, int64_t sp, int64_t (&m)[kNorm]) {
   if (a.na_raw != nullptr) m[0] = imax(m[0], a.na_raw[row + n]);
   if (a.tt_raw != nullptr) m[1] = imax(m[1], a.tt_raw[row + n]);
   if (a.w_interpod) {
     m[2] = imax(m[2], pa_r);
     m[3] = imax(m[3], -pa_r);
   }
+  if (sp >= 0) {
+    m[4] = imax(m[4], sp);
+    m[5] = imax(m[5], -sp);
+  }
 }
 
-// start values of fold_norm's maxima: the node-affinity and taint maxima
-// start at 0 (masked_normalize zeroes infeasible raws), the affinity ones at
-// the most negative value
-__device__ __forceinline__ void init_norm(int64_t (&m)[4]) {
+// start values of fold_norm's maxima: the node-affinity, taint and spread
+// maxima start at 0 (the reference's masked max), the affinity ones at the
+// most negative value, and the spread minimum at int64 max (negated)
+__device__ __forceinline__ void init_norm(int64_t (&m)[kNorm]) {
   m[0] = 0;
   m[1] = 0;
   m[2] = INT64_MIN;
   m[3] = INT64_MIN;
+  m[4] = 0;
+  m[5] = -INT64_MAX;
 }
 
 // the normalized terms of a pair given the reduced maxima. An infeasible
 // pair (ok false) still gets the node-affinity and taint terms of a zero
-// raw, as masked_normalize gives it; its affinity term is 0.
+// raw, as masked_normalize gives it; its affinity term is 0. sp is the
+// pair's rounded spread raw when it is spread-scored, else -1 (term 0).
 __device__ __forceinline__ int64_t norm_terms(const ScoreArgs& a, int64_t row, int64_t n,
-                                              bool ok, int64_t pa_r, const int64_t (&m)[4]) {
+                                              bool ok, int64_t pa_r, int64_t sp,
+                                              const int64_t (&m)[kNorm]) {
   const int64_t na = (ok && a.na_raw != nullptr) ? a.na_raw[row + n] : 0;
   const int64_t tt = (ok && a.tt_raw != nullptr) ? a.tt_raw[row + n] : 0;
   int64_t s = normalized_terms(a, na, tt, m[0], m[1]);
   if (ok && a.w_interpod) s += a.w_interpod * pa_normalize(pa_r, -m[3], m[2]);
+  if (ok && sp >= 0) s += a.w_spread * sp_normalize(sp, -m[5], m[4]);
   return s;
 }
 
@@ -450,6 +608,74 @@ __device__ __forceinline__ void pa_row_totals(const ScoreArgs& a, const int64_t*
     for (int64_t d = 0; d < a.pa_D; ++d) t += sums[r * a.pa_D + d];
     row_total[r] = t;
   }
+}
+
+// ---- PodTopologySpread, block-wide parts ----------------------------------
+// Every thread of the block must call these (they hold barriers).
+
+// per-signature domain sums of `counts` over eligible nodes (slot D takes
+// domain -1) for signatures s0, s0 + sstride, ...; sums must be zero
+// before. Integer atomics: the order of the adds does not change the sums.
+__device__ __forceinline__ void sp_accumulate(const ScoreArgs& a, const int32_t* counts,
+                                              int64_t* sums, int64_t s0, int64_t sstride) {
+  const int64_t N = a.N, D1 = a.sp_D + 1;
+  for (int64_t s = s0; s < a.sp_S; s += sstride) {
+    for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
+      const int32_t c = counts[s * N + n];
+      if (c == 0 || !a.sp_eligible[s * N + n]) continue;
+      const int32_t dom = a.sp_node_domain[s * N + n];
+      atomicAdd(reinterpret_cast<unsigned long long*>(sums + s * D1 + (dom >= 0 ? dom : a.sp_D)),
+                (unsigned long long)(int64_t)c);
+    }
+  }
+}
+
+// minMatch of signature s: the least sum over its present (counted)
+// domains, kBig when none is present
+__device__ __forceinline__ int64_t sp_min_over_domains(const ScoreArgs& a, const int64_t* sums,
+                                                       int64_t s, int64_t* red) {
+  const int64_t D = a.sp_D;
+  int64_t v = -kBig;
+  for (int64_t d = threadIdx.x; d < D; d += blockDim.x)
+    if (a.sp_domain_present[s * D + d]) v = imax(v, -sums[s * (D + 1) + d]);
+  return -block_reduce(v, MaxOp(), -kBig, red);
+}
+
+// weight[c] = log(size + 2) for each ScheduleAnyway slot of pod p (0 for
+// the others), where size counts the domains (d < D) that hold a scored
+// node (ok[n] and not ignored), or the scored nodes themselves for a
+// hostname signature (initPreScoreState). bits holds ceil(D / 32) words.
+// weight is shared memory, written by thread 0; read after the barrier.
+__device__ __forceinline__ void sp_weights(const ScoreArgs& a, int64_t p, const uint8_t* ok,
+                                           uint32_t* bits, double* weight, int64_t* red) {
+  const int64_t N = a.N, C = a.sp_C, W = (a.sp_D + 31) / 32;
+  const uint8_t* ig = a.sp_ignored + p * N;
+  int64_t scored = 0;
+  for (int64_t n = threadIdx.x; n < N; n += blockDim.x) scored += ok[n] && !ig[n];
+  scored = block_reduce(scored, SumOp(), 0, red);
+  for (int64_t c = 0; c < C; ++c) {
+    const int32_t sid = a.sp_sig_idx[p * C + c];
+    if (sid < 0 || a.sp_action[p * C + c] != 1) {
+      if (threadIdx.x == 0) weight[c] = 0.0;
+      continue;
+    }
+    int64_t size = scored;
+    if (!a.sp_is_hostname[sid]) {
+      for (int64_t w = threadIdx.x; w < W; w += blockDim.x) bits[w] = 0;
+      __syncthreads();
+      for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
+        if (!ok[n] || ig[n]) continue;
+        const int32_t dom = a.sp_node_domain[sid * N + n];
+        if (dom >= 0) atomicOr(bits + (dom >> 5), 1u << (dom & 31));
+      }
+      __syncthreads();
+      int64_t cnt = 0;
+      for (int64_t w = threadIdx.x; w < W; w += blockDim.x) cnt += __popc(bits[w]);
+      size = block_reduce(cnt, SumOp(), 0, red);
+    }
+    if (threadIdx.x == 0) weight[c] = log(__dadd_rn(__ll2double_rn(size), 2.0));
+  }
+  __syncthreads();
 }
 
 }  // namespace kt

@@ -6,6 +6,8 @@ direct mode and print its result as one JSON line.
         [--device cuda] [--max-batch 1024]
     python -m kubetpu_torch.perf --case SchedulingPodAffinity \\
         --workload 5000Nodes_5000Pods --engine batched
+    python -m kubetpu_torch.perf --case TopologySpreading \\
+        --workload 5000Nodes_5000Pods --engine batched
 """
 
 from __future__ import annotations

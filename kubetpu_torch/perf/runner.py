@@ -176,6 +176,10 @@ def run_workload(
                 sched.on_namespace_add(t.Namespace(
                     name=f"{op.prefix}-{i}", labels=op.labels,
                 ))
+        elif isinstance(op, W.CreateServiceOp):
+            sched.on_service_add(t.Service(
+                name=op.name, namespace=op.namespace, selector=op.selector,
+            ))
         elif isinstance(op, W.CreatePodsOp):
             count = params[op.count_param]
             template = op.template or case.default_pod_template

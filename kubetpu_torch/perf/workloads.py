@@ -2,12 +2,16 @@
 
 Port copy of ``kubetpu/perf/workloads.py``, trimmed to the slices ported
 so far: the ``SchedulingBasic`` test case (misc/performance-config.yaml:20
-in the reference) and the ``SchedulingPodAffinity`` test case
-(affinity/performance-config.yaml:96), each with its two direct-mode
-workloads, the ``node_default`` / ``pod_default`` /
-``pod_with_pod_affinity`` templates and the three ops they use. Everything
-kept is verbatim apart from the trim: ``node_default`` drops the
-rack/TPU-slice label option, which neither case sets.
+in the reference), the ``SchedulingPodAffinity`` test case
+(affinity/performance-config.yaml:96) and the three topology-spreading cases
+(``TopologySpreading``, ``PreferredTopologySpreading`` and
+``DefaultTopologySpreading``, topology_spreading/performance-config.yaml),
+each with its two direct-mode workloads, the templates they use
+(``node_default``, ``pod_default``, ``pod_with_pod_affinity``,
+``pod_with_topology_spreading``, ``pod_with_preferred_topology_spreading``,
+``pod_with_label``) and the four ops they use. Everything kept is verbatim
+apart from the trim: ``node_default`` drops the rack/TPU-slice label option,
+which no kept case sets.
 
 Mirrors the reference harness's shape
 (test/integration/scheduler_perf/scheduler_perf.go:756
@@ -27,7 +31,7 @@ from dataclasses import dataclass
 from typing import Callable, Mapping
 
 from ..api import types as t
-from ..api.wrappers import make_node, make_pod, pod_affinity_term
+from ..api.wrappers import make_node, make_pod, pod_affinity_term, spread_constraint
 
 ZONE_KEY = "topology.kubernetes.io/zone"
 HOSTNAME_KEY = "kubernetes.io/hostname"
@@ -72,6 +76,40 @@ def pod_with_pod_affinity(name: str, namespace: str) -> t.Pod:
     )
 
 
+def pod_with_topology_spreading(name: str, namespace: str) -> t.Pod:
+    """templates/pod-with-topology-spreading.yaml: maxSkew 5 / zone /
+    DoNotSchedule over color=blue."""
+    return make_pod(
+        name, namespace=namespace, labels={"color": "blue"},
+        spread=(spread_constraint(
+            5, ZONE_KEY,
+            when=t.UnsatisfiableConstraintAction.DO_NOT_SCHEDULE,
+            match_labels={"color": "blue"},
+        ),),
+        **_POD_REQ,
+    )
+
+
+def pod_with_preferred_topology_spreading(name: str, namespace: str) -> t.Pod:
+    return make_pod(
+        name, namespace=namespace, labels={"color": "blue"},
+        spread=(spread_constraint(
+            5, ZONE_KEY,
+            when=t.UnsatisfiableConstraintAction.SCHEDULE_ANYWAY,
+            match_labels={"color": "blue"},
+        ),),
+        **_POD_REQ,
+    )
+
+
+def pod_with_label(name: str, namespace: str) -> t.Pod:
+    """templates/pod-with-label.yaml: a labeled pod with no constraints of
+    its own — exercises the profile's DEFAULT spread constraints path."""
+    return make_pod(
+        name, namespace=namespace, labels={"foo": "bar"}, **_POD_REQ,
+    )
+
+
 # ---------------------------------------------------------------------------
 # op list (operations.go analogs)
 # ---------------------------------------------------------------------------
@@ -101,6 +139,16 @@ class CreateNamespacesOp:
     count: int = 2
     count_param: str = ""
     labels: tuple[tuple[str, str], ...] = ()
+
+
+@dataclass(frozen=True)
+class CreateServiceOp:
+    """createAny with a Service template (templates/service.yaml:
+    selector foo=bar) — feeds the DefaultSelector for default spread."""
+
+    namespace: str = "service-ns"
+    name: str = "service"
+    selector: tuple[tuple[str, str], ...] = (("foo", "bar"),)
 
 
 @dataclass(frozen=True)
@@ -182,5 +230,64 @@ _case(TestCase(
         Workload("5000Nodes_5000Pods",
                  {"initNodes": 5000, "initPods": 5000, "measurePods": 5000},
                  threshold=70, labels=("performance",)),
+    ),
+))
+
+_case(TestCase(
+    name="TopologySpreading",
+    source="topology_spreading/performance-config.yaml:19",
+    ops=(
+        CreateNodesOp("initNodes", zones=("moon-1", "moon-2", "moon-3")),
+        CreatePodsOp("initPods", template=pod_default),
+        CreatePodsOp("measurePods", template=pod_with_topology_spreading,
+                     collect_metrics=True),
+    ),
+    workloads=(
+        Workload("500Nodes", {"initNodes": 500, "initPods": 1000, "measurePods": 1000},
+                 threshold=4600, threshold_note=(
+                     "460 pods/s 5k floor x10: segment-sum PreScore cost "
+                     "scales ~linearly with node count (see "
+                     "SchedulingPodAffinity scaling note)")),
+        Workload("5000Nodes_5000Pods",
+                 {"initNodes": 5000, "initPods": 5000, "measurePods": 5000},
+                 threshold=460, labels=("performance",)),
+    ),
+))
+
+_case(TestCase(
+    name="PreferredTopologySpreading",
+    source="topology_spreading/performance-config.yaml:64",
+    ops=(
+        CreateNodesOp("initNodes", zones=("moon-1", "moon-2", "moon-3")),
+        CreatePodsOp("initPods", template=pod_default),
+        CreatePodsOp("measurePods",
+                     template=pod_with_preferred_topology_spreading,
+                     collect_metrics=True),
+    ),
+    workloads=(
+        Workload("500Nodes", {"initNodes": 500, "initPods": 1000, "measurePods": 1000}),
+        Workload("5000Nodes_5000Pods",
+                 {"initNodes": 5000, "initPods": 5000, "measurePods": 5000},
+                 threshold=340, labels=("performance",)),
+    ),
+))
+
+_case(TestCase(
+    name="DefaultTopologySpreading",
+    source="topology_spreading/performance-config.yaml:104 (threshold 160 at 50k; "
+           "a service's selector drives the DEFAULT spread constraints)",
+    default_pod_template=pod_with_label,
+    ops=(
+        CreateNodesOp("initNodes", zones=("moon-1", "moon-2", "moon-3")),
+        CreateServiceOp(namespace="service-ns"),
+        CreatePodsOp("initPods", template=pod_default),
+        CreatePodsOp("measurePods", collect_metrics=True,
+                     namespace="service-ns"),
+    ),
+    workloads=(
+        Workload("500Nodes", {"initNodes": 500, "initPods": 1000, "measurePods": 1000}),
+        Workload("5000Nodes_50000Pods",
+                 {"initNodes": 5000, "initPods": 5000, "measurePods": 50000},
+                 threshold=160, labels=("performance",)),
     ),
 ))

@@ -3,10 +3,10 @@
 The slices of the port so far: the serial cycle of one or more profiles
 on the greedy or the batched engine, in direct mode, with synchronous
 binding. What it keeps of the reference, line for line where the logic is
-host logic: the informer handlers for nodes, pods and namespaces,
+host logic: the informer handlers for nodes, pods, namespaces and services,
 ``schedule_batch`` → ``_schedule_batch_serial`` → ``_profile_cycle`` →
-``_launch_cycle`` / ``_finish_cycle``, ``_handle_unschedulable``, the
-engine seam and ``run_until_idle``.
+``_launch_cycle`` / ``_finish_cycle``, ``_handle_unschedulable``, the engine
+seam and ``run_until_idle``.
 
 The device calls of the reference's cycle become torch calls: the encoded
 batch is uploaded to the scheduler's ``device`` in one copy, the engine
@@ -227,6 +227,17 @@ class Scheduler:
 
     def on_namespace_delete(self, ns: t.Namespace) -> None:
         self.cache.remove_namespace(ns.name)
+
+    def on_service_add(self, svc: t.Service) -> None:
+        """Service selectors feed the DEFAULT PodTopologySpread constraints
+        (component-helpers DefaultSelector)."""
+        self.cache.add_service(svc)
+
+    def on_service_update(self, old, new: t.Service) -> None:
+        self.cache.update_service(new)
+
+    def on_service_delete(self, svc: t.Service) -> None:
+        self.cache.remove_service(svc.key)
 
     def on_pod_add(self, pod: t.Pod) -> None:
         if not pod.node_name and self._profile_for(pod) is None:

@@ -1,0 +1,474 @@
+# Port copy of kubetpu/state/spread.py, verbatim apart from this note (no JAX in it).
+"""PodTopologySpread tensorization.
+
+Reference: pkg/scheduler/framework/plugins/podtopologyspread/
+- common.go:87 filterTopologySpreadConstraints (constraint extraction,
+  minDomains default 1, NodeAffinityPolicy default Honor, NodeTaintsPolicy
+  default Ignore, matchLabelKeys merged into the selector)
+- filtering.go:237 calPreFilterState (per-domain match counts over eligible
+  nodes), :314 Filter (skew = matchNum + selfMatch − minMatch ≤ maxSkew;
+  nodes missing the topology key are UnschedulableAndUnresolvable)
+- scoring.go:61 initPreScoreState / :118 PreScore (domain counts +
+  log-normalizing weight), :199 Score, :229 NormalizeScore
+
+Batch encoding: distinct *constraint signatures* across the pending batch are
+interned — a signature is (topology key, selector, namespace, the pod's full
+topology-key set, the pod's required-affinity signature, inclusion policies,
+tolerations when taints policy is Honor) — because per-domain counts depend on
+all of these but on nothing else about the pod. Per signature we precompute:
+
+- ``eligible (N,)``: the node participates in counting (calPreFilterState's
+  processNode guards: required affinity match under Honor, untolerated
+  NoSchedule/NoExecute taint under Honor, ALL of the pod's topology keys
+  present on the node).
+- ``node_domain (N,)``: interned id of the node's topology value among the
+  domains of eligible nodes; −1 when the node is ineligible or its value is
+  not a counted domain (Go's map lookup then yields matchNum 0).
+- ``node_count (N,)``: matching existing pods per node (countPodsMatchSelector:
+  same namespace, selector match; terminating pods skipped). This, not the
+  per-domain sum, is the scan's carried state — in-batch assignments scatter
+  +1 into it (updateWithPod semantics) and per-domain sums are segment-summed
+  on device.
+- ``has_key (N,)``: the node carries this constraint's topology key.
+- ``num_domains``: |counted domains| (static: in-batch updates can only touch
+  domains of eligible nodes, which are all pre-counted).
+
+Pod side: per (pod, constraint-slot): signature index, action (hard/soft),
+max_skew, min_domains, self_match, is_hostname; plus ``pod_match_sig (P, S)``
+(does pending pod p match signature s's selector+namespace — drives the
+in-batch count updates) and ``ignored (P, N)`` for scoring (node missing any
+of the pod's soft topology keys → score 0, scoring.go:90).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+
+from ..api import selectors as sel
+from ..api import types as t
+from .encoder import NodeTensors
+from .vocab import Vocab
+
+HOSTNAME_KEY = "kubernetes.io/hostname"
+
+HARD = 0
+SOFT = 1
+
+
+def _affinity_sig(pod: t.Pod):
+    na = pod.affinity.node_affinity if pod.affinity else None
+    return (pod.node_selector, na.required if na else None)
+
+
+def _required_affinity_mask(nt: NodeTensors, pod: t.Pod) -> np.ndarray:
+    """GetRequiredNodeAffinity(pod).Match — nodeSelector AND required node
+    affinity (component-helpers/scheduling/corev1/nodeaffinity)."""
+    m = np.ones(nt.num_nodes, dtype=bool)
+    for k, v in pod.node_selector:
+        m &= nt.requirement_mask(t.Requirement(k, t.Operator.IN, (v,)))
+    na = pod.affinity.node_affinity if pod.affinity else None
+    if na and na.required is not None:
+        m &= nt.node_selector_mask(na.required)
+    return m
+
+
+def _selector_matches(selector: t.LabelSelector | None, labels: dict) -> bool:
+    """Selector.Matches semantics: nil selector (labels.Nothing) matches
+    nothing, empty selector (labels.Everything) matches everything. Used for
+    selfMatch (filtering.go:346)."""
+    if selector is None:
+        return False
+    return sel.label_selector_matches(selector, labels)
+
+
+def _selector_counts(selector: t.LabelSelector | None, labels: dict) -> bool:
+    """countPodsMatchSelector semantics (common.go:145): an EMPTY selector
+    counts no pods (`selector.Empty() → 0`), unlike Matches."""
+    if selector is None:
+        return False
+    if not selector.match_labels and not selector.match_expressions:
+        return False
+    return sel.label_selector_matches(selector, labels)
+
+
+@dataclass
+class SpreadTensors:
+    """Numpy-side spread encoding. ``None`` when no pod has constraints."""
+
+    # per-signature (S = #distinct signatures, N node capacity, D = max domains)
+    eligible: np.ndarray       # (S, N) bool
+    node_domain: np.ndarray    # (S, N) int32, -1 = not a counted domain
+    node_count: np.ndarray     # (S, N) int32 — matching pods per node
+    has_key: np.ndarray        # (S, N) bool
+    domain_present: np.ndarray # (S, D) bool
+    num_domains: np.ndarray    # (S,) int32
+    is_hostname: np.ndarray    # (S,) bool
+    # per (pod, constraint-slot) (P pods, C = max constraints per pod)
+    sig_idx: np.ndarray        # (P, C) int32, -1 = unused slot
+    action: np.ndarray         # (P, C) int8 HARD/SOFT
+    max_skew: np.ndarray       # (P, C) int32
+    min_domains: np.ndarray    # (P, C) int32
+    self_match: np.ndarray     # (P, C) int32 0/1
+    # scoring helpers
+    pod_match_sig: np.ndarray  # (P, S) bool
+    ignored: np.ndarray        # (P, N) bool — soft-scoring ignored nodes
+    has_hard: bool
+    has_soft: bool
+
+    @property
+    def num_sigs(self) -> int:
+        return self.eligible.shape[0]
+
+    @property
+    def max_domains(self) -> int:
+        return self.domain_present.shape[1]
+
+
+def default_selector_from_services(snapshot):
+    """component-helpers DefaultSelector, services part: the merged selector
+    of every service in the pod's namespace selecting the pod (controllers
+    — RC/RS/SS — are not modeled; services are what scheduler_perf's
+    DefaultTopologySpreading exercises). None when nothing selects the pod
+    (buildDefaultConstraints then drops the defaults, common.go:70)."""
+    by_ns: dict[str, list] = {}
+    for svc in snapshot.services.values():
+        by_ns.setdefault(svc.namespace, []).append(svc)
+
+    def fn(pod: t.Pod):
+        labels = pod.labels_dict()
+        merged: dict[str, str] = {}
+        for svc in by_ns.get(pod.namespace, ()):
+            if svc.selector and all(
+                labels.get(k) == v for k, v in svc.selector
+            ):
+                merged.update(dict(svc.selector))
+        if not merged:
+            return None
+        return t.LabelSelector(match_labels=tuple(sorted(merged.items())))
+
+    return fn
+
+
+def encode_spread(
+    nt: NodeTensors,
+    pods: Sequence[t.Pod],
+    default_constraints: Sequence[t.TopologySpreadConstraint] = (),
+    pad_pods: int | None = None,
+    default_selector_of=None,
+    cache=None,
+    groups: dict | None = None,
+) -> SpreadTensors | None:
+    """Build spread tensors for the batch; None when no pending pod has (or
+    inherits) topology spread constraints.
+
+    ``default_constraints`` are only applied to pods WITHOUT their own
+    constraints, with the selector computed by ``default_selector_of(pod)``
+    — the DefaultSelector derived from owning services/controllers
+    (common.go:62 buildDefaultConstraints). A pod whose default selector is
+    empty/None gets no constraints, exactly like the reference (common.go's
+    ``if selector.Empty() { return nil }``).
+
+    ``groups``: precomputed template groups
+    (``encode_cache.collect_pod_groups``); None builds them here. The
+    per-node matching-pod counts become one selector verdict per (selector,
+    template) — persisted across cycles by ``cache`` (EncodeCache) — plus a
+    vector add per matching template, instead of a Python walk over every
+    existing pod per signature.
+    """
+    import dataclasses
+
+    P = len(pods)
+
+    sel_cache: dict = {}
+
+    def effective(p: t.Pod) -> tuple[t.TopologySpreadConstraint, ...]:
+        if p.topology_spread_constraints:
+            return p.topology_spread_constraints
+        if not default_constraints or default_selector_of is None:
+            return ()
+        key = (p.namespace, p.labels)
+        got = sel_cache.get(key)
+        if got is None:
+            dsel = default_selector_of(p)
+            got = (
+                ()
+                if dsel is None else tuple(
+                    dataclasses.replace(c, selector=dsel)
+                    for c in default_constraints
+                )
+            )
+            sel_cache[key] = got
+        return got
+
+    eff = [effective(p) for p in pods]
+    if not any(eff):
+        return None
+    N = nt.num_nodes
+    NC = nt.alloc.shape[0]
+    PP = max(pad_pods or P, P)
+
+    from .encode_cache import collapse_label_groups, groups_for, pod_gids_for
+
+    lgroups = collapse_label_groups(groups_for(nt, cache, groups))
+    sel_store = cache.sel_counts if cache is not None else None
+    local_sel: dict = {}
+
+    # per-pod TEMPLATE ids: the pod-side tensors (constraint slots, soft
+    # ignored rows, selector-match rows) are pure functions of the
+    # template, computed once per distinct template in the batch
+    pod_gid = pod_gids_for(pods, cache)
+
+    sig_vocab = Vocab()
+    sig_info: list[dict] = []           # per sig id: everything host-side
+    pod_slots: list[list[tuple]] = []   # per pod: (sig id, action, c)
+
+    aff_cache: dict[tuple, np.ndarray] = {}
+    tmpl_slots: dict[int, list] = {}
+    for p_i, p in enumerate(pods):
+        got_slots = tmpl_slots.get(pod_gid[p_i])
+        if got_slots is not None:
+            pod_slots.append(got_slots)
+            continue
+        slots: list[tuple] = []
+        constraints = eff[p_i]
+        if constraints:
+            key_set = frozenset(c.topology_key for c in constraints)
+            hard_keys = frozenset(
+                c.topology_key for c in constraints
+                if c.when_unsatisfiable == t.UnsatisfiableConstraintAction.DO_NOT_SCHEDULE
+            )
+            soft_keys = frozenset(
+                c.topology_key for c in constraints
+                if c.when_unsatisfiable == t.UnsatisfiableConstraintAction.SCHEDULE_ANYWAY
+            )
+            for c in constraints:
+                hard = (
+                    c.when_unsatisfiable
+                    == t.UnsatisfiableConstraintAction.DO_NOT_SCHEDULE
+                )
+                # selector with matchLabelKeys merged (common.go:96-106)
+                selector = c.selector or t.LabelSelector()
+                if c.match_label_keys:
+                    plabels = p.labels_dict()
+                    extra = tuple(
+                        (k, plabels[k]) for k in c.match_label_keys if k in plabels
+                    )
+                    if extra:
+                        selector = t.LabelSelector(
+                            match_labels=tuple(
+                                sorted(set(selector.match_labels) | set(extra))
+                            ),
+                            match_expressions=selector.match_expressions,
+                        )
+                # Key-set guard: filtering counts over the pod's HARD set
+                # (calPreFilterState uses getConstraints = DoNotSchedule);
+                # scoring over the SOFT set (initPreScoreState).
+                ks = hard_keys if hard else soft_keys
+                taints_part = (
+                    p.tolerations if c.node_taints_policy == "Honor" else None
+                )
+                sig = (
+                    c.topology_key,
+                    selector,
+                    p.namespace,
+                    ks,
+                    _affinity_sig(p) if c.node_affinity_policy == "Honor" else None,
+                    c.node_affinity_policy,
+                    c.node_taints_policy,
+                    taints_part,
+                )
+                sid = sig_vocab.intern(sig)
+                if sid == len(sig_info):
+                    sig_info.append(
+                        dict(
+                            key=c.topology_key,
+                            selector=selector,
+                            namespace=p.namespace,
+                            key_set=ks,
+                            pod=p,
+                            na_policy=c.node_affinity_policy,
+                            taints_policy=c.node_taints_policy,
+                            tolerations=p.tolerations,
+                        )
+                    )
+                kwargs_min = c.min_domains if c.min_domains is not None else 1
+                self_match = int(
+                    _selector_matches(selector, p.labels_dict())
+                ) if selector is not None else 0
+                slots.append(
+                    (sid, HARD if hard else SOFT, c.max_skew, kwargs_min, self_match)
+                )
+        tmpl_slots[pod_gid[p_i]] = slots
+        pod_slots.append(slots)
+
+    S = len(sig_info)
+    C = max((len(s) for s in pod_slots), default=1) or 1
+
+    eligible = np.zeros((S, NC), dtype=bool)
+    node_domain = np.full((S, NC), -1, dtype=np.int32)
+    node_count = np.zeros((S, NC), dtype=np.int32)
+    has_key = np.zeros((S, NC), dtype=bool)
+    is_hostname = np.zeros(S, dtype=bool)
+    domain_vocabs: list[Vocab] = []
+
+    # Per-node matching-pod counts per (selector, namespace): dedupe across sigs.
+    count_cache: dict[tuple, np.ndarray] = {}
+    # Per-node "no untolerated DoNotSchedule taint" per tolerations tuple.
+    taint_cache: dict[tuple, np.ndarray] = {}
+
+    for s_id, info in enumerate(sig_info):
+        key = info["key"]
+        is_hostname[s_id] = key == HOSTNAME_KEY
+        kid_values = nt.topology_values(key)            # (N,) value ids, -1 absent
+        has_key[s_id, :N] = kid_values >= 0
+
+        elig = np.ones(N, dtype=bool)
+        # all of the pod's (hard|soft) topology keys present
+        for k in info["key_set"]:
+            elig &= nt.topology_values(k) >= 0
+        if info["na_policy"] == "Honor":
+            aff_key = _affinity_sig(info["pod"])
+            m = aff_cache.get(aff_key)
+            if m is None:
+                m = _required_affinity_mask(nt, info["pod"])
+                aff_cache[aff_key] = m
+            elig &= m
+        if info["taints_policy"] == "Honor":
+            tol = info["tolerations"]
+            tm = taint_cache.get(tol)
+            if tm is None:
+                tm = np.array(
+                    [
+                        sel.find_untolerated_taint(i.node.taints, tol) is None
+                        for i in nt.infos
+                    ],
+                    dtype=bool,
+                )
+                taint_cache[tol] = tm
+            elig &= tm
+        eligible[s_id, :N] = elig
+
+        # Counted domains (filtering.go's TpValueToMatchNum universe) are the
+        # values of ELIGIBLE nodes — interned first, so ids < num_counted are
+        # exactly the counted domains (domain_present/num_domains below).
+        # Values appearing only on ineligible nodes get ids AFTER them: their
+        # per-domain sum is structurally 0 (matchNum map-miss → 0,
+        # filtering.go:350) but they still count toward the SCORING topology
+        # size, which is over filtered nodes' values (scoring.go:99 topoSize).
+        dv = Vocab()
+        for n_i in range(N):
+            if elig[n_i] and kid_values[n_i] >= 0:
+                node_domain[s_id, n_i] = dv.intern(int(kid_values[n_i]))
+        num_counted = len(dv)
+        for n_i in range(N):
+            if kid_values[n_i] >= 0 and node_domain[s_id, n_i] < 0:
+                node_domain[s_id, n_i] = dv.intern(int(kid_values[n_i]))
+        domain_vocabs.append((dv, num_counted))
+
+        ck = (info["selector"], info["namespace"])
+        counts = count_cache.get(ck)
+        if counts is None:
+            counts = np.zeros(N, dtype=np.int64)
+            selector, ns = ck
+            # countPodsMatchSelector semantics (common.go:145): a nil or
+            # EMPTY selector counts nothing — and a non-empty one is
+            # evaluated once per TEMPLATE, not per pod
+            if selector is not None and (
+                selector.match_labels or selector.match_expressions
+            ):
+                for (labels, ns_g), (vec, ld) in lgroups.items():
+                    if ns_g != ns:
+                        continue
+                    mkey = (selector, labels)
+                    ok = (
+                        sel_store.get(mkey) if sel_store is not None
+                        else local_sel.get(mkey)
+                    )
+                    if ok is None:
+                        ok = sel.label_selector_matches(selector, ld)
+                        if sel_store is not None:
+                            sel_store.put(mkey, ok)
+                        else:
+                            local_sel[mkey] = ok
+                    if ok:
+                        counts = counts + vec
+            count_cache[ck] = counts
+        # counts participate only on eligible nodes (processNode early-returns)
+        node_count[s_id, :N] = np.where(elig, counts, 0)
+
+    D = max((len(v) for v, _ in domain_vocabs), default=1) or 1
+    domain_present = np.zeros((S, D), dtype=bool)
+    num_domains = np.zeros(S, dtype=np.int32)
+    for s_id, (dv, num_counted) in enumerate(domain_vocabs):
+        domain_present[s_id, :num_counted] = True
+        num_domains[s_id] = num_counted
+
+    sig_idx = np.full((PP, C), -1, dtype=np.int32)
+    action = np.zeros((PP, C), dtype=np.int8)
+    max_skew = np.ones((PP, C), dtype=np.int32)
+    min_domains = np.ones((PP, C), dtype=np.int32)
+    self_match = np.zeros((PP, C), dtype=np.int32)
+    pod_match_sig = np.zeros((PP, S), dtype=bool)
+    ignored = np.zeros((PP, NC), dtype=bool)
+    has_hard = has_soft = False
+    tmpl_rows: dict[int, tuple] = {}
+    for i, slots in enumerate(pod_slots):
+        ent = tmpl_rows.get(pod_gid[i])
+        if ent is None:
+            soft_keys = [
+                c.topology_key
+                for c in eff[i]
+                if c.when_unsatisfiable
+                == t.UnsatisfiableConstraintAction.SCHEDULE_ANYWAY
+            ]
+            ig = None
+            if soft_keys:
+                ig = np.zeros(N, dtype=bool)
+                for k in soft_keys:
+                    ig |= nt.topology_values(k) < 0
+            pod = pods[i]
+            match_row = np.zeros(S, dtype=bool)
+            for s_id, info in enumerate(sig_info):
+                # counting semantics, not Matches: a batch-assigned pod
+                # changes the counts exactly as a from-scratch
+                # calPreFilterState would
+                if pod.namespace == info["namespace"] and _selector_counts(
+                    info["selector"], pod.labels_dict()
+                ):
+                    match_row[s_id] = True
+            ent = (ig, match_row)
+            tmpl_rows[pod_gid[i]] = ent
+        ig, match_row = ent
+        if ig is not None:
+            ignored[i, :N] = ig
+        pod_match_sig[i, :S] = match_row
+        for c_i, (sid, act, skew, mind, selfm) in enumerate(slots):
+            sig_idx[i, c_i] = sid
+            action[i, c_i] = act
+            max_skew[i, c_i] = skew
+            min_domains[i, c_i] = mind
+            self_match[i, c_i] = selfm
+            has_hard = has_hard or act == HARD
+            has_soft = has_soft or act == SOFT
+
+    return SpreadTensors(
+        eligible=eligible,
+        node_domain=node_domain,
+        node_count=node_count,
+        has_key=has_key,
+        domain_present=domain_present,
+        num_domains=num_domains,
+        is_hostname=is_hostname,
+        sig_idx=sig_idx,
+        action=action,
+        max_skew=max_skew,
+        min_domains=min_domains,
+        self_match=self_match,
+        pod_match_sig=pod_match_sig,
+        ignored=ignored,
+        has_hard=has_hard,
+        has_soft=has_soft,
+    )

@@ -113,6 +113,9 @@ def test_out_of_slice_pods_raise():
     claim = make_pod("c", cpu_milli=100, claims=("x",))
     pvc = make_pod("v", cpu_milli=100, pvcs=("x",))
     snap = port_cache(cache).update_snapshot()
-    for pod in (spread, claim, pvc):
+    for pod in (claim, pvc):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             prt.encode_batch(snap, [to_port(pod)], to_port(KC.Profile()), device="cpu")
+    # topology spread is in the port since its third slice: it encodes
+    b = prt.encode_batch(snap, [to_port(spread)], to_port(KC.Profile()), device="cpu")
+    assert b.device.spread is not None and b.device.spread.has_hard

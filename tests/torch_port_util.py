@@ -63,12 +63,15 @@ def _port_class(cls):
 
 
 def port_cache(cache) -> PortCache:
-    """The port's Cache holding the same nodes (in order) and pods."""
+    """The port's Cache holding the same nodes (in order), pods and
+    services."""
     pc = PortCache()
     for name in cache._node_order:
         pc.add_node(to_port(cache._nodes[name].node))
     for pod in cache._pods.values():
         pc.add_pod(to_port(pod))
+    for svc in cache._services.values():
+        pc.add_service(to_port(svc))
     return pc
 
 
