@@ -52,13 +52,16 @@ Tolerance everywhere: exact (integer masks, scores and assignments).
 
 ``python3 chip_smoke.py --time-basic ROOT`` instead times only
 ``filter_score`` and the ``greedy_scan`` engine of the checkout at ``ROOT``
-on the SchedulingBasic cycle and prints one JSON line. Run it on two
-checkouts in turns (parent, change, change, parent) to compare the two on
-one card within one call.
+on the SchedulingBasic cycle and prints one JSON line;
+``--time-spread ROOT`` does the same on the PreferredTopologySpreading
+cycle and on the mixed spread cluster under the spread profile. Run either
+on two checkouts in turns (parent, change, change, parent) to compare the
+two on one card within one call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -589,11 +592,26 @@ def spread_profiles():
     }
 
 
+@contextlib.contextmanager
+def bitmaps_in_global():
+    """Put every spread domain bitmap in a global scratch row, as a
+    signature with more domains than shared memory holds bits for has it
+    (a limit of 0 leaves room for no bitmap word)."""
+    from kubetpu_torch import kernels
+
+    limit = kernels._SMEM_LIMIT
+    kernels._SMEM_LIMIT = 0
+    try:
+        yield
+    finally:
+        kernels._SMEM_LIMIT = limit
+
+
 def spread_checks(results, scale=1.0):
     """Phase 3's spread batches: the mixed spread cluster under both
-    profiles, then one TopologySpreading and one PreferredTopologySpreading
-    cycle at the main paths' shapes. Returns the two cycles' batches."""
-    from kubetpu_torch import kernels
+    profiles, the same with the domain bitmaps in global memory, then one
+    TopologySpreading and one PreferredTopologySpreading cycle at the main
+    paths' shapes. Returns the two cycles' batches."""
     from kubetpu_torch.framework import config as C
     from kubetpu_torch.perf import workloads as W
 
@@ -603,17 +621,11 @@ def spread_checks(results, scale=1.0):
             n_pending=int(512 * scale))
         bs, ps = encode(cache_s, pending_s, prof)
         check_case(f"spread/{name}", bs, ps, results)
-    # the domain bitmaps in global memory, as a signature with more domains
-    # than shared memory holds bits for would have them
-    limit = kernels._SMEM_LIMIT
-    kernels._SMEM_LIMIT = 16
-    try:
+    with bitmaps_in_global():
         cache_s, pending_s = spread_case(seed=4, n_nodes=int(1000 * scale),
                                          n_bound=int(1500 * scale), n_pending=int(256 * scale))
         bs, ps = encode(cache_s, pending_s, C.Profile())
         check_case("spread/default, domain bitmaps in global memory", bs, ps, results)
-    finally:
-        kernels._SMEM_LIMIT = limit
     out = {}
     for name, template in (("TopologySpreading", W.pod_with_topology_spreading),
                            ("PreferredTopologySpreading",
@@ -633,30 +645,60 @@ def _bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def spread_read_nbytes(params, b, kernel) -> int:
+    """Bytes of the batch that ``kernel`` (or its plain version) reads:
+    every leaf but the spread leaves that this batch's work skips. The
+    (P, N) ``ignored`` rows and ``is_hostname`` are read only by the spread
+    score, which runs only when the profile weighs it and a pod has a
+    ScheduleAnyway slot; ``pod_match_sig`` only by the engines' count
+    updates, not by ``filter_score``."""
+    from kubetpu_torch.framework import runtime as rt
+
+    total = rt.batch_nbytes(b)
+    sp = b.spread
+    if sp is None:
+        return total
+    if not (params.w_spread and sp.has_soft):
+        total -= int(sp.ignored.nbytes) + int(sp.is_hostname.nbytes)
+    if kernel == "filter_score":
+        total -= int(sp.pod_match_sig.nbytes)
+    return total
+
+
 def _spread_timing(case, b, params, kernel) -> dict:
     """Time one kernel (its engine, for the scan and the rounds) and its
     plain version on a topology-spreading cycle's batch, with the bound of
-    that work: the batch's bytes (the (P, N) ``ignored`` rows included)
-    read once and the kernel's outputs written once, over HBM bandwidth,
-    against its float64 operations over the FP64 rate."""
+    that work: the batch's bytes that the work reads (``spread_read_nbytes``:
+    the (P, N) ``ignored`` rows only where a soft slot is scored) read once
+    and the kernel's outputs written once, over HBM bandwidth, against its
+    float64 operations over the FP64 rate."""
     from kubetpu_torch import kernels
     from kubetpu_torch.assign.batched import batched_assign_plain
     from kubetpu_torch.assign.greedy import greedy_assign_plain
     from kubetpu_torch.framework import runtime as rt
 
     P, N = b.requests.shape[0], b.alloc.shape[0]
-    in_bytes = rt.batch_nbytes(b)
+    in_bytes = spread_read_nbytes(params, b, kernel)
     state = sum(int(x.nbytes) for x in (b.requested, b.nonzero_requested,
                                         b.pod_count, b.node_ports, b.spread.node_count))
     per_pair = f64_ops_per_pair(params, b)
     out = {"batch": f"{case} {P}x{N}"}
+    scored = bool(params.w_spread and b.spread.has_soft)
     if kernel == "filter_score":
         out["ms"] = cuda_ms(lambda: kernels.filter_score(b, params), 20)
         out["plain_ms"] = cuda_ms(lambda: rt.feasible_and_scores(b, params), 5)
+        if scored:
+            with bitmaps_in_global():
+                out["bitmaps_in_global_ms"] = cuda_ms(
+                    lambda: kernels.filter_score(b, params), 20)
         work = (in_bytes + P * N * (1 + 8), P * N * per_pair + spread_f64_ops(params, b))
     elif kernel == "greedy_scan":
         out["ms"] = cuda_ms(lambda: kernels.greedy_scan(b, params), 5)
         out["plain_ms"] = cuda_ms(lambda: greedy_assign_plain(b, params), 1)
+        if scored:
+            with bitmaps_in_global():
+                out["bitmaps_in_global_ms"] = cuda_ms(
+                    lambda: kernels.greedy_scan(b, params), 5)
         # every step rescores the nodes the batch's earlier pods landed on
         seen: set = set()
         rescored = 0
@@ -760,6 +802,8 @@ def kernels_phase():
     }
     timing["filter_score"]["spread"] = _spread_timing(
         "TopologySpreading", *spread["TopologySpreading"], "filter_score")
+    timing["filter_score"]["spread_soft"] = _spread_timing(
+        "PreferredTopologySpreading", *spread["PreferredTopologySpreading"], "filter_score")
     timing["greedy_scan"]["spread"] = _spread_timing(
         "PreferredTopologySpreading", *spread["PreferredTopologySpreading"], "greedy_scan")
     timing["batched_round"]["spread"] = _spread_timing(
@@ -783,7 +827,8 @@ def kernels_phase():
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "cases": results[name]["cases"], "shape": tm["shape"],
         }
-        for k in ("podaffinity_ms", "podaffinity_plain_ms", "rounds", "spread"):
+        for k in ("podaffinity_ms", "podaffinity_plain_ms", "rounds", "spread",
+                  "spread_soft"):
             if k in tm:
                 line[k] = tm[k]
         out.append(line)
@@ -794,11 +839,14 @@ def kernels_phase():
         log(f"timing [{name}] on the SchedulingPodAffinity batch: kernel "
             f"{timing[name]['podaffinity_ms']:.4f} ms, plain "
             f"{timing[name]['podaffinity_plain_ms']:.4f} ms")
-    for name in ("filter_score", "greedy_scan", "batched_round"):
-        sp = timing[name]["spread"]
+    for name, key in (("filter_score", "spread"), ("filter_score", "spread_soft"),
+                      ("greedy_scan", "spread"), ("batched_round", "spread")):
+        sp = timing[name][key]
+        glob = (f", bitmaps in global memory {sp['bitmaps_in_global_ms']:.4f} ms"
+                if "bitmaps_in_global_ms" in sp else "")
         log(f"timing [{name}] on the {sp['batch']} batch: kernel {sp['ms']:.4f} ms, "
             f"plain {sp['plain_ms']:.4f} ms, bound {sp['bound_ms']:.6f} ms "
-            f"({sp['bound_by']})")
+            f"({sp['bound_by']}){glob}")
     torch.cuda.synchronize()
     return out
 
@@ -924,31 +972,39 @@ def main_path_phase(card: str) -> list[dict]:
     ]
 
 
-def time_basic(root: str) -> int:
-    """The ``--time-basic ROOT`` mode: CUDA-event medians of the checkout
-    at ``root``'s ``filter_score`` and ``greedy_scan`` engine on the
-    SchedulingBasic cycle (1024 pods x 5120 padded nodes)."""
+def time_checkout(mode: str, root: str) -> int:
+    """The ``--time-basic ROOT`` and ``--time-spread ROOT`` modes:
+    CUDA-event medians of the checkout at ``root``'s ``filter_score`` and
+    ``greedy_scan`` engine, on the SchedulingBasic cycle (``basic``), or
+    on the PreferredTopologySpreading cycle and the mixed spread cluster
+    under the spread profile (``spread``); 1024 pods x 5120 padded nodes
+    but the mixed cluster's 512 x 2048."""
     sys.path.insert(0, str(Path(root).resolve()))
     card = device_phase()
     from kubetpu_torch import kernels
     from kubetpu_torch.framework import config as C
+    from kubetpu_torch.perf import workloads as W
 
     kernels.build()
-    cache, pending = basic_case()
-    b, params = encode(cache, pending, C.Profile())
-    log(json.dumps({
-        "time_basic": {
-            "root": root, "card": card,
-            "filter_score_ms": cuda_ms(lambda: kernels.filter_score(b, params), 20),
-            "greedy_scan_ms": cuda_ms(lambda: kernels.greedy_scan(b, params), 10),
+    if mode == "basic":
+        batches = {"": encode(*basic_case(), C.Profile())}
+    else:
+        batches = {
+            "preferred_": encode(*topology_case(W.pod_with_preferred_topology_spreading),
+                                 C.Profile()),
+            "mixed_": encode(*spread_case(seed=3), spread_profiles()["spread"]),
         }
-    }))
+    line = {"root": root, "card": card}
+    for prefix, (b, params) in batches.items():
+        line[prefix + "filter_score_ms"] = cuda_ms(lambda: kernels.filter_score(b, params), 20)
+        line[prefix + "greedy_scan_ms"] = cuda_ms(lambda: kernels.greedy_scan(b, params), 10)
+    log(json.dumps({f"time_{mode}": line}))
     return 0
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--time-basic":
-        return time_basic(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] in ("--time-basic", "--time-spread"):
+        return time_checkout(sys.argv[1][len("--time-"):], sys.argv[2])
     if not (ROOT / "kubetpu_torch" / "kernels" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run from the root of a kubetpu checkout "
                          "(kubetpu_torch/ not found beside this script)")

@@ -233,9 +233,6 @@ class Scheduler:
         (component-helpers DefaultSelector)."""
         self.cache.add_service(svc)
 
-    def on_service_update(self, old, new: t.Service) -> None:
-        self.cache.update_service(new)
-
     def on_service_delete(self, svc: t.Service) -> None:
         self.cache.remove_service(svc.key)
 

@@ -394,6 +394,62 @@ def test_pod_view_narrows_spread_slots():
         assert getattr(vs, f) is getattr(sp, f)
 
 
+def test_service_delete_stops_default_constraints():
+    """Service add and delete events reach the encode: while a Service
+    selects foo=bar in service-ns, the default profile gives those pods its
+    default zone and hostname constraints (a spread leaf); after the
+    Service's delete event they get none. kubetpu's Scheduler and the
+    port's, driven through the same events (nodes over three zones, the
+    Service, a batch of labelled pods, the delete, a second batch), bind
+    the same pods to the same nodes."""
+    from kubetpu_torch.framework import config as PC
+    from kubetpu_torch.perf.runner import _Client as PClient
+    from kubetpu_torch.sched import Scheduler as PScheduler
+
+    ks_client = KClient()
+    ks = KScheduler(ks_client, profile=KC.Profile(), max_batch=16, engine="greedy",
+                    pipeline=False, dispatcher_workers=0, flight_recorder=False)
+    ks_client.sched = ks
+    ps_client = PClient()
+    ps = PScheduler(ps_client, profile=PC.Profile(), max_batch=16, device="cpu")
+    ps_client.sched = ps
+    zones = ("moon-1", "moon-2", "moon-3")
+    svc = kt.Service(name="svc", namespace="service-ns", selector=(("foo", "bar"),))
+    probe = to_port(KW.pod_with_label("probe", "service-ns"))
+
+    def spread_leaf():
+        b = prt.encode_batch(ps.cache.update_snapshot(), [probe], PC.Profile(),
+                             device="cpu")
+        return b.device.spread
+
+    def both(fn):
+        fn(ks, lambda x: x)
+        fn(ps, to_port)
+
+    for i in range(9):
+        both(lambda s, conv: s.on_node_add(conv(KW.node_default(i, zones))))
+    for j in range(10):   # uneven load: the first nodes of the first zone
+        both(lambda s, conv: s.on_pod_add(conv(
+            KW.pod_default(f"init-{j}", "default").with_node(f"scheduler-perf-{j % 2}"))))
+    assert spread_leaf() is None
+    both(lambda s, conv: s.on_service_add(conv(svc)))
+    assert spread_leaf() is not None and spread_leaf().has_soft
+    for batch in ("a", "b"):
+        for j in range(12):
+            both(lambda s, conv: s.on_pod_add(conv(
+                KW.pod_with_label(f"{batch}-{j}", "service-ns"))))
+        for s, client in ((ks, ks_client), (ps, ps_client)):
+            for _ in range(3):
+                s.schedule_batch()
+                client.deliver()
+        if batch == "a":
+            both(lambda s, conv: s.on_service_delete(conv(svc)))
+            assert spread_leaf() is None
+    ks.close()
+    assert len(ps_client.bound) == 24
+    assert dict(ps_client.bound) == dict(ks_client.bound)
+
+
 SMALL = {"initNodes": 30, "initPods": 60, "measurePods": 90}
 
 
