@@ -32,9 +32,14 @@ final ``ok`` line is not printed):
    engine must equal ``greedy_assign_plain`` (assignments, final node
    state, spread counts and affinity sums) and the batched engine's
    ``batched_round`` rounds must equal ``batched_assign_plain`` (the same,
-   and the round count) exactly, on CUDA tensors;
+   and the round count) exactly, on CUDA tensors; then ``scatter_rows``
+   must equal ``scatter_node_rows_plain`` on a seeded 5120-row resident
+   block (1000 dirty rows, 8 boundary rows flipping validity, pads at and
+   past N), and a SchedulingBasic resident block after a delta refresh
+   must equal a full upload of the same node tensors;
 4. main paths, each with the launch counts reset just before it and read
-   just after, through ``run_workload(..., device="cuda")``:
+   just after, through ``run_workload(..., device="cuda")`` on its
+   defaults (encode cache on, resident node block, serial cycle):
    ``SchedulingBasic/5000Nodes_10000Pods`` on the greedy engine,
    ``SchedulingPodAffinity/5000Nodes_5000Pods`` on the batched engine,
    ``TopologySpreading/5000Nodes_5000Pods`` on the batched engine,
@@ -45,7 +50,13 @@ final ``ok`` line is not printed):
    the first cycle's kernel assignments (and the first cycle's with a
    spread leaf) equal the plain engine's on the same batch;
    TopologySpreading also checks that the bound color=blue pods' per-zone
-   counts differ by at most its maxSkew, 5;
+   counts differ by at most its maxSkew, 5, and SchedulingBasic that every
+   cycle after the first ships less than the whole node block; the
+   5000-node paths must have launched ``scatter_rows``. Each prints its
+   node-upload bytes a cycle against the block, the encode cache's hit
+   rate and the stage-1 / stage-2 spans. Then SchedulingBasic and
+   PreferredTopologySpreading run again with ``pipeline=True``: their
+   bound maps must equal the serial runs', pod for pod;
 5. prints the kernels' JSON line, the card line, and the ``ok`` line last.
 
 Tolerance everywhere: exact (integer masks, scores and assignments).
@@ -720,6 +731,124 @@ def _spread_timing(case, b, params, kernel) -> dict:
     return out
 
 
+def scatter_block(seed=0, n_real=5000, n_pad=5120, n_rows=1000, r=3):
+    """A seeded resident block at the Basic path's shape on the card and
+    one cycle's delta: ``n_rows`` distinct dirty rows in random order, the
+    boundary rows [n_real, n_real + 8) flipping validity, then pads to the
+    1024-slot bucket: index ``n_pad`` (the refresh's pad) and a few past
+    it. Returns ``(nodes, idx, updates)``."""
+    import numpy as np
+    import torch
+
+    from kubetpu_torch.framework import runtime as rt
+
+    rng = np.random.default_rng(seed)
+
+    def block(n, valid):
+        return (
+            rng.integers(0, 1 << 40, (n, r)), rng.integers(0, 1 << 40, (n, r)),
+            rng.integers(0, 1 << 40, (n, r)),
+            rng.integers(0, 110, n).astype(np.int32),
+            rng.integers(0, 111, n).astype(np.int32), valid,
+        )
+
+    nodes = rt.DeviceNodeState(*(torch.from_numpy(np.asarray(a)).cuda() for a in block(
+        n_pad, np.arange(n_pad) < n_real)))
+    rows = rng.permutation(n_real)[:n_rows]
+    flips = np.arange(n_real, n_real + 8)
+    slots = 1024
+    pads = np.full(slots - n_rows - len(flips), n_pad)
+    pads[:4] = n_pad + rng.integers(1, 100, 4)
+    idx = np.concatenate([rows, flips, pads]).astype(np.int32)
+    valid = np.concatenate([np.ones(n_rows, bool), np.ones(len(flips), bool),
+                            np.zeros(len(pads), bool)])
+    updates = tuple(torch.from_numpy(np.asarray(a)).cuda() for a in block(slots, valid))
+    return nodes, torch.from_numpy(idx).cuda(), updates
+
+
+def _clone_nodes(nodes):
+    from kubetpu_torch.framework import runtime as rt
+
+    return rt.DeviceNodeState(*(getattr(nodes, n).clone() for n in rt.NODE_FIELDS))
+
+
+def _nodes_err(a, b) -> int:
+    from kubetpu_torch.framework import runtime as rt
+
+    return max(_max_abs(getattr(a, n), getattr(b, n)) for n in rt.NODE_FIELDS)
+
+
+def scatter_checks(results) -> dict:
+    """Phase 3's B5 checks: ``scatter_rows`` against
+    ``scatter_node_rows_plain`` on a seeded resident block (exact, every
+    buffer); then a Basic cluster's resident block after a delta refresh
+    (1024 pods bound onto distinct nodes: the scatter path) against a full
+    upload of the same NodeTensors. Returns the timing entry: the kernel,
+    the plain version and six ``index_copy_`` calls on the in-range rows
+    (the library yardstick), and the bytes of the bound: the index and the
+    update slots read once, the in-range rows written once."""
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.framework import config as C
+    from kubetpu_torch.framework import runtime as rt
+
+    nodes, idx, updates = scatter_block()
+    got, want = _clone_nodes(nodes), _clone_nodes(nodes)
+    kernels.scatter_rows(got, idx, updates)
+    rt.scatter_node_rows_plain(want, idx, updates)
+    torch.cuda.synchronize()
+    err = _nodes_err(got, want)
+    if err or not torch.equal(got.node_valid, want.node_valid):
+        raise AssertionError(f"scatter_rows differs from the plain version (max abs err {err})")
+    results["scatter_rows"]["cases"].append("seeded block 1024 slots x 5120 rows")
+    log("kernels vs plain [scatter_rows 1024 slots into 5120x3]: exact")
+
+    # a delta refresh against a full upload, through the cycle's own path
+    cache, pending = basic_case()
+    resident = rt.ResidentNodeState("cuda")
+    snap = cache.update_snapshot()
+    first = rt.encode_batch(snap, pending, C.Profile(), resident=resident, device="cuda")
+    nodes_names = first.node_names
+    for j, p in enumerate(pending):
+        cache.add_pod(p.with_node(nodes_names[(7 * j) % first.num_nodes]))
+    snap = cache.update_snapshot(snap)
+    launches = kernels.launch_counts["scatter_rows"]
+    second = rt.encode_batch(snap, pending, C.Profile(), prev_nt=first.node_tensors,
+                             resident=resident, device="cuda")
+    full = rt.encode_batch(cache.update_snapshot(), pending, C.Profile(), device="cuda")
+    torch.cuda.synchronize()
+    if kernels.launch_counts["scatter_rows"] != launches + 1:
+        raise AssertionError("the delta refresh did not launch scatter_rows")
+    err_r = _nodes_err(second.device.nodes, full.device.nodes)
+    if err_r:
+        raise AssertionError(f"resident block after a delta refresh differs from a full "
+                             f"upload (max abs err {err_r})")
+    results["scatter_rows"]["cases"].append("Basic delta refresh vs full upload")
+    results["scatter_rows"]["max_abs_err"] = max(err, err_r)
+    log(f"resident block after a delta refresh ({second.node_upload_bytes} bytes against "
+        f"a {second.resident_bytes}-byte block) equals a full upload: exact")
+
+    in_range = (idx >= 0) & (idx < nodes.alloc.shape[0])
+    rows = idx[in_range].long()
+    kept = tuple(u[in_range] for u in updates)
+
+    def library():
+        for name, u in zip(rt.NODE_FIELDS, kept):
+            getattr(nodes, name).index_copy_(0, rows, u)
+
+    M, R = idx.shape[0], nodes.alloc.shape[1]
+    row_bytes = 3 * 8 * R + 4 + 4 + 1
+    n_in = int(in_range.sum().item())
+    bytes_moved = 4 * M + M * row_bytes + n_in * row_bytes
+    return {
+        "ms": cuda_ms(lambda: kernels.scatter_rows(nodes, idx, updates), 50),
+        "plain_ms": cuda_ms(lambda: rt.scatter_node_rows_plain(nodes, idx, updates), 20),
+        "library_ms": cuda_ms(library, 50),
+        "bytes": bytes_moved, "ops": 0, "shape": [M, nodes.alloc.shape[0]],
+    }
+
+
 def kernels_phase():
     import torch
 
@@ -730,7 +859,7 @@ def kernels_phase():
     from kubetpu_torch.framework import runtime as rt
 
     results = {k: {"cases": [], "max_abs_err": 0}
-               for k in ("filter_score", "greedy_scan", "batched_round")}
+               for k in ("filter_score", "greedy_scan", "batched_round", "scatter_rows")}
     # the SchedulingBasic cycle: the greedy main path's shapes and timings
     cache, pending = basic_case()
     b, params = encode(cache, pending, C.Profile())
@@ -808,6 +937,7 @@ def kernels_phase():
         "PreferredTopologySpreading", *spread["PreferredTopologySpreading"], "greedy_scan")
     timing["batched_round"]["spread"] = _spread_timing(
         "TopologySpreading", *spread["TopologySpreading"], "batched_round")
+    timing["scatter_rows"] = scatter_checks(results)
     out = []
     for name, src, replaces in (
         ("filter_score", "kubetpu_torch/kernels/csrc/filter_score.cu",
@@ -816,6 +946,8 @@ def kernels_phase():
          "kubetpu/assign/greedy.py:107"),
         ("batched_round", "kubetpu_torch/kernels/csrc/batched_round.cu",
          "kubetpu/assign/batched.py:135"),
+        ("scatter_rows", "kubetpu_torch/kernels/csrc/scatter_rows.cu",
+         "kubetpu/framework/runtime.py:240"),
     ):
         tm = timing[name]
         bound_ms, bound_by = _bound(tm["bytes"], tm["ops"])
@@ -824,7 +956,8 @@ def kernels_phase():
             "launches": None, "result": "equal to the plain version",
             "max_abs_err": results[name]["max_abs_err"],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": tm.get("library_ms"),
             "cases": results[name]["cases"], "shape": tm["shape"],
         }
         for k in ("podaffinity_ms", "podaffinity_plain_ms", "rounds", "spread",
@@ -832,9 +965,10 @@ def kernels_phase():
             if k in tm:
                 line[k] = tm[k]
         out.append(line)
-        log(f"timing [{name}] at P={tm['shape'][0]} N={tm['shape'][1]}: kernel "
+        lib = (f", library {tm['library_ms']:.4f} ms" if "library_ms" in tm else "")
+        log(f"timing [{name}] at {tm['shape'][0]}x{tm['shape'][1]}: kernel "
             f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, bound {bound_ms:.6f} ms "
-            f"({bound_by})")
+            f"({bound_by}){lib}")
     for name in ("filter_score", "greedy_scan"):
         log(f"timing [{name}] on the SchedulingPodAffinity batch: kernel "
             f"{timing[name]['podaffinity_ms']:.4f} ms, plain "
@@ -882,12 +1016,28 @@ def zone_skew(sched, labels=(("color", "blue"),)) -> dict:
     return {"zone_counts": counts, "zone_skew": skew}
 
 
+def steady_deltas(sched) -> dict:
+    """After the first cycle (the full upload that makes the block
+    resident) every cycle of the path must ship less than the whole node
+    block: only its dirty rows, through ``scatter_rows``."""
+    later = sched.metrics.cycle_timings[1:]
+    worst = max(c.node_upload_bytes for c in later)
+    block = max(c.resident_bytes for c in later)
+    if not worst < block:
+        raise AssertionError(f"a steady-state cycle shipped {worst} node bytes, "
+                             f"the whole block is {block}")
+    return {"steady_node_upload_bytes_max": worst}
+
+
 def run_path(card, case, workload, engine, expected, plain, kernel_names,
-             check=None) -> dict:
+             check=None, pipeline=False) -> tuple[dict, dict, float]:
     """Drive one main path with the launch counts set to 0 just before it
     and read just after; check it and print its JSON line. ``check``, when
     given, takes the run's Scheduler, raises on a fault and returns more
-    fields for the line. Returns the launch counts."""
+    fields for the line. Returns the launch counts, the bound map and the
+    measured pods/s."""
+    import dataclasses
+
     import torch
 
     from kubetpu_torch import kernels
@@ -901,10 +1051,17 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
 
         def first_cycle_recorder(b, params):
             out = engine_fn(b, params)
+
+            def keep():
+                # the node block is resident and later scatters write into
+                # it: keep this cycle's copy for the plain engine
+                return (dataclasses.replace(b, nodes=_clone_nodes(b.nodes)),
+                        params, out[0].clone())
+
             if "first" not in captured:
-                captured["first"] = (b, params, out[0].clone())
+                captured["first"] = keep()
             if b.spread is not None and "first_spread" not in captured:
-                captured["first_spread"] = (b, params, out[0].clone())
+                captured["first_spread"] = keep()
             return out
 
         sched._assign_device = first_cycle_recorder
@@ -912,7 +1069,7 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     res = run_workload(case, workload, engine=engine, device="cuda",
-                       on_scheduler=observe)
+                       on_scheduler=observe, pipeline=pipeline)
     wall = time.perf_counter() - t0
     launches = dict(kernels.launch_counts)
 
@@ -938,10 +1095,14 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
     line = {
         "main_path": {
             "workload": f"{case}/{workload}", "engine": engine,
+            "pipeline": pipeline, "pipeline_replays": res.pipeline_replays,
             "pods_bound": res.bound_total, "pods_per_s": res.throughput,
             "measured_pods": res.scheduled, "measured_s": res.duration_s,
             "cycles": res.cycles, "cycle_ms": res.cycle_ms,
             "upload_bytes_per_cycle": res.upload_bytes_per_cycle,
+            "node_upload_bytes_per_cycle": res.node_upload_bytes_per_cycle,
+            "resident_bytes": res.resident_bytes,
+            "encode_cache_hit_rate": res.encode_cache_hit_rate,
             "rounds_per_cycle": res.rounds_per_cycle,
             "rounds_by_cycle": rounds if engine == "batched" else None,
             "run_s": wall, "launches": launches, "first_cycle_equal": True,
@@ -950,26 +1111,57 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
         }
     }
     log(json.dumps(line))
-    return launches
+    ms = res.cycle_ms
+    log(f"[{case}{' pipelined' if pipeline else ''}] node upload "
+        f"{res.node_upload_bytes_per_cycle:.0f} bytes a cycle against a "
+        f"{res.resident_bytes}-byte block; encode cache hit rate "
+        f"{res.encode_cache_hit_rate}; stage 1 {ms['pre_encode']:.3f} ms, stage 2 "
+        f"{ms['finalize']:.3f} ms, upload {ms['upload']:.3f} ms, kernel "
+        f"{ms['kernel']:.3f} ms, wait {ms['wait']:.3f} ms; {res.throughput:.1f} pods/s")
+    return launches, dict(sched.client.bound), res.throughput
 
 
 def main_path_phase(card: str) -> list[dict]:
+    """The five paths on the defaults (encode cache, resident block,
+    serial cycle), then SchedulingBasic and PreferredTopologySpreading
+    again with the pipelined cycle, whose bound maps must equal the serial
+    runs' pod for pod. Returns every run's launch counts."""
     from kubetpu_torch.assign.batched import batched_assign_plain
     from kubetpu_torch.assign.greedy import greedy_assign_plain
 
-    return [
-        run_path(card, "SchedulingBasic", "5000Nodes_10000Pods", "greedy",
-                 1000 + 10000, greedy_assign_plain, ("filter_score", "greedy_scan")),
-        run_path(card, "SchedulingPodAffinity", "5000Nodes_5000Pods", "batched",
-                 5000 + 5000, batched_assign_plain, ("filter_score", "batched_round")),
-        run_path(card, "TopologySpreading", "5000Nodes_5000Pods", "batched",
-                 5000 + 5000, batched_assign_plain, ("filter_score", "batched_round"),
-                 check=zone_skew),
-        run_path(card, "PreferredTopologySpreading", "5000Nodes_5000Pods", "greedy",
-                 5000 + 5000, greedy_assign_plain, ("filter_score", "greedy_scan")),
-        run_path(card, "DefaultTopologySpreading", "500Nodes", "greedy",
-                 1000 + 1000, greedy_assign_plain, ("filter_score", "greedy_scan")),
-    ]
+    # the 5000-node paths bind at most 2048 distinct nodes a cycle (1024
+    # assumes, 1024 confirmations), under the dense-update rule's half:
+    # their node uploads go through scatter_rows. 500 nodes take the full
+    # upload every cycle.
+    greedy = ("filter_score", "greedy_scan", "scatter_rows")
+    batched = ("filter_score", "batched_round", "scatter_rows")
+    runs = {
+        "basic": run_path(card, "SchedulingBasic", "5000Nodes_10000Pods", "greedy",
+                          1000 + 10000, greedy_assign_plain, greedy, check=steady_deltas),
+        "affinity": run_path(card, "SchedulingPodAffinity", "5000Nodes_5000Pods",
+                             "batched", 5000 + 5000, batched_assign_plain, batched),
+        "spread": run_path(card, "TopologySpreading", "5000Nodes_5000Pods", "batched",
+                           5000 + 5000, batched_assign_plain, batched, check=zone_skew),
+        "preferred": run_path(card, "PreferredTopologySpreading", "5000Nodes_5000Pods",
+                              "greedy", 5000 + 5000, greedy_assign_plain, greedy),
+        "default": run_path(card, "DefaultTopologySpreading", "500Nodes", "greedy",
+                            1000 + 1000, greedy_assign_plain, greedy[:2]),
+    }
+    for key, case, expected in (("basic", "SchedulingBasic", 1000 + 10000),
+                                ("preferred", "PreferredTopologySpreading", 5000 + 5000)):
+        workload = "5000Nodes_10000Pods" if key == "basic" else "5000Nodes_5000Pods"
+        run = run_path(card, case, workload, "greedy", expected, greedy_assign_plain,
+                       greedy, pipeline=True)
+        bound, serial = run[1], runs[key][1]
+        if bound != serial:
+            moved = sum(1 for k, v in bound.items() if serial.get(k) != v)
+            raise AssertionError(f"{case} pipelined: {moved} pods bound elsewhere than "
+                                 "in the serial run")
+        log(f"[{case} pipelined] bound map equal to the serial run's, pod for pod "
+            f"({len(bound)} pods); {run[2]:.1f} pods/s against the serial run's "
+            f"{runs[key][2]:.1f}")
+        runs[key + " pipelined"] = run
+    return [run[0] for run in runs.values()]
 
 
 def time_checkout(mode: str, root: str) -> int:

@@ -3,9 +3,13 @@
 Port of ``kubetpu/framework/runtime.py``, narrowed to the slices ported so
 far: the default profile's cycle with inter-pod affinity and topology
 spread, and no nominations, extenders, DRA, volumes or topology slices.
-Host encode is the reference's numpy code; the device batch is a frozen
-dataclass of torch tensors on the caller's device, uploaded in one
-host→device copy.
+Host encode is the reference's numpy code, in its two stages
+(``encode_batch_static``, then ``finalize_batch``); the device batch is a
+frozen dataclass of torch tensors on the caller's device whose pod leaves
+are uploaded in one host→device copy, and whose node block is either
+shipped whole or kept resident on the device (``ResidentNodeState``),
+which then takes only the dirty rows through the hand-written
+``scatter_rows`` kernel (B5).
 
 The analog of ``pkg/scheduler/framework/runtime/framework.go``: the reference
 runs, per pod, PreFilter → parallel per-node Filter → PreScore → parallel
@@ -24,6 +28,7 @@ kernel when the batch lives on a CUDA device.
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Mapping, Sequence
 
@@ -223,34 +228,18 @@ def _align(n: int, a: int = 16) -> int:
     return (n + a - 1) // a * a
 
 
-def device_batch_from_numpy(
-    leaves: Mapping[str, "np.ndarray | None"], device
-) -> DeviceBatch:
-    """Build a DeviceBatch from numpy leaves keyed by the reference's field
-    names (the node block's six names plus every DeviceBatch leaf), in ONE
-    host→device copy: the leaves are packed into one 16-byte-aligned byte
-    buffer, uploaded, and viewed back as typed tensors (each view is
-    contiguous). This is the port's ``jax.device_put`` — and how a test
-    carries ``jax.device_get`` of kubetpu's batch across.
+def _torch_dtype(a: np.ndarray) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype=a.dtype)).dtype
 
-    The ``podaffinity`` and ``spread`` leaves are any objects with
-    ``PodAffinityDevice``'s / ``SpreadDevice``'s attributes (kubetpu's, or
-    the port encoders' ``PodAffinityTensors`` / ``SpreadTensors``); their
-    arrays ride in the same buffer."""
-    check_slice_leaves(leaves, "device_batch_from_numpy")
-    arrays = {}
-    for name in NODE_FIELDS + POD_FIELDS:
-        a = leaves.get(name)
-        if a is None or name in LATER_SLICE_LEAVES or name in NESTED:
-            continue
-        arrays[name] = np.ascontiguousarray(np.asarray(a))
-    for name, (_, fields, _) in NESTED.items():
-        obj = leaves.get(name)
-        if obj is not None:
-            for f in fields:
-                arrays[name + "." + f] = np.ascontiguousarray(
-                    np.asarray(getattr(obj, f))
-                )
+
+def upload_packed(
+    arrays: Mapping[str, np.ndarray], device
+) -> dict[str, torch.Tensor]:
+    """Ship numpy arrays to ``device`` in ONE host→device copy: they are
+    packed into one 16-byte-aligned byte buffer, uploaded, and viewed back
+    as typed tensors (each view is contiguous). The port's
+    ``jax.device_put`` of a pytree."""
+    arrays = {n: np.ascontiguousarray(np.asarray(a)) for n, a in arrays.items()}
     offsets = {}
     total = 0
     for name, a in arrays.items():
@@ -260,13 +249,44 @@ def device_batch_from_numpy(
     for name, a in arrays.items():
         buf[offsets[name]:offsets[name] + a.nbytes] = a.reshape(-1).view(np.uint8)
     dev_buf = torch.from_numpy(buf).to(device)
-    tensors = {}
-    for name, a in arrays.items():
-        off = offsets[name]
-        raw = dev_buf[off:off + a.nbytes]
-        dtype = torch.from_numpy(np.empty(0, dtype=a.dtype)).dtype
-        tensors[name] = raw.view(dtype).view(a.shape)
-    nodes = DeviceNodeState(**{n: tensors[n] for n in NODE_FIELDS})
+    return {
+        name: dev_buf[offsets[name]:offsets[name] + a.nbytes]
+        .view(_torch_dtype(a)).view(a.shape)
+        for name, a in arrays.items()
+    }
+
+
+def device_batch_from_numpy(
+    leaves: Mapping[str, "np.ndarray | None"], device,
+    nodes: "DeviceNodeState | None" = None,
+) -> DeviceBatch:
+    """Build a DeviceBatch from numpy leaves keyed by the reference's field
+    names (the node block's six names plus every DeviceBatch leaf), in ONE
+    host→device copy (``upload_packed``). This is the port's
+    ``jax.device_put`` — and how a test carries ``jax.device_get`` of
+    kubetpu's batch across. ``nodes``, when given, is a node block already
+    on the device (the resident block): the node leaves are then not read
+    and only the pod leaves are shipped.
+
+    The ``podaffinity`` and ``spread`` leaves are any objects with
+    ``PodAffinityDevice``'s / ``SpreadDevice``'s attributes (kubetpu's, or
+    the port encoders' ``PodAffinityTensors`` / ``SpreadTensors``); their
+    arrays ride in the same buffer."""
+    check_slice_leaves(leaves, "device_batch_from_numpy")
+    arrays = {}
+    for name in (NODE_FIELDS if nodes is None else ()) + POD_FIELDS:
+        a = leaves.get(name)
+        if a is None or name in LATER_SLICE_LEAVES or name in NESTED:
+            continue
+        arrays[name] = a
+    for name, (_, fields, _) in NESTED.items():
+        obj = leaves.get(name)
+        if obj is not None:
+            for f in fields:
+                arrays[name + "." + f] = getattr(obj, f)
+    tensors = upload_packed(arrays, device)
+    if nodes is None:
+        nodes = DeviceNodeState(**{n: tensors[n] for n in NODE_FIELDS})
     pods = {n: tensors.get(n) for n in POD_FIELDS}
     for name, (cls, fields, flags) in NESTED.items():
         obj = leaves.get(name)
@@ -278,9 +298,14 @@ def device_batch_from_numpy(
     return DeviceBatch(nodes=nodes, **pods)
 
 
+def _node_block_nbytes(nodes: DeviceNodeState) -> int:
+    return sum(int(getattr(nodes, n).nbytes) for n in NODE_FIELDS)
+
+
 def batch_nbytes(b: DeviceBatch) -> int:
-    """Bytes of every tensor leaf of the batch (the upload's payload)."""
-    total = sum(int(getattr(b.nodes, n).nbytes) for n in NODE_FIELDS)
+    """Bytes of every tensor leaf of the batch (the upload's payload
+    without a resident node block)."""
+    total = _node_block_nbytes(b.nodes)
     for n in POD_FIELDS:
         v = getattr(b, n)
         if isinstance(v, torch.Tensor):
@@ -303,9 +328,208 @@ class EncodedBatch:
     num_nodes: int                  # real (unpadded) N
     num_pods: int                   # real (unpadded) P
     node_tensors: "enc.NodeTensors | None" = None
-    # host→device bytes this encode shipped (the whole batch: the port has
-    # no device-resident node block yet)
+    port_vocab: object | None = None
+    # host→device bytes this encode shipped: the pod leaves plus the node
+    # block's share, ``node_upload_bytes`` (the whole block without a
+    # resident block; the dirty-row delta, or 0, with one)
     upload_bytes: int = 0
+    node_upload_bytes: int = 0
+    # bytes of the device-resident node block backing this batch (0 when
+    # the node block was a one-shot upload)
+    resident_bytes: int = 0
+    # wall seconds of the copies (and the resident block's scatter): the
+    # last pageable copy waits for the device, so the span includes them
+    upload_s: float = 0.0
+
+
+class StaleStaticEncode(Exception):
+    """A pre-encoded StaticBatch can no longer be finalized against the
+    current cluster state (an assumed pod introduced a host-port triple
+    outside the batch's interned vocabulary). Callers fall back to a full
+    re-encode."""
+
+
+def scatter_node_rows_plain(
+    nodes: DeviceNodeState, idx: torch.Tensor, updates: Sequence[torch.Tensor]
+) -> None:
+    """The plain version of kernel B5 (``_scatter_node_rows``,
+    kubetpu/framework/runtime.py:240): write ``updates`` (the six node
+    fields' rows in ``NODE_FIELDS`` order, one row per entry of ``idx``)
+    into rows ``idx`` of the six buffers of ``nodes``, in place. Entries of
+    ``idx`` outside ``[0, N)`` are pads and are dropped (the reference's
+    ``mode="drop"``); the others are distinct. ``index_copy_`` on the
+    in-range entries."""
+    N = nodes.alloc.shape[0]
+    keep = torch.nonzero((idx >= 0) & (idx < N)).flatten()
+    rows = idx[keep].long()
+    for name, u in zip(NODE_FIELDS, updates):
+        getattr(nodes, name).index_copy_(0, rows, u[keep])
+
+
+def scatter_node_rows(
+    nodes: DeviceNodeState, idx: torch.Tensor, updates: Sequence[torch.Tensor]
+) -> None:
+    """Kernel B5 where the block lives: the hand-written ``scatter_rows``
+    kernel for a CUDA block, ``scatter_node_rows_plain`` for a CPU one."""
+    if nodes.alloc.device.type == "cpu":
+        scatter_node_rows_plain(nodes, idx, updates)
+        return
+    from ..kernels import scatter_rows
+
+    scatter_rows(nodes, idx, updates)
+
+
+class ResidentNodeState:
+    """Owner of the persistent device-resident node block: the reference's
+    single-device ``ResidentNodeState`` (the routed, sharded scatter of a
+    node-axis mesh is ROADMAP Queue A item 12).
+
+    ``refresh(nt, num_nodes)`` brings the device block up to date with the
+    host ``NodeTensors``: a full upload when the block doesn't exist yet or
+    is not comparable (resource axis / padded capacity change), a dirty-row
+    scatter consuming ``nt.pending_device_rows`` in steady state — host→
+    device traffic O(Δ rows · R), not O(N · R) — and, when the encode was
+    REBUILT but kept the same shape (node add/delete within a padding
+    bucket), an *incremental reshard*: the old and new NodeTensors are
+    diffed row-wise and only the rows that actually changed (plus the
+    validity boundary) are scattered.
+
+    The reference donates the old buffers to its scatter; torch has no
+    donation, so the scatter writes in place into the resident tensors and
+    every DeviceNodeState handed out earlier shows the new values. The
+    scheduler refreshes only after the previous cycle's device work has
+    completed, and every launch is on one stream, so a scatter never
+    overtakes a kernel that still reads the block.
+
+    ``device``: where the block lives (the scheduler's device)."""
+
+    def __init__(self, device="cuda") -> None:
+        self.where = torch.device(device)
+        self.device: DeviceNodeState | None = None
+        self._nt_token: object | None = None
+        self._num_nodes = -1
+        self.last_upload_bytes = 0
+
+    @property
+    def nbytes(self) -> int:
+        return _node_block_nbytes(self.device) if self.device is not None else 0
+
+    def _full_upload(self, nt: "enc.NodeTensors", num_nodes: int) -> DeviceNodeState:
+        NC = nt.alloc.shape[0]
+        node_valid = np.zeros(NC, dtype=bool)
+        node_valid[:num_nodes] = True
+        dev = DeviceNodeState(**upload_packed(dict(
+            alloc=nt.alloc,
+            requested=nt.requested,
+            nonzero_requested=nt.nonzero_requested,
+            pod_count=nt.pod_count,
+            allowed_pods=nt.allowed_pods,
+            node_valid=node_valid,
+        ), self.where))
+        self.device = dev
+        self._nt_token = nt
+        self._num_nodes = num_nodes
+        nt.pending_device_rows = set()   # start delta accumulation
+        self.last_upload_bytes = _node_block_nbytes(dev)
+        return dev
+
+    def _reshard_rows(
+        self, nt: "enc.NodeTensors", num_nodes: int
+    ) -> "list[int] | None":
+        """Dirty rows for an incremental reshard: the encode was rebuilt
+        (new NodeTensors object — node add/delete/reorder) but padded
+        capacity and resource axis still match the resident block. Diff the
+        old tensors (what the device holds, modulo their un-flushed pending
+        rows) against the new ones and return the union of value-changed
+        rows, the old pending set, and the validity boundary. None = not
+        comparable (full upload)."""
+        old = self._nt_token
+        if old is None or getattr(old, "alloc", None) is None:
+            return None
+        diff = nt.diff_rows(old)
+        if diff is None:
+            return None
+        rows = set(diff)
+        if old.pending_device_rows:
+            # rows dirty on the OLD tensors but never shipped: the device
+            # copy differs from old AND possibly from new — re-send them
+            rows.update(old.pending_device_rows)
+        lo, hi = sorted((self._num_nodes, num_nodes))
+        rows.update(range(lo, hi))   # validity flips on the boundary
+        return sorted(rows)
+
+    def refresh(self, nt: "enc.NodeTensors", num_nodes: int) -> DeviceNodeState:
+        pending = nt.pending_device_rows
+        if self.device is None or self._nt_token is None:
+            return self._full_upload(nt, num_nodes)
+        if self._nt_token is not nt:
+            # the encode was REBUILT (node add/delete/reorder): incremental
+            # reshard when the block is still comparable, else full upload
+            rows = self._reshard_rows(nt, num_nodes)
+            if rows is None:
+                return self._full_upload(nt, num_nodes)
+        elif pending is None:
+            # same tensors object but no delta bookkeeping: be safe
+            return self._full_upload(nt, num_nodes)
+        else:
+            rows_set = set(pending)
+            if self._num_nodes != num_nodes:
+                # the append-incremental encode grew the node count IN
+                # PLACE (same tensors object): the boundary rows flip
+                # validity and ride the same delta scatter as any dirty
+                # row — an add-wave must not force a full re-upload
+                lo, hi = sorted((self._num_nodes, num_nodes))
+                rows_set.update(range(lo, hi))
+            if not rows_set:
+                self.last_upload_bytes = 0
+                return self.device
+            rows = sorted(rows_set)
+        nt.pending_device_rows = set()
+        self._nt_token = nt
+        if not rows:
+            # reshard diff found nothing to ship (values identical)
+            self.last_upload_bytes = 0
+            self._num_nodes = num_nodes
+            return self.device
+        if 2 * len(rows) >= num_nodes:
+            # dense update: a full contiguous upload beats a scatter
+            return self._full_upload(nt, num_nodes)
+        valid_of = np.asarray(rows, dtype=np.int64) < num_nodes
+        self._num_nodes = num_nodes
+        self._scatter_single(nt, rows, valid_of, nt.alloc.shape[0])
+        return self.device
+
+    def _scatter_single(
+        self, nt: "enc.NodeTensors", rows: list, valid_of: np.ndarray, NC: int
+    ) -> None:
+        """Ship the dirty rows — the index row padded to a bucket with NC
+        (dropped) and the six update arrays, in one copy — and scatter
+        them into the block in place."""
+        pad = enc.round_up(len(rows))
+        idx = np.full(pad, NC, dtype=np.int32)   # pad rows → dropped writes
+        idx[: len(rows)] = rows
+
+        def deltas(a: np.ndarray) -> np.ndarray:
+            u = np.zeros((pad,) + a.shape[1:], dtype=a.dtype)
+            u[: len(rows)] = a[rows]
+            return u
+
+        u_vd = np.zeros(pad, dtype=bool)
+        u_vd[: len(rows)] = valid_of
+        arrays = dict(
+            idx=idx,
+            alloc=deltas(nt.alloc),
+            requested=deltas(nt.requested),
+            nonzero_requested=deltas(nt.nonzero_requested),
+            pod_count=deltas(nt.pod_count),
+            allowed_pods=deltas(nt.allowed_pods),
+            node_valid=u_vd,
+        )
+        up = upload_packed(arrays, self.where)
+        scatter_node_rows(
+            self.device, up["idx"], tuple(up[n] for n in NODE_FIELDS)
+        )
+        self.last_upload_bytes = sum(int(a.nbytes) for a in arrays.values())
 
 
 def _resource_weights(
@@ -376,30 +600,52 @@ def _image_tensors(
 
 @dataclass
 class StaticBatch:
-    """The host half of an encoded batch: the snapshot's node tensors, the
-    pod batch, the image leaves, the inter-pod affinity rows and the spread
-    tensors, all numpy. ``finalize_batch`` turns it into the device
-    batch."""
+    """The assume-independent half of an encoded batch (pipeline stage 1).
+
+    Everything here is a function of the node set's static facts (labels,
+    taints, images, ports vocabulary) and the pending pods — NOT of which
+    pods are assigned where. The pipelined scheduler builds this while the
+    previous cycle's device work runs, then ``finalize_batch`` patches in
+    the assume-dependent slice (node resource rows via the resident block's
+    delta upload, spread counts, affinity sums, in-use ports) after that
+    cycle's assumes land. (The reference's DRA, nomination and topology
+    fields belong to later slices.)"""
 
     pods: list
+    profile: "C.Profile | None"
     nt: "enc.NodeTensors"
     pb: "enc.PodBatch"
+    resource_names: list[str]
     num_nodes: int
     num_pods: int
+    pad_nodes: int
+    pad_pods: int
+    folded: frozenset
     want_na: bool
     want_tt: bool
+    want_img: bool
+    want_spread: bool
+    want_interpod: bool
     img_sums: "np.ndarray | None"
     img_sig: "np.ndarray | None"
     img_counts: "np.ndarray | None"
     node_valid: np.ndarray
     pod_valid: np.ndarray
-    pa: "enc_podaffinity.PodAffinityTensors | None" = None
-    sp: "enc_spread.SpreadTensors | None" = None
+    # True when the static encode itself already depends on assignment state
+    # (folded singleton scalars) — a pre-encoded StaticBatch with this set
+    # must not be reused across an assume boundary
+    assume_coupled: bool = False
+    # set by refresh_static when node rows moved since stage 1: the in-use
+    # port rows baked into ``pb`` are then stale and finalize re-derives
+    # them from the current NodeInfos (the one-shot encode path keeps
+    # pb.node_ports as-is — nothing ran in between)
+    ports_stale: bool = False
+    # the EncodeCache (state.encode_cache) stage 1 encoded against; stage 2
+    # reuses its persistent affinity/spread term caches and template groups
+    cache: object | None = None
 
 
-def _check_slice_pods(
-    snapshot: Snapshot, pods: Sequence[t.Pod], profile: "C.Profile | None"
-) -> None:
+def _check_slice_pods(pods: Sequence[t.Pod]) -> None:
     """Raise NotImplementedError for inputs whose encode would produce a
     leaf of a later slice (the reference would build DRA or volume state
     for them)."""
@@ -423,21 +669,29 @@ def encode_batch(
     pad: bool = True,
     resource_names: Sequence[str] | None = None,
     prev_nt: "enc.NodeTensors | None" = None,
+    resident: "ResidentNodeState | None" = None,
+    cache=None,
     track_changes: bool = True,
     device="cuda",
 ) -> EncodedBatch:
-    """Snapshot + pending pods → padded device batch on ``device``.
+    """Snapshot + pending pods → padded device batch on ``device``: stage 1
+    (``encode_batch_static``) then stage 2 (``finalize_batch``).
 
     Padding buckets P and N (``encoder.round_up``): padded nodes have zero
     allocatable and ``allowed_pods``=0 (infeasible for every pod), padded
     pods are invalid. ``prev_nt``: the previous cycle's
     ``EncodedBatch.node_tensors`` — ``encode_snapshot`` then refreshes only
-    the node rows whose generation moved."""
+    the node rows whose generation moved. ``resident``: a
+    ResidentNodeState — the node block is delta-uploaded into its
+    device-resident buffers instead of shipped whole (its device is the
+    batch's). ``cache``: an ``encode_cache.EncodeCache`` — static pod rows
+    become gathers over template-keyed rows shared across pods and cycles
+    (the host-side O(Δ) twin of ``prev_nt``/``resident``)."""
     sb = encode_batch_static(
         snapshot, pods, profile, pad=pad, resource_names=resource_names,
-        prev_nt=prev_nt, track_changes=track_changes,
+        prev_nt=prev_nt, cache=cache, track_changes=track_changes,
     )
-    return finalize_batch(sb, device=device)
+    return finalize_batch(sb, snapshot, resident=resident, device=device)
 
 
 def encode_batch_static(
@@ -447,16 +701,13 @@ def encode_batch_static(
     pad: bool = True,
     resource_names: Sequence[str] | None = None,
     prev_nt: "enc.NodeTensors | None" = None,
+    cache=None,
     track_changes: bool = True,
 ) -> StaticBatch:
-    """The host encode (the reference's stage 1, narrowed to the slice):
-    node tensors, the pod batch, the image rows, the inter-pod affinity
-    rows and the spread tensors, all numpy. ``prev_nt`` and ``track_changes`` as in
-    ``encode_batch``. (The reference encodes affinity in its stage 2,
-    ``finalize_batch``, because its pipeline pre-encodes stage 1 before the
-    cluster state is final; the port's cycle is serial, so the whole host
-    encode is here and ``finalize_batch`` only ships leaves.)"""
-    _check_slice_pods(snapshot, pods, profile)
+    """Stage 1: the assume-independent host encode (see StaticBatch), all
+    numpy, no device call. ``track_changes=False`` (serial loop) skips the
+    pipeline-only staleness diff in the incremental snapshot encode."""
+    _check_slice_pods(pods)
     N, P = snapshot.num_nodes(), len(pods)
     NP = enc.round_up(N) if pad else N
     PP = enc.round_up(P) if pad else P
@@ -477,35 +728,136 @@ def encode_batch_static(
         nt, pods, enabled_filters=enabled, pad_pods=PP,
         enabled_scores=enabled_sc,
         folded_resources=folded,
+        cache=cache,
     )
     want_na = profile is None or profile.has_score(C.NODE_AFFINITY)
     want_tt = profile is None or profile.has_score(C.TAINT_TOLERATION)
     want_img = profile is None or profile.has_score(C.IMAGE_LOCALITY)
-    img_sums, img_sig, img_counts = (
-        _image_tensors(nt, pods, pad_pods=PP)
-        if want_img else (None, None, None)
+    want_spread = profile is None or (
+        profile.has_filter(C.POD_TOPOLOGY_SPREAD)
+        or profile.has_score(C.POD_TOPOLOGY_SPREAD)
     )
     want_interpod = profile is None or (
         profile.has_filter(C.INTER_POD_AFFINITY)
         or profile.has_score(C.INTER_POD_AFFINITY)
     )
-    # affinity-free cluster fast path: the cache counts assigned pods
-    # carrying any (anti)affinity, so a SchedulingBasic-shaped cycle skips
-    # the template-group pass and the affinity encoder in O(pending)
-    # attribute checks
-    want_pa = want_interpod and not (
+    img_sums, img_sig, img_counts = (
+        _image_tensors(nt, pods, pad_pods=PP)
+        if want_img else (None, None, None)
+    )
+    node_valid = np.zeros(nt.alloc.shape[0], dtype=bool)
+    node_valid[:N] = True
+    pod_valid = np.zeros(PP, dtype=bool)
+    pod_valid[:P] = True
+    return StaticBatch(
+        pods=list(pods),
+        profile=profile,
+        nt=nt,
+        pb=pb,
+        resource_names=nt.resource_names,
+        num_nodes=N,
+        num_pods=P,
+        pad_nodes=nt.alloc.shape[0],
+        pad_pods=PP,
+        folded=folded,
+        want_na=want_na,
+        want_tt=want_tt,
+        want_img=want_img,
+        want_spread=want_spread,
+        want_interpod=want_interpod,
+        img_sums=img_sums,
+        img_sig=img_sig,
+        img_counts=img_counts,
+        node_valid=node_valid,
+        pod_valid=pod_valid,
+        assume_coupled=bool(folded),
+        cache=cache,
+    )
+
+
+def refresh_static(sb: StaticBatch, snapshot: Snapshot) -> bool:
+    """Re-encode the node resource rows of a pre-encoded StaticBatch on its
+    own axis (stage-2 entry: fold in the assumes that landed since stage 1).
+    Returns False when the node SET changed since stage 1 — the StaticBatch
+    is then unusable (its num_nodes/node_valid/static_mask are pinned at
+    the stage-1 node count) and the caller must re-encode from scratch.
+    Object identity alone does not detect that: the append-incremental
+    encoder extends the SAME NodeTensors in place on a pure node add, so
+    the node count is checked explicitly."""
+    nt = enc.encode_snapshot(
+        snapshot, resource_names=sb.resource_names, pods=(),
+        pad_nodes=sb.pad_nodes, prev=sb.nt,
+    )
+    if nt is not sb.nt or nt.num_nodes != sb.num_nodes:
+        return False
+    if nt.last_dirty_rows:
+        # node accounting moved (the assumes this refresh folds in) — the
+        # stage-1 port rows no longer reflect in-use triples
+        sb.ports_stale = True
+    return True
+
+
+def _node_port_rows(
+    nt: "enc.NodeTensors", vocab, NC: int, K: int
+) -> np.ndarray:
+    """(NC, K) in-use port-triple rows from the CURRENT NodeInfo state —
+    the assume-dependent half of the NodePorts tensors. Raises
+    StaleStaticEncode when a node holds a triple outside the batch's
+    interned vocabulary (an assume introduced a new triple; the conflict
+    matrix can't express it)."""
+    rows = np.zeros((NC, K), dtype=bool)
+    for i, info in enumerate(nt.infos):
+        for tr in info.port_triples:
+            tid = vocab.get(tr)
+            if tid < 0:
+                raise StaleStaticEncode(f"port triple {tr} not in batch vocab")
+            rows[i, tid] = True
+    return rows
+
+
+def finalize_batch(
+    sb: StaticBatch,
+    snapshot: Snapshot,
+    resident: "ResidentNodeState | None" = None,
+    device="cuda",
+) -> EncodedBatch:
+    """Stage 2: patch the assume-dependent slice onto a StaticBatch and
+    build the device batch — spread counts and affinity sums encoded from
+    the CURRENT NodeInfo state (through the cache's template groups when
+    stage 1 had a cache), in-use ports recomputed when node rows moved
+    since stage 1, and the node block delta-uploaded into ``resident``
+    when given (else shipped whole). The pod leaves, the affinity rows and
+    the spread tensors travel in one host→device copy
+    (``device_batch_from_numpy``). Raises StaleStaticEncode when the
+    StaticBatch can't be patched (an unknown port triple)."""
+    profile, pods, nt, pb = sb.profile, sb.pods, sb.nt, sb.pb
+    N, PP, NC = sb.num_nodes, sb.pad_pods, sb.pad_nodes
+    cache = sb.cache
+    if cache is not None:
+        # namespace labels feed affinity namespaceSelectors: a moved
+        # generation clears the cache's persistent match verdicts
+        cache.sync_namespaces(snapshot.namespaces_generation)
+    # template groups of the existing pods, shared by the spread and
+    # affinity encoders (one O(pods) pass, built only if either needs it)
+    _groups_memo: list = []
+
+    def groups_of():
+        if not _groups_memo:
+            from ..state.encode_cache import groups_for
+
+            _groups_memo.append(groups_for(nt, cache))
+        return _groups_memo[0]
+
+    pa = None
+    # affinity-free cluster fast path: the cache maintains a count of
+    # assigned pods carrying any (anti)affinity, so a SchedulingBasic-shaped
+    # steady state skips the template-group pass AND the affinity encoder
+    # in O(pending) attribute checks
+    want_pa = sb.want_interpod and not (
         snapshot.pods_with_affinity == 0
         and not any(enc_podaffinity.has_any_affinity(p) for p in pods)
     )
-    # template groups of the existing pods, shared by the affinity and
-    # spread encoders (one pass over the assigned pods, built only if
-    # either needs it)
-    groups = None
-    pa = None
     if want_pa:
-        from ..state.encode_cache import collect_pod_groups
-
-        groups = collect_pod_groups(nt)
         pa = enc_podaffinity.encode_pod_affinity(
             nt, pods,
             hard_pod_affinity_weight=(
@@ -513,14 +865,11 @@ def encode_batch_static(
             ),
             pad_pods=PP,
             namespaces=snapshot.namespaces,
-            groups=groups,
+            cache=cache,
+            groups=groups_of(),
         )
-    want_spread = profile is None or (
-        profile.has_filter(C.POD_TOPOLOGY_SPREAD)
-        or profile.has_score(C.POD_TOPOLOGY_SPREAD)
-    )
     sp = None
-    if want_spread:
+    if sb.want_spread:
         defaults = (
             profile.default_spread_constraints if profile is not None else ()
         )
@@ -531,38 +880,34 @@ def encode_batch_static(
                 enc_spread.default_selector_from_services(snapshot)
                 if defaults and snapshot.services else None
             ),
+            cache=cache,
             # reuse the affinity encoder's group pass when it ran; spread
             # builds its own only past its cheap no-constraints early-out
-            groups=groups,
+            groups=_groups_memo[0] if _groups_memo else None,
         )
-    node_valid = np.zeros(nt.alloc.shape[0], dtype=bool)
-    node_valid[:N] = True
-    pod_valid = np.zeros(PP, dtype=bool)
-    pod_valid[:P] = True
-    return StaticBatch(
-        pods=list(pods),
-        nt=nt,
-        pb=pb,
-        num_nodes=N,
-        num_pods=P,
-        want_na=want_na,
-        want_tt=want_tt,
-        img_sums=img_sums,
-        img_sig=img_sig,
-        img_counts=img_counts,
-        node_valid=node_valid,
-        pod_valid=pod_valid,
-        pa=pa,
-        sp=sp,
+
+    # in-use ports: the stage-1 rows are reused verbatim unless node state
+    # moved since (refresh_static flags it) — then they are re-derived from
+    # the current NodeInfos (assumes occupy ports)
+    K = pb.port_conflict.shape[0]
+    node_ports = (
+        _node_port_rows(nt, pb.port_vocab, NC, K)
+        if sb.ports_stale else pb.node_ports
     )
 
-
-def finalize_batch(sb: StaticBatch, device="cuda") -> EncodedBatch:
-    """Build the device batch of a StaticBatch on ``device``: the numpy
-    leaves the reference's ``finalize_batch`` hands to ``jax.device_put``
-    (later slices' leaves absent), the affinity rows and spread tensors
-    included, shipped in one copy (``device_batch_from_numpy``)."""
-    nt, pb = sb.nt, sb.pb
+    t_up = time.perf_counter()
+    if resident is not None:
+        if torch.device(device) != resident.where:
+            raise ValueError(
+                f"finalize_batch: device {device} but the resident block "
+                f"lives on {resident.where}"
+            )
+        nodes = resident.refresh(nt, N)
+        node_upload = resident.last_upload_bytes
+        resident_bytes = resident.nbytes
+    else:
+        nodes = None
+        resident_bytes = 0
     has_na = sb.want_na and pb.node_affinity_raw is not None
     has_tt = sb.want_tt and pb.taint_prefer_raw is not None
     dev = device_batch_from_numpy(dict(
@@ -583,25 +928,34 @@ def finalize_batch(sb: StaticBatch, device="cuda") -> EncodedBatch:
             pb.score_sig
             if pb.score_sig is not None and (has_na or has_tt) else None
         ),
-        image_sum_scores=sb.img_sums,
-        image_sig=sb.img_sig,
-        image_count=sb.img_counts,
+        image_sum_scores=sb.img_sums if sb.want_img else None,
+        image_sig=sb.img_sig if sb.want_img else None,
+        image_count=sb.img_counts if sb.want_img else None,
         pod_ports=pb.pod_ports,
-        node_ports=pb.node_ports,
+        node_ports=node_ports,
         port_conflict=pb.port_conflict,
         pod_priority=pb.priority,
-        podaffinity=sb.pa,
-        spread=sb.sp,
-    ), device)
+        podaffinity=pa,
+        spread=sp,
+    ), device, nodes=nodes)
+    upload_s = time.perf_counter() - t_up
+    total_bytes = batch_nbytes(dev)
+    node_bytes = _node_block_nbytes(dev.nodes)
+    if resident is None:
+        node_upload = node_bytes
     return EncodedBatch(
         device=dev,
         node_names=nt.node_names,
-        pods=list(sb.pods),
+        pods=list(pods),
         resource_names=nt.resource_names,
-        num_nodes=sb.num_nodes,
+        num_nodes=N,
         num_pods=sb.num_pods,
         node_tensors=nt,
-        upload_bytes=batch_nbytes(dev),
+        port_vocab=pb.port_vocab,
+        upload_bytes=total_bytes - node_bytes + node_upload,
+        node_upload_bytes=node_upload,
+        resident_bytes=resident_bytes,
+        upload_s=upload_s,
     )
 
 

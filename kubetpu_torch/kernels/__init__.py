@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels of the main paths, and their wrappers.
 
 ``csrc/filter_score.cu``, ``csrc/greedy_scan.cu`` and
-``csrc/batched_round.cu`` (all built on ``csrc/score_common.cuh``) are
+``csrc/batched_round.cu`` (all built on ``csrc/score_common.cuh``), and
+``csrc/scatter_rows.cu`` (the resident node block's dirty-row scatter) are
 compiled at first use, for ``sm_90a``, one ``nvcc`` per source started
 together, each into a shared library with a plain C interface that
 ``ctypes`` loads. No PyTorch header is compiled, so
@@ -13,6 +14,7 @@ anything else, allocates its outputs with ``torch.empty``, launches on the
 current CUDA stream, raises if the launch was refused, and adds one to its
 entry of ``launch_counts``. No wrapper falls back to the plain version: the
 callers (``framework.runtime.filter_score_batch``,
+``framework.runtime.scatter_node_rows``,
 ``assign.greedy.greedy_assign_device``,
 ``assign.batched.batched_assign_device``) choose the plain version only for
 a batch that lives on the CPU.
@@ -33,7 +35,9 @@ from ..framework import config as C
 from ..framework import runtime as rt
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("filter_score.cu", "greedy_scan.cu", "batched_round.cu")
+SOURCES = ("filter_score.cu", "greedy_scan.cu", "batched_round.cu", "scatter_rows.cu")
+# the libraries that take the ScoreArgs struct (score_common.cuh)
+SCORE_ARGS_LIBS = ("filter_score", "greedy_scan", "batched_round")
 HEADERS = ("score_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kubetpu_torch_kernels"
 NVCC_FLAGS = (
@@ -48,13 +52,16 @@ NVCC_FLAGS = (
 
 # launches of each kernel since the last reset_launch_counts(); chip_smoke
 # reads them around the main path to show the path went through the kernels
-launch_counts = {"filter_score": 0, "greedy_scan": 0, "batched_round": 0}
+launch_counts = {
+    "filter_score": 0, "greedy_scan": 0, "batched_round": 0, "scatter_rows": 0,
+}
 
 # ctypes argument types of each library's entry point
 _ARGTYPES = {
     "filter_score": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p],
     "greedy_scan": [ctypes.c_void_p] * 13 + [ctypes.c_int64, ctypes.c_void_p],
     "batched_round": [ctypes.c_void_p] * 15,
+    "scatter_rows": [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 14,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -89,9 +96,9 @@ def build() -> dict[str, ctypes.CDLL]:
     ``nvcc`` processes start together and are waited for; a failed build
     raises with the compiler's output. ``build_log`` keeps each source's
     compiler output (``-Xptxas=-v``: registers, spills, shared memory).
-    Each library reports ``sizeof(ScoreArgs)`` as compiled; a size that
-    differs from the ctypes mirror's raises (a layout that drifts would
-    read garbage with no error)."""
+    Each library that takes ``ScoreArgs`` reports its size as compiled; a
+    size that differs from the ctypes mirror's raises (a layout that drifts
+    would read garbage with no error)."""
     with _lock:
         if _libs:
             return _libs
@@ -128,14 +135,15 @@ def build() -> dict[str, ctypes.CDLL]:
             err = getattr(lib, f"kt_{name}_error")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            size = getattr(lib, f"kt_{name}_args_size")
-            size.argtypes = []
-            size.restype = ctypes.c_int64
-            if size() != ctypes.sizeof(ScoreArgs):
-                raise RuntimeError(
-                    f"{src}: sizeof(ScoreArgs) is {size()} bytes, the ctypes "
-                    f"mirror's {ctypes.sizeof(ScoreArgs)}: the two layouts differ"
-                )
+            if name in SCORE_ARGS_LIBS:
+                size = getattr(lib, f"kt_{name}_args_size")
+                size.argtypes = []
+                size.restype = ctypes.c_int64
+                if size() != ctypes.sizeof(ScoreArgs):
+                    raise RuntimeError(
+                        f"{src}: sizeof(ScoreArgs) is {size()} bytes, the ctypes "
+                        f"mirror's {ctypes.sizeof(ScoreArgs)}: the two layouts differ"
+                    )
             libs[name] = lib
         _libs.update(libs)
         return _libs
@@ -517,3 +525,35 @@ def batched_assign(b: rt.DeviceBatch, p: rt.ScoreParams, max_rounds: int = 0,
     if rounds_out is not None:
         rounds_out.append(rounds)
     return assignments, (req, nz, pc, ports, sp_counts, pa_sums, None)
+
+
+def scatter_rows(nodes: rt.DeviceNodeState, idx: torch.Tensor, updates) -> None:
+    """The ``scatter_rows`` kernel: write ``updates`` (six tensors in
+    ``runtime.NODE_FIELDS`` order, one row per entry of ``idx``) into rows
+    ``idx`` of the node block's six buffers, in place; entries of ``idx``
+    outside ``[0, N)`` are dropped. Equal to
+    ``runtime.scatter_node_rows_plain``."""
+    dev = nodes.alloc.device
+    if dev.type != "cuda":
+        raise ValueError(f"scatter_rows: the kernel takes CUDA tensors, block is on {dev}")
+    N, R = nodes.alloc.shape
+    M = idx.shape[0]
+    i64, i32, u8 = torch.int64, torch.int32, torch.bool
+    shapes = {
+        "alloc": (i64, (R,)), "requested": (i64, (R,)),
+        "nonzero_requested": (i64, (R,)), "pod_count": (i32, ()),
+        "allowed_pods": (i32, ()), "node_valid": (u8, ()),
+    }
+    if len(updates) != len(rt.NODE_FIELDS):
+        raise ValueError(f"scatter_rows: {len(updates)} update tensors, expected 6")
+    bufs, ups = [], []
+    for name, u in zip(rt.NODE_FIELDS, updates):
+        dtype, tail = shapes[name]
+        bufs.append(_check(name, getattr(nodes, name), dtype, (N,) + tail, dev))
+        ups.append(_check("update " + name, u, dtype, (M,) + tail, dev))
+    p_idx = _check("idx", idx, i32, (M,), dev)
+    lib = build()["scatter_rows"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.kt_scatter_rows(M, N, R, p_idx, *ups, *bufs, stream)
+    _raise_on(lib, "scatter_rows", code)
+    launch_counts["scatter_rows"] += 1

@@ -3,7 +3,8 @@ direct mode and print its result as one JSON line.
 
     python -m kubetpu_torch.perf --case SchedulingBasic \\
         --workload 5000Nodes_10000Pods [--engine greedy|batched] \\
-        [--device cuda] [--max-batch 1024]
+        [--device cuda] [--max-batch 1024] [--pipeline on|off] \\
+        [--encode-cache on|off]
     python -m kubetpu_torch.perf --case SchedulingPodAffinity \\
         --workload 5000Nodes_5000Pods --engine batched
     python -m kubetpu_torch.perf --case TopologySpreading \\
@@ -25,6 +26,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--engine", default="greedy", choices=("greedy", "batched"))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--max-batch", type=int, default=1024)
+    ap.add_argument("--pipeline", default="off", choices=("on", "off"),
+                    help="two-stage pipelined cycles (bindings identical to "
+                         "the serial loop's)")
+    ap.add_argument("--encode-cache", default="on", choices=("on", "off"),
+                    help="event-time template-keyed pod encoding (bit-"
+                         "identical to a fresh encode; 'off' to debug)")
     return ap
 
 
@@ -33,6 +40,8 @@ def main(argv: list[str] | None = None) -> int:
     res = run_workload(
         args.case, args.workload, device=args.device,
         max_batch=args.max_batch, engine=args.engine,
+        pipeline=args.pipeline == "on",
+        encode_cache=args.encode_cache == "on",
     )
     print(json.dumps(res.to_json()))
     return 0 if res.scheduled == res.measure_pods else 1

@@ -41,9 +41,18 @@ class WorkloadResult:
     # mean wall ms per measured cycle of each region (Scheduler.CycleTiming)
     cycle_ms: dict = field(default_factory=dict)
     upload_bytes_per_cycle: float = 0.0
+    # of which the node block's delta, and the resident block's size
+    node_upload_bytes_per_cycle: float = 0.0
+    resident_bytes: int = 0
     engine: str = "greedy"
     # batched engine: mean rounds per measured cycle (0 on greedy)
     rounds_per_cycle: float = 0.0
+    pipeline: bool = False
+    # measured-phase pipelined cycles replayed for parity
+    pipeline_replays: int = 0
+    # measured-phase encode-cache hit rate over filter, score and request
+    # rows (None with the cache off or no lookup)
+    encode_cache_hit_rate: float | None = None
 
     def to_json(self) -> dict:
         return {
@@ -54,7 +63,12 @@ class WorkloadResult:
             "threshold": self.threshold, "attempts": self.attempts,
             "cycles": self.cycles, "cycle_ms": self.cycle_ms,
             "upload_bytes_per_cycle": self.upload_bytes_per_cycle,
+            "node_upload_bytes_per_cycle": self.node_upload_bytes_per_cycle,
+            "resident_bytes": self.resident_bytes,
             "engine": self.engine, "rounds_per_cycle": self.rounds_per_cycle,
+            "pipeline": self.pipeline,
+            "pipeline_replays": self.pipeline_replays,
+            "encode_cache_hit_rate": self.encode_cache_hit_rate,
         }
 
 
@@ -91,8 +105,21 @@ def _cycle_ms(timings: list) -> dict:
     n = len(timings)
     return {
         region: 1e3 * sum(getattr(c, region + "_s") for c in timings) / n
-        for region in ("snapshot", "encode", "upload", "kernel", "bind")
+        for region in ("snapshot", "pre_encode", "finalize", "encode",
+                       "upload", "kernel", "wait", "bind")
     }
+
+
+CACHE_KINDS = ("filter", "score", "request")
+
+
+def _cache_counts(sched) -> tuple[int, int]:
+    """(hits, misses) of the scheduler's encode cache over its row kinds."""
+    ec = sched.encode_cache
+    if ec is None:
+        return 0, 0
+    return (sum(ec.hits[k] for k in CACHE_KINDS),
+            sum(ec.misses[k] for k in CACHE_KINDS))
 
 
 def run_workload(
@@ -105,11 +132,15 @@ def run_workload(
     timeout_s: float = 1800.0,
     stall_s: float = 15.0,
     on_scheduler: Callable[[Scheduler], None] | None = None,
+    pipeline: bool = False,
+    encode_cache: bool = True,
 ) -> WorkloadResult:
     """Execute one (test case, workload) pair in direct mode on ``device``
     with the ``engine`` (``"greedy"`` or ``"batched"``) and return the
-    measurement. ``stall_s`` is how long zero progress must
-    persist before a phase gives up. The kernels are built before the
+    measurement. ``pipeline`` runs the two-stage pipelined cycle
+    (``Scheduler(pipeline=True)``); ``encode_cache`` toggles the encode
+    cache (on by default, as in the reference). ``stall_s`` is how long
+    zero progress must persist before a phase gives up. The kernels are built before the
     measured phase starts (``Scheduler.warmup``). ``on_scheduler`` is
     called once with the run's Scheduler before any op runs, so a caller
     can inspect it during and after the run."""
@@ -122,7 +153,8 @@ def run_workload(
     client = _Client()
     sched = Scheduler(
         client, profile=profile or C.Profile(), max_batch=max_batch,
-        engine=engine, device=device,
+        engine=engine, device=device, pipeline=pipeline,
+        encode_cache=encode_cache,
     )
     client.sched = sched
     if on_scheduler is not None:
@@ -130,7 +162,8 @@ def run_workload(
 
     measured = 0
     duration = 0.0
-    attempts0 = cycles0 = timings0 = 0
+    attempts0 = cycles0 = timings0 = replays0 = 0
+    cache0 = (0, 0)
     op_ns_counter = 0
 
     def settle(target: int, namespaces: tuple[str, ...] = ()) -> tuple[int, float]:
@@ -191,6 +224,10 @@ def run_workload(
                 attempts0 = sched.metrics.schedule_attempts
                 cycles0 = sched.metrics.cycles
                 timings0 = len(sched.metrics.cycle_timings)
+                replays0 = sched.metrics.pipeline_replays
+                # the init phase's misses (first sight of every template)
+                # must not dilute the steady-state hit rate
+                cache0 = _cache_counts(sched)
             for j in range(count):
                 sched.on_pod_add(template(f"{prefix}-{ns}-{j}", ns))
             if op.skip_wait:
@@ -204,6 +241,7 @@ def run_workload(
 
     client.deliver()
     timings = sched.metrics.cycle_timings[timings0:]
+    hits, misses = (a - b for a, b in zip(_cache_counts(sched), cache0))
     result = WorkloadResult(
         case_name=case.name,
         workload_name=workload.name,
@@ -227,9 +265,17 @@ def run_workload(
         upload_bytes_per_cycle=(
             sum(c.upload_bytes for c in timings) / len(timings) if timings else 0.0
         ),
+        node_upload_bytes_per_cycle=(
+            sum(c.node_upload_bytes for c in timings) / len(timings)
+            if timings else 0.0
+        ),
+        resident_bytes=max((c.resident_bytes for c in timings), default=0),
         engine=engine,
         rounds_per_cycle=(
             sum(c.rounds for c in timings) / len(timings) if timings else 0.0
         ),
+        pipeline=pipeline,
+        pipeline_replays=sched.metrics.pipeline_replays - replays0,
+        encode_cache_hit_rate=hits / (hits + misses) if hits + misses else None,
     )
     return result

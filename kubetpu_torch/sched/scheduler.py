@@ -1,26 +1,41 @@
 """The batched scheduler loop — reduced fork of ``kubetpu/sched/scheduler.py``.
 
-The slices of the port so far: the serial cycle of one or more profiles
-on the greedy or the batched engine, in direct mode, with synchronous
-binding. What it keeps of the reference, line for line where the logic is
-host logic: the informer handlers for nodes, pods, namespaces and services,
-``schedule_batch`` → ``_schedule_batch_serial`` → ``_profile_cycle`` →
-``_launch_cycle`` / ``_finish_cycle``, ``_handle_unschedulable``, the engine
-seam and ``run_until_idle``.
+The slices of the port so far: the reference's default cycle — the encode
+cache, the device-resident node block and, on request, the two-stage
+pipelined cycle — for one or more profiles on the greedy or the batched
+engine, in direct mode, with synchronous binding. What it keeps of the
+reference, line for line where the logic is host logic: the informer
+handlers for nodes, pods, namespaces and services (with the encode cache's
+hooks), ``schedule_batch`` → ``_schedule_batch_serial`` /
+``_schedule_batch_pipelined`` → ``_launch_cycle`` / ``_finish_cycle``,
+``_pre_encode``, ``_refresh_host_state``, ``_complete_inflight`` with its
+replay, ``_handle_unschedulable``, the engine seam and ``run_until_idle``.
 
-The device calls of the reference's cycle become torch calls: the encoded
-batch is uploaded to the scheduler's ``device`` in one copy, the engine
-launches its kernels on a CUDA device (``greedy_scan``, or the
+The device calls of the reference's cycle become torch calls: the pod
+leaves are uploaded to the scheduler's ``device`` in one copy, the node
+block lives there (``runtime.ResidentNodeState``: after the first cycle
+only the dirty rows are shipped, through the ``scatter_rows`` kernel), the
+engine launches its kernels on a CUDA device (``greedy_scan``, or the
 ``batched_round`` rounds; the plain PyTorch loops on the CPU), and
-``jax.device_get`` of the assignments becomes ``.cpu()``. Each cycle leaves
-a ``CycleTiming`` record (snapshot, encode, upload, kernel, bind, and the
-batched engine's rounds), each region timed with ``time.perf_counter`` and
-closed by a synchronize of the cycle's stream on a CUDA device.
+``jax.device_get`` of the assignments becomes ``.cpu()``.
 
-Not in these slices (each raises when asked for): the pipelined cycle, the
-device mesh, the encode cache, the flight recorder, preemption, extenders,
-gangs, DRA, volumes, the sentinel, the packing engine and the metrics
-registry.
+The reference overlaps its pipeline's stages through JAX async dispatch.
+Here the engine launches without a synchronize, a CUDA event is recorded
+after the launch, and the next call encodes the next batch's stage 1 on the
+host (no CUDA call) before ``_complete_inflight`` waits on that event.
+Every launch is on the device's current stream, so a cycle's resident-block
+scatter never overtakes the previous cycle's kernels. The batched engine
+reads two flags on the host every round, so its launch returns only when
+its rounds are done: with it the pipeline is correct but does not overlap.
+
+Each cycle leaves a ``CycleTiming`` record: snapshot, stage 1
+(``pre_encode_s``), stage 2 (``finalize_s``), upload, kernel (the CUDA
+events' elapsed time on a CUDA device), the host's wait for the device,
+bind, the upload's byte counts and the batched engine's rounds.
+
+Not in these slices (each raises when asked for): the device mesh, the
+flight recorder, preemption, extenders, gangs, DRA, volumes, the sentinel,
+the packing engine and the metrics registry.
 
 Reference semantics kept: the reference pops ONE pod per cycle
 (``ScheduleOne``); here a BATCH is popped and assigned by the greedy engine,
@@ -28,7 +43,9 @@ whose sequential assume semantics inside the batch preserve binding parity
 with the per-pod loop. Failure handling mirrors ``handleSchedulingFailure``:
 unschedulable pods go back to the queue with their rejector plugins
 recorded (driving the queueing hints); bind errors forget the assumed pod
-and requeue as error-status.
+and requeue as error-status. A pipelined cycle whose cluster state moved
+under it is replayed against fresh state, so its bindings equal the serial
+loop's pod for pod.
 """
 
 from __future__ import annotations
@@ -51,24 +68,44 @@ from ..queue.events import (
     ClusterEvent,
     EventResource,
     default_queueing_hints,
+    node_update_event,
 )
+from ..state.encode_cache import EncodeCache
+from ..state.encoder import encode_snapshot
 from ..state.snapshot import Cache, Snapshot
 
 
 @dataclass
 class CycleTiming:
-    """Wall seconds of one profile cycle's regions (``time.perf_counter``;
-    on a CUDA device each device region ends in a stream synchronize)."""
+    """Wall seconds of one profile cycle's regions (``time.perf_counter``)
+    and its upload's bytes. ``pre_encode_s`` is the host encode's stage 1
+    (``encode_batch_static``; in the pipelined cycle it ran while the
+    previous cycle's kernels did), ``finalize_s`` its stage 2
+    (``refresh_static`` and ``finalize_batch`` without the copies: the
+    affinity and spread encodes, the in-use ports), ``upload_s`` the
+    host→device copies and the resident block's scatter, ``kernel_s`` the
+    engine (between two CUDA events on a CUDA device), ``wait_s`` how long
+    the host blocked for the engine's result."""
 
     cycle: int
     pods: int
     snapshot_s: float
-    encode_s: float
+    pre_encode_s: float
+    finalize_s: float
     upload_s: float
-    kernel_s: float
+    kernel_s: float = 0.0
+    wait_s: float = 0.0
     bind_s: float = 0.0
-    upload_bytes: int = 0
+    upload_bytes: int = 0            # every host→device byte of the cycle
+    node_upload_bytes: int = 0       # of which the node block's delta
+    resident_bytes: int = 0          # the resident node block's size
     rounds: int = 0                  # batched engine: rounds of the cycle
+    pipelined: bool = False
+
+    @property
+    def encode_s(self) -> float:
+        """The whole host encode: stage 1 plus stage 2."""
+        return self.pre_encode_s + self.finalize_s
 
 
 @dataclass
@@ -82,19 +119,32 @@ class SchedulerMetrics:
     errors: int = 0
     bind_errors: int = 0
     cycles: int = 0
+    # pipelined cycles whose device result was discarded and recomputed
+    # because cluster state changed under them (node update / foreign pod
+    # event between launch and completion) — replay preserves exact serial
+    # parity
+    pipeline_replays: int = 0
     cycle_timings: list = field(default_factory=list)
 
 
 @dataclass
-class _LaunchedCycle:
-    """A launched profile cycle: the device result and its host context."""
+class _InflightCycle:
+    """A launched-but-uncompleted scheduling cycle: the engine's work is
+    queued on the device; the host holds everything needed to complete,
+    apply and — if cluster state changed underneath — replay it."""
 
     profile: C.Profile
     batch_infos: list
     batch: "rt.EncodedBatch"
-    assignments: Any
+    assignments: Any                 # device tensor, fetched at completion
+    cycle_id: int
     timing: CycleTiming
-    t_dev: float                     # perf_counter when the engine launched
+    ns_gen: int                      # snapshot generations at launch
+    vol_gen: int
+    # CUDA events around the engine's launch (None on the CPU, where the
+    # engine ran synchronously inside the launch)
+    started: Any = None
+    done: Any = None
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -116,24 +166,28 @@ class Scheduler:
         device="cuda",
         pipeline: bool = False,
         mesh=None,
-        encode_cache: bool = False,
+        encode_cache: bool = True,
         flight_recorder: bool = False,
         dispatcher_workers: int = 0,
     ) -> None:
         """``device``: where the cycle's device work runs — ``"cuda"``
         (default: the hand-written kernels) or ``"cpu"`` (the plain
-        PyTorch versions). The other arguments name features of later
-        slices; anything but their default raises NotImplementedError."""
+        PyTorch versions). ``pipeline``: run the two-stage pipelined cycle
+        (see the module docstring); assignments are pod-for-pod identical
+        to the serial loop's. ``encode_cache``: event-time incremental pod
+        encoding (``state.encode_cache.EncodeCache``) — static rows are
+        template-keyed, built when the informer delivers the pod, and
+        gathered at cycle time; cached encodes are bit-identical to fresh
+        ones, so ``False`` is a debugging escape hatch. The node block is
+        always device-resident. The other arguments name features of
+        later slices; anything but their default raises
+        NotImplementedError."""
         if engine == "packing":
             raise _not_ported("engine 'packing'", "Queue A item 11 (kernel B14)")
         if engine not in ("greedy", "batched"):
             raise ValueError(f"unknown engine {engine!r}")
-        if pipeline:
-            raise _not_ported("the pipelined cycle", "Queue A item 5 (kernel B5)")
         if mesh not in (None, "off"):
             raise _not_ported("the device mesh", "Queue A item 12 (kernel B15)")
-        if encode_cache:
-            raise _not_ported("the encode cache", "Queue A item 5")
         if flight_recorder:
             raise _not_ported("the flight recorder", "Queue A item 9 (kernel B10)")
         if dispatcher_workers:
@@ -171,10 +225,28 @@ class Scheduler:
             max_backoff_seconds=self.cfg.pod_max_backoff_seconds,
         )
         self.metrics = SchedulerMetrics()
+        # event-time incremental pod encoding (state.encode_cache): static
+        # rows pre-built at informer delivery, template-shared across pods
+        # and cycles; None = rebuild-per-batch (the escape hatch)
+        self.encode_cache = EncodeCache() if encode_cache else None
+        # per-profile (filter-set, score-set) frozensets for the per-event
+        # pre-encode hook
+        self._prof_sets: dict[int, tuple] = {}
         self._snapshot = Snapshot()
         # previous cycle's NodeTensors — encode_snapshot refreshes only the
         # rows whose generation moved (O(Δ) per-cycle host encode)
         self._prev_nt = None
+        self.pipeline = bool(pipeline)
+        # the device-resident node block serves the serial loop too: every
+        # cycle completes before the next encode's dirty-row scatter writes
+        # into it, so steady-state host→device node traffic is O(Δ·R) in
+        # both modes
+        self._resident = rt.ResidentNodeState(self.device)
+        self._inflight: _InflightCycle | None = None
+        # sticky: any host-state refresh between launch and completion that
+        # found the cluster materially changed flips this; completion
+        # replays
+        self._inflight_stale = False
         self._last_flush = 0.0
 
     def warmup(self) -> None:
@@ -192,11 +264,6 @@ class Scheduler:
         self._rounds = rounds[0]
         return out
 
-    def _sync(self) -> None:
-        """Wait for the cycle's stream (the reference's block_until_ready)."""
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-
     # ------------------------------------------------------ event handlers
     # The informer seam (eventhandlers.go:455): assigned pods maintain the
     # cache; unscheduled pods maintain the queue; every event also feeds the
@@ -213,9 +280,40 @@ class Scheduler:
         return N.SCHEDULING_GATES if pod.scheduling_gates else None
 
     def on_node_add(self, node: t.Node) -> None:
+        known = self.cache.has_node(node.name)
         self.cache.add_node(node)
+        if self.encode_cache is not None:
+            if known:
+                # resync-duplicate Add REPLACES the node object (labels /
+                # taints may differ at an interior index): full-epoch seam
+                self.encode_cache.invalidate_nodes()
+            else:
+                # SCOPED invalidation: a genuine add appends to the node
+                # axis, so the cache extends its rows with the new node's
+                # columns at the next sync instead of flushing every
+                # node-dependent store
+                self.encode_cache.invalidate_nodes(added=node)
         self.queue.on_event(
             ClusterEvent(EventResource.NODE, ActionType.ADD), None, node
+        )
+
+    def on_node_update(self, old: t.Node | None, new: t.Node) -> None:
+        self.cache.update_node(new)
+        if self.encode_cache is not None:
+            self.encode_cache.invalidate_nodes()
+        ev = node_update_event(old, new)
+        if ev.action:
+            self.queue.on_event(ev, old, new)
+
+    def on_node_delete(self, node: t.Node) -> None:
+        self.cache.remove_node(node.name)
+        if self.encode_cache is not None:
+            # SCOPED invalidation: a drain-wave delete compacts cached rows
+            # down to the surviving nodes' columns at the next sync instead
+            # of flushing every node-dependent store
+            self.encode_cache.invalidate_nodes(removed=node)
+        self.queue.on_event(
+            ClusterEvent(EventResource.NODE, ActionType.DELETE), node, None
         )
 
     def on_namespace_add(self, ns: t.Namespace) -> None:
@@ -251,6 +349,7 @@ class Scheduler:
             )
         else:
             self.queue.add(pod)
+            self._pre_encode_pod(pod)
 
     def on_pod_update(self, old: t.Pod | None, new: t.Pod) -> None:
         if not new.node_name and self._profile_for(new) is None:
@@ -278,8 +377,14 @@ class Scheduler:
                 )
         else:
             self.queue.update(old, new)
+            # a mutated pod hashes to NEW signature keys — pre-build its
+            # rows now; the per-uid signature memo is identity-checked, so
+            # the old object's entries can never answer for the new one
+            self._pre_encode_pod(new)
 
     def on_pod_delete(self, pod: t.Pod) -> None:
+        if self.encode_cache is not None:
+            self.encode_cache.drop_pod(pod.uid)
         # has_pod covers BOUND pods too: a Delete event may carry a stale
         # object with node_name unset (cache.go:583 RemovePod's contract)
         if pod.node_name or self.cache.has_pod(pod.uid):
@@ -292,18 +397,58 @@ class Scheduler:
         else:
             self.queue.delete(pod)
 
+    def _pre_encode_pod(self, pod: t.Pod) -> None:
+        """Event-time tensorization (the informer half of the encode
+        cache): build the pod's static rows while the delivery is being
+        handled — OFF the scheduling cycle's critical path — so cycle-time
+        ``encode_batch_static`` gathers instead of rebuilding. No-op when
+        the cache is off, no cycle has established node tensors yet, or a
+        node event invalidated them (the next cycle re-adopts)."""
+        cache = self.encode_cache
+        if cache is None or self._prev_nt is None:
+            return
+        prof = self._profile_for(pod)
+        if prof is None:
+            return
+        sets = self._prof_sets.get(id(prof))
+        if sets is None:
+            sets = (
+                frozenset(prof.filters.names()),
+                frozenset(prof.scores.names()),
+            )
+            self._prof_sets[id(prof)] = sets
+        try:
+            cache.precompute_pod(self._prev_nt, pod, sets[0], sets[1])
+        except Exception:
+            # pre-encoding is an optimization; the cycle-time encode is the
+            # correctness path and surfaces real bugs loudly
+            pass
+
     # --------------------------------------------------------- batch cycle
 
     def schedule_batch(self, max_batch: int | None = None) -> dict[str, int]:
         """One scheduling cycle over up to ``max_batch`` pods. Returns result
         counts. The serial cycle: pop batch → snapshot → encode → upload →
         device assign → assume + bind → requeue failures. A mixed-profile
-        batch runs one sub-cycle per profile."""
+        batch runs one sub-cycle per profile.
+
+        Pipeline mode returns the counts of the cycle that COMPLETED during
+        this call (usually the batch launched by the previous call): pop
+        the next batch → host-encode its stage 1 while the in-flight
+        cycle's kernels run → complete and apply the in-flight cycle →
+        stage 2 of the next batch → launch. The trailing call (pop empty,
+        one cycle still in flight) drains the pipeline."""
         self._flush_timers()
         limit = max_batch or self.max_batch
         batch_infos = self._pop_cycle(limit)
         if not batch_infos:
+            if self._inflight is not None:
+                # pipeline drain: the queue emptied with one cycle on the
+                # wing — complete it and report its results
+                return self._complete_inflight()
             return {"scheduled": 0, "unschedulable": 0}
+        if self.pipeline:
+            return self._schedule_batch_pipelined(batch_infos, limit)
         return self._schedule_batch_serial(batch_infos)
 
     def _requeue_error(self, infos: list[QueuedPodInfo]) -> None:
@@ -341,11 +486,164 @@ class Scheduler:
             unschedulable += res["unschedulable"]
         return {"scheduled": scheduled, "unschedulable": unschedulable}
 
+    def _schedule_batch_pipelined(
+        self, batch_infos: list[QueuedPodInfo], limit: int
+    ) -> dict[str, int]:
+        """Advance the two-stage pipeline by one cycle (see schedule_batch).
+        A mixed-profile pop falls back to the serial path for that call
+        (after draining the pipeline) — profile partitions are rare and not
+        worth a multi-way pipeline."""
+        if self._inflight is None:
+            # cold start: launch this batch, then pull the NEXT batch
+            # forward so the pipeline is primed before this call returns —
+            # the pulled batch falls through to the steady-state advance
+            by_profile: dict[str, list[QueuedPodInfo]] = {}
+            for info in batch_infos:
+                by_profile.setdefault(info.pod.scheduler_name, []).append(info)
+            if len(by_profile) > 1:
+                return self._schedule_batch_serial(batch_infos)
+            pname, infos = next(iter(by_profile.items()))
+            self._inflight = self._launch_cycle(
+                self.profiles[pname], infos, self.metrics.cycles
+            )
+            batch_infos = self._pop_cycle(limit)
+            if not batch_infos:
+                return self._complete_inflight()
+        # steady-state advance: one cycle in flight, ``batch_infos`` next.
+        by_profile = {}
+        for info in batch_infos:
+            by_profile.setdefault(info.pod.scheduler_name, []).append(info)
+        if len(by_profile) > 1:
+            res0 = self._complete_guarding(batch_infos)
+            res = self._schedule_batch_serial(batch_infos)
+            return {
+                "scheduled": res0["scheduled"] + res["scheduled"],
+                "unschedulable": res0["unschedulable"] + res["unschedulable"],
+            }
+        pname, infos = next(iter(by_profile.items()))
+        profile = self.profiles[pname]
+        cycle_id = self.metrics.cycles
+        try:
+            # stage 1 of this batch while the in-flight cycle runs on the
+            # device, then complete it, then stage 2 + launch this one
+            t_pre = time.perf_counter()
+            static = self._pre_encode(profile, infos)
+            pre_encode_s = time.perf_counter() - t_pre
+            res = self._complete_inflight()
+        except Exception:
+            # a failure completing the PREVIOUS cycle must not strand the
+            # freshly popped batch in the queue's in-flight set
+            self._requeue_error(infos)
+            raise
+        # if this launch raises, its batch is requeued inside _launch_cycle
+        # and the exception propagates — the completed cycle's counts (res)
+        # are then unreportable, but its binds were already applied
+        self._inflight = self._launch_cycle(
+            profile, infos, cycle_id, static=static, pipelined=True,
+            pre_encode_s=pre_encode_s,
+        )
+        return res
+
+    def _complete_guarding(
+        self, pending: list[QueuedPodInfo]
+    ) -> dict[str, int]:
+        """_complete_inflight, requeueing ``pending`` (a popped-but-not-yet-
+        launched batch) as error status if the completion raises."""
+        try:
+            return self._complete_inflight()
+        except Exception:
+            self._requeue_error(pending)
+            raise
+
+    def _pre_encode(
+        self, profile: C.Profile, batch_infos: list[QueuedPodInfo]
+    ) -> "rt.StaticBatch | None":
+        """Pipeline stage 1 for the NEXT batch, overlapping the in-flight
+        cycle's kernels: refresh host state (which also diffs any informer
+        deltas against the in-flight encode — see _refresh_host_state) and
+        build the assume-independent half of the encode. Host work only:
+        no CUDA call, so nothing here waits for the device. Returns None
+        when the batch's encode is assume-coupled or stage 1 failed — the
+        launch then re-encodes from scratch."""
+        self._refresh_host_state()
+        pods = [info.pod for info in batch_infos]
+        try:
+            sb = rt.encode_batch_static(
+                self._snapshot, pods, profile, prev_nt=self._prev_nt,
+                cache=self.encode_cache,
+            )
+        except Exception:
+            # stage 1 is an optimization: any failure falls back to the
+            # launch-time full encode (which surfaces real bugs loudly)
+            return None
+        self._prev_nt = sb.nt
+        if sb.assume_coupled:
+            return None
+        return sb
+
+    def _refresh_host_state(self) -> None:
+        """Refresh snapshot + host node tensors and flag the in-flight cycle
+        stale when the cluster MATERIALLY changed since its launch: a
+        re-encoded row whose values differ (foreign pod add/delete), a
+        pod-set content change (label/hostPort mutation feeding affinity/
+        spread/port tensors without moving the rows), a replaced node
+        object (labels/taints/images may differ), or a node set/order
+        change (tensor rebuild). Bind confirmations of our own assumed
+        pods re-encode to identical rows/content and do NOT flag."""
+        self._snapshot = self.cache.update_snapshot(self._snapshot)
+        nt = self._prev_nt
+        if nt is None:
+            return
+        new_nt = encode_snapshot(
+            self._snapshot, resource_names=nt.resource_names, pods=(),
+            pad_nodes=nt.alloc.shape[0], prev=nt,
+        )
+        if (
+            new_nt is not nt
+            or new_nt.last_values_changed
+            or new_nt.last_nodes_replaced
+            or new_nt.last_pods_mutated
+        ):
+            self._inflight_stale = True
+        self._prev_nt = new_nt
+
+    def _complete_inflight(self) -> dict[str, int]:
+        """Complete the in-flight cycle and apply its results — or, when
+        host state moved under it, discard the device result and replay the
+        batch serially against fresh state (exactly what the serial loop
+        would have computed), preserving pod-for-pod parity."""
+        inflight = self._inflight
+        self._inflight = None
+        assert inflight is not None
+        try:
+            self._refresh_host_state()
+        except Exception:
+            # the in-flight batch must not be stranded by a refresh failure
+            self._requeue_error(inflight.batch_infos)
+            raise
+        stale = (
+            self._inflight_stale
+            or self._snapshot.namespaces_generation != inflight.ns_gen
+            or self._snapshot.volumes_generation != inflight.vol_gen
+        )
+        if stale:
+            self.metrics.pipeline_replays += 1
+            # the replay's refresh writes into the resident block: let the
+            # stale cycle's kernels finish first (one stream orders them
+            # anyway; the wait makes the rule explicit)
+            if inflight.done is not None:
+                inflight.done.synchronize()
+            replay = self._launch_cycle(
+                inflight.profile, inflight.batch_infos, inflight.cycle_id
+            )
+            return self._finish_cycle(replay)
+        return self._finish_cycle(inflight)
+
     def _profile_cycle(
         self, profile: C.Profile, batch_infos: list[QueuedPodInfo]
     ) -> dict[str, int]:
-        """Serial cycle: launch + sync back-to-back (the reference's fully
-        serialized scheduling cycle)."""
+        """Serial cycle: launch + complete back-to-back (the reference's
+        fully serialized scheduling cycle)."""
         return self._finish_cycle(
             self._launch_cycle(profile, batch_infos, self.metrics.cycles)
         )
@@ -355,49 +653,103 @@ class Scheduler:
         profile: C.Profile,
         batch_infos: list[QueuedPodInfo],
         cycle_id: int,
-    ) -> _LaunchedCycle:
-        """Snapshot → encode → upload → launch the assign engine."""
+        static: "rt.StaticBatch | None" = None,
+        pipelined: bool = False,
+        pre_encode_s: float = 0.0,
+    ) -> _InflightCycle:
+        """Snapshot → encode (or finalize a pre-encoded StaticBatch, whose
+        stage 1 took ``pre_encode_s``) → launch the assign engine. Does NOT
+        wait for the device: on a CUDA device the engine's kernels are
+        queued and a CUDA event marks their end; ``_finish_cycle``
+        waits on it."""
         try:
             t_snap = time.perf_counter()
             self._snapshot = self.cache.update_snapshot(self._snapshot)
             pods = [info.pod for info in batch_infos]
             t_enc = time.perf_counter()
-            sb = rt.encode_batch_static(
-                self._snapshot, pods, profile, prev_nt=self._prev_nt,
-                track_changes=False,
-            )
-            t_up = time.perf_counter()
-            batch = rt.finalize_batch(sb, self.device)
-            self._sync()
-            t_dev = time.perf_counter()
+            batch = None
+            if static is not None:
+                batch = self._finalize_static(static)
+            if batch is None:
+                sb = rt.encode_batch_static(
+                    self._snapshot, pods, profile, prev_nt=self._prev_nt,
+                    cache=self.encode_cache, track_changes=self.pipeline,
+                )
+                t_fin = time.perf_counter()
+                pre_encode_s = t_fin - t_enc
+                batch = rt.finalize_batch(
+                    sb, self._snapshot, resident=self._resident,
+                    device=self.device,
+                )
+            else:
+                t_fin = t_enc
+            stage2_s = time.perf_counter() - t_fin
             self._prev_nt = batch.node_tensors
             params = rt.score_params(profile, batch.resource_names)
+            started = done = None
+            if self.device.type == "cuda":
+                started = torch.cuda.Event(enable_timing=True)
+                done = torch.cuda.Event(enable_timing=True)
+                started.record()
+            t_dev = time.perf_counter()
             assignments, _ = self._assign_device(batch.device, params)
+            if done is not None:
+                done.record()
             timing = CycleTiming(
                 cycle=cycle_id, pods=len(batch_infos),
-                snapshot_s=t_enc - t_snap, encode_s=t_up - t_enc,
-                upload_s=t_dev - t_up, kernel_s=0.0,
+                snapshot_s=t_enc - t_snap, pre_encode_s=pre_encode_s,
+                finalize_s=stage2_s - batch.upload_s, upload_s=batch.upload_s,
+                # on the CPU the engine ran synchronously just now
+                kernel_s=time.perf_counter() - t_dev if done is None else 0.0,
                 upload_bytes=batch.upload_bytes,
+                node_upload_bytes=batch.node_upload_bytes,
+                resident_bytes=batch.resident_bytes,
                 rounds=self._rounds if self.engine == "batched" else 0,
+                pipelined=pipelined,
             )
-            return _LaunchedCycle(
+            # everything the launched work saw is now folded in; any LATER
+            # host-state refresh that finds changes flips this
+            self._inflight_stale = False
+            return _InflightCycle(
                 profile=profile, batch_infos=batch_infos, batch=batch,
-                assignments=assignments, timing=timing, t_dev=t_dev,
+                assignments=assignments, cycle_id=cycle_id, timing=timing,
+                ns_gen=self._snapshot.namespaces_generation,
+                vol_gen=self._snapshot.volumes_generation,
+                started=started, done=done,
             )
         except Exception:
             self._requeue_error(batch_infos)
             raise
 
-    def _finish_cycle(self, launched: _LaunchedCycle) -> dict[str, int]:
-        """Sync the device result and run the host half of the cycle:
-        assume + bind, failure handling."""
-        batch_infos = launched.batch_infos
-        batch = launched.batch
-        timing = launched.timing
+    def _finalize_static(
+        self, static: "rt.StaticBatch"
+    ) -> "rt.EncodedBatch | None":
+        """Pipeline stage 2: patch a pre-encoded StaticBatch against the
+        post-assume cluster state. None = unusable (fall back to a full
+        encode)."""
+        if not rt.refresh_static(static, self._snapshot):
+            return None
         try:
-            self._sync()
-            timing.kernel_s = time.perf_counter() - launched.t_dev
-            idx = launched.assignments.cpu().numpy()
+            return rt.finalize_batch(
+                static, self._snapshot, resident=self._resident,
+                device=self.device,
+            )
+        except rt.StaleStaticEncode:
+            return None
+
+    def _finish_cycle(self, inflight: _InflightCycle) -> dict[str, int]:
+        """Wait for the device result and run the host half of the cycle:
+        assume + bind, failure handling."""
+        batch_infos = inflight.batch_infos
+        batch = inflight.batch
+        timing = inflight.timing
+        try:
+            t_wait = time.perf_counter()
+            if inflight.done is not None:
+                inflight.done.synchronize()
+                timing.kernel_s = inflight.started.elapsed_time(inflight.done) / 1e3
+            idx = inflight.assignments.cpu().numpy()
+            timing.wait_s = time.perf_counter() - t_wait
         except Exception:
             self._requeue_error(batch_infos)
             raise
@@ -417,7 +769,7 @@ class Scheduler:
         self.metrics.scheduled += scheduled
         self.metrics.unschedulable += len(failed)
         for info in failed:
-            self._handle_unschedulable(info, launched.profile)
+            self._handle_unschedulable(info, inflight.profile)
         return {"scheduled": scheduled, "unschedulable": len(failed)}
 
     def _assume_and_bind(self, info: QueuedPodInfo, node_name: str) -> bool:

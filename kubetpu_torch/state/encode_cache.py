@@ -1,22 +1,124 @@
-"""The pieces of ``kubetpu/state/encode_cache.py`` the port's encoders need.
+"""Cross-cycle encode cache — event-time, template-keyed pod tensorization.
 
-The encoder builds a ``NodeCtx`` per batch when no encode cache is in use
-(``encoder.encode_pod_batch``); the inter-pod affinity encoder
-(``state.podaffinity``) groups the assigned pods by template
-(``collect_pod_groups`` and its helpers). The cross-cycle ``EncodeCache``
-itself is not ported (ROADMAP Queue A item 5): the port's scheduler encodes
-every batch afresh, so every ``cache`` argument here is None.
+Without it the tensorization layer rebuilds every static per-pod row from
+scratch each cycle, while the device side (the resident node block and its
+dirty-row scatter) is already O(Δ). This module makes the host side O(Δ)
+too, in three layers:
+
+1. **Event-time pre-encoding** — the scheduler's informer handlers
+   (``on_pod_add``/``on_pod_update``) call ``precompute_pod`` when a pending
+   pod is delivered, so its static rows (filter mask, NodeAffinity /
+   TaintToleration score rows, request row) are built OFF the cycle
+   critical path. Cycle-time ``encode_pod_batch`` then *gathers* rows out
+   of this cache instead of rebuilding them.
+2. **Template-keyed row sharing** — rows are keyed by the pod's *static
+   signatures* (``_static_filter_signature`` / ``_static_score_signature``
+   / the request tuple), not by pod identity: pods stamped from one
+   Deployment/Job template are spec-identical, so a 1000-pod burst from 3
+   templates encodes ~3 rows — shared across pods AND across cycles, with
+   an LRU bound and hit/miss counters (``stats()``).
+3. **Invalidation by construction** — a row is a pure function of its
+   signature key plus the node static facts, so pod mutation can never
+   leave a stale row behind (a mutated pod hashes to a *different* key);
+   node-side staleness is handled by an epoch the scheduler bumps on every
+   node add/update/delete (``invalidate_nodes``), which clears the
+   node-dependent caches wholesale. Rows involving per-batch coupled state
+   (volumes, DRA, folded singleton scalars, in-batch RWOP duplicates) are
+   never cached here — the batch encoder layers those onto a *copy* of the
+   cached base row.
+
+The persistent inter-pod-affinity / topology-spread term caches
+(``aff_row_specs``, ``match``, ``sel_counts``) live here too: they memoize
+the per-*template* term→row specs and selector-match verdicts that
+``state.podaffinity`` / ``state.spread`` previously recomputed per existing
+pod per cycle. Namespace-label changes clear the match caches (affinity
+namespaceSelectors match against namespace labels).
 """
 
-# Port copy of NodeCtx, build_node_ctx, template_key, groups_for,
-# pod_gids_for, collapse_label_groups and collect_pod_groups from
-# kubetpu/state/encode_cache.py, verbatim.
+# Port copy of kubetpu/state/encode_cache.py, verbatim apart from this note,
+# the module docstring's first paragraph and the Prometheus mirror, which is
+# not ported: ``EncodeCache`` takes no ``metrics`` registry and has no
+# ``flush_metrics`` (the counters stay plain ints, read through ``stats()``
+# and ``hit_rate()``).
 
 from __future__ import annotations
 
+import collections
 from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
+
+
+_MISSING = object()
+
+
+class _LRU:
+    """Tiny bounded mapping: least-recently-USED eviction via OrderedDict
+    (get refreshes recency). Eviction is always safe — every entry can be
+    rebuilt from its key."""
+
+    __slots__ = ("_d", "maxlen")
+
+    def __init__(self, maxlen: int) -> None:
+        self._d: "collections.OrderedDict" = collections.OrderedDict()
+        self.maxlen = maxlen
+
+    def get(self, key, default=None):
+        d = self._d
+        got = d.get(key, _MISSING)
+        if got is _MISSING:
+            return default
+        d.move_to_end(key)
+        return got
+
+    def put(self, key, value) -> None:
+        d = self._d
+        d[key] = value
+        d.move_to_end(key)
+        if len(d) > self.maxlen:
+            d.popitem(last=False)
+
+    def pop(self, key) -> None:
+        self._d.pop(key, None)
+
+    def clear(self) -> None:
+        self._d.clear()
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def __contains__(self, key) -> bool:
+        return key in self._d
+
+
+def template_key(pod) -> tuple:
+    """The pod's TEMPLATE identity: every spec fact the per-pod halves of
+    the spread/affinity encoders read. Pods stamped from one controller
+    template share it, so per-pod work collapses to per-template work.
+    Index [0:3] — (labels, namespace, affinity) — is what the existing-pod
+    group consumers (base sums, selector counts) key on."""
+    return (
+        pod.labels, pod.namespace, pod.affinity,
+        pod.topology_spread_constraints, pod.tolerations, pod.node_selector,
+    )
+
+
+class _BoundedMemo(dict):
+    """Plain-dict memo with a size bound enforced by wholesale clear —
+    for per-POD hot paths (uid → memo) where an OrderedDict's per-get
+    recency bookkeeping costs more than the occasional full recompute."""
+
+    __slots__ = ("maxlen",)
+
+    def __init__(self, maxlen: int) -> None:
+        super().__init__()
+        self.maxlen = maxlen
+
+    def put(self, key, value) -> None:
+        if len(self) >= self.maxlen:
+            self.clear()
+        self[key] = value
 
 
 @dataclass
@@ -52,16 +154,620 @@ def build_node_ctx(nt) -> NodeCtx:
     )
 
 
-def template_key(pod) -> tuple:
-    """The pod's TEMPLATE identity: every spec fact the per-pod halves of
-    the spread/affinity encoders read. Pods stamped from one controller
-    template share it, so per-pod work collapses to per-template work.
-    Index [0:3] — (labels, namespace, affinity) — is what the existing-pod
-    group consumers (base sums, selector counts) key on."""
-    return (
-        pod.labels, pod.namespace, pod.affinity,
-        pod.topology_spread_constraints, pod.tolerations, pod.node_selector,
+#: past this many cached rows a scoped extension costs more python than the
+#: full-miss storm it avoids — wholesale clear instead (templates in real
+#: workloads number in the dozens, so the cap only bites pathological keys)
+EXTEND_MAX_ENTRIES = 1024
+
+
+class EncodeCache:
+    """See module docstring. Single-owner like the scheduler loop: informer
+    callbacks and the encode path run on the loop thread.
+
+    ``scoped=True`` (default) keeps node-epoch invalidation SCOPED: a node
+    ADD (``invalidate_nodes(added=...)``) extends every cached row with the
+    appended nodes' columns at the next sync — O(templates × Δnodes) —
+    instead of clearing all node-dependent stores (at 100k nodes under an
+    autoscaler add-wave the wholesale clear was a full re-encode storm per
+    event). A node DELETE (``invalidate_nodes(removed=...)``) is scoped
+    too: the next sync maps the rebuilt tensors' node names back to the
+    old indices and COMPACTS every cached row by gathering the survivor
+    columns — rows are pure per-node functions, so the gather is
+    bit-identical to a fresh build (the drain-wave twin of the add-wave
+    extension; ROADMAP 5b). Only updates (facts change at an interior
+    index) and mixed add+remove waves still pay the full-epoch flush
+    through the bare ``invalidate_nodes()`` seam. ``scoped=False`` is the
+    escape hatch / A-B control: every epoch bump clears wholesale, the
+    pre-PR-14 behavior."""
+
+    def __init__(self, max_entries: int = 8192, scoped: bool = True) -> None:
+        self.max_entries = max_entries
+        self.scoped = scoped
+        self.extend_max_entries = EXTEND_MAX_ENTRIES
+        # --- node-fact versioning ---------------------------------------
+        # bumped by the scheduler on EVERY node add/update/delete; rows are
+        # valid only while built against (this epoch, this NodeTensors)
+        self.node_epoch = 0
+        # bumped only on FULL flushes (bare invalidate_nodes, or scoped
+        # off): the template-group index keys on this, so an add-wave
+        # extends its count vectors instead of rebuilding them wholesale
+        self._full_epoch = 0
+        self._pending_adds = 0        # scoped adds since the last sync
+        self._pending_removes = 0     # scoped removals since the last sync
+        self._pending_full = False    # a full flush is owed at next sync
+        self._nt_len = -1             # node count rows were built against
+        self._nt_token: object | None = None   # adopted NodeTensors
+        self._nt_epoch = -1                    # epoch rows were built at
+        self._ctx: NodeCtx | None = None
+        # --- template-keyed row stores ----------------------------------
+        self._filter_rows = _LRU(max_entries)  # key -> (row (N,) bool, trivial)
+        self._score_rows = _LRU(max_entries)   # key -> (na_vec, tt_vec)
+        self._request_rows = _LRU(max_entries)
+        self._req_token: tuple | None = None   # (axis tuple, folded frozenset)
+        # per-pod signature memo: uid -> (pod object, filter_sig, score_sig)
+        # — identity-checked so a replaced (mutated) pod can NEVER reuse the
+        # previous object's signatures
+        self._pod_sigs = _BoundedMemo(max_entries * 8)
+        # --- incremental template-group index ---------------------------
+        # per-node {group_key: count} + the node generation folded in, and
+        # the aggregated (N,) count vectors — pod_groups() refreshes only
+        # nodes whose generation moved (the snapshot's O(Δ) discipline
+        # extended to the template grouping pass)
+        self._groups_nt: object | None = None
+        self._groups_epoch = -1
+        self._group_vecs: dict = {}    # gid -> (N,) int64
+        self._group_node: dict = {}    # node name -> {gid: count}
+        self._group_gens: dict = {}
+        # template keys interned to small ints: the deep (labels, ns,
+        # affinity) hash is paid once per pod OBJECT (uid-memoized,
+        # identity-checked), not once per pod per cycle
+        self._group_ids: dict = {}     # (labels, ns, affinity) -> gid
+        self._group_keys: list = []    # gid -> key
+        self._pod_group_ids = _BoundedMemo(max_entries * 8)
+        # --- persistent affinity / spread term caches -------------------
+        self._ns_gen: int | None = None
+        # (affinity, ns) -> tuple of source-row specs (state.podaffinity)
+        self.aff_row_specs = _LRU(max_entries)
+        # (row_key, labels, ns) -> bool — does a pod shaped (labels, ns)
+        # drive / match this affinity row
+        self.match = _LRU(max_entries)
+        # (selector, labels) -> bool — countPodsMatchSelector verdict
+        self.sel_counts = _LRU(max_entries)
+        # --- counters (plain ints: hot-loop cheap; mirrored into the
+        # prom registry per cycle by flush_metrics) ----------------------
+        self.hits: collections.Counter = collections.Counter()
+        self.misses: collections.Counter = collections.Counter()
+        self.invalidations = 0
+        # re-encode work accounting (the node-wave evidence): bytes of rows
+        # built from scratch on a miss vs bytes of delta columns appended
+        # by scoped extensions, and how many syncs extended vs flushed
+        self.rebuilt_bytes = 0
+        self.extended_bytes = 0
+        self.scoped_extensions = 0
+        self.scoped_removals = 0
+        self.compacted_bytes = 0      # row bytes dropped by removal gathers
+
+    # ------------------------------------------------------------ epochs
+    def invalidate_nodes(self, added=None, removed=None) -> None:
+        """A node event landed. Bare call — the BLESSED full-epoch seam
+        for updates: every node-dependent row is suspect and the next
+        sync clears wholesale. ``added=<node>`` — a scoped node ADD: the
+        next sync EXTENDS cached rows with the appended nodes' columns
+        instead of clearing. ``removed=<node>`` — a scoped node DELETE
+        (the drain wave): the next sync COMPACTS cached rows down to the
+        surviving nodes' columns by an old-index gather, falling back to
+        the wholesale clear when the wave turns out to be mixed
+        (graftcheck EC001 pins bare calls to the scheduler's node event
+        handlers so this scoping can't silently regress to a
+        flush-per-event storm). O(1) every way — all real work is
+        deferred to the next sync."""
+        self.node_epoch += 1
+        if removed is not None and self.scoped:
+            self._pending_removes += 1
+        elif added is not None and self.scoped:
+            self._pending_adds += 1
+        else:
+            self._pending_full = True
+            self._full_epoch += 1
+
+    def sync_nodes(self, nt) -> bool:
+        """Adopt ``nt`` (the NodeTensors the current encode runs against).
+        When every epoch bump since the last sync was a scoped ADD and the
+        encoder extended the SAME tensors object in place, cached rows are
+        extended with the appended nodes' columns (O(templates × Δ));
+        otherwise the node-dependent stores clear wholesale. Returns True
+        when a wholesale invalidation happened (for the encode span's
+        trace attrs)."""
+        if (
+            self._nt_token is nt
+            and self._nt_epoch == self.node_epoch
+            and self._nt_len == nt.num_nodes
+        ):
+            return False
+        # same-object growth is append-only BY CONSTRUCTION: the encoder
+        # mutates tensors in place only when the old rows are a preserved
+        # prefix. Gating on observed growth (not just the pending-add
+        # counter) also covers appends that bypass the node informer —
+        # e.g. a placeholder node born from an assigned pod on an
+        # unknown node.
+        if (
+            self.scoped
+            and not self._pending_full
+            and not self._pending_removes
+            and self._nt_token is nt
+            and 0 <= self._nt_len < nt.num_nodes
+            and (len(self._filter_rows) + len(self._score_rows))
+            <= self.extend_max_entries
+        ):
+            self._extend_rows(nt, self._nt_len)
+            self._nt_epoch = self.node_epoch
+            self._nt_len = nt.num_nodes
+            self._pending_adds = 0
+            self.scoped_extensions += 1
+            return False    # rows stayed valid — not an invalidation
+        # removal-only wave: deletes rebuild the tensors, so the NEW
+        # object's node names are mapped back to old indices and every
+        # cached row is compacted by a survivor gather — bit-identical to
+        # a fresh build (rows are pure per-node functions and no
+        # survivor's facts changed). Any name the old axis doesn't know
+        # (a mixed wave) falls through to the wholesale clear.
+        if (
+            self.scoped
+            and not self._pending_full
+            and self._pending_removes
+            and not self._pending_adds
+            and nt is not None
+            and self._nt_token is not None
+            and self._nt_token is not nt
+            and (len(self._filter_rows) + len(self._score_rows))
+            <= self.extend_max_entries
+        ):
+            keep = self._removal_keep(nt)
+            if keep is not None:
+                self._compact_rows(nt, keep)
+                self._nt_token = nt
+                self._nt_epoch = self.node_epoch
+                self._nt_len = nt.num_nodes
+                self._pending_removes = 0
+                self.scoped_removals += 1
+                return False    # rows stayed valid — not an invalidation
+        self._filter_rows.clear()
+        self._score_rows.clear()
+        self._ctx = None
+        invalidated = self._nt_token is not None
+        self._nt_token = nt
+        self._nt_epoch = self.node_epoch
+        self._nt_len = nt.num_nodes if nt is not None else -1
+        self._pending_adds = 0
+        self._pending_removes = 0
+        self._pending_full = False
+        if invalidated:
+            self.invalidations += 1
+        return invalidated
+
+    def _extend_rows(self, nt, start: int) -> None:
+        """Append the columns for nodes [start:) to every cached filter /
+        score row: each row is a pure function of (node facts, stored
+        pod's signature), so the delta columns are built against a VIEW of
+        only the appended nodes and concatenated — bit-identical to a
+        fresh full-width build, at O(templates × Δnodes) cost."""
+        from . import encoder as enc
+
+        d_nt = _delta_tensors(nt, start)
+        d_ctx = build_node_ctx(d_nt)
+        ctx = self._ctx
+        if ctx is not None:
+            ctx.node_taints.extend(d_ctx.node_taints)
+            ctx.tainted_nodes.extend(
+                (start + i, tt) for i, tt in d_ctx.tainted_nodes
+            )
+            ctx.node_unsched = np.concatenate(
+                [ctx.node_unsched, d_ctx.node_unsched]
+            )
+            ctx.any_unsched = bool(ctx.any_unsched or d_ctx.any_unsched)
+            if d_ctx.node_feature_sets is not None and (
+                ctx.node_feature_sets is None
+            ):
+                # first declaring node arrived in the delta: the hoist
+                # needs per-node sets for the OLD nodes too — rebuild
+                self._ctx = build_node_ctx(nt)
+            elif ctx.node_feature_sets is not None:
+                ctx.node_feature_sets.extend(
+                    d_ctx.node_feature_sets
+                    if d_ctx.node_feature_sets is not None
+                    else [set() for _ in range(nt.num_nodes - start)]
+                )
+        fd = self._filter_rows._d
+        for key in list(fd.keys()):
+            row, trivial, pod = fd[key]
+            _fsig, feat_req, _nn, unknown, f = key
+            delta = enc.build_static_filter_row(
+                d_nt, d_ctx, pod, f, feat_req, unknown
+            )
+            fd[key] = (
+                np.concatenate([row, delta]),
+                bool(trivial and delta.all()),
+                pod,
+            )
+            self.extended_bytes += delta.nbytes
+        sd = self._score_rows._d
+        for key in list(sd.keys()):
+            na, tt, pod = sd[key]
+            _ssig, want_na, want_tt = key
+            dna, dtt = enc.build_static_score_rows(
+                d_nt, d_ctx, pod, want_na, want_tt
+            )
+            sd[key] = (
+                np.concatenate([na, dna]), np.concatenate([tt, dtt]), pod,
+            )
+            self.extended_bytes += dna.nbytes + dtt.nbytes
+
+    def _removal_keep(self, nt) -> "np.ndarray | None":
+        """Map the rebuilt tensors' node names back to old row indices:
+        ``keep[j]`` = the old index of new node j. None when the mapping
+        is not a pure survivor gather — an unknown name means the wave
+        also ADDED a node (mixed: wholesale), and a stale old token
+        (mutated past the rows' length) can't be trusted as the source
+        axis."""
+        old_names = getattr(self._nt_token, "node_names", None)
+        if old_names is None or len(old_names) != self._nt_len:
+            return None
+        if nt.num_nodes >= len(old_names):
+            return None     # nothing was removed — not a drain wave
+        pos = {name: i for i, name in enumerate(old_names)}
+        keep = np.empty(nt.num_nodes, dtype=np.int64)
+        for j, name in enumerate(nt.node_names):
+            i = pos.get(name)
+            if i is None:
+                return None
+            keep[j] = i
+        return keep
+
+    def _compact_rows(self, nt, keep: np.ndarray) -> None:
+        """Gather the survivor columns out of every cached row (and the
+        hoisted node ctx / group count vectors): ``row[keep]`` reorders
+        old columns into the new axis order, which is bit-identical to
+        rebuilding each row against the new tensors because rows are
+        pure per-node functions and a removal-only wave changes no
+        survivor's facts."""
+        old_n = self._nt_len
+        ctx = self._ctx
+        if ctx is not None:
+            ctx.node_taints = [ctx.node_taints[i] for i in keep]
+            ctx.tainted_nodes = [
+                (j, tt) for j, tt in enumerate(ctx.node_taints) if tt
+            ]
+            ctx.node_unsched = ctx.node_unsched[keep]
+            ctx.any_unsched = bool(ctx.node_unsched.any())
+            if ctx.node_feature_sets is not None:
+                nfs = [ctx.node_feature_sets[i] for i in keep]
+                # fresh build_node_ctx collapses to None when no node
+                # declares features — match it so downstream branches
+                # (feature filter on/off) stay identical
+                ctx.node_feature_sets = nfs if any(nfs) else None
+        fd = self._filter_rows._d
+        for key in list(fd.keys()):
+            row, _trivial, pod = fd[key]
+            row2 = row[keep]
+            fd[key] = (row2, bool(row2.all()), pod)
+            self.compacted_bytes += max(row.nbytes - row2.nbytes, 0)
+        sd = self._score_rows._d
+        for key in list(sd.keys()):
+            na, tt, pod = sd[key]
+            na2, tt2 = na[keep], tt[keep]
+            sd[key] = (na2, tt2, pod)
+            self.compacted_bytes += max(
+                na.nbytes + tt.nbytes - na2.nbytes - tt2.nbytes, 0
+            )
+        # the incremental template-group index rides along: gather its
+        # count vectors and drop the removed nodes' per-node entries, so
+        # the next pod_groups() stays O(Δ) instead of re-deriving every
+        # node after the drain wave
+        if (
+            self._groups_nt is self._nt_token
+            and self._groups_epoch == self._full_epoch
+        ):
+            vecs = self._group_vecs
+            for gid, vec in list(vecs.items()):
+                if len(vec) < old_n:
+                    vec = np.concatenate(
+                        [vec, np.zeros(old_n - len(vec), dtype=np.int64)]
+                    )
+                vecs[gid] = vec[keep]
+            gone = set(getattr(self._nt_token, "node_names", ())) - set(
+                nt.node_names
+            )
+            for name in gone:
+                self._group_node.pop(name, None)
+                self._group_gens.pop(name, None)
+            self._groups_nt = nt
+
+    def fresh_for(self, nt) -> bool:
+        """May event-time precompute build rows against ``nt`` right now?
+        Only when ``nt`` is the adopted tensors AND no node event landed
+        since they were encoded (a bumped epoch means ``nt`` no longer
+        reflects the node set — rows built from it would be stale)."""
+        return (
+            nt is not None
+            and self._nt_token is nt
+            and self._nt_epoch == self.node_epoch
+            and self._nt_len == nt.num_nodes
+        )
+
+    def node_ctx(self, nt) -> NodeCtx:
+        ctx = self._ctx
+        if ctx is None or self._nt_token is not nt:
+            ctx = build_node_ctx(nt)
+            if self._nt_token is nt:
+                self._ctx = ctx
+        return ctx
+
+    def sync_namespaces(self, ns_gen: int) -> None:
+        """Namespace labels feed affinity-term namespaceSelectors — any
+        namespace change invalidates the persistent match verdicts."""
+        if self._ns_gen != ns_gen:
+            if self._ns_gen is not None:
+                self.match.clear()
+                self.invalidations += 1
+            self._ns_gen = ns_gen
+
+    def sync_request_axis(self, axis: tuple, folded: frozenset) -> None:
+        """Request rows are laid out on the batch's resource axis; the
+        ``unknown`` flag additionally depends on the folded set. A changed
+        (axis, folded) token clears the request-row store."""
+        token = (axis, folded)
+        if self._req_token != token:
+            self._request_rows.clear()
+            self._req_token = token
+
+    # ----------------------------------------------------- row accessors
+    # Entries carry a representative POD alongside the row: any pod whose
+    # signature hashes to the key rebuilds the identical row (rows are pure
+    # functions of the key + node facts), which is what lets a scoped node
+    # ADD extend cached rows with freshly built delta columns.
+    def filter_row(self, key, build: Callable[[], np.ndarray], pod=None):
+        """(row, trivial) for a pure-static filter signature key."""
+        got = self._filter_rows.get(key)
+        if got is not None:
+            self.hits["filter"] += 1
+            return got[0], got[1]
+        self.misses["filter"] += 1
+        row = build()
+        self.rebuilt_bytes += row.nbytes
+        entry = (row, bool(row.all()))
+        self._filter_rows.put(key, entry + (pod,))
+        return entry
+
+    def score_row(self, key, build: Callable[[], tuple], pod=None):
+        got = self._score_rows.get(key)
+        if got is not None:
+            self.hits["score"] += 1
+            return got[0], got[1]
+        self.misses["score"] += 1
+        entry = build()
+        self.rebuilt_bytes += entry[0].nbytes + entry[1].nbytes
+        self._score_rows.put(key, entry + (pod,))
+        return entry
+
+    def request_row(self, key, build: Callable[[], tuple]):
+        got = self._request_rows.get(key)
+        if got is not None:
+            self.hits["request"] += 1
+            return got
+        self.misses["request"] += 1
+        entry = build()
+        self._request_rows.put(key, entry)
+        return entry
+
+    # ------------------------------------------------- per-pod signatures
+    def pod_sigs(self, pod) -> tuple:
+        """(filter_sig, score_sig) for ``pod``, memoized by uid and
+        verified by OBJECT IDENTITY — an informer update replaces the pod
+        object, so a stale memo can never answer for a mutated pod."""
+        from .encoder import _static_filter_signature, _static_score_signature
+
+        got = self._pod_sigs.get(pod.uid)
+        if got is not None and got[0] is pod:
+            self.hits["pod_sig"] += 1
+            return got[1], got[2]
+        self.misses["pod_sig"] += 1
+        fsig = _static_filter_signature(pod)
+        ssig = _static_score_signature(pod)
+        self._pod_sigs.put(pod.uid, (pod, fsig, ssig))
+        return fsig, ssig
+
+    def drop_pod(self, uid: str) -> None:
+        self._pod_sigs.pop(uid, None)
+        self._pod_group_ids.pop(uid, None)
+
+    # ------------------------------------------------ event-time pre-encode
+    def precompute_pod(self, nt, pod, enabled_filters, enabled_scores) -> bool:
+        """Event-time hook: build (or touch) the pod's static rows NOW, off
+        the cycle critical path. No-op unless ``fresh_for(nt)`` — after a
+        node event the rows must wait for the next cycle's re-adopt.
+        Returns True when the rows are present afterwards."""
+        from . import encoder as enc
+
+        if not self.fresh_for(nt):
+            return False
+        fsig, ssig = self.pod_sigs(pod)
+        ctx = self.node_ctx(nt)
+        f = enc.names.ALL_FILTERS if enabled_filters is None else enabled_filters
+        # request row first: its ``unknown`` verdict is part of the filter
+        # key (only possible once a batch has established the axis token)
+        unknown = False
+        if self._req_token is not None:
+            axis, folded = self._req_token
+            ridx = {r: i for i, r in enumerate(axis)}
+            key = (pod.requests, pod.nonzero, ())
+            entry = self.request_row(
+                key,
+                lambda: enc.build_request_row(pod, ridx, len(axis), folded, ()),
+            )
+            unknown = entry[2]
+        feat_req = (
+            pod.required_node_features
+            if enc.names.NODE_DECLARED_FEATURES in f else ()
+        )
+        fkey = (
+            fsig, feat_req,
+            pod.node_name if enc.names.NODE_NAME in f else "",
+            bool(unknown) and enc.names.NODE_RESOURCES_FIT in f,
+            f,   # the RESOLVED set — must match the batch encoder's key
+        )
+        self.filter_row(
+            fkey,
+            lambda: enc.build_static_filter_row(
+                nt, ctx, pod, f, feat_req, fkey[3]
+            ),
+            pod,
+        )
+        sc = (
+            enc.DEFAULT_SCORES if enabled_scores is None else enabled_scores
+        )
+        want_na = enc.names.NODE_AFFINITY in sc
+        want_tt = enc.names.TAINT_TOLERATION in sc
+        if want_na or want_tt:
+            skey = (ssig, want_na, want_tt)
+            self.score_row(
+                skey,
+                lambda: enc.build_static_score_rows(
+                    nt, ctx, pod, want_na, want_tt
+                ),
+                pod,
+            )
+        return True
+
+    # ------------------------------------------------ template-group index
+    def group_id_of(self, pod) -> int:
+        """Small-int id of the pod's TEMPLATE ``(labels, namespace,
+        affinity)`` — the deep key hash is paid once per pod OBJECT
+        (uid-memoized, identity-checked), after which template membership
+        is an int."""
+        got = self._pod_group_ids.get(pod.uid)
+        if got is not None and got[0] is pod:
+            return got[1]
+        key = template_key(pod)
+        gid = self._group_ids.get(key)
+        if gid is None:
+            gid = len(self._group_keys)
+            self._group_ids[key] = gid
+            self._group_keys.append(key)
+        self._pod_group_ids.put(pod.uid, (pod, gid))
+        return gid
+
+    def pod_groups(self, nt) -> dict:
+        """``collect_pod_groups(nt)``, maintained incrementally: only nodes
+        whose generation moved since the last call re-derive their
+        per-template counts (O(Δ nodes × pods-per-node) per cycle instead
+        of O(all assigned pods)). Rebuilt wholesale when the tensors were
+        replaced or a FULL-epoch flush landed (update/delete); scoped node
+        ADDS just grow the count vectors in place. Returned vectors are
+        LIVE index state — callers must not mutate them."""
+        if len(self._group_keys) > (1 << 16):
+            # template-id interning ran away (per-pod-unique labels): reset
+            # the whole index — gids are invalidated with it
+            self._group_ids = {}
+            self._group_keys = []
+            self._pod_group_ids.clear()
+            self._groups_nt = None
+        if self._groups_nt is not nt or self._groups_epoch != self._full_epoch:
+            self._group_vecs = {}
+            self._group_node = {}
+            self._group_gens = {}
+            self._groups_nt = nt
+            self._groups_epoch = self._full_epoch
+        N = nt.num_nodes
+        gens = nt.node_gens
+        vecs = self._group_vecs
+        # scoped node ADDS grow the node axis in place: extend the count
+        # vectors with zeros (appended nodes' pods fold in via the gens
+        # loop below — their generations are unseen)
+        for gid, vec in list(vecs.items()):
+            if len(vec) < N:
+                vecs[gid] = np.concatenate(
+                    [vec, np.zeros(N - len(vec), dtype=np.int64)]
+                )
+        for i, info in enumerate(nt.infos):
+            name = nt.node_names[i]
+            g = gens.get(name)
+            if self._group_gens.get(name) == g:
+                continue
+            old = self._group_node.get(name)
+            if old:
+                for gid, c in old.items():
+                    vec = vecs.get(gid)
+                    if vec is not None:
+                        vec[i] -= c
+            new: dict = {}
+            for q in info.pods.values():
+                gid = self.group_id_of(q)
+                new[gid] = new.get(gid, 0) + 1
+            for gid, c in new.items():
+                vec = vecs.get(gid)
+                if vec is None:
+                    vec = np.zeros(N, dtype=np.int64)
+                    vecs[gid] = vec
+                vec[i] += c
+            self._group_node[name] = new
+            self._group_gens[name] = g
+        return {
+            self._group_keys[gid]: v for gid, v in vecs.items() if v.any()
+        }
+
+    # ----------------------------------------------------------- metrics
+    def stats(self) -> dict:
+        h, m = sum(self.hits.values()), sum(self.misses.values())
+        return {
+            "hits": h,
+            "misses": m,
+            "hit_rate": (h / (h + m)) if (h + m) else None,
+            "entries": len(self._filter_rows) + len(self._score_rows)
+            + len(self._request_rows),
+            "invalidations": self.invalidations,
+            # re-encode work: bytes built from scratch on misses vs bytes
+            # appended by scoped extensions (the node-wave evidence the
+            # tier-1 scoped-vs-flush test and trace records assert on)
+            "rebuilt_bytes": self.rebuilt_bytes,
+            "extended_bytes": self.extended_bytes,
+            "scoped_extensions": self.scoped_extensions,
+            "scoped_removals": self.scoped_removals,
+            "compacted_bytes": self.compacted_bytes,
+        }
+
+    def hit_rate(self, kinds=("filter", "score", "request")) -> float | None:
+        h = sum(self.hits[k] for k in kinds)
+        m = sum(self.misses[k] for k in kinds)
+        return (h / (h + m)) if (h + m) else None
+
+
+def _delta_tensors(nt, start: int):
+    """A minimal NodeTensors VIEW over only the appended nodes
+    [start:num_nodes) — just what the static row builders consume (names,
+    infos, label machinery; resource arrays are not read by them). Fresh
+    vocabs: the view is self-contained, ids never leak into ``nt``."""
+    from .encoder import NodeTensors
+
+    d = nt.num_nodes - start
+    z2 = np.zeros((d, 0), dtype=np.int64)
+    sub = NodeTensors(
+        resource_names=[],
+        node_names=list(nt.node_names[start:]),
+        alloc=z2,
+        requested=z2,
+        nonzero_requested=z2,
+        pod_count=np.zeros(d, dtype=np.int32),
+        allowed_pods=np.zeros(d, dtype=np.int32),
+        infos=list(nt.infos[start:]),
     )
+    # intern the appended nodes' labels (the full build does this too) —
+    # requirement_mask treats an un-interned key as absent-on-every-node,
+    # which would extend selector/affinity rows with all-False columns
+    for info in sub.infos:
+        for k, v in info.node.labels:
+            sub.key_vocab.intern(k)
+            sub.val_vocab.intern(v)
+    return sub
 
 
 def groups_for(nt, cache, groups: dict | None = None) -> dict:
@@ -121,3 +827,5 @@ def collect_pod_groups(nt) -> dict:
                 groups[key] = vec
             vec[n_i] += 1
     return groups
+
+

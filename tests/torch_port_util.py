@@ -14,6 +14,7 @@ import enum
 import importlib
 
 import jax
+import torch
 
 import kubetpu  # noqa: F401  (x64 on before any kernel runs)
 from kubetpu.api import types as kt
@@ -148,3 +149,90 @@ def encoded_pair(cache, pending, profile):
     kb = krt.encode_batch(cache.update_snapshot(), pending, profile)
     kp = krt.score_params(profile, kb.resource_names)
     return kb.device, kp, port_batch_from_jax(kb.device), port_params(kp)
+
+
+def _assert_leaf_equal(x, y, name):
+    assert (x is None) == (y is None), name
+    if x is None:
+        return
+    assert x.dtype == y.dtype, name
+    assert tuple(x.shape) == tuple(y.shape), name
+    assert torch.equal(x.cpu(), y.cpu()), name
+
+
+def assert_batches_equal(a: "prt.DeviceBatch", b: "prt.DeviceBatch") -> None:
+    """Two port DeviceBatches agree leaf for leaf: presence, dtype, shape
+    and value, the affinity and spread leaves' tensors and flags included
+    (carry a kubetpu batch across with ``port_batch_from_jax`` first)."""
+    la, lb = prt.batch_leaves(a), prt.batch_leaves(b)
+    assert set(la) == set(lb)
+    for name, x in la.items():
+        y = lb[name]
+        if name not in prt.NESTED:
+            _assert_leaf_equal(x, y, name)
+            continue
+        assert (x is None) == (y is None), name
+        if x is None:
+            continue
+        _, fields, flags = prt.NESTED[name]
+        for f in fields:
+            _assert_leaf_equal(getattr(x, f), getattr(y, f), f"{name}.{f}")
+        for f in flags:
+            assert getattr(x, f) == getattr(y, f), f"{name}.{f}"
+
+
+class FakeClock:
+    """A clock the test advances by hand (backoff and flush timers)."""
+
+    def __init__(self):
+        self.t = 1000.0
+
+    def __call__(self):
+        return self.t
+
+    def tick(self, dt):
+        self.t += dt
+
+
+def scheduler_pair(max_batch=8, profile=None, **kw):
+    """kubetpu's Scheduler (greedy, synchronous binds, no flight recorder)
+    and the port's on the CPU, each with a bind-recording client that
+    echoes binds back through the informer seam (``client.deliver()``) and
+    a hand-driven clock. ``kw`` (``pipeline``, ``encode_cache``) goes to
+    both. Returns ``((ks, kc), (ps, pc))``."""
+    from kubetpu.framework import config as KC
+    from kubetpu.perf.runner import _Client as KClient
+    from kubetpu.sched.scheduler import Scheduler as KScheduler
+    from kubetpu_torch.perf.runner import _Client as PClient
+    from kubetpu_torch.sched import Scheduler as PScheduler
+
+    profile = profile or KC.Profile()
+    kc, pc = KClient(), PClient()
+    ks = KScheduler(kc, profile=profile, max_batch=max_batch, engine="greedy",
+                    dispatcher_workers=0, flight_recorder=False,
+                    clock=FakeClock(), **kw)
+    ps = PScheduler(pc, profile=to_port(profile), max_batch=max_batch,
+                    device="cpu", clock=FakeClock(), **kw)
+    kc.sched, pc.sched = ks, ps
+    return (ks, kc), (ps, pc)
+
+
+def drive(sched, client, max_batch=None, events=None, max_calls=200) -> dict:
+    """Run ``schedule_batch`` until three idle calls in a row, delivering
+    bind confirmations between calls; ``events`` ({call index: fn(sched)})
+    fire before that call — with the pipeline on, while a cycle is in
+    flight. A trailing in-flight cycle is completed. Returns the bound map
+    (pod name → node)."""
+    calls = idle = 0
+    while idle < 3 and calls < max_calls:
+        if events and calls in events:
+            events[calls](sched)
+        res = sched.schedule_batch(max_batch)
+        client.deliver()
+        calls += 1
+        busy = res["scheduled"] or res["unschedulable"]
+        idle = 0 if busy else idle + 1
+    if sched._inflight is not None:
+        sched._complete_inflight()
+        client.deliver()
+    return dict(client.bound)
