@@ -38,8 +38,10 @@ final ``ok`` line is not printed):
    past N), and a SchedulingBasic resident block after a delta refresh
    must equal a full upload of the same node tensors;
 4. main paths, each with the launch counts reset just before it and read
-   just after, through ``run_workload(..., device="cuda")`` on its
-   defaults (encode cache on, resident node block, serial cycle):
+   just after and a full garbage collection just before (the line counts
+   the full collections that fell inside the run), through
+   ``run_workload(..., device="cuda")`` on its defaults (encode cache on,
+   resident node block, serial cycle):
    ``SchedulingBasic/5000Nodes_10000Pods`` on the greedy engine,
    ``SchedulingPodAffinity/5000Nodes_5000Pods`` on the batched engine,
    ``TopologySpreading/5000Nodes_5000Pods`` on the batched engine,
@@ -73,6 +75,7 @@ two on one card within one call.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -1066,12 +1069,19 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
 
         sched._assign_device = first_cycle_recorder
 
+    # the earlier phases' and paths' garbage (each path's Scheduler holds
+    # a whole cluster in reference cycles) is collected now, not inside
+    # this path's spans; the line reports the full collections that still
+    # fell inside the run
+    gc.collect()
+    full0 = gc.get_stats()[2]["collections"]
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     res = run_workload(case, workload, engine=engine, device="cuda",
                        on_scheduler=observe, pipeline=pipeline)
     wall = time.perf_counter() - t0
     launches = dict(kernels.launch_counts)
+    full_collections = gc.get_stats()[2]["collections"] - full0
 
     sched = captured["sched"]
     if res.bound_total != expected or res.scheduled != res.measure_pods:
@@ -1105,7 +1115,8 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
             "encode_cache_hit_rate": res.encode_cache_hit_rate,
             "rounds_per_cycle": res.rounds_per_cycle,
             "rounds_by_cycle": rounds if engine == "batched" else None,
-            "run_s": wall, "launches": launches, "first_cycle_equal": True,
+            "run_s": wall, "gc_full_collections": full_collections,
+            "launches": launches, "first_cycle_equal": True,
             "first_spread_cycle_equal": True if "first_spread" in captured else None,
             "card": card, **extra,
         }
