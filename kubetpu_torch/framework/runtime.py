@@ -328,7 +328,6 @@ class EncodedBatch:
     num_nodes: int                  # real (unpadded) N
     num_pods: int                   # real (unpadded) P
     node_tensors: "enc.NodeTensors | None" = None
-    port_vocab: object | None = None
     # host→device bytes this encode shipped: the pod leaves plus the node
     # block's share, ``node_upload_bytes`` (the whole block without a
     # resident block; the dirty-row delta, or 0, with one)
@@ -608,8 +607,8 @@ class StaticBatch:
     previous cycle's device work runs, then ``finalize_batch`` patches in
     the assume-dependent slice (node resource rows via the resident block's
     delta upload, spread counts, affinity sums, in-use ports) after that
-    cycle's assumes land. (The reference's DRA, nomination and topology
-    fields belong to later slices.)"""
+    cycle's assumes land. (The reference's ``folded`` and its DRA,
+    nomination and topology fields belong to later slices.)"""
 
     pods: list
     profile: "C.Profile | None"
@@ -620,7 +619,6 @@ class StaticBatch:
     num_pods: int
     pad_nodes: int
     pad_pods: int
-    folded: frozenset
     want_na: bool
     want_tt: bool
     want_img: bool
@@ -759,7 +757,6 @@ def encode_batch_static(
         num_pods=P,
         pad_nodes=nt.alloc.shape[0],
         pad_pods=PP,
-        folded=folded,
         want_na=want_na,
         want_tt=want_tt,
         want_img=want_img,
@@ -951,7 +948,6 @@ def finalize_batch(
         num_nodes=N,
         num_pods=sb.num_pods,
         node_tensors=nt,
-        port_vocab=pb.port_vocab,
         upload_bytes=total_bytes - node_bytes + node_upload,
         node_upload_bytes=node_upload,
         resident_bytes=resident_bytes,

@@ -110,7 +110,7 @@ def _cycle_ms(timings: list) -> dict:
     }
 
 
-CACHE_KINDS = ("filter", "score", "request")
+_CACHE_KINDS = ("filter", "score", "request")
 
 
 def _cache_counts(sched) -> tuple[int, int]:
@@ -118,8 +118,8 @@ def _cache_counts(sched) -> tuple[int, int]:
     ec = sched.encode_cache
     if ec is None:
         return 0, 0
-    return (sum(ec.hits[k] for k in CACHE_KINDS),
-            sum(ec.misses[k] for k in CACHE_KINDS))
+    return (sum(ec.hits[k] for k in _CACHE_KINDS),
+            sum(ec.misses[k] for k in _CACHE_KINDS))
 
 
 def run_workload(
