@@ -36,10 +36,11 @@ namespaceSelectors match against namespace labels).
 """
 
 # Port copy of kubetpu/state/encode_cache.py, verbatim apart from this note,
-# the module docstring's first paragraph and the Prometheus mirror, which is
-# not ported: ``EncodeCache`` takes no ``metrics`` registry and has no
-# ``flush_metrics`` (the counters stay plain ints, read through ``stats()``
-# and ``hit_rate()``).
+# the module docstring's first paragraph, three docstring references to the
+# reference's own history, and the Prometheus mirror, which is not ported:
+# ``EncodeCache`` takes no ``metrics`` registry and has no ``flush_metrics``
+# (the counters stay plain ints, read through ``stats()`` and
+# ``hit_rate()``).
 
 from __future__ import annotations
 
@@ -174,11 +175,10 @@ class EncodeCache:
     old indices and COMPACTS every cached row by gathering the survivor
     columns — rows are pure per-node functions, so the gather is
     bit-identical to a fresh build (the drain-wave twin of the add-wave
-    extension; ROADMAP 5b). Only updates (facts change at an interior
+    extension). Only updates (facts change at an interior
     index) and mixed add+remove waves still pay the full-epoch flush
     through the bare ``invalidate_nodes()`` seam. ``scoped=False`` is the
-    escape hatch / A-B control: every epoch bump clears wholesale, the
-    pre-PR-14 behavior."""
+    escape hatch / A-B control: every epoch bump clears wholesale."""
 
     def __init__(self, max_entries: int = 8192, scoped: bool = True) -> None:
         self.max_entries = max_entries
@@ -256,11 +256,11 @@ class EncodeCache:
         instead of clearing. ``removed=<node>`` — a scoped node DELETE
         (the drain wave): the next sync COMPACTS cached rows down to the
         surviving nodes' columns by an old-index gather, falling back to
-        the wholesale clear when the wave turns out to be mixed
-        (graftcheck EC001 pins bare calls to the scheduler's node event
-        handlers so this scoping can't silently regress to a
-        flush-per-event storm). O(1) every way — all real work is
-        deferred to the next sync."""
+        the wholesale clear when the wave turns out to be mixed (bare
+        calls belong only to the scheduler's node updates and resync
+        duplicates, so this scoping can't silently regress to a
+        flush-per-event storm). O(1) every way — all real work is deferred
+        to the next sync."""
         self.node_epoch += 1
         if removed is not None and self.scoped:
             self._pending_removes += 1
