@@ -39,7 +39,8 @@ final ``ok`` line is not printed):
    must equal a full upload of the same node tensors;
 4. main paths, each with the launch counts reset just before it and read
    just after and a full garbage collection just before (the line counts
-   the full collections that fell inside the run), through
+   the full collections that fell inside the run, and the seconds the
+   collector ran inside the measured phase), through
    ``run_workload(..., device="cuda")`` on its defaults (encode cache on,
    resident node block, serial cycle):
    ``SchedulingBasic/5000Nodes_10000Pods`` on the greedy engine,
@@ -788,8 +789,9 @@ def scatter_checks(results) -> dict:
     (1024 pods bound onto distinct nodes: the scatter path) against a full
     upload of the same NodeTensors. Returns the timing entry: the kernel,
     the plain version and six ``index_copy_`` calls on the in-range rows
-    (the library yardstick), and the bytes of the bound: the index and the
-    update slots read once, the in-range rows written once."""
+    (the library yardstick), and the bytes of the bound: the index read
+    once, the in-range slots' update rows read once and their block rows
+    written once (a pad slot's row is never read)."""
     import torch
 
     from kubetpu_torch import kernels
@@ -843,7 +845,7 @@ def scatter_checks(results) -> dict:
     M, R = idx.shape[0], nodes.alloc.shape[1]
     row_bytes = 3 * 8 * R + 4 + 4 + 1
     n_in = int(in_range.sum().item())
-    bytes_moved = 4 * M + M * row_bytes + n_in * row_bytes
+    bytes_moved = 4 * M + 2 * n_in * row_bytes
     return {
         "ms": cuda_ms(lambda: kernels.scatter_rows(nodes, idx, updates), 50),
         "plain_ms": cuda_ms(lambda: rt.scatter_node_rows_plain(nodes, idx, updates), 20),
@@ -1116,6 +1118,7 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
             "rounds_per_cycle": res.rounds_per_cycle,
             "rounds_by_cycle": rounds if engine == "batched" else None,
             "run_s": wall, "gc_full_collections": full_collections,
+            "gc_s_measured": res.gc_s,
             "launches": launches, "first_cycle_equal": True,
             "first_spread_cycle_equal": True if "first_spread" in captured else None,
             "card": card, **extra,
@@ -1127,8 +1130,10 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
         f"{res.node_upload_bytes_per_cycle:.0f} bytes a cycle against a "
         f"{res.resident_bytes}-byte block; encode cache hit rate "
         f"{res.encode_cache_hit_rate}; stage 1 {ms['pre_encode']:.3f} ms, stage 2 "
-        f"{ms['finalize']:.3f} ms, upload {ms['upload']:.3f} ms, kernel "
-        f"{ms['kernel']:.3f} ms, wait {ms['wait']:.3f} ms; {res.throughput:.1f} pods/s")
+        f"{ms['finalize']:.3f} ms (node encode {ms['nodes']:.3f} ms, staleness refreshes "
+        f"{ms['refresh']:.3f} ms), upload {ms['upload']:.3f} ms, kernel "
+        f"{ms['kernel']:.3f} ms, wait {ms['wait']:.3f} ms; {res.gc_s * 1e3:.1f} ms in the "
+        f"garbage collector; {res.throughput:.1f} pods/s")
     return launches, dict(sched.client.bound), res.throughput
 
 

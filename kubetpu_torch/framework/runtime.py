@@ -195,6 +195,9 @@ class DeviceBatch:
 
 
 NODE_FIELDS = tuple(f.name for f in dataclasses.fields(DeviceNodeState))
+# a resident block's delta in the upload: the dirty rows' index, then their
+# six rows (kernel B5's operands)
+DELTA_FIELDS = ("delta.idx",) + tuple("delta." + n for n in NODE_FIELDS)
 POD_FIELDS = tuple(
     f.name for f in dataclasses.fields(DeviceBatch) if f.name != "nodes"
 )
@@ -258,23 +261,25 @@ def upload_packed(
 
 def device_batch_from_numpy(
     leaves: Mapping[str, "np.ndarray | None"], device,
-    nodes: "DeviceNodeState | None" = None,
+    resident: "ResidentNodeState | None" = None,
+    delta: "Mapping[str, np.ndarray] | None" = None,
 ) -> DeviceBatch:
     """Build a DeviceBatch from numpy leaves keyed by the reference's field
     names (the node block's six names plus every DeviceBatch leaf), in ONE
     host→device copy (``upload_packed``). This is the port's
     ``jax.device_put`` — and how a test carries ``jax.device_get`` of
-    kubetpu's batch across. ``nodes``, when given, is a node block already
-    on the device (the resident block): the node leaves are then not read
-    and only the pod leaves are shipped.
+    kubetpu's batch across. ``resident``, when given, is a node block
+    already on the device: the node leaves are then not read, the pod
+    leaves are shipped, and ``delta`` (``resident.refresh``'s dirty rows)
+    rides the same copy and is scattered into the block right after it.
 
     The ``podaffinity`` and ``spread`` leaves are any objects with
     ``PodAffinityDevice``'s / ``SpreadDevice``'s attributes (kubetpu's, or
     the port encoders' ``PodAffinityTensors`` / ``SpreadTensors``); their
     arrays ride in the same buffer."""
     check_slice_leaves(leaves, "device_batch_from_numpy")
-    arrays = {}
-    for name in (NODE_FIELDS if nodes is None else ()) + POD_FIELDS:
+    arrays = dict(delta or {})
+    for name in (NODE_FIELDS if resident is None else ()) + POD_FIELDS:
         a = leaves.get(name)
         if a is None or name in LATER_SLICE_LEAVES or name in NESTED:
             continue
@@ -285,8 +290,12 @@ def device_batch_from_numpy(
             for f in fields:
                 arrays[name + "." + f] = getattr(obj, f)
     tensors = upload_packed(arrays, device)
-    if nodes is None:
+    if resident is None:
         nodes = DeviceNodeState(**{n: tensors[n] for n in NODE_FIELDS})
+    else:
+        if delta is not None:
+            resident.scatter(tensors)
+        nodes = resident.device
     pods = {n: tensors.get(n) for n in POD_FIELDS}
     for name, (cls, fields, flags) in NESTED.items():
         obj = leaves.get(name)
@@ -386,12 +395,14 @@ class ResidentNodeState:
     ``refresh(nt, num_nodes)`` brings the device block up to date with the
     host ``NodeTensors``: a full upload when the block doesn't exist yet or
     is not comparable (resource axis / padded capacity change), a dirty-row
-    scatter consuming ``nt.pending_device_rows`` in steady state — host→
+    delta consuming ``nt.pending_device_rows`` in steady state — host→
     device traffic O(Δ rows · R), not O(N · R) — and, when the encode was
     REBUILT but kept the same shape (node add/delete within a padding
     bucket), an *incremental reshard*: the old and new NodeTensors are
     diffed row-wise and only the rows that actually changed (plus the
-    validity boundary) are scattered.
+    validity boundary) are shipped. A delta is returned as numpy arrays,
+    not shipped: the caller packs them into the cycle's one host→device
+    copy and hands their device views to ``scatter``.
 
     The reference donates the old buffers to its scatter; torch has no
     donation, so the scatter writes in place into the resident tensors and
@@ -413,7 +424,7 @@ class ResidentNodeState:
     def nbytes(self) -> int:
         return _node_block_nbytes(self.device) if self.device is not None else 0
 
-    def _full_upload(self, nt: "enc.NodeTensors", num_nodes: int) -> DeviceNodeState:
+    def _full_upload(self, nt: "enc.NodeTensors", num_nodes: int) -> None:
         NC = nt.alloc.shape[0]
         node_valid = np.zeros(NC, dtype=bool)
         node_valid[:num_nodes] = True
@@ -430,7 +441,6 @@ class ResidentNodeState:
         self._num_nodes = num_nodes
         nt.pending_device_rows = set()   # start delta accumulation
         self.last_upload_bytes = _node_block_nbytes(dev)
-        return dev
 
     def _reshard_rows(
         self, nt: "enc.NodeTensors", num_nodes: int
@@ -457,19 +467,27 @@ class ResidentNodeState:
         rows.update(range(lo, hi))   # validity flips on the boundary
         return sorted(rows)
 
-    def refresh(self, nt: "enc.NodeTensors", num_nodes: int) -> DeviceNodeState:
+    def refresh(
+        self, nt: "enc.NodeTensors", num_nodes: int
+    ) -> "dict[str, np.ndarray] | None":
+        """Bring the block up to date with ``nt``. Returns None when that
+        is done (a full upload, or nothing to ship), else the dirty rows'
+        delta (``DELTA_FIELDS``) that ``scatter`` must write once shipped."""
         pending = nt.pending_device_rows
         if self.device is None or self._nt_token is None:
-            return self._full_upload(nt, num_nodes)
+            self._full_upload(nt, num_nodes)
+            return None
         if self._nt_token is not nt:
             # the encode was REBUILT (node add/delete/reorder): incremental
             # reshard when the block is still comparable, else full upload
             rows = self._reshard_rows(nt, num_nodes)
             if rows is None:
-                return self._full_upload(nt, num_nodes)
+                self._full_upload(nt, num_nodes)
+                return None
         elif pending is None:
             # same tensors object but no delta bookkeeping: be safe
-            return self._full_upload(nt, num_nodes)
+            self._full_upload(nt, num_nodes)
+            return None
         else:
             rows_set = set(pending)
             if self._num_nodes != num_nodes:
@@ -481,7 +499,7 @@ class ResidentNodeState:
                 rows_set.update(range(lo, hi))
             if not rows_set:
                 self.last_upload_bytes = 0
-                return self.device
+                return None
             rows = sorted(rows_set)
         nt.pending_device_rows = set()
         self._nt_token = nt
@@ -489,23 +507,22 @@ class ResidentNodeState:
             # reshard diff found nothing to ship (values identical)
             self.last_upload_bytes = 0
             self._num_nodes = num_nodes
-            return self.device
+            return None
         if 2 * len(rows) >= num_nodes:
             # dense update: a full contiguous upload beats a scatter
-            return self._full_upload(nt, num_nodes)
-        valid_of = np.asarray(rows, dtype=np.int64) < num_nodes
+            self._full_upload(nt, num_nodes)
+            return None
         self._num_nodes = num_nodes
-        self._scatter_single(nt, rows, valid_of, nt.alloc.shape[0])
-        return self.device
+        return self._delta(nt, rows, num_nodes)
 
-    def _scatter_single(
-        self, nt: "enc.NodeTensors", rows: list, valid_of: np.ndarray, NC: int
-    ) -> None:
-        """Ship the dirty rows — the index row padded to a bucket with NC
-        (dropped) and the six update arrays, in one copy — and scatter
-        them into the block in place."""
+    def _delta(
+        self, nt: "enc.NodeTensors", rows: list, num_nodes: int
+    ) -> dict[str, np.ndarray]:
+        """The dirty rows as ``DELTA_FIELDS`` arrays: the index row padded
+        to a bucket with the padded node count (dropped by the scatter) and
+        the six update arrays."""
         pad = enc.round_up(len(rows))
-        idx = np.full(pad, NC, dtype=np.int32)   # pad rows → dropped writes
+        idx = np.full(pad, nt.alloc.shape[0], dtype=np.int32)
         idx[: len(rows)] = rows
 
         def deltas(a: np.ndarray) -> np.ndarray:
@@ -514,21 +531,26 @@ class ResidentNodeState:
             return u
 
         u_vd = np.zeros(pad, dtype=bool)
-        u_vd[: len(rows)] = valid_of
-        arrays = dict(
-            idx=idx,
-            alloc=deltas(nt.alloc),
-            requested=deltas(nt.requested),
-            nonzero_requested=deltas(nt.nonzero_requested),
-            pod_count=deltas(nt.pod_count),
-            allowed_pods=deltas(nt.allowed_pods),
-            node_valid=u_vd,
-        )
-        up = upload_packed(arrays, self.where)
-        scatter_node_rows(
-            self.device, up["idx"], tuple(up[n] for n in NODE_FIELDS)
-        )
+        u_vd[: len(rows)] = np.asarray(rows, dtype=np.int64) < num_nodes
+        arrays = dict(zip(DELTA_FIELDS, (
+            idx,
+            deltas(nt.alloc),
+            deltas(nt.requested),
+            deltas(nt.nonzero_requested),
+            deltas(nt.pod_count),
+            deltas(nt.allowed_pods),
+            u_vd,
+        )))
         self.last_upload_bytes = sum(int(a.nbytes) for a in arrays.values())
+        return arrays
+
+    def scatter(self, tensors: Mapping[str, torch.Tensor]) -> None:
+        """Write a shipped delta (``DELTA_FIELDS`` views on the block's
+        device) into the block in place: kernel B5."""
+        scatter_node_rows(
+            self.device, tensors[DELTA_FIELDS[0]],
+            tuple(tensors[n] for n in DELTA_FIELDS[1:]),
+        )
 
 
 def _resource_weights(
@@ -621,7 +643,6 @@ class StaticBatch:
     pad_pods: int
     want_na: bool
     want_tt: bool
-    want_img: bool
     want_spread: bool
     want_interpod: bool
     img_sums: "np.ndarray | None"
@@ -641,6 +662,8 @@ class StaticBatch:
     # the EncodeCache (state.encode_cache) stage 1 encoded against; stage 2
     # reuses its persistent affinity/spread term caches and template groups
     cache: object | None = None
+    # wall seconds of stage 1's node-tensor encode (encode_snapshot)
+    nodes_s: float = 0.0
 
 
 def _check_slice_pods(pods: Sequence[t.Pod]) -> None:
@@ -712,10 +735,12 @@ def encode_batch_static(
     folded: frozenset = frozenset()
     if resource_names is None:
         resource_names, folded = enc.batch_resource_axis(snapshot, pods)
+    t_nodes = time.perf_counter()
     nt = enc.encode_snapshot(
         snapshot, resource_names=resource_names, pods=pods, pad_nodes=NP,
         prev=prev_nt, track_changes=track_changes,
     )
+    nodes_s = time.perf_counter() - t_nodes
     enabled = (
         frozenset(profile.filters.names()) if profile is not None else None
     )
@@ -759,7 +784,6 @@ def encode_batch_static(
         pad_pods=PP,
         want_na=want_na,
         want_tt=want_tt,
-        want_img=want_img,
         want_spread=want_spread,
         want_interpod=want_interpod,
         img_sums=img_sums,
@@ -769,6 +793,7 @@ def encode_batch_static(
         pod_valid=pod_valid,
         assume_coupled=bool(folded),
         cache=cache,
+        nodes_s=nodes_s,
     )
 
 
@@ -823,10 +848,11 @@ def finalize_batch(
     the CURRENT NodeInfo state (through the cache's template groups when
     stage 1 had a cache), in-use ports recomputed when node rows moved
     since stage 1, and the node block delta-uploaded into ``resident``
-    when given (else shipped whole). The pod leaves, the affinity rows and
-    the spread tensors travel in one host→device copy
-    (``device_batch_from_numpy``). Raises StaleStaticEncode when the
-    StaticBatch can't be patched (an unknown port triple)."""
+    when given (else shipped whole). The pod leaves, the affinity rows,
+    the spread tensors and the node block's dirty-row delta travel in one
+    host→device copy (``device_batch_from_numpy``); only a full upload of
+    the resident block is a copy of its own. Raises StaleStaticEncode when
+    the StaticBatch can't be patched (an unknown port triple)."""
     profile, pods, nt, pb = sb.profile, sb.pods, sb.nt, sb.pb
     N, PP, NC = sb.num_nodes, sb.pad_pods, sb.pad_nodes
     cache = sb.cache
@@ -899,11 +925,11 @@ def finalize_batch(
                 f"finalize_batch: device {device} but the resident block "
                 f"lives on {resident.where}"
             )
-        nodes = resident.refresh(nt, N)
+        delta = resident.refresh(nt, N)
         node_upload = resident.last_upload_bytes
         resident_bytes = resident.nbytes
     else:
-        nodes = None
+        delta = None
         resident_bytes = 0
     has_na = sb.want_na and pb.node_affinity_raw is not None
     has_tt = sb.want_tt and pb.taint_prefer_raw is not None
@@ -925,16 +951,16 @@ def finalize_batch(
             pb.score_sig
             if pb.score_sig is not None and (has_na or has_tt) else None
         ),
-        image_sum_scores=sb.img_sums if sb.want_img else None,
-        image_sig=sb.img_sig if sb.want_img else None,
-        image_count=sb.img_counts if sb.want_img else None,
+        image_sum_scores=sb.img_sums,
+        image_sig=sb.img_sig,
+        image_count=sb.img_counts,
         pod_ports=pb.pod_ports,
         node_ports=node_ports,
         port_conflict=pb.port_conflict,
         pod_priority=pb.priority,
         podaffinity=pa,
         spread=sp,
-    ), device, nodes=nodes)
+    ), device, resident=resident, delta=delta)
     upload_s = time.perf_counter() - t_up
     total_bytes = batch_nbytes(dev)
     node_bytes = _node_block_nbytes(dev.nodes)

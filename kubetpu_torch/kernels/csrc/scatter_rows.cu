@@ -9,10 +9,12 @@
 // [0, N) is a pad and its writes are dropped (the reference's
 // mode="drop").
 //
-// Bound: memory. The work reads idx and the M update rows once and writes
-// the in-range rows into the block once: 4 + 24 R + 9 bytes a slot read
-// and 24 R + 9 written (85 and 81 at R = 3, about 87 KB read for a
-// 1024-slot delta), so launch latency decides its time on the card.
+// Bound: memory. The work reads idx once, and for each in-range slot its
+// update row once and its block row written once: 4 bytes a slot, plus
+// 24 R + 9 read and 24 R + 9 written an in-range slot (81 each at R = 3;
+// a pad slot returns before it reads its row), about 167 KB in all for a
+// 1024-slot delta with 1008 rows in range, so launch latency decides its
+// time on the card.
 // Design: one thread per (slot, column) of the 3 R + 3 columns of a row,
 // slot-major, so neighbouring threads write neighbouring int64 columns of
 // one row; nothing is staged in shared memory and nothing is reduced.

@@ -13,6 +13,7 @@ seconds — the average the reference's threshold selector asserts on
 from __future__ import annotations
 
 import collections
+import gc
 import time
 from dataclasses import dataclass, field
 from typing import Callable
@@ -53,6 +54,10 @@ class WorkloadResult:
     # measured-phase encode-cache hit rate over filter, score and request
     # rows (None with the cache off or no lookup)
     encode_cache_hit_rate: float | None = None
+    # seconds the garbage collector ran inside the measured phase, and its
+    # full (generation 2) collections there
+    gc_s: float = 0.0
+    gc_full_collections: int = 0
 
     def to_json(self) -> dict:
         return {
@@ -69,7 +74,33 @@ class WorkloadResult:
             "pipeline": self.pipeline,
             "pipeline_replays": self.pipeline_replays,
             "encode_cache_hit_rate": self.encode_cache_hit_rate,
+            "gc_s": self.gc_s, "gc_full_collections": self.gc_full_collections,
         }
+
+
+class _GcClock:
+    """While entered: the seconds the garbage collector runs and its full
+    (generation 2) collections, through ``gc.callbacks``."""
+
+    def __init__(self) -> None:
+        self.seconds = 0.0
+        self.full = 0
+        self._t0: float | None = None
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.seconds += time.perf_counter() - self._t0
+            self.full += info["generation"] == 2
+            self._t0 = None
+
+    def __enter__(self) -> "_GcClock":
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        gc.callbacks.remove(self)
 
 
 class _Client:
@@ -106,7 +137,7 @@ def _cycle_ms(timings: list) -> dict:
     return {
         region: 1e3 * sum(getattr(c, region + "_s") for c in timings) / n
         for region in ("snapshot", "pre_encode", "finalize", "encode",
-                       "upload", "kernel", "wait", "bind")
+                       "nodes", "refresh", "upload", "kernel", "wait", "bind")
     }
 
 
@@ -165,6 +196,7 @@ def run_workload(
     attempts0 = cycles0 = timings0 = replays0 = 0
     cache0 = (0, 0)
     op_ns_counter = 0
+    gc_clock = _GcClock()
 
     def settle(target: int, namespaces: tuple[str, ...] = ()) -> tuple[int, float]:
         """Run cycles until ``target`` pods of the op's ``namespaces`` are
@@ -232,7 +264,11 @@ def run_workload(
                 sched.on_pod_add(template(f"{prefix}-{ns}-{j}", ns))
             if op.skip_wait:
                 continue
-            done, secs = settle(count, (ns,))
+            if op.collect_metrics:
+                with gc_clock:
+                    done, secs = settle(count, (ns,))
+            else:
+                done, secs = settle(count, (ns,))
             if op.collect_metrics:
                 measured += done
                 duration += secs
@@ -277,5 +313,7 @@ def run_workload(
         pipeline=pipeline,
         pipeline_replays=sched.metrics.pipeline_replays - replays0,
         encode_cache_hit_rate=hits / (hits + misses) if hits + misses else None,
+        gc_s=gc_clock.seconds,
+        gc_full_collections=gc_clock.full,
     )
     return result

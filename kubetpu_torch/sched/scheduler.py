@@ -85,7 +85,12 @@ class CycleTiming:
     affinity and spread encodes, the in-use ports), ``upload_s`` the
     host→device copies and the resident block's scatter, ``kernel_s`` the
     engine (between two CUDA events on a CUDA device), ``wait_s`` how long
-    the host blocked for the engine's result."""
+    the host blocked for the engine's result. Two sub-spans time the node
+    tensors' host encode (``encode_snapshot``): ``nodes_s`` stage 1's own,
+    ``refresh_s`` the pipelined cycle's staleness refreshes — the
+    ``_refresh_host_state`` in its stage 1 and the one that completes the
+    previous cycle, and ``refresh_static`` in its stage 2 (0 in the serial
+    cycle)."""
 
     cycle: int
     pods: int
@@ -96,6 +101,8 @@ class CycleTiming:
     kernel_s: float = 0.0
     wait_s: float = 0.0
     bind_s: float = 0.0
+    nodes_s: float = 0.0
+    refresh_s: float = 0.0
     upload_bytes: int = 0            # every host→device byte of the cycle
     node_upload_bytes: int = 0       # of which the node block's delta
     resident_bytes: int = 0          # the resident node block's size
@@ -247,6 +254,9 @@ class Scheduler:
         # found the cluster materially changed flips this; completion
         # replays
         self._inflight_stale = False
+        # seconds of staleness refreshes since the last launch (the next
+        # launch's CycleTiming.refresh_s)
+        self._refresh_s = 0.0
         self._last_flush = 0.0
 
     def warmup(self) -> None:
@@ -594,10 +604,12 @@ class Scheduler:
         nt = self._prev_nt
         if nt is None:
             return
+        t0 = time.perf_counter()
         new_nt = encode_snapshot(
             self._snapshot, resource_names=nt.resource_names, pods=(),
             pad_nodes=nt.alloc.shape[0], prev=nt,
         )
+        self._refresh_s += time.perf_counter() - t0
         if (
             new_nt is not nt
             or new_nt.last_values_changed
@@ -670,13 +682,14 @@ class Scheduler:
             batch = None
             if static is not None:
                 batch = self._finalize_static(static)
+                nodes_s = static.nodes_s
             if batch is None:
                 sb = rt.encode_batch_static(
                     self._snapshot, pods, profile, prev_nt=self._prev_nt,
                     cache=self.encode_cache, track_changes=self.pipeline,
                 )
                 t_fin = time.perf_counter()
-                pre_encode_s = t_fin - t_enc
+                pre_encode_s, nodes_s = t_fin - t_enc, sb.nodes_s
                 batch = rt.finalize_batch(
                     sb, self._snapshot, resident=self._resident,
                     device=self.device,
@@ -701,6 +714,7 @@ class Scheduler:
                 finalize_s=stage2_s - batch.upload_s, upload_s=batch.upload_s,
                 # on the CPU the engine ran synchronously just now
                 kernel_s=time.perf_counter() - t_dev if done is None else 0.0,
+                nodes_s=nodes_s, refresh_s=self._refresh_s,
                 upload_bytes=batch.upload_bytes,
                 node_upload_bytes=batch.node_upload_bytes,
                 resident_bytes=batch.resident_bytes,
@@ -710,6 +724,7 @@ class Scheduler:
             # everything the launched work saw is now folded in; any LATER
             # host-state refresh that finds changes flips this
             self._inflight_stale = False
+            self._refresh_s = 0.0
             return _InflightCycle(
                 profile=profile, batch_infos=batch_infos, batch=batch,
                 assignments=assignments, cycle_id=cycle_id, timing=timing,
@@ -727,7 +742,10 @@ class Scheduler:
         """Pipeline stage 2: patch a pre-encoded StaticBatch against the
         post-assume cluster state. None = unusable (fall back to a full
         encode)."""
-        if not rt.refresh_static(static, self._snapshot):
+        t0 = time.perf_counter()
+        fresh = rt.refresh_static(static, self._snapshot)
+        self._refresh_s += time.perf_counter() - t0
+        if not fresh:
             return None
         try:
             return rt.finalize_batch(

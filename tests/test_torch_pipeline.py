@@ -9,7 +9,9 @@ Modelled on ``tests/test_pipeline.py``:
 - a delta refresh of the resident block equals a full re-encode and ships
   the bytes kubetpu's ships; a clean refresh ships none; the dense-update
   fallback and the incremental reshard on node add and delete behave as
-  kubetpu's; ``refresh_static`` rejects a changed node set;
+  kubetpu's; a delta rides the pod leaves' host→device copy (one copy a
+  cycle), and only a full upload is a copy of its own; ``refresh_static``
+  rejects a changed node set;
 - the pipelined cycle binds pod for pod as the serial loop and as kubetpu's
   pipelined cycle on the SchedulingBasic, topology-spread, inter-pod
   affinity, preferred-spread and anti-affinity shapes (the last two fail if
@@ -17,10 +19,13 @@ Modelled on ``tests/test_pipeline.py``:
   batch's assumes land); a node update mid-pipeline is replayed (and keeps
   parity); bind confirmations are not;
 - the serial cycle on the defaults ships only dirty node rows once the
-  block is resident.
+  block is resident, and times its node encode's sub-spans; the runner's
+  garbage-collector clock counts what falls inside it.
 
 Tolerance: exact throughout.
 """
+
+import gc
 
 import numpy as np
 import pytest
@@ -37,6 +42,7 @@ from kubetpu.state.snapshot import Cache
 from kubetpu_torch import kernels
 from kubetpu_torch.framework import runtime as prt
 from kubetpu_torch.perf import run_workload
+from kubetpu_torch.perf.runner import _GcClock
 
 from .torch_port_util import drive, port_cache, scheduler_pair, to_port
 
@@ -198,6 +204,42 @@ def test_refresh_after_node_events_as_kubetpu(event):
         assert 0 < pair.pres.last_upload_bytes < block
 
 
+def _dirty_one(cache, conv):
+    cache.add_pod(conv(make_pod("one", cpu_milli=100, memory=1024**2, node_name="n2")))
+
+
+def _nothing(cache, conv):
+    pass
+
+
+@pytest.mark.parametrize("event, copies", [
+    (_dirty_one, 1), (_nothing, 1), (_dense, 2),
+], ids=["delta", "clean", "dense"])
+def test_host_to_device_copies_a_cycle(monkeypatch, event, copies):
+    """A delta rides the pod leaves' copy: one host→device copy a cycle;
+    only a full upload of the block (the first cycle, a dense update) is a
+    copy of its own."""
+    pair = _Pair(*_encode_state())
+    calls = []
+    real = prt.upload_packed
+
+    def counted(arrays, device):
+        calls.append(sorted(arrays))
+        return real(arrays, device)
+
+    monkeypatch.setattr(prt, "upload_packed", counted)
+    profile = to_port(KC.Profile())
+    snap = pair.pcache.update_snapshot()
+    first = prt.encode_batch(snap, pair.ppods, profile, resident=pair.pres, device="cpu")
+    assert len(calls) == 2
+    pair.apply(event)
+    calls.clear()
+    prt.encode_batch(pair.pcache.update_snapshot(snap), pair.ppods, profile,
+                     prev_nt=first.node_tensors, resident=pair.pres, device="cpu")
+    assert len(calls) == copies
+    assert ("delta.idx" in calls[-1]) == (event is _dirty_one)
+
+
 def test_refresh_static_rejects_node_set_change():
     cache, pods = _encode_state(num_nodes=10)
     pcache = port_cache(cache)
@@ -294,3 +336,21 @@ def test_defaults_ship_only_dirty_rows(pipeline):
     assert 0 < r.node_upload_bytes_per_cycle < r.resident_bytes / 2
     assert r.encode_cache_hit_rate is not None and r.encode_cache_hit_rate > 0.9
     assert r.pipeline_replays == 0
+    # the node encode's sub-spans: stage 1's own in both cycles, the
+    # staleness refreshes only in the pipelined one
+    assert 0 < r.cycle_ms["nodes"] < r.cycle_ms["pre_encode"]
+    assert (r.cycle_ms["refresh"] > 0) == pipeline
+    assert r.gc_s >= 0 and r.gc_full_collections >= 0
+
+
+def test_gc_clock_counts_collections():
+    """The runner's garbage-collector clock counts the full collections
+    and their time while entered, and nothing after."""
+    clock = _GcClock()
+    with clock:
+        gc.collect()
+        gc.collect(0)
+    assert clock.full == 1 and clock.seconds > 0
+    seconds = clock.seconds
+    gc.collect()
+    assert clock.full == 1 and clock.seconds == seconds
