@@ -36,7 +36,16 @@ final ``ok`` line is not printed):
    must equal ``scatter_node_rows_plain`` on a seeded 5120-row resident
    block (1000 dirty rows, 8 boundary rows flipping validity, pads at and
    past N), and a SchedulingBasic resident block after a delta refresh
-   must equal a full upload of the same node tensors;
+   must equal a full upload of the same node tensors; then preemption:
+   ``dry_run_preemption`` must equal ``dry_run_preemption_plain`` (node,
+   victims, ok, n_pdb) on seeded 5120-node victim tensors with 8 slots and
+   3 PDBs (PreemptionAsync's K) and with 128 slots and 5 PDBs, host ports
+   and many equal (priority, start) keys; ``filter_score``, ``greedy_scan``
+   and ``batched_round`` must equal their plain versions on a
+   PreemptionAsync-shaped 1024 x 5120 cycle with 64 nominations (state
+   slot 6 included); and ``filter_score``'s potential mode must equal the
+   evaluator's plain potential mask for failed pods of that cycle and for
+   pods of the mixed spread and affinity clusters;
 4. main paths, each with the launch counts reset just before it and read
    just after and a full garbage collection just before (the line counts
    the full collections that fell inside the run, and the seconds the
@@ -46,8 +55,14 @@ final ``ok`` line is not printed):
    ``SchedulingBasic/5000Nodes_10000Pods`` on the greedy engine,
    ``SchedulingPodAffinity/5000Nodes_5000Pods`` on the batched engine,
    ``TopologySpreading/5000Nodes_5000Pods`` on the batched engine,
-   ``PreferredTopologySpreading/5000Nodes_5000Pods`` on the greedy engine
-   and ``DefaultTopologySpreading/500Nodes`` on the greedy engine; each
+   ``PreferredTopologySpreading/5000Nodes_5000Pods`` on the greedy engine,
+   ``DefaultTopologySpreading/500Nodes`` on the greedy engine and
+   ``PreemptionAsync/5000Nodes`` on the greedy engine (its churn pods
+   preempt: at least one must nominate a node, every victim must have a
+   lower priority than its preemptor, ``dry_run_preemption`` must have
+   launched, and its first cycle with nominations must equal the plain
+   engine's; it prints ``preempt()``'s ms a call, split into upload,
+   potential mask, dry run and fetch); each
    checks that all its pods are bound, that no node exceeds its
    allocatable or its pod count, that its kernels were launched, and that
    the first cycle's kernel assignments (and the first cycle's with a
@@ -59,7 +74,11 @@ final ``ok`` line is not printed):
    node-upload bytes a cycle against the block, the encode cache's hit
    rate and the stage-1 / stage-2 spans. Then SchedulingBasic and
    PreferredTopologySpreading run again with ``pipeline=True``: their
-   bound maps must equal the serial runs', pod for pod;
+   bound maps must equal the serial runs', pod for pod; last, a seeded
+   preempt-then-schedule scenario under a stepped clock (500 nodes of four
+   priority-0 pods, 256 3-cpu preemptors, 300 default pods) runs on
+   ``cuda`` and on ``cpu``: bound maps, victims and nominations must be
+   equal and every preemptor bound;
 5. prints the kernels' JSON line, the card line, and the ``ok`` line last.
 
 Tolerance everywhere: exact (integer masks, scores and assignments).
@@ -436,11 +455,8 @@ def profiles():
 
 
 def encode(cache, pending, profile):
-    from kubetpu_torch.framework import runtime as rt
-
-    snap = cache.update_snapshot()
-    batch = rt.encode_batch(snap, pending, profile, device="cuda")
-    return batch.device, rt.score_params(profile, batch.resource_names)
+    batch, params = encode_batch_full(cache, pending, profile)
+    return batch.device, params
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -497,12 +513,10 @@ def _max_abs(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-STATE_SLOTS = (0, 1, 2, 3, 4, 5)   # node state, spread counts, affinity sums; 6 is None
-
-
 def _engine_err(name, ka, ks, pa, ps) -> int:
     """Largest difference between two engines' outputs; raises unless they
-    are equal (assignments and every state slot)."""
+    are equal (assignments and every state slot: node state, spread
+    counts, affinity sums, live nominations)."""
     import torch
 
     err = _max_abs(ka, pa)
@@ -510,7 +524,7 @@ def _engine_err(name, ka, ks, pa, ps) -> int:
     for i in range(7):
         if ks[i] is None and ps[i] is None:
             continue
-        if ks[i] is None or ps[i] is None or i not in STATE_SLOTS:
+        if ks[i] is None or ps[i] is None:
             raise AssertionError(f"{name}: state slot {i} differs in presence")
         err = max(err, _max_abs(ks[i], ps[i]))
         same = same and torch.equal(ks[i], ps[i])
@@ -854,6 +868,338 @@ def scatter_checks(results) -> dict:
     }
 
 
+# ------------------------------------------------ 3b. preemption (B9, B1n)
+def preemption_case(n_nodes=5000, n_pending=1024, n_nominated=64, seed=0):
+    """A PreemptionAsync-shaped cycle with nominations: node_default nodes
+    each holding four pod_low_priority pods (3.6 of 4 cpu), a batch of
+    pod_high_priority_3cpu preemptors, pod_default pods and a few
+    priority-5 pods with a host port, and ``n_nominated`` nominations: half
+    of batch pods, half of 3-cpu pods outside the batch (some holding the
+    same host port), each on a random node. Returns ``(cache, pending,
+    nominator)``."""
+    import numpy as np
+
+    from kubetpu_torch.api.wrappers import make_pod
+    from kubetpu_torch.perf import workloads as W
+    from kubetpu_torch.queue.nominator import Nominator
+
+    rng = np.random.default_rng(seed)
+    nodes = [W.node_default(i) for i in range(n_nodes)]
+    bound = [W.pod_low_priority(f"low-{j}", "init").with_node(nodes[j % n_nodes].name)
+             for j in range(4 * n_nodes)]
+    pending = []
+    for j in range(n_pending):
+        kind = j % 8
+        if kind == 0:
+            pending.append(W.pod_high_priority_3cpu(f"high-{j}", "churn"))
+        elif kind == 1:
+            pending.append(make_pod(f"mid-{j}", namespace="m", cpu_milli=100,
+                                    memory=500 * 1024**2, priority=5, host_ports=[8080]))
+        else:
+            pending.append(W.pod_default(f"d-{j}", "m"))
+    nom = Nominator()
+    half = n_nominated // 2
+    for j in rng.choice(n_pending, size=half, replace=False):
+        nom.add(pending[int(j)], nodes[int(rng.integers(0, n_nodes))].name)
+    for g in range(n_nominated - half):
+        kw = {"host_ports": [8080]} if g % 2 else {}
+        nom.add(make_pod(f"nominee-{g}", namespace="churn", cpu_milli=3000,
+                         memory=500 * 1024**2, priority=10, **kw),
+                nodes[int(rng.integers(0, n_nodes))].name)
+    return _cache_with(nodes, bound), pending, nom
+
+
+def encode_batch_full(cache, pending, profile, nominated=()):
+    """The EncodedBatch (the evaluator needs its host half too) and its
+    params, on the card."""
+    from kubetpu_torch.framework import runtime as rt
+
+    # no nominated= without nominations: --time-basic ROOT encodes with
+    # checkouts that predate it
+    kw = {"nominated": nominated} if nominated else {}
+    batch = rt.encode_batch(cache.update_snapshot(), pending, profile, device="cuda", **kw)
+    return batch, rt.score_params(profile, batch.resource_names)
+
+
+def victim_tensors(seed, N, K, D, R=3, Kp=4, pod_prio=25):
+    """Seeded arguments of dry_run_preemption on the card: N nodes of K
+    victim slots, D PDBs, Kp port triples; priorities and start times from
+    small sets, so equal (priority, start) pairs are common."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    v_valid = rng.random((N, K)) < 0.8
+    v_prio = (rng.integers(0, 4, (N, K)) * 10).astype(np.int64)
+    v_start = rng.integers(0, 3, (N, K)).astype(np.int64)
+    v_req = (rng.integers(0, 400, (N, K, R)) * v_valid[:, :, None]).astype(np.int64)
+    # about one holder of each triple a node, whatever K: a triple the
+    # preemptor wants that a higher-priority pod holds leaves no candidate
+    v_ports = ((rng.random((N, K, Kp)) < min(0.15, 1.0 / K))
+               & v_valid[:, :, None]).astype(np.int8)
+    v_pdb = (rng.random((N, K, D)) < 0.3) & v_valid[:, :, None]
+    requested = v_req.sum(1) + rng.integers(0, 100, (N, R))
+    alloc = requested + rng.integers(0, 300, (N, R))
+    pod_count = (v_valid.sum(1) + rng.integers(0, 2, N)).astype(np.int32)
+    allowed = (pod_count + rng.integers(0, 3, N)).astype(np.int32)
+    port_counts = (v_ports.sum(1) + (rng.random((N, Kp)) < 0.1)).astype(np.int32)
+    pdb_allowed = rng.integers(0, 3, D).astype(np.int64)
+    pod_req = rng.integers(0, 700, R).astype(np.int64)
+    wants = rng.random(Kp) < 0.3
+    potential = rng.random(N) < 0.8
+    arrays = (pod_req, pod_prio, wants, potential, alloc, requested, pod_count, allowed,
+              port_counts, v_valid, v_prio, v_start, v_req, v_ports, v_pdb, pdb_allowed)
+    return tuple(a if isinstance(a, int) else torch.from_numpy(a).cuda() for a in arrays)
+
+
+def dry_run_nbytes(args) -> int:
+    """Bytes the dry run must move: each tensor input read once, the
+    (N, K) victims, (N,) ok, (N,) n_pdb and the node index written once."""
+    N, K = args[9].shape
+    ins = sum(int(a.nbytes) for a in args if not isinstance(a, int))
+    return ins + N * K + N + 8 * N + 4
+
+
+def _dry_run_equal(name, args) -> tuple[int, dict]:
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.ops import preemption as OP
+
+    got = kernels.dry_run_preemption(*args)
+    want = OP.dry_run_preemption_plain(*args)
+    torch.cuda.synchronize()
+    err = 0
+    for what, g, w in zip(("node", "victims", "ok", "n_pdb"), got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{name}: dry_run_preemption {what} is {g.dtype} "
+                                 f"{tuple(g.shape)}, plain {w.dtype} {tuple(w.shape)}")
+        err = max(err, _max_abs(g.reshape(-1), w.reshape(-1)))
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}: dry_run_preemption {what} differs from the "
+                                 f"plain version (max abs err {err})")
+    info = {"node": int(got[0]), "candidates": int(got[2].sum().item()),
+            "victims": int(got[1][int(got[0])].sum().item()) if int(got[0]) >= 0 else 0}
+    log(f"kernels vs plain [{name}]: exact (node {info['node']}, "
+        f"{info['candidates']} candidate nodes, {info['victims']} victims)")
+    return err, info
+
+
+def preemption_checks(results) -> dict:
+    """Phase 3's preemption checks, on CUDA tensors, all exact:
+
+    - ``dry_run_preemption`` against ``dry_run_preemption_plain`` on seeded
+      5120-node victim tensors with PreemptionAsync's K = 8 slots and with
+      K = 128, D = 3 and 5 PDBs, host ports;
+    - ``filter_score``, the ``greedy_scan`` engine and the ``batched_round``
+      rounds against their plain versions on a PreemptionAsync-shaped
+      1024 x 5120 cycle with 64 nominations (B1n in the pair function);
+    - ``filter_score``'s potential mode against the plain potential mask
+      (``PreemptionEvaluator._potential_mask_plain``) for failed pods of
+      that cycle, and for pods of the mixed spread and affinity clusters.
+
+    Returns the timings: the dry run at both K (kernel, plain, bound), the
+    nominated cycle's ``filter_score`` against the same batch without its
+    nominations, and the potential mask (kernel, plain)."""
+    import dataclasses
+
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.framework import config as C
+    from kubetpu_torch.framework import runtime as rt
+    from kubetpu_torch.framework.preemption import PreemptionEvaluator
+    from kubetpu_torch.ops import preemption as OP
+
+    out = {}
+    err = 0
+    for name, (K, D, seed) in (("K=8", (8, 3, 0)), ("K=128", (128, 5, 1))):
+        args = victim_tensors(seed, 5120, K, D)
+        e, info = _dry_run_equal(f"dry_run_preemption {args[9].shape[0]} nodes x {K} "
+                                 f"slots, D={D}", args)
+        if info["candidates"] < 1:
+            raise AssertionError(f"dry_run_preemption {name}: the seeded tensors leave "
+                                 "no candidate node")
+        err = max(err, e)
+        results["dry_run_preemption"]["cases"].append(f"5120x{K} D={D}")
+        bound_ms, bound_by = _bound(dry_run_nbytes(args), 0)
+        out[name] = {
+            "ms": cuda_ms(lambda: kernels.dry_run_preemption(*args), 20),
+            "plain_ms": cuda_ms(lambda: OP.dry_run_preemption_plain(*args), 2),
+            "bytes": dry_run_nbytes(args), "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": [5120, K], **info,
+        }
+    results["dry_run_preemption"]["max_abs_err"] = err
+
+    # a PreemptionAsync-shaped cycle with nominations through all three
+    # kernels (the nominated fit and ports of the pair function)
+    cache, pending, nom = preemption_case()
+    batch, params = encode_batch_full(cache, pending, C.Profile(), nom.entries())
+    b = batch.device
+    if b.nominated_gate is None or not bool(b.nominated_gate.any()):
+        raise AssertionError("the nominated cycle carries no live nomination gate")
+    ka = check_case(f"PreemptionAsync {b.requests.shape[0]}x{b.alloc.shape[0]}, "
+                    f"{len(nom)} nominations", b, params, results)
+    bare = dataclasses.replace(b, **{f: None for f in rt.POD_FIELDS
+                                      if f.startswith("nominated_")})
+    P, N = b.requests.shape[0], b.alloc.shape[0]
+    out["nominated"] = {
+        "batch": f"PreemptionAsync {P}x{N}, G={len(nom)}",
+        "ms": cuda_ms(lambda: kernels.filter_score(b, params), 20),
+        "plain_ms": cuda_ms(lambda: rt.feasible_and_scores(b, params), 5),
+        "without_nominations_ms": cuda_ms(lambda: kernels.filter_score(bare, params), 20),
+        "bytes": rt.batch_nbytes(b) + P * N * (1 + 8),
+        "ops": P * N * f64_ops_per_pair(params, b),
+    }
+    out["nominated"]["bound_ms"], out["nominated"]["bound_by"] = _bound(
+        out["nominated"]["bytes"], out["nominated"]["ops"])
+
+    # the potential mask: kernel mode against the plain composition
+    def potential_equal(label, batch, params, pods):
+        ka_, ks = kernels.greedy_scan(batch.device, params)
+        ev = PreemptionEvaluator(
+            batch, params, requested=ks[0], pod_count=ks[2], spread_counts=ks[4],
+            pa_sums=ks[5], nominated_active=ks[6])
+        up = ev._upload(ev._potential_arrays())
+        worst, resolvable = 0, 0
+        for i in pods:
+            got = ev._potential_mask(i, up)
+            want = ev._potential_mask_plain(i, up)
+            torch.cuda.synchronize()
+            worst = max(worst, _max_abs(got, want))
+            if not torch.equal(got, want):
+                raise AssertionError(f"{label}: potential mask of pod {i} differs from "
+                                     f"the plain version")
+            resolvable += int(got.sum().item())
+        results["filter_score"]["cases"].append(f"potential mask: {label}")
+        log(f"kernels vs plain [potential mask, {label}]: exact on {len(pods)} pods "
+            f"({resolvable} resolvable node verdicts)")
+        return ev, up
+
+    failed = [i for i, j in enumerate(ka[: batch.num_pods].cpu().tolist()) if j < 0]
+    ev, up = potential_equal(f"PreemptionAsync {len(nom)} nominations", batch, params,
+                             failed[:24])
+    i0 = failed[0]
+    out["potential"] = {
+        "batch": f"PreemptionAsync 1x{N}",
+        "ms": cuda_ms(lambda: ev._potential_mask(i0, up), 20),
+        "plain_ms": cuda_ms(lambda: ev._potential_mask_plain(i0, up), 5),
+    }
+    for label, case, prof in (
+        ("mixed spread", spread_case(seed=3, n_nodes=1000, n_bound=1500, n_pending=128),
+         spread_profiles()["spread"]),
+        ("mixed affinity", affinity_case(seed=2, n_nodes=1000, n_bound=1500, n_pending=128),
+         C.Profile()),
+    ):
+        bt, pt = encode_batch_full(*case, prof)
+        potential_equal(label, bt, pt, list(range(0, bt.num_pods, 8)))
+    return out
+
+
+
+class SteppedClock:
+    """A clock the driver advances by hand (backoff and flush timers)."""
+
+    def __init__(self):
+        self.t = 1000.0
+
+    def __call__(self):
+        return self.t
+
+
+STEPPED = {"n_nodes": 500, "n_preemptors": 256, "n_default": 300, "calls": 24}
+
+
+def stepped_preemption_run(device: str, n_nodes: int, n_preemptors: int, n_default: int,
+                           calls: int) -> dict:
+    """A seeded preempt-then-schedule scenario under a stepped clock:
+    ``n_nodes`` node_default nodes each filled to 3.6 cpu by four
+    pod_low_priority pods, then ``n_preemptors`` pod_high_priority_3cpu pods
+    and ``n_default`` pod_default pods arrive at once; ``calls`` cycles,
+    the informer events delivered after each and the clock advanced 0.75 s.
+    Returns the bound map, the victims (name, reason), the nominations and
+    the metrics."""
+    from kubetpu_torch.perf import workloads as W
+    from kubetpu_torch.perf.runner import _Client
+    from kubetpu_torch.sched import Scheduler
+
+    client, clock = _Client(), SteppedClock()
+    sched = Scheduler(client, device=device, clock=clock)
+    client.sched = sched
+    sched.enable_preemption()
+    for i in range(n_nodes):
+        sched.on_node_add(W.node_default(i))
+    for j in range(4 * n_nodes):
+        sched.on_pod_add(W.pod_low_priority(f"low-{j}", "init").with_node(
+            f"scheduler-perf-{j % n_nodes}"))
+    for j in range(n_preemptors):
+        sched.on_pod_add(W.pod_high_priority_3cpu(f"high-{j}", "churn"))
+    for j in range(n_default):
+        sched.on_pod_add(W.pod_default(f"d-{j}", "m"))
+    for _ in range(calls):
+        sched.schedule_batch()
+        client.deliver()
+        clock.t += 0.75
+    return {
+        "bound": dict(client.bound),
+        "victims": [(p.name, reason) for p, reason in client.deleted],
+        "nominated": [(p.name, node) for p, node in client.nominated],
+        "attempts": sched.metrics.preemption_attempts,
+        "evictions": sched.metrics.preemption_victims,
+    }
+
+
+def stepped_preemption_phase() -> dict:
+    """The stepped scenario on ``cuda`` (launch counts read around it) and
+    on ``cpu`` (the plain versions): the bound maps, victims and
+    nominations must be equal, every preemptor bound, and every victim of
+    priority 0."""
+    from kubetpu_torch import kernels
+
+    gc.collect()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    gpu = stepped_preemption_run("cuda", **STEPPED)
+    t1 = time.perf_counter()
+    launches = dict(kernels.launch_counts)
+    cpu = stepped_preemption_run("cpu", **STEPPED)
+    t2 = time.perf_counter()
+    for key in ("bound", "victims", "nominated", "attempts", "evictions"):
+        if gpu[key] != cpu[key]:
+            raise AssertionError(f"stepped preemption: {key} on cuda differs from cpu")
+    highs = sum(1 for name in gpu["bound"] if name.startswith("high-"))
+    if highs != STEPPED["n_preemptors"] or not gpu["victims"]:
+        raise AssertionError(f"stepped preemption: {highs} of {STEPPED['n_preemptors']} "
+                             f"preemptors bound, {len(gpu['victims'])} victims")
+    if launches["dry_run_preemption"] < 1:
+        raise AssertionError("stepped preemption never launched dry_run_preemption")
+    line = {"stepped_preemption": {
+        "nodes": STEPPED["n_nodes"], "preemptors": STEPPED["n_preemptors"],
+        "bound": len(gpu["bound"]),
+        "victims": len(gpu["victims"]), "nominations": len(gpu["nominated"]),
+        "attempts": gpu["attempts"], "equal_cuda_cpu": True,
+        "cuda_s": t1 - t0, "cpu_s": t2 - t1, "launches": launches,
+    }}
+    log(json.dumps(line))
+    return launches
+
+
+def preemption_check(sched) -> dict:
+    """PreemptionAsync's own checks: at least one preemption nominated a
+    node, and every victim had a lower priority than the preemptor that
+    evicted it."""
+    client = sched.client
+    if not client.nominated:
+        raise AssertionError("PreemptionAsync: no preemption succeeded")
+    prio = {f"{p.namespace}/{p.name}": p.priority for p, _ in client.nominated}
+    for victim, reason in client.deleted:
+        key = reason[len("preempted by "):]
+        if key not in prio or not victim.priority < prio[key]:
+            raise AssertionError(f"PreemptionAsync: victim {victim.name} (priority "
+                                 f"{victim.priority}) of {key!r}")
+    return {"nominations": len(client.nominated), "evictions": len(client.deleted)}
+
+
 def kernels_phase():
     import torch
 
@@ -864,7 +1210,8 @@ def kernels_phase():
     from kubetpu_torch.framework import runtime as rt
 
     results = {k: {"cases": [], "max_abs_err": 0}
-               for k in ("filter_score", "greedy_scan", "batched_round", "scatter_rows")}
+               for k in ("filter_score", "greedy_scan", "batched_round", "scatter_rows",
+                         "dry_run_preemption")}
     # the SchedulingBasic cycle: the greedy main path's shapes and timings
     cache, pending = basic_case()
     b, params = encode(cache, pending, C.Profile())
@@ -943,6 +1290,13 @@ def kernels_phase():
     timing["batched_round"]["spread"] = _spread_timing(
         "TopologySpreading", *spread["TopologySpreading"], "batched_round")
     timing["scatter_rows"] = scatter_checks(results)
+    pre = preemption_checks(results)
+    timing["filter_score"]["nominated"] = pre["nominated"]
+    timing["filter_score"]["potential"] = pre["potential"]
+    timing["dry_run_preemption"] = {
+        **{k: pre["K=8"][k] for k in ("ms", "plain_ms", "bytes", "shape")},
+        "ops": 0, "k128": pre["K=128"],
+    }
     out = []
     for name, src, replaces in (
         ("filter_score", "kubetpu_torch/kernels/csrc/filter_score.cu",
@@ -953,6 +1307,8 @@ def kernels_phase():
          "kubetpu/assign/batched.py:135"),
         ("scatter_rows", "kubetpu_torch/kernels/csrc/scatter_rows.cu",
          "kubetpu/framework/runtime.py:240"),
+        ("dry_run_preemption", "kubetpu_torch/kernels/csrc/dry_run_preemption.cu",
+         "kubetpu/ops/preemption.py:186"),
     ):
         tm = timing[name]
         bound_ms, bound_by = _bound(tm["bytes"], tm["ops"])
@@ -966,7 +1322,7 @@ def kernels_phase():
             "cases": results[name]["cases"], "shape": tm["shape"],
         }
         for k in ("podaffinity_ms", "podaffinity_plain_ms", "rounds", "spread",
-                  "spread_soft"):
+                  "spread_soft", "nominated", "potential", "k128"):
             if k in tm:
                 line[k] = tm[k]
         out.append(line)
@@ -978,6 +1334,16 @@ def kernels_phase():
         log(f"timing [{name}] on the SchedulingPodAffinity batch: kernel "
             f"{timing[name]['podaffinity_ms']:.4f} ms, plain "
             f"{timing[name]['podaffinity_plain_ms']:.4f} ms")
+    nm = timing["filter_score"]["nominated"]
+    log(f"timing [filter_score] on the {nm['batch']} batch: kernel {nm['ms']:.4f} ms "
+        f"(without its nominations {nm['without_nominations_ms']:.4f} ms), plain "
+        f"{nm['plain_ms']:.4f} ms, bound {nm['bound_ms']:.6f} ms ({nm['bound_by']})")
+    pm = timing["filter_score"]["potential"]
+    log(f"timing [filter_score potential mode] on the {pm['batch']} view: kernel "
+        f"{pm['ms']:.4f} ms, plain {pm['plain_ms']:.4f} ms")
+    k128 = timing["dry_run_preemption"]["k128"]
+    log(f"timing [dry_run_preemption] at 5120x128: kernel {k128['ms']:.4f} ms, plain "
+        f"{k128['plain_ms']:.4f} ms, bound {k128['bound_ms']:.6f} ms ({k128['bound_by']})")
     for name, key in (("filter_score", "spread"), ("filter_score", "spread_soft"),
                       ("greedy_scan", "spread"), ("batched_round", "spread")):
         sp = timing[name][key]
@@ -1067,6 +1433,8 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
                 captured["first"] = keep()
             if b.spread is not None and "first_spread" not in captured:
                 captured["first_spread"] = keep()
+            if b.nominated_node is not None and "first_nominated" not in captured:
+                captured["first_nominated"] = keep()
             return out
 
         sched._assign_device = first_cycle_recorder
@@ -1086,11 +1454,14 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
     full_collections = gc.get_stats()[2]["collections"] - full0
 
     sched = captured["sched"]
-    if res.bound_total != expected or res.scheduled != res.measure_pods:
-        raise AssertionError(f"{case}/{workload}: bound {res.bound_total} of {expected} pods")
+    if (expected is not None and res.bound_total != expected) \
+            or res.scheduled != res.measure_pods:
+        raise AssertionError(f"{case}/{workload}: bound {res.bound_total} of {expected} "
+                             f"pods, {res.scheduled} of {res.measure_pods} measured")
     _check_capacity(sched)
-    # the run's first cycle, and its first cycle with a spread leaf
-    for key in ("first", "first_spread"):
+    # the run's first cycle, and its first cycles with a spread leaf and
+    # with nominations
+    for key in ("first", "first_spread", "first_nominated"):
         if key not in captured:
             continue
         b, params, first = captured[key]
@@ -1121,6 +1492,11 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
             "gc_s_measured": res.gc_s,
             "launches": launches, "first_cycle_equal": True,
             "first_spread_cycle_equal": True if "first_spread" in captured else None,
+            "first_nominated_cycle_equal": True if "first_nominated" in captured else None,
+            "preemption_attempts": res.preemption_attempts,
+            "preemption_victims": res.preemption_victims,
+            "preemptions": res.preemptions, "preempt_calls": res.preempt_calls,
+            "preempt_ms": res.preempt_ms,
             "card": card, **extra,
         }
     }
@@ -1134,11 +1510,19 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
         f"{ms['refresh']:.3f} ms), upload {ms['upload']:.3f} ms, kernel "
         f"{ms['kernel']:.3f} ms, wait {ms['wait']:.3f} ms; {res.gc_s * 1e3:.1f} ms in the "
         f"garbage collector; {res.throughput:.1f} pods/s")
+    if res.preempt_calls:
+        pm = res.preempt_ms
+        log(f"[{case}] {res.preemption_attempts} preemption attempts, "
+            f"{res.preemptions} nominated, {res.preemption_victims} victims; PostFilter "
+            f"{ms['postfilter']:.3f} ms a cycle; preempt() "
+            f"{sum(pm.values()):.3f} ms a call over {res.preempt_calls} calls: upload "
+            f"{pm['upload']:.3f}, potential mask {pm['potential']:.3f}, dry run "
+            f"{pm['dry_run']:.3f}, fetch {pm['fetch']:.3f} ms")
     return launches, dict(sched.client.bound), res.throughput
 
 
 def main_path_phase(card: str) -> list[dict]:
-    """The five paths on the defaults (encode cache, resident block,
+    """The six paths on the defaults (encode cache, resident block,
     serial cycle), then SchedulingBasic and PreferredTopologySpreading
     again with the pipelined cycle, whose bound maps must equal the serial
     runs' pod for pod. Returns every run's launch counts."""
@@ -1162,6 +1546,10 @@ def main_path_phase(card: str) -> list[dict]:
                               "greedy", 5000 + 5000, greedy_assign_plain, greedy),
         "default": run_path(card, "DefaultTopologySpreading", "500Nodes", "greedy",
                             1000 + 1000, greedy_assign_plain, greedy[:2]),
+        # churn pods preempt: the bound total depends on their timing
+        "preemption": run_path(card, "PreemptionAsync", "5000Nodes", "greedy", None,
+                               greedy_assign_plain, greedy + ("dry_run_preemption",),
+                               check=preemption_check),
     }
     for key, case, expected in (("basic", "SchedulingBasic", 1000 + 10000),
                                 ("preferred", "PreferredTopologySpreading", 5000 + 5000)):
@@ -1222,6 +1610,7 @@ def main() -> int:
     build_phase()
     kernel_lines = kernels_phase()
     path_launches = main_path_phase(card)
+    stepped_preemption_phase()
     for k in kernel_lines:
         k["launches"] = sum(launches[k["name"]] for launches in path_launches)
     import torch

@@ -136,6 +136,11 @@ def batched_assign_plain(
     pa_sums = None if pa is None else pa.base_sums
     sp = b.spread
     spread_counts = None if sp is None else sp.node_count
+    nom_active = (
+        None if b.nominated_pod_idx is None
+        else torch.ones(b.nominated_pod_idx.shape[0], dtype=torch.bool,
+                        device=dev)
+    )
     active = b.pod_valid
     assignments = torch.full((p,), -1, dtype=torch.int32, device=dev)
     progress = True
@@ -146,6 +151,7 @@ def batched_assign_plain(
             requested=requested, nonzero_requested=nonzero,
             pod_count=pod_count, node_ports=node_ports,
             spread_counts=spread_counts, pa_sums=pa_sums,
+            nominated_active=nom_active,
         )
         choice = _tie_spread_choice(mask, score, active)
         accepted = _accept(
@@ -196,6 +202,11 @@ def batched_assign_plain(
             flat = torch.zeros(r_rows * d + 1, dtype=torch.int64, device=dev)
             flat.index_add_(0, flat_ids.reshape(-1), inc.reshape(-1))
             pa_sums = pa_sums + flat[: r_rows * d].reshape(r_rows, d)
+        if nom_active is not None:
+            # the round's accepted nominees spend their nominations
+            idx = b.nominated_pod_idx
+            consumed = (idx >= 0) & accepted[torch.clamp(idx, min=0).long()]
+            nom_active = nom_active & ~consumed
         assignments = torch.where(accepted, choice, assignments)
         active = active & ~accepted & ~finalize
         progress = bool(torch.any(accepted | finalize))
@@ -204,7 +215,7 @@ def batched_assign_plain(
         rounds_out.append(rounds)
     return assignments, (
         requested, nonzero, pod_count, node_ports, spread_counts, pa_sums,
-        None,
+        nom_active,
     )
 
 

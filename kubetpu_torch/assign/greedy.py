@@ -46,6 +46,7 @@ def _pod_view(b: rt.DeviceBatch, i: int) -> rt.DeviceBatch:
         image_sig=row(b.image_sig),
         image_count=row(b.image_count),
         pod_ports=b.pod_ports[i:i + 1],
+        nominated_gate=row(b.nominated_gate),
         pod_priority=row(b.pod_priority),
         spread=_spread_view(b.spread, i),
         podaffinity=_pa_view(b.podaffinity, i),
@@ -88,8 +89,8 @@ def greedy_assign_plain(b: rt.DeviceBatch, params: rt.ScoreParams):
     slots ``(requested, nonzero_requested, pod_count, node_ports,
     spread_counts, pa_sums, nominated_active)``; ``spread_counts`` is None
     without a ``spread`` leaf, ``pa_sums`` without a ``podaffinity`` leaf,
-    and the nomination slot is always None in this slice. Runs on whatever
-    device ``b`` lives on, with no host sync inside the loop."""
+    ``nominated_active`` (G,) bool without the nomination leaves. Runs on
+    whatever device ``b`` lives on, with no host sync inside the loop."""
     n = b.alloc.shape[0]
     node_iota = torch.arange(n, dtype=torch.int32, device=b.device)
     requested = b.requested
@@ -100,6 +101,11 @@ def greedy_assign_plain(b: rt.DeviceBatch, params: rt.ScoreParams):
     pa_sums = None if pa is None else pa.base_sums
     sp = b.spread
     spread_counts = None if sp is None else sp.node_count
+    nom_active = (
+        None if b.nominated_pod_idx is None
+        else torch.ones(b.nominated_pod_idx.shape[0], dtype=torch.bool,
+                        device=b.device)
+    )
     chosen_all = []
     for i in range(b.requests.shape[0]):
         view = _pod_view(b, i)
@@ -108,6 +114,7 @@ def greedy_assign_plain(b: rt.DeviceBatch, params: rt.ScoreParams):
             requested=requested, nonzero_requested=nonzero,
             pod_count=pod_count, node_ports=node_ports,
             spread_counts=spread_counts, pa_sums=pa_sums,
+            nominated_active=nom_active,
         )
         mask, score = mask[0], score[0]
         feasible = torch.any(mask)
@@ -138,6 +145,10 @@ def greedy_assign_plain(b: rt.DeviceBatch, params: rt.ScoreParams):
             pa_sums = pa_sums.index_put(
                 (rows, torch.clamp(dcol, min=0).long()), inc, accumulate=True
             )
+        if nom_active is not None:
+            # assume deletes the nomination (schedule_one.go:307): once the
+            # loop assigns a nomination's own pod, stop charging it
+            nom_active = nom_active & ~((b.nominated_pod_idx == i) & feasible)
         chosen_all.append(chosen)
     assignments = (
         torch.stack(chosen_all) if chosen_all
@@ -145,7 +156,7 @@ def greedy_assign_plain(b: rt.DeviceBatch, params: rt.ScoreParams):
     )
     return assignments, (
         requested, nonzero, pod_count, node_ports, spread_counts, pa_sums,
-        None,
+        nom_active,
     )
 
 

@@ -1,8 +1,9 @@
 """Framework runtime — compose filter/score kernels per profile.
 
 Port of ``kubetpu/framework/runtime.py``, narrowed to the slices ported so
-far: the default profile's cycle with inter-pod affinity and topology
-spread, and no nominations, extenders, DRA, volumes or topology slices.
+far: the default profile's cycle with inter-pod affinity, topology spread
+and the nominator's reservations, and no extenders, DRA, volumes or
+topology slices.
 Host encode is the reference's numpy code, in its two stages
 (``encode_batch_static``, then ``finalize_batch``); the device batch is a
 frozen dataclass of torch tensors on the caller's device whose pod leaves
@@ -126,8 +127,8 @@ class DeviceBatch:
     False, ``static_mask`` False on pads) so kernels need no special cases.
 
     Same field names and ``None`` leaves as the reference's pytree. The
-    ``topology`` leaf and the nomination, extender and DRA leaves belong to
-    later slices and are always None here."""
+    ``topology`` leaf and the extender and DRA leaves belong to later slices
+    and are always None here."""
 
     # persistent node-state block
     nodes: DeviceNodeState
@@ -148,11 +149,12 @@ class DeviceBatch:
     pod_ports: torch.Tensor          # (P, K) bool
     node_ports: torch.Tensor         # (N, K) bool
     port_conflict: torch.Tensor      # (K, K) bool
-    nominated_node: torch.Tensor | None = None
-    nominated_req: torch.Tensor | None = None
-    nominated_gate: torch.Tensor | None = None
-    nominated_ports: torch.Tensor | None = None
-    nominated_pod_idx: torch.Tensor | None = None
+    # nominator reservations (queue.nominator), None without nominations
+    nominated_node: torch.Tensor | None = None     # (G,) int32, -1 = none
+    nominated_req: torch.Tensor | None = None      # (G, R) int64
+    nominated_gate: torch.Tensor | None = None     # (P, G) bool
+    nominated_ports: torch.Tensor | None = None    # (G, K) bool
+    nominated_pod_idx: torch.Tensor | None = None  # (G,) int32, -1 = not in batch
     spread: SpreadDevice | None = None
     podaffinity: PodAffinityDevice | None = None
     static_sig: torch.Tensor | None = None  # (P,) int32 row into static_mask
@@ -203,11 +205,6 @@ POD_FIELDS = tuple(
 )
 # leaves of later slices: a batch that carries any of them is out of scope
 LATER_SLICE_LEAVES = {
-    "nominated_node": "Queue A item 8 (preemption and nominations)",
-    "nominated_req": "Queue A item 8 (preemption and nominations)",
-    "nominated_gate": "Queue A item 8 (preemption and nominations)",
-    "nominated_ports": "Queue A item 8 (preemption and nominations)",
-    "nominated_pod_idx": "Queue A item 8 (preemption and nominations)",
     "extender_mask": "Queue A item 9 (extender bridge)",
     "extender_score": "Queue A item 9 (extender bridge)",
     "dra_score_raw": "Queue A (DynamicResources)",
@@ -337,6 +334,9 @@ class EncodedBatch:
     num_nodes: int                  # real (unpadded) N
     num_pods: int                   # real (unpadded) P
     node_tensors: "enc.NodeTensors | None" = None
+    # the batch's port-triple interning (shared with the preemption
+    # victim encoder)
+    port_vocab: object | None = None
     # host→device bytes this encode shipped: the pod leaves plus the node
     # block's share, ``node_upload_bytes`` (the whole block without a
     # resident block; the dirty-row delta, or 0, with one)
@@ -353,8 +353,8 @@ class EncodedBatch:
 class StaleStaticEncode(Exception):
     """A pre-encoded StaticBatch can no longer be finalized against the
     current cluster state (an assumed pod introduced a host-port triple
-    outside the batch's interned vocabulary). Callers fall back to a full
-    re-encode."""
+    outside the batch's interned vocabulary, or the nomination set
+    changed). Callers fall back to a full re-encode."""
 
 
 def scatter_node_rows_plain(
@@ -629,8 +629,8 @@ class StaticBatch:
     previous cycle's device work runs, then ``finalize_batch`` patches in
     the assume-dependent slice (node resource rows via the resident block's
     delta upload, spread counts, affinity sums, in-use ports) after that
-    cycle's assumes land. (The reference's ``folded`` and its DRA,
-    nomination and topology fields belong to later slices.)"""
+    cycle's assumes land. (The reference's ``folded`` and its DRA and
+    topology fields belong to later slices.)"""
 
     pods: list
     profile: "C.Profile | None"
@@ -650,6 +650,9 @@ class StaticBatch:
     img_counts: "np.ndarray | None"
     node_valid: np.ndarray
     pod_valid: np.ndarray
+    # identity of the nomination entries stage 1 encoded against (their
+    # port triples joined the vocabulary); finalize_batch checks it
+    nominated_key: tuple = ()
     # True when the static encode itself already depends on assignment state
     # (folded singleton scalars) — a pre-encoded StaticBatch with this set
     # must not be reused across an assume boundary
@@ -689,6 +692,7 @@ def encode_batch(
     profile: C.Profile | None = None,
     pad: bool = True,
     resource_names: Sequence[str] | None = None,
+    nominated: Sequence = (),
     prev_nt: "enc.NodeTensors | None" = None,
     resident: "ResidentNodeState | None" = None,
     cache=None,
@@ -707,12 +711,17 @@ def encode_batch(
     device-resident buffers instead of shipped whole (its device is the
     batch's). ``cache``: an ``encode_cache.EncodeCache`` — static pod rows
     become gathers over template-keyed rows shared across pods and cycles
-    (the host-side O(Δ) twin of ``prev_nt``/``resident``)."""
+    (the host-side O(Δ) twin of ``prev_nt``/``resident``). ``nominated``:
+    the nominator's entries (``queue.nominator.NominatedPod``), whose
+    reservations the fit and port filters charge."""
     sb = encode_batch_static(
         snapshot, pods, profile, pad=pad, resource_names=resource_names,
-        prev_nt=prev_nt, cache=cache, track_changes=track_changes,
+        nominated=nominated, prev_nt=prev_nt, cache=cache,
+        track_changes=track_changes,
     )
-    return finalize_batch(sb, snapshot, resident=resident, device=device)
+    return finalize_batch(
+        sb, snapshot, nominated=nominated, resident=resident, device=device
+    )
 
 
 def encode_batch_static(
@@ -721,6 +730,7 @@ def encode_batch_static(
     profile: C.Profile | None = None,
     pad: bool = True,
     resource_names: Sequence[str] | None = None,
+    nominated: Sequence = (),
     prev_nt: "enc.NodeTensors | None" = None,
     cache=None,
     track_changes: bool = True,
@@ -747,10 +757,27 @@ def encode_batch_static(
     enabled_sc = (
         frozenset(profile.scores.names()) if profile is not None else None
     )
+    nominated_triples: list[tuple[int, str, str]] = []
+    for e in nominated:
+        nominated_triples.extend(getattr(e, "ports", ()))
+    # a nomination whose own pod sits in THIS batch is excluded: the folded
+    # resource is a batch singleton, so the nominee is its only requester —
+    # charging would block the nominee from its own nominated node (the
+    # dense path's self-exclusion is the per-pod gate, e.uid != p.uid)
+    batch_uids = {p_.uid for p_ in pods}
+    folded_nominated = (
+        [
+            (e.node_name, tuple(e.requests))
+            for e in nominated
+            if getattr(e, "node_name", "") and e.uid not in batch_uids
+        ]
+        if folded else ()
+    )
     pb = enc.encode_pod_batch(
         nt, pods, enabled_filters=enabled, pad_pods=PP,
-        enabled_scores=enabled_sc,
+        enabled_scores=enabled_sc, extra_port_triples=nominated_triples,
         folded_resources=folded,
+        folded_nominated=folded_nominated,
         cache=cache,
     )
     want_na = profile is None or profile.has_score(C.NODE_AFFINITY)
@@ -791,6 +818,7 @@ def encode_batch_static(
         img_counts=img_counts,
         node_valid=node_valid,
         pod_valid=pod_valid,
+        nominated_key=tuple(id(e) for e in nominated),
         assume_coupled=bool(folded),
         cache=cache,
         nodes_s=nodes_s,
@@ -840,6 +868,7 @@ def _node_port_rows(
 def finalize_batch(
     sb: StaticBatch,
     snapshot: Snapshot,
+    nominated: Sequence = (),
     resident: "ResidentNodeState | None" = None,
     device="cuda",
 ) -> EncodedBatch:
@@ -850,9 +879,12 @@ def finalize_batch(
     since stage 1, and the node block delta-uploaded into ``resident``
     when given (else shipped whole). The pod leaves, the affinity rows,
     the spread tensors and the node block's dirty-row delta travel in one
-    host→device copy (``device_batch_from_numpy``); only a full upload of
-    the resident block is a copy of its own. Raises StaleStaticEncode when
-    the StaticBatch can't be patched (an unknown port triple)."""
+    host→device copy (``device_batch_from_numpy``), the nominations'
+    leaves too; only a full upload of the resident block is a copy of its
+    own. Raises StaleStaticEncode when the StaticBatch can't be patched
+    (nomination set changed since stage 1, or an unknown port triple)."""
+    if tuple(id(e) for e in nominated) != sb.nominated_key:
+        raise StaleStaticEncode("nomination set changed since static encode")
     profile, pods, nt, pb = sb.profile, sb.pods, sb.nt, sb.pb
     N, PP, NC = sb.num_nodes, sb.pad_pods, sb.pad_nodes
     cache = sb.cache
@@ -918,6 +950,34 @@ def finalize_batch(
         if sb.ports_stale else pb.node_ports
     )
 
+    # Nominator reservations (queue/nominator.py): the gate row for pod p
+    # enables nomination g iff g's priority >= p's and g is not p itself
+    # (framework/runtime's RunFilterPluginsWithNominatedPods rule).
+    nom_node = nom_req = nom_gate = nom_ports = nom_pod_idx = None
+    if nominated:
+        name_to_idx = {n: j for j, n in enumerate(nt.node_names)}
+        uid_to_idx = {p_.uid: i for i, p_ in enumerate(pods)}
+        G = len(nominated)
+        nom_node = np.full(G, -1, dtype=np.int32)
+        nom_req = np.zeros((G, len(nt.resource_names)), dtype=np.int64)
+        nom_gate = np.zeros((PP, G), dtype=bool)
+        nom_ports = np.zeros((G, K), dtype=bool)
+        nom_pod_idx = np.full(G, -1, dtype=np.int32)
+        ridx = {r: j for j, r in enumerate(nt.resource_names)}
+        for g, e in enumerate(nominated):
+            nom_node[g] = name_to_idx.get(e.node_name, -1)
+            nom_pod_idx[g] = uid_to_idx.get(e.uid, -1)
+            for k, val in e.requests:
+                j = ridx.get(k)
+                if j is not None:
+                    nom_req[g, j] = val
+            for tr in getattr(e, "ports", ()):
+                tid = pb.port_vocab.get(tr)
+                if tid >= 0:
+                    nom_ports[g, tid] = True
+            for i, p_ in enumerate(pods):
+                nom_gate[i, g] = e.priority >= p_.priority and e.uid != p_.uid
+
     t_up = time.perf_counter()
     if resident is not None:
         if torch.device(device) != resident.where:
@@ -957,6 +1017,11 @@ def finalize_batch(
         pod_ports=pb.pod_ports,
         node_ports=node_ports,
         port_conflict=pb.port_conflict,
+        nominated_node=nom_node,
+        nominated_req=nom_req,
+        nominated_gate=nom_gate,
+        nominated_ports=nom_ports,
+        nominated_pod_idx=nom_pod_idx,
         pod_priority=pb.priority,
         podaffinity=pa,
         spread=sp,
@@ -974,6 +1039,7 @@ def finalize_batch(
         num_nodes=N,
         num_pods=sb.num_pods,
         node_tensors=nt,
+        port_vocab=pb.port_vocab,
         upload_bytes=total_bytes - node_bytes + node_upload,
         node_upload_bytes=node_upload,
         resident_bytes=resident_bytes,
@@ -1070,12 +1136,17 @@ def filter_components(
     node_ports: torch.Tensor | None = None,
     spread_counts: torch.Tensor | None = None,
     pa_sums: torch.Tensor | None = None,
+    nominated_active: torch.Tensor | None = None,
 ):
-    """Per-plugin Filter masks, un-ANDed. Returns ``(static, fit, ports_ok,
-    spread_ok, pa_ok, sp_counts, pa_state)``; a mask entry is None when the
-    plugin is disabled or has no work; ``sp_counts`` / ``pa_state`` are the
-    spread counts and affinity sums the verdicts read (None without the
-    leaf)."""
+    """Per-plugin Filter masks, un-ANDed — the split preemption needs:
+    failures of ``static`` / ``spread_ok`` / ``pa_ok`` are unresolvable for
+    the victim search, while ``fit`` / ``ports_ok`` failures are the
+    resolvable kind (preemption.go:180 NodesForStatusCode). Returns
+    ``(static, fit, ports_ok, spread_ok, pa_ok, sp_counts, pa_state)``; a
+    mask entry is None when the plugin is disabled or has no work;
+    ``sp_counts`` / ``pa_state`` are the spread counts and affinity sums
+    the verdicts read (None without the leaf). ``nominated_active`` (G,)
+    bool masks the nominations still charged (None: all of them)."""
     check_slice_leaves(batch_leaves(b), "filter_components")
     req = b.requested if requested is None else requested
     pc = b.pod_count if pod_count is None else pod_count
@@ -1086,7 +1157,20 @@ def filter_components(
         static = static & _rows(b.static_mask, b.static_sig)
     fit = None
     if p.filter_fit:
-        fit = F.resource_fit_mask(b.requests, b.alloc, req, pc, b.allowed_pods)
+        if b.nominated_node is not None:
+            gate = b.nominated_gate
+            if nominated_active is not None:
+                # a nomination stops charging once its own pod was assigned
+                # earlier in this batch (assume deletes the nomination)
+                gate = gate & nominated_active[None, :]
+            fit = F.resource_fit_mask_nominated(
+                b.requests, b.alloc, req, pc, b.allowed_pods,
+                gate, b.nominated_node, b.nominated_req,
+            )
+        else:
+            fit = F.resource_fit_mask(
+                b.requests, b.alloc, req, pc, b.allowed_pods
+            )
     ports_ok = None
     if p.filter_ports:
         # conflict[p, n] = any pod triple k conflicting with in-use triple l.
@@ -1099,6 +1183,28 @@ def filter_components(
         conflict = torch.any(
             wants_conf[:, None, :] & ports[None, :, :], dim=-1
         )                                                     # (P, N)
+        if b.nominated_ports is not None and b.nominated_node is not None:
+            # nominated pods' host ports are reserved on their nominated
+            # node for >=-priority-gated pods, like their resources
+            # (RunFilterPluginsWithNominatedPods adds the whole pod). The
+            # reference's int32 (P,G)·(G,N) contraction tested > 0: here an
+            # f64 product of 0/1 values, exact, tested > 0
+            gate = b.nominated_gate
+            if nominated_active is not None:
+                gate = gate & nominated_active[None, :]
+            nom_conf = torch.any(
+                wants_conf[:, None, :] & b.nominated_ports[None, :, :], dim=-1
+            )                                                 # (P, G)
+            n_nodes = ports.shape[0]
+            at_node = (
+                b.nominated_node[:, None]
+                == torch.arange(n_nodes, dtype=b.nominated_node.dtype,
+                                device=ports.device)[None, :]
+            )                                                 # (G, N)
+            conflict = conflict | (
+                (gate & nom_conf).to(torch.float64)
+                @ at_node.to(torch.float64) > 0
+            )
         ports_ok = ~conflict
     sp = b.spread
     sp_counts = None
@@ -1131,15 +1237,16 @@ def feasible_and_scores(
     node_ports: torch.Tensor | None = None,
     spread_counts: torch.Tensor | None = None,
     pa_sums: torch.Tensor | None = None,
+    nominated_active: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The full Filter + Score composition for a batch against ONE snapshot
     state. Returns ``(mask (P,N) bool, total (P,N) int64)``.
 
     Optional ``requested``/``nonzero_requested``/``pod_count``/``node_ports``,
-    ``spread_counts`` and ``pa_sums`` override the batch's node usage,
-    spread counts and affinity sums — the engines thread their running
-    state through here, so this one function is both the one-shot and the
-    stepped semantics."""
+    ``spread_counts``, ``pa_sums`` and ``nominated_active`` override the
+    batch's node usage, spread counts, affinity sums and live nominations —
+    the engines thread their running state through here, so this one
+    function is both the one-shot and the stepped semantics."""
     req = b.requested if requested is None else requested
     nz = b.nonzero_requested if nonzero_requested is None else nonzero_requested
     dev = b.device
@@ -1152,7 +1259,7 @@ def feasible_and_scores(
         filter_components(
             b, p, requested=requested, pod_count=pod_count,
             node_ports=node_ports, spread_counts=spread_counts,
-            pa_sums=pa_sums,
+            pa_sums=pa_sums, nominated_active=nominated_active,
         )
     )
     mask = static

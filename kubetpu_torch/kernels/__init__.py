@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels of the main paths, and their wrappers.
 
 ``csrc/filter_score.cu``, ``csrc/greedy_scan.cu`` and
-``csrc/batched_round.cu`` (all built on ``csrc/score_common.cuh``), and
-``csrc/scatter_rows.cu`` (the resident node block's dirty-row scatter) are
+``csrc/batched_round.cu`` (all built on ``csrc/score_common.cuh``),
+``csrc/scatter_rows.cu`` (the resident node block's dirty-row scatter) and
+``csrc/dry_run_preemption.cu`` (the preemption victim search) are
 compiled at first use, for ``sm_90a``, one ``nvcc`` per source started
 together, each into a shared library with a plain C interface that
 ``ctypes`` loads. No PyTorch header is compiled, so
@@ -16,8 +17,10 @@ entry of ``launch_counts``. No wrapper falls back to the plain version: the
 callers (``framework.runtime.filter_score_batch``,
 ``framework.runtime.scatter_node_rows``,
 ``assign.greedy.greedy_assign_device``,
-``assign.batched.batched_assign_device``) choose the plain version only for
-a batch that lives on the CPU.
+``assign.batched.batched_assign_device``,
+``ops.preemption.dry_run_preemption``,
+``framework.preemption.PreemptionEvaluator``) choose the plain version only
+for tensors that live on the CPU.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ from ..framework import config as C
 from ..framework import runtime as rt
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("filter_score.cu", "greedy_scan.cu", "batched_round.cu", "scatter_rows.cu")
+SOURCES = ("filter_score.cu", "greedy_scan.cu", "batched_round.cu", "scatter_rows.cu",
+           "dry_run_preemption.cu")
 # the libraries that take the ScoreArgs struct (score_common.cuh)
 SCORE_ARGS_LIBS = ("filter_score", "greedy_scan", "batched_round")
 HEADERS = ("score_common.cuh",)
@@ -54,14 +58,17 @@ NVCC_FLAGS = (
 # reads them around the main path to show the path went through the kernels
 launch_counts = {
     "filter_score": 0, "greedy_scan": 0, "batched_round": 0, "scatter_rows": 0,
+    "dry_run_preemption": 0,
 }
 
 # ctypes argument types of each library's entry point
 _ARGTYPES = {
-    "filter_score": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p],
+    "filter_score": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                                             ctypes.c_void_p],
     "greedy_scan": [ctypes.c_void_p] * 13 + [ctypes.c_int64, ctypes.c_void_p],
     "batched_round": [ctypes.c_void_p] * 15,
     "scatter_rows": [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 14,
+    "dry_run_preemption": [ctypes.c_void_p] * 2,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -96,9 +103,10 @@ def build() -> dict[str, ctypes.CDLL]:
     ``nvcc`` processes start together and are waited for; a failed build
     raises with the compiler's output. ``build_log`` keeps each source's
     compiler output (``-Xptxas=-v``: registers, spills, shared memory).
-    Each library that takes ``ScoreArgs`` reports its size as compiled; a
-    size that differs from the ctypes mirror's raises (a layout that drifts
-    would read garbage with no error)."""
+    Each library that takes an argument struct (``ScoreArgs``,
+    ``DryRunArgs``) reports its size as compiled; a size that differs from
+    the ctypes mirror's raises (a layout that drifts would read garbage with
+    no error)."""
     with _lock:
         if _libs:
             return _libs
@@ -135,14 +143,16 @@ def build() -> dict[str, ctypes.CDLL]:
             err = getattr(lib, f"kt_{name}_error")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            if name in SCORE_ARGS_LIBS:
+            mirror = (ScoreArgs if name in SCORE_ARGS_LIBS
+                      else DryRunArgs if name == "dry_run_preemption" else None)
+            if mirror is not None:
                 size = getattr(lib, f"kt_{name}_args_size")
                 size.argtypes = []
                 size.restype = ctypes.c_int64
-                if size() != ctypes.sizeof(ScoreArgs):
+                if size() != ctypes.sizeof(mirror):
                     raise RuntimeError(
-                        f"{src}: sizeof(ScoreArgs) is {size()} bytes, the ctypes "
-                        f"mirror's {ctypes.sizeof(ScoreArgs)}: the two layouts differ"
+                        f"{src}: sizeof({mirror.__name__}) is {size()} bytes, the "
+                        f"ctypes mirror's {ctypes.sizeof(mirror)}: the two layouts differ"
                     )
             libs[name] = lib
         _libs.update(libs)
@@ -189,6 +199,28 @@ class ScoreArgs(ctypes.Structure):
         (name, ctypes.c_int64) for name in (
             "sp_S", "sp_D", "sp_C", "sp_filter", "w_spread",
         )
+    ] + [
+        (name, ctypes.c_void_p) for name in (
+            "nom_node", "nom_req", "nom_gate", "nom_ports", "nom_pod_idx",
+            "nom_active",
+        )
+    ] + [("G", ctypes.c_int64)]
+
+
+class DryRunArgs(ctypes.Structure):
+    """Mirror of ``struct DryRunArgs`` in csrc/dry_run_preemption.cu (every
+    field 8 bytes, in the same order)."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p) for name in (
+            "pod_req", "wants_conf", "potential", "alloc", "requested",
+            "pod_count", "allowed", "port_counts", "v_valid", "v_prio",
+            "v_start", "v_req", "v_ports", "v_pdb", "pdb_allowed",
+            "node_idx", "victims", "ok", "n_pdb", "stats", "order",
+            "violating", "budget", "req_s", "ports_s",
+        )
+    ] + [
+        (name, ctypes.c_int64) for name in ("pod_prio", "N", "K", "R", "Kp", "D")
     ]
 
 # dynamic shared memory a spread-scoring block takes at most: static and
@@ -220,15 +252,17 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
 
 
 def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str, state=None,
-                bits_blocks: int = 0):
+                bits_blocks: int = 0, nom_active: torch.Tensor | None = None):
     """Validate the batch for the kernels and pack their argument struct.
     ``state``, when given, is a running ``(requested, nonzero_requested,
     pod_count, node_ports, pa_sums, spread_counts)`` the kernels read in
     place of the batch's (``pa_sums`` None without affinity rows,
     ``spread_counts`` None without a spread leaf). ``bits_blocks`` is the
     number of blocks that each need a domain bitmap of their own when the
-    bitmap does not fit in shared memory (see ``_spread_smem``). Returns
-    ``(args, keepalive)``."""
+    bitmap does not fit in shared memory (see ``_spread_smem``).
+    ``nom_active`` (G,) bool, with nominations, is the live-nomination
+    flags the kernels read (and the engines clear); all set when None.
+    Returns ``(args, keepalive)``."""
     rt.check_slice_leaves(rt.batch_leaves(b), where)
     dev = b.alloc.device
     if dev.type != "cuda":
@@ -362,6 +396,23 @@ def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str, state=None,
         a.sp_S, a.sp_D, a.sp_C = S, D, C
         a.sp_filter = int(p.filter_spread and sp.has_hard)
         a.w_spread = p.w_spread if sp.has_soft else 0
+    if b.nominated_node is not None:
+        G = b.nominated_node.shape[0]
+        a.nom_node = _check("nominated_node", b.nominated_node, i32, (G,), dev)
+        a.nom_req = _check("nominated_req", b.nominated_req, i64, (G, R), dev)
+        a.nom_gate = _check("nominated_gate", b.nominated_gate, u8, (P, G), dev)
+        if b.nominated_ports is not None:
+            a.nom_ports = _check("nominated_ports", b.nominated_ports, u8, (G, K), dev)
+        pod_idx = b.nominated_pod_idx
+        if pod_idx is None:
+            pod_idx = torch.full((G,), -1, dtype=i32, device=dev)
+            keep.append(pod_idx)
+        a.nom_pod_idx = _check("nominated_pod_idx", pod_idx, i32, (G,), dev)
+        if nom_active is None:
+            nom_active = torch.ones((G,), dtype=u8, device=dev)
+            keep.append(nom_active)
+        a.nom_active = _check("nominated_active", nom_active, u8, (G,), dev)
+        a.G = G
     return a, keep
 
 
@@ -390,12 +441,14 @@ def _raise_on(lib: ctypes.CDLL, name: str, code: int) -> None:
 
 
 def _filter_score(b: rt.DeviceBatch, p: rt.ScoreParams, want_total: bool,
-                  dynamic: bool = True):
+                  dynamic: bool = True, nom_active: torch.Tensor | None = None):
     """Launch ``filter_score``: ``(mask, base, total)``, ``total`` None
     unless ``want_total`` (then the normalize pass runs too). Without
     ``dynamic`` the mask leaves out the InterPodAffinity and
-    PodTopologySpread filters (the ones that move with each assignment)."""
-    a, keep = _score_args(b, p, "filter_score", bits_blocks=b.requests.shape[0])
+    PodTopologySpread filters (the ones that move with each assignment).
+    ``nom_active``: the live nominations (all when None)."""
+    a, keep = _score_args(b, p, "filter_score", bits_blocks=b.requests.shape[0],
+                          nom_active=nom_active)
     out = _launch_filter_score(a, b.alloc.device, want_total, dynamic, _smem(b))
     del keep
     return out
@@ -416,7 +469,7 @@ def _launch_filter_score(a: ScoreArgs, dev, want_total: bool, dynamic: bool,
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.kt_filter_score(
         ctypes.byref(a), mask.data_ptr(), base.data_ptr(),
-        None if total is None else total.data_ptr(), int(dynamic), smem, stream)
+        None if total is None else total.data_ptr(), int(dynamic), 0, smem, stream)
     _raise_on(lib, "filter_score", code)
     launch_counts["filter_score"] += 1
     return mask, base, total
@@ -429,6 +482,32 @@ def filter_score(b: rt.DeviceBatch, p: rt.ScoreParams):
     return mask, total
 
 
+def potential_mask(view: rt.DeviceBatch, p: rt.ScoreParams, requested, pod_count,
+                   node_ports, spread_counts=None, pa_sums=None, nom_active=None):
+    """``filter_score``'s potential mode on a one-pod view (the preemption
+    evaluator's ``_potential_mask``): the (N,) bool mask of nodes where
+    every victim-independent filter (static row, PodTopologySpread,
+    InterPodAffinity) passes and NodeResourcesFit or NodePorts fails,
+    against ``requested`` / ``pod_count`` / ``node_ports`` (bool) and the
+    post-batch ``spread_counts`` / ``pa_sums`` / ``nom_active``. Equal to
+    the plain composition of ``runtime.filter_components`` the evaluator
+    runs on the CPU."""
+    if view.requests.shape[0] != 1:
+        raise ValueError(f"potential_mask: a one-pod view, got P={view.requests.shape[0]}")
+    state = (requested, view.nonzero_requested, pod_count, node_ports, pa_sums,
+             spread_counts)
+    a, keep = _score_args(view, p, "potential_mask", state, nom_active=nom_active)
+    dev = view.alloc.device
+    lib = build()["filter_score"]
+    mask = torch.empty((1, a.N), dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.kt_filter_score(ctypes.byref(a), mask.data_ptr(), None, None, 1, 1, 0, stream)
+    _raise_on(lib, "filter_score", code)
+    launch_counts["filter_score"] += 1
+    del keep
+    return mask[0]
+
+
 def greedy_scan(b: rt.DeviceBatch, p: rt.ScoreParams):
     """The greedy engine on the card: ``filter_score`` scores every pair
     against the batch's starting state (its mask without the affinity and
@@ -437,10 +516,15 @@ def greedy_scan(b: rt.DeviceBatch, p: rt.ScoreParams):
     state slots (slot 4 the spread counts, None without a spread leaf; slot
     5 the affinity sums, None without affinity rows; slot 6 None), equal to
     ``assign.greedy.greedy_assign_plain(b, p)``."""
-    mask0, base0, _ = _filter_score(b, p, want_total=False, dynamic=False)
-    a, keep = _score_args(b, p, "greedy_scan", bits_blocks=1)
-    lib = build()["greedy_scan"]
     dev = b.alloc.device
+    nom_active = (
+        None if b.nominated_pod_idx is None
+        else torch.ones((b.nominated_pod_idx.shape[0],), dtype=torch.bool, device=dev)
+    )
+    mask0, base0, _ = _filter_score(b, p, want_total=False, dynamic=False,
+                                    nom_active=nom_active)
+    a, keep = _score_args(b, p, "greedy_scan", bits_blocks=1, nom_active=nom_active)
+    lib = build()["greedy_scan"]
     assignments = torch.empty((a.P,), dtype=torch.int32, device=dev)
     req = torch.empty_like(b.requested)
     nz = torch.empty_like(b.nonzero_requested)
@@ -467,7 +551,7 @@ def greedy_scan(b: rt.DeviceBatch, p: rt.ScoreParams):
     _raise_on(lib, "greedy_scan", code)
     launch_counts["greedy_scan"] += 1
     del keep
-    return assignments, (req, nz, pc, ports, sp_counts, pa_sums, None)
+    return assignments, (req, nz, pc, ports, sp_counts, pa_sums, nom_active)
 
 
 def batched_assign(b: rt.DeviceBatch, p: rt.ScoreParams, max_rounds: int = 0,
@@ -492,9 +576,15 @@ def batched_assign(b: rt.DeviceBatch, p: rt.ScoreParams, max_rounds: int = 0,
         None if sp is None else sp.node_count.clone(),
     )
     req, nz, pc, ports, pa_sums, sp_counts = state
+    nom_active = (
+        None if b.nominated_pod_idx is None
+        else torch.ones((b.nominated_pod_idx.shape[0],), dtype=torch.bool,
+                        device=b.alloc.device)
+    )
     # the state tensors are updated in place, so one argument struct
     # serves every round's filter_score and batched_round launches
-    a, keep = _score_args(b, p, "batched_round", state, bits_blocks=P)
+    a, keep = _score_args(b, p, "batched_round", state, bits_blocks=P,
+                          nom_active=nom_active)
     smem = _smem(b)
     lib = build()["batched_round"]
     dev = b.alloc.device
@@ -524,7 +614,7 @@ def batched_assign(b: rt.DeviceBatch, p: rt.ScoreParams, max_rounds: int = 0,
     del keep
     if rounds_out is not None:
         rounds_out.append(rounds)
-    return assignments, (req, nz, pc, ports, sp_counts, pa_sums, None)
+    return assignments, (req, nz, pc, ports, sp_counts, pa_sums, nom_active)
 
 
 def scatter_rows(nodes: rt.DeviceNodeState, idx: torch.Tensor, updates) -> None:
@@ -557,3 +647,61 @@ def scatter_rows(nodes: rt.DeviceNodeState, idx: torch.Tensor, updates) -> None:
     code = lib.kt_scatter_rows(M, N, R, p_idx, *ups, *bufs, stream)
     _raise_on(lib, "scatter_rows", code)
     launch_counts["scatter_rows"] += 1
+
+
+def dry_run_preemption(pod_req, pod_prio, wants_conf, potential, alloc, requested,
+                       pod_count, allowed, port_counts, v_valid, v_prio, v_start,
+                       v_req, v_ports, v_pdb, pdb_allowed):
+    """The ``dry_run_preemption`` kernel (B9): the victim search on every
+    node and the pick of one. Same arguments and results as
+    ``ops.preemption.dry_run_preemption_plain``: ``(node_idx () int32,
+    victims (N, K) bool, ok (N,) bool, n_pdb (N,) int64)``, fresh tensors.
+    ``pod_prio`` is an int (or a one-element tensor)."""
+    dev = potential.device
+    if dev.type != "cuda":
+        raise ValueError(f"dry_run_preemption: the kernel takes CUDA tensors, got {dev}")
+    i64, i32, u8 = torch.int64, torch.int32, torch.bool
+    N, K = v_valid.shape
+    R = alloc.shape[1]
+    Kp = port_counts.shape[1]
+    D = pdb_allowed.shape[0]
+    a = DryRunArgs()
+    a.pod_req = _check("pod_req", pod_req, i64, (R,), dev)
+    a.wants_conf = _check("wants_conf", wants_conf, u8, (Kp,), dev)
+    a.potential = _check("potential", potential, u8, (N,), dev)
+    a.alloc = _check("alloc", alloc, i64, (N, R), dev)
+    a.requested = _check("requested", requested, i64, (N, R), dev)
+    a.pod_count = _check("pod_count", pod_count, i32, (N,), dev)
+    a.allowed = _check("allowed", allowed, i32, (N,), dev)
+    a.port_counts = _check("port_counts", port_counts, i32, (N, Kp), dev)
+    a.v_valid = _check("v_valid", v_valid, u8, (N, K), dev)
+    a.v_prio = _check("v_prio", v_prio, i64, (N, K), dev)
+    a.v_start = _check("v_start", v_start, i64, (N, K), dev)
+    a.v_req = _check("v_req", v_req, i64, (N, K, R), dev)
+    a.v_ports = _check("v_ports", v_ports, torch.int8, (N, K, Kp), dev)
+    a.v_pdb = _check("v_pdb", v_pdb, u8, (N, K, D), dev)
+    a.pdb_allowed = _check("pdb_allowed", pdb_allowed, i64, (D,), dev)
+    node_idx = torch.empty((), dtype=i32, device=dev)
+    victims = torch.empty((N, K), dtype=u8, device=dev)
+    ok = torch.empty((N,), dtype=u8, device=dev)
+    n_pdb = torch.empty((N,), dtype=i64, device=dev)
+    # scratch, sized from the inputs: (column, node) layouts
+    stats = torch.empty((4, N), dtype=i64, device=dev)
+    order = torch.empty((K, N), dtype=i32, device=dev)
+    violating = torch.empty((K, N), dtype=torch.uint8, device=dev)
+    budget = torch.empty((D, N), dtype=i64, device=dev)
+    req_s = torch.empty((R, N), dtype=i64, device=dev)
+    ports_s = torch.empty((Kp, N), dtype=i32, device=dev)
+    for name, t_ in (("node_idx", node_idx), ("victims", victims), ("ok", ok),
+                     ("n_pdb", n_pdb), ("stats", stats), ("order", order),
+                     ("violating", violating), ("budget", budget),
+                     ("req_s", req_s), ("ports_s", ports_s)):
+        setattr(a, name, t_.data_ptr())
+    a.pod_prio = int(pod_prio)
+    a.N, a.K, a.R, a.Kp, a.D = N, K, R, Kp, D
+    lib = build()["dry_run_preemption"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.kt_dry_run_preemption(ctypes.byref(a), stream)
+    _raise_on(lib, "dry_run_preemption", code)
+    launch_counts["dry_run_preemption"] += 1
+    return node_idx, victims, ok, n_pdb

@@ -22,7 +22,9 @@
 //       free resources and a pod slot is left (only when the profile
 //       filters on NodeResourcesFit); the queue-order prefix before the
 //       first rejected pod commits, and pods with no feasible node inside
-//       it finalize. Each committed pod then writes its node's state.
+//       it finalize. Each committed pod then writes its node's state and
+//       clears its own nominations (a.nom_active, which the next round's
+//       filter_score reads).
 //
 // Bound: latency. The work that needs the whole card is filter_score's; the
 // round body is four short launches with P blocks at most. Design notes:
@@ -263,6 +265,11 @@ round_accept(ScoreArgs a, const int32_t* choice, int64_t* req, int64_t* nz, int3
         for (int64_t sg = 0; sg < a.sp_S; ++sg)
           if (a.sp_pod_match_sig[p * a.sp_S + sg] && a.sp_eligible[sg * N + c])
             sp_counts[sg * N + c] += 1;
+      }
+      if (a.nom_node != nullptr) {
+        // the accepted nominee spends its nomination (batched.py:222-225)
+        for (int64_t g = 0; g < a.G; ++g)
+          if (a.nom_pod_idx[g] == p) a.nom_active[g] = 0;
       }
       assignments[p] = c;
     }

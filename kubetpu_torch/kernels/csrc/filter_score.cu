@@ -34,6 +34,12 @@
 // spread-scored pod, each soft slot's domain count `size` (a bitmap over
 // the domains, in shared memory when it fits, else in global scratch) and
 // the scored min and max of the rounded spread raw, and writes the total.
+//
+// Potential mode (the preemption evaluator's _potential_mask,
+// kubetpu/framework/preemption.py:124, on a one-pod view): launch (a)
+// writes, for each node, "every victim-independent filter passes (static
+// row, PodTopologySpread, InterPodAffinity) and NodeResourcesFit or
+// NodePorts fails" against the state given, and no score.
 #include "score_common.cuh"
 
 namespace {
@@ -59,14 +65,24 @@ __global__ void filter_score_spread_sums(ScoreArgs a) {
   if (threadIdx.x == 0) a.sp_min_match[s] = mm;
 }
 
-__global__ void filter_score_pairs(ScoreArgs a, uint8_t* mask, int64_t* base, int with_pa) {
+__global__ void filter_score_pairs(ScoreArgs a, uint8_t* mask, int64_t* base, int with_pa,
+                                   int potential) {
   const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t p = blockIdx.y;
   if (n >= a.N) return;
-  bool ok = kt::pair_feasible(a, p, n, a.requested, a.pod_count, a.node_ports);
+  // the victim-independent filters first, then (normal mode) the
+  // dependent ones
+  bool ok = kt::pair_static(a, p, n);
+  if (!potential && ok)
+    ok = kt::pair_dependent(a, p, n, a.requested, a.pod_count, a.node_ports);
   if (ok && with_pa && a.pa_filter)
     ok = kt::pa_feasible(a, a.pa_sums, kt::pa_escape(a, a.pa_row_total, p), p, n);
   if (ok && a.sp_filter) ok = kt::sp_feasible(a, a.sp_sums, a.sp_min_match, p, n);
+  if (potential) {
+    mask[p * a.N + n] =
+        ok && !kt::pair_dependent(a, p, n, a.requested, a.pod_count, a.node_ports);
+    return;
+  }
   mask[p * a.N + n] = ok;
   base[p * a.N + n] = kt::base_score(a, p, n, a.requested, a.nonzero_requested);
 }
@@ -123,12 +139,20 @@ __global__ void filter_score_normalize(ScoreArgs a, const uint8_t* mask, const i
 // (b) when `total` is not null, on `stream`. Without `dynamic` the mask
 // leaves out the InterPodAffinity and PodTopologySpread filters, the ones
 // that move with each assignment (greedy_scan evaluates them per step).
+// With `potential` the mask is the potential mode's (see above; `dynamic`
+// is implied, `base` and `total` are not written and may be null).
 // `smem` is pass (b)'s dynamic shared memory in bytes (at most 40 KiB).
 // Returns the cudaError_t of the launches (0 = all were accepted); the
 // caller raises on anything else.
 extern "C" int kt_filter_score(const ScoreArgs* args, void* mask, void* base, void* total,
-                               int dynamic, int64_t smem, void* stream) {
+                               int dynamic, int potential, int64_t smem, void* stream) {
   ScoreArgs a = *args;
+  if (potential) {
+    dynamic = 1;
+    total = nullptr;
+    a.w_interpod = 0;
+    a.w_spread = 0;
+  }
   const int pa = dynamic && a.pa_node_domain != nullptr;
   if (!pa) a.w_interpod = 0;
   const int sp = dynamic && a.sp_node_domain != nullptr;
@@ -151,7 +175,7 @@ extern "C" int kt_filter_score(const ScoreArgs* args, void* mask, void* base, vo
   }
   dim3 grid((unsigned)((a.N + kPairThreads - 1) / kPairThreads), (unsigned)a.P);
   filter_score_pairs<<<grid, kPairThreads, 0, s>>>(a, static_cast<uint8_t*>(mask),
-                                                   static_cast<int64_t*>(base), pa);
+                                                   static_cast<int64_t*>(base), pa, potential);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || total == nullptr) return (int)err;
   filter_score_normalize<<<(unsigned)a.P, kRowThreads, (size_t)smem, s>>>(

@@ -55,6 +55,12 @@
 // increment to affinity row r at the chosen node's domain
 // (greedy.py:157-168). One block uses one of the card's 132 SMs: spreading
 // the node axis over a thread-block cluster is later work (ROADMAP).
+//
+// Nominations (the final state's slot 6, a.nom_active): filter_score's
+// mask0 charges every nomination; when a step assigns a nomination's own
+// pod, that nomination stops charging (greedy.py:170-175) and its
+// nominated node is marked touched, so later pods recompute that node's
+// verdict against the live nominations.
 #include "score_common.cuh"
 
 namespace {
@@ -105,6 +111,7 @@ greedy_scan_kernel(ScoreArgs a, const uint8_t* mask0, const int64_t* base0, uint
   }
   const bool pa = kPA;
   const bool pa_filter = kPA && a.pa_filter;
+  const bool nom = a.nom_node != nullptr && a.G > 0;
   const int64_t S = a.sp_S, D1 = a.sp_D + 1;
   double* weight = reinterpret_cast<double*>(s_dyn);
   uint32_t* bits = a.sp_bits != nullptr
@@ -244,7 +251,15 @@ greedy_scan_kernel(ScoreArgs a, const uint8_t* mask0, const int64_t* base0, uint
         }
       }
     }
-    if (pa || kSP) __syncthreads();
+    if (nom && chosen >= 0) {
+      // assume deletes the nomination (schedule_one.go:307)
+      for (int64_t g = tid; g < a.G; g += kThreads) {
+        if (a.nom_pod_idx[g] != p || !a.nom_active[g]) continue;
+        a.nom_active[g] = 0;
+        if (a.nom_node[g] >= 0) touched[a.nom_node[g]] = 1;
+      }
+    }
+    if (pa || kSP || nom) __syncthreads();
   }
 }
 
@@ -256,8 +271,11 @@ greedy_scan_kernel(ScoreArgs a, const uint8_t* mask0, const int64_t* base0, uint
 // D) receives the final sums and row_total (RA,) is scratch; both are null
 // without. With a spread leaf, sp_counts (S, N) receives the final counts
 // and ok_buf (N,) is scratch, as are a.sp_sums, a.sp_min_match and
-// a.sp_bits; both are null without. `smem` is the dynamic shared memory in
-// bytes (at most 40 KiB). The outputs are written whole by the kernel.
+// a.sp_bits; both are null without. With nominations a.nom_active (G,)
+// holds the live nominations, all set on entry (filter_score's mask0 was
+// computed so), and is cleared in place as their pods are assigned. `smem`
+// is the dynamic shared memory in bytes (at most 40 KiB). The outputs are
+// written whole by the kernel.
 // Returns the cudaError_t of the launch (0 = accepted).
 extern "C" int kt_greedy_scan(const ScoreArgs* args, const void* mask0, const void* base0,
                               void* touched, void* assignments, void* req, void* nz, void* pc,

@@ -4,7 +4,11 @@
 //
 // Replaces, fused per pair, the jitted jnp compositions of the JAX package:
 //   kubetpu/ops/filters.py:22 resource_fit_mask (+ :76 the single-pod form)
-//   kubetpu/framework/runtime.py:1412 the NodePorts conflict contraction
+//     and :43 resource_fit_mask_nominated (the nominator's reservations:
+//     the requests and a pod slot of every live nomination whose gate
+//     admits the pod, charged at its nominated node)
+//   kubetpu/framework/runtime.py:1412 the NodePorts conflict contraction,
+//     with :1422-1443 the nominated pods' host ports
 //   kubetpu/ops/scores.py:53 / :82 / :121 the three fit strategies
 //     (+ :101 _trunc_div, :108 broken_linear, :21 _weighted_mean)
 //   kubetpu/ops/scores.py:174 balanced_allocation_score (+ :156 _balanced_std)
@@ -106,6 +110,17 @@ struct ScoreArgs {
   int64_t sp_S, sp_D, sp_C;
   int64_t sp_filter;                 // filter_spread and has_hard
   int64_t w_spread;                  // 0 unless w_spread and has_soft
+  // nominator reservations (kubetpu_torch.framework.runtime.DeviceBatch's
+  // nominated_* leaves); nom_node is null without nominations
+  const int32_t* nom_node;           // (G,) nominated node, -1 = none
+  const int64_t* nom_req;            // (G, R)
+  const uint8_t* nom_gate;           // (P, G) nomination g charges pod p
+  const uint8_t* nom_ports;          // (G, K), null when absent
+  const int32_t* nom_pod_idx;        // (G,) the nominee's batch index, -1 = none
+  uint8_t* nom_active;               // (G,) the nominations still charged;
+                                     // the engines clear a nominee's entry
+                                     // when they assign it
+  int64_t G;
 };
 
 namespace kt {
@@ -142,33 +157,72 @@ __device__ __forceinline__ int64_t broken_linear(int64_t p, const int64_t* xs,
   return y0 + trunc_div((y1 - y0) * (p - x0), x1 - x0);
 }
 
+// the victim-independent static verdict: node and pod valid, static row
+__device__ __forceinline__ bool pair_static(const ScoreArgs& a, int64_t p, int64_t n) {
+  if (!a.node_valid[n] || !a.pod_valid[p]) return false;
+  return a.static_mask == nullptr || a.static_mask[(int64_t)a.static_sig[p] * a.N + n];
+}
+
+// nomination g is charged to pod p at node n: its gate admits p, it is
+// still live, and n is its nominated node
+__device__ __forceinline__ bool nominated_here(const ScoreArgs& a, int64_t p, int64_t n,
+                                               int64_t g) {
+  return a.nom_gate[p * a.G + g] && a.nom_active[g] && a.nom_node[g] == n;
+}
+
+// does any of pod p's triples conflict with triple row `ports` (K,)?
+__device__ __forceinline__ bool ports_conflict(const ScoreArgs& a, int64_t p,
+                                               const uint8_t* ports) {
+  const int64_t K = a.K;
+  for (int64_t k = 0; k < K; ++k) {
+    if (!a.pod_ports[p * K + k]) continue;
+    for (int64_t l = 0; l < K; ++l)
+      if (a.port_conflict[k * K + l] && ports[l]) return true;
+  }
+  return false;
+}
+
+// the victim-dependent verdict: NodeResourcesFit and NodePorts against the
+// node state given (the batch's, or an engine's running state), with the
+// reservations of the live nominations at node n charged (integer sums:
+// the reference's f64 contraction of integers below 2^53 is exact)
+__device__ __forceinline__ bool pair_dependent(const ScoreArgs& a, int64_t p, int64_t n,
+                                               const int64_t* req_state,
+                                               const int32_t* pc_state,
+                                               const uint8_t* ports_state) {
+  const int64_t R = a.R;
+  const int64_t G = a.nom_node != nullptr ? a.G : 0;
+  int64_t charged = 0;  // live nominations at n that pod p must make room for
+  for (int64_t g = 0; g < G; ++g) charged += nominated_here(a, p, n, g);
+  if (a.filter_fit) {
+    if (!(pc_state[n] + 1 + charged <= a.allowed_pods[n])) return false;
+    for (int64_t r = 0; r < R; ++r) {
+      const int64_t q = a.requests[p * R + r];
+      if (q == 0) continue;
+      int64_t extra = 0;
+      if (charged)
+        for (int64_t g = 0; g < G; ++g)
+          if (nominated_here(a, p, n, g)) extra += a.nom_req[g * R + r];
+      if (q > a.alloc[n * R + r] - req_state[n * R + r] - extra) return false;
+    }
+  }
+  if (a.filter_ports) {
+    if (ports_conflict(a, p, ports_state + n * a.K)) return false;
+    if (charged && a.nom_ports != nullptr)
+      for (int64_t g = 0; g < G; ++g)
+        if (nominated_here(a, p, n, g) && ports_conflict(a, p, a.nom_ports + g * a.K))
+          return false;
+  }
+  return true;
+}
+
 // Filter: static row AND NodeResourcesFit AND NodePorts, against the node
 // state given (the batch's, or the greedy scan's running state)
 __device__ __forceinline__ bool pair_feasible(const ScoreArgs& a, int64_t p, int64_t n,
                                               const int64_t* req_state,
                                               const int32_t* pc_state,
                                               const uint8_t* ports_state) {
-  if (!a.node_valid[n] || !a.pod_valid[p]) return false;
-  if (a.static_mask != nullptr &&
-      !a.static_mask[(int64_t)a.static_sig[p] * a.N + n])
-    return false;
-  const int64_t R = a.R;
-  if (a.filter_fit) {
-    if (!(pc_state[n] + 1 <= a.allowed_pods[n])) return false;
-    for (int64_t r = 0; r < R; ++r) {
-      int64_t q = a.requests[p * R + r];
-      if (q != 0 && q > a.alloc[n * R + r] - req_state[n * R + r]) return false;
-    }
-  }
-  if (a.filter_ports) {
-    const int64_t K = a.K;
-    for (int64_t k = 0; k < K; ++k) {
-      if (!a.pod_ports[p * K + k]) continue;
-      for (int64_t l = 0; l < K; ++l)
-        if (a.port_conflict[k * K + l] && ports_state[n * K + l]) return false;
-    }
-  }
-  return true;
+  return pair_static(a, p, n) && pair_dependent(a, p, n, req_state, pc_state, ports_state);
 }
 
 // NodeResourcesFit score under the profile's strategy (no NormalizeScore)

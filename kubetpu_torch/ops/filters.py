@@ -2,8 +2,9 @@
 
 Port of ``kubetpu/ops/filters.py``: the plain PyTorch versions, function for
 function. On a CUDA device the scheduler's main path does not call these
-one by one: ``kernels/csrc/score_common.cuh`` fuses them into the
-``filter_score`` and ``greedy_scan`` kernels, and ``chip_smoke.py`` holds
+one by one: ``kernels/csrc/score_common.cuh`` fuses them (nominated fit
+included) into the ``filter_score``, ``greedy_scan`` and ``batched_round``
+kernels, and ``chip_smoke.py`` holds
 those kernels to the compositions built from the functions here.
 
 The reference runs Filter plugins per (pod, node) inside a chunked
@@ -43,13 +44,42 @@ def resource_fit_mask(
     return mask & room[None, :]
 
 
-def resource_fit_mask_nominated(*args, **kwargs) -> torch.Tensor:
-    """NodeResourcesFit with nominator reservations. Nominations come with
-    preemption, which the port has not reached (ROADMAP Queue A item 8)."""
-    raise NotImplementedError(
-        "resource_fit_mask_nominated: nominated pods arrive with preemption "
-        "(ROADMAP Queue A item 8, kernel B9), not yet ported"
-    )
+def resource_fit_mask_nominated(
+    pod_requests: torch.Tensor,   # (P, R) int64
+    alloc: torch.Tensor,          # (N, R)
+    requested: torch.Tensor,      # (N, R)
+    pod_count: torch.Tensor,      # (N,)
+    allowed_pods: torch.Tensor,   # (N,)
+    gate: torch.Tensor,           # (P, G) bool — nomination applies to pod p
+    g_node: torch.Tensor,         # (G,) int32 nominated node index (-1 none)
+    g_req: torch.Tensor,          # (G, R) int64 nominated pod requests
+) -> torch.Tensor:
+    """NodeResourcesFit with nominator reservations
+    (RunFilterPluginsWithNominatedPods' fit dimension): pod p additionally
+    sees ``Σ_g gate[p,g]·requests[g]`` charged to g's nominated node, and
+    one pod slot for each such g. The (P,N,R) intermediate is never
+    materialized — one (P,N) plane per resource.
+
+    The reference contracts in f64 (an s64 dot is outside XLA's TPU
+    vocabulary); so does this version, because CUDA has no integer matmul.
+    Every addend is an integer and every partial sum stays below 2^53
+    (resource quantities are far below it), so each f64 sum is exact in any
+    order and equals the int64 sum bit for bit."""
+    n = alloc.shape[0]
+    onehot = (
+        g_node[:, None] == torch.arange(n, dtype=g_node.dtype, device=g_node.device)
+    )                                                                 # (G, N)
+    gate_f = gate.to(torch.float64)
+    onehot_f = onehot.to(torch.float64)
+    extra_cnt = (gate_f @ onehot_f).to(torch.int64)                   # (P, N)
+    mask = (pod_count[None, :] + 1 + extra_cnt) <= allowed_pods[None, :]
+    free = alloc - requested                                          # (N, R)
+    for r in range(alloc.shape[1]):
+        plane = onehot_f * g_req[:, r].to(torch.float64)[:, None]     # (G, N)
+        extra_r = (gate_f @ plane).to(torch.int64)
+        req_r = pod_requests[:, r][:, None]                           # (P, 1)
+        mask = mask & ((req_r == 0) | (req_r <= free[None, :, r] - extra_r))
+    return mask
 
 
 def resource_fit_mask_single(

@@ -1,0 +1,221 @@
+"""Preemption victim search (kernel B9).
+
+Port of ``kubetpu/ops/preemption.py``: the reference's dry-run preemption
+(pkg/scheduler/framework/preemption/preemption.go:404 DryRunPreemption +
+pkg/scheduler/framework/plugins/defaultpreemption/default_preemption.go:252
+SelectVictimsOnNode), exhaustive over all candidate nodes at once instead of
+sampling a candidate subset and simulating nodes one goroutine at a time.
+
+Per-node semantics, as in the reference:
+
+1. potential victims = pods with priority < preemptor's
+   (default_preemption.go:396 isPreemptionAllowed)
+2. preemptor must fit with ALL of them removed (:302) — fit here covers the
+   victim-*dependent* filters (NodeResourcesFit, NodePorts, pod count);
+   victim-independent filters are the caller-supplied ``potential`` mask
+3. PDB violation marking walks victims in MoreImportantPod order
+   (:315 filterPodsWithPDBViolation; util.MoreImportantPod = higher
+   priority first, earlier start time breaks ties; equal keys keep slot
+   order, as the reference's stable ``lax.sort`` does)
+4. reprieve: violating victims first, then non-violating, each in importance
+   order; a victim is reprieved iff the preemptor still fits with it back
+   (:316-343)
+5. node choice = pickOneNodeForPreemption's lexicographic refinement
+   (preemption.go:311): fewest PDB violations → lowest highest-victim
+   priority → lowest summed priority (+2^31 per victim) → fewest victims →
+   latest earliest-start-time among highest-priority victims → first node.
+
+Scope note (the reference's documented divergence, kept): the in-kernel
+re-check covers resources/count/ports; nodes whose failure involved hard
+spread/inter-pod-affinity are excluded by the caller's ``potential`` mask.
+
+``dry_run_preemption_plain`` is the plain PyTorch version: the reference's
+``select_victims_node`` vmapped over nodes becomes a node axis written out in
+front, and its two sorts and two scans over the K victim slots become stable
+sorts and Python loops over K. ``dry_run_preemption`` launches the
+hand-written ``dry_run_preemption`` CUDA kernel (``kernels/csrc/
+dry_run_preemption.cu``) for tensors on a CUDA device, and runs the plain
+version for tensors on the CPU. The reference donates ``potential`` and
+``v_valid`` to its outputs; torch has no donation, so the outputs here are
+fresh tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+I64_MIN = -(2**62)
+I64_MAX = 2**62
+PRIO_OFFSET = 2**31  # preemption.go:339 MaxInt32+1 shift
+
+
+def _fits(pod_req, alloc, req_state, count_state, allowed, wants_conf, port_counts):
+    """Does the preemptor fit each node's state? NodeResourcesFit semantics
+    (req==0 passes; fit.go fitsRequest) + pod count + NodePorts conflict
+    against live port-usage counts. Node axis leading: ``alloc`` /
+    ``req_state`` (N, R), ``count_state`` / ``allowed`` (N,),
+    ``port_counts`` (N, Kp); returns (N,) bool."""
+    ok_r = torch.all((pod_req[None, :] == 0) | (pod_req[None, :] <= alloc - req_state), dim=-1)
+    ok_c = (count_state + 1) <= allowed
+    ok_p = ~torch.any(wants_conf[None, :] & (port_counts > 0), dim=-1)
+    return ok_r & ok_c & ok_p
+
+
+def _stable_order(keys, n_slots):
+    """Slot order of each row by the lexicographic ``keys`` (each (N, K),
+    most significant first), ties by ascending slot: stable sorts from the
+    least significant key up."""
+    order = torch.arange(n_slots, device=keys[0].device).expand(keys[0].shape[0], n_slots)
+    for key in reversed(keys):
+        k_sorted = torch.gather(key, 1, order)
+        idx = torch.sort(k_sorted, dim=1, stable=True).indices
+        order = torch.gather(order, 1, idx)
+    return order
+
+
+def select_victims_node(
+    pod_req,        # (R,) int64 — preemptor exact requests
+    pod_prio,       # () int64
+    wants_conf,     # (Kp,) bool — preemptor port triples × conflict matrix
+    alloc,          # (N, R) int64
+    requested,      # (N, R) int64
+    pod_count,      # (N,) int32
+    allowed,        # (N,) int32
+    v_valid,        # (N, K) bool
+    v_prio,         # (N, K) int64
+    v_start,        # (N, K) int64
+    v_req,          # (N, K, R) int64
+    v_ports,        # (N, K, Kp) int8
+    v_pdb,          # (N, K, D) bool
+    port_counts,    # (N, Kp) int32
+    pdb_allowed,    # (D,) int64
+):
+    """Every node's SelectVictimsOnNode (the reference's function vmapped
+    over the leading node axis). Returns ``(ok, victims (N, K) bool,
+    n_pdb_viol, max_prio, sum_prio, n_victims, earliest_start)``, each
+    stat (N,) — they feed pick_node."""
+    N, K = v_valid.shape
+    rows = torch.arange(N, device=v_valid.device)
+    eligible = v_valid & (v_prio < pod_prio)
+    has_eligible = torch.any(eligible, dim=1)
+    e64 = eligible.to(torch.int64)
+
+    # state with every eligible victim removed
+    base_req = requested - torch.sum(e64[:, :, None] * v_req, dim=1)
+    base_count = pod_count.to(torch.int64) - torch.sum(e64, dim=1)
+    base_ports = port_counts - torch.sum(
+        e64[:, :, None] * v_ports.to(torch.int64), dim=1
+    ).to(port_counts.dtype)
+    fits_base = _fits(
+        pod_req, alloc, base_req, base_count, allowed, wants_conf, base_ports
+    )
+
+    # importance order: priority desc, start asc; ineligible slots last
+    imp_key = torch.where(eligible, -v_prio, I64_MAX)
+    by_importance = _stable_order((imp_key, v_start), K)
+
+    # PDB violation flags, walking importance order
+    allowed_d = pdb_allowed[None, :].expand(N, -1).clone()
+    violating = torch.zeros((N, K), dtype=torch.bool, device=v_valid.device)
+    for j in range(K):
+        k = by_importance[:, j]
+        matched = v_pdb[rows, k] & eligible[rows, k][:, None]     # (N, D)
+        allowed_d = allowed_d - matched.to(torch.int64)
+        violating[rows, k] = torch.any(matched & (allowed_d < 0), dim=1)
+
+    # reprieve order: violating group first, then importance within group
+    grp_key = torch.where(violating, 0, 1)
+    grp_key = torch.where(eligible, grp_key, 2)
+    reprieve_order = _stable_order((grp_key, imp_key, v_start), K)
+
+    req_s, cnt_s, ports_s = base_req, base_count, base_ports
+    victims = torch.zeros((N, K), dtype=torch.bool, device=v_valid.device)
+    n_pdb_viol = torch.zeros(N, dtype=torch.int64, device=v_valid.device)
+    for j in range(K):
+        k = reprieve_order[:, j]
+        try_req = req_s + v_req[rows, k]
+        try_cnt = cnt_s + 1
+        try_ports = ports_s + v_ports[rows, k].to(ports_s.dtype)
+        fits = _fits(
+            pod_req, alloc, try_req, try_cnt, allowed, wants_conf, try_ports
+        )
+        elig_k = eligible[rows, k]
+        take = elig_k & fits            # reprieved: stays on the node
+        req_s = torch.where(take[:, None], try_req, req_s)
+        cnt_s = torch.where(take, try_cnt, cnt_s)
+        ports_s = torch.where(take[:, None], try_ports, ports_s)
+        is_victim = elig_k & ~fits
+        victims[rows, k] = is_victim
+        n_pdb_viol = n_pdb_viol + (is_victim & violating[rows, k]).to(torch.int64)
+
+    n_victims = torch.sum(victims, dim=1).to(torch.int64)
+    ok = has_eligible & fits_base & (n_victims > 0)
+    max_prio = torch.max(torch.where(victims, v_prio, I64_MIN), dim=1).values
+    sum_prio = torch.sum(torch.where(victims, v_prio + PRIO_OFFSET, 0), dim=1)
+    highest = victims & (v_prio == max_prio[:, None])
+    earliest_start = torch.min(torch.where(highest, v_start, I64_MAX), dim=1).values
+    return ok, victims, n_pdb_viol, max_prio, sum_prio, n_victims, earliest_start
+
+
+def pick_node(ok, n_pdb_viol, max_prio, sum_prio, n_victims, earliest_start):
+    """pickOneNodeForPreemption (preemption.go:311): iterative lexicographic
+    refinement over score functions, first node breaking any remaining tie.
+    Returns the chosen node index as a () int32 tensor, -1 when no node is
+    a candidate."""
+    any_ok = torch.any(ok)
+    cands = ok
+    # maximize each score in turn, keeping only argmax ties
+    for score in (
+        -n_pdb_viol,            # fewest PDB violations
+        -max_prio,              # lowest highest-victim priority
+        -sum_prio,              # lowest summed (shifted) priorities
+        -n_victims,             # fewest victims
+        earliest_start,         # latest earliest-start of highest-prio victims
+    ):
+        best = torch.max(torch.where(cands, score, I64_MIN))
+        cands = cands & (score == best)
+    idx = torch.argmax(cands.to(torch.int8)).to(torch.int32)  # first candidate
+    return torch.where(any_ok, idx, torch.tensor(-1, dtype=torch.int32, device=ok.device))
+
+
+def dry_run_preemption_plain(
+    pod_req, pod_prio, wants_conf, potential,
+    alloc, requested, pod_count, allowed, port_counts,
+    v_valid, v_prio, v_start, v_req, v_ports, v_pdb, pdb_allowed,
+):
+    """All nodes at once: SelectVictimsOnNode over every node, gated by the
+    caller's ``potential`` (N,) mask (nodes whose failure preemption could
+    resolve — preemption.go:180 NodesForStatusCode(Unschedulable)), then
+    pick_node. ``pod_prio`` is an int (or a () int64 tensor).
+
+    Returns ``(node_idx () int32, victims (N, K) bool, ok (N,) bool, n_pdb
+    (N,) int64)`` — the victims row of the chosen node is the preemption
+    plan; ``ok``/``n_pdb`` expose the full candidate set."""
+    ok, victims, n_pdb, max_p, sum_p, n_v, early = select_victims_node(
+        pod_req, pod_prio, wants_conf, alloc, requested, pod_count, allowed,
+        v_valid, v_prio, v_start, v_req, v_ports, v_pdb, port_counts,
+        pdb_allowed,
+    )
+    ok = ok & potential
+    node_idx = pick_node(ok, n_pdb, max_p, sum_p, n_v, early)
+    return node_idx, victims, ok, n_pdb
+
+
+def dry_run_preemption(*args):
+    """The dry run where its tensors live: the hand-written
+    ``dry_run_preemption`` kernel on a CUDA device, the plain version on the
+    CPU. Same arguments and results as ``dry_run_preemption_plain``."""
+    if args[3].device.type == "cpu":
+        return dry_run_preemption_plain(*args)
+    from ..kernels import dry_run_preemption as kernel
+
+    return kernel(*args)
+
+
+def dry_run_gang_preemption(*args, **kwargs):
+    """Gang mode of the dry run (evict one whole gang; kernel B13): the gang
+    and topology lane is ROADMAP Queue A item 10, not yet ported."""
+    raise NotImplementedError(
+        "dry_run_gang_preemption: the gang lane (kernel B13) is ROADMAP "
+        "Queue A item 10, not yet ported"
+    )

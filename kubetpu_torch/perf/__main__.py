@@ -9,6 +9,7 @@ direct mode and print its result as one JSON line.
         --workload 5000Nodes_5000Pods --engine batched
     python -m kubetpu_torch.perf --case TopologySpreading \\
         --workload 5000Nodes_5000Pods --engine batched
+    python -m kubetpu_torch.perf --case PreemptionAsync --workload 5000Nodes
 """
 
 from __future__ import annotations

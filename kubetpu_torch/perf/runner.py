@@ -1,9 +1,10 @@
 """scheduler_perf runner — drive the port's scheduler loop through an op list.
 
 Reduced fork of ``kubetpu/perf/runner.py``: the direct mode only (no HTTP
-apiserver, no churn, no federation), for the ops of the slice's workloads.
-The op lists drive the port's ``Scheduler`` through its informer seam, as
-the reference's direct mode drives kubetpu's.
+apiserver, no federation), for the ops of the slice's workloads, churn
+included. The op lists drive the port's ``Scheduler`` through its informer
+seam, as the reference's direct mode drives kubetpu's, with preemption
+enabled as there.
 
 Throughput definition: measured-phase scheduled pods / measured-phase wall
 seconds — the average the reference's threshold selector asserts on
@@ -58,6 +59,16 @@ class WorkloadResult:
     # full (generation 2) collections there
     gc_s: float = 0.0
     gc_full_collections: int = 0
+    # measured-phase PostFilter runs, their victims, and the runs that
+    # nominated a node
+    preemption_attempts: int = 0
+    preemption_victims: int = 0
+    preemptions: int = 0
+    # measured-phase dry runs (PreemptionEvaluator.preempt calls past the
+    # policy gate) and their mean ms a call: upload, potential mask, dry
+    # run, fetch
+    preempt_calls: int = 0
+    preempt_ms: dict = field(default_factory=dict)
 
     def to_json(self) -> dict:
         return {
@@ -75,6 +86,10 @@ class WorkloadResult:
             "pipeline_replays": self.pipeline_replays,
             "encode_cache_hit_rate": self.encode_cache_hit_rate,
             "gc_s": self.gc_s, "gc_full_collections": self.gc_full_collections,
+            "preemption_attempts": self.preemption_attempts,
+            "preemption_victims": self.preemption_victims,
+            "preemptions": self.preemptions,
+            "preempt_calls": self.preempt_calls, "preempt_ms": self.preempt_ms,
         }
 
 
@@ -104,30 +119,79 @@ class _GcClock:
 
 
 class _Client:
-    """API-server stand-in: binds land here and feed the informer handlers
-    back on the loop thread via a pending queue (the watch-event delivery
-    the reference gets from the apiserver)."""
+    """API-server stand-in: binds and victim deletes land here and feed the
+    informer handlers back on the loop thread via a pending queue (the
+    watch-event delivery the reference gets from the apiserver). It also
+    keeps every delete (with its reason) and nomination it was sent."""
 
     def __init__(self) -> None:
         self.sched: Scheduler | None = None
         self.bound: list[tuple[str, str]] = []
         self._events: collections.deque = collections.deque()
         # bind-time counts per namespace: the throughput collector's view
+        # (scheduler_perf measures SchedulingThroughput at bind, scoped to
+        # the measured op's pods — churn/preemption traffic must not count)
         self.bound_by_ns: collections.Counter = collections.Counter()
+        self.deleted: list[tuple[t.Pod, str]] = []
+        self.nominated: list[tuple[t.Pod, str]] = []
 
     def bind(self, pod: t.Pod, node_name: str) -> None:
         self.bound.append((pod.name, node_name))
         self.bound_by_ns[pod.namespace] += 1
-        self._events.append((pod, pod.with_node(node_name)))
+        self._events.append(("update", pod, pod.with_node(node_name)))
+
+    def delete_pod(self, pod: t.Pod, reason: str = "") -> None:
+        self.deleted.append((pod, reason))
+        self._events.append(("delete", pod, None))
 
     def patch_status(self, pod: t.Pod, reason: str, message: str = "") -> None:
         pass
 
+    def nominate(self, pod: t.Pod, node_name: str) -> None:
+        self.nominated.append((pod, node_name))
+
     def deliver(self) -> None:
-        """Drain informer events (bind echoes) on the loop thread."""
+        """Drain informer events on the loop thread."""
         while self._events:
-            old, new = self._events.popleft()
-            self.sched.on_pod_update(old, new)
+            kind, a, b = self._events.popleft()
+            if kind == "update":
+                self.sched.on_pod_update(a, b)
+            else:
+                self.sched.on_pod_delete(a)
+
+
+@dataclass
+class _Churn:
+    op: W.ChurnOp
+    namespace: str
+    next_at: float = 0.0
+    seq: int = 0
+    live: list = field(default_factory=list)   # recreate-mode pool
+
+    def maybe_fire(self, sched: Scheduler, now: float) -> None:
+        while now >= self.next_at:
+            self.next_at = (self.next_at or now) + self.op.interval_ms / 1000.0
+            if self.op.mode == "recreate" and self.op.number and (
+                len(self.live) >= self.op.number
+            ):
+                victim = self.live.pop(0)
+                sched.on_pod_delete(victim)
+            pod = self.op.template(f"churn-{self.seq}", self.namespace)
+            self.seq += 1
+            sched.on_pod_add(pod)
+            if self.op.mode == "recreate":
+                self.live.append(pod)
+
+
+def _preemption_counts(sched, client) -> dict:
+    """PostFilter attempts, victims, nominations, dry runs and the dry
+    runs' span seconds (``PreemptionEvaluator.spans``) so far."""
+    pf = sched._post_filter
+    return {
+        "attempts": sched.metrics.preemption_attempts,
+        "victims": sched.metrics.preemption_victims,
+        "nominations": len(client.nominated), "calls": pf.calls, **pf.spans,
+    }
 
 
 def _cycle_ms(timings: list) -> dict:
@@ -137,7 +201,8 @@ def _cycle_ms(timings: list) -> dict:
     return {
         region: 1e3 * sum(getattr(c, region + "_s") for c in timings) / n
         for region in ("snapshot", "pre_encode", "finalize", "encode",
-                       "nodes", "refresh", "upload", "kernel", "wait", "bind")
+                       "nodes", "refresh", "upload", "kernel", "wait", "bind",
+                       "postfilter")
     }
 
 
@@ -170,9 +235,10 @@ def run_workload(
     with the ``engine`` (``"greedy"`` or ``"batched"``) and return the
     measurement. ``pipeline`` runs the two-stage pipelined cycle
     (``Scheduler(pipeline=True)``); ``encode_cache`` toggles the encode
-    cache (on by default, as in the reference). ``stall_s`` is how long
-    zero progress must persist before a phase gives up. The kernels are built before the
-    measured phase starts (``Scheduler.warmup``). ``on_scheduler`` is
+    cache (on by default, as in the reference). Preemption is enabled, as
+    the reference's runner does; churn ops fire between cycles.
+    ``stall_s`` is how long zero progress must persist before a phase gives
+    up. The kernels are built before the measured phase starts (``Scheduler.warmup``). ``on_scheduler`` is
     called once with the run's Scheduler before any op runs, so a caller
     can inspect it during and after the run."""
     if isinstance(case, str):
@@ -188,19 +254,24 @@ def run_workload(
         encode_cache=encode_cache,
     )
     client.sched = sched
+    sched.enable_preemption()
     if on_scheduler is not None:
         on_scheduler(sched)
 
+    churns: list[_Churn] = []
     measured = 0
     duration = 0.0
     attempts0 = cycles0 = timings0 = replays0 = 0
     cache0 = (0, 0)
+    preempt0 = None
     op_ns_counter = 0
     gc_clock = _GcClock()
 
     def settle(target: int, namespaces: tuple[str, ...] = ()) -> tuple[int, float]:
         """Run cycles until ``target`` pods of the op's ``namespaces`` are
-        BOUND (or stall). Returns (bound, wall seconds)."""
+        BOUND (or stall). Churn fires between cycles; its pods bind in
+        their own namespaces and never count toward the op's target.
+        Returns (bound, wall seconds)."""
 
         def bound_now() -> int:
             return sum(client.bound_by_ns[ns] for ns in namespaces)
@@ -214,6 +285,8 @@ def run_workload(
             now = time.perf_counter()
             if now > deadline:
                 break
+            for ch in churns:
+                ch.maybe_fire(sched, now)
             res = sched.schedule_batch()
             client.deliver()
             before = done
@@ -260,6 +333,7 @@ def run_workload(
                 # the init phase's misses (first sight of every template)
                 # must not dilute the steady-state hit rate
                 cache0 = _cache_counts(sched)
+                preempt0 = _preemption_counts(sched, client)
             for j in range(count):
                 sched.on_pod_add(template(f"{prefix}-{ns}-{j}", ns))
             if op.skip_wait:
@@ -272,11 +346,15 @@ def run_workload(
             if op.collect_metrics:
                 measured += done
                 duration += secs
+        elif isinstance(op, W.ChurnOp):
+            churns.append(_Churn(op=op, namespace=f"churn-{len(churns)}"))
         else:
             raise TypeError(f"op {op!r} is not in the port's slices yet")
 
     client.deliver()
     timings = sched.metrics.cycle_timings[timings0:]
+    pre = {k: v - (preempt0 or {}).get(k, 0)
+           for k, v in _preemption_counts(sched, client).items()}
     hits, misses = (a - b for a, b in zip(_cache_counts(sched), cache0))
     result = WorkloadResult(
         case_name=case.name,
@@ -315,5 +393,12 @@ def run_workload(
         encode_cache_hit_rate=hits / (hits + misses) if hits + misses else None,
         gc_s=gc_clock.seconds,
         gc_full_collections=gc_clock.full,
+        preemption_attempts=pre["attempts"],
+        preemption_victims=pre["victims"],
+        preemptions=pre["nominations"],
+        preempt_calls=pre["calls"],
+        preempt_ms={
+            k: 1e3 * pre[k] / pre["calls"] for k in sched._post_filter.spans
+        } if pre["calls"] else {},
     )
     return result

@@ -5,11 +5,14 @@ so far: the ``SchedulingBasic`` test case (misc/performance-config.yaml:20
 in the reference), the ``SchedulingPodAffinity`` test case
 (affinity/performance-config.yaml:96) and the three topology-spreading cases
 (``TopologySpreading``, ``PreferredTopologySpreading`` and
-``DefaultTopologySpreading``, topology_spreading/performance-config.yaml),
-each with its two direct-mode workloads, the templates they use
+``DefaultTopologySpreading``, topology_spreading/performance-config.yaml)
+and the ``PreemptionAsync`` test case (misc/performance-config.yaml:186),
+each with its direct-mode workloads, the templates they use
 (``node_default``, ``pod_default``, ``pod_with_pod_affinity``,
 ``pod_with_topology_spreading``, ``pod_with_preferred_topology_spreading``,
-``pod_with_label``) and the four ops they use. Everything kept is verbatim
+``pod_with_label``, ``pod_low_priority``, ``pod_high_priority_3cpu``, and
+``pod_high_priority_large_cpu``, ``ChurnOp``'s default) and the five ops
+they use. Everything kept is verbatim
 apart from the trim: ``node_default`` drops the rack/TPU-slice label option,
 which no kept case sets.
 
@@ -110,6 +113,31 @@ def pod_with_label(name: str, namespace: str) -> t.Pod:
     )
 
 
+def pod_high_priority_large_cpu(name: str, namespace: str) -> t.Pod:
+    """templates/pod-high-priority-large-cpu.yaml: priority 10, 9 cpu."""
+    return make_pod(
+        name, namespace=namespace, priority=10,
+        cpu_milli=9000, memory=500 * 1024**2,
+    )
+
+
+def pod_low_priority(name: str, namespace: str) -> t.Pod:
+    """templates/pod-low-priority.yaml: 900m/500Mi, priority 0 — four of
+    them fill 3.6 of a node's 4 cpu (the PreemptionAsync setup)."""
+    return make_pod(
+        name, namespace=namespace, cpu_milli=900, memory=500 * 1024**2,
+    )
+
+
+def pod_high_priority_3cpu(name: str, namespace: str) -> t.Pod:
+    """templates/pod-high-priority.yaml: priority 10, 3 cpu — must preempt
+    3 of 4 low-priority pods to fit."""
+    return make_pod(
+        name, namespace=namespace, priority=10,
+        cpu_milli=3000, memory=500 * 1024**2,
+    )
+
+
 # ---------------------------------------------------------------------------
 # op list (operations.go analogs)
 # ---------------------------------------------------------------------------
@@ -161,6 +189,17 @@ class CreatePodsOp:
     collect_metrics: bool = False
     namespace: str | None = None            # None → unique per-op namespace
     skip_wait: bool = False
+
+
+@dataclass(frozen=True)
+class ChurnOp:
+    """operations.go:518 churnOp — create (or recreate) interfering objects
+    at an interval while the measured phase runs."""
+
+    mode: str = "create"                    # create | recreate
+    template: PodTemplate = pod_high_priority_large_cpu
+    interval_ms: int = 500
+    number: int = 0                         # recreate pool size (0 = unbounded)
 
 
 @dataclass(frozen=True)
@@ -289,5 +328,26 @@ _case(TestCase(
         Workload("5000Nodes_50000Pods",
                  {"initNodes": 5000, "initPods": 5000, "measurePods": 50000},
                  threshold=160, labels=("performance",)),
+    ),
+))
+
+_case(TestCase(
+    name="PreemptionAsync",
+    source="misc/performance-config.yaml:186 (threshold 570)",
+    ops=(
+        CreateNodesOp("initNodes"),
+        CreatePodsOp("initPods", template=pod_low_priority),
+        ChurnOp(mode="create", template=pod_high_priority_3cpu,
+                interval_ms=200),
+        CreatePodsOp("measurePods", template=pod_default,
+                     collect_metrics=True),
+    ),
+    workloads=(
+        Workload("5Nodes", {"initNodes": 5, "initPods": 20, "measurePods": 5}),
+        Workload("500Nodes",
+                 {"initNodes": 500, "initPods": 2000, "measurePods": 500}),
+        Workload("5000Nodes",
+                 {"initNodes": 5000, "initPods": 20000, "measurePods": 5000},
+                 threshold=570, labels=("performance",)),
     ),
 ))

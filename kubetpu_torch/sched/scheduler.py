@@ -3,13 +3,17 @@
 The slices of the port so far: the reference's default cycle — the encode
 cache, the device-resident node block and, on request, the two-stage
 pipelined cycle — for one or more profiles on the greedy or the batched
-engine, in direct mode, with synchronous binding. What it keeps of the
-reference, line for line where the logic is host logic: the informer
-handlers for nodes, pods, namespaces and services (with the encode cache's
-hooks), ``schedule_batch`` → ``_schedule_batch_serial`` /
+engine, in direct mode, with synchronous binding, and the DefaultPreemption
+PostFilter with the nominator's reservations (``enable_preemption``). What
+it keeps of the reference, line for line where the logic is host logic:
+the informer handlers for nodes, pods, namespaces, services and PDBs (with
+the encode cache's hooks), ``schedule_batch`` → ``_schedule_batch_serial`` /
 ``_schedule_batch_pipelined`` → ``_launch_cycle`` / ``_finish_cycle``,
 ``_pre_encode``, ``_refresh_host_state``, ``_complete_inflight`` with its
-replay, ``_handle_unschedulable``, the engine seam and ``run_until_idle``.
+replay (also when the nomination set moved under the in-flight cycle),
+``_handle_unschedulable`` with its PostFilter branch, the nomination spent
+at assume and dropped at pod delete, the engine seam and
+``run_until_idle``.
 
 The device calls of the reference's cycle become torch calls: the pod
 leaves are uploaded to the scheduler's ``device`` in one copy, the node
@@ -34,8 +38,8 @@ events' elapsed time on a CUDA device), the host's wait for the device,
 bind, the upload's byte counts and the batched engine's rounds.
 
 Not in these slices (each raises when asked for): the device mesh, the
-flight recorder, preemption, extenders, gangs, DRA, volumes, the sentinel,
-the packing engine and the metrics registry.
+flight recorder, extenders, gangs, DRA, volumes, the sentinel, the packing
+engine and the metrics registry.
 
 Reference semantics kept: the reference pops ONE pod per cycle
 (``ScheduleOne``); here a BATCH is popped and assigned by the greedy engine,
@@ -70,6 +74,8 @@ from ..queue.events import (
     default_queueing_hints,
     node_update_event,
 )
+from ..queue.nominator import Nominator
+from ..queue.priority_queue import pod_key
 from ..state.encode_cache import EncodeCache
 from ..state.encoder import encode_snapshot
 from ..state.snapshot import Cache, Snapshot
@@ -90,7 +96,9 @@ class CycleTiming:
     ``refresh_s`` the pipelined cycle's staleness refreshes — the
     ``_refresh_host_state`` in its stage 1 and the one that completes the
     previous cycle, and ``refresh_static`` in its stage 2 (0 in the serial
-    cycle)."""
+    cycle). ``postfilter_s`` is the failed pods' handling after bind: the
+    PostFilter (the preemption evaluator's build and its ``preempt``
+    calls) and their requeue."""
 
     cycle: int
     pods: int
@@ -103,6 +111,7 @@ class CycleTiming:
     bind_s: float = 0.0
     nodes_s: float = 0.0
     refresh_s: float = 0.0
+    postfilter_s: float = 0.0
     upload_bytes: int = 0            # every host→device byte of the cycle
     node_upload_bytes: int = 0       # of which the node block's delta
     resident_bytes: int = 0          # the resident node block's size
@@ -126,12 +135,20 @@ class SchedulerMetrics:
     errors: int = 0
     bind_errors: int = 0
     cycles: int = 0
+    preemption_attempts: int = 0
+    preemption_victims: int = 0
     # pipelined cycles whose device result was discarded and recomputed
     # because cluster state changed under them (node update / foreign pod
     # event between launch and completion) — replay preserves exact serial
     # parity
     pipeline_replays: int = 0
     cycle_timings: list = field(default_factory=list)
+
+    def note_preemption_attempt(self) -> None:
+        self.preemption_attempts += 1
+
+    def note_preemption_victims(self, n: int) -> None:
+        self.preemption_victims += n
 
 
 @dataclass
@@ -143,9 +160,12 @@ class _InflightCycle:
     profile: C.Profile
     batch_infos: list
     batch: "rt.EncodedBatch"
+    params: "rt.ScoreParams"
     assignments: Any                 # device tensor, fetched at completion
+    final_state: tuple               # the engine's seven state slots
     cycle_id: int
     timing: CycleTiming
+    nominator_version: int           # the nomination set the encode saw
     ns_gen: int                      # snapshot generations at launch
     vol_gen: int
     # CUDA events around the engine's launch (None on the CPU, where the
@@ -258,6 +278,36 @@ class Scheduler:
         # launch's CycleTiming.refresh_s)
         self._refresh_s = 0.0
         self._last_flush = 0.0
+        # the DefaultPreemption PostFilter, set by enable_preemption
+        self._post_filter: Any = None
+        self.pdbs: dict[str, t.PodDisruptionBudget] = {}  # "ns/name" -> PDB
+        # per-cycle context the PostFilter consumes: (batch, params,
+        # final_state, key->batch-index). None outside a cycle.
+        self._cycle_ctx: tuple | None = None
+        # preemptor key -> victim uids awaiting their informer delete; while
+        # any victim is still in the cache the pod is not eligible to
+        # preempt again (PodEligibleToPreemptOthers' terminating-victims
+        # check, default_preemption.go:364)
+        self._preempting: dict[str, set[str]] = {}
+        # nominated pods' reservations, fed into the fit and port filters
+        # so lower-priority pods can't steal the room the victims freed
+        self.nominator = Nominator()
+
+    def enable_preemption(self) -> None:
+        """Wire the DefaultPreemption PostFilter
+        (plugins/defaultpreemption/default_preemption.go:136)."""
+        from .preemption import DefaultPreemptionPostFilter
+
+        self._post_filter = DefaultPreemptionPostFilter()
+
+    # ------------------------------------------------------- PDB informers
+    def on_pdb_add(self, pdb: t.PodDisruptionBudget) -> None:
+        self.pdbs[f"{pdb.namespace}/{pdb.name}"] = pdb
+
+    on_pdb_update = on_pdb_add
+
+    def on_pdb_delete(self, pdb: t.PodDisruptionBudget) -> None:
+        self.pdbs.pop(f"{pdb.namespace}/{pdb.name}", None)
 
     def warmup(self) -> None:
         """Build the kernels before the measured phase (on a CUDA device;
@@ -393,8 +443,12 @@ class Scheduler:
             self._pre_encode_pod(new)
 
     def on_pod_delete(self, pod: t.Pod) -> None:
+        self.nominator.remove(pod.uid)
         if self.encode_cache is not None:
             self.encode_cache.drop_pod(pod.uid)
+        # a preemptor deleted while awaiting victim deletes must not leave a
+        # stale pending-victims record for a later same-ns/name pod
+        self._preempting.pop(pod_key(pod), None)
         # has_pod covers BOUND pods too: a Delete event may carry a stale
         # object with node_name unset (cache.go:583 RemovePod's contract)
         if pod.node_name or self.cache.has_pod(pod.uid):
@@ -573,10 +627,12 @@ class Scheduler:
         deltas against the in-flight encode — see _refresh_host_state) and
         build the assume-independent half of the encode. Host work only:
         no CUDA call, so nothing here waits for the device. Returns None
-        when the batch's encode is assume-coupled or stage 1 failed — the
-        launch then re-encodes from scratch."""
+        when the batch's encode is assume-coupled (nominations in play) or
+        stage 1 failed — the launch then re-encodes from scratch."""
         self._refresh_host_state()
         pods = [info.pod for info in batch_infos]
+        if self.nominator.entries():
+            return None
         try:
             sb = rt.encode_batch_static(
                 self._snapshot, pods, profile, prev_nt=self._prev_nt,
@@ -635,6 +691,7 @@ class Scheduler:
             raise
         stale = (
             self._inflight_stale
+            or self.nominator.version != inflight.nominator_version
             or self._snapshot.namespaces_generation != inflight.ns_gen
             or self._snapshot.volumes_generation != inflight.vol_gen
         )
@@ -684,15 +741,17 @@ class Scheduler:
                 batch = self._finalize_static(static)
                 nodes_s = static.nodes_s
             if batch is None:
+                nominated = self.nominator.entries()
                 sb = rt.encode_batch_static(
-                    self._snapshot, pods, profile, prev_nt=self._prev_nt,
-                    cache=self.encode_cache, track_changes=self.pipeline,
+                    self._snapshot, pods, profile, nominated=nominated,
+                    prev_nt=self._prev_nt, cache=self.encode_cache,
+                    track_changes=self.pipeline,
                 )
                 t_fin = time.perf_counter()
                 pre_encode_s, nodes_s = t_fin - t_enc, sb.nodes_s
                 batch = rt.finalize_batch(
-                    sb, self._snapshot, resident=self._resident,
-                    device=self.device,
+                    sb, self._snapshot, nominated=nominated,
+                    resident=self._resident, device=self.device,
                 )
             else:
                 t_fin = t_enc
@@ -705,7 +764,7 @@ class Scheduler:
                 done = torch.cuda.Event(enable_timing=True)
                 started.record()
             t_dev = time.perf_counter()
-            assignments, _ = self._assign_device(batch.device, params)
+            assignments, final_state = self._assign_device(batch.device, params)
             if done is not None:
                 done.record()
             timing = CycleTiming(
@@ -727,7 +786,9 @@ class Scheduler:
             self._refresh_s = 0.0
             return _InflightCycle(
                 profile=profile, batch_infos=batch_infos, batch=batch,
-                assignments=assignments, cycle_id=cycle_id, timing=timing,
+                params=params, assignments=assignments,
+                final_state=final_state, cycle_id=cycle_id, timing=timing,
+                nominator_version=self.nominator.version,
                 ns_gen=self._snapshot.namespaces_generation,
                 vol_gen=self._snapshot.volumes_generation,
                 started=started, done=done,
@@ -742,6 +803,10 @@ class Scheduler:
         """Pipeline stage 2: patch a pre-encoded StaticBatch against the
         post-assume cluster state. None = unusable (fall back to a full
         encode)."""
+        if self.nominator.entries():
+            # nominations appeared after stage 1: the port vocabulary /
+            # folded charges may not cover them — re-encode
+            return None
         t0 = time.perf_counter()
         fresh = rt.refresh_static(static, self._snapshot)
         self._refresh_s += time.perf_counter() - t0
@@ -786,8 +851,21 @@ class Scheduler:
         self.metrics.cycle_timings.append(timing)
         self.metrics.scheduled += scheduled
         self.metrics.unschedulable += len(failed)
-        for info in failed:
-            self._handle_unschedulable(info, inflight.profile)
+        self._cycle_ctx = (
+            batch, inflight.params, inflight.final_state,
+            {info.key: k for k, info in enumerate(batch_infos)},
+        )
+        t_post = time.perf_counter()
+        try:
+            for info in failed:
+                self._handle_unschedulable(info, inflight.profile)
+        finally:
+            # drop the cycle's batch (device tensors + host snapshot
+            # encoding) so it doesn't pin memory across cycles
+            self._cycle_ctx = None
+            if self._post_filter is not None:
+                self._post_filter.reset()
+            timing.postfilter_s = time.perf_counter() - t_post
         return {"scheduled": scheduled, "unschedulable": len(failed)}
 
     def _assume_and_bind(self, info: QueuedPodInfo, node_name: str) -> bool:
@@ -798,6 +876,9 @@ class Scheduler:
         assumed = info.pod.with_node(node_name)
         self.cache.assume_pod(assumed)
         info.cycle_id = self.metrics.cycles
+        # a scheduled pod's nomination (if any) is spent
+        self.nominator.remove(info.pod.uid)
+        self._preempting.pop(info.key, None)
         try:
             self.client.bind(info.pod, node_name)
         except Exception:
@@ -815,15 +896,22 @@ class Scheduler:
     def _handle_unschedulable(
         self, info: QueuedPodInfo, profile: C.Profile | None = None
     ) -> None:
-        """No feasible node: requeue with rejector plugins for the queueing
-        hints (no PostFilter in this slice: preemption is ROADMAP Queue A
-        item 8).
+        """No feasible node. Run PostFilter (preemption) if wired, then
+        requeue with rejector plugins for the queueing hints.
 
         Rejector attribution is conservative: every enabled Filter plugin is
         recorded (the reference records the plugins that actually rejected
         per node, schedule_one.go FitError) — over-eager wake-ups are safe;
         the leftover flush bounds staleness either way."""
         profile = profile or self._profile_for(info.pod) or self.profile
+        if self._post_filter is not None:
+            nominated = self._post_filter(self, info)
+            if nominated is not None:
+                # preemption nominated a node: victims' deletes will fire
+                # hints; pod waits in backoff for the room to open
+                info.nominated_node_name = nominated
+                self.queue.add_unschedulable(info, profile.filters.names())
+                return
         where = self.queue.add_unschedulable(info, profile.filters.names())
         if where not in ("deleted", "already-queued"):
             # only patch status for pods that still exist and we own

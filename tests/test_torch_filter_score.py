@@ -139,8 +139,25 @@ def test_resource_fit_masks(seed):
 
 
 def test_resource_fit_mask_nominated_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PF.resource_fit_mask_nominated()
+    """Nominations are ported (the name is kept): the nominated fit equals
+    kubetpu's on seeded arrays, and with an all-False gate it is the plain
+    fit mask."""
+    rng = np.random.default_rng(7)
+    P, N, R, G = 6, 11, 4, 5
+    pod_req = rng.integers(0, 900, (P, R)) * (rng.random((P, R)) < 0.8)
+    alloc = rng.integers(1000, 4000, (N, R))
+    requested = rng.integers(0, 2500, (N, R))
+    pc = rng.integers(0, 6, N).astype(np.int32)
+    allowed = rng.integers(3, 8, N).astype(np.int32)
+    gate = rng.random((P, G)) < 0.6
+    g_node = rng.integers(-1, N, G).astype(np.int32)
+    g_req = rng.integers(0, 1500, (G, R))
+    args = (pod_req, alloc, requested, pc, allowed, gate, g_node, g_req)
+    want = KF.resource_fit_mask_nominated(*(jnp.asarray(a) for a in args))
+    _eq(PF.resource_fit_mask_nominated(*(_t(a) for a in args)), want)
+    no_gate = (pod_req, alloc, requested, pc, allowed, np.zeros_like(gate), g_node, g_req)
+    _eq(PF.resource_fit_mask_nominated(*(_t(a) for a in no_gate)),
+        KF.resource_fit_mask(*(jnp.asarray(a) for a in args[:5])))
 
 
 @pytest.mark.parametrize("fn", ["least_allocated_score", "most_allocated_score"])
