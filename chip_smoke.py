@@ -83,9 +83,10 @@ final ``ok`` line is not printed):
 
 Tolerance everywhere: exact (integer masks, scores and assignments).
 
-``python3 chip_smoke.py --time-basic ROOT`` instead times only
-``filter_score`` and the ``greedy_scan`` engine of the checkout at ``ROOT``
-on the SchedulingBasic cycle and prints one JSON line;
+``python3 chip_smoke.py --time-basic ROOT`` instead builds the checkout at
+``ROOT`` (printing ptxas' report), times only its ``filter_score`` and
+``greedy_scan`` engine on the SchedulingBasic cycle and prints one JSON
+line;
 ``--time-spread ROOT`` does the same on the PreferredTopologySpreading
 cycle and on the mixed spread cluster under the spread profile. Run either
 on two checkouts in turns (parent, change, change, parent) to compare the
@@ -140,11 +141,16 @@ def build_phase() -> float:
     kernels.build()
     secs = time.perf_counter() - t0
     log(f"build: {secs:.1f} s")
+    log_build_report(kernels)
+    return secs
+
+
+def log_build_report(kernels) -> None:
+    """ptxas' register, stack and spill report of each kernel built."""
     for src, text in kernels.build_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
-    return secs
 
 
 # --------------------------------------------------- 3. kernels vs plain
@@ -1582,6 +1588,7 @@ def time_checkout(mode: str, root: str) -> int:
     from kubetpu_torch.perf import workloads as W
 
     kernels.build()
+    log_build_report(kernels)
     if mode == "basic":
         batches = {"": encode(*basic_case(), C.Profile())}
     else:
