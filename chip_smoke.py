@@ -45,7 +45,18 @@ final ``ok`` line is not printed):
    PreemptionAsync-shaped 1024 x 5120 cycle with 64 nominations (state
    slot 6 included); and ``filter_score``'s potential mode must equal the
    evaluator's plain potential mask for failed pods of that cycle and for
-   pods of the mixed spread and affinity clusters;
+   pods of the mixed spread and affinity clusters; then the extender
+   terms: ``filter_score``, ``greedy_scan`` and ``batched_round`` must
+   equal their plain versions on the SchedulingBasic cycle and the mixed
+   cluster with a seeded ``extender_mask`` (about 30% false, an eighth of
+   the rows all false) and ``extender_score`` (raw x 5 x 10); then the
+   flight recorder's kernels (B10): ``explain_summary`` must equal
+   ``explain_summary_plain`` and ``filter_component_masks`` must equal
+   ``filter_component_masks_plain`` on the SchedulingBasic cycle with its
+   greedy assignments, the saturated batch (rows with fewer than three
+   feasible nodes, unassigned pods), the mixed, affinity and spread
+   clusters, the 64-nomination PreemptionAsync cycle and the two extender
+   batches;
 4. main paths, each with the launch counts reset just before it and read
    just after and a full garbage collection just before (the line counts
    the full collections that fell inside the run, and the seconds the
@@ -56,7 +67,7 @@ final ``ok`` line is not printed):
    ``SchedulingPodAffinity/5000Nodes_5000Pods`` on the batched engine,
    ``TopologySpreading/5000Nodes_5000Pods`` on the batched engine,
    ``PreferredTopologySpreading/5000Nodes_5000Pods`` on the greedy engine,
-   ``DefaultTopologySpreading/500Nodes`` on the greedy engine and
+   ``DefaultTopologySpreading/500Nodes`` on the greedy engine,
    ``PreemptionAsync/5000Nodes`` on the greedy engine (its churn pods
    preempt: at least one must nominate a node, every victim must have a
    lower priority than its preemptor, ``dry_run_preemption`` must have
@@ -66,19 +77,39 @@ final ``ok`` line is not printed):
    checks that all its pods are bound, that no node exceeds its
    allocatable or its pod count, that its kernels were launched, and that
    the first cycle's kernel assignments (and the first cycle's with a
-   spread leaf) equal the plain engine's on the same batch;
+   spread leaf) equal the plain engine's on the same batch, and (the flight
+   recorder is on by default, as in the reference) that every record in
+   the recorder's ring has its breakdown resolved, no explain failed and
+   ``explain_summary`` launched once a finished cycle;
+   DefaultTopologySpreading holds EVERY cycle to the plain engine
+   (assignments and final state), PreemptionAsync also requires
+   ``filter_component_masks`` to have launched;
    TopologySpreading also checks that the bound color=blue pods' per-zone
    counts differ by at most its maxSkew, 5, and SchedulingBasic that every
    cycle after the first ships less than the whole node block; the
    5000-node paths must have launched ``scatter_rows``. Each prints its
    node-upload bytes a cycle against the block, the encode cache's hit
-   rate and the stage-1 / stage-2 spans. Then SchedulingBasic and
+   rate and the stage-1 / stage-2 spans. Then SchedulingBasic again with
+   ``flight_recorder=False`` (the recorder's on/off pods/s, printed, not
+   gated: the reference's FlightRecorderOverhead); then
+   ``SchedulingBasic/500Nodes`` on the greedy and on the batched engine
+   behind a seeded in-process webhook (filter and prioritize, weight 5,
+   NodeCacheCapable, rejecting ~15% of the nodes for each pod): every pod
+   bound, none on a node the webhook rejected for it, the first cycle equal
+   to the plain engine with the same extender leaves. Then SchedulingBasic and
    PreferredTopologySpreading run again with ``pipeline=True``: their
    bound maps must equal the serial runs', pod for pod; last, a seeded
    preempt-then-schedule scenario under a stepped clock (500 nodes of four
    priority-0 pods, 256 3-cpu preemptors, 300 default pods) runs on
    ``cuda`` and on ``cpu``: bound maps, victims and nominations must be
-   equal and every preemptor bound;
+   equal and every preemptor bound; and the extender bridge: the port's
+   ``ExtenderServer`` on ``cuda`` and a second on ``cpu`` each hold the
+   5000 nodes and 1000 bound pods of SchedulingBasic/5000Nodes (loaded
+   through /cache/nodes and /cache/pods), 256 pods post ``filter`` and
+   ``prioritize`` with all 5000 node names, some also ``preempt`` and
+   ``bind``, one ``filter`` carries full Nodes items: every reply of the
+   card's server must equal the cpu server's; requests/s and p50/p99 ms
+   per verb are printed;
 5. prints the kernels' JSON line, the card line, and the ``ok`` line last.
 
 Tolerance everywhere: exact (integer masks, scores and assignments).
@@ -646,22 +677,24 @@ def spread_checks(results, scale=1.0):
     """Phase 3's spread batches: the mixed spread cluster under both
     profiles, the same with the domain bitmaps in global memory, then one
     TopologySpreading and one PreferredTopologySpreading cycle at the main
-    paths' shapes. Returns the two cycles' batches."""
+    paths' shapes. Returns the two cycles' batches and, under
+    ``spread/<profile>``, the mixed cluster's batches with their greedy
+    assignments."""
     from kubetpu_torch.framework import config as C
     from kubetpu_torch.perf import workloads as W
 
+    out = {}
     for name, prof in spread_profiles().items():
         cache_s, pending_s = spread_case(
             seed=3, n_nodes=int(2000 * scale), n_bound=int(3000 * scale),
             n_pending=int(512 * scale))
         bs, ps = encode(cache_s, pending_s, prof)
-        check_case(f"spread/{name}", bs, ps, results)
+        out[f"spread/{name}"] = (bs, ps, check_case(f"spread/{name}", bs, ps, results))
     with bitmaps_in_global():
         cache_s, pending_s = spread_case(seed=4, n_nodes=int(1000 * scale),
                                          n_bound=int(1500 * scale), n_pending=int(256 * scale))
         bs, ps = encode(cache_s, pending_s, C.Profile())
         check_case("spread/default, domain bitmaps in global memory", bs, ps, results)
-    out = {}
     for name, template in (("TopologySpreading", W.pod_with_topology_spreading),
                            ("PreferredTopologySpreading",
                             W.pod_with_preferred_topology_spreading)):
@@ -1082,6 +1115,7 @@ def preemption_checks(results) -> dict:
             f"({resolvable} resolvable node verdicts)")
         return ev, up
 
+    out["explain"] = (f"PreemptionAsync {len(nom)} nominations", b, params, ka)
     failed = [i for i, j in enumerate(ka[: batch.num_pods].cpu().tolist()) if j < 0]
     ev, up = potential_equal(f"PreemptionAsync {len(nom)} nominations", batch, params,
                              failed[:24])
@@ -1101,6 +1135,165 @@ def preemption_checks(results) -> dict:
         potential_equal(label, bt, pt, list(range(0, bt.num_pods, 8)))
     return out
 
+
+# ------------------------------- 3c. the explain path (B10), extender terms
+def with_extender(b, seed=0, weight=5):
+    """``b`` with a seeded extender mask and score on the card, shaped as
+    ``run_extenders`` returns them: about 30% of the real (pod, node)
+    pairs false, an eighth of the real pods' rows all false and a few
+    rows passing one or two nodes only, pads false; the score raw (0..10)
+    x weight x MaxNodeScore / MaxExtenderPriority."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    P, N = b.requests.shape[0], b.alloc.shape[0]
+    n_pods = int(b.pod_valid.sum().item())
+    n_nodes = int(b.node_valid.sum().item())
+    mask = np.zeros((P, N), dtype=bool)
+    mask[:n_pods, :n_nodes] = rng.random((n_pods, n_nodes)) >= 0.3
+    rows = rng.choice(n_pods, size=max(3, n_pods // 8 + 4), replace=False)
+    mask[rows] = False
+    for i, r in enumerate(rows[:4]):
+        mask[r, rng.choice(n_nodes, size=1 + i % 2, replace=False)] = True
+    score = np.zeros((P, N), dtype=np.int64)
+    score[:n_pods, :n_nodes] = rng.integers(0, 11, (n_pods, n_nodes)) * (weight * 100 // 10)
+    dev = b.alloc.device
+    return dataclasses.replace(b, extender_mask=torch.from_numpy(mask).to(dev),
+                               extender_score=torch.from_numpy(score).to(dev))
+
+
+def _explain_equal(name, b, params, idx, results) -> dict:
+    """Hold ``explain_summary`` and ``filter_component_masks`` to their
+    plain versions on one batch with the engine's assignments ``idx``;
+    raises unless every output is equal. Returns the summary's facts."""
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.sched.flightrecorder import (
+        explain_summary_plain,
+        filter_component_masks_plain,
+    )
+
+    got = kernels.explain_summary(b, params, idx)
+    want = explain_summary_plain(b, params, idx)
+    torch.cuda.synchronize()
+    flat_got = [got[0], *got[1], *got[2:]]
+    flat_want = [want[0], *want[1], *want[2:]]
+    err = 0
+    for i, (g, w) in enumerate(zip(flat_got, flat_want)):
+        if (g is None) != (w is None):
+            raise AssertionError(f"{name}: explain_summary output {i} differs in presence")
+        if g is None:
+            continue
+        err = max(err, _max_abs(g, w))
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"{name}: explain_summary output {i} differs from the "
+                                 f"plain version (max abs err {err})")
+    results["explain_summary"]["cases"].append(name)
+    results["explain_summary"]["max_abs_err"] = max(
+        results["explain_summary"]["max_abs_err"], err)
+    km = kernels.filter_component_masks(b, params)
+    pm = filter_component_masks_plain(b, params)
+    torch.cuda.synchronize()
+    merr = 0
+    for i, (g, w) in enumerate(zip(km, pm)):
+        if (g is None) != (w is None):
+            raise AssertionError(f"{name}: component mask {i} differs in presence")
+        if g is not None:
+            merr = max(merr, _max_abs(g, w))
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name}: component mask {i} differs from the plain "
+                                     "version")
+    results["filter_component_masks"]["cases"].append(name)
+    results["filter_component_masks"]["max_abs_err"] = max(
+        results["filter_component_masks"]["max_abs_err"], merr)
+    n_pods = int(b.pod_valid.sum().item())
+    feas = got[0][:n_pods]
+    facts = {
+        "pods": n_pods,
+        "no_feasible": int((feas == 0).sum().item()),
+        "one_or_two_feasible": int(((feas > 0) & (feas < 3)).sum().item()),
+        "unassigned": int((idx[:n_pods] < 0).sum().item()),
+        "components": [c is not None for c in km],
+    }
+    log(f"kernels vs plain [explain, {name}]: explain_summary and "
+        f"filter_component_masks exact ({facts})")
+    return facts
+
+
+def explain_checks(results, batches) -> dict:
+    """Phase 3's B10 checks on each (name, batch, params, assignments):
+    exact; the batches must hold unassigned pods (the saturated one) and
+    rows with no feasible node and with one or two (the extender
+    batches), the top-3 edge cases. Returns the Basic batch's timings:
+    both wrappers (explain_summary includes its filter_score launch),
+    their plain versions, and their bounds."""
+    from kubetpu_torch import kernels
+    from kubetpu_torch.framework import runtime as rt
+    from kubetpu_torch.sched.flightrecorder import (
+        explain_summary_plain,
+        filter_component_masks_plain,
+    )
+
+    seen = {"no_feasible": 0, "one_or_two_feasible": 0, "unassigned": 0}
+    for name, b, params, idx in batches:
+        facts = _explain_equal(name, b, params, idx, results)
+        for k in seen:
+            seen[k] += facts[k]
+    if not all(seen.values()):
+        raise AssertionError(f"the explain batches miss an edge case: {seen}")
+    name, b, params, idx = batches[0]
+    P, N = b.requests.shape[0], b.alloc.shape[0]
+    n_comp = sum(c is not None for c in kernels.filter_component_masks(b, params))
+    # explain_summary(b, params, idx): reads the batch and the assignments
+    # once, writes 40 bytes a pod (feasible, five counts, top 3, win);
+    # its float64 work is the total's
+    summary = {
+        "ms": cuda_ms(lambda: kernels.explain_summary(b, params, idx), 20),
+        "plain_ms": cuda_ms(lambda: explain_summary_plain(b, params, idx), 5),
+        "bytes": rt.batch_nbytes(b) + P * 4 + P * (4 + 5 * 4 + 3 * (8 + 4) + 8),
+        "ops": P * N * f64_ops_per_pair(params, b), "shape": [P, N],
+        "filter_score_ms": cuda_ms(lambda: kernels.filter_score(b, params), 20),
+    }
+    masks = {
+        "ms": cuda_ms(lambda: kernels.filter_component_masks(b, params), 20),
+        "plain_ms": cuda_ms(lambda: filter_component_masks_plain(b, params), 5),
+        "bytes": rt.batch_nbytes(b) + P * N * n_comp, "ops": 0, "shape": [P, N],
+    }
+    return {"explain_summary": summary, "filter_component_masks": masks}
+
+
+def extender_checks(results, basic, mixed) -> dict:
+    """``filter_score``, ``greedy_scan`` and ``batched_round`` against their
+    plain versions on the Basic batch and the mixed cluster with seeded
+    extender leaves; the mixed cluster's node-affinity and taint
+    preferences make the normalize run over the shrunk mask. Returns the
+    Basic batch's kernel times with and without the leaves, and the
+    extender batches (for the explain checks)."""
+    from kubetpu_torch import kernels
+
+    out = []
+    for name, (b, params), seed in (("SchedulingBasic 1024x5120 + extender", basic, 5),
+                                    ("mixed/least + extender", mixed, 6)):
+        be = with_extender(b, seed=seed)
+        ka = check_case(name, be, params, results)
+        out.append((name, be, params, ka))
+    b, params = basic
+    be = out[0][1]
+    timing = {
+        "filter_score_ms": cuda_ms(lambda: kernels.filter_score(be, params), 20),
+        "filter_score_without_ms": cuda_ms(lambda: kernels.filter_score(b, params), 20),
+        "greedy_scan_ms": cuda_ms(lambda: kernels.greedy_scan(be, params), 10),
+        "greedy_scan_without_ms": cuda_ms(lambda: kernels.greedy_scan(b, params), 10),
+    }
+    log(f"timing [extender terms] on the SchedulingBasic batch: filter_score "
+        f"{timing['filter_score_ms']:.4f} ms with the leaves, "
+        f"{timing['filter_score_without_ms']:.4f} without; greedy_scan "
+        f"{timing['greedy_scan_ms']:.4f} / {timing['greedy_scan_without_ms']:.4f} ms")
+    return {"timing": timing, "batches": out}
 
 
 class SteppedClock:
@@ -1123,8 +1316,9 @@ def stepped_preemption_run(device: str, n_nodes: int, n_preemptors: int, n_defau
     pod_low_priority pods, then ``n_preemptors`` pod_high_priority_3cpu pods
     and ``n_default`` pod_default pods arrive at once; ``calls`` cycles,
     the informer events delivered after each and the clock advanced 0.75 s.
-    Returns the bound map, the victims (name, reason), the nominations and
-    the metrics."""
+    Returns the bound map, the victims (name, reason), the nominations,
+    the metrics and the flight recorder's records without their timing
+    fields."""
     from kubetpu_torch.perf import workloads as W
     from kubetpu_torch.perf.runner import _Client
     from kubetpu_torch.sched import Scheduler
@@ -1152,13 +1346,20 @@ def stepped_preemption_run(device: str, n_nodes: int, n_preemptors: int, n_defau
         "nominated": [(p.name, node) for p, node in client.nominated],
         "attempts": sched.metrics.preemption_attempts,
         "evictions": sched.metrics.preemption_victims,
+        "records": [
+            {k: v for k, v in r.items()
+             if k not in ("encode_s", "kernel_s", "queue_wait_s", "stages_ms")}
+            for r in sched.flight_recorder.records_json(limit=1 << 20)["records"]
+        ],
     }
 
 
 def stepped_preemption_phase() -> dict:
     """The stepped scenario on ``cuda`` (launch counts read around it) and
-    on ``cpu`` (the plain versions): the bound maps, victims and
-    nominations must be equal, every preemptor bound, and every victim of
+    on ``cpu`` (the plain versions): the bound maps, victims, nominations
+    and the flight recorder's records (every breakdown: the card's
+    explain, resolved a cycle later, against the plain one of the cycle
+    start) must be equal, every preemptor bound, and every victim of
     priority 0."""
     from kubetpu_torch import kernels
 
@@ -1170,7 +1371,7 @@ def stepped_preemption_phase() -> dict:
     launches = dict(kernels.launch_counts)
     cpu = stepped_preemption_run("cpu", **STEPPED)
     t2 = time.perf_counter()
-    for key in ("bound", "victims", "nominated", "attempts", "evictions"):
+    for key in ("bound", "victims", "nominated", "attempts", "evictions", "records"):
         if gpu[key] != cpu[key]:
             raise AssertionError(f"stepped preemption: {key} on cuda differs from cpu")
     highs = sum(1 for name in gpu["bound"] if name.startswith("high-"))
@@ -1183,6 +1384,7 @@ def stepped_preemption_phase() -> dict:
         "nodes": STEPPED["n_nodes"], "preemptors": STEPPED["n_preemptors"],
         "bound": len(gpu["bound"]),
         "victims": len(gpu["victims"]), "nominations": len(gpu["nominated"]),
+        "records": len(gpu["records"]),
         "attempts": gpu["attempts"], "equal_cuda_cpu": True,
         "cuda_s": t1 - t0, "cpu_s": t2 - t1, "launches": launches,
     }}
@@ -1217,28 +1419,38 @@ def kernels_phase():
 
     results = {k: {"cases": [], "max_abs_err": 0}
                for k in ("filter_score", "greedy_scan", "batched_round", "scatter_rows",
-                         "dry_run_preemption")}
+                         "dry_run_preemption", "explain_summary",
+                         "filter_component_masks")}
+    # (name, batch, params, greedy assignments) for the explain checks
+    explain_batches = []
     # the SchedulingBasic cycle: the greedy main path's shapes and timings
     cache, pending = basic_case()
     b, params = encode(cache, pending, C.Profile())
     ka = check_case("SchedulingBasic 1024x5120", b, params, results)
+    explain_batches.append(("SchedulingBasic 1024x5120", b, params, ka))
     for name, prof in profiles().items():
         cache_m, pending_m = mixed_case(seed=1)
         bm, pm = encode(cache_m, pending_m, prof)
-        check_case(f"mixed/{name}", bm, pm, results, batched=name == "least")
+        km = check_case(f"mixed/{name}", bm, pm, results, batched=name == "least")
+        if name == "least":
+            mixed_least = (bm, pm)
+            explain_batches.append(("mixed/least", bm, pm, km))
     cache_s, pending_s = saturated_case()
     bs, ps = encode(cache_s, pending_s, C.Profile())
-    check_case("saturated", bs, ps, results)
+    explain_batches.append(("saturated", bs, ps, check_case("saturated", bs, ps, results)))
     for name, prof in affinity_profiles().items():
         cache_a, pending_a = affinity_case(seed=2)
         ba, pa_ = encode(cache_a, pending_a, prof)
-        check_case(f"affinity/{name}", ba, pa_, results)
+        kaf = check_case(f"affinity/{name}", ba, pa_, results)
+        if name == "default":
+            explain_batches.append(("affinity/default", ba, pa_, kaf))
     # the SchedulingPodAffinity cycle: the batched main path's shapes
     cache_p, pending_p = podaffinity_case()
     bp, pp = encode(cache_p, pending_p, C.Profile())
     check_case("SchedulingPodAffinity 1024x5120", bp, pp, results)
     # the spread batches, and the TopologySpreading / Preferred cycles
     spread = spread_checks(results)
+    explain_batches.append(("spread/spread", *spread["spread/spread"]))
 
     P, N = b.requests.shape[0], b.alloc.shape[0]
     in_bytes = rt.batch_nbytes(b)
@@ -1303,6 +1515,10 @@ def kernels_phase():
         **{k: pre["K=8"][k] for k in ("ms", "plain_ms", "bytes", "shape")},
         "ops": 0, "k128": pre["K=128"],
     }
+    explain_batches.append(pre["explain"])
+    ext = extender_checks(results, (b, params), mixed_least)
+    timing["filter_score"]["extender"] = ext["timing"]
+    timing.update(explain_checks(results, explain_batches + ext["batches"]))
     out = []
     for name, src, replaces in (
         ("filter_score", "kubetpu_torch/kernels/csrc/filter_score.cu",
@@ -1315,6 +1531,10 @@ def kernels_phase():
          "kubetpu/framework/runtime.py:240"),
         ("dry_run_preemption", "kubetpu_torch/kernels/csrc/dry_run_preemption.cu",
          "kubetpu/ops/preemption.py:186"),
+        ("explain_summary", "kubetpu_torch/kernels/csrc/explain_summary.cu",
+         "kubetpu/sched/flightrecorder.py:92"),
+        ("filter_component_masks", "kubetpu_torch/kernels/csrc/filter_component_masks.cu",
+         "kubetpu/sched/flightrecorder.py:146"),
     ):
         tm = timing[name]
         bound_ms, bound_by = _bound(tm["bytes"], tm["ops"])
@@ -1328,7 +1548,8 @@ def kernels_phase():
             "cases": results[name]["cases"], "shape": tm["shape"],
         }
         for k in ("podaffinity_ms", "podaffinity_plain_ms", "rounds", "spread",
-                  "spread_soft", "nominated", "potential", "k128"):
+                  "spread_soft", "nominated", "potential", "k128", "extender",
+                  "filter_score_ms"):
             if k in tm:
                 line[k] = tm[k]
         out.append(line)
@@ -1347,6 +1568,9 @@ def kernels_phase():
     pm = timing["filter_score"]["potential"]
     log(f"timing [filter_score potential mode] on the {pm['batch']} view: kernel "
         f"{pm['ms']:.4f} ms, plain {pm['plain_ms']:.4f} ms")
+    es = timing["explain_summary"]
+    log(f"timing [explain_summary] on the SchedulingBasic batch: its filter_score launch "
+        f"alone {es['filter_score_ms']:.4f} ms of the wrapper's {es['ms']:.4f} ms")
     k128 = timing["dry_run_preemption"]["k128"]
     log(f"timing [dry_run_preemption] at 5120x128: kernel {k128['ms']:.4f} ms, plain "
         f"{k128['plain_ms']:.4f} ms, bound {k128['bound_ms']:.6f} ms ({k128['bound_by']})")
@@ -1406,13 +1630,51 @@ def steady_deltas(sched) -> dict:
     return {"steady_node_upload_bytes_max": worst}
 
 
+def _clone(x):
+    return None if x is None else x.clone()
+
+
+def recorder_check(sched, launches) -> dict:
+    """The flight recorder's checks after a path: every record in its ring
+    (the last min(4096, attempted) pods) has its breakdown resolved, no
+    explain failed, and ``explain_summary`` launched once a finished
+    cycle. Returns the recorder's fields for the path's line."""
+    fr = sched.flight_recorder
+    fr.records_json(limit=1)               # resolves the last cycle's explain
+    records = list(fr._records)
+    attempted = sum(c.pods for c in sched.metrics.cycle_timings)
+    cycles = len(sched.metrics.cycle_timings)
+    if fr.breakdown_failures:
+        raise AssertionError(f"recorder: {fr.breakdown_failures} breakdown failures")
+    if len(records) != min(attempted, fr._records.maxlen):
+        raise AssertionError(f"recorder: {len(records)} records for {attempted} attempts")
+    unresolved = sum(1 for r in records if "view" not in r)
+    if unresolved:
+        raise AssertionError(f"recorder: {unresolved} records without a breakdown")
+    if launches["explain_summary"] != cycles or fr.explains != cycles:
+        raise AssertionError(f"recorder: explain_summary launched "
+                             f"{launches['explain_summary']} times, resolved {fr.explains}, "
+                             f"for {cycles} cycles")
+    return {"recorder": {
+        "records": len(records), "attempted": attempted, "explains": fr.explains,
+        "breakdown_failures": fr.breakdown_failures,
+        "explain_ms_per_cycle": 1e3 * fr.spans["explain"] / max(fr.explains, 1),
+        "fetch_ms_per_cycle": 1e3 * fr.spans["fetch"] / max(fr.explains, 1),
+        "mask_launches": launches["filter_component_masks"],
+    }}
+
+
 def run_path(card, case, workload, engine, expected, plain, kernel_names,
-             check=None, pipeline=False) -> tuple[dict, dict, float]:
+             check=None, pipeline=False, flight_recorder=True, extenders=(),
+             every_cycle=False) -> tuple[dict, dict, float]:
     """Drive one main path with the launch counts set to 0 just before it
     and read just after; check it and print its JSON line. ``check``, when
     given, takes the run's Scheduler, raises on a fault and returns more
-    fields for the line. Returns the launch counts, the bound map and the
-    measured pods/s."""
+    fields for the line. With the flight recorder on (the default, as in
+    the reference), ``recorder_check`` runs too. ``every_cycle`` holds
+    every cycle, not only the first, to the plain engine on the same
+    batch: assignments and final state. Returns the launch counts, the
+    bound map and the measured pods/s."""
     import dataclasses
 
     import torch
@@ -1441,6 +1703,9 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
                 captured["first_spread"] = keep()
             if b.nominated_node is not None and "first_nominated" not in captured:
                 captured["first_nominated"] = keep()
+            if every_cycle:
+                captured.setdefault("cycles", []).append(
+                    keep() + (tuple(_clone(x) for x in out[1]),))
             return out
 
         sched._assign_device = first_cycle_recorder
@@ -1454,7 +1719,8 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     res = run_workload(case, workload, engine=engine, device="cuda",
-                       on_scheduler=observe, pipeline=pipeline)
+                       on_scheduler=observe, pipeline=pipeline,
+                       flight_recorder=flight_recorder, extenders=extenders)
     wall = time.perf_counter() - t0
     launches = dict(kernels.launch_counts)
     full_collections = gc.get_stats()[2]["collections"] - full0
@@ -1476,11 +1742,22 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
         if not torch.equal(first, want):
             raise AssertionError(f"{case}: {key} cycle's kernel assignments differ from "
                                  "the plain engine's")
+    for i, (b, params, got, state) in enumerate(captured.get("cycles", ())):
+        want, want_state = plain(b, params)
+        torch.cuda.synchronize()
+        _engine_err(f"{case} cycle {i}", got, state, want, want_state)
+    if every_cycle:
+        log(f"[{case}] every cycle ({len(captured['cycles'])}) equal to the plain "
+            "engine: assignments and final state")
     for name in kernel_names:
         if launches[name] < 1:
             raise AssertionError(f"{case}/{workload}: main path never launched {name}")
     rounds = [c.rounds for c in sched.metrics.cycle_timings]
     extra = check(sched) if check is not None else {}
+    if flight_recorder:
+        extra.update(recorder_check(sched, launches))
+    elif launches["explain_summary"]:
+        raise AssertionError(f"{case}: the recorder is off but explain_summary launched")
     line = {
         "main_path": {
             "workload": f"{case}/{workload}", "engine": engine,
@@ -1497,6 +1774,8 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
             "run_s": wall, "gc_full_collections": full_collections,
             "gc_s_measured": res.gc_s,
             "launches": launches, "first_cycle_equal": True,
+            "every_cycle_equal": True if every_cycle else None,
+            "flight_recorder": flight_recorder, "extenders": len(extenders),
             "first_spread_cycle_equal": True if "first_spread" in captured else None,
             "first_nominated_cycle_equal": True if "first_nominated" in captured else None,
             "preemption_attempts": res.preemption_attempts,
@@ -1514,7 +1793,8 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
         f"{res.encode_cache_hit_rate}; stage 1 {ms['pre_encode']:.3f} ms, stage 2 "
         f"{ms['finalize']:.3f} ms (node encode {ms['nodes']:.3f} ms, staleness refreshes "
         f"{ms['refresh']:.3f} ms), upload {ms['upload']:.3f} ms, kernel "
-        f"{ms['kernel']:.3f} ms, wait {ms['wait']:.3f} ms; {res.gc_s * 1e3:.1f} ms in the "
+        f"{ms['kernel']:.3f} ms, wait {ms['wait']:.3f} ms, recorder {ms['recorder']:.3f} ms, "
+        f"extenders {ms['extenders']:.3f} ms; {res.gc_s * 1e3:.1f} ms in the "
         f"garbage collector; {res.throughput:.1f} pods/s")
     if res.preempt_calls:
         pm = res.preempt_ms
@@ -1525,6 +1805,222 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
             f"{pm['upload']:.3f}, potential mask {pm['potential']:.3f}, dry run "
             f"{pm['dry_run']:.3f}, fetch {pm['fetch']:.3f} ms")
     return launches, dict(sched.client.bound), res.throughput
+
+
+
+class ScriptedWebhook:
+    """An in-process scheduler-extender webhook (``filter`` and
+    ``prioritize`` verbs, NodeCacheCapable requests) with seeded verdicts:
+    for each pod it rejects about ``reject_pct`` percent of the nodes and
+    scores every node 0..10, both from a CRC32 of (seed, pod, node), so
+    the verdicts are the same in every process."""
+
+    def __init__(self, seed: int = 0, reject_pct: int = 15):
+        import http.server
+        import threading
+
+        self.seed, self.reject_pct = seed, reject_pct
+        self.calls = {"filter": 0, "prioritize": 0}
+        outer = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *a):
+                pass
+
+            def do_POST(self):  # noqa: N802 (http.server API)
+                args = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+                meta = (args.get("Pod") or {}).get("metadata") or {}
+                pod = f"{meta.get('namespace', 'default')}/{meta.get('name', '')}"
+                names = args.get("NodeNames") or []
+                if self.path.endswith("/filter"):
+                    outer.calls["filter"] += 1
+                    body = {
+                        "NodeNames": [n for n in names if not outer.rejects(pod, n)],
+                        "FailedNodes": {n: "scripted" for n in names if outer.rejects(pod, n)},
+                        "FailedAndUnresolvableNodes": {}, "Error": "",
+                    }
+                else:
+                    outer.calls["prioritize"] += 1
+                    body = [{"Host": n, "Score": outer.score(pod, n)} for n in names]
+                raw = json.dumps(body).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(raw)))
+                self.end_headers()
+                self.wfile.write(raw)
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.httpd.daemon_threads = True
+        self._thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self._thread.start()
+
+    def _hash(self, pod: str, node: str) -> int:
+        import zlib
+
+        return zlib.crc32(f"{self.seed}/{pod}/{node}".encode())
+
+    def rejects(self, pod: str, node: str) -> bool:
+        return self._hash(pod, node) % 100 < self.reject_pct
+
+    def score(self, pod: str, node: str) -> int:
+        return (self._hash(pod, node) >> 8) % 11
+
+    @property
+    def url(self) -> str:
+        host, port = self.httpd.server_address[:2]
+        return f"http://{host}:{port}"
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self._thread.join(timeout=10)
+
+
+def extender_paths(card, device="cuda") -> dict:
+    """SchedulingBasic/500Nodes on the greedy and on the batched engine,
+    each behind a ``ScriptedWebhook`` (filter and prioritize, weight 5,
+    NodeCacheCapable): every pod bound, none on a node the webhook rejected
+    for it, capacity held (``run_path``), and the first cycle's kernel
+    assignments equal to the plain engine's on the same batch with the
+    same extender leaves. Returns the two runs."""
+    from kubetpu_torch.assign.batched import batched_assign_plain
+    from kubetpu_torch.assign.greedy import greedy_assign_plain
+    from kubetpu_torch.framework import config as C
+
+    runs = {}
+    for engine, plain, kern in (
+            ("greedy", greedy_assign_plain, "greedy_scan"),
+            ("batched", batched_assign_plain, "batched_round")):
+        hook = ScriptedWebhook(seed=11)
+        try:
+            cfg = C.ExtenderConfig(url_prefix=hook.url, filter_verb="filter",
+                                   prioritize_verb="prioritize", weight=5,
+                                   node_cache_capable=True)
+
+            def no_rejected_node(sched, hook=hook):
+                placed = 0
+                for info in sched.cache.update_snapshot().node_infos():
+                    for q in info.pods.values():
+                        if hook.rejects(f"{q.namespace}/{q.name}", info.node.name):
+                            raise AssertionError(f"extender path: {q.name} bound to "
+                                                 f"{info.node.name}, which the webhook "
+                                                 "rejected for it")
+                        placed += 1
+                return {"extender_calls": dict(hook.calls), "pods_checked": placed}
+
+            runs[f"extender {engine}"] = run_path(
+                card, "SchedulingBasic", "500Nodes", engine, 500 + 1000, plain,
+                ("filter_score", kern, "explain_summary"), check=no_rejected_node,
+                extenders=(cfg,))
+        finally:
+            hook.close()
+    return runs
+
+
+def _node_v1(node) -> dict:
+    """A node_default node as the v1.Node JSON a kube-scheduler sends."""
+    alloc = dict(node.allocatable)
+    return {
+        "metadata": {"name": node.name, "labels": dict(node.labels)},
+        "spec": {},
+        "status": {"allocatable": {
+            "cpu": f"{alloc['cpu']}m", "memory": str(alloc["memory"]),
+            "pods": str(alloc["pods"]),
+        }},
+    }
+
+
+def _post(url: str, body) -> object:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return json.loads(resp.read())
+
+
+def bridge_phase(card, n_nodes=5000, n_bound=1000, n_pods=256) -> dict:
+    """The port's ``ExtenderServer`` on the card, as a real kube-scheduler
+    drives it: the 5000 node_default nodes and 1000 bound pod_default pods
+    of SchedulingBasic/5000Nodes loaded through /cache/nodes and
+    /cache/pods, then 256 pod_default pods each posting ``filter`` and
+    ``prioritize`` with every node name, some also ``preempt`` and
+    ``bind``, and one ``filter`` in non-cache-capable mode with full Nodes
+    items. A second server on ``device="cpu"`` holds the same cache and
+    gets the same requests: every response body must be equal. Launch
+    counts are read around the requests; prints requests/s and p50/p99 ms
+    per verb of the card's server."""
+    from kubetpu_torch import kernels
+    from kubetpu_torch.bridge import ExtenderBackend, ExtenderServer
+    from kubetpu_torch.bridge.convert import pod_to_v1
+    from kubetpu_torch.framework import config as C
+    from kubetpu_torch.perf import workloads as W
+
+    servers = {d: ExtenderServer(ExtenderBackend(profile=C.Profile(), device=d)).start()
+               for d in ("cuda", "cpu")}
+    try:
+        nodes = [_node_v1(W.node_default(i)) for i in range(n_nodes)]
+        names = [n["metadata"]["name"] for n in nodes]
+        bound = [pod_to_v1(W.pod_default(f"init-{j}", "namespace-0").with_node(
+            names[j % n_nodes])) for j in range(n_bound)]
+        for srv in servers.values():
+            _post(srv.url + "/cache/nodes", {"Nodes": nodes})
+            _post(srv.url + "/cache/pods", {"Pods": bound})
+        requests = []
+        for j in range(n_pods):
+            pod = pod_to_v1(W.pod_default(f"measure-{j}", "namespace-1"))
+            requests.append(("filter", {"Pod": pod, "NodeNames": names}))
+            requests.append(("prioritize", {"Pod": pod, "NodeNames": names}))
+            if j % 32 == 5:
+                requests.append(("preempt", {"Pod": pod, "NodeNameToVictims": {
+                    names[k]: {"Pods": [{"metadata": {"uid": f"namespace-0/init-{k}"}}],
+                               "NumPDBViolations": k % 2}
+                    for k in range(8)}}))
+            if j % 16 == 3:
+                requests.append(("bind", {"PodName": f"measure-{j}",
+                                          "PodNamespace": "namespace-1",
+                                          "PodUID": f"namespace-1/measure-{j}",
+                                          "Node": names[(7 * j) % n_nodes]}))
+        requests.append(("filter", {"Pod": pod_to_v1(W.pod_default("full-nodes", "namespace-1")),
+                                    "Nodes": {"Items": nodes[:64]}}))
+        gc.collect()
+        kernels.reset_launch_counts()
+        lat: dict = {}
+        wall = 0.0
+        for verb, body in requests:
+            t0 = time.perf_counter()
+            got = _post(servers["cuda"].url + "/" + verb, body)
+            dt = time.perf_counter() - t0
+            wall += dt
+            want = _post(servers["cpu"].url + "/" + verb, body)
+            if got != want:
+                raise AssertionError(f"bridge: the card's {verb} reply differs from the "
+                                     f"cpu backend's for {body['Pod']['metadata']['name']}")
+            if verb == "filter" and "NodeNames" in body and not got["NodeNames"]:
+                raise AssertionError("bridge: a filter passed no node")
+            lat.setdefault(verb, []).append(dt)
+        launches = dict(kernels.launch_counts)
+        if launches["filter_component_masks"] < n_pods or launches["filter_score"] < n_pods:
+            raise AssertionError(f"bridge: too few launches {launches}")
+        per_verb = {
+            verb: {"requests": len(v), "p50_ms": 1e3 * statistics.median(v),
+                   "p99_ms": 1e3 * sorted(v)[min(len(v) - 1, int(0.99 * len(v)))],
+                   "mean_ms": 1e3 * sum(v) / len(v)}
+            for verb, v in lat.items()
+        }
+        line = {"bridge": {
+            "nodes": n_nodes, "bound_pods": n_bound, "pods": n_pods,
+            "requests": len(requests), "requests_per_s": len(requests) / wall,
+            "equal_cuda_cpu": True, "per_verb": per_verb, "launches": launches,
+            "card": card,
+        }}
+        log(json.dumps(line))
+        return launches
+    finally:
+        for srv in servers.values():
+            srv.close()
 
 
 def main_path_phase(card: str) -> list[dict]:
@@ -1539,8 +2035,8 @@ def main_path_phase(card: str) -> list[dict]:
     # assumes, 1024 confirmations), under the dense-update rule's half:
     # their node uploads go through scatter_rows. 500 nodes take the full
     # upload every cycle.
-    greedy = ("filter_score", "greedy_scan", "scatter_rows")
-    batched = ("filter_score", "batched_round", "scatter_rows")
+    greedy = ("filter_score", "greedy_scan", "scatter_rows", "explain_summary")
+    batched = ("filter_score", "batched_round", "scatter_rows", "explain_summary")
     runs = {
         "basic": run_path(card, "SchedulingBasic", "5000Nodes_10000Pods", "greedy",
                           1000 + 10000, greedy_assign_plain, greedy, check=steady_deltas),
@@ -1551,12 +2047,26 @@ def main_path_phase(card: str) -> list[dict]:
         "preferred": run_path(card, "PreferredTopologySpreading", "5000Nodes_5000Pods",
                               "greedy", 5000 + 5000, greedy_assign_plain, greedy),
         "default": run_path(card, "DefaultTopologySpreading", "500Nodes", "greedy",
-                            1000 + 1000, greedy_assign_plain, greedy[:2]),
+                            1000 + 1000, greedy_assign_plain,
+                            ("filter_score", "greedy_scan", "explain_summary"),
+                            every_cycle=True),
         # churn pods preempt: the bound total depends on their timing
         "preemption": run_path(card, "PreemptionAsync", "5000Nodes", "greedy", None,
-                               greedy_assign_plain, greedy + ("dry_run_preemption",),
+                               greedy_assign_plain,
+                               greedy + ("dry_run_preemption", "filter_component_masks"),
                                check=preemption_check),
     }
+    # the reference's FlightRecorderOverhead comparison: Basic again with
+    # the recorder off (printed, not gated)
+    off = run_path(card, "SchedulingBasic", "5000Nodes_10000Pods", "greedy", 1000 + 10000,
+                   greedy_assign_plain, greedy[:3], check=steady_deltas,
+                   flight_recorder=False)
+    on_pps, off_pps = runs["basic"][2], off[2]
+    log(json.dumps({"flight_recorder_overhead": {
+        "workload": "SchedulingBasic/5000Nodes_10000Pods", "pods_per_s_on": on_pps,
+        "pods_per_s_off": off_pps, "on_over_off": on_pps / off_pps, "card": card}}))
+    runs["basic recorder off"] = off
+    runs.update(extender_paths(card))
     for key, case, expected in (("basic", "SchedulingBasic", 1000 + 10000),
                                 ("preferred", "PreferredTopologySpreading", 5000 + 5000)):
         workload = "5000Nodes_10000Pods" if key == "basic" else "5000Nodes_5000Pods"
@@ -1617,6 +2127,7 @@ def main() -> int:
     build_phase()
     kernel_lines = kernels_phase()
     path_launches = main_path_phase(card)
+    path_launches.append(bridge_phase(card))
     stepped_preemption_phase()
     for k in kernel_lines:
         k["launches"] = sum(launches[k["name"]] for launches in path_launches)

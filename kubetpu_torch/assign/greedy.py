@@ -45,6 +45,8 @@ def _pod_view(b: rt.DeviceBatch, i: int) -> rt.DeviceBatch:
         score_sig=row(b.score_sig),
         image_sig=row(b.image_sig),
         image_count=row(b.image_count),
+        extender_mask=row(b.extender_mask),
+        extender_score=row(b.extender_score),
         pod_ports=b.pod_ports[i:i + 1],
         nominated_gate=row(b.nominated_gate),
         pod_priority=row(b.pod_priority),

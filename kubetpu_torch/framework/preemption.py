@@ -27,8 +27,10 @@ Differences from the reference scheduler, by design (kept from kubetpu):
 - several preemptors in one batch run back-to-back against a host-updated
   victim state, so two preemptors never claim the same victim.
 
-The extender ProcessPreemption seam (``extender_hook``,
-``extender_chain_hook``) is ROADMAP Queue A item 9, not yet ported.
+The extender ProcessPreemption seam (``extender_hook``, with
+``_pick_with_extenders`` and ``extender_chain_hook``) is the reference's
+host code: the dry run's candidate rows are copied to the host and the
+pick runs there over the extender chain's survivors.
 """
 
 from __future__ import annotations
@@ -211,13 +213,15 @@ class PreemptionEvaluator:
 
     def preempt(self, i: int, extender_hook=None) -> PreemptionResult:
         """Run preemption for pending pod ``i`` of the batch.
-        ``extender_hook`` (the ProcessPreemption seam) is ROADMAP Queue A
-        item 9 and raises NotImplementedError when given."""
-        if extender_hook is not None:
-            raise NotImplementedError(
-                "preempt: the extender ProcessPreemption hook is ROADMAP "
-                "Queue A item 9 (extender bridge), not yet ported"
-            )
+
+        ``extender_hook`` (optional) is the ProcessPreemption seam
+        (preemption.go callExtenders): called with
+        ``(pod, {node_name: (victim_pods, n_pdb_violations)})`` over the FULL
+        candidate set, it returns the trimmed
+        ``{node_name: (victim_uids, n_pdb_violations)}`` map — nodes it drops
+        become ineligible, victim lists may shrink — and the best-candidate
+        pick then runs host-side over the survivors. Raising ExtenderError
+        fails the preemption attempt (non-ignorable extender failure)."""
         pod = self.batch.pods[i]
         # PodEligibleToPreemptOthers (default_preemption.go:364): policy gate.
         # (Terminating-victims-on-nominated-node check needs pod deletion
@@ -300,8 +304,13 @@ class PreemptionEvaluator:
             ev[2].record()
             ev[2].synchronize()
         t3 = time.perf_counter()
-        n = int(node_idx)
-        vrow = None if n < 0 else victims[n].cpu().numpy()
+        if extender_hook is not None:
+            okh = ok_mask.cpu().numpy()
+            vall = victims.cpu().numpy() if okh.any() else None
+            pdbh = n_pdb.cpu().numpy()
+        else:
+            n = int(node_idx)
+            vrow = None if n < 0 else victims[n].cpu().numpy()
         t4 = time.perf_counter()
         self.calls += 1
         self.spans["upload"] += t1 - t0
@@ -312,7 +321,17 @@ class PreemptionEvaluator:
         else:
             self.spans["potential"] += t2 - t1
             self.spans["dry_run"] += t3 - t2
-        if n < 0:
+        if extender_hook is not None:
+            picked = self._pick_with_extenders(
+                pod, vall, okh, pdbh, extender_hook
+            )
+            if picked is None:
+                return PreemptionResult(
+                    "unschedulable",
+                    message="preemption: no candidate survived extenders",
+                )
+            n, vrow = picked
+        elif n < 0:
             return PreemptionResult(
                 "unschedulable",
                 message="preemption: 0/%d nodes are available"
@@ -330,6 +349,66 @@ class PreemptionEvaluator:
             victim_uids=uids,
             victim_pods=pods,
         )
+
+    def _pick_with_extenders(
+        self, pod: t.Pod, vall, okh, pdbh, extender_hook
+    ) -> tuple[int, np.ndarray] | None:
+        """callExtenders + SelectCandidate on the host: present every dry-run
+        candidate to the extender chain, drop vetoed nodes, adopt trimmed
+        victim lists, then re-run pickOneNodeForPreemption's lexicographic
+        refinement over the survivors (preemption.go:311 — stats recomputed
+        from the FINAL victim sets, NumPDBViolations taken from the extender
+        response as the reference's MetaVictims carry it). ``vall`` (N, K),
+        ``okh`` (N,) and ``pdbh`` (N,) are the dry run's victims, ok mask
+        and PDB violation counts, copied to the host (``vall`` None when no
+        node is ok)."""
+        v = self.victims
+        if not okh.any():
+            return None
+        infos = self.batch.node_tensors.infos
+        cand: dict[str, tuple[list[t.Pod], int]] = {}
+        slots: dict[str, tuple[int, list[int]]] = {}
+        for n in np.flatnonzero(okh):
+            name = self.batch.node_names[n]
+            ks = [
+                int(k) for k in np.flatnonzero(vall[n])
+                if v.uids[n][k] is not None
+            ]
+            pods = [
+                infos[n].pods[v.uids[n][k]]
+                for k in ks if v.uids[n][k] in infos[n].pods
+            ]
+            cand[name] = (pods, int(pdbh[n]))
+            slots[name] = (int(n), ks)
+        trimmed = extender_hook(pod, cand)
+        best: tuple | None = None
+        for name in cand:                     # ascending node index order
+            if name not in trimmed:
+                continue                       # extender vetoed the node
+            uids, npdb = trimmed[name]
+            n, ks = slots[name]
+            keep = set(uids)
+            uid_slot = {v.uids[n][k]: k for k in ks}
+            final = [uid_slot[u] for u in keep if u in uid_slot]
+            if not final:
+                # victim list trimmed to nothing (or to unknown uids): the
+                # node is no longer a preemption candidate — the reference
+                # drops empty-victims nodes after callExtenders; keeping it
+                # would nominate onto a still-full node with zero deletions
+                continue
+            prios = v.priority[n, final]
+            max_p = int(prios.max())
+            sum_p = int((prios + OP.PRIO_OFFSET).sum())
+            highest = [k for k in final if v.priority[n, k] == max_p]
+            early = int(v.start[n, highest].min())
+            key = (-int(npdb), -max_p, -sum_p, -len(final), early)
+            if best is None or key > best[0]:
+                vrow = np.zeros(vall.shape[1], dtype=bool)
+                vrow[final] = True
+                best = (key, n, vrow)
+        if best is None:
+            return None
+        return best[1], best[2]
 
     def _apply(
         self, n: int, victim_row: np.ndarray, preemptor_index: int | None = None
@@ -358,12 +437,43 @@ class PreemptionEvaluator:
 
 
 def extender_chain_hook(extenders):
-    """The ProcessPreemption hook of the scheduler's extenders: ROADMAP
-    Queue A item 9 (extender bridge), not yet ported."""
-    raise NotImplementedError(
-        "extender_chain_hook: extenders are ROADMAP Queue A item 9, not yet "
-        "ported"
-    )
+    """Build the ProcessPreemption hook for ``PreemptionEvaluator.preempt``
+    from the scheduler's configured extenders, or None when no extender has
+    a preempt verb. Extenders run in order, each further trimming the
+    candidate map (preemption.go callExtenders); an uninterested extender is
+    skipped, an ignorable failing one too, and a non-ignorable failure
+    propagates (the attempt fails)."""
+    active = [e for e in extenders if e.supports_preemption()]
+    if not active:
+        return None
+
+    def hook(
+        pod: t.Pod, cand: dict[str, tuple[list[t.Pod], int]]
+    ) -> dict[str, tuple[list[str], int]]:
+        current = cand
+        for e in active:
+            if not e.is_interested(pod):
+                continue
+            try:
+                res = e.process_preemption(pod, current)
+            except Exception:
+                if e.cfg.ignorable:
+                    continue
+                raise
+            # re-materialize pods for the next extender in the chain
+            nxt: dict[str, tuple[list[t.Pod], int]] = {}
+            for node, (uids, npdb) in res.items():
+                pods_prev = {p.uid: p for p in current.get(node, ([], 0))[0]}
+                nxt[node] = (
+                    [pods_prev[u] for u in uids if u in pods_prev], npdb
+                )
+            current = nxt
+        return {
+            node: ([p.uid for p in pods], npdb)
+            for node, (pods, npdb) in current.items()
+        }
+
+    return hook
 
 
 def _one_pod_view(b: rt.DeviceBatch, i: int) -> rt.DeviceBatch:

@@ -1,9 +1,9 @@
 """Framework runtime — compose filter/score kernels per profile.
 
 Port of ``kubetpu/framework/runtime.py``, narrowed to the slices ported so
-far: the default profile's cycle with inter-pod affinity, topology spread
-and the nominator's reservations, and no extenders, DRA, volumes or
-topology slices.
+far: the default profile's cycle with inter-pod affinity, topology spread,
+the nominator's reservations and the extender webhook's verdicts, and no
+DRA, volumes or topology slices.
 Host encode is the reference's numpy code, in its two stages
 (``encode_batch_static``, then ``finalize_batch``); the device batch is a
 frozen dataclass of torch tensors on the caller's device whose pod leaves
@@ -127,8 +127,8 @@ class DeviceBatch:
     False, ``static_mask`` False on pads) so kernels need no special cases.
 
     Same field names and ``None`` leaves as the reference's pytree. The
-    ``topology`` leaf and the extender and DRA leaves belong to later slices
-    and are always None here."""
+    ``topology`` leaf and the DRA leaves belong to later slices and are
+    always None here."""
 
     # persistent node-state block
     nodes: DeviceNodeState
@@ -160,8 +160,9 @@ class DeviceBatch:
     static_sig: torch.Tensor | None = None  # (P,) int32 row into static_mask
     score_sig: torch.Tensor | None = None   # (P,) int32 row into na/tt raws
     image_sig: torch.Tensor | None = None   # (P,) int32 row into image sums
-    extender_mask: torch.Tensor | None = None
-    extender_score: torch.Tensor | None = None
+    # extender webhook verdicts for this cycle (sched/extender.py)
+    extender_mask: torch.Tensor | None = None   # (P, N) bool
+    extender_score: torch.Tensor | None = None  # (P, N) int64
     dra_score_raw: torch.Tensor | None = None
     dra_score_sig: torch.Tensor | None = None
     pod_priority: torch.Tensor | None = None     # (P,) int32
@@ -205,8 +206,6 @@ POD_FIELDS = tuple(
 )
 # leaves of later slices: a batch that carries any of them is out of scope
 LATER_SLICE_LEAVES = {
-    "extender_mask": "Queue A item 9 (extender bridge)",
-    "extender_score": "Queue A item 9 (extender bridge)",
     "dra_score_raw": "Queue A (DynamicResources)",
     "dra_score_sig": "Queue A (DynamicResources)",
     "topology": "Queue A item 10 (topology, kernel B12)",
@@ -1266,6 +1265,10 @@ def feasible_and_scores(
     for part in (fit, ports_ok, spread_ok, pa_ok):
         if part is not None:
             mask = mask & part
+    if b.extender_mask is not None:
+        # findNodesThatPassExtenders (schedule_one.go:886): extenders only
+        # shrink the feasible set
+        mask = mask & b.extender_mask
 
     # --- Score -----------------------------------------------------------
     total = torch.zeros(mask.shape, dtype=torch.int64, device=dev)
@@ -1306,6 +1309,10 @@ def feasible_and_scores(
             pa, pa_state, pa.score_rows, pa.score_vals, mask
         )
         total = total + p.w_interpod * pa_sc
+    if b.extender_score is not None:
+        # extender Prioritize, pre-scaled weight*MaxNodeScore/MaxExtenderPriority
+        # (schedule_one.go:1015) — added after plugin normalization
+        total = total + b.extender_score
     return mask, total
 
 

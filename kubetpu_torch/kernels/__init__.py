@@ -2,9 +2,11 @@
 
 ``csrc/filter_score.cu``, ``csrc/greedy_scan.cu`` and
 ``csrc/batched_round.cu`` (all built on ``csrc/score_common.cuh``),
-``csrc/scatter_rows.cu`` (the resident node block's dirty-row scatter) and
-``csrc/dry_run_preemption.cu`` (the preemption victim search) are
-compiled at first use, for ``sm_90a``, one ``nvcc`` per source started
+``csrc/scatter_rows.cu`` (the resident node block's dirty-row scatter),
+``csrc/dry_run_preemption.cu`` (the preemption victim search), and the
+flight recorder's ``csrc/explain_summary.cu`` and
+``csrc/filter_component_masks.cu`` (also the extender bridge's per-plugin
+masks) are compiled at first use, for ``sm_90a``, one ``nvcc`` per source started
 together, each into a shared library with a plain C interface that
 ``ctypes`` loads. No PyTorch header is compiled, so
 a build takes seconds. Outputs go to ``build/kubetpu_torch_kernels/`` under
@@ -19,8 +21,9 @@ callers (``framework.runtime.filter_score_batch``,
 ``assign.greedy.greedy_assign_device``,
 ``assign.batched.batched_assign_device``,
 ``ops.preemption.dry_run_preemption``,
-``framework.preemption.PreemptionEvaluator``) choose the plain version only
-for tensors that live on the CPU.
+``framework.preemption.PreemptionEvaluator``, ``sched.flightrecorder``'s
+``_explain_kernel`` / ``_explain_masks_kernel``, ``bridge.server``) choose
+the plain version only for tensors that live on the CPU.
 """
 
 from __future__ import annotations
@@ -39,10 +42,11 @@ from ..framework import runtime as rt
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("filter_score.cu", "greedy_scan.cu", "batched_round.cu", "scatter_rows.cu",
-           "dry_run_preemption.cu")
+           "dry_run_preemption.cu", "explain_summary.cu", "filter_component_masks.cu")
 # the libraries that take the ScoreArgs struct (score_common.cuh)
-SCORE_ARGS_LIBS = ("filter_score", "greedy_scan", "batched_round")
-HEADERS = ("score_common.cuh",)
+SCORE_ARGS_LIBS = ("filter_score", "greedy_scan", "batched_round", "explain_summary",
+                   "filter_component_masks")
+HEADERS = ("score_common.cuh", "score_prelaunch.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kubetpu_torch_kernels"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,7 +62,7 @@ NVCC_FLAGS = (
 # reads them around the main path to show the path went through the kernels
 launch_counts = {
     "filter_score": 0, "greedy_scan": 0, "batched_round": 0, "scatter_rows": 0,
-    "dry_run_preemption": 0,
+    "dry_run_preemption": 0, "explain_summary": 0, "filter_component_masks": 0,
 }
 
 # ctypes argument types of each library's entry point
@@ -69,6 +73,8 @@ _ARGTYPES = {
     "batched_round": [ctypes.c_void_p] * 15,
     "scatter_rows": [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 14,
     "dry_run_preemption": [ctypes.c_void_p] * 2,
+    "explain_summary": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6,
+    "filter_component_masks": [ctypes.c_void_p] * 7,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -204,7 +210,9 @@ class ScoreArgs(ctypes.Structure):
             "nom_node", "nom_req", "nom_gate", "nom_ports", "nom_pod_idx",
             "nom_active",
         )
-    ] + [("G", ctypes.c_int64)]
+    ] + [("G", ctypes.c_int64)] + [
+        (name, ctypes.c_void_p) for name in ("ext_mask", "ext_score")
+    ]
 
 
 class DryRunArgs(ctypes.Structure):
@@ -413,6 +421,11 @@ def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str, state=None,
             keep.append(nom_active)
         a.nom_active = _check("nominated_active", nom_active, u8, (G,), dev)
         a.G = G
+    if (b.extender_mask is None) != (b.extender_score is None):
+        raise ValueError(f"{where}: extender_mask and extender_score come together")
+    if b.extender_mask is not None:
+        a.ext_mask = _check("extender_mask", b.extender_mask, u8, (P, N), dev)
+        a.ext_score = _check("extender_score", b.extender_score, i64, (P, N), dev)
     return a, keep
 
 
@@ -705,3 +718,73 @@ def dry_run_preemption(pod_req, pod_prio, wants_conf, potential, alloc, requeste
     _raise_on(lib, "dry_run_preemption", code)
     launch_counts["dry_run_preemption"] += 1
     return node_idx, victims, ok, n_pdb
+
+
+def _component_flags(b: rt.DeviceBatch, p: rt.ScoreParams) -> list[bool]:
+    """Which of ``runtime.filter_components(b, p)[:5]`` (static, fit,
+    ports_ok, spread_ok, pa_ok) are present, i.e. not None."""
+    sp, pa = b.spread, b.podaffinity
+    return [
+        True,
+        bool(p.filter_fit),
+        bool(p.filter_ports),
+        sp is not None and bool(p.filter_spread and sp.has_hard),
+        pa is not None and bool(p.filter_interpod and pa.has_filter_work),
+    ]
+
+
+def explain_summary(b: rt.DeviceBatch, p: rt.ScoreParams, assignments: torch.Tensor):
+    """The flight recorder's per-pod summary on the card (B10
+    ``_explain_kernel``): ``filter_score`` (want_total) on ``b``, then the
+    ``explain_summary`` kernel over its mask and total with the engine's
+    ``assignments`` (P,) int32. Returns ``(feasible (P,) int32, reject (five
+    (P,) int32 or None), top_vals (P, k) int64, top_idx (P, k) int32, win
+    (P,) int64)``, k = min(3, N), fresh tensors; equal to
+    ``sched.flightrecorder.explain_summary_plain(b, p, assignments)``."""
+    dev = b.alloc.device
+    a, keep = _score_args(b, p, "explain_summary", bits_blocks=b.requests.shape[0])
+    idx = _check("assignments", assignments, torch.int32, (a.P,), dev)
+    mask, _, total = _launch_filter_score(a, dev, want_total=True, dynamic=True,
+                                          smem=_smem(b))
+    flags = _component_flags(b, p)
+    k = min(3, a.N)
+    feasible = torch.empty((a.P,), dtype=torch.int32, device=dev)
+    reject = torch.empty((5, a.P), dtype=torch.int32, device=dev)
+    top_vals = torch.empty((a.P, k), dtype=torch.int64, device=dev)
+    top_idx = torch.empty((a.P, k), dtype=torch.int32, device=dev)
+    win = torch.empty((a.P,), dtype=torch.int64, device=dev)
+    lib = build()["explain_summary"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.kt_explain_summary(
+        ctypes.byref(a), mask.data_ptr(), total.data_ptr(), idx,
+        sum(1 << c for c, on in enumerate(flags) if on), k, feasible.data_ptr(),
+        reject.data_ptr(), top_vals.data_ptr(), top_idx.data_ptr(), win.data_ptr(), stream)
+    _raise_on(lib, "explain_summary", code)
+    launch_counts["explain_summary"] += 1
+    del keep
+    rejects = tuple(reject[c] if on else None for c, on in enumerate(flags))
+    return feasible, rejects, top_vals, top_idx, win
+
+
+def filter_component_masks(b: rt.DeviceBatch, p: rt.ScoreParams):
+    """The ``filter_component_masks`` kernel (B10 ``_explain_masks_kernel``,
+    and the extender bridge's per-plugin masks): the five (P, N) bool masks
+    ``(static, fit, ports_ok, spread_ok, pa_ok)``, None where the plugin is
+    off or has no work, fit charging every nomination; equal to
+    ``sched.flightrecorder.filter_component_masks_plain(b, p)``, i.e.
+    ``runtime.filter_components(b, p)[:5]``."""
+    dev = b.alloc.device
+    a, keep = _score_args(b, p, "filter_component_masks")
+    flags = _component_flags(b, p)
+    masks = tuple(
+        torch.empty((a.P, a.N), dtype=torch.bool, device=dev) if on else None
+        for on in flags
+    )
+    lib = build()["filter_component_masks"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.kt_filter_component_masks(
+        ctypes.byref(a), *(None if m is None else m.data_ptr() for m in masks), stream)
+    _raise_on(lib, "filter_component_masks", code)
+    launch_counts["filter_component_masks"] += 1
+    del keep
+    return masks

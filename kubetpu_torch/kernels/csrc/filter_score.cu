@@ -21,7 +21,8 @@
 // pod's affinity slots, which stay in L2 across the pod axis; what must
 // reach device memory is the (P, N) outputs (9 bytes a pair, 17 with the
 // total), so the least time is those bytes over the card's bandwidth.
-// Design: launch (0), only with affinity rows, sums each (RA, D) row over
+// Design (launches (0) and (0s) live in score_prelaunch.cuh, which
+// filter_component_masks.cu shares): launch (0), only with affinity rows, sums each (RA, D) row over
 // its domains (the self-affinity escape reads the total); launch (0s),
 // only with a spread leaf, is one block per signature that sums its
 // counts over eligible nodes into the (S, D+1) domain sums (slot D is
@@ -35,35 +36,22 @@
 // the domains, in shared memory when it fits, else in global scratch) and
 // the scored min and max of the rounded spread raw, and writes the total.
 //
+// With extender leaves the webhook's mask joins launch (a)'s verdict and its
+// score the base, so launch (b)'s maxima run over the shrunk feasible set.
+//
 // Potential mode (the preemption evaluator's _potential_mask,
 // kubetpu/framework/preemption.py:124, on a one-pod view): launch (a)
 // writes, for each node, "every victim-independent filter passes (static
 // row, PodTopologySpread, InterPodAffinity) and NodeResourcesFit or
-// NodePorts fails" against the state given, and no score.
+// NodePorts fails" against the state given, and no score. The extender
+// leaves play no part in it, as in the reference's filter_components.
 #include "score_common.cuh"
+#include "score_prelaunch.cuh"
 
 namespace {
 
 constexpr int kPairThreads = 256;
 constexpr int kRowThreads = 512;
-constexpr int kTotalThreads = 256;
-
-__global__ void filter_score_row_totals(ScoreArgs a) {
-  kt::pa_row_totals(a, a.pa_sums, a.pa_row_total,
-                    (int64_t)blockIdx.x * blockDim.x + threadIdx.x,
-                    (int64_t)gridDim.x * blockDim.x);
-}
-
-__global__ void filter_score_spread_sums(ScoreArgs a) {
-  __shared__ int64_t s_red[33];
-  const int64_t s = blockIdx.x, D1 = a.sp_D + 1;
-  for (int64_t d = threadIdx.x; d < D1; d += blockDim.x) a.sp_sums[s * D1 + d] = 0;
-  __syncthreads();
-  kt::sp_accumulate(a, a.sp_counts, a.sp_sums, s, a.sp_S);
-  __syncthreads();
-  const int64_t mm = kt::sp_min_over_domains(a, a.sp_sums, s, s_red);
-  if (threadIdx.x == 0) a.sp_min_match[s] = mm;
-}
 
 __global__ void filter_score_pairs(ScoreArgs a, uint8_t* mask, int64_t* base, int with_pa,
                                    int potential) {
@@ -74,7 +62,8 @@ __global__ void filter_score_pairs(ScoreArgs a, uint8_t* mask, int64_t* base, in
   // dependent ones
   bool ok = kt::pair_static(a, p, n);
   if (!potential && ok)
-    ok = kt::pair_dependent(a, p, n, a.requested, a.pod_count, a.node_ports);
+    ok = kt::pair_extender(a, p, n) &&
+         kt::pair_dependent(a, p, n, a.requested, a.pod_count, a.node_ports);
   if (ok && with_pa && a.pa_filter)
     ok = kt::pa_feasible(a, a.pa_sums, kt::pa_escape(a, a.pa_row_total, p), p, n);
   if (ok && a.sp_filter) ok = kt::sp_feasible(a, a.sp_sums, a.sp_min_match, p, n);
@@ -152,6 +141,8 @@ extern "C" int kt_filter_score(const ScoreArgs* args, void* mask, void* base, vo
     total = nullptr;
     a.w_interpod = 0;
     a.w_spread = 0;
+    a.ext_mask = nullptr;
+    a.ext_score = nullptr;
   }
   const int pa = dynamic && a.pa_node_domain != nullptr;
   if (!pa) a.w_interpod = 0;
@@ -162,21 +153,12 @@ extern "C" int kt_filter_score(const ScoreArgs* args, void* mask, void* base, vo
   }
   if (a.P == 0 || a.N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sp && (a.sp_filter || a.w_spread) && a.sp_S > 0) {
-    filter_score_spread_sums<<<(unsigned)a.sp_S, kRowThreads, 0, s>>>(a);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (pa && a.pa_R > 0) {
-    filter_score_row_totals<<<(unsigned)((a.pa_R + kTotalThreads - 1) / kTotalThreads),
-                              kTotalThreads, 0, s>>>(a);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = kt::prelaunch(a, pa, sp, s);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((a.N + kPairThreads - 1) / kPairThreads), (unsigned)a.P);
   filter_score_pairs<<<grid, kPairThreads, 0, s>>>(a, static_cast<uint8_t*>(mask),
                                                    static_cast<int64_t*>(base), pa, potential);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess || total == nullptr) return (int)err;
   filter_score_normalize<<<(unsigned)a.P, kRowThreads, (size_t)smem, s>>>(
       a, static_cast<const uint8_t*>(mask), static_cast<const int64_t*>(base),

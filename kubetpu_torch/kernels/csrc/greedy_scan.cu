@@ -17,7 +17,10 @@
 // the state needs no atomics and no fences. A node no earlier pod of the
 // batch landed on still has the batch's starting state, so its verdict and
 // base score for pod p are exactly filter_score's mask0[p, n] and
-// base0[p, n]; only touched nodes are recomputed (score_common.cuh).
+// base0[p, n]; only touched nodes are recomputed (score_common.cuh). The
+// extender webhook's mask and score depend on the pod and node alone, so
+// mask0 and base0 carry them for untouched nodes, and pair_feasible and
+// base_score apply them when a touched node is recomputed.
 //
 // InterPodAffinity breaks that reuse rule: one assignment adds to the
 // carried (RA, D) sums at a whole topology domain, which moves the affinity

@@ -20,6 +20,11 @@
 //     spread_score_pod (PodTopologySpread: per-signature domain sums of the
 //     carried (S, N) counts, the skew verdict against minMatch, and the
 //     log-weighted raw score with its normalize)
+//   kubetpu/framework/runtime.py:1509-1512 and :1571-1574 the extender
+//     terms: the webhook's (P, N) mask joins the Filter verdict (so every
+//     normalize runs over the shrunk feasible set) and its pre-weighted
+//     (P, N) score is added to the total (int64 sums are exact, so adding
+//     it with the base terms equals the reference's adding it last)
 //
 // Exactness: every integer is int64 as in the reference (which runs with
 // jax x64). `//` in the reference floors; C++ `/` truncates, so floordiv()
@@ -121,6 +126,10 @@ struct ScoreArgs {
                                      // the engines clear a nominee's entry
                                      // when they assign it
   int64_t G;
+  // extender webhook verdicts (DeviceBatch.extender_mask / extender_score);
+  // both null without extenders
+  const uint8_t* ext_mask;           // (P, N)
+  const int64_t* ext_score;          // (P, N) weight * 10 * raw, pre-scaled
 };
 
 namespace kt {
@@ -182,47 +191,82 @@ __device__ __forceinline__ bool ports_conflict(const ScoreArgs& a, int64_t p,
   return false;
 }
 
-// the victim-dependent verdict: NodeResourcesFit and NodePorts against the
-// node state given (the batch's, or an engine's running state), with the
-// reservations of the live nominations at node n charged (integer sums:
-// the reference's f64 contraction of integers below 2^53 is exact)
-__device__ __forceinline__ bool pair_dependent(const ScoreArgs& a, int64_t p, int64_t n,
-                                               const int64_t* req_state,
-                                               const int32_t* pc_state,
-                                               const uint8_t* ports_state) {
-  const int64_t R = a.R;
-  const int64_t G = a.nom_node != nullptr ? a.G : 0;
-  int64_t charged = 0;  // live nominations at n that pod p must make room for
+// the number of nomination slots (0 without nominations)
+__device__ __forceinline__ int64_t nomination_slots(const ScoreArgs& a) {
+  return a.nom_node != nullptr ? a.G : 0;
+}
+
+// the number of live nominations at node n that pod p must make room for,
+// among the first G slots
+__device__ __forceinline__ int64_t nominated_count(const ScoreArgs& a, int64_t p, int64_t n,
+                                                   int64_t G) {
+  int64_t charged = 0;
   for (int64_t g = 0; g < G; ++g) charged += nominated_here(a, p, n, g);
-  if (a.filter_fit) {
-    if (!(pc_state[n] + 1 + charged <= a.allowed_pods[n])) return false;
-    for (int64_t r = 0; r < R; ++r) {
-      const int64_t q = a.requests[p * R + r];
-      if (q == 0) continue;
-      int64_t extra = 0;
-      if (charged)
-        for (int64_t g = 0; g < G; ++g)
-          if (nominated_here(a, p, n, g)) extra += a.nom_req[g * R + r];
-      if (q > a.alloc[n * R + r] - req_state[n * R + r] - extra) return false;
-    }
-  }
-  if (a.filter_ports) {
-    if (ports_conflict(a, p, ports_state + n * a.K)) return false;
-    if (charged && a.nom_ports != nullptr)
+  return charged;
+}
+
+// NodeResourcesFit against the node state given, with the `charged` live
+// nominations at node n (of the first G slots) charged (integer sums: the
+// reference's f64 contraction of integers below 2^53 is exact)
+__device__ __forceinline__ bool pair_fit(const ScoreArgs& a, int64_t p, int64_t n,
+                                         const int64_t* req_state, const int32_t* pc_state,
+                                         int64_t charged, int64_t G) {
+  const int64_t R = a.R;
+  if (!(pc_state[n] + 1 + charged <= a.allowed_pods[n])) return false;
+  for (int64_t r = 0; r < R; ++r) {
+    const int64_t q = a.requests[p * R + r];
+    if (q == 0) continue;
+    int64_t extra = 0;
+    if (charged)
       for (int64_t g = 0; g < G; ++g)
-        if (nominated_here(a, p, n, g) && ports_conflict(a, p, a.nom_ports + g * a.K))
-          return false;
+        if (nominated_here(a, p, n, g)) extra += a.nom_req[g * R + r];
+    if (q > a.alloc[n * R + r] - req_state[n * R + r] - extra) return false;
   }
   return true;
 }
 
-// Filter: static row AND NodeResourcesFit AND NodePorts, against the node
-// state given (the batch's, or the greedy scan's running state)
+// NodePorts against the in-use triples given, and the host ports of the
+// `charged` live nominations at node n (of the first G slots)
+__device__ __forceinline__ bool pair_ports(const ScoreArgs& a, int64_t p, int64_t n,
+                                           const uint8_t* ports_state, int64_t charged,
+                                           int64_t G) {
+  if (ports_conflict(a, p, ports_state + n * a.K)) return false;
+  if (charged && a.nom_ports != nullptr)
+    for (int64_t g = 0; g < G; ++g)
+      if (nominated_here(a, p, n, g) && ports_conflict(a, p, a.nom_ports + g * a.K))
+        return false;
+  return true;
+}
+
+// the victim-dependent verdict: NodeResourcesFit and NodePorts against the
+// node state given (the batch's, or an engine's running state), with the
+// reservations of the live nominations at node n charged
+__device__ __forceinline__ bool pair_dependent(const ScoreArgs& a, int64_t p, int64_t n,
+                                               const int64_t* req_state,
+                                               const int32_t* pc_state,
+                                               const uint8_t* ports_state) {
+  const int64_t G = nomination_slots(a);
+  const int64_t charged = nominated_count(a, p, n, G);
+  if (a.filter_fit && !pair_fit(a, p, n, req_state, pc_state, charged, G)) return false;
+  if (a.filter_ports && !pair_ports(a, p, n, ports_state, charged, G)) return false;
+  return true;
+}
+
+// the extender webhook's verdict of the pair (true without extenders); it
+// depends on the pod and node only, never on the running state
+__device__ __forceinline__ bool pair_extender(const ScoreArgs& a, int64_t p, int64_t n) {
+  return a.ext_mask == nullptr || a.ext_mask[p * a.N + n];
+}
+
+// Filter: static row AND the extender verdict AND NodeResourcesFit AND
+// NodePorts, against the node state given (the batch's, or the greedy
+// scan's running state)
 __device__ __forceinline__ bool pair_feasible(const ScoreArgs& a, int64_t p, int64_t n,
                                               const int64_t* req_state,
                                               const int32_t* pc_state,
                                               const uint8_t* ports_state) {
-  return pair_static(a, p, n) && pair_dependent(a, p, n, req_state, pc_state, ports_state);
+  return pair_static(a, p, n) && pair_extender(a, p, n) &&
+         pair_dependent(a, p, n, req_state, pc_state, ports_state);
 }
 
 // NodeResourcesFit score under the profile's strategy (no NormalizeScore)
@@ -332,9 +376,9 @@ __device__ __forceinline__ int64_t image_score(const ScoreArgs& a, int64_t p, in
 }
 
 // The weighted scores that need no normalization over nodes: fit, balanced
-// and image locality. Plugin sums are int64 and exact, so adding the
-// normalized node-affinity and taint terms afterwards gives the
-// reference's total whatever the order.
+// and image locality, and the extender score. Plugin sums are int64 and
+// exact, so adding the normalized node-affinity and taint terms afterwards
+// gives the reference's total whatever the order.
 __device__ __forceinline__ int64_t base_score(const ScoreArgs& a, int64_t p, int64_t n,
                                               const int64_t* req_state,
                                               const int64_t* nz_state) {
@@ -342,6 +386,7 @@ __device__ __forceinline__ int64_t base_score(const ScoreArgs& a, int64_t p, int
   if (a.w_fit) total += a.w_fit * fit_score(a, p, n, nz_state);
   if (a.w_balanced) total += a.w_balanced * balanced_score(a, p, n, req_state);
   if (a.img_sums != nullptr) total += a.w_image * image_score(a, p, n);
+  if (a.ext_score != nullptr) total += a.ext_score[p * a.N + n];
   return total;
 }
 

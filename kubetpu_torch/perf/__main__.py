@@ -4,7 +4,7 @@ direct mode and print its result as one JSON line.
     python -m kubetpu_torch.perf --case SchedulingBasic \\
         --workload 5000Nodes_10000Pods [--engine greedy|batched] \\
         [--device cuda] [--max-batch 1024] [--pipeline on|off] \\
-        [--encode-cache on|off]
+        [--encode-cache on|off] [--flight-recorder on|off]
     python -m kubetpu_torch.perf --case SchedulingPodAffinity \\
         --workload 5000Nodes_5000Pods --engine batched
     python -m kubetpu_torch.perf --case TopologySpreading \\
@@ -33,6 +33,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--encode-cache", default="on", choices=("on", "off"),
                     help="event-time template-keyed pod encoding (bit-"
                          "identical to a fresh encode; 'off' to debug)")
+    ap.add_argument("--flight-recorder", default="on", choices=("on", "off"),
+                    help="per-pod decision records with the cycle-start "
+                         "breakdown (the explain kernels); 'off' is the "
+                         "overhead escape hatch")
     return ap
 
 
@@ -43,6 +47,7 @@ def main(argv: list[str] | None = None) -> int:
         max_batch=args.max_batch, engine=args.engine,
         pipeline=args.pipeline == "on",
         encode_cache=args.encode_cache == "on",
+        flight_recorder=args.flight_recorder == "on",
     )
     print(json.dumps(res.to_json()))
     return 0 if res.scheduled == res.measure_pods else 1

@@ -202,7 +202,7 @@ def _cycle_ms(timings: list) -> dict:
         region: 1e3 * sum(getattr(c, region + "_s") for c in timings) / n
         for region in ("snapshot", "pre_encode", "finalize", "encode",
                        "nodes", "refresh", "upload", "kernel", "wait", "bind",
-                       "postfilter")
+                       "postfilter", "extenders", "recorder")
     }
 
 
@@ -230,13 +230,18 @@ def run_workload(
     on_scheduler: Callable[[Scheduler], None] | None = None,
     pipeline: bool = False,
     encode_cache: bool = True,
+    flight_recorder: bool = True,
+    extenders=(),
 ) -> WorkloadResult:
     """Execute one (test case, workload) pair in direct mode on ``device``
     with the ``engine`` (``"greedy"`` or ``"batched"``) and return the
     measurement. ``pipeline`` runs the two-stage pipelined cycle
     (``Scheduler(pipeline=True)``); ``encode_cache`` toggles the encode
-    cache (on by default, as in the reference). Preemption is enabled, as
-    the reference's runner does; churn ops fire between cycles.
+    cache (on by default, as in the reference), ``flight_recorder`` the
+    scheduling flight recorder (on by default, as in the reference's
+    runner); ``extenders`` (``ExtenderConfig``s) configures the
+    scheduler-extender webhooks. Preemption is enabled, as the reference's
+    runner does; churn ops fire between cycles.
     ``stall_s`` is how long zero progress must persist before a phase gives
     up. The kernels are built before the measured phase starts (``Scheduler.warmup``). ``on_scheduler`` is
     called once with the run's Scheduler before any op runs, so a caller
@@ -251,7 +256,8 @@ def run_workload(
     sched = Scheduler(
         client, profile=profile or C.Profile(), max_batch=max_batch,
         engine=engine, device=device, pipeline=pipeline,
-        encode_cache=encode_cache,
+        encode_cache=encode_cache, flight_recorder=flight_recorder,
+        cfg=C.SchedulerConfiguration(extenders=tuple(extenders)),
     )
     client.sched = sched
     sched.enable_preemption()

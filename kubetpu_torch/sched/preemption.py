@@ -25,11 +25,15 @@ victims are counted on ``SchedulerMetrics``.
 
 Evaluator state is shared across all failed pods of ONE cycle so two
 preemptors never pick the same victim (host-side sequential commit,
-framework/preemption.PreemptionEvaluator._apply).
+framework/preemption.PreemptionEvaluator._apply). The scheduler's
+extenders with a preempt verb trim the candidates through
+``extender_chain_hook``; a non-ignorable extender failure fails the
+attempt and clears the pod's nomination, as in the reference.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import TYPE_CHECKING
 
 from ..framework.preemption import PreemptionEvaluator
@@ -89,7 +93,22 @@ class DefaultPreemptionPostFilter:
             self._evaluator = self._build(sched, ctx)
         ev = self._evaluator
 
-        result = ev.preempt(i)
+        from ..framework.preemption import extender_chain_hook
+        from .extender import ExtenderError
+
+        hook = extender_chain_hook(sched.extenders)
+        try:
+            result = ev.preempt(i, extender_hook=hook)
+        except (ExtenderError, OSError) as e:
+            # non-ignorable extender failure mid-ProcessPreemption: this
+            # attempt fails (preemption.go callExtenders error path);
+            # evaluator bugs propagate instead of hiding as "no candidates"
+            logging.getLogger("kubetpu_torch.sched.preemption").error(
+                "preemption extender failed: pod=%s err=%s", info.key, e
+            )
+            sched.nominator.remove(info.pod.uid)
+            info.nominated_node_name = None
+            return None
         if result.status != "success" or result.node_name is None:
             # clear any stale nomination (the reference's
             # NewPostFilterResultWithNominatedNode("") on no-candidates)

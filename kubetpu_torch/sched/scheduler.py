@@ -4,7 +4,11 @@ The slices of the port so far: the reference's default cycle — the encode
 cache, the device-resident node block and, on request, the two-stage
 pipelined cycle — for one or more profiles on the greedy or the batched
 engine, in direct mode, with synchronous binding, and the DefaultPreemption
-PostFilter with the nominator's reservations (``enable_preemption``). What
+PostFilter with the nominator's reservations (``enable_preemption``), the
+scheduler-extender webhooks (``cfg.extenders``: the batch's Filter and
+Prioritize calls, a binder extender's bind, the ProcessPreemption hook) and
+the flight recorder (``flight_recorder``, on by default as in the
+reference: a decision record per pod with its cycle-start breakdown). What
 it keeps of the reference, line for line where the logic is host logic:
 the informer handlers for nodes, pods, namespaces, services and PDBs (with
 the encode cache's hooks), ``schedule_batch`` → ``_schedule_batch_serial`` /
@@ -12,8 +16,9 @@ the encode cache's hooks), ``schedule_batch`` → ``_schedule_batch_serial`` /
 ``_pre_encode``, ``_refresh_host_state``, ``_complete_inflight`` with its
 replay (also when the nomination set moved under the in-flight cycle),
 ``_handle_unschedulable`` with its PostFilter branch, the nomination spent
-at assume and dropped at pod delete, the engine seam and
-``run_until_idle``.
+at assume and dropped at pod delete, ``_apply_extenders``, the recorder's
+calls (delivery, drop, cycle, requeue, preemption, bind), the engine seam
+and ``run_until_idle``.
 
 The device calls of the reference's cycle become torch calls: the pod
 leaves are uploaded to the scheduler's ``device`` in one copy, the node
@@ -33,13 +38,19 @@ reads two flags on the host every round, so its launch returns only when
 its rounds are done: with it the pipeline is correct but does not overlap.
 
 Each cycle leaves a ``CycleTiming`` record: snapshot, stage 1
-(``pre_encode_s``), stage 2 (``finalize_s``), upload, kernel (the CUDA
-events' elapsed time on a CUDA device), the host's wait for the device,
-bind, the upload's byte counts and the batched engine's rounds.
+(``pre_encode_s``), stage 2 (``finalize_s``), the extender calls, upload,
+kernel (the CUDA events' elapsed time on a CUDA device), the host's wait
+for the device, the recorder's ``note_cycle``, bind, the upload's byte
+counts and the batched engine's rounds.
 
-Not in these slices (each raises when asked for): the device mesh, the
-flight recorder, extenders, gangs, DRA, volumes, the sentinel, the packing
-engine and the metrics registry.
+The recorder's explain is launched in ``_finish_cycle`` after the
+assignments are fetched, on the current stream, before the next cycle's
+scatter can write the resident block: stage 1 stays free of CUDA calls.
+
+Not in these slices (each raises when asked for): the device mesh, gangs,
+DRA, volumes, the sentinel, the packing engine, the asynchronous API
+dispatcher and the metrics registry (so the recorder's staged latency
+vectors are recorded but observed into no histogram).
 
 Reference semantics kept: the reference pops ONE pod per cycle
 (``ScheduleOne``); here a BATCH is popped and assigned by the greedy engine,
@@ -54,7 +65,9 @@ loop's pod for pod.
 
 from __future__ import annotations
 
+import dataclasses
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -79,6 +92,8 @@ from ..queue.priority_queue import pod_key
 from ..state.encode_cache import EncodeCache
 from ..state.encoder import encode_snapshot
 from ..state.snapshot import Cache, Snapshot
+from .extender import HTTPExtender, run_extenders
+from .flightrecorder import FlightRecorder
 
 
 @dataclass
@@ -98,7 +113,10 @@ class CycleTiming:
     previous cycle, and ``refresh_static`` in its stage 2 (0 in the serial
     cycle). ``postfilter_s`` is the failed pods' handling after bind: the
     PostFilter (the preemption evaluator's build and its ``preempt``
-    calls) and their requeue."""
+    calls) and their requeue. ``extenders_s`` is the extender webhooks'
+    calls and their verdicts' upload (0 without extenders), ``recorder_s``
+    the flight recorder's ``note_cycle`` (the explain's launch and the
+    previous cycle's fetch; 0 with the recorder off)."""
 
     cycle: int
     pods: int
@@ -112,6 +130,8 @@ class CycleTiming:
     nodes_s: float = 0.0
     refresh_s: float = 0.0
     postfilter_s: float = 0.0
+    extenders_s: float = 0.0
+    recorder_s: float = 0.0
     upload_bytes: int = 0            # every host→device byte of the cycle
     node_upload_bytes: int = 0       # of which the node block's delta
     resident_bytes: int = 0          # the resident node block's size
@@ -160,6 +180,9 @@ class _InflightCycle:
     profile: C.Profile
     batch_infos: list
     batch: "rt.EncodedBatch"
+    # the batch the engine ran: ``batch.device`` with the extender verdicts
+    # attached (``batch.device`` itself without extenders)
+    device_batch: "rt.DeviceBatch"
     params: "rt.ScoreParams"
     assignments: Any                 # device tensor, fetched at completion
     final_state: tuple               # the engine's seven state slots
@@ -194,7 +217,7 @@ class Scheduler:
         pipeline: bool = False,
         mesh=None,
         encode_cache: bool = True,
-        flight_recorder: bool = False,
+        flight_recorder: bool = True,
         dispatcher_workers: int = 0,
     ) -> None:
         """``device``: where the cycle's device work runs — ``"cuda"``
@@ -206,24 +229,25 @@ class Scheduler:
         template-keyed, built when the informer delivers the pod, and
         gathered at cycle time; cached encodes are bit-identical to fresh
         ones, so ``False`` is a debugging escape hatch. The node block is
-        always device-resident. The other arguments name features of
-        later slices; anything but their default raises
-        NotImplementedError."""
+        always device-resident. ``flight_recorder``: the scheduling flight
+        recorder (``sched.flightrecorder``): a bounded ring of per-pod
+        decision records with the cycle-start breakdown (the explain
+        kernels, one launch per cycle); ``False`` is the overhead escape
+        hatch and leaves decisions unchanged. ``cfg.extenders``: the
+        scheduler-extender webhooks (``sched.extender``). The other
+        arguments name features of later slices; anything but their
+        default raises NotImplementedError."""
         if engine == "packing":
             raise _not_ported("engine 'packing'", "Queue A item 11 (kernel B14)")
         if engine not in ("greedy", "batched"):
             raise ValueError(f"unknown engine {engine!r}")
         if mesh not in (None, "off"):
             raise _not_ported("the device mesh", "Queue A item 12 (kernel B15)")
-        if flight_recorder:
-            raise _not_ported("the flight recorder", "Queue A item 9 (kernel B10)")
         if dispatcher_workers:
             raise _not_ported("asynchronous binding", "Queue A item 13")
         self.client = client
         self.device = torch.device(device)
         self.cfg = cfg or C.SchedulerConfiguration()
-        if self.cfg.extenders:
-            raise _not_ported("extenders", "Queue A item 9 (kernel B10)")
         self.profile = profile or self.cfg.profile()
         # the profile Map (profile.go:46): pods select by spec.schedulerName.
         # A single explicit ``profile`` also answers for the default name so
@@ -292,6 +316,19 @@ class Scheduler:
         # nominated pods' reservations, fed into the fit and port filters
         # so lower-priority pods can't steal the room the victims freed
         self.nominator = Nominator()
+        # scheduling flight recorder (see the flight_recorder docstring
+        # above); None = off
+        self.flight_recorder: "FlightRecorder | None" = (
+            FlightRecorder() if flight_recorder else None
+        )
+        self.extenders = [HTTPExtender(c) for c in self.cfg.extenders]
+        self._extender_pool = None
+        if self.extenders:
+            # one long-lived worker pool for the per-cycle extender fan-out
+            # (per-cycle executor construction was hot-path thread churn)
+            self._extender_pool = ThreadPoolExecutor(
+                max_workers=max(1, self.cfg.parallelism)
+            )
 
     def enable_preemption(self) -> None:
         """Wire the DefaultPreemption PostFilter
@@ -311,7 +348,9 @@ class Scheduler:
 
     def warmup(self) -> None:
         """Build the kernels before the measured phase (on a CUDA device;
-        a no-op on the CPU). The reference compiles its XLA programs here."""
+        a no-op on the CPU): the engines', and the recorder's explain
+        kernels with them. The reference compiles its XLA programs, the
+        explain program included, here."""
         if self.device.type == "cuda":
             from .. import kernels
 
@@ -408,8 +447,16 @@ class Scheduler:
                 None, pod,
             )
         else:
+            fr = self.flight_recorder
+            t_deliver = time.perf_counter() if fr is not None else 0.0
             self.queue.add(pod)
             self._pre_encode_pod(pod)
+            if fr is not None:
+                # the informer stage: delivery wall incl. the event-time
+                # pre-encode (the e2e base in direct mode)
+                fr.note_delivery(
+                    pod, t_deliver, time.perf_counter() - t_deliver
+                )
 
     def on_pod_update(self, old: t.Pod | None, new: t.Pod) -> None:
         if not new.node_name and self._profile_for(new) is None:
@@ -436,13 +483,23 @@ class Scheduler:
                     None, new,
                 )
         else:
+            fr = self.flight_recorder
+            t_deliver = time.perf_counter() if fr is not None else 0.0
             self.queue.update(old, new)
             # a mutated pod hashes to NEW signature keys — pre-build its
             # rows now; the per-uid signature memo is identity-checked, so
             # the old object's entries can never answer for the new one
             self._pre_encode_pod(new)
+            if fr is not None:
+                # a pod FIRST seen through an update still opens a flight;
+                # for a known pod this only accrues informer-handling wall
+                fr.note_delivery(
+                    new, t_deliver, time.perf_counter() - t_deliver
+                )
 
     def on_pod_delete(self, pod: t.Pod) -> None:
+        if self.flight_recorder is not None:
+            self.flight_recorder.drop(pod_key(pod))
         self.nominator.remove(pod.uid)
         if self.encode_cache is not None:
             self.encode_cache.drop_pod(pod.uid)
@@ -757,6 +814,9 @@ class Scheduler:
                 t_fin = t_enc
             stage2_s = time.perf_counter() - t_fin
             self._prev_nt = batch.node_tensors
+            t_ext = time.perf_counter()
+            device_batch, ext_bytes = self._apply_extenders(batch, pods)
+            extenders_s = time.perf_counter() - t_ext
             params = rt.score_params(profile, batch.resource_names)
             started = done = None
             if self.device.type == "cuda":
@@ -764,7 +824,7 @@ class Scheduler:
                 done = torch.cuda.Event(enable_timing=True)
                 started.record()
             t_dev = time.perf_counter()
-            assignments, final_state = self._assign_device(batch.device, params)
+            assignments, final_state = self._assign_device(device_batch, params)
             if done is not None:
                 done.record()
             timing = CycleTiming(
@@ -774,7 +834,8 @@ class Scheduler:
                 # on the CPU the engine ran synchronously just now
                 kernel_s=time.perf_counter() - t_dev if done is None else 0.0,
                 nodes_s=nodes_s, refresh_s=self._refresh_s,
-                upload_bytes=batch.upload_bytes,
+                extenders_s=extenders_s,
+                upload_bytes=batch.upload_bytes + ext_bytes,
                 node_upload_bytes=batch.node_upload_bytes,
                 resident_bytes=batch.resident_bytes,
                 rounds=self._rounds if self.engine == "batched" else 0,
@@ -786,7 +847,8 @@ class Scheduler:
             self._refresh_s = 0.0
             return _InflightCycle(
                 profile=profile, batch_infos=batch_infos, batch=batch,
-                params=params, assignments=assignments,
+                device_batch=device_batch, params=params,
+                assignments=assignments,
                 final_state=final_state, cycle_id=cycle_id, timing=timing,
                 nominator_version=self.nominator.version,
                 ns_gen=self._snapshot.namespaces_generation,
@@ -833,6 +895,25 @@ class Scheduler:
                 timing.kernel_s = inflight.started.elapsed_time(inflight.done) / 1e3
             idx = inflight.assignments.cpu().numpy()
             timing.wait_s = time.perf_counter() - t_wait
+            if self.flight_recorder is not None:
+                # one decision record per pod, with the cycle-start
+                # score/filter breakdown; an explain error propagates (the
+                # recorder's module docstring)
+                t_rec = time.perf_counter()
+                self.flight_recorder.note_cycle(
+                    batch=batch,
+                    device_batch=inflight.device_batch,
+                    params=inflight.params,
+                    batch_infos=batch_infos,
+                    idx=idx,
+                    cycle_id=inflight.cycle_id,
+                    profile=inflight.profile.name,
+                    encode_s=timing.encode_s,
+                    kernel_s=timing.kernel_s,
+                    engine=self.engine,
+                    assignments=inflight.assignments,
+                )
+                timing.recorder_s = time.perf_counter() - t_rec
         except Exception:
             self._requeue_error(batch_infos)
             raise
@@ -879,16 +960,32 @@ class Scheduler:
         # a scheduled pod's nomination (if any) is spent
         self.nominator.remove(info.pod.uid)
         self._preempting.pop(info.key, None)
+        # an interested binder extender owns the bind API call
+        # (schedule_one.go:1142 bind → extendersBinding)
+        bind_fn = self.client.bind
+        for e in self.extenders:
+            if e.is_binder() and e.is_interested(info.pod):
+                bind_fn = e.bind
+                break
+        fr = self.flight_recorder
+        t_dispatch = time.perf_counter()
         try:
-            self.client.bind(info.pod, node_name)
-        except Exception:
+            bind_fn(info.pod, node_name)
+        except Exception as err:
+            if fr is not None:
+                fr.note_bind(info, err, t_dispatch, t_dispatch,
+                             time.perf_counter())
             # bind failed: roll back the assume and retry as error status
             # (handleSchedulingFailure, schedule_one.go:1190 analog)
             self.metrics.bind_errors += 1
             self.metrics.errors += 1
             self.cache.forget_pod(assumed)
-            self.queue.add_unschedulable(info, error=True)
+            where = self.queue.add_unschedulable(info, error=True)
+            if fr is not None:
+                fr.note_requeue(info.key, where, error=True)
             return False
+        if fr is not None:
+            fr.note_bind(info, None, t_dispatch, t_dispatch, time.perf_counter())
         self.cache.finish_binding(assumed.uid)
         self.queue.done(info.key)
         return True
@@ -904,18 +1001,61 @@ class Scheduler:
         per node, schedule_one.go FitError) — over-eager wake-ups are safe;
         the leftover flush bounds staleness either way."""
         profile = profile or self._profile_for(info.pod) or self.profile
+        fr = self.flight_recorder
         if self._post_filter is not None:
             nominated = self._post_filter(self, info)
             if nominated is not None:
                 # preemption nominated a node: victims' deletes will fire
                 # hints; pod waits in backoff for the room to open
                 info.nominated_node_name = nominated
-                self.queue.add_unschedulable(info, profile.filters.names())
+                where = self.queue.add_unschedulable(
+                    info, profile.filters.names()
+                )
+                if fr is not None:
+                    fr.note_requeue(
+                        info.key, where, profile.filters.names(),
+                        nominated=nominated,
+                    )
+                    fr.note_preemption(
+                        info.key, nominated,
+                        self._preempting.get(info.key, ()),
+                    )
                 return
         where = self.queue.add_unschedulable(info, profile.filters.names())
+        if fr is not None:
+            fr.note_requeue(info.key, where, profile.filters.names())
         if where not in ("deleted", "already-queued"):
             # only patch status for pods that still exist and we own
             self.client.patch_status(info.pod, "Unschedulable")
+
+    def _apply_extenders(
+        self, batch: "rt.EncodedBatch", pods: list
+    ) -> "tuple[rt.DeviceBatch, int]":
+        """Run the configured extender webhooks for the batch and attach
+        their (P, N) mask/score to the device batch (findNodesThatPass
+        Extenders + extender Prioritize — sched/extender.py), shipped in one
+        host→device copy of their own. Returns the device batch and the
+        bytes shipped (0 without extenders)."""
+        device_batch = batch.device
+        if not self.extenders:
+            return device_batch, 0
+        ext_mask, ext_score = run_extenders(
+            self.extenders, pods, batch.node_names,
+            batch.num_nodes,
+            pad_pods=device_batch.requests.shape[0],
+            pad_nodes=device_batch.alloc.shape[0],
+            parallelism=self.cfg.parallelism,
+            executor=self._extender_pool,
+        )
+        if ext_mask is None:
+            return device_batch, 0
+        leaves = rt.upload_packed(
+            dict(extender_mask=ext_mask, extender_score=ext_score), self.device
+        )
+        return (
+            dataclasses.replace(device_batch, **leaves),
+            int(ext_mask.nbytes + ext_score.nbytes),
+        )
 
     # ------------------------------------------------------------- running
 
@@ -939,3 +1079,10 @@ class Scheduler:
             if res["scheduled"] == 0 and res["unschedulable"] == 0:
                 break
         return total
+
+    def close(self) -> None:
+        """Complete a cycle still in flight and stop the extender pool."""
+        if self._inflight is not None:
+            self._complete_inflight()
+        if self._extender_pool is not None:
+            self._extender_pool.shutdown(wait=False)

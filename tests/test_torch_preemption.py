@@ -339,10 +339,11 @@ def _key(r):
 
 
 def preempt_both(cache, pods, pdbs=(), nom=None, engine=False, order=None,
-                 profile=PROFILE):
+                 profile=PROFILE, hook=None):
     """Run kubetpu's and the port's evaluators over ``pods`` (each batch
-    encoded by its own side), preempting ``order`` in turn; assert equal
-    results and return the port's."""
+    encoded by its own side), preempting ``order`` in turn (through the
+    extender ``hook`` when given); assert equal results and return the
+    port's."""
     kentries = nom.entries() if nom is not None else ()
     kb = krt.encode_batch(cache.update_snapshot(), pods, profile,
                           nominated=kentries)
@@ -366,7 +367,8 @@ def preempt_both(cache, pods, pdbs=(), nom=None, engine=False, order=None,
     pev = PEvaluator(pb, pp, pdbs=tuple(to_port(list(pdbs))), **pkw)
     out = []
     for i in (order if order is not None else range(len(pods))):
-        want, got = kev.preempt(i), pev.preempt(i)
+        want = kev.preempt(i, extender_hook=hook)
+        got = pev.preempt(i, extender_hook=hook)
         assert _key(got) == _key(want), i
         out.append(got)
     assert pev.calls == sum(r.status != "not_eligible" for r in out)
@@ -421,14 +423,30 @@ def test_evaluator_randomized_parity(seed):
 
 
 def test_extender_preemption_is_a_later_slice():
-    cache, pods, _ = sc_basic()
-    pb = prt.encode_batch(port_cache(cache).update_snapshot(),
-                          [to_port(p) for p in pods], to_port(PROFILE), device="cpu")
-    ev = PEvaluator(pb, prt.score_params(to_port(PROFILE), pb.resource_names))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ev.preempt(0, extender_hook=lambda pod, cand: cand)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        extender_chain_hook(())
+    """The extender ProcessPreemption hook (item 9, ported since this test
+    was named): ``preempt(i, extender_hook=)`` picks over the hook's
+    survivors as kubetpu's does — no veto, a veto of the dry run's node,
+    trimmed victim lists, every node vetoed — and ``extender_chain_hook``
+    of no extender is None."""
+
+    def veto(names, trim=False):
+        def hook(pod, cand):
+            return {
+                node: ([p.uid for p in victims][:1 if trim else None], npdb)
+                for node, (victims, npdb) in cand.items() if node not in names
+            }
+        return hook
+
+    for hook, want in ((veto(()), "success"), (veto(("n0",)), "success"),
+                       (veto(("n1", "n2"), trim=True), "success"),
+                       (veto(("n0", "n1", "n2", "n3")), "unschedulable")):
+        cache, pods, _ = sc_basic()
+        (got,) = preempt_both(cache, pods, hook=hook)
+        assert got.status == want
+    for name in ("multi_preemptor", "same_cycle_port_charge"):
+        cache, pods, kw = SCENARIOS[name]()
+        preempt_both(cache, pods, hook=veto(("n0",)), **kw)
+    assert extender_chain_hook(()) is None
 
 
 # -------------------------------------------------------------- scheduler

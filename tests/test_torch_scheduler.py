@@ -106,9 +106,7 @@ def test_saturated_cluster_bound_map_equal():
 
 @pytest.mark.parametrize("kwargs", [
     dict(engine="packing"), dict(mesh="on"), dict(mesh="auto"),
-    dict(cfg=PC.SchedulerConfiguration(
-        extenders=(PC.ExtenderConfig(url_prefix="http://localhost:1"),))),
-    dict(flight_recorder=True), dict(dispatcher_workers=2),
+    dict(dispatcher_workers=2),
 ])
 def test_out_of_slice_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
