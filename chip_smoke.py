@@ -10,9 +10,10 @@ Phases, in order (any failure raises: the exit code is then non-zero and the
 final ``ok`` line is not printed):
 
 1. device: requires CUDA, prints ``nvidia-smi``'s name and power limit;
-2. build: compiles the kernels from ``kubetpu_torch/kernels/csrc`` with nvcc
-   (one process per source, started together) and prints the build time
-   and ptxas' register / spill report;
+2. build: compiles the eight kernel libraries from
+   ``kubetpu_torch/kernels/csrc`` with nvcc (one process per source,
+   started together) and prints the build time and ptxas' register /
+   spill report;
 3. kernels vs plain: on seeded encoded batches — one SchedulingBasic cycle
    at 1024 pods × 5120 padded nodes, a mixed cluster (static masks, host
    ports, images, node-affinity preferences, taints, an extended
@@ -56,7 +57,17 @@ final ``ok`` line is not printed):
    greedy assignments, the saturated batch (rows with fewer than three
    feasible nodes, unassigned pods), the mixed, affinity and spread
    clusters, the 64-nomination PreemptionAsync cycle and the two extender
-   batches;
+   batches; then the gang lane (B11-B13): ``placement_scan`` must equal
+   ``placement_assign_plain`` (assignments, counts, alignment) on the
+   SchedulingBasic block labeled into 32 TPU slices (1000 pods, 33
+   placements: every slice and ``<all>``) and on the mixed, affinity and
+   spread clusters cut into 8 slices (9 placements; there the batched
+   engine's placement search, ``filter_score`` + ``batched_round`` once a
+   placement, too), and
+   ``gang_dry_run_scan`` must equal ``dry_run_gang_preemption_plain``
+   (counts, alignment) at 32 eviction hypotheses on a full 5000-node
+   sliced cluster, with freed rows on each victim slice, some more than
+   the node holds;
 4. main paths, each with the launch counts reset just before it and read
    just after and a full garbage collection just before (the line counts
    the full collections that fell inside the run, and the seconds the
@@ -96,7 +107,19 @@ final ``ok`` line is not printed):
    behind a seeded in-process webhook (filter and prioritize, weight 5,
    NodeCacheCapable, rejecting ~15% of the nodes for each pod): every pod
    bound, none on a node the webhook rejected for it, the first cycle equal
-   to the plain engine with the same extender leaves. Then SchedulingBasic and
+   to the plain engine with the same extender leaves. Then the gang lane with
+   GenericWorkload, GangScheduling and TopologyAwareWorkloadScheduling on:
+   ``GangScheduling/5000Nodes_3Gangs_3000Pods_1000PerGroup`` and
+   ``GangScheduling/5000Nodes_1000Gangs_3000Pods`` on a fleet labeled into
+   32 TPU slices with ``topology="on"`` (placement cycles through
+   ``hypothesis_scan``; every gang on one slice; the first placement search
+   equal to ``placement_assign_plain``), the latter again unlabeled with
+   ``topology="off"`` (coalesced greedy cycles), and a gang preemption
+   scenario at 5000 nodes and 32 slices (16 priority-0 gangs each on a
+   slice, priority-10 pods on every other node, then a priority-10 gang
+   that fits nowhere: the gang dry run over at least 16 hypotheses, equal
+   to its plain version on that call's inputs, exactly one gang evicted,
+   the preemptor bound on the freed slice). Then SchedulingBasic and
    PreferredTopologySpreading run again with ``pipeline=True``: their
    bound maps must equal the serial runs', pod for pod; last, a seeded
    preempt-then-schedule scenario under a stepped clock (500 nodes of four
@@ -1408,6 +1431,241 @@ def preemption_check(sched) -> dict:
     return {"nominations": len(client.nominated), "evictions": len(client.deleted)}
 
 
+# --------------------------------- 3d. the gang lane (B11, B12, B13)
+SLICES = 32
+
+
+def sliced(cache, slices):
+    """The cache's nodes (in order) relabeled with ``slices`` TPU slices
+    and a rack per four under the shared grammar, with the same pods."""
+    import dataclasses
+
+    from kubetpu_torch.perf import workloads as W
+
+    infos = cache.update_snapshot().node_infos()
+    nodes = [
+        dataclasses.replace(info.node, labels=tuple(sorted(
+            {**info.node.labels_dict(),
+             **W.trace_topology_labels(info.node.name, slices)}.items())))
+        for info in infos
+    ]
+    out = _cache_with(nodes, [p for info in infos for p in info.pods.values()])
+    for svc in cache._services.values():
+        out.add_service(svc)
+    return out
+
+
+def slice_masks(batch):
+    """The placements the gang lane generates on a sliced cluster
+    (``sched.podgroup.generate_placements``): one (N,) mask per slice in
+    sorted order, then ``<all>``. Returns ``(masks (D, N) bool on the card,
+    names)``."""
+    import numpy as np
+    import torch
+
+    from kubetpu_torch.state.topology import SLICE_KEY
+
+    rows: dict = {}
+    for i, info in enumerate(batch.node_tensors.infos):
+        val = info.node.labels_dict().get(SLICE_KEY)
+        if val is not None:
+            rows.setdefault(val, []).append(i)
+    names = sorted(rows)
+    masks = np.zeros((len(names) + 1, batch.device.alloc.shape[0]), dtype=bool)
+    for d, val in enumerate(names):
+        masks[d, rows[val]] = True
+    masks[-1, :batch.num_nodes] = True
+    return torch.from_numpy(masks).cuda(), [f"slice:{v}" for v in names] + ["<all>"]
+
+
+def encode_topology(cache, pending, profile):
+    """The batch (``topology="on"``: the slice leaf attached) and params."""
+    from kubetpu_torch.framework import runtime as rt
+
+    batch = rt.encode_batch(cache.update_snapshot(), pending, profile, device="cuda",
+                            topology="on")
+    return batch, rt.score_params(profile, batch.resource_names)
+
+
+def gang_victims_case(n_nodes=5000, n_pending=256, seed=0):
+    """The gang dry run's inputs: node_default nodes in 32 slices, each
+    holding four pod_low_priority pods (3.6 of 4 cpu), a preemptor gang of
+    2-cpu pods, and one hypothesis a slice whose freed rows return one to
+    four of those pods on about half the slice's nodes, and on a few nodes
+    more than the node holds (the clamp at 0)."""
+    import numpy as np
+    import torch
+
+    from kubetpu_torch.api.wrappers import make_pod
+    from kubetpu_torch.framework import config as C
+    from kubetpu_torch.perf import workloads as W
+
+    rng = np.random.default_rng(seed)
+    nodes = [W.node_default(i, (), SLICES) for i in range(n_nodes)]
+    bound = [W.pod_low_priority(f"low-{j}", "init").with_node(nodes[j % n_nodes].name)
+             for j in range(4 * n_nodes)]
+    pending = [make_pod(f"train-{j}", namespace="train", cpu_milli=2000,
+                        memory=500 * 1024**2, priority=10, scheduling_group="train",
+                        creation_index=j) for j in range(n_pending)]
+    batch, params = encode_topology(_cache_with(nodes, bound), pending, C.Profile())
+    masks, _ = slice_masks(batch)
+    masks = masks[:-1]                                  # the 32 slices
+    c, (nc, r) = masks.shape[0], batch.device.alloc.shape
+    on = masks.cpu().numpy() & (rng.random((c, nc)) < 0.5)
+    pod = np.array([900, 500 * 1024**2] + [0] * (r - 2), dtype=np.int64)
+    k = rng.integers(1, 5, (c, nc))
+    fr = (k[:, :, None] * pod[None, None, :]) * on[:, :, None]
+    fc = (k * on).astype(np.int32)
+    over = on & (rng.random((c, nc)) < 0.05)
+    fr[over] += 10**12
+    fc[over] += 100
+    return batch, params, masks, torch.from_numpy(fr).cuda(), torch.from_numpy(fc).cuda()
+
+
+def _rescored(assignments, start=()) -> int:
+    """Pairs a scan recomputes beyond filter_score's start: at each step
+    the nodes touched so far (freed nodes start touched)."""
+    seen = set(start)
+    n = 0
+    for j in assignments:
+        n += len(seen)
+        if j >= 0:
+            seen.add(j)
+    return n
+
+
+def _hyp_bound(b, params, masks, assignments, freed=None) -> dict:
+    """B11 / B13's bound, worked out as B4's: bytes = the batch read once,
+    the masks (and freed rows) read once, each hypothesis's running state
+    and assignments written once; f64 operations = the start pass over
+    every (pod, node) pair plus each hypothesis's recomputed touched pairs,
+    at ``f64_ops_per_pair``."""
+    from kubetpu_torch.framework import runtime as rt
+
+    H, N = masks.shape
+    P = b.requests.shape[0]
+    state = sum(int(x.nbytes) for x in (b.requested, b.nonzero_requested, b.pod_count,
+                                         b.node_ports))
+    nbytes = rt.batch_nbytes(b) + int(masks.nbytes) + H * (state + 4 * P + 8)
+    starts = [()] * H
+    if freed is not None:
+        nbytes += sum(int(x.nbytes) for x in freed)
+        touched = ((freed[0] != 0).any(-1) | (freed[1] != 0)) & masks
+        starts = [touched[h].nonzero().flatten().tolist() for h in range(H)]
+    rescored = sum(_rescored(assignments[h], starts[h]) for h in range(H))
+    ops = (P * N + rescored) * f64_ops_per_pair(params, b)
+    bound_ms, bound_by = _bound(nbytes, ops)
+    return {"bytes": nbytes, "ops": ops, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def timed(fn):
+    """``fn()`` once between two CUDA events: ``(result, ms)``."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _equal_or_raise(name, got, want) -> int:
+    import torch
+
+    err = max(_max_abs(g, w) for g, w in zip(got, want))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{name}: kernel differs from the plain version "
+                             f"(max abs err {err})")
+    return err
+
+
+def gang_checks(results) -> dict:
+    """Phase 3's gang-lane checks: ``placement_scan`` (B11, B12 fused)
+    against ``placement_assign_plain`` on the SchedulingBasic block cut
+    into 32 slices (P = 1000, D = 33), and on the mixed, affinity and
+    spread clusters cut into 8 slices (D = 9); ``gang_dry_run_scan`` (B13)
+    against ``dry_run_gang_preemption_plain`` at C = 32 on a full sliced
+    cluster with freed rows, some clamping at 0. Exact (assignments,
+    counts, alignment). Returns the timings (kernel medians; the plain
+    version's one checked run)."""
+    from kubetpu_torch import kernels
+    from kubetpu_torch.assign.placement import (
+        placement_assign_device,
+        placement_assign_plain,
+    )
+    from kubetpu_torch.framework import config as C
+    from kubetpu_torch.ops.preemption import dry_run_gang_preemption_plain
+
+    def note(name, err):
+        results["hypothesis_scan"]["cases"].append(name)
+        results["hypothesis_scan"]["max_abs_err"] = max(
+            results["hypothesis_scan"]["max_abs_err"], err)
+
+    cache, pending = basic_case(n_pending=1000)
+    b, params = encode_topology(sliced(cache, SLICES), pending, C.Profile())
+    masks, _ = slice_masks(b)
+    got = kernels.placement_scan(b.device, params, masks)
+    want, plain_ms = timed(lambda: placement_assign_plain(b.device, params, masks))
+    note("SchedulingBasic placement", _equal_or_raise("placement_scan Basic", got, want))
+    counts, align = got[1].tolist(), got[2].tolist()
+    log(f"kernels vs plain [placement_scan SchedulingBasic]: P=1000 N="
+        f"{b.device.alloc.shape[0]} D={masks.shape[0]} slices {b.device.topology.num_slices}: "
+        f"exact (counts {min(counts)}..{max(counts)}, alignment {min(align)}..{max(align)})")
+    timing = {
+        "ms": cuda_ms(lambda: kernels.placement_scan(b.device, params, masks), 5),
+        "plain_ms": plain_ms, "shape": [1000, b.device.alloc.shape[0], masks.shape[0]],
+        "filter_score_ms": cuda_ms(lambda: kernels.filter_score(b.device, params), 10),
+        # where the time goes: the <all> placement alone, the 32 slices alone
+        "all_only_ms": cuda_ms(lambda: kernels.placement_scan(b.device, params, masks[-1:]), 5),
+        "slices_only_ms": cuda_ms(
+            lambda: kernels.placement_scan(b.device, params, masks[:-1]), 5),
+        "greedy_scan_ms": cuda_ms(lambda: kernels.greedy_scan(b.device, params), 5),
+        **_hyp_bound(b.device, params, masks, got[0].tolist()),
+    }
+    for name, case, prof in (
+        ("mixed", lambda: mixed_case(seed=5), C.Profile()),
+        ("affinity", lambda: affinity_case(seed=6, n_pending=256),
+         affinity_profiles()["default"]),
+        ("spread", lambda: spread_case(seed=7), spread_profiles()["spread"]),
+    ):
+        cache_m, pending_m = case()
+        bm, pm = encode_topology(sliced(cache_m, 8), pending_m, prof)
+        mm, _ = slice_masks(bm)
+        got = kernels.placement_scan(bm.device, pm, mm)
+        want = placement_assign_plain(bm.device, pm, mm)
+        note(f"{name} placement", _equal_or_raise(f"placement_scan {name}", got, want))
+        # the batched engine under the same placements: B3 + B6 a placement
+        _equal_or_raise(f"batched placement {name}",
+                        placement_assign_device(bm.device, pm, mm, "batched"),
+                        placement_assign_plain(bm.device, pm, mm, "batched"))
+        d = bm.device
+        log(f"kernels vs plain [placement_scan {name}]: P={d.requests.shape[0]} "
+            f"N={d.alloc.shape[0]} D={mm.shape[0]} spread "
+            f"{'none' if d.spread is None else tuple(d.spread.domain_present.shape)} "
+            f"affinity {'none' if d.podaffinity is None else tuple(d.podaffinity.base_sums.shape)}"
+            f": exact (counts {got[1].tolist()}); the batched engine's placements too")
+    bg, pg, mg, fr, fc = gang_victims_case()
+    got = kernels.gang_dry_run_scan(bg.device, pg, mg, fr, fc)
+    want, gang_plain_ms = timed(
+        lambda: dry_run_gang_preemption_plain(bg.device, pg, mg, fr, fc))
+    note("gang dry run", _equal_or_raise("gang_dry_run_scan", got, want))
+    a_all, _, _ = kernels._hypothesis_scan(bg.device, pg, mg, fr, fc, "gang_dry_run_scan")
+    log(f"kernels vs plain [gang_dry_run_scan]: P={bg.device.requests.shape[0]} "
+        f"N={bg.device.alloc.shape[0]} C={mg.shape[0]} R={bg.device.alloc.shape[1]}, "
+        f"{int((fr > bg.device.requested[None]).any(-1).sum())} freed rows clamp at 0: "
+        f"exact (counts {min(got[0].tolist())}..{max(got[0].tolist())})")
+    timing["gang_dry_run"] = {
+        "ms": cuda_ms(lambda: kernels.gang_dry_run_scan(bg.device, pg, mg, fr, fc), 5),
+        "plain_ms": gang_plain_ms,
+        "shape": [bg.device.requests.shape[0], bg.device.alloc.shape[0], mg.shape[0]],
+        **_hyp_bound(bg.device, pg, mg, a_all.tolist(), (fr, fc)),
+    }
+    return timing
+
+
 def kernels_phase():
     import torch
 
@@ -1420,7 +1678,7 @@ def kernels_phase():
     results = {k: {"cases": [], "max_abs_err": 0}
                for k in ("filter_score", "greedy_scan", "batched_round", "scatter_rows",
                          "dry_run_preemption", "explain_summary",
-                         "filter_component_masks")}
+                         "filter_component_masks", "hypothesis_scan")}
     # (name, batch, params, greedy assignments) for the explain checks
     explain_batches = []
     # the SchedulingBasic cycle: the greedy main path's shapes and timings
@@ -1519,6 +1777,7 @@ def kernels_phase():
     ext = extender_checks(results, (b, params), mixed_least)
     timing["filter_score"]["extender"] = ext["timing"]
     timing.update(explain_checks(results, explain_batches + ext["batches"]))
+    timing["hypothesis_scan"] = gang_checks(results)
     out = []
     for name, src, replaces in (
         ("filter_score", "kubetpu_torch/kernels/csrc/filter_score.cu",
@@ -1535,6 +1794,9 @@ def kernels_phase():
          "kubetpu/sched/flightrecorder.py:92"),
         ("filter_component_masks", "kubetpu_torch/kernels/csrc/filter_component_masks.cu",
          "kubetpu/sched/flightrecorder.py:146"),
+        ("hypothesis_scan", "kubetpu_torch/kernels/csrc/hypothesis_scan.cu",
+         "kubetpu/assign/placement.py:38; kubetpu/ops/preemption.py:219; "
+         "kubetpu/ops/topology.py:19, :41"),
     ):
         tm = timing[name]
         bound_ms, bound_by = _bound(tm["bytes"], tm["ops"])
@@ -1549,7 +1811,7 @@ def kernels_phase():
         }
         for k in ("podaffinity_ms", "podaffinity_plain_ms", "rounds", "spread",
                   "spread_soft", "nominated", "potential", "k128", "extender",
-                  "filter_score_ms"):
+                  "filter_score_ms", "gang_dry_run"):
             if k in tm:
                 line[k] = tm[k]
         out.append(line)
@@ -1571,6 +1833,16 @@ def kernels_phase():
     es = timing["explain_summary"]
     log(f"timing [explain_summary] on the SchedulingBasic batch: its filter_score launch "
         f"alone {es['filter_score_ms']:.4f} ms of the wrapper's {es['ms']:.4f} ms")
+    hs = timing["hypothesis_scan"]
+    log(f"timing [hypothesis_scan] placement on the SchedulingBasic batch, D="
+        f"{hs['shape'][2]}: its filter_score launch alone {hs['filter_score_ms']:.4f} ms of "
+        f"the wrapper's {hs['ms']:.4f} ms; <all> alone {hs['all_only_ms']:.4f} ms, the "
+        f"{hs['shape'][2] - 1} slices alone {hs['slices_only_ms']:.4f} ms, the greedy_scan "
+        f"engine (D = 1 of greedy_scan.cu) {hs['greedy_scan_ms']:.4f} ms")
+    gd = hs["gang_dry_run"]
+    log(f"timing [hypothesis_scan] gang dry run at {gd['shape'][0]}x{gd['shape'][1]}, C="
+        f"{gd['shape'][2]}: kernel {gd['ms']:.4f} ms, plain {gd['plain_ms']:.4f} ms, bound "
+        f"{gd['bound_ms']:.6f} ms ({gd['bound_by']})")
     k128 = timing["dry_run_preemption"]["k128"]
     log(f"timing [dry_run_preemption] at 5120x128: kernel {k128['ms']:.4f} ms, plain "
         f"{k128['plain_ms']:.4f} ms, bound {k128['bound_ms']:.6f} ms ({k128['bound_by']})")
@@ -1641,12 +1913,16 @@ def recorder_check(sched, launches) -> dict:
     cycle. Returns the recorder's fields for the path's line."""
     fr = sched.flight_recorder
     fr.records_json(limit=1)               # resolves the last cycle's explain
-    records = list(fr._records)
+    gangs = [r for r in fr._records if r.get("kind") == "gang"]
+    records = [r for r in fr._records if r.get("kind") != "gang"]
+    unplaced = [r["pod"] for r in gangs if r.get("status") not in ("placed", "preempting")]
+    if unplaced:
+        raise AssertionError(f"recorder: gang records {unplaced[:5]} not resolved")
     attempted = sum(c.pods for c in sched.metrics.cycle_timings)
     cycles = len(sched.metrics.cycle_timings)
     if fr.breakdown_failures:
         raise AssertionError(f"recorder: {fr.breakdown_failures} breakdown failures")
-    if len(records) != min(attempted, fr._records.maxlen):
+    if len(records) != min(attempted, fr._records.maxlen - len(gangs)):
         raise AssertionError(f"recorder: {len(records)} records for {attempted} attempts")
     unresolved = sum(1 for r in records if "view" not in r)
     if unresolved:
@@ -1656,7 +1932,8 @@ def recorder_check(sched, launches) -> dict:
                              f"{launches['explain_summary']} times, resolved {fr.explains}, "
                              f"for {cycles} cycles")
     return {"recorder": {
-        "records": len(records), "attempted": attempted, "explains": fr.explains,
+        "records": len(records), "gang_records": len(gangs), "attempted": attempted,
+        "explains": fr.explains,
         "breakdown_failures": fr.breakdown_failures,
         "explain_ms_per_cycle": 1e3 * fr.spans["explain"] / max(fr.explains, 1),
         "fetch_ms_per_cycle": 1e3 * fr.spans["fetch"] / max(fr.explains, 1),
@@ -1666,23 +1943,36 @@ def recorder_check(sched, launches) -> dict:
 
 def run_path(card, case, workload, engine, expected, plain, kernel_names,
              check=None, pipeline=False, flight_recorder=True, extenders=(),
-             every_cycle=False) -> tuple[dict, dict, float]:
+             every_cycle=False, workload_kw=None) -> tuple[dict, dict, float]:
     """Drive one main path with the launch counts set to 0 just before it
     and read just after; check it and print its JSON line. ``check``, when
     given, takes the run's Scheduler, raises on a fault and returns more
     fields for the line. With the flight recorder on (the default, as in
     the reference), ``recorder_check`` runs too. ``every_cycle`` holds
     every cycle, not only the first, to the plain engine on the same
-    batch: assignments and final state. Returns the launch counts, the
+    batch: assignments and final state. ``workload_kw`` goes to
+    ``run_workload`` (the gang lane's gates, topology mode and slices); the
+    gang lane's first placement search is held to
+    ``placement_assign_plain`` on its batch. Returns the launch counts, the
     bound map and the measured pods/s."""
     import dataclasses
 
     import torch
 
     from kubetpu_torch import kernels
+    from kubetpu_torch.assign import placement
     from kubetpu_torch.perf import run_workload
 
     captured: dict = {}
+    real_placement = placement.placement_assign_device
+
+    def first_placement(b, params, masks, engine="greedy"):
+        out = real_placement(b, params, masks, engine)
+        if "first_placement" not in captured:
+            captured["first_placement"] = (
+                dataclasses.replace(b, nodes=_clone_nodes(b.nodes)), params,
+                masks.clone(), engine, tuple(x.clone() for x in out))
+        return out
 
     def observe(sched):
         captured["sched"] = sched
@@ -1717,10 +2007,15 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
     gc.collect()
     full0 = gc.get_stats()[2]["collections"]
     kernels.reset_launch_counts()
+    placement.placement_assign_device = first_placement
     t0 = time.perf_counter()
-    res = run_workload(case, workload, engine=engine, device="cuda",
-                       on_scheduler=observe, pipeline=pipeline,
-                       flight_recorder=flight_recorder, extenders=extenders)
+    try:
+        res = run_workload(case, workload, engine=engine, device="cuda",
+                           on_scheduler=observe, pipeline=pipeline,
+                           flight_recorder=flight_recorder, extenders=extenders,
+                           **(workload_kw or {}))
+    finally:
+        placement.placement_assign_device = real_placement
     wall = time.perf_counter() - t0
     launches = dict(kernels.launch_counts)
     full_collections = gc.get_stats()[2]["collections"] - full0
@@ -1742,6 +2037,12 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
         if not torch.equal(first, want):
             raise AssertionError(f"{case}: {key} cycle's kernel assignments differ from "
                                  "the plain engine's")
+    if "first_placement" in captured:
+        b, params, masks, eng, got = captured["first_placement"]
+        _equal_or_raise(f"{case} first placement search", got,
+                        placement.placement_assign_plain(b, params, masks, eng))
+        log(f"[{case}/{workload}] first placement search (D={masks.shape[0]}, "
+            f"P={b.requests.shape[0]}) equal to placement_assign_plain")
     for i, (b, params, got, state) in enumerate(captured.get("cycles", ())):
         want, want_state = plain(b, params)
         torch.cuda.synchronize()
@@ -1773,7 +2074,12 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
             "rounds_by_cycle": rounds if engine == "batched" else None,
             "run_s": wall, "gc_full_collections": full_collections,
             "gc_s_measured": res.gc_s,
-            "launches": launches, "first_cycle_equal": True,
+            "launches": launches,
+            "first_cycle_equal": True if "first" in captured else None,
+            "first_placement_equal": True if "first_placement" in captured else None,
+            "group_cycles": res.group_cycles,
+            "hypotheses_per_cycle": res.hypotheses_per_cycle,
+            "group_cycle_ms": res.group_cycle_ms,
             "every_cycle_equal": True if every_cycle else None,
             "flight_recorder": flight_recorder, "extenders": len(extenders),
             "first_spread_cycle_equal": True if "first_spread" in captured else None,
@@ -1786,7 +2092,16 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
         }
     }
     log(json.dumps(line))
+    if res.group_cycles:
+        gm = res.group_cycle_ms
+        log(f"[{case}/{workload}] {res.group_cycles} group cycles, "
+            f"{res.hypotheses_per_cycle:.1f} placements a cycle: {gm['total']:.3f} ms a "
+            f"cycle, of which encode {gm['encode']:.3f} ms and the device call "
+            f"{gm['device']:.3f} ms (placement search: filter_score + hypothesis_scan; "
+            f"coalesced: the engine); {res.throughput:.1f} pods/s")
     ms = res.cycle_ms
+    if not ms:
+        return launches, dict(sched.client.bound), res.throughput
     log(f"[{case}{' pipelined' if pipeline else ''}] node upload "
         f"{res.node_upload_bytes_per_cycle:.0f} bytes a cycle against a "
         f"{res.resident_bytes}-byte block; encode cache hit rate "
@@ -2023,6 +2338,195 @@ def bridge_phase(card, n_nodes=5000, n_bound=1000, n_pods=256) -> dict:
             srv.close()
 
 
+# ------------------------------------------------ 4b. the gang lane paths
+GANG_GATES = {"GenericWorkload": True, "GangScheduling": True,
+              "TopologyAwareWorkloadScheduling": True}
+
+
+def slice_of(sched) -> dict:
+    """Node name -> its slice label (None when unlabeled)."""
+    from kubetpu_torch.state.topology import SLICE_KEY
+
+    return {info.node.name: info.node.labels_dict().get(SLICE_KEY)
+            for info in sched.cache.update_snapshot().node_infos()}
+
+
+def gang_check(per: int, sliced_fleet: bool):
+    """GangScheduling's own checks: on a sliced fleet every gang (pods
+    gangpod-j, gang j // per) lands on one slice. Returns the group
+    cycles' fields for the path's line."""
+    def check(sched) -> dict:
+        groups = sched.metrics.group_cycles
+        out = {"group_cycles": len(groups),
+               "placements_per_cycle": sum(g.hypotheses for g in groups) / len(groups)}
+        if sliced_fleet:
+            where = slice_of(sched)
+            by_gang: dict = {}
+            for name, node in sched.client.bound:
+                by_gang.setdefault(int(name.split("-")[1]) // per, set()).add(where[node])
+            split = [g for g, s in by_gang.items() if len(s) != 1 or None in s]
+            if split:
+                raise AssertionError(f"GangScheduling: gangs {split[:5]} span slices")
+            out["slices_used"] = len(set().union(*by_gang.values()))
+        return out
+    return check
+
+
+def drive_until_idle(sched, client, clock, max_calls=200) -> None:
+    idle = 0
+    for _ in range(max_calls):
+        res = sched.schedule_batch()
+        client.deliver()
+        clock.t += 1.0
+        idle = 0 if (res["scheduled"] or res["unschedulable"]) else idle + 1
+        if idle >= 3:
+            return
+
+
+GANG_PREEMPTION = {"n_nodes": 5000, "low_gangs": 16, "low_size": 150, "train_size": 100}
+
+
+def gang_preemption_phase(card) -> dict:
+    """The shape of tests/test_topology.py's gang preemption at full size:
+    5000 node_default nodes in 32 slices; 16 priority-0 gangs of 150 whole-
+    node (4-cpu) pods, each placed on one slice (every slice of the crc32
+    labelling holds 151 to 163 nodes); priority-10 non-gang pods fill every
+    other node; then a priority-10 gang of 100 whole-node pods fits no
+    placement and preempts. Checks: the gang dry run launched with C >= 16
+    hypotheses; exactly one gang evicted, all its members; the preemptor
+    bound on the freed slice once the deletes landed; the dry run equal to
+    ``dry_run_gang_preemption_plain`` on that call's inputs (its batch's
+    node block cloned at the call); every recorder record resolved."""
+    import dataclasses
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.api.wrappers import make_pod, make_pod_group
+    from kubetpu_torch.ops import preemption as ops_preemption
+    from kubetpu_torch.perf import workloads as W
+    from kubetpu_torch.perf.runner import _Client
+    from kubetpu_torch.sched import Scheduler
+
+    cfg = GANG_PREEMPTION
+    calls = []
+    real = ops_preemption.dry_run_gang_preemption
+
+    def spy(b, params, masks, fr, fc, engine="greedy"):
+        keep = (dataclasses.replace(b, nodes=_clone_nodes(b.nodes)), params,
+                masks.clone(), fr.clone(), fc.clone(), engine)
+        out, ms = timed(lambda: real(b, params, masks, fr, fc, engine))
+        calls.append((keep, tuple(x.clone() for x in out), ms))
+        return out
+
+    gc.collect()
+    client, clock = _Client(), SteppedClock()
+    sched = Scheduler(client, device="cuda", clock=clock, feature_gates=GANG_GATES,
+                      topology="on")
+    client.sched = sched
+    sched.enable_preemption()
+    kernels.reset_launch_counts()
+    ops_preemption.dry_run_gang_preemption = spy
+    t0 = time.perf_counter()
+    try:
+        for i in range(cfg["n_nodes"]):
+            sched.on_node_add(W.node_default(i, (), SLICES))
+
+        def gang(name, size, prio, base):
+            sched.on_pod_group_add(make_pod_group(name, min_count=size))
+            for j in range(size):
+                sched.on_pod_add(make_pod(
+                    f"{name}-{j}", cpu_milli=4000, memory=1024**3, priority=prio,
+                    scheduling_group=name, creation_index=base + j))
+
+        for g in range(cfg["low_gangs"]):
+            gang(f"low-{g}", cfg["low_size"], 0, g * 1000)
+        drive_until_idle(sched, client, clock)
+        n_low = cfg["low_gangs"] * cfg["low_size"]
+        n_serve = cfg["n_nodes"] - n_low
+        for j in range(n_serve):
+            sched.on_pod_add(make_pod(f"serve-{j}", cpu_milli=4000, memory=1024**3,
+                                      priority=10, creation_index=10**5 + j))
+        drive_until_idle(sched, client, clock)
+        bound0 = dict(client.bound)
+        if len(bound0) != n_low + n_serve:
+            raise AssertionError(f"gang preemption: {len(bound0)} of {n_low + n_serve} "
+                                 "pods bound before the preemptor")
+        t_pre = time.perf_counter()
+        gang("train", cfg["train_size"], 10, 10**6)
+        drive_until_idle(sched, client, clock)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+    finally:
+        ops_preemption.dry_run_gang_preemption = real
+    where = slice_of(sched)
+    low_slices = {}
+    for name, node in bound0.items():
+        if name.startswith("low-"):
+            low_slices.setdefault(name.rsplit("-", 1)[0], set()).add(where[node])
+    if any(len(s) != 1 for s in low_slices.values()):
+        raise AssertionError("gang preemption: a low-priority gang spans slices")
+    victims = [p.name for p, _ in client.deleted]
+    groups = {v.rsplit("-", 1)[0] for v in victims}
+    if len(groups) != 1 or len(victims) != cfg["low_size"]:
+        raise AssertionError(f"gang preemption: evicted {len(victims)} pods of {groups}")
+    (victim_group,) = groups
+    freed = next(iter(low_slices[victim_group]))
+    train = {name: node for name, node in client.bound if name.startswith("train-")}
+    if len(train) != cfg["train_size"] or {where[n] for n in train.values()} != {freed}:
+        raise AssertionError(f"gang preemption: {len(train)} preemptor pods bound, on "
+                             f"{sorted({where[n] for n in train.values()})}, freed {freed}")
+    if not calls or launches["hypothesis_scan"] < 1:
+        raise AssertionError("gang preemption: the gang dry run never launched")
+    (args, got, dry_ms), c_max = calls[0], max(c[0][2].shape[0] for c in calls)
+    if c_max < 16:
+        raise AssertionError(f"gang preemption: dry run over {c_max} hypotheses, not >= 16")
+    for keep, out, _ in calls:
+        want = ops_preemption.dry_run_gang_preemption_plain(*keep)
+        _equal_or_raise("gang preemption dry run", out, want)
+    _check_capacity(sched)
+    rec = sched.flight_recorder.lookup("default/train")
+    if rec is None or rec.get("status") != "placed":
+        raise AssertionError(f"gang preemption: the preemptor's record is {rec}")
+    extra = recorder_check(sched, launches)
+    line = {"gang_preemption": {
+        **cfg, "slices": SLICES, "serve_pods": n_serve,
+        "hypotheses": [c[0][2].shape[0] for c in calls], "dry_run_calls": len(calls),
+        "dry_run_ms": [c[2] for c in calls], "victim_group": victim_group,
+        "evicted": len(victims), "freed_slice": freed, "preemptor_bound": len(train),
+        "dry_run_equal_plain": True, "run_s": wall, "preempt_to_bound_s": wall - (t_pre - t0),
+        "group_cycles": len(sched.metrics.group_cycles), "launches": launches,
+        "card": card, **extra,
+    }}
+    log(json.dumps(line))
+    log(f"[gang preemption] 5000 nodes, {SLICES} slices: dry run over C={c_max} "
+        f"eviction hypotheses, {dry_ms:.3f} ms (gang_dry_run_scan with its filter_score); "
+        f"evicted {victim_group} ({len(victims)} pods), the preemptor's {len(train)} pods "
+        f"bound on {freed}")
+    return launches
+
+
+def gang_paths(card) -> list:
+    """The GangScheduling paths through ``run_workload(device="cuda")`` with
+    the three gates, then the gang preemption scenario. Returns their
+    launch counts."""
+    from kubetpu_torch.assign.greedy import greedy_assign_plain
+
+    sliced_kernels = ("filter_score", "hypothesis_scan")
+    runs = [
+        run_path(card, "GangScheduling", "5000Nodes_3Gangs_3000Pods_1000PerGroup",
+                 "greedy", 3000, greedy_assign_plain, sliced_kernels,
+                 check=gang_check(1000, True),
+                 workload_kw=dict(feature_gates=GANG_GATES, topology="on", slices=SLICES)),
+        run_path(card, "GangScheduling", "5000Nodes_1000Gangs_3000Pods", "greedy", 3000,
+                 greedy_assign_plain, sliced_kernels, check=gang_check(3, True),
+                 workload_kw=dict(feature_gates=GANG_GATES, topology="on", slices=SLICES)),
+        run_path(card, "GangScheduling", "5000Nodes_1000Gangs_3000Pods", "greedy", 3000,
+                 greedy_assign_plain, ("filter_score", "greedy_scan"),
+                 check=gang_check(3, False),
+                 workload_kw=dict(feature_gates=GANG_GATES, topology="off")),
+    ]
+    return [run[0] for run in runs] + [gang_preemption_phase(card)]
+
+
 def main_path_phase(card: str) -> list[dict]:
     """The six paths on the defaults (encode cache, resident block,
     serial cycle), then SchedulingBasic and PreferredTopologySpreading
@@ -2127,6 +2631,7 @@ def main() -> int:
     build_phase()
     kernel_lines = kernels_phase()
     path_launches = main_path_phase(card)
+    path_launches += gang_paths(card)
     path_launches.append(bridge_phase(card))
     stepped_preemption_phase()
     for k in kernel_lines:

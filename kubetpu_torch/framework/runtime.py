@@ -2,8 +2,8 @@
 
 Port of ``kubetpu/framework/runtime.py``, narrowed to the slices ported so
 far: the default profile's cycle with inter-pod affinity, topology spread,
-the nominator's reservations and the extender webhook's verdicts, and no
-DRA, volumes or topology slices.
+the nominator's reservations, the extender webhook's verdicts and the
+topology coordinates the gang lane reads, and no DRA or volumes.
 Host encode is the reference's numpy code, in its two stages
 (``encode_batch_static``, then ``finalize_batch``); the device batch is a
 frozen dataclass of torch tensors on the caller's device whose pod leaves
@@ -111,13 +111,29 @@ SP_FIELDS = tuple(
     f.name for f in dataclasses.fields(SpreadDevice)
     if f.name not in ("has_hard", "has_soft")
 )
+
+
+@dataclass(frozen=True)
+class TopologyDevice:
+    """Device-side dense topology coordinates (see state.topology)."""
+
+    slice_id: torch.Tensor  # (N,) int32; value == num_slices ⇒ unlabeled
+    rack_id: torch.Tensor   # (N,) int32; value == num_racks ⇒ unlabeled
+    num_slices: int = 0
+    num_racks: int = 0
+
+
 # the leaves that hold their own dataclass of tensors: (class, tensor
-# fields, static flags)
+# fields, static fields)
 NESTED = {
     "podaffinity": (PodAffinityDevice, PA_FIELDS,
                     ("has_filter_work", "has_score_work")),
     "spread": (SpreadDevice, SP_FIELDS, ("has_hard", "has_soft")),
+    "topology": (TopologyDevice, ("slice_id", "rack_id"),
+                 ("num_slices", "num_racks")),
 }
+# static fields that are counts; every other static field is a flag
+_COUNT_FIELDS = frozenset({"num_slices", "num_racks"})
 
 
 @dataclass(frozen=True)
@@ -127,8 +143,7 @@ class DeviceBatch:
     False, ``static_mask`` False on pads) so kernels need no special cases.
 
     Same field names and ``None`` leaves as the reference's pytree. The
-    ``topology`` leaf and the DRA leaves belong to later slices and are
-    always None here."""
+    DRA leaves belong to a later slice and are always None here."""
 
     # persistent node-state block
     nodes: DeviceNodeState
@@ -166,7 +181,10 @@ class DeviceBatch:
     dra_score_raw: torch.Tensor | None = None
     dra_score_sig: torch.Tensor | None = None
     pod_priority: torch.Tensor | None = None     # (P,) int32
-    topology: object | None = None
+    # dense node-topology coordinates (state.topology): present only when
+    # topology is ACTIVE (``topology="on"``, or ``"auto"`` with labeled
+    # nodes)
+    topology: TopologyDevice | None = None
 
     @property
     def alloc(self) -> torch.Tensor:
@@ -208,7 +226,6 @@ POD_FIELDS = tuple(
 LATER_SLICE_LEAVES = {
     "dra_score_raw": "Queue A (DynamicResources)",
     "dra_score_sig": "Queue A (DynamicResources)",
-    "topology": "Queue A item 10 (topology, kernel B12)",
 }
 
 
@@ -298,7 +315,8 @@ def device_batch_from_numpy(
         if obj is not None:
             pods[name] = cls(
                 **{f: tensors[name + "." + f] for f in fields},
-                **{f: bool(getattr(obj, f)) for f in flags},
+                **{f: (int if f in _COUNT_FIELDS else bool)(getattr(obj, f))
+                   for f in flags},
             )
     return DeviceBatch(nodes=nodes, **pods)
 
@@ -628,8 +646,8 @@ class StaticBatch:
     previous cycle's device work runs, then ``finalize_batch`` patches in
     the assume-dependent slice (node resource rows via the resident block's
     delta upload, spread counts, affinity sums, in-use ports) after that
-    cycle's assumes land. (The reference's ``folded`` and its DRA and
-    topology fields belong to later slices.)"""
+    cycle's assumes land. (The reference's ``folded`` and its DRA fields
+    belong to later slices.)"""
 
     pods: list
     profile: "C.Profile | None"
@@ -666,6 +684,11 @@ class StaticBatch:
     cache: object | None = None
     # wall seconds of stage 1's node-tensor encode (encode_snapshot)
     nodes_s: float = 0.0
+    # topology mode ("off"|"auto"|"on") — finalize_batch attaches the dense
+    # coordinate block when the mode is active AND any node carries a
+    # topology label; coordinates are read fresh from the NodeTensors memo
+    # at stage 2 so a label change between stages is never baked stale
+    topology: str = "off"
 
 
 def _check_slice_pods(pods: Sequence[t.Pod]) -> None:
@@ -697,6 +720,7 @@ def encode_batch(
     cache=None,
     track_changes: bool = True,
     device="cuda",
+    topology: str = "off",
 ) -> EncodedBatch:
     """Snapshot + pending pods → padded device batch on ``device``: stage 1
     (``encode_batch_static``) then stage 2 (``finalize_batch``).
@@ -712,11 +736,13 @@ def encode_batch(
     become gathers over template-keyed rows shared across pods and cycles
     (the host-side O(Δ) twin of ``prev_nt``/``resident``). ``nominated``:
     the nominator's entries (``queue.nominator.NominatedPod``), whose
-    reservations the fit and port filters charge."""
+    reservations the fit and port filters charge. ``topology``: ``"on"``,
+    ``"off"`` or ``"auto"`` — an active mode on a cluster with a slice or
+    rack label attaches the ``topology`` leaf (``TopologyDevice``)."""
     sb = encode_batch_static(
         snapshot, pods, profile, pad=pad, resource_names=resource_names,
         nominated=nominated, prev_nt=prev_nt, cache=cache,
-        track_changes=track_changes,
+        track_changes=track_changes, topology=topology,
     )
     return finalize_batch(
         sb, snapshot, nominated=nominated, resident=resident, device=device
@@ -733,6 +759,7 @@ def encode_batch_static(
     prev_nt: "enc.NodeTensors | None" = None,
     cache=None,
     track_changes: bool = True,
+    topology: str = "off",
 ) -> StaticBatch:
     """Stage 1: the assume-independent host encode (see StaticBatch), all
     numpy, no device call. ``track_changes=False`` (serial loop) skips the
@@ -821,6 +848,7 @@ def encode_batch_static(
         assume_coupled=bool(folded),
         cache=cache,
         nodes_s=nodes_s,
+        topology=topology,
     )
 
 
@@ -977,6 +1005,18 @@ def finalize_batch(
             for i, p_ in enumerate(pods):
                 nom_gate[i, g] = e.priority >= p_.priority and e.uid != p_.uid
 
+    # topology coordinates: attached ONLY when the mode is active and some
+    # node actually carries a slice/rack label ("auto" on an unlabeled
+    # cluster leaves the leaf absent, so every kernel's inputs and outputs
+    # are those of topology-off)
+    topo = None
+    if sb.topology != "off":
+        from ..state.topology import topology_tensors
+
+        tt = topology_tensors(nt)
+        if tt.labeled:
+            topo = tt
+
     t_up = time.perf_counter()
     if resident is not None:
         if torch.device(device) != resident.where:
@@ -1024,6 +1064,7 @@ def finalize_batch(
         pod_priority=pb.priority,
         podaffinity=pa,
         spread=sp,
+        topology=topo,
     ), device, resident=resident, delta=delta)
     upload_s = time.perf_counter() - t_up
     total_bytes = batch_nbytes(dev)

@@ -1,7 +1,10 @@
 """The hand-written CUDA kernels of the main paths, and their wrappers.
 
-``csrc/filter_score.cu``, ``csrc/greedy_scan.cu`` and
-``csrc/batched_round.cu`` (all built on ``csrc/score_common.cuh``),
+``csrc/filter_score.cu``, ``csrc/greedy_scan.cu``,
+``csrc/batched_round.cu`` and ``csrc/hypothesis_scan.cu`` (the greedy scan
+under many node-set hypotheses: the gang lane's placement search and gang
+dry run; it shares ``csrc/scan_loop.cuh`` with ``greedy_scan.cu``) (all
+built on ``csrc/score_common.cuh``),
 ``csrc/scatter_rows.cu`` (the resident node block's dirty-row scatter),
 ``csrc/dry_run_preemption.cu`` (the preemption victim search), and the
 flight recorder's ``csrc/explain_summary.cu`` and
@@ -20,7 +23,9 @@ callers (``framework.runtime.filter_score_batch``,
 ``framework.runtime.scatter_node_rows``,
 ``assign.greedy.greedy_assign_device``,
 ``assign.batched.batched_assign_device``,
+``assign.placement.placement_assign_device``,
 ``ops.preemption.dry_run_preemption``,
+``ops.preemption.dry_run_gang_preemption``,
 ``framework.preemption.PreemptionEvaluator``, ``sched.flightrecorder``'s
 ``_explain_kernel`` / ``_explain_masks_kernel``, ``bridge.server``) choose
 the plain version only for tensors that live on the CPU.
@@ -42,11 +47,12 @@ from ..framework import runtime as rt
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("filter_score.cu", "greedy_scan.cu", "batched_round.cu", "scatter_rows.cu",
-           "dry_run_preemption.cu", "explain_summary.cu", "filter_component_masks.cu")
+           "dry_run_preemption.cu", "explain_summary.cu", "filter_component_masks.cu",
+           "hypothesis_scan.cu")
 # the libraries that take the ScoreArgs struct (score_common.cuh)
 SCORE_ARGS_LIBS = ("filter_score", "greedy_scan", "batched_round", "explain_summary",
-                   "filter_component_masks")
-HEADERS = ("score_common.cuh", "score_prelaunch.cuh")
+                   "filter_component_masks", "hypothesis_scan")
+HEADERS = ("score_common.cuh", "score_prelaunch.cuh", "scan_loop.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kubetpu_torch_kernels"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -63,6 +69,7 @@ NVCC_FLAGS = (
 launch_counts = {
     "filter_score": 0, "greedy_scan": 0, "batched_round": 0, "scatter_rows": 0,
     "dry_run_preemption": 0, "explain_summary": 0, "filter_component_masks": 0,
+    "hypothesis_scan": 0,
 }
 
 # ctypes argument types of each library's entry point
@@ -75,6 +82,8 @@ _ARGTYPES = {
     "dry_run_preemption": [ctypes.c_void_p] * 2,
     "explain_summary": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6,
     "filter_component_masks": [ctypes.c_void_p] * 7,
+    "hypothesis_scan": [ctypes.c_void_p] * 17 + [ctypes.c_int64] + [ctypes.c_void_p] * 3
+    + [ctypes.c_int64] * 2 + [ctypes.c_void_p],
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -565,6 +574,111 @@ def greedy_scan(b: rt.DeviceBatch, p: rt.ScoreParams):
     launch_counts["greedy_scan"] += 1
     del keep
     return assignments, (req, nz, pc, ports, sp_counts, pa_sums, nom_active)
+
+
+def _hypothesis_scan(b: rt.DeviceBatch, p: rt.ScoreParams, masks: torch.Tensor,
+                     freed_req: torch.Tensor | None, freed_count: torch.Tensor | None,
+                     where: str):
+    """Launch ``filter_score`` once on the batch, then the ``hypothesis_scan``
+    kernel over the H rows of ``masks`` (H, N) bool, each hypothesis with
+    its freed rows when ``freed_req`` (H, N, R) int64 / ``freed_count`` (H,
+    N) int32 are given. Returns ``(assignments (H, P) int32, counts (H,)
+    int32, alignment (H,) int32)``, fresh tensors."""
+    dev = b.alloc.device
+    N, R = b.alloc.shape
+    H = masks.shape[0] if masks.dim() == 2 else -1
+    p_mask = _check("masks", masks, torch.bool, (H, N), dev)
+    p_freed = p_count = None
+    if (freed_req is None) != (freed_count is None):
+        raise ValueError(f"{where}: freed_req and freed_count come together")
+    if freed_req is not None:
+        p_freed = _check("freed_req", freed_req, torch.int64, (H, N, R), dev)
+        p_count = _check("freed_count", freed_count, torch.int32, (H, N), dev)
+    # every nomination charged: the scans start with all of them live
+    mask0, base0, _ = _filter_score(b, p, want_total=False, dynamic=False)
+    a, keep = _score_args(b, p, where, bits_blocks=H)
+    G = a.G
+    P, K = a.P, a.K
+    i64, i32, u8 = torch.int64, torch.int32, torch.uint8
+    if G:
+        nom_active = torch.ones((H, G), dtype=torch.bool, device=dev)
+        keep.append(nom_active)
+        a.nom_active = nom_active.data_ptr()
+    pa, sp, topo = b.podaffinity, b.spread, b.topology
+    pa_sums = row_total = sp_counts = ok_buf = None
+    if pa is not None:
+        RA, D = pa.base_sums.shape
+        pa_sums = torch.empty((H, RA, D), dtype=i64, device=dev)
+        row_total = torch.empty((H, RA), dtype=i64, device=dev)
+    if sp is not None:
+        S, D = sp.domain_present.shape
+        sp_counts = torch.empty((H, S, N), dtype=i32, device=dev)
+        ok_buf = torch.empty((H, N), dtype=u8, device=dev)
+        sums = torch.empty((H, S, D + 1), dtype=i64, device=dev)
+        min_match = torch.empty((H, S), dtype=i64, device=dev)
+        keep += [sums, min_match]
+        a.sp_sums, a.sp_min_match = sums.data_ptr(), min_match.data_ptr()
+    smem = _smem(b)
+    slice_id = slice_buf = None
+    num_slices = 0
+    if topo is not None:
+        num_slices = int(topo.num_slices)
+        slice_id = topo.slice_id
+        _check("topology.slice_id", slice_id, i32, (N,), dev)
+        need = 4 * (num_slices + 1)
+        if need <= _SMEM_LIMIT:
+            smem = max(smem, need)
+        else:
+            slice_buf = torch.empty((H, num_slices + 1), dtype=i32, device=dev)
+    assignments = torch.empty((H, P), dtype=i32, device=dev)
+    counts = torch.empty((H,), dtype=i32, device=dev)
+    align = torch.empty((H,), dtype=i32, device=dev)
+    scratch = (
+        torch.empty((H, N), dtype=u8, device=dev),               # touched
+        torch.empty((H, N, R), dtype=i64, device=dev),           # req
+        torch.empty((H, N, R), dtype=i64, device=dev),           # nz
+        torch.empty((H, N), dtype=i32, device=dev),              # pc
+        torch.empty((H, N, K), dtype=torch.bool, device=dev),    # ports
+    )
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    lib = build()["hypothesis_scan"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.kt_hypothesis_scan(
+        ctypes.byref(a), mask0.data_ptr(), base0.data_ptr(), p_mask, p_freed, p_count,
+        scratch[0].data_ptr(), assignments.data_ptr(), *(x.data_ptr() for x in scratch[1:]),
+        ptr(pa_sums), ptr(row_total), ptr(sp_counts), ptr(ok_buf), ptr(slice_id),
+        num_slices, ptr(slice_buf), counts.data_ptr(), align.data_ptr(), H, smem, stream)
+    _raise_on(lib, "hypothesis_scan", code)
+    launch_counts["hypothesis_scan"] += 1
+    del keep
+    return assignments, counts, align
+
+
+def placement_scan(b: rt.DeviceBatch, p: rt.ScoreParams, masks: torch.Tensor):
+    """The placement search on the card (B11 on the greedy engine, with B12
+    fused): ``filter_score`` once, then one ``hypothesis_scan`` launch over
+    the D placement masks (D, N) bool, each hypothesis scanning the batch
+    under ``node_valid & masks[d]``. Returns ``(assignments (D, P) int32,
+    counts (D,) int32, alignment (D,) int32)``, equal to
+    ``assign.placement.placement_assign_plain(b, p, masks)``."""
+    return _hypothesis_scan(b, p, masks, None, None, "placement_scan")
+
+
+def gang_dry_run_scan(b: rt.DeviceBatch, p: rt.ScoreParams, masks: torch.Tensor,
+                      freed_req: torch.Tensor, freed_count: torch.Tensor):
+    """The gang dry run on the card (B13 on the greedy engine, with B12
+    fused): one ``hypothesis_scan`` launch over C eviction hypotheses, each
+    scanning the batch under ``node_valid & masks[c]`` from the node state
+    less ``freed_req[c]`` (C, N, R) int64 and ``freed_count[c]`` (C, N)
+    int32, clamped at 0. Returns ``(counts (C,) int32, alignment (C,)
+    int32)``, equal to ``ops.preemption.dry_run_gang_preemption_plain(b, p,
+    masks, freed_req, freed_count)``."""
+    _, counts, align = _hypothesis_scan(b, p, masks, freed_req, freed_count,
+                                        "gang_dry_run_scan")
+    return counts, align
 
 
 def batched_assign(b: rt.DeviceBatch, p: rt.ScoreParams, max_rounds: int = 0,

@@ -1,0 +1,263 @@
+// The greedy scan's loop, shared by greedy_scan.cu (one block, the batch
+// itself) and hypothesis_scan.cu (one block per hypothesis: the batch under
+// a node mask, and for the gang dry run with an eviction's freed rows).
+// greedy_scan.cu's header comment describes the design. The hypothesis
+// parts are compiled only into hypothesis_scan.cu (`if constexpr` on
+// Hyp::kOn): greedy_scan's instantiations are the scan as it was.
+#pragma once
+
+#include "score_common.cuh"
+
+namespace kt {
+
+constexpr int kThreads = 1024;
+
+// (score, node) with node < 0 meaning "none"; better = higher score, then
+// lower node index
+__device__ __forceinline__ bool better(int64_t s, int64_t n, int64_t bs, int64_t bn) {
+  if (n < 0) return false;
+  if (bn < 0) return true;
+  return s > bs || (s == bs && n < bn);
+}
+
+__device__ __forceinline__ void warp_best(int64_t& s, int64_t& n) {
+  for (int off = 16; off > 0; off >>= 1) {
+    int64_t os = __shfl_down_sync(0xffffffffu, s, off);
+    int64_t on = __shfl_down_sync(0xffffffffu, n, off);
+    if (better(os, on, s, n)) {
+      s = os;
+      n = on;
+    }
+  }
+}
+
+// No hypothesis: the scan runs over the batch's own nodes and state.
+struct NoHypothesis {
+  static constexpr bool kOn = false;
+};
+
+// One hypothesis of hypothesis_scan.cu: the scan runs over the nodes of
+// `mask` (node_valid & mask, as the reference's `one` sets it) and, when
+// freed_req is not null, starts from requested - freed_req,
+// nonzero_requested - freed_req and pod_count - freed_count, each clamped
+// at 0. The freed nodes start touched: their verdict and base score are
+// recomputed from the reduced rows, every other node reuses mask0 / base0.
+struct Hypothesis {
+  static constexpr bool kOn = true;
+  const uint8_t* mask;         // (N,)
+  const int64_t* freed_req;    // (N, R), null = nothing freed
+  const int32_t* freed_count;  // (N,), null with freed_req
+};
+
+// The scan of one block over the batch's pods. kPA: the batch has
+// affinity rows; kSP: it has a spread leaf. Each kernel that runs it is
+// built four times, so that a batch without them runs code with no
+// affinity or spread branches at all. Dynamic shared memory (kSP only):
+// sp_C doubles of slot weights, then the domain bitmap when a.sp_bits is
+// null. Every thread of the block calls it; the scratch and outputs are
+// the block's own.
+template <bool kPA, bool kSP, class Hyp>
+__device__ __forceinline__ void scan_loop(ScoreArgs& a, const Hyp& h, const uint8_t* mask0,
+                                          const int64_t* base0, uint8_t* touched,
+                                          int32_t* assignments, int64_t* req, int64_t* nz,
+                                          int32_t* pc, uint8_t* ports, int64_t* pa_sums,
+                                          int64_t* row_total, int32_t* sp_counts,
+                                          uint8_t* ok_buf) {
+  __shared__ int64_t s_m[kt::kNorm][33];
+  __shared__ int64_t s_x[33];
+  __shared__ int64_t s_y[33];
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  const int64_t N = a.N, R = a.R, K = a.K;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  if (!kPA) a.w_interpod = 0;
+  if (!kSP) {
+    a.w_spread = 0;
+    a.sp_filter = 0;
+  }
+  const bool pa = kPA;
+  const bool pa_filter = kPA && a.pa_filter;
+  const bool nom = a.nom_node != nullptr && a.G > 0;
+  const int64_t S = a.sp_S, D1 = a.sp_D + 1;
+  double* weight = reinterpret_cast<double*>(s_dyn);
+  uint32_t* bits = a.sp_bits != nullptr
+                       ? a.sp_bits
+                       : reinterpret_cast<uint32_t*>(s_dyn + a.sp_C * sizeof(double));
+
+  // the running state starts as the batch's node state (owner rows only)
+  if constexpr (Hyp::kOn) {
+    // less what the hypothesis frees, clamped at 0 (the reference's
+    // jnp.maximum(... - freed, 0)); a freed node starts touched
+    for (int64_t n = tid; n < N; n += kThreads) {
+      bool freed = false;
+      for (int64_t r = 0; r < R; ++r) {
+        int64_t rq = a.requested[n * R + r], z = a.nonzero_requested[n * R + r];
+        if (h.freed_req != nullptr) {
+          const int64_t f = h.freed_req[n * R + r];
+          freed = freed || f != 0;
+          rq = kt::imax(rq - f, 0);
+          z = kt::imax(z - f, 0);
+        }
+        req[n * R + r] = rq;
+        nz[n * R + r] = z;
+      }
+      int32_t c = a.pod_count[n];
+      if (h.freed_req != nullptr) {
+        const int32_t f = h.freed_count[n];
+        freed = freed || f != 0;
+        c = c - f > 0 ? c - f : 0;
+      }
+      pc[n] = c;
+      for (int64_t k = 0; k < K; ++k) ports[n * K + k] = a.node_ports[n * K + k];
+      touched[n] = freed;
+    }
+  } else {
+    for (int64_t n = tid; n < N; n += kThreads) {
+      for (int64_t r = 0; r < R; ++r) {
+        req[n * R + r] = a.requested[n * R + r];
+        nz[n * R + r] = a.nonzero_requested[n * R + r];
+      }
+      pc[n] = a.pod_count[n];
+      for (int64_t k = 0; k < K; ++k) ports[n * K + k] = a.node_ports[n * K + k];
+      touched[n] = 0;
+    }
+  }
+  if (pa) {
+    for (int64_t i = tid; i < a.pa_R * a.pa_D; i += kThreads) pa_sums[i] = a.pa_sums[i];
+    kt::pa_row_totals(a, a.pa_sums, row_total, tid, kThreads);
+    __syncthreads();
+  }
+  if constexpr (kSP) {
+    // the running counts start as the batch's, their domain sums from them
+    for (int64_t i = tid; i < S * N; i += kThreads) sp_counts[i] = a.sp_counts[i];
+    for (int64_t i = tid; i < S * D1; i += kThreads) a.sp_sums[i] = 0;
+    __syncthreads();
+    kt::sp_accumulate(a, sp_counts, a.sp_sums, 0, 1);
+    __syncthreads();
+  }
+
+  const bool na_tt = a.na_raw != nullptr || a.tt_raw != nullptr;
+  const bool normalize = na_tt || a.w_interpod;
+  for (int64_t p = 0; p < a.P; ++p) {
+    const uint8_t* m0 = mask0 + p * N;
+    const int64_t* b0 = base0 + p * N;
+    const int64_t row = na_tt ? (int64_t)a.score_sig[p] * N : 0;
+    const bool escape = pa_filter && kt::pa_escape(a, row_total, p);
+    const bool sp_score = kSP && a.w_spread && kt::sp_any_soft(a, p);
+    // the pair's verdict against the running state
+    auto feasible = [&](int64_t n) {
+      if constexpr (Hyp::kOn) {
+        if (!h.mask[n]) return false;
+      }
+      bool ok = touched[n] ? kt::pair_feasible(a, p, n, req, pc, ports) : m0[n];
+      if (ok && pa_filter) ok = kt::pa_feasible(a, pa_sums, escape, p, n);
+      if (kSP && ok && a.sp_filter) ok = kt::sp_feasible(a, a.sp_sums, a.sp_min_match, p, n);
+      return ok;
+    };
+    // the rounded spread raw of a feasible node, -1 when it is not scored
+    auto spread_raw = [&](int64_t n) {
+      return kt::sp_scored_raw(a, sp_score, sp_counts, a.sp_sums, weight, p, n);
+    };
+    if constexpr (kSP) {
+      // (0) every signature's minMatch against the running sums, then
+      // every node's verdict and each soft slot's size
+      if (a.sp_filter) {
+        for (int64_t sg = 0; sg < S; ++sg) {
+          const int64_t mm = kt::sp_min_over_domains(a, a.sp_sums, sg, s_x);
+          if (tid == 0) a.sp_min_match[sg] = mm;
+        }
+        __syncthreads();
+      }
+      for (int64_t n = tid; n < N; n += kThreads) ok_buf[n] = feasible(n);
+      __syncthreads();
+      if (sp_score) kt::sp_weights(a, p, ok_buf, bits, weight, s_x);
+    }
+    // (1) the normalize inputs over the feasible nodes
+    int64_t mx[kt::kNorm];
+    kt::init_norm(mx);
+    if (normalize || sp_score) {
+      for (int64_t n = tid; n < N; n += kThreads) {
+        if (!(kSP ? ok_buf[n] : feasible(n))) continue;
+        const int64_t pa_r = a.w_interpod ? kt::pa_raw(a, pa_sums, p, n) : 0;
+        kt::fold_norm(a, row, n, pa_r, spread_raw(n), mx);
+      }
+      kt::block_max_norm(a, sp_score, mx, s_m);
+    }
+    // (2) best feasible node of this thread, then of the block
+    int64_t best_s = 0, best_n = -1;
+    for (int64_t n = tid; n < N; n += kThreads) {
+      if (!(kSP ? ok_buf[n] : feasible(n))) continue;
+      int64_t s = touched[n] ? kt::base_score(a, p, n, req, nz) : b0[n];
+      if (normalize || sp_score) {
+        const int64_t pa_r = a.w_interpod ? kt::pa_raw(a, pa_sums, p, n) : 0;
+        s += kt::norm_terms(a, row, n, true, pa_r, spread_raw(n), mx);
+      }
+      if (better(s, n, best_s, best_n)) {
+        best_s = s;
+        best_n = n;
+      }
+    }
+    warp_best(best_s, best_n);
+    if (lane == 0) {
+      s_x[warp] = best_s;
+      s_y[warp] = best_n;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      int64_t s = s_x[lane], n = s_y[lane];  // kThreads / 32 == 32 warps
+      warp_best(s, n);
+      if (lane == 0) {
+        s_y[32] = n;
+        assignments[p] = (int32_t)n;  // -1 when no node is feasible
+      }
+    }
+    __syncthreads();
+    // (3) the owner of the chosen node assumes the pod onto it
+    const int64_t chosen = s_y[32];
+    if (chosen >= 0 && chosen % kThreads == tid) {
+      for (int64_t r = 0; r < R; ++r) {
+        req[chosen * R + r] += a.requests[p * R + r];
+        nz[chosen * R + r] += a.nonzero_requests[p * R + r];
+      }
+      pc[chosen] += 1;
+      for (int64_t k = 0; k < K; ++k)
+        ports[chosen * K + k] = ports[chosen * K + k] | a.pod_ports[p * K + k];
+      touched[chosen] = 1;
+    }
+    if (pa) {
+      // interpodaffinity updateWithPod: row r at the chosen node's domain
+      if (chosen >= 0) {
+        for (int64_t r = tid; r < a.pa_R; r += kThreads) {
+          const int32_t dom = a.pa_node_domain[r * N + chosen];
+          if (dom < 0) continue;
+          const int64_t inc = a.pa_update[p * a.pa_R + r];
+          pa_sums[r * a.pa_D + dom] += inc;
+          row_total[r] += inc;
+        }
+      }
+    }
+    if constexpr (kSP) {
+      // spread updateWithPod (filtering.go:181): +1 at the chosen node in
+      // every signature the pod matches and the node is eligible for
+      if (chosen >= 0) {
+        for (int64_t sg = tid; sg < S; sg += kThreads) {
+          if (!a.sp_pod_match_sig[p * S + sg] || !a.sp_eligible[sg * N + chosen]) continue;
+          sp_counts[sg * N + chosen] += 1;
+          const int32_t dom = a.sp_node_domain[sg * N + chosen];
+          a.sp_sums[sg * D1 + (dom >= 0 ? dom : a.sp_D)] += 1;
+        }
+      }
+    }
+    if (nom && chosen >= 0) {
+      // assume deletes the nomination (schedule_one.go:307)
+      for (int64_t g = tid; g < a.G; g += kThreads) {
+        if (a.nom_pod_idx[g] != p || !a.nom_active[g]) continue;
+        a.nom_active[g] = 0;
+        if (a.nom_node[g] >= 0) touched[a.nom_node[g]] = 1;
+      }
+    }
+    if (pa || kSP || nom) __syncthreads();
+  }
+}
+
+}  // namespace kt

@@ -1,4 +1,4 @@
-"""Preemption victim search (kernel B9).
+"""Preemption victim search (kernel B9) and the gang dry run (kernel B13).
 
 Port of ``kubetpu/ops/preemption.py``: the reference's dry-run preemption
 (pkg/scheduler/framework/preemption/preemption.go:404 DryRunPreemption +
@@ -38,6 +38,11 @@ dry_run_preemption.cu``) for tensors on a CUDA device, and runs the plain
 version for tensors on the CPU. The reference donates ``potential`` and
 ``v_valid`` to its outputs; torch has no donation, so the outputs here are
 fresh tensors.
+
+``dry_run_gang_preemption`` is the topology-aware gang mode: the
+preemptor gang's whole engine under C "this gang evicted" hypotheses, on a
+CUDA device in the ``hypothesis_scan`` kernel (``kernels/csrc/
+hypothesis_scan.cu``), with ``dry_run_gang_preemption_plain`` beside it.
 """
 
 from __future__ import annotations
@@ -212,10 +217,59 @@ def dry_run_preemption(*args):
     return kernel(*args)
 
 
-def dry_run_gang_preemption(*args, **kwargs):
-    """Gang mode of the dry run (evict one whole gang; kernel B13): the gang
-    and topology lane is ROADMAP Queue A item 10, not yet ported."""
-    raise NotImplementedError(
-        "dry_run_gang_preemption: the gang lane (kernel B13) is ROADMAP "
-        "Queue A item 10, not yet ported"
-    )
+# --------------------------------------------------------------------------
+# gang mode (topology-aware): evict ONE whole gang, not per-pod victims
+# --------------------------------------------------------------------------
+
+
+def dry_run_gang_preemption_plain(
+    b, params, candidate_masks, freed_req, freed_count, engine="greedy",
+):
+    """Gang mode of the dry run (B13), the plain version: each candidate is
+    "evict one low-priority gang and offer its CONTIGUOUS SLICE as the node
+    set". ``candidate_masks`` is (C, N) bool — the full slice the victim
+    gang occupies; ``freed_req`` (C, N, R) int64 / ``freed_count`` (C, N)
+    int32 are the resources and pod counts the eviction returns. The
+    preemptor gang's whole assignment engine runs under each hypothesis,
+    with ``requested``, ``nonzero_requested`` and ``pod_count`` less the
+    freed rows, clamped at 0, and ``node_valid & mask``, so admission is
+    judged by the real filters and scores. As in the reference
+    (kubetpu/ops/preemption.py:247), ``nonzero_requested`` is reduced by
+    the freed *requests*, not by their nonzero amounts, and spread counts
+    and affinity sums are not reduced.
+
+    Returns ``(counts (C,) int32, alignment (C,) int32)`` — pods the
+    preemptor would schedule under each eviction, and the slice-alignment
+    of that proposal (``ops.topology.alignment_score``)."""
+    from ..assign.batched import batched_assign_plain
+    from ..assign.greedy import greedy_assign_plain
+    from ..assign.placement import run_hypotheses
+
+    assign = batched_assign_plain if engine == "batched" else greedy_assign_plain
+    _, counts, alignment = run_hypotheses(
+        b, params, candidate_masks, assign, freed_req, freed_count)
+    return counts, alignment
+
+
+def dry_run_gang_preemption(
+    b, params, candidate_masks, freed_req, freed_count, engine="greedy",
+):
+    """The gang dry run where the batch lives: on the CPU the plain version;
+    on a CUDA device the ``hypothesis_scan`` kernel (greedy engine,
+    ``kernels.gang_dry_run_scan``), or the ``filter_score`` +
+    ``batched_round`` kernels once per hypothesis (batched engine). Same
+    results as ``dry_run_gang_preemption_plain``."""
+    if b.device.type == "cpu":
+        return dry_run_gang_preemption_plain(
+            b, params, candidate_masks, freed_req, freed_count, engine)
+    if engine == "batched":
+        from ..assign.batched import batched_assign_device
+        from ..assign.placement import run_hypotheses
+
+        _, counts, alignment = run_hypotheses(
+            b, params, candidate_masks, batched_assign_device, freed_req,
+            freed_count)
+        return counts, alignment
+    from ..kernels import gang_dry_run_scan
+
+    return gang_dry_run_scan(b, params, candidate_masks, freed_req, freed_count)

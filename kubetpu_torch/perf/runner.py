@@ -1,8 +1,8 @@
 """scheduler_perf runner — drive the port's scheduler loop through an op list.
 
 Reduced fork of ``kubetpu/perf/runner.py``: the direct mode only (no HTTP
-apiserver, no federation), for the ops of the slice's workloads, churn
-included. The op lists drive the port's ``Scheduler`` through its informer
+apiserver, no federation), for the ops of the slice's workloads, churn and
+the gang ops included. The op lists drive the port's ``Scheduler`` through its informer
 seam, as the reference's direct mode drives kubetpu's, with preemption
 enabled as there.
 
@@ -22,6 +22,7 @@ from typing import Callable
 import torch
 
 from ..api import types as t
+from ..api.wrappers import make_pod, make_pod_group
 from ..framework import config as C
 from ..sched.scheduler import Scheduler
 from . import workloads as W
@@ -69,6 +70,12 @@ class WorkloadResult:
     # run, fetch
     preempt_calls: int = 0
     preempt_ms: dict = field(default_factory=dict)
+    # measured-phase group cycles of the gang lane (Scheduler.metrics.
+    # group_cycles), their mean hypotheses (placements) a cycle and mean ms
+    # a cycle: encode, device call, whole cycle
+    group_cycles: int = 0
+    hypotheses_per_cycle: float = 0.0
+    group_cycle_ms: dict = field(default_factory=dict)
 
     def to_json(self) -> dict:
         return {
@@ -90,6 +97,9 @@ class WorkloadResult:
             "preemption_victims": self.preemption_victims,
             "preemptions": self.preemptions,
             "preempt_calls": self.preempt_calls, "preempt_ms": self.preempt_ms,
+            "group_cycles": self.group_cycles,
+            "hypotheses_per_cycle": self.hypotheses_per_cycle,
+            "group_cycle_ms": self.group_cycle_ms,
         }
 
 
@@ -206,6 +216,16 @@ def _cycle_ms(timings: list) -> dict:
     }
 
 
+def _group_cycle_ms(timings: list) -> dict:
+    if not timings:
+        return {}
+    n = len(timings)
+    return {
+        region: 1e3 * sum(getattr(c, region + "_s") for c in timings) / n
+        for region in ("encode", "device", "total")
+    }
+
+
 _CACHE_KINDS = ("filter", "score", "request")
 
 
@@ -232,6 +252,9 @@ def run_workload(
     encode_cache: bool = True,
     flight_recorder: bool = True,
     extenders=(),
+    feature_gates: dict | None = None,
+    topology: str = "off",
+    slices: int = 0,
 ) -> WorkloadResult:
     """Execute one (test case, workload) pair in direct mode on ``device``
     with the ``engine`` (``"greedy"`` or ``"batched"``) and return the
@@ -240,8 +263,13 @@ def run_workload(
     cache (on by default, as in the reference), ``flight_recorder`` the
     scheduling flight recorder (on by default, as in the reference's
     runner); ``extenders`` (``ExtenderConfig``s) configures the
-    scheduler-extender webhooks. Preemption is enabled, as the reference's
-    runner does; churn ops fire between cycles.
+    scheduler-extender webhooks. ``feature_gates`` ({name: bool}) go over
+    the case's own (the reference's config enables them per case);
+    ``topology`` is the Scheduler's topology mode; ``slices`` > 0 labels
+    the default node template's fleet with that many TPU slices (and a
+    rack per four) under the shared label grammar
+    (``workloads.trace_topology_labels``). Preemption is enabled, as the
+    reference's runner does; churn ops fire between cycles.
     ``stall_s`` is how long zero progress must persist before a phase gives
     up. The kernels are built before the measured phase starts (``Scheduler.warmup``). ``on_scheduler`` is
     called once with the run's Scheduler before any op runs, so a caller
@@ -252,12 +280,15 @@ def run_workload(
         workload = next(w for w in case.workloads if w.name == workload)
     params = dict(workload.params)
 
+    gates = dict(case.feature_gates)
+    gates.update(feature_gates or {})
     client = _Client()
     sched = Scheduler(
         client, profile=profile or C.Profile(), max_batch=max_batch,
         engine=engine, device=device, pipeline=pipeline,
         encode_cache=encode_cache, flight_recorder=flight_recorder,
         cfg=C.SchedulerConfiguration(extenders=tuple(extenders)),
+        feature_gates=gates, topology=topology,
     )
     client.sched = sched
     sched.enable_preemption()
@@ -267,11 +298,25 @@ def run_workload(
     churns: list[_Churn] = []
     measured = 0
     duration = 0.0
-    attempts0 = cycles0 = timings0 = replays0 = 0
+    attempts0 = cycles0 = timings0 = replays0 = groups0 = 0
     cache0 = (0, 0)
     preempt0 = None
     op_ns_counter = 0
     gc_clock = _GcClock()
+
+    def begin_measured() -> None:
+        """Build the kernels, then take the measured phase's baselines."""
+        nonlocal attempts0, cycles0, timings0, replays0, groups0, cache0, preempt0
+        sched.warmup()
+        attempts0 = sched.metrics.schedule_attempts
+        cycles0 = sched.metrics.cycles
+        timings0 = len(sched.metrics.cycle_timings)
+        groups0 = len(sched.metrics.group_cycles)
+        replays0 = sched.metrics.pipeline_replays
+        # the init phase's misses (first sight of every template) must
+        # not dilute the steady-state hit rate
+        cache0 = _cache_counts(sched)
+        preempt0 = _preemption_counts(sched, client)
 
     def settle(target: int, namespaces: tuple[str, ...] = ()) -> tuple[int, float]:
         """Run cycles until ``target`` pods of the op's ``namespaces`` are
@@ -310,9 +355,11 @@ def run_workload(
     for op_i, op in enumerate(case.ops):
         if isinstance(op, W.CreateNodesOp):
             n = op.count or params[op.count_param]
-            factory = op.template or W.node_default
             for i in range(n):
-                sched.on_node_add(factory(i, op.zones))
+                sched.on_node_add(
+                    op.template(i, op.zones) if op.template is not None
+                    else W.node_default(i, op.zones, slices)
+                )
         elif isinstance(op, W.CreateNamespacesOp):
             # namespace objects carry labels for affinity namespaceSelectors
             n = params[op.count_param] if op.count_param else op.count
@@ -331,15 +378,7 @@ def run_workload(
             op_ns_counter += 1
             prefix = f"{'measure' if op.collect_metrics else 'init'}-{op_i}"
             if op.collect_metrics:
-                sched.warmup()
-                attempts0 = sched.metrics.schedule_attempts
-                cycles0 = sched.metrics.cycles
-                timings0 = len(sched.metrics.cycle_timings)
-                replays0 = sched.metrics.pipeline_replays
-                # the init phase's misses (first sight of every template)
-                # must not dilute the steady-state hit rate
-                cache0 = _cache_counts(sched)
-                preempt0 = _preemption_counts(sched, client)
+                begin_measured()
             for j in range(count):
                 sched.on_pod_add(template(f"{prefix}-{ns}-{j}", ns))
             if op.skip_wait:
@@ -352,6 +391,31 @@ def run_workload(
             if op.collect_metrics:
                 measured += done
                 duration += secs
+        elif isinstance(op, W.CreatePodGroupsOp):
+            for g in range(params[op.count_param]):
+                sched.on_pod_group_add(make_pod_group(
+                    f"{op.prefix}-{g}", namespace=f"{op.prefix}-0",
+                    min_count=params[op.min_count_param],
+                ))
+        elif isinstance(op, W.CreateGangPodsOp):
+            per = params[op.multiplier_param]
+            count = params[op.count_param] * per
+            if op.collect_metrics:
+                begin_measured()
+            for j in range(count):
+                sched.on_pod_add(make_pod(
+                    f"gangpod-{j}", namespace=op.namespace,
+                    cpu_milli=100, memory=100 * 1024**2,
+                    scheduling_group=f"{op.prefix}-{j // per}",
+                    creation_index=j,
+                ))
+            if op.collect_metrics:
+                with gc_clock:
+                    done, secs = settle(count, (op.namespace,))
+                measured += done
+                duration += secs
+            else:
+                settle(count, (op.namespace,))
         elif isinstance(op, W.ChurnOp):
             churns.append(_Churn(op=op, namespace=f"churn-{len(churns)}"))
         else:
@@ -359,6 +423,7 @@ def run_workload(
 
     client.deliver()
     timings = sched.metrics.cycle_timings[timings0:]
+    groups = sched.metrics.group_cycles[groups0:]
     pre = {k: v - (preempt0 or {}).get(k, 0)
            for k, v in _preemption_counts(sched, client).items()}
     hits, misses = (a - b for a, b in zip(_cache_counts(sched), cache0))
@@ -371,9 +436,13 @@ def run_workload(
             if sched.device.type == "cuda" else str(sched.device)
         ),
         measure_pods=sum(
-            params[op.count_param]
+            params[op.count_param] * (
+                params[op.multiplier_param]
+                if isinstance(op, W.CreateGangPodsOp) else 1
+            )
             for op in case.ops
-            if isinstance(op, W.CreatePodsOp) and op.collect_metrics
+            if isinstance(op, (W.CreatePodsOp, W.CreateGangPodsOp))
+            and op.collect_metrics
         ),
         scheduled=measured,
         bound_total=len(client.bound),
@@ -406,5 +475,10 @@ def run_workload(
         preempt_ms={
             k: 1e3 * pre[k] / pre["calls"] for k in sched._post_filter.spans
         } if pre["calls"] else {},
+        group_cycles=len(groups),
+        hypotheses_per_cycle=(
+            sum(g.hypotheses for g in groups) / len(groups) if groups else 0.0
+        ),
+        group_cycle_ms=_group_cycle_ms(groups),
     )
     return result

@@ -7,14 +7,15 @@ in the reference), the ``SchedulingPodAffinity`` test case
 (``TopologySpreading``, ``PreferredTopologySpreading`` and
 ``DefaultTopologySpreading``, topology_spreading/performance-config.yaml)
 and the ``PreemptionAsync`` test case (misc/performance-config.yaml:186),
-each with its direct-mode workloads, the templates they use
-(``node_default``, ``pod_default``, ``pod_with_pod_affinity``,
+and the ``GangScheduling`` test case
+(podgroup/gangscheduling/performance-config.yaml:7, with its two feature
+gates), each with its direct-mode workloads, the templates they use
+(``node_default`` with the shared rack/TPU-slice label grammar
+``trace_topology_labels``, ``pod_default``, ``pod_with_pod_affinity``,
 ``pod_with_topology_spreading``, ``pod_with_preferred_topology_spreading``,
 ``pod_with_label``, ``pod_low_priority``, ``pod_high_priority_3cpu``, and
-``pod_high_priority_large_cpu``, ``ChurnOp``'s default) and the five ops
-they use. Everything kept is verbatim
-apart from the trim: ``node_default`` drops the rack/TPU-slice label option,
-which no kept case sets.
+``pod_high_priority_large_cpu``, ``ChurnOp``'s default) and the seven ops
+they use. Everything kept is verbatim apart from the trim.
 
 Mirrors the reference harness's shape
 (test/integration/scheduler_perf/scheduler_perf.go:756
@@ -35,6 +36,7 @@ from typing import Callable, Mapping
 
 from ..api import types as t
 from ..api.wrappers import make_node, make_pod, pod_affinity_term, spread_constraint
+from ..state.topology import RACK_KEY, SLICE_KEY
 
 ZONE_KEY = "topology.kubernetes.io/zone"
 HOSTNAME_KEY = "kubernetes.io/hostname"
@@ -44,14 +46,33 @@ HOSTNAME_KEY = "kubernetes.io/hostname"
 # ---------------------------------------------------------------------------
 
 
-def node_default(i: int, zones: tuple[str, ...] = ()) -> t.Node:
+def trace_topology_labels(name: str, slices: int) -> dict[str, str]:
+    """The ONE rack/TPU-slice label grammar every node generator shares
+    (initial fleet, autoscaler wave nodes, tests): a stable crc32 of the
+    node name picks the slice — builtin hash() is salted per process,
+    which would break the trace determinism contract — and racks group
+    four slices each. ``slices <= 0`` means an unlabeled fleet (the
+    ``--topology auto`` parity case)."""
+    if slices <= 0:
+        return {}
+    import zlib
+
+    s = zlib.crc32(name.encode()) % slices
+    return {SLICE_KEY: f"slice-{s:03d}", RACK_KEY: f"rack-{s // 4:02d}"}
+
+
+def node_default(
+    i: int, zones: tuple[str, ...] = (), slices: int = 0
+) -> t.Node:
     """templates/node-default.yaml: 4 cpu / 32Gi / 110 pods, plus the
-    labelNodePrepareStrategy zone label (round-robin over ``zones``) and
-    the kubelet-maintained hostname label."""
+    labelNodePrepareStrategy zone label (round-robin over ``zones``), the
+    kubelet-maintained hostname label, and — when ``slices`` — the shared
+    rack/TPU-slice grammar (trace_topology_labels)."""
     name = f"scheduler-perf-{i}"
     labels = {HOSTNAME_KEY: name}
     if zones:
         labels[ZONE_KEY] = zones[i % len(zones)]
+    labels.update(trace_topology_labels(name, slices))
     return make_node(
         name, cpu_milli=4000, memory=32 * 1024**3, pods=110, labels=labels
     )
@@ -192,6 +213,31 @@ class CreatePodsOp:
 
 
 @dataclass(frozen=True)
+class CreatePodGroupsOp:
+    """operations.go createAny with a PodGroup template
+    (podgroup/gangscheduling/performance-config.yaml:18 + its
+    templates/podgroup.yaml: gangs gang-0..gang-(n-1), each with
+    minCount = podsPerGroup)."""
+
+    count_param: str = "initPodGroups"
+    min_count_param: str = "podsPerGroup"
+    prefix: str = "gang"
+
+
+@dataclass(frozen=True)
+class CreateGangPodsOp:
+    """createPods with countMultiplierParam (performance-config.yaml:28 +
+    templates/gang-pod.yaml): pod i references gang-(i // podsPerGroup);
+    100m cpu / 100Mi, like the reference template."""
+
+    count_param: str = "initPodGroups"
+    multiplier_param: str = "podsPerGroup"
+    prefix: str = "gang"
+    collect_metrics: bool = True
+    namespace: str = "gang-0"
+
+
+@dataclass(frozen=True)
 class ChurnOp:
     """operations.go:518 churnOp — create (or recreate) interfering objects
     at an interval while the measured phase runs."""
@@ -218,6 +264,8 @@ class TestCase:
     workloads: tuple[Workload, ...]
     default_pod_template: PodTemplate = pod_default
     source: str = ""                        # reference config citation
+    # featureGates the reference's config enables for this case
+    feature_gates: tuple[tuple[str, bool], ...] = ()
 
 
 TEST_CASES: dict[str, TestCase] = {}
@@ -349,5 +397,30 @@ _case(TestCase(
         Workload("5000Nodes",
                  {"initNodes": 5000, "initPods": 20000, "measurePods": 5000},
                  threshold=570, labels=("performance",)),
+    ),
+))
+
+_case(TestCase(
+    name="GangScheduling",
+    source="podgroup/gangscheduling/performance-config.yaml:7 (no thresholds yet — new suite)",
+    feature_gates=(("GenericWorkload", True), ("GangScheduling", True)),
+    ops=(
+        CreateNodesOp("initNodes"),
+        CreateNamespacesOp("gang", 1),
+        CreatePodGroupsOp("initPodGroups", "podsPerGroup"),
+        CreateGangPodsOp("initPodGroups", "podsPerGroup",
+                         collect_metrics=True),
+    ),
+    workloads=(
+        Workload("10Nodes_3Gangs",
+                 {"initNodes": 10, "initPodGroups": 3, "podsPerGroup": 3}),
+        Workload("100Nodes_10Gangs",
+                 {"initNodes": 100, "initPodGroups": 10, "podsPerGroup": 3}),
+        Workload("5000Nodes_1000Gangs_3000Pods",
+                 {"initNodes": 5000, "initPodGroups": 1000, "podsPerGroup": 3},
+                 labels=("performance",)),
+        Workload("5000Nodes_3Gangs_3000Pods_1000PerGroup",
+                 {"initNodes": 5000, "initPodGroups": 3, "podsPerGroup": 1000},
+                 labels=("performance",)),
     ),
 ))

@@ -1,0 +1,791 @@
+"""Pod-group (gang) scheduling: state tracking + the group scheduling cycle.
+
+Port copy of ``kubetpu/sched/podgroup.py``. Port-side deviations:
+
+- ``_bind_member`` binds through the port's synchronous ``_assume_and_bind``
+  (the reference runs Reserve/Permit through ``_begin_binding``, and its
+  lifecycle runner is not ported yet: the default profile has no
+  Reserve/Permit plugin the port admits). A bind error hands the member
+  back to the manager's pending pool, as the reference's bind completion
+  does a cycle later.
+- Victim deletes go straight to ``client.delete_pod``, as the port's
+  per-pod PostFilter runs them (``sched/preemption.py``), not through an
+  API dispatcher's ``DeleteVictimCall``; the reason text is the same.
+- ``gang_admission_duration`` and ``preemption_victims`` have no
+  Prometheus registry: they land on ``SchedulerMetrics``
+  (``gang_admission``, ``note_preemption_victims``).
+- The device calls are torch calls on the scheduler's ``device``: the
+  placement search (``assign.placement``) and the gang dry run
+  (``ops.preemption.dry_run_gang_preemption``) launch the hand-written
+  ``hypothesis_scan`` kernel on a CUDA device; the encode is the port's
+  (the resident node block and the encode cache, as its per-pod cycle).
+
+Reference surfaces mirrored:
+
+- ``PodGroupManager`` tracks member pods per group the way the reference's
+  pod-group state + queue-side pending pool do
+  (backend/queue/pending_pod_group_pods.go, fwk.PodGroupManager): pending
+  (unscheduled) members, scheduled (assumed/assigned) members, attempt
+  bookkeeping.
+- Quorum gating = the GangScheduling plugin's PreEnqueue
+  (plugins/gangscheduling/gangscheduling.go:130): a gang pod waits outside
+  the active lane until its PodGroup object exists and
+  AllPodsCount >= minCount.
+- The group cycle = scheduleOnePodGroup → podGroupCycle → the placement /
+  default algorithms (schedule_one_podgroup.go:43,:172,:319,:632), with the
+  all-or-nothing acceptance of the GangScheduling PlacementFeasible plugin
+  (gangscheduling.go:248: scheduled >= minCount, or UnschedulableAndUnresolvable
+  when remaining + scheduled < minCount).
+
+Batch-native re-shapes (kubetpu's documented deviations, same observable
+outcomes):
+
+- The reference fans gang pods one-at-a-time through Permit, where they WAIT
+  until minCount pods are assumed (gangscheduling.go Permit). Here the whole
+  group is decided atomically inside one device cycle, so there is nothing
+  to wait on: accepted groups go straight to binding, rejected groups roll
+  back in-cycle (the revertFn stack in podGroupSchedulingDefaultAlgorithm
+  becomes "never assume").
+- Topology-constrained groups run the device-parallel placement search
+  (assign/placement.py) instead of the sequential simulate/revert loop.
+- Unconstrained groups are BATCHED: many ready groups join one device
+  assignment; per-group all-or-nothing acceptance is applied to the result.
+  A rejected group's pods are never assumed, so later groups saw a
+  conservatively fuller cluster — they can only have been denied nodes, not
+  handed infeasible ones.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass, field
+from typing import TYPE_CHECKING
+
+import numpy as np
+import torch
+
+from ..api import types as t
+from ..queue.priority_queue import QueuedPodInfo, pod_key
+
+if TYPE_CHECKING:
+    from .scheduler import Scheduler
+
+
+@dataclass
+class GroupCycleTiming:
+    """One group cycle of the gang lane: its kind
+    (``"coalesced"`` or ``"placement"``), pods, hypotheses (placements; 1
+    for a coalesced cycle), and wall seconds of the encode, of the device
+    call (between two CUDA events on a CUDA device: the engine, or the
+    placement search) and of the whole cycle."""
+
+    kind: str
+    pods: int
+    hypotheses: int = 1
+    encode_s: float = 0.0
+    device_s: float = 0.0
+    total_s: float = 0.0
+
+
+@dataclass
+class GroupEntry:
+    """Queue + state bookkeeping for one pod group (QueuedPodGroupInfo)."""
+
+    group: t.PodGroup | None = None           # None until informer delivers it
+    pending: dict[str, QueuedPodInfo] = field(default_factory=dict)  # key -> info
+    scheduled: dict[str, str] = field(default_factory=dict)  # pod key -> node
+    attempts: int = 0
+    unschedulable_count: int = 0
+    timestamp: float = 0.0
+    backoff_until: float = 0.0
+    parked: bool = False                      # unschedulable pool (event-woken)
+    admitted: bool = False                    # gang admission latency observed
+
+    def all_count(self) -> int:
+        return len(self.pending) + len(self.scheduled)
+
+    def min_count(self) -> int:
+        g = self.group
+        if g is None or g.gang is None:
+            return 1
+        return g.gang.min_count
+
+    def quorum_met(self) -> bool:
+        return self.group is not None and self.all_count() >= self.min_count()
+
+
+class PodGroupManager:
+    """Tracks pod groups and their member pods; owns the group-side queue
+    states (pending-quorum / active / backoff / parked)."""
+
+    def __init__(self, clock, initial_backoff: float = 1.0,
+                 max_backoff: float = 10.0) -> None:
+        self._clock = clock
+        self._initial_backoff = initial_backoff
+        self._max_backoff = max_backoff
+        self.entries: dict[str, GroupEntry] = {}   # "ns/name" -> entry
+
+    def _entry(self, namespace: str, name: str) -> GroupEntry:
+        key = f"{namespace}/{name}"
+        e = self.entries.get(key)
+        if e is None:
+            e = GroupEntry(timestamp=self._clock())
+            self.entries[key] = e
+        return e
+
+    def entry_for_pod(self, pod: t.Pod) -> GroupEntry:
+        return self._entry(pod.namespace, pod.scheduling_group)
+
+    # ---- informer surface ----------------------------------------------
+
+    def add_group(self, group: t.PodGroup) -> None:
+        e = self._entry(group.namespace, group.name)
+        e.group = group
+        # the gangscheduling PodGroup/Add hint (gangscheduling.go:109): a
+        # group add/update (e.g. lowered minCount) can revive a parked gang
+        e.parked = False
+
+    update_group = add_group
+
+    def remove_group(self, group: t.PodGroup) -> None:
+        e = self.entries.get(group.key)
+        if e is not None:
+            e.group = None
+
+    def add_pod(self, info: QueuedPodInfo) -> None:
+        """An unscheduled gang pod arrived (PreEnqueue holds it here until
+        quorum). A new member also un-parks the group — the GangScheduling
+        queueing hint for UnscheduledPod/Add (gangscheduling.go:95)."""
+        e = self.entry_for_pod(info.pod)
+        e.pending[info.key] = info
+        e.parked = False
+
+    def remove_pod(self, pod: t.Pod) -> None:
+        e = self.entries.get(f"{pod.namespace}/{pod.scheduling_group}")
+        if e is None:
+            return
+        e.pending.pop(pod_key(pod), None)
+        e.scheduled.pop(pod_key(pod), None)
+
+    def update_pod(self, pod: t.Pod) -> None:
+        """Informer update for an unbound member: refresh the stored object
+        (spec changes like priority/requests take effect next attempt)."""
+        e = self.entry_for_pod(pod)
+        info = e.pending.get(pod_key(pod))
+        if info is not None:
+            info.pod = pod
+        else:
+            self.add_pod(QueuedPodInfo(pod=pod, timestamp=self._clock()))
+
+    def mark_scheduled(self, pod: t.Pod, node_name: str) -> None:
+        e = self._entry(pod.namespace, pod.scheduling_group)
+        e.pending.pop(pod_key(pod), None)
+        e.scheduled[pod_key(pod)] = node_name
+        e.parked = False   # AssignedPod/Add hint (gangscheduling.go:82)
+
+    def unmark_scheduled(self, pod: t.Pod) -> None:
+        """Bind failed / assumed pod forgotten: the member is pending again."""
+        e = self._entry(pod.namespace, pod.scheduling_group)
+        e.scheduled.pop(pod_key(pod), None)
+
+    def requeue_member(self, info: QueuedPodInfo) -> None:
+        e = self.entry_for_pod(info.pod)
+        e.pending[info.key] = info
+
+    def wake_all(self) -> None:
+        """Cluster event that may free capacity (node add / assigned-pod
+        delete): un-park every parked group. Conservative analog of the
+        hint-driven moveAllToActiveOrBackoffQueue for group entities."""
+        for e in self.entries.values():
+            e.parked = False
+
+    # ---- queue-side ------------------------------------------------------
+
+    def _backoff_duration(self, e: GroupEntry) -> float:
+        """Group-level backoff caps at plain max_backoff. The reference's
+        sqrt(entity_size) cap scaling (backoff_queue.go:247) applies to the
+        per-pod queue's entity requeues and is kept there
+        (priority_queue._backoff_duration); a sqrt-scaled cap here (316 s
+        for a 1000-pod gang) would outlast every stall detector while the
+        reference's own leftover flush bounds staleness at 30 s anyway."""
+        if e.unschedulable_count == 0:
+            return 0.0
+        return min(
+            self._initial_backoff * (2.0 ** (e.unschedulable_count - 1)),
+            self._max_backoff,
+        )
+
+    def ready_groups(self) -> list[tuple[str, GroupEntry]]:
+        """Groups with quorum met, not parked, past backoff, with pending
+        pods — the pop-side of the group lane."""
+        now = self._clock()
+        out = []
+        for key, e in self.entries.items():
+            if not e.pending or e.parked or not e.quorum_met():
+                continue
+            if e.backoff_until > now:
+                continue
+            out.append((key, e))
+        # PrioritySort analog at group granularity: highest member priority
+        # first, then oldest
+        out.sort(key=lambda kv: (
+            -max((i.pod.priority for i in kv[1].pending.values()), default=0),
+            kv[1].timestamp,
+        ))
+        return out
+
+    def group_failed(self, e: GroupEntry) -> None:
+        e.unschedulable_count += 1
+        e.attempts += 1
+        e.backoff_until = self._clock() + self._backoff_duration(e)
+        e.parked = True
+
+    def group_attempted(self, e: GroupEntry) -> None:
+        e.attempts += 1
+        e.unschedulable_count = 0
+        e.backoff_until = 0.0
+
+
+# --------------------------------------------------------------------------
+# placement generation (TopologyPlacementGenerator analog)
+# --------------------------------------------------------------------------
+
+
+def _topology_labeled(sched: "Scheduler") -> bool:
+    """Whether the topology axis is ACTIVE for gang routing: mode is not
+    ``off`` AND at least one node carries a slice/rack label. ``auto``
+    (and even ``on``) on an unlabeled cluster resolves to inactive, so
+    unlabeled runs stay bit-identical with ``--topology off``."""
+    if getattr(sched, "topology", "off") == "off":
+        return False
+    from ..state.topology import RACK_KEY, SLICE_KEY, topology_tensors
+
+    nt = sched._prev_nt
+    if nt is not None:
+        return topology_tensors(nt).labeled
+    for info in sched._snapshot.nodes.values():
+        labels = info.node.labels_dict()
+        if SLICE_KEY in labels or RACK_KEY in labels:
+            return True
+    return False
+
+
+def generate_placements(
+    sched: "Scheduler", e: GroupEntry, node_names: list[str], num_nodes: int,
+    node_capacity: int,
+) -> tuple[np.ndarray, list[str]] | None:
+    """Candidate placements as a (D, NC) node-mask stack.
+
+    topology_placement.go:61 GeneratePlacements: group nodes by the
+    constraint key's label value; when some member pods are already
+    scheduled, only their domain qualifies (getScheduledPodsTopologyDomain —
+    pods split across domains is an error → no placements). Without
+    topology constraints there is ONE placement spanning all nodes.
+    Returns (masks, placement_names) or None when no placement exists.
+    """
+    group = e.group
+    keys = group.topology_keys if group is not None else ()
+    if not keys:
+        if _topology_labeled(sched):
+            from ..state.topology import SLICE_KEY
+
+            snapshot = sched._snapshot
+            slices: dict[str, list[int]] = {}
+            for i, name in enumerate(node_names):
+                info = snapshot.nodes.get(name)
+                if info is None:
+                    continue
+                val = info.node.labels_dict().get(SLICE_KEY)
+                if val is not None:
+                    slices.setdefault(val, []).append(i)
+            if slices:
+                # one candidate per TPU slice (alignment-first), PLUS the
+                # all-nodes fallback so a gang too large for any single
+                # slice still admits; the count-then-alignment selection
+                # in _placement_group_cycle prefers a single-slice fit
+                # (ties on count, wins on alignment)
+                ordered = sorted(slices)
+                names = [f"slice:{v}" for v in ordered] + ["<all>"]
+                masks = np.zeros((len(names), node_capacity), dtype=bool)
+                for d, v in enumerate(ordered):
+                    masks[d, slices[v]] = True
+                masks[-1, :num_nodes] = True
+                return masks, names
+        mask = np.zeros((1, node_capacity), dtype=bool)
+        mask[0, :num_nodes] = True
+        return mask, ["<all>"]
+    key = keys[0]   # single constraint, like the reference (maxItems=1)
+    domains: dict[str, list[int]] = {}
+    snapshot = sched._snapshot
+    for i, name in enumerate(node_names):
+        info = snapshot.nodes.get(name)
+        if info is None:
+            continue
+        val = info.node.labels_dict().get(key)
+        if val is not None:
+            domains.setdefault(val, []).append(i)
+    required: str | None = None
+    for pk, node in e.scheduled.items():
+        info = snapshot.nodes.get(node)
+        val = info.node.labels_dict().get(key) if info is not None else None
+        if val is None:
+            return None    # scheduled pod on an unlabeled node: no domain
+        if required is not None and required != val:
+            return None    # members split across domains (reference errors)
+        required = val
+    names = sorted(domains)
+    if required is not None:
+        names = [d for d in names if d == required]
+    if not names:
+        return None
+    masks = np.zeros((len(names), node_capacity), dtype=bool)
+    for d, dom in enumerate(names):
+        masks[d, domains[dom]] = True
+    return masks, names
+
+
+# --------------------------------------------------------------------------
+# the group cycles (called from Scheduler.schedule_batch)
+# --------------------------------------------------------------------------
+
+
+def schedule_pod_groups(sched: "Scheduler", budget: int) -> dict[str, int]:
+    """Run group cycles for ready groups, up to ``budget`` pods total.
+
+    Unconstrained groups are coalesced into one multi-group device cycle;
+    topology-constrained groups each run the placement search. Returns
+    result counts {"scheduled": n, "unschedulable": m}.
+    """
+    mgr = sched.podgroups
+    ready = mgr.ready_groups()
+    if not ready:
+        return {"scheduled": 0, "unschedulable": 0}
+
+    # routing reads node labels, so it needs a CURRENT snapshot (the
+    # group lane can run before any per-pod cycle refreshed it);
+    # incremental update_snapshot makes the refresh O(Δ)
+    sched._snapshot = sched.cache.update_snapshot(sched._snapshot)
+    scheduled = unschedulable = 0
+    plain: list[tuple[str, GroupEntry]] = []
+    constrained: list[tuple[str, GroupEntry]] = []
+    total = 0
+    # placement search rides the TopologyAwareWorkloadScheduling gate
+    # (schedule_one_podgroup.go:759: non-TAS falls back to the default
+    # algorithm, which ignores topology constraints)
+    tas = sched.feature_gates.enabled("TopologyAwareWorkloadScheduling")
+    # the node-topology axis routes EVERY gang through the placement
+    # search on labeled clusters: per-slice candidate masks give the
+    # alignment-first landing + the slice-eviction preemption mode
+    topo = _topology_labeled(sched)
+    for key, e in ready:
+        if total + len(e.pending) > budget and (plain or constrained):
+            break
+        total += len(e.pending)
+        if (tas and e.group is not None and e.group.topology_keys) or topo:
+            constrained.append((key, e))
+        else:
+            plain.append((key, e))
+
+    if plain:
+        # one coalesced device cycle per PROFILE (frameworkForPodGroup: all
+        # members share a scheduler name; groups of different profiles are
+        # different tensor programs)
+        by_prof: dict[str, list[GroupEntry]] = {}
+        for _, e in plain:
+            first = next(iter(e.pending.values()))
+            by_prof.setdefault(first.pod.scheduler_name, []).append(e)
+        for pname, entries_ in by_prof.items():
+            s, u = _timed(sched, "coalesced", _coalesced_group_cycle, entries_)
+            scheduled += s
+            unschedulable += u
+    for _, e in constrained:
+        s, u = _timed(sched, "placement", _placement_group_cycle, e)
+        scheduled += s
+        unschedulable += u
+    return {"scheduled": scheduled, "unschedulable": unschedulable}
+
+
+def _timed(sched: "Scheduler", kind: str, cycle, arg) -> tuple[int, int]:
+    """Run one group cycle, keeping its ``GroupCycleTiming`` on the
+    scheduler's metrics (the port's twin of the reference's cycle spans)."""
+    timing = GroupCycleTiming(kind, pods=0)
+    t0 = time.perf_counter()
+    try:
+        return cycle(sched, arg, timing)
+    finally:
+        timing.total_s = time.perf_counter() - t0
+        sched.metrics.group_cycles.append(timing)
+
+
+def _encode(sched: "Scheduler", profile, pods, timing):
+    """The group cycle's encode (``Scheduler._encode_group``), timed."""
+    t0 = time.perf_counter()
+    out = sched._encode_group(profile, pods)
+    timing.pods = len(pods)
+    timing.encode_s = time.perf_counter() - t0
+    return out
+
+
+def _device_call(sched: "Scheduler", timing, fn, *args, **kwargs):
+    """A group cycle's device call, with its outputs fetched to numpy; its
+    seconds (between two CUDA events on a CUDA device, the wall on the
+    CPU, where it runs synchronously) go to ``timing.device_s``."""
+    if sched.device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        end.synchronize()
+        timing.device_s = start.elapsed_time(end) / 1e3
+    else:
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        timing.device_s = time.perf_counter() - t0
+    return tuple(x.cpu().numpy() for x in out)
+
+
+def _pop_members(e: GroupEntry, clock) -> list[QueuedPodInfo]:
+    """Take the group's pending members for one attempt (queue-sort order).
+    Clears the pending pool — failure paths re-add."""
+    infos = sorted(e.pending.values(), key=lambda i: i.sort_key())
+    e.pending.clear()
+    now = clock()
+    for i in infos:
+        i.attempts += 1
+        if i.initial_attempt_timestamp is None:
+            i.initial_attempt_timestamp = now
+    return infos
+
+
+def _coalesced_group_cycle(
+    sched: "Scheduler", entries: list[GroupEntry], timing
+) -> tuple[int, int]:
+    """One device assignment over the concatenated members of many
+    unconstrained groups, then per-group all-or-nothing acceptance.
+
+    Greedy parity note: the engine sees groups in queue order, exactly like
+    back-to-back scheduleOnePodGroup cycles — except a REJECTED group's pods
+    were visible (as in-batch assignments) to later groups' scoring. The
+    rejection rolls them back (never assumed), so later groups only saw a
+    fuller cluster: conservative, never over-committing.
+    """
+    sched._snapshot = sched.cache.update_snapshot(sched._snapshot)
+    groups_infos = [_pop_members(e, sched.clock) for e in entries]
+    pods: list[t.Pod] = []
+    spans: list[tuple[int, int]] = []
+    for infos in groups_infos:
+        start = len(pods)
+        pods.extend(i.pod for i in infos)
+        spans.append((start, len(pods)))
+    profile = sched._profile_for(pods[0]) or sched.profile
+    batch, device_batch, params = _encode(sched, profile, pods, timing)
+    (idx,) = _device_call(
+        sched, timing, lambda: sched._assign_device(device_batch, params)[:1])
+
+    scheduled = unschedulable = 0
+    for e, infos, (start, end) in zip(entries, groups_infos, spans):
+        rows = idx[start:end]
+        sched.metrics.schedule_attempts += len(infos)
+        fitted = int((rows >= 0).sum())
+        # PlacementFeasible (gang): scheduled members + this attempt's fits
+        if fitted + len(e.scheduled) >= e.min_count():
+            mgr_scheduled = 0
+            for k, info in enumerate(infos):
+                j = int(rows[k])
+                if 0 <= j < len(batch.node_names):
+                    if _bind_member(sched, e, info, batch.node_names[j]):
+                        mgr_scheduled += 1
+                else:
+                    # group admitted; this member retries after capacity
+                    # changes (leftovers park with backoff, or they would
+                    # re-run a full device cycle every schedule_batch)
+                    e.pending[info.key] = info
+            if mgr_scheduled == len(infos):
+                sched.podgroups.group_attempted(e)
+            else:
+                sched.podgroups.group_failed(e)
+            scheduled += mgr_scheduled
+            unschedulable += len(infos) - mgr_scheduled
+            if mgr_scheduled:
+                _note_gang_admitted(sched, e)
+                if sched.flight_recorder is not None:
+                    sched.flight_recorder.note_gang(
+                        _group_key(e, infos), "placed",
+                        engine=sched.engine, placement="<coalesced>",
+                        members=len(infos), need=e.min_count(),
+                    )
+        else:
+            # all-or-nothing rollback: nothing was assumed; park the group
+            for info in infos:
+                e.pending[info.key] = info
+            sched.podgroups.group_failed(e)
+            unschedulable += len(infos)
+    return scheduled, unschedulable
+
+
+def _placement_group_cycle(
+    sched: "Scheduler", e: GroupEntry, timing
+) -> tuple[int, int]:
+    """Placement search for one topology-constrained group: generate domain
+    placements, simulate ALL of them in one vmapped device program, pick the
+    best feasible one (PodGroupPodsCount score = scheduled + proposed)."""
+    from ..assign.placement import placement_assign_device
+
+    sched._snapshot = sched.cache.update_snapshot(sched._snapshot)
+    infos = _pop_members(e, sched.clock)
+    pods = [i.pod for i in infos]
+    profile = sched._profile_for(pods[0]) or sched.profile
+    batch, device_batch, params = _encode(sched, profile, pods, timing)
+    gen = generate_placements(
+        sched, e, batch.node_names, batch.num_nodes,
+        batch.device.alloc.shape[0],
+    )
+    if gen is None:
+        for info in infos:
+            e.pending[info.key] = info
+        sched.podgroups.group_failed(e)
+        return 0, len(infos)
+    masks, names = gen
+    timing.hypotheses = len(names)
+    assignments, counts, alignment = _device_call(
+        sched, timing, placement_assign_device, device_batch, params,
+        torch.from_numpy(masks).to(sched.device), engine=sched.engine,
+    )
+    sched.metrics.schedule_attempts += len(infos)
+
+    need = e.min_count() - len(e.scheduled)
+    feasible = counts >= need
+    if not feasible.any():
+        if _try_gang_preemption(sched, e, infos, batch, device_batch,
+                                params, need):
+            return 0, len(infos)
+        for info in infos:
+            e.pending[info.key] = info
+        sched.podgroups.group_failed(e)
+        return 0, len(infos)
+    # PodGroupPodsCount: maximize scheduled + proposed, then slice
+    # alignment (same-slice concentration), keeping np.argmax's
+    # first-best tie-break. alignment ≤ members² < 2^32 always, so one
+    # int64 lexicographic key is exact.
+    score = np.where(
+        feasible,
+        counts.astype(np.int64) * (np.int64(1) << 32)
+        + alignment.astype(np.int64),
+        np.int64(-1),
+    )
+    best = int(np.argmax(score))
+    rows = assignments[best]
+    scheduled = 0
+    for k, info in enumerate(infos):
+        j = int(rows[k])
+        if 0 <= j < len(batch.node_names):
+            if _bind_member(sched, e, info, batch.node_names[j]):
+                scheduled += 1
+        else:
+            e.pending[info.key] = info
+    if scheduled == len(infos):
+        sched.podgroups.group_attempted(e)
+    else:
+        sched.podgroups.group_failed(e)   # leftovers park with backoff
+    if scheduled:
+        _note_gang_admitted(sched, e)
+        if sched.flight_recorder is not None:
+            sched.flight_recorder.note_gang(
+                _group_key(e, infos), "placed", engine=sched.engine,
+                placement=names[best], members=len(infos), need=need,
+                alignment=int(alignment[best]),
+                slices_considered=tuple(names),
+                fragmentation_delta=_frag_delta(
+                    batch.node_tensors, rows, len(batch.node_names)),
+            )
+    return scheduled, len(infos) - scheduled
+
+
+def _group_key(e: GroupEntry, infos: list[QueuedPodInfo]) -> str:
+    if e.group is not None:
+        return e.group.key
+    p = infos[0].pod
+    return f"{p.namespace}/{p.scheduling_group}"
+
+
+def _note_gang_admitted(sched: "Scheduler", e: GroupEntry) -> None:
+    """First full admission of a group: observe the quorum→admitted
+    latency ONCE. The series stays absent on gang-free runs — that
+    absence keeps the sentinel's gang-admission-stall rule dormant."""
+    if e.admitted:
+        return
+    e.admitted = True
+    sched.metrics.gang_admission.append(
+        (sched.engine, max(sched.clock() - e.timestamp, 0.0))
+    )
+
+
+def _frag_delta(nt, rows, num_nodes: int) -> int | None:
+    """How many fully-free slices this placement newly opens — the
+    fragmentation cost of the landing, rendered by ``kubetpu explain``.
+    None when the cluster carries no slice labels."""
+    from ..state.topology import topology_tensors
+
+    tt = topology_tensors(nt)
+    if not tt.num_slices:
+        return None
+    sid = np.asarray(tt.slice_id)[:num_nodes]
+    busy = np.zeros(tt.num_slices + 1, dtype=bool)
+    pc = np.asarray(nt.pod_count)[:num_nodes]
+    np.logical_or.at(busy, sid, pc > 0)
+    opened: set[int] = set()
+    for j in rows:
+        j = int(j)
+        if 0 <= j < num_nodes:
+            s = int(sid[j])
+            if s < tt.num_slices and not busy[s]:
+                opened.add(s)
+    return len(opened)
+
+
+def _try_gang_preemption(
+    sched: "Scheduler", e: GroupEntry, infos: list[QueuedPodInfo],
+    batch, device_batch, params, need: int,
+) -> bool:
+    """Topology-aware gang preemption: no placement fits, so offer each
+    low-priority victim GANG's slice as a contiguous candidate set and
+    dry-run the preemptor's whole engine under every "that gang evicted"
+    hypothesis on device (ops.preemption.dry_run_gang_preemption). A
+    feasible hypothesis evicts exactly ONE victim gang — every member via
+    ``client.delete_pod`` — and parks the preemptor until the deletes land
+    (assigned-pod deletes fire wake_all, which un-parks it).
+
+    Victim choice among feasible hypotheses: lowest victim priority,
+    then fewest victim pods, then highest slice alignment of the
+    resulting proposal. Returns True when victims were dispatched."""
+    if sched._post_filter is None or device_batch.topology is None:
+        return False
+    from ..ops.preemption import dry_run_gang_preemption
+    from ..state.topology import SLICE_KEY
+
+    gkey = _group_key(e, infos)
+    prior = sched._preempting.get(gkey)
+    if prior:
+        live = {u for u in prior if sched.cache.has_pod(u)}
+        if live:
+            sched._preempting[gkey] = live
+            return False          # earlier eviction still in flight
+        sched._preempting.pop(gkey, None)
+
+    pprio = max((i.pod.priority for i in infos), default=0)
+    node_index = {name: i for i, name in enumerate(batch.node_names)}
+    snapshot = sched._snapshot
+    nc, r = device_batch.nodes.requested.shape
+    ridx = {name: j for j, name in enumerate(batch.resource_names) if j < r}
+
+    cands = []   # (victim_key, victim_prio, [pods], slice_val, slice_rows)
+    for vkey, ve in sched.podgroups.entries.items():
+        if ve is e or not ve.scheduled:
+            continue
+        vpods: list[t.Pod] = []
+        vnodes: list[str] = []
+        for pk, node in ve.scheduled.items():
+            ninfo = snapshot.nodes.get(node)
+            if ninfo is None:
+                continue
+            for p in ninfo.pods.values():
+                if pod_key(p) == pk:
+                    vpods.append(p)
+                    vnodes.append(node)
+                    break
+        if not vpods:
+            continue
+        vprio = max(p.priority for p in vpods)
+        if vprio >= pprio:
+            continue              # only strictly lower-priority gangs
+        slice_vals = set()
+        for node in vnodes:
+            ninfo = snapshot.nodes.get(node)
+            val = (ninfo.node.labels_dict().get(SLICE_KEY)
+                   if ninfo is not None else None)
+            slice_vals.add(val)
+        if len(slice_vals) != 1 or None in slice_vals:
+            continue              # victims must sit on ONE labeled slice
+        sval = next(iter(slice_vals))
+        srows = [
+            i for i, name in enumerate(batch.node_names)
+            if (ni := snapshot.nodes.get(name)) is not None
+            and ni.node.labels_dict().get(SLICE_KEY) == sval
+        ]
+        if srows:
+            cands.append((vkey, vprio, vpods, sval, srows))
+    if not cands:
+        return False
+
+    c = len(cands)
+    masks = np.zeros((c, nc), dtype=bool)
+    freed_req = np.zeros((c, nc, r), dtype=np.int64)
+    freed_count = np.zeros((c, nc), dtype=np.int32)
+    for ci, (_, _, vpods, _, srows) in enumerate(cands):
+        masks[ci, srows] = True
+        for p in vpods:
+            j = node_index.get(p.node_name)
+            if j is None:
+                continue
+            freed_count[ci, j] += 1
+            for k, v in p.requests:
+                col = ridx.get(k)
+                if col is not None:
+                    freed_req[ci, j, col] += v
+    dev = sched.device
+    counts, alignment = dry_run_gang_preemption(
+        device_batch, params, torch.from_numpy(masks).to(dev),
+        torch.from_numpy(freed_req).to(dev), torch.from_numpy(freed_count).to(dev),
+        engine="batched" if sched.engine == "batched" else "greedy",
+    )
+    counts = counts.cpu().numpy()
+    alignment = alignment.cpu().numpy()
+
+    best = None
+    for ci, (vkey, vprio, vpods, sval, _) in enumerate(cands):
+        if int(counts[ci]) < need:
+            continue
+        key = (vprio, len(vpods), -int(alignment[ci]))
+        if best is None or key < best[0]:
+            best = (key, ci, vkey, vpods, sval)
+    if best is None:
+        return False
+
+    _, ci, vkey, vpods, sval = best
+    sched._preempting[gkey] = {p.uid for p in vpods}
+    for p in vpods:
+        sched.client.delete_pod(p, reason="preempted by " + gkey)
+    sched.metrics.note_preemption_victims(len(vpods))
+    if sched.flight_recorder is not None:
+        sched.flight_recorder.note_gang(
+            gkey, "preempting", engine=sched.engine,
+            placement=f"slice:{sval}", members=len(infos), need=need,
+            alignment=int(alignment[ci]),
+            slices_considered=tuple(f"slice:{v}" for _, _, _, v, _ in cands),
+            victims=tuple(pod_key(p) for p in vpods), victim_group=vkey,
+        )
+    # not unschedulable — WAITING on the dispatched evictions: park
+    # without backoff (the victims' assigned-pod deletes wake_all)
+    for info in infos:
+        e.pending[info.key] = info
+    e.attempts += 1
+    e.parked = True
+    return True
+
+
+def _bind_member(
+    sched: "Scheduler", e: GroupEntry, info: QueuedPodInfo, node_name: str
+) -> bool:
+    """Assume + bind one accepted member (prepareForBindingCycle +
+    runBindingCycle, submitPodGroupAlgorithmResult success arm), through
+    the port's synchronous ``_assume_and_bind``. Returns True, as the
+    reference does once the bind is dispatched: a failed bind already
+    handed the member back to the manager's pending pool
+    (``Scheduler._assume_and_bind``'s gang branch)."""
+    e.pending.pop(info.key, None)
+    e.scheduled[info.key] = node_name
+    sched._assume_and_bind(info, node_name)
+    sched.metrics.scheduled += 1
+    return True

@@ -18,7 +18,10 @@ replay (also when the nomination set moved under the in-flight cycle),
 ``_handle_unschedulable`` with its PostFilter branch, the nomination spent
 at assume and dropped at pod delete, ``_apply_extenders``, the recorder's
 calls (delivery, drop, cycle, requeue, preemption, bind), the engine seam
-and ``run_until_idle``.
+and ``run_until_idle``; and the gang lane (``sched.podgroup``): the
+``feature_gates``, the ``topology`` mode, the pod-group informers, the gang
+routing of pod events and bind failures, and the group cycles that run
+when the per-pod lane is drained and nothing is in flight.
 
 The device calls of the reference's cycle become torch calls: the pod
 leaves are uploaded to the scheduler's ``device`` in one copy, the node
@@ -47,10 +50,12 @@ The recorder's explain is launched in ``_finish_cycle`` after the
 assignments are fetched, on the current stream, before the next cycle's
 scatter can write the resident block: stage 1 stays free of CUDA calls.
 
-Not in these slices (each raises when asked for): the device mesh, gangs,
-DRA, volumes, the sentinel, the packing engine, the asynchronous API
-dispatcher and the metrics registry (so the recorder's staged latency
-vectors are recorded but observed into no histogram).
+Not in these slices (each raises when asked for): the device mesh, DRA,
+volumes, the sentinel, the packing engine, the asynchronous API
+dispatcher, the Reserve/Permit lifecycle runner and the metrics registry
+(so the recorder's staged latency vectors are recorded but observed into
+no histogram, and the gang lane's admission latencies and victims land on
+``SchedulerMetrics``).
 
 Reference semantics kept: the reference pops ONE pod per cycle
 (``ScheduleOne``); here a BATCH is popped and assigned by the greedy engine,
@@ -79,6 +84,7 @@ from ..assign.batched import batched_assign_device
 from ..assign.greedy import greedy_assign_device
 from ..framework import config as C
 from ..framework import runtime as rt
+from ..framework.featuregate import FeatureGate
 from ..queue import PriorityQueue, QueuedPodInfo
 from ..queue.events import (
     ActionType,
@@ -94,6 +100,7 @@ from ..state.encoder import encode_snapshot
 from ..state.snapshot import Cache, Snapshot
 from .extender import HTTPExtender, run_extenders
 from .flightrecorder import FlightRecorder
+from .podgroup import PodGroupManager, schedule_pod_groups
 
 
 @dataclass
@@ -157,6 +164,11 @@ class SchedulerMetrics:
     cycles: int = 0
     preemption_attempts: int = 0
     preemption_victims: int = 0
+    # the gang lane: (engine, quorum→admitted seconds) of each group's
+    # first admission (the reference's gang_admission_duration histogram),
+    # and one podgroup.GroupCycleTiming a group cycle
+    gang_admission: list = field(default_factory=list)
+    group_cycles: list = field(default_factory=list)
     # pipelined cycles whose device result was discarded and recomputed
     # because cluster state changed under them (node update / foreign pod
     # event between launch and completion) — replay preserves exact serial
@@ -219,6 +231,8 @@ class Scheduler:
         encode_cache: bool = True,
         flight_recorder: bool = True,
         dispatcher_workers: int = 0,
+        feature_gates=None,
+        topology: str = "off",
     ) -> None:
         """``device``: where the cycle's device work runs — ``"cuda"``
         (default: the hand-written kernels) or ``"cpu"`` (the plain
@@ -234,9 +248,19 @@ class Scheduler:
         decision records with the cycle-start breakdown (the explain
         kernels, one launch per cycle); ``False`` is the overhead escape
         hatch and leaves decisions unchanged. ``cfg.extenders``: the
-        scheduler-extender webhooks (``sched.extender``). The other
-        arguments name features of later slices; anything but their
-        default raises NotImplementedError."""
+        scheduler-extender webhooks (``sched.extender``).
+        ``feature_gates``: a FeatureGate or {name: bool} overrides
+        (pkg/features defaults apply; unknown names fail loudly): with
+        GenericWorkload and GangScheduling on, pods naming a
+        ``scheduling_group`` take the gang lane, and with
+        TopologyAwareWorkloadScheduling a group's topology constraint
+        runs the placement search. ``topology``: ``"on"``, ``"off"`` or
+        ``"auto"`` — active (not ``"off"``, and some node carries a
+        slice or rack label) it attaches the dense coordinate block to
+        every encoded batch: gang placement scores slice alignment, and
+        preemption can evict one whole low-priority gang to admit an
+        aligned one. The other arguments name features of later slices;
+        anything but their default raises NotImplementedError."""
         if engine == "packing":
             raise _not_ported("engine 'packing'", "Queue A item 11 (kernel B14)")
         if engine not in ("greedy", "batched"):
@@ -245,6 +269,12 @@ class Scheduler:
             raise _not_ported("the device mesh", "Queue A item 12 (kernel B15)")
         if dispatcher_workers:
             raise _not_ported("asynchronous binding", "Queue A item 13")
+        if topology not in ("on", "off", "auto"):
+            raise ValueError(f"unknown topology mode {topology!r}")
+        if feature_gates is None or isinstance(feature_gates, dict):
+            feature_gates = FeatureGate(feature_gates)
+        self.feature_gates = feature_gates
+        self.topology = topology
         self.client = client
         self.device = torch.device(device)
         self.cfg = cfg or C.SchedulerConfiguration()
@@ -321,6 +351,11 @@ class Scheduler:
         self.flight_recorder: "FlightRecorder | None" = (
             FlightRecorder() if flight_recorder else None
         )
+        self.podgroups = PodGroupManager(
+            clock,
+            initial_backoff=self.cfg.pod_initial_backoff_seconds,
+            max_backoff=self.cfg.pod_max_backoff_seconds,
+        )
         self.extenders = [HTTPExtender(c) for c in self.cfg.extenders]
         self._extender_pool = None
         if self.extenders:
@@ -372,6 +407,14 @@ class Scheduler:
         """frameworkForPod (schedule_one.go:532): None = not our pod."""
         return self.profiles.get(pod.scheduler_name)
 
+    def _gang_member(self, pod: t.Pod) -> bool:
+        """Is this pod routed through the gang lane? One predicate for
+        EVERY routing decision (add/update/bind-failure) — a pod must
+        never be gang-routed on one path and queue-routed on another."""
+        return bool(pod.scheduling_group) and self.feature_gates.enabled(
+            "GangScheduling"
+        )
+
     @staticmethod
     def _scheduling_gates(pod: t.Pod) -> str | None:
         """SchedulingGates PreEnqueue (plugins/schedulinggates): any
@@ -395,6 +438,7 @@ class Scheduler:
         self.queue.on_event(
             ClusterEvent(EventResource.NODE, ActionType.ADD), None, node
         )
+        self.podgroups.wake_all()   # new capacity may fit a parked gang
 
     def on_node_update(self, old: t.Node | None, new: t.Node) -> None:
         self.cache.update_node(new)
@@ -438,14 +482,22 @@ class Scheduler:
             # a pod naming an unknown profile is another scheduler's
             # responsibility (the reference's informer filters it out)
             return
-        if pod.scheduling_group:
-            raise _not_ported("the gang lane", "Queue A item 10 (kernels B11-B13)")
         if pod.node_name:
             self.cache.add_pod(pod)
+            if self._gang_member(pod):
+                # a pre-bound member counts toward the gang quorum
+                # (gangscheduling.go:82 AssignedPod/Add hint)
+                self.podgroups.mark_scheduled(pod, pod.node_name)
             self.queue.on_event(
                 ClusterEvent(EventResource.ASSIGNED_POD, ActionType.ADD),
                 None, pod,
             )
+        elif self._gang_member(pod):
+            # gang member: held by the manager until quorum (the
+            # GangScheduling PreEnqueue, gangscheduling.go:130). With the
+            # gate off, group members schedule individually (the plugin is
+            # simply not registered in the reference).
+            self.podgroups.add_pod(QueuedPodInfo(pod=pod, timestamp=self.clock()))
         else:
             fr = self.flight_recorder
             t_deliver = time.perf_counter() if fr is not None else 0.0
@@ -478,10 +530,17 @@ class Scheduler:
                 # and fire AssignedPod/Add
                 self.cache.add_pod(new)
                 self.queue.delete(new)
+                if self._gang_member(new):
+                    self.podgroups.mark_scheduled(new, new.node_name)
                 self.queue.on_event(
                     ClusterEvent(EventResource.ASSIGNED_POD, ActionType.ADD),
                     None, new,
                 )
+        elif self._gang_member(new):
+            # unbound gang member: refresh the manager's copy — routing it
+            # into the per-pod queue would bypass quorum gating and let the
+            # pod double-schedule against its own group lane
+            self.podgroups.update_pod(new)
         else:
             fr = self.flight_recorder
             t_deliver = time.perf_counter() if fr is not None else 0.0
@@ -506,6 +565,8 @@ class Scheduler:
         # a preemptor deleted while awaiting victim deletes must not leave a
         # stale pending-victims record for a later same-ns/name pod
         self._preempting.pop(pod_key(pod), None)
+        if pod.scheduling_group:
+            self.podgroups.remove_pod(pod)
         # has_pod covers BOUND pods too: a Delete event may carry a stale
         # object with node_name unset (cache.go:583 RemovePod's contract)
         if pod.node_name or self.cache.has_pod(pod.uid):
@@ -515,8 +576,23 @@ class Scheduler:
                 ClusterEvent(EventResource.ASSIGNED_POD, ActionType.DELETE),
                 pod, None,
             )
+            self.podgroups.wake_all()   # freed capacity may fit a gang
         else:
             self.queue.delete(pod)
+
+    # ---------------------------------------------------- PodGroup informers
+    def on_pod_group_add(self, group: t.PodGroup) -> None:
+        """scheduling/v1alpha3 PodGroup informer (gangscheduling.go:109:
+        a PodGroup add can complete a waiting gang's quorum)."""
+        self.podgroups.add_group(group)
+        self.queue.on_event(
+            ClusterEvent(EventResource.WORKLOAD, ActionType.ADD), None, group
+        )
+
+    on_pod_group_update = on_pod_group_add
+
+    def on_pod_group_delete(self, group: t.PodGroup) -> None:
+        self.podgroups.remove_group(group)
 
     def _pre_encode_pod(self, pod: t.Pod) -> None:
         """Event-time tensorization (the informer half of the encode
@@ -567,7 +643,12 @@ class Scheduler:
                 # pipeline drain: the queue emptied with one cycle on the
                 # wing — complete it and report its results
                 return self._complete_inflight()
-            return {"scheduled": 0, "unschedulable": 0}
+            # group lane: ready gangs run when the per-pod lane is drained
+            # (the reference interleaves group entities through the same
+            # queue; the batch loop gives per-pod work priority per cycle)
+            res = schedule_pod_groups(self, budget=limit)
+            self.metrics.unschedulable += res["unschedulable"]
+            return res
         if self.pipeline:
             return self._schedule_batch_pipelined(batch_infos, limit)
         return self._schedule_batch_serial(batch_infos)
@@ -693,7 +774,7 @@ class Scheduler:
         try:
             sb = rt.encode_batch_static(
                 self._snapshot, pods, profile, prev_nt=self._prev_nt,
-                cache=self.encode_cache,
+                cache=self.encode_cache, topology=self.topology,
             )
         except Exception:
             # stage 1 is an optimization: any failure falls back to the
@@ -802,7 +883,7 @@ class Scheduler:
                 sb = rt.encode_batch_static(
                     self._snapshot, pods, profile, nominated=nominated,
                     prev_nt=self._prev_nt, cache=self.encode_cache,
-                    track_changes=self.pipeline,
+                    track_changes=self.pipeline, topology=self.topology,
                 )
                 t_fin = time.perf_counter()
                 pre_encode_s, nodes_s = t_fin - t_enc, sb.nodes_s
@@ -980,6 +1061,12 @@ class Scheduler:
             self.metrics.bind_errors += 1
             self.metrics.errors += 1
             self.cache.forget_pod(assumed)
+            if self._gang_member(info.pod):
+                # gang member: hand back to the group manager (it never
+                # lived in the per-pod queue)
+                self.podgroups.unmark_scheduled(info.pod)
+                self.podgroups.requeue_member(info)
+                return False
             where = self.queue.add_unschedulable(info, error=True)
             if fr is not None:
                 fr.note_requeue(info.key, where, error=True)
@@ -1027,6 +1114,25 @@ class Scheduler:
         if where not in ("deleted", "already-queued"):
             # only patch status for pods that still exist and we own
             self.client.patch_status(info.pod, "Unschedulable")
+
+    def _encode_group(
+        self, profile: C.Profile, pods: list
+    ) -> "tuple[rt.EncodedBatch, rt.DeviceBatch, rt.ScoreParams]":
+        """The gang lane's encode of one group cycle's pods, on the per-pod
+        cycle's terms (the resident node block, the encode cache, the
+        nominations, the topology mode), with the extender verdicts
+        attached. Returns ``(batch, device_batch, params)``."""
+        batch = rt.encode_batch(
+            self._snapshot, pods, profile,
+            nominated=self.nominator.entries(), prev_nt=self._prev_nt,
+            resident=self._resident, cache=self.encode_cache,
+            track_changes=self.pipeline, device=self.device,
+            topology=self.topology,
+        )
+        self._prev_nt = batch.node_tensors
+        params = rt.score_params(profile, batch.resource_names)
+        device_batch, _ = self._apply_extenders(batch, pods)
+        return batch, device_batch, params
 
     def _apply_extenders(
         self, batch: "rt.EncodedBatch", pods: list

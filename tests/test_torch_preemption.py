@@ -152,8 +152,28 @@ def test_dry_run_equal_keys_keep_slot_order():
 
 
 def test_gang_dry_run_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        PO.dry_run_gang_preemption()
+    """The gang dry run (B13) was a later slice; it has landed with the
+    gang lane, so on CPU tensors it runs its plain version and equals
+    kubetpu's (tests/test_torch_gang_preemption.py holds it on seeded
+    sliced clusters)."""
+    from .torch_port_util import basic_cluster, encoded_pair
+
+    cache, pending = basic_cluster(num_nodes=12, num_bound=20, num_pending=6)
+    kb, kp, pb, pp = encoded_pair(cache, pending, KC.Profile())
+    n, r = pb.alloc.shape
+    masks = np.zeros((2, n), dtype=bool)
+    masks[0, :6] = True
+    masks[1, 6:12] = True
+    fr = np.zeros((2, n, r), dtype=np.int64)
+    fr[1, 6:9] = 10**6                        # more than held: clamps at 0
+    fc = np.zeros((2, n), dtype=np.int32)
+    fc[1, 6:9] = 3
+    want = KO.dry_run_gang_preemption(kb, kp, jnp.asarray(masks), jnp.asarray(fr),
+                                      jnp.asarray(fc))
+    got = PO.dry_run_gang_preemption(pb, pp, torch.from_numpy(masks),
+                                     torch.from_numpy(fr), torch.from_numpy(fc))
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
 
 
 # -------------------------------------------------------------- evaluator
