@@ -62,12 +62,16 @@ final ``ok`` line is not printed):
    SchedulingBasic block labeled into 32 TPU slices (1000 pods, 33
    placements: every slice and ``<all>``) and on the mixed, affinity and
    spread clusters cut into 8 slices (9 placements; there the batched
-   engine's placement search, ``filter_score`` + ``batched_round`` once a
-   placement, too), and
+   engine's placement search too: ``hypothesis_rows``, ``filter_score`` +
+   ``batched_round`` once a placement, ``slice_epilogue``), and
    ``gang_dry_run_scan`` must equal ``dry_run_gang_preemption_plain``
    (counts, alignment) at 32 eviction hypotheses on a full 5000-node
    sliced cluster, with freed rows on each victim slice, some more than
-   the node holds;
+   the node holds, and so must the batched engine's dry run on the same
+   inputs; ``hypothesis_rows`` alone must equal the plain rows of those
+   32 hypotheses and of the 33 SchedulingBasic placements, and
+   ``slice_epilogue`` alone the plain counts and alignment of the Basic
+   placements' results (with and without the slices) and the dry run's;
 4. main paths, each with the launch counts reset just before it and read
    just after and a full garbage collection just before (the line counts
    the full collections that fell inside the run, and the seconds the
@@ -113,7 +117,9 @@ final ``ok`` line is not printed):
    ``GangScheduling/5000Nodes_1000Gangs_3000Pods`` on a fleet labeled into
    32 TPU slices with ``topology="on"`` (placement cycles through
    ``hypothesis_scan``; every gang on one slice; the first placement search
-   equal to ``placement_assign_plain``), the latter again unlabeled with
+   equal to ``placement_assign_plain``), the former again on the batched
+   engine (placement cycles through ``hypothesis_rows``, ``filter_score``
+   + ``batched_round`` and ``slice_epilogue``), the latter again unlabeled with
    ``topology="off"`` (coalesced greedy cycles), and a gang preemption
    scenario at 5000 nodes and 32 slices (16 priority-0 gangs each on a
    slice, priority-10 pods on every other node, then a priority-10 gang
@@ -1573,10 +1579,15 @@ def timed(fn):
 
 
 def _equal_or_raise(name, got, want) -> int:
+    """Raise unless the tensors of ``got`` equal those of ``want`` (a None
+    only matches a None); return the largest absolute difference."""
     import torch
 
-    err = max(_max_abs(g, w) for g, w in zip(got, want))
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+    if any((g is None) != (w is None) for g, w in zip(got, want)):
+        raise AssertionError(f"{name}: kernel and plain version return different outputs")
+    pairs = [(g, w) for g, w in zip(got, want) if g is not None]
+    err = max(_max_abs(g, w) for g, w in pairs)
+    if not all(torch.equal(g, w) for g, w in pairs):
         raise AssertionError(f"{name}: kernel differs from the plain version "
                              f"(max abs err {err})")
     return err
@@ -1586,28 +1597,36 @@ def gang_checks(results) -> dict:
     """Phase 3's gang-lane checks: ``placement_scan`` (B11, B12 fused)
     against ``placement_assign_plain`` on the SchedulingBasic block cut
     into 32 slices (P = 1000, D = 33), and on the mixed, affinity and
-    spread clusters cut into 8 slices (D = 9); ``gang_dry_run_scan`` (B13)
-    against ``dry_run_gang_preemption_plain`` at C = 32 on a full sliced
-    cluster with freed rows, some clamping at 0. Exact (assignments,
-    counts, alignment). Returns the timings (kernel medians; the plain
-    version's one checked run)."""
+    spread clusters cut into 8 slices (D = 9), there also the batched
+    engine's search; ``gang_dry_run_scan`` (B13) against
+    ``dry_run_gang_preemption_plain`` at C = 32 on a full sliced cluster
+    with freed rows, some clamping at 0, on both engines; the batched
+    engine's ``hypothesis_rows`` and ``slice_epilogue`` alone. Exact
+    (assignments, counts, alignment, rows). Returns the three kernels'
+    timings (kernel medians; the plain search's one checked run)."""
     from kubetpu_torch import kernels
     from kubetpu_torch.assign.placement import (
         placement_assign_device,
         placement_assign_plain,
     )
     from kubetpu_torch.framework import config as C
-    from kubetpu_torch.ops.preemption import dry_run_gang_preemption_plain
+    from kubetpu_torch.ops.preemption import (
+        dry_run_gang_preemption,
+        dry_run_gang_preemption_plain,
+    )
 
-    def note(name, err):
-        results["hypothesis_scan"]["cases"].append(name)
-        results["hypothesis_scan"]["max_abs_err"] = max(
-            results["hypothesis_scan"]["max_abs_err"], err)
+    def note(name, err, kernel="hypothesis_scan"):
+        results[kernel]["cases"].append(name)
+        results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
+
+    def note_batched(name, err):
+        for kernel in ("hypothesis_rows", "slice_epilogue"):
+            note(name, err, kernel)
 
     cache, pending = basic_case(n_pending=1000)
     b, params = encode_topology(sliced(cache, SLICES), pending, C.Profile())
     masks, _ = slice_masks(b)
-    got = kernels.placement_scan(b.device, params, masks)
+    got = got_basic = kernels.placement_scan(b.device, params, masks)
     want, plain_ms = timed(lambda: placement_assign_plain(b.device, params, masks))
     note("SchedulingBasic placement", _equal_or_raise("placement_scan Basic", got, want))
     counts, align = got[1].tolist(), got[2].tolist()
@@ -1637,10 +1656,12 @@ def gang_checks(results) -> dict:
         got = kernels.placement_scan(bm.device, pm, mm)
         want = placement_assign_plain(bm.device, pm, mm)
         note(f"{name} placement", _equal_or_raise(f"placement_scan {name}", got, want))
-        # the batched engine under the same placements: B3 + B6 a placement
-        _equal_or_raise(f"batched placement {name}",
-                        placement_assign_device(bm.device, pm, mm, "batched"),
-                        placement_assign_plain(bm.device, pm, mm, "batched"))
+        # the batched engine under the same placements: hypothesis_rows,
+        # B3 + B6 a placement, slice_epilogue
+        note_batched(f"{name} batched placement", _equal_or_raise(
+            f"batched placement {name}",
+            placement_assign_device(bm.device, pm, mm, "batched"),
+            placement_assign_plain(bm.device, pm, mm, "batched")))
         d = bm.device
         log(f"kernels vs plain [placement_scan {name}]: P={d.requests.shape[0]} "
             f"N={d.alloc.shape[0]} D={mm.shape[0]} spread "
@@ -1663,7 +1684,95 @@ def gang_checks(results) -> dict:
         "shape": [bg.device.requests.shape[0], bg.device.alloc.shape[0], mg.shape[0]],
         **_hyp_bound(bg.device, pg, mg, a_all.tolist(), (fr, fc)),
     }
-    return timing
+    # the gang dry run on the batched engine: hypothesis_rows, B3 + B6 a
+    # hypothesis, slice_epilogue
+    got = dry_run_gang_preemption(bg.device, pg, mg, fr, fc, "batched")
+    want, batched_plain_ms = timed(
+        lambda: dry_run_gang_preemption_plain(bg.device, pg, mg, fr, fc, "batched"))
+    note_batched("batched gang dry run", _equal_or_raise("batched gang dry run", got, want))
+    _, batched_ms = timed(lambda: dry_run_gang_preemption(bg.device, pg, mg, fr, fc, "batched"))
+    log(f"kernels vs plain [batched gang dry run]: C={mg.shape[0]}: exact (counts "
+        f"{min(got[0].tolist())}..{max(got[0].tolist())}); {batched_ms:.3f} ms against the "
+        f"plain version's {batched_plain_ms:.3f} ms")
+    timing["gang_dry_run"]["batched_ms"] = batched_ms
+    timing["gang_dry_run"]["batched_plain_ms"] = batched_plain_ms
+    # the two batched-engine kernels alone, against the rows and the counts
+    # run_hypotheses builds: the node rows of the 32 eviction hypotheses and
+    # of the 33 SchedulingBasic placements; the epilogue over the Basic
+    # placements' and the dry run's assignments, with and without slices
+    rows_err = max(
+        _equal_or_raise(f"hypothesis_rows {label}", kernels.hypothesis_rows(*args),
+                        _plain_rows(*args))
+        for label, args in (("eviction", (bg.device, mg, fr, fc)),
+                            ("placement", (b.device, masks))))
+    note("32 eviction hypotheses, 33 placements", rows_err, "hypothesis_rows")
+    topo = b.device.topology
+    ab = got_basic[0]
+    epi_err = max(
+        _equal_or_raise(f"slice_epilogue {label}", kernels.slice_epilogue(*args),
+                        _plain_epilogue(*args))
+        for label, args in (
+            ("Basic placements", (ab, b.device.pod_valid, topo.slice_id, topo.num_slices)),
+            ("Basic placements, no slices", (ab, b.device.pod_valid, None, 0)),
+            ("gang dry run", (a_all, bg.device.pod_valid, bg.device.topology.slice_id,
+                              bg.device.topology.num_slices))))
+    note("Basic placements with and without slices, gang dry run", epi_err, "slice_epilogue")
+    log(f"kernels vs plain [hypothesis_rows, slice_epilogue]: exact on "
+        f"{mg.shape[0]} eviction hypotheses and {masks.shape[0]} placements")
+    N, R = bg.device.alloc.shape
+    H = mg.shape[0]
+    # each input read once, each output written once; their integer
+    # arithmetic is not counted (bytes bound both)
+    rows_bytes = (N + H * N + 2 * N * R * 8 + N * 4 + H * N * R * 8 + H * N * 4
+                  + H * N + 2 * H * N * R * 8 + H * N * 4)
+    Hb, Pb = ab.shape
+    epi_bytes = Hb * Pb * 4 + Pb + topo.slice_id.shape[0] * 4 + Hb * 8
+    return {
+        "hypothesis_scan": timing,
+        "hypothesis_rows": {
+            "ms": cuda_ms(lambda: kernels.hypothesis_rows(bg.device, mg, fr, fc), 20),
+            "plain_ms": cuda_ms(lambda: _plain_rows(bg.device, mg, fr, fc), 5),
+            "shape": [H, N], "bytes": rows_bytes, "ops": 0,
+        },
+        "slice_epilogue": {
+            "ms": cuda_ms(lambda: kernels.slice_epilogue(
+                ab, b.device.pod_valid, topo.slice_id, topo.num_slices), 20),
+            "plain_ms": cuda_ms(lambda: _plain_epilogue(
+                ab, b.device.pod_valid, topo.slice_id, topo.num_slices), 5),
+            "shape": [Hb, Pb], "bytes": epi_bytes, "ops": 0,
+        },
+    }
+
+
+def _plain_rows(b, masks, freed_req=None, freed_count=None):
+    """The hypotheses' node rows as ``assign.placement.run_hypotheses``
+    builds them, stacked: ``(valid, req, nz, pc)``, the last three None
+    without freed rows."""
+    import torch
+
+    H = masks.shape[0]
+    valid = torch.stack([b.node_valid & masks[h] for h in range(H)])
+    if freed_req is None:
+        return valid, None, None, None
+    return (valid,
+            torch.stack([torch.clamp(b.requested - freed_req[h], min=0) for h in range(H)]),
+            torch.stack([torch.clamp(b.nonzero_requested - freed_req[h], min=0)
+                         for h in range(H)]),
+            torch.stack([torch.clamp(b.pod_count - freed_count[h], min=0)
+                         for h in range(H)]))
+
+
+def _plain_epilogue(assignments, pod_valid, slice_id, num_slices):
+    """Each row's count and alignment as ``run_hypotheses`` computes them."""
+    import torch
+
+    from kubetpu_torch.ops.topology import alignment_score
+
+    counts = torch.sum((assignments >= 0) & pod_valid[None, :], dim=1).to(torch.int32)
+    if slice_id is None:
+        return counts, torch.zeros_like(counts)
+    return counts, torch.stack([
+        alignment_score(row, pod_valid, slice_id, num_slices)[0] for row in assignments])
 
 
 def kernels_phase():
@@ -1678,7 +1787,8 @@ def kernels_phase():
     results = {k: {"cases": [], "max_abs_err": 0}
                for k in ("filter_score", "greedy_scan", "batched_round", "scatter_rows",
                          "dry_run_preemption", "explain_summary",
-                         "filter_component_masks", "hypothesis_scan")}
+                         "filter_component_masks", "hypothesis_scan", "hypothesis_rows",
+                         "slice_epilogue")}
     # (name, batch, params, greedy assignments) for the explain checks
     explain_batches = []
     # the SchedulingBasic cycle: the greedy main path's shapes and timings
@@ -1777,7 +1887,7 @@ def kernels_phase():
     ext = extender_checks(results, (b, params), mixed_least)
     timing["filter_score"]["extender"] = ext["timing"]
     timing.update(explain_checks(results, explain_batches + ext["batches"]))
-    timing["hypothesis_scan"] = gang_checks(results)
+    timing.update(gang_checks(results))
     out = []
     for name, src, replaces in (
         ("filter_score", "kubetpu_torch/kernels/csrc/filter_score.cu",
@@ -1797,6 +1907,11 @@ def kernels_phase():
         ("hypothesis_scan", "kubetpu_torch/kernels/csrc/hypothesis_scan.cu",
          "kubetpu/assign/placement.py:38; kubetpu/ops/preemption.py:219; "
          "kubetpu/ops/topology.py:19, :41"),
+        ("hypothesis_rows", "kubetpu_torch/kernels/csrc/hypothesis_scan.cu",
+         "kubetpu/assign/placement.py:59; kubetpu/ops/preemption.py:243 (each hypothesis's "
+         "node rows, engine=batched)"),
+        ("slice_epilogue", "kubetpu_torch/kernels/csrc/hypothesis_scan.cu",
+         "kubetpu/ops/topology.py:19, :41 (engine=batched)"),
     ):
         tm = timing[name]
         bound_ms, bound_by = _bound(tm["bytes"], tm["ops"])
@@ -1842,7 +1957,8 @@ def kernels_phase():
     gd = hs["gang_dry_run"]
     log(f"timing [hypothesis_scan] gang dry run at {gd['shape'][0]}x{gd['shape'][1]}, C="
         f"{gd['shape'][2]}: kernel {gd['ms']:.4f} ms, plain {gd['plain_ms']:.4f} ms, bound "
-        f"{gd['bound_ms']:.6f} ms ({gd['bound_by']})")
+        f"{gd['bound_ms']:.6f} ms ({gd['bound_by']}); on the batched engine "
+        f"{gd['batched_ms']:.3f} ms, plain {gd['batched_plain_ms']:.3f} ms")
     k128 = timing["dry_run_preemption"]["k128"]
     log(f"timing [dry_run_preemption] at 5120x128: kernel {k128['ms']:.4f} ms, plain "
         f"{k128['plain_ms']:.4f} ms, bound {k128['bound_ms']:.6f} ms ({k128['bound_by']})")
@@ -2097,8 +2213,10 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
         log(f"[{case}/{workload}] {res.group_cycles} group cycles, "
             f"{res.hypotheses_per_cycle:.1f} placements a cycle: {gm['total']:.3f} ms a "
             f"cycle, of which encode {gm['encode']:.3f} ms and the device call "
-            f"{gm['device']:.3f} ms (placement search: filter_score + hypothesis_scan; "
-            f"coalesced: the engine); {res.throughput:.1f} pods/s")
+            f"{gm['device']:.3f} ms (placement search: "
+            + ("hypothesis_rows, filter_score + batched_round a placement, slice_epilogue"
+               if engine == "batched" else "filter_score + hypothesis_scan")
+            + f"; coalesced: the engine); {res.throughput:.1f} pods/s")
     ms = res.cycle_ms
     if not ms:
         return launches, dict(sched.client.bound), res.throughput
@@ -2508,12 +2626,20 @@ def gang_paths(card) -> list:
     """The GangScheduling paths through ``run_workload(device="cuda")`` with
     the three gates, then the gang preemption scenario. Returns their
     launch counts."""
+    from kubetpu_torch.assign.batched import batched_assign_plain
     from kubetpu_torch.assign.greedy import greedy_assign_plain
 
     sliced_kernels = ("filter_score", "hypothesis_scan")
     runs = [
         run_path(card, "GangScheduling", "5000Nodes_3Gangs_3000Pods_1000PerGroup",
                  "greedy", 3000, greedy_assign_plain, sliced_kernels,
+                 check=gang_check(1000, True),
+                 workload_kw=dict(feature_gates=GANG_GATES, topology="on", slices=SLICES)),
+        # the batched engine's placement search: hypothesis_rows, B3 + B6 a
+        # placement, slice_epilogue
+        run_path(card, "GangScheduling", "5000Nodes_3Gangs_3000Pods_1000PerGroup",
+                 "batched", 3000, batched_assign_plain,
+                 ("filter_score", "batched_round", "hypothesis_rows", "slice_epilogue"),
                  check=gang_check(1000, True),
                  workload_kw=dict(feature_gates=GANG_GATES, topology="on", slices=SLICES)),
         run_path(card, "GangScheduling", "5000Nodes_1000Gangs_3000Pods", "greedy", 3000,

@@ -14,8 +14,11 @@ Here ``placement_assign_plain`` is the plain PyTorch version, a loop over
 the masks; a CPU batch runs it. On a CUDA batch ``placement_assign_device``
 launches the hand-written ``hypothesis_scan`` kernel on the greedy engine
 (``kernels.placement_scan``: one block per placement, the alignment fused
-into its epilogue), and on the batched engine the landed ``filter_score``
-and ``batched_round`` kernels once per placement.
+into its epilogue), and on the batched engine ``kernels.batched_hypotheses``:
+the ``hypothesis_rows`` kernel builds every placement's node rows, the
+landed ``filter_score`` and ``batched_round`` kernels run once per
+placement, and the ``slice_epilogue`` kernel (the scan's epilogue on its
+own) counts and aligns every placement's result.
 
 Placement selection (findBestPlacement, schedule_one_podgroup.go:706) uses
 PlacementScore plugins; the in-tree scorer is PodGroupPodsCount
@@ -34,7 +37,7 @@ import torch
 
 from ..framework import runtime as rt
 from ..ops.topology import alignment_score
-from .batched import batched_assign_device, batched_assign_plain
+from .batched import batched_assign_plain
 from .greedy import greedy_assign_plain
 
 
@@ -118,12 +121,12 @@ def placement_assign_device(
 ):
     """The placement search where the batch lives: on the CPU the plain
     version; on a CUDA device the ``hypothesis_scan`` kernel (greedy), or
-    the ``filter_score`` + ``batched_round`` kernels once per placement
-    (batched). Same results as ``placement_assign_plain``."""
+    ``kernels.batched_hypotheses`` (batched). Same results as
+    ``placement_assign_plain``."""
     if b.device.type == "cpu":
         return placement_assign_plain(b, params, placement_masks, engine)
-    if engine == "batched":
-        return run_hypotheses(b, params, placement_masks, batched_assign_device)
-    from ..kernels import placement_scan
+    from .. import kernels
 
-    return placement_scan(b, params, placement_masks)
+    if engine == "batched":
+        return kernels.batched_hypotheses(b, params, placement_masks)
+    return kernels.placement_scan(b, params, placement_masks)

@@ -3,8 +3,10 @@
 ``csrc/filter_score.cu``, ``csrc/greedy_scan.cu``,
 ``csrc/batched_round.cu`` and ``csrc/hypothesis_scan.cu`` (the greedy scan
 under many node-set hypotheses: the gang lane's placement search and gang
-dry run; it shares ``csrc/scan_loop.cuh`` with ``greedy_scan.cu``) (all
-built on ``csrc/score_common.cuh``),
+dry run; it shares ``csrc/scan_loop.cuh`` with ``greedy_scan.cu``; its
+library also holds the batched engine's ``hypothesis_rows`` and
+``slice_epilogue`` kernels for the same two searches) (all built on
+``csrc/score_common.cuh``),
 ``csrc/scatter_rows.cu`` (the resident node block's dirty-row scatter),
 ``csrc/dry_run_preemption.cu`` (the preemption victim search), and the
 flight recorder's ``csrc/explain_summary.cu`` and
@@ -34,6 +36,7 @@ the plain version only for tensors that live on the CPU.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import subprocess
@@ -69,7 +72,7 @@ NVCC_FLAGS = (
 launch_counts = {
     "filter_score": 0, "greedy_scan": 0, "batched_round": 0, "scatter_rows": 0,
     "dry_run_preemption": 0, "explain_summary": 0, "filter_component_masks": 0,
-    "hypothesis_scan": 0,
+    "hypothesis_scan": 0, "hypothesis_rows": 0, "slice_epilogue": 0,
 }
 
 # ctypes argument types of each library's entry point
@@ -84,6 +87,14 @@ _ARGTYPES = {
     "filter_component_masks": [ctypes.c_void_p] * 7,
     "hypothesis_scan": [ctypes.c_void_p] * 17 + [ctypes.c_int64] + [ctypes.c_void_p] * 3
     + [ctypes.c_int64] * 2 + [ctypes.c_void_p],
+}
+# the entry points a library has beside its own
+_MORE_ENTRIES = {
+    "hypothesis_scan": {
+        "kt_hypothesis_rows": [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 12,
+        "kt_slice_epilogue": [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int64]
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -155,6 +166,9 @@ def build() -> dict[str, ctypes.CDLL]:
             fn = getattr(lib, "kt_" + name)
             fn.argtypes = _ARGTYPES[name]
             fn.restype = ctypes.c_int
+            for entry, argtypes in _MORE_ENTRIES.get(name, {}).items():
+                getattr(lib, entry).argtypes = argtypes
+                getattr(lib, entry).restype = ctypes.c_int
             err = getattr(lib, f"kt_{name}_error")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
@@ -456,10 +470,10 @@ def _smem(b: rt.DeviceBatch) -> int:
     return _spread_smem(sp.sig_idx.shape[1], sp.domain_present.shape[1])[0]
 
 
-def _raise_on(lib: ctypes.CDLL, name: str, code: int) -> None:
+def _raise_on(lib: ctypes.CDLL, name: str, code: int, kernel: str | None = None) -> None:
     if code != 0:
         msg = getattr(lib, f"kt_{name}_error")(code).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} (cudaError {code})")
+        raise RuntimeError(f"{kernel or name} launch failed: {msg} (cudaError {code})")
 
 
 def _filter_score(b: rt.DeviceBatch, p: rt.ScoreParams, want_total: bool,
@@ -679,6 +693,115 @@ def gang_dry_run_scan(b: rt.DeviceBatch, p: rt.ScoreParams, masks: torch.Tensor,
     _, counts, align = _hypothesis_scan(b, p, masks, freed_req, freed_count,
                                         "gang_dry_run_scan")
     return counts, align
+
+
+def hypothesis_rows(b: rt.DeviceBatch, masks: torch.Tensor,
+                    freed_req: torch.Tensor | None = None,
+                    freed_count: torch.Tensor | None = None):
+    """The ``hypothesis_rows`` kernel: every hypothesis's node rows at once
+    for the batched engine's hypotheses. Returns ``(valid (H, N) bool, req
+    (H, N, R) int64, nz (H, N, R) int64, pc (H, N) int32)``: ``valid[h] =
+    node_valid & masks[h]`` and, when ``freed_req`` (H, N, R) int64 /
+    ``freed_count`` (H, N) int32 are given, ``requested``,
+    ``nonzero_requested`` and ``pod_count`` less the freed rows, clamped at
+    0 (else the last three are None). Equal to the rows
+    ``assign.placement.run_hypotheses`` builds."""
+    dev = b.alloc.device
+    if dev.type != "cuda":
+        raise ValueError(f"hypothesis_rows: the kernel takes CUDA tensors, batch is on {dev}")
+    N, R = b.alloc.shape
+    H = masks.shape[0] if masks.dim() == 2 else -1
+    p_mask = _check("masks", masks, torch.bool, (H, N), dev)
+    if (freed_req is None) != (freed_count is None):
+        raise ValueError("hypothesis_rows: freed_req and freed_count come together")
+    p_valid = _check("node_valid", b.node_valid, torch.bool, (N,), dev)
+    valid = torch.empty((H, N), dtype=torch.bool, device=dev)
+    req = nz = pc = None
+    ptrs = [None] * 5
+    if freed_req is not None:
+        ptrs = [
+            _check("requested", b.requested, torch.int64, (N, R), dev),
+            _check("nonzero_requested", b.nonzero_requested, torch.int64, (N, R), dev),
+            _check("pod_count", b.pod_count, torch.int32, (N,), dev),
+            _check("freed_req", freed_req, torch.int64, (H, N, R), dev),
+            _check("freed_count", freed_count, torch.int32, (H, N), dev),
+        ]
+        req = torch.empty((H, N, R), dtype=torch.int64, device=dev)
+        nz = torch.empty((H, N, R), dtype=torch.int64, device=dev)
+        pc = torch.empty((H, N), dtype=torch.int32, device=dev)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    lib = build()["hypothesis_scan"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.kt_hypothesis_rows(H, N, R, p_valid, p_mask, *ptrs, valid.data_ptr(),
+                                  ptr(req), ptr(nz), ptr(pc), stream)
+    _raise_on(lib, "hypothesis_scan", code, "hypothesis_rows")
+    launch_counts["hypothesis_rows"] += 1
+    return valid, req, nz, pc
+
+
+def slice_epilogue(assignments: torch.Tensor, pod_valid: torch.Tensor,
+                   slice_id: torch.Tensor | None, num_slices: int):
+    """The ``slice_epilogue`` kernel over H finished assignment rows
+    (H, P) int32 (one block a row, the ``hypothesis_scan`` epilogue):
+    ``(counts (H,) int32, alignment (H,) int32)`` — each row's assigned
+    valid pods and Σ c_s² over its labeled slices (``slice_id`` (N,)
+    int32, None for no topology leaf: alignment 0). Equal to the counts
+    and ``ops.topology.alignment_score`` of each row."""
+    dev = assignments.device
+    if dev.type != "cuda":
+        raise ValueError(f"slice_epilogue: the kernel takes CUDA tensors, got {dev}")
+    H, P = assignments.shape if assignments.dim() == 2 else (-1, -1)
+    p_assign = _check("assignments", assignments, torch.int32, (H, P), dev)
+    p_pod = _check("pod_valid", pod_valid, torch.bool, (P,), dev)
+    smem, slice_buf, p_slice = 0, None, None
+    if slice_id is None:
+        num_slices = 0
+    else:
+        p_slice = _check("slice_id", slice_id, torch.int32, (slice_id.shape[0],), dev)
+        need = 4 * (num_slices + 1)
+        if need <= _SMEM_LIMIT:
+            smem = need
+        else:
+            slice_buf = torch.empty((H, num_slices + 1), dtype=torch.int32, device=dev)
+    counts = torch.empty((H,), dtype=torch.int32, device=dev)
+    align = torch.empty((H,), dtype=torch.int32, device=dev)
+    lib = build()["hypothesis_scan"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.kt_slice_epilogue(
+        H, P, p_pod, p_assign, p_slice, num_slices,
+        None if slice_buf is None else slice_buf.data_ptr(), counts.data_ptr(),
+        align.data_ptr(), smem, stream)
+    _raise_on(lib, "hypothesis_scan", code, "slice_epilogue")
+    launch_counts["slice_epilogue"] += 1
+    return counts, align
+
+
+def batched_hypotheses(b: rt.DeviceBatch, p: rt.ScoreParams, masks: torch.Tensor,
+                       freed_req: torch.Tensor | None = None,
+                       freed_count: torch.Tensor | None = None):
+    """B11 / B13 on the batched engine: ``hypothesis_rows`` once, the
+    batched engine (``filter_score`` + ``batched_round``) once a
+    hypothesis on its rows, then ``slice_epilogue`` once over the (H, P)
+    assignments. Returns ``(assignments (H, P) int32, counts (H,) int32,
+    alignment (H,) int32)``, equal to ``assign.placement.run_hypotheses``
+    with the plain batched engine."""
+    valid, req, nz, pc = hypothesis_rows(b, masks, freed_req, freed_count)
+    H, P = valid.shape[0], b.requests.shape[0]
+    assignments = torch.empty((H, P), dtype=torch.int32, device=b.alloc.device)
+    for h in range(H):
+        nodes = dataclasses.replace(b.nodes, node_valid=valid[h])
+        if req is not None:
+            nodes = dataclasses.replace(nodes, requested=req[h], nonzero_requested=nz[h],
+                                        pod_count=pc[h])
+        assignments[h], _ = batched_assign(dataclasses.replace(b, nodes=nodes), p)
+    topo = b.topology
+    counts, align = slice_epilogue(
+        assignments, b.pod_valid, None if topo is None else topo.slice_id,
+        0 if topo is None else int(topo.num_slices))
+    return assignments, counts, align
 
 
 def batched_assign(b: rt.DeviceBatch, p: rt.ScoreParams, max_rounds: int = 0,

@@ -45,7 +45,8 @@ constexpr int kThreads = kt::kThreads;
 // null, its per-slice counts (S + 1 buckets, the last the unlabeled one)
 // in `cnt` and alignment = sum over s < S of cnt[s]^2. Every thread of the
 // block calls it.
-__device__ __forceinline__ void slice_epilogue(const ScoreArgs& a, const int32_t* assignments,
+__device__ __forceinline__ void slice_epilogue(int64_t P, const uint8_t* pod_valid,
+                                               const int32_t* assignments,
                                                const int32_t* slice_id, int64_t num_slices,
                                                int32_t* cnt, int32_t* count_out,
                                                int32_t* align_out) {
@@ -56,9 +57,9 @@ __device__ __forceinline__ void slice_epilogue(const ScoreArgs& a, const int32_t
     for (int64_t s = tid; s <= num_slices; s += kThreads) cnt[s] = 0;
   __syncthreads();
   int64_t c = 0;
-  for (int64_t p = tid; p < a.P; p += kThreads) {
+  for (int64_t p = tid; p < P; p += kThreads) {
     const int32_t j = assignments[p];
-    if (j < 0 || !a.pod_valid[p]) continue;
+    if (j < 0 || !pod_valid[p]) continue;
     ++c;
     if (slice_id != nullptr) atomicAdd(cnt + slice_id[j], 1);
   }
@@ -111,7 +112,54 @@ hypothesis_scan_kernel(ScoreArgs a, const uint8_t* mask0, const int64_t* base0,
                           sp_counts, ok_buf);
   int32_t* cnt = slice_buf != nullptr ? slice_buf + h * (num_slices + 1)
                                       : reinterpret_cast<int32_t*>(s_dyn);
-  slice_epilogue(a, mine, slice_id, num_slices, cnt, counts + h, align + h);
+  slice_epilogue(P, a.pod_valid, mine, slice_id, num_slices, cnt, counts + h, align + h);
+}
+
+// The batched engine's hypotheses (B11 / B13 on engine="batched"): the
+// engine's own kernels run once a hypothesis, so the per-hypothesis node
+// rows and the epilogue are launches of their own.
+//
+// hypothesis_rows: element i = h * N + n of every hypothesis at once:
+// valid[i] = node_valid[n] & hmask[i] and, when freed_req is not null,
+// req[i, r] = max(requested[n, r] - freed_req[i, r], 0), nz[i, r] the same
+// from nonzero_requested (the reference subtracts the freed requests from
+// both), pc[i] = max(pod_count[n] - freed_count[i], 0). The differences
+// wrap like the plain version's tensor arithmetic.
+__global__ void hypothesis_rows_kernel(int64_t HN, int64_t N, int64_t R,
+                                       const uint8_t* node_valid, const uint8_t* hmask,
+                                       const int64_t* requested, const int64_t* nonzero,
+                                       const int32_t* pod_count, const int64_t* freed_req,
+                                       const int32_t* freed_count, uint8_t* valid, int64_t* req,
+                                       int64_t* nz, int32_t* pc) {
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < HN;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t n = i % N;
+    valid[i] = node_valid[n] & hmask[i];
+    if (freed_req == nullptr) continue;
+    for (int64_t r = 0; r < R; ++r) {
+      const uint64_t f = (uint64_t)freed_req[i * R + r];
+      const int64_t dr = (int64_t)((uint64_t)requested[n * R + r] - f);
+      const int64_t dz = (int64_t)((uint64_t)nonzero[n * R + r] - f);
+      req[i * R + r] = dr > 0 ? dr : 0;
+      nz[i * R + r] = dz > 0 ? dz : 0;
+    }
+    const int32_t dc = (int32_t)((uint32_t)pod_count[n] - (uint32_t)freed_count[i]);
+    pc[i] = dc > 0 ? dc : 0;
+  }
+}
+
+// slice_epilogue over H finished (H, P) assignment rows, one block a row:
+// the same epilogue as the scan's (counts and, with slice_id, alignment).
+__global__ void __launch_bounds__(kThreads, 1)
+slice_epilogue_kernel(int64_t P, const uint8_t* pod_valid, const int32_t* assignments,
+                      const int32_t* slice_id, int64_t num_slices, int32_t* slice_buf,
+                      int32_t* counts, int32_t* align) {
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  const int64_t h = blockIdx.x;
+  int32_t* cnt = slice_buf != nullptr ? slice_buf + h * (num_slices + 1)
+                                      : reinterpret_cast<int32_t*>(s_dyn);
+  slice_epilogue(P, pod_valid, assignments + h * P, slice_id, num_slices, cnt, counts + h,
+                 align + h);
 }
 
 }  // namespace
@@ -154,6 +202,46 @@ extern "C" int kt_hypothesis_scan(const ScoreArgs* args, const void* mask0, cons
       static_cast<int64_t*>(nz), static_cast<int32_t*>(pc), static_cast<uint8_t*>(ports),
       static_cast<int64_t*>(pa_sums), static_cast<int64_t*>(row_total),
       static_cast<int32_t*>(sp_counts), static_cast<uint8_t*>(ok_buf),
+      static_cast<const int32_t*>(slice_id), num_slices, static_cast<int32_t*>(slice_buf),
+      static_cast<int32_t*>(counts), static_cast<int32_t*>(align));
+  return (int)cudaGetLastError();
+}
+
+// Launches hypothesis_rows over H hypotheses of N nodes and R resources:
+// node_valid (N,), hmask (H, N), requested and nonzero (N, R), pod_count
+// (N,); freed_req (H, N, R) and freed_count (H, N), or both null (then
+// only valid (H, N) is written and requested, nonzero, pod_count, req, nz
+// and pc may be null). Returns the cudaError_t of the launch.
+extern "C" int kt_hypothesis_rows(int64_t H, int64_t N, int64_t R, const void* node_valid,
+                                  const void* hmask, const void* requested, const void* nonzero,
+                                  const void* pod_count, const void* freed_req,
+                                  const void* freed_count, void* valid, void* req, void* nz,
+                                  void* pc, void* stream) {
+  const int64_t HN = H * N;
+  if (HN == 0) return 0;
+  const int64_t blocks = (HN + 255) / 256 < 4096 ? (HN + 255) / 256 : 4096;
+  hypothesis_rows_kernel<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      HN, N, R, static_cast<const uint8_t*>(node_valid), static_cast<const uint8_t*>(hmask),
+      static_cast<const int64_t*>(requested), static_cast<const int64_t*>(nonzero),
+      static_cast<const int32_t*>(pod_count), static_cast<const int64_t*>(freed_req),
+      static_cast<const int32_t*>(freed_count), static_cast<uint8_t*>(valid),
+      static_cast<int64_t*>(req), static_cast<int64_t*>(nz), static_cast<int32_t*>(pc));
+  return (int)cudaGetLastError();
+}
+
+// Launches slice_epilogue over assignments (H, P) int32 with pod_valid
+// (P,); slice_id (N,) and num_slices as for kt_hypothesis_scan (null: the
+// alignment is 0); slice_buf (H, S + 1) when the S + 1 counts do not fit
+// in `smem` bytes of dynamic shared memory, else null. Outputs counts (H,)
+// and align (H,) int32. Returns the cudaError_t of the launch.
+extern "C" int kt_slice_epilogue(int64_t H, int64_t P, const void* pod_valid,
+                                 const void* assignments, const void* slice_id,
+                                 int64_t num_slices, void* slice_buf, void* counts, void* align,
+                                 int64_t smem, void* stream) {
+  if (H == 0) return 0;
+  slice_epilogue_kernel<<<(unsigned)H, kThreads, (size_t)smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      P, static_cast<const uint8_t*>(pod_valid), static_cast<const int32_t*>(assignments),
       static_cast<const int32_t*>(slice_id), num_slices, static_cast<int32_t*>(slice_buf),
       static_cast<int32_t*>(counts), static_cast<int32_t*>(align));
   return (int)cudaGetLastError();

@@ -256,20 +256,17 @@ def dry_run_gang_preemption(
 ):
     """The gang dry run where the batch lives: on the CPU the plain version;
     on a CUDA device the ``hypothesis_scan`` kernel (greedy engine,
-    ``kernels.gang_dry_run_scan``), or the ``filter_score`` +
-    ``batched_round`` kernels once per hypothesis (batched engine). Same
+    ``kernels.gang_dry_run_scan``), or ``kernels.batched_hypotheses``
+    (batched engine: ``hypothesis_rows``, then ``filter_score`` +
+    ``batched_round`` once per hypothesis, then ``slice_epilogue``). Same
     results as ``dry_run_gang_preemption_plain``."""
     if b.device.type == "cpu":
         return dry_run_gang_preemption_plain(
             b, params, candidate_masks, freed_req, freed_count, engine)
+    from .. import kernels
+
     if engine == "batched":
-        from ..assign.batched import batched_assign_device
-        from ..assign.placement import run_hypotheses
-
-        _, counts, alignment = run_hypotheses(
-            b, params, candidate_masks, batched_assign_device, freed_req,
-            freed_count)
+        _, counts, alignment = kernels.batched_hypotheses(
+            b, params, candidate_masks, freed_req, freed_count)
         return counts, alignment
-    from ..kernels import gang_dry_run_scan
-
-    return gang_dry_run_scan(b, params, candidate_masks, freed_req, freed_count)
+    return kernels.gang_dry_run_scan(b, params, candidate_masks, freed_req, freed_count)

@@ -201,3 +201,69 @@ def test_node_valid_feeds_only_the_static_verdict(seed):
         for g, w in zip(got[1:], base[1:]):
             assert (g is None) == (w is None)
             assert w is None or torch.equal(g, w)
+
+
+def test_batched_kernel_wrappers_refuse_cpu_tensors():
+    _, _, pb, pp = _pair(0, "on")
+    masks = torch.ones((2, pb.alloc.shape[0]), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.hypothesis_rows(pb, masks)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.slice_epilogue(torch.zeros((2, pb.requests.shape[0]), dtype=torch.int32),
+                               pb.pod_valid, pb.topology.slice_id, pb.topology.num_slices)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.batched_hypotheses(pb, pp, masks)
+
+
+def _plain_rows(b, masks, freed_req=None, freed_count=None):
+    """What ``kernels.hypothesis_rows`` computes, from the rows
+    ``run_hypotheses`` builds."""
+    valid = torch.stack([b.node_valid & m for m in masks])
+    if freed_req is None:
+        return valid, None, None, None
+    return (valid, torch.clamp(b.requested[None] - freed_req, min=0),
+            torch.clamp(b.nonzero_requested[None] - freed_req, min=0),
+            torch.clamp(b.pod_count[None] - freed_count, min=0))
+
+
+def _plain_epilogue(assignments, pod_valid, slice_id, num_slices):
+    """What ``kernels.slice_epilogue`` computes."""
+    from kubetpu_torch.ops.topology import alignment_score
+
+    counts = torch.sum((assignments >= 0) & pod_valid[None], dim=1).to(torch.int32)
+    if slice_id is None:
+        return counts, torch.zeros_like(counts)
+    return counts, torch.stack(
+        [alignment_score(a, pod_valid, slice_id, num_slices)[0] for a in assignments])
+
+
+@pytest.mark.parametrize("freed", [False, True])
+@pytest.mark.parametrize("topology", ["on", "off"])
+def test_batched_hypotheses_glue(monkeypatch, topology, freed):
+    """``kernels.batched_hypotheses`` (the batched engine's placement search
+    and gang dry run on the card) with its three kernels swapped for what
+    they compute: the per-hypothesis rows it hands the engine, the rows it
+    writes the assignments into and the epilogue's inputs must give the
+    plain search's results."""
+    kb, kp, pb, pp = _pair(4, topology)
+    masks = torch.from_numpy(masks_for(kb, 4))
+    from kubetpu_torch.assign.batched import batched_assign_plain
+    from kubetpu_torch.ops.preemption import dry_run_gang_preemption_plain
+
+    monkeypatch.setattr(kernels, "hypothesis_rows", _plain_rows)
+    monkeypatch.setattr(kernels, "slice_epilogue", _plain_epilogue)
+    monkeypatch.setattr(kernels, "batched_assign", batched_assign_plain)
+    if not freed:
+        got = kernels.batched_hypotheses(pb, pp, masks)
+        want = placement_assign_plain(pb, pp, masks, "batched")
+    else:
+        rng = np.random.default_rng(4)
+        D, (N, R) = masks.shape[0], pb.alloc.shape
+        freed_req = torch.from_numpy(
+            rng.integers(0, 2, (D, N, R)) * rng.integers(0, 900, (D, N, R)))
+        freed_count = torch.from_numpy(rng.integers(0, 3, (D, N)).astype(np.int32))
+        got = kernels.batched_hypotheses(pb, pp, masks, freed_req, freed_count)[1:]
+        want = dry_run_gang_preemption_plain(pb, pp, masks, freed_req, freed_count,
+                                             "batched")
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
