@@ -10,7 +10,7 @@ Phases, in order (any failure raises: the exit code is then non-zero and the
 final ``ok`` line is not printed):
 
 1. device: requires CUDA, prints ``nvidia-smi``'s name and power limit;
-2. build: compiles the eight kernel libraries from
+2. build: compiles the nine kernel libraries from
    ``kubetpu_torch/kernels/csrc`` with nvcc (one process per source,
    started together) and prints the build time and ptxas' register /
    spill report;
@@ -60,7 +60,8 @@ final ``ok`` line is not printed):
    batches; then the gang lane (B11-B13): ``placement_scan`` must equal
    ``placement_assign_plain`` (assignments, counts, alignment) on the
    SchedulingBasic block labeled into 32 TPU slices (1000 pods, 33
-   placements: every slice and ``<all>``) and on the mixed, affinity and
+   placements: every slice and ``<all>``; the plain search on 8 slices and
+   ``<all>``, phase 4 holds all 33) and on the mixed, affinity and
    spread clusters cut into 8 slices (9 placements; there the batched
    engine's placement search too: ``hypothesis_rows``, ``filter_score`` +
    ``batched_round`` once a placement, ``slice_epilogue``), and
@@ -72,6 +73,18 @@ final ``ok`` line is not printed):
    32 hypotheses and of the 33 SchedulingBasic placements, and
    ``slice_epilogue`` alone the plain counts and alignment of the Basic
    placements' results (with and without the slices) and the dry run's;
+   then the packing engine (B14, with B12's ``slice_occupancy`` fused):
+   ``kernels.packing_assign`` must equal ``packing_assign_plain``
+   (assignments, the seven state slots, the duals' bits, iterations and
+   nodes used; the objective, a float32 sum taken in another order,
+   within rtol 1e-5), and ``packing_start``, the node pass, one
+   ``packing_round`` and ``packing_end`` alone their plain parts, at
+   1024 x 5120 on the SchedulingBasic block cold and warm, on it labeled
+   into 32 slices with ``topology="on"``, on a BinPacking block, on the
+   coupled-heavy SchedulingPodAffinity and TopologySpreading blocks, on
+   the mixed cluster (512 x 2048) and under a profile without the
+   NodeResourcesFit filter; and the dual ascent's log1p on the card must
+   equal the plain version's bits at every count in [0, 1024];
 4. main paths, each with the launch counts reset just before it and read
    just after and a full garbage collection just before (the line counts
    the full collections that fell inside the run, and the seconds the
@@ -125,7 +138,15 @@ final ``ok`` line is not printed):
    slice, priority-10 pods on every other node, then a priority-10 gang
    that fits nowhere: the gang dry run over at least 16 hypotheses, equal
    to its plain version on that call's inputs, exactly one gang evicted,
-   the preemptor bound on the freed slice). Then SchedulingBasic and
+   the preemptor bound on the freed slice). Then the packing engine:
+   ``BinPacking/1000Nodes_3000Pods`` on the greedy, batched and packing
+   engines (each engine's pods/s, nodes carrying the measured pods,
+   priority SLO hit rate and solver iterations a cycle printed; packing
+   must use no more nodes than greedy), and
+   ``SchedulingBasic/5000Nodes_10000Pods`` on packing, unlabeled and on
+   the 32-slice fleet with ``topology="on"``: every pod bound, capacity
+   held, the start, round and end kernels launched, the first cycle equal
+   to the plain solve from cold duals. Then SchedulingBasic and
    PreferredTopologySpreading run again with ``pipeline=True``: their
    bound maps must equal the serial runs', pod for pod; last, a seeded
    preempt-then-schedule scenario under a stepped clock (500 nodes of four
@@ -1596,7 +1617,8 @@ def _equal_or_raise(name, got, want) -> int:
 def gang_checks(results) -> dict:
     """Phase 3's gang-lane checks: ``placement_scan`` (B11, B12 fused)
     against ``placement_assign_plain`` on the SchedulingBasic block cut
-    into 32 slices (P = 1000, D = 33), and on the mixed, affinity and
+    into 32 slices (P = 1000, D = 33; the plain search on 8 slices and
+    ``<all>``), and on the mixed, affinity and
     spread clusters cut into 8 slices (D = 9), there also the batched
     engine's search; ``gang_dry_run_scan`` (B13) against
     ``dry_run_gang_preemption_plain`` at C = 32 on a full sliced cluster
@@ -1604,6 +1626,8 @@ def gang_checks(results) -> dict:
     engine's ``hypothesis_rows`` and ``slice_epilogue`` alone. Exact
     (assignments, counts, alignment, rows). Returns the three kernels'
     timings (kernel medians; the plain search's one checked run)."""
+    import torch
+
     from kubetpu_torch import kernels
     from kubetpu_torch.assign.placement import (
         placement_assign_device,
@@ -1627,15 +1651,22 @@ def gang_checks(results) -> dict:
     b, params = encode_topology(sliced(cache, SLICES), pending, C.Profile())
     masks, _ = slice_masks(b)
     got = got_basic = kernels.placement_scan(b.device, params, masks)
-    want, plain_ms = timed(lambda: placement_assign_plain(b.device, params, masks))
-    note("SchedulingBasic placement", _equal_or_raise("placement_scan Basic", got, want))
+    # the plain search of 8 slices and <all> (each placement's search is
+    # independent of the others); phase 4's GangScheduling 3 x 1000 path
+    # holds its first search, all 33 placements at P = 1000, to the plain one
+    sel = torch.tensor(list(range(8)) + [masks.shape[0] - 1], device=masks.device)
+    want, plain_ms = timed(lambda: placement_assign_plain(b.device, params, masks[sel]))
+    note("SchedulingBasic placement",
+         _equal_or_raise("placement_scan Basic", tuple(x[sel] for x in got), want))
     counts, align = got[1].tolist(), got[2].tolist()
     log(f"kernels vs plain [placement_scan SchedulingBasic]: P=1000 N="
         f"{b.device.alloc.shape[0]} D={masks.shape[0]} slices {b.device.topology.num_slices}: "
-        f"exact (counts {min(counts)}..{max(counts)}, alignment {min(align)}..{max(align)})")
+        f"exact on {len(sel)} placements (counts {min(counts)}..{max(counts)}, alignment "
+        f"{min(align)}..{max(align)})")
     timing = {
         "ms": cuda_ms(lambda: kernels.placement_scan(b.device, params, masks), 5),
-        "plain_ms": plain_ms, "shape": [1000, b.device.alloc.shape[0], masks.shape[0]],
+        "plain_ms": plain_ms, "plain_placements": len(sel),
+        "shape": [1000, b.device.alloc.shape[0], masks.shape[0]],
         "filter_score_ms": cuda_ms(lambda: kernels.filter_score(b.device, params), 10),
         # where the time goes: the <all> placement alone, the 32 slices alone
         "all_only_ms": cuda_ms(lambda: kernels.placement_scan(b.device, params, masks[-1:]), 5),
@@ -1775,6 +1806,222 @@ def _plain_epilogue(assignments, pod_valid, slice_id, num_slices):
         alignment_score(row, pod_valid, slice_id, num_slices)[0] for row in assignments])
 
 
+# ------------------------------- 3e. the packing engine (B14, B12 fused)
+def binpack_case(n_nodes=5000, n_bound=20, n_pending=1024):
+    """A BinPacking cycle at full width: node_default nodes, pod_binpack
+    init pods bound round-robin over the first nodes, a full batch of
+    pod_binpack pods pending (the 10-slot size and priority cycle)."""
+    from kubetpu_torch.perf import workloads as W
+
+    nodes = [W.node_default(i) for i in range(n_nodes)]
+    bound = [W.pod_binpack(f"init-1-namespace-0-{j}", "namespace-0").with_node(
+        nodes[j % n_nodes].name) for j in range(n_bound)]
+    pending = [W.pod_binpack(f"measure-2-namespace-1-{j}", "namespace-1")
+               for j in range(n_pending)]
+    return _cache_with(nodes, bound), pending
+
+
+def nofit_profile():
+    """The NodeResourcesFit filter off (its score on): the solve must not
+    re-impose capacity."""
+    from kubetpu_torch.framework import config as C
+
+    return C.Profile(filters=C.PluginSet(enabled=()),
+                     scores=C.PluginSet(enabled=((C.NODE_RESOURCES_FIT, 1),)),
+                     default_spread_constraints=())
+
+
+def _bits_equal(name, got, want) -> int:
+    """float32 tensors equal bit for bit; raises otherwise."""
+    import torch
+
+    return _equal_or_raise(name, (got.view(torch.int32),), (want.view(torch.int32),))
+
+
+def _packing_equal(name, b, params, lam, weights, results) -> tuple:
+    """``kernels.packing_assign`` against ``packing_assign_plain`` on one
+    batch — assignments, the seven state slots, the duals (bits),
+    iterations and nodes used exactly, the objective within rtol 1e-5 —
+    and each launch alone against its plain part: ``packing_start``, the
+    node pass (``packing_nodes``), one ``packing_round`` from the batch's
+    start, and ``packing_end`` on the plain solve's final state. Returns
+    the kernel's solve."""
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.assign import packing as PK
+
+    def note(kernel, err):
+        results[kernel]["cases"].append(name)
+        results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
+
+    got = kernels.packing_assign(b, params, lam, weights)
+    want = PK.packing_assign_plain(b, params, lam, weights)
+    torch.cuda.synchronize()
+    ka, ks, klam, kobj, kit, knu = got
+    pa, ps, plam, pobj, pit, pnu = want
+    err = _engine_err(f"{name} packing", ka, ks, pa, ps)
+    err = max(err, _bits_equal(f"{name} duals", klam, plam))
+    if kit != pit or int(knu) != int(pnu):
+        raise AssertionError(f"{name}: kernel {kit} iterations, {int(knu)} nodes used; "
+                             f"plain {pit}, {int(pnu)}")
+    rel = abs(float(kobj) - float(pobj)) / max(abs(float(pobj)), 1e-30)
+    if rel > 1e-5:
+        raise AssertionError(f"{name}: objective {float(kobj)} against the plain "
+                             f"{float(pobj)} (rel {rel})")
+    note("packing_round", err)
+    order, coupled, lam_d = kernels.packing_start(b, params, lam, weights)
+    note("packing_start", _equal_or_raise(
+        f"{name} packing_start", (order, coupled, lam_d.view(torch.int32)),
+        tuple(x.view(torch.int32) if x.dtype == torch.float32 else x
+              for x in PK.packing_prologue_plain(b, lam, weights))))
+    note("packing_nodes", _bits_equal(
+        f"{name} packing_nodes", kernels.packing_nodes(b, params, lam_d, weights),
+        PK.node_penalty(b, b.requested, b.pod_count, lam_d, weights)))
+    start = (b.requested, b.nonzero_requested, b.pod_count, b.node_ports,
+             None if b.spread is None else b.spread.node_count,
+             None if b.podaffinity is None else b.podaffinity.base_sums,
+             None if b.nominated_pod_idx is None else torch.ones(
+                 b.nominated_pod_idx.shape[0], dtype=torch.bool, device=b.device))
+    assign0 = torch.full_like(ka, -1)
+    args = (b, params, start, b.pod_valid, assign0, lam_d, weights, order, coupled)
+    k_st, k_act, k_as, k_lam, k_prog = kernels.packing_round(*args)
+    p_st, p_act, p_as, p_lam, p_prog = PK.packing_round_plain(*args)
+    torch.cuda.synchronize()
+    note("packing_round", max(
+        _engine_err(f"{name} one round", k_as, k_st, p_as, p_st),
+        _equal_or_raise(f"{name} one round's active", (k_act,), (p_act,)),
+        _bits_equal(f"{name} one round's duals", k_lam, p_lam)))
+    if k_prog != bool(p_prog):
+        raise AssertionError(f"{name}: one round's progress {k_prog} != {bool(p_prog)}")
+    end_k = kernels.packing_end(b, params, ps[0], ps[2], pa, p_lam, weights)
+    end_p = PK.packing_epilogue_plain(b, ps[0], ps[2], pa, p_lam, weights)
+    torch.cuda.synchronize()
+    note("packing_end", max(_bits_equal(f"{name} packing_end duals", end_k[0], end_p[0]),
+                            _equal_or_raise(f"{name} packing_end nodes used", end_k[2:],
+                                            end_p[2:])))
+    rel_end = abs(float(end_k[1]) - float(end_p[1])) / max(abs(float(end_p[1])), 1e-30)
+    if rel_end > 1e-5:
+        raise AssertionError(f"{name}: packing_end objective {float(end_k[1])} against "
+                             f"{float(end_p[1])}")
+    n_valid = int(b.pod_valid.sum().item())
+    log(f"kernels vs plain [{name} packing]: P={b.requests.shape[0]} N={b.alloc.shape[0]} "
+        f"topology {b.topology is not None}: exact ({kit} iterations, "
+        f"{int((ka[:n_valid] >= 0).sum().item())} of {n_valid} pods placed on {int(knu)} "
+        f"nodes, objective {float(kobj):.6f} against {float(pobj):.6f}, rel {rel:.2e}); "
+        "each launch alone exact")
+    return got
+
+
+def packing_checks(results) -> dict:
+    """Phase 3's packing checks (B14, with B12's ``slice_occupancy`` fused)
+    at full width, N = 5120 and P = 1024: the SchedulingBasic block cold and
+    warm (the cold solve's duals), a BinPacking block, the Basic block on
+    the 32-slice labeled fleet with ``topology="on"``, the coupled-heavy
+    SchedulingPodAffinity and TopologySpreading blocks, the mixed cluster
+    (host ports, taints, images; 2000 x 512) and the Basic block under a
+    profile with the NodeResourcesFit filter off; then the dual ascent's
+    log1p on the card for every count in [0, 1024] against the plain
+    version on the CPU. Returns the packing kernels' timings."""
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.assign import packing as PK
+    from kubetpu_torch.framework import config as C
+    from kubetpu_torch.framework import runtime as rt
+    from kubetpu_torch.ops.topology import slice_occupancy
+    from kubetpu_torch.perf import workloads as W
+
+    weights = PK.PackingWeights().tensor("cuda")
+
+    def cold(b):
+        return torch.zeros(b.alloc.shape[0], dtype=torch.float32, device=b.device)
+
+    cache, pending = basic_case()
+    bb, pb = encode(cache, pending, C.Profile())
+    basic = _packing_equal("SchedulingBasic 1024x5120", bb, pb, cold(bb), weights, results)
+    _packing_equal("SchedulingBasic warm", bb, pb, basic[2], weights, results)
+    bs, ps_ = encode_topology(sliced(cache, SLICES), pending, C.Profile())
+    _packing_equal("SchedulingBasic, 32 slices", bs.device, ps_, cold(bs.device), weights,
+                   results)
+    cache_b, pending_b = binpack_case()
+    bp, pp = encode(cache_b, pending_b, C.Profile())
+    binpack = _packing_equal("BinPacking 1024x5120", bp, pp, cold(bp), weights, results)
+    for name, (cache_c, pending_c), prof in (
+            ("SchedulingPodAffinity 1024x5120", podaffinity_case(), C.Profile()),
+            ("TopologySpreading 1024x5120",
+             topology_case(W.pod_with_topology_spreading), C.Profile()),
+            ("mixed 512x2048", mixed_case(seed=1), C.Profile())):
+        bc, pc = encode(cache_c, pending_c, prof)
+        _packing_equal(name, bc, pc, cold(bc), weights, results)
+    bn, pn = encode(cache, pending, nofit_profile())
+    _packing_equal("SchedulingBasic, fit filter off", bn, pn, cold(bn), weights, results)
+
+    k = torch.arange(0, 1025, dtype=torch.float32)
+    ours, cuda = kernels.packing_log1p(k.cuda())
+    want = PK.log1p_counts(k)
+    _bits_equal("log1p of the overflow counts", ours.cpu(), want)
+    off_cuda = int((cuda.cpu().view(torch.int32) != want.view(torch.int32)).sum().item())
+    off_torch = int((torch.log1p(k).view(torch.int32) != want.view(torch.int32)).sum().item())
+    log(f"log1p of the counts 0..1024: the kernel's equal to the plain version's bits; "
+        f"CUDA's log1pf differs at {off_cuda} counts, torch.log1p on the CPU at {off_torch}")
+
+    # timings: the whole solve on the BinPacking block (bins open one a
+    # round) and on the Basic block; each launch alone on the Basic block
+    P, N, R = bp.requests.shape[0], bp.alloc.shape[0], bp.alloc.shape[1]
+    K = bp.port_conflict.shape[0]
+    state_bytes = sum(int(x.nbytes) for x in (bp.requested, bp.nonzero_requested,
+                                              bp.pod_count, bp.node_ports))
+    lam0 = cold(bp)
+    iters_bp, iters_basic = binpack[4], basic[4]
+    solve = {
+        "ms": cuda_ms(lambda: kernels.packing_assign(bp, pp, lam0, weights), 5),
+        "plain_ms": cuda_ms(lambda: PK.packing_assign_plain(bp, pp, lam0, weights), 1),
+        # the batch read once, the assignments, state and duals written once
+        "bytes": rt.batch_nbytes(bp) + 2 * 4 * N + P * 4 + state_bytes,
+        # each round's filter_score float64 work over every pair
+        "ops": iters_bp * P * N * f64_ops_per_pair(pp, bp),
+        "shape": [P, N], "iterations": iters_bp,
+        "basic_ms": cuda_ms(lambda: kernels.packing_assign(bb, pb, cold(bb), weights), 5),
+        "basic_plain_ms": cuda_ms(lambda: PK.packing_assign_plain(bb, pb, cold(bb), weights),
+                                  1),
+        "basic_iterations": iters_basic,
+        "filter_score_ms": cuda_ms(lambda: kernels.filter_score(bp, pp), 20),
+    }
+    topo = bs.device.topology
+    solve["node_pass"] = {
+        "ms": cuda_ms(lambda: kernels.packing_nodes(bb, pb, cold(bb), weights), 20),
+        "sliced_ms": cuda_ms(lambda: kernels.packing_nodes(bs.device, ps_, cold(bb), weights),
+                             20),
+        "plain_ms": cuda_ms(lambda: PK.node_penalty(bb, bb.requested, bb.pod_count, cold(bb),
+                                                    weights), 20),
+        "sliced_plain_ms": cuda_ms(lambda: PK.node_penalty(
+            bs.device, bs.device.requested, bs.device.pod_count, cold(bb), weights), 20),
+        "slice_occupancy_plain_ms": cuda_ms(lambda: slice_occupancy(
+            bs.device.requested, bs.device.node_valid, topo.slice_id, topo.num_slices), 20),
+        # the node rows read once, the penalties written once
+        "bytes": N * R * 8 * 2 + N * 4 * 3 + N + 4 * (int(topo.num_slices) + 1),
+        "slices": int(topo.num_slices),
+    }
+    lam_b = cold(bb)
+    end_args = (bb, pb, basic[1][0], basic[1][2], basic[0], basic[2], weights)
+    return {
+        "packing_round": solve,
+        "packing_start": {
+            "ms": cuda_ms(lambda: kernels.packing_start(bb, pb, lam_b, weights), 20),
+            "plain_ms": cuda_ms(lambda: PK.packing_prologue_plain(bb, lam_b, weights), 20),
+            "bytes": P * (1 + 4 + K + 4 + 1) + 2 * 4 * N + 40, "ops": 0, "shape": [P, N],
+        },
+        "packing_end": {
+            "ms": cuda_ms(lambda: kernels.packing_end(*end_args), 20),
+            "plain_ms": cuda_ms(lambda: PK.packing_epilogue_plain(
+                bb, basic[1][0], basic[1][2], basic[0], basic[2], weights), 20),
+            "bytes": N * R * 8 * 3 + N * 4 * 2 + N + P * (4 + 4 + 1) + 2 * 4 * N + 8 + 40,
+            "ops": 0, "shape": [P, N],
+        },
+    }
+
+
 def kernels_phase():
     import torch
 
@@ -1788,7 +2035,8 @@ def kernels_phase():
                for k in ("filter_score", "greedy_scan", "batched_round", "scatter_rows",
                          "dry_run_preemption", "explain_summary",
                          "filter_component_masks", "hypothesis_scan", "hypothesis_rows",
-                         "slice_epilogue")}
+                         "slice_epilogue", "packing_start", "packing_round", "packing_end",
+                         "packing_nodes")}
     # (name, batch, params, greedy assignments) for the explain checks
     explain_batches = []
     # the SchedulingBasic cycle: the greedy main path's shapes and timings
@@ -1888,6 +2136,7 @@ def kernels_phase():
     timing["filter_score"]["extender"] = ext["timing"]
     timing.update(explain_checks(results, explain_batches + ext["batches"]))
     timing.update(gang_checks(results))
+    timing.update(packing_checks(results))
     out = []
     for name, src, replaces in (
         ("filter_score", "kubetpu_torch/kernels/csrc/filter_score.cu",
@@ -1912,6 +2161,15 @@ def kernels_phase():
          "node rows, engine=batched)"),
         ("slice_epilogue", "kubetpu_torch/kernels/csrc/hypothesis_scan.cu",
          "kubetpu/ops/topology.py:19, :41 (engine=batched)"),
+        ("packing_start", "kubetpu_torch/kernels/csrc/packing_round.cu",
+         "kubetpu/assign/packing.py:187 (_priority_order), :283, :290-294 (the solve's "
+         "start)"),
+        ("packing_round", "kubetpu_torch/kernels/csrc/packing_round.cu",
+         "kubetpu/assign/packing.py:259 (with :146, :198); kubetpu/ops/topology.py:64 "
+         "(slice_occupancy, fused)"),
+        ("packing_end", "kubetpu_torch/kernels/csrc/packing_round.cu",
+         "kubetpu/assign/packing.py:467-499 (equalization prices, objective; "
+         "slice_occupancy fused)"),
     ):
         tm = timing[name]
         bound_ms, bound_by = _bound(tm["bytes"], tm["ops"])
@@ -1926,7 +2184,8 @@ def kernels_phase():
         }
         for k in ("podaffinity_ms", "podaffinity_plain_ms", "rounds", "spread",
                   "spread_soft", "nominated", "potential", "k128", "extender",
-                  "filter_score_ms", "gang_dry_run"):
+                  "filter_score_ms", "gang_dry_run", "iterations", "basic_ms",
+                  "basic_plain_ms", "basic_iterations", "node_pass", "plain_placements"):
             if k in tm:
                 line[k] = tm[k]
         out.append(line)
@@ -1959,6 +2218,16 @@ def kernels_phase():
         f"{gd['shape'][2]}: kernel {gd['ms']:.4f} ms, plain {gd['plain_ms']:.4f} ms, bound "
         f"{gd['bound_ms']:.6f} ms ({gd['bound_by']}); on the batched engine "
         f"{gd['batched_ms']:.3f} ms, plain {gd['batched_plain_ms']:.3f} ms")
+    pr = timing["packing_round"]
+    npass = pr["node_pass"]
+    log(f"timing [packing_round] whole solve on the BinPacking block ({pr['iterations']} "
+        f"iterations, filter_score alone {pr['filter_score_ms']:.4f} ms a round), on the "
+        f"SchedulingBasic block {pr['basic_ms']:.4f} ms ({pr['basic_iterations']} "
+        f"iterations), plain {pr['basic_plain_ms']:.4f} ms; node pass alone "
+        f"{npass['ms']:.4f} ms, with slice_occupancy over {npass['slices']} slices "
+        f"{npass['sliced_ms']:.4f} ms, plain {npass['plain_ms']:.4f} / "
+        f"{npass['sliced_plain_ms']:.4f} ms (slice_occupancy alone "
+        f"{npass['slice_occupancy_plain_ms']:.4f} ms)")
     k128 = timing["dry_run_preemption"]["k128"]
     log(f"timing [dry_run_preemption] at 5120x128: kernel {k128['ms']:.4f} ms, plain "
         f"{k128['plain_ms']:.4f} ms, bound {k128['bound_ms']:.6f} ms ({k128['bound_by']})")
@@ -2070,7 +2339,7 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
     ``run_workload`` (the gang lane's gates, topology mode and slices); the
     gang lane's first placement search is held to
     ``placement_assign_plain`` on its batch. Returns the launch counts, the
-    bound map and the measured pods/s."""
+    bound map, the measured pods/s and the ``WorkloadResult``."""
     import dataclasses
 
     import torch
@@ -2188,6 +2457,11 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
             "encode_cache_hit_rate": res.encode_cache_hit_rate,
             "rounds_per_cycle": res.rounds_per_cycle,
             "rounds_by_cycle": rounds if engine == "batched" else None,
+            "solver_iters_by_cycle": [c.solver_iters for c in sched.metrics.cycle_timings]
+            if engine == "packing" else None,
+            "nodes_used_at_steady_state": res.nodes_used_at_steady_state,
+            "priority_slo_hit_rate": res.priority_slo_hit_rate,
+            "solver_iters_per_cycle": res.solver_iters_per_cycle,
             "run_s": wall, "gc_full_collections": full_collections,
             "gc_s_measured": res.gc_s,
             "launches": launches,
@@ -2219,7 +2493,7 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
             + f"; coalesced: the engine); {res.throughput:.1f} pods/s")
     ms = res.cycle_ms
     if not ms:
-        return launches, dict(sched.client.bound), res.throughput
+        return launches, dict(sched.client.bound), res.throughput, res
     log(f"[{case}{' pipelined' if pipeline else ''}] node upload "
         f"{res.node_upload_bytes_per_cycle:.0f} bytes a cycle against a "
         f"{res.resident_bytes}-byte block; encode cache hit rate "
@@ -2237,7 +2511,10 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
             f"{sum(pm.values()):.3f} ms a call over {res.preempt_calls} calls: upload "
             f"{pm['upload']:.3f}, potential mask {pm['potential']:.3f}, dry run "
             f"{pm['dry_run']:.3f}, fetch {pm['fetch']:.3f} ms")
-    return launches, dict(sched.client.bound), res.throughput
+    if engine == "packing":
+        log(f"[{case}/{workload} packing] {res.solver_iters_per_cycle:.2f} solver iterations "
+            f"a cycle, {res.nodes_used_at_steady_state} nodes carry the measured pods")
+    return launches, dict(sched.client.bound), res.throughput, res
 
 
 
@@ -2653,6 +2930,62 @@ def gang_paths(card) -> list:
     return [run[0] for run in runs] + [gang_preemption_phase(card)]
 
 
+def plain_packing(b, params):
+    """The plain packing engine from cold duals (a path's first cycle):
+    ``(assignments, final_state)``."""
+    import torch
+
+    from kubetpu_torch.assign.packing import PackingWeights, packing_assign_plain
+
+    lam = torch.zeros(b.alloc.shape[0], dtype=torch.float32, device=b.device)
+    out = packing_assign_plain(b, params, lam, PackingWeights().tensor(b.device))
+    return out[0], out[1]
+
+
+PACKING = ("filter_score", "packing_start", "packing_round", "packing_end", "explain_summary")
+
+
+def packing_paths(card) -> list:
+    """The packing engine's paths: BinPacking/1000Nodes_3000Pods on the
+    greedy, batched and packing engines (the frontier: packing must use no
+    more nodes than greedy), SchedulingBasic/5000Nodes_10000Pods on
+    packing, and the same on the 32-slice fleet with ``topology="on"``.
+    Returns their launch counts."""
+    from kubetpu_torch.assign.batched import batched_assign_plain
+    from kubetpu_torch.assign.greedy import greedy_assign_plain
+
+    frontier = {}
+    runs = []
+    for engine, plain, names in (
+            ("greedy", greedy_assign_plain, ("filter_score", "greedy_scan", "explain_summary")),
+            ("batched", batched_assign_plain,
+             ("filter_score", "batched_round", "explain_summary")),
+            ("packing", plain_packing, PACKING)):
+        run = run_path(card, "BinPacking", "1000Nodes_3000Pods", engine, 200 + 3000, plain,
+                       names)
+        res = run[3]
+        frontier[engine] = {
+            "pods_per_s": res.throughput,
+            "nodes_used_at_steady_state": res.nodes_used_at_steady_state,
+            "priority_slo_hit_rate": res.priority_slo_hit_rate,
+            "solver_iters_per_cycle": res.solver_iters_per_cycle,
+        }
+        runs.append(run)
+    used = {e: f["nodes_used_at_steady_state"] for e, f in frontier.items()}
+    if used["packing"] > used["greedy"]:
+        raise AssertionError(f"BinPacking: packing uses {used['packing']} nodes, greedy "
+                             f"{used['greedy']}")
+    log(json.dumps({"packing_frontier": {
+        "workload": "BinPacking/1000Nodes_3000Pods", **frontier, "card": card}}))
+    runs.append(run_path(card, "SchedulingBasic", "5000Nodes_10000Pods", "packing",
+                         1000 + 10000, plain_packing, PACKING + ("scatter_rows",),
+                         check=steady_deltas))
+    runs.append(run_path(card, "SchedulingBasic", "5000Nodes_10000Pods", "packing",
+                         1000 + 10000, plain_packing, PACKING,
+                         workload_kw=dict(topology="on", slices=SLICES)))
+    return [run[0] for run in runs]
+
+
 def main_path_phase(card: str) -> list[dict]:
     """The six paths on the defaults (encode cache, resident block,
     serial cycle), then SchedulingBasic and PreferredTopologySpreading
@@ -2758,6 +3091,7 @@ def main() -> int:
     kernel_lines = kernels_phase()
     path_launches = main_path_phase(card)
     path_launches += gang_paths(card)
+    path_launches += packing_paths(card)
     path_launches.append(bridge_phase(card))
     stepped_preemption_phase()
     for k in kernel_lines:

@@ -570,6 +570,55 @@ class ResidentNodeState:
         )
 
 
+class PackingSolverState:
+    """Device-resident dual-variable block for the packing engine: the
+    warm-start twin of :class:`ResidentNodeState`. Copy of the reference's
+    ``PackingSolverState`` (``kubetpu/framework/runtime.py``) without the
+    node-axis sharding, which is ROADMAP Queue A item 12.
+
+    Holds one ``(NC,)`` float32 dual-price vector λ per padded node
+    capacity (each bucket size keeps its own prices). ``duals(n)`` pops the
+    current vector for the solver (zeros on first sight of a capacity, a
+    cold start counted in ``resets``) and the caller must ``store(n, …)``
+    the returned vector back: this class is the only holder. ``carries``
+    counts warm handoffs. ``device``: where the vectors live (the
+    scheduler's device)."""
+
+    def __init__(self, mesh=None, device="cuda") -> None:
+        self._lam: dict[int, torch.Tensor] = {}
+        self.resets = 0
+        self.carries = 0
+        self.where = torch.device(device)
+        self.bind_mesh(mesh)
+
+    def bind_mesh(self, mesh) -> None:
+        if mesh not in (None, "off"):
+            raise NotImplementedError(
+                "a sharded packing dual block is ROADMAP Queue A item 12 "
+                "(kernel B15), not yet ported"
+            )
+
+    def duals(self, n: int) -> torch.Tensor:
+        lam = self._lam.pop(n, None)
+        if lam is None:
+            self.resets += 1
+            lam = torch.zeros(n, dtype=torch.float32, device=self.where)
+        else:
+            self.carries += 1
+        return lam
+
+    def store(self, n: int, lam: torch.Tensor) -> None:
+        self._lam[n] = lam
+
+    def reset(self) -> None:
+        """Drop every price vector (cold-start escape hatch)."""
+        self._lam.clear()
+
+    @property
+    def nbytes(self) -> int:
+        return sum(int(v.nbytes) for v in self._lam.values())
+
+
 def _resource_weights(
     resource_names: Sequence[str], spec: Sequence[tuple[str, int]]
 ) -> np.ndarray:

@@ -11,7 +11,8 @@ library also holds the batched engine's ``hypothesis_rows`` and
 ``csrc/dry_run_preemption.cu`` (the preemption victim search), and the
 flight recorder's ``csrc/explain_summary.cu`` and
 ``csrc/filter_component_masks.cu`` (also the extender bridge's per-plugin
-masks) are compiled at first use, for ``sm_90a``, one ``nvcc`` per source started
+masks), and the packing engine's ``csrc/packing_round.cu`` (its solve's
+start, rounds and end) are compiled at first use, for ``sm_90a``, one ``nvcc`` per source started
 together, each into a shared library with a plain C interface that
 ``ctypes`` loads. No PyTorch header is compiled, so
 a build takes seconds. Outputs go to ``build/kubetpu_torch_kernels/`` under
@@ -26,6 +27,7 @@ callers (``framework.runtime.filter_score_batch``,
 ``assign.greedy.greedy_assign_device``,
 ``assign.batched.batched_assign_device``,
 ``assign.placement.placement_assign_device``,
+``assign.packing.packing_assign_device``,
 ``ops.preemption.dry_run_preemption``,
 ``ops.preemption.dry_run_gang_preemption``,
 ``framework.preemption.PreemptionEvaluator``, ``sched.flightrecorder``'s
@@ -51,10 +53,10 @@ from ..framework import runtime as rt
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("filter_score.cu", "greedy_scan.cu", "batched_round.cu", "scatter_rows.cu",
            "dry_run_preemption.cu", "explain_summary.cu", "filter_component_masks.cu",
-           "hypothesis_scan.cu")
+           "hypothesis_scan.cu", "packing_round.cu")
 # the libraries that take the ScoreArgs struct (score_common.cuh)
 SCORE_ARGS_LIBS = ("filter_score", "greedy_scan", "batched_round", "explain_summary",
-                   "filter_component_masks", "hypothesis_scan")
+                   "filter_component_masks", "hypothesis_scan", "packing_round")
 HEADERS = ("score_common.cuh", "score_prelaunch.cuh", "scan_loop.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kubetpu_torch_kernels"
 NVCC_FLAGS = (
@@ -73,6 +75,8 @@ launch_counts = {
     "filter_score": 0, "greedy_scan": 0, "batched_round": 0, "scatter_rows": 0,
     "dry_run_preemption": 0, "explain_summary": 0, "filter_component_masks": 0,
     "hypothesis_scan": 0, "hypothesis_rows": 0, "slice_epilogue": 0,
+    "packing_start": 0, "packing_round": 0, "packing_end": 0, "packing_nodes": 0,
+    "packing_log1p": 0,
 }
 
 # ctypes argument types of each library's entry point
@@ -87,6 +91,7 @@ _ARGTYPES = {
     "filter_component_masks": [ctypes.c_void_p] * 7,
     "hypothesis_scan": [ctypes.c_void_p] * 17 + [ctypes.c_int64] + [ctypes.c_void_p] * 3
     + [ctypes.c_int64] * 2 + [ctypes.c_void_p],
+    "packing_round": [ctypes.c_void_p] * 16 + [ctypes.c_int64] + [ctypes.c_void_p] * 8,
 }
 # the entry points a library has beside its own
 _MORE_ENTRIES = {
@@ -94,6 +99,12 @@ _MORE_ENTRIES = {
         "kt_hypothesis_rows": [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 12,
         "kt_slice_epilogue": [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int64]
         + [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p],
+    },
+    "packing_round": {
+        "kt_packing_start": [ctypes.c_void_p] * 8,
+        "kt_packing_nodes": [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_void_p] * 3,
+        "kt_packing_end": [ctypes.c_void_p] * 10 + [ctypes.c_int64] + [ctypes.c_void_p] * 4,
+        "kt_packing_log1p": [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p],
     },
 }
 
@@ -1025,3 +1036,223 @@ def filter_component_masks(b: rt.DeviceBatch, p: rt.ScoreParams):
     launch_counts["filter_component_masks"] += 1
     del keep
     return masks
+
+
+# ------------------------------------------------------------------ packing
+def _ptr(x: torch.Tensor | None):
+    return None if x is None else x.data_ptr()
+
+
+class _PackingSolve:
+    """One packing solve's launch context: the argument struct (over the
+    running state ``state``, the ``_score_args`` tuple order), the weights,
+    the topology leaf and the scratch the launches share."""
+
+    def __init__(self, b: rt.DeviceBatch, p: rt.ScoreParams, weights: torch.Tensor,
+                 state=None, nom_active: torch.Tensor | None = None):
+        self.b = b
+        self.dev = dev = b.alloc.device
+        P = b.requests.shape[0]
+        if P > 1024:
+            raise ValueError(f"packing_round: P={P} exceeds the sorting block's 1024 pods")
+        self.a, self.keep = _score_args(b, p, "packing_round", state, bits_blocks=P,
+                                        nom_active=nom_active)
+        N = self.a.N
+        self.w = _check("weights", weights, torch.float32, (10,), dev)
+        self.prio = (None if b.pod_priority is None else
+                     _check("pod_priority", b.pod_priority, torch.int32, (P,), dev))
+        topo = b.topology
+        self.slice_id, self.S = None, 0
+        if topo is not None:
+            self.S = int(topo.num_slices)
+            self.slice_id = _check("topology.slice_id", topo.slice_id, torch.int32, (N,), dev)
+        self.busy = torch.empty((2 * (self.S + 1),), dtype=torch.int32, device=dev)
+        self.lib = build()["packing_round"]
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def lam(self, lam: torch.Tensor) -> int:
+        return _check("lam", lam, torch.float32, (self.a.N,), self.dev)
+
+    def start(self, lam: torch.Tensor):
+        """``kt_packing_start``: ``(order, coupled, lam * decay)``."""
+        P, N = self.a.P, self.a.N
+        order = torch.empty((P,), dtype=torch.int32, device=self.dev)
+        coupled = torch.empty((P,), dtype=torch.bool, device=self.dev)
+        lam_out = torch.empty((N,), dtype=torch.float32, device=self.dev)
+        code = self.lib.kt_packing_start(
+            ctypes.byref(self.a), self.prio, self.w, self.lam(lam), lam_out.data_ptr(),
+            order.data_ptr(), coupled.data_ptr(), self.stream)
+        _raise_on(self.lib, "packing_round", code, "packing_start")
+        launch_counts["packing_start"] += 1
+        return order, coupled, lam_out
+
+    def nodes(self, lam: torch.Tensor) -> torch.Tensor:
+        """``kt_packing_nodes``: the (N,) float32 node penalties."""
+        pen = torch.empty((self.a.N,), dtype=torch.float32, device=self.dev)
+        code = self.lib.kt_packing_nodes(
+            ctypes.byref(self.a), self.w, self.lam(lam), self.slice_id, self.S,
+            self.busy.data_ptr(), pen.data_ptr(), self.stream)
+        _raise_on(self.lib, "packing_round", code, "packing_nodes")
+        launch_counts["packing_nodes"] += 1
+        return pen
+
+    def round(self, state, active, assignments, lam, order, coupled, scratch) -> tuple:
+        """``filter_score`` against ``state``, then ``kt_packing_round``,
+        which updates ``state``, ``active``, ``assignments`` and ``lam`` in
+        place. Returns the round's (progress, any pod still active)."""
+        req, nz, pc, ports, pa_sums, sp_counts = state
+        mask, _, total = _launch_filter_score(self.a, self.dev, want_total=True, dynamic=True,
+                                              smem=_smem(self.b))
+        pen, stats64, stats32, denom, over, flags = scratch
+        code = self.lib.kt_packing_round(
+            ctypes.byref(self.a), mask.data_ptr(), total.data_ptr(), req.data_ptr(),
+            nz.data_ptr(), pc.data_ptr(), ports.data_ptr(), _ptr(pa_sums), _ptr(sp_counts),
+            active.data_ptr(), assignments.data_ptr(), self.lam(lam), self.w,
+            order.data_ptr(), coupled.data_ptr(), self.slice_id, self.S,
+            self.busy.data_ptr(), pen.data_ptr(), stats64.data_ptr(), stats32.data_ptr(),
+            denom.data_ptr(), over.data_ptr(), flags.data_ptr(), self.stream)
+        _raise_on(self.lib, "packing_round", code)
+        launch_counts["packing_round"] += 1
+        return tuple(bool(v) for v in flags.tolist())
+
+    def scratch(self):
+        P, N, dev = self.a.P, self.a.N, self.dev
+        return (
+            torch.empty((N,), dtype=torch.float32, device=dev),      # pen
+            torch.empty((3, P), dtype=torch.int64, device=dev),      # best, cnt, hash
+            torch.empty((2, P), dtype=torch.int32, device=dev),      # r, choice
+            torch.empty((P,), dtype=torch.float32, device=dev),      # denom
+            torch.empty((N,), dtype=torch.int32, device=dev),        # over
+            torch.empty((2,), dtype=torch.int32, device=dev),        # flags
+        )
+
+    def end(self, requested, pod_count, assignments, lam):
+        """``kt_packing_end``: writes the warm-start prices into ``lam``;
+        returns ``(objective () float32, nodes_used () int32)``."""
+        b, dev, N, R = self.b, self.dev, self.a.N, self.a.R
+        objective = torch.empty((), dtype=torch.float32, device=dev)
+        nodes_used = torch.empty((), dtype=torch.int32, device=dev)
+        code = self.lib.kt_packing_end(
+            ctypes.byref(self.a), b.requested.data_ptr(), b.pod_count.data_ptr(),
+            _check("requested", requested, torch.int64, (N, R), dev),
+            _check("pod_count", pod_count, torch.int32, (N,), dev),
+            _check("assignments", assignments, torch.int32, (self.a.P,), dev),
+            self.prio, self.w, self.lam(lam), self.slice_id, self.S,
+            self.busy.data_ptr(), objective.data_ptr(), nodes_used.data_ptr(), self.stream)
+        _raise_on(self.lib, "packing_round", code, "packing_end")
+        launch_counts["packing_end"] += 1
+        return objective, nodes_used
+
+
+def _packing_state(b: rt.DeviceBatch, state=None):
+    """Copies of the running state in ``_score_args`` order (requested,
+    nonzero, pod_count, node_ports, pa_sums, spread_counts) from the
+    engine's seven-slot ``state``, or from the batch's start; and the live
+    nominations (all, from the start)."""
+    pa, sp = b.podaffinity, b.spread
+    if state is None:
+        nom = (None if b.nominated_pod_idx is None else
+               torch.ones((b.nominated_pod_idx.shape[0],), dtype=torch.bool,
+                          device=b.alloc.device))
+        state = (b.requested, b.nonzero_requested, b.pod_count, b.node_ports,
+                 None if sp is None else sp.node_count,
+                 None if pa is None else pa.base_sums, nom)
+    req, nz, pc, ports, sp_counts, pa_sums, nom = state
+    clone = (lambda x: None if x is None else x.clone())
+    return ((req.clone(), nz.clone(), pc.clone(), ports.clone(), clone(pa_sums),
+             clone(sp_counts)), clone(nom))
+
+
+def _seven(state, nom_active):
+    req, nz, pc, ports, pa_sums, sp_counts = state
+    return (req, nz, pc, ports, sp_counts, pa_sums, nom_active)
+
+
+def packing_start(b: rt.DeviceBatch, p: rt.ScoreParams, lam: torch.Tensor,
+                  weights: torch.Tensor):
+    """The ``packing_start`` kernel alone: ``(order (P,) int32, coupled (P,)
+    bool, lam * decay (N,) float32)``, equal to
+    ``assign.packing.packing_prologue_plain(b, lam, weights)``."""
+    return _PackingSolve(b, p, weights).start(lam)
+
+
+def packing_nodes(b: rt.DeviceBatch, p: rt.ScoreParams, lam: torch.Tensor,
+                  weights: torch.Tensor) -> torch.Tensor:
+    """``packing_round``'s node pass alone (``kt_packing_nodes``, B12's
+    ``slice_occupancy`` fused): the (N,) float32 penalties against the
+    batch's start state, equal to ``assign.packing.node_penalty(b,
+    b.requested, b.pod_count, lam, weights)``."""
+    return _PackingSolve(b, p, weights).nodes(lam)
+
+
+def packing_round(b: rt.DeviceBatch, p: rt.ScoreParams, state, active, assignments, lam,
+                  weights, order, coupled):
+    """One round alone: ``filter_score`` then the ``packing_round`` launch,
+    on copies of the engine's seven-slot ``state``, ``active``,
+    ``assignments`` and ``lam``. Returns ``(state, active, assignments,
+    lam, progress)`` as ``assign.packing.packing_round_plain`` does."""
+    run, nom = _packing_state(b, state)
+    solve = _PackingSolve(b, p, weights, run, nom)
+    active, assignments, lam = active.clone(), assignments.clone(), lam.clone()
+    progress, _ = solve.round(run, active, assignments, lam, order, coupled, solve.scratch())
+    return _seven(run, nom), active, assignments, lam, progress
+
+
+def packing_end(b: rt.DeviceBatch, p: rt.ScoreParams, requested, pod_count, assignments,
+                lam, weights):
+    """The ``packing_end`` kernel alone on a copy of ``lam``: ``(lam,
+    objective, nodes_used)``, equal to
+    ``assign.packing.packing_epilogue_plain`` (the objective within its
+    float32 sum's order)."""
+    lam = lam.clone()
+    objective, nodes_used = _PackingSolve(b, p, weights).end(requested, pod_count,
+                                                              assignments, lam)
+    return lam, objective, nodes_used
+
+
+def packing_assign(b: rt.DeviceBatch, p: rt.ScoreParams, lam: torch.Tensor,
+                   weights: torch.Tensor, max_iters: int = 0):
+    """The packing engine on the card: ``packing_start`` once, then each
+    round ``filter_score`` over the whole batch against the round's state
+    and one ``packing_round`` launch, which chooses, admits, prices and
+    commits in place; the host reads the round's two flags (progress, any
+    pod still active). Then ``packing_end``. The batch's node block and
+    ``lam`` are not written. Returns ``(assignments (P,) int32,
+    final_state, lam (N,) float32, objective () float32, iters int,
+    nodes_used () int32)``, equal to ``assign.packing.packing_assign_plain``
+    (the objective within its float32 sum's order)."""
+    run, nom = _packing_state(b)
+    solve = _PackingSolve(b, p, weights, run, nom)
+    P = solve.a.P
+    order, coupled, lam = solve.start(lam)
+    active = b.pod_valid.clone()
+    assignments = torch.full((P,), -1, dtype=torch.int32, device=solve.dev)
+    scratch = solve.scratch()
+    cap = max_iters or P
+    iters = 0
+    progress, still = True, bool(torch.any(active))
+    while progress and still and iters < cap:
+        progress, still = solve.round(run, active, assignments, lam, order, coupled, scratch)
+        iters += 1
+    objective, nodes_used = solve.end(run[0], run[2], assignments, lam)
+    return assignments, _seven(run, nom), lam, objective, iters, nodes_used
+
+
+def packing_log1p(k: torch.Tensor):
+    """The dual ascent's ``log1p`` of whole-number counts ``k`` (n,) float32
+    on the card: ``(ours, cuda)``, the kernel's (equal to
+    ``assign.packing.log1p_counts``) and CUDA's ``log1pf`` of the same
+    counts, for comparison."""
+    dev = k.device
+    if dev.type != "cuda":
+        raise ValueError(f"packing_log1p: the kernel takes CUDA tensors, got {dev}")
+    n = k.shape[0] if k.dim() == 1 else -1
+    p_k = _check("k", k, torch.float32, (n,), dev)
+    ours = torch.empty_like(k)
+    cuda = torch.empty_like(k)
+    lib = build()["packing_round"]
+    code = lib.kt_packing_log1p(p_k, ours.data_ptr(), cuda.data_ptr(), n,
+                                torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, "packing_round", code, "packing_log1p")
+    launch_counts["packing_log1p"] += 1
+    return ours, cuda

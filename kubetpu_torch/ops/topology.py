@@ -12,9 +12,11 @@ On a CUDA device ``slice_counts`` and ``alignment_score`` run fused into
 the ``hypothesis_scan`` kernel's epilogue (``kernels/csrc/
 hypothesis_scan.cu``), which the placement search and the gang dry run
 launch; the functions here are what a CPU batch runs and what that
-epilogue is held to. ``slice_occupancy`` and ``free_slices`` have no
-caller on the gang lane (the packing engine and the trace runner read
-them).
+epilogue is held to. ``slice_occupancy`` prices the packing engine's
+slice terms (``assign.packing``); on a CUDA device it runs fused into the
+``packing_round`` kernel's node pass and its ``packing_end`` epilogue
+(``kernels/csrc/packing_round.cu``). ``free_slices`` has no caller in the
+port yet (the reference's trace runner reads it).
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 direct mode and print its result as one JSON line.
 
     python -m kubetpu_torch.perf --case SchedulingBasic \\
-        --workload 5000Nodes_10000Pods [--engine greedy|batched] \\
+        --workload 5000Nodes_10000Pods [--engine greedy|batched|packing] \\
         [--device cuda] [--max-batch 1024] [--pipeline on|off] \\
         [--encode-cache on|off] [--flight-recorder on|off]
     python -m kubetpu_torch.perf --case SchedulingPodAffinity \\
@@ -10,6 +10,8 @@ direct mode and print its result as one JSON line.
     python -m kubetpu_torch.perf --case TopologySpreading \\
         --workload 5000Nodes_5000Pods --engine batched
     python -m kubetpu_torch.perf --case PreemptionAsync --workload 5000Nodes
+    python -m kubetpu_torch.perf --case BinPacking \\
+        --workload 1000Nodes_3000Pods --engine packing
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m kubetpu_torch.perf")
     ap.add_argument("--case", default="SchedulingBasic", choices=sorted(TEST_CASES))
     ap.add_argument("--workload", default="5000Nodes_10000Pods")
-    ap.add_argument("--engine", default="greedy", choices=("greedy", "batched"))
+    ap.add_argument("--engine", default="greedy", choices=("greedy", "batched", "packing"))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--max-batch", type=int, default=1024)
     ap.add_argument("--pipeline", default="off", choices=("on", "off"),

@@ -76,9 +76,17 @@ class WorkloadResult:
     group_cycles: int = 0
     hypotheses_per_cycle: float = 0.0
     group_cycle_ms: dict = field(default_factory=dict)
+    # the packing frontier (``_packing_stats``): distinct nodes carrying the
+    # measured pods at the end, the bound share of the measured pods with
+    # priority > 0, the mean solver iterations a measured cycle (packing
+    # engine only), and the packing weights behind the run
+    nodes_used_at_steady_state: int | None = None
+    priority_slo_hit_rate: float | None = None
+    solver_iters_per_cycle: float | None = None
+    packing_weights: dict | None = None
 
     def to_json(self) -> dict:
-        return {
+        out = {
             "case": self.case_name, "workload": self.workload_name,
             "device": self.device, "measure_pods": self.measure_pods,
             "scheduled": self.scheduled, "bound_total": self.bound_total,
@@ -101,6 +109,15 @@ class WorkloadResult:
             "hypotheses_per_cycle": self.hypotheses_per_cycle,
             "group_cycle_ms": self.group_cycle_ms,
         }
+        if self.nodes_used_at_steady_state is not None:
+            out["nodes_used_at_steady_state"] = self.nodes_used_at_steady_state
+        if self.priority_slo_hit_rate is not None:
+            out["priority_slo_hit_rate"] = round(self.priority_slo_hit_rate, 4)
+        if self.solver_iters_per_cycle is not None:
+            out["solver_iters_per_cycle"] = round(self.solver_iters_per_cycle, 2)
+        if self.packing_weights is not None:
+            out["packing_weights"] = self.packing_weights
+        return out
 
 
 class _GcClock:
@@ -204,6 +221,42 @@ def _preemption_counts(sched, client) -> dict:
     }
 
 
+def _packing_stats(sched, timings: list, bound, created) -> dict:
+    """The packing frontier, engine-agnostic (copy of the reference's
+    ``_packing_stats``):
+
+    - ``nodes_used_at_steady_state``: distinct nodes carrying the measured
+      pods (name prefix ``measure-``) at the end of the run;
+    - ``priority_slo_hit_rate``: among measured pods created with priority
+      > 0, the fraction that bound (None without priority tiers);
+    - ``solver_iters_per_cycle``: mean packing-solver iterations over the
+      measured cycles (``CycleTiming.solver_iters``; None on the greedy and
+      batched engines, which never set it);
+    - ``packing_weights``: the weights behind the run.
+
+    ``bound`` is an iterable of (pod_name, node_name); ``created`` of the
+    created Pods."""
+    bound = list(bound)
+    measured_nodes = {node for name, node in bound if name.startswith("measure-")}
+    out: dict = dict(
+        nodes_used_at_steady_state=len(measured_nodes) if measured_nodes else None,
+        priority_slo_hit_rate=None,
+        solver_iters_per_cycle=None,
+        packing_weights=None,
+    )
+    bound_names = {name for name, _ in bound}
+    high = [p for p in created if p.priority > 0 and p.name.startswith("measure-")]
+    if high:
+        out["priority_slo_hit_rate"] = (
+            sum(1 for p in high if p.name in bound_names) / len(high))
+    iters = [c.solver_iters for c in timings if c.solver_iters is not None]
+    if iters:
+        out["solver_iters_per_cycle"] = sum(iters) / len(iters)
+    if sched._packing is not None:
+        out["packing_weights"] = sched._packing.weights.to_json()
+    return out
+
+
 def _cycle_ms(timings: list) -> dict:
     if not timings:
         return {}
@@ -257,8 +310,8 @@ def run_workload(
     slices: int = 0,
 ) -> WorkloadResult:
     """Execute one (test case, workload) pair in direct mode on ``device``
-    with the ``engine`` (``"greedy"`` or ``"batched"``) and return the
-    measurement. ``pipeline`` runs the two-stage pipelined cycle
+    with the ``engine`` (``"greedy"``, ``"batched"`` or ``"packing"``) and
+    return the measurement. ``pipeline`` runs the two-stage pipelined cycle
     (``Scheduler(pipeline=True)``); ``encode_cache`` toggles the encode
     cache (on by default, as in the reference), ``flight_recorder`` the
     scheduling flight recorder (on by default, as in the reference's
@@ -302,6 +355,7 @@ def run_workload(
     cache0 = (0, 0)
     preempt0 = None
     op_ns_counter = 0
+    created: list[t.Pod] = []
     gc_clock = _GcClock()
 
     def begin_measured() -> None:
@@ -380,7 +434,9 @@ def run_workload(
             if op.collect_metrics:
                 begin_measured()
             for j in range(count):
-                sched.on_pod_add(template(f"{prefix}-{ns}-{j}", ns))
+                pod = template(f"{prefix}-{ns}-{j}", ns)
+                created.append(pod)
+                sched.on_pod_add(pod)
             if op.skip_wait:
                 continue
             if op.collect_metrics:
@@ -480,5 +536,6 @@ def run_workload(
             sum(g.hypotheses for g in groups) / len(groups) if groups else 0.0
         ),
         group_cycle_ms=_group_cycle_ms(groups),
+        **_packing_stats(sched, timings, client.bound, created),
     )
     return result

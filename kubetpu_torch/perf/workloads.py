@@ -7,14 +7,16 @@ in the reference), the ``SchedulingPodAffinity`` test case
 (``TopologySpreading``, ``PreferredTopologySpreading`` and
 ``DefaultTopologySpreading``, topology_spreading/performance-config.yaml)
 and the ``PreemptionAsync`` test case (misc/performance-config.yaml:186),
-and the ``GangScheduling`` test case
+the ``GangScheduling`` test case
 (podgroup/gangscheduling/performance-config.yaml:7, with its two feature
-gates), each with its direct-mode workloads, the templates they use
+gates) and the reference's own ``BinPacking`` case (the packing engine's
+workload), each with its direct-mode workloads, the templates they use
 (``node_default`` with the shared rack/TPU-slice label grammar
 ``trace_topology_labels``, ``pod_default``, ``pod_with_pod_affinity``,
 ``pod_with_topology_spreading``, ``pod_with_preferred_topology_spreading``,
-``pod_with_label``, ``pod_low_priority``, ``pod_high_priority_3cpu``, and
-``pod_high_priority_large_cpu``, ``ChurnOp``'s default) and the seven ops
+``pod_with_label``, ``pod_low_priority``, ``pod_high_priority_3cpu``,
+``pod_binpack``, and ``pod_high_priority_large_cpu``, ``ChurnOp``'s
+default) and the seven ops
 they use. Everything kept is verbatim apart from the trim.
 
 Mirrors the reference harness's shape
@@ -147,6 +149,36 @@ def pod_low_priority(name: str, namespace: str) -> t.Pod:
     them fill 3.6 of a node's 4 cpu (the PreemptionAsync setup)."""
     return make_pod(
         name, namespace=namespace, cpu_milli=900, memory=500 * 1024**2,
+    )
+
+
+#: the bin-pack workload's deterministic 10-slot size/priority cycle,
+#: keyed by the pod's trailing ``-{j}`` index: one 2-cpu latency pod
+#: (priority 10), two 1-cpu services (priority 5), three 500m and four
+#: 100m batch fillers (priority 0). One full cycle requests 5.9 cpu —
+#: ~1.5 of a 4-cpu node when packed tight, but a spreading scorer smears
+#: it over many part-empty nodes.
+_BINPACK_SLOTS: tuple[tuple[int, int], ...] = (
+    (2000, 10),
+    (1000, 5), (1000, 5),
+    (500, 0), (500, 0), (500, 0),
+    (100, 0), (100, 0), (100, 0), (100, 0),
+)
+
+
+def pod_binpack(name: str, namespace: str) -> t.Pod:
+    """The skewed-size + priority-tier bin-pack template: the pod's shape
+    is a pure function of its trailing index, so the workload is identical
+    across engines and runs — any nodes-used delta is the engine's doing,
+    not the draw's."""
+    try:
+        j = int(name.rsplit("-", 1)[-1])
+    except ValueError:
+        j = 0
+    cpu, priority = _BINPACK_SLOTS[j % len(_BINPACK_SLOTS)]
+    return make_pod(
+        name, namespace=namespace, priority=priority,
+        cpu_milli=cpu, memory=500 * 1024**2,
     )
 
 
@@ -422,5 +454,28 @@ _case(TestCase(
         Workload("5000Nodes_3Gangs_3000Pods_1000PerGroup",
                  {"initNodes": 5000, "initPodGroups": 3, "podsPerGroup": 1000},
                  labels=("performance",)),
+    ),
+))
+
+_case(TestCase(
+    name="BinPacking",
+    source="kubetpu's utilization-vs-throughput frontier workload (no "
+           "reference config — skewed sizes + priority tiers built for "
+           "the three-engine packing comparison)",
+    default_pod_template=pod_binpack,
+    ops=(
+        CreateNodesOp("initNodes"),
+        CreatePodsOp("initPods"),
+        CreatePodsOp("measurePods", collect_metrics=True),
+    ),
+    workloads=(
+        # no pods/s threshold: the workload's verdict is the frontier —
+        # nodes_used_at_steady_state and priority_slo_hit_rate against the
+        # greedy engine, not a reference throughput floor
+        Workload("200Nodes",
+                 {"initNodes": 200, "initPods": 50, "measurePods": 300}),
+        Workload("1000Nodes_3000Pods",
+                 {"initNodes": 1000, "initPods": 200, "measurePods": 3000},
+                 labels=("performance", "packing")),
     ),
 ))

@@ -2,9 +2,10 @@
 
 The slices of the port so far: the reference's default cycle — the encode
 cache, the device-resident node block and, on request, the two-stage
-pipelined cycle — for one or more profiles on the greedy or the batched
-engine, in direct mode, with synchronous binding, and the DefaultPreemption
-PostFilter with the nominator's reservations (``enable_preemption``), the
+pipelined cycle — for one or more profiles on the greedy, the batched or
+the packing engine, in direct mode, with synchronous binding, and the
+DefaultPreemption PostFilter with the nominator's reservations
+(``enable_preemption``), the
 scheduler-extender webhooks (``cfg.extenders``: the batch's Filter and
 Prioritize calls, a binder extender's bind, the ProcessPreemption hook) and
 the flight recorder (``flight_recorder``, on by default as in the
@@ -27,8 +28,9 @@ The device calls of the reference's cycle become torch calls: the pod
 leaves are uploaded to the scheduler's ``device`` in one copy, the node
 block lives there (``runtime.ResidentNodeState``: after the first cycle
 only the dirty rows are shipped, through the ``scatter_rows`` kernel), the
-engine launches its kernels on a CUDA device (``greedy_scan``, or the
-``batched_round`` rounds; the plain PyTorch loops on the CPU), and
+engine launches its kernels on a CUDA device (``greedy_scan``, the
+``batched_round`` rounds, or the packing solve's ``packing_round`` rounds;
+the plain PyTorch loops on the CPU), and
 ``jax.device_get`` of the assignments becomes ``.cpu()``.
 
 The reference overlaps its pipeline's stages through JAX async dispatch.
@@ -37,25 +39,29 @@ after the launch, and the next call encodes the next batch's stage 1 on the
 host (no CUDA call) before ``_complete_inflight`` waits on that event.
 Every launch is on the device's current stream, so a cycle's resident-block
 scatter never overtakes the previous cycle's kernels. The batched engine
-reads two flags on the host every round, so its launch returns only when
-its rounds are done: with it the pipeline is correct but does not overlap.
+and the packing engine read two flags on the host every round, so their
+launch returns only when their rounds are done: with them the pipeline is
+correct but does not overlap.
 
 Each cycle leaves a ``CycleTiming`` record: snapshot, stage 1
 (``pre_encode_s``), stage 2 (``finalize_s``), the extender calls, upload,
 kernel (the CUDA events' elapsed time on a CUDA device), the host's wait
 for the device, the recorder's ``note_cycle``, bind, the upload's byte
-counts and the batched engine's rounds.
+counts, the batched engine's rounds, and the packing engine's solver
+iterations, objective and nodes used (fetched with the assignments in one
+device→host copy, and handed to the recorder's ``note_cycle``).
 
 The recorder's explain is launched in ``_finish_cycle`` after the
 assignments are fetched, on the current stream, before the next cycle's
 scatter can write the resident block: stage 1 stays free of CUDA calls.
 
 Not in these slices (each raises when asked for): the device mesh, DRA,
-volumes, the sentinel, the packing engine, the asynchronous API
-dispatcher, the Reserve/Permit lifecycle runner and the metrics registry
-(so the recorder's staged latency vectors are recorded but observed into
-no histogram, and the gang lane's admission latencies and victims land on
-``SchedulerMetrics``).
+volumes, the sentinel, the asynchronous API dispatcher, the
+Reserve/Permit lifecycle runner and the metrics registry (so the
+recorder's staged latency vectors are recorded but observed into no
+histogram, the gang lane's admission latencies and victims land on
+``SchedulerMetrics``, and the packing solve's objective, nodes used and
+iterations on ``CycleTiming``, not on prometheus gauges).
 
 Reference semantics kept: the reference pops ONE pod per cycle
 (``ScheduleOne``); here a BATCH is popped and assigned by the greedy engine,
@@ -82,6 +88,7 @@ from .. import names as N
 from ..api import types as t
 from ..assign.batched import batched_assign_device
 from ..assign.greedy import greedy_assign_device
+from ..assign.packing import PackingEngine
 from ..framework import config as C
 from ..framework import runtime as rt
 from ..framework.featuregate import FeatureGate
@@ -144,6 +151,11 @@ class CycleTiming:
     resident_bytes: int = 0          # the resident node block's size
     rounds: int = 0                  # batched engine: rounds of the cycle
     pipelined: bool = False
+    # packing engine: the solve's iterations, objective and nodes used
+    # (None on the other engines)
+    solver_iters: int | None = None
+    objective_value: float | None = None
+    nodes_used: int | None = None
 
     @property
     def encode_s(self) -> float:
@@ -207,6 +219,9 @@ class _InflightCycle:
     # engine ran synchronously inside the launch)
     started: Any = None
     done: Any = None
+    # packing engine: the solve's (objective, nodes_used) device scalars
+    # and its iterations, taken at launch (None on the other engines)
+    solve: tuple | None = None
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -261,9 +276,7 @@ class Scheduler:
         preemption can evict one whole low-priority gang to admit an
         aligned one. The other arguments name features of later slices;
         anything but their default raises NotImplementedError."""
-        if engine == "packing":
-            raise _not_ported("engine 'packing'", "Queue A item 11 (kernel B14)")
-        if engine not in ("greedy", "batched"):
+        if engine not in ("greedy", "batched", "packing"):
             raise ValueError(f"unknown engine {engine!r}")
         if mesh not in (None, "off"):
             raise _not_ported("the device mesh", "Queue A item 12 (kernel B15)")
@@ -287,9 +300,16 @@ class Scheduler:
             self.profiles.setdefault("default-scheduler", profile)
         else:
             self.profiles = {p.name: p for p in self.cfg.profiles}
-        self._assign_device = (
-            greedy_assign_device if engine == "greedy" else self._batched_assign
-        )
+        # the packing engine is stateful: it carries the warm-start dual
+        # block and the objective-weight tensor across cycles, and keeps
+        # the last solve's diagnostics
+        self._packing = PackingEngine(device=self.device) if engine == "packing" else None
+        if self._packing is not None:
+            self._assign_device = self._packing
+        else:
+            self._assign_device = (
+                greedy_assign_device if engine == "greedy" else self._batched_assign
+            )
         self.engine = engine
         self._rounds = 0
         self.cache = Cache(clock=clock)
@@ -908,6 +928,10 @@ class Scheduler:
             assignments, final_state = self._assign_device(device_batch, params)
             if done is not None:
                 done.record()
+            solve = None
+            if self._packing is not None:
+                eng = self._packing
+                solve = (eng.last_objective, eng.last_nodes_used, eng.last_iters)
             timing = CycleTiming(
                 cycle=cycle_id, pods=len(batch_infos),
                 snapshot_s=t_enc - t_snap, pre_encode_s=pre_encode_s,
@@ -934,7 +958,7 @@ class Scheduler:
                 nominator_version=self.nominator.version,
                 ns_gen=self._snapshot.namespaces_generation,
                 vol_gen=self._snapshot.volumes_generation,
-                started=started, done=done,
+                started=started, done=done, solve=solve,
             )
         except Exception:
             self._requeue_error(batch_infos)
@@ -974,7 +998,10 @@ class Scheduler:
             if inflight.done is not None:
                 inflight.done.synchronize()
                 timing.kernel_s = inflight.started.elapsed_time(inflight.done) / 1e3
-            idx = inflight.assignments.cpu().numpy()
+            if inflight.solve is None:
+                idx = inflight.assignments.cpu().numpy()
+            else:
+                idx = self._fetch_solve(inflight)
             timing.wait_s = time.perf_counter() - t_wait
             if self.flight_recorder is not None:
                 # one decision record per pod, with the cycle-start
@@ -992,6 +1019,8 @@ class Scheduler:
                     encode_s=timing.encode_s,
                     kernel_s=timing.kernel_s,
                     engine=self.engine,
+                    objective_value=timing.objective_value,
+                    solver_iters=timing.solver_iters,
                     assignments=inflight.assignments,
                 )
                 timing.recorder_s = time.perf_counter() - t_rec
@@ -1029,6 +1058,23 @@ class Scheduler:
                 self._post_filter.reset()
             timing.postfilter_s = time.perf_counter() - t_post
         return {"scheduled": scheduled, "unschedulable": len(failed)}
+
+    @staticmethod
+    def _fetch_solve(inflight: _InflightCycle):
+        """The packing cycle's assignments, with its objective and nodes
+        used, in one device→host copy; the three diagnostics go on the
+        cycle's ``CycleTiming``. A fault in the solve propagates."""
+        objective, nodes_used, iters = inflight.solve
+        packed = torch.cat([
+            inflight.assignments.to(torch.int32),
+            nodes_used.reshape(1).to(torch.int32),
+            objective.reshape(1).view(torch.int32),
+        ]).cpu()
+        timing = inflight.timing
+        timing.solver_iters = int(iters)
+        timing.nodes_used = int(packed[-2])
+        timing.objective_value = float(packed[-1:].view(torch.float32)[0])
+        return packed[:-2].numpy()
 
     def _assume_and_bind(self, info: QueuedPodInfo, node_name: str) -> bool:
         """assumeAndReserve + a synchronous binding cycle (schedule_one.go:307

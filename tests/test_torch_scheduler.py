@@ -105,8 +105,7 @@ def test_saturated_cluster_bound_map_equal():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(engine="packing"), dict(mesh="on"), dict(mesh="auto"),
-    dict(dispatcher_workers=2),
+    dict(mesh="on"), dict(mesh="auto"), dict(dispatcher_workers=2),
 ])
 def test_out_of_slice_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
