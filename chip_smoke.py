@@ -84,7 +84,19 @@ final ``ok`` line is not printed):
    coupled-heavy SchedulingPodAffinity and TopologySpreading blocks, on
    the mixed cluster (512 x 2048) and under a profile without the
    NodeResourcesFit filter; and the dual ascent's log1p on the card must
-   equal the plain version's bits at every count in [0, 1024];
+   equal the plain version's bits at every count in [0, 1024]; then the
+   DynamicResources score term (``dra_checks``): ``filter_score``, the
+   ``greedy_scan`` engine, the ``batched_round`` rounds, the packing engine
+   (every launch alone too) and the placement search on both engines (all
+   nodes, every other node) must equal their plain versions on the
+   SchedulingBasic block given a seeded DRA leaf (8 rows of raw scores in
+   [0, 64], every pod a signature) and on an encoded prioritized-list batch
+   (1024 pods over 512 nodes: 768 pods with a (fast, slow) claim, 256 with
+   a one-device claim on a dense pool, so R = 4), and the first three on a
+   SchedulingWithResourceClaimTemplate batch (R = 4, no score leaf) and on
+   a PV batch with one static row per pod (zoned PVs, 5000 nodes); the
+   first two batches' ``filter_score`` and ``greedy_scan`` are timed with
+   and without the leaf;
 4. main paths, each with the launch counts reset just before it and read
    just after and a full garbage collection just before (the line counts
    the full collections that fell inside the run, and the seconds the
@@ -146,7 +158,19 @@ final ``ok`` line is not printed):
    ``SchedulingBasic/5000Nodes_10000Pods`` on packing, unlabeled and on
    the 32-slice fleet with ``topology="on"``: every pod bound, capacity
    held, the start, round and end kernels launched, the first cycle equal
-   to the plain solve from cold duals. Then SchedulingBasic and
+   to the plain solve from cold duals. Then volumes and DRA:
+   ``SchedulingInTreePVs`` and ``SchedulingCSIPVs``/5000Nodes_2000Pods on
+   the greedy engine (3000 bound, every PVC's PV bound to it once),
+   ``SchedulingWithResourceClaimTemplate``/5000pods_500nodes on the greedy
+   and on the batched engine (5000 bound, every claim allocated on its
+   pod's node, no device allocated twice, at most 10 claims a node, every
+   claim's status written once by PreBind), and the prioritized-list
+   scenario at 500 nodes (10 slow devices a node, 2 fast ones on every
+   second node, 1000 pods each with its own (fast, slow) claim, through the
+   Scheduler under a stepped clock: every pod bound, each fast device
+   allocated at most once, EVERY cycle's kernel assignments and final
+   state equal to the plain engine's; it prints the cycles, the Reserve
+   rejections and the pods on a fast device). Then SchedulingBasic and
    PreferredTopologySpreading run again with ``pipeline=True``: their
    bound maps must equal the serial runs', pod for pod; last, a seeded
    preempt-then-schedule scenario under a stepped clock (500 nodes of four
@@ -2022,6 +2046,265 @@ def packing_checks(results) -> dict:
     }
 
 
+# --------------------------------------------------- 3. volumes and DRA
+DRA_DRIVER = "test-driver.cdi.k8s.io"
+
+
+def dra_leaf(b, seed=0, rows=8, flat=False):
+    """``b`` with a seeded DynamicResources score leaf on the card, built
+    like ``with_extender``: S5 = ``rows`` rows of raw prioritized-list
+    scores in [0, 8 * FIRST_AVAILABLE_MAX] over the real nodes (row 0 all
+    zero, so its pods' term is 0), and every real pod given a signature.
+    With ``flat`` each row holds one value on every node, so the term adds
+    the same amount to every feasible node and the assignments are those of
+    the batch without the leaf: the term's own cost, timed apart from the
+    placements it changes."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from kubetpu_torch.api import types as t
+
+    rng = np.random.default_rng(seed)
+    P, N = b.requests.shape[0], b.alloc.shape[0]
+    n_pods = int(b.pod_valid.sum().item())
+    n_nodes = int(b.node_valid.sum().item())
+    raw = np.zeros((rows, N), dtype=np.int64)
+    raw[1:, :n_nodes] = rng.integers(0, 8 * t.FIRST_AVAILABLE_MAX + 1,
+                                     (rows - 1, 1 if flat else n_nodes))
+    sig = np.zeros(P, dtype=np.int32)
+    sig[:n_pods] = rng.integers(0, rows, n_pods)
+    dev = b.alloc.device
+    return dataclasses.replace(b, dra_score_raw=torch.from_numpy(raw).to(dev),
+                               dra_score_sig=torch.from_numpy(sig).to(dev))
+
+
+def dra_objects(n_nodes=500, slow=10, fast=2, fast_every=2, n_prio=1000, n_dense=0):
+    """The prioritized-list scenario (``tests/test_dra.py:357`` scaled up):
+    ``node_with_dra`` nodes each with ``slow`` slow devices, every
+    ``fast_every``-th also with ``fast`` fast ones; two device classes
+    (``fast-gpu``, ``slow-gpu``: the driver and the device's kind); then
+    ``n_prio`` pods each with its own claim whose one request is
+    first_available = (fast, slow), and ``n_dense`` pods each with its own
+    one-device claim on ``slow-gpu`` (a dense pool: one more resource
+    column). Every pod requests 100m / 500Mi. Returns (nodes, classes,
+    slices, claims, pods)."""
+    from kubetpu_torch.api import types as t
+    from kubetpu_torch.api.wrappers import make_pod
+    from kubetpu_torch.perf import workloads as W
+
+    nodes = [W.node_with_dra(i) for i in range(n_nodes)]
+    classes = [
+        t.DeviceClass(name=f"{kind}-gpu", selectors=(t.CELSelector(
+            f'device.driver == "{DRA_DRIVER}" && device.attributes["kind"] == "{kind}"'),))
+        for kind in ("fast", "slow")
+    ]
+    slices = []
+    for i, n in enumerate(nodes):
+        kinds = (("slow", slow),) + ((("fast", fast),) if i % fast_every == 0 else ())
+        for kind, count in kinds:
+            slices.append(t.ResourceSlice(
+                name=f"slice-{n.name}-{kind}", driver=DRA_DRIVER, pool=f"{n.name}-{kind}",
+                node_name=n.name, devices=tuple(
+                    t.Device(f"{kind}-{d}", attributes=(("kind", kind),))
+                    for d in range(count))))
+    claims, pods = [], []
+    for j in range(n_prio + n_dense):
+        name = f"dra-{j}"
+        if j < n_prio:
+            req = t.DeviceRequest(name="req", first_available=(
+                t.DeviceSubRequest(name="fast", device_class_name="fast-gpu"),
+                t.DeviceSubRequest(name="slow", device_class_name="slow-gpu")))
+        else:
+            req = t.DeviceRequest(name="req", device_class_name="slow-gpu")
+        claims.append(t.ResourceClaim(name=f"{name}-claim", namespace="dra",
+                                      uid=f"dra/{name}-claim", requests=(req,)))
+        pods.append(make_pod(name, namespace="dra", cpu_milli=100, memory=500 * 1024**2,
+                             claims=(f"{name}-claim",), creation_index=j))
+    return nodes, classes, slices, claims, pods
+
+
+def dra_cache(objects):
+    """A Cache holding ``dra_objects``' nodes and DRA objects; returns
+    ``(cache, pods)``."""
+    from kubetpu_torch.state.snapshot import Cache
+
+    nodes, classes, slices, claims, pods = objects
+    cache = Cache()
+    for n in nodes:
+        cache.add_node(n)
+    for c in classes:
+        cache.dra.add_class(c)
+    for s in slices:
+        cache.dra.add_slice(s)
+    for c in claims:
+        cache.dra.add_claim(c)
+    return cache, pods
+
+
+def claim_template_case(n_nodes=500, per_node=10, n_pending=1024):
+    """A SchedulingWithResourceClaimTemplate cycle: ``node_with_dra`` nodes
+    with ``per_node`` devices of the test class, and pods each with its own
+    one-device claim (one dense pool column, no score leaf)."""
+    from kubetpu_torch.api import types as t
+    from kubetpu_torch.api.wrappers import make_pod
+    from kubetpu_torch.perf import workloads as W
+    from kubetpu_torch.state.snapshot import Cache
+
+    cache = Cache()
+    cache.dra.add_class(t.DeviceClass(name="test-class", selectors=(
+        t.CELSelector(f'device.driver == "{DRA_DRIVER}"'),)))
+    for i in range(n_nodes):
+        n = W.node_with_dra(i)
+        cache.add_node(n)
+        cache.dra.add_slice(t.ResourceSlice(
+            name=f"slice-{n.name}", driver=DRA_DRIVER, pool=n.name, node_name=n.name,
+            devices=tuple(t.Device(name=f"device-{d}") for d in range(per_node))))
+    pending = []
+    for j in range(n_pending):
+        cache.dra.add_claim(t.ResourceClaim(
+            name=f"c{j}", namespace="test", uid=f"test/c{j}",
+            requests=(t.DeviceRequest(name="req-0", device_class_name="test-class"),)))
+        pending.append(make_pod(f"p{j}", namespace="test", claims=(f"c{j}",)))
+    return cache, pending
+
+
+def pv_case(n_nodes=5000, n_pending=1024, zones=("zone-a", "zone-b", "zone-c")):
+    """A SchedulingInTreePVs-shaped cycle whose volume rows are not all
+    true: zoned ``node_default`` nodes, and each pod with its own bound
+    ReadOnlyMany PV+PVC, the PV labeled with one of the zones (every pod
+    its own static row: S = P)."""
+    from kubetpu_torch.api import types as t
+    from kubetpu_torch.api.wrappers import make_pod
+    from kubetpu_torch.perf import workloads as W
+    from kubetpu_torch.state.snapshot import Cache
+
+    cache = Cache()
+    for i in range(n_nodes):
+        cache.add_node(W.node_default(i, zones))
+    pending = []
+    for j in range(n_pending):
+        cache.add_pv(t.PersistentVolume(
+            name=f"pv-{j}", access_modes=("ReadOnlyMany",), capacity=1024**3,
+            labels=((W.ZONE_KEY, zones[j % len(zones)]),), claim_ref=f"pv/claim-{j}"))
+        cache.add_pvc(t.PersistentVolumeClaim(
+            name=f"claim-{j}", namespace="pv", volume_name=f"pv-{j}",
+            access_modes=("ReadOnlyMany",), request=1024**3))
+        pending.append(make_pod(f"pvpod-{j}", namespace="pv", cpu_milli=100,
+                                memory=500 * 1024**2, pvcs=(f"claim-{j}",),
+                                creation_index=j))
+    return cache, pending
+
+
+def dra_checks(results, basic) -> dict:
+    """Phase 3's DynamicResources and volume checks. ``filter_score``, the
+    ``greedy_scan`` engine, the ``batched_round`` rounds, the packing
+    engine (``_packing_equal``: every launch alone too) and the placement
+    search (``placement_scan``, and on the batched engine
+    ``hypothesis_rows`` + B3 + B6 + ``slice_epilogue``; two placements: all
+    nodes, every other node) and the recorder's ``explain_summary`` and
+    ``filter_component_masks`` against their plain versions, exactly, on (a)
+    the SchedulingBasic block with a seeded DRA leaf (``dra_leaf``) and (b)
+    an encoded prioritized-list batch, 1024 pods over 512 nodes (768 with
+    a (fast, slow) claim, 256 with a one-device claim on a dense pool,
+    R = 4); then the first three on a SchedulingWithResourceClaimTemplate
+    batch (R = 4, no score leaf) and a PV batch with one static row per
+    pod at 5000 nodes. Returns the ``filter_score`` and ``greedy_scan``
+    times on (a) and (b) with and without the leaf, and on (a) with a flat
+    leaf (``dra_leaf(flat=True)``: the same assignments as without it)."""
+    import dataclasses
+
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.assign import packing as PK
+    from kubetpu_torch.assign.placement import placement_assign_device, placement_assign_plain
+    from kubetpu_torch.framework import config as C
+    from kubetpu_torch.framework import runtime as rt
+
+    def note(kernel, name, err):
+        results[kernel]["cases"].append(name)
+        results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
+
+    def two_placements(b):
+        n = int(b.node_valid.sum().item())
+        masks = torch.zeros((2, b.alloc.shape[0]), dtype=torch.bool, device=b.device)
+        masks[0, :n] = True
+        masks[1, :n:2] = True
+        return masks
+
+    weights = PK.PackingWeights().tensor("cuda")
+    b0, params = basic
+    bd = dra_leaf(b0, seed=9)
+    prio_cache, prio_pods = dra_cache(dra_objects(n_nodes=512, n_prio=768, n_dense=256))
+    bp, pp = encode(prio_cache, prio_pods, C.Profile())
+    if bp.dra_score_raw is None or bp.alloc.shape[1] != 4:
+        raise AssertionError("prioritized-list batch: no DRA leaf or R != 4")
+    for name, b, prm in (("SchedulingBasic 1024x5120 + DRA leaf", bd, params),
+                         ("prioritized list 1024x512, R=4", bp, pp)):
+        ka = check_case(name, b, prm, results)
+        _explain_equal(name, b, prm, ka, results)
+        lam = torch.zeros(b.alloc.shape[0], dtype=torch.float32, device=b.device)
+        _packing_equal(name, b, prm, lam, weights, results)
+        masks = two_placements(b)
+        note("hypothesis_scan", f"{name} placement", _equal_or_raise(
+            f"placement_scan {name}", kernels.placement_scan(b, prm, masks),
+            placement_assign_plain(b, prm, masks)))
+        err = _equal_or_raise(f"batched placement {name}",
+                              placement_assign_device(b, prm, masks, "batched"),
+                              placement_assign_plain(b, prm, masks, "batched"))
+        for kernel in ("hypothesis_rows", "slice_epilogue"):
+            note(kernel, f"{name} batched placement", err)
+        log(f"kernels vs plain [{name}]: S5={b.dra_score_raw.shape[0]} DRA rows; the "
+            "packing solve and two placements on both engines exact too")
+    for name, (cache, pending) in (
+            ("SchedulingWithResourceClaimTemplate 1024x512, R=4", claim_template_case()),
+            ("SchedulingInTreePVs zoned 1024x5120", pv_case())):
+        b, prm = encode(cache, pending, C.Profile())
+        rows = None if b.static_mask is None else b.static_mask.shape[0]
+        if "PVs" in name and rows != len(pending):
+            raise AssertionError(f"{name}: {rows} static rows for {len(pending)} pods")
+        if "Claim" in name and b.alloc.shape[1] != 4:
+            raise AssertionError(f"{name}: R = {b.alloc.shape[1]}, not 4")
+        check_case(f"{name}, static rows {rows}", b, prm, results)
+    bare = dataclasses.replace(bp, dra_score_raw=None, dra_score_sig=None)
+    flat = dra_leaf(b0, seed=9, flat=True)
+    if not torch.equal(kernels.greedy_scan(flat, params)[0], kernels.greedy_scan(b0, params)[0]):
+        raise AssertionError("a flat DRA leaf moved the Basic batch's assignments")
+    timing = {}
+    for key, with_leaf, without, prm in (("basic", bd, b0, params),
+                                         ("basic_flat", flat, b0, params),
+                                         ("prioritized", bp, bare, pp)):
+        P, N = with_leaf.requests.shape[0], with_leaf.alloc.shape[0]
+        ka, _ = kernels.greedy_scan(with_leaf, prm)
+        state_bytes = sum(int(x.nbytes) for x in (
+            with_leaf.requested, with_leaf.nonzero_requested, with_leaf.pod_count,
+            with_leaf.node_ports))
+        ops = P * N * f64_ops_per_pair(prm, with_leaf)
+        fs_bound = _bound(rt.batch_nbytes(with_leaf) + P * N * (1 + 8), ops)
+        gs_bound = _bound(rt.batch_nbytes(with_leaf) + P * 4 + state_bytes,
+                          ops + _rescored(ka.cpu().tolist()) * f64_ops_per_pair(prm, with_leaf))
+        timing[key] = {
+            "filter_score_ms": cuda_ms(lambda: kernels.filter_score(with_leaf, prm), 20),
+            "filter_score_without_ms": cuda_ms(lambda: kernels.filter_score(without, prm), 20),
+            "filter_score_plain_ms": cuda_ms(lambda: rt.feasible_and_scores(with_leaf, prm), 5),
+            "filter_score_bound_ms": fs_bound[0], "filter_score_bound_by": fs_bound[1],
+            "greedy_scan_ms": cuda_ms(lambda: kernels.greedy_scan(with_leaf, prm), 10),
+            "greedy_scan_without_ms": cuda_ms(lambda: kernels.greedy_scan(without, prm), 10),
+            "greedy_scan_bound_ms": gs_bound[0], "greedy_scan_bound_by": gs_bound[1],
+            "shape": [P, N], "dra_rows": int(with_leaf.dra_score_raw.shape[0]),
+        }
+        tm = timing[key]
+        log(f"timing [DRA term, {key} batch {P}x{N}, S5={tm['dra_rows']}]: filter_score "
+            f"{tm['filter_score_ms']:.4f} ms with the leaf, "
+            f"{tm['filter_score_without_ms']:.4f} without (plain "
+            f"{tm['filter_score_plain_ms']:.4f}, bound {fs_bound[0]:.6f} ({fs_bound[1]})); "
+            f"greedy_scan {tm['greedy_scan_ms']:.4f} / {tm['greedy_scan_without_ms']:.4f} ms "
+            f"(bound {gs_bound[0]:.6f} ({gs_bound[1]}))")
+    return timing
+
+
 def kernels_phase():
     import torch
 
@@ -2137,6 +2420,11 @@ def kernels_phase():
     timing.update(explain_checks(results, explain_batches + ext["batches"]))
     timing.update(gang_checks(results))
     timing.update(packing_checks(results))
+    dra = dra_checks(results, (b, params))
+    timing["filter_score"]["dra"] = {k: {n: v for n, v in t.items() if "greedy" not in n}
+                                     for k, t in dra.items()}
+    timing["greedy_scan"]["dra"] = {k: {n: v for n, v in t.items() if "filter" not in n}
+                                    for k, t in dra.items()}
     out = []
     for name, src, replaces in (
         ("filter_score", "kubetpu_torch/kernels/csrc/filter_score.cu",
@@ -2185,7 +2473,8 @@ def kernels_phase():
         for k in ("podaffinity_ms", "podaffinity_plain_ms", "rounds", "spread",
                   "spread_soft", "nominated", "potential", "k128", "extender",
                   "filter_score_ms", "gang_dry_run", "iterations", "basic_ms",
-                  "basic_plain_ms", "basic_iterations", "node_pass", "plain_placements"):
+                  "basic_plain_ms", "basic_iterations", "node_pass", "plain_placements",
+                  "dra"):
             if k in tm:
                 line[k] = tm[k]
         out.append(line)
@@ -2986,6 +3275,196 @@ def packing_paths(card) -> list:
     return [run[0] for run in runs]
 
 
+def pv_check(sched) -> dict:
+    """The PV cases' own check: every PVC's PV is bound to that PVC and to
+    no other, and every bound pod's claim is one of them."""
+    cache = sched.cache
+    refs = {}
+    for key, pvc in cache._pvcs.items():
+        pv = cache._pvs.get(pvc.volume_name)
+        if pv is None or pv.claim_ref != key:
+            raise AssertionError(f"PVC {key}: its PV {pvc.volume_name} is not bound to it")
+        refs[pv.name] = refs.get(pv.name, 0) + 1
+    twice = [n for n, c in refs.items() if c != 1]
+    if twice:
+        raise AssertionError(f"PVs {twice[:5]} bound to more than one PVC")
+    return {"pvcs_bound_once": len(refs)}
+
+
+def claim_check(per_node: int):
+    """SchedulingWithResourceClaimTemplate's own check: every claim of a
+    bound pod allocated on that pod's node, no device allocated to two
+    claims, at most ``per_node`` claims a node, and every allocated claim's
+    status written once by PreBind (the client's ``update_claim_status``).
+    Returns the claims' fields for the path's line."""
+    def check(sched) -> dict:
+        claims = sched.cache.dra.claims
+        where = dict(sched.client.bound)
+        devices, per = set(), {}
+        for key, c in claims.items():
+            a = c.allocation
+            if a is None:
+                raise AssertionError(f"claim {key} not allocated")
+            pod = key.split("/", 1)[1][:-len("-claim")]
+            if where.get(pod) != a.node_name:
+                raise AssertionError(f"claim {key} on {a.node_name}, its pod on {where.get(pod)}")
+            for r in a.results:
+                dev = (r.driver, r.pool, r.device)
+                if dev in devices:
+                    raise AssertionError(f"device {dev} allocated twice")
+                devices.add(dev)
+            per[a.node_name] = per.get(a.node_name, 0) + 1
+        if max(per.values()) > per_node:
+            raise AssertionError(f"a node holds {max(per.values())} claims, over {per_node}")
+        written = [c.key for c in sched.client.claim_status]
+        if sorted(written) != sorted(claims):
+            raise AssertionError(f"PreBind wrote {len(written)} claim statuses "
+                                 f"({len(set(written))} distinct) for {len(claims)} claims")
+        return {"claims_allocated": len(claims), "devices_allocated": len(devices),
+                "max_claims_per_node": max(per.values()),
+                "claim_status_writes": len(written)}
+    return check
+
+
+PRIORITIZED = {"n_nodes": 500, "slow": 10, "fast": 2, "fast_every": 2, "n_pods": 1000}
+
+
+def prioritized_phase(card) -> dict:
+    """Prioritized lists at size (``tests/test_dra.py:357``'s scenario scaled
+    up, a drive of the port's DynamicResources, not a scheduler_perf case):
+    ``PRIORITIZED``'s 500 DRA nodes with 10 slow devices each, 250 of them
+    also with 2 fast ones, and 1000 pods each with its own claim whose one
+    request is first_available = (fast, slow), through the port's
+    Scheduler on the card (greedy engine, defaults, recorder on) under a
+    stepped clock. Gates: every pod bound, each fast device allocated at
+    most once, every claim's status written by PreBind, capacity held, the
+    kernels launched, every recorder record resolved, and every cycle's
+    kernel assignments and final state equal to the plain engine's on that
+    cycle's batch (cycles whose pods Reserve rejects and requeues
+    included). Prints the cycles, the Reserve rejections, the pods on a
+    fast device, pods/s and the per-cycle spans. Returns the launch
+    counts."""
+    import dataclasses
+
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.assign.greedy import greedy_assign_plain
+    from kubetpu_torch.perf.runner import _Client, _cycle_ms
+    from kubetpu_torch.sched import Scheduler
+
+    cfg = PRIORITIZED
+    nodes, classes, slices, claims, pods = dra_objects(
+        n_nodes=cfg["n_nodes"], slow=cfg["slow"], fast=cfg["fast"],
+        fast_every=cfg["fast_every"], n_prio=cfg["n_pods"])
+    clock = SteppedClock()
+    client = _Client()
+    sched = Scheduler(client, device="cuda", clock=clock)
+    client.sched = sched
+    sched.enable_preemption()
+    for c in classes:
+        sched.on_device_class_add(c)
+    for n in nodes:
+        sched.on_node_add(n)
+    for s in slices:
+        sched.on_resource_slice_add(s)
+    sched.warmup()
+    cycles, rejected = [], []
+    engine = sched._assign_device
+
+    def keep(b, params):
+        out = engine(b, params)
+        cycles.append((dataclasses.replace(b, nodes=_clone_nodes(b.nodes)), params,
+                       out[0].clone(), tuple(_clone(x) for x in out[1])))
+        return out
+
+    reject = sched._reject_assumed
+
+    def note_reject(info, assumed, st):
+        rejected.append((info.key, st.plugin))
+        reject(info, assumed, st)
+
+    sched._assign_device = keep
+    sched._reject_assumed = note_reject
+    gc.collect()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for c, p in zip(claims, pods):
+        sched.on_resource_claim_add(c)
+        sched.on_pod_add(p)
+    for _ in range(200):
+        sched.schedule_batch()
+        client.deliver()
+        if len(client.bound) == len(pods):
+            break
+        clock.t += 1.0
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    if len(client.bound) != len(pods):
+        raise AssertionError(f"prioritized lists: {len(client.bound)} of {len(pods)} bound")
+    _check_capacity(sched)
+    fast = [(r.pool, r.device) for c in sched.cache.dra.claims.values()
+            for r in c.allocation.results if r.request.endswith("/fast")]
+    if len(fast) != len(set(fast)):
+        raise AssertionError("prioritized lists: a fast device allocated twice")
+    written = sorted(c.key for c in client.claim_status)
+    if written != sorted(sched.cache.dra.claims):
+        raise AssertionError(f"prioritized lists: {len(written)} claim-status writes")
+    for i, (b, params, got, state) in enumerate(cycles):
+        want, want_state = greedy_assign_plain(b, params)
+        torch.cuda.synchronize()
+        _engine_err(f"prioritized lists cycle {i}", got, state, want, want_state)
+    for name in ("filter_score", "greedy_scan", "explain_summary"):
+        if launches[name] < 1:
+            raise AssertionError(f"prioritized lists: never launched {name}")
+    timings = sched.metrics.cycle_timings
+    line = {"main_path": {
+        "workload": f"prioritized lists (tests/test_dra.py:357 at {cfg['n_nodes']} nodes)",
+        "engine": "greedy", **cfg, "pods_bound": len(client.bound),
+        "pods_per_s": len(pods) / secs, "run_s": secs, "cycles": len(timings),
+        "every_cycle_equal": len(cycles), "reserve_rejections": len(rejected),
+        "pods_on_fast_devices": len(fast), "claim_status_writes": len(written),
+        "cycle_ms": _cycle_ms(timings), "launches": launches, "card": card,
+        **recorder_check(sched, launches),
+    }}
+    log(json.dumps(line))
+    ms = line["main_path"]["cycle_ms"]
+    log(f"[prioritized lists] {len(timings)} cycles (each equal to the plain engine), "
+        f"{len(rejected)} Reserve rejections, {len(fast)} pods on a fast device of "
+        f"{cfg['n_nodes'] // cfg['fast_every'] * cfg['fast']}; stage 1 "
+        f"{ms['pre_encode']:.3f} ms, stage 2 {ms['finalize']:.3f} ms, kernel "
+        f"{ms['kernel']:.3f} ms, bind {ms['bind']:.3f} ms a cycle; "
+        f"{len(pods) / secs:.1f} pods/s")
+    return launches
+
+
+def dra_paths(card) -> list:
+    """The volume and DRA paths through ``run_workload(device="cuda")`` on
+    the defaults: SchedulingInTreePVs and SchedulingCSIPVs
+    /5000Nodes_2000Pods (greedy; every PVC's PV bound once),
+    SchedulingWithResourceClaimTemplate/5000pods_500nodes on the greedy
+    and the batched engine (R = 4; ``claim_check``), then the
+    prioritized-list scenario (``prioritized_phase``). Returns their
+    launch counts."""
+    from kubetpu_torch.assign.batched import batched_assign_plain
+    from kubetpu_torch.assign.greedy import greedy_assign_plain
+
+    greedy = ("filter_score", "greedy_scan", "explain_summary")
+    batched = ("filter_score", "batched_round", "explain_summary")
+    runs = [
+        run_path(card, case, "5000Nodes_2000Pods", "greedy", 1000 + 2000,
+                 greedy_assign_plain, greedy + ("scatter_rows",), check=pv_check)
+        for case in ("SchedulingInTreePVs", "SchedulingCSIPVs")
+    ]
+    # 500 nodes: every cycle dirties more than half of them, so the node
+    # block ships whole (no scatter_rows)
+    for engine, plain, names in (("greedy", greedy_assign_plain, greedy),
+                                 ("batched", batched_assign_plain, batched)):
+        runs.append(run_path(card, "SchedulingWithResourceClaimTemplate", "5000pods_500nodes",
+                             engine, 2500 + 2500, plain, names, check=claim_check(10)))
+    return [run[0] for run in runs] + [prioritized_phase(card)]
+
+
 def main_path_phase(card: str) -> list[dict]:
     """The six paths on the defaults (encode cache, resident block,
     serial cycle), then SchedulingBasic and PreferredTopologySpreading
@@ -3092,6 +3571,7 @@ def main() -> int:
     path_launches = main_path_phase(card)
     path_launches += gang_paths(card)
     path_launches += packing_paths(card)
+    path_launches += dra_paths(card)
     path_launches.append(bridge_phase(card))
     stepped_preemption_phase()
     for k in kernel_lines:

@@ -12,10 +12,16 @@ explicit ``device`` (default ``"cuda"``): a CPU device runs the plain
 PyTorch versions, a CUDA device runs the kernels, and nothing probes for a
 GPU or falls back from one path to the other.
 
-This is the first slice: the default-profile greedy scheduling cycle in
-direct mode (``sched.scheduler.Scheduler``, ``perf.run_workload``).
-Features of later slices raise ``NotImplementedError`` naming their ROADMAP
-item.
+What the port runs, in direct mode (``sched.scheduler.Scheduler``,
+``perf.run_workload``, ``bridge.ExtenderServer``): the default profile's
+scheduling cycle on the greedy, batched and packing engines, serial or
+pipelined over a node block resident on the device, with inter-pod
+affinity, topology spread, preemption and nominations, the extender
+webhooks, the flight recorder, the gang and topology lane, and volumes and
+DynamicResources with the Reserve / Permit / PreBind lifecycle runner
+(``framework.lifecycle``). Features of later slices (the device mesh, the
+asynchronous API dispatcher, ...) raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 __version__ = "0.1.0"

@@ -47,6 +47,7 @@ def _pod_view(b: rt.DeviceBatch, i: int) -> rt.DeviceBatch:
         image_count=row(b.image_count),
         extender_mask=row(b.extender_mask),
         extender_score=row(b.extender_score),
+        dra_score_sig=row(b.dra_score_sig),
         pod_ports=b.pod_ports[i:i + 1],
         nominated_gate=row(b.nominated_gate),
         pod_priority=row(b.pod_priority),

@@ -2,8 +2,10 @@
 
 Port of ``kubetpu/framework/runtime.py``, narrowed to the slices ported so
 far: the default profile's cycle with inter-pod affinity, topology spread,
-the nominator's reservations, the extender webhook's verdicts and the
-topology coordinates the gang lane reads, and no DRA or volumes.
+the nominator's reservations, the extender webhook's verdicts, the
+topology coordinates the gang lane reads, the volume plugins' static rows
+and DynamicResources (dense pool columns on the resource axis, host-claim
+static rows and the prioritized-list score rows).
 Host encode is the reference's numpy code, in its two stages
 (``encode_batch_static``, then ``finalize_batch``); the device batch is a
 frozen dataclass of torch tensors on the caller's device whose pod leaves
@@ -142,8 +144,7 @@ class DeviceBatch:
     resources. Padding rows/cols are masked out (``node_valid``/``pod_valid``
     False, ``static_mask`` False on pads) so kernels need no special cases.
 
-    Same field names and ``None`` leaves as the reference's pytree. The
-    DRA leaves belong to a later slice and are always None here."""
+    Same field names and ``None`` leaves as the reference's pytree."""
 
     # persistent node-state block
     nodes: DeviceNodeState
@@ -178,8 +179,10 @@ class DeviceBatch:
     # extender webhook verdicts for this cycle (sched/extender.py)
     extender_mask: torch.Tensor | None = None   # (P, N) bool
     extender_score: torch.Tensor | None = None  # (P, N) int64
-    dra_score_raw: torch.Tensor | None = None
-    dra_score_sig: torch.Tensor | None = None
+    # DynamicResources prioritized-list raw score (dynamicresources.go:1059
+    # computeScore), signature-compressed like the other static raws
+    dra_score_raw: torch.Tensor | None = None   # (S5, N) int64
+    dra_score_sig: torch.Tensor | None = None   # (P,) int32
     pod_priority: torch.Tensor | None = None     # (P,) int32
     # dense node-topology coordinates (state.topology): present only when
     # topology is ACTIVE (``topology="on"``, or ``"auto"`` with labeled
@@ -222,22 +225,6 @@ DELTA_FIELDS = ("delta.idx",) + tuple("delta." + n for n in NODE_FIELDS)
 POD_FIELDS = tuple(
     f.name for f in dataclasses.fields(DeviceBatch) if f.name != "nodes"
 )
-# leaves of later slices: a batch that carries any of them is out of scope
-LATER_SLICE_LEAVES = {
-    "dra_score_raw": "Queue A (DynamicResources)",
-    "dra_score_sig": "Queue A (DynamicResources)",
-}
-
-
-def check_slice_leaves(leaves: Mapping[str, object], where: str) -> None:
-    """Raise NotImplementedError naming the ROADMAP item when a leaf of a
-    later slice is present."""
-    for name, item in LATER_SLICE_LEAVES.items():
-        if leaves.get(name) is not None:
-            raise NotImplementedError(
-                f"{where}: leaf {name!r} belongs to ROADMAP {item}, "
-                "not yet ported"
-            )
 
 
 def _align(n: int, a: int = 16) -> int:
@@ -290,11 +277,10 @@ def device_batch_from_numpy(
     ``PodAffinityDevice``'s / ``SpreadDevice``'s attributes (kubetpu's, or
     the port encoders' ``PodAffinityTensors`` / ``SpreadTensors``); their
     arrays ride in the same buffer."""
-    check_slice_leaves(leaves, "device_batch_from_numpy")
     arrays = dict(delta or {})
     for name in (NODE_FIELDS if resident is None else ()) + POD_FIELDS:
         a = leaves.get(name)
-        if a is None or name in LATER_SLICE_LEAVES or name in NESTED:
+        if a is None or name in NESTED:
             continue
         arrays[name] = a
     for name, (_, fields, _) in NESTED.items():
@@ -695,8 +681,8 @@ class StaticBatch:
     previous cycle's device work runs, then ``finalize_batch`` patches in
     the assume-dependent slice (node resource rows via the resident block's
     delta upload, spread counts, affinity sums, in-use ports) after that
-    cycle's assumes land. (The reference's ``folded`` and its DRA fields
-    belong to later slices.)"""
+    cycle's assumes land. (The reference's ``folded`` and ``want_img`` are
+    not kept: nothing here reads them after stage 1.)"""
 
     pods: list
     profile: "C.Profile | None"
@@ -711,6 +697,8 @@ class StaticBatch:
     want_tt: bool
     want_spread: bool
     want_interpod: bool
+    dra_score_raw: "np.ndarray | None"
+    dra_score_sig: "np.ndarray | None"
     img_sums: "np.ndarray | None"
     img_sig: "np.ndarray | None"
     img_counts: "np.ndarray | None"
@@ -720,8 +708,8 @@ class StaticBatch:
     # port triples joined the vocabulary); finalize_batch checks it
     nominated_key: tuple = ()
     # True when the static encode itself already depends on assignment state
-    # (folded singleton scalars) — a pre-encoded StaticBatch with this set
-    # must not be reused across an assume boundary
+    # (folded singleton scalars, volumes, DRA) — a pre-encoded StaticBatch
+    # with this set must not be reused across an assume boundary
     assume_coupled: bool = False
     # set by refresh_static when node rows moved since stage 1: the in-use
     # port rows baked into ``pb`` are then stale and finalize re-derives
@@ -738,23 +726,6 @@ class StaticBatch:
     # topology label; coordinates are read fresh from the NodeTensors memo
     # at stage 2 so a label change between stages is never baked stale
     topology: str = "off"
-
-
-def _check_slice_pods(pods: Sequence[t.Pod]) -> None:
-    """Raise NotImplementedError for inputs whose encode would produce a
-    leaf of a later slice (the reference would build DRA or volume state
-    for them)."""
-    for p in pods:
-        if p.resource_claims:
-            raise NotImplementedError(
-                f"pod {p.namespace}/{p.name}: resource claims (DRA) are not "
-                "yet ported (ROADMAP Queue A)"
-            )
-        if any(v.pvc_name for v in p.volumes):
-            raise NotImplementedError(
-                f"pod {p.namespace}/{p.name}: PVC volumes are not yet "
-                "ported (ROADMAP Queue A)"
-            )
 
 
 def encode_batch(
@@ -813,19 +784,43 @@ def encode_batch_static(
     """Stage 1: the assume-independent host encode (see StaticBatch), all
     numpy, no device call. ``track_changes=False`` (serial loop) skips the
     pipeline-only staleness diff in the incremental snapshot encode."""
-    _check_slice_pods(pods)
     N, P = snapshot.num_nodes(), len(pods)
     NP = enc.round_up(N) if pad else N
     PP = enc.round_up(P) if pad else P
     folded: frozenset = frozenset()
     if resource_names is None:
         resource_names, folded = enc.batch_resource_axis(snapshot, pods)
+    # DRA (state.dra): pre-analyze the batch's claims so dense pool columns
+    # join the resource axis BEFORE the node tensors are built; pool ids are
+    # interned on the cache's index, keeping the axis cycle-stable for the
+    # incremental encode
+    dra_state = None
+    want_dra_plugin = profile is None or (
+        profile.has_filter(C.DYNAMIC_RESOURCES)
+    )
+    if (
+        want_dra_plugin
+        and getattr(snapshot, "dra", None) is not None
+        and any(p_.resource_claims for p_ in pods)
+    ):
+        from ..state.dra import DraState
+
+        dra_state = DraState(snapshot)
+        for p_ in pods:
+            dra_state.analyze(p_)
+        pool_names = dra_state.pool_resource_names()
+        if pool_names:
+            resource_names = list(resource_names) + pool_names
     t_nodes = time.perf_counter()
     nt = enc.encode_snapshot(
         snapshot, resource_names=resource_names, pods=pods, pad_nodes=NP,
         prev=prev_nt, track_changes=track_changes,
     )
     nodes_s = time.perf_counter() - t_nodes
+    if dra_state is not None and dra_state.used_pools:
+        dra_state.fill_node_columns(
+            nt, len(nt.resource_names) - len(dra_state.used_pools)
+        )
     enabled = (
         frozenset(profile.filters.names()) if profile is not None else None
     )
@@ -835,6 +830,13 @@ def encode_batch_static(
     nominated_triples: list[tuple[int, str, str]] = []
     for e in nominated:
         nominated_triples.extend(getattr(e, "ports", ()))
+    vol_state = None
+    if any(v.pvc_name for p_ in pods for v in p_.volumes):
+        # a pod referencing a PVC engages the volume plugins even when the
+        # listers are empty (a MISSING claim is what rejects it)
+        from ..state.volumes import VolumeState
+
+        vol_state = VolumeState(snapshot)
     # a nomination whose own pod sits in THIS batch is excluded: the folded
     # resource is a batch singleton, so the nominee is its only requester —
     # charging would block the nominee from its own nominated node (the
@@ -851,10 +853,43 @@ def encode_batch_static(
     pb = enc.encode_pod_batch(
         nt, pods, enabled_filters=enabled, pad_pods=PP,
         enabled_scores=enabled_sc, extra_port_triples=nominated_triples,
+        volume_state=vol_state,
         folded_resources=folded,
         folded_nominated=folded_nominated,
+        dra_state=dra_state,
         cache=cache,
     )
+    # DRA prioritized-list score rows (per distinct host-spec set)
+    dra_score_raw = dra_score_sig = None
+    want_dra_score = profile is None or profile.has_score(C.DYNAMIC_RESOURCES)
+    if dra_state is not None and want_dra_score:
+        NC = nt.alloc.shape[0]
+        row_ids: dict[tuple, int] = {}
+        rows: list[np.ndarray] = []
+        sig_arr = np.zeros(PP, dtype=np.int32)
+        any_score = False
+        for i, p_ in enumerate(pods):
+            d = dra_state.analyze(p_)
+            specs = tuple(
+                s for s in d.host_specs
+                if dra_state.spec_score(s, nt) is not None
+            )
+            sid = row_ids.get(specs)
+            if sid is None:
+                v = np.zeros(N, dtype=np.int64)
+                for s in specs:
+                    v = v + dra_state.spec_score(s, nt)
+                sid = len(rows)
+                row_ids[specs] = sid
+                rows.append(v)
+            sig_arr[i] = sid
+            if specs:
+                any_score = True
+        if any_score:
+            dra_score_raw = np.zeros((len(rows), NC), dtype=np.int64)
+            for s_i, v in enumerate(rows):
+                dra_score_raw[s_i, :N] = v
+            dra_score_sig = sig_arr
     want_na = profile is None or profile.has_score(C.NODE_AFFINITY)
     want_tt = profile is None or profile.has_score(C.TAINT_TOLERATION)
     want_img = profile is None or profile.has_score(C.IMAGE_LOCALITY)
@@ -888,13 +923,16 @@ def encode_batch_static(
         want_tt=want_tt,
         want_spread=want_spread,
         want_interpod=want_interpod,
+        dra_score_raw=dra_score_raw,
+        dra_score_sig=dra_score_sig,
         img_sums=img_sums,
         img_sig=img_sig,
         img_counts=img_counts,
         node_valid=node_valid,
         pod_valid=pod_valid,
         nominated_key=tuple(id(e) for e in nominated),
-        assume_coupled=bool(folded),
+        assume_coupled=bool(folded) or dra_state is not None
+        or vol_state is not None,
         cache=cache,
         nodes_s=nodes_s,
         topology=topology,
@@ -1113,6 +1151,10 @@ def finalize_batch(
         pod_priority=pb.priority,
         podaffinity=pa,
         spread=sp,
+        dra_score_raw=sb.dra_score_raw,
+        dra_score_sig=(
+            sb.dra_score_sig if sb.dra_score_raw is not None else None
+        ),
         topology=topo,
     ), device, resident=resident, delta=delta)
     upload_s = time.perf_counter() - t_up
@@ -1236,7 +1278,6 @@ def filter_components(
     ``sp_counts`` / ``pa_state`` are the spread counts and affinity sums
     the verdicts read (None without the leaf). ``nominated_active`` (G,)
     bool masks the nominations still charged (None: all of them)."""
-    check_slice_leaves(batch_leaves(b), "filter_components")
     req = b.requested if requested is None else requested
     pc = b.pod_count if pod_count is None else pod_count
     ports = b.node_ports if node_ports is None else node_ports
@@ -1399,6 +1440,11 @@ def feasible_and_scores(
             pa, pa_state, pa.score_rows, pa.score_vals, mask
         )
         total = total + p.w_interpod * pa_sc
+    if p.w_dra and b.dra_score_raw is not None:
+        # DynamicResources prioritized-list score + DefaultNormalizeScore
+        # (dynamicresources.go:1059 Score, :1138 NormalizeScore)
+        dra_raw = _rows(b.dra_score_raw, b.dra_score_sig)
+        total = total + p.w_dra * masked_normalize(dra_raw, mask)
     if b.extender_score is not None:
         # extender Prioritize, pre-scaled weight*MaxNodeScore/MaxExtenderPriority
         # (schedule_one.go:1015) — added after plugin normalization

@@ -245,8 +245,10 @@ class ScoreArgs(ctypes.Structure):
             "nom_active",
         )
     ] + [("G", ctypes.c_int64)] + [
-        (name, ctypes.c_void_p) for name in ("ext_mask", "ext_score")
-    ]
+        (name, ctypes.c_void_p) for name in (
+            "ext_mask", "ext_score", "dra_raw", "dra_sig",
+        )
+    ] + [("w_dra", ctypes.c_int64)]
 
 
 class DryRunArgs(ctypes.Structure):
@@ -305,7 +307,6 @@ def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str, state=None,
     ``nom_active`` (G,) bool, with nominations, is the live-nomination
     flags the kernels read (and the engines clear); all set when None.
     Returns ``(args, keepalive)``."""
-    rt.check_slice_leaves(rt.batch_leaves(b), where)
     dev = b.alloc.device
     if dev.type != "cuda":
         raise ValueError(f"{where}: the kernel takes CUDA tensors, batch is on {dev}")
@@ -460,6 +461,10 @@ def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str, state=None,
     if b.extender_mask is not None:
         a.ext_mask = _check("extender_mask", b.extender_mask, u8, (P, N), dev)
         a.ext_score = _check("extender_score", b.extender_score, i64, (P, N), dev)
+    dra = b.dra_score_raw if p.w_dra else None
+    a.dra_raw, a.dra_sig = rows("dra_score_raw", dra, b.dra_score_sig, "dra_score_sig", i64)
+    if dra is not None:
+        a.w_dra = p.w_dra
     return a, keep
 
 

@@ -2,7 +2,7 @@
 // same node state: the (P, N) mask, the (P, N) int64 base score (fit,
 // balanced and image terms, weighted) and, when asked for, the (P, N) int64
 // total (base plus the normalized node-affinity, taint, InterPodAffinity
-// and PodTopologySpread terms).
+// PodTopologySpread and DynamicResources terms).
 //
 // Replaces kubetpu/framework/runtime.py:1578 filter_score_batch (jit), i.e.
 // :1471 feasible_and_scores with :1363 filter_components and :1356
@@ -85,10 +85,11 @@ __global__ void filter_score_normalize(ScoreArgs a, const uint8_t* mask, const i
   const int64_t p = blockIdx.x;
   const int64_t N = a.N;
   const bool sp_score = a.w_spread && kt::sp_any_soft(a, p);
-  const bool normalize =
-      a.na_raw != nullptr || a.tt_raw != nullptr || a.w_interpod || sp_score;
+  const bool normalize = a.na_raw != nullptr || a.tt_raw != nullptr || a.w_interpod ||
+                         sp_score || a.dra_raw != nullptr;
   const int64_t row =
       (a.na_raw != nullptr || a.tt_raw != nullptr) ? (int64_t)a.score_sig[p] * N : 0;
+  const int64_t drow = kt::dra_row(a, p);
   const uint8_t* m = mask + p * N;
   double* weight = reinterpret_cast<double*>(s_dyn);
   if (sp_score) {
@@ -103,7 +104,7 @@ __global__ void filter_score_normalize(ScoreArgs a, const uint8_t* mask, const i
     for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
       if (!m[n]) continue;
       const int64_t pa_r = a.w_interpod ? kt::pa_raw(a, a.pa_sums, p, n) : 0;
-      kt::fold_norm(a, row, n, pa_r,
+      kt::fold_norm(a, row, drow, n, pa_r,
                     kt::sp_scored_raw(a, sp_score, a.sp_counts, a.sp_sums, weight, p, n), mx);
     }
     kt::block_max_norm(a, sp_score, mx, s_m);
@@ -115,7 +116,7 @@ __global__ void filter_score_normalize(ScoreArgs a, const uint8_t* mask, const i
       const int64_t pa_r = (ok && a.w_interpod) ? kt::pa_raw(a, a.pa_sums, p, n) : 0;
       const int64_t sp =
           ok ? kt::sp_scored_raw(a, sp_score, a.sp_counts, a.sp_sums, weight, p, n) : -1;
-      s += kt::norm_terms(a, row, n, ok, pa_r, sp, mx);
+      s += kt::norm_terms(a, row, drow, n, ok, pa_r, sp, mx);
     }
     total[p * N + n] = s;
   }

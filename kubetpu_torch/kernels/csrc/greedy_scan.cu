@@ -72,14 +72,20 @@ constexpr int kThreads = kt::kThreads;
 
 // kPA: the batch has affinity rows; kSP: it has a spread leaf (see
 // scan_loop.cuh)
-template <bool kPA, bool kSP>
+template <bool kPA, bool kSP, bool kDRA>
 __global__ void __launch_bounds__(kThreads, 1)
 greedy_scan_kernel(ScoreArgs a, const uint8_t* mask0, const int64_t* base0, uint8_t* touched,
                    int32_t* assignments, int64_t* req, int64_t* nz, int32_t* pc,
                    uint8_t* ports, int64_t* pa_sums, int64_t* row_total, int32_t* sp_counts,
                    uint8_t* ok_buf) {
-  kt::scan_loop<kPA, kSP>(a, kt::NoHypothesis{}, mask0, base0, touched, assignments, req, nz,
-                          pc, ports, pa_sums, row_total, sp_counts, ok_buf);
+  kt::scan_loop<kPA, kSP, kDRA>(a, kt::NoHypothesis{}, mask0, base0, touched, assignments,
+                                req, nz, pc, ports, pa_sums, row_total, sp_counts, ok_buf);
+}
+
+// the instantiation for a batch with (kDRA) or without the DRA leaf
+template <bool kPA, bool kSP>
+auto scan_for(bool dra) {
+  return dra ? greedy_scan_kernel<kPA, kSP, true> : greedy_scan_kernel<kPA, kSP, false>;
 }
 
 }  // namespace
@@ -102,9 +108,9 @@ extern "C" int kt_greedy_scan(const ScoreArgs* args, const void* mask0, const vo
                               void* ok_buf, int64_t smem, void* stream) {
   const ScoreArgs a = *args;
   if (a.N == 0 && a.P == 0) return 0;
-  const bool pa = pa_sums != nullptr, sp = sp_counts != nullptr;
-  auto kernel = pa ? (sp ? greedy_scan_kernel<true, true> : greedy_scan_kernel<true, false>)
-                   : (sp ? greedy_scan_kernel<false, true> : greedy_scan_kernel<false, false>);
+  const bool pa = pa_sums != nullptr, sp = sp_counts != nullptr, dra = a.dra_raw != nullptr;
+  auto kernel = pa ? (sp ? scan_for<true, true>(dra) : scan_for<true, false>(dra))
+                   : (sp ? scan_for<false, true>(dra) : scan_for<false, false>(dra));
   kernel<<<1, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const uint8_t*>(mask0), static_cast<const int64_t*>(base0),
       static_cast<uint8_t*>(touched), static_cast<int32_t*>(assignments),

@@ -80,7 +80,7 @@ __device__ __forceinline__ void slice_epilogue(int64_t P, const uint8_t* pod_val
 // The dynamic shared memory is the scan's (spread weights and bitmap)
 // and, after the scan, the epilogue's S + 1 counts unless slice_buf (H,
 // S + 1) is given.
-template <bool kPA, bool kSP>
+template <bool kPA, bool kSP, bool kDRA>
 __global__ void __launch_bounds__(kThreads, 1)
 hypothesis_scan_kernel(ScoreArgs a, const uint8_t* mask0, const int64_t* base0,
                        const uint8_t* hmask, const int64_t* freed_req,
@@ -107,12 +107,18 @@ hypothesis_scan_kernel(ScoreArgs a, const uint8_t* mask0, const int64_t* base0,
   const kt::Hypothesis hyp{hmask + h * N, freed_req == nullptr ? nullptr : freed_req + h * N * R,
                            freed_count == nullptr ? nullptr : freed_count + h * N};
   int32_t* const mine = assignments + h * P;
-  kt::scan_loop<kPA, kSP>(a, hyp, mask0, base0, touched + h * N, mine, req + h * N * R,
-                          nz + h * N * R, pc + h * N, ports + h * N * a.K, pa_sums, row_total,
-                          sp_counts, ok_buf);
+  kt::scan_loop<kPA, kSP, kDRA>(a, hyp, mask0, base0, touched + h * N, mine,
+                                req + h * N * R, nz + h * N * R, pc + h * N,
+                                ports + h * N * a.K, pa_sums, row_total, sp_counts, ok_buf);
   int32_t* cnt = slice_buf != nullptr ? slice_buf + h * (num_slices + 1)
                                       : reinterpret_cast<int32_t*>(s_dyn);
   slice_epilogue(P, a.pod_valid, mine, slice_id, num_slices, cnt, counts + h, align + h);
+}
+
+// the instantiation for a batch with (kDRA) or without the DRA leaf
+template <bool kPA, bool kSP>
+auto hypothesis_for(bool dra) {
+  return dra ? hypothesis_scan_kernel<kPA, kSP, true> : hypothesis_scan_kernel<kPA, kSP, false>;
 }
 
 // The batched engine's hypotheses (B11 / B13 on engine="batched"): the
@@ -189,11 +195,9 @@ extern "C" int kt_hypothesis_scan(const ScoreArgs* args, const void* mask0, cons
                                   void* stream) {
   const ScoreArgs a = *args;
   if (H == 0) return 0;
-  const bool pa = pa_sums != nullptr, sp = sp_counts != nullptr;
-  auto kernel = pa ? (sp ? hypothesis_scan_kernel<true, true>
-                         : hypothesis_scan_kernel<true, false>)
-                   : (sp ? hypothesis_scan_kernel<false, true>
-                         : hypothesis_scan_kernel<false, false>);
+  const bool pa = pa_sums != nullptr, sp = sp_counts != nullptr, dra = a.dra_raw != nullptr;
+  auto kernel = pa ? (sp ? hypothesis_for<true, true>(dra) : hypothesis_for<true, false>(dra))
+                   : (sp ? hypothesis_for<false, true>(dra) : hypothesis_for<false, false>(dra));
   kernel<<<(unsigned)H, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const uint8_t*>(mask0), static_cast<const int64_t*>(base0),
       static_cast<const uint8_t*>(hmask), static_cast<const int64_t*>(freed_req),

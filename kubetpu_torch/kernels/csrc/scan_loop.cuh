@@ -50,13 +50,14 @@ struct Hypothesis {
 };
 
 // The scan of one block over the batch's pods. kPA: the batch has
-// affinity rows; kSP: it has a spread leaf. Each kernel that runs it is
-// built four times, so that a batch without them runs code with no
-// affinity or spread branches at all. Dynamic shared memory (kSP only):
+// affinity rows; kSP: it has a spread leaf; kDRA: it has the
+// DynamicResources score leaf. Each kernel that runs it is built eight
+// times, so that a batch without them runs code with no affinity, spread
+// or DRA branches at all. Dynamic shared memory (kSP only):
 // sp_C doubles of slot weights, then the domain bitmap when a.sp_bits is
 // null. Every thread of the block calls it; the scratch and outputs are
 // the block's own.
-template <bool kPA, bool kSP, class Hyp>
+template <bool kPA, bool kSP, bool kDRA, class Hyp>
 __device__ __forceinline__ void scan_loop(ScoreArgs& a, const Hyp& h, const uint8_t* mask0,
                                           const int64_t* base0, uint8_t* touched,
                                           int32_t* assignments, int64_t* req, int64_t* nz,
@@ -71,6 +72,7 @@ __device__ __forceinline__ void scan_loop(ScoreArgs& a, const Hyp& h, const uint
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   if (!kPA) a.w_interpod = 0;
+  if (!kDRA) a.dra_raw = nullptr;
   if (!kSP) {
     a.w_spread = 0;
     a.sp_filter = 0;
@@ -137,11 +139,12 @@ __device__ __forceinline__ void scan_loop(ScoreArgs& a, const Hyp& h, const uint
   }
 
   const bool na_tt = a.na_raw != nullptr || a.tt_raw != nullptr;
-  const bool normalize = na_tt || a.w_interpod;
+  const bool normalize = na_tt || a.w_interpod || a.dra_raw != nullptr;
   for (int64_t p = 0; p < a.P; ++p) {
     const uint8_t* m0 = mask0 + p * N;
     const int64_t* b0 = base0 + p * N;
     const int64_t row = na_tt ? (int64_t)a.score_sig[p] * N : 0;
+    const int64_t drow = kt::dra_row(a, p);
     const bool escape = pa_filter && kt::pa_escape(a, row_total, p);
     const bool sp_score = kSP && a.w_spread && kt::sp_any_soft(a, p);
     // the pair's verdict against the running state
@@ -179,7 +182,7 @@ __device__ __forceinline__ void scan_loop(ScoreArgs& a, const Hyp& h, const uint
       for (int64_t n = tid; n < N; n += kThreads) {
         if (!(kSP ? ok_buf[n] : feasible(n))) continue;
         const int64_t pa_r = a.w_interpod ? kt::pa_raw(a, pa_sums, p, n) : 0;
-        kt::fold_norm(a, row, n, pa_r, spread_raw(n), mx);
+        kt::fold_norm(a, row, drow, n, pa_r, spread_raw(n), mx);
       }
       kt::block_max_norm(a, sp_score, mx, s_m);
     }
@@ -190,7 +193,7 @@ __device__ __forceinline__ void scan_loop(ScoreArgs& a, const Hyp& h, const uint
       int64_t s = touched[n] ? kt::base_score(a, p, n, req, nz) : b0[n];
       if (normalize || sp_score) {
         const int64_t pa_r = a.w_interpod ? kt::pa_raw(a, pa_sums, p, n) : 0;
-        s += kt::norm_terms(a, row, n, true, pa_r, spread_raw(n), mx);
+        s += kt::norm_terms(a, row, drow, n, true, pa_r, spread_raw(n), mx);
       }
       if (better(s, n, best_s, best_n)) {
         best_s = s;

@@ -25,6 +25,10 @@
 //     normalize runs over the shrunk feasible set) and its pre-weighted
 //     (P, N) score is added to the total (int64 sums are exact, so adding
 //     it with the base terms equals the reference's adding it last)
+//   kubetpu/framework/runtime.py:1563-1570 the DynamicResources score
+//     term: the pod's prioritized-list raw row, gathered by its signature
+//     from the (S5, N) table, DefaultNormalizeScore over the feasible set
+//     (as the node-affinity term), weighted by w_dra
 //
 // Exactness: every integer is int64 as in the reference (which runs with
 // jax x64). `//` in the reference floors; C++ `/` truncates, so floordiv()
@@ -130,12 +134,17 @@ struct ScoreArgs {
   // both null without extenders
   const uint8_t* ext_mask;           // (P, N)
   const int64_t* ext_score;          // (P, N) weight * 10 * raw, pre-scaled
+  // DynamicResources prioritized-list raw rows (DeviceBatch.dra_score_raw /
+  // dra_score_sig); dra_raw is null without the leaf or when w_dra is 0
+  const int64_t* dra_raw;            // (S5, N)
+  const int32_t* dra_sig;            // (P,)
+  int64_t w_dra;
 };
 
 namespace kt {
 
 constexpr int64_t kMaxNodeScore = 100;
-constexpr int kNorm = 6;                     // values fold_norm reduces
+constexpr int kNorm = 7;                     // values fold_norm reduces
 constexpr int64_t kBig = 2147483647;         // spread.py's _BIG (int32 max)
 
 // floor division for b > 0 (the reference's `//`)
@@ -396,6 +405,11 @@ __device__ __forceinline__ int64_t normalize(int64_t v, int64_t mx, bool reverse
   return reverse ? kMaxNodeScore - s : s;
 }
 
+// the row offset of pod p's DRA raw row (0 without the leaf)
+__device__ __forceinline__ int64_t dra_row(const ScoreArgs& a, int64_t p) {
+  return a.dra_raw != nullptr ? (int64_t)a.dra_sig[p] * a.N : 0;
+}
+
 // the node-affinity and taint terms of a pair whose masked raws are known
 __device__ __forceinline__ int64_t normalized_terms(const ScoreArgs& a, int64_t na_m,
                                                     int64_t tt_m, int64_t mx_na,
@@ -617,6 +631,39 @@ __device__ __forceinline__ void block_max2(int64_t& x, int64_t& y, int64_t* sx, 
   y = sy[32];
 }
 
+// max of three values over the block; every thread gets the results
+__device__ __forceinline__ void block_max3(int64_t& x, int64_t& y, int64_t& z, int64_t* sx,
+                                           int64_t* sy, int64_t* sz) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  x = warp_max(x);
+  y = warp_max(y);
+  z = warp_max(z);
+  if (lane == 0) {
+    sx[warp] = x;
+    sy[warp] = y;
+    sz[warp] = z;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int64_t vx = lane < nwarps ? sx[lane] : 0;
+    int64_t vy = lane < nwarps ? sy[lane] : 0;
+    int64_t vz = lane < nwarps ? sz[lane] : 0;
+    vx = warp_max(vx);
+    vy = warp_max(vy);
+    vz = warp_max(vz);
+    if (lane == 0) {
+      sx[32] = vx;
+      sy[32] = vy;
+      sz[32] = vz;
+    }
+  }
+  __syncthreads();
+  x = sx[32];
+  y = sy[32];
+  z = sz[32];
+}
+
 // max of K values over the block; s holds K x 33 int64. Every thread gets
 // the results.
 template <int K>
@@ -642,25 +689,41 @@ __device__ __forceinline__ void block_maxk(int64_t (&v)[kNorm], int64_t (*s)[33]
 // the reduction of fold_norm's maxima over the block: the node-affinity and
 // taint maxima always (the cheap two-value form when nothing else
 // normalizes), the affinity pair with affinity score rows, the spread pair
-// when the pod is spread-scored (sp_score)
+// when the pod is spread-scored (sp_score), and the DRA maximum only when
+// the batch has the DRA leaf (without it the reductions are those of a
+// batch before the term existed)
 __device__ __forceinline__ void block_max_norm(const ScoreArgs& a, bool sp_score,
                                                int64_t (&m)[kNorm], int64_t (*s)[33]) {
-  if (sp_score)
-    block_maxk<6>(m, s);
-  else if (a.w_interpod)
-    block_maxk<4>(m, s);
-  else
+  const bool dra = a.dra_raw != nullptr;
+  if (sp_score) {
+    if (dra)
+      block_maxk<7>(m, s);
+    else
+      block_maxk<6>(m, s);
+  } else if (a.w_interpod) {
+    if (dra)
+      block_maxk<7>(m, s);
+    else
+      block_maxk<4>(m, s);
+  } else if (dra) {
+    block_max3(m[0], m[1], m[6], s[0], s[1], s[6]);
+  } else {
     block_max2(m[0], m[1], s[0], s[1]);
+  }
 }
 
 // the normalize inputs of one pair that passed Filter, folded into the
-// running maxima: node-affinity and taint raws, the affinity raw's max and
-// its negated min, and (when sp >= 0, i.e. the pair is spread-scored) the
-// rounded spread raw's max and negated min, so that all six reduce by max
-__device__ __forceinline__ void fold_norm(const ScoreArgs& a, int64_t row, int64_t n,
-                                          int64_t pa_r, int64_t sp, int64_t (&m)[kNorm]) {
+// running maxima: node-affinity and taint raws (row: the pod's offset into
+// their table), the affinity raw's max and its negated min, (when sp >= 0,
+// i.e. the pair is spread-scored) the rounded spread raw's max and negated
+// min, and the DRA raw (drow: the pod's offset into its table), so that all
+// seven reduce by max
+__device__ __forceinline__ void fold_norm(const ScoreArgs& a, int64_t row, int64_t drow,
+                                          int64_t n, int64_t pa_r, int64_t sp,
+                                          int64_t (&m)[kNorm]) {
   if (a.na_raw != nullptr) m[0] = imax(m[0], a.na_raw[row + n]);
   if (a.tt_raw != nullptr) m[1] = imax(m[1], a.tt_raw[row + n]);
+  if (a.dra_raw != nullptr) m[6] = imax(m[6], a.dra_raw[drow + n]);
   if (a.w_interpod) {
     m[2] = imax(m[2], pa_r);
     m[3] = imax(m[3], -pa_r);
@@ -671,9 +734,9 @@ __device__ __forceinline__ void fold_norm(const ScoreArgs& a, int64_t row, int64
   }
 }
 
-// start values of fold_norm's maxima: the node-affinity, taint and spread
-// maxima start at 0 (the reference's masked max), the affinity ones at the
-// most negative value, and the spread minimum at int64 max (negated)
+// start values of fold_norm's maxima: the node-affinity, taint, spread and
+// DRA maxima start at 0 (the reference's masked max), the affinity ones at
+// the most negative value, and the spread minimum at int64 max (negated)
 __device__ __forceinline__ void init_norm(int64_t (&m)[kNorm]) {
   m[0] = 0;
   m[1] = 0;
@@ -681,20 +744,23 @@ __device__ __forceinline__ void init_norm(int64_t (&m)[kNorm]) {
   m[3] = INT64_MIN;
   m[4] = 0;
   m[5] = -INT64_MAX;
+  m[6] = 0;
 }
 
 // the normalized terms of a pair given the reduced maxima. An infeasible
-// pair (ok false) still gets the node-affinity and taint terms of a zero
-// raw, as masked_normalize gives it; its affinity term is 0. sp is the
+// pair (ok false) still gets the node-affinity, taint and DRA terms of a
+// zero raw, as masked_normalize gives it; its affinity term is 0. sp is the
 // pair's rounded spread raw when it is spread-scored, else -1 (term 0).
-__device__ __forceinline__ int64_t norm_terms(const ScoreArgs& a, int64_t row, int64_t n,
-                                              bool ok, int64_t pa_r, int64_t sp,
+__device__ __forceinline__ int64_t norm_terms(const ScoreArgs& a, int64_t row, int64_t drow,
+                                              int64_t n, bool ok, int64_t pa_r, int64_t sp,
                                               const int64_t (&m)[kNorm]) {
   const int64_t na = (ok && a.na_raw != nullptr) ? a.na_raw[row + n] : 0;
   const int64_t tt = (ok && a.tt_raw != nullptr) ? a.tt_raw[row + n] : 0;
   int64_t s = normalized_terms(a, na, tt, m[0], m[1]);
   if (ok && a.w_interpod) s += a.w_interpod * pa_normalize(pa_r, -m[3], m[2]);
   if (ok && sp >= 0) s += a.w_spread * sp_normalize(sp, -m[5], m[4]);
+  if (a.dra_raw != nullptr)
+    s += a.w_dra * normalize(ok ? a.dra_raw[drow + n] : 0, m[6], false);
   return s;
 }
 

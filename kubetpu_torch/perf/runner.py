@@ -1,10 +1,15 @@
 """scheduler_perf runner — drive the port's scheduler loop through an op list.
 
 Reduced fork of ``kubetpu/perf/runner.py``: the direct mode only (no HTTP
-apiserver, no federation), for the ops of the slice's workloads, churn and
-the gang ops included. The op lists drive the port's ``Scheduler`` through its informer
-seam, as the reference's direct mode drives kubetpu's, with preemption
-enabled as there.
+apiserver, no federation), for the ops of the slice's workloads, churn,
+the gang ops and the volume and DRA ops included. The op lists drive the
+port's ``Scheduler`` through its informer seam, as the reference's direct
+mode drives kubetpu's, with preemption enabled as there. The client keeps
+the claim-status writes DynamicResources' PreBind sends it
+(``update_claim_status``; the reference's direct-mode client has none, so
+its PreBind writes nothing there), and the measured phase's warmup builds
+the kernels only: the reference's warmup pods (and, on the DRA case, their
+claims, which it adds to the index) have no counterpart.
 
 Throughput definition: measured-phase scheduled pods / measured-phase wall
 seconds — the average the reference's threshold selector asserts on
@@ -149,7 +154,8 @@ class _Client:
     """API-server stand-in: binds and victim deletes land here and feed the
     informer handlers back on the loop thread via a pending queue (the
     watch-event delivery the reference gets from the apiserver). It also
-    keeps every delete (with its reason) and nomination it was sent."""
+    keeps every delete (with its reason), nomination, claim-status write
+    and PVC bind it was sent."""
 
     def __init__(self) -> None:
         self.sched: Scheduler | None = None
@@ -161,6 +167,11 @@ class _Client:
         self.bound_by_ns: collections.Counter = collections.Counter()
         self.deleted: list[tuple[t.Pod, str]] = []
         self.nominated: list[tuple[t.Pod, str]] = []
+        # DynamicResources PreBind's claim-status writes (the claim with its
+        # allocation and reservedFor entry) and VolumeBinding PreBind's
+        # PVC binds, in order
+        self.claim_status: list[t.ResourceClaim] = []
+        self.pvc_binds: list[tuple[str, str]] = []
 
     def bind(self, pod: t.Pod, node_name: str) -> None:
         self.bound.append((pod.name, node_name))
@@ -176,6 +187,12 @@ class _Client:
 
     def nominate(self, pod: t.Pod, node_name: str) -> None:
         self.nominated.append((pod, node_name))
+
+    def update_claim_status(self, claim: t.ResourceClaim) -> None:
+        self.claim_status.append(claim)
+
+    def bind_pvc(self, pvc: t.PersistentVolumeClaim, pv_name: str) -> None:
+        self.pvc_binds.append((pvc.key, pv_name))
 
     def deliver(self) -> None:
         """Drain informer events on the loop thread."""
@@ -356,6 +373,7 @@ def run_workload(
     preempt0 = None
     op_ns_counter = 0
     created: list[t.Pod] = []
+    created_nodes: list[str] = []
     gc_clock = _GcClock()
 
     def begin_measured() -> None:
@@ -410,10 +428,12 @@ def run_workload(
         if isinstance(op, W.CreateNodesOp):
             n = op.count or params[op.count_param]
             for i in range(n):
-                sched.on_node_add(
+                node = (
                     op.template(i, op.zones) if op.template is not None
                     else W.node_default(i, op.zones, slices)
                 )
+                created_nodes.append(node.name)
+                sched.on_node_add(node)
         elif isinstance(op, W.CreateNamespacesOp):
             # namespace objects carry labels for affinity namespaceSelectors
             n = params[op.count_param] if op.count_param else op.count
@@ -472,6 +492,77 @@ def run_workload(
                 duration += secs
             else:
                 settle(count, (op.namespace,))
+        elif isinstance(op, W.CreatePodsWithPVsOp):
+            count = params[op.count_param]
+            ns = op.namespace or f"pv-{op_i}"
+            if op.collect_metrics:
+                begin_measured()
+            for j in range(count):
+                pv_name = f"{ns}-pv-{j}"
+                sched.on_pv_add(t.PersistentVolume(
+                    name=pv_name, driver=op.driver,
+                    access_modes=("ReadOnlyMany",), capacity=1024**3,
+                    claim_ref=f"{ns}/{ns}-claim-{j}",
+                ))
+                sched.on_pvc_add(t.PersistentVolumeClaim(
+                    name=f"{ns}-claim-{j}", namespace=ns,
+                    volume_name=pv_name, access_modes=("ReadOnlyMany",),
+                    request=1024**3,
+                ))
+                pod = make_pod(
+                    f"pvpod-{op_i}-{j}", namespace=ns, cpu_milli=100,
+                    memory=500 * 1024**2, creation_index=j,
+                    pvcs=(f"{ns}-claim-{j}",),
+                )
+                created.append(pod)
+                sched.on_pod_add(pod)
+            if op.collect_metrics:
+                with gc_clock:
+                    done, secs = settle(count, (ns,))
+                measured += done
+                duration += secs
+            else:
+                settle(count, (ns,))
+        elif isinstance(op, W.CreateResourceDriverOp):
+            sched.on_device_class_add(t.DeviceClass(
+                name=op.class_name,
+                selectors=(t.CELSelector(f'device.driver == "{op.driver}"'),),
+            ))
+            per_node = params[op.max_claims_param]
+            for node_name in created_nodes:
+                if not node_name.startswith(op.node_prefix):
+                    continue
+                sched.on_resource_slice_add(t.ResourceSlice(
+                    name=f"slice-{node_name}", driver=op.driver,
+                    pool=node_name, node_name=node_name,
+                    devices=tuple(
+                        t.Device(name=f"device-{d}") for d in range(per_node)
+                    ),
+                ))
+        elif isinstance(op, W.CreateClaimPodsOp):
+            count = params[op.count_param]
+            ns = op.namespace
+            if op.collect_metrics:
+                begin_measured()
+            for j in range(count):
+                name = f"drapod-{op_i}-{j}"
+                sched.on_resource_claim_add(t.ResourceClaim(
+                    name=f"{name}-claim", namespace=ns,
+                    uid=f"{ns}/{name}-claim",
+                    requests=(t.DeviceRequest(
+                        name="req-0", device_class_name=op.class_name,
+                    ),),
+                ))
+                pod = make_pod(name, namespace=ns, claims=(f"{name}-claim",))
+                created.append(pod)
+                sched.on_pod_add(pod)
+            if op.collect_metrics:
+                with gc_clock:
+                    done, secs = settle(count, (ns,))
+                measured += done
+                duration += secs
+            else:
+                settle(count, (ns,))
         elif isinstance(op, W.ChurnOp):
             churns.append(_Churn(op=op, namespace=f"churn-{len(churns)}"))
         else:
@@ -497,7 +588,8 @@ def run_workload(
                 if isinstance(op, W.CreateGangPodsOp) else 1
             )
             for op in case.ops
-            if isinstance(op, (W.CreatePodsOp, W.CreateGangPodsOp))
+            if isinstance(op, (W.CreatePodsOp, W.CreateGangPodsOp,
+                               W.CreatePodsWithPVsOp, W.CreateClaimPodsOp))
             and op.collect_metrics
         ),
         scheduled=measured,

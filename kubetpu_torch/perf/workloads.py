@@ -9,14 +9,17 @@ in the reference), the ``SchedulingPodAffinity`` test case
 and the ``PreemptionAsync`` test case (misc/performance-config.yaml:186),
 the ``GangScheduling`` test case
 (podgroup/gangscheduling/performance-config.yaml:7, with its two feature
-gates) and the reference's own ``BinPacking`` case (the packing engine's
-workload), each with its direct-mode workloads, the templates they use
-(``node_default`` with the shared rack/TPU-slice label grammar
-``trace_topology_labels``, ``pod_default``, ``pod_with_pod_affinity``,
-``pod_with_topology_spreading``, ``pod_with_preferred_topology_spreading``,
-``pod_with_label``, ``pod_low_priority``, ``pod_high_priority_3cpu``,
-``pod_binpack``, and ``pod_high_priority_large_cpu``, ``ChurnOp``'s
-default) and the seven ops
+gates), the reference's own ``BinPacking`` case (the packing engine's
+workload), and the volume and DRA cases ``SchedulingInTreePVs``,
+``SchedulingCSIPVs`` (volumes/performance-config.yaml:55, :142) and
+``SchedulingWithResourceClaimTemplate`` (dra/performance-config.yaml:58,
+with its feature gate), each with its direct-mode workloads, the
+templates they use (``node_default`` with the shared rack/TPU-slice label
+grammar ``trace_topology_labels``, ``node_with_dra``, ``pod_default``,
+``pod_with_pod_affinity``, ``pod_with_topology_spreading``,
+``pod_with_preferred_topology_spreading``, ``pod_with_label``,
+``pod_low_priority``, ``pod_high_priority_3cpu``, ``pod_binpack``, and
+``pod_high_priority_large_cpu``, ``ChurnOp``'s default) and the ten ops
 they use. Everything kept is verbatim apart from the trim.
 
 Mirrors the reference harness's shape
@@ -270,6 +273,60 @@ class CreateGangPodsOp:
 
 
 @dataclass(frozen=True)
+class CreatePodsWithPVsOp:
+    """createPods with persistentVolumeTemplatePath /
+    persistentVolumeClaimTemplatePath (volumes/performance-config.yaml:55
+    SchedulingInTreePVs, :142 SchedulingCSIPVs): each pod gets its own
+    bound PV+PVC pair (templates/pv-aws.yaml + templates/pvc.yaml —
+    ReadOnlyMany, 1Gi, bind-completed)."""
+
+    count_param: str = "measurePods"
+    collect_metrics: bool = False
+    driver: str = ""                        # CSI driver name ("" = in-tree)
+    namespace: str | None = None
+
+
+def node_with_dra(i: int, zones: tuple[str, ...] = ()) -> t.Node:
+    """templates/node-with-dra-test-driver.yaml: a default node named to
+    match the driver op's ``nodes: scheduler-perf-dra-*`` selector."""
+    name = f"scheduler-perf-dra-{i}"
+    return make_node(
+        name, cpu_milli=4000, memory=32 * 1024**3, pods=110,
+        labels={HOSTNAME_KEY: name},
+    )
+
+
+@dataclass(frozen=True)
+class CreateResourceDriverOp:
+    """operations.go createResourceDriverOp (dra/performance-config.yaml
+    ``createResourceDriver``): publish the DRA driver's DeviceClass plus one
+    ResourceSlice with ``maxClaimsPerNodeParam`` devices per node matching
+    ``node_prefix`` (the reference's ``nodes: scheduler-perf-dra-*``
+    selector; test driver shape: templates/deviceclass.yaml + per-node
+    slices)."""
+
+    driver: str = "test-driver.cdi.k8s.io"
+    class_name: str = "test-class"
+    max_claims_param: str = "maxClaimsPerNode"
+    node_prefix: str = "scheduler-perf-dra-"
+
+
+@dataclass(frozen=True)
+class CreateClaimPodsOp:
+    """createPods with a ResourceClaimTemplate
+    (dra/performance-config.yaml SchedulingWithResourceClaimTemplate:
+    templates/resourceclaimtemplate.yaml + pod-with-claim-template.yaml):
+    each pod gets its OWN ResourceClaim instance — one request, one device
+    of ``class_name`` — exactly what the resourceclaim controller stamps
+    from the template."""
+
+    count_param: str = "measurePods"
+    class_name: str = "test-class"
+    collect_metrics: bool = False
+    namespace: str = "dra-test"
+
+
+@dataclass(frozen=True)
 class ChurnOp:
     """operations.go:518 churnOp — create (or recreate) interfering objects
     at an interval while the measured phase runs."""
@@ -477,5 +534,62 @@ _case(TestCase(
         Workload("1000Nodes_3000Pods",
                  {"initNodes": 1000, "initPods": 200, "measurePods": 3000},
                  labels=("performance", "packing")),
+    ),
+))
+
+_case(TestCase(
+    name="SchedulingInTreePVs",
+    source="volumes/performance-config.yaml:55 (threshold 290)",
+    ops=(
+        CreateNodesOp("initNodes"),
+        CreatePodsWithPVsOp("initPods"),
+        CreatePodsWithPVsOp("measurePods", collect_metrics=True),
+    ),
+    workloads=(
+        Workload("5Nodes", {"initNodes": 5, "initPods": 5, "measurePods": 10}),
+        Workload("5000Nodes_2000Pods",
+                 {"initNodes": 5000, "initPods": 1000, "measurePods": 2000},
+                 threshold=290, labels=("performance",)),
+    ),
+))
+
+_case(TestCase(
+    name="SchedulingCSIPVs",
+    source="volumes/performance-config.yaml:142 (threshold 100)",
+    ops=(
+        CreateNodesOp("initNodes"),
+        CreatePodsWithPVsOp("initPods", driver="ebs.csi.aws.com"),
+        CreatePodsWithPVsOp("measurePods", driver="ebs.csi.aws.com",
+                            collect_metrics=True),
+    ),
+    workloads=(
+        Workload("5Nodes", {"initNodes": 5, "initPods": 5, "measurePods": 10}),
+        Workload("5000Nodes_2000Pods",
+                 {"initNodes": 5000, "initPods": 1000, "measurePods": 2000},
+                 threshold=100, labels=("performance",)),
+    ),
+))
+
+_case(TestCase(
+    name="SchedulingWithResourceClaimTemplate",
+    source="dra/performance-config.yaml:58 (threshold 56, 'typically above 70')",
+    feature_gates=(("DynamicResourceAllocation", True),),
+    ops=(
+        CreateNodesOp("nodesWithoutDRA"),
+        CreateNodesOp("nodesWithDRA", template=node_with_dra),
+        CreateResourceDriverOp(),
+        CreateClaimPodsOp("initPods", namespace="init"),
+        CreateClaimPodsOp("measurePods", collect_metrics=True,
+                          namespace="test"),
+    ),
+    workloads=(
+        Workload("fast", {"nodesWithDRA": 1, "nodesWithoutDRA": 1,
+                          "initPods": 0, "measurePods": 10,
+                          "maxClaimsPerNode": 10}),
+        Workload("5000pods_500nodes",
+                 {"nodesWithDRA": 500, "nodesWithoutDRA": 0,
+                  "initPods": 2500, "measurePods": 2500,
+                  "maxClaimsPerNode": 10},
+                 threshold=56, labels=("performance",)),
     ),
 ))

@@ -2,12 +2,10 @@
 
 Port copy of ``kubetpu/sched/podgroup.py``. Port-side deviations:
 
-- ``_bind_member`` binds through the port's synchronous ``_assume_and_bind``
-  (the reference runs Reserve/Permit through ``_begin_binding``, and its
-  lifecycle runner is not ported yet: the default profile has no
-  Reserve/Permit plugin the port admits). A bind error hands the member
-  back to the manager's pending pool, as the reference's bind completion
-  does a cycle later.
+- ``_bind_member`` binds through the scheduler's ``_begin_binding``, whose
+  binding cycle runs inline: a bind error hands the member back to the
+  manager's pending pool at once, as the reference's bind completion does
+  a cycle later. There is no SLI histogram to observe.
 - Victim deletes go straight to ``client.delete_pod``, as the port's
   per-pod PostFilter runs them (``sched/preemption.py``), not through an
   API dispatcher's ``DeleteVictimCall``; the reason text is the same.
@@ -778,14 +776,16 @@ def _try_gang_preemption(
 def _bind_member(
     sched: "Scheduler", e: GroupEntry, info: QueuedPodInfo, node_name: str
 ) -> bool:
-    """Assume + bind one accepted member (prepareForBindingCycle +
-    runBindingCycle, submitPodGroupAlgorithmResult success arm), through
-    the port's synchronous ``_assume_and_bind``. Returns True, as the
-    reference does once the bind is dispatched: a failed bind already
-    handed the member back to the manager's pending pool
-    (``Scheduler._assume_and_bind``'s gang branch)."""
+    """Assume + Reserve/Permit + bind one accepted member
+    (prepareForBindingCycle + runBindingCycle,
+    submitPodGroupAlgorithmResult success arm). Returns False when a
+    Reserve/Permit plugin rejected the member — _reject_assumed's group
+    branch already handed it back to the manager's pending pool."""
     e.pending.pop(info.key, None)
     e.scheduled[info.key] = node_name
-    sched._assume_and_bind(info, node_name)
+    assumed = info.pod.with_node(node_name)
+    sched.cache.assume_pod(assumed)
+    if not sched._begin_binding(info, assumed):
+        return False
     sched.metrics.scheduled += 1
     return True

@@ -3,7 +3,11 @@
 The slices of the port so far: the reference's default cycle — the encode
 cache, the device-resident node block and, on request, the two-stage
 pipelined cycle — for one or more profiles on the greedy, the batched or
-the packing engine, in direct mode, with synchronous binding, and the
+the packing engine, in direct mode, with synchronous binding through the
+lifecycle runner (``framework.lifecycle``: Reserve, Permit with waiting
+pods, PreBind, bind, PostBind, and Unreserve on any failure; the default
+registry's VolumeBinding and DynamicResources plugins), the volume and DRA
+informers with the DynamicResources PreEnqueue gate, the
 DefaultPreemption PostFilter with the nominator's reservations
 (``enable_preemption``), the
 scheduler-extender webhooks (``cfg.extenders``: the batch's Filter and
@@ -11,11 +15,15 @@ Prioritize calls, a binder extender's bind, the ProcessPreemption hook) and
 the flight recorder (``flight_recorder``, on by default as in the
 reference: a decision record per pod with its cycle-start breakdown). What
 it keeps of the reference, line for line where the logic is host logic:
-the informer handlers for nodes, pods, namespaces, services and PDBs (with
-the encode cache's hooks), ``schedule_batch`` → ``_schedule_batch_serial`` /
+the informer handlers for nodes, pods, namespaces, services, PDBs, PVs,
+PVCs, storage classes, resource claims, resource slices and device classes
+(with the encode cache's hooks), ``schedule_batch`` → ``_schedule_batch_serial`` /
 ``_schedule_batch_pipelined`` → ``_launch_cycle`` / ``_finish_cycle``,
-``_pre_encode``, ``_refresh_host_state``, ``_complete_inflight`` with its
-replay (also when the nomination set moved under the in-flight cycle),
+``_pre_encode`` (None for a batch with volumes or claims),
+``_refresh_host_state``, ``_complete_inflight`` with its replay (also when
+the nomination set, the volume listers or the DRA index moved under the
+in-flight cycle), ``_begin_binding`` / ``_reject_assumed`` /
+``_drain_waiting_pods``,
 ``_handle_unschedulable`` with its PostFilter branch, the nomination spent
 at assume and dropped at pod delete, ``_apply_extenders``, the recorder's
 calls (delivery, drop, cycle, requeue, preemption, bind), the engine seam
@@ -55,13 +63,17 @@ The recorder's explain is launched in ``_finish_cycle`` after the
 assignments are fetched, on the current stream, before the next cycle's
 scatter can write the resident block: stage 1 stays free of CUDA calls.
 
-Not in these slices (each raises when asked for): the device mesh, DRA,
-volumes, the sentinel, the asynchronous API dispatcher, the
-Reserve/Permit lifecycle runner and the metrics registry (so the
+Not in these slices (each raises when asked for): the device mesh, the
+sentinel, the asynchronous API dispatcher and the metrics registry (so the
 recorder's staged latency vectors are recorded but observed into no
-histogram, the gang lane's admission latencies and victims land on
-``SchedulerMetrics``, and the packing solve's objective, nodes used and
-iterations on ``CycleTiming``, not on prometheus gauges).
+histogram, the lifecycle runner times no plugin, the gang lane's admission
+latencies and victims land on ``SchedulerMetrics``, and the packing
+solve's objective, nodes used and iterations on ``CycleTiming``, not on
+prometheus gauges). The binding cycle runs inline, as the reference's does
+with ``dispatcher_workers=0``, and its outcome (bound, or forgotten,
+unreserved and requeued) is applied at once rather than at the next
+cycle's drain of bind completions; PreBind's API writes go to the client
+(``update_claim_status``, ``bind_pvc``) when it has them.
 
 Reference semantics kept: the reference pops ONE pod per cycle
 (``ScheduleOne``); here a BATCH is popped and assigned by the greedy engine,
@@ -90,8 +102,10 @@ from ..assign.batched import batched_assign_device
 from ..assign.greedy import greedy_assign_device
 from ..assign.packing import PackingEngine
 from ..framework import config as C
+from ..framework import lifecycle as lc
 from ..framework import runtime as rt
 from ..framework.featuregate import FeatureGate
+from ..framework.validation import must_validate
 from ..queue import PriorityQueue, QueuedPodInfo
 from ..queue.events import (
     ActionType,
@@ -215,6 +229,7 @@ class _InflightCycle:
     nominator_version: int           # the nomination set the encode saw
     ns_gen: int                      # snapshot generations at launch
     vol_gen: int
+    dra_gen: tuple                   # (DRA generation, claims version)
     # CUDA events around the engine's launch (None on the CPU, where the
     # engine ran synchronously inside the launch)
     started: Any = None
@@ -248,6 +263,7 @@ class Scheduler:
         dispatcher_workers: int = 0,
         feature_gates=None,
         topology: str = "off",
+        registry: "lc.Registry | None" = None,
     ) -> None:
         """``device``: where the cycle's device work runs — ``"cuda"``
         (default: the hand-written kernels) or ``"cpu"`` (the plain
@@ -274,7 +290,11 @@ class Scheduler:
         slice or rack label) it attaches the dense coordinate block to
         every encoded batch: gang placement scores slice alignment, and
         preemption can evict one whole low-priority gang to admit an
-        aligned one. The other arguments name features of later slices;
+        aligned one. ``registry``: the lifecycle plugin registry the
+        profiles' ``lifecycle`` names resolve in (the in-tree
+        VolumeBinding and DynamicResources by default); each profile is
+        validated (``framework.validation.must_validate``) when its runner
+        is built. The other arguments name features of later slices;
         anything but their default raises NotImplementedError."""
         if engine not in ("greedy", "batched", "packing"):
             raise ValueError(f"unknown engine {engine!r}")
@@ -318,9 +338,13 @@ class Scheduler:
         filters = sorted({
             n for prof in self.profiles.values() for n in prof.filters.names()
         })
+        # the DRA PreEnqueue gate only applies when some profile runs the
+        # plugin — otherwise the gating rejector would have no registered
+        # queueing hints and a gated pod could never wake
+        self._dra_enabled = N.DYNAMIC_RESOURCES in filters
         self.queue = PriorityQueue(
             hints=default_queueing_hints(filters),
-            pre_enqueue=[self._scheduling_gates],
+            pre_enqueue=[self._scheduling_gates, self._dra_pre_enqueue],
             clock=clock,
             initial_backoff_seconds=self.cfg.pod_initial_backoff_seconds,
             max_backoff_seconds=self.cfg.pod_max_backoff_seconds,
@@ -384,6 +408,25 @@ class Scheduler:
             self._extender_pool = ThreadPoolExecutor(
                 max_workers=max(1, self.cfg.parallelism)
             )
+        self.registry = registry if registry is not None else lc.default_registry()
+        # loud config validation (apis/config/validation analog): a
+        # malformed profile must never reach the hot loop
+        self._lifecycles: dict[str, lc.LifecycleRunner] = {}
+        built: dict[int, lc.LifecycleRunner] = {}
+        for pname, prof in self.profiles.items():
+            if id(prof) not in built:
+                must_validate(prof, self.registry)
+                built[id(prof)] = self.registry.build(
+                    prof.lifecycle.names(), prof
+                )
+            self._lifecycles[pname] = built[id(prof)]
+        # the default profile's runner (single-profile back-compat surface)
+        self.lifecycle = self._lifecycles.get(
+            "default-scheduler",
+            next(iter(self._lifecycles.values())),
+        )
+        # permitted-with-Wait pods parked before binding (waitingPodsMap)
+        self.waiting_pods: dict[str, lc.WaitingPod] = {}
 
     def enable_preemption(self) -> None:
         """Wire the DefaultPreemption PostFilter
@@ -427,10 +470,13 @@ class Scheduler:
         """frameworkForPod (schedule_one.go:532): None = not our pod."""
         return self.profiles.get(pod.scheduler_name)
 
+    def _lifecycle_for(self, pod: t.Pod) -> lc.LifecycleRunner:
+        return self._lifecycles.get(pod.scheduler_name, self.lifecycle)
+
     def _gang_member(self, pod: t.Pod) -> bool:
         """Is this pod routed through the gang lane? One predicate for
-        EVERY routing decision (add/update/bind-failure) — a pod must
-        never be gang-routed on one path and queue-routed on another."""
+        EVERY routing decision (add/update/reject/bind-failure) — a pod
+        must never be gang-routed on one path and queue-routed on another."""
         return bool(pod.scheduling_group) and self.feature_gates.enabled(
             "GangScheduling"
         )
@@ -440,6 +486,19 @@ class Scheduler:
         """SchedulingGates PreEnqueue (plugins/schedulinggates): any
         non-empty spec.schedulingGates holds the pod out of the queue."""
         return N.SCHEDULING_GATES if pod.scheduling_gates else None
+
+    def _dra_pre_enqueue(self, pod: t.Pod) -> str | None:
+        """DynamicResources PreEnqueue (dynamicresources.go:270): every
+        referenced ResourceClaim must exist before the pod may enter the
+        active queue (template instances are created by the resourceclaim
+        controller); a claim Add event re-runs this gate."""
+        if not pod.resource_claims or not self._dra_enabled:
+            return None
+        claims = self.cache.dra.claims
+        for rc in pod.resource_claims:
+            if not rc.claim_name or f"{pod.namespace}/{rc.claim_name}" not in claims:
+                return N.DYNAMIC_RESOURCES
+        return None
 
     def on_node_add(self, node: t.Node) -> None:
         known = self.cache.has_node(node.name)
@@ -587,6 +646,10 @@ class Scheduler:
         self._preempting.pop(pod_key(pod), None)
         if pod.scheduling_group:
             self.podgroups.remove_pod(pod)
+        wp = self.waiting_pods.pop(pod_key(pod), None)
+        if wp is not None:
+            # a deleted waiting pod unreserves; its assume drops below
+            self._lifecycle_for(wp.pod).run_unreserve(self, wp.pod, wp.node_name)
         # has_pod covers BOUND pods too: a Delete event may carry a stale
         # object with node_name unset (cache.go:583 RemovePod's contract)
         if pod.node_name or self.cache.has_pod(pod.uid):
@@ -613,6 +676,114 @@ class Scheduler:
 
     def on_pod_group_delete(self, group: t.PodGroup) -> None:
         self.podgroups.remove_group(group)
+
+    # ------------------------------------------------------ volume informers
+    def on_pv_add(self, pv: t.PersistentVolume) -> None:
+        self.cache.add_pv(pv)
+        self.queue.on_event(
+            ClusterEvent(EventResource.PERSISTENT_VOLUME, ActionType.ADD),
+            None, pv,
+        )
+
+    def on_pv_update(self, old, new: t.PersistentVolume) -> None:
+        self.cache.update_pv(new)
+        self.queue.on_event(
+            ClusterEvent(EventResource.PERSISTENT_VOLUME, ActionType.UPDATE),
+            old, new,
+        )
+
+    def on_pv_delete(self, pv: t.PersistentVolume) -> None:
+        self.cache.remove_pv(pv.name)
+
+    def on_pvc_add(self, pvc: t.PersistentVolumeClaim) -> None:
+        self.cache.add_pvc(pvc)
+        self.queue.on_event(
+            ClusterEvent(EventResource.PERSISTENT_VOLUME_CLAIM, ActionType.ADD),
+            None, pvc,
+        )
+
+    def on_pvc_update(self, old, new: t.PersistentVolumeClaim) -> None:
+        self.cache.update_pvc(new)
+        self.queue.on_event(
+            ClusterEvent(EventResource.PERSISTENT_VOLUME_CLAIM, ActionType.UPDATE),
+            old, new,
+        )
+
+    def on_pvc_delete(self, pvc: t.PersistentVolumeClaim) -> None:
+        self.cache.remove_pvc(pvc.key)
+
+    def on_storage_class_add(self, sc: t.StorageClass) -> None:
+        self.cache.add_storage_class(sc)
+        self.queue.on_event(
+            ClusterEvent(EventResource.STORAGE_CLASS, ActionType.ADD),
+            None, sc,
+        )
+
+    def on_storage_class_update(self, old, new: t.StorageClass) -> None:
+        self.cache.update_storage_class(new)
+        self.queue.on_event(
+            ClusterEvent(EventResource.STORAGE_CLASS, ActionType.ADD),
+            old, new,
+        )
+
+    def on_storage_class_delete(self, sc: t.StorageClass) -> None:
+        self.cache.remove_storage_class(sc.name)
+
+    # ------------------------------------------------------- DRA informers
+    def on_resource_claim_add(self, claim: t.ResourceClaim) -> None:
+        self.cache.dra.add_claim(claim)
+        self.queue.on_event(
+            ClusterEvent(EventResource.RESOURCE_CLAIM, ActionType.ADD),
+            None, claim,
+        )
+
+    def on_resource_claim_update(self, old, new: t.ResourceClaim) -> None:
+        self.cache.dra.add_claim(new)
+        self.queue.on_event(
+            ClusterEvent(EventResource.RESOURCE_CLAIM, ActionType.UPDATE),
+            old, new,
+        )
+
+    def on_resource_claim_delete(self, claim: t.ResourceClaim) -> None:
+        self.cache.dra.remove_claim(claim.key)
+        self.queue.on_event(
+            ClusterEvent(EventResource.RESOURCE_CLAIM, ActionType.DELETE),
+            claim, None,
+        )
+
+    def on_resource_slice_add(self, sl: t.ResourceSlice) -> None:
+        self.cache.dra.add_slice(sl)
+        self.queue.on_event(
+            ClusterEvent(EventResource.RESOURCE_SLICE, ActionType.ADD),
+            None, sl,
+        )
+
+    def on_resource_slice_update(self, old, new: t.ResourceSlice) -> None:
+        self.cache.dra.add_slice(new)
+        self.queue.on_event(
+            ClusterEvent(EventResource.RESOURCE_SLICE, ActionType.UPDATE),
+            old, new,
+        )
+
+    def on_resource_slice_delete(self, sl: t.ResourceSlice) -> None:
+        self.cache.dra.remove_slice(sl.name)
+
+    def on_device_class_add(self, dc: t.DeviceClass) -> None:
+        self.cache.dra.add_class(dc)
+        self.queue.on_event(
+            ClusterEvent(EventResource.DEVICE_CLASS, ActionType.ADD),
+            None, dc,
+        )
+
+    def on_device_class_update(self, old, new: t.DeviceClass) -> None:
+        self.cache.dra.add_class(new)
+        self.queue.on_event(
+            ClusterEvent(EventResource.DEVICE_CLASS, ActionType.UPDATE),
+            old, new,
+        )
+
+    def on_device_class_delete(self, dc: t.DeviceClass) -> None:
+        self.cache.dra.remove_class(dc.name)
 
     def _pre_encode_pod(self, pod: t.Pod) -> None:
         """Event-time tensorization (the informer half of the encode
@@ -785,11 +956,14 @@ class Scheduler:
         deltas against the in-flight encode — see _refresh_host_state) and
         build the assume-independent half of the encode. Host work only:
         no CUDA call, so nothing here waits for the device. Returns None
-        when the batch's encode is assume-coupled (nominations in play) or
-        stage 1 failed — the launch then re-encodes from scratch."""
+        when the batch's encode is assume-coupled (volumes / DRA claims /
+        nominations in play) or stage 1 failed — the launch then
+        re-encodes from scratch."""
         self._refresh_host_state()
         pods = [info.pod for info in batch_infos]
-        if self.nominator.entries():
+        if self.nominator.entries() or any(
+            p.volumes or p.resource_claims for p in pods
+        ):
             return None
         try:
             sb = rt.encode_batch_static(
@@ -847,11 +1021,13 @@ class Scheduler:
             # the in-flight batch must not be stranded by a refresh failure
             self._requeue_error(inflight.batch_infos)
             raise
+        dra = self.cache.dra
         stale = (
             self._inflight_stale
             or self.nominator.version != inflight.nominator_version
             or self._snapshot.namespaces_generation != inflight.ns_gen
             or self._snapshot.volumes_generation != inflight.vol_gen
+            or (dra.generation, dra.claims_version) != inflight.dra_gen
         )
         if stale:
             self.metrics.pipeline_replays += 1
@@ -958,6 +1134,7 @@ class Scheduler:
                 nominator_version=self.nominator.version,
                 ns_gen=self._snapshot.namespaces_generation,
                 vol_gen=self._snapshot.volumes_generation,
+                dra_gen=(self.cache.dra.generation, self.cache.dra.claims_version),
                 started=started, done=done, solve=solve,
             )
         except Exception:
@@ -1036,6 +1213,7 @@ class Scheduler:
             if 0 <= j < len(batch.node_names):
                 if self._assume_and_bind(info, batch.node_names[j]):
                     scheduled += 1
+                # a Reserve/Permit rejection already requeued the pod
             else:
                 failed.append(info)
         timing.bind_s = time.perf_counter() - t_bind
@@ -1077,16 +1255,59 @@ class Scheduler:
         return packed[:-2].numpy()
 
     def _assume_and_bind(self, info: QueuedPodInfo, node_name: str) -> bool:
-        """assumeAndReserve + a synchronous binding cycle (schedule_one.go:307
-        assumeAndReserve, :391 bindingCycle), as the reference runs with
-        ``dispatcher_workers=0``. Returns False when the bind failed (the
-        assume was forgotten and the pod requeued as error status)."""
+        """assumeAndReserve + Permit + the binding cycle (schedule_one.go:307
+        assumeAndReserve, :211 RunPermitPlugins, :391 bindingCycle), run
+        inline as the reference runs it with ``dispatcher_workers=0``.
+        Returns False when a Reserve/Permit plugin rejected the pod (it was
+        forgotten and requeued). A pod parked by Permit, or whose bind was
+        attempted, counts as scheduled whatever the bind's outcome, as in
+        the reference, which learns that outcome after the cycle."""
         assumed = info.pod.with_node(node_name)
         self.cache.assume_pod(assumed)
         info.cycle_id = self.metrics.cycles
         # a scheduled pod's nomination (if any) is spent
         self.nominator.remove(info.pod.uid)
         self._preempting.pop(info.key, None)
+        return self._begin_binding(info, assumed)
+
+    def _begin_binding(self, info: QueuedPodInfo, assumed: t.Pod) -> bool:
+        """Reserve → Permit → bind (or park as a waiting pod). Shared by
+        the per-pod batch and the pod-group lane. Returns False when a
+        Reserve/Permit plugin rejected the pod (it was forgotten and
+        requeued); a bind that was attempted returns True whatever its
+        outcome, as the reference's dispatch does."""
+        node_name = assumed.node_name
+        lifecycle = self._lifecycle_for(info.pod)
+        if lifecycle:
+            st = lifecycle.run_reserve(self, info.pod, node_name)
+            if not st.ok:
+                lifecycle.run_unreserve(self, info.pod, node_name)
+                self._reject_assumed(info, assumed, st)
+                return False
+            st, pending, deadline = lifecycle.run_permit(
+                self, info.pod, node_name, self.clock()
+            )
+            if st.code == lc.WAIT:
+                self.waiting_pods[info.key] = lc.WaitingPod(
+                    pod=info.pod, node_name=node_name, info=info,
+                    pending=pending, deadline=deadline,
+                )
+                return True
+            if not st.ok:
+                lifecycle.run_unreserve(self, info.pod, node_name)
+                self._reject_assumed(info, assumed, st)
+                return False
+        self._bind(info, assumed)
+        return True
+
+    def _bind(self, info: QueuedPodInfo, assumed: t.Pod) -> None:
+        """The binding cycle: PreBind → bind → PostBind (the reference's
+        BindCall.execute), then its completion (``_drain_bind_completions``):
+        on success the assume is confirmed; a PreBind failure or a bind
+        error forgets the assume, runs Unreserve and requeues the pod as
+        error status (handleSchedulingFailure, schedule_one.go:1190)."""
+        node_name = assumed.node_name
+        lifecycle = self._lifecycle_for(info.pod)
         # an interested binder extender owns the bind API call
         # (schedule_one.go:1142 bind → extendersBinding)
         bind_fn = self.client.bind
@@ -1097,31 +1318,86 @@ class Scheduler:
         fr = self.flight_recorder
         t_dispatch = time.perf_counter()
         try:
+            if lifecycle.pre_bind_plugins:
+                st = lifecycle.run_pre_bind(self, info.pod, node_name)
+                if not st.ok:
+                    raise RuntimeError(
+                        f"PreBind {st.plugin}: {st.reason or st.code}"
+                    )
             bind_fn(info.pod, node_name)
+            if lifecycle.post_bind_plugins:
+                lifecycle.run_post_bind(self, info.pod, node_name)
         except Exception as err:
             if fr is not None:
                 fr.note_bind(info, err, t_dispatch, t_dispatch,
                              time.perf_counter())
-            # bind failed: roll back the assume and retry as error status
-            # (handleSchedulingFailure, schedule_one.go:1190 analog)
             self.metrics.bind_errors += 1
             self.metrics.errors += 1
             self.cache.forget_pod(assumed)
+            # binding-cycle failure runs Unreserve (schedule_one.go:391
+            # bindingCycle's deferred unreserve-on-failure)
+            lifecycle.run_unreserve(self, info.pod, node_name)
             if self._gang_member(info.pod):
                 # gang member: hand back to the group manager (it never
                 # lived in the per-pod queue)
                 self.podgroups.unmark_scheduled(info.pod)
                 self.podgroups.requeue_member(info)
-                return False
+                return
             where = self.queue.add_unschedulable(info, error=True)
             if fr is not None:
                 fr.note_requeue(info.key, where, error=True)
-            return False
+            return
         if fr is not None:
             fr.note_bind(info, None, t_dispatch, t_dispatch, time.perf_counter())
         self.cache.finish_binding(assumed.uid)
         self.queue.done(info.key)
-        return True
+
+    def _reject_assumed(self, info: QueuedPodInfo, assumed: t.Pod, st) -> None:
+        """A Reserve/Permit rejection (or permit timeout): forget the assume
+        and requeue — handleSchedulingFailure for the binding-path statuses."""
+        self.cache.forget_pod(assumed)
+        self.metrics.unschedulable += 1
+        if self._gang_member(info.pod):
+            self.podgroups.unmark_scheduled(info.pod)
+            self.podgroups.requeue_member(info)
+        else:
+            where = self.queue.add_unschedulable(
+                info, [st.plugin] if st.plugin else ()
+            )
+            if self.flight_recorder is not None:
+                self.flight_recorder.note_requeue(
+                    info.key, where, [st.plugin] if st.plugin else (),
+                )
+
+    # ---------------------------------------------------------- waiting pods
+    def get_waiting_pod(self, key: str):
+        """fwk.Handle.GetWaitingPod — Permit plugins allow/reject through
+        the returned WaitingPod; verdicts take effect next cycle."""
+        return self.waiting_pods.get(key)
+
+    def iterate_waiting_pods(self):
+        return list(self.waiting_pods.values())
+
+    def _drain_waiting_pods(self) -> None:
+        """Move decided waiting pods onward; time out the overdue (the
+        reference rejects on permit timeout, frameworkImpl.WaitOnPermit)."""
+        now = self.clock()
+        for key in list(self.waiting_pods):
+            wp = self.waiting_pods[key]
+            if wp.rejected is None and wp.pending and now >= wp.deadline:
+                wp.rejected = lc.Status(
+                    lc.UNSCHEDULABLE, "permit wait timed out",
+                    next(iter(sorted(wp.pending))),
+                )
+            if not wp.decided:
+                continue
+            del self.waiting_pods[key]
+            assumed = wp.pod.with_node(wp.node_name)
+            if wp.rejected is not None:
+                self._lifecycle_for(wp.pod).run_unreserve(self, wp.pod, wp.node_name)
+                self._reject_assumed(wp.info, assumed, wp.rejected)
+            else:
+                self._bind(wp.info, assumed)
 
     def _handle_unschedulable(
         self, info: QueuedPodInfo, profile: C.Profile | None = None
@@ -1220,6 +1496,8 @@ class Scheduler:
             self.cache.cleanup_expired()
             self._last_flush = now
         self.queue.flush_backoff_completed()
+        if self.waiting_pods:
+            self._drain_waiting_pods()
 
     def run_until_idle(self, max_cycles: int = 10000) -> int:
         """Drive cycles until no pod is ready (harness/test mode). Returns
@@ -1230,6 +1508,10 @@ class Scheduler:
             total += res["scheduled"]
             if res["scheduled"] == 0 and res["unschedulable"] == 0:
                 break
+        if self._inflight is not None:
+            # a batch whose pods all Reserve-rejected reports zeros while a
+            # cycle is still on the wing — drain it before declaring idle
+            total += self._complete_inflight()["scheduled"]
         return total
 
     def close(self) -> None:

@@ -1,6 +1,4 @@
-# Port copy of kubetpu/state/snapshot.py, verbatim apart from this note and
-# the DRA index: dynamic resources are not ported yet (ROADMAP A-queue), so
-# ``Cache.dra`` is None and the encoder never sees claims.
+# Port copy of kubetpu/state/snapshot.py, verbatim apart from this note (no JAX in it).
 """Host-side scheduler cache + snapshot.
 
 The analog of ``pkg/scheduler/backend/cache`` (cache.go:59 cacheImpl,
@@ -208,9 +206,10 @@ class Cache:
         self._storage_classes: dict[str, t.StorageClass] = {}
         self._services: dict[str, t.Service] = {}
         self._volumes_gen = 0  # object-lister generation (pv/pvc/sc/service)
-        # DRA listers are not ported: no DraIndex, and the port's encoder
-        # raises on any pod with resource claims
-        self.dra = None
+        from .dra import DraIndex
+
+        # DRA listers + pool/allocation bookkeeping (state.dra.DraIndex)
+        self.dra = DraIndex()
 
     # --- services (the DefaultSelector feed) -----------------------------
     def add_service(self, svc: "t.Service") -> None:

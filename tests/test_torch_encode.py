@@ -50,6 +50,10 @@ def _encode_both(cache, pending, profile):
 def test_encode_batch_leaves_equal(cluster):
     cache, pending = CLUSTERS[cluster]()
     kb, pb = _encode_both(cache, pending, KC.Profile())
+    _assert_encoded_equal(kb, pb)
+
+
+def _assert_encoded_equal(kb, pb):
     want = jax_leaves(kb.device)
     got = prt.batch_leaves(pb.device)
     assert set(got) == set(want)
@@ -105,6 +109,9 @@ def test_device_batch_is_one_upload():
 
 
 def test_out_of_slice_pods_raise():
+    """Pods that earlier slices refused now encode as kubetpu's do: a pod
+    whose resource claim and a pod whose PVC do not exist (both rejected on
+    every node by their static rows), and a spread pod."""
     cache, pending = basic_cluster(num_nodes=8, num_bound=0, num_pending=2)
     spread = make_pod("s", cpu_milli=100, spread=[kt.TopologySpreadConstraint(
         max_skew=1, topology_key="zone",
@@ -114,8 +121,10 @@ def test_out_of_slice_pods_raise():
     pvc = make_pod("v", cpu_milli=100, pvcs=("x",))
     snap = port_cache(cache).update_snapshot()
     for pod in (claim, pvc):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            prt.encode_batch(snap, [to_port(pod)], to_port(KC.Profile()), device="cpu")
+        kb, pb = _encode_both(cache, [pod], KC.Profile())
+        _assert_encoded_equal(kb, pb)
+        assert pb.device.static_mask is not None
+        assert not pb.device.static_mask[pb.device.static_sig[0].long()].any()
     # topology spread is in the port since its third slice: it encodes
     b = prt.encode_batch(snap, [to_port(spread)], to_port(KC.Profile()), device="cpu")
     assert b.device.spread is not None and b.device.spread.has_hard

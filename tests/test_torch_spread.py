@@ -366,7 +366,7 @@ def test_spread_inputs_no_longer_refused():
     b = prt.encode_batch(pc.update_snapshot(), pods, to_port(KC.Profile()),
                          device="cpu")
     assert b.device.spread is not None and b.device.spread.has_soft
-    assert "spread" not in prt.LATER_SLICE_LEAVES
+    assert "spread" in prt.NESTED
     plain = prt.encode_batch(pc.update_snapshot(), pods,
                              to_port(spread_profile()), device="cpu")
     assert plain.device.spread is None

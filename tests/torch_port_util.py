@@ -64,8 +64,9 @@ def _port_class(cls):
 
 
 def port_cache(cache) -> PortCache:
-    """The port's Cache holding the same nodes (in order), pods and
-    services."""
+    """The port's Cache holding the same nodes (in order), pods, services,
+    volume listers (PVs, PVCs, storage classes) and DRA objects (device
+    classes, resource slices, resource claims, in insertion order)."""
     pc = PortCache()
     for name in cache._node_order:
         pc.add_node(to_port(cache._nodes[name].node))
@@ -73,6 +74,18 @@ def port_cache(cache) -> PortCache:
         pc.add_pod(to_port(pod))
     for svc in cache._services.values():
         pc.add_service(to_port(svc))
+    for pv in cache._pvs.values():
+        pc.add_pv(to_port(pv))
+    for pvc in cache._pvcs.values():
+        pc.add_pvc(to_port(pvc))
+    for sc in cache._storage_classes.values():
+        pc.add_storage_class(to_port(sc))
+    for dc in cache.dra.device_classes.values():
+        pc.dra.add_class(to_port(dc))
+    for sl in cache.dra.slices.values():
+        pc.dra.add_slice(to_port(sl))
+    for claim in cache.dra.claims.values():
+        pc.dra.add_claim(to_port(claim))
     return pc
 
 
@@ -236,3 +249,107 @@ def drive(sched, client, max_batch=None, events=None, max_calls=200) -> dict:
         sched._complete_inflight()
         client.deliver()
     return dict(client.bound)
+
+
+class RecordingClient:
+    """A client for both schedulers of a pair: records binds (pod key →
+    node), the claim-status writes of DynamicResources' PreBind and the PVC
+    binds of VolumeBinding's PreBind; the first bind of each key in
+    ``fail_binds_for`` raises."""
+
+    def __init__(self, fail_binds_for=()):
+        self.bound = {}
+        self.fail_binds_for = set(fail_binds_for)
+        self.claim_status = []
+        self.pvc_binds = []
+
+    def bind(self, pod, node_name):
+        key = f"{pod.namespace}/{pod.name}"
+        if key in self.fail_binds_for:
+            self.fail_binds_for.discard(key)
+            raise RuntimeError(f"bind conflict for {key}")
+        self.bound[key] = node_name
+
+    def patch_status(self, pod, reason, message=""):
+        pass
+
+    def update_claim_status(self, claim):
+        self.claim_status.append((claim.key, claim.allocation, claim.reserved_for))
+
+    def bind_pvc(self, pvc, pv_name):
+        self.pvc_binds.append((pvc.key, pv_name))
+
+
+class Side:
+    """One scheduler of a pair: kubetpu's (``dispatcher_workers=0``) or the
+    port's on the CPU, each with its own ``RecordingClient`` and stepped
+    clock. ``T`` / ``W`` are its types and wrappers modules; ``profile`` is
+    a kubetpu Profile (carried across for the port)."""
+
+    def __init__(self, port, profile, fail_binds_for=(), **kw):
+        from kubetpu.api import types as KT
+        from kubetpu.api import wrappers as KWR
+        from kubetpu.sched.scheduler import Scheduler as KScheduler
+        from kubetpu_torch.api import types as PT
+        from kubetpu_torch.api import wrappers as PWR
+        from kubetpu_torch.sched import Scheduler as PScheduler
+
+        self.port = port
+        self.T = PT if port else KT
+        self.W = PWR if port else KWR
+        self.c = RecordingClient(fail_binds_for)
+        self.clock = FakeClock()
+        if port:
+            self.s = PScheduler(self.c, profile=to_port(profile), device="cpu",
+                                clock=self.clock, **kw)
+        else:
+            self.s = KScheduler(client=self.c, profile=profile,
+                                dispatcher_workers=0, clock=self.clock, **kw)
+
+    def _drain(self):
+        if not self.port:
+            self.s.dispatcher.sync()
+            self.s._drain_bind_completions()
+
+    def run(self):
+        n = self.s.run_until_idle()
+        self._drain()
+        return n
+
+    def step(self):
+        n = self.s.schedule_batch()["scheduled"]
+        self._drain()
+        return n
+
+    def state(self):
+        """Everything the binding cycle writes, in the port's types: the
+        bound map, each claim's allocation and reservations, the
+        claim-status writes, the allocated devices by node, each PVC's
+        volume, each PV's claim, and the PVC binds."""
+        cp = (lambda v: v) if self.port else to_port
+        cache = self.s.cache
+        claims = {k: (cp(c.allocation), tuple(c.reserved_for))
+                  for k, c in sorted(cache.dra.claims.items())}
+        status = [(k, cp(a), tuple(r)) for k, a, r in self.c.claim_status]
+        used = sorted((node, tuple(sorted(keys)))
+                      for node, keys in cache.dra.allocated_devices.items())
+        pvcs = {k: c.volume_name for k, c in sorted(cache._pvcs.items())}
+        pvs = {k: v.claim_ref for k, v in sorted(cache._pvs.items())}
+        return dict(bound=dict(self.c.bound), claims=claims, status=status,
+                    used=used, pvcs=pvcs, pvs=pvs, pvc_binds=list(self.c.pvc_binds))
+
+
+def both(scenario, **kw):
+    """Run ``scenario(side)`` on kubetpu's side and on the port's; its
+    return values and the two ``Side.state()`` must be equal. Returns the
+    port's side and result."""
+    out = []
+    for port in (False, True):
+        side = Side(port, **kw)
+        res = scenario(side)
+        out.append((side, res, side.state()))
+    (_, kres, kstate), (pside, pres, pstate) = out
+    assert pres == kres
+    for key in kstate:
+        assert pstate[key] == kstate[key], key
+    return pside, pres
