@@ -160,7 +160,9 @@ final ``ok`` line is not printed):
    held, the start, round and end kernels launched, the first cycle equal
    to the plain solve from cold duals. Then volumes and DRA:
    ``SchedulingInTreePVs`` and ``SchedulingCSIPVs``/5000Nodes_2000Pods on
-   the greedy engine (3000 bound, every PVC's PV bound to it once),
+   the greedy engine (3000 bound, every PVC's PV bound to it once, no
+   PreBind write for a claim already bound, no pick left assumed, every
+   pod on a node its PV allows),
    ``SchedulingWithResourceClaimTemplate``/5000pods_500nodes on the greedy
    and on the batched engine (5000 bound, every claim allocated on its
    pod's node, no device allocated twice, at most 10 claims a node, every
@@ -170,7 +172,10 @@ final ``ok`` line is not printed):
    Scheduler under a stepped clock: every pod bound, each fast device
    allocated at most once, EVERY cycle's kernel assignments and final
    state equal to the plain engine's; it prints the cycles, the Reserve
-   rejections and the pods on a fast device). Then SchedulingBasic and
+   rejections and the pods on a fast device), then again under device
+   contention (one fast device and no slow one on every second node:
+   Reserve must reject the scan's in-batch losers, which requeue and
+   bind in a later cycle, every fast device taken). Then SchedulingBasic and
    PreferredTopologySpreading run again with ``pipeline=True``: their
    bound maps must equal the serial runs', pod for pod; last, a seeded
    preempt-then-schedule scenario under a stepped clock (500 nodes of four
@@ -195,7 +200,9 @@ line;
 ``--time-spread ROOT`` does the same on the PreferredTopologySpreading
 cycle and on the mixed spread cluster under the spread profile. Run either
 on two checkouts in turns (parent, change, change, parent) to compare the
-two on one card within one call.
+two on one card within one call. ``--time-dra`` splits the scan's time on
+the SchedulingBasic cycle with a DynamicResources score leaf into the
+normalize pass and the placements the leaf moves (``time_dra``).
 """
 
 from __future__ import annotations
@@ -2080,10 +2087,12 @@ def dra_leaf(b, seed=0, rows=8, flat=False):
                                dra_score_sig=torch.from_numpy(sig).to(dev))
 
 
-def dra_objects(n_nodes=500, slow=10, fast=2, fast_every=2, n_prio=1000, n_dense=0):
+def dra_objects(n_nodes=500, slow=10, fast=2, fast_every=2, n_prio=1000, n_dense=0,
+                slow_on_fast=True):
     """The prioritized-list scenario (``tests/test_dra.py:357`` scaled up):
     ``node_with_dra`` nodes each with ``slow`` slow devices, every
-    ``fast_every``-th also with ``fast`` fast ones; two device classes
+    ``fast_every``-th also with ``fast`` fast ones (and then no slow one
+    unless ``slow_on_fast``); two device classes
     (``fast-gpu``, ``slow-gpu``: the driver and the device's kind); then
     ``n_prio`` pods each with its own claim whose one request is
     first_available = (fast, slow), and ``n_dense`` pods each with its own
@@ -2102,7 +2111,9 @@ def dra_objects(n_nodes=500, slow=10, fast=2, fast_every=2, n_prio=1000, n_dense
     ]
     slices = []
     for i, n in enumerate(nodes):
-        kinds = (("slow", slow),) + ((("fast", fast),) if i % fast_every == 0 else ())
+        has_fast = i % fast_every == 0
+        kinds = ((("slow", slow),) if slow_on_fast or not has_fast else ()) + (
+            (("fast", fast),) if has_fast else ())
         for kind, count in kinds:
             slices.append(t.ResourceSlice(
                 name=f"slice-{n.name}-{kind}", driver=DRA_DRIVER, pool=f"{n.name}-{kind}",
@@ -3276,19 +3287,49 @@ def packing_paths(card) -> list:
 
 
 def pv_check(sched) -> dict:
-    """The PV cases' own check: every PVC's PV is bound to that PVC and to
-    no other, and every bound pod's claim is one of them."""
+    """The PV cases' own check. The runner creates every PV bound to its
+    PVC and restricting no node, as the reference's templates do, so
+    VolumeBinding has nothing to bind: what the scheduler can get wrong
+    here is a PreBind write for a claim already bound (the client's
+    ``pvc_binds``), a pick left assumed in the plugin, a PV rebound in
+    its cache, a bound pod missing from its node, or a pod on a node its
+    PV's node affinity excludes. Each of these is checked."""
+    from kubetpu_torch.state.volumes import node_affinity_matches
+
     cache = sched.cache
+    if sched.client.pvc_binds:
+        raise AssertionError(f"VolumeBinding wrote {len(sched.client.pvc_binds)} PVC "
+                             f"bindings for claims that were bound: "
+                             f"{sched.client.pvc_binds[:3]}")
+    vb = [p for p in sched.lifecycle.reserve_plugins if p.name == "VolumeBinding"]
+    if vb[0]._assumed:
+        raise AssertionError(f"VolumeBinding left {len(vb[0]._assumed)} picks assumed")
     refs = {}
-    for key, pvc in cache._pvcs.items():
-        pv = cache._pvs.get(pvc.volume_name)
+    for key, pvc in cache.pvcs.items():
+        pv = cache.pvs.get(pvc.volume_name)
         if pv is None or pv.claim_ref != key:
             raise AssertionError(f"PVC {key}: its PV {pvc.volume_name} is not bound to it")
         refs[pv.name] = refs.get(pv.name, 0) + 1
     twice = [n for n, c in refs.items() if c != 1]
     if twice:
         raise AssertionError(f"PVs {twice[:5]} bound to more than one PVC")
-    return {"pvcs_bound_once": len(refs)}
+    where = dict(sched.client.bound)
+    placed = 0
+    for node_name in set(where.values()):
+        info = cache.get_node_info(node_name)
+        labels = info.node.labels_dict()
+        for pod in info.pods.values():
+            for vol in pod.volumes:
+                pv = cache.pvs[cache.pvcs[f"{pod.namespace}/{vol.pvc_name}"].volume_name]
+                if not node_affinity_matches(pv.node_affinity, labels, node_name):
+                    raise AssertionError(f"pod {pod.name} on {node_name}, which its PV "
+                                         f"{pv.name} excludes")
+            placed += bool(pod.volumes)
+    if placed != len(where):
+        raise AssertionError(f"{placed} PV pods on their nodes in the cache, "
+                             f"{len(where)} bound")
+    return {"pvcs_bound_once": len(refs), "pv_pods_on_allowed_nodes": placed,
+            "pvc_bind_writes": len(sched.client.pvc_binds)}
 
 
 def claim_check(per_node: int):
@@ -3326,24 +3367,32 @@ def claim_check(per_node: int):
     return check
 
 
-PRIORITIZED = {"n_nodes": 500, "slow": 10, "fast": 2, "fast_every": 2, "n_pods": 1000}
+# The prioritized-list scenario at size: 500 DRA nodes with 10 slow devices
+# each, 250 of them also with 2 fast ones, and 1000 claim pods. In the
+# contention form the 250 fast nodes carry one fast device and no slow one:
+# the scan, which sees each node's devices only through the cycle's static
+# mask, puts many of a batch's pods on one fast node, and Reserve rejects
+# all but the first, which requeue and bind on slow nodes in later cycles.
+PRIORITIZED = {"n_nodes": 500, "slow": 10, "fast": 2, "fast_every": 2, "n_pods": 1000,
+               "slow_on_fast": True}
+PRIORITIZED_CONTENTION = {**PRIORITIZED, "fast": 1, "slow_on_fast": False}
 
 
-def prioritized_phase(card) -> dict:
+def prioritized_phase(card, cfg: dict) -> dict:
     """Prioritized lists at size (``tests/test_dra.py:357``'s scenario scaled
     up, a drive of the port's DynamicResources, not a scheduler_perf case):
-    ``PRIORITIZED``'s 500 DRA nodes with 10 slow devices each, 250 of them
-    also with 2 fast ones, and 1000 pods each with its own claim whose one
-    request is first_available = (fast, slow), through the port's
-    Scheduler on the card (greedy engine, defaults, recorder on) under a
-    stepped clock. Gates: every pod bound, each fast device allocated at
-    most once, every claim's status written by PreBind, capacity held, the
-    kernels launched, every recorder record resolved, and every cycle's
-    kernel assignments and final state equal to the plain engine's on that
-    cycle's batch (cycles whose pods Reserve rejects and requeues
-    included). Prints the cycles, the Reserve rejections, the pods on a
-    fast device, pods/s and the per-cycle spans. Returns the launch
-    counts."""
+    ``cfg``'s DRA nodes (``PRIORITIZED`` or ``PRIORITIZED_CONTENTION``)
+    and pods each with its own claim whose one request is first_available
+    = (fast, slow), through the port's Scheduler on the card (greedy
+    engine, defaults, recorder on) under a stepped clock. Gates: every pod
+    bound, each fast device allocated at most once, every claim's status
+    written by PreBind, capacity held, the kernels launched, every
+    recorder record resolved, every cycle's kernel assignments and final
+    state equal to the plain engine's on that cycle's batch (cycles whose
+    pods Reserve rejects and requeues included), and in the contention
+    form at least one Reserve rejection and every fast device taken.
+    Prints the cycles, the Reserve rejections, the pods on a fast device,
+    pods/s and the per-cycle spans. Returns the launch counts."""
     import dataclasses
 
     import torch
@@ -3353,10 +3402,11 @@ def prioritized_phase(card) -> dict:
     from kubetpu_torch.perf.runner import _Client, _cycle_ms
     from kubetpu_torch.sched import Scheduler
 
-    cfg = PRIORITIZED
     nodes, classes, slices, claims, pods = dra_objects(
         n_nodes=cfg["n_nodes"], slow=cfg["slow"], fast=cfg["fast"],
-        fast_every=cfg["fast_every"], n_prio=cfg["n_pods"])
+        fast_every=cfg["fast_every"], n_prio=cfg["n_pods"],
+        slow_on_fast=cfg["slow_on_fast"])
+    contention = not cfg["slow_on_fast"]
     clock = SteppedClock()
     client = _Client()
     sched = Scheduler(client, device="cuda", clock=clock)
@@ -3410,6 +3460,12 @@ def prioritized_phase(card) -> dict:
     written = sorted(c.key for c in client.claim_status)
     if written != sorted(sched.cache.dra.claims):
         raise AssertionError(f"prioritized lists: {len(written)} claim-status writes")
+    fast_devices = cfg["n_nodes"] // cfg["fast_every"] * cfg["fast"]
+    if contention and not (rejected and len(fast) == fast_devices):
+        raise AssertionError(f"prioritized lists under contention: {len(rejected)} Reserve "
+                             f"rejections, {len(fast)} of {fast_devices} fast devices taken")
+    if any(plugin != "DynamicResources" for _, plugin in rejected):
+        raise AssertionError(f"prioritized lists: rejections {sorted(set(rejected))[:5]}")
     for i, (b, params, got, state) in enumerate(cycles):
         want, want_state = greedy_assign_plain(b, params)
         torch.cuda.synchronize()
@@ -3419,7 +3475,8 @@ def prioritized_phase(card) -> dict:
             raise AssertionError(f"prioritized lists: never launched {name}")
     timings = sched.metrics.cycle_timings
     line = {"main_path": {
-        "workload": f"prioritized lists (tests/test_dra.py:357 at {cfg['n_nodes']} nodes)",
+        "workload": f"prioritized lists (tests/test_dra.py:357 at {cfg['n_nodes']} nodes"
+                    f"{', contention' if contention else ''})",
         "engine": "greedy", **cfg, "pods_bound": len(client.bound),
         "pods_per_s": len(pods) / secs, "run_s": secs, "cycles": len(timings),
         "every_cycle_equal": len(cycles), "reserve_rejections": len(rejected),
@@ -3429,9 +3486,9 @@ def prioritized_phase(card) -> dict:
     }}
     log(json.dumps(line))
     ms = line["main_path"]["cycle_ms"]
-    log(f"[prioritized lists] {len(timings)} cycles (each equal to the plain engine), "
-        f"{len(rejected)} Reserve rejections, {len(fast)} pods on a fast device of "
-        f"{cfg['n_nodes'] // cfg['fast_every'] * cfg['fast']}; stage 1 "
+    log(f"[prioritized lists{', contention' if contention else ''}] {len(timings)} cycles "
+        f"(each equal to the plain engine), {len(rejected)} Reserve rejections, "
+        f"{len(fast)} pods on a fast device of {fast_devices}; stage 1 "
         f"{ms['pre_encode']:.3f} ms, stage 2 {ms['finalize']:.3f} ms, kernel "
         f"{ms['kernel']:.3f} ms, bind {ms['bind']:.3f} ms a cycle; "
         f"{len(pods) / secs:.1f} pods/s")
@@ -3444,7 +3501,8 @@ def dra_paths(card) -> list:
     /5000Nodes_2000Pods (greedy; every PVC's PV bound once),
     SchedulingWithResourceClaimTemplate/5000pods_500nodes on the greedy
     and the batched engine (R = 4; ``claim_check``), then the
-    prioritized-list scenario (``prioritized_phase``). Returns their
+    prioritized-list scenario with and without device contention
+    (``prioritized_phase``). Returns their
     launch counts."""
     from kubetpu_torch.assign.batched import batched_assign_plain
     from kubetpu_torch.assign.greedy import greedy_assign_plain
@@ -3462,7 +3520,8 @@ def dra_paths(card) -> list:
                                  ("batched", batched_assign_plain, batched)):
         runs.append(run_path(card, "SchedulingWithResourceClaimTemplate", "5000pods_500nodes",
                              engine, 2500 + 2500, plain, names, check=claim_check(10)))
-    return [run[0] for run in runs] + [prioritized_phase(card)]
+    return [run[0] for run in runs] + [prioritized_phase(card, cfg) for cfg in (
+        PRIORITIZED, PRIORITIZED_CONTENTION)]
 
 
 def main_path_phase(card: str) -> list[dict]:
@@ -3557,9 +3616,105 @@ def time_checkout(mode: str, root: str) -> int:
     return 0
 
 
+def _touched_slots(assignments, threads=1024) -> tuple[int, int]:
+    """What a scan's steps pay for the nodes touched so far: summed over
+    the steps, the touched nodes (each a recomputed verdict and base
+    score) and the (iteration, warp) slots of the scan's node loop that
+    hold at least one touched node (thread ``tid`` takes nodes ``tid``,
+    ``tid + threads``, ...; a slot with one touched lane runs the
+    recompute for its whole warp)."""
+    seen, slots = set(), set()
+    nodes = warps = 0
+    for j in assignments:
+        nodes += len(seen)
+        warps += len(slots)
+        if j >= 0:
+            seen.add(j)
+            slots.add((j // threads, (j % threads) // 32))
+    return nodes, warps
+
+
+def _loaded_except(b, keep):
+    """``b`` with every real node but those in ``keep`` holding one
+    SchedulingBasic init pod and those in ``keep`` none, so that the scan
+    without a score leaf fills the ``keep`` nodes in index order."""
+    import dataclasses
+
+    import torch
+
+    n_nodes = int(b.node_valid.sum().item())
+    # the Basic block's node 0 holds one init pod, its last node none
+    loaded = torch.ones(b.alloc.shape[0], dtype=torch.bool, device=b.alloc.device)
+    loaded[n_nodes:] = False
+    loaded[torch.tensor(sorted(keep), dtype=torch.long, device=b.alloc.device)] = False
+    nodes = _clone_nodes(b.nodes)
+    for name in ("requested", "nonzero_requested", "pod_count"):
+        x = getattr(nodes, name)
+        one, empty = x[0].clone(), x[n_nodes - 1].clone()
+        x[:n_nodes] = empty
+        x[loaded] = one
+    return dataclasses.replace(b, nodes=nodes)
+
+
+def time_dra() -> int:
+    """The ``--time-dra`` mode: where the scan's time goes with a
+    DynamicResources score leaf, on the SchedulingBasic cycle (1024 pods x
+    5120 padded nodes, whose node-affinity and taint rows already run the
+    normalize pass every step). Five batches: (A) without a DRA leaf; (B)
+    a flat leaf, which adds the term but keeps A's assignments; (C) the
+    seeded leaf of phase 3, which moves them; (G) without a leaf, with the
+    node state loaded so that the scan fills first, in index order, every
+    node C chose; (H) G with the flat leaf (G's assignments). Prints each
+    one's ``greedy_scan`` median (CUDA events), timed twice in mirrored
+    order, with the touched nodes and touched warp slots its steps
+    recompute (``_touched_slots``), the term's cost at either placement
+    (B - A, H - G) and the cost of scattered placements without the term
+    (G - A)."""
+    import dataclasses
+
+    sys.path.insert(0, str(ROOT))
+    card = device_phase()
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.framework import config as C
+
+    kernels.build()
+    log_build_report(kernels)
+    b0, params = encode(*basic_case(), C.Profile())
+    batches = {"A": b0, "B": dra_leaf(b0, seed=9, flat=True), "C": dra_leaf(b0, seed=9)}
+    chosen = [j for j in kernels.greedy_scan(batches["C"], params)[0].tolist() if j >= 0]
+    batches["G"] = _loaded_except(b0, set(chosen))
+    batches["H"] = dataclasses.replace(batches["G"], dra_score_raw=batches["B"].dra_score_raw,
+                                       dra_score_sig=batches["B"].dra_score_sig)
+    out = {k: kernels.greedy_scan(b, params)[0] for k, b in batches.items()}
+    for x, y in (("A", "B"), ("G", "H")):
+        if not torch.equal(out[x], out[y]):
+            raise AssertionError(f"the flat leaf moved batch {x}'s assignments")
+    if out["G"][:len(set(chosen))].tolist() != sorted(set(chosen)):
+        raise AssertionError("batch G does not fill first the nodes that batch C chose")
+    ms = {k: [] for k in batches}
+    for k in list(batches) + list(batches)[::-1]:
+        ms[k].append(cuda_ms(lambda: kernels.greedy_scan(batches[k], params), 10))
+    line = {"card": card, "shape": list(b0.requests.shape[:1]) + [b0.alloc.shape[0]]}
+    for k, a in out.items():
+        nodes, warps = _touched_slots([j for j in a.tolist()])
+        line[k] = {"greedy_scan_ms": ms[k], "distinct_nodes": len(set(a.tolist()) - {-1}),
+                   "touched_nodes_summed": nodes, "touched_warp_slots_summed": warps}
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    line["term_ms_contiguous"] = med["B"] - med["A"]
+    line["term_ms_scattered"] = med["H"] - med["G"]
+    line["scatter_ms_without_leaf"] = med["G"] - med["A"]
+    line["seeded_over_same_nodes_flat"] = med["C"] / med["H"]
+    log(json.dumps({"time_dra": line}))
+    return 0
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] in ("--time-basic", "--time-spread"):
         return time_checkout(sys.argv[1][len("--time-"):], sys.argv[2])
+    if sys.argv[1:] == ["--time-dra"]:
+        return time_dra()
     if not (ROOT / "kubetpu_torch" / "kernels" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run from the root of a kubetpu checkout "
                          "(kubetpu_torch/ not found beside this script)")

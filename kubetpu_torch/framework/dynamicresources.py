@@ -1,4 +1,5 @@
-# Port copy of kubetpu/framework/dynamicresources.py, verbatim apart from this note and the API writes,
+# Port copy of kubetpu/framework/dynamicresources.py, verbatim apart from this note, ``engages`` (the
+# pods whose hooks do something: the scheduler skips the runner for the rest) and the API writes,
 # which go to the scheduler's client (the port binds in direct mode, with no
 # API dispatcher; the reference reaches the same client as handle.dispatcher.client).
 """DynamicResources lifecycle half: Reserve / Unreserve / PreBind.
@@ -29,6 +30,9 @@ class DynamicResourcesPlugin(lc.LifecyclePlugin):
     def __init__(self, profile=None) -> None:
         # "ns/name" of pod -> (claim keys WE allocated, all claim keys)
         self._assumed: dict[str, tuple[list[str], list[str]]] = {}
+
+    def engages(self, pod: t.Pod) -> bool:
+        return bool(pod.resource_claims)
 
     # ------------------------------------------------------------- Reserve
     def reserve(self, handle, pod: t.Pod, node_name: str) -> lc.Status:

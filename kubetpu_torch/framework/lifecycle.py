@@ -1,4 +1,11 @@
-# Port copy of kubetpu/framework/lifecycle.py, verbatim apart from this note (no JAX in it).
+# Port copy of kubetpu/framework/lifecycle.py (no JAX in it). It differs in two
+# ways. The port has no metrics registry yet, so the runner takes no ``metrics``
+# and reads no timers (the reference's per-plugin and per-point duration
+# histograms come back with the metrics slice). And a plugin may say which pods
+# it ``engages``: the scheduler skips the runner for a pod that no plugin
+# engages (the in-tree plugins engage only pods with a PVC or a resource claim;
+# their hooks return at once for any other pod), where the reference runs every
+# point for every pod. The outcome is the same.
 """Host-side lifecycle extension points: Reserve / Permit / PreBind /
 PostBind, waiting pods, and the pluggable registry.
 
@@ -30,7 +37,6 @@ the binding cycle's I/O.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -61,6 +67,12 @@ class LifecyclePlugin:
     implements)."""
 
     name = "LifecyclePlugin"
+
+    # Whether any hook does something for this pod. A plugin that
+    # overrides it promises that every hook is a no-op for a pod it does
+    # not engage, so the scheduler may skip the runner for that pod.
+    def engages(self, pod: t.Pod) -> bool:
+        return True
 
     # Reserve (interface.go:636). Return a non-ok Status to reject.
     def reserve(self, handle: Any, pod: t.Pod, node_name: str) -> Status:
@@ -115,30 +127,21 @@ class WaitingPod:
 
 
 class LifecycleRunner:
-    """Orders and runs the four extension points for one profile.
+    """Orders and runs the four extension points for one profile."""
 
-    ``metrics`` (a ``SchedulerMetricsRegistry``) turns on the reference's
-    per-plugin instrumentation: every plugin call observes
-    ``scheduler_plugin_execution_duration_seconds{plugin, extension_point,
-    status}`` and every ``run_*`` observes
-    ``scheduler_framework_extension_point_duration_seconds`` (metrics.go's
-    PluginExecutionDuration / FrameworkExtensionPointDuration) — the
-    host-side half of the plane; the fused device Filter+Score program is
-    timed by the scheduler cycle instead."""
-
-    def __init__(
-        self,
-        plugins: list[LifecyclePlugin],
-        metrics=None,
-        profile: str = "",
-    ) -> None:
+    def __init__(self, plugins: list[LifecyclePlugin]) -> None:
         self.reserve_plugins = [p for p in plugins if _overrides(p, "reserve")
                                 or _overrides(p, "unreserve")]
         self.permit_plugins = [p for p in plugins if _overrides(p, "permit")]
         self.pre_bind_plugins = [p for p in plugins if _overrides(p, "pre_bind")]
         self.post_bind_plugins = [p for p in plugins if _overrides(p, "post_bind")]
-        self.metrics = metrics
-        self.profile = profile
+        self._engage = [p.engages for p in plugins]
+        self._engages_all = not all(_overrides(p, "engages") for p in plugins)
+
+    def engages(self, pod) -> bool:
+        """Whether any plugin does something for ``pod`` (see
+        ``LifecyclePlugin.engages``)."""
+        return self._engages_all or any(f(pod) for f in self._engage)
 
     def __bool__(self) -> bool:
         return bool(
@@ -146,54 +149,27 @@ class LifecycleRunner:
             or self.pre_bind_plugins or self.post_bind_plugins
         )
 
-    # ------------------------------------------------------ instrumentation
-    def _observe_plugin(
-        self, plugin: LifecyclePlugin, point: str, status: str, t0: float
-    ) -> None:
-        if self.metrics is not None:
-            self.metrics.plugin_execution_duration.labels(
-                plugin.name, point, status
-            ).observe(time.perf_counter() - t0)
-
-    def _observe_point(self, point: str, status: str, t0: float) -> None:
-        if self.metrics is not None:
-            self.metrics.framework_extension_point_duration.labels(
-                point, status, self.profile
-            ).observe(time.perf_counter() - t0)
-
     def run_reserve(self, handle, pod, node_name) -> Status:
         """RunReservePluginsReserve (framework.go): first failure wins; the
         CALLER must then run_unreserve (the reference unreserves all
         plugins, including ones never reserved — Unreserve must be
         idempotent)."""
-        point_t0 = time.perf_counter()
         for p in self.reserve_plugins:
-            t0 = time.perf_counter()
             try:
                 st = p.reserve(handle, pod, node_name)
             except Exception as e:  # plugin bug → Error status
-                self._observe_plugin(p, "Reserve", ERROR, t0)
-                self._observe_point("Reserve", ERROR, point_t0)
                 return Status(ERROR, f"{type(e).__name__}: {e}", p.name)
-            code = SUCCESS if st is None or st.ok else st.code
-            self._observe_plugin(p, "Reserve", code, t0)
             if st is not None and not st.ok:
-                self._observe_point("Reserve", st.code, point_t0)
                 return Status(st.code, st.reason, st.plugin or p.name)
-        self._observe_point("Reserve", SUCCESS, point_t0)
         return Status()
 
     def run_unreserve(self, handle, pod, node_name) -> None:
         """RunReservePluginsUnreserve: reverse order, best-effort."""
-        point_t0 = time.perf_counter()
         for p in reversed(self.reserve_plugins):
-            t0 = time.perf_counter()
             try:
                 p.unreserve(handle, pod, node_name)
-                self._observe_plugin(p, "Unreserve", SUCCESS, t0)
             except Exception:
-                self._observe_plugin(p, "Unreserve", ERROR, t0)
-        self._observe_point("Unreserve", SUCCESS, point_t0)
+                pass
 
     def run_permit(
         self, handle, pod, node_name, now: float
@@ -201,19 +177,13 @@ class LifecycleRunner:
         """RunPermitPlugins: returns (status, waiting plugin names,
         deadline). A WAIT from any plugin wins over successes; any
         rejection wins over everything."""
-        point_t0 = time.perf_counter()
         waiting: set[str] = set()
         deadline = 0.0
         for p in self.permit_plugins:
-            t0 = time.perf_counter()
             try:
                 st, timeout = p.permit(handle, pod, node_name)
             except Exception as e:
-                self._observe_plugin(p, "Permit", ERROR, t0)
-                self._observe_point("Permit", ERROR, point_t0)
                 return Status(ERROR, f"{type(e).__name__}: {e}", p.name), set(), 0.0
-            code = SUCCESS if st is None or st.ok else st.code
-            self._observe_plugin(p, "Permit", code, t0)
             if st is None or st.ok:
                 continue
             if st.code == WAIT:
@@ -221,42 +191,27 @@ class LifecycleRunner:
                 dl = now + max(timeout, 0.0)
                 deadline = dl if deadline == 0.0 else min(deadline, dl)
             else:
-                self._observe_point("Permit", st.code, point_t0)
                 return Status(st.code, st.reason, st.plugin or p.name), set(), 0.0
         if waiting:
-            self._observe_point("Permit", WAIT, point_t0)
             return Status(WAIT, "waiting on permit"), waiting, deadline
-        self._observe_point("Permit", SUCCESS, point_t0)
         return Status(), set(), 0.0
 
     def run_pre_bind(self, handle, pod, node_name) -> Status:
-        point_t0 = time.perf_counter()
         for p in self.pre_bind_plugins:
-            t0 = time.perf_counter()
             try:
                 st = p.pre_bind(handle, pod, node_name)
             except Exception as e:
-                self._observe_plugin(p, "PreBind", ERROR, t0)
-                self._observe_point("PreBind", ERROR, point_t0)
                 return Status(ERROR, f"{type(e).__name__}: {e}", p.name)
-            code = SUCCESS if st is None or st.ok else st.code
-            self._observe_plugin(p, "PreBind", code, t0)
             if st is not None and not st.ok:
-                self._observe_point("PreBind", st.code, point_t0)
                 return Status(st.code, st.reason, st.plugin or p.name)
-        self._observe_point("PreBind", SUCCESS, point_t0)
         return Status()
 
     def run_post_bind(self, handle, pod, node_name) -> None:
-        point_t0 = time.perf_counter()
         for p in self.post_bind_plugins:
-            t0 = time.perf_counter()
             try:
                 p.post_bind(handle, pod, node_name)
-                self._observe_plugin(p, "PostBind", SUCCESS, t0)
             except Exception:
-                self._observe_plugin(p, "PostBind", ERROR, t0)
-        self._observe_point("PostBind", SUCCESS, point_t0)
+                pass
 
 
 PluginFactory = Callable[..., LifecyclePlugin]
@@ -282,9 +237,7 @@ class Registry:
     def names(self) -> list[str]:
         return sorted(self._factories)
 
-    def build(
-        self, names: list[str], profile, metrics=None
-    ) -> LifecycleRunner:
+    def build(self, names: list[str], profile) -> LifecycleRunner:
         plugins: list[LifecyclePlugin] = []
         for name in names:
             factory = self._factories.get(name)
@@ -296,10 +249,7 @@ class Registry:
             plugin = factory(profile)
             plugin.name = name
             plugins.append(plugin)
-        return LifecycleRunner(
-            plugins, metrics=metrics,
-            profile=getattr(profile, "name", ""),
-        )
+        return LifecycleRunner(plugins)
 
 
 def default_registry() -> Registry:

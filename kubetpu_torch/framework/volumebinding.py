@@ -1,4 +1,5 @@
-# Port copy of kubetpu/framework/volumebinding.py, verbatim apart from this note and the API writes,
+# Port copy of kubetpu/framework/volumebinding.py, verbatim apart from this note, ``engages`` (the
+# pods whose hooks do something: the scheduler skips the runner for the rest) and the API writes,
 # which go to the scheduler's client (the port binds in direct mode, with no
 # API dispatcher; the reference reaches the same client as handle.dispatcher.client).
 """VolumeBinding's Reserve / PreBind half as a lifecycle plugin.
@@ -33,6 +34,9 @@ class VolumeBindingPlugin(lc.LifecyclePlugin):
     def __init__(self, profile=None) -> None:
         # pod key -> [(pvc, pv_name)] assumed at Reserve
         self._assumed: dict[str, list[tuple[t.PersistentVolumeClaim, str]]] = {}
+
+    def engages(self, pod: t.Pod) -> bool:
+        return any(v.pvc_name for v in pod.volumes)
 
     # -- Reserve (volume_binding.go:521 AssumePodVolumes) -----------------
     def reserve(self, handle, pod: t.Pod, node_name: str) -> lc.Status:

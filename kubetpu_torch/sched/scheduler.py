@@ -1278,36 +1278,42 @@ class Scheduler:
         outcome, as the reference's dispatch does."""
         node_name = assumed.node_name
         lifecycle = self._lifecycle_for(info.pod)
-        if lifecycle:
-            st = lifecycle.run_reserve(self, info.pod, node_name)
-            if not st.ok:
-                lifecycle.run_unreserve(self, info.pod, node_name)
-                self._reject_assumed(info, assumed, st)
-                return False
-            st, pending, deadline = lifecycle.run_permit(
-                self, info.pod, node_name, self.clock()
+        if not (lifecycle and lifecycle.engages(info.pod)):
+            # no plugin does anything for this pod: skip every point
+            self._bind(info, assumed, None)
+            return True
+        st = lifecycle.run_reserve(self, info.pod, node_name)
+        if not st.ok:
+            lifecycle.run_unreserve(self, info.pod, node_name)
+            self._reject_assumed(info, assumed, st)
+            return False
+        st, pending, deadline = lifecycle.run_permit(
+            self, info.pod, node_name, self.clock()
+        )
+        if st.code == lc.WAIT:
+            self.waiting_pods[info.key] = lc.WaitingPod(
+                pod=info.pod, node_name=node_name, info=info,
+                pending=pending, deadline=deadline,
             )
-            if st.code == lc.WAIT:
-                self.waiting_pods[info.key] = lc.WaitingPod(
-                    pod=info.pod, node_name=node_name, info=info,
-                    pending=pending, deadline=deadline,
-                )
-                return True
-            if not st.ok:
-                lifecycle.run_unreserve(self, info.pod, node_name)
-                self._reject_assumed(info, assumed, st)
-                return False
-        self._bind(info, assumed)
+            return True
+        if not st.ok:
+            lifecycle.run_unreserve(self, info.pod, node_name)
+            self._reject_assumed(info, assumed, st)
+            return False
+        self._bind(info, assumed, lifecycle)
         return True
 
-    def _bind(self, info: QueuedPodInfo, assumed: t.Pod) -> None:
+    def _bind(
+        self, info: QueuedPodInfo, assumed: t.Pod,
+        lifecycle: "lc.LifecycleRunner | None",
+    ) -> None:
         """The binding cycle: PreBind → bind → PostBind (the reference's
         BindCall.execute), then its completion (``_drain_bind_completions``):
         on success the assume is confirmed; a PreBind failure or a bind
         error forgets the assume, runs Unreserve and requeues the pod as
-        error status (handleSchedulingFailure, schedule_one.go:1190)."""
+        error status (handleSchedulingFailure, schedule_one.go:1190).
+        ``lifecycle`` is None for a pod that no plugin engages."""
         node_name = assumed.node_name
-        lifecycle = self._lifecycle_for(info.pod)
         # an interested binder extender owns the bind API call
         # (schedule_one.go:1142 bind → extendersBinding)
         bind_fn = self.client.bind
@@ -1318,14 +1324,14 @@ class Scheduler:
         fr = self.flight_recorder
         t_dispatch = time.perf_counter()
         try:
-            if lifecycle.pre_bind_plugins:
+            if lifecycle is not None:
                 st = lifecycle.run_pre_bind(self, info.pod, node_name)
                 if not st.ok:
                     raise RuntimeError(
                         f"PreBind {st.plugin}: {st.reason or st.code}"
                     )
             bind_fn(info.pod, node_name)
-            if lifecycle.post_bind_plugins:
+            if lifecycle is not None:
                 lifecycle.run_post_bind(self, info.pod, node_name)
         except Exception as err:
             if fr is not None:
@@ -1336,7 +1342,8 @@ class Scheduler:
             self.cache.forget_pod(assumed)
             # binding-cycle failure runs Unreserve (schedule_one.go:391
             # bindingCycle's deferred unreserve-on-failure)
-            lifecycle.run_unreserve(self, info.pod, node_name)
+            if lifecycle is not None:
+                lifecycle.run_unreserve(self, info.pod, node_name)
             if self._gang_member(info.pod):
                 # gang member: hand back to the group manager (it never
                 # lived in the per-pod queue)
@@ -1393,11 +1400,12 @@ class Scheduler:
                 continue
             del self.waiting_pods[key]
             assumed = wp.pod.with_node(wp.node_name)
+            lifecycle = self._lifecycle_for(wp.pod)
             if wp.rejected is not None:
-                self._lifecycle_for(wp.pod).run_unreserve(self, wp.pod, wp.node_name)
+                lifecycle.run_unreserve(self, wp.pod, wp.node_name)
                 self._reject_assumed(wp.info, assumed, wp.rejected)
             else:
-                self._bind(wp.info, assumed)
+                self._bind(wp.info, assumed, lifecycle)
 
     def _handle_unschedulable(
         self, info: QueuedPodInfo, profile: C.Profile | None = None

@@ -230,6 +230,35 @@ def test_default_registry_names_and_runner():
     assert not runner.permit_plugins
 
 
+@pytest.mark.parametrize("pod_kw, engaged", [
+    ({}, False), ({"pvcs": ["c"]}, True), ({"claims": ["c"]}, True),
+], ids=["plain", "pvc", "claim"])
+def test_runner_skipped_only_for_pods_no_plugin_engages(pod_kw, engaged):
+    """The in-tree plugins engage only pods with a PVC or a claim, and the
+    scheduler runs no point for any other pod; a plugin that does not say
+    which pods it engages engages every pod."""
+    from kubetpu_torch.api import wrappers as PWR
+
+    pod = PWR.make_pod("p", cpu_milli=100, **pod_kw)
+    runner = plc.default_registry().build(
+        list(KC.Profile().lifecycle.names()), to_port(KC.Profile()))
+    assert runner.engages(pod) is engaged
+    assert plc.LifecycleRunner([recording_plugin(plc)]).engages(pod)
+    if engaged:
+        return
+    side = Side(True, KC.Profile())
+
+    def forbidden(*a, **k):
+        raise AssertionError("a lifecycle point ran for an unengaged pod")
+
+    for point in ("run_reserve", "run_permit", "run_pre_bind",
+                  "run_post_bind", "run_unreserve"):
+        setattr(side.s.lifecycle, point, forbidden)
+    side.s.on_node_add(side.W.make_node("n0", cpu_milli=4000))
+    side.s.on_pod_add(pod)
+    assert side.step() == 1 and side.c.bound == {"default/p": "n0"}
+
+
 def _bad_profiles():
     return {
         "valid": KC.Profile(),
