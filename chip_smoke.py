@@ -60,13 +60,15 @@ final ``ok`` line is not printed):
    batches; then the gang lane (B11-B13): ``placement_scan`` must equal
    ``placement_assign_plain`` (assignments, counts, alignment) on the
    SchedulingBasic block labeled into 32 TPU slices (1000 pods, 33
-   placements: every slice and ``<all>``; the plain search on 8 slices and
-   ``<all>``, phase 4 holds all 33) and on the mixed, affinity and
-   spread clusters cut into 8 slices (9 placements; there the batched
-   engine's placement search too: ``hypothesis_rows``, ``filter_score`` +
-   ``batched_round`` once a placement, ``slice_epilogue``), and
+   placements: every slice and ``<all>``; the plain search on 4 slices and
+   ``<all>``, phase 4 holds 9) and on the mixed, affinity and
+   spread clusters cut into 8 slices (9 placements, the plain search on 3
+   and ``<all>``; there the batched engine's placement search too:
+   ``hypothesis_rows``, ``filter_score`` + ``batched_round`` once a
+   placement, ``slice_epilogue``), and
    ``gang_dry_run_scan`` must equal ``dry_run_gang_preemption_plain``
-   (counts, alignment) at 32 eviction hypotheses on a full 5000-node
+   (counts, alignment; the plain dry run on the first 8) at 32 eviction
+   hypotheses on a full 5000-node
    sliced cluster, with freed rows on each victim slice, some more than
    the node holds, and so must the batched engine's dry run on the same
    inputs; ``hypothesis_rows`` alone must equal the plain rows of those
@@ -96,7 +98,22 @@ final ``ok`` line is not printed):
    SchedulingWithResourceClaimTemplate batch (R = 4, no score leaf) and on
    a PV batch with one static row per pod (zoned PVs, 5000 nodes); the
    first two batches' ``filter_score`` and ``greedy_scan`` are timed with
-   and without the leaf;
+   and without the leaf; then the node mesh at four logical shards on the
+   card (``mesh_checks``): kernel K4 (the exchange's cross-shard argmax)
+   against its plain version, one exchange round trip timed; K1 (the
+   sharded ``greedy_scan``) against the unsharded kernel on the
+   SchedulingBasic batch with and without a DRA leaf, the mixed, affinity
+   and spread clusters, and the SchedulingPodAffinity and
+   PreferredTopologySpreading cycles (every template variant), and against
+   the sharded plain engine on one batch of each variant and on
+   SchedulingBasic; a tie batch whose first pick must be the first shard's
+   last node; K2 (the sharded ``filter_score`` passes and batched rounds)
+   against the unsharded kernels on the SchedulingPodAffinity and
+   TopologySpreading cycles and three mixed clusters, and against the
+   sharded plain rounds on three of them; K3 (the sharded dry run) against
+   the unsharded kernel and the sharded plain version at 5120 x 8 and x
+   128; and a routed delta into a sharded resident block against the
+   unsharded block (B5m, timed);
 4. main paths, each with the launch counts reset just before it and read
    just after and a full garbage collection just before (the line counts
    the full collections that fell inside the run, and the seconds the
@@ -141,8 +158,9 @@ final ``ok`` line is not printed):
    ``GangScheduling/5000Nodes_3Gangs_3000Pods_1000PerGroup`` and
    ``GangScheduling/5000Nodes_1000Gangs_3000Pods`` on a fleet labeled into
    32 TPU slices with ``topology="on"`` (placement cycles through
-   ``hypothesis_scan``; every gang on one slice; the first placement search
-   equal to ``placement_assign_plain``), the former again on the batched
+   ``hypothesis_scan``; every gang on one slice; the first placement
+   search's first nine placements equal to ``placement_assign_plain``),
+   the former again on the batched
    engine (placement cycles through ``hypothesis_rows``, ``filter_score``
    + ``batched_round`` and ``slice_epilogue``), the latter again unlabeled with
    ``topology="off"`` (coalesced greedy cycles), and a gang preemption
@@ -188,7 +206,13 @@ final ``ok`` line is not printed):
    ``prioritize`` with all 5000 node names, some also ``preempt`` and
    ``bind``, one ``filter`` carries full Nodes items: every reply of the
    card's server must equal the cpu server's; requests/s and p50/p99 ms
-   per verb are printed;
+   per verb are printed. Under the node mesh (four logical shards, after
+   the pipelined paths): SchedulingBasic/5000Nodes_10000Pods on greedy,
+   SchedulingPodAffinity/5000Nodes_5000Pods on batched (each bound map
+   equal to the unsharded run's, pod for pod; ``sharded_scan`` /
+   ``sharded_round`` and the routed ``scatter_rows`` launched; every
+   record "skipped: mesh") and PreemptionAsync/5000Nodes (every measured
+   pod bound, at least one nomination, ``shard_pick`` launched);
 5. prints the kernels' JSON line, the card line, and the ``ok`` line last.
 
 Tolerance everywhere: exact (integer masks, scores and assignments).
@@ -203,6 +227,15 @@ on two checkouts in turns (parent, change, change, parent) to compare the
 two on one card within one call. ``--time-dra`` splits the scan's time on
 the SchedulingBasic cycle with a DynamicResources score leaf into the
 normalize pass and the placements the leaf moves (``time_dra``).
+``--mesh`` runs the node mesh's checks (``mesh_checks``) and its paths,
+with SchedulingBasic, SchedulingPodAffinity and PreemptionAsync unsharded
+first, over one shard a card on every visible card (four logical shards
+when only one is visible), prints the exchange's round trip and
+``measure_collective_wall``, and ends with the same ``ok`` line, its count
+the cards visible. ``--webhook-queue`` loads the extender paths' webhook
+fixture on the host alone and prints the calls lost under socketserver's
+default listen queue of 5 and under the fixture's 128
+(``webhook_queue_mode``).
 """
 
 from __future__ import annotations
@@ -226,6 +259,17 @@ FP64_FLOPS = 34e12
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+_STAMPS = [time.perf_counter()]
+
+
+def stamp(what: str) -> None:
+    """Log the seconds since the script started and since the last stamp
+    (where the run's time goes, against its 1200 s limit)."""
+    now = time.perf_counter()
+    log(f"[t={now - _STAMPS[0]:.1f} s] {what} took {now - _STAMPS[-1]:.1f} s")
+    _STAMPS.append(now)
 
 
 # ------------------------------------------------------------- 1. device
@@ -1491,6 +1535,13 @@ def preemption_check(sched) -> dict:
 
 # --------------------------------- 3d. the gang lane (B11, B12, B13)
 SLICES = 32
+# the placements a phase-4 path's first placement search is held to the
+# plain search on (the first 9; phase 3 holds 4 slices and <all>), and the
+# gang dry run's hypotheses phase 3 holds to the plain dry run (the first 8
+# of 32): each placement and each hypothesis is searched on its own, and
+# the whole plain searches took ~100 s a path and 28 s
+PLAIN_PLACEMENTS = 9
+GANG_PLAIN = 8
 
 
 def sliced(cache, slices):
@@ -1648,11 +1699,12 @@ def _equal_or_raise(name, got, want) -> int:
 def gang_checks(results) -> dict:
     """Phase 3's gang-lane checks: ``placement_scan`` (B11, B12 fused)
     against ``placement_assign_plain`` on the SchedulingBasic block cut
-    into 32 slices (P = 1000, D = 33; the plain search on 8 slices and
+    into 32 slices (P = 1000, D = 33; the plain search on 4 slices and
     ``<all>``), and on the mixed, affinity and
-    spread clusters cut into 8 slices (D = 9), there also the batched
-    engine's search; ``gang_dry_run_scan`` (B13) against
-    ``dry_run_gang_preemption_plain`` at C = 32 on a full sliced cluster
+    spread clusters cut into 8 slices (D = 9; the plain search on 3 slices
+    and ``<all>``), there also the batched engine's search;
+    ``gang_dry_run_scan`` (B13) against ``dry_run_gang_preemption_plain``
+    (its first 8 hypotheses) at C = 32 on a full sliced cluster
     with freed rows, some clamping at 0, on both engines; the batched
     engine's ``hypothesis_rows`` and ``slice_epilogue`` alone. Exact
     (assignments, counts, alignment, rows). Returns the three kernels'
@@ -1682,10 +1734,10 @@ def gang_checks(results) -> dict:
     b, params = encode_topology(sliced(cache, SLICES), pending, C.Profile())
     masks, _ = slice_masks(b)
     got = got_basic = kernels.placement_scan(b.device, params, masks)
-    # the plain search of 8 slices and <all> (each placement's search is
-    # independent of the others); phase 4's GangScheduling 3 x 1000 path
-    # holds its first search, all 33 placements at P = 1000, to the plain one
-    sel = torch.tensor(list(range(8)) + [masks.shape[0] - 1], device=masks.device)
+    # the plain search of 4 slices and <all> (each placement's search is
+    # independent of the others); phase 4's GangScheduling paths hold their
+    # first search's first PLAIN_PLACEMENTS placements to the plain one
+    sel = torch.tensor(list(range(4)) + [masks.shape[0] - 1], device=masks.device)
     want, plain_ms = timed(lambda: placement_assign_plain(b.device, params, masks[sel]))
     note("SchedulingBasic placement",
          _equal_or_raise("placement_scan Basic", tuple(x[sel] for x in got), want))
@@ -1715,34 +1767,41 @@ def gang_checks(results) -> dict:
         cache_m, pending_m = case()
         bm, pm = encode_topology(sliced(cache_m, 8), pending_m, prof)
         mm, _ = slice_masks(bm)
+        # the plain searches of 3 slices and <all> (each placement on its own)
+        part = torch.tensor([0, 1, 2, mm.shape[0] - 1], device=mm.device)
         got = kernels.placement_scan(bm.device, pm, mm)
-        want = placement_assign_plain(bm.device, pm, mm)
-        note(f"{name} placement", _equal_or_raise(f"placement_scan {name}", got, want))
+        want = placement_assign_plain(bm.device, pm, mm[part])
+        note(f"{name} placement", _equal_or_raise(
+            f"placement_scan {name}", tuple(x[part] for x in got), want))
         # the batched engine under the same placements: hypothesis_rows,
         # B3 + B6 a placement, slice_epilogue
         note_batched(f"{name} batched placement", _equal_or_raise(
             f"batched placement {name}",
-            placement_assign_device(bm.device, pm, mm, "batched"),
-            placement_assign_plain(bm.device, pm, mm, "batched")))
+            tuple(x[part] for x in placement_assign_device(bm.device, pm, mm, "batched")),
+            placement_assign_plain(bm.device, pm, mm[part], "batched")))
         d = bm.device
         log(f"kernels vs plain [placement_scan {name}]: P={d.requests.shape[0]} "
             f"N={d.alloc.shape[0]} D={mm.shape[0]} spread "
             f"{'none' if d.spread is None else tuple(d.spread.domain_present.shape)} "
             f"affinity {'none' if d.podaffinity is None else tuple(d.podaffinity.base_sums.shape)}"
-            f": exact (counts {got[1].tolist()}); the batched engine's placements too")
+            f": exact on {len(part)} placements (counts {got[1].tolist()}); the batched "
+            "engine's placements too")
     bg, pg, mg, fr, fc = gang_victims_case()
     got = kernels.gang_dry_run_scan(bg.device, pg, mg, fr, fc)
-    want, gang_plain_ms = timed(
-        lambda: dry_run_gang_preemption_plain(bg.device, pg, mg, fr, fc))
-    note("gang dry run", _equal_or_raise("gang_dry_run_scan", got, want))
+    # the plain dry run of the first GANG_PLAIN hypotheses (each on its own)
+    want, gang_plain_ms = timed(lambda: dry_run_gang_preemption_plain(
+        bg.device, pg, mg[:GANG_PLAIN], fr[:GANG_PLAIN], fc[:GANG_PLAIN]))
+    note("gang dry run", _equal_or_raise(
+        "gang_dry_run_scan", tuple(x[:GANG_PLAIN] for x in got), want))
     a_all, _, _ = kernels._hypothesis_scan(bg.device, pg, mg, fr, fc, "gang_dry_run_scan")
     log(f"kernels vs plain [gang_dry_run_scan]: P={bg.device.requests.shape[0]} "
         f"N={bg.device.alloc.shape[0]} C={mg.shape[0]} R={bg.device.alloc.shape[1]}, "
         f"{int((fr > bg.device.requested[None]).any(-1).sum())} freed rows clamp at 0: "
-        f"exact (counts {min(got[0].tolist())}..{max(got[0].tolist())})")
+        f"exact on {GANG_PLAIN} hypotheses (counts {min(got[0].tolist())}.."
+        f"{max(got[0].tolist())})")
     timing["gang_dry_run"] = {
         "ms": cuda_ms(lambda: kernels.gang_dry_run_scan(bg.device, pg, mg, fr, fc), 5),
-        "plain_ms": gang_plain_ms,
+        "plain_ms": gang_plain_ms, "plain_hypotheses": GANG_PLAIN,
         "shape": [bg.device.requests.shape[0], bg.device.alloc.shape[0], mg.shape[0]],
         **_hyp_bound(bg.device, pg, mg, a_all.tolist(), (fr, fc)),
     }
@@ -2354,6 +2413,8 @@ def kernels_phase():
         kaf = check_case(f"affinity/{name}", ba, pa_, results)
         if name == "default":
             explain_batches.append(("affinity/default", ba, pa_, kaf))
+            ba_default, pa_default = ba, pa_
+    stamp("phase 3: Basic, mixed, saturated and affinity checks")
     # the SchedulingPodAffinity cycle: the batched main path's shapes
     cache_p, pending_p = podaffinity_case()
     bp, pp = encode(cache_p, pending_p, C.Profile())
@@ -2361,6 +2422,7 @@ def kernels_phase():
     # the spread batches, and the TopologySpreading / Preferred cycles
     spread = spread_checks(results)
     explain_batches.append(("spread/spread", *spread["spread/spread"]))
+    stamp("phase 3: PodAffinity and spread checks")
 
     P, N = b.requests.shape[0], b.alloc.shape[0]
     in_bytes = rt.batch_nbytes(b)
@@ -2417,8 +2479,10 @@ def kernels_phase():
         "PreferredTopologySpreading", *spread["PreferredTopologySpreading"], "greedy_scan")
     timing["batched_round"]["spread"] = _spread_timing(
         "TopologySpreading", *spread["TopologySpreading"], "batched_round")
+    stamp("phase 3: timings of the three pair kernels")
     timing["scatter_rows"] = scatter_checks(results)
     pre = preemption_checks(results)
+    stamp("phase 3: scatter and preemption checks")
     timing["filter_score"]["nominated"] = pre["nominated"]
     timing["filter_score"]["potential"] = pre["potential"]
     timing["dry_run_preemption"] = {
@@ -2429,9 +2493,23 @@ def kernels_phase():
     ext = extender_checks(results, (b, params), mixed_least)
     timing["filter_score"]["extender"] = ext["timing"]
     timing.update(explain_checks(results, explain_batches + ext["batches"]))
+    stamp("phase 3: extender and explain checks")
     timing.update(gang_checks(results))
+    stamp("phase 3: gang checks")
     timing.update(packing_checks(results))
+    stamp("phase 3: packing checks")
+    mesh_batch_list = [
+        ("SchedulingBasic 1024x5120", b, params, False),
+        ("SchedulingBasic with a DRA leaf", dra_leaf(b), params, False),
+        ("mixed/least", *mixed_least, True),
+        ("affinity/default", ba_default, pa_default, True),
+        ("SchedulingPodAffinity 1024x5120", bp, pp, False),
+        ("spread/default", *spread["spread/default"][:2], False),
+        ("spread/spread", *spread["spread/spread"][:2], True),
+        ("PreferredTopologySpreading 1024x5120", *spread["PreferredTopologySpreading"], False),
+    ]
     dra = dra_checks(results, (b, params))
+    stamp("phase 3: DRA checks")
     timing["filter_score"]["dra"] = {k: {n: v for n, v in t.items() if "greedy" not in n}
                                      for k, t in dra.items()}
     timing["greedy_scan"]["dra"] = {k: {n: v for n, v in t.items() if "filter" not in n}
@@ -2539,8 +2617,384 @@ def kernels_phase():
         log(f"timing [{name}] on the {sp['batch']} batch: kernel {sp['ms']:.4f} ms, "
             f"plain {sp['plain_ms']:.4f} ms, bound {sp['bound_ms']:.6f} ms "
             f"({sp['bound_by']}){glob}")
+    # the node mesh: four logical shards on this card (K1, K3, K4, B5m)
+    round_batch_list = [
+        ("SchedulingPodAffinity 1024x5120", bp, pp, True),
+        ("TopologySpreading 1024x5120", *spread["TopologySpreading"], True),
+        ("mixed/least", *mixed_least, True),
+        ("affinity/default", ba_default, pa_default, False),
+        ("spread/spread", *spread["spread/spread"][:2], False),
+    ]
+    mesh_timing = mesh_checks(node_mesh(4, True), results, mesh_batch_list, (b, params),
+                              round_batch_list)
+    stamp("phase 3: mesh checks")
+    out += mesh_kernel_lines(results, mesh_timing)
     torch.cuda.synchronize()
     return out
+
+
+# ----------------------------------------- 3m. the node mesh (K1-K4, B5m)
+# the mesh's kernels, their sources and the device programs they replace
+MESH_KERNELS = (
+    ("sharded_scan", "kubetpu_torch/kernels/csrc/greedy_scan.cu (+ scan_loop.cuh, "
+     "exchange.cuh)", "kubetpu/parallel/mesh.py:234 (sharded_greedy)"),
+    ("sharded_round", "kubetpu_torch/kernels/csrc/batched_round.cu (+ the sharded passes of "
+     "filter_score.cu)", "kubetpu/parallel/mesh.py:352 (sharded_batched)"),
+    ("shard_pick", "kubetpu_torch/kernels/csrc/dry_run_preemption.cu",
+     "kubetpu/parallel/mesh.py:161 (batch_shardings) with kubetpu/ops/preemption.py:156 "
+     "(pick_node across node shards)"),
+    ("shard_argmax", "kubetpu_torch/kernels/csrc/greedy_scan.cu (+ exchange.cuh)",
+     "kubetpu/parallel/mesh.py:327 (measure_collective_wall)"),
+)
+
+
+def node_mesh(shards: int, one_card: bool):
+    """``shards`` logical shards on cuda:0, or one shard a card."""
+    import torch
+
+    from kubetpu_torch.parallel import mesh as M
+
+    if one_card:
+        return M.make_mesh([torch.device("cuda", 0)] * shards)
+    return M.make_mesh([torch.device("cuda", i) for i in range(shards)])
+
+
+def _whole(x):
+    """A sharded result joined on its first device (a read-back)."""
+    from kubetpu_torch.parallel.mesh import ShardedTensor
+
+    return x.gather() if isinstance(x, ShardedTensor) else x
+
+
+def _mesh_err(name, got, want) -> int:
+    """``_engine_err`` of a sharded engine's output against an unsharded
+    one's (or another sharded one's)."""
+    (ga, gs), (wa, ws) = got, want
+    dev = wa.device
+    gs = tuple(None if x is None else _whole(x).to(dev) for x in gs)
+    ws = tuple(None if x is None else _whole(x).to(dev) for x in ws)
+    return _engine_err(name, ga.to(dev), gs, wa, ws)
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Median wall ms of ``fn`` (which ends in a host sync), after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def tie_case(mesh, n_nodes=5000, n_pending=1024):
+    """Identical nodes with the first shard full but for its last node: the
+    best score then ties between that node and every node of the later
+    shards, so the first maximum is the first shard's last node and the
+    scan crosses the boundary with every later pick. A pick that let a
+    later shard win a tie, or took a shard's lowest local index first,
+    lands elsewhere."""
+    from kubetpu_torch.perf import workloads as W
+    from kubetpu_torch.state import encoder as enc
+
+    per = enc.shard_aligned(enc.round_up(n_nodes), mesh.size) // mesh.size
+    nodes = [W.node_default(i) for i in range(n_nodes)]
+    bound = [W.pod_default(f"fill-{j}", "namespace-0").with_node(nodes[j].name)
+             for j in range(per - 1)]
+    pending = [W.pod_default(f"tie-{j}", "namespace-1") for j in range(n_pending)]
+    return _cache_with(nodes, bound), pending, per - 1
+
+
+def mesh_checks(mesh, results, batches, basic, round_batches) -> dict:
+    """Phase 3 on the mesh, all exact on CUDA tensors:
+
+    - K4: the cross-shard argmax of a 2^14 int64 vector against its plain
+      version; one exchange round trip timed as the difference of 1001 and
+      1 exchanges;
+    - K1: the sharded ``greedy_scan`` against the unsharded kernel on every
+      batch of ``batches`` (each template variant: none, affinity, spread,
+      DRA), and against its plain version (``greedy_assign_sharded_plain``:
+      each shard's steps in lockstep, explicit reductions) where asked;
+      then the tie batch, whose first pick must be the first shard's last
+      node;
+    - K2: the sharded ``filter_score`` (mask and total) against the
+      unsharded kernel, and the sharded batched rounds against the
+      unsharded ``batched_round`` engine (assignments, the seven slots,
+      rounds) and the sharded plain rounds, on every batch of
+      ``round_batches``;
+    - K3: the sharded dry run against the unsharded kernel and its plain
+      version at 5120 x 8 and 5120 x 128;
+    - B5m: a SchedulingBasic resident block sharded over the mesh, after a
+      routed delta, against the unsharded block after the same delta.
+
+    Returns the mesh kernels' timing entries."""
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.assign.greedy import greedy_assign_sharded_plain
+    from kubetpu_torch.framework import config as C
+    from kubetpu_torch.framework import runtime as rt
+    from kubetpu_torch.ops import preemption as OP
+    from kubetpu_torch.parallel import mesh as M
+
+    G = mesh.size
+    for k, _, _ in MESH_KERNELS:
+        results.setdefault(k, {"cases": [], "max_abs_err": 0})
+
+    def note(kernel, case, err):
+        results[kernel]["cases"].append(case)
+        results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
+
+    timing = {}
+    # K4, and the exchange's round trip
+    n = 1 << 14
+    per = n // G
+    pieces = [torch.arange(g * per, (g + 1) * per, dtype=torch.int64, device=d)
+              for g, d in enumerate(mesh.devices)]
+    got = kernels.shard_argmax(pieces, mesh)
+    want = M.shard_argmax_plain(pieces)
+    if got != want or got != n - 1:
+        raise AssertionError(f"shard_argmax: {got}, plain {want}, expected {n - 1}")
+    note("shard_argmax", f"2^14 int64 over {G} shards", 0)
+    one = wall_ms(lambda: kernels.shard_argmax(pieces, mesh), 9)
+    many = wall_ms(lambda: kernels.shard_argmax(pieces, mesh, reps=1001), 3)
+    whole = torch.cat([x.to(mesh.devices[0]) for x in pieces])
+    timing["shard_argmax"] = {
+        "ms": one, "plain_ms": wall_ms(lambda: M.shard_argmax_plain(pieces), 5),
+        "library_ms": cuda_ms(lambda: torch.argmax(whole), 20),
+        "bytes": n * 8, "ops": 0, "shape": [n, G],
+        "exchange_us": 1e3 * (many - one) / 1000,
+        "collective_wall_s": M.measure_collective_wall(mesh),
+    }
+    log(f"mesh [{G} shards on {len(mesh.cards())} card(s)] shard_argmax exact; one exchange "
+        f"round trip {timing['shard_argmax']['exchange_us']:.3f} us; measure_collective_wall "
+        f"{timing['shard_argmax']['collective_wall_s'] * 1e3:.4f} ms")
+    # K1 on every batch
+    for name, b, params, with_plain in batches:
+        sb = M.shard_batch(b, mesh)
+        got = kernels.sharded_greedy_scan(sb, params)
+        err = _mesh_err(f"{name} sharded_scan vs greedy_scan", got,
+                        kernels.greedy_scan(b, params))
+        line = "the unsharded kernel"
+        if with_plain:
+            plain = greedy_assign_sharded_plain(sb, params)
+            torch.cuda.synchronize()
+            err = max(err, _mesh_err(f"{name} sharded_scan vs its plain version", got, plain))
+            line += " and the sharded plain engine"
+        note("sharded_scan", name, err)
+        log(f"mesh [{name}] sharded_scan over {G} shards equal to {line} "
+            f"(affinity {b.podaffinity is not None}, spread {b.spread is not None}, DRA "
+            f"{b.dra_score_raw is not None and params.w_dra != 0})")
+    cache_t, pending_t, first = tie_case(mesh)
+    bt, ptie = encode(cache_t, pending_t, C.Profile())
+    got = kernels.sharded_greedy_scan(M.shard_batch(bt, mesh), ptie)
+    _mesh_err("tie batch", got, kernels.greedy_scan(bt, ptie))
+    if int(got[0][0]) != first:
+        raise AssertionError(f"tie batch: first pick {int(got[0][0])}, expected {first}")
+    note("sharded_scan", "tie across the first shard boundary", 0)
+    log(f"mesh [tie batch] first pick node {first} (the first shard's last), every "
+        "assignment equal to the unsharded kernel")
+    # K1 timing on the Basic batch, its plain version once
+    b, params = basic
+    sb = M.shard_batch(b, mesh)
+    t0 = time.perf_counter()
+    plain = greedy_assign_sharded_plain(sb, params)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    got = kernels.sharded_greedy_scan(sb, params)
+    note("sharded_scan", "SchedulingBasic vs its plain version",
+         _mesh_err("SchedulingBasic sharded_scan vs its plain version", got, plain))
+    P, N = b.requests.shape[0], b.alloc.shape[0]
+    state_bytes = sum(int(x.nbytes) for x in (b.requested, b.nonzero_requested,
+                                              b.pod_count, b.node_ports))
+    timing["sharded_scan"] = {
+        "ms": cuda_ms(lambda: kernels.sharded_greedy_scan(sb, params), 5),
+        "unsharded_ms": cuda_ms(lambda: kernels.greedy_scan(b, params), 5),
+        "plain_ms": plain_ms,
+        "bytes": rt.batch_nbytes(b) + P * 4 + state_bytes,
+        "ops": P * N * f64_ops_per_pair(params, b), "shape": [P, N, G],
+        "exchanges_per_step": 1,
+    }
+    # K2: the sharded filter_score and batched rounds
+    from kubetpu_torch.assign.batched import batched_assign_sharded_plain
+
+    for name, b, params, with_plain in round_batches:
+        sb = M.shard_batch(b, mesh)
+        mask, total = rt.filter_score_batch(sb, params)
+        km, kt = kernels.filter_score(b, params)
+        if not (torch.equal(mask.gather().to(km.device), km)
+                and torch.equal(total.gather().to(kt.device), kt)):
+            raise AssertionError(f"{name}: the sharded filter_score differs from the kernel")
+        k_rounds, s_rounds = [], []
+        got = kernels.sharded_batched_assign(sb, params, rounds_out=s_rounds)
+        err = _mesh_err(f"{name} sharded batched rounds vs batched_round", got,
+                        kernels.batched_assign(b, params, rounds_out=k_rounds))
+        if s_rounds != k_rounds:
+            raise AssertionError(f"{name}: sharded rounds {s_rounds} != {k_rounds}")
+        if with_plain:
+            p_rounds = []
+            plain = batched_assign_sharded_plain(sb, params, rounds_out=p_rounds)
+            torch.cuda.synchronize()
+            err = max(err, _mesh_err(f"{name} sharded rounds vs the sharded plain rounds",
+                                     got, plain))
+        note("sharded_round", name, err)
+        log(f"mesh [{name}] sharded filter_score and batched rounds ({s_rounds[0]} rounds) "
+            f"over {G} shards equal to the unsharded kernels"
+            + (" and the sharded plain rounds" if with_plain else ""))
+        if "sharded_round" not in timing:
+            Pp, Np = b.requests.shape[0], b.alloc.shape[0]
+            p_state = sum(int(x.nbytes) for x in (b.requested, b.nonzero_requested,
+                                                  b.pod_count, b.node_ports))
+            t0 = time.perf_counter()
+            batched_assign_sharded_plain(sb, params)
+            torch.cuda.synchronize()
+            timing["sharded_round"] = {
+                "ms": cuda_ms(lambda: kernels.sharded_batched_assign(sb, params), 5),
+                "unsharded_ms": cuda_ms(lambda: kernels.batched_assign(b, params), 5),
+                "plain_ms": 1e3 * (time.perf_counter() - t0),
+                "bytes": rt.batch_nbytes(b) + Pp * 4 + p_state, "ops":
+                k_rounds[0] * Pp * Np * f64_ops_per_pair(params, b),
+                "shape": [Pp, Np, G], "rounds": k_rounds[0], "batch": name,
+            }
+    # K3
+    for K, D in ((8, 3), (128, 5)):
+        args = victim_tensors(0, 5120, K, D)
+        want = kernels.dry_run_preemption(*args)
+        per = 5120 // G
+        rows = set(range(3, 15))
+        shard_args = [tuple(x[g * per:(g + 1) * per].to(mesh.devices[g]).contiguous()
+                            if j in rows else (x.to(mesh.devices[g]) if hasattr(x, "to") else x)
+                            for j, x in enumerate(args)) for g in range(G)]
+        offsets = [g * per for g in range(G)]
+        got = OP.dry_run_preemption_sharded(shard_args, offsets)
+        plain = OP.dry_run_preemption_sharded_plain(shard_args, offsets)
+        for other, label in ((want, "the unsharded kernel"), (plain, "the plain version")):
+            if int(got[0]) != int(other[0]):
+                raise AssertionError(f"shard_pick K={K}: node {int(got[0])} vs {label}'s "
+                                     f"{int(other[0])}")
+            for nm, x, w in zip(("victims", "ok", "n_pdb"), got[1:], other[1:]):
+                if not torch.equal(_whole(x), _whole(w).to(_whole(x).device)):
+                    raise AssertionError(f"shard_pick K={K}: {nm} differs from {label}")
+        note("shard_pick", f"5120x{K}, D={D}", 0)
+        if K == 8:
+            timing["shard_pick"] = {
+                "ms": cuda_ms(lambda: OP.dry_run_preemption_sharded(shard_args, offsets), 20),
+                "unsharded_ms": cuda_ms(lambda: kernels.dry_run_preemption(*args), 20),
+                "plain_ms": cuda_ms(
+                    lambda: OP.dry_run_preemption_sharded_plain(shard_args, offsets), 3),
+                "bytes": dry_run_nbytes(args), "ops": 0, "shape": [5120, K, G],
+            }
+        log(f"mesh [dry run 5120x{K}] sharded (B9 a shard, then shard_pick) equal to the "
+            f"unsharded kernel and the plain version: node {int(got[0])}")
+    # B5m: the routed delta into a sharded resident block
+    cache_r, pending_r = basic_case()
+    prof = C.Profile()
+    sharded = rt.ResidentNodeState("cuda", mesh=mesh)
+    single = rt.ResidentNodeState("cuda")
+    snap = cache_r.update_snapshot()
+    outs = [rt.encode_batch(snap, pending_r, prof, resident=r, device="cuda")
+            for r in (sharded, single)]
+    from kubetpu_torch.perf import workloads as W
+
+    for j in range(1500):
+        cache_r.add_pod(W.pod_default(f"dirty-{j}", "namespace-2").with_node(
+            f"scheduler-perf-{(j * 7) % 5000}"))
+    snap = cache_r.update_snapshot(snap)
+    outs = [rt.encode_batch(snap, pending_r, prof, prev_nt=o.node_tensors, resident=r,
+                            device="cuda") for o, r in zip(outs, (sharded, single))]
+    torch.cuda.synchronize()
+    rows = sum(sharded.last_rows_per_shard)
+    if not 0 < sharded.last_upload_bytes < sharded.nbytes:
+        raise AssertionError("routed scatter: the delta was not routed")
+    for f in rt.NODE_FIELDS:
+        whole = torch.cat([getattr(x, f).to(mesh.devices[0]) for x in sharded.shards])
+        if not torch.equal(whole, getattr(single.device, f).to(mesh.devices[0])):
+            raise AssertionError(f"routed scatter: {f} differs from the unsharded block")
+    note("scatter_rows", f"routed delta over {G} shards ({rows} rows)", 0)
+    # B5m's time: the same routed delta scattered again (idempotent), each
+    # shard's block on its card, against the unsharded scatter of the same rows
+    nt = outs[0].node_tensors
+    dirty = sorted(set(range(5000)) & {(j * 7) % 5000 for j in range(1500)})
+    routed = sharded._routed(nt, dirty, nt.num_nodes)
+    shipped = [None if d is None else rt.upload_packed(d, mesh.devices[g])
+               for g, d in enumerate(routed)]
+    whole_delta = rt.upload_packed(single._delta(nt, dirty, nt.num_nodes), mesh.devices[0])
+
+    def scatter_routed():
+        for g, t_ in enumerate(shipped):
+            if t_ is not None:
+                with rt.on_device(mesh.devices[g]):
+                    sharded.block(g).scatter(t_)
+
+    def scatter_routed_plain():
+        for g, t_ in enumerate(shipped):
+            if t_ is not None:
+                rt.scatter_node_rows_plain(sharded.shards[g], t_[rt.DELTA_FIELDS[0]],
+                                           tuple(t_[n] for n in rt.DELTA_FIELDS[1:]))
+
+    timing["routed_scatter"] = {
+        "ms": cuda_ms(scatter_routed, 20), "plain_ms": cuda_ms(scatter_routed_plain, 5),
+        "unsharded_ms": cuda_ms(lambda: single.scatter(whole_delta), 20),
+        "bytes": sum(int(x.nbytes) for t_ in shipped if t_ is not None for x in t_.values()),
+        "rows": len(dirty),
+    }
+    log(f"timing [scatter_rows routed over {G} shards] {len(dirty)} rows: kernels "
+        f"{timing['routed_scatter']['ms']:.4f} ms, plain {timing['routed_scatter']['plain_ms']:.4f}"
+        f" ms, unsharded scatter {timing['routed_scatter']['unsharded_ms']:.4f} ms")
+    log(f"mesh [routed scatter] {rows} dirty rows to {G} shards "
+        f"({sharded.last_rows_per_shard}), {sharded.last_upload_bytes} bytes, every shard's "
+        "block equal to its slice of the unsharded block")
+    torch.cuda.synchronize()
+    return timing
+
+
+def mesh_kernel_lines(results, timing) -> list:
+    """The mesh kernels' lines of the kernels JSON line."""
+    out = []
+    for name, src, replaces in MESH_KERNELS:
+        tm = timing[name]
+        bound_ms, bound_by = _bound(tm["bytes"], tm["ops"])
+        line = {
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": None, "result": "equal to the plain version and the unsharded kernel",
+            "max_abs_err": results[name]["max_abs_err"],
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": tm.get("library_ms"),
+            "cases": results[name]["cases"], "shape": tm["shape"],
+        }
+        for k in ("unsharded_ms", "exchange_us", "collective_wall_s", "exchanges_per_step",
+                  "rounds", "batch"):
+            if k in tm:
+                line[k] = tm[k]
+        out.append(line)
+        extra = ""
+        if "unsharded_ms" in tm:
+            extra += f", unsharded {tm['unsharded_ms']:.4f} ms"
+        if "library_ms" in tm:
+            extra += f", library {tm['library_ms']:.4f} ms"
+        log(f"timing [{name}] at {tm['shape']}: kernel {tm['ms']:.4f} ms, plain "
+            f"{tm['plain_ms']:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}){extra}")
+    return out
+
+
+def mesh_recorder_check(sched, launches) -> dict:
+    """The recorder under a mesh skips its breakdown, as the reference's
+    does: every record of the ring is there, each says "skipped: mesh",
+    and ``explain_summary`` never launched."""
+    fr = sched.flight_recorder
+    body = fr.records_json(limit=fr._records.maxlen)
+    attempted = sum(c.pods for c in sched.metrics.cycle_timings)
+    records = body["records"]
+    if len(records) != min(attempted, fr._records.maxlen):
+        raise AssertionError(f"recorder: {len(records)} records for {attempted} attempts")
+    odd = [r["pod"] for r in records if r.get("skipped_reason") != "mesh"]
+    if odd:
+        raise AssertionError(f"recorder under a mesh: records {odd[:5]} not marked skipped")
+    if launches["explain_summary"]:
+        raise AssertionError("recorder under a mesh: explain_summary launched")
+    return {"recorder": {"records": len(records), "attempted": attempted,
+                         "skipped_reason": "mesh"}}
 
 
 # -------------------------------------------------------- 4. main paths
@@ -2665,6 +3119,8 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
 
         def first_cycle_recorder(b, params):
             out = engine_fn(b, params)
+            if plain is None:
+                return out
 
             def keep():
                 # the node block is resident and later scatters write into
@@ -2723,11 +3179,16 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
             raise AssertionError(f"{case}: {key} cycle's kernel assignments differ from "
                                  "the plain engine's")
     if "first_placement" in captured:
+        # the plain search of the first PLAIN_PLACEMENTS hypotheses (each is
+        # searched on its own, so their rows of the kernel's result must
+        # equal it): the whole D = 33 plain search took ~100 s a path
         b, params, masks, eng, got = captured["first_placement"]
-        _equal_or_raise(f"{case} first placement search", got,
-                        placement.placement_assign_plain(b, params, masks, eng))
+        k = min(PLAIN_PLACEMENTS, masks.shape[0])
+        _equal_or_raise(f"{case} first placement search", tuple(x[:k] for x in got),
+                        placement.placement_assign_plain(b, params, masks[:k], eng))
         log(f"[{case}/{workload}] first placement search (D={masks.shape[0]}, "
-            f"P={b.requests.shape[0]}) equal to placement_assign_plain")
+            f"P={b.requests.shape[0]}): its first {k} placements equal to "
+            "placement_assign_plain")
     for i, (b, params, got, state) in enumerate(captured.get("cycles", ())):
         want, want_state = plain(b, params)
         torch.cuda.synchronize()
@@ -2740,7 +3201,9 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
             raise AssertionError(f"{case}/{workload}: main path never launched {name}")
     rounds = [c.rounds for c in sched.metrics.cycle_timings]
     extra = check(sched) if check is not None else {}
-    if flight_recorder:
+    if flight_recorder and sched.mesh is not None:
+        extra.update(mesh_recorder_check(sched, launches))
+    elif flight_recorder:
         extra.update(recorder_check(sched, launches))
     elif launches["explain_summary"]:
         raise AssertionError(f"{case}: the recorder is off but explain_summary launched")
@@ -2778,6 +3241,7 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
             "preemption_victims": res.preemption_victims,
             "preemptions": res.preemptions, "preempt_calls": res.preempt_calls,
             "preempt_ms": res.preempt_ms,
+            "mesh_shape": list(res.mesh_shape), "collective_wall_s": res.collective_wall_s,
             "card": card, **extra,
         }
     }
@@ -2825,7 +3289,7 @@ class ScriptedWebhook:
     scores every node 0..10, both from a CRC32 of (seed, pod, node), so
     the verdicts are the same in every process."""
 
-    def __init__(self, seed: int = 0, reject_pct: int = 15):
+    def __init__(self, seed: int = 0, reject_pct: int = 15, listen_queue: int = 128):
         import http.server
         import threading
 
@@ -2861,8 +3325,16 @@ class ScriptedWebhook:
                 self.end_headers()
                 self.wfile.write(raw)
 
-        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
-        self.httpd.daemon_threads = True
+        class Server(http.server.ThreadingHTTPServer):
+            # the scheduler's extender pool opens up to its parallelism (16)
+            # connections at once; socketserver's listen queue of 5 can
+            # overflow while the accept thread waits for the interpreter
+            # lock, and a connection it drops fails that pod's calls
+            # (``--webhook-queue`` shows it)
+            request_queue_size = listen_queue
+            daemon_threads = True
+
+        self.httpd = Server(("127.0.0.1", 0), Handler)
         self._thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
         self._thread.start()
 
@@ -2886,6 +3358,66 @@ class ScriptedWebhook:
         self.httpd.shutdown()
         self.httpd.server_close()
         self._thread.join(timeout=10)
+
+
+def webhook_queue_mode(seconds: float = 20.0) -> int:
+    """``--webhook-queue``: the webhook fixture under a load heavier than the
+    extender paths', on the host alone. Client threads post ``filter`` calls
+    over 500 node names through the scheduler's own client
+    (``HTTPExtender``, 30 s timeout) while one more thread keeps the
+    interpreter busy, for ``seconds`` each, against socketserver's default
+    listen queue of 5 and the fixture's 128, with 16 clients (the
+    scheduler's extender pool) and with 64. Prints one line a row: the calls
+    answered and the failures by kind. Fails if the fixture's queue loses a
+    call."""
+    import collections
+    import threading
+
+    from kubetpu_torch.api.wrappers import make_pod
+    from kubetpu_torch.framework import config as C
+    from kubetpu_torch.sched.extender import HTTPExtender
+
+    names = [f"node-{i}" for i in range(500)]
+    lost = 0
+    for queue, clients in ((5, 16), (128, 16), (5, 64), (128, 64)):
+        hook = ScriptedWebhook(seed=11, listen_queue=queue)
+        ext = HTTPExtender(C.ExtenderConfig(url_prefix=hook.url, filter_verb="filter",
+                                            node_cache_capable=True))
+        failed: collections.Counter = collections.Counter()
+        answered = [0] * clients
+        stop = threading.Event()
+
+        def client(i):
+            while not stop.is_set():
+                try:
+                    ext.filter(make_pod(f"p{i}-{answered[i]}", cpu_milli=100, memory=1 << 20),
+                               names)
+                    answered[i] += 1
+                except Exception as e:  # noqa: BLE001 (counted by kind)
+                    failed[f"{type(e).__name__}: {e}"[:80]] += 1
+
+        def busy():
+            while not stop.is_set():
+                sum(range(2000))
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+        threads.append(threading.Thread(target=busy))
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        time.sleep(seconds)
+        stop.set()
+        for th in threads:
+            th.join()
+        hook.close()
+        if queue == 128:
+            lost += sum(failed.values())
+        log(json.dumps({"webhook_queue": {
+            "listen_queue": queue, "clients": clients, "answered": sum(answered),
+            "failed": dict(failed), "s": time.perf_counter() - t0}}))
+    if lost:
+        raise AssertionError(f"the fixture's listen queue lost {lost} calls")
+    return 0
 
 
 def extender_paths(card, device="cuda") -> dict:
@@ -2920,10 +3452,18 @@ def extender_paths(card, device="cuda") -> dict:
                         placed += 1
                 return {"extender_calls": dict(hook.calls), "pods_checked": placed}
 
-            runs[f"extender {engine}"] = run_path(
-                card, "SchedulingBasic", "500Nodes", engine, 500 + 1000, plain,
-                ("filter_score", kern, "explain_summary"), check=no_rejected_node,
-                extenders=(cfg,))
+            try:
+                runs[f"extender {engine}"] = run_path(
+                    card, "SchedulingBasic", "500Nodes", engine, 500 + 1000, plain,
+                    ("filter_score", kern, "explain_summary"), check=no_rejected_node,
+                    extenders=(cfg,))
+            except AssertionError as e:
+                # a pod whose webhook call failed is unschedulable until the
+                # queue's flush: the calls that reached the webhook tell a
+                # lost request (fewer than one of each verb a pod attempt)
+                # from a wrong placement
+                raise AssertionError(f"extender {engine}: {e}; the webhook answered "
+                                     f"{dict(hook.calls)}") from e
         finally:
             hook.close()
     return runs
@@ -3582,7 +4122,156 @@ def main_path_phase(card: str) -> list[dict]:
             f"({len(bound)} pods); {run[2]:.1f} pods/s against the serial run's "
             f"{runs[key][2]:.1f}")
         runs[key + " pipelined"] = run
+    stamp("phase 4: main, webhook and pipelined paths")
+    # the node mesh: four logical shards on this card
+    runs.update(mesh_paths(card, node_mesh(4, True), runs))
     return [run[0] for run in runs.values()]
+
+
+def mesh_paths(card, mesh, unsharded: dict) -> dict:
+    """Phase 4 under the node mesh: ``SchedulingBasic/5000Nodes_10000Pods``
+    on the greedy engine (11000 bound, the bound map equal pod for pod to
+    the unsharded run's, ``sharded_scan`` and the routed ``scatter_rows``
+    launched, every recorder record there and marked "skipped: mesh"),
+    ``SchedulingPodAffinity/5000Nodes_5000Pods`` on the batched engine (the
+    same gates, through ``sharded_round``), and
+    ``PreemptionAsync/5000Nodes`` (every measured pod bound, at least one
+    nomination, victims below their preemptor, the sharded dry run
+    launched). ``unsharded`` holds the unsharded runs' results by case.
+    Returns the runs' launch counts."""
+    greedy = ("filter_score", "sharded_scan", "scatter_rows")
+    shape = "x".join(map(str, mesh.shape))
+    runs = {}
+    basic = run_path(card, "SchedulingBasic", "5000Nodes_10000Pods", "greedy", 1000 + 10000,
+                     None, greedy, check=steady_deltas, workload_kw=dict(mesh=mesh))
+    want = unsharded["basic"]
+    if basic[1] != want[1]:
+        moved = sum(1 for k, v in basic[1].items() if want[1].get(k) != v)
+        raise AssertionError(f"SchedulingBasic under the mesh: {moved} pods bound elsewhere "
+                             "than in the unsharded run")
+    log(f"[SchedulingBasic mesh {shape}] bound map equal to the unsharded run's, pod for pod "
+        f"({len(basic[1])} pods); {basic[2]:.1f} pods/s against the unsharded "
+        f"{want[2]:.1f}")
+    runs["basic mesh"] = basic
+    affinity = run_path(card, "SchedulingPodAffinity", "5000Nodes_5000Pods", "batched",
+                        5000 + 5000, None, ("filter_score", "sharded_round", "scatter_rows"),
+                        workload_kw=dict(mesh=mesh))
+    want = unsharded["affinity"]
+    if affinity[1] != want[1]:
+        moved = sum(1 for k, v in affinity[1].items() if want[1].get(k) != v)
+        raise AssertionError(f"SchedulingPodAffinity under the mesh: {moved} pods bound "
+                             "elsewhere than in the unsharded run")
+    log(f"[SchedulingPodAffinity batched mesh {shape}] bound map equal to the unsharded "
+        f"run's, pod for pod ({len(affinity[1])} pods); {affinity[2]:.1f} pods/s against "
+        f"the unsharded {want[2]:.1f}")
+    runs["affinity mesh"] = affinity
+    pre = run_path(card, "PreemptionAsync", "5000Nodes", "greedy", None, None,
+                   greedy + ("dry_run_preemption", "shard_pick"), check=preemption_check,
+                   workload_kw=dict(mesh=mesh))
+    want = unsharded["preemption"]
+    log(f"[PreemptionAsync mesh {shape}] {pre[3].scheduled} of {pre[3].measure_pods} measured "
+        f"pods bound ({len(pre[1])} in all, unsharded {len(want[1])}); "
+        f"{pre[3].preemptions} nominations; {pre[2]:.1f} pods/s against the unsharded "
+        f"{want[2]:.1f}")
+    runs["preemption mesh"] = pre
+    return runs
+
+
+def mesh_batches():
+    """The batches the mesh's K1 is held on: (name, batch, params, with
+    the sharded plain engine too). Every template variant of the scan:
+    none (SchedulingBasic, the mixed cluster), affinity (the affinity
+    cluster, SchedulingPodAffinity), spread (the spread cluster under both
+    profiles, PreferredTopologySpreading), DRA (SchedulingBasic with a
+    seeded leaf)."""
+    from kubetpu_torch.framework import config as C
+    from kubetpu_torch.perf import workloads as W
+
+    out = []
+    cache, pending = basic_case()
+    b, params = encode(cache, pending, C.Profile())
+    basic = (b, params)
+    out.append(("SchedulingBasic 1024x5120", b, params, False))
+    out.append(("SchedulingBasic with a DRA leaf", dra_leaf(b), params, False))
+    cache, pending = mixed_case(seed=1)
+    out.append(("mixed/least", *encode(cache, pending, C.Profile()), True))
+    cache, pending = affinity_case(seed=2)
+    out.append(("affinity/default",
+                *encode(cache, pending, affinity_profiles()["default"]), True))
+    cache, pending = podaffinity_case()
+    out.append(("SchedulingPodAffinity 1024x5120", *encode(cache, pending, C.Profile()),
+                False))
+    for name, prof in spread_profiles().items():
+        cache, pending = spread_case(seed=3)
+        out.append((f"spread/{name}", *encode(cache, pending, prof), True))
+    cache, pending = topology_case(W.pod_with_preferred_topology_spreading)
+    out.append(("PreferredTopologySpreading 1024x5120", *encode(cache, pending, C.Profile()),
+                False))
+    rounds = sorted(((name, b_, p_, True) for name, b_, p_, _ in out
+                     if name.startswith(("SchedulingPodAffinity", "mixed", "affinity",
+                                         "spread/spread"))),
+                    key=lambda r: not r[0].startswith("SchedulingPodAffinity"))
+    cache, pending = topology_case(W.pod_with_topology_spreading)
+    rounds.append(("TopologySpreading 1024x5120", *encode(cache, pending, C.Profile()), True))
+    return out, basic, rounds
+
+
+def mesh_mode() -> int:
+    """``python3 chip_smoke.py --mesh``: the mesh's checks and paths with one
+    shard a card over every visible card (on a machine of four H100s, four
+    shards; with one card, four logical shards on it): phase 3's mesh
+    checks (``mesh_checks``), the unsharded SchedulingBasic,
+    SchedulingPodAffinity and PreemptionAsync paths, the same under the
+    mesh (``mesh_paths``),
+    ``measure_collective_wall``; then the mesh kernels' JSON line, the
+    cards' line and the ``ok`` line."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    t0 = time.perf_counter()
+    card = device_phase()
+    build_phase()
+    count = torch.cuda.device_count()
+    mesh = node_mesh(count, False) if count > 1 else node_mesh(4, True)
+    log(f"mesh: {mesh.size} shards on {len(mesh.cards())} card(s), "
+        f"{torch.cuda.device_count()} visible")
+    batches, basic, rounds = mesh_batches()
+    results: dict = {"scatter_rows": {"cases": [], "max_abs_err": 0}}
+    timing = mesh_checks(mesh, results, batches, basic, rounds)
+    lines = mesh_kernel_lines(results, timing)
+    from kubetpu_torch.assign.batched import batched_assign_plain
+    from kubetpu_torch.assign.greedy import greedy_assign_plain
+
+    greedy = ("filter_score", "greedy_scan", "scatter_rows", "explain_summary")
+    unsharded = {
+        "basic": run_path(card, "SchedulingBasic", "5000Nodes_10000Pods", "greedy",
+                          1000 + 10000, greedy_assign_plain, greedy, check=steady_deltas),
+        "affinity": run_path(card, "SchedulingPodAffinity", "5000Nodes_5000Pods", "batched",
+                             5000 + 5000, batched_assign_plain,
+                             ("filter_score", "batched_round", "scatter_rows",
+                              "explain_summary")),
+        "preemption": run_path(card, "PreemptionAsync", "5000Nodes", "greedy", None,
+                               greedy_assign_plain,
+                               greedy + ("dry_run_preemption", "filter_component_masks"),
+                               check=preemption_check),
+    }
+    runs = mesh_paths(card, mesh, unsharded)
+    for k in lines:
+        k["launches"] = sum(run[0][k["name"]] for run in runs.values())
+    from kubetpu_torch.parallel import mesh as M
+
+    log(json.dumps({"mesh": {"shape": list(mesh.shape), "cards": len(mesh.cards()),
+                             "device_count": count,
+                             "exchange_us_per_round_trip": timing["shard_argmax"]["exchange_us"],
+                             "measure_collective_wall_s": M.measure_collective_wall(mesh),
+                             "card": card}}))
+    log(f"chip_smoke --mesh: all phases passed in {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"kernels": lines}))
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": count,
+    }}), flush=True)
+    return 0
 
 
 def time_checkout(mode: str, root: str) -> int:
@@ -3715,6 +4404,13 @@ def main() -> int:
         return time_checkout(sys.argv[1][len("--time-"):], sys.argv[2])
     if sys.argv[1:] == ["--time-dra"]:
         return time_dra()
+    if sys.argv[1:] == ["--webhook-queue"]:
+        sys.path.insert(0, str(ROOT))
+        return webhook_queue_mode()
+    if sys.argv[1:] == ["--mesh"]:
+        if not (ROOT / "kubetpu_torch" / "kernels" / "csrc").is_dir():
+            raise SystemExit("chip_smoke: run from the root of a kubetpu checkout")
+        return mesh_mode()
     if not (ROOT / "kubetpu_torch" / "kernels" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run from the root of a kubetpu checkout "
                          "(kubetpu_torch/ not found beside this script)")
@@ -3722,13 +4418,20 @@ def main() -> int:
     t0 = time.perf_counter()
     card = device_phase()
     build_phase()
+    stamp("phases 1-2")
     kernel_lines = kernels_phase()
     path_launches = main_path_phase(card)
+    stamp("phase 4: mesh paths")
     path_launches += gang_paths(card)
+    stamp("phase 4: gang paths")
     path_launches += packing_paths(card)
+    stamp("phase 4: packing paths")
     path_launches += dra_paths(card)
+    stamp("phase 4: DRA paths")
     path_launches.append(bridge_phase(card))
+    stamp("phase 4: bridge")
     stepped_preemption_phase()
+    stamp("phase 4: stepped preemption")
     for k in kernel_lines:
         k["launches"] = sum(launches[k["name"]] for launches in path_launches)
     import torch

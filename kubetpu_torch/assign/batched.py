@@ -219,13 +219,188 @@ def batched_assign_plain(
     )
 
 
+def _tie_spread_choice_sharded(masks, scores, active, offsets):
+    """``_tie_spread_choice`` over node shards: ``masks`` / ``scores`` are
+    each shard's (P, N/G) rows, ``offsets`` their first global node. The
+    shards reduce the per-pod maximum (max), then at it their tie counts
+    and the wrapping sums of the tie weights of the GLOBAL node indices
+    (sum); every shard ranks the pods alike; the choice is the (r+1)-th tie
+    column in global order, found in the shard whose prefix of counts
+    covers it. Returns (P,) int32 on the first shard's device."""
+    from ..ops.reduce import combine
+
+    home = masks[0].device
+    feas = [m & active.to(m.device)[:, None] for m in masks]
+    any_f = combine("max", [torch.any(f, dim=1).to(home) for f in feas])
+    masked = [torch.where(f, s, I64_MIN) for f, s in zip(feas, scores)]
+    best = combine("max", [torch.max(x, dim=1).values.to(home) for x in masked])
+    ties = [f & (x == best.to(x.device)[:, None]) for f, x in zip(feas, masked)]
+    h = combine("sum", [
+        torch.sum(torch.where(
+            t, tie_weights(t.shape[1] + o, t.device)[o:][None, :], 0), dim=1).to(home)
+        for t, o in zip(ties, offsets)
+    ])
+    h = h ^ (best << 1)
+    h = torch.where(any_f & active, h, 0)
+    p = h.shape[0]
+    iota = torch.arange(p, dtype=torch.int32, device=home)
+    sh, si = torch.sort(h, stable=True)
+    new_seg = torch.ones(p, dtype=torch.bool, device=home)
+    new_seg[1:] = sh[1:] != sh[:-1]
+    seg_start = torch.cummax(torch.where(new_seg, iota, 0), dim=0).values
+    rank = torch.zeros(p, dtype=torch.int32, device=home)
+    rank[si] = iota - seg_start
+    counts = [torch.sum(t, dim=1).to(torch.int32).to(home) for t in ties]
+    cnt = combine("sum", counts)
+    r = torch.where(cnt > 0, rank % torch.clamp(cnt, min=1), 0)
+    choice = torch.full((p,), -1, dtype=torch.int32, device=home)
+    before = torch.zeros(p, dtype=torch.int32, device=home)
+    for t, c, o in zip(ties, counts, offsets):
+        here = (r >= before) & (r < before + c)
+        csum = torch.cumsum(t.to(torch.int32), dim=1)
+        target = (r - before + 1).to(t.device)
+        col = torch.argmax((csum == target[:, None]).to(torch.int8), dim=1).to(home)
+        choice = torch.where(here, (col + o).to(torch.int32), choice)
+        before = before + c
+    return torch.where(any_f & active, choice, -1).to(torch.int32)
+
+
+def batched_assign_sharded_plain(sb, params: rt.ScoreParams, max_rounds: int = 0,
+                                 rounds_out: list | None = None):
+    """The plain round loop over a node-sharded batch
+    (``parallel.mesh.ShardedBatch``). Each round: every shard's Filter +
+    Score on its rows in lockstep (``mesh.run_sharded``), the tie-spread
+    choice over the shards (``_tie_spread_choice_sharded``), then each
+    shard admits the pods that chose its nodes (``_accept`` on its rows:
+    one a node, queue order, capacity); the admissions combine (any), the
+    prefix before the first rejection commits, each shard adds its
+    committed pods to its rows and counts, and the affinity increments the
+    shards found at their nodes' domains sum into the replicated sums.
+    Same return as ``greedy.greedy_assign_sharded_plain``."""
+    from ..ops.reduce import combine
+    from ..parallel.mesh import ShardedTensor, run_sharded
+
+    shards, offsets, mesh = sb.shards, sb.offsets, sb.mesh
+    G = len(shards)
+    b0 = shards[0]
+    home = b0.device
+    p = b0.requests.shape[0]
+    cap = max_rounds or p
+    iota_p = torch.arange(p, dtype=torch.int32, device=home)
+    req = [s.requested for s in shards]
+    nz = [s.nonzero_requested for s in shards]
+    pc = [s.pod_count for s in shards]
+    ports = [s.node_ports for s in shards]
+    sp_counts = [None if s.spread is None else s.spread.node_count for s in shards]
+    pa_sums = [None if s.podaffinity is None else s.podaffinity.base_sums for s in shards]
+    nom = [
+        None if s.nominated_pod_idx is None
+        else torch.ones(s.nominated_pod_idx.shape[0], dtype=torch.bool, device=s.device)
+        for s in shards
+    ]
+    active = b0.pod_valid
+    assignments = torch.full((p,), -1, dtype=torch.int32, device=home)
+    progress = True
+    rounds = 0
+    while progress and rounds < cap and bool(torch.any(active)):
+        outs = run_sharded([
+            rt.feasible_and_scores_steps(
+                shards[g], params, requested=req[g], nonzero_requested=nz[g],
+                pod_count=pc[g], node_ports=ports[g], spread_counts=sp_counts[g],
+                pa_sums=pa_sums[g], nominated_active=nom[g])
+            for g in range(G)
+        ], mesh)
+        choice = _tie_spread_choice_sharded(
+            [m for m, _ in outs], [s for _, s in outs], active, offsets)
+        local, accepted_g = [], []
+        for g, s in enumerate(shards):
+            n = s.alloc.shape[0]
+            c = choice.to(s.device) - offsets[g]
+            mine = (choice.to(s.device) >= 0) & (c >= 0) & (c < n)
+            c = torch.where(mine, c, -1).to(torch.int32)
+            local.append(c)
+            accepted_g.append(_accept(
+                c, s.requests, free=s.alloc - req[g], count_room=s.allowed_pods - pc[g],
+                check_capacity=params.filter_fit,
+            ).to(home))
+        accepted = combine("max", accepted_g)
+        rejected = active & (choice >= 0) & ~accepted
+        first_rej = torch.min(torch.where(rejected, iota_p, p))
+        commit = accepted & (iota_p < first_rej)
+        finalize = active & (choice < 0) & (iota_p < first_rej)
+        flat_parts = []
+        for g, s in enumerate(shards):
+            n = s.alloc.shape[0]
+            acc = commit.to(s.device) & (local[g] >= 0)
+            seg = torch.where(acc, local[g], n).long()
+            a64 = acc.to(torch.int64)
+
+            def seg_sum(vals, n=n, seg=seg, dev=s.device):
+                out = torch.zeros((n + 1,) + vals.shape[1:], dtype=vals.dtype, device=dev)
+                return out.index_add_(0, seg, vals)[:n]
+
+            req[g] = req[g] + seg_sum(s.requests * a64[:, None])
+            nz[g] = nz[g] + seg_sum(s.nonzero_requests * a64[:, None])
+            pc[g] = pc[g] + seg_sum(acc.to(pc[g].dtype))
+            ports[g] = ports[g] | (seg_sum(s.pod_ports.to(torch.int64) * a64[:, None]) > 0)
+            if sp_counts[g] is not None:
+                sp = s.spread
+                upd = seg_sum(sp.pod_match_sig.to(sp_counts[g].dtype)).T
+                sp_counts[g] = sp_counts[g] + upd * sp.eligible.to(upd.dtype)
+            if pa_sums[g] is not None:
+                pa = s.podaffinity
+                r_rows, d = pa_sums[g].shape
+                dcol = pa.node_domain[:, torch.clamp(local[g], min=0).long()].T  # (P, R)
+                valid = (dcol >= 0) & acc[:, None]
+                inc = torch.where(valid, pa.update, 0)
+                flat_ids = torch.where(
+                    valid,
+                    torch.arange(r_rows, device=s.device)[None, :] * d
+                    + torch.clamp(dcol, min=0),
+                    r_rows * d,
+                ).long()
+                flat = torch.zeros(r_rows * d + 1, dtype=torch.int64, device=s.device)
+                flat.index_add_(0, flat_ids.reshape(-1), inc.reshape(-1))
+                flat_parts.append(flat[: r_rows * d].reshape(r_rows, d).to(home))
+        if flat_parts:
+            inc = combine("sum", flat_parts)
+            pa_sums = [x + inc.to(x.device) for x in pa_sums]
+        if nom[0] is not None:
+            for g, s in enumerate(shards):
+                idx = s.nominated_pod_idx
+                c = commit.to(s.device)
+                consumed = (idx >= 0) & c[torch.clamp(idx, min=0).long()]
+                nom[g] = nom[g] & ~consumed
+        assignments = torch.where(commit, choice, assignments)
+        active = active & ~commit & ~finalize
+        progress = bool(torch.any(commit | finalize))
+        rounds += 1
+    if rounds_out is not None:
+        rounds_out.append(rounds)
+    return assignments, (
+        ShardedTensor(req), ShardedTensor(nz), ShardedTensor(pc), ShardedTensor(ports),
+        None if sp_counts[0] is None else ShardedTensor(sp_counts, axis=1),
+        pa_sums[0], nom[0],
+    )
+
+
 def batched_assign_device(
-    b: rt.DeviceBatch, params: rt.ScoreParams, max_rounds: int = 0,
+    b, params: rt.ScoreParams, max_rounds: int = 0,
     rounds_out: list | None = None,
 ):
     """Run the batched assignment. A CUDA batch launches the
     ``batched_round`` kernels; a CPU batch runs ``batched_assign_plain``.
-    Same return shape as ``batched_assign_plain``."""
+    A node-sharded batch (``parallel.mesh.ShardedBatch``) runs the sharded
+    rounds: the kernels on CUDA shards, ``batched_assign_sharded_plain`` on
+    CPU ones. Same return shape as ``batched_assign_plain``."""
+    from ..parallel.mesh import ShardedBatch
+
+    if isinstance(b, ShardedBatch):
+        if b.device.type == "cpu":
+            return batched_assign_sharded_plain(b, params, max_rounds, rounds_out)
+        from ..kernels import sharded_batched_assign
+
+        return sharded_batched_assign(b, params, max_rounds, rounds_out)
     if b.device.type == "cpu":
         return batched_assign_plain(b, params, max_rounds, rounds_out)
     from ..kernels import batched_assign

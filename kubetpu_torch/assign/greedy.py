@@ -163,10 +163,103 @@ def greedy_assign_plain(b: rt.DeviceBatch, params: rt.ScoreParams):
     )
 
 
-def greedy_assign_device(b: rt.DeviceBatch, params: rt.ScoreParams):
+def greedy_assign_sharded_plain(sb, params: rt.ScoreParams):
+    """The plain greedy loop over a node-sharded batch
+    (``parallel.mesh.ShardedBatch``). Each step runs every shard's
+    Filter + Score on its own rows in lockstep (``mesh.run_sharded``
+    combines the normalize maxima, spread sums, bitmaps and counts), picks
+    each shard's first maximum, then the step's node by (score, -global
+    index) over the shards (``mesh.first_best``). The owner shard applies
+    the resource, port and spread-count updates to its rows and publishes
+    the chosen node's affinity domains, which every shard adds into its
+    replicated (RA, D) sums; the live nominations are replicated.
+
+    Returns ``(assignments (P,) int32 global node index or -1, final
+    state)``: the seven slots, the node-axis ones as
+    ``mesh.ShardedTensor``s, the affinity sums and nominations as shard 0's
+    copies."""
+    from ..parallel.mesh import ShardedTensor, first_best, run_sharded
+
+    shards, offsets, mesh = sb.shards, sb.offsets, sb.mesh
+    G = len(shards)
+    req = [s.requested.clone() for s in shards]
+    nz = [s.nonzero_requested.clone() for s in shards]
+    pc = [s.pod_count.clone() for s in shards]
+    ports = [s.node_ports.clone() for s in shards]
+    sp_counts = [None if s.spread is None else s.spread.node_count.clone() for s in shards]
+    pa_sums = [None if s.podaffinity is None else s.podaffinity.base_sums for s in shards]
+    nom = [
+        None if s.nominated_pod_idx is None
+        else torch.ones(s.nominated_pod_idx.shape[0], dtype=torch.bool, device=s.device)
+        for s in shards
+    ]
+    chosen_all = []
+    for i in range(shards[0].requests.shape[0]):
+        views = [_pod_view(s, i) for s in shards]
+        outs = run_sharded([
+            rt.feasible_and_scores_steps(
+                views[g], params, requested=req[g], nonzero_requested=nz[g],
+                pod_count=pc[g], node_ports=ports[g], spread_counts=sp_counts[g],
+                pa_sums=pa_sums[g], nominated_active=nom[g])
+            for g in range(G)
+        ], mesh)
+        keys = []
+        for g, (mask, score) in enumerate(outs):
+            m, sc = mask[0], score[0]
+            if bool(torch.any(m)):
+                j = int(torch.argmax(torch.where(m, sc, -1)))
+                keys.append(((int(sc[j]),), offsets[g] + j))
+            else:
+                keys.append(((), -1))
+        chosen = first_best(keys)
+        chosen_all.append(chosen)
+        if chosen < 0:
+            continue
+        o = max(g for g in range(G) if offsets[g] <= chosen)
+        j = chosen - offsets[o]
+        v = views[o]
+        req[o][j] += v.requests[0]
+        nz[o][j] += v.nonzero_requests[0]
+        pc[o][j] += 1
+        ports[o][j] |= v.pod_ports[0]
+        sp = shards[o].spread
+        if sp is not None:
+            sp_counts[o][:, j] += (sp.pod_match_sig[i] & sp.eligible[:, j]).to(torch.int32)
+        if pa_sums[0] is not None:
+            # the owner publishes the chosen node's domain in every row
+            dcol = shards[o].podaffinity.node_domain[:, j]
+            for g in range(G):
+                pa = shards[g].podaffinity
+                d = dcol.to(pa.base_sums.device)
+                inc = torch.where(d >= 0, pa.update[i], 0)
+                rows = torch.arange(pa_sums[g].shape[0], device=d.device)
+                pa_sums[g] = pa_sums[g].index_put(
+                    (rows, torch.clamp(d, min=0).long()), inc, accumulate=True)
+        if nom[0] is not None:
+            for g in range(G):
+                nom[g] = nom[g] & (shards[g].nominated_pod_idx != i)
+    assignments = torch.tensor(chosen_all, dtype=torch.int32, device=shards[0].device)
+    return assignments, (
+        ShardedTensor(req), ShardedTensor(nz), ShardedTensor(pc), ShardedTensor(ports),
+        None if sp_counts[0] is None else ShardedTensor(sp_counts, axis=1),
+        pa_sums[0], nom[0],
+    )
+
+
+def greedy_assign_device(b, params: rt.ScoreParams):
     """Run the greedy assignment. A CUDA batch launches the ``greedy_scan``
-    kernel; a CPU batch runs ``greedy_assign_plain``. Same return shape as
-    ``greedy_assign_plain``."""
+    kernel; a CPU batch runs ``greedy_assign_plain``. A node-sharded batch
+    (``parallel.mesh.ShardedBatch``) runs the sharded scan kernel on CUDA
+    shards and ``greedy_assign_sharded_plain`` on CPU ones. Same return
+    shape as ``greedy_assign_plain``."""
+    from ..parallel.mesh import ShardedBatch
+
+    if isinstance(b, ShardedBatch):
+        if b.device.type == "cpu":
+            return greedy_assign_sharded_plain(b, params)
+        from ..kernels import sharded_greedy_scan
+
+        return sharded_greedy_scan(b, params)
     if b.device.type == "cpu":
         return greedy_assign_plain(b, params)
     from ..kernels import greedy_scan

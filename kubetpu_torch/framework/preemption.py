@@ -48,10 +48,20 @@ from . import runtime as rt
 
 
 def _host(x) -> np.ndarray:
-    """A numpy copy of a tensor (any device) or array."""
-    if isinstance(x, torch.Tensor):
+    """A numpy copy of a tensor (any device, or a mesh's ShardedTensor) or
+    array."""
+    from ..parallel.mesh import ShardedTensor
+
+    if isinstance(x, (torch.Tensor, ShardedTensor)):
         return x.cpu().numpy()
     return np.asarray(x)
+
+
+# the per-call arrays that hold a row a node (split by shard under a mesh)
+_NODE_ROWS = frozenset({
+    "requested", "pod_count", "node_ports", "charged_req", "charged_cnt",
+    "charged_ports", "valid", "priority", "start", "requests", "victim_ports", "pdb",
+})
 
 
 @dataclass
@@ -97,10 +107,10 @@ class PreemptionEvaluator:
         # preemptable this cycle (their bind is in flight) — same window the
         # reference has between assume and the next informer update.
         self.requested = np.array(_host(
-            requested if requested is not None else batch.device.requested
+            requested if requested is not None else _node_leaf(batch.device, "requested")
         ))
         self.pod_count = np.array(_host(
-            pod_count if pod_count is not None else batch.device.pod_count
+            pod_count if pod_count is not None else _node_leaf(batch.device, "pod_count")
         ))
         self.port_counts = np.array(
             _host(node_ports_counts)
@@ -122,6 +132,9 @@ class PreemptionEvaluator:
         # once and never change; _nom_active IS mutated by each preempt()
         # call (stale nominations drop as their pods re-preempt).
         b = batch.device
+        # under a node mesh: the sharded batch (each preempt() ships every
+        # shard its rows, and the dry run reduces over the shards)
+        self._sharded = b if hasattr(b, "shards") else None
         self._pod_requests = _host(b.requests)
         self._pod_ports = _host(b.pod_ports)
         self._port_conflict = _host(b.port_conflict)
@@ -161,6 +174,76 @@ class PreemptionEvaluator:
             ), dev)
         return rt.upload_packed(arrays, dev)
 
+    def _upload_shards(self, arrays: dict) -> list[dict[str, torch.Tensor]]:
+        """Each shard's copy of ``arrays`` and of the victims' tensors: its
+        rows of the node-axis ones, the rest whole, in one copy a shard."""
+        sb = self._sharded
+        v = self.victims
+        arrays = dict(arrays, priority=v.priority, start=v.start, requests=v.requests,
+                      victim_ports=v.victim_ports, pdb=v.pdb)
+        out = []
+        for s, off in zip(sb.shards, sb.offsets):
+            n = int(s.alloc.shape[0])
+            out.append(rt.upload_packed({
+                k: (a[off:off + n] if k in _NODE_ROWS else a) for k, a in arrays.items()
+            }, s.device))
+        return out
+
+    def _potential_steps(self, g: int, i: int, up: dict):
+        """``_potential_mask_plain`` of shard g in steps form (the spread
+        filter's domain sums reduce over the shards)."""
+        sb = self._sharded
+        shard = sb.shards[g]
+        sp = self.spread_counts
+        static, fit, ports_ok, spread_ok, pa_ok, _, _ = yield from rt.filter_components_steps(
+            _one_pod_view(shard, i), self.params,
+            requested=up["requested"],
+            pod_count=up["pod_count"],
+            node_ports=up["node_ports"],
+            spread_counts=None if sp is None else sp.pieces[g],
+            pa_sums=None if self.pa_sums is None else self.pa_sums.to(shard.device),
+            nominated_active=up.get("nom_active"),
+        )
+        return _potential_of(static, fit, ports_ok, spread_ok, pa_ok)
+
+    def _dry_run_sharded(self, i: int, pod: t.Pod, arrays: dict):
+        """The dry run of pod ``i`` over the mesh's shards: each shard's
+        potential mask (the plain filters in lockstep on CPU shards, kernel
+        B3's potential mode on CUDA ones), then
+        ``ops.preemption.dry_run_preemption_sharded``."""
+        from ..parallel.mesh import run_sharded
+
+        sb = self._sharded
+        ups = self._upload_shards(arrays)
+        if sb.device.type == "cpu":
+            potential = run_sharded(
+                [self._potential_steps(g, i, up) for g, up in enumerate(ups)], sb.mesh)
+        else:
+            from ..kernels import potential_mask
+
+            sp = sb.shards[0].spread
+            if sp is not None and self.params.filter_spread and sp.has_hard:
+                raise NotImplementedError(
+                    "a hard-spread potential mask under a CUDA mesh is ROADMAP "
+                    "Queue A item 12's remaining part, not yet ported")
+            potential = []
+            for g, (s, up) in enumerate(zip(sb.shards, ups)):
+                with rt.on_device(s.device):
+                    potential.append(potential_mask(
+                        _one_pod_view(s, i), self.params, up["requested"], up["pod_count"],
+                        up["node_ports"], None if self.spread_counts is None
+                        else self.spread_counts.pieces[g],
+                        None if self.pa_sums is None else self.pa_sums.to(s.device),
+                        up.get("nom_active")))
+        shard_args = [
+            (s.requests[i], int(pod.priority), up["wants_conf"], pot, s.alloc,
+             up["charged_req"], up["charged_cnt"], s.allowed_pods, up["charged_ports"],
+             up["valid"], up["priority"], up["start"], up["requests"],
+             up["victim_ports"], up["pdb"], up["pdb_allowed"])
+            for s, up, pot in zip(sb.shards, ups, potential)
+        ]
+        return OP.dry_run_preemption_sharded(shard_args, sb.offsets)
+
     def _potential_mask(self, i: int, up: dict | None = None) -> torch.Tensor:
         """(N,) — nodes whose failure is the resolvable kind: all
         victim-independent filters pass, fit/ports fail (preemption.go:180
@@ -191,15 +274,7 @@ class PreemptionEvaluator:
             pa_sums=self.pa_sums,
             nominated_active=up.get("nom_active"),
         )
-        ok_independent = static[0]
-        for part in (spread_ok, pa_ok):
-            if part is not None:
-                ok_independent = ok_independent & part[0]
-        failed_dep = torch.zeros_like(ok_independent)
-        for part in (fit, ports_ok):
-            if part is not None:
-                failed_dep = failed_dep | ~part[0]
-        return ok_independent & failed_dep
+        return _potential_of(static, fit, ports_ok, spread_ok, pa_ok)
 
     def _potential_arrays(self) -> dict:
         arrays = dict(
@@ -271,6 +346,26 @@ class PreemptionEvaluator:
             charged_req=req, charged_cnt=cnt, charged_ports=ports,
             valid=v.valid, pdb_allowed=self.pdb_allowed, wants_conf=wants_conf,
         )
+        if self._sharded is not None:
+            node_idx, victims, ok_mask, n_pdb = self._dry_run_sharded(i, pod, arrays)
+            n = int(node_idx)
+            t1 = time.perf_counter()
+            self.calls += 1
+            self.spans["dry_run"] += t1 - t0
+            if extender_hook is not None:
+                okh = ok_mask.cpu().numpy()
+                picked = self._pick_with_extenders(
+                    pod, victims.cpu().numpy() if okh.any() else None, okh,
+                    n_pdb.cpu().numpy(), extender_hook)
+                if picked is None:
+                    return PreemptionResult(
+                        "unschedulable",
+                        message="preemption: no candidate survived extenders")
+                n, vrow = picked
+            elif n >= 0:
+                g = max(k for k, off in enumerate(self._sharded.offsets) if off <= n)
+                vrow = victims.pieces[g][n - self._sharded.offsets[g]].cpu().numpy()
+            return self._result(i, n, vrow if n >= 0 else None)
         up = self._upload(arrays)
         vd = self._victims_dev
         t1 = time.perf_counter()
@@ -331,7 +426,13 @@ class PreemptionEvaluator:
                     message="preemption: no candidate survived extenders",
                 )
             n, vrow = picked
-        elif n < 0:
+        return self._result(i, n, vrow)
+
+    def _result(self, i: int, n: int, vrow) -> PreemptionResult:
+        """The outcome of pod ``i``'s dry run: node ``n`` (-1 = none) and
+        its victims row, committed to the host state."""
+        v = self.victims
+        if n < 0:
             return PreemptionResult(
                 "unschedulable",
                 message="preemption: 0/%d nodes are available"
@@ -474,6 +575,30 @@ def extender_chain_hook(extenders):
         }
 
     return hook
+
+
+def _potential_of(static, fit, ports_ok, spread_ok, pa_ok) -> torch.Tensor:
+    """The potential mask of a one-pod view's filter components: every
+    victim-independent filter passes and a victim-dependent one fails."""
+    ok_independent = static[0]
+    for part in (spread_ok, pa_ok):
+        if part is not None:
+            ok_independent = ok_independent & part[0]
+    failed_dep = torch.zeros_like(ok_independent)
+    for part in (fit, ports_ok):
+        if part is not None:
+            failed_dep = failed_dep | ~part[0]
+    return ok_independent & failed_dep
+
+
+def _node_leaf(b, name: str):
+    """Node leaf ``name`` of a batch: the tensor, or a mesh's ShardedTensor
+    of its shards' rows."""
+    if hasattr(b, "shards"):
+        from ..parallel.mesh import ShardedTensor
+
+        return ShardedTensor([getattr(s, name) for s in b.shards])
+    return getattr(b, name)
 
 
 def _one_pod_view(b: rt.DeviceBatch, i: int) -> rt.DeviceBatch:

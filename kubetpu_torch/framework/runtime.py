@@ -41,6 +41,7 @@ import torch
 from ..api import types as t
 from ..ops import filters as F
 from ..ops import podaffinity as PA
+from ..ops.reduce import run_local
 from ..ops import scores as S
 from ..ops import spread as SP
 from ..state import encoder as enc
@@ -360,6 +361,14 @@ class StaleStaticEncode(Exception):
     changed). Callers fall back to a full re-encode."""
 
 
+def on_device(dev: torch.device):
+    """Make ``dev`` the current CUDA device while a shard's kernels launch
+    (a launch goes to a stream of the current device); no-op on the CPU."""
+    import contextlib
+
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
 def scatter_node_rows_plain(
     nodes: DeviceNodeState, idx: torch.Tensor, updates: Sequence[torch.Tensor]
 ) -> None:
@@ -390,10 +399,43 @@ def scatter_node_rows(
     scatter_rows(nodes, idx, updates)
 
 
+class _ShardBlock:
+    """Shard g of a sharded resident block, as ``device_batch_from_numpy``
+    reads a resident block: its rows and its scatter."""
+
+    def __init__(self, owner: "ResidentNodeState", g: int) -> None:
+        self.owner, self.g = owner, g
+
+    @property
+    def device(self) -> DeviceNodeState:
+        return self.owner.shards[self.g]
+
+    def scatter(self, tensors: Mapping[str, torch.Tensor]) -> None:
+        _scatter_delta(self.device, tensors)
+
+
+def _scatter_delta(nodes: DeviceNodeState, tensors: Mapping[str, torch.Tensor]) -> None:
+    """Write a shipped delta (``DELTA_FIELDS`` views on the block's device)
+    into ``nodes`` in place: kernel B5."""
+    scatter_node_rows(
+        nodes, tensors[DELTA_FIELDS[0]], tuple(tensors[n] for n in DELTA_FIELDS[1:]))
+
+
 class ResidentNodeState:
     """Owner of the persistent device-resident node block: the reference's
-    single-device ``ResidentNodeState`` (the routed, sharded scatter of a
-    node-axis mesh is ROADMAP Queue A item 12).
+    ``ResidentNodeState``.
+
+    ``mesh`` (a ``parallel.mesh.NodeMesh``): the block then lives sharded,
+    shard g's ``NC / G`` contiguous rows on ``mesh.devices[g]``
+    (``shards``), as the reference's ``:311-341`` places them. A full
+    upload places each shard's rows on its own device only, and a delta is
+    ROUTED (kernel B5m, the reference's ``_make_routed_scatter``): the
+    dirty rows are grouped by owning shard on the host, each shard's group
+    padded to a common bucket with shard-local indices (pads index one past
+    the shard's rows and are dropped), and each shard's block rides that
+    shard's own copy and is scattered there by ``scatter_rows``. A shard
+    no dirty row falls in receives nothing. ``last_upload_bytes_per_shard``
+    and ``last_rows_per_shard`` account each shard's share.
 
     ``refresh(nt, num_nodes)`` brings the device block up to date with the
     host ``NodeTensors``: a full upload when the block doesn't exist yet or
@@ -416,34 +458,63 @@ class ResidentNodeState:
 
     ``device``: where the block lives (the scheduler's device)."""
 
-    def __init__(self, device="cuda") -> None:
-        self.where = torch.device(device)
+    def __init__(self, device="cuda", mesh=None) -> None:
+        self.mesh = mesh
+        self.where = torch.device(device) if mesh is None else mesh.devices[0]
         self.device: DeviceNodeState | None = None
+        self.shards: list[DeviceNodeState] | None = None
         self._nt_token: object | None = None
         self._num_nodes = -1
         self.last_upload_bytes = 0
+        size = 1 if mesh is None else mesh.size
+        self.last_upload_bytes_per_shard: list[int] = [0] * size
+        self.last_rows_per_shard: list[int] = [0] * size
 
     @property
     def nbytes(self) -> int:
+        if self.shards is not None:
+            return sum(_node_block_nbytes(b) for b in self.shards)
         return _node_block_nbytes(self.device) if self.device is not None else 0
+
+    def block(self, g: int) -> _ShardBlock:
+        """Shard g of the sharded block (``device_batch_from_numpy``'s
+        ``resident``)."""
+        return _ShardBlock(self, g)
 
     def _full_upload(self, nt: "enc.NodeTensors", num_nodes: int) -> None:
         NC = nt.alloc.shape[0]
         node_valid = np.zeros(NC, dtype=bool)
         node_valid[:num_nodes] = True
-        dev = DeviceNodeState(**upload_packed(dict(
+        rows = dict(
             alloc=nt.alloc,
             requested=nt.requested,
             nonzero_requested=nt.nonzero_requested,
             pod_count=nt.pod_count,
             allowed_pods=nt.allowed_pods,
             node_valid=node_valid,
-        ), self.where))
-        self.device = dev
+        )
+        if self.mesh is None:
+            dev = DeviceNodeState(**upload_packed(rows, self.where))
+            self.device = dev
+            self.last_upload_bytes = _node_block_nbytes(dev)
+            self.last_upload_bytes_per_shard = [self.last_upload_bytes]
+            self.last_rows_per_shard = [NC]
+        else:
+            size = self.mesh.size
+            if NC % size:
+                raise ValueError(f"{NC} padded nodes do not split into {size} shards")
+            per = NC // size
+            self.shards = [
+                DeviceNodeState(**upload_packed(
+                    {k: v[g * per:(g + 1) * per] for k, v in rows.items()}, d))
+                for g, d in enumerate(self.mesh.devices)
+            ]
+            self.last_upload_bytes_per_shard = [_node_block_nbytes(b) for b in self.shards]
+            self.last_upload_bytes = sum(self.last_upload_bytes_per_shard)
+            self.last_rows_per_shard = [per] * size
         self._nt_token = nt
         self._num_nodes = num_nodes
         nt.pending_device_rows = set()   # start delta accumulation
-        self.last_upload_bytes = _node_block_nbytes(dev)
 
     def _reshard_rows(
         self, nt: "enc.NodeTensors", num_nodes: int
@@ -470,14 +541,21 @@ class ResidentNodeState:
         rows.update(range(lo, hi))   # validity flips on the boundary
         return sorted(rows)
 
+    def _nothing_shipped(self) -> None:
+        self.last_upload_bytes = 0
+        self.last_upload_bytes_per_shard = [0] * len(self.last_upload_bytes_per_shard)
+        self.last_rows_per_shard = [0] * len(self.last_rows_per_shard)
+
     def refresh(
         self, nt: "enc.NodeTensors", num_nodes: int
-    ) -> "dict[str, np.ndarray] | None":
+    ) -> "dict[str, np.ndarray] | list | None":
         """Bring the block up to date with ``nt``. Returns None when that
         is done (a full upload, or nothing to ship), else the dirty rows'
-        delta (``DELTA_FIELDS``) that ``scatter`` must write once shipped."""
+        delta (``DELTA_FIELDS``) that ``scatter`` must write once shipped;
+        with a mesh, a list with each shard's routed delta (None for a
+        shard with no dirty row), each for that shard's block."""
         pending = nt.pending_device_rows
-        if self.device is None or self._nt_token is None:
+        if (self.device is None and self.shards is None) or self._nt_token is None:
             self._full_upload(nt, num_nodes)
             return None
         if self._nt_token is not nt:
@@ -501,14 +579,14 @@ class ResidentNodeState:
                 lo, hi = sorted((self._num_nodes, num_nodes))
                 rows_set.update(range(lo, hi))
             if not rows_set:
-                self.last_upload_bytes = 0
+                self._nothing_shipped()
                 return None
             rows = sorted(rows_set)
         nt.pending_device_rows = set()
         self._nt_token = nt
         if not rows:
             # reshard diff found nothing to ship (values identical)
-            self.last_upload_bytes = 0
+            self._nothing_shipped()
             self._num_nodes = num_nodes
             return None
         if 2 * len(rows) >= num_nodes:
@@ -516,7 +594,58 @@ class ResidentNodeState:
             self._full_upload(nt, num_nodes)
             return None
         self._num_nodes = num_nodes
-        return self._delta(nt, rows, num_nodes)
+        if self.mesh is not None:
+            routed = self._routed(nt, rows, num_nodes)
+            if routed is None:
+                self._full_upload(nt, num_nodes)
+            return routed
+        delta = self._delta(nt, rows, num_nodes)
+        self.last_upload_bytes_per_shard = [self.last_upload_bytes]
+        self.last_rows_per_shard = [len(rows)]
+        return delta
+
+    def _routed(self, nt: "enc.NodeTensors", rows: list, num_nodes: int) -> "list | None":
+        """Kernel B5m's host half: each shard's dirty rows as a
+        ``DELTA_FIELDS`` block of shard-local indices, every block padded
+        to one bucket (pads index the shard's row count and are dropped).
+        None when the buckets would reach the full row count (the caller
+        uploads whole: routing would not ship less)."""
+        size = self.mesh.size
+        NC = nt.alloc.shape[0]
+        per = NC // size
+        rows_arr = np.asarray(rows, dtype=np.int64)
+        shard_of = rows_arr // per
+        counts = np.bincount(shard_of, minlength=size)
+        bucket = enc.round_up(int(counts.max()), minimum=1)
+        if size * bucket >= NC:
+            return None
+        out: list = []
+        for g in range(size):
+            mine = rows_arr[shard_of == g]
+            if not len(mine):
+                out.append(None)
+                continue
+            idx = np.full(bucket, per, dtype=np.int32)
+            idx[: len(mine)] = mine - g * per
+
+            def deltas(a: np.ndarray) -> np.ndarray:
+                u = np.zeros((bucket,) + a.shape[1:], dtype=a.dtype)
+                u[: len(mine)] = a[mine]
+                return u
+
+            u_vd = np.zeros(bucket, dtype=bool)
+            u_vd[: len(mine)] = mine < num_nodes
+            out.append(dict(zip(DELTA_FIELDS, (
+                idx, deltas(nt.alloc), deltas(nt.requested),
+                deltas(nt.nonzero_requested), deltas(nt.pod_count),
+                deltas(nt.allowed_pods), u_vd,
+            ))))
+        self.last_upload_bytes_per_shard = [
+            0 if d is None else sum(int(a.nbytes) for a in d.values()) for d in out
+        ]
+        self.last_upload_bytes = sum(self.last_upload_bytes_per_shard)
+        self.last_rows_per_shard = counts.tolist()
+        return out
 
     def _delta(
         self, nt: "enc.NodeTensors", rows: list, num_nodes: int
@@ -550,17 +679,14 @@ class ResidentNodeState:
     def scatter(self, tensors: Mapping[str, torch.Tensor]) -> None:
         """Write a shipped delta (``DELTA_FIELDS`` views on the block's
         device) into the block in place: kernel B5."""
-        scatter_node_rows(
-            self.device, tensors[DELTA_FIELDS[0]],
-            tuple(tensors[n] for n in DELTA_FIELDS[1:]),
-        )
+        _scatter_delta(self.device, tensors)
 
 
 class PackingSolverState:
     """Device-resident dual-variable block for the packing engine: the
     warm-start twin of :class:`ResidentNodeState`. Copy of the reference's
     ``PackingSolverState`` (``kubetpu/framework/runtime.py``) without the
-    node-axis sharding, which is ROADMAP Queue A item 12.
+    node-axis sharding, which is ROADMAP Queue A item 12's remaining part.
 
     Holds one ``(NC,)`` float32 dual-price vector λ per padded node
     capacity (each bucket size keeps its own prices). ``duals(n)`` pops the
@@ -580,8 +706,8 @@ class PackingSolverState:
     def bind_mesh(self, mesh) -> None:
         if mesh not in (None, "off"):
             raise NotImplementedError(
-                "a sharded packing dual block is ROADMAP Queue A item 12 "
-                "(kernel B15), not yet ported"
+                "a sharded packing dual block is ROADMAP Queue A item 12's "
+                "remaining part (kernel B15's sharded_packing), not yet ported"
             )
 
     def duals(self, n: int) -> torch.Tensor:
@@ -741,9 +867,13 @@ def encode_batch(
     track_changes: bool = True,
     device="cuda",
     topology: str = "off",
+    mesh=None,
 ) -> EncodedBatch:
     """Snapshot + pending pods → padded device batch on ``device``: stage 1
-    (``encode_batch_static``) then stage 2 (``finalize_batch``).
+    (``encode_batch_static``) then stage 2 (``finalize_batch``). ``mesh``
+    (a ``parallel.mesh.NodeMesh``; the resident block's when None): the
+    padded node count is a multiple of the shard count and the batch is a
+    ``parallel.mesh.ShardedBatch`` placed by the sharding rules.
 
     Padding buckets P and N (``encoder.round_up``): padded nodes have zero
     allocatable and ``allowed_pods``=0 (infeasible for every pod), padded
@@ -759,13 +889,17 @@ def encode_batch(
     reservations the fit and port filters charge. ``topology``: ``"on"``,
     ``"off"`` or ``"auto"`` — an active mode on a cluster with a slice or
     rack label attaches the ``topology`` leaf (``TopologyDevice``)."""
+    if mesh is None and resident is not None:
+        mesh = resident.mesh
     sb = encode_batch_static(
         snapshot, pods, profile, pad=pad, resource_names=resource_names,
         nominated=nominated, prev_nt=prev_nt, cache=cache,
         track_changes=track_changes, topology=topology,
+        pad_multiple=1 if mesh is None else mesh.size,
     )
     return finalize_batch(
-        sb, snapshot, nominated=nominated, resident=resident, device=device
+        sb, snapshot, nominated=nominated, resident=resident, device=device,
+        mesh=mesh,
     )
 
 
@@ -780,12 +914,15 @@ def encode_batch_static(
     cache=None,
     track_changes: bool = True,
     topology: str = "off",
+    pad_multiple: int = 1,
 ) -> StaticBatch:
     """Stage 1: the assume-independent host encode (see StaticBatch), all
     numpy, no device call. ``track_changes=False`` (serial loop) skips the
-    pipeline-only staleness diff in the incremental snapshot encode."""
+    pipeline-only staleness diff in the incremental snapshot encode.
+    ``pad_multiple``: the padded node count is rounded up to a multiple of
+    it (a mesh's shard count, ``encoder.shard_aligned``)."""
     N, P = snapshot.num_nodes(), len(pods)
-    NP = enc.round_up(N) if pad else N
+    NP = enc.shard_aligned(enc.round_up(N), pad_multiple) if pad else N
     PP = enc.round_up(P) if pad else P
     folded: frozenset = frozenset()
     if resource_names is None:
@@ -985,8 +1122,12 @@ def finalize_batch(
     nominated: Sequence = (),
     resident: "ResidentNodeState | None" = None,
     device="cuda",
+    mesh=None,
 ) -> EncodedBatch:
-    """Stage 2: patch the assume-dependent slice onto a StaticBatch and
+    """Stage 2 (under ``mesh``, the resident block's when None, the batch
+    is a ``parallel.mesh.ShardedBatch``: each shard's pod leaves, its rows
+    of the node-axis leaves and its routed delta ride one copy to its
+    device): patch the assume-dependent slice onto a StaticBatch and
     build the device batch — spread counts and affinity sums encoded from
     the CURRENT NodeInfo state (through the cache's template groups when
     stage 1 had a cache), in-use ports recomputed when node rows moved
@@ -1104,9 +1245,13 @@ def finalize_batch(
         if tt.labeled:
             topo = tt
 
+    if mesh is None and resident is not None:
+        mesh = resident.mesh
     t_up = time.perf_counter()
     if resident is not None:
-        if torch.device(device) != resident.where:
+        if mesh is not resident.mesh:
+            raise ValueError("finalize_batch: the mesh is not the resident block's")
+        if mesh is None and torch.device(device) != resident.where:
             raise ValueError(
                 f"finalize_batch: device {device} but the resident block "
                 f"lives on {resident.where}"
@@ -1119,7 +1264,7 @@ def finalize_batch(
         resident_bytes = 0
     has_na = sb.want_na and pb.node_affinity_raw is not None
     has_tt = sb.want_tt and pb.taint_prefer_raw is not None
-    dev = device_batch_from_numpy(dict(
+    leaves = dict(
         alloc=nt.alloc,
         requested=nt.requested,
         nonzero_requested=nt.nonzero_requested,
@@ -1156,10 +1301,33 @@ def finalize_batch(
             sb.dra_score_sig if sb.dra_score_raw is not None else None
         ),
         topology=topo,
-    ), device, resident=resident, delta=delta)
+    )
+    if mesh is None:
+        dev = device_batch_from_numpy(leaves, device, resident=resident, delta=delta)
+        total_bytes = batch_nbytes(dev)
+        node_bytes = _node_block_nbytes(dev.nodes)
+    else:
+        from ..parallel.mesh import ShardedBatch, split_leaves
+
+        size = mesh.size
+        shards = []
+        for g in range(size):
+            # the routed scatter launches on shard g's card
+            with on_device(mesh.devices[g]):
+                shards.append(device_batch_from_numpy(
+                    split_leaves(leaves, g, size, NC), mesh.devices[g],
+                    resident=None if resident is None else resident.block(g),
+                    delta=None if delta is None else delta[g],
+                ))
+        shards = tuple(shards)
+        dev = ShardedBatch(
+            shards, tuple(g * (NC // size) for g in range(size)), mesh,
+            nominated_node=shards[0].nominated_node if nom_node is None
+            else torch.from_numpy(nom_node).to(mesh.devices[0]),
+        )
+        total_bytes = sum(batch_nbytes(x) for x in shards)
+        node_bytes = sum(_node_block_nbytes(x.nodes) for x in shards)
     upload_s = time.perf_counter() - t_up
-    total_bytes = batch_nbytes(dev)
-    node_bytes = _node_block_nbytes(dev.nodes)
     if resident is None:
         node_upload = node_bytes
     return EncodedBatch(
@@ -1250,8 +1418,15 @@ def batch_leaves(b: DeviceBatch) -> dict[str, "torch.Tensor | None"]:
 def masked_normalize(raw: torch.Tensor, mask: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """DefaultNormalizeScore over feasible nodes only (the reference's
     nodeScoreList contains only nodes that passed Filter)."""
+    return run_local(masked_normalize_steps(raw, mask, reverse))
+
+
+def masked_normalize_steps(raw: torch.Tensor, mask: torch.Tensor, reverse: bool = False):
+    """``masked_normalize`` in steps form (``ops.reduce``): the masked row
+    maximum is its reduction over nodes."""
     masked = torch.where(mask, raw, 0)
-    return S.default_normalize(masked, reverse=reverse)
+    mx = yield ("max", torch.amax(masked, dim=-1, keepdim=True))
+    return S.default_normalize(masked, reverse=reverse, mx=mx)
 
 
 def _rows(a: torch.Tensor, sig: torch.Tensor | None) -> torch.Tensor:
@@ -1269,7 +1444,26 @@ def filter_components(
     pa_sums: torch.Tensor | None = None,
     nominated_active: torch.Tensor | None = None,
 ):
-    """Per-plugin Filter masks, un-ANDed — the split preemption needs:
+    """``filter_components_steps`` on one device."""
+    return run_local(filter_components_steps(
+        b, p, requested=requested, pod_count=pod_count, node_ports=node_ports,
+        spread_counts=spread_counts, pa_sums=pa_sums,
+        nominated_active=nominated_active,
+    ))
+
+
+def filter_components_steps(
+    b: DeviceBatch,
+    p: ScoreParams,
+    requested: torch.Tensor | None = None,
+    pod_count: torch.Tensor | None = None,
+    node_ports: torch.Tensor | None = None,
+    spread_counts: torch.Tensor | None = None,
+    pa_sums: torch.Tensor | None = None,
+    nominated_active: torch.Tensor | None = None,
+):
+    """In steps form (``ops.reduce``; the spread filter's domain sums are
+    its one reduction over nodes). Per-plugin Filter masks, un-ANDed — the split preemption needs:
     failures of ``static`` / ``spread_ok`` / ``pa_ok`` are unresolvable for
     the victim search, while ``fit`` / ``ports_ok`` failures are the
     resolvable kind (preemption.go:180 NodesForStatusCode). Returns
@@ -1342,7 +1536,7 @@ def filter_components(
     if sp is not None:
         sp_counts = sp.node_count if spread_counts is None else spread_counts
         if p.filter_spread and sp.has_hard:
-            spread_ok = SP.spread_filter_pod(
+            spread_ok = yield from SP.spread_filter_steps(
                 sp, sp_counts, sp.sig_idx, sp.action, sp.max_skew,
                 sp.min_domains, sp.self_match,
             )
@@ -1369,7 +1563,30 @@ def feasible_and_scores(
     pa_sums: torch.Tensor | None = None,
     nominated_active: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The full Filter + Score composition for a batch against ONE snapshot
+    """``feasible_and_scores_steps`` on one device."""
+    return run_local(feasible_and_scores_steps(
+        b, p, requested=requested, nonzero_requested=nonzero_requested,
+        pod_count=pod_count, node_ports=node_ports,
+        spread_counts=spread_counts, pa_sums=pa_sums,
+        nominated_active=nominated_active,
+    ))
+
+
+def feasible_and_scores_steps(
+    b: DeviceBatch,
+    p: ScoreParams,
+    requested: torch.Tensor | None = None,
+    nonzero_requested: torch.Tensor | None = None,
+    pod_count: torch.Tensor | None = None,
+    node_ports: torch.Tensor | None = None,
+    spread_counts: torch.Tensor | None = None,
+    pa_sums: torch.Tensor | None = None,
+    nominated_active: torch.Tensor | None = None,
+):
+    """In steps form (``ops.reduce``): its reductions over nodes are the
+    spread domain sums, the normalize maxima (node affinity, taint, DRA),
+    the spread score's scored count, domain bitmaps and min / max, and the
+    affinity score's min / max. The full Filter + Score composition for a batch against ONE snapshot
     state. Returns ``(mask (P,N) bool, total (P,N) int64)``.
 
     Optional ``requested``/``nonzero_requested``/``pod_count``/``node_ports``,
@@ -1386,7 +1603,7 @@ def feasible_and_scores(
 
     # --- Filter ----------------------------------------------------------
     static, fit, ports_ok, spread_ok, pa_ok, sp_counts, pa_state = (
-        filter_components(
+        yield from filter_components_steps(
             b, p, requested=requested, pod_count=pod_count,
             node_ports=node_ports, spread_counts=spread_counts,
             pa_sums=pa_sums, nominated_active=nominated_active,
@@ -1420,23 +1637,25 @@ def feasible_and_scores(
         total = total + p.w_balanced * raw
     if p.w_node_affinity and b.node_affinity_raw is not None:
         na_raw = _rows(b.node_affinity_raw, b.score_sig)
-        total = total + p.w_node_affinity * masked_normalize(na_raw, mask)
+        total = total + p.w_node_affinity * (
+            yield from masked_normalize_steps(na_raw, mask))
     if p.w_taint and b.taint_prefer_raw is not None:
         tt_raw = _rows(b.taint_prefer_raw, b.score_sig)
-        total = total + p.w_taint * masked_normalize(tt_raw, mask, reverse=True)
+        total = total + p.w_taint * (
+            yield from masked_normalize_steps(tt_raw, mask, reverse=True))
     if p.w_image and b.image_sum_scores is not None:
         img = _rows(b.image_sum_scores, b.image_sig)
         total = total + p.w_image * S.image_locality_score(img, b.image_count)
     sp = b.spread
     if sp is not None and p.w_spread and sp.has_soft:
-        spread_sc = SP.spread_score_pod(
+        spread_sc = yield from SP.spread_score_steps(
             sp, sp_counts, sp.sig_idx, sp.action, sp.max_skew, sp.ignored,
             mask,
         )
         total = total + p.w_spread * spread_sc
     pa = b.podaffinity
     if pa is not None and p.w_interpod and pa.has_score_work:
-        pa_sc = PA.affinity_score_pod(
+        pa_sc = yield from PA.affinity_score_steps(
             pa, pa_state, pa.score_rows, pa.score_vals, mask
         )
         total = total + p.w_interpod * pa_sc
@@ -1444,7 +1663,7 @@ def feasible_and_scores(
         # DynamicResources prioritized-list score + DefaultNormalizeScore
         # (dynamicresources.go:1059 Score, :1138 NormalizeScore)
         dra_raw = _rows(b.dra_score_raw, b.dra_score_sig)
-        total = total + p.w_dra * masked_normalize(dra_raw, mask)
+        total = total + p.w_dra * (yield from masked_normalize_steps(dra_raw, mask))
     if b.extender_score is not None:
         # extender Prioritize, pre-scaled weight*MaxNodeScore/MaxExtenderPriority
         # (schedule_one.go:1015) — added after plugin normalization
@@ -1452,10 +1671,26 @@ def feasible_and_scores(
     return mask, total
 
 
-def filter_score_batch(b: DeviceBatch, params: ScoreParams):
+def filter_score_batch(b, params: ScoreParams):
     """One-shot batch Filter+Score (all pods vs. the same snapshot). On a
     CUDA batch this launches the hand-written ``filter_score`` kernel; on a
-    CPU batch it runs ``feasible_and_scores``."""
+    CPU batch it runs ``feasible_and_scores``. A node-sharded batch
+    (``parallel.mesh.ShardedBatch``) returns each shard's rows as
+    ``ShardedTensor``s, its shards reducing in lockstep
+    (``parallel.mesh.run_sharded``) on CPU shards and through the sharded
+    ``filter_score`` launches on CUDA ones."""
+    if hasattr(b, "shards"):
+        from ..parallel.mesh import ShardedTensor, run_sharded
+
+        if b.device.type == "cpu":
+            outs = run_sharded(
+                [feasible_and_scores_steps(s, params) for s in b.shards], b.mesh)
+        else:
+            from ..kernels import sharded_filter_score
+
+            outs = sharded_filter_score(b, params)
+        return (ShardedTensor([m for m, _ in outs], axis=1),
+                ShardedTensor([t_ for _, t_ in outs], axis=1))
     if b.device.type == "cpu":
         return feasible_and_scores(b, params)
     from ..kernels import filter_score

@@ -18,6 +18,16 @@ together, each into a shared library with a plain C interface that
 a build takes seconds. Outputs go to ``build/kubetpu_torch_kernels/`` under
 the repository root, keyed by a hash of the sources and flags.
 
+Under a node mesh (``parallel.mesh``) four more kernels run on the shards,
+each held to a plain version that reduces across the shards explicitly:
+K1 the sharded scan (``greedy_scan.cu``, exchanging partials inside the
+kernel through ``csrc/exchange.cuh``), K2 the sharded ``filter_score``
+passes and batched-round steps with ``shard_combine`` between them
+(``filter_score.cu``, ``batched_round.cu``), K3 the dry run's cross-shard
+pick (``dry_run_preemption.cu``) and K4 the exchange's argmax probe
+(``greedy_scan.cu``); ``scatter_rows`` runs on each shard's card for the
+routed delta (B5m).
+
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else, allocates its outputs with ``torch.empty``, launches on the
 current CUDA stream, raises if the launch was refused, and adds one to its
@@ -57,7 +67,7 @@ SOURCES = ("filter_score.cu", "greedy_scan.cu", "batched_round.cu", "scatter_row
 # the libraries that take the ScoreArgs struct (score_common.cuh)
 SCORE_ARGS_LIBS = ("filter_score", "greedy_scan", "batched_round", "explain_summary",
                    "filter_component_masks", "hypothesis_scan", "packing_round")
-HEADERS = ("score_common.cuh", "score_prelaunch.cuh", "scan_loop.cuh")
+HEADERS = ("score_common.cuh", "score_prelaunch.cuh", "scan_loop.cuh", "exchange.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kubetpu_torch_kernels"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -77,6 +87,8 @@ launch_counts = {
     "hypothesis_scan": 0, "hypothesis_rows": 0, "slice_epilogue": 0,
     "packing_start": 0, "packing_round": 0, "packing_end": 0, "packing_nodes": 0,
     "packing_log1p": 0,
+    # the node mesh's kernels (K1-K4): one count a shard's block launched
+    "sharded_scan": 0, "sharded_round": 0, "shard_pick": 0, "shard_argmax": 0,
 }
 
 # ctypes argument types of each library's entry point
@@ -95,6 +107,25 @@ _ARGTYPES = {
 }
 # the entry points a library has beside its own
 _MORE_ENTRIES = {
+    "filter_score": {
+        "kt_filter_score_shard": [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+        + [ctypes.c_int64, ctypes.c_void_p],
+    },
+    "batched_round": {
+        "kt_batched_round_shard": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 15
+        + [ctypes.c_int64, ctypes.c_void_p],
+        "kt_shard_combine": [ctypes.c_void_p] * 2,
+    },
+    "greedy_scan": {
+        "kt_sharded_scan": [ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_int] * 4
+        + [ctypes.c_int64, ctypes.c_void_p],
+        "kt_shard_argmax": [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int,
+                                                    ctypes.c_int64, ctypes.c_void_p],
+        "kt_enable_peer_access": [ctypes.c_int],
+    },
+    "dry_run_preemption": {
+        "kt_dry_run_shard_pick": [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 2,
+    },
     "hypothesis_scan": {
         "kt_hypothesis_rows": [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 12,
         "kt_slice_epilogue": [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int64]
@@ -194,6 +225,14 @@ def build() -> dict[str, ctypes.CDLL]:
                         f"{src}: sizeof({mirror.__name__}) is {size()} bytes, the "
                         f"ctypes mirror's {ctypes.sizeof(mirror)}: the two layouts differ"
                     )
+            for entry, struct in _STRUCT_SIZES.get(name, ()):
+                size = getattr(lib, entry)
+                size.argtypes = []
+                size.restype = ctypes.c_int64
+                if size() != ctypes.sizeof(struct):
+                    raise RuntimeError(
+                        f"{src}: {entry}() is {size()} bytes, the ctypes mirror "
+                        f"{struct.__name__}'s {ctypes.sizeof(struct)}: the layouts differ")
             libs[name] = lib
         _libs.update(libs)
         return _libs
@@ -266,6 +305,58 @@ class DryRunArgs(ctypes.Structure):
     ] + [
         (name, ctypes.c_int64) for name in ("pod_prio", "N", "K", "R", "Kp", "D")
     ]
+
+class Exchange(ctypes.Structure):
+    """Mirror of ``struct Exchange`` in csrc/exchange.cuh."""
+
+    _fields_ = [("slot", ctypes.c_void_p * 8), ("G", ctypes.c_int64),
+                ("words", ctypes.c_int64), ("epoch", ctypes.c_int64),
+                ("budget", ctypes.c_int64), ("error", ctypes.c_void_p)]
+
+
+class ScanShard(ctypes.Structure):
+    """Mirror of ``struct ScanShard`` in csrc/greedy_scan.cu."""
+
+    _fields_ = [("a", ScoreArgs)] + [
+        (name, ctypes.c_void_p) for name in (
+            "mask0", "base0", "touched", "assignments", "req", "nz", "pc", "ports",
+            "pa_sums", "row_total", "sp_counts", "ok_buf",
+        )
+    ] + [("offset", ctypes.c_int64), ("g", ctypes.c_int64)]
+
+
+class ArgmaxShard(ctypes.Structure):
+    """Mirror of ``struct ArgmaxShard`` in csrc/greedy_scan.cu."""
+
+    _fields_ = [("vals", ctypes.c_void_p), ("n", ctypes.c_int64),
+                ("offset", ctypes.c_int64), ("g", ctypes.c_int64),
+                ("out", ctypes.c_void_p)]
+
+
+class CombineArgs(ctypes.Structure):
+    """Mirror of ``struct CombineArgs`` in csrc/batched_round.cu."""
+
+    _fields_ = [("src", ctypes.c_void_p * 8), ("dst", ctypes.c_void_p * 8),
+                ("G", ctypes.c_int64), ("n", ctypes.c_int64), ("op", ctypes.c_int64),
+                ("elem", ctypes.c_int64)]
+
+
+class PickShard(ctypes.Structure):
+    """Mirror of ``struct PickShard`` in csrc/dry_run_preemption.cu."""
+
+    _fields_ = [("node_idx", ctypes.c_void_p), ("n_pdb", ctypes.c_void_p),
+                ("stats", ctypes.c_void_p), ("N", ctypes.c_int64),
+                ("offset", ctypes.c_int64)]
+
+
+# the structs whose compiled size each library reports beside its args
+_STRUCT_SIZES = {
+    "greedy_scan": (("kt_greedy_scan_shard_size", ScanShard),
+                    ("kt_greedy_scan_exchange_size", Exchange),
+                    ("kt_greedy_scan_argmax_size", ArgmaxShard)),
+    "dry_run_preemption": (("kt_dry_run_preemption_pick_size", PickShard),),
+    "batched_round": (("kt_batched_round_combine_size", CombineArgs),),
+}
 
 # dynamic shared memory a spread-scoring block takes at most: static and
 # dynamic shared memory together stay under the 48 KiB a launch gets
@@ -923,6 +1014,16 @@ def dry_run_preemption(pod_req, pod_prio, wants_conf, potential, alloc, requeste
     ``ops.preemption.dry_run_preemption_plain``: ``(node_idx () int32,
     victims (N, K) bool, ok (N,) bool, n_pdb (N,) int64)``, fresh tensors.
     ``pod_prio`` is an int (or a one-element tensor)."""
+    return _dry_run(pod_req, pod_prio, wants_conf, potential, alloc, requested, pod_count,
+                    allowed, port_counts, v_valid, v_prio, v_start, v_req, v_ports, v_pdb,
+                    pdb_allowed)[:4]
+
+
+def _dry_run(pod_req, pod_prio, wants_conf, potential, alloc, requested,
+             pod_count, allowed, port_counts, v_valid, v_prio, v_start,
+             v_req, v_ports, v_pdb, pdb_allowed):
+    """``dry_run_preemption``, also returning its (4, N) per-node stats
+    (max priority, summed priority, victims, earliest start)."""
     dev = potential.device
     if dev.type != "cuda":
         raise ValueError(f"dry_run_preemption: the kernel takes CUDA tensors, got {dev}")
@@ -970,7 +1071,7 @@ def dry_run_preemption(pod_req, pod_prio, wants_conf, potential, alloc, requeste
     code = lib.kt_dry_run_preemption(ctypes.byref(a), stream)
     _raise_on(lib, "dry_run_preemption", code)
     launch_counts["dry_run_preemption"] += 1
-    return node_idx, victims, ok, n_pdb
+    return node_idx, victims, ok, n_pdb, stats
 
 
 def _component_flags(b: rt.DeviceBatch, p: rt.ScoreParams) -> list[bool]:
@@ -1261,3 +1362,490 @@ def packing_log1p(k: torch.Tensor):
     _raise_on(lib, "packing_round", code, "packing_log1p")
     launch_counts["packing_log1p"] += 1
     return ours, cuda
+
+
+# ---------------------------------------------------------------------------
+# the node mesh (parallel.mesh): kernels K1 (the sharded scan), K3 (the dry
+# run's cross-shard pick) and K4 (the exchange's argmax probe)
+# ---------------------------------------------------------------------------
+
+# clock64 cycles an exchange wait may take before the kernel gives up
+# (about 8.7 s at the H100's 1.98 GHz): a lost peer fails the launch
+EXCHANGE_BUDGET = 1 << 34
+
+
+on_device = rt.on_device
+
+
+class _MeshExchange:
+    """The exchange buffers of one mesh: a slot a shard on its device
+    (sequence word, two payloads), an error word a card, and the launch
+    epoch. Slots grow to the largest payload asked for and are zeroed only
+    when allocated: the epoch makes older sequence words stale."""
+
+    def __init__(self, mesh) -> None:
+        self.mesh = mesh
+        self.words = 0
+        self.slots: list[torch.Tensor] = []
+        self.errors = {d: torch.zeros(1, dtype=torch.int32, device=d) for d in mesh.cards()}
+        self.epoch = 0
+
+    def prepare(self, words: int) -> None:
+        """Room for ``words`` payload words, and a new epoch."""
+        if words > self.words:
+            self.words = max(words, 2 * self.words, 64)
+            self.slots = [torch.zeros(16 + 2 * self.words, dtype=torch.int64, device=d)
+                          for d in self.mesh.devices]
+        self.epoch += 1
+
+    def args(self, card: torch.device) -> Exchange:
+        x = Exchange()
+        for g, t in enumerate(self.slots):
+            x.slot[g] = t.data_ptr()
+        x.G = len(self.slots)
+        x.words = self.words
+        x.epoch = self.epoch
+        x.budget = EXCHANGE_BUDGET
+        x.error = self.errors[card].data_ptr()
+        return x
+
+    def check(self, what: str) -> None:
+        """Wait for every card and raise if any exchange timed out."""
+        for card, err in self.errors.items():
+            if int(err.item()):
+                err.zero_()
+                raise RuntimeError(
+                    f"{what}: a cross-shard exchange on {card} waited past its budget "
+                    "(a peer shard did not arrive)")
+
+
+_exchanges: dict[int, _MeshExchange] = {}
+_peers_on: set = set()
+
+
+def _mesh_exchange(mesh) -> _MeshExchange:
+    """The mesh's exchange, its cards' peer access enabled (each pair was
+    checked when the mesh was made; enabling is the kernel library's)."""
+    if len(mesh.devices) > 8:
+        raise ValueError(f"a node mesh of {len(mesh.devices)} shards: the exchange takes 8")
+    lib = build()["greedy_scan"]
+    cards = mesh.cards()
+    for a in cards:
+        for b in cards:
+            if a != b and (a, b) not in _peers_on:
+                with on_device(a):
+                    _raise_on(lib, "greedy_scan", lib.kt_enable_peer_access(b.index),
+                              f"peer access {a} -> {b}")
+                _peers_on.add((a, b))
+    ex = _exchanges.get(id(mesh))
+    if ex is None or ex.mesh is not mesh:
+        ex = _exchanges[id(mesh)] = _MeshExchange(mesh)
+    return ex
+
+
+def _launch_shards(mesh, entry: str, structs, what: str, *extra, smem: int | None = None):
+    """Launch a sharded kernel over the mesh: one cooperative launch of G
+    blocks when every shard is on one card, else one block a card on that
+    card's current stream. ``structs`` is the ctypes array of the shards'
+    entries, handed to the entry point in host memory (it passes them as
+    the kernel's parameter); ``extra`` the entry point's arguments after
+    the cooperative flag. ``what`` names the kernel, and its launch count
+    grows by one a launch."""
+    lib = build()["greedy_scan"]
+    ex = _mesh_exchange(mesh)
+    cards = mesh.cards()
+    G = len(structs)
+    launches = ([(cards[0], ctypes.addressof(structs), 1)] if len(cards) == 1 else
+                [(dev, ctypes.addressof(structs[g]), 0) for g, dev in enumerate(mesh.devices)])
+    for dev, ptr, cooperative in launches:
+        x = ex.args(dev)
+        args = [ptr, ctypes.byref(x), G, cooperative, *extra]
+        if smem is not None:
+            args.append(smem)
+        args.append(torch.cuda.current_stream(dev).cuda_stream)
+        with on_device(dev):
+            _raise_on(lib, "greedy_scan", getattr(lib, entry)(*args), what)
+        launch_counts[what] += 1
+
+
+def _words_for(b: rt.DeviceBatch) -> int:
+    """The scan's largest exchange payload in int64 words: the normalize
+    maxima, the pick with the chosen node's domains, a spread-scored pod's
+    count and bitmaps, the domain sums at the start."""
+    words = 7
+    pa, sp = b.podaffinity, b.spread
+    ra = 0 if pa is None else pa.base_sums.shape[0]
+    s = 0 if sp is None else sp.domain_present.shape[0]
+    words = max(words, 2 + ra + s)
+    if sp is not None:
+        C = sp.sig_idx.shape[1]
+        D = sp.domain_present.shape[1]
+        words = max(words, 1 + C * ((D + 31) // 32), s * (D + 1))
+    return words
+
+
+def sharded_greedy_scan(sb, p: rt.ScoreParams):
+    """Kernel K1, the greedy engine over a node-sharded batch
+    (``parallel.mesh.ShardedBatch`` on CUDA devices): each shard's
+    ``filter_score`` on its rows, then the sharded ``greedy_scan``, G
+    blocks exchanging at every reduction over nodes. Returns
+    ``(assignments (P,) int32 global, final_state)``, the node-axis slots
+    as ``parallel.mesh.ShardedTensor``s, equal to
+    ``assign.greedy.greedy_assign_sharded_plain(sb, p)`` and to the
+    unsharded engine on the whole batch."""
+    from ..parallel.mesh import ShardedTensor
+
+    mesh = sb.mesh
+    G = len(sb.shards)
+    structs = (ScanShard * G)()
+    keep, outs = [], []   # the shards' inputs live until the scan is checked
+    b0 = sb.shards[0]
+    words = 7
+    for g, b in enumerate(sb.shards):
+        dev = b.alloc.device
+        with on_device(dev):
+            nom_active = (
+                None if b.nominated_pod_idx is None
+                else torch.ones((b.nominated_pod_idx.shape[0],), dtype=torch.bool,
+                                device=dev))
+            mask0, base0, _ = _filter_score(b, p, want_total=False, dynamic=False,
+                                            nom_active=nom_active)
+            a, kp = _score_args(b, p, "sharded_greedy_scan", bits_blocks=1,
+                                nom_active=nom_active)
+            out = dict(
+                assignments=torch.empty((a.P,), dtype=torch.int32, device=dev),
+                req=torch.empty_like(b.requested), nz=torch.empty_like(b.nonzero_requested),
+                pc=torch.empty_like(b.pod_count), ports=torch.empty_like(b.node_ports),
+                touched=torch.empty((a.N,), dtype=torch.uint8, device=dev),
+                pa_sums=None if b.podaffinity is None
+                else torch.empty_like(b.podaffinity.base_sums),
+                row_total=None if b.podaffinity is None else torch.empty(
+                    (b.podaffinity.base_sums.shape[0],), dtype=torch.int64, device=dev),
+                sp_counts=None if b.spread is None else torch.empty_like(b.spread.node_count),
+                ok_buf=None if b.spread is None
+                else torch.empty((a.N,), dtype=torch.uint8, device=dev),
+                nom_active=nom_active,
+            )
+        st = structs[g]
+        st.a = a
+        st.mask0, st.base0 = mask0.data_ptr(), base0.data_ptr()
+        for name in ("touched", "assignments", "req", "nz", "pc", "ports", "pa_sums",
+                     "row_total", "sp_counts", "ok_buf"):
+            setattr(st, name, _ptr(out[name]))
+        st.offset, st.g = sb.offsets[g], g
+        keep += [mask0, base0, kp]
+        outs.append(out)
+        words = max(words, _words_for(b))
+    _mesh_exchange(mesh).prepare(words)
+    _launch_shards(
+        mesh, "kt_sharded_scan", structs, "sharded_scan",
+        int(b0.podaffinity is not None), int(b0.spread is not None),
+        int(b0.dra_score_raw is not None and p.w_dra != 0), smem=_smem(b0))
+    _mesh_exchange(mesh).check("sharded_scan")
+    del keep
+    return outs[0]["assignments"], (
+        ShardedTensor([o["req"] for o in outs]), ShardedTensor([o["nz"] for o in outs]),
+        ShardedTensor([o["pc"] for o in outs]), ShardedTensor([o["ports"] for o in outs]),
+        None if b0.spread is None else ShardedTensor([o["sp_counts"] for o in outs], axis=1),
+        outs[0]["pa_sums"], outs[0]["nom_active"],
+    )
+
+
+def shard_argmax(pieces, mesh, reps: int = 1) -> int:
+    """Kernel K4: the first argmax of a node-sharded int64 vector (piece g
+    on ``mesh.devices[g]``) through the scan's exchange, ``reps`` exchanges
+    of the same pick (to time one round trip). Returns the global index."""
+    G = len(pieces)
+    if reps < 1:
+        raise ValueError("shard_argmax: reps >= 1")
+    structs = (ArgmaxShard * G)()
+    outs = []
+    off = 0
+    for g, x in enumerate(pieces):
+        dev = mesh.devices[g]
+        _check(f"pieces[{g}]", x, torch.int64, (x.shape[0],), dev)
+        out = torch.empty((), dtype=torch.int64, device=dev)
+        outs.append(out)
+        structs[g].vals, structs[g].n = x.data_ptr(), x.shape[0]
+        structs[g].offset, structs[g].g, structs[g].out = off, g, out.data_ptr()
+        off += x.shape[0]
+    ex = _mesh_exchange(mesh)
+    ex.prepare(2)
+    _launch_shards(mesh, "kt_shard_argmax", structs, "shard_argmax", reps)
+    ex.check("shard_argmax")
+    return int(outs[0].item())
+
+
+def sharded_dry_run(shard_args, offsets):
+    """Kernel K3 after kernel B9 on each shard: every shard's dry run on
+    its rows (on its card's stream), then one warp on the first shard's
+    card reduces the shards' best nodes by pick_node's order with -global
+    index, reading the other cards' results through peer pointers once
+    their streams are done. Returns ``(node_idx () int32 global, victims,
+    ok, n_pdb)``, the last three ``parallel.mesh.ShardedTensor``s; equal to
+    ``ops.preemption.dry_run_preemption_sharded``'s plain reduction."""
+    from ..parallel.mesh import ShardedTensor
+
+    G = len(shard_args)
+    structs = (PickShard * G)()
+    outs, events = [], []
+    for g, args in enumerate(shard_args):
+        dev = args[3].device
+        with on_device(dev):
+            node_idx, victims, ok, n_pdb, stats = _dry_run(*args)
+            ev = torch.cuda.Event()
+            ev.record()
+        events.append(ev)
+        outs.append((node_idx, victims, ok, n_pdb, stats))
+        st = structs[g]
+        st.node_idx, st.n_pdb, st.stats = node_idx.data_ptr(), n_pdb.data_ptr(), stats.data_ptr()
+        st.N, st.offset = victims.shape[0], offsets[g]
+    home = shard_args[0][3].device
+    lib = build()["dry_run_preemption"]
+    with on_device(home):
+        stream = torch.cuda.current_stream(home)
+        for ev in events[1:]:
+            stream.wait_event(ev)
+        node = torch.empty((), dtype=torch.int32, device=home)
+        code = lib.kt_dry_run_shard_pick(ctypes.byref(structs), G, node.data_ptr(),
+                                         stream.cuda_stream)
+        _raise_on(lib, "dry_run_preemption", code, "shard_pick")
+        launch_counts["shard_pick"] += 1
+        # the shards' stats are read by the pick: they live until it ran
+        node.item()
+    return (node, ShardedTensor([o[1] for o in outs]), ShardedTensor([o[2] for o in outs]),
+            ShardedTensor([o[3] for o in outs]))
+
+
+# the combine's operations (csrc/batched_round.cu shard_combine_kernel)
+MAX, SUM, OR, MIN, PREFIX, ADD = range(6)
+
+
+def _after_all(mesh, home: torch.device) -> None:
+    """Order ``home``'s current stream after every card's (a combine on
+    ``home`` reads what each card's last launches wrote)."""
+    for card in mesh.cards():
+        if card != home:
+            with on_device(card):
+                ev = torch.cuda.Event()
+                ev.record()
+            with on_device(home):
+                torch.cuda.current_stream(home).wait_event(ev)
+
+
+def _before_all(mesh, home: torch.device) -> None:
+    """Order every card's current stream after ``home``'s (each card reads
+    what a combine on ``home`` wrote into its memory)."""
+    if len(mesh.cards()) == 1:
+        return
+    with on_device(home):
+        ev = torch.cuda.Event()
+        ev.record()
+    for card in mesh.cards():
+        if card != home:
+            with on_device(card):
+                torch.cuda.current_stream(card).wait_event(ev)
+
+
+def shard_combine(mesh, op: int, srcs, dsts) -> None:
+    """The mesh's combine (K2's cross-shard reductions): element i of
+    every ``srcs[g]`` (shard g's partial, on its device) reduced by ``op``
+    and written into every ``dsts[g]``, in one launch on the first shard's
+    card reading and writing the others' memory through peer pointers,
+    ordered after every card's stream and before each reads the results."""
+    G = len(srcs)
+    x = srcs[0]
+    c = CombineArgs()
+    for g in range(G):
+        c.src[g], c.dst[g] = srcs[g].data_ptr(), dsts[g].data_ptr()
+    c.G, c.n, c.op = G, x.numel(), op
+    c.elem = x.element_size()
+    if c.elem not in (4, 8) or any(t.dtype != x.dtype for t in list(srcs) + list(dsts)):
+        raise ValueError(f"shard_combine: int32 or int64 partials of one dtype, got {x.dtype}")
+    home = mesh.devices[0]
+    lib = build()["batched_round"]
+    _mesh_exchange(mesh)   # peer access
+    _after_all(mesh, home)
+    with on_device(home):
+        code = lib.kt_shard_combine(ctypes.byref(c),
+                                    torch.cuda.current_stream(home).cuda_stream)
+    _raise_on(lib, "batched_round", code, "shard_combine")
+    _before_all(mesh, home)
+
+
+class _ShardRound:
+    """One shard's buffers for the sharded filter_score and batched round."""
+
+    def __init__(self, b: rt.DeviceBatch, p: rt.ScoreParams, state, nom_active) -> None:
+        dev = b.alloc.device
+        self.b, self.dev = b, dev
+        self.state, self.nom_active = state, nom_active
+        self.a, self.keep = _score_args(b, p, "sharded_batched_assign", state, bits_blocks=b.requests.shape[0],
+                                        nom_active=nom_active)
+        P, N = self.a.P, self.a.N
+        sp = b.spread
+        cw = 0 if sp is None else sp.sig_idx.shape[1] * ((sp.domain_present.shape[1] + 31) // 32)
+        i64 = torch.int64
+        self.mask = torch.empty((P, N), dtype=torch.bool, device=dev)
+        self.base = torch.empty((P, N), dtype=i64, device=dev)
+        self.total = torch.empty((P, N), dtype=i64, device=dev)
+        self.sc = torch.zeros((2, P), dtype=i64, device=dev)            # partial, combined
+        self.bits = torch.zeros((2, P, max(cw, 1)), dtype=i64, device=dev)
+        self.mx = torch.zeros((2, P, 7), dtype=i64, device=dev)
+        # the spread domain sums the kernels read: combined over the shards
+        self.sums = None
+        if sp is not None:
+            self.sums = torch.empty(
+                (sp.domain_present.shape[0], sp.domain_present.shape[1] + 1), dtype=i64,
+                device=dev)
+            self.a.sp_sums = self.sums.data_ptr()
+        self.bufs = torch.zeros((5, P), dtype=i64, device=dev)
+        self.combined = torch.zeros((3, P), dtype=i64, device=dev)    # best, count, hash
+        self.r = torch.zeros((P,), dtype=torch.int32, device=dev)
+        self.choice = torch.full((2, P), -1, dtype=torch.int32, device=dev)  # mine, combined
+        self.acc = torch.zeros((2, P), dtype=torch.int32, device=dev)
+        self.flags = torch.zeros((2,), dtype=torch.int32, device=dev)
+        self.active = b.pod_valid.clone()
+        self.assignments = torch.full((P,), -1, dtype=torch.int32, device=dev)
+        pa = b.podaffinity
+        self.pa_delta = None if pa is None else torch.zeros_like(pa.base_sums)
+
+
+def _filter_score_shards(mesh, shards: list, smem: int) -> None:
+    """Kernel K2's first half: every shard's filter_score over its rows,
+    with the spread domain sums, the spread-scored counts and bitmaps and
+    the normalize maxima combined over the shards between its steps."""
+    lib = build()["filter_score"]
+
+    def step(k, sc=None, bits=None, mx=None):
+        for s in shards:
+            with on_device(s.dev):
+                code = lib.kt_filter_score_shard(
+                    ctypes.byref(s.a), s.mask.data_ptr(), s.base.data_ptr(),
+                    s.total.data_ptr(), k, _ptr(sc(s) if sc else None),
+                    _ptr(bits(s) if bits else None), _ptr(mx(s) if mx else None), smem,
+                    torch.cuda.current_stream(s.dev).cuda_stream)
+            _raise_on(lib, "filter_score", code, "filter_score (sharded)")
+            launch_counts["filter_score"] += 1
+
+    sp = shards[0].b.spread
+    if sp is not None:
+        step(0)
+        parts = []
+        for s in shards:
+            with on_device(s.dev):
+                parts.append(s.sums.clone())
+        shard_combine(mesh, SUM, parts, [s.sums for s in shards])
+    step(1)
+    step(2, sc=lambda s: s.sc[0], bits=lambda s: s.bits[0], mx=lambda s: s.mx[0])
+    if sp is not None:
+        shard_combine(mesh, SUM, [s.sc[0] for s in shards], [s.sc[1] for s in shards])
+        shard_combine(mesh, OR, [s.bits[0] for s in shards], [s.bits[1] for s in shards])
+    step(3, sc=lambda s: s.sc[1], bits=lambda s: s.bits[1], mx=lambda s: s.mx[0])
+    shard_combine(mesh, MAX, [s.mx[0] for s in shards], [s.mx[1] for s in shards])
+    step(4, sc=lambda s: s.sc[1], bits=lambda s: s.bits[1], mx=lambda s: s.mx[1])
+
+
+def sharded_filter_score(sb, p: rt.ScoreParams):
+    """``filter_score`` over a node-sharded batch: each shard's ``(mask,
+    total)`` over its rows, equal to the shards' rows of the unsharded
+    kernel's (the normalize maxima and the spread terms reduced over the
+    mesh, ``_filter_score_shards``)."""
+    shards = []
+    for b in sb.shards:
+        with on_device(b.alloc.device):
+            shards.append(_ShardRound(b, p, None, None))
+    _filter_score_shards(sb.mesh, shards, _smem(sb.shards[0]))
+    for s in shards:
+        with on_device(s.dev):
+            torch.cuda.current_stream(s.dev).synchronize()
+    return [(s.mask, s.total) for s in shards]
+
+
+def sharded_batched_assign(sb, p: rt.ScoreParams, max_rounds: int = 0,
+                           rounds_out: list | None = None):
+    """Kernel K2, the batched engine over a node-sharded batch: each round
+    the sharded ``filter_score`` (``_filter_score_shards``), then the
+    ``batched_round`` steps on every shard with the mesh's combines between
+    them: the per-pod maximum, the tie counts (their sum and each shard's
+    prefix) and the wrapping sums of the tie weights of the global node
+    indices, the choice (held by the shard whose prefix covers it), the
+    admissions (each shard admits for its own nodes), and the affinity
+    increments. The host reads shard 0's two flags a round. Returns
+    ``(assignments (P,) int32 global, final_state)``, equal to
+    ``assign.batched.batched_assign_sharded_plain(sb, p, max_rounds)``."""
+    from ..parallel.mesh import ShardedTensor
+
+    mesh = sb.mesh
+    P = sb.shards[0].requests.shape[0]
+    if P > 1024:
+        raise ValueError(f"batched_round: P={P} exceeds the sorting block's 1024 pods")
+    shards = []
+    for b in sb.shards:
+        with on_device(b.alloc.device):
+            pa, sp = b.podaffinity, b.spread
+            state = (b.requested.clone(), b.nonzero_requested.clone(), b.pod_count.clone(),
+                     b.node_ports.clone(), None if pa is None else pa.base_sums.clone(),
+                     None if sp is None else sp.node_count.clone())
+            nom = (None if b.nominated_pod_idx is None
+                   else torch.ones((b.nominated_pod_idx.shape[0],), dtype=torch.bool,
+                                   device=b.alloc.device))
+            shards.append(_ShardRound(b, p, state, nom))
+    lib = build()["batched_round"]
+    smem = _smem(sb.shards[0])
+
+    def step(k):
+        for s, off in zip(shards, sb.offsets):
+            req, nz, pc, ports, _, sp_counts = s.state
+            with on_device(s.dev):
+                code = lib.kt_batched_round_shard(
+                    ctypes.byref(s.a), k, s.mask.data_ptr(), s.total.data_ptr(),
+                    req.data_ptr(), nz.data_ptr(), pc.data_ptr(), ports.data_ptr(),
+                    _ptr(s.pa_delta), _ptr(sp_counts), s.active.data_ptr(),
+                    s.assignments.data_ptr(), s.bufs.data_ptr(), s.r.data_ptr(),
+                    s.choice[1].data_ptr() if k >= 4 else s.choice[0].data_ptr(),
+                    s.acc[1].data_ptr() if k == 5 else s.acc[0].data_ptr(),
+                    s.flags.data_ptr(), off, torch.cuda.current_stream(s.dev).cuda_stream)
+            _raise_on(lib, "batched_round", code, "batched_round (sharded)")
+            launch_counts["sharded_round"] += 1
+
+    cap = max_rounds or P
+    rounds = 0
+    progress, still = True, bool(torch.any(shards[0].active))
+    while progress and still and rounds < cap:
+        _filter_score_shards(mesh, shards, smem)
+        step(1)
+        shard_combine(mesh, MAX, [s.bufs[0] for s in shards], [s.bufs[0] for s in shards])
+        step(2)
+        shard_combine(mesh, PREFIX, [s.bufs[1] for s in shards], [s.bufs[4] for s in shards])
+        shard_combine(mesh, SUM, [s.bufs[1] for s in shards], [s.bufs[3] for s in shards])
+        shard_combine(mesh, SUM, [s.bufs[2] for s in shards], [s.combined[2] for s in shards])
+        for s in shards:
+            with on_device(s.dev):
+                s.bufs[2].copy_(s.combined[2])
+        step(3)
+        shard_combine(mesh, MAX, [s.choice[0] for s in shards], [s.choice[1] for s in shards])
+        step(4)
+        shard_combine(mesh, MAX, [s.acc[0] for s in shards], [s.acc[1] for s in shards])
+        for s in shards:
+            if s.pa_delta is not None:
+                with on_device(s.dev):
+                    s.pa_delta.zero_()
+        step(5)
+        if shards[0].pa_delta is not None:
+            shard_combine(mesh, ADD, [s.pa_delta for s in shards],
+                          [s.state[4] for s in shards])
+        progress, still = (bool(v) for v in shards[0].flags.tolist())
+        rounds += 1
+    for s in shards:
+        with on_device(s.dev):
+            torch.cuda.current_stream(s.dev).synchronize()
+    if rounds_out is not None:
+        rounds_out.append(rounds)
+    s0 = shards[0]
+    return s0.assignments, (
+        ShardedTensor([s.state[0] for s in shards]), ShardedTensor([s.state[1] for s in shards]),
+        ShardedTensor([s.state[2] for s in shards]), ShardedTensor([s.state[3] for s in shards]),
+        None if s0.state[5] is None else ShardedTensor([s.state[5] for s in shards], axis=1),
+        s0.state[4], s0.nom_active,
+    )

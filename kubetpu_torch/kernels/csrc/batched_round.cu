@@ -53,10 +53,16 @@ __device__ __forceinline__ int64_t tie_weight(int64_t n) {
   return (n * 2654435761LL + 1) & 0xFFFFFFFFLL;
 }
 
-// (1) per-pod best score, tie count and group hash
+// (1) per-pod best score, tie count and group hash. Over a node mesh
+// (`mode` 1, then 2; `offset` the shard's first global node): 1 writes the
+// shard's best (kI64Min without a feasible node), which the shards' max
+// combines into best_in; 2 writes, at that global best, the shard's tie
+// count and the wrapping sum of the tie weights of the GLOBAL node
+// indices, which the shards' sums combine (round_rank applies the xor).
 __global__ void round_pod_stats(ScoreArgs a, const uint8_t* mask, const int64_t* total,
                                 const uint8_t* active, int64_t* best_out, int64_t* cnt_out,
-                                int64_t* hash_out) {
+                                int64_t* hash_out, int mode, const int64_t* best_in,
+                                int64_t offset) {
   __shared__ int64_t s[33];
   const int64_t p = blockIdx.x;
   const int64_t N = a.N;
@@ -64,26 +70,40 @@ __global__ void round_pod_stats(ScoreArgs a, const uint8_t* mask, const int64_t*
   const uint8_t* m = mask + p * N;
   const int64_t* t = total + p * N;
   int64_t any = 0, best = kI64Min;
-  if (act) {
-    for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
-      if (!m[n]) continue;
-      any = 1;
-      best = t[n] > best ? t[n] : best;
+  if (mode == 2) {
+    best = best_in[p];
+    any = act && best > kI64Min;
+  } else {
+    if (act) {
+      for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
+        if (!m[n]) continue;
+        any = 1;
+        best = t[n] > best ? t[n] : best;
+      }
+    }
+    any = block_reduce(any, MaxOp(), 0, s);
+    best = block_reduce(best, MaxOp(), kI64Min, s);
+    if (mode == 1) {
+      if (threadIdx.x == 0) best_out[p] = any ? best : kI64Min;
+      return;
     }
   }
-  any = block_reduce(any, MaxOp(), 0, s);
-  best = block_reduce(best, MaxOp(), kI64Min, s);
   int64_t cnt = 0, h = 0;
   if (any) {
     for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
       if (!m[n] || t[n] != best) continue;
       ++cnt;
-      h = SumOp()(h, tie_weight(n));
+      h = SumOp()(h, tie_weight(n + offset));
     }
   }
   cnt = block_reduce(cnt, SumOp(), 0, s);
   h = block_reduce(h, SumOp(), 0, s);
   if (threadIdx.x == 0) {
+    if (mode == 2) {
+      cnt_out[p] = cnt;
+      hash_out[p] = h;
+      return;
+    }
     h = (int64_t)((unsigned long long)h ^ ((unsigned long long)best << 1));
     best_out[p] = best;
     cnt_out[p] = any ? cnt : 0;
@@ -124,7 +144,8 @@ __device__ __forceinline__ int pow2_at_least(int64_t P) {
 // (2) rank of each pod within its hash group, by queue order; r = rank mod
 // ties
 __global__ void __launch_bounds__(kSortThreads, 1)
-round_rank(ScoreArgs a, const int64_t* hash, const int64_t* cnt, int32_t* r_out) {
+round_rank(ScoreArgs a, const int64_t* hash, const int64_t* cnt, int32_t* r_out,
+           const int64_t* best) {
   __shared__ int64_t s_key[kSortThreads];
   __shared__ int32_t s_idx[kSortThreads];
   __shared__ int32_t s_start[kSortThreads];
@@ -132,8 +153,18 @@ round_rank(ScoreArgs a, const int64_t* hash, const int64_t* cnt, int32_t* r_out)
   const int M = pow2_at_least(P);
   for (int i = threadIdx.x; i < M; i += blockDim.x) {
     // pads sort after every real pod of an equal hash (higher index), so
-    // they change no real pod's rank
-    s_key[i] = i < P ? hash[i] : INT64_MAX;
+    // they change no real pod's rank. Over a node mesh (`best` given) the
+    // combined hash takes the best score's xor here; cnt is the combined
+    // count.
+    int64_t key = INT64_MAX;
+    if (i < P) {
+      key = hash[i];
+      if (best != nullptr)
+        key = cnt[i] > 0 ? (int64_t)((unsigned long long)key ^
+                                     ((unsigned long long)best[i] << 1))
+                         : 0;
+    }
+    s_key[i] = key;
     s_idx[i] = i;
   }
   __syncthreads();
@@ -162,21 +193,25 @@ round_rank(ScoreArgs a, const int64_t* hash, const int64_t* cnt, int32_t* r_out)
 }
 
 // (3) the (r+1)-th tie column of each pod's row (-1 without a feasible node)
+// Over a node mesh (`before` given: the ties of the shards before this one,
+// `cnt` this shard's own) the shard whose ties cover the (r+1)-th writes
+// its GLOBAL index (offset + n); the others write -1 (the shards' max
+// combines them).
 __global__ void round_pick(ScoreArgs a, const uint8_t* mask, const int64_t* total,
                            const int64_t* best, const int64_t* cnt, const int32_t* r,
-                           int32_t* choice) {
+                           int32_t* choice, const int64_t* before, int64_t offset) {
   __shared__ int32_t s_warp[kRowThreads / 32];
   __shared__ int32_t s_base;
   const int64_t p = blockIdx.x;
   const int64_t N = a.N;
-  if (cnt[p] == 0) {
+  const int64_t target = (int64_t)r[p] + 1 - (before != nullptr ? before[p] : 0);
+  if (cnt[p] == 0 || target < 1 || target > cnt[p]) {
     if (threadIdx.x == 0) choice[p] = -1;
     return;
   }
   const uint8_t* m = mask + p * N;
   const int64_t* t = total + p * N;
   const int64_t b = best[p];
-  const int64_t target = (int64_t)r[p] + 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   if (threadIdx.x == 0) s_base = 0;
@@ -190,7 +225,7 @@ __global__ void round_pick(ScoreArgs a, const uint8_t* mask, const int64_t* tota
     int64_t before = s_base;
     for (int w = 0; w < warp; ++w) before += s_warp[w];
     const int64_t pos = before + __popc(ballot & ((1u << lane) - 1)) + 1;
-    if (tie && pos == target) choice[p] = (int32_t)n;
+    if (tie && pos == target) choice[p] = (int32_t)(n + offset);
     __syncthreads();
     if (threadIdx.x == 0) {
       int sum = 0;
@@ -203,34 +238,56 @@ __global__ void round_pick(ScoreArgs a, const uint8_t* mask, const int64_t* tota
 }
 
 // (4) one-per-node acceptance, prefix commit, finalize and the state update
+// Over a node mesh (`offset` the shard's first global node, choices
+// global): `mode` 1 admits the pods that chose this shard's nodes into
+// acc_io (P,) int32, which the shards' max combines; mode 2 takes the
+// combined admissions, commits the prefix, applies this shard's committed
+// pods to its rows and counts, adds their affinity increments into pa_sums
+// (a zeroed delta the shards' sums then add into every shard's sums), and
+// updates the replicated active flags, nominations, assignments and flags.
 __global__ void __launch_bounds__(kSortThreads, 1)
 round_accept(ScoreArgs a, const int32_t* choice, int64_t* req, int64_t* nz, int32_t* pc,
              uint8_t* ports, int64_t* pa_sums, int32_t* sp_counts, uint8_t* active,
-             int32_t* assignments, int32_t* flags) {
+             int32_t* assignments, int32_t* flags, int mode, int32_t* acc_io,
+             int64_t offset) {
   __shared__ int64_t s_key[kSortThreads];
   __shared__ int32_t s_idx[kSortThreads];
   __shared__ uint8_t s_acc[kSortThreads];
   __shared__ int64_t s_red[33];
   const int64_t P = a.P, N = a.N, R = a.R, K = a.K;
   const int M = pow2_at_least(P);
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    s_key[i] = i < P ? (choice[i] >= 0 ? choice[i] : N) : INT64_MAX;  // none last
-    s_idx[i] = i;
-    s_acc[i] = 0;
-  }
-  __syncthreads();
-  bitonic_sort(s_key, s_idx, M);
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    const int32_t p = s_idx[i];
-    if (p >= P) continue;
-    const int64_t node = s_key[i];
-    bool ok = (i == 0 || s_key[i] != s_key[i - 1]) && node < N;
-    if (ok && a.filter_fit) {
-      for (int64_t r = 0; r < R; ++r)
-        ok = ok && a.requests[p * R + r] <= a.alloc[node * R + r] - req[node * R + r];
-      ok = ok && a.allowed_pods[node] - pc[node] >= 1;
+  // this shard's row of pod p's choice, -1 when it chose another shard's node
+  auto mine = [&](int64_t p) -> int64_t {
+    const int64_t c = (int64_t)choice[p] - offset;
+    return choice[p] >= 0 && c >= 0 && c < N ? c : -1;
+  };
+  if (mode == 2) {
+    for (int i = threadIdx.x; i < M; i += blockDim.x) s_acc[i] = i < P ? acc_io[i] != 0 : 0;
+  } else {
+    for (int i = threadIdx.x; i < M; i += blockDim.x) {
+      s_key[i] = i < P ? (mine(i) >= 0 ? mine(i) : N) : INT64_MAX;  // none last
+      s_idx[i] = i;
+      s_acc[i] = 0;
     }
-    s_acc[p] = ok && choice[p] >= 0;
+    __syncthreads();
+    bitonic_sort(s_key, s_idx, M);
+    for (int i = threadIdx.x; i < M; i += blockDim.x) {
+      const int32_t p = s_idx[i];
+      if (p >= P) continue;
+      const int64_t node = s_key[i];
+      bool ok = (i == 0 || s_key[i] != s_key[i - 1]) && node < N;
+      if (ok && a.filter_fit) {
+        for (int64_t r = 0; r < R; ++r)
+          ok = ok && a.requests[p * R + r] <= a.alloc[node * R + r] - req[node * R + r];
+        ok = ok && a.allowed_pods[node] - pc[node] >= 1;
+      }
+      s_acc[p] = ok && choice[p] >= 0;
+    }
+    if (mode == 1) {
+      __syncthreads();
+      for (int64_t p = threadIdx.x; p < P; p += blockDim.x) acc_io[p] = s_acc[p];
+      return;
+    }
   }
   __syncthreads();
   // the queue-order prefix before the first rejection
@@ -241,10 +298,12 @@ round_accept(ScoreArgs a, const int32_t* choice, int64_t* req, int64_t* nz, int3
   int64_t progress = 0, still = 0;
   for (int64_t p = threadIdx.x; p < P; p += blockDim.x) {
     if (!active[p]) continue;
-    const int32_t c = choice[p];
+    const int32_t c_global = choice[p];
     const bool commit = s_acc[p] && p < first_rej;
-    const bool finalize = c < 0 && p < first_rej;
-    if (commit) {
+    const bool finalize = c_global < 0 && p < first_rej;
+    // the row this shard writes: the chosen node's own row, or none
+    const int64_t c = mode == 2 ? mine(p) : c_global;
+    if (commit && c >= 0) {
       for (int64_t r = 0; r < R; ++r) {
         req[c * R + r] += a.requests[p * R + r];
         nz[c * R + r] += a.nonzero_requests[p * R + r];
@@ -266,12 +325,14 @@ round_accept(ScoreArgs a, const int32_t* choice, int64_t* req, int64_t* nz, int3
           if (a.sp_pod_match_sig[p * a.sp_S + sg] && a.sp_eligible[sg * N + c])
             sp_counts[sg * N + c] += 1;
       }
+    }
+    if (commit) {
       if (a.nom_node != nullptr) {
         // the accepted nominee spends its nomination (batched.py:222-225)
         for (int64_t g = 0; g < a.G; ++g)
           if (a.nom_pod_idx[g] == p) a.nom_active[g] = 0;
       }
-      assignments[p] = c;
+      assignments[p] = c_global;
     }
     if (commit || finalize) {
       active[p] = 0;
@@ -314,22 +375,139 @@ extern "C" int kt_batched_round(const ScoreArgs* args, const void* mask, const v
   int32_t* r = static_cast<int32_t*>(stats32);
   int32_t* choice = r + a.P;
   uint8_t* act = static_cast<uint8_t*>(active);
-  round_pod_stats<<<(unsigned)a.P, kRowThreads, 0, s>>>(a, m, t, act, best, cnt, hash);
+  round_pod_stats<<<(unsigned)a.P, kRowThreads, 0, s>>>(a, m, t, act, best, cnt, hash, 0,
+                                                         nullptr, 0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  round_rank<<<1, kSortThreads, 0, s>>>(a, hash, cnt, r);
+  round_rank<<<1, kSortThreads, 0, s>>>(a, hash, cnt, r, nullptr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  round_pick<<<(unsigned)a.P, kRowThreads, 0, s>>>(a, m, t, best, cnt, r, choice);
+  round_pick<<<(unsigned)a.P, kRowThreads, 0, s>>>(a, m, t, best, cnt, r, choice, nullptr, 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   round_accept<<<1, kSortThreads, 0, s>>>(
       a, choice, static_cast<int64_t*>(req), static_cast<int64_t*>(nz),
       static_cast<int32_t*>(pc), static_cast<uint8_t*>(ports), static_cast<int64_t*>(pa_sums),
       static_cast<int32_t*>(sp_counts), act, static_cast<int32_t*>(assignments),
-      static_cast<int32_t*>(flags));
+      static_cast<int32_t*>(flags), 0, nullptr, 0);
   return (int)cudaGetLastError();
 }
+
+// One step of a sharded round (kernel K2) on one node shard, after its
+// sharded filter_score wrote `mask` and `total` (P, N/G) over its rows;
+// the shards' partials are combined (kt_shard_combine) between the steps.
+// `bufs` holds (P,) int64 arrays: 0 best, 1 this shard's tie count, 2 the
+// hash, 3 the combined tie count, 4 the ties before this shard; (P,) int32
+// arrays: `r`, `choice` (global), `acc`. step 1: the shard's best into
+// bufs[0]; 2: at the combined best (bufs[0]) its count into bufs[1] and
+// hash into bufs[2]; 3: ranks (from the combined bufs[2], bufs[3]) and the
+// shard's pick into `choice`; 4: its admissions into `acc`; 5: commit
+// (pa_sums is then the zeroed delta; see round_accept). Returns the
+// cudaError_t of the launch.
+extern "C" int kt_batched_round_shard(const ScoreArgs* args, int step, const void* mask,
+                                      const void* total, void* req, void* nz, void* pc,
+                                      void* ports, void* pa_delta, void* sp_counts,
+                                      void* active, void* assignments, void* bufs, void* r,
+                                      void* choice, void* acc, void* flags, int64_t offset,
+                                      void* stream) {
+  const ScoreArgs a = *args;
+  if (a.P == 0) return 0;
+  if (a.P > kSortThreads) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  const int64_t* t = static_cast<const int64_t*>(total);
+  int64_t* b = static_cast<int64_t*>(bufs);
+  int64_t *best = b, *cnt = b + a.P, *hash = b + 2 * a.P, *cnt_all = b + 3 * a.P,
+          *before = b + 4 * a.P;
+  uint8_t* act = static_cast<uint8_t*>(active);
+  int32_t* rr = static_cast<int32_t*>(r);
+  int32_t* ch = static_cast<int32_t*>(choice);
+  if (step == 1 || step == 2) {
+    round_pod_stats<<<(unsigned)a.P, kRowThreads, 0, s>>>(a, m, t, act, best, cnt, hash, step,
+                                                           best, offset);
+  } else if (step == 3) {
+    round_rank<<<1, kSortThreads, 0, s>>>(a, hash, cnt_all, rr, best);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    round_pick<<<(unsigned)a.P, kRowThreads, 0, s>>>(a, m, t, best, cnt, rr, ch, before,
+                                                      offset);
+  } else if (step == 4 || step == 5) {
+    round_accept<<<1, kSortThreads, 0, s>>>(
+        a, ch, static_cast<int64_t*>(req), static_cast<int64_t*>(nz), static_cast<int32_t*>(pc),
+        static_cast<uint8_t*>(ports), static_cast<int64_t*>(pa_delta),
+        static_cast<int32_t*>(sp_counts), act, static_cast<int32_t*>(assignments),
+        static_cast<int32_t*>(flags), step - 3, static_cast<int32_t*>(acc), offset);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+// Mirror of CombineArgs in kubetpu_torch/kernels/__init__.py
+struct CombineArgs {
+  const void* src[8];  // each shard's partial (n elements)
+  void* dst[8];        // each shard's result
+  int64_t G, n, op, elem;  // elem: 8 (int64) or 4 (int32) bytes
+};
+
+template <typename T>
+__device__ __forceinline__ void combine_one(const CombineArgs& c, int64_t i) {
+  const T* const* src = reinterpret_cast<const T* const*>(c.src);
+  T* const* dst = reinterpret_cast<T* const*>(c.dst);
+  if (c.op == 4) {
+    // exclusive prefix sum in shard order: each shard gets the sum before it
+    T run = 0;
+    for (int64_t h = 0; h < c.G; ++h) {
+      const T v = src[h][i];
+      dst[h][i] = run;
+      run = (T)((unsigned long long)run + (unsigned long long)v);
+    }
+    return;
+  }
+  T v = src[0][i];
+  for (int64_t h = 1; h < c.G; ++h) {
+    const T w = src[h][i];
+    if (c.op == 0) v = v > w ? v : w;
+    else if (c.op == 3) v = v < w ? v : w;
+    else if (c.op == 2) v = v | w;
+    else v = (T)((unsigned long long)v + (unsigned long long)w);
+  }
+  for (int64_t h = 0; h < c.G; ++h)
+    dst[h][i] = c.op == 5 ? (T)((unsigned long long)dst[h][i] + (unsigned long long)v) : v;
+}
+
+// The mesh's combine (kernel K2's cross-shard reductions): element i of
+// every shard's partial, reduced, written to every shard's result (peer
+// pointers for other cards). op 0 max, 1 sum (wrapping), 2 or, 3 min, 4
+// exclusive prefix sum in shard order, 5 add the sum into the results.
+__global__ void shard_combine_kernel(CombineArgs c) {
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < c.n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    if (c.elem == 8)
+      combine_one<int64_t>(c, i);
+    else
+      combine_one<int32_t>(c, i);
+  }
+}
+
+}  // namespace
+
+// Launches the combine on `stream` (the caller orders every shard's stream
+// before it, and after it every stream that reads the results). Returns
+// the cudaError_t of the launch.
+extern "C" int kt_shard_combine(const void* args, void* stream) {
+  const CombineArgs c = *static_cast<const CombineArgs*>(args);
+  if (c.n <= 0) return 0;
+  if (c.G < 1 || c.G > 8 || (c.elem != 4 && c.elem != 8)) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (c.n + 255) / 256;
+  shard_combine_kernel<<<(unsigned)(blocks < 1024 ? blocks : 1024), 256, 0,
+                         static_cast<cudaStream_t>(stream)>>>(c);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int64_t kt_batched_round_combine_size() { return (int64_t)sizeof(CombineArgs); }
 
 extern "C" int64_t kt_batched_round_args_size() { return (int64_t)sizeof(ScoreArgs); }
 

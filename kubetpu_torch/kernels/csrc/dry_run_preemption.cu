@@ -269,7 +269,57 @@ dry_run_pick(DryRunArgs a) {
   }
 }
 
+// One shard's dry run, for the cross-shard pick (mirror of PickShard in
+// kubetpu_torch/kernels/__init__.py; 8-byte fields)
+struct PickShard {
+  const int32_t* node_idx;  // () the shard's first best node, local, -1 = none
+  const int64_t* n_pdb;     // (N,)
+  const int64_t* stats;     // (4, N): max_prio, sum_prio, n_victims, earliest
+  int64_t N;
+  int64_t offset;           // global index of the shard's first node
+};
+
+// Kernel K3 (the dry run under a node mesh): one warp, lane h reads shard
+// h's best node and its five keys (through peer pointers for other cards)
+// and the warp keeps the best by pick_node's order with -global index, so
+// the first node of the global refinement wins.
+struct PickSet {
+  PickShard sh[8];
+};
+
+__global__ void dry_run_shard_pick(const __grid_constant__ PickSet set, int64_t G, int32_t* out) {
+  const int lane = threadIdx.x;
+  Cand c{0, 0, 0, 0, 0, -1};
+  if (lane < G) {
+    const PickShard& s = set.sh[lane];
+    const int64_t n = *(const volatile int32_t*)s.node_idx;
+    if (n >= 0) {
+      const volatile int64_t* st = s.stats;
+      c = Cand{((const volatile int64_t*)s.n_pdb)[n], st[n], st[s.N + n], st[2 * s.N + n],
+               st[3 * s.N + n], s.offset + n};
+    }
+  }
+  c = warp_best(c);
+  if (lane == 0) *out = (int32_t)c.idx;
+}
+
 }  // namespace
+
+// Launches kernel K3 on `stream` over the G (<= 8) entries of `shards`
+// (host memory); every shard's dry run must be complete (the caller orders
+// the streams). *out receives the global node, -1 for none. Returns the
+// cudaError_t of the launch.
+extern "C" int kt_dry_run_shard_pick(const void* shards, int64_t G, void* out, void* stream) {
+  if (G <= 0 || G > 8) return (int)cudaErrorInvalidValue;
+  PickSet set{};
+  const PickShard* in = static_cast<const PickShard*>(shards);
+  for (int64_t g = 0; g < G; ++g) set.sh[g] = in[g];
+  dry_run_shard_pick<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      set, G, static_cast<int32_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int64_t kt_dry_run_preemption_pick_size() { return (int64_t)sizeof(PickShard); }
 
 // Launches the per-node search and the pick on `stream`. Every output and
 // scratch buffer is written whole by the kernels. Returns the cudaError_t of

@@ -77,9 +77,15 @@ __global__ void filter_score_pairs(ScoreArgs a, uint8_t* mask, int64_t* base, in
 }
 
 // dynamic shared memory: C doubles of slot weights, then the domain bitmap
-// when a.sp_bits is null
+// when a.sp_bits is null. `phase` 0: the whole pass. Over a node mesh (each
+// shard's rows), three passes with the shards' partials combined between
+// them: 1 writes this shard's spread-scored counts and domain bitmaps
+// (sc_buf (P,), bits_buf (P, C * W)); 2 takes the combined ones and writes
+// this shard's normalize maxima (mx_buf (P, kNorm)); 3 takes the combined
+// maxima and writes the total.
 __global__ void filter_score_normalize(ScoreArgs a, const uint8_t* mask, const int64_t* base,
-                                       int64_t* total) {
+                                       int64_t* total, int phase, int64_t* sc_buf,
+                                       int64_t* bits_buf, int64_t* mx_buf) {
   __shared__ int64_t s_m[kt::kNorm][33];
   extern __shared__ __align__(16) unsigned char s_dyn[];
   const int64_t p = blockIdx.x;
@@ -91,16 +97,25 @@ __global__ void filter_score_normalize(ScoreArgs a, const uint8_t* mask, const i
       (a.na_raw != nullptr || a.tt_raw != nullptr) ? (int64_t)a.score_sig[p] * N : 0;
   const int64_t drow = kt::dra_row(a, p);
   const uint8_t* m = mask + p * N;
+  const int64_t CW = a.sp_C * ((a.sp_D + 31) / 32);
   double* weight = reinterpret_cast<double*>(s_dyn);
+  if (phase == 1) {
+    if (sp_score) kt::sp_partials(a, p, m, sc_buf + p, bits_buf + p * CW, s_m[0]);
+    return;
+  }
   if (sp_score) {
-    uint32_t* bits = a.sp_bits != nullptr
-                         ? a.sp_bits + p * ((a.sp_D + 31) / 32)
-                         : reinterpret_cast<uint32_t*>(s_dyn + a.sp_C * sizeof(double));
-    kt::sp_weights(a, p, m, bits, weight, s_m[0]);
+    if (phase == 0) {
+      uint32_t* bits = a.sp_bits != nullptr
+                           ? a.sp_bits + p * ((a.sp_D + 31) / 32)
+                           : reinterpret_cast<uint32_t*>(s_dyn + a.sp_C * sizeof(double));
+      kt::sp_weights(a, p, m, bits, weight, s_m[0]);
+    } else {
+      kt::sp_weights_given(a, p, sc_buf[p], bits_buf + p * CW, weight, s_m[0]);
+    }
   }
   int64_t mx[kt::kNorm];
   kt::init_norm(mx);
-  if (normalize) {
+  if (normalize && phase != 3) {
     for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
       if (!m[n]) continue;
       const int64_t pa_r = a.w_interpod ? kt::pa_raw(a, a.pa_sums, p, n) : 0;
@@ -109,6 +124,13 @@ __global__ void filter_score_normalize(ScoreArgs a, const uint8_t* mask, const i
     }
     kt::block_max_norm(a, sp_score, mx, s_m);
   }
+  if (phase == 2) {
+    if (threadIdx.x == 0)
+      for (int i = 0; i < kt::kNorm; ++i) mx_buf[p * kt::kNorm + i] = mx[i];
+    return;
+  }
+  if (phase == 3)
+    for (int i = 0; i < kt::kNorm; ++i) mx[i] = mx_buf[p * kt::kNorm + i];
   for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
     int64_t s = base[p * N + n];
     if (normalize) {
@@ -163,7 +185,51 @@ extern "C" int kt_filter_score(const ScoreArgs* args, void* mask, void* base, vo
   if (err != cudaSuccess || total == nullptr) return (int)err;
   filter_score_normalize<<<(unsigned)a.P, kRowThreads, (size_t)smem, s>>>(
       a, static_cast<const uint8_t*>(mask), static_cast<const int64_t*>(base),
-      static_cast<int64_t*>(total));
+      static_cast<int64_t*>(total), 0, nullptr, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// The sharded filter_score of one node shard (kernel K2's first half; the
+// batch's node rows are the shard's, its spread counts and bitmaps the
+// shard's own). `step` 0: the shard's partial spread domain sums into
+// a.sp_sums (the mesh sums them into every shard's a.sp_sums); 1: minMatch
+// from the summed sums, the affinity row totals and pass (a), mask and base
+// with every filter; 2, 3, 4: the normalize pass's phases 1, 2, 3
+// (filter_score_normalize; sc (P,), bits (P, C * ceil(D / 32)) and mx (P,
+// kNorm) int64 are combined over the shards between them). Returns the
+// cudaError_t of the launches.
+extern "C" int kt_filter_score_shard(const ScoreArgs* args, void* mask, void* base, void* total,
+                                     int step, void* sc, void* bits, void* mx, int64_t smem,
+                                     void* stream) {
+  ScoreArgs a = *args;
+  const int pa = a.pa_node_domain != nullptr;
+  if (!pa) a.w_interpod = 0;
+  const int sp = a.sp_node_domain != nullptr;
+  if (!sp) {
+    a.sp_filter = 0;
+    a.w_spread = 0;
+  }
+  if (a.P == 0 || a.N == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  if (step == 0) {
+    if (sp && (a.sp_filter || a.w_spread) && a.sp_S > 0)
+      kt::prelaunch_spread_sums<<<(unsigned)a.sp_S, kt::kPreRowThreads, 0, s>>>(a, 1);
+    return (int)cudaGetLastError();
+  }
+  if (step == 1) {
+    err = kt::prelaunch(a, pa, sp, s, 2);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((unsigned)((a.N + kPairThreads - 1) / kPairThreads), (unsigned)a.P);
+    filter_score_pairs<<<grid, kPairThreads, 0, s>>>(a, static_cast<uint8_t*>(mask),
+                                                     static_cast<int64_t*>(base), pa, 0);
+    return (int)cudaGetLastError();
+  }
+  if (step < 2 || step > 4) return (int)cudaErrorInvalidValue;
+  filter_score_normalize<<<(unsigned)a.P, kRowThreads, (size_t)smem, s>>>(
+      a, static_cast<const uint8_t*>(mask), static_cast<const int64_t*>(base),
+      static_cast<int64_t*>(total), step - 1, static_cast<int64_t*>(sc),
+      static_cast<int64_t*>(bits), static_cast<int64_t*>(mx));
   return (int)cudaGetLastError();
 }
 

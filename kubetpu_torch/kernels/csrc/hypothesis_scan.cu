@@ -107,7 +107,7 @@ hypothesis_scan_kernel(ScoreArgs a, const uint8_t* mask0, const int64_t* base0,
   const kt::Hypothesis hyp{hmask + h * N, freed_req == nullptr ? nullptr : freed_req + h * N * R,
                            freed_count == nullptr ? nullptr : freed_count + h * N};
   int32_t* const mine = assignments + h * P;
-  kt::scan_loop<kPA, kSP, kDRA>(a, hyp, mask0, base0, touched + h * N, mine,
+  kt::scan_loop<kPA, kSP, kDRA>(a, hyp, kt::NoExchange{}, mask0, base0, touched + h * N, mine,
                                 req + h * N * R, nz + h * N * R, pc + h * N,
                                 ports + h * N * a.K, pa_sums, row_total, sp_counts, ok_buf);
   int32_t* cnt = slice_buf != nullptr ? slice_buf + h * (num_slices + 1)

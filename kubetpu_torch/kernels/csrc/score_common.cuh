@@ -843,4 +843,59 @@ __device__ __forceinline__ void sp_weights(const ScoreArgs& a, int64_t p, const 
   __syncthreads();
 }
 
+// ---- PodTopologySpread over a node mesh (filter_score's sharded phases) ---
+
+// This shard's part of sp_weights for pod p: its scored-node count into
+// *out_sc and, for each ScheduleAnyway slot whose signature is not
+// hostname, its domain bitmap into out_bits + c * W (ceil(D / 32) int64
+// words, each holding 32 bits), zero elsewhere. The shards' counts sum and
+// their bitmaps OR (the mesh's combine) before sp_weights_given.
+__device__ __forceinline__ void sp_partials(const ScoreArgs& a, int64_t p, const uint8_t* ok,
+                                            int64_t* out_sc, int64_t* out_bits, int64_t* red) {
+  const int64_t N = a.N, C = a.sp_C, W = (a.sp_D + 31) / 32;
+  const uint8_t* ig = a.sp_ignored + p * N;
+  int64_t scored = 0;
+  for (int64_t n = threadIdx.x; n < N; n += blockDim.x) scored += ok[n] && !ig[n];
+  scored = block_reduce(scored, SumOp(), 0, red);
+  if (threadIdx.x == 0) *out_sc = scored;
+  for (int64_t i = threadIdx.x; i < C * W; i += blockDim.x) out_bits[i] = 0;
+  __syncthreads();
+  for (int64_t c = 0; c < C; ++c) {
+    const int32_t sid = a.sp_sig_idx[p * C + c];
+    if (sid < 0 || a.sp_action[p * C + c] != 1 || a.sp_is_hostname[sid]) continue;
+    for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
+      if (!ok[n] || ig[n]) continue;
+      const int32_t dom = a.sp_node_domain[sid * N + n];
+      if (dom >= 0)
+        atomicOr(reinterpret_cast<unsigned long long*>(out_bits + c * W + (dom >> 5)),
+                 1ull << (dom & 31));
+    }
+  }
+  __syncthreads();
+}
+
+// sp_weights from the mesh's combined scored count `sc` and bitmaps `bits`
+// (sp_partials' layout)
+__device__ __forceinline__ void sp_weights_given(const ScoreArgs& a, int64_t p, int64_t sc,
+                                                 const int64_t* bits, double* weight,
+                                                 int64_t* red) {
+  const int64_t C = a.sp_C, W = (a.sp_D + 31) / 32;
+  for (int64_t c = 0; c < C; ++c) {
+    const int32_t sid = a.sp_sig_idx[p * C + c];
+    if (sid < 0 || a.sp_action[p * C + c] != 1) {
+      if (threadIdx.x == 0) weight[c] = 0.0;
+      continue;
+    }
+    int64_t size = sc;
+    if (!a.sp_is_hostname[sid]) {
+      int64_t cnt = 0;
+      for (int64_t w = threadIdx.x; w < W; w += blockDim.x)
+        cnt += __popcll((unsigned long long)bits[c * W + w]);
+      size = block_reduce(cnt, SumOp(), 0, red);
+    }
+    if (threadIdx.x == 0) weight[c] = log(__dadd_rn(__ll2double_rn(size), 2.0));
+  }
+  __syncthreads();
+}
+
 }  // namespace kt

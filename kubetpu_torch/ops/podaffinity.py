@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from .reduce import run_local
+
 MAX_NODE_SCORE = 100
 _I64_MAX = torch.iinfo(torch.int64).max
 
@@ -88,6 +90,13 @@ def affinity_score_pod(pa, sums, score_rows, score_vals, mask):
     """(P, N) int64 normalized InterPodAffinity score given the pods'
     feasibility rows ``mask (P, N)``. ``score_rows/score_vals (P, CS)`` are
     the pods' weighted row slots."""
+    return run_local(affinity_score_steps(pa, sums, score_rows, score_vals, mask))
+
+
+def affinity_score_steps(pa, sums, score_rows, score_vals, mask):
+    """``affinity_score_pod`` in steps form (``ops.reduce``): the feasible
+    raw's min and max are its reductions over nodes (``sums`` is the
+    replicated (R, D) state)."""
     p = score_rows.shape[0]
     n = pa.node_domain.shape[1]
     raw = torch.zeros((p, n), dtype=torch.int64, device=sums.device)
@@ -97,8 +106,10 @@ def affinity_score_pod(pa, sums, score_rows, score_vals, mask):
         raw = raw + torch.where(
             (rid >= 0)[:, None], score_vals[:, c][:, None] * cnt, 0
         )
-    mn = torch.min(torch.where(mask, raw, _I64_MAX), dim=1, keepdim=True).values
-    mx = torch.max(torch.where(mask, raw, -_I64_MAX), dim=1, keepdim=True).values
+    mn = yield ("min", torch.min(
+        torch.where(mask, raw, _I64_MAX), dim=1, keepdim=True).values)
+    mx = yield ("max", torch.max(
+        torch.where(mask, raw, -_I64_MAX), dim=1, keepdim=True).values)
     diff = mx - mn
     f = (
         MAX_NODE_SCORE

@@ -217,6 +217,60 @@ def dry_run_preemption(*args):
     return kernel(*args)
 
 
+def pick_keys(n_pdb_viol, max_prio, sum_prio, n_victims, earliest_start, j: int) -> tuple:
+    """pick_node's five keys of node ``j``, each to maximize, in order."""
+    return (-int(n_pdb_viol[j]), -int(max_prio[j]), -int(sum_prio[j]),
+            -int(n_victims[j]), int(earliest_start[j]))
+
+
+def dry_run_preemption_sharded(shard_args, offsets):
+    """The dry run over node shards: ``shard_args[g]`` is shard g's
+    ``dry_run_preemption`` arguments (its node rows of every node-axis
+    argument, a copy of the rest, all on its device), ``offsets[g]`` its
+    first global node. Each shard searches its own nodes and keeps its
+    first best by pick_node's refinement; the shards' five-key tuples
+    then reduce with -global index (``parallel.mesh.first_best``). On CUDA
+    shards the
+    per-shard searches are kernel B9 and the reduction kernel K3
+    (``kernels.sharded_dry_run``).
+
+    Returns ``(node_idx () int32 global, victims, ok, n_pdb)``, the last
+    three as ``parallel.mesh.ShardedTensor``s of the shards' rows."""
+    if shard_args[0][3].device.type != "cpu":
+        from ..kernels import sharded_dry_run
+
+        return sharded_dry_run(shard_args, offsets)
+    return dry_run_preemption_sharded_plain(shard_args, offsets)
+
+
+def dry_run_preemption_sharded_plain(shard_args, offsets):
+    """The plain version of ``dry_run_preemption_sharded`` (on any
+    device): each shard's ``select_victims_node`` and ``pick_node``, then
+    ``first_best`` over the shards' tuples."""
+    from ..parallel.mesh import ShardedTensor, first_best
+
+    keys, outs = [], []
+    for args, off in zip(shard_args, offsets):
+        (pod_req, pod_prio, wants_conf, potential, alloc, requested, pod_count,
+         allowed, port_counts, v_valid, v_prio, v_start, v_req, v_ports, v_pdb,
+         pdb_allowed) = args
+        ok, victims, n_pdb, max_p, sum_p, n_v, early = select_victims_node(
+            pod_req, pod_prio, wants_conf, alloc, requested, pod_count, allowed,
+            v_valid, v_prio, v_start, v_req, v_ports, v_pdb, port_counts,
+            pdb_allowed,
+        )
+        ok = ok & potential
+        j = int(pick_node(ok, n_pdb, max_p, sum_p, n_v, early))
+        keys.append(((), -1) if j < 0 else (pick_keys(n_pdb, max_p, sum_p, n_v, early, j),
+                                            off + j))
+        outs.append((victims, ok, n_pdb))
+    node = first_best(keys)
+    dev = shard_args[0][3].device
+    return (torch.tensor(node, dtype=torch.int32, device=dev),
+            ShardedTensor([o[0] for o in outs]), ShardedTensor([o[1] for o in outs]),
+            ShardedTensor([o[2] for o in outs]))
+
+
 # --------------------------------------------------------------------------
 # gang mode (topology-aware): evict ONE whole gang, not per-pod victims
 # --------------------------------------------------------------------------

@@ -220,11 +220,16 @@ def balanced_allocation_score(
     return torch.where(best_effort[:, None], 0, score)
 
 
-def default_normalize(raw: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+def default_normalize(
+    raw: torch.Tensor, reverse: bool = False, mx: torch.Tensor | None = None
+) -> torch.Tensor:
     """helper.DefaultNormalizeScore (plugins/helper/normalize_score.go:27),
     vectorized over the pod axis: per pod, scale [0, max] → [0, 100]
-    (integer division), optionally reversed. raw: (P, N) int64."""
-    mx = torch.amax(raw, dim=-1, keepdim=True)                # (P, 1)
+    (integer division), optionally reversed. raw: (P, N) int64. ``mx``
+    (P, 1): the row maxima when the caller reduced them itself (over a
+    node-sharded row, every shard's)."""
+    if mx is None:
+        mx = torch.amax(raw, dim=-1, keepdim=True)            # (P, 1)
     scaled = torch.where(mx > 0, (MAX_NODE_SCORE * raw) // mx.clamp(min=1), 0)
     if reverse:
         # maxCount == 0 with reverse=true → all scores become maxPriority.

@@ -31,6 +31,8 @@ from __future__ import annotations
 
 import torch
 
+from .reduce import run_local
+
 MAX_NODE_SCORE = 100
 _BIG = torch.iinfo(torch.int32).max
 _I64_MAX = torch.iinfo(torch.int64).max
@@ -60,14 +62,27 @@ def _slot_rows(st, sums, sid):
     return s, dom, torch.where(dom >= 0, got, 0)
 
 
-def spread_filter_pod(st, counts, sig_idx, action, max_skew, min_domains, self_match):
+def spread_filter_steps(st, counts, sig_idx, action, max_skew, min_domains, self_match):
+    """``spread_filter_pod`` in steps form (``ops.reduce``): the domain sums
+    are its one reduction over nodes."""
+    d = st.domain_present.shape[1]
+    sums = yield ("sum", _domain_sums(counts, st.eligible, st.node_domain, d))
+    return spread_filter_pod(
+        st, counts, sig_idx, action, max_skew, min_domains, self_match, sums=sums)
+
+
+def spread_filter_pod(st, counts, sig_idx, action, max_skew, min_domains, self_match,
+                      sums=None):
     """(P, N) bool feasibility under the pods' hard constraints. ``st`` is
     the SpreadDevice; ``counts`` the (S, N) carried state; the remaining
-    args are the pods' (P, C) constraint-slot rows."""
+    args are the pods' (P, C) constraint-slot rows. ``sums``: the (S, D+1)
+    domain sums when the caller reduced them (derived from ``counts``
+    when None)."""
     p = sig_idx.shape[0]
     n = st.eligible.shape[1]
     d = st.domain_present.shape[1]
-    sums = _domain_sums(counts, st.eligible, st.node_domain, d)   # (S, D+1)
+    if sums is None:
+        sums = _domain_sums(counts, st.eligible, st.node_domain, d)   # (S, D+1)
     min_match_sig = torch.min(
         torch.where(st.domain_present, sums[:, :d], _BIG), dim=1
     ).values                                                  # (S,)
@@ -92,13 +107,21 @@ def spread_score_pod(st, counts, sig_idx, action, max_skew, ignored, mask):
     """(P, N) int64 normalized spread score. ``mask`` is the pods' final
     feasibility rows (the reference scores only nodes that passed Filter);
     ``ignored`` their soft-ignored rows."""
+    return run_local(
+        spread_score_steps(st, counts, sig_idx, action, max_skew, ignored, mask))
+
+
+def spread_score_steps(st, counts, sig_idx, action, max_skew, ignored, mask):
+    """``spread_score_pod`` in steps form (``ops.reduce``). Its reductions
+    over nodes: the domain sums, the scored-node count, each soft slot's
+    domain bitmap, and the scored raw's min and max."""
     p = sig_idx.shape[0]
     n = st.eligible.shape[1]
     d = st.domain_present.shape[1]
     dev = counts.device
-    sums = _domain_sums(counts, st.eligible, st.node_domain, d)
+    sums = yield ("sum", _domain_sums(counts, st.eligible, st.node_domain, d))
     scored = mask & ~ignored
-    n_scored = torch.sum(scored, dim=1)                       # (P,)
+    n_scored = yield ("sum", torch.sum(scored, dim=1))        # (P,)
     raw = torch.zeros((p, n), dtype=torch.float64, device=dev)
     for c in range(sig_idx.shape[1]):
         sid = sig_idx[:, c]
@@ -114,9 +137,9 @@ def spread_score_pod(st, counts, sig_idx, action, max_skew, ignored, mask):
         # filteredNodes−ignored for hostname)
         seg = torch.where(dom >= 0, dom, d).long()
         present = torch.zeros((p, d + 1), dtype=torch.int32, device=dev)
-        present = present.scatter_reduce_(
+        present = yield ("max", present.scatter_reduce_(
             1, seg, scored.to(torch.int32), reduce="amax"
-        )
+        ))
         size = torch.where(
             host, n_scored, torch.sum(present[:, :d] > 0, dim=1)
         )
@@ -130,8 +153,10 @@ def spread_score_pod(st, counts, sig_idx, action, max_skew, ignored, mask):
     score = torch.round(raw).to(torch.int64)                  # half to even
 
     # NormalizeScore (scoring.go:229) over scored nodes
-    min_s = torch.min(torch.where(scored, score, _I64_MAX), dim=1, keepdim=True).values
-    max_s = torch.max(torch.where(scored, score, 0), dim=1, keepdim=True).values
+    min_s = yield ("min", torch.min(
+        torch.where(scored, score, _I64_MAX), dim=1, keepdim=True).values)
+    max_s = yield ("max", torch.max(
+        torch.where(scored, score, 0), dim=1, keepdim=True).values)
     # max + min − s only where the node is scored (elsewhere the
     # reference's int64 wraps; the result is masked out either way)
     s_safe = torch.where(scored, score, min_s)

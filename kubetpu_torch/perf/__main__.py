@@ -4,7 +4,7 @@ direct mode and print its result as one JSON line.
     python -m kubetpu_torch.perf --case SchedulingBasic \\
         --workload 5000Nodes_10000Pods [--engine greedy|batched|packing] \\
         [--device cuda] [--max-batch 1024] [--pipeline on|off] \\
-        [--encode-cache on|off] [--flight-recorder on|off]
+        [--encode-cache on|off] [--flight-recorder on|off] [--mesh off|auto|on]
     python -m kubetpu_torch.perf --case SchedulingPodAffinity \\
         --workload 5000Nodes_5000Pods --engine batched
     python -m kubetpu_torch.perf --case TopologySpreading \\
@@ -39,6 +39,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-pod decision records with the cycle-start "
                          "breakdown (the explain kernels); 'off' is the "
                          "overhead escape hatch")
+    ap.add_argument("--mesh", default="off", choices=("off", "auto", "on"),
+                    help="shard the node axis over the device type's devices "
+                         "(a power of two of them; 'on' requires two)")
     return ap
 
 
@@ -50,6 +53,7 @@ def main(argv: list[str] | None = None) -> int:
         pipeline=args.pipeline == "on",
         encode_cache=args.encode_cache == "on",
         flight_recorder=args.flight_recorder == "on",
+        mesh=args.mesh,
     )
     print(json.dumps(res.to_json()))
     return 0 if res.scheduled == res.measure_pods else 1

@@ -89,6 +89,11 @@ class WorkloadResult:
     priority_slo_hit_rate: float | None = None
     solver_iters_per_cycle: float | None = None
     packing_weights: dict | None = None
+    # the node-axis mesh the run was sharded over (``_mesh_stats``): its
+    # shard count, shape (() without one) and cross-shard argmax probe
+    n_devices: int = 1
+    mesh_shape: tuple = ()
+    collective_wall_s: float | None = None
 
     def to_json(self) -> dict:
         out = {
@@ -122,7 +127,22 @@ class WorkloadResult:
             out["solver_iters_per_cycle"] = round(self.solver_iters_per_cycle, 2)
         if self.packing_weights is not None:
             out["packing_weights"] = self.packing_weights
+        if self.mesh_shape:
+            out["n_devices"] = self.n_devices
+            out["mesh_shape"] = list(self.mesh_shape)
+            if self.collective_wall_s is not None:
+                out["collective_wall_s"] = self.collective_wall_s
         return out
+
+
+def _mesh_stats(sched: Scheduler) -> dict:
+    """The run's mesh context (the reference's ``_mesh_stats``): shard
+    count, shape and the cross-shard argmax probe's seconds."""
+    n = 1
+    for d in sched.mesh_shape:
+        n *= d
+    return dict(n_devices=n, mesh_shape=sched.mesh_shape,
+                collective_wall_s=sched._collective_wall_s)
 
 
 class _GcClock:
@@ -325,6 +345,7 @@ def run_workload(
     feature_gates: dict | None = None,
     topology: str = "off",
     slices: int = 0,
+    mesh=None,
 ) -> WorkloadResult:
     """Execute one (test case, workload) pair in direct mode on ``device``
     with the ``engine`` (``"greedy"``, ``"batched"`` or ``"packing"``) and
@@ -338,8 +359,11 @@ def run_workload(
     ``topology`` is the Scheduler's topology mode; ``slices`` > 0 labels
     the default node template's fleet with that many TPU slices (and a
     rack per four) under the shared label grammar
-    (``workloads.trace_topology_labels``). Preemption is enabled, as the
-    reference's runner does; churn ops fire between cycles.
+    (``workloads.trace_topology_labels``); ``mesh`` shards the node axis
+    (``Scheduler(mesh=...)``: None / "off", "auto", "on" or a
+    ``parallel.mesh.NodeMesh``), with assignments equal to the unsharded
+    run's. Preemption is enabled, as the reference's runner does; churn
+    ops fire between cycles.
     ``stall_s`` is how long zero progress must persist before a phase gives
     up. The kernels are built before the measured phase starts (``Scheduler.warmup``). ``on_scheduler`` is
     called once with the run's Scheduler before any op runs, so a caller
@@ -358,7 +382,7 @@ def run_workload(
         engine=engine, device=device, pipeline=pipeline,
         encode_cache=encode_cache, flight_recorder=flight_recorder,
         cfg=C.SchedulerConfiguration(extenders=tuple(extenders)),
-        feature_gates=gates, topology=topology,
+        feature_gates=gates, topology=topology, mesh=mesh,
     )
     client.sched = sched
     sched.enable_preemption()
@@ -629,5 +653,6 @@ def run_workload(
         ),
         group_cycle_ms=_group_cycle_ms(groups),
         **_packing_stats(sched, timings, client.bound, created),
+        **_mesh_stats(sched),
     )
     return result

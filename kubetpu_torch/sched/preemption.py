@@ -36,7 +36,7 @@ from __future__ import annotations
 import logging
 from typing import TYPE_CHECKING
 
-from ..framework.preemption import PreemptionEvaluator
+from ..framework.preemption import PreemptionEvaluator, _node_leaf
 
 if TYPE_CHECKING:
     from ..queue.priority_queue import QueuedPodInfo
@@ -134,7 +134,7 @@ class DefaultPreemptionPostFilter:
         requested = final_state[0].cpu().numpy()
         pod_count = final_state[2].cpu().numpy()
         final_ports = final_state[3].cpu().numpy()
-        snap_union = batch.device.node_ports.cpu().numpy()
+        snap_union = _node_leaf(batch.device, "node_ports").cpu().numpy()
         ev = PreemptionEvaluator(
             batch, params,
             pdbs=tuple(sched.pdbs.values()),

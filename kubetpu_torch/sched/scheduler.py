@@ -63,7 +63,15 @@ The recorder's explain is launched in ``_finish_cycle`` after the
 assignments are fetched, on the current stream, before the next cycle's
 scatter can write the resident block: stage 1 stays free of CUDA calls.
 
-Not in these slices (each raises when asked for): the device mesh, the
+``mesh`` shards the node axis over a ``parallel.mesh.NodeMesh`` (or
+``"auto"`` / ``"on"``, resolved on the scheduler's device type): the
+resident block lives sharded and takes routed deltas, each cycle's batch
+is a ``ShardedBatch``, the greedy and batched engines and the preemption
+dry run reduce across the shards, and the recorder skips its breakdown
+("skipped: mesh"), as the reference's does. The packing engine and the
+gang lane under a mesh raise (ROADMAP Queue A item 12's remaining part).
+
+Not in these slices (each raises when asked for): the
 sentinel, the asynchronous API dispatcher and the metrics registry (so the
 recorder's staged latency vectors are recorded but observed into no
 histogram, the lifecycle runner times no plugin, the gang lane's admission
@@ -165,6 +173,11 @@ class CycleTiming:
     resident_bytes: int = 0          # the resident node block's size
     rounds: int = 0                  # batched engine: rounds of the cycle
     pipelined: bool = False
+    # the mesh the cycle ran on (() without one), each shard's share of the
+    # node upload, and the mesh's cross-shard argmax probe (seconds)
+    mesh_shape: tuple = ()
+    shard_upload_bytes: list | None = None
+    collective_wall_s: float | None = None
     # packing engine: the solve's iterations, objective and nodes used
     # (None on the other engines)
     solver_iters: int | None = None
@@ -298,8 +311,6 @@ class Scheduler:
         anything but their default raises NotImplementedError."""
         if engine not in ("greedy", "batched", "packing"):
             raise ValueError(f"unknown engine {engine!r}")
-        if mesh not in (None, "off"):
-            raise _not_ported("the device mesh", "Queue A item 12 (kernel B15)")
         if dispatcher_workers:
             raise _not_ported("asynchronous binding", "Queue A item 13")
         if topology not in ("on", "off", "auto"):
@@ -320,6 +331,26 @@ class Scheduler:
             self.profiles.setdefault("default-scheduler", profile)
         else:
             self.profiles = {p.name: p for p in self.cfg.profiles}
+        # --- the node-axis mesh (parallel.mesh) ---------------------------
+        from ..parallel.mesh import measure_collective_wall, resolve_mesh
+
+        self.mesh = resolve_mesh(mesh, self.device)
+        self.mesh_shape: tuple = self.mesh.shape if self.mesh is not None else ()
+        # the padded node capacity is a multiple of the shard count
+        self._pad_multiple = 1 if self.mesh is None else self.mesh.size
+        if self.mesh is not None:
+            if engine == "packing":
+                raise NotImplementedError(
+                    "the packing engine under a mesh is ROADMAP Queue A item "
+                    "12's remaining part, not yet ported")
+            if feature_gates.enabled("GangScheduling"):
+                raise NotImplementedError(
+                    "the gang lane under a mesh is ROADMAP Queue A item 12's "
+                    "remaining part, not yet ported")
+        # the mesh's cross-shard argmax probe, once (kernel K4 on CUDA)
+        self._collective_wall_s: float | None = (
+            None if self.mesh is None else measure_collective_wall(self.mesh)
+        )
         # the packing engine is stateful: it carries the warm-start dual
         # block and the objective-weight tensor across cycles, and keeps
         # the last solve's diagnostics
@@ -366,7 +397,7 @@ class Scheduler:
         # cycle completes before the next encode's dirty-row scatter writes
         # into it, so steady-state host→device node traffic is O(Δ·R) in
         # both modes
-        self._resident = rt.ResidentNodeState(self.device)
+        self._resident = rt.ResidentNodeState(self.device, mesh=self.mesh)
         self._inflight: _InflightCycle | None = None
         # sticky: any host-state refresh between launch and completion that
         # found the cluster materially changed flips this; completion
@@ -969,6 +1000,7 @@ class Scheduler:
             sb = rt.encode_batch_static(
                 self._snapshot, pods, profile, prev_nt=self._prev_nt,
                 cache=self.encode_cache, topology=self.topology,
+                pad_multiple=self._pad_multiple,
             )
         except Exception:
             # stage 1 is an optimization: any failure falls back to the
@@ -1080,6 +1112,7 @@ class Scheduler:
                     self._snapshot, pods, profile, nominated=nominated,
                     prev_nt=self._prev_nt, cache=self.encode_cache,
                     track_changes=self.pipeline, topology=self.topology,
+                    pad_multiple=self._pad_multiple,
                 )
                 t_fin = time.perf_counter()
                 pre_encode_s, nodes_s = t_fin - t_enc, sb.nodes_s
@@ -1121,6 +1154,12 @@ class Scheduler:
                 resident_bytes=batch.resident_bytes,
                 rounds=self._rounds if self.engine == "batched" else 0,
                 pipelined=pipelined,
+                mesh_shape=self.mesh_shape,
+                shard_upload_bytes=(
+                    list(self._resident.last_upload_bytes_per_shard)
+                    if self.mesh is not None else None
+                ),
+                collective_wall_s=self._collective_wall_s,
             )
             # everything the launched work saw is now folded in; any LATER
             # host-state refresh that finds changes flips this
@@ -1199,6 +1238,9 @@ class Scheduler:
                     objective_value=timing.objective_value,
                     solver_iters=timing.solver_iters,
                     assignments=inflight.assignments,
+                    # the sharded batch is not re-evaluated for diagnostics
+                    breakdown=self.mesh is None,
+                    skipped_reason=None if self.mesh is None else "mesh",
                 )
                 timing.recorder_s = time.perf_counter() - t_rec
         except Exception:
@@ -1479,12 +1521,19 @@ class Scheduler:
             self.extenders, pods, batch.node_names,
             batch.num_nodes,
             pad_pods=device_batch.requests.shape[0],
-            pad_nodes=device_batch.alloc.shape[0],
+            pad_nodes=batch.node_tensors.alloc.shape[0],
             parallelism=self.cfg.parallelism,
             executor=self._extender_pool,
         )
         if ext_mask is None:
             return device_batch, 0
+        if self.mesh is not None:
+            ext = {k: torch.from_numpy(v) for k, v in
+                   dict(extender_mask=ext_mask, extender_score=ext_score).items()}
+            return (
+                device_batch.replace_pod_node(**ext),
+                int(ext_mask.nbytes + ext_score.nbytes),
+            )
         leaves = rt.upload_packed(
             dict(extender_mask=ext_mask, extender_score=ext_score), self.device
         )
