@@ -222,9 +222,11 @@ Tolerance everywhere: exact (integer masks, scores and assignments).
 ``greedy_scan`` engine on the SchedulingBasic cycle and prints one JSON
 line;
 ``--time-spread ROOT`` does the same on the PreferredTopologySpreading
-cycle and on the mixed spread cluster under the spread profile. Run either
-on two checkouts in turns (parent, change, change, parent) to compare the
-two on one card within one call. ``--time-dra`` splits the scan's time on
+cycle and on the mixed spread cluster under the spread profile;
+``--time-mesh ROOT`` times its node mesh's greedy and batched engines
+(kernels K1 and K2 at four logical shards) beside its unsharded kernels.
+Run any of them on two checkouts in turns (parent, change, change,
+parent) to compare the two on one card within one call. ``--time-dra`` splits the scan's time on
 the SchedulingBasic cycle with a DynamicResources score leaf into the
 normalize pass and the placements the leaf moves (``time_dra``).
 ``--mesh`` runs the node mesh's checks (``mesh_checks``) and its paths,
@@ -1536,12 +1538,12 @@ def preemption_check(sched) -> dict:
 # --------------------------------- 3d. the gang lane (B11, B12, B13)
 SLICES = 32
 # the placements a phase-4 path's first placement search is held to the
-# plain search on (the first 9; phase 3 holds 4 slices and <all>), and the
-# gang dry run's hypotheses phase 3 holds to the plain dry run (the first 8
+# plain search on (the first 5; phase 3 holds 4 slices and <all>), and the
+# gang dry run's hypotheses phase 3 holds to the plain dry run (the first 4
 # of 32): each placement and each hypothesis is searched on its own, and
 # the whole plain searches took ~100 s a path and 28 s
-PLAIN_PLACEMENTS = 9
-GANG_PLAIN = 8
+PLAIN_PLACEMENTS = 5
+GANG_PLAIN = 4
 
 
 def sliced(cache, slices):
@@ -2625,9 +2627,14 @@ def kernels_phase():
         ("affinity/default", ba_default, pa_default, False),
         ("spread/spread", *spread["spread/spread"][:2], False),
     ]
-    mesh_timing = mesh_checks(node_mesh(4, True), results, mesh_batch_list, (b, params),
-                              round_batch_list)
+    mesh4 = node_mesh(4, True)
+    mesh_timing = mesh_checks(mesh4, results, mesh_batch_list, (b, params), round_batch_list)
     stamp("phase 3: mesh checks")
+    # the packing engine on the node mesh (K5), and the 2 x 2 grid (K6, K7)
+    mesh_timing.update(packing_mesh_checks(mesh4, results, packing_mesh_batches((b, params))))
+    mesh_timing.update(grid_checks(grid_mesh(True), results, grid_batches(
+        (b, params), (bp, pp), spread["TopologySpreading"])))
+    stamp("phase 3: packing-mesh and grid checks")
     out += mesh_kernel_lines(results, mesh_timing)
     torch.cuda.synchronize()
     return out
@@ -2636,15 +2643,24 @@ def kernels_phase():
 # ----------------------------------------- 3m. the node mesh (K1-K4, B5m)
 # the mesh's kernels, their sources and the device programs they replace
 MESH_KERNELS = (
-    ("sharded_scan", "kubetpu_torch/kernels/csrc/greedy_scan.cu (+ scan_loop.cuh, "
-     "exchange.cuh)", "kubetpu/parallel/mesh.py:234 (sharded_greedy)"),
-    ("sharded_round", "kubetpu_torch/kernels/csrc/batched_round.cu (+ the sharded passes of "
-     "filter_score.cu)", "kubetpu/parallel/mesh.py:352 (sharded_batched)"),
+    ("sharded_scan", "kubetpu_torch/kernels/csrc/greedy_scan.cu (tiled_scan_kernel on one "
+     "pod row; + scan_loop.cuh, exchange.cuh)", "kubetpu/parallel/mesh.py:234 (sharded_greedy)"),
+    ("sharded_round", "kubetpu_torch/kernels/csrc/batched_round.cu (kt_tiled_round on one pod "
+     "row; + the sharded passes of filter_score.cu)",
+     "kubetpu/parallel/mesh.py:352 (sharded_batched)"),
     ("shard_pick", "kubetpu_torch/kernels/csrc/dry_run_preemption.cu",
      "kubetpu/parallel/mesh.py:161 (batch_shardings) with kubetpu/ops/preemption.py:156 "
      "(pick_node across node shards)"),
     ("shard_argmax", "kubetpu_torch/kernels/csrc/greedy_scan.cu (+ exchange.cuh)",
      "kubetpu/parallel/mesh.py:327 (measure_collective_wall)"),
+    ("sharded_packing", "kubetpu_torch/kernels/csrc/packing_round.cu (+ the sharded passes "
+     "of filter_score.cu, batched_round.cu's shard_combine)",
+     "kubetpu/parallel/mesh.py:369 (sharded_packing)"),
+    ("tiled_round", "kubetpu_torch/kernels/csrc/batched_round.cu (kt_tiled_round; + the "
+     "sharded passes of filter_score.cu)",
+     "kubetpu/parallel/mesh.py:352 (sharded_batched with pod_axis=\"pods\")"),
+    ("tiled_scan", "kubetpu_torch/kernels/csrc/greedy_scan.cu (+ scan_loop.cuh, exchange.cuh)",
+     "kubetpu/parallel/mesh.py:234 (sharded_greedy with pod_axis=\"pods\")"),
 )
 
 
@@ -2713,7 +2729,7 @@ def mesh_checks(mesh, results, batches, basic, round_batches) -> dict:
       1 exchanges;
     - K1: the sharded ``greedy_scan`` against the unsharded kernel on every
       batch of ``batches`` (each template variant: none, affinity, spread,
-      DRA), and against its plain version (``greedy_assign_sharded_plain``:
+      DRA), and against its plain version (``greedy_assign_tiled_plain``:
       each shard's steps in lockstep, explicit reductions) where asked;
       then the tie batch, whose first pick must be the first shard's last
       node;
@@ -2731,7 +2747,7 @@ def mesh_checks(mesh, results, batches, basic, round_batches) -> dict:
     import torch
 
     from kubetpu_torch import kernels
-    from kubetpu_torch.assign.greedy import greedy_assign_sharded_plain
+    from kubetpu_torch.assign.greedy import greedy_assign_tiled_plain
     from kubetpu_torch.framework import config as C
     from kubetpu_torch.framework import runtime as rt
     from kubetpu_torch.ops import preemption as OP
@@ -2772,12 +2788,12 @@ def mesh_checks(mesh, results, batches, basic, round_batches) -> dict:
     # K1 on every batch
     for name, b, params, with_plain in batches:
         sb = M.shard_batch(b, mesh)
-        got = kernels.sharded_greedy_scan(sb, params)
+        got = kernels.tiled_greedy_scan(sb, params)
         err = _mesh_err(f"{name} sharded_scan vs greedy_scan", got,
                         kernels.greedy_scan(b, params))
         line = "the unsharded kernel"
         if with_plain:
-            plain = greedy_assign_sharded_plain(sb, params)
+            plain = greedy_assign_tiled_plain(sb, params)
             torch.cuda.synchronize()
             err = max(err, _mesh_err(f"{name} sharded_scan vs its plain version", got, plain))
             line += " and the sharded plain engine"
@@ -2787,7 +2803,7 @@ def mesh_checks(mesh, results, batches, basic, round_batches) -> dict:
             f"{b.dra_score_raw is not None and params.w_dra != 0})")
     cache_t, pending_t, first = tie_case(mesh)
     bt, ptie = encode(cache_t, pending_t, C.Profile())
-    got = kernels.sharded_greedy_scan(M.shard_batch(bt, mesh), ptie)
+    got = kernels.tiled_greedy_scan(M.shard_batch(bt, mesh), ptie)
     _mesh_err("tie batch", got, kernels.greedy_scan(bt, ptie))
     if int(got[0][0]) != first:
         raise AssertionError(f"tie batch: first pick {int(got[0][0])}, expected {first}")
@@ -2798,17 +2814,17 @@ def mesh_checks(mesh, results, batches, basic, round_batches) -> dict:
     b, params = basic
     sb = M.shard_batch(b, mesh)
     t0 = time.perf_counter()
-    plain = greedy_assign_sharded_plain(sb, params)
+    plain = greedy_assign_tiled_plain(sb, params)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    got = kernels.sharded_greedy_scan(sb, params)
+    got = kernels.tiled_greedy_scan(sb, params)
     note("sharded_scan", "SchedulingBasic vs its plain version",
          _mesh_err("SchedulingBasic sharded_scan vs its plain version", got, plain))
     P, N = b.requests.shape[0], b.alloc.shape[0]
     state_bytes = sum(int(x.nbytes) for x in (b.requested, b.nonzero_requested,
                                               b.pod_count, b.node_ports))
     timing["sharded_scan"] = {
-        "ms": cuda_ms(lambda: kernels.sharded_greedy_scan(sb, params), 5),
+        "ms": cuda_ms(lambda: kernels.tiled_greedy_scan(sb, params), 5),
         "unsharded_ms": cuda_ms(lambda: kernels.greedy_scan(b, params), 5),
         "plain_ms": plain_ms,
         "bytes": rt.batch_nbytes(b) + P * 4 + state_bytes,
@@ -2816,7 +2832,7 @@ def mesh_checks(mesh, results, batches, basic, round_batches) -> dict:
         "exchanges_per_step": 1,
     }
     # K2: the sharded filter_score and batched rounds
-    from kubetpu_torch.assign.batched import batched_assign_sharded_plain
+    from kubetpu_torch.assign.batched import batched_assign_tiled_plain
 
     for name, b, params, with_plain in round_batches:
         sb = M.shard_batch(b, mesh)
@@ -2826,14 +2842,14 @@ def mesh_checks(mesh, results, batches, basic, round_batches) -> dict:
                 and torch.equal(total.gather().to(kt.device), kt)):
             raise AssertionError(f"{name}: the sharded filter_score differs from the kernel")
         k_rounds, s_rounds = [], []
-        got = kernels.sharded_batched_assign(sb, params, rounds_out=s_rounds)
+        got = kernels.tiled_batched_assign(sb, params, rounds_out=s_rounds)
         err = _mesh_err(f"{name} sharded batched rounds vs batched_round", got,
                         kernels.batched_assign(b, params, rounds_out=k_rounds))
         if s_rounds != k_rounds:
             raise AssertionError(f"{name}: sharded rounds {s_rounds} != {k_rounds}")
         if with_plain:
             p_rounds = []
-            plain = batched_assign_sharded_plain(sb, params, rounds_out=p_rounds)
+            plain = batched_assign_tiled_plain(sb, params, rounds_out=p_rounds)
             torch.cuda.synchronize()
             err = max(err, _mesh_err(f"{name} sharded rounds vs the sharded plain rounds",
                                      got, plain))
@@ -2846,10 +2862,10 @@ def mesh_checks(mesh, results, batches, basic, round_batches) -> dict:
             p_state = sum(int(x.nbytes) for x in (b.requested, b.nonzero_requested,
                                                   b.pod_count, b.node_ports))
             t0 = time.perf_counter()
-            batched_assign_sharded_plain(sb, params)
+            batched_assign_tiled_plain(sb, params)
             torch.cuda.synchronize()
             timing["sharded_round"] = {
-                "ms": cuda_ms(lambda: kernels.sharded_batched_assign(sb, params), 5),
+                "ms": cuda_ms(lambda: kernels.tiled_batched_assign(sb, params), 5),
                 "unsharded_ms": cuda_ms(lambda: kernels.batched_assign(b, params), 5),
                 "plain_ms": 1e3 * (time.perf_counter() - t0),
                 "bytes": rt.batch_nbytes(b) + Pp * 4 + p_state, "ops":
@@ -2948,6 +2964,260 @@ def mesh_checks(mesh, results, batches, basic, round_batches) -> dict:
     return timing
 
 
+def grid_mesh(one_card: bool):
+    """A 2 x 2 pods x nodes grid: four logical tiles on cuda:0, or one tile
+    a card."""
+    import torch
+
+    from kubetpu_torch.parallel import mesh as M
+
+    devs = [torch.device("cuda", 0)] * 4 if one_card else [
+        torch.device("cuda", i) for i in range(4)]
+    return M.make_mesh_2d(devs, pods=2)
+
+
+def packing_mesh_batches(basic):
+    """The batches K5 is held on: (name, batch, params, with the sharded
+    plain solve too): the BinPacking block (bins open one a round; the
+    plain solve too), the SchedulingBasic block (``basic``: its batch and
+    params) with and without the 32-slice fleet, and the BinPacking batch
+    cut to 256 pods with and without the slices (its slices span the shard
+    boundaries), where the plain solve runs too."""
+    from kubetpu_torch.framework import config as C
+
+    out = []
+    cache_b, pending_b = binpack_case()
+    out.append(("BinPacking 1024x5120", *encode(cache_b, pending_b, C.Profile()), True))
+    cache, pending = basic_case()
+    out.append(("SchedulingBasic 1024x5120", *basic, False))
+    bs, ps = encode_topology(sliced(cache, SLICES), pending, C.Profile())
+    out.append(("SchedulingBasic, 32 slices", bs.device, ps, False))
+    cache_c, pending_c = binpack_case(n_pending=256)
+    out.append(("BinPacking 256x5120", *encode(cache_c, pending_c, C.Profile()), True))
+    bt, pt = encode_topology(sliced(cache_c, SLICES), pending_c, C.Profile())
+    out.append(("BinPacking 256x5120, 32 slices", bt.device, pt, True))
+    return out
+
+
+def _packing_mesh_err(name, got, want) -> int:
+    """A sharded solve against another solve: assignments, the seven state
+    slots, the duals (bits), iterations and nodes used exactly, the
+    objective within rtol 1e-5 (its float32 sums are taken in another
+    order)."""
+    ga, gs, glam, gobj, git, gnu = got
+    wa, ws, wlam, wobj, wit, wnu = want
+    err = _mesh_err(name, (ga, gs), (wa, ws))
+    dev = wa.device
+    err = max(err, _bits_equal(f"{name} duals", _whole(glam).to(dev).contiguous(),
+                               _whole(wlam).to(dev).contiguous()))
+    if git != wit or int(gnu) != int(wnu):
+        raise AssertionError(f"{name}: {git} iterations, {int(gnu)} nodes used; the other "
+                             f"{wit}, {int(wnu)}")
+    rel = abs(float(gobj) - float(wobj)) / max(abs(float(wobj)), 1e-30)
+    if rel > 1e-5:
+        raise AssertionError(f"{name}: objective {float(gobj)} against {float(wobj)} "
+                             f"(rel {rel})")
+    return err
+
+
+def packing_mesh_checks(mesh, results, cases) -> dict:
+    """K5 on the node mesh: the sharded solve against the unsharded
+    ``packing_assign`` on every batch of ``cases`` (cold duals) and, where
+    asked, against ``packing_assign_sharded_plain``; timed with CUDA events
+    beside the unsharded kernel on the full BinPacking block (its plain
+    version once) and on the cut one. Returns K5's timing entry."""
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.assign import packing as PK
+    from kubetpu_torch.framework import runtime as rt
+    from kubetpu_torch.parallel import mesh as M
+
+    G = mesh.size
+    weights = PK.PackingWeights().tensor("cuda")
+    results.setdefault("sharded_packing", {"cases": [], "max_abs_err": 0})
+    timing = {}
+    for name, b, params, with_plain in cases:
+        N = b.alloc.shape[0]
+        sb = M.shard_batch(b, mesh)
+
+        def pieces(sb=sb):
+            return [torch.zeros(s.alloc.shape[0], dtype=torch.float32, device=s.device)
+                    for s in sb.shards]
+
+        cold = torch.zeros(N, dtype=torch.float32, device="cuda")
+        got = kernels.sharded_packing_assign(sb, params, pieces(), weights)
+        want = kernels.packing_assign(b, params, cold, weights)
+        err = _packing_mesh_err(f"{name} sharded_packing vs packing_round", got, want)
+        line = "the unsharded kernel"
+        plain_ms = None
+        if with_plain:
+            t0 = time.perf_counter()
+            plain = PK.packing_assign_sharded_plain(sb, params, pieces(), weights)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            err = max(err, _packing_mesh_err(f"{name} sharded_packing vs its plain version",
+                                             got, plain))
+            line += " and the sharded plain solve"
+        results["sharded_packing"]["cases"].append(name)
+        results["sharded_packing"]["max_abs_err"] = max(
+            results["sharded_packing"]["max_abs_err"], err)
+        log(f"mesh [{name}] sharded_packing over {G} shards equal to {line} "
+            f"({got[4]} iterations, {int(got[5])} nodes used, objective {float(got[3]):.6f} "
+            f"against {float(want[3]):.6f}; topology {b.topology is not None})")
+        P = b.requests.shape[0]
+        state_bytes = sum(int(x.nbytes) for x in (b.requested, b.nonzero_requested,
+                                                  b.pod_count, b.node_ports))
+        if not name.startswith("BinPacking") or "slices" in name:
+            continue
+        entry = {
+            "ms": cuda_ms(lambda: kernels.sharded_packing_assign(sb, params, pieces(),
+                                                                 weights), 3),
+            "unsharded_ms": cuda_ms(lambda: kernels.packing_assign(b, params, cold, weights),
+                                    3),
+            "plain_ms": plain_ms, "iterations": got[4], "batch": name,
+            # the batch read once, assignments, state and duals written
+            # once; each round's filter_score float64 work
+            "bytes": rt.batch_nbytes(b) + 2 * 4 * N + P * 4 + state_bytes,
+            "ops": got[4] * P * N * f64_ops_per_pair(params, b), "shape": [P, N, G],
+        }
+        if name == "BinPacking 1024x5120":
+            timing.update(entry)
+        else:
+            timing["cut"] = entry
+    cut = timing["cut"]
+    log(f"timing [sharded_packing] on the BinPacking batch cut to {cut['shape'][0]} pods "
+        f"({cut['iterations']} iterations): kernel {cut['ms']:.4f} ms, unsharded "
+        f"{cut['unsharded_ms']:.4f} ms, plain {cut['plain_ms']:.4f} ms")
+    return {"sharded_packing": timing}
+
+
+def grid_checks(grid, results, batches) -> dict:
+    """K6 and K7 on the pods x nodes grid: the grid's batched rounds
+    against the unsharded ``batched_round`` engine (assignments, the seven
+    slots, rounds), every pod row's copy of the node rows against pod row
+    0's, and the grid's scan against the unsharded ``greedy_scan``, on
+    every batch of ``batches`` (name, batch, params, batch cut for the
+    plain scan or None); the plain tiled rounds on every batch, the plain
+    tiled scan on the cut batches and on the full SchedulingBasic batch
+    (the grid greedy path's). Timed with CUDA events beside the unsharded
+    kernels. Returns their timing entries."""
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.assign.batched import batched_assign_tiled_plain
+    from kubetpu_torch.assign.greedy import greedy_assign_tiled_plain
+    from kubetpu_torch.framework import runtime as rt
+    from kubetpu_torch.parallel import mesh as M
+
+    shape = list(grid.shape)
+    for k in ("tiled_round", "tiled_scan"):
+        results.setdefault(k, {"cases": [], "max_abs_err": 0})
+
+    def note(kernel, case, err):
+        results[kernel]["cases"].append(case)
+        results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
+
+    timing = {}
+    for name, b, params, cut in batches:
+        tb = M.shard_batch(b, grid)
+        k_rounds, t_rounds, rows = [], [], []
+        got = kernels.tiled_batched_assign(tb, params, rounds_out=t_rounds, rows_out=rows)
+        err = _mesh_err(f"{name} tiled rounds vs batched_round", got,
+                        kernels.batched_assign(b, params, rounds_out=k_rounds))
+        if t_rounds != k_rounds:
+            raise AssertionError(f"{name}: tiled rounds {t_rounds} != {k_rounds}")
+        for i, row in enumerate(rows[1:], 1):
+            for k, (x, y) in enumerate(zip(row, rows[0])):
+                if x is not None and not torch.equal(_whole(x), _whole(y).to(_whole(x).device)):
+                    raise AssertionError(f"{name}: pod row {i}'s state slot {k} differs from "
+                                         "pod row 0's")
+        plain = batched_assign_tiled_plain(tb, params)
+        torch.cuda.synchronize()
+        err = max(err, _mesh_err(f"{name} tiled rounds vs the tiled plain rounds", got, plain))
+        note("tiled_round", name, err)
+        got = kernels.tiled_greedy_scan(tb, params)
+        err = _mesh_err(f"{name} tiled scan vs greedy_scan", got, kernels.greedy_scan(b, params))
+        line = "the unsharded kernel"
+        if cut is not None:
+            bc, pc = cut
+            tc = M.shard_batch(bc, grid)
+            got_c = kernels.tiled_greedy_scan(tc, pc)
+            err = max(err, _mesh_err(f"{name} cut tiled scan vs greedy_scan", got_c,
+                                     kernels.greedy_scan(bc, pc)))
+            t0 = time.perf_counter()
+            plain = greedy_assign_tiled_plain(tc, pc)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            err = max(err, _mesh_err(f"{name} cut tiled scan vs its plain version",
+                                     got_c, plain))
+            line += f" and, cut to {bc.requests.shape[0]} pods, the tiled plain scan"
+        if name.startswith("SchedulingBasic"):
+            t0 = time.perf_counter()
+            plain_full = greedy_assign_tiled_plain(tb, params)
+            torch.cuda.synchronize()
+            plain_full_ms = 1e3 * (time.perf_counter() - t0)
+            err = max(err, _mesh_err(f"{name} tiled scan vs its plain version", got,
+                                     plain_full))
+            line += " and, in full, the tiled plain scan"
+        note("tiled_scan", name, err)
+        log(f"mesh [{name}] on the {shape} grid: tiled rounds ({t_rounds[0]} rounds) equal "
+            f"to the unsharded kernel and the tiled plain rounds, every pod row's node rows "
+            f"equal; tiled scan equal to {line}")
+        P, N = b.requests.shape[0], b.alloc.shape[0]
+        state_bytes = sum(int(x.nbytes) for x in (b.requested, b.nonzero_requested,
+                                                  b.pod_count, b.node_ports))
+        if name.startswith("SchedulingPodAffinity"):
+            t0 = time.perf_counter()
+            batched_assign_tiled_plain(tb, params)
+            torch.cuda.synchronize()
+            timing["tiled_round"] = {
+                "ms": cuda_ms(lambda: kernels.tiled_batched_assign(tb, params), 5),
+                "unsharded_ms": cuda_ms(lambda: kernels.batched_assign(b, params), 5),
+                "plain_ms": 1e3 * (time.perf_counter() - t0),
+                "bytes": rt.batch_nbytes(b) + P * 4 + state_bytes
+                + int(b.podaffinity.base_sums.nbytes),
+                "ops": k_rounds[0] * P * N * f64_ops_per_pair(params, b),
+                "shape": [P, N] + shape, "rounds": k_rounds[0], "batch": name,
+            }
+        if name.startswith("SchedulingBasic") and cut is not None:
+            bc, pc = cut
+            Pc = bc.requests.shape[0]
+            timing["tiled_scan"] = {
+                "ms": cuda_ms(lambda: kernels.tiled_greedy_scan(tb, params), 3),
+                "unsharded_ms": cuda_ms(lambda: kernels.greedy_scan(b, params), 3),
+                "plain_ms": plain_full_ms,
+                "bytes": rt.batch_nbytes(b) + P * 4 + state_bytes,
+                "ops": P * N * f64_ops_per_pair(params, b),
+                "shape": [P, N] + shape, "batch": name,
+                "cut": {"pods": Pc,
+                        "ms": cuda_ms(lambda: kernels.tiled_greedy_scan(tc, pc), 5),
+                        "unsharded_ms": cuda_ms(lambda: kernels.greedy_scan(bc, pc), 5),
+                        "plain_ms": plain_ms},
+            }
+    return timing
+
+
+def grid_batches(basic, podaffinity, spread):
+    """The batches K6 and K7 are held on: SchedulingPodAffinity,
+    TopologySpreading and SchedulingBasic at 1024 x 5120, each with a
+    batch of its template cut for the plain tiled scan (128 pods; Basic's,
+    whose scan is timed, 256). Each argument is (batch, params) at full
+    size."""
+    from kubetpu_torch.framework import config as C
+    from kubetpu_torch.perf import workloads as W
+
+    cache_p, pending_p = podaffinity_case(n_pending=128)
+    cache_s, pending_s = topology_case(W.pod_with_topology_spreading, n_pending=128)
+    cache_b, pending_b = basic_case(n_pending=256)
+    return [
+        ("SchedulingPodAffinity 1024x5120", *podaffinity,
+         encode(cache_p, pending_p, C.Profile())),
+        ("TopologySpreading 1024x5120", *spread, encode(cache_s, pending_s, C.Profile())),
+        ("SchedulingBasic 1024x5120", *basic, encode(cache_b, pending_b, C.Profile())),
+    ]
+
+
 def mesh_kernel_lines(results, timing) -> list:
     """The mesh kernels' lines of the kernels JSON line."""
     out = []
@@ -2964,7 +3234,7 @@ def mesh_kernel_lines(results, timing) -> list:
             "cases": results[name]["cases"], "shape": tm["shape"],
         }
         for k in ("unsharded_ms", "exchange_us", "collective_wall_s", "exchanges_per_step",
-                  "rounds", "batch"):
+                  "rounds", "batch", "cut", "iterations"):
             if k in tm:
                 line[k] = tm[k]
         out.append(line)
@@ -3785,17 +4055,17 @@ def plain_packing(b, params):
 PACKING = ("filter_score", "packing_start", "packing_round", "packing_end", "explain_summary")
 
 
-def packing_paths(card) -> list:
+def packing_paths(card) -> dict:
     """The packing engine's paths: BinPacking/1000Nodes_3000Pods on the
     greedy, batched and packing engines (the frontier: packing must use no
     more nodes than greedy), SchedulingBasic/5000Nodes_10000Pods on
     packing, and the same on the 32-slice fleet with ``topology="on"``.
-    Returns their launch counts."""
+    Returns the runs by key."""
     from kubetpu_torch.assign.batched import batched_assign_plain
     from kubetpu_torch.assign.greedy import greedy_assign_plain
 
     frontier = {}
-    runs = []
+    runs = {}
     for engine, plain, names in (
             ("greedy", greedy_assign_plain, ("filter_score", "greedy_scan", "explain_summary")),
             ("batched", batched_assign_plain,
@@ -3810,20 +4080,20 @@ def packing_paths(card) -> list:
             "priority_slo_hit_rate": res.priority_slo_hit_rate,
             "solver_iters_per_cycle": res.solver_iters_per_cycle,
         }
-        runs.append(run)
+        runs[f"binpack {engine}"] = run
     used = {e: f["nodes_used_at_steady_state"] for e, f in frontier.items()}
     if used["packing"] > used["greedy"]:
         raise AssertionError(f"BinPacking: packing uses {used['packing']} nodes, greedy "
                              f"{used['greedy']}")
     log(json.dumps({"packing_frontier": {
         "workload": "BinPacking/1000Nodes_3000Pods", **frontier, "card": card}}))
-    runs.append(run_path(card, "SchedulingBasic", "5000Nodes_10000Pods", "packing",
-                         1000 + 10000, plain_packing, PACKING + ("scatter_rows",),
-                         check=steady_deltas))
-    runs.append(run_path(card, "SchedulingBasic", "5000Nodes_10000Pods", "packing",
-                         1000 + 10000, plain_packing, PACKING,
-                         workload_kw=dict(topology="on", slices=SLICES)))
-    return [run[0] for run in runs]
+    runs["basic packing"] = run_path(card, "SchedulingBasic", "5000Nodes_10000Pods", "packing",
+                                     1000 + 10000, plain_packing, PACKING + ("scatter_rows",),
+                                     check=steady_deltas)
+    runs["basic packing sliced"] = run_path(card, "SchedulingBasic", "5000Nodes_10000Pods",
+                                            "packing", 1000 + 10000, plain_packing, PACKING,
+                                            workload_kw=dict(topology="on", slices=SLICES))
+    return runs
 
 
 def pv_check(sched) -> dict:
@@ -4064,11 +4334,11 @@ def dra_paths(card) -> list:
         PRIORITIZED, PRIORITIZED_CONTENTION)]
 
 
-def main_path_phase(card: str) -> list[dict]:
+def main_path_phase(card: str) -> dict:
     """The six paths on the defaults (encode cache, resident block,
     serial cycle), then SchedulingBasic and PreferredTopologySpreading
     again with the pipelined cycle, whose bound maps must equal the serial
-    runs' pod for pod. Returns every run's launch counts."""
+    runs' pod for pod. Returns every run (``run_path``'s tuple) by key."""
     from kubetpu_torch.assign.batched import batched_assign_plain
     from kubetpu_torch.assign.greedy import greedy_assign_plain
 
@@ -4125,7 +4395,7 @@ def main_path_phase(card: str) -> list[dict]:
     stamp("phase 4: main, webhook and pipelined paths")
     # the node mesh: four logical shards on this card
     runs.update(mesh_paths(card, node_mesh(4, True), runs))
-    return [run[0] for run in runs.values()]
+    return runs
 
 
 def mesh_paths(card, mesh, unsharded: dict) -> dict:
@@ -4177,6 +4447,59 @@ def mesh_paths(card, mesh, unsharded: dict) -> dict:
     return runs
 
 
+def _same_bound(label, got, want) -> None:
+    if got[1] != want[1]:
+        moved = sum(1 for k, v in got[1].items() if want[1].get(k) != v)
+        raise AssertionError(f"{label}: {moved} pods bound elsewhere than in the unsharded run")
+
+
+def mesh12_paths(card, mesh, grid, unsharded: dict) -> dict:
+    """Phase 4 for the packing engine on the node mesh and the pods x nodes
+    grid: ``BinPacking/1000Nodes_3000Pods`` and
+    ``SchedulingBasic/5000Nodes_10000Pods`` on packing under ``mesh``
+    (through ``sharded_packing``; bound maps pod for pod and nodes used
+    equal to the unsharded packing runs'), then
+    ``SchedulingPodAffinity/5000Nodes_5000Pods`` on the batched engine
+    (``tiled_round``) and ``SchedulingBasic/5000Nodes_10000Pods`` on the
+    greedy engine (``tiled_scan``) under ``grid``, bound maps equal to the
+    unsharded runs'. ``unsharded`` holds those runs by key. Returns the
+    runs."""
+    shape = "x".join(map(str, mesh.shape))
+    gshape = "x".join(map(str, grid.shape))
+    packing = ("filter_score", "sharded_packing")
+    runs = {}
+    for key, case, workload, expected, names in (
+            ("binpack packing", "BinPacking", "1000Nodes_3000Pods", 200 + 3000, packing),
+            ("basic packing", "SchedulingBasic", "5000Nodes_10000Pods", 1000 + 10000,
+             packing + ("scatter_rows",))):
+        run = run_path(card, case, workload, "packing", expected, None, names,
+                       workload_kw=dict(mesh=mesh))
+        want = unsharded[key]
+        _same_bound(f"{case} packing under the mesh", run, want)
+        used, want_used = run[3].nodes_used_at_steady_state, want[3].nodes_used_at_steady_state
+        if used != want_used:
+            raise AssertionError(f"{case} packing under the mesh: {used} nodes used, "
+                                 f"unsharded {want_used}")
+        log(f"[{case} packing mesh {shape}] bound map equal to the unsharded run's, pod for "
+            f"pod ({len(run[1])} pods), {used} nodes used; {run[2]:.1f} pods/s against the "
+            f"unsharded {want[2]:.1f}")
+        runs[key + " mesh"] = run
+    for key, case, workload, engine, expected, kernel in (
+            ("affinity", "SchedulingPodAffinity", "5000Nodes_5000Pods", "batched", 5000 + 5000,
+             "tiled_round"),
+            ("basic", "SchedulingBasic", "5000Nodes_10000Pods", "greedy", 1000 + 10000,
+             "tiled_scan")):
+        run = run_path(card, case, workload, engine, expected, None,
+                       ("filter_score", kernel, "scatter_rows"), workload_kw=dict(mesh=grid))
+        want = unsharded[key]
+        _same_bound(f"{case} {engine} on the grid", run, want)
+        log(f"[{case} {engine} grid {gshape}] bound map equal to the unsharded run's, pod for "
+            f"pod ({len(run[1])} pods); {run[2]:.1f} pods/s against the unsharded "
+            f"{want[2]:.1f}")
+        runs[key + " grid"] = run
+    return runs
+
+
 def mesh_batches():
     """The batches the mesh's K1 is held on: (name, batch, params, with
     the sharded plain engine too). Every template variant of the scan:
@@ -4218,13 +4541,14 @@ def mesh_batches():
 
 def mesh_mode() -> int:
     """``python3 chip_smoke.py --mesh``: the mesh's checks and paths with one
-    shard a card over every visible card (on a machine of four H100s, four
-    shards; with one card, four logical shards on it): phase 3's mesh
-    checks (``mesh_checks``), the unsharded SchedulingBasic,
-    SchedulingPodAffinity and PreemptionAsync paths, the same under the
-    mesh (``mesh_paths``),
-    ``measure_collective_wall``; then the mesh kernels' JSON line, the
-    cards' line and the ``ok`` line."""
+    shard (one tile) a card over every visible card (on a machine of four
+    H100s, four node shards and a 2 x 2 grid; with one card, four logical
+    shards and four logical tiles on it): phase 3's mesh checks
+    (``mesh_checks``, ``packing_mesh_checks``, ``grid_checks``), the
+    unsharded SchedulingBasic, SchedulingPodAffinity, PreemptionAsync,
+    BinPacking and packing paths, the same under the mesh and the grid
+    (``mesh_paths``, ``mesh12_paths``), ``measure_collective_wall``; then
+    the mesh kernels' JSON line, the cards' line and the ``ok`` line."""
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -4233,11 +4557,17 @@ def mesh_mode() -> int:
     build_phase()
     count = torch.cuda.device_count()
     mesh = node_mesh(count, False) if count > 1 else node_mesh(4, True)
-    log(f"mesh: {mesh.size} shards on {len(mesh.cards())} card(s), "
-        f"{torch.cuda.device_count()} visible")
+    grid = grid_mesh(count < 4)
+    log(f"mesh: {mesh.size} shards on {len(mesh.cards())} card(s), grid {list(grid.shape)} "
+        f"on {len(grid.cards())} card(s), {torch.cuda.device_count()} visible")
     batches, basic, rounds = mesh_batches()
     results: dict = {"scatter_rows": {"cases": [], "max_abs_err": 0}}
     timing = mesh_checks(mesh, results, batches, basic, rounds)
+    timing.update(packing_mesh_checks(mesh, results, packing_mesh_batches(basic)))
+    by_name = {name: (b_, p_) for name, b_, p_, _ in batches + rounds}
+    timing.update(grid_checks(grid, results, grid_batches(
+        basic, by_name["SchedulingPodAffinity 1024x5120"],
+        by_name["TopologySpreading 1024x5120"])))
     lines = mesh_kernel_lines(results, timing)
     from kubetpu_torch.assign.batched import batched_assign_plain
     from kubetpu_torch.assign.greedy import greedy_assign_plain
@@ -4254,13 +4584,19 @@ def mesh_mode() -> int:
                                greedy_assign_plain,
                                greedy + ("dry_run_preemption", "filter_component_masks"),
                                check=preemption_check),
+        "binpack packing": run_path(card, "BinPacking", "1000Nodes_3000Pods", "packing",
+                                    200 + 3000, plain_packing, PACKING),
+        "basic packing": run_path(card, "SchedulingBasic", "5000Nodes_10000Pods", "packing",
+                                  1000 + 10000, plain_packing, PACKING + ("scatter_rows",)),
     }
     runs = mesh_paths(card, mesh, unsharded)
+    runs.update(mesh12_paths(card, mesh, grid, unsharded))
     for k in lines:
         k["launches"] = sum(run[0][k["name"]] for run in runs.values())
     from kubetpu_torch.parallel import mesh as M
 
     log(json.dumps({"mesh": {"shape": list(mesh.shape), "cards": len(mesh.cards()),
+                             "grid": list(grid.shape), "grid_cards": len(grid.cards()),
                              "device_count": count,
                              "exchange_us_per_round_trip": timing["shard_argmax"]["exchange_us"],
                              "measure_collective_wall_s": M.measure_collective_wall(mesh),
@@ -4275,12 +4611,16 @@ def mesh_mode() -> int:
 
 
 def time_checkout(mode: str, root: str) -> int:
-    """The ``--time-basic ROOT`` and ``--time-spread ROOT`` modes:
-    CUDA-event medians of the checkout at ``root``'s ``filter_score`` and
-    ``greedy_scan`` engine, on the SchedulingBasic cycle (``basic``), or
-    on the PreferredTopologySpreading cycle and the mixed spread cluster
-    under the spread profile (``spread``); 1024 pods x 5120 padded nodes
-    but the mixed cluster's 512 x 2048."""
+    """The ``--time-basic ROOT``, ``--time-spread ROOT`` and ``--time-mesh
+    ROOT`` modes: CUDA-event medians of the checkout at ``root``'s
+    ``filter_score`` and ``greedy_scan`` engine, on the SchedulingBasic
+    cycle (``basic``), or on the PreferredTopologySpreading cycle and the
+    mixed spread cluster under the spread profile (``spread``); 1024 pods
+    x 5120 padded nodes but the mixed cluster's 512 x 2048. ``mesh``: its
+    greedy engine on the SchedulingBasic cycle and its batched engine on
+    the SchedulingPodAffinity cycle, each sharded by its ``shard_batch``
+    over four logical shards on cuda:0 (kernels K1 and K2, through its
+    ``greedy_assign_device`` / ``batched_assign_device``) and unsharded."""
     sys.path.insert(0, str(Path(root).resolve()))
     card = device_phase()
     from kubetpu_torch import kernels
@@ -4289,6 +4629,11 @@ def time_checkout(mode: str, root: str) -> int:
 
     kernels.build()
     log_build_report(kernels)
+    line = {"root": root, "card": card}
+    if mode == "mesh":
+        time_mesh(line)
+        log(json.dumps({"time_mesh": line}))
+        return 0
     if mode == "basic":
         batches = {"": encode(*basic_case(), C.Profile())}
     else:
@@ -4297,12 +4642,37 @@ def time_checkout(mode: str, root: str) -> int:
                                  C.Profile()),
             "mixed_": encode(*spread_case(seed=3), spread_profiles()["spread"]),
         }
-    line = {"root": root, "card": card}
     for prefix, (b, params) in batches.items():
         line[prefix + "filter_score_ms"] = cuda_ms(lambda: kernels.filter_score(b, params), 20)
         line[prefix + "greedy_scan_ms"] = cuda_ms(lambda: kernels.greedy_scan(b, params), 10)
     log(json.dumps({f"time_{mode}": line}))
     return 0
+
+
+def time_mesh(line: dict) -> None:
+    """``--time-mesh``'s entries of ``line``: the node mesh's engines of
+    the imported checkout against its unsharded kernels (the sharded
+    assignments must equal the unsharded ones)."""
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.assign.batched import batched_assign_device
+    from kubetpu_torch.assign.greedy import greedy_assign_device
+    from kubetpu_torch.framework import config as C
+    from kubetpu_torch.parallel import mesh as M
+
+    mesh = node_mesh(4, True)
+    for prefix, case, sharded, unsharded in (
+            ("basic_greedy_", basic_case, greedy_assign_device, kernels.greedy_scan),
+            ("podaffinity_batched_", podaffinity_case, batched_assign_device,
+             kernels.batched_assign)):
+        b, params = encode(*case(), C.Profile())
+        sb = M.shard_batch(b, mesh)
+        got, want = sharded(sb, params), unsharded(b, params)
+        if not torch.equal(got[0].to(want[0].device), want[0]):
+            raise AssertionError(f"{prefix}: the sharded engine's assignments differ")
+        line[prefix + "sharded_ms"] = cuda_ms(lambda: sharded(sb, params), 20)
+        line[prefix + "unsharded_ms"] = cuda_ms(lambda: unsharded(b, params), 20)
 
 
 def _touched_slots(assignments, threads=1024) -> tuple[int, int]:
@@ -4400,7 +4770,7 @@ def time_dra() -> int:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] in ("--time-basic", "--time-spread"):
+    if len(sys.argv) == 3 and sys.argv[1] in ("--time-basic", "--time-spread", "--time-mesh"):
         return time_checkout(sys.argv[1][len("--time-"):], sys.argv[2])
     if sys.argv[1:] == ["--time-dra"]:
         return time_dra()
@@ -4420,12 +4790,17 @@ def main() -> int:
     build_phase()
     stamp("phases 1-2")
     kernel_lines = kernels_phase()
-    path_launches = main_path_phase(card)
+    runs = main_path_phase(card)
     stamp("phase 4: mesh paths")
+    path_launches = [run[0] for run in runs.values()]
     path_launches += gang_paths(card)
     stamp("phase 4: gang paths")
-    path_launches += packing_paths(card)
+    packing_runs = packing_paths(card)
+    path_launches += [run[0] for run in packing_runs.values()]
     stamp("phase 4: packing paths")
+    path_launches += [run[0] for run in mesh12_paths(
+        card, node_mesh(4, True), grid_mesh(True), {**runs, **packing_runs}).values()]
+    stamp("phase 4: packing-mesh and grid paths")
     path_launches += dra_paths(card)
     stamp("phase 4: DRA paths")
     path_launches.append(bridge_phase(card))

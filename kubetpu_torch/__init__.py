@@ -19,9 +19,11 @@ pipelined over a node block resident on the device, with inter-pod
 affinity, topology spread, preemption and nominations, the extender
 webhooks, the flight recorder, the gang and topology lane, and volumes and
 DynamicResources with the Reserve / Permit / PreBind lifecycle runner
-(``framework.lifecycle``). Features of later slices (the device mesh, the
-asynchronous API dispatcher, ...) raise ``NotImplementedError`` naming
-their ROADMAP item.
+(``framework.lifecycle``), and the device mesh (``parallel.mesh``: the
+node axis on every engine, the pods x nodes grid on the greedy and
+batched engines). Features of later slices (packing on the grid, the gang
+lane under a mesh, the asynchronous API dispatcher, ...) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 __version__ = "0.1.0"

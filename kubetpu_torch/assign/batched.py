@@ -17,7 +17,9 @@ On a CUDA batch ``batched_assign_device`` launches the hand-written
 ``batched_round`` kernels (``kernels/csrc/batched_round.cu``), one round
 after another from the host; ``batched_assign_plain`` is the plain
 PyTorch version, the reference's round body op for op, which a CPU batch
-runs and the kernels are held to.
+runs and the kernels are held to. A sharded batch runs the same rounds
+over its tiles (``batched_assign_tiled_plain``, kernel K6): a pods x nodes
+grid, or a node mesh, which is one pod row.
 
 The reference hashes tie rows in uint64. PyTorch has no uint64 ``<<`` or
 comparison, so the hash is int64 here: wrapping multiply, sum, xor and
@@ -219,27 +221,47 @@ def batched_assign_plain(
     )
 
 
-def _tie_spread_choice_sharded(masks, scores, active, offsets):
-    """``_tie_spread_choice`` over node shards: ``masks`` / ``scores`` are
-    each shard's (P, N/G) rows, ``offsets`` their first global node. The
-    shards reduce the per-pod maximum (max), then at it their tie counts
-    and the wrapping sums of the tie weights of the GLOBAL node indices
-    (sum); every shard ranks the pods alike; the choice is the (r+1)-th tie
-    column in global order, found in the shard whose prefix of counts
-    covers it. Returns (P,) int32 on the first shard's device."""
+def _tie_spread_choice_tiles(masks, scores, active, offsets, band=None):
+    """The tie-spread choice over the tiles of a pods x nodes grid:
+    ``masks[i][j]`` / ``scores[i][j]`` are pod row i's (P/PG, N/NG) rows of
+    node column j, ``offsets`` the columns' first global nodes. With
+    ``band`` (int) the tie predicate is the packing engine's ``>= best -
+    band`` (``packing._banded_tie_choice``). Inside each
+    pod row the columns reduce the per-pod maximum (max), then at it their
+    tie counts and the wrapping sums of the tie weights of the GLOBAL node
+    indices (sum); the rows' per-pod vectors join in pod order, and the
+    hash (xor the best score, once, after the sums) ranks every pod alike
+    in queue order; the choice is the (r+1)-th tie column in global order,
+    found in the column whose prefix of counts covers it. A node mesh is
+    one pod row. Returns (P,) int32 on the first tile's device."""
     from ..ops.reduce import combine
 
-    home = masks[0].device
-    feas = [m & active.to(m.device)[:, None] for m in masks]
-    any_f = combine("max", [torch.any(f, dim=1).to(home) for f in feas])
-    masked = [torch.where(f, s, I64_MIN) for f, s in zip(feas, scores)]
-    best = combine("max", [torch.max(x, dim=1).values.to(home) for x in masked])
-    ties = [f & (x == best.to(x.device)[:, None]) for f, x in zip(feas, masked)]
-    h = combine("sum", [
-        torch.sum(torch.where(
-            t, tie_weights(t.shape[1] + o, t.device)[o:][None, :], 0), dim=1).to(home)
-        for t, o in zip(ties, offsets)
-    ])
+    home = masks[0][0].device
+    pb = masks[0][0].shape[0]
+    rows = []
+    for i, (row_m, row_s) in enumerate(zip(masks, scores)):
+        act = active[i * pb:(i + 1) * pb]
+        feas = [m & act.to(m.device)[:, None] for m in row_m]
+        any_f = combine("max", [torch.any(f, dim=1).to(home) for f in feas])
+        masked = [torch.where(f, x, I64_MIN) for f, x in zip(feas, row_s)]
+        best = combine("max", [torch.max(x, dim=1).values.to(home) for x in masked])
+        if band is None:
+            ties = [f & (x == best.to(x.device)[:, None]) for f, x in zip(feas, masked)]
+        else:
+            ties = [f & (x >= (best - band).to(x.device)[:, None])
+                    for f, x in zip(feas, masked)]
+        h = combine("sum", [
+            torch.sum(torch.where(
+                t, tie_weights(t.shape[1] + o, t.device)[o:][None, :], 0), dim=1).to(home)
+            for t, o in zip(ties, offsets)
+        ])
+        counts = [torch.sum(t, dim=1).to(torch.int32).to(home) for t in ties]
+        rows.append((any_f, best, h, counts, ties))
+    # the pod rows' per-pod vectors, joined in pod order
+    any_f = torch.cat([r[0] for r in rows])
+    best = torch.cat([r[1] for r in rows])
+    h = torch.cat([r[2] for r in rows])
+    cnt = torch.cat([combine("sum", r[3]) for r in rows])
     h = h ^ (best << 1)
     h = torch.where(any_f & active, h, 0)
     p = h.shape[0]
@@ -250,138 +272,163 @@ def _tie_spread_choice_sharded(masks, scores, active, offsets):
     seg_start = torch.cummax(torch.where(new_seg, iota, 0), dim=0).values
     rank = torch.zeros(p, dtype=torch.int32, device=home)
     rank[si] = iota - seg_start
-    counts = [torch.sum(t, dim=1).to(torch.int32).to(home) for t in ties]
-    cnt = combine("sum", counts)
     r = torch.where(cnt > 0, rank % torch.clamp(cnt, min=1), 0)
     choice = torch.full((p,), -1, dtype=torch.int32, device=home)
-    before = torch.zeros(p, dtype=torch.int32, device=home)
-    for t, c, o in zip(ties, counts, offsets):
-        here = (r >= before) & (r < before + c)
-        csum = torch.cumsum(t.to(torch.int32), dim=1)
-        target = (r - before + 1).to(t.device)
-        col = torch.argmax((csum == target[:, None]).to(torch.int8), dim=1).to(home)
-        choice = torch.where(here, (col + o).to(torch.int32), choice)
-        before = before + c
+    for i, (_, _, _, counts, ties) in enumerate(rows):
+        lo = i * pb
+        r_i = r[lo:lo + pb]
+        before = torch.zeros(pb, dtype=torch.int32, device=home)
+        for t, c, o in zip(ties, counts, offsets):
+            here = (r_i >= before) & (r_i < before + c)
+            csum = torch.cumsum(t.to(torch.int32), dim=1)
+            target = (r_i - before + 1).to(t.device)
+            col = torch.argmax((csum == target[:, None]).to(torch.int8), dim=1).to(home)
+            choice[lo:lo + pb] = torch.where(here, (col + o).to(torch.int32),
+                                             choice[lo:lo + pb])
+            before = before + c
     return torch.where(any_f & active, choice, -1).to(torch.int32)
 
 
-def batched_assign_sharded_plain(sb, params: rt.ScoreParams, max_rounds: int = 0,
-                                 rounds_out: list | None = None):
-    """The plain round loop over a node-sharded batch
-    (``parallel.mesh.ShardedBatch``). Each round: every shard's Filter +
-    Score on its rows in lockstep (``mesh.run_sharded``), the tie-spread
-    choice over the shards (``_tie_spread_choice_sharded``), then each
-    shard admits the pods that chose its nodes (``_accept`` on its rows:
-    one a node, queue order, capacity); the admissions combine (any), the
-    prefix before the first rejection commits, each shard adds its
-    committed pods to its rows and counts, and the affinity increments the
-    shards found at their nodes' domains sum into the replicated sums.
-    Same return as ``greedy.greedy_assign_sharded_plain``."""
+def batched_assign_tiled_plain(tb, params: rt.ScoreParams, max_rounds: int = 0,
+                               rounds_out: list | None = None,
+                               rows_out: list | None = None):
+    """The plain round loop over a sharded batch
+    (``parallel.mesh.ShardedBatch``: a pods x nodes grid, or a node mesh,
+    which is one pod row). Each round: every pod row's Filter + Score on
+    its tiles, its node columns in lockstep (``mesh.run_sharded``);
+    the tie-spread choice with the rows' per-pod vectors joined in pod
+    order before the rank (``_tie_spread_choice_tiles``); then every tile
+    admits, over the choices of every pod row, the pods that chose its
+    column's nodes (``_accept``: one a node, queue order, capacity, from
+    every pod's leaves, ``ShardedBatch.gathered``); the admissions combine
+    (any), the prefix before the first rejection over all P commits, and
+    every tile applies every committed pod of its column to its own copy
+    of the column's rows, so the pod rows' copies stay equal; each pod
+    row's affinity increments sum over its columns into its tiles'
+    replicated sums. Same return as ``greedy.greedy_assign_tiled_plain``
+    (the node slots from pod row 0's tiles); ``rows_out``, when given, receives
+    every pod row's (requested, nonzero, pod_count, node_ports,
+    spread_counts) as ``mesh.ShardedTensor``s."""
     from ..ops.reduce import combine
     from ..parallel.mesh import ShardedTensor, run_sharded
 
-    shards, offsets, mesh = sb.shards, sb.offsets, sb.mesh
-    G = len(shards)
-    b0 = shards[0]
-    home = b0.device
-    p = b0.requests.shape[0]
+    tiles, offsets = tb.shards, tb.offsets
+    PG, NG = tb.pod_rows, tb.columns
+    full = tb.gathered.shards
+    home = tiles[0].device
+    p = tb.num_pods
     cap = max_rounds or p
     iota_p = torch.arange(p, dtype=torch.int32, device=home)
-    req = [s.requested for s in shards]
-    nz = [s.nonzero_requested for s in shards]
-    pc = [s.pod_count for s in shards]
-    ports = [s.node_ports for s in shards]
-    sp_counts = [None if s.spread is None else s.spread.node_count for s in shards]
-    pa_sums = [None if s.podaffinity is None else s.podaffinity.base_sums for s in shards]
+    req = [s.requested for s in tiles]
+    nz = [s.nonzero_requested for s in tiles]
+    pc = [s.pod_count for s in tiles]
+    ports = [s.node_ports for s in tiles]
+    sp_counts = [None if s.spread is None else s.spread.node_count for s in tiles]
+    pa_sums = [None if s.podaffinity is None else s.podaffinity.base_sums for s in tiles]
     nom = [
         None if s.nominated_pod_idx is None
         else torch.ones(s.nominated_pod_idx.shape[0], dtype=torch.bool, device=s.device)
-        for s in shards
+        for s in tiles
     ]
-    active = b0.pod_valid
+    active = full[0].pod_valid.to(home)
     assignments = torch.full((p,), -1, dtype=torch.int32, device=home)
     progress = True
     rounds = 0
     while progress and rounds < cap and bool(torch.any(active)):
-        outs = run_sharded([
-            rt.feasible_and_scores_steps(
-                shards[g], params, requested=req[g], nonzero_requested=nz[g],
-                pod_count=pc[g], node_ports=ports[g], spread_counts=sp_counts[g],
-                pa_sums=pa_sums[g], nominated_active=nom[g])
-            for g in range(G)
-        ], mesh)
-        choice = _tie_spread_choice_sharded(
-            [m for m, _ in outs], [s for _, s in outs], active, offsets)
-        local, accepted_g = [], []
-        for g, s in enumerate(shards):
+        masks, scores = [], []
+        for i in range(PG):
+            ts = range(i * NG, (i + 1) * NG)
+            outs = run_sharded([
+                rt.feasible_and_scores_steps(
+                    tiles[t], params, requested=req[t], nonzero_requested=nz[t],
+                    pod_count=pc[t], node_ports=ports[t], spread_counts=sp_counts[t],
+                    pa_sums=pa_sums[t], nominated_active=nom[t])
+                for t in ts
+            ], tb.mesh.row(i))
+            masks.append([m for m, _ in outs])
+            scores.append([x for _, x in outs])
+        choice = _tie_spread_choice_tiles(masks, scores, active, offsets)
+        local, accepted_t = [], []
+        for t, s in enumerate(tiles):
+            j = t % NG
             n = s.alloc.shape[0]
-            c = choice.to(s.device) - offsets[g]
+            c = choice.to(s.device) - offsets[j]
             mine = (choice.to(s.device) >= 0) & (c >= 0) & (c < n)
             c = torch.where(mine, c, -1).to(torch.int32)
             local.append(c)
-            accepted_g.append(_accept(
-                c, s.requests, free=s.alloc - req[g], count_room=s.allowed_pods - pc[g],
-                check_capacity=params.filter_fit,
+            accepted_t.append(_accept(
+                c, full[j].requests.to(s.device), free=s.alloc - req[t],
+                count_room=s.allowed_pods - pc[t], check_capacity=params.filter_fit,
             ).to(home))
-        accepted = combine("max", accepted_g)
+        accepted = combine("max", accepted_t)
         rejected = active & (choice >= 0) & ~accepted
         first_rej = torch.min(torch.where(rejected, iota_p, p))
         commit = accepted & (iota_p < first_rej)
         finalize = active & (choice < 0) & (iota_p < first_rej)
-        flat_parts = []
-        for g, s in enumerate(shards):
+        flat_rows: list = [[] for _ in range(PG)]
+        for t, s in enumerate(tiles):
+            i, j = divmod(t, NG)
+            f, dev = full[j], s.device
             n = s.alloc.shape[0]
-            acc = commit.to(s.device) & (local[g] >= 0)
-            seg = torch.where(acc, local[g], n).long()
+            acc = commit.to(dev) & (local[t] >= 0)
+            seg = torch.where(acc, local[t], n).long()
             a64 = acc.to(torch.int64)
 
-            def seg_sum(vals, n=n, seg=seg, dev=s.device):
+            def seg_sum(vals, n=n, seg=seg, dev=dev):
                 out = torch.zeros((n + 1,) + vals.shape[1:], dtype=vals.dtype, device=dev)
-                return out.index_add_(0, seg, vals)[:n]
+                return out.index_add_(0, seg, vals.to(dev))[:n]
 
-            req[g] = req[g] + seg_sum(s.requests * a64[:, None])
-            nz[g] = nz[g] + seg_sum(s.nonzero_requests * a64[:, None])
-            pc[g] = pc[g] + seg_sum(acc.to(pc[g].dtype))
-            ports[g] = ports[g] | (seg_sum(s.pod_ports.to(torch.int64) * a64[:, None]) > 0)
-            if sp_counts[g] is not None:
-                sp = s.spread
-                upd = seg_sum(sp.pod_match_sig.to(sp_counts[g].dtype)).T
-                sp_counts[g] = sp_counts[g] + upd * sp.eligible.to(upd.dtype)
-            if pa_sums[g] is not None:
-                pa = s.podaffinity
-                r_rows, d = pa_sums[g].shape
-                dcol = pa.node_domain[:, torch.clamp(local[g], min=0).long()].T  # (P, R)
+            req[t] = req[t] + seg_sum(f.requests.to(dev) * a64[:, None])
+            nz[t] = nz[t] + seg_sum(f.nonzero_requests.to(dev) * a64[:, None])
+            pc[t] = pc[t] + seg_sum(acc.to(pc[t].dtype))
+            ports[t] = ports[t] | (seg_sum(f.pod_ports.to(dev).to(torch.int64) * a64[:, None]) > 0)
+            if sp_counts[t] is not None:
+                upd = seg_sum(f.spread.pod_match_sig.to(dev).to(sp_counts[t].dtype)).T
+                sp_counts[t] = sp_counts[t] + upd * s.spread.eligible.to(upd.dtype)
+            if pa_sums[t] is not None:
+                r_rows, d = pa_sums[t].shape
+                dcol = s.podaffinity.node_domain[:, torch.clamp(local[t], min=0).long()].T
                 valid = (dcol >= 0) & acc[:, None]
-                inc = torch.where(valid, pa.update, 0)
+                inc = torch.where(valid, f.podaffinity.update.to(dev), 0)
                 flat_ids = torch.where(
                     valid,
-                    torch.arange(r_rows, device=s.device)[None, :] * d
-                    + torch.clamp(dcol, min=0),
+                    torch.arange(r_rows, device=dev)[None, :] * d + torch.clamp(dcol, min=0),
                     r_rows * d,
                 ).long()
-                flat = torch.zeros(r_rows * d + 1, dtype=torch.int64, device=s.device)
+                flat = torch.zeros(r_rows * d + 1, dtype=torch.int64, device=dev)
                 flat.index_add_(0, flat_ids.reshape(-1), inc.reshape(-1))
-                flat_parts.append(flat[: r_rows * d].reshape(r_rows, d).to(home))
-        if flat_parts:
-            inc = combine("sum", flat_parts)
-            pa_sums = [x + inc.to(x.device) for x in pa_sums]
+                flat_rows[i].append(flat[: r_rows * d].reshape(r_rows, d).to(home))
+        for i, parts in enumerate(flat_rows):
+            if parts:
+                inc = combine("sum", parts)
+                for t in range(i * NG, (i + 1) * NG):
+                    pa_sums[t] = pa_sums[t] + inc.to(pa_sums[t].device)
         if nom[0] is not None:
-            for g, s in enumerate(shards):
+            for t, s in enumerate(tiles):
                 idx = s.nominated_pod_idx
-                c = commit.to(s.device)
-                consumed = (idx >= 0) & c[torch.clamp(idx, min=0).long()]
-                nom[g] = nom[g] & ~consumed
+                consumed = (idx >= 0) & commit.to(s.device)[torch.clamp(idx, min=0).long()]
+                nom[t] = nom[t] & ~consumed
         assignments = torch.where(commit, choice, assignments)
         active = active & ~commit & ~finalize
         progress = bool(torch.any(commit | finalize))
         rounds += 1
     if rounds_out is not None:
         rounds_out.append(rounds)
-    return assignments, (
-        ShardedTensor(req), ShardedTensor(nz), ShardedTensor(pc), ShardedTensor(ports),
-        None if sp_counts[0] is None else ShardedTensor(sp_counts, axis=1),
-        pa_sums[0], nom[0],
-    )
+    if rows_out is not None:
+        rows_out.extend(_row_slots(req, nz, pc, ports, sp_counts, i, NG) for i in range(PG))
+    return assignments, _row_slots(req, nz, pc, ports, sp_counts, 0, NG) + (
+        pa_sums[0], nom[0])
+
+
+def _row_slots(req, nz, pc, ports, sp_counts, i: int, ng: int) -> tuple:
+    """Pod row i's node slots of a grid's per-tile state lists, as
+    ``mesh.ShardedTensor``s over its columns."""
+    from ..parallel.mesh import ShardedTensor
+
+    cols = slice(i * ng, (i + 1) * ng)
+    return (ShardedTensor(req[cols]), ShardedTensor(nz[cols]), ShardedTensor(pc[cols]),
+            ShardedTensor(ports[cols]),
+            None if sp_counts[0] is None else ShardedTensor(sp_counts[cols], axis=1))
 
 
 def batched_assign_device(
@@ -390,17 +437,18 @@ def batched_assign_device(
 ):
     """Run the batched assignment. A CUDA batch launches the
     ``batched_round`` kernels; a CPU batch runs ``batched_assign_plain``.
-    A node-sharded batch (``parallel.mesh.ShardedBatch``) runs the sharded
-    rounds: the kernels on CUDA shards, ``batched_assign_sharded_plain`` on
-    CPU ones. Same return shape as ``batched_assign_plain``."""
+    A sharded batch (``parallel.mesh.ShardedBatch``, a node mesh or a pods
+    x nodes grid) runs the tiled rounds: kernel K6 on CUDA tiles,
+    ``batched_assign_tiled_plain`` on CPU ones. Same return shape as
+    ``batched_assign_plain``."""
     from ..parallel.mesh import ShardedBatch
 
     if isinstance(b, ShardedBatch):
         if b.device.type == "cpu":
-            return batched_assign_sharded_plain(b, params, max_rounds, rounds_out)
-        from ..kernels import sharded_batched_assign
+            return batched_assign_tiled_plain(b, params, max_rounds, rounds_out)
+        from ..kernels import tiled_batched_assign
 
-        return sharded_batched_assign(b, params, max_rounds, rounds_out)
+        return tiled_batched_assign(b, params, max_rounds, rounds_out)
     if b.device.type == "cpu":
         return batched_assign_plain(b, params, max_rounds, rounds_out)
     from ..kernels import batched_assign

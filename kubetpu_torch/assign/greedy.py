@@ -8,7 +8,9 @@ PyTorch would split each step into dozens of launches, so on a CUDA batch
 pods on the device. ``greedy_assign_plain`` is the plain PyTorch version,
 a Python loop over pods that calls ``feasible_and_scores`` for one pod
 against the running state; it is what a CPU batch runs and what the
-kernel is held to.
+kernel is held to. A sharded batch runs the scan over its tiles
+(``greedy_assign_tiled_plain``, kernel K7): a pods x nodes grid, or a node
+mesh, which is one pod row.
 
 The reference schedules pods strictly one at a time: ``scheduleOne`` pops a
 pod, filters + scores all nodes against the *current* cache (which includes
@@ -163,103 +165,109 @@ def greedy_assign_plain(b: rt.DeviceBatch, params: rt.ScoreParams):
     )
 
 
-def greedy_assign_sharded_plain(sb, params: rt.ScoreParams):
-    """The plain greedy loop over a node-sharded batch
-    (``parallel.mesh.ShardedBatch``). Each step runs every shard's
-    Filter + Score on its own rows in lockstep (``mesh.run_sharded``
-    combines the normalize maxima, spread sums, bitmaps and counts), picks
-    each shard's first maximum, then the step's node by (score, -global
-    index) over the shards (``mesh.first_best``). The owner shard applies
-    the resource, port and spread-count updates to its rows and publishes
-    the chosen node's affinity domains, which every shard adds into its
-    replicated (RA, D) sums; the live nominations are replicated.
+def greedy_assign_tiled_plain(tb, params: rt.ScoreParams, rows_out: list | None = None):
+    """The plain greedy loop over a sharded batch
+    (``parallel.mesh.ShardedBatch``: a pods x nodes grid, or a node mesh,
+    which is one pod row). Step p reads pod p from its pod row ``p // (P /
+    PG)``: that row's tiles run the step's Filter + Score on their node
+    columns in lockstep (``mesh.run_sharded``, which combines the
+    normalize maxima, spread sums, bitmaps and counts), and the step's
+    node is the first best over the columns by (score, -global index)
+    (``mesh.first_best``). Every pod row's copy of the owner column's rows
+    takes the pick (resources, ports, spread counts), every tile's
+    replicated affinity sums and live nominations too, so the rows' copies
+    stay equal.
 
     Returns ``(assignments (P,) int32 global node index or -1, final
     state)``: the seven slots, the node-axis ones as
-    ``mesh.ShardedTensor``s, the affinity sums and nominations as shard 0's
-    copies."""
-    from ..parallel.mesh import ShardedTensor, first_best, run_sharded
+    ``mesh.ShardedTensor``s of pod row 0's tiles, the affinity sums and
+    nominations as tile 0's copies; ``rows_out`` as
+    ``batched.batched_assign_tiled_plain``'s."""
+    from ..parallel.mesh import first_best, run_sharded
+    from .batched import _row_slots
 
-    shards, offsets, mesh = sb.shards, sb.offsets, sb.mesh
-    G = len(shards)
-    req = [s.requested.clone() for s in shards]
-    nz = [s.nonzero_requested.clone() for s in shards]
-    pc = [s.pod_count.clone() for s in shards]
-    ports = [s.node_ports.clone() for s in shards]
-    sp_counts = [None if s.spread is None else s.spread.node_count.clone() for s in shards]
-    pa_sums = [None if s.podaffinity is None else s.podaffinity.base_sums for s in shards]
+    tiles, offsets = tb.shards, tb.offsets
+    PG, NG = tb.pod_rows, tb.columns
+    pb = int(tiles[0].requests.shape[0])
+    req = [s.requested.clone() for s in tiles]
+    nz = [s.nonzero_requested.clone() for s in tiles]
+    pc = [s.pod_count.clone() for s in tiles]
+    ports = [s.node_ports.clone() for s in tiles]
+    sp_counts = [None if s.spread is None else s.spread.node_count.clone() for s in tiles]
+    pa_sums = [None if s.podaffinity is None else s.podaffinity.base_sums for s in tiles]
     nom = [
         None if s.nominated_pod_idx is None
         else torch.ones(s.nominated_pod_idx.shape[0], dtype=torch.bool, device=s.device)
-        for s in shards
+        for s in tiles
     ]
     chosen_all = []
-    for i in range(shards[0].requests.shape[0]):
-        views = [_pod_view(s, i) for s in shards]
+    for p in range(PG * pb):
+        i, q = divmod(p, pb)
+        row = range(i * NG, (i + 1) * NG)
+        views = [_pod_view(tiles[t], q) for t in row]
         outs = run_sharded([
             rt.feasible_and_scores_steps(
-                views[g], params, requested=req[g], nonzero_requested=nz[g],
-                pod_count=pc[g], node_ports=ports[g], spread_counts=sp_counts[g],
-                pa_sums=pa_sums[g], nominated_active=nom[g])
-            for g in range(G)
-        ], mesh)
+                v, params, requested=req[t], nonzero_requested=nz[t], pod_count=pc[t],
+                node_ports=ports[t], spread_counts=sp_counts[t], pa_sums=pa_sums[t],
+                nominated_active=nom[t])
+            for v, t in zip(views, row)
+        ], tb.mesh.row(i))
         keys = []
-        for g, (mask, score) in enumerate(outs):
+        for j, (mask, score) in enumerate(outs):
             m, sc = mask[0], score[0]
             if bool(torch.any(m)):
-                j = int(torch.argmax(torch.where(m, sc, -1)))
-                keys.append(((int(sc[j]),), offsets[g] + j))
+                k = int(torch.argmax(torch.where(m, sc, -1)))
+                keys.append(((int(sc[k]),), offsets[j] + k))
             else:
                 keys.append(((), -1))
         chosen = first_best(keys)
         chosen_all.append(chosen)
         if chosen < 0:
             continue
-        o = max(g for g in range(G) if offsets[g] <= chosen)
-        j = chosen - offsets[o]
+        o = max(j for j in range(NG) if offsets[j] <= chosen)
+        k = chosen - offsets[o]
         v = views[o]
-        req[o][j] += v.requests[0]
-        nz[o][j] += v.nonzero_requests[0]
-        pc[o][j] += 1
-        ports[o][j] |= v.pod_ports[0]
-        sp = shards[o].spread
-        if sp is not None:
-            sp_counts[o][:, j] += (sp.pod_match_sig[i] & sp.eligible[:, j]).to(torch.int32)
-        if pa_sums[0] is not None:
-            # the owner publishes the chosen node's domain in every row
-            dcol = shards[o].podaffinity.node_domain[:, j]
-            for g in range(G):
-                pa = shards[g].podaffinity
-                d = dcol.to(pa.base_sums.device)
-                inc = torch.where(d >= 0, pa.update[i], 0)
-                rows = torch.arange(pa_sums[g].shape[0], device=d.device)
-                pa_sums[g] = pa_sums[g].index_put(
+        dcol = None if pa_sums[0] is None else tiles[i * NG + o].podaffinity.node_domain[:, k]
+        for t, s in enumerate(tiles):
+            if t % NG == o:
+                # every pod row's copy of the owner column takes the pick
+                req[t][k] += v.requests[0].to(s.device)
+                nz[t][k] += v.nonzero_requests[0].to(s.device)
+                pc[t][k] += 1
+                ports[t][k] |= v.pod_ports[0].to(s.device)
+                if s.spread is not None:
+                    match = v.spread.pod_match_sig[0].to(s.device)
+                    sp_counts[t][:, k] += (match & s.spread.eligible[:, k]).to(torch.int32)
+            if dcol is not None:
+                d = dcol.to(s.device)
+                inc = torch.where(d >= 0, v.podaffinity.update[0].to(s.device), 0)
+                rows = torch.arange(pa_sums[t].shape[0], device=s.device)
+                pa_sums[t] = pa_sums[t].index_put(
                     (rows, torch.clamp(d, min=0).long()), inc, accumulate=True)
-        if nom[0] is not None:
-            for g in range(G):
-                nom[g] = nom[g] & (shards[g].nominated_pod_idx != i)
-    assignments = torch.tensor(chosen_all, dtype=torch.int32, device=shards[0].device)
-    return assignments, (
-        ShardedTensor(req), ShardedTensor(nz), ShardedTensor(pc), ShardedTensor(ports),
-        None if sp_counts[0] is None else ShardedTensor(sp_counts, axis=1),
-        pa_sums[0], nom[0],
-    )
+            if nom[t] is not None:
+                nom[t] = nom[t] & (s.nominated_pod_idx != p)
+    assignments = torch.tensor(chosen_all, dtype=torch.int32, device=tiles[0].device)
+    if rows_out is not None:
+        rows_out.extend(_row_slots(req, nz, pc, ports, sp_counts, i, NG) for i in range(PG))
+    return assignments, _row_slots(req, nz, pc, ports, sp_counts, 0, NG) + (
+        pa_sums[0], nom[0])
 
 
 def greedy_assign_device(b, params: rt.ScoreParams):
     """Run the greedy assignment. A CUDA batch launches the ``greedy_scan``
-    kernel; a CPU batch runs ``greedy_assign_plain``. A node-sharded batch
-    (``parallel.mesh.ShardedBatch``) runs the sharded scan kernel on CUDA
-    shards and ``greedy_assign_sharded_plain`` on CPU ones. Same return
-    shape as ``greedy_assign_plain``."""
+    kernel; a CPU batch runs ``greedy_assign_plain``. A sharded batch
+    (``parallel.mesh.ShardedBatch``, a node mesh or a pods x nodes grid)
+    runs the tiled scan kernel on CUDA tiles and
+    ``greedy_assign_tiled_plain`` on CPU ones. Same return shape as
+    ``greedy_assign_plain``."""
     from ..parallel.mesh import ShardedBatch
 
     if isinstance(b, ShardedBatch):
         if b.device.type == "cpu":
-            return greedy_assign_sharded_plain(b, params)
-        from ..kernels import sharded_greedy_scan
+            return greedy_assign_tiled_plain(b, params)
+        from ..kernels import tiled_greedy_scan
 
-        return sharded_greedy_scan(b, params)
+        return tiled_greedy_scan(b, params)
     if b.device.type == "cpu":
         return greedy_assign_plain(b, params)
     from ..kernels import greedy_scan

@@ -34,7 +34,10 @@ On a CUDA batch ``packing_assign_device`` launches the hand-written
 then ``filter_score`` and one ``packing_round`` launch a round from the
 host, then an epilogue. ``packing_assign_plain`` is the plain PyTorch
 version, the reference's solve op for op, which a CPU batch runs and the
-kernels are held to.
+kernels are held to. Over a node mesh (``parallel.mesh.ShardedBatch``) the
+solve runs on every shard's rows and combines the shards' partials at
+each reduction over nodes: ``packing_assign_sharded_plain`` on CPU shards,
+kernel K5 (``packing_round.cu``'s shard mode) on CUDA ones.
 
 The reference's float32 arithmetic runs through XLA on the CPU, which
 contracts a multiply feeding an add into one fused multiply-add wherever
@@ -301,13 +304,16 @@ def emptiness(b: rt.DeviceBatch, requested: torch.Tensor) -> torch.Tensor:
     return acc / res_n
 
 
-def _closed_terms(b, requested, pod_count, weights):
+def _closed_terms(b, requested, pod_count, weights, offset: int = 0):
     """The penalty's closed-node terms as XLA rounds them: ``base =
     fma(β, emptiness, α·closed)`` and the low-index bias's factors
     ``(closed·n, 2·band)``, whose product the caller fuses into the add
-    that takes it (after λ, in the rounds)."""
+    that takes it (after λ, in the rounds). ``n`` is the GLOBAL node index:
+    a node shard's rows start at ``offset`` (with its local index every
+    shard would open its own row 0 first)."""
     closed = (pod_count == 0) & b.node_valid
-    iota = torch.arange(b.alloc.shape[0], device=b.device).to(torch.float32)
+    iota = torch.arange(offset, offset + b.alloc.shape[0],
+                        device=b.device).to(torch.float32)
     zero = torch.zeros((), dtype=torch.float32, device=b.device)
     base = fma32(weights[3], emptiness(b, requested),
                  torch.where(closed, weights[2], zero))
@@ -318,13 +324,22 @@ def node_penalty(b, requested, pod_count, lam, weights) -> torch.Tensor:
     """(N,) float32 penalty of landing on each node this round:
     α·closed + β·emptiness + λ + bias, then the slice terms (through
     ``ops.topology.slice_occupancy``, from the CURRENT requested rows)."""
-    base, bias_n, band2 = _closed_terms(b, requested, pod_count, weights)
+    from ..ops.reduce import run_local
+
+    return run_local(node_penalty_steps(b, requested, pod_count, lam, weights))
+
+
+def node_penalty_steps(b, requested, pod_count, lam, weights, offset: int = 0):
+    """``node_penalty`` in steps form (``ops.reduce``) over a node shard
+    whose rows start at global node ``offset``: the slice occupancy is the
+    one reduction over nodes (a slice's nodes may span shards)."""
+    base, bias_n, band2 = _closed_terms(b, requested, pod_count, weights, offset)
     pen = fma32(bias_n, band2, base + lam)
     if b.topology is not None:
-        from ..ops.topology import slice_occupancy
+        from ..ops.topology import slice_occupancy_steps
 
         sid, n_sl = b.topology.slice_id, b.topology.num_slices
-        s_active, _ = slice_occupancy(requested, b.node_valid, sid, n_sl)
+        s_active, _ = yield from slice_occupancy_steps(requested, b.node_valid, sid, n_sl)
         busy = s_active[sid.long()]
         labeled = sid < n_sl
         in_free = (labeled & ~busy).to(torch.float32)
@@ -333,17 +348,27 @@ def node_penalty(b, requested, pod_count, lam, weights) -> torch.Tensor:
     return pen
 
 
-def packing_utility(mask, score, pen, w_score) -> torch.Tensor:
+def packing_utility(mask, score, pen, w_score, row_max=None) -> torch.Tensor:
     """(P, N) int64 utility: ``round((w_score·norm − pen) · 2^20)`` on the
     mask, ``I64_MIN`` off it; norm is the score over the row's largest
-    feasible |score| (at least 1)."""
+    feasible |score| (at least 1). ``row_max`` (P, 1), when given, is that
+    maximum taken over every node shard (``row_abs_max``)."""
     score_f = torch.where(mask, score, 0).to(torch.float32)
-    row_max = torch.max(torch.where(mask, torch.abs(score_f), 0.0), dim=1,
-                        keepdim=True).values
+    if row_max is None:
+        row_max = row_abs_max(mask, score)
     norm = score_f / torch.clamp(row_max, min=1.0)
     util_f = fma32(w_score, norm, -pen[None, :])
     return torch.where(
         mask, torch.round(util_f * _UTIL_SCALE).to(torch.int64), I64_MIN)
+
+
+def row_abs_max(mask, score) -> torch.Tensor:
+    """(P, 1) float32: each row's largest feasible |score| as float32, 0
+    without a feasible node. A maximum is exact in any order, so over node
+    shards the shards' row maxima combine by max to the same bits."""
+    score_f = torch.where(mask, score, 0).to(torch.float32)
+    return torch.max(torch.where(mask, torch.abs(score_f), 0.0), dim=1,
+                     keepdim=True).values
 
 
 def packing_prologue_plain(b: rt.DeviceBatch, lam: torch.Tensor,
@@ -516,15 +541,208 @@ def packing_assign_plain(
     return assignments, state, lam, objective, iters, nodes_used
 
 
+def packing_assign_sharded_plain(sb, params: rt.ScoreParams, lam_pieces, weights: torch.Tensor,
+                                 max_iters: int = 0):
+    """The plain solve over a node-sharded batch (``parallel.mesh.
+    ShardedBatch``), the reference's loop body with every reduction over
+    nodes a combine point (``ops.reduce.combine``): each round, every
+    shard's Filter + Score in lockstep (``mesh.run_sharded``), its node
+    penalties with the GLOBAL node index in the closed-node bias and the
+    slice occupancy summed over the shards, the row maxima of |score|
+    (max), the banded tie choice (``batched._tie_spread_choice_tiles``:
+    best utility max, tie counts and hashes summed, the xor once after the
+    sum), then each shard's admissions for its own nodes
+    (``_accept_packed``; combined by any), its λ ascent on its own nodes,
+    the first rejection in admission ``order`` and the commit to each
+    shard's rows, the affinity increments summed into the replicated sums.
+    At the end: the marginal utility (min), whether any node was used
+    (max), the nodes used and the fragmentation (sums, the float32 one in
+    shard order) and the slices newly opened. The start (admission order,
+    coupled pods) is replicated. ``lam_pieces``: each shard's (N / G,)
+    float32 warm-start duals. Returns ``packing_assign_plain``'s six-tuple,
+    the node slots of the final state and λ as ``mesh.ShardedTensor``s."""
+    from ..ops.reduce import combine
+    from ..ops.topology import slice_occupancy_steps
+    from ..parallel.mesh import ShardedTensor, run_sharded
+    from .batched import _tie_spread_choice_tiles
+
+    shards, offsets, mesh = sb.shards, sb.offsets, sb.mesh
+    G = len(shards)
+    b0 = shards[0]
+    home = b0.device
+    p = b0.requests.shape[0]
+    cap = max_iters or p
+    ws = [weights.to(s.device) for s in shards]
+    band = torch.round(weights[6] * _UTIL_SCALE).to(torch.int64).to(home)
+    order, coupled, _ = packing_prologue_plain(b0, lam_pieces[0], ws[0])
+    lam = [x * w[5] for x, w in zip(lam_pieces, ws)]
+    req = [s.requested for s in shards]
+    nz = [s.nonzero_requested for s in shards]
+    pc = [s.pod_count for s in shards]
+    ports = [s.node_ports for s in shards]
+    sp_counts = [None if s.spread is None else s.spread.node_count for s in shards]
+    pa_sums = [None if s.podaffinity is None else s.podaffinity.base_sums for s in shards]
+    nom = [
+        None if s.nominated_pod_idx is None
+        else torch.ones(s.nominated_pod_idx.shape[0], dtype=torch.bool, device=s.device)
+        for s in shards
+    ]
+    active = b0.pod_valid
+    assignments = torch.full((p,), -1, dtype=torch.int32, device=home)
+    zero = torch.zeros((), dtype=torch.float32, device=home)
+    progress = True
+    iters = 0
+    while progress and iters < cap and bool(torch.any(active)):
+        outs = run_sharded([
+            rt.feasible_and_scores_steps(
+                shards[g], params, requested=req[g], nonzero_requested=nz[g],
+                pod_count=pc[g], node_ports=ports[g], spread_counts=sp_counts[g],
+                pa_sums=pa_sums[g], nominated_active=nom[g])
+            for g in range(G)
+        ], mesh)
+        pens = run_sharded([
+            node_penalty_steps(s, req[g], pc[g], lam[g], ws[g], offsets[g])
+            for g, s in enumerate(shards)
+        ], mesh)
+        row_max = combine("max", [row_abs_max(m, x).to(home) for m, x in outs])
+        utils = [packing_utility(m, x, pen, w[0], row_max.to(m.device))
+                 for (m, x), pen, w in zip(outs, pens, ws)]
+        choice = _tie_spread_choice_tiles([[m for m, _ in outs]], [utils], active, offsets,
+                                          band=band)
+        local, accepted_g = [], []
+        for g, s in enumerate(shards):
+            n, dev = s.alloc.shape[0], s.device
+            c = choice.to(dev) - offsets[g]
+            mine = (choice.to(dev) >= 0) & (c >= 0) & (c < n)
+            c = torch.where(mine, c, -1).to(torch.int32)
+            local.append(c)
+            accepted_g.append(_accept_packed(
+                c, s.requests, free=s.alloc - req[g], count_room=s.allowed_pods - pc[g],
+                order=order.to(dev), coupled=coupled.to(dev),
+                check_capacity=params.filter_fit,
+            ).to(home))
+        accepted = combine("max", accepted_g)
+        # each shard's dual ascent on its own nodes' overflow
+        rejected = active & (choice >= 0) & ~accepted
+        for g, s in enumerate(shards):
+            n, dev, w = s.alloc.shape[0], s.device, ws[g]
+            seg_all = torch.where(local[g] >= 0, local[g], n).long()
+            over = torch.zeros(n + 1, dtype=torch.float32, device=dev).index_add_(
+                0, seg_all, rejected.to(dev).to(torch.float32))[:n]
+            lam[g] = torch.minimum(torch.maximum(
+                fma32(w[4], log1p_counts(over), lam[g]), zero.to(dev)), w[2] * w[7])
+        first_rej = torch.min(torch.where(rejected, order, p))
+        finalize = active & (choice < 0) & (order < first_rej)
+        flat_parts = []
+        for g, s in enumerate(shards):
+            n, dev = s.alloc.shape[0], s.device
+            acc = accepted.to(dev) & (local[g] >= 0)
+            seg = torch.where(acc, local[g], n).long()
+            a64 = acc.to(torch.int64)
+
+            def seg_sum(vals, n=n, seg=seg, dev=dev):
+                out = torch.zeros((n + 1,) + vals.shape[1:], dtype=vals.dtype, device=dev)
+                return out.index_add_(0, seg, vals)[:n]
+
+            req[g] = req[g] + seg_sum(s.requests * a64[:, None])
+            nz[g] = nz[g] + seg_sum(s.nonzero_requests * a64[:, None])
+            pc[g] = pc[g] + seg_sum(acc.to(pc[g].dtype))
+            ports[g] = ports[g] | (seg_sum(s.pod_ports.to(torch.int64) * a64[:, None]) > 0)
+            if sp_counts[g] is not None:
+                sp = s.spread
+                upd = seg_sum(sp.pod_match_sig.to(sp_counts[g].dtype)).T
+                sp_counts[g] = sp_counts[g] + upd * sp.eligible.to(upd.dtype)
+            if pa_sums[g] is not None:
+                pa = s.podaffinity
+                r_rows, d = pa_sums[g].shape
+                dcol = pa.node_domain[:, torch.clamp(local[g], min=0).long()].T
+                valid = (dcol >= 0) & acc[:, None]
+                inc = torch.where(valid, pa.update, 0)
+                flat_ids = torch.where(
+                    valid,
+                    torch.arange(r_rows, device=dev)[None, :] * d + torch.clamp(dcol, min=0),
+                    r_rows * d,
+                ).long()
+                flat = torch.zeros(r_rows * d + 1, dtype=torch.int64, device=dev)
+                flat.index_add_(0, flat_ids.reshape(-1), inc.reshape(-1))
+                flat_parts.append(flat[: r_rows * d].reshape(r_rows, d).to(home))
+        if flat_parts:
+            inc = combine("sum", flat_parts)
+            pa_sums = [x + inc.to(x.device) for x in pa_sums]
+        if nom[0] is not None:
+            for g, s in enumerate(shards):
+                idx = s.nominated_pod_idx
+                consumed = (idx >= 0) & accepted.to(s.device)[torch.clamp(idx, min=0).long()]
+                nom[g] = nom[g] & ~consumed
+        assignments = torch.where(accepted, choice, assignments)
+        active = active & ~accepted & ~finalize
+        progress = bool(torch.any(accepted | finalize))
+        iters += 1
+    # the end: equalization prices, objective, nodes used
+    w0 = ws[0]
+    alpha, beta = w0[2], w0[3]
+    v0, used = [], []
+    for g, s in enumerate(shards):
+        base, bias_n, band2 = _closed_terms(s, s.requested, s.pod_count, ws[g], offsets[g])
+        v0.append(-fma32(bias_n, band2, base))
+        used.append((pc[g] > s.pod_count) & s.node_valid)
+    v_marg = combine("min", [torch.min(torch.where(u, v, math.inf)).reshape(1).to(home)
+                             for u, v in zip(used, v0)])
+    any_used = combine("max", [torch.any(u).reshape(1).to(home) for u in used])
+    for g, s in enumerate(shards):
+        dev, w = s.device, ws[g]
+        lam_eq = torch.minimum(torch.maximum(v0[g] - v_marg.to(dev), zero.to(dev)), w[2] * w[7])
+        lam[g] = torch.where(any_used.to(dev), lam_eq, lam[g])
+    prio = (b0.pod_priority if b0.pod_priority is not None
+            else torch.zeros(p, dtype=torch.int32, device=home))
+    admitted = (assignments >= 0) & b0.pod_valid
+    admission = torch.sum(torch.where(
+        admitted, 1.0 + w0[1] * prio.to(torch.float32), 0.0))
+    opened = [(pc[g] > 0) & s.node_valid for g, s in enumerate(shards)]
+    nodes_used = combine("sum", [torch.sum(o).to(torch.int32).reshape(1).to(home)
+                                 for o in opened])[0]
+    frag = combine("sum", [torch.sum(torch.where(o, emptiness(s, req[g]), 0.0)).reshape(1)
+                           .to(home) for g, (o, s) in enumerate(zip(opened, shards))])[0]
+    objective = admission - alpha * nodes_used.to(torch.float32) - beta * frag
+    if b0.topology is not None:
+        n_sl = b0.topology.num_slices
+        acts = []
+        for rows in ([s.requested for s in shards], req):
+            acts.append(run_sharded([
+                slice_occupancy_steps(r, s.node_valid, s.topology.slice_id, n_sl)
+                for r, s in zip(rows, shards)
+            ], mesh)[0][0].to(home))
+        act0, act1 = acts
+        newly = torch.sum((act1[:n_sl] & ~act0[:n_sl]).to(torch.float32))
+        objective = objective - w0[8] * newly
+    state = (ShardedTensor(req), ShardedTensor(nz), ShardedTensor(pc), ShardedTensor(ports),
+             None if sp_counts[0] is None else ShardedTensor(sp_counts, axis=1),
+             pa_sums[0], nom[0])
+    return assignments, state, ShardedTensor(lam), objective, iters, nodes_used
+
+
 def packing_assign_device(
-    b: rt.DeviceBatch, params: rt.ScoreParams, lam: torch.Tensor,
-    weights: torch.Tensor, max_iters: int = 0,
+    b, params: rt.ScoreParams, lam, weights: torch.Tensor, max_iters: int = 0,
 ):
     """One packing solve. A CUDA batch launches the ``packing_round``
     kernels (on copies of the node state: the batch's node block, which
     may be the scheduler's resident block, is never written); a CPU batch
-    runs ``packing_assign_plain``. Same return shape as
+    runs ``packing_assign_plain``. A node-sharded batch
+    (``parallel.mesh.ShardedBatch``, ``lam`` a ``mesh.ShardedTensor`` of
+    its shards' pieces) runs the sharded solve: kernel K5 on CUDA shards,
+    ``packing_assign_sharded_plain`` on CPU ones. Same return shape as
     ``packing_assign_plain``."""
+    from ..parallel.mesh import ShardedBatch, not_ported
+
+    if isinstance(b, ShardedBatch) and b.pod_rows > 1:
+        raise not_ported("the packing engine on a pods x nodes mesh", 20)
+    if isinstance(b, ShardedBatch):
+        pieces = list(lam.pieces)
+        if b.device.type == "cpu":
+            return packing_assign_sharded_plain(b, params, pieces, weights, max_iters)
+        from ..kernels import sharded_packing_assign
+
+        return sharded_packing_assign(b, params, pieces, weights, max_iters)
     if b.device.type == "cpu":
         return packing_assign_plain(b, params, lam, weights, max_iters)
     from ..kernels import packing_assign
@@ -540,7 +758,9 @@ class PackingEngine:
     ``PackingWeights`` tensor, and the last solve's diagnostics
     (``last_objective`` / ``last_nodes_used`` — tensors on the batch's
     device, which the scheduler fetches with the assignments — and
-    ``last_iters``, an int). ``device``: where the duals live."""
+    ``last_iters``, an int). ``device``: where the duals live; ``mesh``
+    (a node mesh): the duals live sharded with the batch's node rows, and
+    a ``ShardedBatch`` runs the sharded solve."""
 
     def __init__(self, weights: PackingWeights | None = None, mesh=None,
                  device="cuda"):
@@ -554,10 +774,12 @@ class PackingEngine:
     def bind_mesh(self, mesh) -> None:
         self.state.bind_mesh(mesh)
 
-    def __call__(self, b: rt.DeviceBatch, params: rt.ScoreParams):
+    def __call__(self, b, params: rt.ScoreParams):
         if self._w is None:
             self._w = self.weights.tensor(b.device)
-        n = b.alloc.shape[0]
+        shards = getattr(b, "shards", None)
+        n = (b.alloc.shape[0] if shards is None
+             else sum(int(s.alloc.shape[0]) for s in shards))
         lam = self.state.duals(n)
         assignments, final_state, lam_out, objective, iters, nodes_used = (
             packing_assign_device(b, params, lam, self._w)

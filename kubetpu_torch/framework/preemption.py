@@ -132,9 +132,12 @@ class PreemptionEvaluator:
         # once and never change; _nom_active IS mutated by each preempt()
         # call (stale nominations drop as their pods re-preempt).
         b = batch.device
-        # under a node mesh: the sharded batch (each preempt() ships every
-        # shard its rows, and the dry run reduces over the shards)
-        self._sharded = b if hasattr(b, "shards") else None
+        from ..parallel.mesh import ShardedBatch
+
+        # under a mesh: the sharded batch (each preempt() ships the shards
+        # of the pod's pod row their rows, and the dry run reduces over
+        # them; a node mesh is one pod row)
+        self._sharded = b if isinstance(b, ShardedBatch) else None
         self._pod_requests = _host(b.requests)
         self._pod_ports = _host(b.pod_ports)
         self._port_conflict = _host(b.port_conflict)
@@ -174,73 +177,82 @@ class PreemptionEvaluator:
             ), dev)
         return rt.upload_packed(arrays, dev)
 
-    def _upload_shards(self, arrays: dict) -> list[dict[str, torch.Tensor]]:
-        """Each shard's copy of ``arrays`` and of the victims' tensors: its
-        rows of the node-axis ones, the rest whole, in one copy a shard."""
+    def _pod_row(self, i: int):
+        """Pod ``i``'s pod row of the sharded batch: ``(its shards, their
+        node-axis mesh, i's row within them)``."""
+        sb = self._sharded
+        r, q = divmod(i, int(sb.shards[0].requests.shape[0]))
+        return sb.shards[r * sb.columns:(r + 1) * sb.columns], sb.mesh.row(r), q
+
+    def _upload_shards(self, arrays: dict, shards) -> list[dict[str, torch.Tensor]]:
+        """Each of ``shards``' copy of ``arrays`` and of the victims'
+        tensors: its rows of the node-axis ones, the rest whole, in one copy
+        a shard."""
         sb = self._sharded
         v = self.victims
         arrays = dict(arrays, priority=v.priority, start=v.start, requests=v.requests,
                       victim_ports=v.victim_ports, pdb=v.pdb)
         out = []
-        for s, off in zip(sb.shards, sb.offsets):
+        for s, off in zip(shards, sb.offsets):
             n = int(s.alloc.shape[0])
             out.append(rt.upload_packed({
                 k: (a[off:off + n] if k in _NODE_ROWS else a) for k, a in arrays.items()
             }, s.device))
         return out
 
-    def _potential_steps(self, g: int, i: int, up: dict):
-        """``_potential_mask_plain`` of shard g in steps form (the spread
-        filter's domain sums reduce over the shards)."""
-        sb = self._sharded
-        shard = sb.shards[g]
+    def _potential_steps(self, shard, g: int, q: int, up: dict):
+        """``_potential_mask_plain`` of ``shard`` (node column g, its pod
+        row's pod q) in steps form (the spread filter's domain sums reduce
+        over the columns)."""
         sp = self.spread_counts
         static, fit, ports_ok, spread_ok, pa_ok, _, _ = yield from rt.filter_components_steps(
-            _one_pod_view(shard, i), self.params,
+            _one_pod_view(shard, q), self.params,
             requested=up["requested"],
             pod_count=up["pod_count"],
             node_ports=up["node_ports"],
-            spread_counts=None if sp is None else sp.pieces[g],
+            spread_counts=None if sp is None else sp.pieces[g].to(shard.device),
             pa_sums=None if self.pa_sums is None else self.pa_sums.to(shard.device),
             nominated_active=up.get("nom_active"),
         )
         return _potential_of(static, fit, ports_ok, spread_ok, pa_ok)
 
     def _dry_run_sharded(self, i: int, pod: t.Pod, arrays: dict):
-        """The dry run of pod ``i`` over the mesh's shards: each shard's
-        potential mask (the plain filters in lockstep on CPU shards, kernel
-        B3's potential mode on CUDA ones), then
+        """The dry run of pod ``i`` over the node columns of its pod row:
+        each shard's potential mask (the plain filters in lockstep on CPU
+        shards, kernel B3's potential mode on CUDA ones), then
         ``ops.preemption.dry_run_preemption_sharded``."""
         from ..parallel.mesh import run_sharded
 
         sb = self._sharded
-        ups = self._upload_shards(arrays)
+        shards, mesh, q = self._pod_row(i)
+        ups = self._upload_shards(arrays, shards)
         if sb.device.type == "cpu":
             potential = run_sharded(
-                [self._potential_steps(g, i, up) for g, up in enumerate(ups)], sb.mesh)
+                [self._potential_steps(s, g, q, up)
+                 for g, (s, up) in enumerate(zip(shards, ups))], mesh)
         else:
             from ..kernels import potential_mask
 
-            sp = sb.shards[0].spread
+            sp = shards[0].spread
             if sp is not None and self.params.filter_spread and sp.has_hard:
                 raise NotImplementedError(
                     "a hard-spread potential mask under a CUDA mesh is ROADMAP "
                     "Queue A item 12's remaining part, not yet ported")
             potential = []
-            for g, (s, up) in enumerate(zip(sb.shards, ups)):
+            for g, (s, up) in enumerate(zip(shards, ups)):
                 with rt.on_device(s.device):
                     potential.append(potential_mask(
-                        _one_pod_view(s, i), self.params, up["requested"], up["pod_count"],
+                        _one_pod_view(s, q), self.params, up["requested"], up["pod_count"],
                         up["node_ports"], None if self.spread_counts is None
-                        else self.spread_counts.pieces[g],
+                        else self.spread_counts.pieces[g].to(s.device),
                         None if self.pa_sums is None else self.pa_sums.to(s.device),
                         up.get("nom_active")))
         shard_args = [
-            (s.requests[i], int(pod.priority), up["wants_conf"], pot, s.alloc,
+            (s.requests[q], int(pod.priority), up["wants_conf"], pot, s.alloc,
              up["charged_req"], up["charged_cnt"], s.allowed_pods, up["charged_ports"],
              up["valid"], up["priority"], up["start"], up["requests"],
              up["victim_ports"], up["pdb"], up["pdb_allowed"])
-            for s, up, pot in zip(sb.shards, ups, potential)
+            for s, up, pot in zip(shards, ups, potential)
         ]
         return OP.dry_run_preemption_sharded(shard_args, sb.offsets)
 
@@ -593,11 +605,11 @@ def _potential_of(static, fit, ports_ok, spread_ok, pa_ok) -> torch.Tensor:
 
 def _node_leaf(b, name: str):
     """Node leaf ``name`` of a batch: the tensor, or a mesh's ShardedTensor
-    of its shards' rows."""
+    of its node columns' rows (pod row 0's tiles)."""
     if hasattr(b, "shards"):
         from ..parallel.mesh import ShardedTensor
 
-        return ShardedTensor([getattr(s, name) for s in b.shards])
+        return ShardedTensor([getattr(s, name) for s in b.shards[:b.columns]])
     return getattr(b, name)
 
 

@@ -427,15 +427,19 @@ class ResidentNodeState:
 
     ``mesh`` (a ``parallel.mesh.NodeMesh``): the block then lives sharded,
     shard g's ``NC / G`` contiguous rows on ``mesh.devices[g]``
-    (``shards``), as the reference's ``:311-341`` places them. A full
-    upload places each shard's rows on its own device only, and a delta is
-    ROUTED (kernel B5m, the reference's ``_make_routed_scatter``): the
-    dirty rows are grouped by owning shard on the host, each shard's group
-    padded to a common bucket with shard-local indices (pads index one past
-    the shard's rows and are dropped), and each shard's block rides that
-    shard's own copy and is scattered there by ``scatter_rows``. A shard
-    no dirty row falls in receives nothing. ``last_upload_bytes_per_shard``
-    and ``last_rows_per_shard`` account each shard's share.
+    (``shards``), as the reference's ``:311-341`` places them. On a pods x
+    nodes grid the block is sharded over the node columns and the same on
+    every pod row (the reference's ``node_state_shardings``): tile (i, j)
+    holds its own copy of column j's rows on its device. A full upload
+    places each shard's rows on its own device only, and a delta is ROUTED
+    (kernel B5m, the reference's ``_make_routed_scatter``): the dirty rows
+    are grouped by owning column on the host, each column's group padded
+    to a common bucket with shard-local indices (pads index one past the
+    shard's rows and are dropped), and each shard's block rides that
+    shard's own copy and is scattered there by ``scatter_rows``, on every
+    pod row of a grid. A shard no dirty row falls in receives nothing.
+    ``last_upload_bytes_per_shard`` and ``last_rows_per_shard`` account
+    each shard's (each tile's) share.
 
     ``refresh(nt, num_nodes)`` brings the device block up to date with the
     host ``NodeTensors``: a full upload when the block doesn't exist yet or
@@ -500,18 +504,18 @@ class ResidentNodeState:
             self.last_upload_bytes_per_shard = [self.last_upload_bytes]
             self.last_rows_per_shard = [NC]
         else:
-            size = self.mesh.size
-            if NC % size:
-                raise ValueError(f"{NC} padded nodes do not split into {size} shards")
-            per = NC // size
+            ng = self.mesh.node_shards
+            if NC % ng:
+                raise ValueError(f"{NC} padded nodes do not split into {ng} shards")
+            per = NC // ng
             self.shards = [
                 DeviceNodeState(**upload_packed(
-                    {k: v[g * per:(g + 1) * per] for k, v in rows.items()}, d))
-                for g, d in enumerate(self.mesh.devices)
+                    {k: v[(t % ng) * per:(t % ng + 1) * per] for k, v in rows.items()}, d))
+                for t, d in enumerate(self.mesh.devices)
             ]
             self.last_upload_bytes_per_shard = [_node_block_nbytes(b) for b in self.shards]
             self.last_upload_bytes = sum(self.last_upload_bytes_per_shard)
-            self.last_rows_per_shard = [per] * size
+            self.last_rows_per_shard = [per] * self.mesh.size
         self._nt_token = nt
         self._num_nodes = num_nodes
         nt.pending_device_rows = set()   # start delta accumulation
@@ -609,8 +613,9 @@ class ResidentNodeState:
         ``DELTA_FIELDS`` block of shard-local indices, every block padded
         to one bucket (pads index the shard's row count and are dropped).
         None when the buckets would reach the full row count (the caller
-        uploads whole: routing would not ship less)."""
-        size = self.mesh.size
+        uploads whole: routing would not ship less). On a pods x nodes grid
+        every tile of a column gets the column's block."""
+        size = self.mesh.node_shards
         NC = nt.alloc.shape[0]
         per = NC // size
         rows_arr = np.asarray(rows, dtype=np.int64)
@@ -640,11 +645,12 @@ class ResidentNodeState:
                 deltas(nt.nonzero_requested), deltas(nt.pod_count),
                 deltas(nt.allowed_pods), u_vd,
             ))))
+        out = [out[t % size] for t in range(self.mesh.size)]
         self.last_upload_bytes_per_shard = [
             0 if d is None else sum(int(a.nbytes) for a in d.values()) for d in out
         ]
         self.last_upload_bytes = sum(self.last_upload_bytes_per_shard)
-        self.last_rows_per_shard = counts.tolist()
+        self.last_rows_per_shard = [int(counts[t % size]) for t in range(self.mesh.size)]
         return out
 
     def _delta(
@@ -685,8 +691,7 @@ class ResidentNodeState:
 class PackingSolverState:
     """Device-resident dual-variable block for the packing engine: the
     warm-start twin of :class:`ResidentNodeState`. Copy of the reference's
-    ``PackingSolverState`` (``kubetpu/framework/runtime.py``) without the
-    node-axis sharding, which is ROADMAP Queue A item 12's remaining part.
+    ``PackingSolverState`` (``kubetpu/framework/runtime.py:589-660``).
 
     Holds one ``(NC,)`` float32 dual-price vector λ per padded node
     capacity (each bucket size keeps its own prices). ``duals(n)`` pops the
@@ -694,32 +699,54 @@ class PackingSolverState:
     cold start counted in ``resets``) and the caller must ``store(n, …)``
     the returned vector back: this class is the only holder. ``carries``
     counts warm handoffs. ``device``: where the vectors live (the
-    scheduler's device)."""
+    scheduler's device).
+
+    ``mesh`` (a node mesh, ``parallel.mesh.NodeMesh``): λ is held as a
+    ``parallel.mesh.ShardedTensor``, one piece a shard on that shard's
+    device, so the solver's per-node penalty row stays with the shard's
+    node rows (``bind_mesh``: the engine is built before the scheduler
+    resolves its mesh). Duals stored under another layout are dropped.
+    A pods x nodes grid raises (ROADMAP item 20)."""
 
     def __init__(self, mesh=None, device="cuda") -> None:
-        self._lam: dict[int, torch.Tensor] = {}
+        self._lam: dict = {}
         self.resets = 0
         self.carries = 0
         self.where = torch.device(device)
+        self.mesh = None
         self.bind_mesh(mesh)
 
     def bind_mesh(self, mesh) -> None:
-        if mesh not in (None, "off"):
-            raise NotImplementedError(
-                "a sharded packing dual block is ROADMAP Queue A item 12's "
-                "remaining part (kernel B15's sharded_packing), not yet ported"
-            )
+        if mesh == "off":
+            mesh = None
+        if mesh is self.mesh:
+            return
+        if mesh is not None:
+            from ..parallel.mesh import NodeMesh, not_ported
 
-    def duals(self, n: int) -> torch.Tensor:
+            if not isinstance(mesh, NodeMesh):
+                raise TypeError(f"a resolved mesh (parallel.mesh.NodeMesh), got {mesh!r}")
+            if mesh.pod_shards > 1:
+                raise not_ported("a packing dual block on a pods x nodes mesh", 20)
+        self.mesh = mesh
+        # duals placed under the old layout are stale
+        self._lam.clear()
+
+    def duals(self, n: int):
         lam = self._lam.pop(n, None)
-        if lam is None:
-            self.resets += 1
-            lam = torch.zeros(n, dtype=torch.float32, device=self.where)
-        else:
+        if lam is not None:
             self.carries += 1
-        return lam
+            return lam
+        self.resets += 1
+        if self.mesh is None:
+            return torch.zeros(n, dtype=torch.float32, device=self.where)
+        from ..parallel.mesh import ShardedTensor
 
-    def store(self, n: int, lam: torch.Tensor) -> None:
+        per = n // self.mesh.size
+        return ShardedTensor([torch.zeros(per, dtype=torch.float32, device=d)
+                              for d in self.mesh.devices])
+
+    def store(self, n: int, lam) -> None:
         self._lam[n] = lam
 
     def reset(self) -> None:
@@ -728,7 +755,8 @@ class PackingSolverState:
 
     @property
     def nbytes(self) -> int:
-        return sum(int(v.nbytes) for v in self._lam.values())
+        return sum(int(x.nbytes) for v in self._lam.values()
+                   for x in getattr(v, "pieces", [v]))
 
 
 def _resource_weights(
@@ -895,7 +923,7 @@ def encode_batch(
         snapshot, pods, profile, pad=pad, resource_names=resource_names,
         nominated=nominated, prev_nt=prev_nt, cache=cache,
         track_changes=track_changes, topology=topology,
-        pad_multiple=1 if mesh is None else mesh.size,
+        pad_multiple=1 if mesh is None else mesh.node_shards,
     )
     return finalize_batch(
         sb, snapshot, nominated=nominated, resident=resident, device=device,
@@ -1125,8 +1153,9 @@ def finalize_batch(
     mesh=None,
 ) -> EncodedBatch:
     """Stage 2 (under ``mesh``, the resident block's when None, the batch
-    is a ``parallel.mesh.ShardedBatch``: each shard's pod leaves, its rows
-    of the node-axis leaves and its routed delta ride one copy to its
+    is a ``parallel.mesh.ShardedBatch``, on a pods x nodes grid one of
+    tiles: each shard's (tile's) pod leaves, its
+    rows of the node-axis leaves and its routed delta ride one copy to its
     device): patch the assume-dependent slice onto a StaticBatch and
     build the device batch — spread counts and affinity sums encoded from
     the CURRENT NodeInfo state (through the cache's template groups when
@@ -1309,22 +1338,27 @@ def finalize_batch(
     else:
         from ..parallel.mesh import ShardedBatch, split_leaves
 
-        size = mesh.size
+        pg, ng = mesh.pod_shards, mesh.node_shards
+        per = NC // ng
+        prow = leaves["requests"].shape[0] // pg if pg > 1 else None
         shards = []
-        for g in range(size):
-            # the routed scatter launches on shard g's card
-            with on_device(mesh.devices[g]):
+        for t, card in enumerate(mesh.devices):
+            i, j = divmod(t, ng)
+            rows_p = None if prow is None else slice(i * prow, (i + 1) * prow)
+            # the routed scatter launches on the tile's card
+            with on_device(card):
                 shards.append(device_batch_from_numpy(
-                    split_leaves(leaves, g, size, NC), mesh.devices[g],
-                    resident=None if resident is None else resident.block(g),
-                    delta=None if delta is None else delta[g],
+                    split_leaves(leaves, slice(j * per, (j + 1) * per), rows_p), card,
+                    resident=None if resident is None else resident.block(t),
+                    delta=None if delta is None else delta[t],
                 ))
         shards = tuple(shards)
-        dev = ShardedBatch(
-            shards, tuple(g * (NC // size) for g in range(size)), mesh,
-            nominated_node=shards[0].nominated_node if nom_node is None
-            else torch.from_numpy(nom_node).to(mesh.devices[0]),
-        )
+        nominated = (shards[0].nominated_node if nom_node is None
+                     else torch.from_numpy(nom_node).to(mesh.devices[0]))
+        offsets = tuple(j * per for j in range(ng))
+        dev = ShardedBatch(shards, offsets, mesh, nominated_node=nominated,
+                           pod_offsets=(0,) if prow is None
+                           else tuple(i * prow for i in range(pg)))
         total_bytes = sum(batch_nbytes(x) for x in shards)
         node_bytes = sum(_node_block_nbytes(x.nodes) for x in shards)
     upload_s = time.perf_counter() - t_up
@@ -1674,23 +1708,33 @@ def feasible_and_scores_steps(
 def filter_score_batch(b, params: ScoreParams):
     """One-shot batch Filter+Score (all pods vs. the same snapshot). On a
     CUDA batch this launches the hand-written ``filter_score`` kernel; on a
-    CPU batch it runs ``feasible_and_scores``. A node-sharded batch
-    (``parallel.mesh.ShardedBatch``) returns each shard's rows as
-    ``ShardedTensor``s, its shards reducing in lockstep
-    (``parallel.mesh.run_sharded``) on CPU shards and through the sharded
-    ``filter_score`` launches on CUDA ones."""
+    CPU batch it runs ``feasible_and_scores``. A sharded batch
+    (``parallel.mesh.ShardedBatch``) returns each node column's (P, N / NG)
+    rows as ``ShardedTensor``s: each pod row's tiles reduce in lockstep
+    (``parallel.mesh.run_sharded``) on CPU devices and through the sharded
+    ``filter_score`` launches on CUDA ones, and a column's rows join in pod
+    order."""
     if hasattr(b, "shards"):
         from ..parallel.mesh import ShardedTensor, run_sharded
 
-        if b.device.type == "cpu":
-            outs = run_sharded(
-                [feasible_and_scores_steps(s, params) for s in b.shards], b.mesh)
-        else:
-            from ..kernels import sharded_filter_score
+        ng = b.columns
+        rows = []
+        for i in range(b.pod_rows):
+            tiles, mesh = b.shards[i * ng:(i + 1) * ng], b.mesh.row(i)
+            if b.device.type == "cpu":
+                rows.append(run_sharded(
+                    [feasible_and_scores_steps(s, params) for s in tiles], mesh))
+            else:
+                from ..kernels import sharded_filter_score
 
-            outs = sharded_filter_score(b, params)
-        return (ShardedTensor([m for m, _ in outs], axis=1),
-                ShardedTensor([t_ for _, t_ in outs], axis=1))
+                rows.append(sharded_filter_score(tiles, mesh, params))
+
+        def column(j, k):
+            dev = rows[0][j][k].device
+            return torch.cat([r[j][k].to(dev) for r in rows])
+
+        return (ShardedTensor([column(j, 0) for j in range(ng)], axis=1),
+                ShardedTensor([column(j, 1) for j in range(ng)], axis=1))
     if b.device.type == "cpu":
         return feasible_and_scores(b, params)
     from ..kernels import filter_score

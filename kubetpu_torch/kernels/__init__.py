@@ -18,15 +18,19 @@ together, each into a shared library with a plain C interface that
 a build takes seconds. Outputs go to ``build/kubetpu_torch_kernels/`` under
 the repository root, keyed by a hash of the sources and flags.
 
-Under a node mesh (``parallel.mesh``) four more kernels run on the shards,
-each held to a plain version that reduces across the shards explicitly:
-K1 the sharded scan (``greedy_scan.cu``, exchanging partials inside the
-kernel through ``csrc/exchange.cuh``), K2 the sharded ``filter_score``
-passes and batched-round steps with ``shard_combine`` between them
-(``filter_score.cu``, ``batched_round.cu``), K3 the dry run's cross-shard
-pick (``dry_run_preemption.cu``) and K4 the exchange's argmax probe
+Under a mesh (``parallel.mesh``) more kernels run on the shards, each
+held to a plain version that reduces across the shards explicitly. On a
+pods x nodes grid, K6 runs the batched round's steps on every tile with
+``shard_combine`` between them (``batched_round.cu`` ``kt_tiled_round``,
+after the sharded ``filter_score`` passes of ``filter_score.cu``) and K7
+the scan one node column a block, pod row after pod row, exchanging
+partials inside the kernel through ``csrc/exchange.cuh`` (``greedy_scan.cu``
+``tiled_scan_kernel``); on a node mesh, the grid of one pod row, the same
+two kernels are K2 and K1. K3 is the dry run's cross-shard pick
+(``dry_run_preemption.cu``) and K4 the exchange's argmax probe
 (``greedy_scan.cu``); ``scatter_rows`` runs on each shard's card for the
-routed delta (B5m).
+routed delta (B5m). K5 is the packing solve over node shards (the shard
+mode of ``packing_round.cu``, with ``shard_combine`` between its steps).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else, allocates its outputs with ``torch.empty``, launches on the
@@ -87,8 +91,12 @@ launch_counts = {
     "hypothesis_scan": 0, "hypothesis_rows": 0, "slice_epilogue": 0,
     "packing_start": 0, "packing_round": 0, "packing_end": 0, "packing_nodes": 0,
     "packing_log1p": 0,
-    # the node mesh's kernels (K1-K4): one count a shard's block launched
+    # the mesh's kernels (K1-K7): one count a shard's (a tile's) block or
+    # step launched. The tiled scan and the tiled round count under
+    # "sharded_scan" / "sharded_round" (K1, K2) on a node mesh (one pod
+    # row) and under "tiled_scan" / "tiled_round" (K7, K6) on a grid
     "sharded_scan": 0, "sharded_round": 0, "shard_pick": 0, "shard_argmax": 0,
+    "sharded_packing": 0, "tiled_round": 0, "tiled_scan": 0,
 }
 
 # ctypes argument types of each library's entry point
@@ -112,16 +120,15 @@ _MORE_ENTRIES = {
         + [ctypes.c_int64, ctypes.c_void_p],
     },
     "batched_round": {
-        "kt_batched_round_shard": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 15
-        + [ctypes.c_int64, ctypes.c_void_p],
         "kt_shard_combine": [ctypes.c_void_p] * 2,
+        "kt_tiled_round": [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2,
     },
     "greedy_scan": {
-        "kt_sharded_scan": [ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_int] * 4
-        + [ctypes.c_int64, ctypes.c_void_p],
         "kt_shard_argmax": [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int,
                                                     ctypes.c_int64, ctypes.c_void_p],
         "kt_enable_peer_access": [ctypes.c_int],
+        "kt_tiled_scan": [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_int, ctypes.c_int64]
+        + [ctypes.c_int] * 3 + [ctypes.c_int64, ctypes.c_void_p],
     },
     "dry_run_preemption": {
         "kt_dry_run_shard_pick": [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 2,
@@ -136,6 +143,7 @@ _MORE_ENTRIES = {
         "kt_packing_nodes": [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_void_p] * 3,
         "kt_packing_end": [ctypes.c_void_p] * 10 + [ctypes.c_int64] + [ctypes.c_void_p] * 4,
         "kt_packing_log1p": [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p],
+        "kt_packing_shard": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
     },
 }
 
@@ -322,7 +330,7 @@ class ScanShard(ctypes.Structure):
             "mask0", "base0", "touched", "assignments", "req", "nz", "pc", "ports",
             "pa_sums", "row_total", "sp_counts", "ok_buf",
         )
-    ] + [("offset", ctypes.c_int64), ("g", ctypes.c_int64)]
+    ] + [("offset", ctypes.c_int64)]
 
 
 class ArgmaxShard(ctypes.Structure):
@@ -338,7 +346,30 @@ class CombineArgs(ctypes.Structure):
 
     _fields_ = [("src", ctypes.c_void_p * 8), ("dst", ctypes.c_void_p * 8),
                 ("G", ctypes.c_int64), ("n", ctypes.c_int64), ("op", ctypes.c_int64),
-                ("elem", ctypes.c_int64)]
+                ("elem", ctypes.c_int64), ("flt", ctypes.c_int64), ("nsrc", ctypes.c_int64),
+                ("piece", ctypes.c_int64)]
+
+
+class TileRound(ctypes.Structure):
+    """Mirror of ``struct TileRound`` in csrc/batched_round.cu."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "mask", "total", "req", "nz", "pc", "ports", "pa_delta", "sp_counts", "active",
+        "assignments", "tstats", "fbest", "fhash", "fcount", "r", "choice", "acc",
+        "flags")] + [
+        ("pod_offset", ctypes.c_int64), ("offset", ctypes.c_int64)]
+
+
+class PackShard(ctypes.Structure):
+    """Mirror of ``struct PackShard`` in csrc/packing_round.cu."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "mask", "total", "req", "nz", "pc", "ports", "pa_delta", "sp_counts", "active",
+        "assignments", "lam", "w", "order", "coupled", "slice_id")] + [
+        ("S", ctypes.c_int64)] + [(name, ctypes.c_void_p) for name in (
+            "busy", "pen", "stats", "denom", "r", "choice", "acc", "over", "flags", "req0",
+            "pc0", "prio", "endf", "endi", "objective", "nodes_used")] + [
+        ("offset", ctypes.c_int64)]
 
 
 class PickShard(ctypes.Structure):
@@ -355,7 +386,9 @@ _STRUCT_SIZES = {
                     ("kt_greedy_scan_exchange_size", Exchange),
                     ("kt_greedy_scan_argmax_size", ArgmaxShard)),
     "dry_run_preemption": (("kt_dry_run_preemption_pick_size", PickShard),),
-    "batched_round": (("kt_batched_round_combine_size", CombineArgs),),
+    "batched_round": (("kt_batched_round_combine_size", CombineArgs),
+                      ("kt_batched_round_tile_size", TileRound)),
+    "packing_round": (("kt_packing_round_shard_size", PackShard),),
 }
 
 # dynamic shared memory a spread-scoring block takes at most: static and
@@ -387,7 +420,8 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
 
 
 def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str, state=None,
-                bits_blocks: int = 0, nom_active: torch.Tensor | None = None):
+                bits_blocks: int = 0, nom_active: torch.Tensor | None = None,
+                pod_node: bool = True):
     """Validate the batch for the kernels and pack their argument struct.
     ``state``, when given, is a running ``(requested, nonzero_requested,
     pod_count, node_ports, pa_sums, spread_counts)`` the kernels read in
@@ -397,7 +431,10 @@ def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str, state=None,
     bitmap does not fit in shared memory (see ``_spread_smem``).
     ``nom_active`` (G,) bool, with nominations, is the live-nomination
     flags the kernels read (and the engines clear); all set when None.
-    Returns ``(args, keepalive)``."""
+    Without ``pod_node`` the (P, N) leaves (the spread's ignored rows, the
+    extender terms) are left out: the commit of a round over a grid reads
+    every pod's pod-major leaves and none of them. Returns ``(args,
+    keepalive)``."""
     dev = b.alloc.device
     if dev.type != "cuda":
         raise ValueError(f"{where}: the kernel takes CUDA tensors, batch is on {dev}")
@@ -517,7 +554,8 @@ def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str, state=None,
                     _check("sp." + name, getattr(sp, name), dtype, (P, C), dev))
         a.sp_pod_match_sig = _check(
             "sp.pod_match_sig", sp.pod_match_sig, u8, (P, S), dev)
-        a.sp_ignored = _check("sp.ignored", sp.ignored, u8, (P, N), dev)
+        if pod_node:
+            a.sp_ignored = _check("sp.ignored", sp.ignored, u8, (P, N), dev)
         sums = torch.empty((S, D + 1), dtype=i64, device=dev)
         min_match = torch.empty((S,), dtype=i64, device=dev)
         keep += [sums, min_match]
@@ -549,7 +587,7 @@ def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str, state=None,
         a.G = G
     if (b.extender_mask is None) != (b.extender_score is None):
         raise ValueError(f"{where}: extender_mask and extender_score come together")
-    if b.extender_mask is not None:
+    if b.extender_mask is not None and pod_node:
         a.ext_mask = _check("extender_mask", b.extender_mask, u8, (P, N), dev)
         a.ext_score = _check("extender_score", b.extender_score, i64, (P, N), dev)
     dra = b.dra_score_raw if p.w_dra else None
@@ -1365,8 +1403,8 @@ def packing_log1p(k: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# the node mesh (parallel.mesh): kernels K1 (the sharded scan), K3 (the dry
-# run's cross-shard pick) and K4 (the exchange's argmax probe)
+# the node mesh (parallel.mesh): the exchange, kernels K3 (the dry run's
+# cross-shard pick) and K4 (the exchange's argmax probe)
 # ---------------------------------------------------------------------------
 
 # clock64 cycles an exchange wait may take before the kernel gives up
@@ -1443,7 +1481,7 @@ def _mesh_exchange(mesh) -> _MeshExchange:
     return ex
 
 
-def _launch_shards(mesh, entry: str, structs, what: str, *extra, smem: int | None = None):
+def _launch_shards(mesh, entry: str, structs, what: str, *extra):
     """Launch a sharded kernel over the mesh: one cooperative launch of G
     blocks when every shard is on one card, else one block a card on that
     card's current stream. ``structs`` is the ctypes array of the shards'
@@ -1459,10 +1497,8 @@ def _launch_shards(mesh, entry: str, structs, what: str, *extra, smem: int | Non
                 [(dev, ctypes.addressof(structs[g]), 0) for g, dev in enumerate(mesh.devices)])
     for dev, ptr, cooperative in launches:
         x = ex.args(dev)
-        args = [ptr, ctypes.byref(x), G, cooperative, *extra]
-        if smem is not None:
-            args.append(smem)
-        args.append(torch.cuda.current_stream(dev).cuda_stream)
+        args = [ptr, ctypes.byref(x), G, cooperative, *extra,
+                torch.cuda.current_stream(dev).cuda_stream]
         with on_device(dev):
             _raise_on(lib, "greedy_scan", getattr(lib, entry)(*args), what)
         launch_counts[what] += 1
@@ -1482,73 +1518,6 @@ def _words_for(b: rt.DeviceBatch) -> int:
         D = sp.domain_present.shape[1]
         words = max(words, 1 + C * ((D + 31) // 32), s * (D + 1))
     return words
-
-
-def sharded_greedy_scan(sb, p: rt.ScoreParams):
-    """Kernel K1, the greedy engine over a node-sharded batch
-    (``parallel.mesh.ShardedBatch`` on CUDA devices): each shard's
-    ``filter_score`` on its rows, then the sharded ``greedy_scan``, G
-    blocks exchanging at every reduction over nodes. Returns
-    ``(assignments (P,) int32 global, final_state)``, the node-axis slots
-    as ``parallel.mesh.ShardedTensor``s, equal to
-    ``assign.greedy.greedy_assign_sharded_plain(sb, p)`` and to the
-    unsharded engine on the whole batch."""
-    from ..parallel.mesh import ShardedTensor
-
-    mesh = sb.mesh
-    G = len(sb.shards)
-    structs = (ScanShard * G)()
-    keep, outs = [], []   # the shards' inputs live until the scan is checked
-    b0 = sb.shards[0]
-    words = 7
-    for g, b in enumerate(sb.shards):
-        dev = b.alloc.device
-        with on_device(dev):
-            nom_active = (
-                None if b.nominated_pod_idx is None
-                else torch.ones((b.nominated_pod_idx.shape[0],), dtype=torch.bool,
-                                device=dev))
-            mask0, base0, _ = _filter_score(b, p, want_total=False, dynamic=False,
-                                            nom_active=nom_active)
-            a, kp = _score_args(b, p, "sharded_greedy_scan", bits_blocks=1,
-                                nom_active=nom_active)
-            out = dict(
-                assignments=torch.empty((a.P,), dtype=torch.int32, device=dev),
-                req=torch.empty_like(b.requested), nz=torch.empty_like(b.nonzero_requested),
-                pc=torch.empty_like(b.pod_count), ports=torch.empty_like(b.node_ports),
-                touched=torch.empty((a.N,), dtype=torch.uint8, device=dev),
-                pa_sums=None if b.podaffinity is None
-                else torch.empty_like(b.podaffinity.base_sums),
-                row_total=None if b.podaffinity is None else torch.empty(
-                    (b.podaffinity.base_sums.shape[0],), dtype=torch.int64, device=dev),
-                sp_counts=None if b.spread is None else torch.empty_like(b.spread.node_count),
-                ok_buf=None if b.spread is None
-                else torch.empty((a.N,), dtype=torch.uint8, device=dev),
-                nom_active=nom_active,
-            )
-        st = structs[g]
-        st.a = a
-        st.mask0, st.base0 = mask0.data_ptr(), base0.data_ptr()
-        for name in ("touched", "assignments", "req", "nz", "pc", "ports", "pa_sums",
-                     "row_total", "sp_counts", "ok_buf"):
-            setattr(st, name, _ptr(out[name]))
-        st.offset, st.g = sb.offsets[g], g
-        keep += [mask0, base0, kp]
-        outs.append(out)
-        words = max(words, _words_for(b))
-    _mesh_exchange(mesh).prepare(words)
-    _launch_shards(
-        mesh, "kt_sharded_scan", structs, "sharded_scan",
-        int(b0.podaffinity is not None), int(b0.spread is not None),
-        int(b0.dra_score_raw is not None and p.w_dra != 0), smem=_smem(b0))
-    _mesh_exchange(mesh).check("sharded_scan")
-    del keep
-    return outs[0]["assignments"], (
-        ShardedTensor([o["req"] for o in outs]), ShardedTensor([o["nz"] for o in outs]),
-        ShardedTensor([o["pc"] for o in outs]), ShardedTensor([o["ports"] for o in outs]),
-        None if b0.spread is None else ShardedTensor([o["sp_counts"] for o in outs], axis=1),
-        outs[0]["pa_sums"], outs[0]["nom_active"],
-    )
 
 
 def shard_argmax(pieces, mesh, reps: int = 1) -> int:
@@ -1618,7 +1587,7 @@ def sharded_dry_run(shard_args, offsets):
 
 
 # the combine's operations (csrc/batched_round.cu shard_combine_kernel)
-MAX, SUM, OR, MIN, PREFIX, ADD = range(6)
+MAX, SUM, OR, MIN, PREFIX, ADD, GATHER = range(7)
 
 
 def _after_all(mesh, home: torch.device) -> None:
@@ -1648,20 +1617,32 @@ def _before_all(mesh, home: torch.device) -> None:
 
 
 def shard_combine(mesh, op: int, srcs, dsts) -> None:
-    """The mesh's combine (K2's cross-shard reductions): element i of
-    every ``srcs[g]`` (shard g's partial, on its device) reduced by ``op``
-    and written into every ``dsts[g]``, in one launch on the first shard's
-    card reading and writing the others' memory through peer pointers,
-    ordered after every card's stream and before each reads the results."""
-    G = len(srcs)
+    """The mesh's combine (the cross-shard reductions of K2, K5 and K6):
+    element i of every ``srcs[g]`` (shard g's partial, on its device)
+    reduced by ``op`` and written into every ``dsts[g]``, in one launch on
+    the mesh's first card reading and writing the others' memory through
+    peer pointers, ordered after every card's stream and before each reads
+    the results. int32 and int64 partials take every op; float32 ones MAX,
+    MIN and SUM (added in shard order). ``GATHER``: every ``dsts[g]`` takes
+    the ``srcs`` joined in order (each source one piece of the result)."""
     x = srcs[0]
     c = CombineArgs()
-    for g in range(G):
-        c.src[g], c.dst[g] = srcs[g].data_ptr(), dsts[g].data_ptr()
-    c.G, c.n, c.op = G, x.numel(), op
+    for g, t in enumerate(srcs):
+        c.src[g] = t.data_ptr()
+    for g, t in enumerate(dsts):
+        c.dst[g] = t.data_ptr()
+    c.G, c.n, c.op = len(dsts), dsts[0].numel(), op
+    c.nsrc, c.piece = len(srcs), x.numel()
     c.elem = x.element_size()
-    if c.elem not in (4, 8) or any(t.dtype != x.dtype for t in list(srcs) + list(dsts)):
-        raise ValueError(f"shard_combine: int32 or int64 partials of one dtype, got {x.dtype}")
+    c.flt = int(x.dtype == torch.float32)
+    if (x.dtype not in (torch.int32, torch.int64, torch.float32)
+            or any(t.dtype != x.dtype for t in list(srcs) + list(dsts))):
+        raise ValueError(f"shard_combine: int32, int64 or float32 partials of one dtype, "
+                         f"got {x.dtype}")
+    if c.flt and op not in (MAX, MIN, SUM):
+        raise ValueError("shard_combine: float32 partials take MAX, MIN or SUM")
+    if op != GATHER and (len(srcs) != len(dsts) or any(t.numel() != c.n for t in srcs)):
+        raise ValueError("shard_combine: one partial a result, of one size")
     home = mesh.devices[0]
     lib = build()["batched_round"]
     _mesh_exchange(mesh)   # peer access
@@ -1674,14 +1655,14 @@ def shard_combine(mesh, op: int, srcs, dsts) -> None:
 
 
 class _ShardRound:
-    """One shard's buffers for the sharded filter_score and batched round."""
+    """One shard's buffers for the sharded filter_score and the rounds."""
 
     def __init__(self, b: rt.DeviceBatch, p: rt.ScoreParams, state, nom_active) -> None:
         dev = b.alloc.device
         self.b, self.dev = b, dev
         self.state, self.nom_active = state, nom_active
-        self.a, self.keep = _score_args(b, p, "sharded_batched_assign", state, bits_blocks=b.requests.shape[0],
-                                        nom_active=nom_active)
+        self.a, self.keep = _score_args(b, p, "sharded round", state,
+                                        bits_blocks=b.requests.shape[0], nom_active=nom_active)
         P, N = self.a.P, self.a.N
         sp = b.spread
         cw = 0 if sp is None else sp.sig_idx.shape[1] * ((sp.domain_present.shape[1] + 31) // 32)
@@ -1699,8 +1680,6 @@ class _ShardRound:
                 (sp.domain_present.shape[0], sp.domain_present.shape[1] + 1), dtype=i64,
                 device=dev)
             self.a.sp_sums = self.sums.data_ptr()
-        self.bufs = torch.zeros((5, P), dtype=i64, device=dev)
-        self.combined = torch.zeros((3, P), dtype=i64, device=dev)    # best, count, hash
         self.r = torch.zeros((P,), dtype=torch.int32, device=dev)
         self.choice = torch.full((2, P), -1, dtype=torch.int32, device=dev)  # mine, combined
         self.acc = torch.zeros((2, P), dtype=torch.int32, device=dev)
@@ -1746,106 +1725,448 @@ def _filter_score_shards(mesh, shards: list, smem: int) -> None:
     step(4, sc=lambda s: s.sc[1], bits=lambda s: s.bits[1], mx=lambda s: s.mx[1])
 
 
-def sharded_filter_score(sb, p: rt.ScoreParams):
-    """``filter_score`` over a node-sharded batch: each shard's ``(mask,
-    total)`` over its rows, equal to the shards' rows of the unsharded
-    kernel's (the normalize maxima and the spread terms reduced over the
-    mesh, ``_filter_score_shards``)."""
+def sharded_filter_score(tiles, mesh, p: rt.ScoreParams):
+    """``filter_score`` over one pod row of a sharded batch (``tiles`` its
+    node columns' batches, ``mesh`` the row's node-axis mesh): each tile's
+    ``(mask, total)`` over its rows, equal to the tiles' rows of the
+    unsharded kernel's (the normalize maxima and the spread terms reduced
+    over the row, ``_filter_score_shards``)."""
     shards = []
-    for b in sb.shards:
+    for b in tiles:
         with on_device(b.alloc.device):
             shards.append(_ShardRound(b, p, None, None))
-    _filter_score_shards(sb.mesh, shards, _smem(sb.shards[0]))
+    _filter_score_shards(mesh, shards, _smem(tiles[0]))
     for s in shards:
         with on_device(s.dev):
             torch.cuda.current_stream(s.dev).synchronize()
     return [(s.mask, s.total) for s in shards]
 
 
-def sharded_batched_assign(sb, p: rt.ScoreParams, max_rounds: int = 0,
-                           rounds_out: list | None = None):
-    """Kernel K2, the batched engine over a node-sharded batch: each round
-    the sharded ``filter_score`` (``_filter_score_shards``), then the
-    ``batched_round`` steps on every shard with the mesh's combines between
-    them: the per-pod maximum, the tie counts (their sum and each shard's
-    prefix) and the wrapping sums of the tie weights of the global node
-    indices, the choice (held by the shard whose prefix covers it), the
-    admissions (each shard admits for its own nodes), and the affinity
-    increments. The host reads shard 0's two flags a round. Returns
-    ``(assignments (P,) int32 global, final_state)``, equal to
-    ``assign.batched.batched_assign_sharded_plain(sb, p, max_rounds)``."""
+# ---------------------------------------------------------------------------
+# kernel K5: the packing solve over a node mesh (csrc/packing_round.cu)
+# ---------------------------------------------------------------------------
+
+
+class _PackRound(_ShardRound):
+    """One shard's buffers for the sharded packing solve: the sharded
+    round's (filter_score's scratch, the running state, active flags and
+    assignments) and the solve's own (``PackShard``)."""
+
+    def __init__(self, b: rt.DeviceBatch, p: rt.ScoreParams, lam: torch.Tensor,
+                 weights: torch.Tensor, offset: int) -> None:
+        run, nom = _packing_state(b)
+        super().__init__(b, p, run, nom)
+        dev, P, N = self.dev, self.a.P, self.a.N
+        i32, i64, f32 = torch.int32, torch.int64, torch.float32
+        _check("lam", lam, f32, (N,), dev)
+        self.lam = lam.clone()
+        self.w = weights.to(dev).contiguous()
+        _check("weights", self.w, f32, (10,), dev)
+        topo = b.topology
+        self.S = 0 if topo is None else int(topo.num_slices)
+        self.slice_id = None if topo is None else topo.slice_id
+        if self.slice_id is not None:
+            _check("topology.slice_id", self.slice_id, i32, (N,), dev)
+        prio = b.pod_priority
+        if prio is not None:
+            _check("pod_priority", prio, i32, (P,), dev)
+        self.busy = torch.zeros((2 * (self.S + 1),), dtype=i32, device=dev)
+        self.pen = torch.empty((N,), dtype=f32, device=dev)
+        self.stats = torch.zeros((7, P), dtype=i64, device=dev)
+        self.denom = torch.empty((P,), dtype=f32, device=dev)
+        self.order = torch.empty((P,), dtype=i32, device=dev)
+        self.coupled = torch.empty((P,), dtype=torch.uint8, device=dev)
+        self.over = torch.empty((N,), dtype=i32, device=dev)
+        self.endf = torch.zeros((2,), dtype=f32, device=dev)
+        self.endi = torch.zeros((2,), dtype=i64, device=dev)
+        self.objective = torch.empty((), dtype=f32, device=dev)
+        self.nodes_used = torch.empty((), dtype=i32, device=dev)
+        req, nz, pc, ports, _, sp_counts = self.state
+        h = self.ps = PackShard()
+        h.mask, h.total = self.mask.data_ptr(), self.total.data_ptr()
+        h.req, h.nz, h.pc, h.ports = (x.data_ptr() for x in (req, nz, pc, ports))
+        h.pa_delta, h.sp_counts = _ptr(self.pa_delta), _ptr(sp_counts)
+        h.active, h.assignments = self.active.data_ptr(), self.assignments.data_ptr()
+        h.lam, h.w = self.lam.data_ptr(), self.w.data_ptr()
+        h.order, h.coupled = self.order.data_ptr(), self.coupled.data_ptr()
+        h.slice_id, h.S = _ptr(self.slice_id), self.S
+        for name in ("busy", "pen", "stats", "denom", "r", "over", "flags", "endf", "endi",
+                     "objective", "nodes_used"):
+            setattr(h, name, getattr(self, name).data_ptr())
+        h.choice, h.acc = self.choice.data_ptr(), self.acc.data_ptr()
+        h.req0, h.pc0 = b.requested.data_ptr(), b.pod_count.data_ptr()
+        h.prio = _ptr(prio)
+        h.offset = offset
+
+
+def sharded_packing_assign(sb, p: rt.ScoreParams, lam_pieces, weights: torch.Tensor,
+                           max_iters: int = 0):
+    """Kernel K5, the packing solve over a node-sharded batch
+    (``parallel.mesh.ShardedBatch`` on CUDA devices): ``packing_round``'s
+    steps on every shard (``kt_packing_shard``) with the mesh's combines
+    between them (``shard_combine``): each round the sharded
+    ``filter_score`` (``_filter_score_shards``), the slice occupancy, the
+    row maxima of |score|, the best utility, the tie counts (sum and each
+    shard's prefix) and hashes, the choice, the admissions and the affinity
+    increments; at the end the marginal utility (float32 min), the
+    fragmentation (float32 sum), whether any node was used and the nodes
+    used, and the start and end slice occupancy. The host reads shard 0's
+    two flags a round. ``lam_pieces``: each shard's (N / G,) float32 duals
+    (not written). Returns ``(assignments (P,) int32 global, final_state,
+    lam, objective () float32, iters, nodes_used () int32)``, the node
+    slots and λ as ``parallel.mesh.ShardedTensor``s, equal to
+    ``assign.packing.packing_assign_sharded_plain`` and to the unsharded
+    ``packing_assign`` (the objective within its float32 sums' order)."""
     from ..parallel.mesh import ShardedTensor
 
     mesh = sb.mesh
     P = sb.shards[0].requests.shape[0]
     if P > 1024:
-        raise ValueError(f"batched_round: P={P} exceeds the sorting block's 1024 pods")
+        raise ValueError(f"packing_round: P={P} exceeds the sorting block's 1024 pods")
     shards = []
-    for b in sb.shards:
+    for b, lam, off in zip(sb.shards, lam_pieces, sb.offsets):
         with on_device(b.alloc.device):
-            pa, sp = b.podaffinity, b.spread
-            state = (b.requested.clone(), b.nonzero_requested.clone(), b.pod_count.clone(),
-                     b.node_ports.clone(), None if pa is None else pa.base_sums.clone(),
-                     None if sp is None else sp.node_count.clone())
-            nom = (None if b.nominated_pod_idx is None
-                   else torch.ones((b.nominated_pod_idx.shape[0],), dtype=torch.bool,
-                                   device=b.alloc.device))
-            shards.append(_ShardRound(b, p, state, nom))
-    lib = build()["batched_round"]
+            shards.append(_PackRound(b, p, lam, weights, off))
+    lib = build()["packing_round"]
     smem = _smem(sb.shards[0])
+    s0 = shards[0]
+    topo = s0.slice_id is not None
 
     def step(k):
-        for s, off in zip(shards, sb.offsets):
-            req, nz, pc, ports, _, sp_counts = s.state
-            with on_device(s.dev):
-                code = lib.kt_batched_round_shard(
-                    ctypes.byref(s.a), k, s.mask.data_ptr(), s.total.data_ptr(),
-                    req.data_ptr(), nz.data_ptr(), pc.data_ptr(), ports.data_ptr(),
-                    _ptr(s.pa_delta), _ptr(sp_counts), s.active.data_ptr(),
-                    s.assignments.data_ptr(), s.bufs.data_ptr(), s.r.data_ptr(),
-                    s.choice[1].data_ptr() if k >= 4 else s.choice[0].data_ptr(),
-                    s.acc[1].data_ptr() if k == 5 else s.acc[0].data_ptr(),
-                    s.flags.data_ptr(), off, torch.cuda.current_stream(s.dev).cuda_stream)
-            _raise_on(lib, "batched_round", code, "batched_round (sharded)")
-            launch_counts["sharded_round"] += 1
-
-    cap = max_rounds or P
-    rounds = 0
-    progress, still = True, bool(torch.any(shards[0].active))
-    while progress and still and rounds < cap:
-        _filter_score_shards(mesh, shards, smem)
-        step(1)
-        shard_combine(mesh, MAX, [s.bufs[0] for s in shards], [s.bufs[0] for s in shards])
-        step(2)
-        shard_combine(mesh, PREFIX, [s.bufs[1] for s in shards], [s.bufs[4] for s in shards])
-        shard_combine(mesh, SUM, [s.bufs[1] for s in shards], [s.bufs[3] for s in shards])
-        shard_combine(mesh, SUM, [s.bufs[2] for s in shards], [s.combined[2] for s in shards])
         for s in shards:
             with on_device(s.dev):
-                s.bufs[2].copy_(s.combined[2])
+                code = lib.kt_packing_shard(ctypes.byref(s.a), ctypes.byref(s.ps), k,
+                                            torch.cuda.current_stream(s.dev).cuda_stream)
+            _raise_on(lib, "packing_round", code, f"packing_round (sharded, step {k})")
+            launch_counts["sharded_packing"] += 1
+
+    def combine(op, get, put=None):
+        shard_combine(mesh, op, [get(s) for s in shards], [(put or get)(s) for s in shards])
+
+    step(0)
+    cap = max_iters or P
+    iters = 0
+    progress, still = True, bool(torch.any(s0.active))
+    while progress and still and iters < cap:
+        _filter_score_shards(mesh, shards, smem)
+        if topo:
+            step(1)
+            combine(SUM, lambda s: s.busy[: s.S + 1])
+        step(2)
+        combine(MAX, lambda s: s.stats[0])
         step(3)
-        shard_combine(mesh, MAX, [s.choice[0] for s in shards], [s.choice[1] for s in shards])
+        combine(MAX, lambda s: s.stats[1])
         step(4)
-        shard_combine(mesh, MAX, [s.acc[0] for s in shards], [s.acc[1] for s in shards])
+        combine(PREFIX, lambda s: s.stats[2], lambda s: s.stats[6])
+        combine(SUM, lambda s: s.stats[2], lambda s: s.stats[4])
+        combine(SUM, lambda s: s.stats[3], lambda s: s.stats[5])
+        step(5)
+        combine(MAX, lambda s: s.choice[0], lambda s: s.choice[1])
+        step(6)
+        combine(MAX, lambda s: s.acc[0], lambda s: s.acc[1])
         for s in shards:
             if s.pa_delta is not None:
                 with on_device(s.dev):
                     s.pa_delta.zero_()
-        step(5)
-        if shards[0].pa_delta is not None:
-            shard_combine(mesh, ADD, [s.pa_delta for s in shards],
-                          [s.state[4] for s in shards])
-        progress, still = (bool(v) for v in shards[0].flags.tolist())
-        rounds += 1
+        step(7)
+        if s0.pa_delta is not None:
+            combine(ADD, lambda s: s.pa_delta, lambda s: s.state[4])
+        progress, still = (bool(v) for v in s0.flags.tolist())
+        iters += 1
+    step(8)
+    combine(MIN, lambda s: s.endf[0:1])
+    combine(SUM, lambda s: s.endf[1:2])
+    combine(MAX, lambda s: s.endi[0:1])
+    combine(SUM, lambda s: s.endi[1:2])
+    if topo:
+        combine(SUM, lambda s: s.busy)
+    step(9)
     for s in shards:
         with on_device(s.dev):
             torch.cuda.current_stream(s.dev).synchronize()
-    if rounds_out is not None:
-        rounds_out.append(rounds)
-    s0 = shards[0]
-    return s0.assignments, (
+    state = (
         ShardedTensor([s.state[0] for s in shards]), ShardedTensor([s.state[1] for s in shards]),
         ShardedTensor([s.state[2] for s in shards]), ShardedTensor([s.state[3] for s in shards]),
         None if s0.state[5] is None else ShardedTensor([s.state[5] for s in shards], axis=1),
         s0.state[4], s0.nom_active,
+    )
+    return (s0.assignments, state, ShardedTensor([s.lam for s in shards]), s0.objective,
+            iters, s0.nodes_used)
+
+
+# ---------------------------------------------------------------------------
+# kernels K6 and K7: the batched rounds and the greedy scan on a pods x nodes
+# grid (csrc/batched_round.cu, csrc/greedy_scan.cu); a node mesh is the grid
+# of one pod row (kernels K2 and K1)
+# ---------------------------------------------------------------------------
+
+
+class _TileRound(_ShardRound):
+    """One tile's buffers for the tiled rounds: the sharded round's over the
+    tile's pods (its filter_score scratch, its arguments ``a``) and the
+    arguments ``af`` of its node column with every pod's pod-major leaves,
+    with the per-pod vectors of all P pods (``TileRound``). On one pod row
+    the tile holds every pod: ``af`` is ``a``, and the rank reads the row's
+    combined statistics in place."""
+
+    def __init__(self, sb, t: int, p: rt.ScoreParams) -> None:
+        b = sb.shards[t]
+        dev = b.alloc.device
+        pa, sp = b.podaffinity, b.spread
+        state = (b.requested.clone(), b.nonzero_requested.clone(), b.pod_count.clone(),
+                 b.node_ports.clone(), None if pa is None else pa.base_sums.clone(),
+                 None if sp is None else sp.node_count.clone())
+        nom = (None if b.nominated_pod_idx is None
+               else torch.ones((b.nominated_pod_idx.shape[0],), dtype=torch.bool, device=dev))
+        super().__init__(b, p, state, nom)
+        i, j = divmod(t, sb.columns)
+        i64, i32 = torch.int64, torch.int32
+        self.tstats = torch.zeros((5, self.a.P), dtype=i64, device=dev)
+        if sb.pod_rows == 1:
+            # the rank reads the row's combined best, hash and tie count;
+            # the per-pod vectors are the sharded round's
+            self.af = self.a
+            base, row = self.tstats.data_ptr(), 8 * self.a.P
+            joined = (base, base + 2 * row, base + 3 * row)
+        else:
+            # the column's batch of every pod: its leaves live as long as
+            # the argument struct that points into them
+            self.full = sb.full_tile(t)
+            self.af, self.keep_full = _score_args(self.full, p, "tiled round", state,
+                                                  bits_blocks=1, nom_active=nom,
+                                                  pod_node=False)
+            P = self.af.P
+            self.fstats = torch.zeros((3, P), dtype=i64, device=dev)
+            joined = tuple(self.fstats[k].data_ptr() for k in range(3))
+            self.r = torch.zeros((P,), dtype=i32, device=dev)
+            self.choice = torch.full((2, P), -1, dtype=i32, device=dev)
+            self.acc = torch.zeros((2, P), dtype=i32, device=dev)
+            self.active = self.full.pod_valid.clone()
+            self.assignments = torch.full((P,), -1, dtype=i32, device=dev)
+        req, nz, pc, ports, _, sp_counts = state
+        h = self.tr = TileRound()
+        h.mask, h.total = self.mask.data_ptr(), self.total.data_ptr()
+        h.req, h.nz, h.pc, h.ports = (x.data_ptr() for x in (req, nz, pc, ports))
+        h.pa_delta, h.sp_counts = _ptr(self.pa_delta), _ptr(sp_counts)
+        for name in ("active", "assignments", "tstats", "r", "choice", "acc", "flags"):
+            setattr(h, name, getattr(self, name).data_ptr())
+        h.fbest, h.fhash, h.fcount = joined
+        h.pod_offset, h.offset = sb.pod_offsets[i], sb.offsets[j]
+
+
+def tiled_batched_assign(sb, p: rt.ScoreParams, max_rounds: int = 0,
+                         rounds_out: list | None = None, rows_out: list | None = None):
+    """Kernels K6 and K2, the batched engine over a sharded batch
+    (``parallel.mesh.ShardedBatch`` on CUDA devices: a pods x nodes grid,
+    K6, or a node mesh, one pod row, K2): each round every pod row's
+    sharded ``filter_score`` on its tiles (``_filter_score_shards`` over
+    the row's node columns), then ``kt_tiled_round``'s steps on every tile
+    with the mesh's combines between them: inside each pod row the best
+    score's max, the tie counts' prefix and sums and the wrapping sums of
+    the tie weights of the global node indices; across the pod rows (a)
+    the rows' best, hash and count joined in pod order (``GATHER``) before
+    the rank over every pod, (b) the picks and the admissions (max over
+    every tile: one pod a node in queue order over every row's choosers),
+    (c) the first rejection over all P (every tile alike), and (d) the
+    commit, which every tile applies to its own copy of its column's rows
+    from every pod's pod-major leaves (gathered once a batch,
+    ``ShardedBatch.full_tile``), so a column's copies stay equal; each pod
+    row's affinity increments sum over its columns. On one pod row there
+    is nothing to join. The host reads tile 0's two flags a round. Returns
+    ``(assignments (P,) int32 global, final_state)``, the node slots from
+    pod row 0's tiles, equal to ``assign.batched.batched_assign_tiled_plain(sb,
+    p, max_rounds)``; ``rows_out`` as the plain version's."""
+    from ..assign.batched import _row_slots
+
+    mesh = sb.mesh
+    P, NG, PG = sb.num_pods, sb.columns, sb.pod_rows
+    if P > 1024:
+        raise ValueError(f"batched_round: P={P} exceeds the sorting block's 1024 pods")
+    tiles = []
+    for t, b in enumerate(sb.shards):
+        with on_device(b.alloc.device):
+            tiles.append(_TileRound(sb, t, p))
+    rows = [tiles[i * NG:(i + 1) * NG] for i in range(PG)]
+    lib = build()["batched_round"]
+    smem = _smem(sb.shards[0])
+    what = "sharded_round" if PG == 1 else "tiled_round"
+
+    def step(k):
+        for s in tiles:
+            with on_device(s.dev):
+                code = lib.kt_tiled_round(ctypes.byref(s.a), ctypes.byref(s.af), k,
+                                          ctypes.byref(s.tr),
+                                          torch.cuda.current_stream(s.dev).cuda_stream)
+            _raise_on(lib, "batched_round", code, f"batched_round (tiled, step {k})")
+            launch_counts[what] += 1
+
+    def in_rows(op, get, put=None):
+        for i, row in enumerate(rows):
+            shard_combine(mesh.row(i), op, [get(s) for s in row], [(put or get)(s) for s in row])
+
+    def over_all(op, get, put):
+        shard_combine(mesh, op, [get(s) for s in tiles], [put(s) for s in tiles])
+
+    def gather(k, f):
+        shard_combine(mesh, GATHER, [row[0].tstats[k] for row in rows],
+                      [s.fstats[f] for s in tiles])
+
+    cap = max_rounds or P
+    rounds = 0
+    progress, still = True, bool(torch.any(tiles[0].active))
+    while progress and still and rounds < cap:
+        for i, row in enumerate(rows):
+            _filter_score_shards(mesh.row(i), row, smem)
+        step(1)
+        in_rows(MAX, lambda s: s.tstats[0])
+        step(2)
+        in_rows(PREFIX, lambda s: s.tstats[1], lambda s: s.tstats[4])
+        in_rows(SUM, lambda s: s.tstats[1], lambda s: s.tstats[3])
+        in_rows(SUM, lambda s: s.tstats[2])
+        if PG > 1:
+            # the rows' best, hash and tie count, joined in pod order
+            for k, f in ((0, 0), (2, 1), (3, 2)):
+                gather(k, f)
+        step(3)
+        over_all(MAX, lambda s: s.choice[0], lambda s: s.choice[1])
+        step(4)
+        over_all(MAX, lambda s: s.acc[0], lambda s: s.acc[1])
+        for s in tiles:
+            if s.pa_delta is not None:
+                with on_device(s.dev):
+                    s.pa_delta.zero_()
+        step(5)
+        if tiles[0].pa_delta is not None:
+            in_rows(ADD, lambda s: s.pa_delta, lambda s: s.state[4])
+        progress, still = (bool(v) for v in tiles[0].flags.tolist())
+        rounds += 1
+    for s in tiles:
+        with on_device(s.dev):
+            torch.cuda.current_stream(s.dev).synchronize()
+    if rounds_out is not None:
+        rounds_out.append(rounds)
+    st = [s.state for s in tiles]
+    slots = [[x[k] for x in st] for k in range(6)]
+    if rows_out is not None:
+        rows_out.extend(_row_slots(slots[0], slots[1], slots[2], slots[3], slots[5], i, NG)
+                        for i in range(PG))
+    s0 = tiles[0]
+    return s0.assignments, _row_slots(slots[0], slots[1], slots[2], slots[3], slots[5], 0, NG) + (
+        s0.state[4], s0.nom_active)
+
+
+def tiled_greedy_scan(sb, p: rt.ScoreParams):
+    """Kernels K7 and K1, the greedy engine over a sharded batch
+    (``parallel.mesh.ShardedBatch`` on CUDA devices: a pods x nodes grid,
+    K7, or a node mesh, one pod row, K1): each tile's ``filter_score`` on
+    its (P / PG, N / NG) block, then one ``tiled_scan`` launch (NG blocks
+    of one cooperative launch on one card, or one block a card on pod row
+    0's cards): node column j's block scans the pod rows in turn with each
+    row's tile, exchanging each step's pick with the other columns' blocks
+    at every reduction over nodes; each column keeps one running copy of
+    its rows, which every pod row's step reads and takes the pick into.
+    The exchange's slots are pod row 0's. Returns ``(assignments (P,)
+    int32 global, final_state)``, the node-axis slots as
+    ``parallel.mesh.ShardedTensor``s, equal to
+    ``assign.greedy.greedy_assign_tiled_plain(sb, p)`` and to the
+    unsharded engine on the whole batch."""
+    from ..parallel.mesh import ShardedTensor
+
+    mesh, NG, PG = sb.mesh, sb.columns, sb.pod_rows
+    if PG * NG > 8:
+        raise ValueError(f"tiled_scan: {PG} x {NG} tiles, the launch takes 8")
+    row0 = mesh.row(0)
+    one_card = len(row0.cards()) == 1
+    if not one_card and len(set(row0.devices)) != NG:
+        raise ValueError("tiled_scan: pod row 0's columns share a card with another column")
+    P = sb.num_pods
+    cols = []
+    for j in range(NG):
+        b = sb.tile(0, j)
+        dev = b.alloc.device
+        pa, sp = b.podaffinity, b.spread
+        with on_device(dev):
+            cols.append(dict(
+                assignments=torch.empty((P,), dtype=torch.int32, device=dev),
+                req=torch.empty_like(b.requested), nz=torch.empty_like(b.nonzero_requested),
+                pc=torch.empty_like(b.pod_count), ports=torch.empty_like(b.node_ports),
+                touched=torch.empty((b.alloc.shape[0],), dtype=torch.uint8, device=dev),
+                pa_sums=None if pa is None else torch.empty_like(pa.base_sums),
+                row_total=None if pa is None else torch.empty(
+                    (pa.base_sums.shape[0],), dtype=torch.int64, device=dev),
+                sp_counts=None if sp is None else torch.empty_like(sp.node_count),
+                ok_buf=None if sp is None
+                else torch.empty((b.alloc.shape[0],), dtype=torch.uint8, device=dev),
+                nom_active=None if b.nominated_pod_idx is None else torch.ones(
+                    (b.nominated_pod_idx.shape[0],), dtype=torch.bool, device=dev),
+            ))
+    structs = (ScanShard * (PG * NG))()
+    keep, words, a0 = [], 7, {}
+    for t, b in enumerate(sb.shards):
+        i, j = divmod(t, NG)
+        dev, col = b.alloc.device, cols[j]
+        with on_device(dev):
+            live = (None if b.nominated_pod_idx is None
+                    else torch.ones_like(b.nominated_pod_idx, dtype=torch.bool))
+            mask0, base0, _ = _filter_score(b, p, want_total=False, dynamic=False,
+                                            nom_active=live)
+            if b.nominated_pod_idx is not None and i > 0:
+                # the scan compares a nomination's pod with the row's own
+                # pod index
+                idx = b.nominated_pod_idx
+                b = dataclasses.replace(b, nominated_pod_idx=torch.where(
+                    idx >= 0, idx - sb.pod_offsets[i], -1).to(torch.int32))
+            a, kp = _score_args(b, p, "tiled_greedy_scan", bits_blocks=1, nom_active=live)
+        if i == 0:
+            a0[j] = a
+        else:
+            # every pod row's step writes the column's one running copy
+            for f in ("nom_active", "sp_sums", "sp_min_match", "sp_bits"):
+                setattr(a, f, getattr(a0[j], f))
+        st = structs[t]
+        st.a = a
+        st.mask0, st.base0 = mask0.data_ptr(), base0.data_ptr()
+        for name in ("touched", "req", "nz", "pc", "ports", "pa_sums", "row_total",
+                     "sp_counts", "ok_buf"):
+            setattr(st, name, _ptr(col[name]))
+        st.assignments = col["assignments"].data_ptr() + 4 * sb.pod_offsets[i]
+        st.offset = sb.offsets[j]
+        keep += [mask0, base0, kp, live, b]
+        words = max(words, _words_for(b))
+    if cols[0]["nom_active"] is not None:
+        for j in range(NG):
+            a0[j].nom_active = cols[j]["nom_active"].data_ptr()
+            for i in range(PG):
+                structs[i * NG + j].a.nom_active = cols[j]["nom_active"].data_ptr()
+    ex = _mesh_exchange(row0)
+    _mesh_exchange(mesh)   # peer access between every card of the grid
+    ex.prepare(words)
+    lib = build()["greedy_scan"]
+    b0 = sb.shards[0]
+    flags = (int(b0.podaffinity is not None), int(b0.spread is not None),
+             int(b0.dra_score_raw is not None and p.w_dra != 0))
+    if PG > 1:
+        # every tile's filter_score is done before the scan reads it (a
+        # node mesh's scan follows each shard's on its own stream)
+        for card in mesh.cards():
+            with on_device(card):
+                torch.cuda.current_stream(card).synchronize()
+    launches = ([(row0.devices[0], 1, -1)] if one_card
+                else [(row0.devices[j], 0, j) for j in range(NG)])
+    what = "sharded_scan" if PG == 1 else "tiled_scan"
+    for dev, coop, colj in launches:
+        x = ex.args(dev)
+        with on_device(dev):
+            code = lib.kt_tiled_scan(ctypes.addressof(structs), ctypes.byref(x), PG, NG, coop,
+                                     colj, *flags, _smem(b0),
+                                     torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(lib, "greedy_scan", code, what)
+        launch_counts[what] += 1
+    ex.check(what)
+    del keep
+    return cols[0]["assignments"], (
+        ShardedTensor([c["req"] for c in cols]), ShardedTensor([c["nz"] for c in cols]),
+        ShardedTensor([c["pc"] for c in cols]), ShardedTensor([c["ports"] for c in cols]),
+        None if b0.spread is None else ShardedTensor([c["sp_counts"] for c in cols], axis=1),
+        cols[0]["pa_sums"], cols[0]["nom_active"],
     )

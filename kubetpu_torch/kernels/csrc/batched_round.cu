@@ -26,6 +26,11 @@
 //       clears its own nominations (a.nom_active, which the next round's
 //       filter_score reads).
 //
+// On a pods x nodes grid (kernel K6) and under a node mesh, the grid of one
+// pod row (kernel K2), the same kernels run a step a launch on each tile,
+// with the mesh's combines between the steps (kt_tiled_round,
+// kt_shard_combine below).
+//
 // Bound: latency. The work that needs the whole card is filter_score's; the
 // round body is four short launches with P blocks at most. Design notes:
 // each node takes at most one pod a round, so the resource, pod-count,
@@ -393,63 +398,97 @@ extern "C" int kt_batched_round(const ScoreArgs* args, const void* mask, const v
   return (int)cudaGetLastError();
 }
 
-// One step of a sharded round (kernel K2) on one node shard, after its
-// sharded filter_score wrote `mask` and `total` (P, N/G) over its rows;
-// the shards' partials are combined (kt_shard_combine) between the steps.
-// `bufs` holds (P,) int64 arrays: 0 best, 1 this shard's tie count, 2 the
-// hash, 3 the combined tie count, 4 the ties before this shard; (P,) int32
-// arrays: `r`, `choice` (global), `acc`. step 1: the shard's best into
-// bufs[0]; 2: at the combined best (bufs[0]) its count into bufs[1] and
-// hash into bufs[2]; 3: ranks (from the combined bufs[2], bufs[3]) and the
-// shard's pick into `choice`; 4: its admissions into `acc`; 5: commit
-// (pa_sums is then the zeroed delta; see round_accept). Returns the
-// cudaError_t of the launch.
-extern "C" int kt_batched_round_shard(const ScoreArgs* args, int step, const void* mask,
-                                      const void* total, void* req, void* nz, void* pc,
-                                      void* ports, void* pa_delta, void* sp_counts,
-                                      void* active, void* assignments, void* bufs, void* r,
-                                      void* choice, void* acc, void* flags, int64_t offset,
-                                      void* stream) {
-  const ScoreArgs a = *args;
-  if (a.P == 0) return 0;
-  if (a.P > kSortThreads) return (int)cudaErrorInvalidValue;
+namespace {
+
+// One tile's buffers of a round over a pods x nodes grid (kernel K6);
+// mirror of TileRound in kubetpu_torch/kernels/__init__.py (8-byte
+// fields). Pb = P / PG pods a pod row, N = the tile's node column.
+struct TileRound {
+  const uint8_t* mask;     // (Pb, N) this round's filter_score of the tile
+  const int64_t* total;
+  int64_t* req;            // the tile's copy of its column's running rows
+  int64_t* nz;
+  int32_t* pc;
+  uint8_t* ports;
+  int64_t* pa_delta;       // (RA, D) zeroed before step 5, or null
+  int32_t* sp_counts;      // (S, N) or null
+  uint8_t* active;         // (P,) every pod's
+  int32_t* assignments;    // (P,) global node indices
+  int64_t* tstats;         // (5, Pb): best, count, hash, the row's count, ties before
+  const int64_t* fbest;    // (P,) every pod row's best, hash and tie count joined
+  const int64_t* fhash;    // in pod order (on one pod row: tstats' rows 0, 2, 3)
+  const int64_t* fcount;
+  int32_t* r;              // (P,)
+  int32_t* choice;         // (2, P): this tile's picks (its pod row), the combined
+  int32_t* acc;            // (2, P): this tile's admissions, the combined
+  int32_t* flags;          // (2,)
+  int64_t pod_offset;      // the tile's first pod
+  int64_t offset;          // the tile's first global node
+};
+
+}  // namespace
+
+// One step of a round over a pods x nodes grid (kernel K6; on one pod row,
+// a node mesh, kernel K2) on one tile, after its pod row's sharded
+// filter_score wrote `mask` and `total`; the host combines between the
+// steps: within the pod row after steps 1 and 2 (the best score's max, the
+// tie counts' prefix and sums, the hashes' sums), then across the pod rows
+// (the rows' best, hash and count joined in pod order into fbest, fhash,
+// fcount; on one pod row these are the row's own), after step 3 the picks'
+// max over every tile, after step 4 the admissions' max, and after step 5
+// the affinity increments' sum within each pod row. `tile` is the tile's
+// arguments (its Pb pods), `full` the same node column with every pod's
+// pod-major leaves (the rank, the admissions and the commit read every
+// pod; on one pod row, `tile` itself). 1: the tile's best into tstats[0];
+// 2: at the row's best its counts and hashes into tstats[1], tstats[2]; 3:
+// the ranks over every pod, then the tile's picks into its pod row's part
+// of choice[0]; 4: its column's admissions into acc[0]; 5: the commit to
+// its column's rows (every pod row's copy takes every pod of the column).
+// Returns the cudaError_t of the launch.
+extern "C" int kt_tiled_round(const ScoreArgs* tile, const ScoreArgs* full, int step,
+                              const void* bufs, void* stream) {
+  const ScoreArgs at = *tile;
+  const ScoreArgs af = *full;
+  const TileRound& h = *static_cast<const TileRound*>(bufs);
+  if (af.P == 0) return 0;
+  if (af.P > kSortThreads) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  const int64_t* t = static_cast<const int64_t*>(total);
-  int64_t* b = static_cast<int64_t*>(bufs);
-  int64_t *best = b, *cnt = b + a.P, *hash = b + 2 * a.P, *cnt_all = b + 3 * a.P,
-          *before = b + 4 * a.P;
-  uint8_t* act = static_cast<uint8_t*>(active);
-  int32_t* rr = static_cast<int32_t*>(r);
-  int32_t* ch = static_cast<int32_t*>(choice);
+  const int64_t Pb = at.P, P = af.P;
+  int64_t *best = h.tstats, *cnt = h.tstats + Pb, *hash = h.tstats + 2 * Pb,
+          *before = h.tstats + 4 * Pb;
+  uint8_t* act = h.active + h.pod_offset;
   if (step == 1 || step == 2) {
-    round_pod_stats<<<(unsigned)a.P, kRowThreads, 0, s>>>(a, m, t, act, best, cnt, hash, step,
-                                                           best, offset);
+    if (Pb) round_pod_stats<<<(unsigned)Pb, kRowThreads, 0, s>>>(
+        at, h.mask, h.total, act, best, cnt, hash, step, best, h.offset);
   } else if (step == 3) {
-    round_rank<<<1, kSortThreads, 0, s>>>(a, hash, cnt_all, rr, best);
+    round_rank<<<1, kSortThreads, 0, s>>>(af, h.fhash, h.fcount, h.r, h.fbest);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    round_pick<<<(unsigned)a.P, kRowThreads, 0, s>>>(a, m, t, best, cnt, rr, ch, before,
-                                                      offset);
+    if (Pb) round_pick<<<(unsigned)Pb, kRowThreads, 0, s>>>(
+        at, h.mask, h.total, best, cnt, h.r + h.pod_offset, h.choice + h.pod_offset, before,
+        h.offset);
   } else if (step == 4 || step == 5) {
     round_accept<<<1, kSortThreads, 0, s>>>(
-        a, ch, static_cast<int64_t*>(req), static_cast<int64_t*>(nz), static_cast<int32_t*>(pc),
-        static_cast<uint8_t*>(ports), static_cast<int64_t*>(pa_delta),
-        static_cast<int32_t*>(sp_counts), act, static_cast<int32_t*>(assignments),
-        static_cast<int32_t*>(flags), step - 3, static_cast<int32_t*>(acc), offset);
+        af, h.choice + P, h.req, h.nz, h.pc, h.ports, h.pa_delta, h.sp_counts, h.active,
+        h.assignments, h.flags, step - 3, step == 4 ? h.acc : h.acc + P, h.offset);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
+extern "C" int64_t kt_batched_round_tile_size() { return (int64_t)sizeof(TileRound); }
+
 namespace {
 
 // Mirror of CombineArgs in kubetpu_torch/kernels/__init__.py
 struct CombineArgs {
-  const void* src[8];  // each shard's partial (n elements)
+  const void* src[8];  // each shard's partial (n elements; `piece` for a gather)
   void* dst[8];        // each shard's result
-  int64_t G, n, op, elem;  // elem: 8 (int64) or 4 (int32) bytes
+  int64_t G, n, op, elem;  // elem: 8 (int64) or 4 (int32 or float32) bytes
+  int64_t flt;         // 1: float32 partials (ops max, sum, min)
+  int64_t nsrc;        // a gather's sources
+  int64_t piece;       // a gather's elements a source
 };
 
 template <typename T>
@@ -466,6 +505,13 @@ __device__ __forceinline__ void combine_one(const CombineArgs& c, int64_t i) {
     }
     return;
   }
+  if (c.op == 6) {
+    // gather: element i of the joined vector is element i mod piece of
+    // source i / piece (the pod rows' per-pod vectors, in pod order)
+    const T v = src[i / c.piece][i % c.piece];
+    for (int64_t h = 0; h < c.G; ++h) dst[h][i] = v;
+    return;
+  }
   T v = src[0][i];
   for (int64_t h = 1; h < c.G; ++h) {
     const T w = src[h][i];
@@ -478,14 +524,32 @@ __device__ __forceinline__ void combine_one(const CombineArgs& c, int64_t i) {
     dst[h][i] = c.op == 5 ? (T)((unsigned long long)dst[h][i] + (unsigned long long)v) : v;
 }
 
-// The mesh's combine (kernel K2's cross-shard reductions): element i of
-// every shard's partial, reduced, written to every shard's result (peer
-// pointers for other cards). op 0 max, 1 sum (wrapping), 2 or, 3 min, 4
-// exclusive prefix sum in shard order, 5 add the sum into the results.
+// float32 partials: max, min, or a sum rounded after each shard's addition
+// in shard order
+__device__ __forceinline__ void combine_float(const CombineArgs& c, int64_t i) {
+  const float* const* src = reinterpret_cast<const float* const*>(c.src);
+  float* const* dst = reinterpret_cast<float* const*>(c.dst);
+  float v = src[0][i];
+  for (int64_t h = 1; h < c.G; ++h) {
+    const float w = src[h][i];
+    if (c.op == 0) v = fmaxf(v, w);
+    else if (c.op == 3) v = fminf(v, w);
+    else v = __fadd_rn(v, w);
+  }
+  for (int64_t h = 0; h < c.G; ++h) dst[h][i] = v;
+}
+
+// The mesh's combine (kernels K2, K5, K6's cross-shard reductions): element
+// i of every shard's partial, reduced, written to every shard's result
+// (peer pointers for other cards). op 0 max, 1 sum (wrapping), 2 or, 3
+// min, 4 exclusive prefix sum in shard order, 5 add the sum into the
+// results, 6 gather (the G results each take the nsrc sources joined).
 __global__ void shard_combine_kernel(CombineArgs c) {
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < c.n;
        i += (int64_t)gridDim.x * blockDim.x) {
-    if (c.elem == 8)
+    if (c.flt)
+      combine_float(c, i);
+    else if (c.elem == 8)
       combine_one<int64_t>(c, i);
     else
       combine_one<int32_t>(c, i);
@@ -501,6 +565,10 @@ extern "C" int kt_shard_combine(const void* args, void* stream) {
   const CombineArgs c = *static_cast<const CombineArgs*>(args);
   if (c.n <= 0) return 0;
   if (c.G < 1 || c.G > 8 || (c.elem != 4 && c.elem != 8)) return (int)cudaErrorInvalidValue;
+  if (c.flt && (c.elem != 4 || (c.op != 0 && c.op != 1 && c.op != 3)))
+    return (int)cudaErrorInvalidValue;
+  if (c.op == 6 && (c.nsrc < 1 || c.nsrc > 8 || c.piece < 1 || c.nsrc * c.piece != c.n))
+    return (int)cudaErrorInvalidValue;
   const int64_t blocks = (c.n + 255) / 256;
   shard_combine_kernel<<<(unsigned)(blocks < 1024 ? blocks : 1024), 256, 0,
                          static_cast<cudaStream_t>(stream)>>>(c);

@@ -65,7 +65,10 @@
 // their spin waits cannot deadlock), or one block a card, each on its
 // card's stream. Each block scans its own N / G rows and exchanges with its
 // peers at every reduction over nodes (scan_loop.cuh, exchange.cuh). G = 1
-// is the unsharded kernel above, with no exchange compiled in.
+// is the unsharded kernel above, with no exchange compiled in. A node mesh
+// is a pods x nodes grid of one pod row: on a grid of PG rows (kernel K7,
+// tiled_scan_kernel below, which also runs K1) the NG column blocks scan
+// the pod rows in turn, each row's pods from its tiles.
 // kt_shard_argmax (kernel K4, kubetpu/parallel/mesh.py:327
 // measure_collective_wall's argmax) is the exchange alone: each shard's
 // first argmax of an int64 vector, then the pick by (value, -index), run
@@ -101,7 +104,7 @@ auto scan_for(bool dra) {
   return dra ? greedy_scan_kernel<kPA, kSP, true> : greedy_scan_kernel<kPA, kSP, false>;
 }
 
-// One shard of a sharded scan: its arguments and buffers (mirror of
+// One tile of a sharded scan: its arguments and buffers (mirror of
 // ScanShard in kubetpu_torch/kernels/__init__.py; 8-byte fields)
 struct ScanShard {
   ScoreArgs a;
@@ -117,11 +120,10 @@ struct ScanShard {
   int64_t* row_total;
   int32_t* sp_counts;
   uint8_t* ok_buf;
-  int64_t offset;  // global index of the shard's first node
-  int64_t g;       // shard index
+  int64_t offset;  // global index of the tile's first node
 };
 
-// Every shard's entry, passed by value: block b reads entry b in place
+// Every tile's entry, passed by value: a block reads its entries in place
 // (__grid_constant__), so its arguments stay in the parameter space the
 // unsharded kernel reads them from, not copied into registers or shared
 // memory. (8 entries: the parameter takes 6.5 KB, which needs CUDA 12.1.)
@@ -129,23 +131,59 @@ struct ShardSet {
   ScanShard sh[8];
 };
 
-template <bool kPA, bool kSP, bool kDRA>
+// Kernel K7, the scan over a pods x nodes grid (kubetpu/parallel/mesh.py:234
+// sharded_greedy with a "pods" axis), and kernel K1, the same over a node
+// mesh, the grid of one pod row (sharded_greedy without one): the PG x NG
+// tiles' entries, tile (i, j) at i * NG + j. Block j scans node column j:
+// pod row after pod row, it runs scan_loop over row i's pods with tile (i,
+// j)'s arguments (its pods' leaves, its filter_score rows), exchanging with
+// the other columns' blocks at every reduction over nodes. Every entry of a column names the
+// same running buffers (the column's one copy of its rows, touched flags,
+// affinity sums, spread counts and sums, live nominations), so the state
+// carries from one pod row to the next, and so does the exchange count.
+// `col` is the one column this launch runs (a block a card), or -1 for NG
+// blocks of one cooperative launch. kRows: PG > 1. One pod row (a node
+// mesh) compiles to one segment with no row loop: on one pod row the row
+// loop, with its runtime `carry`, measured ~11% slower on an H100.
+template <bool kPA, bool kSP, bool kDRA, bool kRows>
 __global__ void __launch_bounds__(kThreads, 1)
-sharded_scan_kernel(const __grid_constant__ ShardSet s, const __grid_constant__ Exchange x) {
+tiled_scan_kernel(const __grid_constant__ ShardSet s, const __grid_constant__ Exchange x,
+                  int64_t PG, int64_t NG, int64_t col) {
   __shared__ int s_flag, s_win;
   __shared__ int64_t s_red[kt::kNorm];
-  const ScanShard& me = s.sh[blockIdx.x];
-  const kt::MeshShard m{kt::Xchg{&x, me.g, 0}, me.offset, &s_flag, &s_win, s_red};
-  kt::scan_loop<kPA, kSP, kDRA>(me.a, kt::NoHypothesis{}, m, me.mask0, me.base0, me.touched,
-                                me.assignments, me.req, me.nz, me.pc, me.ports, me.pa_sums,
-                                me.row_total, me.sp_counts, me.ok_buf);
+  const int64_t j = col >= 0 ? col : (int64_t)blockIdx.x;
+  kt::Xchg e{&x, j, 0};
+  const kt::MeshShard m{&e, s.sh[j].offset, &s_flag, &s_win, s_red};
+  if constexpr (!kRows) {
+    const ScanShard& me = s.sh[j];
+    kt::scan_loop<kPA, kSP, kDRA>(me.a, kt::NoHypothesis{}, m, me.mask0, me.base0, me.touched,
+                                  me.assignments, me.req, me.nz, me.pc, me.ports, me.pa_sums,
+                                  me.row_total, me.sp_counts, me.ok_buf);
+  } else {
+    if (threadIdx.x == 0) s_flag = 1;
+    __syncthreads();
+    for (int64_t i = 0; i < PG; ++i) {
+      const ScanShard& me = s.sh[i * NG + j];
+      kt::scan_loop<kPA, kSP, kDRA>(me.a, kt::NoHypothesis{}, m, me.mask0, me.base0,
+                                    me.touched, me.assignments, me.req, me.nz, me.pc, me.ports,
+                                    me.pa_sums, me.row_total, me.sp_counts, me.ok_buf, i > 0);
+      __syncthreads();
+      if (!s_flag) return;  // an exchange ran past its budget
+    }
+  }
 }
 
-using ShardedScan = void (*)(const ShardSet, const Exchange);
+using TiledScan = void (*)(const ShardSet, const Exchange, int64_t, int64_t, int64_t);
+
+template <bool kPA, bool kSP, bool kRows>
+TiledScan tiled_rows(bool dra) {
+  return dra ? tiled_scan_kernel<kPA, kSP, true, kRows>
+             : tiled_scan_kernel<kPA, kSP, false, kRows>;
+}
 
 template <bool kPA, bool kSP>
-ShardedScan sharded_for(bool dra) {
-  return dra ? sharded_scan_kernel<kPA, kSP, true> : sharded_scan_kernel<kPA, kSP, false>;
+TiledScan tiled_for(bool dra, bool rows) {
+  return rows ? tiled_rows<kPA, kSP, true>(dra) : tiled_rows<kPA, kSP, false>(dra);
 }
 
 // One shard of the argmax probe (mirror of ArgmaxShard)
@@ -201,7 +239,7 @@ shard_argmax_kernel(const __grid_constant__ ArgmaxSet set, const __grid_constant
 }
 
 // launch `kernel` with `args` as G blocks: one cooperative launch when
-// `cooperative` (G shards on one card), else one plain block
+// `cooperative` (G shards or node columns on one card), else one plain block
 cudaError_t launch_shards(const void* kernel, void** args, int64_t G, int cooperative,
                           int64_t smem, cudaStream_t stream) {
   if (cooperative)
@@ -212,34 +250,41 @@ cudaError_t launch_shards(const void* kernel, void** args, int64_t G, int cooper
 
 }  // namespace
 
-// Launches the sharded scan (kernel K1) on `stream`: with `cooperative`,
-// G blocks over the G entries of `shards` (host memory, G <= 8 shards on
-// this card); else one block for the one entry of `shards` (this card's
-// shard of a mesh of cards, whose other blocks run on the other cards). `x` is
-// the exchange; a timeout sets *x.error. Each shard's buffers are as
-// kt_greedy_scan's, its assignments the global indices. Returns the
-// cudaError_t of the launch.
-extern "C" int kt_sharded_scan(const void* shards, const Exchange* x, int64_t G,
-                               int cooperative, int pa, int sp, int dra, int64_t smem,
-                               void* stream) {
-  if (G <= 0) return 0;
-  if ((cooperative ? G : 1) > 8) return (int)cudaErrorInvalidValue;
-  ShardedScan kernel = pa ? (sp ? sharded_for<true, true>(dra) : sharded_for<true, false>(dra))
-                          : (sp ? sharded_for<false, true>(dra) : sharded_for<false, false>(dra));
-  // `shards` is host memory holding the launch's entries
+// Launches the grid's scan (kernel K7; K1 when PG is 1) on `stream`:
+// `shards` (host memory) holds the PG * NG tiles' entries (at most 8), tile
+// (i, j) at i * NG + j; with `cooperative`, NG blocks of one cooperative
+// launch, one a node column on this card (co-resident, so their spin waits
+// cannot deadlock); else one block for column `col` (this card's column of
+// pod row 0; the other rows' entries are read through peer pointers). Each
+// tile's buffers are as kt_greedy_scan's, its assignments the global
+// indices. `x` is the exchange of the NG columns; a timeout sets *x.error.
+// Returns the cudaError_t of the launch.
+extern "C" int kt_tiled_scan(const void* shards, const Exchange* x, int64_t PG, int64_t NG,
+                             int cooperative, int64_t col, int pa, int sp, int dra, int64_t smem,
+                             void* stream) {
+  if (PG <= 0 || NG <= 0) return 0;
+  if (PG * NG > 8) return (int)cudaErrorInvalidValue;
+  const bool rows = PG > 1;
+  TiledScan kernel = pa ? (sp ? tiled_for<true, true>(dra, rows)
+                              : tiled_for<true, false>(dra, rows))
+                        : (sp ? tiled_for<false, true>(dra, rows)
+                              : tiled_for<false, false>(dra, rows));
   ShardSet set{};
   const ScanShard* in = static_cast<const ScanShard*>(shards);
-  for (int64_t g = 0; g < (cooperative ? G : 1); ++g) set.sh[g] = in[g];
+  for (int64_t t = 0; t < PG * NG; ++t) set.sh[t] = in[t];
   Exchange xv = *x;
-  void* args[] = {&set, &xv};
-  cudaError_t err = launch_shards((const void*)kernel, args, G, cooperative, smem,
+  int64_t c = cooperative ? -1 : col;
+  void* args[] = {&set, &xv, &PG, &NG, &c};
+  cudaError_t err = launch_shards((const void*)kernel, args, NG, cooperative, smem,
                                   static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// Launches the argmax probe (kernel K4), as kt_sharded_scan launches the
-// scan (`shards` in host memory); `reps` exchanges of the same pick.
+// Launches the argmax probe (kernel K4) on `stream`: with `cooperative`, G
+// blocks over the G entries of `shards` (host memory, G <= 8 shards on this
+// card); else one block for the one entry of `shards` (this card's shard of
+// a mesh of cards). `reps` exchanges of the same pick.
 extern "C" int kt_shard_argmax(const void* shards, const Exchange* x, int64_t G,
                                int cooperative, int64_t reps, void* stream) {
   if (G <= 0) return 0;

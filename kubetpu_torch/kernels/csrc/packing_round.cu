@@ -46,6 +46,23 @@
 // block reductions in a fixed order. P <= 1024: one thread per pod in the
 // sorting blocks.
 //
+// Under a node mesh (kernel K5, kubetpu/parallel/mesh.py:369
+// sharded_packing) every shard runs the same steps on its own N / G rows
+// (kt_packing_shard, one step a launch), and the host combines the shards'
+// partials between the steps (kt_shard_combine in batched_round.cu), at
+// the points where a round reduces over nodes: the slice occupancy (a
+// slice's nodes may span shards), the row maximum of |score| (as its
+// float bits: |score| >= 0, so they order as the floats do and the max is
+// exact), the best utility, the tie counts (their sum and each shard's
+// prefix, for the pick) and the wrapping sums of the tie weights of the
+// GLOBAL node indices (the xor with best << 1 once, after the sum), the
+// choice, the admissions, the affinity increments, and at the end the
+// marginal utility (float min), whether any node was used, the nodes used
+// and the fragmentation (a float sum, added in shard order). The closed-
+// node bias uses the GLOBAL node index (offset + n). The admission order,
+// coupled flags and every pod-indexed vector are replicated: each shard
+// computes them alike.
+//
 // Float32 rounding: the reference's arithmetic runs through XLA on the
 // CPU, which fuses a multiply into the add that takes it (FMA). This file
 // rounds each step as the plain version (kubetpu_torch/assign/packing.py)
@@ -143,12 +160,13 @@ __device__ float emptiness(const ScoreArgs& a, const int64_t* req, int64_t n) {
 }
 
 // fma(beta, emptiness, alpha * closed) + extra, then the closed-node bias
-// closed * n * (2 * band) fused into the add that takes it
+// closed * n * (2 * band) fused into the add that takes it; n is the global
+// node index (a shard's rows start at `offset`)
 __device__ float closed_terms(const ScoreArgs& a, const float* w, const int64_t* req,
-                              const int32_t* pc, int64_t n, float extra) {
+                              const int32_t* pc, int64_t n, float extra, int64_t offset) {
   const bool closed = pc[n] == 0 && a.node_valid[n];
   const float base = __fmaf_rn(w[kBeta], emptiness(a, req, n), closed ? w[kAlpha] : 0.0f);
-  return __fmaf_rn(closed ? (float)n : 0.0f, __fmul_rn(2.0f, w[kBand]),
+  return __fmaf_rn(closed ? (float)(n + offset) : 0.0f, __fmul_rn(2.0f, w[kBand]),
                    __fadd_rn(base, extra));
 }
 
@@ -167,13 +185,16 @@ __device__ void slice_busy(const ScoreArgs& a, const int64_t* req, const int32_t
   __syncthreads();
 }
 
-// (a) each node's penalty this round
+// (a) each node's penalty this round. Over a node mesh (`mode` 1, then 2):
+// 1 writes the shard's busy flags, which the shards' sums combine; 2 reads
+// the combined counts (busy when > 0) and writes the penalties.
 __global__ void __launch_bounds__(kSortThreads, 1)
 round_nodes(ScoreArgs a, const float* w, const float* lam, const int32_t* slice_id, int64_t S,
-            int32_t* busy, float* pen) {
-  if (slice_id != nullptr) slice_busy(a, a.requested, slice_id, S, busy);
+            int32_t* busy, float* pen, int mode, int64_t offset) {
+  if (slice_id != nullptr && mode != 2) slice_busy(a, a.requested, slice_id, S, busy);
+  if (mode == 1) return;
   for (int64_t n = threadIdx.x; n < a.N; n += blockDim.x) {
-    float v = closed_terms(a, w, a.requested, a.pod_count, n, lam[n]);
+    float v = closed_terms(a, w, a.requested, a.pod_count, n, lam[n], offset);
     if (slice_id != nullptr) {
       const int32_t sid = slice_id[n];
       const bool labeled = sid < S;
@@ -250,6 +271,74 @@ __global__ void round_pod_stats(ScoreArgs a, const uint8_t* mask, const int64_t*
     cnt_out[p] = any ? cnt : 0;
     hash_out[p] = any ? h : 0;
     denom_out[p] = denom;
+  }
+}
+
+// (b) over a node mesh, in three steps with the shards' max / sums between
+// them: 1 writes the shard's largest feasible |score| as float bits (-1
+// without a feasible node or for an inactive pod) into rmx; 2, from the
+// combined rmx, the denominator and the shard's best utility (kI64Min
+// without a feasible node) into best; 3, at the combined best, the shard's
+// tie count and the wrapping sum of its tie weights at the GLOBAL node
+// indices (round_rank applies the xor).
+__global__ void shard_pod_stats(ScoreArgs a, const uint8_t* mask, const int64_t* total,
+                                const uint8_t* active, const float* pen, const float* w,
+                                int step, int64_t* rmx, int64_t* best, float* denom_out,
+                                int64_t* cnt_out, int64_t* hash_out, int64_t offset) {
+  __shared__ int64_t s[33];
+  const int64_t p = blockIdx.x;
+  const int64_t N = a.N;
+  const uint8_t* m = mask + p * N;
+  const int64_t* t = total + p * N;
+  const bool act = active[p];
+  if (step == 1) {
+    int64_t any = 0, rm = 0;
+    if (act) {
+      for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
+        if (!m[n]) continue;
+        any = 1;
+        const int64_t bits = __float_as_int(fabsf(__ll2float_rn(t[n])));
+        rm = bits > rm ? bits : rm;
+      }
+    }
+    any = block_reduce(any, MaxOp(), 0, s);
+    rm = block_reduce(rm, MaxOp(), 0, s);
+    if (threadIdx.x == 0) rmx[p] = act && any ? rm : -1;
+    return;
+  }
+  const int64_t rc = rmx[p];
+  const float denom = rc >= 0 ? fmaxf(__int_as_float((int)rc), 1.0f) : 1.0f;
+  const float w_score = w[kScore];
+  if (step == 2) {
+    int64_t b = kI64Min;
+    if (act) {
+      for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
+        if (!m[n]) continue;
+        const int64_t u = utility(t[n], denom, w_score, pen[n]);
+        b = u > b ? u : b;
+      }
+    }
+    b = block_reduce(b, MaxOp(), kI64Min, s);
+    if (threadIdx.x == 0) {
+      best[p] = b;
+      denom_out[p] = denom;
+    }
+    return;
+  }
+  int64_t cnt = 0, h = 0;
+  if (act && rc >= 0) {
+    const int64_t thr = (int64_t)((unsigned long long)best[p] - (unsigned long long)band_of(w));
+    for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
+      if (!m[n] || utility(t[n], denom, w_score, pen[n]) < thr) continue;
+      ++cnt;
+      h = SumOp()(h, tie_weight(n + offset));
+    }
+  }
+  cnt = block_reduce(cnt, SumOp(), 0, s);
+  h = block_reduce(h, SumOp(), 0, s);
+  if (threadIdx.x == 0) {
+    cnt_out[p] = cnt;
+    hash_out[p] = h;
   }
 }
 
@@ -342,9 +431,11 @@ packing_start(ScoreArgs a, const int32_t* prio, const float* w, const float* lam
 }
 
 // (c) rank of each pod within its hash group, by queue order; r = rank mod
-// ties
+// ties. Over a node mesh (`best` given) the combined hash takes the best
+// utility's xor here, and cnt is the combined count.
 __global__ void __launch_bounds__(kSortThreads, 1)
-round_rank(ScoreArgs a, const int64_t* hash, const int64_t* cnt, int32_t* r_out) {
+round_rank(ScoreArgs a, const int64_t* hash, const int64_t* cnt, int32_t* r_out,
+           const int64_t* best) {
   __shared__ int64_t s_key[kSortThreads];
   __shared__ int32_t s_idx[kSortThreads];
   __shared__ int32_t s_start[kSortThreads];
@@ -352,7 +443,15 @@ round_rank(ScoreArgs a, const int64_t* hash, const int64_t* cnt, int32_t* r_out)
   const int M = pow2_at_least(P);
   for (int i = threadIdx.x; i < M; i += blockDim.x) {
     // pads sort after every real pod of an equal hash (higher index)
-    s_key[i] = i < P ? hash[i] : INT64_MAX;
+    int64_t key = INT64_MAX;
+    if (i < P) {
+      key = hash[i];
+      if (best != nullptr)
+        key = cnt[i] > 0 ? (int64_t)((unsigned long long)key ^
+                                     ((unsigned long long)best[i] << 1))
+                         : 0;
+    }
+    s_key[i] = key;
     s_idx[i] = i;
   }
   __syncthreads();
@@ -372,15 +471,20 @@ round_rank(ScoreArgs a, const int64_t* hash, const int64_t* cnt, int32_t* r_out)
 }
 
 // (d) the (r+1)-th tie column of each pod's row (-1 without a feasible node)
+// Over a node mesh (`before` given: the ties of the shards before this one,
+// `cnt` this shard's own) the shard whose ties cover the (r+1)-th writes
+// its GLOBAL index (offset + n); the others write -1 (the shards' max
+// combines them).
 __global__ void round_pick(ScoreArgs a, const uint8_t* mask, const int64_t* total,
                            const float* pen, const float* w, const int64_t* best,
                            const int64_t* cnt, const float* denom, const int32_t* r,
-                           int32_t* choice) {
+                           int32_t* choice, const int64_t* before, int64_t offset) {
   __shared__ int32_t s_warp[kRowThreads / 32];
   __shared__ int32_t s_base;
   const int64_t p = blockIdx.x;
   const int64_t N = a.N;
-  if (cnt[p] == 0) {
+  const int64_t target = (int64_t)r[p] + 1 - (before != nullptr ? before[p] : 0);
+  if (cnt[p] == 0 || target < 1 || target > cnt[p]) {
     if (threadIdx.x == 0) choice[p] = -1;
     return;
   }
@@ -389,7 +493,6 @@ __global__ void round_pick(ScoreArgs a, const uint8_t* mask, const int64_t* tota
   const int64_t thr = (int64_t)((unsigned long long)best[p] - (unsigned long long)band_of(w));
   const float d = denom[p];
   const float w_score = w[kScore];
-  const int64_t target = (int64_t)r[p] + 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   if (threadIdx.x == 0) s_base = 0;
@@ -403,7 +506,7 @@ __global__ void round_pick(ScoreArgs a, const uint8_t* mask, const int64_t* tota
     int64_t before = s_base;
     for (int v = 0; v < warp; ++v) before += s_warp[v];
     const int64_t pos = before + __popc(ballot & ((1u << lane) - 1)) + 1;
-    if (tie && pos == target) choice[p] = (int32_t)n;
+    if (tie && pos == target) choice[p] = (int32_t)(n + offset);
     __syncthreads();
     if (threadIdx.x == 0) {
       int sum = 0;
@@ -416,12 +519,20 @@ __global__ void round_pick(ScoreArgs a, const uint8_t* mask, const int64_t* tota
 }
 
 // (e) priority-ordered multi-admission, the dual ascent, finalize and the
-// commit
+// commit. Over a node mesh (`offset` the shard's first global node, the
+// choices global): `mode` 1 admits the pods that chose this shard's nodes
+// into acc_io (P,) int32, which the shards' max combines, and runs the dual
+// ascent on the shard's nodes (their overflow is the shard's own); mode 2
+// takes the combined admissions, finds the first rejection in admission
+// order, commits this shard's admitted pods to its rows (pa_sums is then a
+// zeroed delta, which the shards' sums add into every shard's sums), and
+// updates the replicated active flags, nominations, assignments and flags.
 __global__ void __launch_bounds__(kSortThreads, 1)
 round_accept(ScoreArgs a, const int32_t* choice, const int32_t* order, const uint8_t* coupled,
              const float* w, int64_t* req, int64_t* nz, int32_t* pc, uint8_t* ports,
              int64_t* pa_sums, int32_t* sp_counts, uint8_t* active, int32_t* assignments,
-             float* lam, int32_t* over, int32_t* flags) {
+             float* lam, int32_t* over, int32_t* flags, int mode, int32_t* acc_io,
+             int64_t offset) {
   __shared__ int64_t s_key[kSortThreads];
   __shared__ int32_t s_idx[kSortThreads];
   __shared__ int32_t s_seg[kSortThreads];
@@ -430,56 +541,70 @@ round_accept(ScoreArgs a, const int32_t* choice, const int32_t* order, const uin
   __shared__ int64_t s_red[33];
   const int64_t P = a.P, N = a.N, R = a.R, K = a.K;
   const int M = pow2_at_least(P);
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    // (node, admission rank): the rank is a permutation, so keys are unique
-    s_key[i] = i < P ? (int64_t)(choice[i] >= 0 ? choice[i] : N) * P + order[i] : INT64_MAX;
-    s_idx[i] = i;
-    s_acc[i] = 0;
-  }
-  for (int64_t n = threadIdx.x; n < N; n += blockDim.x) over[n] = 0;
-  __syncthreads();
-  bitonic_sort(s_key, s_idx, M);
-  // thread i owns sorted position i
-  const int i = threadIdx.x;
-  const bool real = i < P;
-  const int64_t node = real ? s_key[i] / P : N;
-  const int32_t pod = real ? s_idx[i] : 0;
-  if (i < M) s_seg[i] = (i == 0 || !real || node != s_key[i - 1] / P) ? i : 0;
-  __syncthreads();
-  max_scan(s_seg, M);
-  const int seg = i < M ? s_seg[i] : 0;
-  const int32_t seg_pod = i < M ? s_idx[seg] : 0;
-  bool ok = real && node < N;
-  if (a.filter_fit) {
-    // segment-relative inclusive prefix sums of each resource
-    for (int64_t r = 0; r < R; ++r) {
-      if (i < M) s_cum[i] = real ? (unsigned long long)a.requests[pod * R + r] : 0ULL;
-      __syncthreads();
-      sum_scan(s_cum, M);
-      if (ok) {
-        const int64_t within = (int64_t)(s_cum[i] - s_cum[seg]
-                                         + (unsigned long long)a.requests[seg_pod * R + r]);
-        ok = within <= a.alloc[node * R + r] - req[node * R + r];
-      }
-      __syncthreads();
+  // this shard's row of pod p's choice, -1 when it chose another shard's node
+  auto mine = [&](int64_t p) -> int64_t {
+    const int64_t c = (int64_t)choice[p] - offset;
+    return choice[p] >= 0 && c >= 0 && c < N ? c : -1;
+  };
+  if (mode == 2) {
+    for (int i = threadIdx.x; i < M; i += blockDim.x) s_acc[i] = i < P ? acc_io[i] != 0 : 0;
+  } else {
+    for (int i = threadIdx.x; i < M; i += blockDim.x) {
+      // (node, admission rank): the rank is a permutation, so keys are unique
+      s_key[i] = i < P ? (mine(i) >= 0 ? mine(i) : N) * P + order[i] : INT64_MAX;
+      s_idx[i] = i;
+      s_acc[i] = 0;
     }
-    if (ok) ok = (int64_t)(i - seg + 1) <= (int64_t)a.allowed_pods[node] - pc[node];
+    for (int64_t n = threadIdx.x; n < N; n += blockDim.x) over[n] = 0;
+    __syncthreads();
+    bitonic_sort(s_key, s_idx, M);
+    // thread i owns sorted position i
+    const int i = threadIdx.x;
+    const bool real = i < P;
+    const int64_t node = real ? s_key[i] / P : N;
+    const int32_t pod = real ? s_idx[i] : 0;
+    if (i < M) s_seg[i] = (i == 0 || !real || node != s_key[i - 1] / P) ? i : 0;
+    __syncthreads();
+    max_scan(s_seg, M);
+    const int seg = i < M ? s_seg[i] : 0;
+    const int32_t seg_pod = i < M ? s_idx[seg] : 0;
+    bool ok = real && node < N;
+    if (a.filter_fit) {
+      // segment-relative inclusive prefix sums of each resource
+      for (int64_t r = 0; r < R; ++r) {
+        if (i < M) s_cum[i] = real ? (unsigned long long)a.requests[pod * R + r] : 0ULL;
+        __syncthreads();
+        sum_scan(s_cum, M);
+        if (ok) {
+          const int64_t within = (int64_t)(s_cum[i] - s_cum[seg]
+                                           + (unsigned long long)a.requests[seg_pod * R + r]);
+          ok = within <= a.alloc[node * R + r] - req[node * R + r];
+        }
+        __syncthreads();
+      }
+      if (ok) ok = (int64_t)(i - seg + 1) <= (int64_t)a.allowed_pods[node] - pc[node];
+    }
+    // one coupled pod a segment (rejected coupled choosers count too)
+    if (i < M) s_cum[i] = real ? (unsigned long long)coupled[pod] : 0ULL;
+    __syncthreads();
+    sum_scan(s_cum, M);
+    if (ok && coupled[pod]) ok = s_cum[i] - s_cum[seg] + coupled[seg_pod] == 1;
+    if (real) s_acc[pod] = ok;
+    if (real && node < N && !ok) atomicAdd(over + node, 1);
+    __syncthreads();
+    // dual ascent on every node: the overflow is the node's rejected choosers
+    const float step = w[kStep];
+    const float cap = __fmul_rn(w[kAlpha], w[kCapFrac]);
+    for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
+      const float v = __fmaf_rn(step, log1p_count((float)over[n]), lam[n]);
+      lam[n] = fminf(fmaxf(v, 0.0f), cap);
+    }
+    if (mode == 1) {
+      for (int64_t p = threadIdx.x; p < P; p += blockDim.x) acc_io[p] = s_acc[p];
+      return;
+    }
   }
-  // one coupled pod a segment (rejected coupled choosers count too)
-  if (i < M) s_cum[i] = real ? (unsigned long long)coupled[pod] : 0ULL;
   __syncthreads();
-  sum_scan(s_cum, M);
-  if (ok && coupled[pod]) ok = s_cum[i] - s_cum[seg] + coupled[seg_pod] == 1;
-  if (real) s_acc[pod] = ok;
-  if (real && node < N && !ok) atomicAdd(over + node, 1);
-  __syncthreads();
-  // dual ascent on every node: the overflow is the node's rejected choosers
-  const float step = w[kStep];
-  const float cap = __fmul_rn(w[kAlpha], w[kCapFrac]);
-  for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
-    const float v = __fmaf_rn(step, log1p_count((float)over[n]), lam[n]);
-    lam[n] = fminf(fmaxf(v, 0.0f), cap);
-  }
   // the first rejection in admission order
   int64_t first_rej = P;
   for (int64_t p = threadIdx.x; p < P; p += blockDim.x)
@@ -488,10 +613,11 @@ round_accept(ScoreArgs a, const int32_t* choice, const int32_t* order, const uin
   int64_t progress = 0, still = 0;
   for (int64_t p = threadIdx.x; p < P; p += blockDim.x) {
     if (!active[p]) continue;
-    const int32_t c = choice[p];
+    const int32_t c_global = choice[p];
+    const int64_t c = mine(p);  // the row this shard writes, or none
     const bool commit = s_acc[p];
-    const bool finalize = c < 0 && order[p] < first_rej;
-    if (commit) {
+    const bool finalize = c_global < 0 && order[p] < first_rej;
+    if (commit && c >= 0) {
       for (int64_t r = 0; r < R; ++r) {
         atomicAdd(reinterpret_cast<unsigned long long*>(req + c * R + r),
                   (unsigned long long)a.requests[p * R + r]);
@@ -514,11 +640,13 @@ round_accept(ScoreArgs a, const int32_t* choice, const int32_t* order, const uin
           if (a.sp_pod_match_sig[p * a.sp_S + sg] && a.sp_eligible[sg * N + c])
             atomicAdd(sp_counts + sg * N + c, 1);
       }
+    }
+    if (commit) {
       if (a.nom_node != nullptr) {
         for (int64_t g = 0; g < a.G; ++g)
           if (a.nom_pod_idx[g] == p) a.nom_active[g] = 0;
       }
-      assignments[p] = c;
+      assignments[p] = c_global;
     }
     if (commit || finalize) {
       active[p] = 0;
@@ -535,37 +663,68 @@ round_accept(ScoreArgs a, const int32_t* choice, const int32_t* order, const uin
   }
 }
 
-// the once-a-solve end: equalization prices, nodes used, objective
+// the once-a-solve end: equalization prices, nodes used, objective. Over a
+// node mesh (`mode` 1, then 2; `offset` the shard's first global node): 1
+// writes the shard's partials: the least start utility over its used
+// nodes and its fragmentation sum into endf (2,) float32, whether it used a
+// node and its nodes used into endi (2,) int64, and its busy flags at the
+// start and at the end into busy (2 (S + 1),) int32; the shards' min, sum,
+// max and sums combine them. 2 reads the combined partials, writes the
+// shard's equalization prices, and the objective and nodes used (every
+// shard alike).
 __global__ void __launch_bounds__(kSortThreads, 1)
 packing_end(ScoreArgs a, const int64_t* req0, const int32_t* pc0, const int64_t* req,
             const int32_t* pc, const int32_t* assignments, const int32_t* prio, const float* w,
             float* lam, const int32_t* slice_id, int64_t S, int32_t* busy, float* objective,
-            int32_t* nodes_used) {
+            int32_t* nodes_used, int mode, float* endf, int64_t* endi, int64_t offset) {
   __shared__ int64_t s_red[33];
   __shared__ float s_f[33];
   const int64_t N = a.N, P = a.P;
   const float pos_inf = __int_as_float(0x7f800000);
   float vmin = pos_inf, frag = 0.0f, adm = 0.0f;
   int64_t any = 0, used_nodes = 0;
-  for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
-    const bool valid = a.node_valid[n];
-    if (pc[n] > pc0[n] && valid) {
-      vmin = fminf(vmin, -closed_terms(a, w, req0, pc0, n, 0.0f));
-      any = 1;
+  int32_t* busy0 = busy;
+  int32_t* busy1 = busy + (S + 1);
+  if (mode == 2) {
+    vmin = endf[0];
+    frag = endf[1];
+    any = endi[0];
+    used_nodes = endi[1];
+  } else {
+    for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
+      const bool valid = a.node_valid[n];
+      if (pc[n] > pc0[n] && valid) {
+        vmin = fminf(vmin, -closed_terms(a, w, req0, pc0, n, 0.0f, offset));
+        any = 1;
+      }
+      if (pc[n] > 0 && valid) {
+        ++used_nodes;
+        frag = __fadd_rn(frag, emptiness(a, req, n));
+      }
     }
-    if (pc[n] > 0 && valid) {
-      ++used_nodes;
-      frag = __fadd_rn(frag, emptiness(a, req, n));
+    vmin = block_reduce_f(vmin, FMin(), pos_inf, s_f);
+    frag = block_reduce_f(frag, FSum(), 0.0f, s_f);
+    any = block_reduce(any, MaxOp(), 0, s_red);
+    used_nodes = block_reduce(used_nodes, SumOp(), 0, s_red);
+    if (slice_id != nullptr) {
+      // busy flags at the start and at the end
+      slice_busy(a, req0, slice_id, S, busy0);
+      slice_busy(a, req, slice_id, S, busy1);
+    }
+    if (mode == 1) {
+      if (threadIdx.x == 0) {
+        endf[0] = vmin;
+        endf[1] = frag;
+        endi[0] = any;
+        endi[1] = used_nodes;
+      }
+      return;
     }
   }
-  vmin = block_reduce_f(vmin, FMin(), pos_inf, s_f);
-  frag = block_reduce_f(frag, FSum(), 0.0f, s_f);
-  any = block_reduce(any, MaxOp(), 0, s_red);
-  used_nodes = block_reduce(used_nodes, SumOp(), 0, s_red);
   if (any) {
     const float cap = __fmul_rn(w[kAlpha], w[kCapFrac]);
     for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
-      const float v0 = -closed_terms(a, w, req0, pc0, n, 0.0f);
+      const float v0 = -closed_terms(a, w, req0, pc0, n, 0.0f, offset);
       lam[n] = fminf(fmaxf(__fsub_rn(v0, vmin), 0.0f), cap);
     }
   }
@@ -578,10 +737,6 @@ packing_end(ScoreArgs a, const int64_t* req0, const int32_t* pc0, const int64_t*
   int64_t newly = 0;
   if (slice_id != nullptr) {
     // slices opened from fully free: busy at the end, not at the start
-    int32_t* busy0 = busy;
-    int32_t* busy1 = busy + (S + 1);
-    slice_busy(a, req0, slice_id, S, busy0);
-    slice_busy(a, req, slice_id, S, busy1);
     for (int64_t s = threadIdx.x; s < S; s += blockDim.x) newly += busy1[s] && !busy0[s];
     newly = block_reduce(newly, SumOp(), 0, s_red);
   }
@@ -630,7 +785,8 @@ extern "C" int kt_packing_nodes(const ScoreArgs* args, const void* w, const void
   round_nodes<<<1, kSortThreads, 0, s>>>(a, static_cast<const float*>(w),
                                           static_cast<const float*>(lam),
                                           static_cast<const int32_t*>(slice_id), S,
-                                          static_cast<int32_t*>(busy), static_cast<float*>(pen));
+                                          static_cast<int32_t*>(busy), static_cast<float*>(pen),
+                                          0, 0);
   return (int)cudaGetLastError();
 }
 
@@ -667,17 +823,18 @@ extern "C" int kt_packing_round(const ScoreArgs* args, const void* mask, const v
   uint8_t* act = static_cast<uint8_t*>(active);
   round_nodes<<<1, kSortThreads, 0, s>>>(a, wf, static_cast<const float*>(lam),
                                           static_cast<const int32_t*>(slice_id), S,
-                                          static_cast<int32_t*>(busy), pn);
+                                          static_cast<int32_t*>(busy), pn, 0, 0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   round_pod_stats<<<(unsigned)a.P, kRowThreads, 0, s>>>(a, m, t, act, pn, wf, best, cnt, hash,
                                                         dn);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  round_rank<<<1, kSortThreads, 0, s>>>(a, hash, cnt, r);
+  round_rank<<<1, kSortThreads, 0, s>>>(a, hash, cnt, r, nullptr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  round_pick<<<(unsigned)a.P, kRowThreads, 0, s>>>(a, m, t, pn, wf, best, cnt, dn, r, choice);
+  round_pick<<<(unsigned)a.P, kRowThreads, 0, s>>>(a, m, t, pn, wf, best, cnt, dn, r, choice,
+                                                    nullptr, 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   round_accept<<<1, kSortThreads, 0, s>>>(
@@ -685,7 +842,8 @@ extern "C" int kt_packing_round(const ScoreArgs* args, const void* mask, const v
       static_cast<int64_t*>(req), static_cast<int64_t*>(nz), static_cast<int32_t*>(pc),
       static_cast<uint8_t*>(ports), static_cast<int64_t*>(pa_sums),
       static_cast<int32_t*>(sp_counts), act, static_cast<int32_t*>(assignments),
-      static_cast<float*>(lam), static_cast<int32_t*>(over), static_cast<int32_t*>(flags));
+      static_cast<float*>(lam), static_cast<int32_t*>(over), static_cast<int32_t*>(flags), 0,
+      nullptr, 0);
   return (int)cudaGetLastError();
 }
 
@@ -706,9 +864,129 @@ extern "C" int kt_packing_end(const ScoreArgs* args, const void* req0, const voi
       static_cast<const int32_t*>(assignments), static_cast<const int32_t*>(prio),
       static_cast<const float*>(w), static_cast<float*>(lam),
       static_cast<const int32_t*>(slice_id), S, static_cast<int32_t*>(busy),
-      static_cast<float*>(objective), static_cast<int32_t*>(nodes_used));
+      static_cast<float*>(objective), static_cast<int32_t*>(nodes_used), 0, nullptr, nullptr,
+      0);
   return (int)cudaGetLastError();
 }
+
+namespace {
+
+// One shard's buffers of a sharded solve (kernel K5); mirror of PackShard
+// in kubetpu_torch/kernels/__init__.py (8-byte fields). Node-indexed
+// arrays hold the shard's N / G rows; pod-indexed ones all P pods.
+struct PackShard {
+  const uint8_t* mask;      // (P, N) this round's filter_score
+  const int64_t* total;
+  int64_t* req;             // running state, the shard's rows
+  int64_t* nz;
+  int32_t* pc;
+  uint8_t* ports;
+  int64_t* pa_delta;        // (RA, D) zeroed before step 7, or null
+  int32_t* sp_counts;       // (S, N) or null
+  uint8_t* active;          // (P,)
+  int32_t* assignments;     // (P,) global node indices
+  float* lam;               // (N,) the shard's duals, in place
+  const float* w;           // (10,)
+  int32_t* order;           // (P,)
+  uint8_t* coupled;         // (P,)
+  const int32_t* slice_id;  // (N,) or null
+  int64_t S;
+  int32_t* busy;            // (2 (S + 1),)
+  float* pen;               // (N,)
+  int64_t* stats;           // (7, P): rmx, best, cnt, hash, cnt_all, hash_all, before
+  float* denom;             // (P,)
+  int32_t* r;               // (P,)
+  int32_t* choice;          // (2, P): this shard's pick, the combined choice
+  int32_t* acc;             // (2, P): this shard's admissions, the combined ones
+  int32_t* over;            // (N,)
+  int32_t* flags;           // (2,)
+  const int64_t* req0;      // the shard's start rows
+  const int32_t* pc0;
+  const int32_t* prio;      // (P,) or null
+  float* endf;              // (2,)
+  int64_t* endi;            // (2,)
+  float* objective;         // ()
+  int32_t* nodes_used;      // ()
+  int64_t offset;           // the shard's first global node
+};
+
+}  // namespace
+
+// One step of a sharded solve (kernel K5) on one node shard; the shards'
+// partials are combined (kt_shard_combine) between the steps. 0: the
+// start (order, coupled, lam *= decay); each round, after the shard's
+// filter_score: 1 its busy flags (with a topology leaf); 2 its penalties
+// (from the combined busy counts) and row maxima of |score| into stats[0];
+// 3 its best utility into stats[1]; 4 its tie counts into stats[2] and
+// hashes into stats[3]; 5 the ranks (from the combined stats[1], stats[4],
+// stats[5]) and its pick (stats[6] the ties before it) into choice[0]; 6
+// its admissions (from the combined choice[1]) into acc[0], and the dual
+// ascent on its nodes; 7 the commit (from the combined acc[1]); at the
+// end: 8 its partials into endf, endi and busy; 9 its prices and the
+// objective. Returns the cudaError_t of the launch.
+extern "C" int kt_packing_shard(const ScoreArgs* args, const void* shard, int step,
+                                void* stream) {
+  const ScoreArgs a = *args;
+  const PackShard& h = *static_cast<const PackShard*>(shard);
+  if (a.P > kSortThreads) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned P = (unsigned)a.P;
+  int64_t *rmx = h.stats, *best = h.stats + a.P, *cnt = h.stats + 2 * a.P,
+          *hash = h.stats + 3 * a.P, *cnt_all = h.stats + 4 * a.P,
+          *hash_all = h.stats + 5 * a.P, *before = h.stats + 6 * a.P;
+  switch (step) {
+    case 0:
+      packing_start<<<1, kSortThreads, 0, s>>>(a, h.prio, h.w, h.lam, h.lam, h.order, h.coupled);
+      break;
+    case 1:
+      round_nodes<<<1, kSortThreads, 0, s>>>(a, h.w, h.lam, h.slice_id, h.S, h.busy, h.pen, 1,
+                                              h.offset);
+      break;
+    case 2: {
+      round_nodes<<<1, kSortThreads, 0, s>>>(a, h.w, h.lam, h.slice_id, h.S, h.busy, h.pen, 2,
+                                              h.offset);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      if (P) shard_pod_stats<<<P, kRowThreads, 0, s>>>(a, h.mask, h.total, h.active, h.pen, h.w,
+                                                     1, rmx, best, h.denom, cnt, hash, h.offset);
+      break;
+    }
+    case 3:
+    case 4:
+      if (P) shard_pod_stats<<<P, kRowThreads, 0, s>>>(a, h.mask, h.total, h.active, h.pen, h.w,
+                                                     step - 1, rmx, best, h.denom, cnt, hash,
+                                                     h.offset);
+      break;
+    case 5: {
+      if (!P) break;
+      round_rank<<<1, kSortThreads, 0, s>>>(a, hash_all, cnt_all, h.r, best);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      round_pick<<<P, kRowThreads, 0, s>>>(a, h.mask, h.total, h.pen, h.w, best, cnt, h.denom,
+                                           h.r, h.choice, before, h.offset);
+      break;
+    }
+    case 6:
+    case 7:
+      if (P) round_accept<<<1, kSortThreads, 0, s>>>(
+          a, h.choice + a.P, h.order, h.coupled, h.w, h.req, h.nz, h.pc, h.ports, h.pa_delta,
+          h.sp_counts, h.active, h.assignments, h.lam, h.over, h.flags, step - 5,
+          step == 6 ? h.acc : h.acc + a.P, h.offset);
+      break;
+    case 8:
+    case 9:
+      packing_end<<<1, kSortThreads, 0, s>>>(a, h.req0, h.pc0, h.req, h.pc, h.assignments,
+                                              h.prio, h.w, h.lam, h.slice_id, h.S, h.busy,
+                                              h.objective, h.nodes_used, step - 7, h.endf,
+                                              h.endi, h.offset);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int64_t kt_packing_round_shard_size() { return (int64_t)sizeof(PackShard); }
 
 // The dual ascent's log1p alone, for checking: ours (n,) float32 the
 // kernel's log1p_count of each whole-number count k (n,) float32, and

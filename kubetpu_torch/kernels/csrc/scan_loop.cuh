@@ -54,11 +54,13 @@ struct NoExchange {
   static constexpr bool kOn = false;
 };
 
-// Shard g of a node mesh: this thread's view of the exchange, the shard's
-// first global node, and the block's shared scratch for the exchange.
+// Shard g of a node mesh: this thread's view of the exchange (its count of
+// exchanges lives with the caller, so that a scan run in segments, one a
+// pod row of a pods x nodes grid, keeps counting), the shard's first global
+// node, and the block's shared scratch for the exchange.
 struct MeshShard {
   static constexpr bool kOn = true;
-  Xchg e;
+  Xchg* e;
   int64_t offset;
   int* flag;     // shared: the last wait's outcome
   int* win;      // shared: the last pick's winning shard
@@ -77,7 +79,7 @@ __device__ __forceinline__ bool sp_weights_mesh(const ScoreArgs& a, int64_t p,
   int64_t scored = 0;
   for (int64_t n = threadIdx.x; n < N; n += blockDim.x) scored += ok[n] && !ig[n];
   scored = block_reduce(scored, SumOp(), 0, red);
-  int64_t* w = x.e.mine();
+  int64_t* w = x.e->mine();
   if (threadIdx.x == 0) w[0] = scored;
   for (int64_t c = 0; c < C; ++c) {
     int64_t* wc = w + 1 + c * W;
@@ -97,11 +99,11 @@ __device__ __forceinline__ bool sp_weights_mesh(const ScoreArgs& a, int64_t p,
     __syncthreads();
     for (int64_t j = threadIdx.x; j < W; j += blockDim.x) wc[j] = (int64_t)bits[j];
   }
-  if (!xchg_sync(x.e, x.flag)) return false;
-  const int64_t G = x.e.x->G;
+  if (!xchg_sync(*x.e, x.flag)) return false;
+  const int64_t G = x.e->x->G;
   int64_t total = 0;
   if (threadIdx.x == 0)
-    for (int64_t h = 0; h < G; ++h) total += xchg_payload(x.e, h)[0];
+    for (int64_t h = 0; h < G; ++h) total += xchg_payload(*x.e, h)[0];
   total = block_reduce(total, SumOp(), 0, red);
   for (int64_t c = 0; c < C; ++c) {
     const int32_t sid = a.sp_sig_idx[p * C + c];
@@ -114,7 +116,7 @@ __device__ __forceinline__ bool sp_weights_mesh(const ScoreArgs& a, int64_t p,
       int64_t cnt = 0;
       for (int64_t j = threadIdx.x; j < W; j += blockDim.x) {
         int64_t v = 0;
-        for (int64_t h = 0; h < G; ++h) v |= xchg_payload(x.e, h)[1 + c * W + j];
+        for (int64_t h = 0; h < G; ++h) v |= xchg_payload(*x.e, h)[1 + c * W + j];
         cnt += __popc((uint32_t)v);
       }
       size = block_reduce(cnt, SumOp(), 0, red);
@@ -145,14 +147,18 @@ struct Hypothesis {
 // or DRA branches at all. Dynamic shared memory (kSP only):
 // sp_C doubles of slot weights, then the domain bitmap when a.sp_bits is
 // null. Every thread of the block calls it; the scratch and outputs are
-// the block's own.
+// the block's own. With `carry` the running state (the rows, touched flags,
+// affinity sums and row totals, spread counts and domain sums, live
+// nominations) is not started from the batch's: it goes on from what an
+// earlier call left in the same buffers (the grid's scan, one call a pod
+// row).
 template <bool kPA, bool kSP, bool kDRA, class Hyp, class X = NoExchange, class A = ScoreArgs>
 __device__ __forceinline__ void scan_loop(A& a, const Hyp& h, X x, const uint8_t* mask0,
                                           const int64_t* base0, uint8_t* touched,
                                           int32_t* assignments, int64_t* req, int64_t* nz,
                                           int32_t* pc, uint8_t* ports, int64_t* pa_sums,
                                           int64_t* row_total, int32_t* sp_counts,
-                                          uint8_t* ok_buf) {
+                                          uint8_t* ok_buf, bool carry = false) {
   __shared__ int64_t s_m[kt::kNorm][33];
   __shared__ int64_t s_x[33];
   __shared__ int64_t s_y[33];
@@ -181,7 +187,9 @@ __device__ __forceinline__ void scan_loop(A& a, const Hyp& h, X x, const uint8_t
                        : reinterpret_cast<uint32_t*>(s_dyn + a.sp_C * sizeof(double));
 
   // the running state starts as the batch's node state (owner rows only)
-  if constexpr (Hyp::kOn) {
+  if (carry) {
+    // goes on from the buffers as they are
+  } else if constexpr (Hyp::kOn) {
     // less what the hypothesis frees, clamped at 0 (the reference's
     // jnp.maximum(... - freed, 0)); a freed node starts touched
     for (int64_t n = tid; n < N; n += kThreads) {
@@ -218,23 +226,25 @@ __device__ __forceinline__ void scan_loop(A& a, const Hyp& h, X x, const uint8_t
       touched[n] = 0;
     }
   }
-  if (pa) {
+  if (pa && !carry) {
     for (int64_t i = tid; i < a.pa_R * a.pa_D; i += kThreads) pa_sums[i] = a.pa_sums[i];
     kt::pa_row_totals(a, a.pa_sums, row_total, tid, kThreads);
     __syncthreads();
   }
   if constexpr (kSP) {
-    // the running counts start as the batch's, their domain sums from them
-    for (int64_t i = tid; i < S * N; i += kThreads) sp_counts[i] = a.sp_counts[i];
-    for (int64_t i = tid; i < S * D1; i += kThreads) a.sp_sums[i] = 0;
-    __syncthreads();
-    kt::sp_accumulate(a, sp_counts, a.sp_sums, 0, 1);
-    __syncthreads();
-    if constexpr (X::kOn) {
-      // the shards' partial domain sums, summed: replicated from here on
-      int64_t* w = x.e.mine();
-      for (int64_t i = tid; i < S * D1; i += kThreads) w[i] = a.sp_sums[i];
-      if (!xchg_reduce(x.e, S * D1, 1, a.sp_sums, x.flag)) return;
+    if (!carry) {
+      // the running counts start as the batch's, their domain sums from them
+      for (int64_t i = tid; i < S * N; i += kThreads) sp_counts[i] = a.sp_counts[i];
+      for (int64_t i = tid; i < S * D1; i += kThreads) a.sp_sums[i] = 0;
+      __syncthreads();
+      kt::sp_accumulate(a, sp_counts, a.sp_sums, 0, 1);
+      __syncthreads();
+      if constexpr (X::kOn) {
+        // the shards' partial domain sums, summed: replicated from here on
+        int64_t* w = x.e->mine();
+        for (int64_t i = tid; i < S * D1; i += kThreads) w[i] = a.sp_sums[i];
+        if (!xchg_reduce(*x.e, S * D1, 1, a.sp_sums, x.flag)) return;
+      }
     }
   }
 
@@ -292,10 +302,10 @@ __device__ __forceinline__ void scan_loop(A& a, const Hyp& h, X x, const uint8_t
       }
       kt::block_max_norm(a, sp_score, mx, s_m);
       if constexpr (X::kOn) {
-        int64_t* w = x.e.mine();
+        int64_t* w = x.e->mine();
         if (tid == 0)
           for (int i = 0; i < kt::kNorm; ++i) w[i] = mx[i];
-        if (!xchg_reduce(x.e, kt::kNorm, 0, x.red, x.flag)) return;
+        if (!xchg_reduce(*x.e, kt::kNorm, 0, x.red, x.flag)) return;
         for (int i = 0; i < kt::kNorm; ++i) mx[i] = x.red[i];
       }
     }
@@ -325,8 +335,8 @@ __device__ __forceinline__ void scan_loop(A& a, const Hyp& h, X x, const uint8_t
       if (lane == 0) {
         s_y[32] = n;
         if constexpr (X::kOn) {
-          x.e.mine()[0] = s;
-          x.e.mine()[1] = n >= 0 ? n + x.offset : -1;
+          x.e->mine()[0] = s;
+          x.e->mine()[1] = n >= 0 ? n + x.offset : -1;
         } else {
           assignments[p] = (int32_t)n;  // -1 when no node is feasible
         }
@@ -340,7 +350,7 @@ __device__ __forceinline__ void scan_loop(A& a, const Hyp& h, X x, const uint8_t
     int64_t local = chosen;    // the shard's row, -1 when another shard's
     const volatile int64_t* pub = nullptr;
     if constexpr (X::kOn) {
-      int64_t* w = x.e.mine() + 2;
+      int64_t* w = x.e->mine() + 2;
       for (int64_t r = tid; r < (kPA ? a.pa_R : 0); r += kThreads)
         w[r] = local >= 0 ? a.pa_node_domain[r * N + local] : -1;
       if constexpr (kSP) {
@@ -353,11 +363,11 @@ __device__ __forceinline__ void scan_loop(A& a, const Hyp& h, X x, const uint8_t
           w[(kPA ? a.pa_R : 0) + sg] = enc;
         }
       }
-      if (!xchg_pick(x.e, x.win, x.flag)) return;
+      if (!xchg_pick(*x.e, x.win, x.flag)) return;
       const int win = *x.win;
-      chosen = win >= 0 ? xchg_payload(x.e, win)[1] : -1;
+      chosen = win >= 0 ? xchg_payload(*x.e, win)[1] : -1;
       local = (chosen >= x.offset && chosen < x.offset + N) ? chosen - x.offset : -1;
-      if (win >= 0) pub = xchg_payload(x.e, win) + 2;
+      if (win >= 0) pub = xchg_payload(*x.e, win) + 2;
       if (tid == 0) assignments[p] = (int32_t)chosen;
     }
     if (local >= 0 && local % kThreads == tid) {

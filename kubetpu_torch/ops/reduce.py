@@ -8,8 +8,10 @@ value sent back. On one device the partial is already the whole
 (``run_local``). Under a node-axis mesh every shard runs the same steps on
 its own node rows and ``parallel.mesh.run_sharded`` combines the G partials
 of each point before any shard goes on, so the shards reduce at exactly the
-points the hand-written kernels exchange at. Sums are int64 and wrap, as
-the reference's uint64 hash does; the other partials reduce elementwise.
+points the hand-written kernels exchange at. Integer sums are int64 and
+wrap, as the reference's uint64 hash does; float32 partials (the packing
+solve's marginal utility and fragmentation sum) reduce in float32, sums
+added in shard order; the other partials reduce elementwise.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import torch
 
 def combine(op: str, parts: list[torch.Tensor]) -> torch.Tensor:
     """The elementwise reduction of ``parts`` (same shape and dtype, on
-    one device), in shard order."""
+    one device), in shard order: a float32 sum is rounded after each
+    shard's addition, as the kernels' combine adds."""
     out = parts[0]
     for x in parts[1:]:
         if op == "sum":

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from .reduce import run_local
+
 
 def slice_counts(
     assignments: torch.Tensor,
@@ -80,15 +82,21 @@ def slice_occupancy(
     packing objective reads these to price "opening" a fully-free slice
     (fragmentation) vs landing in an already-active one (alignment).
     """
+    return run_local(slice_occupancy_steps(requested, node_valid, slice_id, num_slices))
+
+
+def slice_occupancy_steps(requested, node_valid, slice_id, num_slices: int):
+    """``slice_occupancy`` in steps form (``ops.reduce``): a slice's nodes
+    may span node shards, so its busy-node and valid-node counts are sums
+    over the nodes at hand, one reduction point (the two counts stacked)."""
     busy = (torch.sum(requested, dim=1) > 0) & node_valid
     sid = slice_id.long()
-    busy_per = torch.zeros(
-        num_slices + 1, dtype=torch.int32, device=requested.device
-    ).index_add_(0, sid, busy.to(torch.int32))
-    sizes = torch.zeros(
-        num_slices + 1, dtype=torch.int32, device=requested.device
-    ).index_add_(0, sid, node_valid.to(torch.int32))
-    return busy_per > 0, sizes
+    counts = torch.zeros(
+        (2, num_slices + 1), dtype=torch.int32, device=requested.device)
+    counts[0].index_add_(0, sid, busy.to(torch.int32))
+    counts[1].index_add_(0, sid, node_valid.to(torch.int32))
+    counts = yield ("sum", counts)
+    return counts[0] > 0, counts[1]
 
 
 def free_slices(

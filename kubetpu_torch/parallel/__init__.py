@@ -1,4 +1,4 @@
-"""The node-axis device mesh (``parallel.mesh``)."""
+"""The device mesh (``parallel.mesh``): the node axis and the pods x nodes grid."""
 
 from .mesh import (  # noqa: F401
     NodeMesh,

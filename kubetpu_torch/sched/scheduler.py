@@ -66,10 +66,15 @@ scatter can write the resident block: stage 1 stays free of CUDA calls.
 ``mesh`` shards the node axis over a ``parallel.mesh.NodeMesh`` (or
 ``"auto"`` / ``"on"``, resolved on the scheduler's device type): the
 resident block lives sharded and takes routed deltas, each cycle's batch
-is a ``ShardedBatch``, the greedy and batched engines and the preemption
-dry run reduce across the shards, and the recorder skips its breakdown
-("skipped: mesh"), as the reference's does. The packing engine and the
-gang lane under a mesh raise (ROADMAP Queue A item 12's remaining part).
+is a ``ShardedBatch``, the greedy, batched and packing engines (the
+packing duals sharded with the node rows) and the preemption dry run
+reduce across the shards, and the recorder skips its breakdown
+("skipped: mesh"), as the reference's does. A pods x nodes grid
+(``parallel.mesh.make_mesh_2d``) also cuts each batch's pods into pod
+rows on the greedy and batched engines; the dry run then runs over the
+node columns of the preempting pod's pod row. The
+packing engine on a grid (ROADMAP item 20) and the gang lane under any
+mesh (item 19) raise.
 
 Not in these slices (each raises when asked for): the
 sentinel, the asynchronous API dispatcher and the metrics registry (so the
@@ -331,22 +336,19 @@ class Scheduler:
             self.profiles.setdefault("default-scheduler", profile)
         else:
             self.profiles = {p.name: p for p in self.cfg.profiles}
-        # --- the node-axis mesh (parallel.mesh) ---------------------------
-        from ..parallel.mesh import measure_collective_wall, resolve_mesh
+        # --- the mesh (parallel.mesh) -------------------------------------
+        from ..parallel.mesh import (measure_collective_wall, node_pad_multiple,
+                                     not_ported, resolve_mesh)
 
         self.mesh = resolve_mesh(mesh, self.device)
         self.mesh_shape: tuple = self.mesh.shape if self.mesh is not None else ()
-        # the padded node capacity is a multiple of the shard count
-        self._pad_multiple = 1 if self.mesh is None else self.mesh.size
+        # the padded node capacity is a multiple of the node shard count
+        self._pad_multiple = 1 if self.mesh is None else node_pad_multiple(self.mesh)
         if self.mesh is not None:
-            if engine == "packing":
-                raise NotImplementedError(
-                    "the packing engine under a mesh is ROADMAP Queue A item "
-                    "12's remaining part, not yet ported")
+            if engine == "packing" and self.mesh.pod_shards > 1:
+                raise not_ported("the packing engine on a pods x nodes mesh", 20)
             if feature_gates.enabled("GangScheduling"):
-                raise NotImplementedError(
-                    "the gang lane under a mesh is ROADMAP Queue A item 12's "
-                    "remaining part, not yet ported")
+                raise not_ported("the gang lane under a mesh", 19)
         # the mesh's cross-shard argmax probe, once (kernel K4 on CUDA)
         self._collective_wall_s: float | None = (
             None if self.mesh is None else measure_collective_wall(self.mesh)
@@ -354,7 +356,8 @@ class Scheduler:
         # the packing engine is stateful: it carries the warm-start dual
         # block and the objective-weight tensor across cycles, and keeps
         # the last solve's diagnostics
-        self._packing = PackingEngine(device=self.device) if engine == "packing" else None
+        self._packing = (PackingEngine(device=self.device, mesh=self.mesh)
+                         if engine == "packing" else None)
         if self._packing is not None:
             self._assign_device = self._packing
         else:

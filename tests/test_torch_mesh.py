@@ -9,7 +9,8 @@ no quadratic work. The port shards over G in {2, 4, 8} ``cpu`` devices
 leaves; each side runs its sharded engine, and both must also equal
 kubetpu's unsharded engine. Plus: a batch whose best score ties across a
 shard boundary (the first maximum must stay in the earlier shard), the
-plain versions' explicit reductions, and the parts of the mesh that raise.
+plain versions' explicit reductions. (The pods x nodes grid and the packing
+engine on the mesh: ``test_torch_mesh2d.py``, ``test_torch_packing_mesh.py``.)
 """
 
 import numpy as np
@@ -270,12 +271,3 @@ def test_pod_scan_collective_ok_and_probe():
 def test_node_state_shardings_place_contiguous_rows():
     placed = M.node_state_shardings(cpu_mesh(4), 16)
     assert [s for _, s in placed] == [slice(0, 4), slice(4, 8), slice(8, 12), slice(12, 16)]
-
-
-@pytest.mark.parametrize("what", ["2d", "packing"])
-def test_out_of_scope_mesh_parts_raise_item_12(what):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        if what == "2d":
-            M.make_mesh_2d(["cpu"] * 4, pods=2)
-        else:
-            M.sharded_packing(None, None, cpu_mesh(2))

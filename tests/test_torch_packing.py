@@ -283,8 +283,10 @@ def test_solver_state_resets_on_shape_change():
     st.reset()
     assert st.nbytes == 0
     assert (st.resets, st.carries) == (2, 1)
+    from kubetpu_torch.parallel import mesh as M
+
     with pytest.raises(NotImplementedError, match="item 12"):
-        prt.PackingSolverState(mesh="auto", device="cpu")
+        prt.PackingSolverState(mesh=M.make_mesh_2d(["cpu"] * 4, pods=2), device="cpu")
 
 
 def test_weights_tensor_and_json_equal():

@@ -5,8 +5,8 @@ of G in {2, 4, 8} shards (kubetpu on its 8 virtual CPU devices): the
 scheduler's bound maps on the greedy and batched engines, pipelined, with
 a node added and one deleted mid-run; the sharded resident block's routed
 delta uploads, incremental reshard and clean-row skip; the preemption dry
-run under a mesh and a preempting scheduler. Plus the options a mesh does
-not take yet (packing, the gang lane), which raise naming item 12.
+run under a mesh and a preempting scheduler. Plus the option a mesh does
+not take yet (the gang lane), which raises naming item 12.
 """
 
 import numpy as np
@@ -365,9 +365,8 @@ def test_multichip_smoke_on_a_cpu_mesh():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(engine="packing"),
     dict(feature_gates={"GenericWorkload": True, "GangScheduling": True}),
-], ids=["packing", "gang"])
+], ids=["gang"])
 def test_mesh_lanes_not_ported_raise_item_12(kw):
     with pytest.raises(NotImplementedError, match="item 12"):
         PScheduler(RecordingClient(), device="cpu", mesh=cpu_mesh(2), **kw)
