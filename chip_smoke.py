@@ -113,7 +113,14 @@ final ``ok`` line is not printed):
    sharded plain rounds on three of them; K3 (the sharded dry run) against
    the unsharded kernel and the sharded plain version at 5120 x 8 and x
    128; and a routed delta into a sharded resident block against the
-   unsharded block (B5m, timed);
+   unsharded block (B5m, timed); then the packing solve over that mesh
+   (K5) against the unsharded kernel and the tiled plain solve, and on a
+   2 x 2 grid of logical tiles K6, K7 and, on the BinPacking batch cut to
+   256 pods with and without 32 slices, K8 (``packing_grid_checks``:
+   assignments, every pod row's node slots, every tile's duals' bits,
+   iterations and nodes used exact against the tiled plain solve and the
+   unsharded kernel; the objective within rtol 1e-5; timed beside K5 and
+   the unsharded kernel);
 4. main paths, each with the launch counts reset just before it and read
    just after and a full garbage collection just before (the line counts
    the full collections that fell inside the run, and the seconds the
@@ -212,7 +219,18 @@ final ``ok`` line is not printed):
    equal to the unsharded run's, pod for pod; ``sharded_scan`` /
    ``sharded_round`` and the routed ``scatter_rows`` launched; every
    record "skipped: mesh") and PreemptionAsync/5000Nodes (every measured
-   pod bound, at least one nomination, ``shard_pick`` launched);
+   pod bound, at least one nomination, ``shard_pick`` launched); after the
+   packing paths, BinPacking/1000Nodes_3000Pods and SchedulingBasic on
+   packing under the node mesh (K5) and on a 2 x 2 grid of logical tiles
+   (K8), PodAffinity (batched, K6) and Basic (greedy, K7) on the grid, each
+   bound map (and packing's nodes used) equal to the unsharded run's; then
+   the gang lane under a mesh, run as the reference runs it (each group
+   batch unsharded on the mesh's first card): the 3 x 1000 gangs on 32
+   slices, greedy under the node mesh and batched on the grid (every gang
+   on one slice, bound maps equal to the unsharded runs'), and the
+   unlabeled 1000 gangs on packing, unsharded and under the node mesh,
+   each followed by 512 plain pods (bound maps, and the duals the engine
+   carried across the group and per-pod cycles, equal);
 5. prints the kernels' JSON line, the card line, and the ``ok`` line last.
 
 Tolerance everywhere: exact (integer masks, scores and assignments).
@@ -223,16 +241,18 @@ Tolerance everywhere: exact (integer masks, scores and assignments).
 line;
 ``--time-spread ROOT`` does the same on the PreferredTopologySpreading
 cycle and on the mixed spread cluster under the spread profile;
-``--time-mesh ROOT`` times its node mesh's greedy and batched engines
-(kernels K1 and K2 at four logical shards) beside its unsharded kernels.
+``--time-mesh ROOT`` times its node mesh's greedy, batched and packing
+engines (kernels K1, K2 and K5 at four logical shards) beside its
+unsharded kernels.
 Run any of them on two checkouts in turns (parent, change, change,
 parent) to compare the two on one card within one call. ``--time-dra`` splits the scan's time on
 the SchedulingBasic cycle with a DynamicResources score leaf into the
 normalize pass and the placements the leaf moves (``time_dra``).
-``--mesh`` runs the node mesh's checks (``mesh_checks``) and its paths,
-with SchedulingBasic, SchedulingPodAffinity and PreemptionAsync unsharded
-first, over one shard a card on every visible card (four logical shards
-when only one is visible), prints the exchange's round trip and
+``--mesh`` runs the node mesh's checks (``mesh_checks``, the packing and
+grid checks, K8 also on the full BinPacking block) and its paths, with
+SchedulingBasic, SchedulingPodAffinity, PreemptionAsync, the packing
+paths and the 3 x 1000 gangs unsharded first, over one shard a card on
+every visible card (four logical shards when only one is visible), prints the exchange's round trip and
 ``measure_collective_wall``, and ends with the same ``ok`` line, its count
 the cards visible. ``--webhook-queue`` loads the extender paths' webhook
 fixture on the host alone and prints the calls lost under socketserver's
@@ -2631,10 +2651,16 @@ def kernels_phase():
     mesh_timing = mesh_checks(mesh4, results, mesh_batch_list, (b, params), round_batch_list)
     stamp("phase 3: mesh checks")
     # the packing engine on the node mesh (K5), and the 2 x 2 grid (K6, K7)
-    mesh_timing.update(packing_mesh_checks(mesh4, results, packing_mesh_batches((b, params))))
-    mesh_timing.update(grid_checks(grid_mesh(True), results, grid_batches(
+    pm_cases = packing_mesh_batches((b, params))
+    mesh_timing.update(packing_mesh_checks(mesh4, results, pm_cases))
+    grid4 = grid_mesh(True)
+    mesh_timing.update(grid_checks(grid4, results, grid_batches(
         (b, params), (bp, pp), spread["TopologySpreading"])))
     stamp("phase 3: packing-mesh and grid checks")
+    # the packing engine on the 2 x 2 grid (K8), on K5's cut batches
+    mesh_timing.update(packing_grid_checks(grid4, mesh4, results, [
+        c[:3] for c in pm_cases if c[0].startswith("BinPacking 256x5120")]))
+    stamp("phase 3: packing-grid checks")
     out += mesh_kernel_lines(results, mesh_timing)
     torch.cuda.synchronize()
     return out
@@ -2653,14 +2679,17 @@ MESH_KERNELS = (
      "(pick_node across node shards)"),
     ("shard_argmax", "kubetpu_torch/kernels/csrc/greedy_scan.cu (+ exchange.cuh)",
      "kubetpu/parallel/mesh.py:327 (measure_collective_wall)"),
-    ("sharded_packing", "kubetpu_torch/kernels/csrc/packing_round.cu (+ the sharded passes "
-     "of filter_score.cu, batched_round.cu's shard_combine)",
+    ("sharded_packing", "kubetpu_torch/kernels/csrc/packing_round.cu (kt_packing_tile on one "
+     "pod row; + the sharded passes of filter_score.cu, batched_round.cu's shard_combine)",
      "kubetpu/parallel/mesh.py:369 (sharded_packing)"),
     ("tiled_round", "kubetpu_torch/kernels/csrc/batched_round.cu (kt_tiled_round; + the "
      "sharded passes of filter_score.cu)",
      "kubetpu/parallel/mesh.py:352 (sharded_batched with pod_axis=\"pods\")"),
     ("tiled_scan", "kubetpu_torch/kernels/csrc/greedy_scan.cu (+ scan_loop.cuh, exchange.cuh)",
      "kubetpu/parallel/mesh.py:234 (sharded_greedy with pod_axis=\"pods\")"),
+    ("tiled_packing", "kubetpu_torch/kernels/csrc/packing_round.cu (kt_packing_tile; + the "
+     "sharded passes of filter_score.cu, batched_round.cu's shard_combine)",
+     "kubetpu/parallel/mesh.py:369 (sharded_packing with pod_axis=\"pods\")"),
 )
 
 
@@ -3023,7 +3052,7 @@ def _packing_mesh_err(name, got, want) -> int:
 def packing_mesh_checks(mesh, results, cases) -> dict:
     """K5 on the node mesh: the sharded solve against the unsharded
     ``packing_assign`` on every batch of ``cases`` (cold duals) and, where
-    asked, against ``packing_assign_sharded_plain``; timed with CUDA events
+    asked, against ``packing_assign_tiled_plain``; timed with CUDA events
     beside the unsharded kernel on the full BinPacking block (its plain
     version once) and on the cut one. Returns K5's timing entry."""
     import torch
@@ -3046,14 +3075,14 @@ def packing_mesh_checks(mesh, results, cases) -> dict:
                     for s in sb.shards]
 
         cold = torch.zeros(N, dtype=torch.float32, device="cuda")
-        got = kernels.sharded_packing_assign(sb, params, pieces(), weights)
+        got = kernels.tiled_packing_assign(sb, params, pieces(), weights)
         want = kernels.packing_assign(b, params, cold, weights)
         err = _packing_mesh_err(f"{name} sharded_packing vs packing_round", got, want)
         line = "the unsharded kernel"
         plain_ms = None
         if with_plain:
             t0 = time.perf_counter()
-            plain = PK.packing_assign_sharded_plain(sb, params, pieces(), weights)
+            plain = PK.packing_assign_tiled_plain(sb, params, pieces(), weights)
             torch.cuda.synchronize()
             plain_ms = 1e3 * (time.perf_counter() - t0)
             err = max(err, _packing_mesh_err(f"{name} sharded_packing vs its plain version",
@@ -3071,8 +3100,8 @@ def packing_mesh_checks(mesh, results, cases) -> dict:
         if not name.startswith("BinPacking") or "slices" in name:
             continue
         entry = {
-            "ms": cuda_ms(lambda: kernels.sharded_packing_assign(sb, params, pieces(),
-                                                                 weights), 3),
+            "ms": cuda_ms(lambda: kernels.tiled_packing_assign(sb, params, pieces(),
+                                                               weights), 3),
             "unsharded_ms": cuda_ms(lambda: kernels.packing_assign(b, params, cold, weights),
                                     3),
             "plain_ms": plain_ms, "iterations": got[4], "batch": name,
@@ -3090,6 +3119,105 @@ def packing_mesh_checks(mesh, results, cases) -> dict:
         f"({cut['iterations']} iterations): kernel {cut['ms']:.4f} ms, unsharded "
         f"{cut['unsharded_ms']:.4f} ms, plain {cut['plain_ms']:.4f} ms")
     return {"sharded_packing": timing}
+
+
+def packing_grid_checks(grid, mesh, results, cases, full=None) -> dict:
+    """K8 on the pods x nodes grid: the tiled solve against
+    ``packing_assign_tiled_plain`` (assignments, every pod row's node
+    slots, every tile's duals' bits, iterations and nodes used exactly, the
+    objective within rtol 1e-5) and against the unsharded ``packing_assign``
+    on every batch of ``cases`` (name, batch, params; cold duals), every pod
+    row's copy of the node rows and of the duals equal to pod row 0's.
+    Timed with CUDA events on the first case beside K5 (the solve over
+    ``mesh``, a node mesh) and the unsharded kernel, its plain solve once;
+    ``full`` (name, batch, params): the same at full size. Returns K8's
+    timing entry."""
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.assign import packing as PK
+    from kubetpu_torch.framework import runtime as rt
+    from kubetpu_torch.parallel import mesh as M
+
+    weights = PK.PackingWeights().tensor("cuda")
+    results.setdefault("tiled_packing", {"cases": [], "max_abs_err": 0})
+    shape = list(grid.shape)
+    ng = grid.node_shards
+
+    def pieces(sb):
+        return [torch.zeros(s.alloc.shape[0], dtype=torch.float32, device=s.device)
+                for s in sb.shards]
+
+    def check(name, b, params):
+        tb = M.shard_batch(b, grid)
+        rows, plain_rows = [], []
+        got = kernels.tiled_packing_assign(tb, params, pieces(tb), weights, rows_out=rows)
+        cold = torch.zeros(b.alloc.shape[0], dtype=torch.float32, device="cuda")
+        err = _packing_mesh_err(f"{name} tiled_packing vs packing_round", got,
+                                kernels.packing_assign(b, params, cold, weights))
+        t0 = time.perf_counter()
+        plain = PK.packing_assign_tiled_plain(tb, params, pieces(tb), weights,
+                                              rows_out=plain_rows)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        err = max(err, _packing_mesh_err(f"{name} tiled_packing vs its plain version", got,
+                                         plain))
+        for i, (row, prow) in enumerate(zip(rows, plain_rows)):
+            for k, (x, y, z) in enumerate(zip(row, prow, rows[0])):
+                if x is None:
+                    continue
+                x = _whole(x)
+                if not (torch.equal(x, _whole(y).to(x.device))
+                        and torch.equal(x, _whole(z).to(x.device))):
+                    raise AssertionError(f"{name}: pod row {i}'s state slot {k} differs from "
+                                         "the plain version's or from pod row 0's")
+        for t, (x, y) in enumerate(zip(got[2].pieces, plain[2].pieces)):
+            err = max(err, _bits_equal(f"{name} tile {t}'s duals", x, y.to(x.device)))
+            err = max(err, _bits_equal(f"{name} tile {t}'s duals against pod row 0's", x,
+                                       got[2].pieces[t % ng].to(x.device)))
+        results["tiled_packing"]["cases"].append(name)
+        results["tiled_packing"]["max_abs_err"] = max(results["tiled_packing"]["max_abs_err"],
+                                                      err)
+        log(f"grid [{name}] tiled_packing on the {shape} grid equal to the unsharded kernel "
+            f"and the tiled plain solve, every pod row's node rows and duals equal "
+            f"({got[4]} iterations, {int(got[5])} nodes used; topology "
+            f"{b.topology is not None})")
+        return tb, got, plain_ms
+
+    def timed(name, b, params):
+        tb, got, plain_ms = check(name, b, params)
+        sb = M.shard_batch(b, mesh)
+        cold = torch.zeros(b.alloc.shape[0], dtype=torch.float32, device="cuda")
+        P, N = b.requests.shape[0], b.alloc.shape[0]
+        state_bytes = sum(int(x.nbytes) for x in (b.requested, b.nonzero_requested,
+                                                  b.pod_count, b.node_ports))
+        return {
+            "ms": cuda_ms(lambda: kernels.tiled_packing_assign(tb, params, pieces(tb),
+                                                               weights), 3),
+            "sharded_ms": cuda_ms(lambda: kernels.tiled_packing_assign(sb, params, pieces(sb),
+                                                                       weights), 3),
+            "unsharded_ms": cuda_ms(lambda: kernels.packing_assign(b, params, cold, weights),
+                                    3),
+            "plain_ms": plain_ms, "iterations": got[4], "batch": name,
+            # the batch read once, assignments, state and duals written
+            # once; each round's filter_score float64 work
+            "bytes": rt.batch_nbytes(b) + 2 * 4 * N + P * 4 + state_bytes,
+            "ops": got[4] * P * N * f64_ops_per_pair(params, b), "shape": [P, N] + shape,
+        }
+
+    timing = timed(*cases[0])
+    for case in cases[1:]:
+        check(*case)
+    lines = [("", timing)]
+    if full is not None:
+        timing["full"] = timed(*full)
+        lines.append((" full", timing["full"]))
+    for tag, tm in lines:
+        log(f"timing [tiled_packing{tag}] on {tm['batch']} ({tm['iterations']} iterations) on "
+            f"the {shape} grid: kernel {tm['ms']:.4f} ms, K5 on {mesh.size} shards "
+            f"{tm['sharded_ms']:.4f} ms, unsharded {tm['unsharded_ms']:.4f} ms, plain "
+            f"{tm['plain_ms']:.4f} ms")
+    return {"tiled_packing": timing}
 
 
 def grid_checks(grid, results, batches) -> dict:
@@ -3233,8 +3361,8 @@ def mesh_kernel_lines(results, timing) -> list:
             "library_ms": tm.get("library_ms"),
             "cases": results[name]["cases"], "shape": tm["shape"],
         }
-        for k in ("unsharded_ms", "exchange_us", "collective_wall_s", "exchanges_per_step",
-                  "rounds", "batch", "cut", "iterations"):
+        for k in ("unsharded_ms", "sharded_ms", "exchange_us", "collective_wall_s",
+                  "exchanges_per_step", "rounds", "batch", "cut", "full", "iterations"):
             if k in tm:
                 line[k] = tm[k]
         out.append(line)
@@ -3250,21 +3378,27 @@ def mesh_kernel_lines(results, timing) -> list:
 
 def mesh_recorder_check(sched, launches) -> dict:
     """The recorder under a mesh skips its breakdown, as the reference's
-    does: every record of the ring is there, each says "skipped: mesh",
-    and ``explain_summary`` never launched."""
+    does: every record of the ring is there, each pod's says "skipped:
+    mesh", each gang's (the group cycles note their gangs as without a
+    mesh) is placed or preempting, and ``explain_summary`` never
+    launched."""
     fr = sched.flight_recorder
     body = fr.records_json(limit=fr._records.maxlen)
     attempted = sum(c.pods for c in sched.metrics.cycle_timings)
-    records = body["records"]
-    if len(records) != min(attempted, fr._records.maxlen):
+    gangs = [r for r in body["records"] if r.get("kind") == "gang"]
+    records = [r for r in body["records"] if r.get("kind") != "gang"]
+    unplaced = [r["pod"] for r in gangs if r.get("status") not in ("placed", "preempting")]
+    if unplaced:
+        raise AssertionError(f"recorder: gang records {unplaced[:5]} not resolved")
+    if len(records) != min(attempted, fr._records.maxlen - len(gangs)):
         raise AssertionError(f"recorder: {len(records)} records for {attempted} attempts")
     odd = [r["pod"] for r in records if r.get("skipped_reason") != "mesh"]
     if odd:
         raise AssertionError(f"recorder under a mesh: records {odd[:5]} not marked skipped")
     if launches["explain_summary"]:
         raise AssertionError("recorder under a mesh: explain_summary launched")
-    return {"recorder": {"records": len(records), "attempted": attempted,
-                         "skipped_reason": "mesh"}}
+    return {"recorder": {"records": len(records), "gang_records": len(gangs),
+                         "attempted": attempted, "skipped_reason": "mesh"}}
 
 
 # -------------------------------------------------------- 4. main paths
@@ -4009,35 +4143,129 @@ def gang_preemption_phase(card) -> dict:
     return launches
 
 
-def gang_paths(card) -> list:
+def gang_paths(card) -> tuple[dict, dict]:
     """The GangScheduling paths through ``run_workload(device="cuda")`` with
-    the three gates, then the gang preemption scenario. Returns their
-    launch counts."""
+    the three gates, then the gang preemption scenario. Returns the paths'
+    runs by key and the scenario's launch counts."""
     from kubetpu_torch.assign.batched import batched_assign_plain
     from kubetpu_torch.assign.greedy import greedy_assign_plain
 
     sliced_kernels = ("filter_score", "hypothesis_scan")
-    runs = [
-        run_path(card, "GangScheduling", "5000Nodes_3Gangs_3000Pods_1000PerGroup",
-                 "greedy", 3000, greedy_assign_plain, sliced_kernels,
-                 check=gang_check(1000, True),
-                 workload_kw=dict(feature_gates=GANG_GATES, topology="on", slices=SLICES)),
+    runs = {
+        "gang3 greedy": run_path(
+            card, "GangScheduling", "5000Nodes_3Gangs_3000Pods_1000PerGroup", "greedy", 3000,
+            greedy_assign_plain, sliced_kernels, check=gang_check(1000, True),
+            workload_kw=dict(feature_gates=GANG_GATES, topology="on", slices=SLICES)),
         # the batched engine's placement search: hypothesis_rows, B3 + B6 a
         # placement, slice_epilogue
-        run_path(card, "GangScheduling", "5000Nodes_3Gangs_3000Pods_1000PerGroup",
-                 "batched", 3000, batched_assign_plain,
-                 ("filter_score", "batched_round", "hypothesis_rows", "slice_epilogue"),
-                 check=gang_check(1000, True),
-                 workload_kw=dict(feature_gates=GANG_GATES, topology="on", slices=SLICES)),
-        run_path(card, "GangScheduling", "5000Nodes_1000Gangs_3000Pods", "greedy", 3000,
-                 greedy_assign_plain, sliced_kernels, check=gang_check(3, True),
-                 workload_kw=dict(feature_gates=GANG_GATES, topology="on", slices=SLICES)),
-        run_path(card, "GangScheduling", "5000Nodes_1000Gangs_3000Pods", "greedy", 3000,
-                 greedy_assign_plain, ("filter_score", "greedy_scan"),
-                 check=gang_check(3, False),
-                 workload_kw=dict(feature_gates=GANG_GATES, topology="off")),
-    ]
-    return [run[0] for run in runs] + [gang_preemption_phase(card)]
+        "gang3 batched": run_path(
+            card, "GangScheduling", "5000Nodes_3Gangs_3000Pods_1000PerGroup", "batched", 3000,
+            batched_assign_plain,
+            ("filter_score", "batched_round", "hypothesis_rows", "slice_epilogue"),
+            check=gang_check(1000, True),
+            workload_kw=dict(feature_gates=GANG_GATES, topology="on", slices=SLICES)),
+        "gang1000 greedy": run_path(
+            card, "GangScheduling", "5000Nodes_1000Gangs_3000Pods", "greedy", 3000,
+            greedy_assign_plain, sliced_kernels, check=gang_check(3, True),
+            workload_kw=dict(feature_gates=GANG_GATES, topology="on", slices=SLICES)),
+        "gang1000 unlabeled greedy": run_path(
+            card, "GangScheduling", "5000Nodes_1000Gangs_3000Pods", "greedy", 3000,
+            greedy_assign_plain, ("filter_score", "greedy_scan"), check=gang_check(3, False),
+            workload_kw=dict(feature_gates=GANG_GATES, topology="off")),
+    }
+    return runs, gang_preemption_phase(card)
+
+
+def coalesced_packing_check(into: dict, extra: int = 512):
+    """The unlabeled gangs on packing: after the workload's coalesced group
+    cycles, ``extra`` plain pods run per-pod cycles on the same scheduler
+    (under a mesh, sharded ones: K5 must launch), each solve taking the
+    duals the last one left. Puts into ``into`` (and returns) the engine's
+    resets and carries, and a digest of every dual vector it holds (its
+    float32 bits by padded capacity)."""
+    def check(sched) -> dict:
+        import hashlib
+
+        from kubetpu_torch import kernels
+        from kubetpu_torch.parallel.mesh import ShardedTensor
+        from kubetpu_torch.perf import workloads as W
+
+        what = "packing_round" if sched.mesh is None else "sharded_packing"
+        before = kernels.launch_counts[what]
+        for j in range(extra):
+            sched.on_pod_add(W.pod_default(f"plain-{j}", "gang-0"))
+        for _ in range(20):
+            res = sched.schedule_batch()
+            sched.client.deliver()
+            if not (res["scheduled"] or res["unschedulable"]):
+                break
+        bound = sum(1 for name, _ in sched.client.bound if name.startswith("plain-"))
+        if bound != extra:
+            raise AssertionError(f"coalesced packing: {bound} of {extra} plain pods bound")
+        if kernels.launch_counts[what] == before:
+            raise AssertionError(f"coalesced packing: the plain pods' cycles never launched "
+                                 f"{what}")
+        st = sched._packing.state
+        digest = {}
+        for n, lam in sorted(st._lam.items()):
+            lam = lam.gather("cpu") if isinstance(lam, ShardedTensor) else lam.cpu()
+            digest[str(n)] = hashlib.sha256(lam.numpy().tobytes()).hexdigest()[:16]
+        into.update(duals=digest, resets=st.resets, carries=st.carries)
+        return dict(into)
+    return check
+
+
+def gang_mesh_paths(card, mesh, grid, unsharded: dict) -> dict:
+    """The gang lane under a mesh, run as kubetpu runs it (each group batch
+    unsharded on the mesh's first card): the 3 x 1000 gangs on 32 slices on
+    the greedy engine under the node ``mesh`` and on the batched engine on
+    ``grid`` (each gang on one slice; bound maps equal to the unsharded
+    runs' of ``unsharded``), then the unlabeled 1000 gangs on packing
+    unsharded and under ``mesh``, each followed by plain pods
+    (``coalesced_packing_check``): bound maps, duals, resets and carries
+    equal. Returns the runs by key."""
+    shape = "x".join(map(str, mesh.shape))
+    gshape = "x".join(map(str, grid.shape))
+    sliced = dict(feature_gates=GANG_GATES, topology="on", slices=SLICES)
+    runs = {}
+    for key, engine, m, label, names in (
+            ("gang3 greedy", "greedy", mesh, f"mesh {shape}", ("filter_score", "hypothesis_scan")),
+            ("gang3 batched", "batched", grid, f"grid {gshape}",
+             ("filter_score", "batched_round", "hypothesis_rows", "slice_epilogue"))):
+        run = run_path(card, "GangScheduling", "5000Nodes_3Gangs_3000Pods_1000PerGroup", engine,
+                       3000, None, names, check=gang_check(1000, True),
+                       workload_kw=dict(mesh=m, **sliced))
+        _same_bound(f"GangScheduling {engine} on the {label}", run, unsharded[key])
+        log(f"[GangScheduling 3 x 1000 {engine} {label}] every gang on one slice, bound map "
+            f"equal to the unsharded run's ({len(run[1])} pods); {run[2]:.1f} pods/s against "
+            f"the unsharded {unsharded[key][2]:.1f}")
+        runs[f"{key} {label}"] = run
+    coalesced = dict(feature_gates=GANG_GATES, topology="off")
+    packing = ("filter_score", "packing_start", "packing_round", "packing_end")
+    duals: dict = {"ref": {}, "mesh": {}}
+    # the recorder is off: the check's plain pods run cycles after the
+    # path's launch counts were read
+    ref = run_path(card, "GangScheduling", "5000Nodes_1000Gangs_3000Pods", "packing", None,
+                   None, packing, check=coalesced_packing_check(duals["ref"]),
+                   flight_recorder=False, workload_kw=coalesced)
+    run = run_path(card, "GangScheduling", "5000Nodes_1000Gangs_3000Pods", "packing", None,
+                   None, packing, check=coalesced_packing_check(duals["mesh"]),
+                   flight_recorder=False, workload_kw=dict(mesh=mesh, **coalesced))
+    _same_bound(f"unlabeled gangs on packing on the mesh {shape}", run, ref)
+    if duals["mesh"] != duals["ref"]:
+        raise AssertionError(f"unlabeled gangs on packing on the mesh {shape}: duals, resets "
+                             f"or carries {duals['mesh']} against unsharded {duals['ref']}")
+    got, want = run[3], ref[3]
+    if not got.group_cycles or duals["mesh"]["carries"] < 2:
+        raise AssertionError("unlabeled gangs on packing: no coalesced group cycle, or no "
+                             "duals carried")
+    log(f"[GangScheduling 1000 gangs unlabeled packing mesh {shape}] bound map equal to the "
+        f"unsharded run's ({len(run[1])} pods, 512 plain pods after the gangs), duals equal "
+        f"({duals['mesh']['carries']} carries, {duals['mesh']['resets']} resets); "
+        f"{got.throughput:.1f} pods/s against the unsharded {want.throughput:.1f}")
+    runs["gang1000 unlabeled packing"] = ref
+    runs[f"gang1000 unlabeled packing mesh {shape}"] = run
+    return runs
 
 
 def plain_packing(b, params):
@@ -4462,28 +4690,32 @@ def mesh12_paths(card, mesh, grid, unsharded: dict) -> dict:
     ``SchedulingPodAffinity/5000Nodes_5000Pods`` on the batched engine
     (``tiled_round``) and ``SchedulingBasic/5000Nodes_10000Pods`` on the
     greedy engine (``tiled_scan``) under ``grid``, bound maps equal to the
-    unsharded runs'. ``unsharded`` holds those runs by key. Returns the
+    unsharded runs'. ``unsharded`` holds those runs by key. Then the same two
+    packing paths on ``grid`` (through ``tiled_packing``, K8). Returns the
     runs."""
     shape = "x".join(map(str, mesh.shape))
     gshape = "x".join(map(str, grid.shape))
-    packing = ("filter_score", "sharded_packing")
     runs = {}
-    for key, case, workload, expected, names in (
-            ("binpack packing", "BinPacking", "1000Nodes_3000Pods", 200 + 3000, packing),
-            ("basic packing", "SchedulingBasic", "5000Nodes_10000Pods", 1000 + 10000,
-             packing + ("scatter_rows",))):
-        run = run_path(card, case, workload, "packing", expected, None, names,
-                       workload_kw=dict(mesh=mesh))
-        want = unsharded[key]
-        _same_bound(f"{case} packing under the mesh", run, want)
-        used, want_used = run[3].nodes_used_at_steady_state, want[3].nodes_used_at_steady_state
-        if used != want_used:
-            raise AssertionError(f"{case} packing under the mesh: {used} nodes used, "
-                                 f"unsharded {want_used}")
-        log(f"[{case} packing mesh {shape}] bound map equal to the unsharded run's, pod for "
-            f"pod ({len(run[1])} pods), {used} nodes used; {run[2]:.1f} pods/s against the "
-            f"unsharded {want[2]:.1f}")
-        runs[key + " mesh"] = run
+    for where, m, kernel in (("mesh", mesh, "sharded_packing"), ("grid", grid, "tiled_packing")):
+        label = f"{where} {shape if where == 'mesh' else gshape}"
+        for key, case, workload, expected, names in (
+                ("binpack packing", "BinPacking", "1000Nodes_3000Pods", 200 + 3000,
+                 ("filter_score", kernel)),
+                ("basic packing", "SchedulingBasic", "5000Nodes_10000Pods", 1000 + 10000,
+                 ("filter_score", kernel, "scatter_rows"))):
+            run = run_path(card, case, workload, "packing", expected, None, names,
+                           workload_kw=dict(mesh=m))
+            want = unsharded[key]
+            _same_bound(f"{case} packing on the {where}", run, want)
+            used = run[3].nodes_used_at_steady_state
+            want_used = want[3].nodes_used_at_steady_state
+            if used != want_used:
+                raise AssertionError(f"{case} packing on the {where}: {used} nodes used, "
+                                     f"unsharded {want_used}")
+            log(f"[{case} packing {label}] bound map equal to the unsharded run's, pod for "
+                f"pod ({len(run[1])} pods), {used} nodes used; {run[2]:.1f} pods/s against "
+                f"the unsharded {want[2]:.1f}")
+            runs[f"{key} {where}"] = run
     for key, case, workload, engine, expected, kernel in (
             ("affinity", "SchedulingPodAffinity", "5000Nodes_5000Pods", "batched", 5000 + 5000,
              "tiled_round"),
@@ -4563,11 +4795,16 @@ def mesh_mode() -> int:
     batches, basic, rounds = mesh_batches()
     results: dict = {"scatter_rows": {"cases": [], "max_abs_err": 0}}
     timing = mesh_checks(mesh, results, batches, basic, rounds)
-    timing.update(packing_mesh_checks(mesh, results, packing_mesh_batches(basic)))
+    pm_cases = packing_mesh_batches(basic)
+    timing.update(packing_mesh_checks(mesh, results, pm_cases))
     by_name = {name: (b_, p_) for name, b_, p_, _ in batches + rounds}
     timing.update(grid_checks(grid, results, grid_batches(
         basic, by_name["SchedulingPodAffinity 1024x5120"],
         by_name["TopologySpreading 1024x5120"])))
+    pm = {c[0]: c[:3] for c in pm_cases}
+    timing.update(packing_grid_checks(
+        grid, mesh, results, [pm["BinPacking 256x5120"], pm["BinPacking 256x5120, 32 slices"]],
+        full=pm["BinPacking 1024x5120"]))
     lines = mesh_kernel_lines(results, timing)
     from kubetpu_torch.assign.batched import batched_assign_plain
     from kubetpu_torch.assign.greedy import greedy_assign_plain
@@ -4591,6 +4828,16 @@ def mesh_mode() -> int:
     }
     runs = mesh_paths(card, mesh, unsharded)
     runs.update(mesh12_paths(card, mesh, grid, unsharded))
+    sliced = dict(feature_gates=GANG_GATES, topology="on", slices=SLICES)
+    gang = {
+        f"gang3 {engine}": run_path(card, "GangScheduling",
+                                    "5000Nodes_3Gangs_3000Pods_1000PerGroup", engine, 3000,
+                                    None, names, check=gang_check(1000, True),
+                                    workload_kw=sliced)
+        for engine, names in (("greedy", ("filter_score", "hypothesis_scan")),
+                              ("batched", ("filter_score", "batched_round", "hypothesis_rows",
+                                           "slice_epilogue")))}
+    runs.update(gang_mesh_paths(card, mesh, grid, gang))
     for k in lines:
         k["launches"] = sum(run[0][k["name"]] for run in runs.values())
     from kubetpu_torch.parallel import mesh as M
@@ -4617,10 +4864,12 @@ def time_checkout(mode: str, root: str) -> int:
     cycle (``basic``), or on the PreferredTopologySpreading cycle and the
     mixed spread cluster under the spread profile (``spread``); 1024 pods
     x 5120 padded nodes but the mixed cluster's 512 x 2048. ``mesh``: its
-    greedy engine on the SchedulingBasic cycle and its batched engine on
-    the SchedulingPodAffinity cycle, each sharded by its ``shard_batch``
-    over four logical shards on cuda:0 (kernels K1 and K2, through its
-    ``greedy_assign_device`` / ``batched_assign_device``) and unsharded."""
+    greedy engine on the SchedulingBasic cycle, its batched engine on the
+    SchedulingPodAffinity cycle and its packing solve on the BinPacking
+    block (1024 and 256 pods), each sharded by its ``shard_batch`` over
+    four logical shards on cuda:0 (kernels K1, K2 and K5, through its
+    ``greedy_assign_device`` / ``batched_assign_device`` /
+    ``packing_assign_device``) and unsharded."""
     sys.path.insert(0, str(Path(root).resolve()))
     card = device_phase()
     from kubetpu_torch import kernels
@@ -4673,6 +4922,30 @@ def time_mesh(line: dict) -> None:
             raise AssertionError(f"{prefix}: the sharded engine's assignments differ")
         line[prefix + "sharded_ms"] = cuda_ms(lambda: sharded(sb, params), 20)
         line[prefix + "unsharded_ms"] = cuda_ms(lambda: unsharded(b, params), 20)
+    # the packing solve over the node mesh (K5), through the engine's entry
+    # point, on the BinPacking block and on its cut to 256 pods
+    from kubetpu_torch.assign.packing import PackingWeights, packing_assign_device
+
+    w = PackingWeights().tensor("cuda")
+    for prefix, n_pending, reps in (("binpack_packing_", 1024, 9), ("binpack256_packing_", 256,
+                                                                     15)):
+        b, params = encode(*binpack_case(n_pending=n_pending), C.Profile())
+        sb = M.shard_batch(b, mesh)
+
+        def lam(sb=sb):
+            return M.ShardedTensor([torch.zeros(s.alloc.shape[0], dtype=torch.float32,
+                                                device=s.device) for s in sb.shards])
+
+        cold = torch.zeros(b.alloc.shape[0], dtype=torch.float32, device="cuda")
+        got = packing_assign_device(sb, params, lam(), w)
+        want = kernels.packing_assign(b, params, cold, w)
+        if not torch.equal(got[0].to(want[0].device), want[0]) or got[4] != want[4]:
+            raise AssertionError(f"{prefix}: the sharded solve differs from the unsharded one")
+        line[prefix + "sharded_ms"] = cuda_ms(lambda: packing_assign_device(sb, params, lam(),
+                                                                            w), reps)
+        line[prefix + "unsharded_ms"] = cuda_ms(lambda: kernels.packing_assign(b, params, cold,
+                                                                               w), reps)
+        line[prefix + "iterations"] = got[4]
 
 
 def _touched_slots(assignments, threads=1024) -> tuple[int, int]:
@@ -4793,14 +5066,19 @@ def main() -> int:
     runs = main_path_phase(card)
     stamp("phase 4: mesh paths")
     path_launches = [run[0] for run in runs.values()]
-    path_launches += gang_paths(card)
+    gang_runs, gang_preemption = gang_paths(card)
+    path_launches += [run[0] for run in gang_runs.values()] + [gang_preemption]
     stamp("phase 4: gang paths")
     packing_runs = packing_paths(card)
     path_launches += [run[0] for run in packing_runs.values()]
     stamp("phase 4: packing paths")
+    mesh4, grid4 = node_mesh(4, True), grid_mesh(True)
     path_launches += [run[0] for run in mesh12_paths(
-        card, node_mesh(4, True), grid_mesh(True), {**runs, **packing_runs}).values()]
+        card, mesh4, grid4, {**runs, **packing_runs}).values()]
     stamp("phase 4: packing-mesh and grid paths")
+    path_launches += [run[0] for run in gang_mesh_paths(card, mesh4, grid4,
+                                                         gang_runs).values()]
+    stamp("phase 4: gang paths under the mesh and the grid")
     path_launches += dra_paths(card)
     stamp("phase 4: DRA paths")
     path_launches.append(bridge_phase(card))

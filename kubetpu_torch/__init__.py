@@ -20,9 +20,9 @@ affinity, topology spread, preemption and nominations, the extender
 webhooks, the flight recorder, the gang and topology lane, and volumes and
 DynamicResources with the Reserve / Permit / PreBind lifecycle runner
 (``framework.lifecycle``), and the device mesh (``parallel.mesh``: the
-node axis on every engine, the pods x nodes grid on the greedy and
-batched engines). Features of later slices (packing on the grid, the gang
-lane under a mesh, the asynchronous API dispatcher, ...) raise
+node axis and the pods x nodes grid on every engine, and the gang lane
+under either, its group cycles unsharded as the reference's). Features of
+later slices (the asynchronous API dispatcher, ...) raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 

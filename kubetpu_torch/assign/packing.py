@@ -34,10 +34,12 @@ On a CUDA batch ``packing_assign_device`` launches the hand-written
 then ``filter_score`` and one ``packing_round`` launch a round from the
 host, then an epilogue. ``packing_assign_plain`` is the plain PyTorch
 version, the reference's solve op for op, which a CPU batch runs and the
-kernels are held to. Over a node mesh (``parallel.mesh.ShardedBatch``) the
-solve runs on every shard's rows and combines the shards' partials at
-each reduction over nodes: ``packing_assign_sharded_plain`` on CPU shards,
-kernel K5 (``packing_round.cu``'s shard mode) on CUDA ones.
+kernels are held to. Over a sharded batch (``parallel.mesh.ShardedBatch``:
+a pods x nodes grid, or a node mesh, which is one pod row) the solve runs
+on every tile and combines the tiles' partials at each reduction over
+nodes and each read of every pod: ``packing_assign_tiled_plain`` on CPU
+tiles, kernel K8 (``packing_round.cu``'s tile mode; K5 on one pod row) on
+CUDA ones.
 
 The reference's float32 arithmetic runs through XLA on the CPU, which
 contracts a multiply feeding an add into one fused multiply-add wherever
@@ -541,123 +543,140 @@ def packing_assign_plain(
     return assignments, state, lam, objective, iters, nodes_used
 
 
-def packing_assign_sharded_plain(sb, params: rt.ScoreParams, lam_pieces, weights: torch.Tensor,
-                                 max_iters: int = 0):
-    """The plain solve over a node-sharded batch (``parallel.mesh.
-    ShardedBatch``), the reference's loop body with every reduction over
-    nodes a combine point (``ops.reduce.combine``): each round, every
-    shard's Filter + Score in lockstep (``mesh.run_sharded``), its node
-    penalties with the GLOBAL node index in the closed-node bias and the
-    slice occupancy summed over the shards, the row maxima of |score|
-    (max), the banded tie choice (``batched._tie_spread_choice_tiles``:
-    best utility max, tie counts and hashes summed, the xor once after the
-    sum), then each shard's admissions for its own nodes
-    (``_accept_packed``; combined by any), its λ ascent on its own nodes,
-    the first rejection in admission ``order`` and the commit to each
-    shard's rows, the affinity increments summed into the replicated sums.
-    At the end: the marginal utility (min), whether any node was used
-    (max), the nodes used and the fragmentation (sums, the float32 one in
-    shard order) and the slices newly opened. The start (admission order,
-    coupled pods) is replicated. ``lam_pieces``: each shard's (N / G,)
-    float32 warm-start duals. Returns ``packing_assign_plain``'s six-tuple,
-    the node slots of the final state and λ as ``mesh.ShardedTensor``s."""
+def packing_assign_tiled_plain(sb, params: rt.ScoreParams, lam_pieces, weights: torch.Tensor,
+                               max_iters: int = 0, rows_out: list | None = None):
+    """The plain solve over a sharded batch (``parallel.mesh.ShardedBatch``:
+    a pods x nodes grid, or a node mesh, which is one pod row), the
+    reference's loop body with every reduction over nodes a combine point
+    (``ops.reduce.combine``) and every read of all pods a point of the pod
+    axis. Each round: every pod row's Filter + Score on its tiles and its
+    node penalties (the GLOBAL node index in the closed-node bias, the
+    slice occupancy summed over the row's columns), in lockstep over the
+    row's columns (``mesh.run_sharded``); each pod row's row maxima of
+    |score| (max over its columns); the banded tie choice with the rows'
+    per-pod vectors joined in pod order before the rank
+    (``batched._tie_spread_choice_tiles``); then every tile admits, over
+    the choosers of every pod row, the pods that chose its column's nodes
+    (``_accept_packed``, from every pod's leaves, ``ShardedBatch.gathered``;
+    combined by any) and raises λ on its own copy of the column's nodes by
+    their rejected choosers; the first rejection over all P in admission
+    ``order``; every tile commits every admitted pod of its column to its
+    own copy of the column's rows, so the pod rows' copies stay equal, and
+    each pod row's affinity increments sum over its columns once. At the
+    end the combines run over the columns once (pod row 0's tiles: the
+    rows are equal copies): the marginal utility (min), whether any node
+    was used (max), the nodes used and the fragmentation (sums, the
+    float32 one in column order) and the slices newly opened. The start
+    (admission order, coupled pods) reads every pod. ``lam_pieces``: a
+    (N / NG,) float32 warm-start piece a tile, in tile order (each column's
+    repeated down the pod rows). Returns ``packing_assign_plain``'s
+    six-tuple, the node slots of the final state from pod row 0's tiles
+    and λ, every tile's piece, as ``mesh.ShardedTensor``s; ``rows_out``,
+    when given, receives every pod row's (requested, nonzero, pod_count,
+    node_ports, spread_counts)."""
     from ..ops.reduce import combine
     from ..ops.topology import slice_occupancy_steps
     from ..parallel.mesh import ShardedTensor, run_sharded
-    from .batched import _tie_spread_choice_tiles
+    from .batched import _row_slots, _tie_spread_choice_tiles
 
-    shards, offsets, mesh = sb.shards, sb.offsets, sb.mesh
-    G = len(shards)
-    b0 = shards[0]
-    home = b0.device
-    p = b0.requests.shape[0]
+    tiles, offsets, mesh = sb.shards, sb.offsets, sb.mesh
+    PG, NG = sb.pod_rows, sb.columns
+    full = sb.gathered.shards
+    home = tiles[0].device
+    p = sb.num_pods
     cap = max_iters or p
-    ws = [weights.to(s.device) for s in shards]
+    ws = [weights.to(s.device) for s in tiles]
     band = torch.round(weights[6] * _UTIL_SCALE).to(torch.int64).to(home)
-    order, coupled, _ = packing_prologue_plain(b0, lam_pieces[0], ws[0])
+    f0 = full[0]
+    order, coupled, _ = packing_prologue_plain(f0, lam_pieces[0], ws[0])
     lam = [x * w[5] for x, w in zip(lam_pieces, ws)]
-    req = [s.requested for s in shards]
-    nz = [s.nonzero_requested for s in shards]
-    pc = [s.pod_count for s in shards]
-    ports = [s.node_ports for s in shards]
-    sp_counts = [None if s.spread is None else s.spread.node_count for s in shards]
-    pa_sums = [None if s.podaffinity is None else s.podaffinity.base_sums for s in shards]
+    req = [s.requested for s in tiles]
+    nz = [s.nonzero_requested for s in tiles]
+    pc = [s.pod_count for s in tiles]
+    ports = [s.node_ports for s in tiles]
+    sp_counts = [None if s.spread is None else s.spread.node_count for s in tiles]
+    pa_sums = [None if s.podaffinity is None else s.podaffinity.base_sums for s in tiles]
     nom = [
         None if s.nominated_pod_idx is None
         else torch.ones(s.nominated_pod_idx.shape[0], dtype=torch.bool, device=s.device)
-        for s in shards
+        for s in tiles
     ]
-    active = b0.pod_valid
+    active = f0.pod_valid.to(home)
     assignments = torch.full((p,), -1, dtype=torch.int32, device=home)
     zero = torch.zeros((), dtype=torch.float32, device=home)
     progress = True
     iters = 0
     while progress and iters < cap and bool(torch.any(active)):
-        outs = run_sharded([
-            rt.feasible_and_scores_steps(
-                shards[g], params, requested=req[g], nonzero_requested=nz[g],
-                pod_count=pc[g], node_ports=ports[g], spread_counts=sp_counts[g],
-                pa_sums=pa_sums[g], nominated_active=nom[g])
-            for g in range(G)
-        ], mesh)
-        pens = run_sharded([
-            node_penalty_steps(s, req[g], pc[g], lam[g], ws[g], offsets[g])
-            for g, s in enumerate(shards)
-        ], mesh)
-        row_max = combine("max", [row_abs_max(m, x).to(home) for m, x in outs])
-        utils = [packing_utility(m, x, pen, w[0], row_max.to(m.device))
-                 for (m, x), pen, w in zip(outs, pens, ws)]
-        choice = _tie_spread_choice_tiles([[m for m, _ in outs]], [utils], active, offsets,
-                                          band=band)
-        local, accepted_g = [], []
-        for g, s in enumerate(shards):
-            n, dev = s.alloc.shape[0], s.device
-            c = choice.to(dev) - offsets[g]
+        masks, utils = [], []
+        for i in range(PG):
+            ts = range(i * NG, (i + 1) * NG)
+            outs = run_sharded([
+                rt.feasible_and_scores_steps(
+                    tiles[t], params, requested=req[t], nonzero_requested=nz[t],
+                    pod_count=pc[t], node_ports=ports[t], spread_counts=sp_counts[t],
+                    pa_sums=pa_sums[t], nominated_active=nom[t])
+                for t in ts
+            ], mesh.row(i))
+            pens = run_sharded([
+                node_penalty_steps(tiles[t], req[t], pc[t], lam[t], ws[t], offsets[t % NG])
+                for t in ts
+            ], mesh.row(i))
+            row_max = combine("max", [row_abs_max(m, x).to(home) for m, x in outs])
+            masks.append([m for m, _ in outs])
+            utils.append([packing_utility(m, x, pen, ws[t][0], row_max.to(m.device))
+                          for (m, x), pen, t in zip(outs, pens, ts)])
+        choice = _tie_spread_choice_tiles(masks, utils, active, offsets, band=band)
+        local, accepted_t = [], []
+        for t, s in enumerate(tiles):
+            j, dev = t % NG, s.device
+            n = s.alloc.shape[0]
+            c = choice.to(dev) - offsets[j]
             mine = (choice.to(dev) >= 0) & (c >= 0) & (c < n)
             c = torch.where(mine, c, -1).to(torch.int32)
             local.append(c)
-            accepted_g.append(_accept_packed(
-                c, s.requests, free=s.alloc - req[g], count_room=s.allowed_pods - pc[g],
-                order=order.to(dev), coupled=coupled.to(dev),
-                check_capacity=params.filter_fit,
+            accepted_t.append(_accept_packed(
+                c, full[j].requests.to(dev), free=s.alloc - req[t],
+                count_room=s.allowed_pods - pc[t], order=order.to(dev),
+                coupled=coupled.to(dev), check_capacity=params.filter_fit,
             ).to(home))
-        accepted = combine("max", accepted_g)
-        # each shard's dual ascent on its own nodes' overflow
+        accepted = combine("max", accepted_t)
+        # each tile's dual ascent on its copy of its column's nodes, by the
+        # rejected choosers of every pod row
         rejected = active & (choice >= 0) & ~accepted
-        for g, s in enumerate(shards):
-            n, dev, w = s.alloc.shape[0], s.device, ws[g]
-            seg_all = torch.where(local[g] >= 0, local[g], n).long()
+        for t, s in enumerate(tiles):
+            n, dev, w = s.alloc.shape[0], s.device, ws[t]
+            seg_all = torch.where(local[t] >= 0, local[t], n).long()
             over = torch.zeros(n + 1, dtype=torch.float32, device=dev).index_add_(
                 0, seg_all, rejected.to(dev).to(torch.float32))[:n]
-            lam[g] = torch.minimum(torch.maximum(
-                fma32(w[4], log1p_counts(over), lam[g]), zero.to(dev)), w[2] * w[7])
+            lam[t] = torch.minimum(torch.maximum(
+                fma32(w[4], log1p_counts(over), lam[t]), zero.to(dev)), w[2] * w[7])
         first_rej = torch.min(torch.where(rejected, order, p))
         finalize = active & (choice < 0) & (order < first_rej)
-        flat_parts = []
-        for g, s in enumerate(shards):
-            n, dev = s.alloc.shape[0], s.device
-            acc = accepted.to(dev) & (local[g] >= 0)
-            seg = torch.where(acc, local[g], n).long()
+        flat_rows: list = [[] for _ in range(PG)]
+        for t, s in enumerate(tiles):
+            i, j = divmod(t, NG)
+            f, dev = full[j], s.device
+            n = s.alloc.shape[0]
+            acc = accepted.to(dev) & (local[t] >= 0)
+            seg = torch.where(acc, local[t], n).long()
             a64 = acc.to(torch.int64)
 
             def seg_sum(vals, n=n, seg=seg, dev=dev):
                 out = torch.zeros((n + 1,) + vals.shape[1:], dtype=vals.dtype, device=dev)
-                return out.index_add_(0, seg, vals)[:n]
+                return out.index_add_(0, seg, vals.to(dev))[:n]
 
-            req[g] = req[g] + seg_sum(s.requests * a64[:, None])
-            nz[g] = nz[g] + seg_sum(s.nonzero_requests * a64[:, None])
-            pc[g] = pc[g] + seg_sum(acc.to(pc[g].dtype))
-            ports[g] = ports[g] | (seg_sum(s.pod_ports.to(torch.int64) * a64[:, None]) > 0)
-            if sp_counts[g] is not None:
-                sp = s.spread
-                upd = seg_sum(sp.pod_match_sig.to(sp_counts[g].dtype)).T
-                sp_counts[g] = sp_counts[g] + upd * sp.eligible.to(upd.dtype)
-            if pa_sums[g] is not None:
-                pa = s.podaffinity
-                r_rows, d = pa_sums[g].shape
-                dcol = pa.node_domain[:, torch.clamp(local[g], min=0).long()].T
+            req[t] = req[t] + seg_sum(f.requests.to(dev) * a64[:, None])
+            nz[t] = nz[t] + seg_sum(f.nonzero_requests.to(dev) * a64[:, None])
+            pc[t] = pc[t] + seg_sum(acc.to(pc[t].dtype))
+            ports[t] = ports[t] | (seg_sum(f.pod_ports.to(dev).to(torch.int64) * a64[:, None]) > 0)
+            if sp_counts[t] is not None:
+                upd = seg_sum(f.spread.pod_match_sig.to(dev).to(sp_counts[t].dtype)).T
+                sp_counts[t] = sp_counts[t] + upd * s.spread.eligible.to(upd.dtype)
+            if pa_sums[t] is not None:
+                r_rows, d = pa_sums[t].shape
+                dcol = s.podaffinity.node_domain[:, torch.clamp(local[t], min=0).long()].T
                 valid = (dcol >= 0) & acc[:, None]
-                inc = torch.where(valid, pa.update, 0)
+                inc = torch.where(valid, f.podaffinity.update.to(dev), 0)
                 flat_ids = torch.where(
                     valid,
                     torch.arange(r_rows, device=dev)[None, :] * d + torch.clamp(dcol, min=0),
@@ -665,60 +684,64 @@ def packing_assign_sharded_plain(sb, params: rt.ScoreParams, lam_pieces, weights
                 ).long()
                 flat = torch.zeros(r_rows * d + 1, dtype=torch.int64, device=dev)
                 flat.index_add_(0, flat_ids.reshape(-1), inc.reshape(-1))
-                flat_parts.append(flat[: r_rows * d].reshape(r_rows, d).to(home))
-        if flat_parts:
-            inc = combine("sum", flat_parts)
-            pa_sums = [x + inc.to(x.device) for x in pa_sums]
+                flat_rows[i].append(flat[: r_rows * d].reshape(r_rows, d).to(home))
+        for i, parts in enumerate(flat_rows):
+            if parts:
+                inc = combine("sum", parts)
+                for t in range(i * NG, (i + 1) * NG):
+                    pa_sums[t] = pa_sums[t] + inc.to(pa_sums[t].device)
         if nom[0] is not None:
-            for g, s in enumerate(shards):
+            for t, s in enumerate(tiles):
                 idx = s.nominated_pod_idx
                 consumed = (idx >= 0) & accepted.to(s.device)[torch.clamp(idx, min=0).long()]
-                nom[g] = nom[g] & ~consumed
+                nom[t] = nom[t] & ~consumed
         assignments = torch.where(accepted, choice, assignments)
         active = active & ~accepted & ~finalize
         progress = bool(torch.any(accepted | finalize))
         iters += 1
-    # the end: equalization prices, objective, nodes used
+    # the end: the combines over the columns once (pod row 0's tiles), then
+    # every tile's equalization prices
     w0 = ws[0]
     alpha, beta = w0[2], w0[3]
     v0, used = [], []
-    for g, s in enumerate(shards):
-        base, bias_n, band2 = _closed_terms(s, s.requested, s.pod_count, ws[g], offsets[g])
+    for t, s in enumerate(tiles):
+        base, bias_n, band2 = _closed_terms(s, s.requested, s.pod_count, ws[t], offsets[t % NG])
         v0.append(-fma32(bias_n, band2, base))
-        used.append((pc[g] > s.pod_count) & s.node_valid)
-    v_marg = combine("min", [torch.min(torch.where(u, v, math.inf)).reshape(1).to(home)
-                             for u, v in zip(used, v0)])
-    any_used = combine("max", [torch.any(u).reshape(1).to(home) for u in used])
-    for g, s in enumerate(shards):
-        dev, w = s.device, ws[g]
-        lam_eq = torch.minimum(torch.maximum(v0[g] - v_marg.to(dev), zero.to(dev)), w[2] * w[7])
-        lam[g] = torch.where(any_used.to(dev), lam_eq, lam[g])
-    prio = (b0.pod_priority if b0.pod_priority is not None
+        used.append((pc[t] > s.pod_count) & s.node_valid)
+    row0 = range(NG)
+    v_marg = combine("min", [torch.min(torch.where(used[t], v0[t], math.inf)).reshape(1)
+                             .to(home) for t in row0])
+    any_used = combine("max", [torch.any(used[t]).reshape(1).to(home) for t in row0])
+    for t, s in enumerate(tiles):
+        dev, w = s.device, ws[t]
+        lam_eq = torch.minimum(torch.maximum(v0[t] - v_marg.to(dev), zero.to(dev)), w[2] * w[7])
+        lam[t] = torch.where(any_used.to(dev), lam_eq, lam[t])
+    prio = (f0.pod_priority if f0.pod_priority is not None
             else torch.zeros(p, dtype=torch.int32, device=home))
-    admitted = (assignments >= 0) & b0.pod_valid
+    admitted = (assignments >= 0) & f0.pod_valid
     admission = torch.sum(torch.where(
         admitted, 1.0 + w0[1] * prio.to(torch.float32), 0.0))
-    opened = [(pc[g] > 0) & s.node_valid for g, s in enumerate(shards)]
+    opened = [(pc[t] > 0) & tiles[t].node_valid for t in row0]
     nodes_used = combine("sum", [torch.sum(o).to(torch.int32).reshape(1).to(home)
                                  for o in opened])[0]
-    frag = combine("sum", [torch.sum(torch.where(o, emptiness(s, req[g]), 0.0)).reshape(1)
-                           .to(home) for g, (o, s) in enumerate(zip(opened, shards))])[0]
+    frag = combine("sum", [torch.sum(torch.where(o, emptiness(tiles[t], req[t]), 0.0))
+                           .reshape(1).to(home) for t, o in zip(row0, opened)])[0]
     objective = admission - alpha * nodes_used.to(torch.float32) - beta * frag
-    if b0.topology is not None:
-        n_sl = b0.topology.num_slices
+    if f0.topology is not None:
+        n_sl = f0.topology.num_slices
         acts = []
-        for rows in ([s.requested for s in shards], req):
+        for rows in ([tiles[t].requested for t in row0], req[:NG]):
             acts.append(run_sharded([
-                slice_occupancy_steps(r, s.node_valid, s.topology.slice_id, n_sl)
-                for r, s in zip(rows, shards)
-            ], mesh)[0][0].to(home))
+                slice_occupancy_steps(r, tiles[t].node_valid, tiles[t].topology.slice_id, n_sl)
+                for r, t in zip(rows, row0)
+            ], mesh.row(0))[0][0].to(home))
         act0, act1 = acts
         newly = torch.sum((act1[:n_sl] & ~act0[:n_sl]).to(torch.float32))
         objective = objective - w0[8] * newly
-    state = (ShardedTensor(req), ShardedTensor(nz), ShardedTensor(pc), ShardedTensor(ports),
-             None if sp_counts[0] is None else ShardedTensor(sp_counts, axis=1),
-             pa_sums[0], nom[0])
-    return assignments, state, ShardedTensor(lam), objective, iters, nodes_used
+    if rows_out is not None:
+        rows_out.extend(_row_slots(req, nz, pc, ports, sp_counts, i, NG) for i in range(PG))
+    state = _row_slots(req, nz, pc, ports, sp_counts, 0, NG) + (pa_sums[0], nom[0])
+    return assignments, state, ShardedTensor(lam, rows=PG), objective, iters, nodes_used
 
 
 def packing_assign_device(
@@ -727,22 +750,21 @@ def packing_assign_device(
     """One packing solve. A CUDA batch launches the ``packing_round``
     kernels (on copies of the node state: the batch's node block, which
     may be the scheduler's resident block, is never written); a CPU batch
-    runs ``packing_assign_plain``. A node-sharded batch
-    (``parallel.mesh.ShardedBatch``, ``lam`` a ``mesh.ShardedTensor`` of
-    its shards' pieces) runs the sharded solve: kernel K5 on CUDA shards,
-    ``packing_assign_sharded_plain`` on CPU ones. Same return shape as
+    runs ``packing_assign_plain``. A sharded batch
+    (``parallel.mesh.ShardedBatch``, a node mesh or a pods x nodes grid;
+    ``lam`` a ``mesh.ShardedTensor`` of its tiles' pieces) runs the tiled
+    solve: kernel K8 on CUDA tiles (K5 on one pod row),
+    ``packing_assign_tiled_plain`` on CPU ones. Same return shape as
     ``packing_assign_plain``."""
-    from ..parallel.mesh import ShardedBatch, not_ported
+    from ..parallel.mesh import ShardedBatch
 
-    if isinstance(b, ShardedBatch) and b.pod_rows > 1:
-        raise not_ported("the packing engine on a pods x nodes mesh", 20)
     if isinstance(b, ShardedBatch):
         pieces = list(lam.pieces)
         if b.device.type == "cpu":
-            return packing_assign_sharded_plain(b, params, pieces, weights, max_iters)
-        from ..kernels import sharded_packing_assign
+            return packing_assign_tiled_plain(b, params, pieces, weights, max_iters)
+        from ..kernels import tiled_packing_assign
 
-        return sharded_packing_assign(b, params, pieces, weights, max_iters)
+        return tiled_packing_assign(b, params, pieces, weights, max_iters)
     if b.device.type == "cpu":
         return packing_assign_plain(b, params, lam, weights, max_iters)
     from ..kernels import packing_assign
@@ -759,8 +781,12 @@ class PackingEngine:
     (``last_objective`` / ``last_nodes_used`` — tensors on the batch's
     device, which the scheduler fetches with the assignments — and
     ``last_iters``, an int). ``device``: where the duals live; ``mesh``
-    (a node mesh): the duals live sharded with the batch's node rows, and
-    a ``ShardedBatch`` runs the sharded solve."""
+    (a node mesh or a pods x nodes grid): the duals live sharded with the
+    batch's node rows, a piece a tile, and a ``ShardedBatch`` runs the
+    tiled solve. Under a mesh the gang lane's group cycles solve unsharded
+    batches, as the reference's do: the duals of a padded capacity pass
+    between the layouts with their values (gathered onto the batch's
+    device for an unsharded solve, split by tile for a sharded one)."""
 
     def __init__(self, weights: PackingWeights | None = None, mesh=None,
                  device="cuda"):
@@ -777,10 +803,16 @@ class PackingEngine:
     def __call__(self, b, params: rt.ScoreParams):
         if self._w is None:
             self._w = self.weights.tensor(b.device)
-        shards = getattr(b, "shards", None)
-        n = (b.alloc.shape[0] if shards is None
-             else sum(int(s.alloc.shape[0]) for s in shards))
+        from ..parallel.mesh import ShardedBatch, ShardedTensor
+
+        sharded = isinstance(b, ShardedBatch)
+        n = (sum(int(s.alloc.shape[0]) for s in b.shards[:b.columns]) if sharded
+             else b.alloc.shape[0])
         lam = self.state.duals(n)
+        if sharded and not isinstance(lam, ShardedTensor):
+            lam = ShardedTensor.split(lam, b)
+        elif not sharded:
+            lam = lam.gather(b.device) if isinstance(lam, ShardedTensor) else lam.to(b.device)
         assignments, final_state, lam_out, objective, iters, nodes_used = (
             packing_assign_device(b, params, lam, self._w)
         )

@@ -701,12 +701,14 @@ class PackingSolverState:
     counts warm handoffs. ``device``: where the vectors live (the
     scheduler's device).
 
-    ``mesh`` (a node mesh, ``parallel.mesh.NodeMesh``): λ is held as a
-    ``parallel.mesh.ShardedTensor``, one piece a shard on that shard's
-    device, so the solver's per-node penalty row stays with the shard's
-    node rows (``bind_mesh``: the engine is built before the scheduler
-    resolves its mesh). Duals stored under another layout are dropped.
-    A pods x nodes grid raises (ROADMAP item 20)."""
+    ``mesh`` (a ``parallel.mesh.NodeMesh``, a node mesh or a pods x nodes
+    grid): λ is held as a ``parallel.mesh.ShardedTensor``, one piece a
+    tile on that tile's device (on a grid each node column's piece
+    repeats down the pod rows, and the solves keep the copies equal), so
+    the solver's per-node penalty row stays with the tile's node rows
+    (``bind_mesh``: the engine is built before the scheduler resolves its
+    mesh). Duals stored under another layout are dropped. ``nbytes``
+    counts every piece held, each pod row's copies included."""
 
     def __init__(self, mesh=None, device="cuda") -> None:
         self._lam: dict = {}
@@ -722,12 +724,10 @@ class PackingSolverState:
         if mesh is self.mesh:
             return
         if mesh is not None:
-            from ..parallel.mesh import NodeMesh, not_ported
+            from ..parallel.mesh import NodeMesh
 
             if not isinstance(mesh, NodeMesh):
                 raise TypeError(f"a resolved mesh (parallel.mesh.NodeMesh), got {mesh!r}")
-            if mesh.pod_shards > 1:
-                raise not_ported("a packing dual block on a pods x nodes mesh", 20)
         self.mesh = mesh
         # duals placed under the old layout are stale
         self._lam.clear()
@@ -738,13 +738,15 @@ class PackingSolverState:
             self.carries += 1
             return lam
         self.resets += 1
-        if self.mesh is None:
+        if self.mesh is None or n % self.mesh.node_shards:
+            # a capacity the node columns do not divide is a group cycle's
+            # unsharded batch (the reference's device_put fails there)
             return torch.zeros(n, dtype=torch.float32, device=self.where)
         from ..parallel.mesh import ShardedTensor
 
-        per = n // self.mesh.size
+        per = n // self.mesh.node_shards
         return ShardedTensor([torch.zeros(per, dtype=torch.float32, device=d)
-                              for d in self.mesh.devices])
+                              for d in self.mesh.devices], rows=self.mesh.pod_shards)
 
     def store(self, n: int, lam) -> None:
         self._lam[n] = lam

@@ -29,8 +29,10 @@ partials inside the kernel through ``csrc/exchange.cuh`` (``greedy_scan.cu``
 two kernels are K2 and K1. K3 is the dry run's cross-shard pick
 (``dry_run_preemption.cu``) and K4 the exchange's argmax probe
 (``greedy_scan.cu``); ``scatter_rows`` runs on each shard's card for the
-routed delta (B5m). K5 is the packing solve over node shards (the shard
-mode of ``packing_round.cu``, with ``shard_combine`` between its steps).
+routed delta (B5m). K8 is the packing solve over a grid's tiles
+(``packing_round.cu`` ``kt_packing_tile``, with ``shard_combine`` between
+its steps and the rows' per-pod vectors gathered for the rank); on a node
+mesh, one pod row, it is K5.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else, allocates its outputs with ``torch.empty``, launches on the
@@ -91,12 +93,13 @@ launch_counts = {
     "hypothesis_scan": 0, "hypothesis_rows": 0, "slice_epilogue": 0,
     "packing_start": 0, "packing_round": 0, "packing_end": 0, "packing_nodes": 0,
     "packing_log1p": 0,
-    # the mesh's kernels (K1-K7): one count a shard's (a tile's) block or
-    # step launched. The tiled scan and the tiled round count under
-    # "sharded_scan" / "sharded_round" (K1, K2) on a node mesh (one pod
-    # row) and under "tiled_scan" / "tiled_round" (K7, K6) on a grid
+    # the mesh's kernels (K1-K8): one count a shard's (a tile's) block or
+    # step launched. The tiled scan, round and solve count under
+    # "sharded_scan" / "sharded_round" / "sharded_packing" (K1, K2, K5) on a
+    # node mesh (one pod row) and under "tiled_scan" / "tiled_round" /
+    # "tiled_packing" (K7, K6, K8) on a grid
     "sharded_scan": 0, "sharded_round": 0, "shard_pick": 0, "shard_argmax": 0,
-    "sharded_packing": 0, "tiled_round": 0, "tiled_scan": 0,
+    "sharded_packing": 0, "tiled_round": 0, "tiled_scan": 0, "tiled_packing": 0,
 }
 
 # ctypes argument types of each library's entry point
@@ -143,7 +146,7 @@ _MORE_ENTRIES = {
         "kt_packing_nodes": [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_void_p] * 3,
         "kt_packing_end": [ctypes.c_void_p] * 10 + [ctypes.c_int64] + [ctypes.c_void_p] * 4,
         "kt_packing_log1p": [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p],
-        "kt_packing_shard": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+        "kt_packing_tile": [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2,
     },
 }
 
@@ -368,8 +371,9 @@ class PackShard(ctypes.Structure):
         "assignments", "lam", "w", "order", "coupled", "slice_id")] + [
         ("S", ctypes.c_int64)] + [(name, ctypes.c_void_p) for name in (
             "busy", "pen", "stats", "denom", "r", "choice", "acc", "over", "flags", "req0",
-            "pc0", "prio", "endf", "endi", "objective", "nodes_used")] + [
-        ("offset", ctypes.c_int64)]
+            "pc0", "prio", "endf", "endi", "objective", "nodes_used", "fbest", "fhash",
+            "fcount")] + [
+        ("pod_offset", ctypes.c_int64), ("offset", ctypes.c_int64)]
 
 
 class PickShard(ctypes.Structure):
@@ -1617,7 +1621,7 @@ def _before_all(mesh, home: torch.device) -> None:
 
 
 def shard_combine(mesh, op: int, srcs, dsts) -> None:
-    """The mesh's combine (the cross-shard reductions of K2, K5 and K6):
+    """The mesh's combine (the cross-shard reductions of K2, K5, K6 and K8):
     element i of every ``srcs[g]`` (shard g's partial, on its device)
     reduced by ``op`` and written into every ``dsts[g]``, in one launch on
     the mesh's first card reading and writing the others' memory through
@@ -1689,6 +1693,28 @@ class _ShardRound:
         pa = b.podaffinity
         self.pa_delta = None if pa is None else torch.zeros_like(pa.base_sums)
 
+    def pod_axis(self, sb, t: int, p: rt.ScoreParams, what: str) -> None:
+        """On a pods x nodes grid: the arguments ``af`` of tile t's node
+        column with every pod's pod-major leaves (``sb.full_tile``, kept
+        alive as long as the struct that points into them), the joined
+        per-pod vectors ``fstats`` (best, hash, tie count) and the per-pod
+        buffers of all P pods. On one pod row the tile holds every pod:
+        ``af`` is ``a``, and nothing else changes."""
+        if sb.pod_rows == 1:
+            self.af = self.a
+            return
+        dev = self.dev
+        self.full = sb.full_tile(t)
+        self.af, self.keep_full = _score_args(self.full, p, what, self.state, bits_blocks=1,
+                                              nom_active=self.nom_active, pod_node=False)
+        P = self.af.P
+        self.fstats = torch.zeros((3, P), dtype=torch.int64, device=dev)
+        self.r = torch.zeros((P,), dtype=torch.int32, device=dev)
+        self.choice = torch.full((2, P), -1, dtype=torch.int32, device=dev)
+        self.acc = torch.zeros((2, P), dtype=torch.int32, device=dev)
+        self.active = self.full.pod_valid.clone()
+        self.assignments = torch.full((P,), -1, dtype=torch.int32, device=dev)
+
 
 def _filter_score_shards(mesh, shards: list, smem: int) -> None:
     """Kernel K2's first half: every shard's filter_score over its rows,
@@ -1743,20 +1769,25 @@ def sharded_filter_score(tiles, mesh, p: rt.ScoreParams):
 
 
 # ---------------------------------------------------------------------------
-# kernel K5: the packing solve over a node mesh (csrc/packing_round.cu)
+# kernel K8: the packing solve over a pods x nodes grid (csrc/packing_round.cu);
+# a node mesh is the grid of one pod row (kernel K5)
 # ---------------------------------------------------------------------------
 
 
 class _PackRound(_ShardRound):
-    """One shard's buffers for the sharded packing solve: the sharded
-    round's (filter_score's scratch, the running state, active flags and
-    assignments) and the solve's own (``PackShard``)."""
+    """One tile's buffers for the tiled packing solve: the sharded round's
+    over the tile's pods (filter_score's scratch, the running state), the
+    pod axis's (``_ShardRound.pod_axis``: every pod's arguments ``af`` and
+    per-pod vectors) and the solve's own (``PackShard``)."""
 
-    def __init__(self, b: rt.DeviceBatch, p: rt.ScoreParams, lam: torch.Tensor,
-                 weights: torch.Tensor, offset: int) -> None:
+    def __init__(self, sb, t: int, p: rt.ScoreParams, lam: torch.Tensor,
+                 weights: torch.Tensor) -> None:
+        b = sb.shards[t]
         run, nom = _packing_state(b)
         super().__init__(b, p, run, nom)
-        dev, P, N = self.dev, self.a.P, self.a.N
+        self.pod_axis(sb, t, p, "tiled packing")
+        dev, N = self.dev, self.a.N
+        Pb, P = self.a.P, self.af.P
         i32, i64, f32 = torch.int32, torch.int64, torch.float32
         _check("lam", lam, f32, (N,), dev)
         self.lam = lam.clone()
@@ -1767,13 +1798,13 @@ class _PackRound(_ShardRound):
         self.slice_id = None if topo is None else topo.slice_id
         if self.slice_id is not None:
             _check("topology.slice_id", self.slice_id, i32, (N,), dev)
-        prio = b.pod_priority
+        prio = (self.full if sb.pod_rows > 1 else b).pod_priority
         if prio is not None:
             _check("pod_priority", prio, i32, (P,), dev)
         self.busy = torch.zeros((2 * (self.S + 1),), dtype=i32, device=dev)
         self.pen = torch.empty((N,), dtype=f32, device=dev)
-        self.stats = torch.zeros((7, P), dtype=i64, device=dev)
-        self.denom = torch.empty((P,), dtype=f32, device=dev)
+        self.stats = torch.zeros((7, Pb), dtype=i64, device=dev)
+        self.denom = torch.empty((Pb,), dtype=f32, device=dev)
         self.order = torch.empty((P,), dtype=i32, device=dev)
         self.coupled = torch.empty((P,), dtype=torch.uint8, device=dev)
         self.over = torch.empty((N,), dtype=i32, device=dev)
@@ -1796,102 +1827,130 @@ class _PackRound(_ShardRound):
         h.choice, h.acc = self.choice.data_ptr(), self.acc.data_ptr()
         h.req0, h.pc0 = b.requested.data_ptr(), b.pod_count.data_ptr()
         h.prio = _ptr(prio)
-        h.offset = offset
+        # the rank reads the rows' best, hash and tie count joined in pod
+        # order; on one pod row, the row's combined stats in place
+        joined = (self.fstats[0], self.fstats[1], self.fstats[2]) if sb.pod_rows > 1 else (
+            self.stats[1], self.stats[5], self.stats[4])
+        h.fbest, h.fhash, h.fcount = (x.data_ptr() for x in joined)
+        i, j = divmod(t, sb.columns)
+        h.pod_offset, h.offset = sb.pod_offsets[i], sb.offsets[j]
 
 
-def sharded_packing_assign(sb, p: rt.ScoreParams, lam_pieces, weights: torch.Tensor,
-                           max_iters: int = 0):
-    """Kernel K5, the packing solve over a node-sharded batch
-    (``parallel.mesh.ShardedBatch`` on CUDA devices): ``packing_round``'s
-    steps on every shard (``kt_packing_shard``) with the mesh's combines
-    between them (``shard_combine``): each round the sharded
-    ``filter_score`` (``_filter_score_shards``), the slice occupancy, the
-    row maxima of |score|, the best utility, the tie counts (sum and each
-    shard's prefix) and hashes, the choice, the admissions and the affinity
-    increments; at the end the marginal utility (float32 min), the
-    fragmentation (float32 sum), whether any node was used and the nodes
-    used, and the start and end slice occupancy. The host reads shard 0's
-    two flags a round. ``lam_pieces``: each shard's (N / G,) float32 duals
-    (not written). Returns ``(assignments (P,) int32 global, final_state,
-    lam, objective () float32, iters, nodes_used () int32)``, the node
-    slots and λ as ``parallel.mesh.ShardedTensor``s, equal to
-    ``assign.packing.packing_assign_sharded_plain`` and to the unsharded
-    ``packing_assign`` (the objective within its float32 sums' order)."""
+def tiled_packing_assign(sb, p: rt.ScoreParams, lam_pieces, weights: torch.Tensor,
+                         max_iters: int = 0, rows_out: list | None = None):
+    """Kernels K8 and K5, the packing solve over a sharded batch
+    (``parallel.mesh.ShardedBatch`` on CUDA devices: a pods x nodes grid,
+    K8, or a node mesh, one pod row, K5): ``packing_round``'s steps on every
+    tile (``kt_packing_tile``) with the mesh's combines between them
+    (``shard_combine``). Each round every pod row's sharded ``filter_score``
+    on its tiles (``_filter_score_shards``); inside each pod row the slice
+    occupancy, the row maxima of |score|, the best utility, the tie counts
+    (sum and each column's prefix) and hashes; across the pod rows the
+    rows' best, hash and tie count joined in pod order (``GATHER``) before
+    the rank over every pod, the picks and the admissions (max over every
+    tile: each column's admissions over every row's choosers), the commit,
+    which every tile applies to its own copy of its column's rows and
+    duals, and each pod row's affinity increments summed over its columns.
+    At the end, inside each pod row (a column counts once), the marginal
+    utility (float32 min), the fragmentation (float32 sum), whether any
+    node was used and the nodes used, and the start and end slice
+    occupancy. The host reads tile 0's two flags a round. ``lam_pieces``:
+    each tile's (N / NG,) float32 duals (not written). Returns
+    ``(assignments (P,) int32 global, final_state, lam, objective ()
+    float32, iters, nodes_used () int32)``, the node slots (pod row 0's)
+    and λ (every tile's) as ``parallel.mesh.ShardedTensor``s, equal to
+    ``assign.packing.packing_assign_tiled_plain`` and to the unsharded
+    ``packing_assign`` (the objective within its float32 sums' order);
+    ``rows_out`` as the plain version's."""
+    from ..assign.batched import _row_slots
     from ..parallel.mesh import ShardedTensor
 
     mesh = sb.mesh
-    P = sb.shards[0].requests.shape[0]
+    P, NG, PG = sb.num_pods, sb.columns, sb.pod_rows
     if P > 1024:
         raise ValueError(f"packing_round: P={P} exceeds the sorting block's 1024 pods")
-    shards = []
-    for b, lam, off in zip(sb.shards, lam_pieces, sb.offsets):
+    tiles = []
+    for t, (b, lam) in enumerate(zip(sb.shards, lam_pieces)):
         with on_device(b.alloc.device):
-            shards.append(_PackRound(b, p, lam, weights, off))
+            tiles.append(_PackRound(sb, t, p, lam, weights))
+    rows = [tiles[i * NG:(i + 1) * NG] for i in range(PG)]
     lib = build()["packing_round"]
     smem = _smem(sb.shards[0])
-    s0 = shards[0]
+    s0 = tiles[0]
     topo = s0.slice_id is not None
+    what = "sharded_packing" if PG == 1 else "tiled_packing"
 
     def step(k):
-        for s in shards:
+        for s in tiles:
             with on_device(s.dev):
-                code = lib.kt_packing_shard(ctypes.byref(s.a), ctypes.byref(s.ps), k,
-                                            torch.cuda.current_stream(s.dev).cuda_stream)
-            _raise_on(lib, "packing_round", code, f"packing_round (sharded, step {k})")
-            launch_counts["sharded_packing"] += 1
+                code = lib.kt_packing_tile(ctypes.byref(s.a), ctypes.byref(s.af), k,
+                                           ctypes.byref(s.ps),
+                                           torch.cuda.current_stream(s.dev).cuda_stream)
+            _raise_on(lib, "packing_round", code, f"packing_round (tiled, step {k})")
+            launch_counts[what] += 1
 
-    def combine(op, get, put=None):
-        shard_combine(mesh, op, [get(s) for s in shards], [(put or get)(s) for s in shards])
+    def in_rows(op, get, put=None):
+        for i, row in enumerate(rows):
+            shard_combine(mesh.row(i), op, [get(s) for s in row], [(put or get)(s) for s in row])
+
+    def over_all(op, get, put):
+        shard_combine(mesh, op, [get(s) for s in tiles], [put(s) for s in tiles])
 
     step(0)
     cap = max_iters or P
     iters = 0
     progress, still = True, bool(torch.any(s0.active))
     while progress and still and iters < cap:
-        _filter_score_shards(mesh, shards, smem)
+        for i, row in enumerate(rows):
+            _filter_score_shards(mesh.row(i), row, smem)
         if topo:
             step(1)
-            combine(SUM, lambda s: s.busy[: s.S + 1])
+            in_rows(SUM, lambda s: s.busy[: s.S + 1])
         step(2)
-        combine(MAX, lambda s: s.stats[0])
+        in_rows(MAX, lambda s: s.stats[0])
         step(3)
-        combine(MAX, lambda s: s.stats[1])
+        in_rows(MAX, lambda s: s.stats[1])
         step(4)
-        combine(PREFIX, lambda s: s.stats[2], lambda s: s.stats[6])
-        combine(SUM, lambda s: s.stats[2], lambda s: s.stats[4])
-        combine(SUM, lambda s: s.stats[3], lambda s: s.stats[5])
+        in_rows(PREFIX, lambda s: s.stats[2], lambda s: s.stats[6])
+        in_rows(SUM, lambda s: s.stats[2], lambda s: s.stats[4])
+        in_rows(SUM, lambda s: s.stats[3], lambda s: s.stats[5])
+        if PG > 1:
+            # the rows' best, hash and tie count, joined in pod order
+            for k, f in ((1, 0), (5, 1), (4, 2)):
+                shard_combine(mesh, GATHER, [row[0].stats[k] for row in rows],
+                              [s.fstats[f] for s in tiles])
         step(5)
-        combine(MAX, lambda s: s.choice[0], lambda s: s.choice[1])
+        over_all(MAX, lambda s: s.choice[0], lambda s: s.choice[1])
         step(6)
-        combine(MAX, lambda s: s.acc[0], lambda s: s.acc[1])
-        for s in shards:
+        over_all(MAX, lambda s: s.acc[0], lambda s: s.acc[1])
+        for s in tiles:
             if s.pa_delta is not None:
                 with on_device(s.dev):
                     s.pa_delta.zero_()
         step(7)
         if s0.pa_delta is not None:
-            combine(ADD, lambda s: s.pa_delta, lambda s: s.state[4])
+            in_rows(ADD, lambda s: s.pa_delta, lambda s: s.state[4])
         progress, still = (bool(v) for v in s0.flags.tolist())
         iters += 1
     step(8)
-    combine(MIN, lambda s: s.endf[0:1])
-    combine(SUM, lambda s: s.endf[1:2])
-    combine(MAX, lambda s: s.endi[0:1])
-    combine(SUM, lambda s: s.endi[1:2])
+    in_rows(MIN, lambda s: s.endf[0:1])
+    in_rows(SUM, lambda s: s.endf[1:2])
+    in_rows(MAX, lambda s: s.endi[0:1])
+    in_rows(SUM, lambda s: s.endi[1:2])
     if topo:
-        combine(SUM, lambda s: s.busy)
+        in_rows(SUM, lambda s: s.busy)
     step(9)
-    for s in shards:
+    for s in tiles:
         with on_device(s.dev):
             torch.cuda.current_stream(s.dev).synchronize()
-    state = (
-        ShardedTensor([s.state[0] for s in shards]), ShardedTensor([s.state[1] for s in shards]),
-        ShardedTensor([s.state[2] for s in shards]), ShardedTensor([s.state[3] for s in shards]),
-        None if s0.state[5] is None else ShardedTensor([s.state[5] for s in shards], axis=1),
-        s0.state[4], s0.nom_active,
-    )
-    return (s0.assignments, state, ShardedTensor([s.lam for s in shards]), s0.objective,
-            iters, s0.nodes_used)
+    slots = [[s.state[k] for s in tiles] for k in range(6)]
+    if rows_out is not None:
+        rows_out.extend(_row_slots(slots[0], slots[1], slots[2], slots[3], slots[5], i, NG)
+                        for i in range(PG))
+    state = _row_slots(slots[0], slots[1], slots[2], slots[3], slots[5], 0, NG) + (
+        s0.state[4], s0.nom_active)
+    return (s0.assignments, state, ShardedTensor([s.lam for s in tiles], rows=PG),
+            s0.objective, iters, s0.nodes_used)
 
 
 # ---------------------------------------------------------------------------
@@ -1919,30 +1978,14 @@ class _TileRound(_ShardRound):
         nom = (None if b.nominated_pod_idx is None
                else torch.ones((b.nominated_pod_idx.shape[0],), dtype=torch.bool, device=dev))
         super().__init__(b, p, state, nom)
+        self.pod_axis(sb, t, p, "tiled round")
         i, j = divmod(t, sb.columns)
-        i64, i32 = torch.int64, torch.int32
-        self.tstats = torch.zeros((5, self.a.P), dtype=i64, device=dev)
-        if sb.pod_rows == 1:
-            # the rank reads the row's combined best, hash and tie count;
-            # the per-pod vectors are the sharded round's
-            self.af = self.a
-            base, row = self.tstats.data_ptr(), 8 * self.a.P
-            joined = (base, base + 2 * row, base + 3 * row)
-        else:
-            # the column's batch of every pod: its leaves live as long as
-            # the argument struct that points into them
-            self.full = sb.full_tile(t)
-            self.af, self.keep_full = _score_args(self.full, p, "tiled round", state,
-                                                  bits_blocks=1, nom_active=nom,
-                                                  pod_node=False)
-            P = self.af.P
-            self.fstats = torch.zeros((3, P), dtype=i64, device=dev)
-            joined = tuple(self.fstats[k].data_ptr() for k in range(3))
-            self.r = torch.zeros((P,), dtype=i32, device=dev)
-            self.choice = torch.full((2, P), -1, dtype=i32, device=dev)
-            self.acc = torch.zeros((2, P), dtype=i32, device=dev)
-            self.active = self.full.pod_valid.clone()
-            self.assignments = torch.full((P,), -1, dtype=i32, device=dev)
+        self.tstats = torch.zeros((5, self.a.P), dtype=torch.int64, device=dev)
+        # the rank reads the rows' best, hash and tie count joined in pod
+        # order; on one pod row, the row's combined stats in place
+        joined = (self.fstats[0], self.fstats[1], self.fstats[2]) if sb.pod_rows > 1 else (
+            self.tstats[0], self.tstats[2], self.tstats[3])
+        joined = tuple(x.data_ptr() for x in joined)
         req, nz, pc, ports, _, sp_counts = state
         h = self.tr = TileRound()
         h.mask, h.total = self.mask.data_ptr(), self.total.data_ptr()

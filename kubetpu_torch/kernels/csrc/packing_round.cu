@@ -48,7 +48,7 @@
 //
 // Under a node mesh (kernel K5, kubetpu/parallel/mesh.py:369
 // sharded_packing) every shard runs the same steps on its own N / G rows
-// (kt_packing_shard, one step a launch), and the host combines the shards'
+// (kt_packing_tile, one step a launch), and the host combines the shards'
 // partials between the steps (kt_shard_combine in batched_round.cu), at
 // the points where a round reduces over nodes: the slice occupancy (a
 // slice's nodes may span shards), the row maximum of |score| (as its
@@ -62,6 +62,22 @@
 // node bias uses the GLOBAL node index (offset + n). The admission order,
 // coupled flags and every pod-indexed vector are replicated: each shard
 // computes them alike.
+//
+// On a pods x nodes grid (kernel K8, sharded_packing with pod_axis="pods")
+// tile (i, j) holds pod row i's P / PG pods against node column j's rows,
+// and every tile runs the same steps (kt_packing_tile). The per-pod
+// statistics (row maximum, best utility, ties, hashes, the pick) are the
+// tile's own pods' and combine over the pod row's columns; the host then
+// joins the rows' best, hash and tie count in pod order (the combine's
+// GATHER), so the rank runs over every pod in queue order. The start, the
+// admissions, the dual ascent, the commit and the end read `full`: the
+// tile's node column with every pod's pod-major leaves. Every tile of a
+// column admits and commits every pod of that column into its own copy of
+// the column's rows and duals, so the copies stay equal down the pod rows;
+// the end's partials combine over each pod row's columns, so a column
+// counts once. On one pod row `full` is the tile itself, the joined
+// vectors are the row's combined statistics in place, and the launches are
+// kernel K5's: no kernel loops over pod rows or reads their count.
 //
 // Float32 rounding: the reference's arithmetic runs through XLA on the
 // CPU, which fuses a multiply into the add that takes it (FMA). This file
@@ -871,11 +887,12 @@ extern "C" int kt_packing_end(const ScoreArgs* args, const void* req0, const voi
 
 namespace {
 
-// One shard's buffers of a sharded solve (kernel K5); mirror of PackShard
-// in kubetpu_torch/kernels/__init__.py (8-byte fields). Node-indexed
-// arrays hold the shard's N / G rows; pod-indexed ones all P pods.
+// One tile's buffers of a tiled solve (kernels K8 and K5); mirror of
+// PackShard in kubetpu_torch/kernels/__init__.py (8-byte fields). Node-
+// indexed arrays hold the tile's column of N / NG rows; stats, denom and
+// mask the tile's Pb = P / PG pods; the other pod-indexed arrays all P.
 struct PackShard {
-  const uint8_t* mask;      // (P, N) this round's filter_score
+  const uint8_t* mask;      // (Pb, N) this round's filter_score of the tile
   const int64_t* total;
   int64_t* req;             // running state, the shard's rows
   int64_t* nz;
@@ -893,11 +910,11 @@ struct PackShard {
   int64_t S;
   int32_t* busy;            // (2 (S + 1),)
   float* pen;               // (N,)
-  int64_t* stats;           // (7, P): rmx, best, cnt, hash, cnt_all, hash_all, before
-  float* denom;             // (P,)
+  int64_t* stats;           // (7, Pb): rmx, best, cnt, hash, cnt_all, hash_all, before
+  float* denom;             // (Pb,)
   int32_t* r;               // (P,)
-  int32_t* choice;          // (2, P): this shard's pick, the combined choice
-  int32_t* acc;             // (2, P): this shard's admissions, the combined ones
+  int32_t* choice;          // (2, P): this tile's picks (its pod row), the combined
+  int32_t* acc;             // (2, P): this tile's admissions, the combined ones
   int32_t* over;            // (N,)
   int32_t* flags;           // (2,)
   const int64_t* req0;      // the shard's start rows
@@ -907,75 +924,87 @@ struct PackShard {
   int64_t* endi;            // (2,)
   float* objective;         // ()
   int32_t* nodes_used;      // ()
-  int64_t offset;           // the shard's first global node
+  const int64_t* fbest;     // (P,) every pod row's best, hash and tie count joined in
+  const int64_t* fhash;     // pod order (on one pod row: stats' rows 1, 5, 4)
+  const int64_t* fcount;
+  int64_t pod_offset;       // the tile's first pod
+  int64_t offset;           // the tile's first global node
 };
 
 }  // namespace
 
-// One step of a sharded solve (kernel K5) on one node shard; the shards'
-// partials are combined (kt_shard_combine) between the steps. 0: the
-// start (order, coupled, lam *= decay); each round, after the shard's
-// filter_score: 1 its busy flags (with a topology leaf); 2 its penalties
-// (from the combined busy counts) and row maxima of |score| into stats[0];
-// 3 its best utility into stats[1]; 4 its tie counts into stats[2] and
-// hashes into stats[3]; 5 the ranks (from the combined stats[1], stats[4],
-// stats[5]) and its pick (stats[6] the ties before it) into choice[0]; 6
-// its admissions (from the combined choice[1]) into acc[0], and the dual
-// ascent on its nodes; 7 the commit (from the combined acc[1]); at the
-// end: 8 its partials into endf, endi and busy; 9 its prices and the
+// One step of a tiled solve (kernel K8; on one pod row, a node mesh, kernel
+// K5) on one tile, after its pod row's sharded filter_score wrote `mask`
+// and `total`; the host combines the tiles' partials between the steps.
+// `tile` is the tile's arguments (its Pb pods), `full` its node column with
+// every pod's pod-major leaves (on one pod row, `tile` itself). 0: the
+// start (order, coupled, lam *= decay) over every pod; each round: 1 the
+// tile's busy flags (with a topology leaf); 2 its penalties (from the
+// combined busy counts) and its pods' row maxima of |score| into stats[0];
+// 3 their best utility into stats[1]; 4 their tie counts into stats[2] and
+// hashes into stats[3]; 5 the ranks over every pod (from the joined fbest,
+// fhash, fcount), then its pods' picks (stats[6] the ties before it) into
+// its pod row's part of choice[0]; 6 the admissions of its column's
+// choosers over every pod (from the combined choice[1]) into acc[0], and
+// the dual ascent on its copy of the column's nodes; 7 the commit of every
+// pod of its column (from the combined acc[1]) to its copy; at the end: 8
+// its column's partials into endf, endi and busy; 9 its prices and the
 // objective. Returns the cudaError_t of the launch.
-extern "C" int kt_packing_shard(const ScoreArgs* args, const void* shard, int step,
-                                void* stream) {
-  const ScoreArgs a = *args;
+extern "C" int kt_packing_tile(const ScoreArgs* tile, const ScoreArgs* full, int step,
+                               const void* shard, void* stream) {
+  const ScoreArgs at = *tile;
+  const ScoreArgs af = *full;
   const PackShard& h = *static_cast<const PackShard*>(shard);
-  if (a.P > kSortThreads) return (int)cudaErrorInvalidValue;
+  if (af.P > kSortThreads) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned P = (unsigned)a.P;
-  int64_t *rmx = h.stats, *best = h.stats + a.P, *cnt = h.stats + 2 * a.P,
-          *hash = h.stats + 3 * a.P, *cnt_all = h.stats + 4 * a.P,
-          *hash_all = h.stats + 5 * a.P, *before = h.stats + 6 * a.P;
+  const unsigned Pb = (unsigned)at.P;
+  int64_t *rmx = h.stats, *best = h.stats + at.P, *cnt = h.stats + 2 * at.P,
+          *hash = h.stats + 3 * at.P, *before = h.stats + 6 * at.P;
+  uint8_t* act = h.active + h.pod_offset;
   switch (step) {
     case 0:
-      packing_start<<<1, kSortThreads, 0, s>>>(a, h.prio, h.w, h.lam, h.lam, h.order, h.coupled);
+      packing_start<<<1, kSortThreads, 0, s>>>(af, h.prio, h.w, h.lam, h.lam, h.order,
+                                               h.coupled);
       break;
     case 1:
-      round_nodes<<<1, kSortThreads, 0, s>>>(a, h.w, h.lam, h.slice_id, h.S, h.busy, h.pen, 1,
+      round_nodes<<<1, kSortThreads, 0, s>>>(at, h.w, h.lam, h.slice_id, h.S, h.busy, h.pen, 1,
                                               h.offset);
       break;
     case 2: {
-      round_nodes<<<1, kSortThreads, 0, s>>>(a, h.w, h.lam, h.slice_id, h.S, h.busy, h.pen, 2,
+      round_nodes<<<1, kSortThreads, 0, s>>>(at, h.w, h.lam, h.slice_id, h.S, h.busy, h.pen, 2,
                                               h.offset);
       cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
-      if (P) shard_pod_stats<<<P, kRowThreads, 0, s>>>(a, h.mask, h.total, h.active, h.pen, h.w,
-                                                     1, rmx, best, h.denom, cnt, hash, h.offset);
+      if (Pb) shard_pod_stats<<<Pb, kRowThreads, 0, s>>>(at, h.mask, h.total, act, h.pen, h.w,
+                                                       1, rmx, best, h.denom, cnt, hash, h.offset);
       break;
     }
     case 3:
     case 4:
-      if (P) shard_pod_stats<<<P, kRowThreads, 0, s>>>(a, h.mask, h.total, h.active, h.pen, h.w,
-                                                     step - 1, rmx, best, h.denom, cnt, hash,
-                                                     h.offset);
+      if (Pb) shard_pod_stats<<<Pb, kRowThreads, 0, s>>>(at, h.mask, h.total, act, h.pen, h.w,
+                                                       step - 1, rmx, best, h.denom, cnt, hash,
+                                                       h.offset);
       break;
     case 5: {
-      if (!P) break;
-      round_rank<<<1, kSortThreads, 0, s>>>(a, hash_all, cnt_all, h.r, best);
+      if (!af.P) break;
+      round_rank<<<1, kSortThreads, 0, s>>>(af, h.fhash, h.fcount, h.r, h.fbest);
       cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
-      round_pick<<<P, kRowThreads, 0, s>>>(a, h.mask, h.total, h.pen, h.w, best, cnt, h.denom,
-                                           h.r, h.choice, before, h.offset);
+      if (Pb) round_pick<<<Pb, kRowThreads, 0, s>>>(at, h.mask, h.total, h.pen, h.w, best, cnt,
+                                                  h.denom, h.r + h.pod_offset,
+                                                  h.choice + h.pod_offset, before, h.offset);
       break;
     }
     case 6:
     case 7:
-      if (P) round_accept<<<1, kSortThreads, 0, s>>>(
-          a, h.choice + a.P, h.order, h.coupled, h.w, h.req, h.nz, h.pc, h.ports, h.pa_delta,
+      if (af.P) round_accept<<<1, kSortThreads, 0, s>>>(
+          af, h.choice + af.P, h.order, h.coupled, h.w, h.req, h.nz, h.pc, h.ports, h.pa_delta,
           h.sp_counts, h.active, h.assignments, h.lam, h.over, h.flags, step - 5,
-          step == 6 ? h.acc : h.acc + a.P, h.offset);
+          step == 6 ? h.acc : h.acc + af.P, h.offset);
       break;
     case 8:
     case 9:
-      packing_end<<<1, kSortThreads, 0, s>>>(a, h.req0, h.pc0, h.req, h.pc, h.assignments,
+      packing_end<<<1, kSortThreads, 0, s>>>(af, h.req0, h.pc0, h.req, h.pc, h.assignments,
                                               h.prio, h.w, h.lam, h.slice_id, h.S, h.busy,
                                               h.objective, h.nodes_used, step - 7, h.endf,
                                               h.endi, h.offset);

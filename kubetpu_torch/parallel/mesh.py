@@ -40,16 +40,20 @@ its admissions (one pod a node over every row's choosers, with each
 pod's pod-major leaves gathered once a batch, ``ShardedBatch.gathered``),
 the first rejection, and the state increments, which every pod row's copy
 of a node column takes; the greedy scan reads step p's pod from its pod
-row.
+row. The packing solve adds its own: its row maxima of |score| reduce
+over a pod row's columns, its banded tie rank joins the rows' vectors as
+the batched engine's does, its admissions read every row's choosers in
+admission order, and its duals λ are held a piece a tile (a column's
+copies equal down the rows).
 
 A mesh is an ordered list of ``torch.device``s, which may repeat:
 ``["cpu"] * G`` (the CPU tests' mesh), ``[cuda:0] * G`` (G logical shards
 on one card) or ``cuda:0 .. cuda:G-1`` (one shard a card, with peer access
 between every pair). ``make_multislice_mesh`` keeps the reference's two
 axis names and shards the node dimension over both, which on a 1-D node
-axis is the same G-way split under its own shape label. Still to port
-(ROADMAP Queue B): the packing engine on the pods x nodes grid (item 20)
-and the gang lane under any mesh (item 19); both raise.
+axis is the same G-way split under its own shape label. The gang lane's
+group cycles do not shard: under any mesh they encode and solve an
+unsharded batch on the mesh's first device, as the reference's do.
 """
 
 from __future__ import annotations
@@ -69,15 +73,6 @@ from ..ops.reduce import combine
 
 AXIS = "nodes"
 POD_AXIS = "pods"
-
-
-def not_ported(what: str, item: int) -> NotImplementedError:
-    """The error of a mesh part still to port: ROADMAP item ``item``, a
-    remaining part of item 12."""
-    return NotImplementedError(
-        f"{what} is ROADMAP Queue B item {item} (Queue A item 12's remaining "
-        "part), not yet ported"
-    )
 
 
 @dataclass(frozen=True)
@@ -466,16 +461,32 @@ class ShardedBatch:
 
 class ShardedTensor:
     """A node-axis tensor held as its shards' pieces (``axis`` is the node
-    axis). ``gather`` joins them on one device: results read back, never
-    an input to an engine."""
+    axis). On a pods x nodes grid (``rows`` pod rows) the pieces are the
+    tiles', in tile order: each node column's piece repeats down the rows.
+    ``gather`` joins pod row 0's pieces on one device: results read back,
+    never an input to an engine."""
 
-    def __init__(self, pieces: Sequence[torch.Tensor], axis: int = 0) -> None:
+    def __init__(self, pieces: Sequence[torch.Tensor], axis: int = 0, rows: int = 1) -> None:
         self.pieces = list(pieces)
         self.axis = axis
+        self.rows = rows
+
+    @classmethod
+    def split(cls, x: torch.Tensor, sb: "ShardedBatch") -> "ShardedTensor":
+        """A whole (N,) node vector cut into ``sb``'s tiles' pieces, each on
+        its tile's device."""
+        return cls([x[sb.offsets[t % sb.columns]:][:int(s.alloc.shape[0])].to(s.device)
+                    .contiguous() for t, s in enumerate(sb.shards)], rows=sb.pod_rows)
+
+    def row(self, i: int) -> "ShardedTensor":
+        """Pod row i's pieces."""
+        ng = len(self.pieces) // self.rows
+        return ShardedTensor(self.pieces[i * ng:(i + 1) * ng], self.axis)
 
     def gather(self, device=None) -> torch.Tensor:
-        dev = self.pieces[0].device if device is None else torch.device(device)
-        return torch.cat([p.to(dev) for p in self.pieces], dim=self.axis)
+        pieces = self.row(0).pieces
+        dev = pieces[0].device if device is None else torch.device(device)
+        return torch.cat([p.to(dev) for p in pieces], dim=self.axis)
 
     def cpu(self) -> torch.Tensor:
         return self.gather("cpu")
@@ -607,19 +618,18 @@ def sharded_batched(b: rt.DeviceBatch, params: rt.ScoreParams, mesh: NodeMesh,
 
 def sharded_packing(b: rt.DeviceBatch, params: rt.ScoreParams, mesh: NodeMesh,
                     weights=None, max_iters: int = 0):
-    """Shard ``b`` over a node mesh and run one cold packing solve
-    (``kubetpu/parallel/mesh.py:369``): λ starts at zero, one piece a
-    shard. Returns the solver's six-tuple ``(assignments, final_state, lam,
-    objective, iters, nodes_used)``, the final state's node slots and λ as
-    ``ShardedTensor``s. ``weights``: a ``PackingWeights`` (the defaults
-    when None). A pods x nodes grid raises (ROADMAP item 20)."""
+    """Shard ``b`` (on a node mesh or a pods x nodes grid) and run one cold
+    packing solve (``kubetpu/parallel/mesh.py:369``; ``pod_axis="pods"``
+    on a grid): λ starts at zero, one piece a tile. Returns the solver's
+    six-tuple ``(assignments, final_state, lam, objective, iters,
+    nodes_used)``, the final state's node slots (pod row 0's) and λ (every
+    tile's) as ``ShardedTensor``s. ``weights``: a ``PackingWeights`` (the
+    defaults when None)."""
     from ..assign.packing import PackingWeights, packing_assign_device
 
-    if mesh.pod_shards > 1:
-        raise not_ported("the packing engine on a pods x nodes mesh", 20)
     sb = shard_batch(b, mesh)
     lam = ShardedTensor([torch.zeros(int(s.alloc.shape[0]), dtype=torch.float32,
-                                     device=s.device) for s in sb.shards])
+                                     device=s.device) for s in sb.shards], rows=sb.pod_rows)
     w = (weights or PackingWeights()).tensor(sb.device)
     return packing_assign_device(sb, params, lam, w, max_iters)
 
@@ -678,7 +688,7 @@ def measure_collective_wall(mesh: NodeMesh, n: int = 1 << 14, repeats: int = 3) 
 
         def once():
             return shard_argmax(pieces, mesh)
-    if once() != n - 1:
+    if once() != per * mesh.size - 1:
         raise RuntimeError("the cross-shard argmax probe disagrees with its input")
     best = float("inf")
     for _ in range(repeats):

@@ -17,6 +17,10 @@ Port copy of ``kubetpu/sched/podgroup.py``. Port-side deviations:
   (``ops.preemption.dry_run_gang_preemption``) launch the hand-written
   ``hypothesis_scan`` kernel on a CUDA device; the encode is the port's
   (the resident node block and the encode cache, as its per-pod cycle).
+  Under a mesh the group batch is unsharded, on the mesh's first device,
+  as the reference encodes it (``Scheduler._encode_group``): the engines,
+  the placement search and the dry run take it as they take any unsharded
+  batch, and the packing engine passes its duals between the layouts.
 
 Reference surfaces mirrored:
 
@@ -549,7 +553,7 @@ def _placement_group_cycle(
     timing.hypotheses = len(names)
     assignments, counts, alignment = _device_call(
         sched, timing, placement_assign_device, device_batch, params,
-        torch.from_numpy(masks).to(sched.device), engine=sched.engine,
+        torch.from_numpy(masks).to(device_batch.device), engine=sched.engine,
     )
     sched.metrics.schedule_attempts += len(infos)
 
@@ -732,7 +736,7 @@ def _try_gang_preemption(
                 col = ridx.get(k)
                 if col is not None:
                     freed_req[ci, j, col] += v
-    dev = sched.device
+    dev = device_batch.device
     counts, alignment = dry_run_gang_preemption(
         device_batch, params, torch.from_numpy(masks).to(dev),
         torch.from_numpy(freed_req).to(dev), torch.from_numpy(freed_count).to(dev),

@@ -71,10 +71,12 @@ packing duals sharded with the node rows) and the preemption dry run
 reduce across the shards, and the recorder skips its breakdown
 ("skipped: mesh"), as the reference's does. A pods x nodes grid
 (``parallel.mesh.make_mesh_2d``) also cuts each batch's pods into pod
-rows on the greedy and batched engines; the dry run then runs over the
-node columns of the preempting pod's pod row. The
-packing engine on a grid (ROADMAP item 20) and the gang lane under any
-mesh (item 19) raise.
+rows on the three engines; the dry run then runs over the node columns
+of the preempting pod's pod row. The gang lane's group cycles run
+unsharded under any mesh, as the reference's do: each group batch is
+encoded whole on the mesh's first device (no sharded resident block, no
+encode cache, no mesh padding) and the unsharded engines, placement
+search and gang dry run take it.
 
 Not in these slices (each raises when asked for): the
 sentinel, the asynchronous API dispatcher and the metrics registry (so the
@@ -119,6 +121,7 @@ from ..framework import lifecycle as lc
 from ..framework import runtime as rt
 from ..framework.featuregate import FeatureGate
 from ..framework.validation import must_validate
+from ..parallel.mesh import ShardedBatch
 from ..queue import PriorityQueue, QueuedPodInfo
 from ..queue.events import (
     ActionType,
@@ -337,18 +340,12 @@ class Scheduler:
         else:
             self.profiles = {p.name: p for p in self.cfg.profiles}
         # --- the mesh (parallel.mesh) -------------------------------------
-        from ..parallel.mesh import (measure_collective_wall, node_pad_multiple,
-                                     not_ported, resolve_mesh)
+        from ..parallel.mesh import measure_collective_wall, node_pad_multiple, resolve_mesh
 
         self.mesh = resolve_mesh(mesh, self.device)
         self.mesh_shape: tuple = self.mesh.shape if self.mesh is not None else ()
         # the padded node capacity is a multiple of the node shard count
         self._pad_multiple = 1 if self.mesh is None else node_pad_multiple(self.mesh)
-        if self.mesh is not None:
-            if engine == "packing" and self.mesh.pod_shards > 1:
-                raise not_ported("the packing engine on a pods x nodes mesh", 20)
-            if feature_gates.enabled("GangScheduling"):
-                raise not_ported("the gang lane under a mesh", 19)
         # the mesh's cross-shard argmax probe, once (kernel K4 on CUDA)
         self._collective_wall_s: float | None = (
             None if self.mesh is None else measure_collective_wall(self.mesh)
@@ -1496,13 +1493,20 @@ class Scheduler:
         """The gang lane's encode of one group cycle's pods, on the per-pod
         cycle's terms (the resident node block, the encode cache, the
         nominations, the topology mode), with the extender verdicts
-        attached. Returns ``(batch, device_batch, params)``."""
+        attached. Under a mesh the group batch is unsharded, on the mesh's
+        first device, as the reference's group cycles encode it
+        (``kubetpu/sched/podgroup.py:409``): the node block shipped whole,
+        no encode cache, the node capacity padded without the mesh's
+        multiple; the rows it dirties stay pending for the sharded
+        resident block, which diffs against what it last shipped. Returns
+        ``(batch, device_batch, params)``."""
+        where = (dict(resident=self._resident, cache=self.encode_cache,
+                      track_changes=self.pipeline, device=self.device)
+                 if self.mesh is None else dict(device=self.mesh.devices[0]))
         batch = rt.encode_batch(
             self._snapshot, pods, profile,
             nominated=self.nominator.entries(), prev_nt=self._prev_nt,
-            resident=self._resident, cache=self.encode_cache,
-            track_changes=self.pipeline, device=self.device,
-            topology=self.topology,
+            topology=self.topology, **where,
         )
         self._prev_nt = batch.node_tensors
         params = rt.score_params(profile, batch.resource_names)
@@ -1530,7 +1534,7 @@ class Scheduler:
         )
         if ext_mask is None:
             return device_batch, 0
-        if self.mesh is not None:
+        if isinstance(device_batch, ShardedBatch):
             ext = {k: torch.from_numpy(v) for k, v in
                    dict(extender_mask=ext_mask, extender_score=ext_score).items()}
             return (
@@ -1538,7 +1542,7 @@ class Scheduler:
                 int(ext_mask.nbytes + ext_score.nbytes),
             )
         leaves = rt.upload_packed(
-            dict(extender_mask=ext_mask, extender_score=ext_score), self.device
+            dict(extender_mask=ext_mask, extender_score=ext_score), device_batch.device
         )
         return (
             dataclasses.replace(device_batch, **leaves),

@@ -10,8 +10,9 @@ equality of every pod row's copy of the node rows, and
 ``Scheduler(mesh=make_mesh_2d(...))`` on both engines, pod for pod. The
 port is held to kubetpu's UNSHARDED engines, which its 2-D engines equal
 by design, so no test depends on kubetpu's ``pod_scan_collective_ok``
-probe. Plus the parts of the grid still to port (packing, item 20; the
-gang lane, item 19), which raise.
+probe. The packing engine on the grid is held in
+``test_torch_packing_grid.py``, the gang lane under a mesh in
+``test_torch_gang_mesh.py``.
 """
 
 import dataclasses
@@ -41,7 +42,7 @@ from .test_mesh import _build
 from .test_sharded import _run_cluster as k_run_cluster
 from .test_torch_mesh import _assert_result, _minimal, _tie_batch
 from .test_torch_sharded import _port_run
-from .torch_port_util import RecordingClient, port_batch_from_jax, port_params
+from .torch_port_util import port_batch_from_jax, port_params
 
 SHAPES = [(2, 2), (2, 4), (4, 2)]
 IDS = ["2x2", "2x4", "4x2"]
@@ -323,26 +324,6 @@ def test_scheduler_on_a_grid_pipelined(engine):
     ref, _ = k_run_cluster(None, kf, engine=engine)
     got, _ = _port_run(grid(2, 2), pf, engine=engine, pipeline=True)
     assert got == ref
-
-
-def test_packing_on_a_grid_raises_item_20():
-    batch, params = _build(seed=0)
-    with pytest.raises(NotImplementedError, match="item 20") as err:
-        M.sharded_packing(port_batch_from_jax(batch.device), port_params(params), grid(2, 2))
-    assert "item 12" in str(err.value)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        PScheduler(RecordingClient(), device="cpu", engine="packing", mesh=grid(2, 2))
-    with pytest.raises(NotImplementedError, match="item 20"):
-        prt.PackingSolverState(mesh=grid(2, 2), device="cpu")
-
-
-@pytest.mark.parametrize("mesh", ["1d", "2d"])
-def test_gang_lane_under_a_mesh_raises_item_19(mesh):
-    m = M.make_mesh(["cpu"] * 2) if mesh == "1d" else grid(2, 2)
-    with pytest.raises(NotImplementedError, match="item 19") as err:
-        PScheduler(RecordingClient(), device="cpu", mesh=m,
-                   feature_gates={"GenericWorkload": True, "GangScheduling": True})
-    assert "item 12" in str(err.value)
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (4, 2)], ids=["2x2", "4x2"])

@@ -285,8 +285,11 @@ def test_solver_state_resets_on_shape_change():
     assert (st.resets, st.carries) == (2, 1)
     from kubetpu_torch.parallel import mesh as M
 
-    with pytest.raises(NotImplementedError, match="item 12"):
-        prt.PackingSolverState(mesh=M.make_mesh_2d(["cpu"] * 4, pods=2), device="cpu")
+    # on a pods x nodes grid the cold duals come a piece a tile
+    grid = prt.PackingSolverState(mesh=M.make_mesh_2d(["cpu"] * 4, pods=2), device="cpu")
+    lam = grid.duals(16)
+    assert [p.shape[0] for p in lam.pieces] == [8] * 4 and lam.rows == 2
+    assert grid.resets == 1
 
 
 def test_weights_tensor_and_json_equal():

@@ -3,7 +3,7 @@
 Counterparts of kubetpu's ``parallel.sharded_packing`` and its sharded dual
 block, on ``cpu`` meshes of G in {2, 4, 8} shards: the solve
 (``parallel.mesh.sharded_packing``, the plain
-``assign.packing.packing_assign_sharded_plain``) against kubetpu's
+``assign.packing.packing_assign_tiled_plain`` on one pod row) against kubetpu's
 unsharded ``packing_assign_device`` and its ``sharded_packing`` on the 8
 virtual CPU devices, on ``test_torch_packing.py``'s solve scenarios, with
 and without a 32-slice topology: assignments, the seven state slots, λ
@@ -138,7 +138,7 @@ def _plain_equal_kernel_path(kb, kp, g):
     sb = M.shard_batch(port_batch_from_jax(kb), cpu_mesh(g))
     pieces = [torch.zeros(s.alloc.shape[0], dtype=torch.float32) for s in sb.shards]
     w = to_port(KP.PackingWeights()).tensor("cpu")
-    return PP.packing_assign_sharded_plain(sb, port_params(kp), pieces, w)
+    return PP.packing_assign_tiled_plain(sb, port_params(kp), pieces, w)
 
 
 def _cluster(n_nodes, bound, n_pending, cpu=1000):
@@ -224,8 +224,16 @@ def test_solver_state_holds_one_piece_a_shard():
     assert st.nbytes == 0
     assert len(st.duals(16).pieces) == 2
     assert (st.resets, st.carries) == (2, 1)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        st.bind_mesh(M.make_mesh_2d(["cpu"] * 4, pods=2))
+    # a pods x nodes grid: a piece a tile, each column's repeated down the
+    # pod rows
+    grid = M.make_mesh_2d(["cpu"] * 8, pods=2)
+    st.bind_mesh(grid)
+    lam = st.duals(16)
+    assert len(lam.pieces) == 8 and lam.rows == 2
+    assert [p.shape[0] for p in lam.pieces] == [4] * 8
+    assert lam.gather().shape == (16,) and len(lam.row(1).pieces) == 4
+    st.store(16, lam)
+    assert st.nbytes == 128
     with pytest.raises(TypeError, match="resolved mesh"):
         st.bind_mesh("auto")
 

@@ -364,14 +364,6 @@ def test_multichip_smoke_on_a_cpu_mesh():
     assert t.shard_upload_bytes is not None and sum(t.shard_upload_bytes) > 0
 
 
-@pytest.mark.parametrize("kw", [
-    dict(feature_gates={"GenericWorkload": True, "GangScheduling": True}),
-], ids=["gang"])
-def test_mesh_lanes_not_ported_raise_item_12(kw):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        PScheduler(RecordingClient(), device="cpu", mesh=cpu_mesh(2), **kw)
-
-
 @pytest.mark.parametrize("engine", ["greedy", "batched"])
 def test_run_workload_under_a_cpu_mesh_binds_as_unsharded(engine):
     """The perf runner's ``mesh=``: SchedulingBasic's smallest workload
