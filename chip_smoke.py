@@ -60,8 +60,8 @@ final ``ok`` line is not printed):
    batches; then the gang lane (B11-B13): ``placement_scan`` must equal
    ``placement_assign_plain`` (assignments, counts, alignment) on the
    SchedulingBasic block labeled into 32 TPU slices (1000 pods, 33
-   placements: every slice and ``<all>``; the plain search on 4 slices and
-   ``<all>``, phase 4 holds 9) and on the mixed, affinity and
+   placements: every slice and ``<all>``; the plain search on 2 slices and
+   ``<all>``, phase 4 holds 3) and on the mixed, affinity and
    spread clusters cut into 8 slices (9 placements, the plain search on 3
    and ``<all>``; there the batched engine's placement search too:
    ``hypothesis_rows``, ``filter_score`` + ``batched_round`` once a
@@ -120,7 +120,14 @@ final ``ok`` line is not printed):
    assignments, every pod row's node slots, every tile's duals' bits,
    iterations and nodes used exact against the tiled plain solve and the
    unsharded kernel; the objective within rtol 1e-5; timed beside K5 and
-   the unsharded kernel);
+   the unsharded kernel); and ``filter_score`` on its pod classes
+   (``class_checks``; every batch above already runs on its classes):
+   exact against its plain version on the BinPacking block (four
+   classes), on SchedulingBasic, SchedulingPodAffinity and
+   PreferredTopologySpreading rebuilt with pods that differ pairwise in
+   one leaf each (with the greedy engine on the first and the batched
+   rounds on the first two), on an all-singleton batch and on the webhook
+   batch, and through the sharded entry on the node mesh and the grid;
 4. main paths, each with the launch counts reset just before it and read
    just after and a full garbage collection just before (the line counts
    the full collections that fell inside the run, and the seconds the
@@ -677,16 +684,33 @@ def f64_ops_per_pair(params, b) -> int:
     return ops
 
 
+def scored_pods(b) -> int:
+    """The pods whose pairs ``filter_score`` scores: one a pod class
+    (``runtime.pod_classes``), every pod of a batch without classes. The
+    bounds count the float64 work of these pairs: what the run's data
+    needs."""
+    from kubetpu_torch.framework import runtime as rt
+
+    classes = rt.pod_classes(b)
+    return int(b.requests.shape[0]) if classes is None else classes.count
+
+
 def spread_f64_ops(params, b) -> int:
-    """float64 operations of one spread score of every (pod, node) pair:
-    per ScheduleAnyway slot a conversion, a multiply and two adds (the
-    maxSkew - 1 term and the running sum), then the rounding of the sum."""
+    """float64 operations of one spread score of every scored (pod, node)
+    pair (``scored_pods``): per ScheduleAnyway slot a conversion, a
+    multiply and two adds (the maxSkew - 1 term and the running sum), then
+    the rounding of the sum."""
+    from kubetpu_torch.framework import runtime as rt
+
     sp = b.spread
     if sp is None or not (params.w_spread and sp.has_soft):
         return 0
-    n_soft = int(((sp.sig_idx >= 0) & (sp.action == 1)).sum().item())
-    n_pods = int(sp.sig_idx.shape[0])
-    return b.alloc.shape[0] * (4 * n_soft + n_pods)
+    sig, action = sp.sig_idx, sp.action
+    classes = rt.pod_classes(b)
+    if classes is not None and classes.shared:
+        sig, action = sig[classes.reps.long()], action[classes.reps.long()]
+    n_soft = int(((sig >= 0) & (action == 1)).sum().item())
+    return b.alloc.shape[0] * (4 * n_soft + int(sig.shape[0]))
 
 
 def _max_abs(a, b) -> int:
@@ -906,7 +930,8 @@ def _spread_timing(case, b, params, kernel) -> dict:
             with bitmaps_in_global():
                 out["bitmaps_in_global_ms"] = cuda_ms(
                     lambda: kernels.filter_score(b, params), 20)
-        work = (in_bytes + P * N * (1 + 8), P * N * per_pair + spread_f64_ops(params, b))
+        work = (in_bytes + P * N * (1 + 8),
+                scored_pods(b) * N * per_pair + spread_f64_ops(params, b))
     elif kernel == "greedy_scan":
         out["ms"] = cuda_ms(lambda: kernels.greedy_scan(b, params), 5)
         out["plain_ms"] = cuda_ms(lambda: greedy_assign_plain(b, params), 1)
@@ -922,7 +947,7 @@ def _spread_timing(case, b, params, kernel) -> dict:
             if j >= 0:
                 seen.add(j)
         work = (in_bytes + P * 4 + state,
-                (P * N + rescored) * per_pair + spread_f64_ops(params, b))
+                (scored_pods(b) * N + rescored) * per_pair + spread_f64_ops(params, b))
     else:
         rounds: list = []
         kernels.batched_assign(b, params, rounds_out=rounds)
@@ -930,7 +955,7 @@ def _spread_timing(case, b, params, kernel) -> dict:
         out["plain_ms"] = cuda_ms(lambda: batched_assign_plain(b, params), 3)
         out["rounds"] = rounds[0]
         work = (in_bytes + P * 4 + state,
-                rounds[0] * (P * N * per_pair + spread_f64_ops(params, b)))
+                rounds[0] * (scored_pods(b) * N * per_pair + spread_f64_ops(params, b)))
     out["bound_ms"], out["bound_by"] = _bound(*work)
     return out
 
@@ -1235,7 +1260,7 @@ def preemption_checks(results) -> dict:
         "plain_ms": cuda_ms(lambda: rt.feasible_and_scores(b, params), 5),
         "without_nominations_ms": cuda_ms(lambda: kernels.filter_score(bare, params), 20),
         "bytes": rt.batch_nbytes(b) + P * N * (1 + 8),
-        "ops": P * N * f64_ops_per_pair(params, b),
+        "ops": scored_pods(b) * N * f64_ops_per_pair(params, b),
     }
     out["nominated"]["bound_ms"], out["nominated"]["bound_by"] = _bound(
         out["nominated"]["bytes"], out["nominated"]["ops"])
@@ -1402,7 +1427,7 @@ def explain_checks(results, batches) -> dict:
         "ms": cuda_ms(lambda: kernels.explain_summary(b, params, idx), 20),
         "plain_ms": cuda_ms(lambda: explain_summary_plain(b, params, idx), 5),
         "bytes": rt.batch_nbytes(b) + P * 4 + P * (4 + 5 * 4 + 3 * (8 + 4) + 8),
-        "ops": P * N * f64_ops_per_pair(params, b), "shape": [P, N],
+        "ops": scored_pods(b) * N * f64_ops_per_pair(params, b), "shape": [P, N],
         "filter_score_ms": cuda_ms(lambda: kernels.filter_score(b, params), 20),
     }
     masks = {
@@ -1558,11 +1583,12 @@ def preemption_check(sched) -> dict:
 # --------------------------------- 3d. the gang lane (B11, B12, B13)
 SLICES = 32
 # the placements a phase-4 path's first placement search is held to the
-# plain search on (the first 5; phase 3 holds 4 slices and <all>), and the
+# plain search on (the first 3; phase 3 holds 2 slices and <all>), and the
 # gang dry run's hypotheses phase 3 holds to the plain dry run (the first 4
 # of 32): each placement and each hypothesis is searched on its own, and
-# the whole plain searches took ~100 s a path and 28 s
-PLAIN_PLACEMENTS = 5
+# the whole plain searches took ~100 s a path and 28 s (PR 14 cut the
+# placements from 5, ~3 s each, to keep the run's time)
+PLAIN_PLACEMENTS = 3
 GANG_PLAIN = 4
 
 
@@ -1669,8 +1695,8 @@ def _hyp_bound(b, params, masks, assignments, freed=None) -> dict:
     """B11 / B13's bound, worked out as B4's: bytes = the batch read once,
     the masks (and freed rows) read once, each hypothesis's running state
     and assignments written once; f64 operations = the start pass over
-    every (pod, node) pair plus each hypothesis's recomputed touched pairs,
-    at ``f64_ops_per_pair``."""
+    every scored (pod, node) pair (``scored_pods``) plus each hypothesis's
+    recomputed touched pairs, at ``f64_ops_per_pair``."""
     from kubetpu_torch.framework import runtime as rt
 
     H, N = masks.shape
@@ -1684,7 +1710,7 @@ def _hyp_bound(b, params, masks, assignments, freed=None) -> dict:
         touched = ((freed[0] != 0).any(-1) | (freed[1] != 0)) & masks
         starts = [touched[h].nonzero().flatten().tolist() for h in range(H)]
     rescored = sum(_rescored(assignments[h], starts[h]) for h in range(H))
-    ops = (P * N + rescored) * f64_ops_per_pair(params, b)
+    ops = (scored_pods(b) * N + rescored) * f64_ops_per_pair(params, b)
     bound_ms, bound_by = _bound(nbytes, ops)
     return {"bytes": nbytes, "ops": ops, "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -1756,10 +1782,10 @@ def gang_checks(results) -> dict:
     b, params = encode_topology(sliced(cache, SLICES), pending, C.Profile())
     masks, _ = slice_masks(b)
     got = got_basic = kernels.placement_scan(b.device, params, masks)
-    # the plain search of 4 slices and <all> (each placement's search is
+    # the plain search of 2 slices and <all> (each placement's search is
     # independent of the others); phase 4's GangScheduling paths hold their
     # first search's first PLAIN_PLACEMENTS placements to the plain one
-    sel = torch.tensor(list(range(4)) + [masks.shape[0] - 1], device=masks.device)
+    sel = torch.tensor(list(range(2)) + [masks.shape[0] - 1], device=masks.device)
     want, plain_ms = timed(lambda: placement_assign_plain(b.device, params, masks[sel]))
     note("SchedulingBasic placement",
          _equal_or_raise("placement_scan Basic", tuple(x[sel] for x in got), want))
@@ -2092,7 +2118,7 @@ def packing_checks(results) -> dict:
         # the batch read once, the assignments, state and duals written once
         "bytes": rt.batch_nbytes(bp) + 2 * 4 * N + P * 4 + state_bytes,
         # each round's filter_score float64 work over every pair
-        "ops": iters_bp * P * N * f64_ops_per_pair(pp, bp),
+        "ops": iters_bp * scored_pods(bp) * N * f64_ops_per_pair(pp, bp),
         "shape": [P, N], "iterations": iters_bp,
         "basic_ms": cuda_ms(lambda: kernels.packing_assign(bb, pb, cold(bb), weights), 5),
         "basic_plain_ms": cuda_ms(lambda: PK.packing_assign_plain(bb, pb, cold(bb), weights),
@@ -2373,7 +2399,7 @@ def dra_checks(results, basic) -> dict:
         state_bytes = sum(int(x.nbytes) for x in (
             with_leaf.requested, with_leaf.nonzero_requested, with_leaf.pod_count,
             with_leaf.node_ports))
-        ops = P * N * f64_ops_per_pair(prm, with_leaf)
+        ops = scored_pods(with_leaf) * N * f64_ops_per_pair(prm, with_leaf)
         fs_bound = _bound(rt.batch_nbytes(with_leaf) + P * N * (1 + 8), ops)
         gs_bound = _bound(rt.batch_nbytes(with_leaf) + P * 4 + state_bytes,
                           ops + _rescored(ka.cpu().tolist()) * f64_ops_per_pair(prm, with_leaf))
@@ -2470,7 +2496,7 @@ def kernels_phase():
             "ms": cuda_ms(lambda: kernels.filter_score(b, params), 20),
             "plain_ms": cuda_ms(lambda: rt.feasible_and_scores(b, params), 5),
             "bytes": in_bytes + P * N * (1 + 8),
-            "ops": P * N * f64_ops_per_pair(params, b),
+            "ops": scored_pods(b) * N * f64_ops_per_pair(params, b),
             "shape": [P, N],
             "podaffinity_ms": cuda_ms(lambda: kernels.filter_score(bp, pp), 20),
             "podaffinity_plain_ms": cuda_ms(lambda: rt.feasible_and_scores(bp, pp), 5),
@@ -2479,16 +2505,15 @@ def kernels_phase():
             "ms": cuda_ms(lambda: kernels.greedy_scan(b, params), 10),
             "plain_ms": cuda_ms(lambda: greedy_assign_plain(b, params), 1),
             "bytes": in_bytes + P * 4 + state_bytes,
-            "ops": (P * N + rescored) * f64_ops_per_pair(params, b),
+            "ops": (scored_pods(b) * N + rescored) * f64_ops_per_pair(params, b),
             "shape": [P, N],
             "podaffinity_ms": cuda_ms(lambda: kernels.greedy_scan(bp, pp), 5),
-            "podaffinity_plain_ms": cuda_ms(lambda: greedy_assign_plain(bp, pp), 1),
         },
         "batched_round": {
             "ms": cuda_ms(lambda: kernels.batched_assign(bp, pp), 10),
             "plain_ms": cuda_ms(lambda: batched_assign_plain(bp, pp), 3),
             "bytes": rt.batch_nbytes(bp) + Pp * 4 + p_state + pa_bytes,
-            "ops": rounds[0] * Pp * Np * f64_ops_per_pair(pp, bp),
+            "ops": rounds[0] * scored_pods(bp) * Np * f64_ops_per_pair(pp, bp),
             "shape": [Pp, Np],
             "rounds": rounds[0],
         },
@@ -2594,9 +2619,10 @@ def kernels_phase():
             f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, bound {bound_ms:.6f} ms "
             f"({bound_by}){lib}")
     for name in ("filter_score", "greedy_scan"):
+        plain = timing[name].get("podaffinity_plain_ms")
         log(f"timing [{name}] on the SchedulingPodAffinity batch: kernel "
-            f"{timing[name]['podaffinity_ms']:.4f} ms, plain "
-            f"{timing[name]['podaffinity_plain_ms']:.4f} ms")
+            f"{timing[name]['podaffinity_ms']:.4f} ms"
+            + ("" if plain is None else f", plain {plain:.4f} ms"))
     nm = timing["filter_score"]["nominated"]
     log(f"timing [filter_score] on the {nm['batch']} batch: kernel {nm['ms']:.4f} ms "
         f"(without its nominations {nm['without_nominations_ms']:.4f} ms), plain "
@@ -2657,6 +2683,9 @@ def kernels_phase():
     mesh_timing.update(grid_checks(grid4, results, grid_batches(
         (b, params), (bp, pp), spread["TopologySpreading"])))
     stamp("phase 3: packing-mesh and grid checks")
+    out[0]["classes"] = class_checks(
+        results, (b, params), (bp, pp), spread["PreferredTopologySpreading"], mesh4, grid4)
+    stamp("phase 3: pod class checks")
     # the packing engine on the 2 x 2 grid (K8), on K5's cut batches
     mesh_timing.update(packing_grid_checks(grid4, mesh4, results, [
         c[:3] for c in pm_cases if c[0].startswith("BinPacking 256x5120")]))
@@ -2664,6 +2693,171 @@ def kernels_phase():
     out += mesh_kernel_lines(results, mesh_timing)
     torch.cuda.synchronize()
     return out
+
+
+# ------------------------------------------ 3p. the pod classes of B3
+# (leaf path, pod): pod ``pod`` of a pairwise batch differs from pod 0 in
+# this leaf alone (the leaves a batch lacks are skipped)
+PAIRWISE = (("requests", 1), ("nonzero_requests", 3), ("pod_valid", 5), ("pod_ports", 7),
+            ("static_sig", 9), ("score_sig", 11), ("image_sig", 13), ("image_count", 15),
+            ("dra_score_sig", 17), ("nominated_gate", 19), ("podaffinity.update", 21),
+            ("podaffinity.fa_self", 23), ("podaffinity.score_vals", 25),
+            ("spread.max_skew", 27), ("spread.min_domains", 29), ("spread.self_match", 31),
+            ("spread.pod_match_sig", 33), ("spread.ignored", 35))
+
+
+def batch_numpy(b) -> dict:
+    """The numpy leaves of a device batch (``device_batch_from_numpy``'s
+    names; the spread leaf without template ids, so its ignored rows are
+    keyed whole)."""
+    from types import SimpleNamespace
+
+    from kubetpu_torch.framework import runtime as rt
+
+    out = {}
+    for name, v in rt.batch_leaves(b).items():
+        if name in rt.NESTED and v is not None:
+            _, fields, flags = rt.NESTED[name]
+            out[name] = SimpleNamespace(
+                **{f: getattr(v, f).cpu().numpy().copy() for f in fields},
+                **{f: getattr(v, f) for f in flags})
+        else:
+            out[name] = None if v is None else v.cpu().numpy().copy()
+    return out
+
+
+def pairwise(b):
+    """``b`` rebuilt with pod ``i`` of each ``PAIRWISE`` entry changed in
+    that leaf alone (a signature moved to another row of its table, a flag
+    flipped, a count raised by one), so those pods differ pairwise in one
+    leaf each. Returns ``(batch, leaves changed)``."""
+    from kubetpu_torch.framework import runtime as rt
+
+    leaves = batch_numpy(b)
+    tables = {"static_sig": "static_mask", "score_sig": "node_affinity_raw",
+              "image_sig": "image_sum_scores", "dra_score_sig": "dra_score_raw"}
+    changed = []
+    for path, i in PAIRWISE:
+        parent, _, field = path.rpartition(".")
+        obj = leaves.get(parent) if parent else leaves
+        a = None if obj is None else (obj.get(field) if isinstance(obj, dict)
+                                      else getattr(obj, field))
+        if a is None or i >= a.shape[0]:
+            continue
+        if field in tables:
+            table = leaves.get(tables[field])
+            if table is None:
+                table = leaves.get("taint_prefer_raw")
+            if table is None or table.shape[0] < 2:
+                continue
+            a[i] = (a[i] + 1) % table.shape[0]
+        else:
+            cell = (i,) + (0,) * (a.ndim - 1)
+            a[cell] = (not a[cell]) if a.dtype == bool else a[cell] + 1
+        changed.append(path)
+    return rt.device_batch_from_numpy(leaves, b.device), changed
+
+
+def singletons(b):
+    """``b`` rebuilt with every real pod's first request distinct: every
+    pod a class of its own."""
+    from kubetpu_torch.framework import runtime as rt
+
+    import numpy as np
+
+    leaves = batch_numpy(b)
+    n = int(leaves["pod_valid"].sum())
+    for name in ("requests", "nonzero_requests"):
+        leaves[name][:n, 0] += np.arange(n, dtype=leaves[name].dtype)
+    return rt.device_batch_from_numpy(leaves, b.device)
+
+
+def class_checks(results, basic, podaffinity, preferred, mesh, grid) -> dict:
+    """B3 on its pod classes, exact against the plain version: the
+    BinPacking block (its four pod sizes), SchedulingBasic,
+    SchedulingPodAffinity and PreferredTopologySpreading rebuilt with pods
+    that differ pairwise in one leaf each (``pairwise``), an all-singleton
+    batch and the webhook batch (every pod its own class: today's launch);
+    the greedy engine (B3 without the total, then B4) on the Basic pairwise
+    batch and the batched rounds on it and on PodAffinity's; then the
+    sharded entry (``kt_filter_score_shard``, K2's
+    and K6's first half) on the node mesh and on the grid against the
+    unsharded kernel. Returns each batch's class count."""
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.assign.batched import batched_assign_plain
+    from kubetpu_torch.assign.greedy import greedy_assign_plain
+    from kubetpu_torch.framework import config as C
+    from kubetpu_torch.framework import runtime as rt
+    from kubetpu_torch.parallel import mesh as M
+
+    def fs_equal(name, b, params):
+        km, kt = kernels.filter_score(b, params)
+        pm, pt = rt.feasible_and_scores(b, params)
+        torch.cuda.synchronize()
+        err = max(_max_abs(km, pm), _max_abs(kt, pt))
+        if not (torch.equal(km, pm) and torch.equal(kt, pt)):
+            raise AssertionError(f"{name}: filter_score differs from the plain version "
+                                 f"(max abs err {err})")
+        results["filter_score"]["cases"].append(name)
+        results["filter_score"]["max_abs_err"] = max(results["filter_score"]["max_abs_err"],
+                                                     err)
+        return km, kt
+
+    classes = {}
+    bb, bpar = encode(*binpack_case(), C.Profile())
+    basic2, changed_b = pairwise(basic[0])
+    aff2, changed_a = pairwise(podaffinity[0])
+    pref2, changed_p = pairwise(preferred[0])
+    for name, b, params, engines in (
+            ("BinPacking 1024x5120", bb, bpar, ""),
+            (f"SchedulingBasic pairwise ({len(changed_b)} leaves)", basic2, basic[1], "both"),
+            (f"SchedulingPodAffinity pairwise ({len(changed_a)} leaves)", aff2, podaffinity[1],
+             "batched"),
+            (f"PreferredTopologySpreading pairwise ({len(changed_p)} leaves)", pref2,
+             preferred[1], ""),
+            ("SchedulingBasic all singletons", singletons(basic[0]), basic[1], ""),
+            ("SchedulingBasic + webhook", with_extender(basic[0]), basic[1], "")):
+        cl = rt.pod_classes(b)
+        classes[name] = int(b.requests.shape[0]) if cl is None else cl.count
+        km, _ = fs_equal(f"{name}, {classes[name]} classes", b, params)
+        if engines in ("greedy", "both"):
+            ka, ks = kernels.greedy_scan(b, params)
+            pa, ps = greedy_assign_plain(b, params)
+            torch.cuda.synchronize()
+            err = _engine_err(f"{name} greedy_scan", ka, ks, pa, ps)
+            results["greedy_scan"]["cases"].append(f"{name} (classes)")
+            results["greedy_scan"]["max_abs_err"] = max(results["greedy_scan"]["max_abs_err"],
+                                                        err)
+        if engines in ("batched", "both"):
+            k_rounds, p_rounds = [], []
+            va, vs = kernels.batched_assign(b, params, rounds_out=k_rounds)
+            wa, ws = batched_assign_plain(b, params, rounds_out=p_rounds)
+            torch.cuda.synchronize()
+            err = _engine_err(f"{name} batched_round", va, vs, wa, ws)
+            if k_rounds != p_rounds:
+                raise AssertionError(f"{name}: batched rounds {k_rounds} != plain {p_rounds}")
+            results["batched_round"]["cases"].append(f"{name} (classes)")
+        log(f"kernels vs plain [{name}]: {classes[name]} pod classes of "
+            f"{b.requests.shape[0]} pods; filter_score exact"
+            + (f", {engines} engine(s) exact" if engines else ""))
+    # the sharded entry on the classes, over the node mesh and the grid
+    for name, b, params in (("BinPacking 1024x5120", bb, bpar),
+                            ("SchedulingBasic pairwise", basic2, basic[1]),
+                            ("PreferredTopologySpreading pairwise", pref2, preferred[1])):
+        km, kt = kernels.filter_score(b, params)
+        for label, layout in (("node mesh", mesh), ("grid", grid)):
+            sb = M.shard_batch(b, layout)
+            mask, total = rt.filter_score_batch(sb, params)
+            if not (torch.equal(mask.gather().to(km.device), km)
+                    and torch.equal(total.gather().to(kt.device), kt)):
+                raise AssertionError(f"{name}: the sharded filter_score on the {label} "
+                                     f"differs from the kernel")
+            results["filter_score"]["cases"].append(f"{name} sharded on the {label}")
+        log(f"kernels vs plain [{name}]: the sharded filter_score on the node mesh and the "
+            f"grid equal to the unsharded kernel")
+    return classes
 
 
 # ----------------------------------------- 3m. the node mesh (K1-K4, B5m)
@@ -2807,13 +3001,16 @@ def mesh_checks(mesh, results, batches, basic, round_batches) -> dict:
     timing["shard_argmax"] = {
         "ms": one, "plain_ms": wall_ms(lambda: M.shard_argmax_plain(pieces), 5),
         "library_ms": cuda_ms(lambda: torch.argmax(whole), 20),
+        "library_host_ms": wall_ms(lambda: int(torch.argmax(whole)), 21),
         "bytes": n * 8, "ops": 0, "shape": [n, G],
         "exchange_us": 1e3 * (many - one) / 1000,
         "collective_wall_s": M.measure_collective_wall(mesh),
     }
-    log(f"mesh [{G} shards on {len(mesh.cards())} card(s)] shard_argmax exact; one exchange "
-        f"round trip {timing['shard_argmax']['exchange_us']:.3f} us; measure_collective_wall "
-        f"{timing['shard_argmax']['collective_wall_s'] * 1e3:.4f} ms")
+    k4 = timing["shard_argmax"]
+    log(f"mesh [{G} shards on {len(mesh.cards())} card(s)] shard_argmax exact; host wall "
+        f"{one:.4f} ms a call (torch.argmax with its read {k4['library_host_ms']:.4f} ms); one "
+        f"exchange round trip {k4['exchange_us']:.3f} us; measure_collective_wall "
+        f"{k4['collective_wall_s'] * 1e3:.4f} ms")
     # K1 on every batch
     for name, b, params, with_plain in batches:
         sb = M.shard_batch(b, mesh)
@@ -2857,7 +3054,7 @@ def mesh_checks(mesh, results, batches, basic, round_batches) -> dict:
         "unsharded_ms": cuda_ms(lambda: kernels.greedy_scan(b, params), 5),
         "plain_ms": plain_ms,
         "bytes": rt.batch_nbytes(b) + P * 4 + state_bytes,
-        "ops": P * N * f64_ops_per_pair(params, b), "shape": [P, N, G],
+        "ops": scored_pods(b) * N * f64_ops_per_pair(params, b), "shape": [P, N, G],
         "exchanges_per_step": 1,
     }
     # K2: the sharded filter_score and batched rounds
@@ -2898,7 +3095,7 @@ def mesh_checks(mesh, results, batches, basic, round_batches) -> dict:
                 "unsharded_ms": cuda_ms(lambda: kernels.batched_assign(b, params), 5),
                 "plain_ms": 1e3 * (time.perf_counter() - t0),
                 "bytes": rt.batch_nbytes(b) + Pp * 4 + p_state, "ops":
-                k_rounds[0] * Pp * Np * f64_ops_per_pair(params, b),
+                k_rounds[0] * scored_pods(b) * Np * f64_ops_per_pair(params, b),
                 "shape": [Pp, Np, G], "rounds": k_rounds[0], "batch": name,
             }
     # K3
@@ -3108,7 +3305,8 @@ def packing_mesh_checks(mesh, results, cases) -> dict:
             # the batch read once, assignments, state and duals written
             # once; each round's filter_score float64 work
             "bytes": rt.batch_nbytes(b) + 2 * 4 * N + P * 4 + state_bytes,
-            "ops": got[4] * P * N * f64_ops_per_pair(params, b), "shape": [P, N, G],
+            "ops": got[4] * scored_pods(b) * N * f64_ops_per_pair(params, b),
+            "shape": [P, N, G],
         }
         if name == "BinPacking 1024x5120":
             timing.update(entry)
@@ -3202,7 +3400,8 @@ def packing_grid_checks(grid, mesh, results, cases, full=None) -> dict:
             # the batch read once, assignments, state and duals written
             # once; each round's filter_score float64 work
             "bytes": rt.batch_nbytes(b) + 2 * 4 * N + P * 4 + state_bytes,
-            "ops": got[4] * P * N * f64_ops_per_pair(params, b), "shape": [P, N] + shape,
+            "ops": got[4] * scored_pods(b) * N * f64_ops_per_pair(params, b),
+            "shape": [P, N] + shape,
         }
 
     timing = timed(*cases[0])
@@ -3305,7 +3504,7 @@ def grid_checks(grid, results, batches) -> dict:
                 "plain_ms": 1e3 * (time.perf_counter() - t0),
                 "bytes": rt.batch_nbytes(b) + P * 4 + state_bytes
                 + int(b.podaffinity.base_sums.nbytes),
-                "ops": k_rounds[0] * P * N * f64_ops_per_pair(params, b),
+                "ops": k_rounds[0] * scored_pods(b) * N * f64_ops_per_pair(params, b),
                 "shape": [P, N] + shape, "rounds": k_rounds[0], "batch": name,
             }
         if name.startswith("SchedulingBasic") and cut is not None:
@@ -3316,7 +3515,7 @@ def grid_checks(grid, results, batches) -> dict:
                 "unsharded_ms": cuda_ms(lambda: kernels.greedy_scan(b, params), 3),
                 "plain_ms": plain_full_ms,
                 "bytes": rt.batch_nbytes(b) + P * 4 + state_bytes,
-                "ops": P * N * f64_ops_per_pair(params, b),
+                "ops": scored_pods(b) * N * f64_ops_per_pair(params, b),
                 "shape": [P, N] + shape, "batch": name,
                 "cut": {"pods": Pc,
                         "ms": cuda_ms(lambda: kernels.tiled_greedy_scan(tc, pc), 5),
@@ -3362,7 +3561,8 @@ def mesh_kernel_lines(results, timing) -> list:
             "cases": results[name]["cases"], "shape": tm["shape"],
         }
         for k in ("unsharded_ms", "sharded_ms", "exchange_us", "collective_wall_s",
-                  "exchanges_per_step", "rounds", "batch", "cut", "full", "iterations"):
+                  "exchanges_per_step", "rounds", "batch", "cut", "full", "iterations",
+                  "library_host_ms"):
             if k in tm:
                 line[k] = tm[k]
         out.append(line)
@@ -4883,6 +5083,10 @@ def time_checkout(mode: str, root: str) -> int:
         time_mesh(line)
         log(json.dumps({"time_mesh": line}))
         return 0
+    if mode == "b3":
+        time_b3(line)
+        log(json.dumps({"time_b3": line}))
+        return 0
     if mode == "basic":
         batches = {"": encode(*basic_case(), C.Profile())}
     else:
@@ -4946,6 +5150,132 @@ def time_mesh(line: dict) -> None:
         line[prefix + "unsharded_ms"] = cuda_ms(lambda: kernels.packing_assign(b, params, cold,
                                                                                w), reps)
         line[prefix + "iterations"] = got[4]
+
+
+def kernel_device_ms(fn, kernels: tuple, reps: int):
+    """Device ms a call of ``fn`` spends in the kernels whose name, in
+    lower case, holds one of ``kernels``, from ``torch.profiler`` over
+    ``reps`` calls (after a warm-up); None when the trace holds no such
+    kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError as err:
+        # no device trace on this machine: the time is then not measured
+        log(f"kernel_device_ms: torch.profiler failed ({err})")
+        return None
+    total_us, count = 0.0, 0
+    for ev in prof.key_averages():
+        # the kernels themselves, not the host ops that launched them
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and any(k in ev.key.lower() for k in kernels)):
+            total_us += ev.self_device_time_total
+            count += ev.count
+    return None if count == 0 else total_us / reps / 1e3
+
+
+# the names of B3's kernels (either tree's), for the device time a launch
+B3_KERNELS = ("filter_score_pairs", "filter_score_normalize", "broadcast_rows", "prelaunch")
+
+
+def time_b3(line: dict) -> None:
+    """``--time-b3``'s entries of ``line``, for the imported checkout: B3
+    (``kernels.filter_score``, CUDA-event medians) on the SchedulingBasic,
+    SchedulingPodAffinity, TopologySpreading, PreferredTopologySpreading
+    and BinPacking batches (1024 x 5120), the webhook batch (Basic with
+    extender leaves: every pod its own class) and the prioritized-list
+    batch (1024 x 512), and in potential mode on a one-pod view; the Basic
+    greedy engine (B3 without the total, then B4) and the packing solve on
+    the BinPacking block (B3 in every round); K4 at 2^14 int64 over four
+    logical shards: its host wall a call and its kernel's device time
+    (``torch.profiler``) beside ``torch.argmax`` over the gathered vector
+    (its host wall with the read, and its CUDA-event time as PERF.md's
+    library column has it); and the host cost of the class key a batch
+    (``runtime.pod_classes_of``, where the checkout has it). Each B3 batch
+    is also timed as the rounds launch it (arguments packed once,
+    ``_launch_filter_score``: ``*_launch_ms``) and by its kernels' device
+    time (``*_device_ms``), and held to the plain version first."""
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.assign.greedy import _pod_view
+    from kubetpu_torch.assign.packing import PackingWeights
+    from kubetpu_torch.framework import config as C
+    from kubetpu_torch.framework import runtime as rt
+    from kubetpu_torch.perf import workloads as W
+
+    key_us: dict = {}
+    if hasattr(rt, "pod_classes_of"):
+        plain_key = rt.pod_classes_of
+
+        def timed_key(leaves):
+            t0 = time.perf_counter()
+            out = plain_key(leaves)
+            key_us.setdefault("last", []).append(1e6 * (time.perf_counter() - t0))
+            return out
+
+        rt.pod_classes_of = timed_key
+    batches = {}
+    for name, case in (
+            ("basic", basic_case), ("podaffinity", podaffinity_case),
+            ("topologyspreading", lambda: topology_case(W.pod_with_topology_spreading)),
+            ("preferred", lambda: topology_case(W.pod_with_preferred_topology_spreading)),
+            ("binpacking", binpack_case),
+            ("prioritized", lambda: dra_cache(dra_objects(n_nodes=512, n_prio=768,
+                                                          n_dense=256)))):
+        key_us.pop("last", None)
+        batches[name] = encode(*case(), C.Profile())
+        if "last" in key_us:
+            line[f"{name}_class_key_us"] = key_us["last"][-1]
+    b, params = batches["basic"]
+    batches["webhook"] = (with_extender(b), params)
+    for name, (bb, pp) in batches.items():
+        cl = getattr(rt, "pod_classes", lambda _: None)(bb)
+        line[f"{name}_classes"] = int(bb.requests.shape[0]) if cl is None else cl.count
+        km, kt = kernels.filter_score(bb, pp)
+        pm, pt = rt.feasible_and_scores(bb, pp)
+        if not (torch.equal(km, pm) and torch.equal(kt, pt)):
+            raise AssertionError(f"--time-b3 {name}: filter_score differs from plain")
+        line[f"{name}_filter_score_ms"] = cuda_ms(lambda: kernels.filter_score(bb, pp), 20)
+        # as the rounds launch it: its arguments packed once
+        a, keep = kernels._score_args(bb, pp, "time_b3", bits_blocks=bb.requests.shape[0])
+        extra = {"classes": cl} if cl is not None else {}
+        launch = (lambda: kernels._launch_filter_score(a, bb.device, True, True,
+                                                       kernels._smem(bb), **extra))
+        line[f"{name}_launch_ms"] = cuda_ms(launch, 20)
+        line[f"{name}_device_ms"] = kernel_device_ms(launch, B3_KERNELS, 20)
+    view = _pod_view(b, 0)
+    line["potential_ms"] = cuda_ms(lambda: kernels.potential_mask(
+        view, params, b.requested, b.pod_count, b.node_ports), 20)
+    line["basic_greedy_scan_ms"] = cuda_ms(lambda: kernels.greedy_scan(b, params), 10)
+    bb, pp = batches["binpacking"]
+    w = PackingWeights().tensor("cuda")
+    cold = torch.zeros(bb.alloc.shape[0], dtype=torch.float32, device="cuda")
+    line["binpacking_packing_ms"] = cuda_ms(lambda: kernels.packing_assign(bb, pp, cold, w), 5)
+    line["binpacking_packing_iterations"] = int(kernels.packing_assign(bb, pp, cold, w)[4])
+    # K4 beside torch.argmax
+    mesh = node_mesh(4, True)
+    n = 1 << 14
+    per = n // mesh.size
+    pieces = [torch.arange(g * per, (g + 1) * per, dtype=torch.int64, device=d)
+              for g, d in enumerate(mesh.devices)]
+    whole = torch.cat(pieces)
+    if kernels.shard_argmax(pieces, mesh) != n - 1:
+        raise AssertionError("shard_argmax: wrong pick")
+    line["k4_host_ms"] = wall_ms(lambda: kernels.shard_argmax(pieces, mesh), 101)
+    line["k4_device_ms"] = kernel_device_ms(lambda: kernels.shard_argmax(pieces, mesh),
+                                            ("shard_argmax",), 50)
+    line["argmax_host_ms"] = wall_ms(lambda: int(torch.argmax(whole)), 101)
+    line["argmax_cuda_ms"] = cuda_ms(lambda: torch.argmax(whole), 20)
+    line["argmax_device_ms"] = kernel_device_ms(lambda: torch.argmax(whole), ("argmax",), 50)
+    log(json.dumps({"time_b3_partial": line}))
 
 
 def _touched_slots(assignments, threads=1024) -> tuple[int, int]:
@@ -5043,7 +5373,8 @@ def time_dra() -> int:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] in ("--time-basic", "--time-spread", "--time-mesh"):
+    if len(sys.argv) == 3 and sys.argv[1] in ("--time-basic", "--time-spread", "--time-mesh",
+                                              "--time-b3"):
         return time_checkout(sys.argv[1][len("--time-"):], sys.argv[2])
     if sys.argv[1:] == ["--time-dra"]:
         return time_dra()

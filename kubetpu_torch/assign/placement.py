@@ -68,7 +68,7 @@ def run_hypotheses(
                     b.nonzero_requested - freed_req[h], min=0),
                 pod_count=torch.clamp(b.pod_count - freed_count[h], min=0),
             )
-        assignments, _ = assign(dataclasses.replace(b, nodes=nodes), params)
+        assignments, _ = assign(rt.with_nodes(b, nodes), params)
         if b.topology is not None:
             align, _, _ = alignment_score(
                 assignments, b.pod_valid, b.topology.slice_id,

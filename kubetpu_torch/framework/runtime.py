@@ -228,6 +228,154 @@ POD_FIELDS = tuple(
 )
 
 
+# Every pod-indexed leaf that the filter_score kernel packs (the (P, ·)
+# fields of ScoreArgs, kernels/csrc/score_common.cuh), by field path: two
+# pods share a class (``PodClasses``) only if all of them are equal. The
+# spread's (P, N) ``ignored`` row is keyed by the spread encoder's
+# template id, from which it is built; the extender's (P, N) answers put
+# every pod in a class of its own.
+POD_CLASS_KEY = (
+    "requests", "nonzero_requests", "pod_valid", "pod_ports", "static_sig", "score_sig",
+    "image_sig", "image_count", "dra_score_sig", "nominated_gate",
+    "extender_mask", "extender_score",
+    "podaffinity.update", "podaffinity.fa_rows", "podaffinity.fa_self",
+    "podaffinity.ra_rows", "podaffinity.ea_rows", "podaffinity.score_rows",
+    "podaffinity.score_vals",
+    "spread.sig_idx", "spread.action", "spread.max_skew", "spread.min_domains",
+    "spread.self_match", "spread.pod_match_sig", "spread.ignored",
+)
+
+
+@dataclass(frozen=True)
+class PodClasses:
+    """A batch's P pods split into C classes whose pods are equal in every
+    ``POD_CLASS_KEY`` leaf, so that the ``filter_score`` kernel scores one
+    pod a class (its first, the class's representative) and copies its
+    rows to the others. Classes are numbered by their first pod; class c's
+    pods, ascending, are ``members[class_start[c]:class_start[c + 1]]``.
+    ``reps`` (C,) and ``rep_of`` (P,) int32, each pod's representative, are
+    the kernel's copies on the batch's device (None when every pod is a
+    class of its own, where the kernel needs neither)."""
+
+    class_of: np.ndarray     # (P,) int32
+    class_start: np.ndarray  # (C + 1,) int32
+    members: np.ndarray      # (P,) int32
+    reps: torch.Tensor | None = None
+    rep_of: torch.Tensor | None = None
+
+    @property
+    def count(self) -> int:
+        return len(self.class_start) - 1
+
+    @property
+    def shared(self) -> bool:
+        """Some class has more than one pod."""
+        return self.count < len(self.class_of)
+
+    def host_reps(self) -> np.ndarray:
+        return self.members[self.class_start[:-1]]
+
+    def host_rep_of(self) -> np.ndarray:
+        return self.host_reps()[self.class_of]
+
+    def rows(self, lo: int, hi: int) -> "PodClasses":
+        """The classes of pods ``[lo, hi)`` alone (a pod row of a grid)."""
+        return _classes_of_rows(self.class_of[lo:hi, None].astype(np.int64))
+
+
+def _classes_of_rows(key: np.ndarray) -> PodClasses:
+    """Classes of the equal rows of ``key`` (P, W) int64, numbered by first
+    pod: a stable sort of the rows (ties keep pod order, so each run's
+    first is its least pod), then a new class wherever a row differs from
+    the one before."""
+    P = key.shape[0]
+    order = np.lexsort(key.T[::-1])
+    ordered = key[order]
+    new = np.ones(P, dtype=bool)
+    np.any(ordered[1:] != ordered[:-1], axis=1, out=new[1:])
+    run = np.cumsum(new) - 1
+    first = order[new]
+    rank = np.empty(len(first), dtype=np.int64)
+    rank[np.argsort(first)] = np.arange(len(first))
+    class_of = np.empty(P, dtype=np.int32)
+    class_of[order] = rank[run]
+    start = np.zeros(len(first) + 1, dtype=np.int32)
+    np.cumsum(np.bincount(class_of, minlength=len(first)), out=start[1:])
+    members = np.argsort(class_of, kind="stable").astype(np.int32)
+    return PodClasses(class_of=class_of, class_start=start, members=members)
+
+
+def _key_leaf(leaves: Mapping, path: str):
+    parent, _, field = path.rpartition(".")
+    if not parent:
+        return leaves.get(field)
+    obj = leaves.get(parent)
+    return None if obj is None else getattr(obj, field, None)
+
+
+def pod_classes_of(leaves: Mapping) -> PodClasses | None:
+    """The pod classes of a batch's numpy leaves (``device_batch_from_numpy``'s
+    names), on the host: the exact rows of every ``POD_CLASS_KEY`` leaf
+    compared as int64 values, the spread's ``ignored`` through its template id
+    (its rows compared whole when the leaf carries none, as kubetpu's
+    does). None with extender leaves: every pod is then a class of its
+    own."""
+    if leaves.get("extender_mask") is not None or leaves.get("extender_score") is not None:
+        return None
+    P = int(np.shape(leaves["requests"])[0])
+    if P == 0:
+        return None
+    cols = []
+    for path in POD_CLASS_KEY:
+        a = _key_leaf(leaves, path)
+        if a is None:
+            continue
+        if path == "spread.ignored":
+            tid = getattr(leaves["spread"], "template_id", None)
+            a = np.packbits(np.asarray(a), axis=1) if tid is None else tid
+        a = np.asarray(a)
+        if a.dtype.kind not in "biu":
+            # int64 holds every bool and integer value apart, not a float
+            raise TypeError(f"pod class key: {path} is {a.dtype}, not an integer leaf")
+        cols.append(a.reshape(P, -1).astype(np.int64))
+    return _classes_of_rows(np.concatenate(cols, axis=1))
+
+
+def pod_classes(b) -> PodClasses | None:
+    """The classes the batch was built with (``device_batch_from_numpy``,
+    ``shard_batch``), None when it carries none: a batch made any other
+    way (a per-pod view, extender answers attached) is scored pod by pod."""
+    return getattr(b, "_pod_classes", None)
+
+
+def attach_pod_classes(b: DeviceBatch, classes: PodClasses | None,
+                       tensors: Mapping[str, torch.Tensor] | None = None) -> DeviceBatch:
+    """Keep ``classes`` with ``b`` (its device copies from ``tensors``, else
+    uploaded now). The classes live on the batch object itself, so a
+    ``dataclasses.replace`` of it, which may change a key leaf, carries
+    none; ``with_nodes`` keeps them across a change of node rows only."""
+    if classes is None or int(b.requests.shape[0]) != len(classes.class_of):
+        return b
+    if classes.shared:
+        if tensors is None:
+            tensors = upload_packed({"classes.reps": classes.host_reps(),
+                                     "classes.rep_of": classes.host_rep_of()}, b.device)
+        classes = dataclasses.replace(classes, reps=tensors["classes.reps"],
+                                      rep_of=tensors["classes.rep_of"])
+    object.__setattr__(b, "_pod_classes", classes)
+    return b
+
+
+def with_nodes(b: DeviceBatch, nodes: DeviceNodeState) -> DeviceBatch:
+    """``b`` over other node rows (a placement hypothesis), its pod classes
+    kept: no key leaf is a node row."""
+    out = dataclasses.replace(b, nodes=nodes)
+    classes = pod_classes(b)
+    if classes is not None:
+        object.__setattr__(out, "_pod_classes", classes)
+    return out
+
+
 def _align(n: int, a: int = 16) -> int:
     return (n + a - 1) // a * a
 
@@ -264,6 +412,7 @@ def device_batch_from_numpy(
     leaves: Mapping[str, "np.ndarray | None"], device,
     resident: "ResidentNodeState | None" = None,
     delta: "Mapping[str, np.ndarray] | None" = None,
+    classes: "PodClasses | None | str" = "auto",
 ) -> DeviceBatch:
     """Build a DeviceBatch from numpy leaves keyed by the reference's field
     names (the node block's six names plus every DeviceBatch leaf), in ONE
@@ -277,8 +426,14 @@ def device_batch_from_numpy(
     The ``podaffinity`` and ``spread`` leaves are any objects with
     ``PodAffinityDevice``'s / ``SpreadDevice``'s attributes (kubetpu's, or
     the port encoders' ``PodAffinityTensors`` / ``SpreadTensors``); their
-    arrays ride in the same buffer."""
+    arrays ride in the same buffer. So do the pod classes (``classes``,
+    ``pod_classes_of(leaves)`` when "auto"), which the batch keeps."""
+    if isinstance(classes, str):
+        classes = pod_classes_of(leaves)
     arrays = dict(delta or {})
+    if classes is not None and classes.shared:
+        arrays["classes.reps"] = classes.host_reps()
+        arrays["classes.rep_of"] = classes.host_rep_of()
     for name in (NODE_FIELDS if resident is None else ()) + POD_FIELDS:
         a = leaves.get(name)
         if a is None or name in NESTED:
@@ -305,7 +460,7 @@ def device_batch_from_numpy(
                 **{f: (int if f in _COUNT_FIELDS else bool)(getattr(obj, f))
                    for f in flags},
             )
-    return DeviceBatch(nodes=nodes, **pods)
+    return attach_pod_classes(DeviceBatch(nodes=nodes, **pods), classes, tensors)
 
 
 def _node_block_nbytes(nodes: DeviceNodeState) -> int:
@@ -1343,6 +1498,7 @@ def finalize_batch(
         pg, ng = mesh.pod_shards, mesh.node_shards
         per = NC // ng
         prow = leaves["requests"].shape[0] // pg if pg > 1 else None
+        classes = pod_classes_of(leaves)
         shards = []
         for t, card in enumerate(mesh.devices):
             i, j = divmod(t, ng)
@@ -1353,6 +1509,8 @@ def finalize_batch(
                     split_leaves(leaves, slice(j * per, (j + 1) * per), rows_p), card,
                     resident=None if resident is None else resident.block(t),
                     delta=None if delta is None else delta[t],
+                    classes=classes if classes is None or rows_p is None
+                    else classes.rows(rows_p.start, rows_p.stop),
                 ))
         shards = tuple(shards)
         nominated = (shards[0].nominated_node if nom_node is None

@@ -53,6 +53,7 @@ the plain version only for tensors that live on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -104,8 +105,8 @@ launch_counts = {
 
 # ctypes argument types of each library's entry point
 _ARGTYPES = {
-    "filter_score": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-                                             ctypes.c_void_p],
+    "filter_score": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_int64]
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p],
     "greedy_scan": [ctypes.c_void_p] * 13 + [ctypes.c_int64, ctypes.c_void_p],
     "batched_round": [ctypes.c_void_p] * 15,
     "scatter_rows": [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 14,
@@ -120,7 +121,7 @@ _ARGTYPES = {
 _MORE_ENTRIES = {
     "filter_score": {
         "kt_filter_score_shard": [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-        + [ctypes.c_int64, ctypes.c_void_p],
+        + [ctypes.c_int64] + [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p],
     },
     "batched_round": {
         "kt_shard_combine": [ctypes.c_void_p] * 2,
@@ -128,7 +129,7 @@ _MORE_ENTRIES = {
     },
     "greedy_scan": {
         "kt_shard_argmax": [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int,
-                                                    ctypes.c_int64, ctypes.c_void_p],
+                                                    ctypes.c_int64] + [ctypes.c_void_p] * 2,
         "kt_enable_peer_access": [ctypes.c_int],
         "kt_tiled_scan": [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_int, ctypes.c_int64]
         + [ctypes.c_int] * 3 + [ctypes.c_int64, ctypes.c_void_p],
@@ -423,6 +424,11 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
     return x.data_ptr()
 
 
+def _require_cuda(dev: torch.device, where: str) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"{where}: the kernel takes CUDA tensors, batch is on {dev}")
+
+
 def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str, state=None,
                 bits_blocks: int = 0, nom_active: torch.Tensor | None = None,
                 pod_node: bool = True):
@@ -440,8 +446,7 @@ def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str, state=None,
     every pod's pod-major leaves and none of them. Returns ``(args,
     keepalive)``."""
     dev = b.alloc.device
-    if dev.type != "cuda":
-        raise ValueError(f"{where}: the kernel takes CUDA tensors, batch is on {dev}")
+    _require_cuda(dev, where)
     if p.strategy not in _STRATEGIES:
         raise ValueError(f"{where}: unknown scoring strategy {p.strategy!r}")
     N, R = b.alloc.shape
@@ -625,25 +630,50 @@ def _raise_on(lib: ctypes.CDLL, name: str, code: int, kernel: str | None = None)
         raise RuntimeError(f"{kernel or name} launch failed: {msg} (cudaError {code})")
 
 
+def _raw_stream(index: int) -> int:
+    """The current stream of CUDA device ``index`` as a handle (what
+    ``torch.cuda.current_stream(index).cuda_stream`` gives, without
+    building a Stream object, which costs a per-round launch several
+    microseconds)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def _filter_score(b: rt.DeviceBatch, p: rt.ScoreParams, want_total: bool,
                   dynamic: bool = True, nom_active: torch.Tensor | None = None):
-    """Launch ``filter_score``: ``(mask, base, total)``, ``total`` None
-    unless ``want_total`` (then the normalize pass runs too). Without
-    ``dynamic`` the mask leaves out the InterPodAffinity and
-    PodTopologySpread filters (the ones that move with each assignment).
-    ``nom_active``: the live nominations (all when None)."""
+    """Launch ``filter_score``: ``(mask, base, total)``, ``base`` None and
+    ``total`` the normalized total with ``want_total`` (then the normalize
+    pass runs too), else ``total`` None. Without ``dynamic`` the mask
+    leaves out the InterPodAffinity and PodTopologySpread filters (the ones
+    that move with each assignment). ``nom_active``: the live nominations
+    (all when None). The batch's pod classes (``runtime.pod_classes``)
+    are scored once a class."""
     a, keep = _score_args(b, p, "filter_score", bits_blocks=b.requests.shape[0],
                           nom_active=nom_active)
-    out = _launch_filter_score(a, b.alloc.device, want_total, dynamic, _smem(b))
+    out = _launch_filter_score(a, b.alloc.device, want_total, dynamic, _smem(b),
+                               rt.pod_classes(b))
     del keep
     return out
 
 
+def _class_args(classes: "rt.PodClasses | None", P: int, dev) -> tuple:
+    """``kt_filter_score``'s class arguments ``(reps, rep_of, C)``: nulls
+    and P when every pod is a class of its own."""
+    if classes is None or not classes.shared:
+        return None, None, P
+    if len(classes.class_of) != P:
+        raise ValueError(f"filter_score: classes of {len(classes.class_of)} pods, P={P}")
+    C = classes.count
+    return (_check("classes.reps", classes.reps, torch.int32, (C,), dev),
+            _check("classes.rep_of", classes.rep_of, torch.int32, (P,), dev), C)
+
+
 def _launch_filter_score(a: ScoreArgs, dev, want_total: bool, dynamic: bool,
-                         smem: int):
+                         smem: int, classes: "rt.PodClasses | None" = None):
     """``_filter_score`` on packed arguments (the caller keeps their
     tensors alive); ``smem`` is the normalize pass's dynamic shared
-    memory."""
+    memory, ``classes`` the batch's pod classes (None: pod by pod). With
+    ``want_total`` the base is the normalize pass's scratch (the other
+    pods of a class get no base rows) and is not returned."""
     lib = build()["filter_score"]
     mask = torch.empty((a.P, a.N), dtype=torch.bool, device=dev)
     base = torch.empty((a.P, a.N), dtype=torch.int64, device=dev)
@@ -651,13 +681,13 @@ def _launch_filter_score(a: ScoreArgs, dev, want_total: bool, dynamic: bool,
         torch.empty((a.P, a.N), dtype=torch.int64, device=dev)
         if want_total else None
     )
-    stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.kt_filter_score(
         ctypes.byref(a), mask.data_ptr(), base.data_ptr(),
-        None if total is None else total.data_ptr(), int(dynamic), 0, smem, stream)
+        None if total is None else total.data_ptr(), int(dynamic), 0, smem,
+        *_class_args(classes, a.P, dev), _raw_stream(dev.index))
     _raise_on(lib, "filter_score", code)
     launch_counts["filter_score"] += 1
-    return mask, base, total
+    return mask, None if want_total else base, total
 
 
 def filter_score(b: rt.DeviceBatch, p: rt.ScoreParams):
@@ -686,7 +716,8 @@ def potential_mask(view: rt.DeviceBatch, p: rt.ScoreParams, requested, pod_count
     lib = build()["filter_score"]
     mask = torch.empty((1, a.N), dtype=torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.kt_filter_score(ctypes.byref(a), mask.data_ptr(), None, None, 1, 1, 0, stream)
+    code = lib.kt_filter_score(ctypes.byref(a), mask.data_ptr(), None, None, 1, 1, 0, None,
+                               None, 1, stream)
     _raise_on(lib, "filter_score", code)
     launch_counts["filter_score"] += 1
     del keep
@@ -945,7 +976,7 @@ def batched_hypotheses(b: rt.DeviceBatch, p: rt.ScoreParams, masks: torch.Tensor
         if req is not None:
             nodes = dataclasses.replace(nodes, requested=req[h], nonzero_requested=nz[h],
                                         pod_count=pc[h])
-        assignments[h], _ = batched_assign(dataclasses.replace(b, nodes=nodes), p)
+        assignments[h], _ = batched_assign(rt.with_nodes(b, nodes), p)
     topo = b.topology
     counts, align = slice_epilogue(
         assignments, b.pod_valid, None if topo is None else topo.slice_id,
@@ -985,6 +1016,7 @@ def batched_assign(b: rt.DeviceBatch, p: rt.ScoreParams, max_rounds: int = 0,
     a, keep = _score_args(b, p, "batched_round", state, bits_blocks=P,
                           nom_active=nom_active)
     smem = _smem(b)
+    classes = rt.pod_classes(b)
     lib = build()["batched_round"]
     dev = b.alloc.device
     active = b.pod_valid.clone()
@@ -998,7 +1030,7 @@ def batched_assign(b: rt.DeviceBatch, p: rt.ScoreParams, max_rounds: int = 0,
     stream = torch.cuda.current_stream(dev).cuda_stream
     while progress and still and rounds < cap:
         mask, _, total = _launch_filter_score(
-            a, dev, want_total=True, dynamic=True, smem=smem)
+            a, dev, want_total=True, dynamic=True, smem=smem, classes=classes)
         code = lib.kt_batched_round(
             ctypes.byref(a), mask.data_ptr(), total.data_ptr(), req.data_ptr(),
             nz.data_ptr(), pc.data_ptr(), ports.data_ptr(),
@@ -1141,7 +1173,7 @@ def explain_summary(b: rt.DeviceBatch, p: rt.ScoreParams, assignments: torch.Ten
     a, keep = _score_args(b, p, "explain_summary", bits_blocks=b.requests.shape[0])
     idx = _check("assignments", assignments, torch.int32, (a.P,), dev)
     mask, _, total = _launch_filter_score(a, dev, want_total=True, dynamic=True,
-                                          smem=_smem(b))
+                                          smem=_smem(b), classes=rt.pod_classes(b))
     flags = _component_flags(b, p)
     k = min(3, a.N)
     feasible = torch.empty((a.P,), dtype=torch.int32, device=dev)
@@ -1205,6 +1237,7 @@ class _PackingSolve:
             raise ValueError(f"packing_round: P={P} exceeds the sorting block's 1024 pods")
         self.a, self.keep = _score_args(b, p, "packing_round", state, bits_blocks=P,
                                         nom_active=nom_active)
+        self.classes = rt.pod_classes(b)   # fixed for the solve
         N = self.a.N
         self.w = _check("weights", weights, torch.float32, (10,), dev)
         self.prio = (None if b.pod_priority is None else
@@ -1250,7 +1283,7 @@ class _PackingSolve:
         place. Returns the round's (progress, any pod still active)."""
         req, nz, pc, ports, pa_sums, sp_counts = state
         mask, _, total = _launch_filter_score(self.a, self.dev, want_total=True, dynamic=True,
-                                              smem=_smem(self.b))
+                                              smem=_smem(self.b), classes=self.classes)
         pen, stats64, stats32, denom, over, flags = scratch
         code = self.lib.kt_packing_round(
             ctypes.byref(self.a), mask.data_ptr(), total.data_ptr(), req.data_ptr(),
@@ -1431,6 +1464,7 @@ class _MeshExchange:
         self.slots: list[torch.Tensor] = []
         self.errors = {d: torch.zeros(1, dtype=torch.int32, device=d) for d in mesh.cards()}
         self.epoch = 0
+        self.argmax: dict = {}   # K4's launch state by pieces (_ArgmaxLaunch)
 
     def prepare(self, words: int) -> None:
         """Room for ``words`` payload words, and a new epoch."""
@@ -1485,29 +1519,6 @@ def _mesh_exchange(mesh) -> _MeshExchange:
     return ex
 
 
-def _launch_shards(mesh, entry: str, structs, what: str, *extra):
-    """Launch a sharded kernel over the mesh: one cooperative launch of G
-    blocks when every shard is on one card, else one block a card on that
-    card's current stream. ``structs`` is the ctypes array of the shards'
-    entries, handed to the entry point in host memory (it passes them as
-    the kernel's parameter); ``extra`` the entry point's arguments after
-    the cooperative flag. ``what`` names the kernel, and its launch count
-    grows by one a launch."""
-    lib = build()["greedy_scan"]
-    ex = _mesh_exchange(mesh)
-    cards = mesh.cards()
-    G = len(structs)
-    launches = ([(cards[0], ctypes.addressof(structs), 1)] if len(cards) == 1 else
-                [(dev, ctypes.addressof(structs[g]), 0) for g, dev in enumerate(mesh.devices)])
-    for dev, ptr, cooperative in launches:
-        x = ex.args(dev)
-        args = [ptr, ctypes.byref(x), G, cooperative, *extra,
-                torch.cuda.current_stream(dev).cuda_stream]
-        with on_device(dev):
-            _raise_on(lib, "greedy_scan", getattr(lib, entry)(*args), what)
-        launch_counts[what] += 1
-
-
 def _words_for(b: rt.DeviceBatch) -> int:
     """The scan's largest exchange payload in int64 words: the normalize
     maxima, the pick with the chosen node's domains, a spread-scored pod's
@@ -1524,29 +1535,99 @@ def _words_for(b: rt.DeviceBatch) -> int:
     return words
 
 
+class _ArgmaxLaunch:
+    """K4's launch state for one set of pieces on one mesh, kept with the
+    mesh's exchange while the pieces live (it holds them): the shards'
+    entries (in host memory, the kernel's parameter), one (shards, 2)
+    int64 output a card (each shard's pick and its card's timeout flag),
+    the row the host reads on each card, and the launches: one cooperative
+    launch of G blocks when every shard is on one card, else one block a
+    card."""
+
+    def __init__(self, pieces, mesh) -> None:
+        G = len(pieces)
+        self.pieces = list(pieces)
+        self.ptrs = [x.data_ptr() for x in pieces]
+        self.structs = (ArgmaxShard * G)()
+        rows: dict = {}
+        for dev in mesh.devices:
+            rows[dev] = rows.get(dev, 0) + 1
+        outs = {dev: torch.zeros((n, 2), dtype=torch.int64, device=dev)
+                for dev, n in rows.items()}
+        used = dict.fromkeys(rows, 0)
+        off = 0
+        for g, x in enumerate(pieces):
+            dev = mesh.devices[g]
+            st = self.structs[g]
+            st.vals = _check(f"pieces[{g}]", x, torch.int64, (x.shape[0],), dev)
+            st.n, st.offset, st.g = x.shape[0], off, g
+            st.out = outs[dev][used[dev]].data_ptr()
+            used[dev] += 1
+            off += x.shape[0]
+        # each card's first shard's row: the pick and the card's flag. On
+        # one card the launch's entry copies it into pinned host memory
+        self.reads = [out[0] for out in outs.values()]
+        cards = mesh.cards()
+        self.host = self.host_ptr = None
+        if len(cards) == 1:
+            self.host = torch.zeros((2,), dtype=torch.int64, pin_memory=True)
+            self.host_ptr = self.host.data_ptr()
+            self.words = (ctypes.c_int64 * 2).from_address(self.host_ptr)
+        self.lib = build()["greedy_scan"]
+        self.launches = [
+            (dev, torch.cuda._utils._get_device_index(dev, optional=True), ptr, coop)
+            for dev, ptr, coop in (
+                [(cards[0], ctypes.addressof(self.structs), 1)] if len(cards) == 1 else
+                [(dev, ctypes.addressof(self.structs[g]), 0)
+                 for g, dev in enumerate(mesh.devices)])]
+        self.slots = None
+        self.xs: list = []
+
+    def exchanges(self, ex: _MeshExchange) -> list:
+        """Each launch's Exchange entry at the current epoch (rebuilt when
+        the exchange's slots were reallocated)."""
+        if self.slots is not ex.slots:
+            self.slots = ex.slots
+            self.xs = [ex.args(dev) for dev, _, _, _ in self.launches]
+        for x in self.xs:
+            x.epoch = ex.epoch
+        return self.xs
+
+
 def shard_argmax(pieces, mesh, reps: int = 1) -> int:
     """Kernel K4: the first argmax of a node-sharded int64 vector (piece g
     on ``mesh.devices[g]``) through the scan's exchange, ``reps`` exchanges
-    of the same pick (to time one round trip). Returns the global index."""
-    G = len(pieces)
+    of the same pick (to time one round trip). Returns the global index.
+    The launch state of a set of pieces is kept with the mesh's exchange,
+    and the host reads each card's pick and timeout flag with one copy."""
     if reps < 1:
         raise ValueError("shard_argmax: reps >= 1")
-    structs = (ArgmaxShard * G)()
-    outs = []
-    off = 0
-    for g, x in enumerate(pieces):
-        dev = mesh.devices[g]
-        _check(f"pieces[{g}]", x, torch.int64, (x.shape[0],), dev)
-        out = torch.empty((), dtype=torch.int64, device=dev)
-        outs.append(out)
-        structs[g].vals, structs[g].n = x.data_ptr(), x.shape[0]
-        structs[g].offset, structs[g].g, structs[g].out = off, g, out.data_ptr()
-        off += x.shape[0]
-    ex = _mesh_exchange(mesh)
+    ex = _exchanges.get(id(mesh))
+    if ex is None or ex.mesh is not mesh:
+        ex = _mesh_exchange(mesh)
+    key = tuple(map(id, pieces))
+    st = ex.argmax.get(key)
+    if st is None or any(x.data_ptr() != p for x, p in zip(pieces, st.ptrs)):
+        if len(ex.argmax) >= 16:
+            ex.argmax.clear()
+        st = ex.argmax[key] = _ArgmaxLaunch(pieces, mesh)
     ex.prepare(2)
-    _launch_shards(mesh, "kt_shard_argmax", structs, "shard_argmax", reps)
-    ex.check("shard_argmax")
-    return int(outs[0].item())
+    current = torch.cuda.current_device()
+    fn = st.lib.kt_shard_argmax
+    for (dev, index, ptr, coop), x in zip(st.launches, st.exchanges(ex)):
+        with contextlib.nullcontext() if index == current else on_device(dev):
+            code = fn(ptr, ctypes.byref(x), len(pieces), coop, reps, st.host_ptr,
+                      _raw_stream(index))
+        if code:
+            _raise_on(st.lib, "greedy_scan", code, "shard_argmax")
+        launch_counts["shard_argmax"] += 1
+    got = [list(st.words)] if st.host is not None else [row.tolist() for row in st.reads]
+    if any(err for _, err in got):
+        for err in ex.errors.values():
+            err.zero_()
+        raise RuntimeError("shard_argmax: a cross-shard exchange waited past its budget "
+                           "(a peer shard did not arrive)")
+    return int(got[0][0])
 
 
 def sharded_dry_run(shard_args, offsets):
@@ -1668,6 +1749,7 @@ class _ShardRound:
         self.a, self.keep = _score_args(b, p, "sharded round", state,
                                         bits_blocks=b.requests.shape[0], nom_active=nom_active)
         P, N = self.a.P, self.a.N
+        self.classes = _class_args(rt.pod_classes(b), P, dev)
         sp = b.spread
         cw = 0 if sp is None else sp.sig_idx.shape[1] * ((sp.domain_present.shape[1] + 31) // 32)
         i64 = torch.int64
@@ -1729,7 +1811,7 @@ def _filter_score_shards(mesh, shards: list, smem: int) -> None:
                     ctypes.byref(s.a), s.mask.data_ptr(), s.base.data_ptr(),
                     s.total.data_ptr(), k, _ptr(sc(s) if sc else None),
                     _ptr(bits(s) if bits else None), _ptr(mx(s) if mx else None), smem,
-                    torch.cuda.current_stream(s.dev).cuda_stream)
+                    *s.classes, torch.cuda.current_stream(s.dev).cuda_stream)
             _raise_on(lib, "filter_score", code, "filter_score (sharded)")
             launch_counts["filter_score"] += 1
 

@@ -192,7 +192,8 @@ struct ArgmaxShard {
   int64_t n;
   int64_t offset;
   int64_t g;
-  int64_t* out;         // () the global argmax, -1 when n is 0 everywhere
+  int64_t* out;         // (2,) the global argmax (-1 when n is 0 everywhere),
+                        // then 1 if an exchange on this card timed out, else 0
 };
 
 struct ArgmaxSet {
@@ -228,14 +229,22 @@ shard_argmax_kernel(const __grid_constant__ ArgmaxSet set, const __grid_constant
     }
   }
   __syncthreads();
-  for (int64_t r = 0; r < reps; ++r) {
+  bool ok = true;
+  for (int64_t r = 0; r < reps && ok; ++r) {
     if (threadIdx.x == 0) {
       e.mine()[0] = s_x[32];
       e.mine()[1] = s_y[32];
     }
-    if (!kt::xchg_pick(e, &s_win, &s_flag)) return;
+    ok = kt::xchg_pick(e, &s_win, &s_flag);
   }
-  if (threadIdx.x == 0) *s.out = s_win >= 0 ? kt::xchg_payload(e, s_win)[1] : -1;
+  // the pick and the card's error word in one output, so that the host
+  // reads both with one copy. A block that finished every exchange saw
+  // every peer publish each one, so no peer can time out after it: its
+  // error word is final here.
+  if (threadIdx.x == 0) {
+    s.out[0] = ok && s_win >= 0 ? kt::xchg_payload(e, s_win)[1] : -1;
+    s.out[1] = ok ? (int64_t)(*(const volatile int32_t*)x.error != 0) : 1;
+  }
 }
 
 // launch `kernel` with `args` as G blocks: one cooperative launch when
@@ -284,9 +293,13 @@ extern "C" int kt_tiled_scan(const void* shards, const Exchange* x, int64_t PG, 
 // Launches the argmax probe (kernel K4) on `stream`: with `cooperative`, G
 // blocks over the G entries of `shards` (host memory, G <= 8 shards on this
 // card); else one block for the one entry of `shards` (this card's shard of
-// a mesh of cards). `reps` exchanges of the same pick.
+// a mesh of cards). `reps` exchanges of the same pick. Each block writes
+// its `out` (the pick, and its card's timeout flag) and nothing else. With
+// `host_out` (pinned host memory, two int64), the entry then copies the
+// first entry's `out` there and waits for `stream`: the launch and the
+// host's read in one call (only where no other card's launch must follow).
 extern "C" int kt_shard_argmax(const void* shards, const Exchange* x, int64_t G,
-                               int cooperative, int64_t reps, void* stream) {
+                               int cooperative, int64_t reps, void* host_out, void* stream) {
   if (G <= 0) return 0;
   if ((cooperative ? G : 1) > 8) return (int)cudaErrorInvalidValue;
   ArgmaxSet set{};
@@ -294,10 +307,13 @@ extern "C" int kt_shard_argmax(const void* shards, const Exchange* x, int64_t G,
   for (int64_t g = 0; g < (cooperative ? G : 1); ++g) set.sh[g] = in[g];
   Exchange xv = *x;
   void* args[] = {&set, &xv, &reps};
-  cudaError_t err = launch_shards((const void*)shard_argmax_kernel, args, G, cooperative, 0,
-                                  static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_shards((const void*)shard_argmax_kernel, args, G, cooperative, 0, s);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess || host_out == nullptr) return (int)err;
+  err = cudaMemcpyAsync(host_out, in[0].out, 2 * sizeof(int64_t), cudaMemcpyDeviceToHost, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return (int)cudaStreamSynchronize(s);
 }
 
 // Lets the current device read `peer`'s memory (idempotent). Returns the

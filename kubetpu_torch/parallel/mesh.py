@@ -548,9 +548,12 @@ def shard_batch(b: rt.DeviceBatch, mesh: NodeMesh, guard: bool = False) -> Shard
         row = mesh.row(0)
         devs = list(row.devices[:ng])
         sub = row if ng == row.size else NodeMesh(row.devices[:1])
+    classes = rt.pod_classes(b)
     shards = tuple(
-        _piece(b, devs[i * ng + j], slice(j * per, (j + 1) * per),
-               slice(i * pb, (i + 1) * pb) if pg > 1 else None)
+        rt.attach_pod_classes(
+            _piece(b, devs[i * ng + j], slice(j * per, (j + 1) * per),
+                   slice(i * pb, (i + 1) * pb) if pg > 1 else None),
+            classes if classes is None or pg == 1 else classes.rows(i * pb, (i + 1) * pb))
         for i in range(pg) for j in range(ng))
     return ShardedBatch(shards, tuple(j * per for j in range(ng)), sub,
                         nominated_node=b.nominated_node,

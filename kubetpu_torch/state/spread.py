@@ -117,6 +117,10 @@ class SpreadTensors:
     ignored: np.ndarray        # (P, N) bool — soft-scoring ignored nodes
     has_hard: bool
     has_soft: bool
+    # (P,) int64 each pod's template id (-1 for pads): every pod-side row
+    # above, ``ignored`` included, is built once per id, so equal ids give
+    # equal rows (the pod classes' key, framework.runtime.pod_classes_of)
+    template_id: np.ndarray | None = None
 
     @property
     def num_sigs(self) -> int:
@@ -471,4 +475,6 @@ def encode_spread(
         ignored=ignored,
         has_hard=has_hard,
         has_soft=has_soft,
+        template_id=np.concatenate(
+            [np.asarray(pod_gid, dtype=np.int64), np.full(PP - P, -1, dtype=np.int64)]),
     )

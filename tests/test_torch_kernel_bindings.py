@@ -52,3 +52,21 @@ def test_every_entry_point_is_declared():
 def test_argtypes_match_the_source(name):
     src, params = ENTRIES[name]
     assert _declared()[name] == [_ctype(p) for p in params], src
+
+
+# parameters added to existing entry points, each just before the stream:
+# the pod classes of filter_score's two entries, and K4's host word pair
+ADDED = {
+    "kt_filter_score": ["const void* reps", "const void* rep_of", "int64_t C"],
+    "kt_filter_score_shard": ["const void* reps", "const void* rep_of", "int64_t C"],
+    "kt_shard_argmax": ["void* host_out"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(ADDED))
+def test_added_parameters_precede_the_stream(name):
+    _, params = ENTRIES[name]
+    assert params[-1] == "void* stream"
+    assert params[-1 - len(ADDED[name]):-1] == ADDED[name]
+    assert _declared()[name][-1 - len(ADDED[name]):] == [
+        _ctype(p) for p in ADDED[name] + ["void* stream"]]
