@@ -128,6 +128,11 @@ final ``ok`` line is not printed):
    one leaf each (with the greedy engine on the first and the batched
    rounds on the first two), on an all-singleton batch and on the webhook
    batch, and through the sharded entry on the node mesh and the grid;
+   and the greedy scan's own cases (``scan_checks``): two templates taking
+   turns pod by pod (also K1 and K7 against the unsharded kernel),
+   ``--time-dra``'s scattered batch G, nominations released on nodes other
+   threads own, and 15000 and 500 nodes, each exact against the plain
+   engine;
 4. main paths, each with the launch counts reset just before it and read
    just after and a full garbage collection just before (the line counts
    the full collections that fell inside the run, and the seconds the
@@ -244,8 +249,10 @@ Tolerance everywhere: exact (integer masks, scores and assignments).
 
 ``python3 chip_smoke.py --time-basic ROOT`` instead builds the checkout at
 ``ROOT`` (printing ptxas' report), times only its ``filter_score`` and
-``greedy_scan`` engine on the SchedulingBasic cycle and prints one JSON
-line;
+``greedy_scan`` engine on the SchedulingBasic cycle and its placement
+search (B11) at P = 1000 over 33 placements and for a 3-pod gang, and
+prints one JSON line; where the checkout has ``csrc/scan_split.cu`` the
+line also holds the scan's step split and step floor (``scan_split``);
 ``--time-spread ROOT`` does the same on the PreferredTopologySpreading
 cycle and on the mixed spread cluster under the spread profile;
 ``--time-mesh ROOT`` times its node mesh's greedy, batched and packing
@@ -331,10 +338,11 @@ def build_phase() -> float:
 
 
 def log_build_report(kernels) -> None:
-    """ptxas' register, stack and spill report of each kernel built."""
+    """ptxas' register, stack and spill report of each kernel built, each
+    after the (mangled) name of its entry function."""
     for src, text in kernels.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry function" in line:
                 log(f"  {src}: {line.strip()}")
 
 
@@ -939,13 +947,10 @@ def _spread_timing(case, b, params, kernel) -> dict:
             with bitmaps_in_global():
                 out["bitmaps_in_global_ms"] = cuda_ms(
                     lambda: kernels.greedy_scan(b, params), 5)
-        # every step rescores the nodes the batch's earlier pods landed on
-        seen: set = set()
-        rescored = 0
-        for j in kernels.greedy_scan(b, params)[0].cpu().tolist():
-            rescored += len(seen)
-            if j >= 0:
-                seen.add(j)
+        # a step rescores the nodes the batch's earlier pods landed on that
+        # changed since their verdicts were kept
+        rescored = _rescored(kernels.greedy_scan(b, params)[0].cpu().tolist(),
+                             class_of=_class_of(b))
         work = (in_bytes + P * 4 + state,
                 (scored_pods(b) * N + rescored) * per_pair + spread_f64_ops(params, b))
     else:
@@ -1679,16 +1684,30 @@ def gang_victims_case(n_nodes=5000, n_pending=256, seed=0):
     return batch, params, masks, torch.from_numpy(fr).cuda(), torch.from_numpy(fc).cuda()
 
 
-def _rescored(assignments, start=()) -> int:
-    """Pairs a scan recomputes beyond filter_score's start: at each step
-    the nodes touched so far (freed nodes start touched)."""
+def _rescored(assignments, start=(), class_of=None) -> int:
+    """Pairs a scan recomputes beyond filter_score's start: at a step whose
+    pod is of another class than the step before's (every step when
+    ``class_of``, the batch's ``PodClasses.class_of``, is None), every node
+    touched so far (freed nodes start touched); at any other step the node
+    the pod before landed on (scan_loop.cuh keeps the others' verdicts)."""
     seen = set(start)
     n = 0
-    for j in assignments:
-        n += len(seen)
+    prev = -1
+    for p, j in enumerate(assignments):
+        same = class_of is not None and p > 0 and class_of[p] == class_of[p - 1]
+        n += int(prev >= 0) if same else len(seen)
+        prev = j
         if j >= 0:
             seen.add(j)
     return n
+
+
+def _class_of(b):
+    """The batch's ``PodClasses.class_of``, None without classes."""
+    from kubetpu_torch.framework import runtime as rt
+
+    classes = rt.pod_classes(b)
+    return None if classes is None else classes.class_of
 
 
 def _hyp_bound(b, params, masks, assignments, freed=None) -> dict:
@@ -1709,7 +1728,7 @@ def _hyp_bound(b, params, masks, assignments, freed=None) -> dict:
         nbytes += sum(int(x.nbytes) for x in freed)
         touched = ((freed[0] != 0).any(-1) | (freed[1] != 0)) & masks
         starts = [touched[h].nonzero().flatten().tolist() for h in range(H)]
-    rescored = sum(_rescored(assignments[h], starts[h]) for h in range(H))
+    rescored = sum(_rescored(assignments[h], starts[h], _class_of(b)) for h in range(H))
     ops = (scored_pods(b) * N + rescored) * f64_ops_per_pair(params, b)
     bound_ms, bound_by = _bound(nbytes, ops)
     return {"bytes": nbytes, "ops": ops, "bound_ms": bound_ms, "bound_by": bound_by}
@@ -2402,7 +2421,8 @@ def dra_checks(results, basic) -> dict:
         ops = scored_pods(with_leaf) * N * f64_ops_per_pair(prm, with_leaf)
         fs_bound = _bound(rt.batch_nbytes(with_leaf) + P * N * (1 + 8), ops)
         gs_bound = _bound(rt.batch_nbytes(with_leaf) + P * 4 + state_bytes,
-                          ops + _rescored(ka.cpu().tolist()) * f64_ops_per_pair(prm, with_leaf))
+                          ops + _rescored(ka.cpu().tolist(), class_of=_class_of(with_leaf))
+                          * f64_ops_per_pair(prm, with_leaf))
         timing[key] = {
             "filter_score_ms": cuda_ms(lambda: kernels.filter_score(with_leaf, prm), 20),
             "filter_score_without_ms": cuda_ms(lambda: kernels.filter_score(without, prm), 20),
@@ -2477,14 +2497,9 @@ def kernels_phase():
     state_bytes = sum(int(x.nbytes) for x in (b.requested, b.nonzero_requested,
                                               b.pod_count, b.node_ports))
     # the greedy engine scores every pair once at the batch's start, and
-    # each step again for the nodes earlier pods of the batch landed on
-    a_host = ka.cpu().tolist()
-    seen: set = set()
-    rescored = 0
-    for j in a_host:
-        rescored += len(seen)
-        if j >= 0:
-            seen.add(j)
+    # again at a step the nodes earlier pods of the batch landed on that
+    # changed since their verdicts were kept
+    rescored = _rescored(ka.cpu().tolist(), class_of=_class_of(b))
     rounds: list = []
     kernels.batched_assign(bp, pp, rounds_out=rounds)
     Pp, Np = bp.requests.shape[0], bp.alloc.shape[0]
@@ -2690,9 +2705,91 @@ def kernels_phase():
     mesh_timing.update(packing_grid_checks(grid4, mesh4, results, [
         c[:3] for c in pm_cases if c[0].startswith("BinPacking 256x5120")]))
     stamp("phase 3: packing-grid checks")
+    scan_checks(results, (b, params), mesh4, grid4)
+    stamp("phase 3: scan checks")
     out += mesh_kernel_lines(results, mesh_timing)
     torch.cuda.synchronize()
     return out
+
+
+# ------------------------------------------ 3s. the scan loop's own cases
+def interleaved_case(n_nodes=5000, n_bound=1000, n_pending=1024):
+    """SchedulingBasic's cluster with two pod templates taking turns pod by
+    pod (pod_default, and 250m / 1 Gi), so that the scan's staged pod
+    inputs change at every step."""
+    from kubetpu_torch.api.wrappers import make_pod
+    from kubetpu_torch.perf import workloads as W
+
+    cache, pending = basic_case(n_nodes, n_bound, n_pending)
+    pending = [p if j % 2 == 0 else make_pod(f"wide-{j}", namespace="namespace-1",
+                                             cpu_milli=250, memory=1024**3)
+               for j, p in enumerate(pending)]
+    return cache, pending
+
+
+def released_elsewhere(b, assignments) -> int:
+    """The nominations whose pod the scan placed and whose node another
+    thread of its block owns than the one that releases them (thread g %
+    SCAN_THREADS for nomination g; node n's owner is n % SCAN_THREADS)."""
+    from kubetpu_torch.kernels import SCAN_THREADS as threads
+
+    idx = b.nominated_pod_idx.tolist()
+    nodes = b.nominated_node.tolist()
+    placed = assignments.tolist()
+    return sum(1 for g, (i, n) in enumerate(zip(idx, nodes))
+               if i >= 0 and n >= 0 and placed[i] >= 0 and n % threads != g % threads)
+
+
+def scan_checks(results, basic, mesh, grid) -> None:
+    """The cases aimed at the scan loop's design (``scan_loop.cuh``), each
+    exact against the plain engine (``check_case`` without the batched
+    rounds): two templates interleaved pod by pod (the staged inputs and
+    the kept verdicts change every step; also K1 on the node mesh and K7
+    on the 2 x 2 grid, two pod rows carrying the touched flags, against
+    the unsharded kernel); the placements of ``--time-dra``'s batch G
+    (every pick on a node of its own across the block: the touched flags
+    of many threads); the PreemptionAsync cycle with nominations released
+    on nodes that other threads own; N = 15360 (15000 nodes) and N = 512
+    (500 nodes: half the threads own no node); the gang dry run with
+    freed rows lives in ``gang_checks``."""
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.framework import config as C
+    from kubetpu_torch.parallel import mesh as M
+
+    b, params = basic
+    bi, pi = encode(*interleaved_case(), C.Profile())
+    check_case("interleaved templates 1024x5120", bi, pi, results, batched=False)
+    want = kernels.greedy_scan(bi, pi)
+    note = results.setdefault("tiled_scan", {"cases": [], "max_abs_err": 0})
+    note["cases"].append("interleaved templates")
+    _mesh_err("interleaved K1", kernels.tiled_greedy_scan(M.shard_batch(bi, mesh), pi), want)
+    _mesh_err("interleaved K7", kernels.tiled_greedy_scan(M.shard_batch(bi, grid), pi), want)
+    log("kernels vs plain [interleaved templates]: K1 on the 4-shard mesh and K7 on the "
+        "2 x 2 grid equal to greedy_scan")
+    chosen = [j for j in kernels.greedy_scan(dra_leaf(b, seed=9), params)[0].tolist() if j >= 0]
+    bg = _loaded_except(b, set(chosen))
+    ka = check_case("scattered picks (batch G) 1024x5120", bg, params, results, batched=False)
+    owners = len({j % kernels.SCAN_THREADS for j in ka.tolist() if j >= 0})
+    if owners < 64:
+        raise AssertionError(f"batch G's picks fall on {owners} threads' nodes only")
+    log(f"kernels vs plain [scattered picks]: on the nodes of {owners} threads")
+    cache, pending, nom = preemption_case()
+    batch, prm = encode_batch_full(cache, pending, C.Profile(), nom.entries())
+    bn = batch.device
+    kn = check_case("nominations released elsewhere 1024x5120", bn, prm, results,
+                    batched=False)
+    moved = released_elsewhere(bn, kn)
+    if moved < 1:
+        raise AssertionError("no nomination was released on another thread's node")
+    log(f"kernels vs plain [nominations]: {moved} released on nodes of other threads")
+    for n_nodes in (15000, 500):
+        bw, pw = encode(*basic_case(n_nodes=n_nodes, n_bound=min(1000, n_nodes)),
+                        C.Profile())
+        check_case(f"SchedulingBasic {bw.requests.shape[0]}x{bw.alloc.shape[0]}", bw, pw,
+                   results, batched=False)
+    torch.cuda.synchronize()
 
 
 # ------------------------------------------ 3p. the pod classes of B3
@@ -5098,8 +5195,135 @@ def time_checkout(mode: str, root: str) -> int:
     for prefix, (b, params) in batches.items():
         line[prefix + "filter_score_ms"] = cuda_ms(lambda: kernels.filter_score(b, params), 20)
         line[prefix + "greedy_scan_ms"] = cuda_ms(lambda: kernels.greedy_scan(b, params), 10)
+    if mode == "basic":
+        time_hypotheses(line)
+    split_lib = scan_split_lib(kernels)
+    if split_lib is not None:
+        for prefix, (b, params) in list(batches.items())[:1]:
+            line[prefix + "split"] = scan_split(kernels, split_lib, b, params)
     log(json.dumps({f"time_{mode}": line}))
     return 0
+
+
+def time_hypotheses(line: dict) -> None:
+    """``--time-basic``'s B11 entries of ``line``: the imported
+    checkout's placement search (``placement_scan``, one
+    ``hypothesis_scan`` launch after its ``filter_score``) on the
+    SchedulingBasic block cut into 32 slices, P = 1000 and D = 33
+    placements, and on the 3-pod gang of the 1000-gang case over the same
+    placements (CUDA-event medians)."""
+    from kubetpu_torch import kernels
+    from kubetpu_torch.framework import config as C
+
+    for key, pods, reps in (("placement_scan_ms", 1000, 5), ("placement_scan_3pod_ms", 3, 20)):
+        cache, pending = basic_case(n_pending=pods)
+        b, params = encode_topology(sliced(cache, SLICES), pending, C.Profile())
+        masks, _ = slice_masks(b)
+        line[key] = cuda_ms(lambda: kernels.placement_scan(b.device, params, masks), reps)
+    line["placement_shape"] = [1000, int(b.device.alloc.shape[0]), int(masks.shape[0])]
+
+
+def scan_split_lib(kernels):
+    """The imported checkout's timing build of the scan
+    (``csrc/scan_split.cu``: ``greedy_scan.cu`` with the step split compiled
+    in, and the step floor), built with its nvcc flags and ptxas' report
+    printed; None when the checkout has none."""
+    import hashlib
+
+    src = kernels.CSRC / "scan_split.cu"
+    if not src.exists():
+        return None
+    key = hashlib.sha256((kernels._digest()).encode() + src.read_bytes()).hexdigest()[:16]
+    out = kernels.BUILD_DIR / "split" / key / "libscan_split.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(".tmp")
+        proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed on scan_split.cu:\n" + proc.stdout + proc.stderr)
+        for text in (proc.stdout, proc.stderr):
+            for row in text.splitlines():
+                if "registers" in row or "spill" in row or "Compiling entry function" in row:
+                    log(f"  scan_split.cu: {row.strip()}")
+        tmp.replace(out)
+    return load_split_lib(kernels, out)
+
+
+def load_split_lib(kernels, path):
+    """The timing build at ``path`` loaded, its entries typed."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(path))
+    lib.kt_greedy_scan.argtypes = kernels._ARGTYPES["greedy_scan"]
+    lib.kt_greedy_scan.restype = ctypes.c_int
+    lib.kt_greedy_scan_error.argtypes = [ctypes.c_int]
+    lib.kt_greedy_scan_error.restype = ctypes.c_char_p
+    lib.kt_scan_split.argtypes = [ctypes.c_void_p]
+    lib.kt_scan_split.restype = ctypes.c_int
+    lib.kt_scan_floor.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_void_p]
+    lib.kt_scan_floor.restype = ctypes.c_int
+    return lib
+
+
+def scan_split(kernels, lib, b, params, check=True) -> dict:
+    """Where a step of the scan goes on batch ``b``: the timing build's
+    ``greedy_scan`` (the wrapper's arguments, the split library's kernel;
+    with ``check`` its assignments must equal the real kernel's), µs a step
+    from its
+    clock64() marks (``scan_loop.cuh`` KT_SCAN_SPLIT), and the step floor:
+    the same block shape and steps with only the reductions and barriers
+    (``scan_floor_kernel``, CUDA events)."""
+    import ctypes
+
+    import torch
+
+    want = kernels.greedy_scan(b, params)[0]
+    real = kernels._libs["greedy_scan"]
+    kernels._libs["greedy_scan"] = lib
+    try:
+        got = kernels.greedy_scan(b, params)[0]
+        torch.cuda.synchronize()
+    finally:
+        kernels._libs["greedy_scan"] = real
+    if check and not torch.equal(got, want):
+        raise AssertionError("the split build's scan differs from the kernel's")
+    words = (ctypes.c_uint64 * 16)()
+    if lib.kt_scan_split(ctypes.byref(words)) != 0:
+        raise RuntimeError("kt_scan_split failed")
+    P, N = int(b.requests.shape[0]), int(b.alloc.shape[0])
+    ns_per_cycle = words[12] / max(words[11], 1)
+
+    def us(cycles):
+        return cycles * ns_per_cycle / 1000 / P
+
+    norm = 6 if b.spread is not None else 2
+    out = torch.empty((1,), dtype=torch.int64, device=b.alloc.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def floor():
+        code = lib.kt_scan_floor(P, N, norm, out.data_ptr(), stream)
+        if code != 0:
+            raise RuntimeError(f"kt_scan_floor failed ({code})")
+
+    parts = {name: us(words[i]) for i, name in enumerate(SPLIT_PARTS)}
+    return {
+        "step_us": words[12] / 1000 / P, "ghz": 1 / ns_per_cycle,
+        # the four parts of the loop before the redesign
+        "verdicts_us": sum(parts[k] for k in SPLIT_PARTS[:4]),
+        "normalize_us": parts["fold"] + parts["norm_reduce"],
+        "score_argmax_us": parts["score"] + parts["argmax"], "update_end_us": parts["update"],
+        "parts_us": parts, "touched_most_thread_us": us(words[9]),
+        "touched_mean_thread_us": us(words[10]),
+        "touched_verdict_mean_thread_us": us(words[13]),
+        "floor_us": cuda_ms(floor, 10) * 1000 / P, "floor_norm_values": norm,
+    }
+
+
+# scan_loop.cuh's split marks, in order (kt_split[0:9])
+SPLIT_PARTS = ("staging", "untouched", "touched", "weights", "fold", "norm_reduce", "score",
+               "argmax", "update")
 
 
 def time_mesh(line: dict) -> None:

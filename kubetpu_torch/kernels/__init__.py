@@ -624,6 +624,59 @@ def _smem(b: rt.DeviceBatch) -> int:
     return _spread_smem(sp.sig_idx.shape[1], sp.domain_present.shape[1])[0]
 
 
+# the greedy scan's block (scan_loop.cuh kThreads; thread t owns nodes t,
+# t + SCAN_THREADS, ...) and the nodes it takes (kMaxNodes: at most 32 a
+# thread)
+SCAN_THREADS = 512
+SCAN_MAX_NODES = SCAN_THREADS * 32
+# the shared memory an H100 block can use, less room for the scan kernels'
+# static arrays (about 5 KiB); and the bytes up to which sp_weights1 keeps
+# two steps of bitmaps in it (scan_loop.cuh kFastBitmapBytes)
+SHARED_MAX = 232448
+_SCAN_STATIC = 8192
+_FAST_BITMAP_BYTES = 32768
+
+
+def scan_smem_bytes(N: int, R: int, K: int, B: int, spread: tuple | None = None) -> int:
+    """The greedy scan's dynamic shared memory (scan_loop.cuh
+    ``scan_smem``): with ``spread`` = (C slots, D domains), the spread
+    region (a copy of the C slot weights for each of the block's warps,
+    then, unless the bitmaps live in global memory, two steps' bitmaps of
+    every slot when they fit in _FAST_BITMAP_BYTES, else one bitmap); the
+    params table (3R + 2B int64), three staged pods (``stage_words``
+    int64 each) and N base scores, each region from a 16-byte boundary."""
+    def r16(x):
+        return (x + 15) // 16 * 16
+
+    region = 0
+    if spread is not None:
+        C, D = spread
+        W = (D + 31) // 32
+        bitmaps = 0
+        if not _spread_smem(C, D)[1]:
+            bitmaps = 8 * C * W if 8 * C * W <= _FAST_BITMAP_BYTES else 4 * W
+        region = r16(8 * C * (SCAN_THREADS // 32) + bitmaps)
+    stage_words = 2 * R + 3 + (K + 7) // 8
+    return region + r16(8 * (3 * R + 2 * B)) + 8 * 3 * stage_words + 8 * N
+
+
+def _scan_smem(b: rt.DeviceBatch, p: rt.ScoreParams, where: str) -> int:
+    """``scan_smem_bytes`` of batch ``b``; raises when the block cannot take
+    the batch: more than SCAN_MAX_NODES nodes, or more shared memory than
+    an H100 block has."""
+    N, R = b.alloc.shape
+    if N > SCAN_MAX_NODES:
+        raise ValueError(f"{where}: N={N} nodes, one scan block takes at most {SCAN_MAX_NODES}")
+    sp = b.spread
+    smem = scan_smem_bytes(N, R, b.port_conflict.shape[0], len(p.shape_x),
+                           None if sp is None else (sp.sig_idx.shape[1],
+                                                    sp.domain_present.shape[1]))
+    if smem > SHARED_MAX - _SCAN_STATIC:
+        raise ValueError(f"{where}: {smem} bytes of shared memory, a block has "
+                         f"{SHARED_MAX - _SCAN_STATIC} beside the scan's static arrays")
+    return smem
+
+
 def _raise_on(lib: ctypes.CDLL, name: str, code: int, kernel: str | None = None) -> None:
     if code != 0:
         msg = getattr(lib, f"kt_{name}_error")(code).decode()
@@ -733,6 +786,7 @@ def greedy_scan(b: rt.DeviceBatch, p: rt.ScoreParams):
     5 the affinity sums, None without affinity rows; slot 6 None), equal to
     ``assign.greedy.greedy_assign_plain(b, p)``."""
     dev = b.alloc.device
+    smem = _scan_smem(b, p, "greedy_scan")
     nom_active = (
         None if b.nominated_pod_idx is None
         else torch.ones((b.nominated_pod_idx.shape[0],), dtype=torch.bool, device=dev)
@@ -763,7 +817,7 @@ def greedy_scan(b: rt.DeviceBatch, p: rt.ScoreParams):
         ctypes.byref(a), mask0.data_ptr(), base0.data_ptr(), touched.data_ptr(),
         assignments.data_ptr(), req.data_ptr(), nz.data_ptr(), pc.data_ptr(),
         ports.data_ptr(), ptr(pa_sums), ptr(row_total), ptr(sp_counts),
-        ptr(ok_buf), _smem(b), stream)
+        ptr(ok_buf), smem, stream)
     _raise_on(lib, "greedy_scan", code)
     launch_counts["greedy_scan"] += 1
     del keep
@@ -788,6 +842,7 @@ def _hypothesis_scan(b: rt.DeviceBatch, p: rt.ScoreParams, masks: torch.Tensor,
     if freed_req is not None:
         p_freed = _check("freed_req", freed_req, torch.int64, (H, N, R), dev)
         p_count = _check("freed_count", freed_count, torch.int32, (H, N), dev)
+    smem = _scan_smem(b, p, where)
     # every nomination charged: the scans start with all of them live
     mask0, base0, _ = _filter_score(b, p, want_total=False, dynamic=False)
     a, keep = _score_args(b, p, where, bits_blocks=H)
@@ -812,7 +867,6 @@ def _hypothesis_scan(b: rt.DeviceBatch, p: rt.ScoreParams, masks: torch.Tensor,
         min_match = torch.empty((H, S), dtype=i64, device=dev)
         keep += [sums, min_match]
         a.sp_sums, a.sp_min_match = sums.data_ptr(), min_match.data_ptr()
-    smem = _smem(b)
     slice_id = slice_buf = None
     num_slices = 0
     if topo is not None:
@@ -2200,6 +2254,7 @@ def tiled_greedy_scan(sb, p: rt.ScoreParams):
     mesh, NG, PG = sb.mesh, sb.columns, sb.pod_rows
     if PG * NG > 8:
         raise ValueError(f"tiled_scan: {PG} x {NG} tiles, the launch takes 8")
+    smem = max(_scan_smem(b, p, "tiled_greedy_scan") for b in sb.shards)
     row0 = mesh.row(0)
     one_card = len(row0.cards()) == 1
     if not one_card and len(set(row0.devices)) != NG:
@@ -2283,7 +2338,7 @@ def tiled_greedy_scan(sb, p: rt.ScoreParams):
         x = ex.args(dev)
         with on_device(dev):
             code = lib.kt_tiled_scan(ctypes.addressof(structs), ctypes.byref(x), PG, NG, coop,
-                                     colj, *flags, _smem(b0),
+                                     colj, *flags, smem,
                                      torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(lib, "greedy_scan", code, what)
         launch_counts[what] += 1

@@ -10,17 +10,22 @@
 //
 // Bound: latency. The work that needs the whole card, every (pod, node)
 // pair's filter verdict and base score, is done before the scan by
-// filter_score over all SMs; the scan is P sequential steps. Design: ONE
-// persistent block of 1024 threads. Thread t owns nodes t, t+1024, ...: it
-// alone reads and writes those nodes' running requested / nonzero /
-// pod_count / node_ports rows and their `touched` flag (global memory), so
-// the state needs no atomics and no fences. A node no earlier pod of the
+// filter_score over all SMs; the scan is P sequential steps, each as long
+// as its critical path (scan_loop.cuh says how the loop keeps memory loads
+// and repeated work off it). Design: ONE persistent block of 512 threads.
+// Thread t owns nodes t, t+512, ... (at most 32): it alone reads and
+// writes those nodes' running requested / nonzero / pod_count / node_ports
+// rows (global memory) and keeps their touched flags in its registers, so
+// the state needs no fences (its updates are atomics only so that no load
+// of the old row waits on the step). A node no earlier pod of the
 // batch landed on still has the batch's starting state, so its verdict and
 // base score for pod p are exactly filter_score's mask0[p, n] and
-// base0[p, n]; only touched nodes are recomputed (score_common.cuh). The
-// extender webhook's mask and score depend on the pod and node alone, so
-// mask0 and base0 carry them for untouched nodes, and pair_feasible and
-// base_score apply them when a touched node is recomputed.
+// base0[p, n]; only touched nodes are recomputed (score_common.cuh), and
+// only when the pod's own inputs or the node changed since the last
+// recompute. The extender webhook's mask and score depend on the pod and
+// node alone, so mask0 and base0 carry them for untouched nodes, and
+// pair_feasible and base_score apply them when a touched node is
+// recomputed (every step: extender rows differ from pod to pod).
 //
 // InterPodAffinity breaks that reuse rule: one assignment adds to the
 // carried (RA, D) sums at a whole topology domain, which moves the affinity
@@ -47,8 +52,9 @@
 // bitmap, popcounts, a block sum), and folds the rounded spread raw's min
 // and max into the normalize reduction.
 //
-// Per step: (1) when node-affinity, taint or affinity-score rows are
-// present, the block reduces the normalize inputs over the feasible nodes
+// Per step: (1) each thread takes its nodes' verdicts and base scores once
+// and, when node-affinity, taint or affinity-score rows are present, the
+// block reduces the normalize inputs over the feasible nodes
 // (masked_normalize divides by the max over feasible nodes only, and the
 // affinity normalize by the feasible max - min; that set shrinks as
 // capacity fills); (2) each thread scores its feasible nodes and keeps its
@@ -56,8 +62,9 @@
 // the reference's first maximum; (3) the owner of the chosen node applies
 // the resource update and marks it touched, and thread r adds the pod's
 // increment to affinity row r at the chosen node's domain
-// (greedy.py:157-168). One block uses one of the card's 132 SMs: spreading
-// the node axis over a thread-block cluster is later work (ROADMAP).
+// (greedy.py:157-168). One block uses one of the card's 132 SMs: splitting
+// the node axis over more SMs did not shorten a step (K1 below pays the
+// step's waits on every shard), so the block stays one.
 //
 // Under a node mesh (kernel K1, kubetpu/parallel/mesh.py:234
 // sharded_greedy) the scan runs as G blocks, one a node shard: G blocks of
@@ -77,13 +84,18 @@
 // Nominations (the final state's slot 6, a.nom_active): filter_score's
 // mask0 charges every nomination; when a step assigns a nomination's own
 // pod, that nomination stops charging (greedy.py:170-175) and its
-// nominated node is marked touched, so later pods recompute that node's
+// nominated node is marked touched by its owner (the releasing thread
+// lists the node in shared memory; after the step's barrier each owner
+// takes the listed nodes it owns), so later pods recompute that node's
 // verdict against the live nominations.
 #include "scan_loop.cuh"
 
 namespace {
 
 constexpr int kThreads = kt::kThreads;
+// the argmax probe's block: 32 warps, whose partials lanes 0-31 of warp 0
+// reduce
+constexpr int kArgmaxThreads = 1024;
 
 // kPA: the batch has affinity rows; kSP: it has a spread leaf (see
 // scan_loop.cuh)
@@ -200,7 +212,7 @@ struct ArgmaxSet {
   ArgmaxShard sh[8];
 };
 
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kArgmaxThreads, 1)
 shard_argmax_kernel(const __grid_constant__ ArgmaxSet set, const __grid_constant__ Exchange x,
                     int64_t reps) {
   __shared__ int s_flag, s_win;
@@ -209,7 +221,7 @@ shard_argmax_kernel(const __grid_constant__ ArgmaxSet set, const __grid_constant
   kt::Xchg e{&x, s.g, 0};
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int64_t bs = 0, bn = -1;
-  for (int64_t n = threadIdx.x; n < s.n; n += kThreads)
+  for (int64_t n = threadIdx.x; n < s.n; n += kArgmaxThreads)
     if (kt::better(s.vals[n], n, bs, bn)) {
       bs = s.vals[n];
       bn = n;
@@ -247,14 +259,24 @@ shard_argmax_kernel(const __grid_constant__ ArgmaxSet set, const __grid_constant
   }
 }
 
-// launch `kernel` with `args` as G blocks: one cooperative launch when
-// `cooperative` (G shards or node columns on one card), else one plain block
+// let `kernel` take `smem` bytes of dynamic shared memory (past the 48 KiB
+// a launch gets without asking)
+cudaError_t allow_smem(const void* kernel, int64_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// launch `kernel` with `args` as G blocks of `threads`: one cooperative
+// launch when `cooperative` (G shards or node columns on one card), else
+// one plain block
 cudaError_t launch_shards(const void* kernel, void** args, int64_t G, int cooperative,
-                          int64_t smem, cudaStream_t stream) {
+                          int threads, int64_t smem, cudaStream_t stream) {
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   if (cooperative)
-    return cudaLaunchCooperativeKernel(kernel, dim3((unsigned)G), dim3(kThreads), args,
+    return cudaLaunchCooperativeKernel(kernel, dim3((unsigned)G), dim3(threads), args,
                                        (size_t)smem, stream);
-  return cudaLaunchKernel(kernel, dim3(1), dim3(kThreads), args, (size_t)smem, stream);
+  return cudaLaunchKernel(kernel, dim3(1), dim3(threads), args, (size_t)smem, stream);
 }
 
 }  // namespace
@@ -273,18 +295,20 @@ extern "C" int kt_tiled_scan(const void* shards, const Exchange* x, int64_t PG, 
                              void* stream) {
   if (PG <= 0 || NG <= 0) return 0;
   if (PG * NG > 8) return (int)cudaErrorInvalidValue;
+  const ScanShard* in = static_cast<const ScanShard*>(shards);
+  for (int64_t t = 0; t < PG * NG; ++t)
+    if (in[t].a.N > kt::kMaxNodes) return (int)cudaErrorInvalidValue;
   const bool rows = PG > 1;
   TiledScan kernel = pa ? (sp ? tiled_for<true, true>(dra, rows)
                               : tiled_for<true, false>(dra, rows))
                         : (sp ? tiled_for<false, true>(dra, rows)
                               : tiled_for<false, false>(dra, rows));
   ShardSet set{};
-  const ScanShard* in = static_cast<const ScanShard*>(shards);
   for (int64_t t = 0; t < PG * NG; ++t) set.sh[t] = in[t];
   Exchange xv = *x;
   int64_t c = cooperative ? -1 : col;
   void* args[] = {&set, &xv, &PG, &NG, &c};
-  cudaError_t err = launch_shards((const void*)kernel, args, NG, cooperative, smem,
+  cudaError_t err = launch_shards((const void*)kernel, args, NG, cooperative, kThreads, smem,
                                   static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -308,7 +332,8 @@ extern "C" int kt_shard_argmax(const void* shards, const Exchange* x, int64_t G,
   Exchange xv = *x;
   void* args[] = {&set, &xv, &reps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_shards((const void*)shard_argmax_kernel, args, G, cooperative, 0, s);
+  cudaError_t err = launch_shards((const void*)shard_argmax_kernel, args, G, cooperative,
+                                  kArgmaxThreads, 0, s);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess || host_out == nullptr) return (int)err;
   err = cudaMemcpyAsync(host_out, in[0].out, 2 * sizeof(int64_t), cudaMemcpyDeviceToHost, s);
@@ -340,8 +365,10 @@ extern "C" int64_t kt_greedy_scan_argmax_size() { return (int64_t)sizeof(ArgmaxS
 // a.sp_bits; both are null without. With nominations a.nom_active (G,)
 // holds the live nominations, all set on entry (filter_score's mask0 was
 // computed so), and is cleared in place as their pods are assigned. `smem`
-// is the dynamic shared memory in bytes (at most 40 KiB). The outputs are
-// written whole by the kernel.
+// is the dynamic shared memory in bytes (scan_loop.cuh scan_smem: the N
+// base scores, the staged pods and params, the spread weights and bitmap;
+// at most 232,448 bytes less the static arrays). The outputs are written
+// whole by the kernel. N may not exceed kt::kMaxNodes.
 // Returns the cudaError_t of the launch (0 = accepted).
 extern "C" int kt_greedy_scan(const ScoreArgs* args, const void* mask0, const void* base0,
                               void* touched, void* assignments, void* req, void* nz, void* pc,
@@ -349,9 +376,12 @@ extern "C" int kt_greedy_scan(const ScoreArgs* args, const void* mask0, const vo
                               void* ok_buf, int64_t smem, void* stream) {
   const ScoreArgs a = *args;
   if (a.N == 0 && a.P == 0) return 0;
+  if (a.N > kt::kMaxNodes) return (int)cudaErrorInvalidValue;
   const bool pa = pa_sums != nullptr, sp = sp_counts != nullptr, dra = a.dra_raw != nullptr;
   auto kernel = pa ? (sp ? scan_for<true, true>(dra) : scan_for<true, false>(dra))
                    : (sp ? scan_for<false, true>(dra) : scan_for<false, false>(dra));
+  const cudaError_t err = allow_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   kernel<<<1, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const uint8_t*>(mask0), static_cast<const int64_t*>(base0),
       static_cast<uint8_t*>(touched), static_cast<int32_t*>(assignments),

@@ -15,7 +15,7 @@
 //     alignment = sum over labeled slices of c_s^2 (B12).
 //
 // Design: one launch, a grid of H blocks, one block a hypothesis. Each
-// block is the greedy_scan design (scan_loop.cuh: 1024 threads, each owning
+// block is the greedy_scan design (scan_loop.cuh: 512 threads, each owning
 // its nodes' running rows, and a block reduction of the key (score,
 // -index)), over its own (N, R) / (N,) running state and scratch. Nothing
 // crosses hypotheses on the card; the pick among them stays on the host,
@@ -183,7 +183,8 @@ slice_epilogue_kernel(int64_t P, const uint8_t* pod_valid, const int32_t* assign
 // int32, counts (H,) and align (H,) int32. slice_id (N,) is the topology
 // leaf's, null without one (align is then 0); slice_buf (H, S + 1) is
 // scratch when the counts do not fit in `smem`, else null. `smem` is the
-// dynamic shared memory in bytes (at most 40 KiB).
+// dynamic shared memory in bytes (the scan's, scan_loop.cuh scan_smem, or
+// the epilogue's counts, the larger). N may not exceed kt::kMaxNodes.
 // Returns the cudaError_t of the launch (0 = accepted).
 extern "C" int kt_hypothesis_scan(const ScoreArgs* args, const void* mask0, const void* base0,
                                   const void* hmask, const void* freed_req,
@@ -195,9 +196,15 @@ extern "C" int kt_hypothesis_scan(const ScoreArgs* args, const void* mask0, cons
                                   void* stream) {
   const ScoreArgs a = *args;
   if (H == 0) return 0;
+  if (a.N > kt::kMaxNodes) return (int)cudaErrorInvalidValue;
   const bool pa = pa_sums != nullptr, sp = sp_counts != nullptr, dra = a.dra_raw != nullptr;
   auto kernel = pa ? (sp ? hypothesis_for<true, true>(dra) : hypothesis_for<true, false>(dra))
                    : (sp ? hypothesis_for<false, true>(dra) : hypothesis_for<false, false>(dra));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   kernel<<<(unsigned)H, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const uint8_t*>(mask0), static_cast<const int64_t*>(base0),
       static_cast<const uint8_t*>(hmask), static_cast<const int64_t*>(freed_req),

@@ -147,10 +147,11 @@ constexpr int64_t kMaxNodeScore = 100;
 constexpr int kNorm = 7;                     // values fold_norm reduces
 constexpr int64_t kBig = 2147483647;         // spread.py's _BIG (int32 max)
 
-// floor division for b > 0 (the reference's `//`)
+// floor division for b > 0 (the reference's `//`), with one division
+// (the remainder from the quotient)
 __device__ __forceinline__ int64_t floordiv(int64_t a, int64_t b) {
-  int64_t q = a / b;
-  return (a % b != 0 && a < 0) ? q - 1 : q;
+  const int64_t q = a / b;
+  return (a < 0 && q * b != a) ? q - 1 : q;
 }
 
 __device__ __forceinline__ int64_t imax(int64_t a, int64_t b) { return a > b ? a : b; }
@@ -175,10 +176,39 @@ __device__ __forceinline__ int64_t broken_linear(int64_t p, const int64_t* xs,
   return y0 + trunc_div((y1 - y0) * (p - x0), x1 - x0);
 }
 
+// Pod p's own inputs as the pair function reads them: straight from the
+// batch's (P, ·) leaves. The greedy scan reads the same values from a copy
+// it staged in shared memory (scan_loop.cuh StagedPod, the same members).
+// The (P, N) and (P, G) leaves (extender terms, nomination gates) are read
+// at row `p` in both.
+struct PodAt {
+  const ScoreArgs& a;
+  int64_t p;
+  __device__ __forceinline__ int64_t req(int64_t r) const { return a.requests[p * a.R + r]; }
+  __device__ __forceinline__ int64_t nzr(int64_t r) const {
+    return a.nonzero_requests[p * a.R + r];
+  }
+  __device__ __forceinline__ bool port(int64_t k) const { return a.pod_ports[p * a.K + k]; }
+  __device__ __forceinline__ bool valid() const { return a.pod_valid[p]; }
+  // offsets of the pod's rows in the signature tables (read only when the
+  // table is present)
+  __device__ __forceinline__ int64_t static_row() const {
+    return (int64_t)a.static_sig[p] * a.N;
+  }
+  __device__ __forceinline__ int64_t img_row() const { return (int64_t)a.img_sig[p] * a.N; }
+  __device__ __forceinline__ int64_t img_count() const { return a.img_count[p]; }
+  __device__ __forceinline__ const int64_t* params() const { return a.params; }
+};
+
 // the victim-independent static verdict: node and pod valid, static row
+template <class Q>
+__device__ __forceinline__ bool pair_static_of(const ScoreArgs& a, const Q& q, int64_t n) {
+  if (!a.node_valid[n] || !q.valid()) return false;
+  return a.static_mask == nullptr || a.static_mask[q.static_row() + n];
+}
+
 __device__ __forceinline__ bool pair_static(const ScoreArgs& a, int64_t p, int64_t n) {
-  if (!a.node_valid[n] || !a.pod_valid[p]) return false;
-  return a.static_mask == nullptr || a.static_mask[(int64_t)a.static_sig[p] * a.N + n];
+  return pair_static_of(a, PodAt{a, p}, n);
 }
 
 // nomination g is charged to pod p at node n: its gate admits p, it is
@@ -188,12 +218,13 @@ __device__ __forceinline__ bool nominated_here(const ScoreArgs& a, int64_t p, in
   return a.nom_gate[p * a.G + g] && a.nom_active[g] && a.nom_node[g] == n;
 }
 
-// does any of pod p's triples conflict with triple row `ports` (K,)?
-__device__ __forceinline__ bool ports_conflict(const ScoreArgs& a, int64_t p,
+// does any of pod q's triples conflict with triple row `ports` (K,)?
+template <class Q>
+__device__ __forceinline__ bool ports_conflict(const ScoreArgs& a, const Q& q,
                                                const uint8_t* ports) {
   const int64_t K = a.K;
   for (int64_t k = 0; k < K; ++k) {
-    if (!a.pod_ports[p * K + k]) continue;
+    if (!q.port(k)) continue;
     for (int64_t l = 0; l < K; ++l)
       if (a.port_conflict[k * K + l] && ports[l]) return true;
   }
@@ -217,48 +248,70 @@ __device__ __forceinline__ int64_t nominated_count(const ScoreArgs& a, int64_t p
 // NodeResourcesFit against the node state given, with the `charged` live
 // nominations at node n (of the first G slots) charged (integer sums: the
 // reference's f64 contraction of integers below 2^53 is exact)
-__device__ __forceinline__ bool pair_fit(const ScoreArgs& a, int64_t p, int64_t n,
-                                         const int64_t* req_state, const int32_t* pc_state,
-                                         int64_t charged, int64_t G) {
+template <class Q>
+__device__ __forceinline__ bool pair_fit_of(const ScoreArgs& a, const Q& pod, int64_t n,
+                                            const int64_t* req_state, const int32_t* pc_state,
+                                            int64_t charged, int64_t G) {
   const int64_t R = a.R;
   if (!(pc_state[n] + 1 + charged <= a.allowed_pods[n])) return false;
   for (int64_t r = 0; r < R; ++r) {
-    const int64_t q = a.requests[p * R + r];
+    const int64_t q = pod.req(r);
     if (q == 0) continue;
     int64_t extra = 0;
     if (charged)
       for (int64_t g = 0; g < G; ++g)
-        if (nominated_here(a, p, n, g)) extra += a.nom_req[g * R + r];
+        if (nominated_here(a, pod.p, n, g)) extra += a.nom_req[g * R + r];
     if (q > a.alloc[n * R + r] - req_state[n * R + r] - extra) return false;
   }
   return true;
 }
 
+__device__ __forceinline__ bool pair_fit(const ScoreArgs& a, int64_t p, int64_t n,
+                                         const int64_t* req_state, const int32_t* pc_state,
+                                         int64_t charged, int64_t G) {
+  return pair_fit_of(a, PodAt{a, p}, n, req_state, pc_state, charged, G);
+}
+
 // NodePorts against the in-use triples given, and the host ports of the
 // `charged` live nominations at node n (of the first G slots)
+template <class Q>
+__device__ __forceinline__ bool pair_ports_of(const ScoreArgs& a, const Q& q, int64_t n,
+                                              const uint8_t* ports_state, int64_t charged,
+                                              int64_t G) {
+  if (ports_conflict(a, q, ports_state + n * a.K)) return false;
+  if (charged && a.nom_ports != nullptr)
+    for (int64_t g = 0; g < G; ++g)
+      if (nominated_here(a, q.p, n, g) && ports_conflict(a, q, a.nom_ports + g * a.K))
+        return false;
+  return true;
+}
+
 __device__ __forceinline__ bool pair_ports(const ScoreArgs& a, int64_t p, int64_t n,
                                            const uint8_t* ports_state, int64_t charged,
                                            int64_t G) {
-  if (ports_conflict(a, p, ports_state + n * a.K)) return false;
-  if (charged && a.nom_ports != nullptr)
-    for (int64_t g = 0; g < G; ++g)
-      if (nominated_here(a, p, n, g) && ports_conflict(a, p, a.nom_ports + g * a.K))
-        return false;
-  return true;
+  return pair_ports_of(a, PodAt{a, p}, n, ports_state, charged, G);
 }
 
 // the victim-dependent verdict: NodeResourcesFit and NodePorts against the
 // node state given (the batch's, or an engine's running state), with the
 // reservations of the live nominations at node n charged
+template <class Q>
+__device__ __forceinline__ bool pair_dependent_of(const ScoreArgs& a, const Q& q, int64_t n,
+                                                  const int64_t* req_state,
+                                                  const int32_t* pc_state,
+                                                  const uint8_t* ports_state) {
+  const int64_t G = nomination_slots(a);
+  const int64_t charged = nominated_count(a, q.p, n, G);
+  if (a.filter_fit && !pair_fit_of(a, q, n, req_state, pc_state, charged, G)) return false;
+  if (a.filter_ports && !pair_ports_of(a, q, n, ports_state, charged, G)) return false;
+  return true;
+}
+
 __device__ __forceinline__ bool pair_dependent(const ScoreArgs& a, int64_t p, int64_t n,
                                                const int64_t* req_state,
                                                const int32_t* pc_state,
                                                const uint8_t* ports_state) {
-  const int64_t G = nomination_slots(a);
-  const int64_t charged = nominated_count(a, p, n, G);
-  if (a.filter_fit && !pair_fit(a, p, n, req_state, pc_state, charged, G)) return false;
-  if (a.filter_ports && !pair_ports(a, p, n, ports_state, charged, G)) return false;
-  return true;
+  return pair_dependent_of(a, PodAt{a, p}, n, req_state, pc_state, ports_state);
 }
 
 // the extender webhook's verdict of the pair (true without extenders); it
@@ -270,116 +323,250 @@ __device__ __forceinline__ bool pair_extender(const ScoreArgs& a, int64_t p, int
 // Filter: static row AND the extender verdict AND NodeResourcesFit AND
 // NodePorts, against the node state given (the batch's, or the greedy
 // scan's running state)
+template <class Q>
+__device__ __forceinline__ bool pair_feasible_of(const ScoreArgs& a, const Q& q, int64_t n,
+                                                 const int64_t* req_state,
+                                                 const int32_t* pc_state,
+                                                 const uint8_t* ports_state) {
+  return pair_static_of(a, q, n) && pair_extender(a, q.p, n) &&
+         pair_dependent_of(a, q, n, req_state, pc_state, ports_state);
+}
+
 __device__ __forceinline__ bool pair_feasible(const ScoreArgs& a, int64_t p, int64_t n,
                                               const int64_t* req_state,
                                               const int32_t* pc_state,
                                               const uint8_t* ports_state) {
-  return pair_static(a, p, n) && pair_extender(a, p, n) &&
-         pair_dependent(a, p, n, req_state, pc_state, ports_state);
+  return pair_feasible_of(a, PodAt{a, p}, n, req_state, pc_state, ports_state);
 }
 
-// NodeResourcesFit score under the profile's strategy (no NormalizeScore)
-__device__ __forceinline__ int64_t fit_score(const ScoreArgs& a, int64_t p, int64_t n,
-                                             const int64_t* nz_state) {
-  const int64_t R = a.R, B = a.B;
-  const int64_t* fw = a.params;
-  const int64_t* scal = a.params + 2 * R;
-  const int64_t* xs = a.params + 3 * R;
-  const int64_t* ys = xs + B;
-  int64_t num = 0, den = 0;
-  for (int64_t r = 0; r < R; ++r) {
-    int64_t w = fw[r];
-    int64_t cap = a.alloc[n * R + r];
-    int64_t pn = a.nonzero_requests[p * R + r];
-    int64_t reqd = nz_state[n * R + r] + pn;
-    int64_t safe = imax(cap, 1);
-    int64_t per;
-    if (a.strategy == 0) {
-      per = (cap > 0 && reqd <= cap) ? floordiv((cap - reqd) * kMaxNodeScore, safe) : 0;
-    } else if (a.strategy == 1) {
-      per = cap > 0 ? floordiv(imin(reqd, cap) * kMaxNodeScore, safe) : 0;
-    } else {
-      int64_t util = (cap > 0 && reqd <= cap) ? floordiv(reqd * kMaxNodeScore, safe)
-                                              : kMaxNodeScore;
-      per = broken_linear(util, xs, ys, B);
-    }
-    bool part = w > 0 && cap > 0 && (!scal[r] || pn > 0);
-    if (a.strategy == 2) part = part && per > 0;
-    if (part) {
-      num += per * w;
-      den += w;
+// pair_feasible_of's verdict with its tests evaluated without an early
+// return, so that the node's rows load together rather than one behind
+// each test (the greedy scan's recompute of one touched node, a latency
+// every step waits for). It decides as pair_feasible_of: the same tests,
+// ANDed.
+template <class Q>
+__device__ __forceinline__ bool pair_feasible_eager(const ScoreArgs& a, const Q& q, int64_t n,
+                                                    const int64_t* req_state,
+                                                    const int32_t* pc_state,
+                                                    const uint8_t* ports_state) {
+  const int64_t R = a.R, G = nomination_slots(a);
+  bool ok = a.node_valid[n] && q.valid();
+  if (a.static_mask != nullptr) ok &= a.static_mask[q.static_row() + n] != 0;
+  ok &= pair_extender(a, q.p, n);
+  const int64_t charged = nominated_count(a, q.p, n, G);
+  if (a.filter_fit) {
+    ok &= pc_state[n] + 1 + charged <= a.allowed_pods[n];
+    for (int64_t r = 0; r < R; ++r) {
+      const int64_t v = q.req(r);
+      int64_t extra = 0;
+      if (charged)
+        for (int64_t g = 0; g < G; ++g)
+          if (nominated_here(a, q.p, n, g)) extra += a.nom_req[g * R + r];
+      ok &= v == 0 || v <= a.alloc[n * R + r] - req_state[n * R + r] - extra;
     }
   }
+  if (a.filter_ports) ok &= pair_ports_of(a, q, n, ports_state, charged, G);
+  return ok;
+}
+
+// resource r's term of the NodeResourcesFit score on a node with
+// allocatable `cap` and running nonzero requests `nzv`: its per-resource
+// score, and in w its weight, 0 when the resource takes no part
+template <class Q>
+__device__ __forceinline__ int64_t fit_term_v(const ScoreArgs& a, const Q& q, int64_t r,
+                                              int64_t cap, int64_t nzv, int64_t& w) {
+  const int64_t R = a.R, B = a.B;
+  const int64_t* scal = q.params() + 2 * R;
+  const int64_t* xs = q.params() + 3 * R;
+  const int64_t* ys = xs + B;
+  w = q.params()[r];
+  int64_t pn = q.nzr(r);
+  int64_t reqd = nzv + pn;
+  int64_t safe = imax(cap, 1);
+  int64_t per;
+  if (a.strategy == 0) {
+    per = (cap > 0 && reqd <= cap) ? floordiv((cap - reqd) * kMaxNodeScore, safe) : 0;
+  } else if (a.strategy == 1) {
+    per = cap > 0 ? floordiv(imin(reqd, cap) * kMaxNodeScore, safe) : 0;
+  } else {
+    int64_t util = (cap > 0 && reqd <= cap) ? floordiv(reqd * kMaxNodeScore, safe)
+                                            : kMaxNodeScore;
+    per = broken_linear(util, xs, ys, B);
+  }
+  bool part = w > 0 && cap > 0 && (!scal[r] || pn > 0);
+  if (a.strategy == 2) part = part && per > 0;
+  if (!part) w = 0;
+  return per;
+}
+
+// fit_term_v of node n's row r
+template <class Q>
+__device__ __forceinline__ int64_t fit_term(const ScoreArgs& a, const Q& q, int64_t n, int64_t r,
+                                            const int64_t* nz_state, int64_t& w) {
+  return fit_term_v(a, q, r, a.alloc[n * a.R + r], nz_state[n * a.R + r], w);
+}
+
+// the fit score from the sums over the taking-part resources
+__device__ __forceinline__ int64_t fit_finish(const ScoreArgs& a, int64_t num, int64_t den) {
   if (den <= 0) return 0;
   if (a.strategy == 2) return floordiv(2 * num + den, imax(2 * den, 1));
   return floordiv(num, imax(den, 1));
 }
 
-// min(requested / max(allocatable, 1), 1) in float64
-__device__ __forceinline__ double balanced_frac(const ScoreArgs& a, int64_t p, int64_t n,
-                                                int64_t r, const int64_t* req_state,
-                                                bool with_pod) {
-  const int64_t R = a.R;
-  double cap = (double)a.alloc[n * R + r];
+// NodeResourcesFit score under the profile's strategy (no NormalizeScore)
+template <class Q>
+__device__ __forceinline__ int64_t fit_score(const ScoreArgs& a, const Q& q, int64_t n,
+                                             const int64_t* nz_state) {
+  int64_t num = 0, den = 0;
+  for (int64_t r = 0; r < a.R; ++r) {
+    int64_t w;
+    const int64_t per = fit_term(a, q, n, r, nz_state, w);
+    if (w) {
+      num += per * w;
+      den += w;
+    }
+  }
+  return fit_finish(a, num, den);
+}
+
+// min(requested / max(allocatable, 1), 1) in float64, of resource r with
+// allocatable `capv` and running requested `reqv`
+template <class Q>
+__device__ __forceinline__ double balanced_frac_v(const Q& q, int64_t r, int64_t capv,
+                                                  int64_t reqv, bool with_pod) {
+  double cap = (double)capv;
   double safe = fmax(cap, 1.0);
-  int64_t v = req_state[n * R + r] + (with_pod ? a.requests[p * R + r] : 0);
+  int64_t v = reqv + (with_pod ? q.req(r) : 0);
   return fmin(__ddiv_rn((double)v, safe), 1.0);
 }
 
-__device__ __forceinline__ bool balanced_present(const ScoreArgs& a, int64_t p, int64_t n,
-                                                 int64_t r) {
+template <class Q>
+__device__ __forceinline__ double balanced_frac(const ScoreArgs& a, const Q& q, int64_t n,
+                                                int64_t r, const int64_t* req_state,
+                                                bool with_pod) {
+  return balanced_frac_v(q, r, a.alloc[n * a.R + r], req_state[n * a.R + r], with_pod);
+}
+
+template <class Q>
+__device__ __forceinline__ bool balanced_present_v(const ScoreArgs& a, const Q& q, int64_t r,
+                                                   int64_t cap) {
   const int64_t R = a.R;
-  const int64_t* bw = a.params + R;
-  const int64_t* scal = a.params + 2 * R;
-  return bw[r] > 0 && a.alloc[n * R + r] > 0 && (!scal[r] || a.requests[p * R + r] > 0);
+  const int64_t* bw = q.params() + R;
+  const int64_t* scal = q.params() + 2 * R;
+  return bw[r] > 0 && cap > 0 && (!scal[r] || q.req(r) > 0);
+}
+
+template <class Q>
+__device__ __forceinline__ bool balanced_present(const ScoreArgs& a, const Q& q, int64_t n,
+                                                 int64_t r) {
+  return balanced_present_v(a, q, r, a.alloc[n * a.R + r]);
+}
+
+// resources whose balanced fractions a pair keeps in registers (the rest,
+// past the first kFracs, are recomputed where read)
+constexpr int kFracs = 4;
+
+// one side's sums in resource order: the count and total of the present
+// fractions, then their squared and absolute deviations from the mean
+struct BalancedSums {
+  int64_t cnt = 0;
+  double total = 0.0, sq = 0.0, absdev = 0.0;
+};
+
+__device__ __forceinline__ void balanced_dev(BalancedSums& b, double f, double mean) {
+  const double d = __dadd_rn(f, -mean);
+  b.sq = __dadd_rn(b.sq, __dmul_rn(d, d));
+  b.absdev = __dadd_rn(b.absdev, fabs(d));
 }
 
 // int64((1 - std(fractions)) * 100), the case split of _balanced_std
-__device__ __forceinline__ int64_t balanced_side(const ScoreArgs& a, int64_t p, int64_t n,
-                                                 const int64_t* req_state, bool with_pod) {
-  const int64_t R = a.R;
-  int64_t cnt = 0;
-  double total = 0.0;
-  for (int64_t r = 0; r < R; ++r) {
-    if (!balanced_present(a, p, n, r)) continue;
-    ++cnt;
-    total = __dadd_rn(total, balanced_frac(a, p, n, r, req_state, with_pod));
-  }
-  double denom = (double)imax(cnt, 1);
-  double mean = __ddiv_rn(total, denom);
-  double sq = 0.0, absdev = 0.0;
-  for (int64_t r = 0; r < R; ++r) {
-    if (!balanced_present(a, p, n, r)) continue;
-    double d = __dadd_rn(balanced_frac(a, p, n, r, req_state, with_pod), -mean);
-    sq = __dadd_rn(sq, __dmul_rn(d, d));
-    absdev = __dadd_rn(absdev, fabs(d));
-  }
+__device__ __forceinline__ int64_t balanced_std_score(const BalancedSums& b, double denom) {
   double std_dev = 0.0;
-  if (cnt == 2) std_dev = __ddiv_rn(absdev, 2.0);
-  else if (cnt > 2) std_dev = __dsqrt_rn(__ddiv_rn(sq, denom));
+  if (b.cnt == 2) std_dev = __dmul_rn(b.absdev, 0.5);  // exactly absdev / 2
+  else if (b.cnt > 2) std_dev = __dsqrt_rn(__ddiv_rn(b.sq, denom));
   return (int64_t)__dmul_rn(__dadd_rn(1.0, -std_dev), (double)kMaxNodeScore);
 }
 
-// NodeResourcesBalancedAllocation
-__device__ __forceinline__ int64_t balanced_score(const ScoreArgs& a, int64_t p, int64_t n,
-                                                  const int64_t* req_state) {
+// both sides of the balanced score, the pod added (w) and not (o): each
+// fraction is taken once, and the two sides' divisions are independent,
+// so that they overlap; every sum runs in resource order, as in
+// _balanced_std
+template <class Q>
+__device__ __forceinline__ void balanced_sides(const ScoreArgs& a, const Q& q, int64_t n,
+                                               const int64_t* req_state, int64_t& w_side,
+                                               int64_t& o_side) {
   const int64_t R = a.R;
-  const int64_t* bw = a.params + R;
+  bool pr[kFracs];
+  double fw[kFracs], fo[kFracs];
+#pragma unroll
+  for (int r = 0; r < kFracs; ++r) {
+    pr[r] = r < R && balanced_present(a, q, n, r);
+    fw[r] = pr[r] ? balanced_frac(a, q, n, r, req_state, true) : 0.0;
+    fo[r] = pr[r] ? balanced_frac(a, q, n, r, req_state, false) : 0.0;
+  }
+  BalancedSums w, o;
+#pragma unroll
+  for (int r = 0; r < kFracs; ++r) {
+    if (!pr[r]) continue;
+    ++w.cnt;
+    w.total = __dadd_rn(w.total, fw[r]);
+    o.total = __dadd_rn(o.total, fo[r]);
+  }
+  for (int64_t r = kFracs; r < R; ++r) {
+    if (!balanced_present(a, q, n, r)) continue;
+    ++w.cnt;
+    w.total = __dadd_rn(w.total, balanced_frac(a, q, n, r, req_state, true));
+    o.total = __dadd_rn(o.total, balanced_frac(a, q, n, r, req_state, false));
+  }
+  o.cnt = w.cnt;
+  const double denom = (double)imax(w.cnt, 1);
+  const double mw = __ddiv_rn(w.total, denom), mo = __ddiv_rn(o.total, denom);
+#pragma unroll
+  for (int r = 0; r < kFracs; ++r) {
+    if (!pr[r]) continue;
+    balanced_dev(w, fw[r], mw);
+    balanced_dev(o, fo[r], mo);
+  }
+  for (int64_t r = kFracs; r < R; ++r) {
+    if (!balanced_present(a, q, n, r)) continue;
+    balanced_dev(w, balanced_frac(a, q, n, r, req_state, true), mw);
+    balanced_dev(o, balanced_frac(a, q, n, r, req_state, false), mo);
+  }
+  w_side = balanced_std_score(w, denom);
+  o_side = balanced_std_score(o, denom);
+}
+
+// a pod that requests none of the balanced resources is not scored (0)
+template <class Q>
+__device__ __forceinline__ bool balanced_best_effort(const ScoreArgs& a, const Q& q) {
+  const int64_t* bw = q.params() + a.R;
   bool best_effort = true;
-  for (int64_t r = 0; r < R; ++r)
-    if (a.requests[p * R + r] != 0 && bw[r] != 0) best_effort = false;
-  if (best_effort) return 0;
-  int64_t with_pod = balanced_side(a, p, n, req_state, true);
-  int64_t without_pod = balanced_side(a, p, n, req_state, false);
+  for (int64_t r = 0; r < a.R; ++r)
+    if (q.req(r) != 0 && bw[r] != 0) best_effort = false;
+  return best_effort;
+}
+
+__device__ __forceinline__ int64_t balanced_finish(int64_t with_pod, int64_t without_pod) {
   return kMaxNodeScore / 2 + floordiv(kMaxNodeScore / 2 + with_pod - without_pod, 2);
 }
 
+// NodeResourcesBalancedAllocation
+template <class Q>
+__device__ __forceinline__ int64_t balanced_score(const ScoreArgs& a, const Q& q, int64_t n,
+                                                  const int64_t* req_state) {
+  if (balanced_best_effort(a, q)) return 0;
+  int64_t with_pod, without_pod;
+  balanced_sides(a, q, n, req_state, with_pod, without_pod);
+  return balanced_finish(with_pod, without_pod);
+}
+
 // ImageLocality
-__device__ __forceinline__ int64_t image_score(const ScoreArgs& a, int64_t p, int64_t n) {
+template <class Q>
+__device__ __forceinline__ int64_t image_score(const ScoreArgs& a, const Q& q, int64_t n) {
   const int64_t min_t = 23LL * 1024 * 1024;
   const int64_t max_c = 1000LL * 1024 * 1024;
-  int64_t s = a.img_sums[(int64_t)a.img_sig[p] * a.N + n];
-  int64_t max_t = max_c * (int64_t)a.img_count[p];
+  int64_t s = a.img_sums[q.img_row() + n];
+  int64_t max_t = max_c * q.img_count();
   s = imin(imax(s, min_t), imax(max_t, min_t));
   return floordiv(kMaxNodeScore * (s - min_t), imax(max_t - min_t, 1));
 }
@@ -388,15 +575,88 @@ __device__ __forceinline__ int64_t image_score(const ScoreArgs& a, int64_t p, in
 // and image locality, and the extender score. Plugin sums are int64 and
 // exact, so adding the normalized node-affinity and taint terms afterwards
 // gives the reference's total whatever the order.
+template <class Q>
+__device__ __forceinline__ int64_t base_score_of(const ScoreArgs& a, const Q& q, int64_t n,
+                                                 const int64_t* req_state,
+                                                 const int64_t* nz_state) {
+  int64_t total = 0;
+  if (a.w_fit) total += a.w_fit * fit_score(a, q, n, nz_state);
+  if (a.w_balanced) total += a.w_balanced * balanced_score(a, q, n, req_state);
+  if (a.img_sums != nullptr) total += a.w_image * image_score(a, q, n);
+  if (a.ext_score != nullptr) total += a.ext_score[q.p * a.N + n];
+  return total;
+}
+
 __device__ __forceinline__ int64_t base_score(const ScoreArgs& a, int64_t p, int64_t n,
                                               const int64_t* req_state,
                                               const int64_t* nz_state) {
+  return base_score_of(a, PodAt{a, p}, n, req_state, nz_state);
+}
+
+// base_score_of taken by the 32 lanes of a warp together (every lane
+// calls it with the same pair and gets the score; R <= 32): lane r takes
+// resource r's fit term and balanced fractions, all their divisions
+// started before any sum, and every lane then sums them in resource order,
+// as base_score_of does (the greedy scan's recompute of the node a step
+// changed, which the next step waits for). Lane r < R gives node n's
+// resource r: its allocatable `cap`, running requested `reqv` and nonzero
+// `nzv`; base_score_warp reads them from the rows.
+template <class Q>
+__device__ __forceinline__ int64_t base_score_warp_v(const ScoreArgs& a, const Q& q, int64_t n,
+                                                     int64_t cap, int64_t reqv, int64_t nzv) {
+  const unsigned all = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int R = (int)a.R;
+  int64_t w = 0, per = 0;
+  if (a.w_fit && lane < R) per = fit_term_v(a, q, lane, cap, nzv, w);
+  const bool balanced = a.w_balanced && !balanced_best_effort(a, q);
+  const bool present = balanced && lane < R && balanced_present_v(a, q, lane, cap);
+  const double fw = present ? balanced_frac_v(q, lane, cap, reqv, true) : 0.0;
+  const double fo = present ? balanced_frac_v(q, lane, cap, reqv, false) : 0.0;
   int64_t total = 0;
-  if (a.w_fit) total += a.w_fit * fit_score(a, p, n, nz_state);
-  if (a.w_balanced) total += a.w_balanced * balanced_score(a, p, n, req_state);
-  if (a.img_sums != nullptr) total += a.w_image * image_score(a, p, n);
-  if (a.ext_score != nullptr) total += a.ext_score[p * a.N + n];
+  if (a.w_fit) {
+    int64_t num = 0, den = 0;
+    for (int r = 0; r < R; ++r) {
+      const int64_t wr = __shfl_sync(all, w, r), pr = __shfl_sync(all, per, r);
+      if (wr) {
+        num += pr * wr;
+        den += wr;
+      }
+    }
+    total += a.w_fit * fit_finish(a, num, den);
+  }
+  if (balanced) {
+    BalancedSums sw, so;
+    for (int r = 0; r < R; ++r) {
+      if (!__shfl_sync(all, (int)present, r)) continue;
+      ++sw.cnt;
+      sw.total = __dadd_rn(sw.total, __shfl_sync(all, fw, r));
+      so.total = __dadd_rn(so.total, __shfl_sync(all, fo, r));
+    }
+    so.cnt = sw.cnt;
+    const double denom = (double)imax(sw.cnt, 1);
+    const double mw = __ddiv_rn(sw.total, denom), mo = __ddiv_rn(so.total, denom);
+    for (int r = 0; r < R; ++r) {
+      if (!__shfl_sync(all, (int)present, r)) continue;
+      balanced_dev(sw, __shfl_sync(all, fw, r), mw);
+      balanced_dev(so, __shfl_sync(all, fo, r), mo);
+    }
+    total += a.w_balanced *
+             balanced_finish(balanced_std_score(sw, denom), balanced_std_score(so, denom));
+  }
+  if (a.img_sums != nullptr) total += a.w_image * image_score(a, q, n);
+  if (a.ext_score != nullptr) total += a.ext_score[q.p * a.N + n];
   return total;
+}
+
+template <class Q>
+__device__ __forceinline__ int64_t base_score_warp(const ScoreArgs& a, const Q& q, int64_t n,
+                                                   const int64_t* req_state,
+                                                   const int64_t* nz_state) {
+  const int64_t r = threadIdx.x & 31;
+  const bool mine = r < a.R;
+  return base_score_warp_v(a, q, n, mine ? a.alloc[n * a.R + r] : 0,
+                           mine ? req_state[n * a.R + r] : 0, mine ? nz_state[n * a.R + r] : 0);
 }
 
 // DefaultNormalizeScore of one masked raw value against the row maximum
@@ -718,12 +978,12 @@ __device__ __forceinline__ void block_max_norm(const ScoreArgs& a, bool sp_score
 // i.e. the pair is spread-scored) the rounded spread raw's max and negated
 // min, and the DRA raw (drow: the pod's offset into its table), so that all
 // seven reduce by max
-__device__ __forceinline__ void fold_norm(const ScoreArgs& a, int64_t row, int64_t drow,
-                                          int64_t n, int64_t pa_r, int64_t sp,
-                                          int64_t (&m)[kNorm]) {
-  if (a.na_raw != nullptr) m[0] = imax(m[0], a.na_raw[row + n]);
-  if (a.tt_raw != nullptr) m[1] = imax(m[1], a.tt_raw[row + n]);
-  if (a.dra_raw != nullptr) m[6] = imax(m[6], a.dra_raw[drow + n]);
+__device__ __forceinline__ void fold_norm_vals(const ScoreArgs& a, int64_t na, int64_t tt,
+                                               int64_t dra, int64_t pa_r, int64_t sp,
+                                               int64_t (&m)[kNorm]) {
+  if (a.na_raw != nullptr) m[0] = imax(m[0], na);
+  if (a.tt_raw != nullptr) m[1] = imax(m[1], tt);
+  if (a.dra_raw != nullptr) m[6] = imax(m[6], dra);
   if (a.w_interpod) {
     m[2] = imax(m[2], pa_r);
     m[3] = imax(m[3], -pa_r);
@@ -732,6 +992,28 @@ __device__ __forceinline__ void fold_norm(const ScoreArgs& a, int64_t row, int64
     m[4] = imax(m[4], sp);
     m[5] = imax(m[5], -sp);
   }
+}
+
+// a pair's node-affinity, taint and DRA raws (0 where the table is absent)
+struct NormRaws {
+  int64_t na = 0, tt = 0, dra = 0;
+};
+
+__device__ __forceinline__ NormRaws norm_raws(const ScoreArgs& a, int64_t row, int64_t drow,
+                                              int64_t n) {
+  NormRaws v;
+  if (a.na_raw != nullptr) v.na = a.na_raw[row + n];
+  if (a.tt_raw != nullptr) v.tt = a.tt_raw[row + n];
+  if (a.dra_raw != nullptr) v.dra = a.dra_raw[drow + n];
+  return v;
+}
+
+// fold_norm_vals of the pair's raws read from their tables
+__device__ __forceinline__ void fold_norm(const ScoreArgs& a, int64_t row, int64_t drow,
+                                          int64_t n, int64_t pa_r, int64_t sp,
+                                          int64_t (&m)[kNorm]) {
+  const NormRaws v = norm_raws(a, row, drow, n);
+  fold_norm_vals(a, v.na, v.tt, v.dra, pa_r, sp, m);
 }
 
 // start values of fold_norm's maxima: the node-affinity, taint, spread and
@@ -751,17 +1033,23 @@ __device__ __forceinline__ void init_norm(int64_t (&m)[kNorm]) {
 // pair (ok false) still gets the node-affinity, taint and DRA terms of a
 // zero raw, as masked_normalize gives it; its affinity term is 0. sp is the
 // pair's rounded spread raw when it is spread-scored, else -1 (term 0).
+__device__ __forceinline__ int64_t norm_terms_vals(const ScoreArgs& a, const NormRaws& v, bool ok,
+                                                   int64_t pa_r, int64_t sp,
+                                                   const int64_t (&m)[kNorm]) {
+  int64_t s = normalized_terms(a, ok ? v.na : 0, ok ? v.tt : 0, m[0], m[1]);
+  if (ok && a.w_interpod) s += a.w_interpod * pa_normalize(pa_r, -m[3], m[2]);
+  if (ok && sp >= 0) s += a.w_spread * sp_normalize(sp, -m[5], m[4]);
+  if (a.dra_raw != nullptr) s += a.w_dra * normalize(ok ? v.dra : 0, m[6], false);
+  return s;
+}
+
+// norm_terms_vals of the pair's raws read from their tables (read only for
+// a feasible pair)
 __device__ __forceinline__ int64_t norm_terms(const ScoreArgs& a, int64_t row, int64_t drow,
                                               int64_t n, bool ok, int64_t pa_r, int64_t sp,
                                               const int64_t (&m)[kNorm]) {
-  const int64_t na = (ok && a.na_raw != nullptr) ? a.na_raw[row + n] : 0;
-  const int64_t tt = (ok && a.tt_raw != nullptr) ? a.tt_raw[row + n] : 0;
-  int64_t s = normalized_terms(a, na, tt, m[0], m[1]);
-  if (ok && a.w_interpod) s += a.w_interpod * pa_normalize(pa_r, -m[3], m[2]);
-  if (ok && sp >= 0) s += a.w_spread * sp_normalize(sp, -m[5], m[4]);
-  if (a.dra_raw != nullptr)
-    s += a.w_dra * normalize(ok ? a.dra_raw[drow + n] : 0, m[6], false);
-  return s;
+  const NormRaws v = ok ? norm_raws(a, row, drow, n) : NormRaws{};
+  return norm_terms_vals(a, v, ok, pa_r, sp, m);
 }
 
 // sum over D of each affinity sums row, one row per thread of the grid
@@ -806,6 +1094,28 @@ __device__ __forceinline__ int64_t sp_min_over_domains(const ScoreArgs& a, const
   return -block_reduce(v, MaxOp(), -kBig, red);
 }
 
+// OR the domain bit of every scored node (ok[n] and not ig[n]) of
+// signature sid into `bits`: the lanes of a warp that hit one bitmap word
+// OR their bits first, and one of them adds them with one atomic (the
+// zones of a zone constraint are a word or two: per-node atomics on one
+// word serialized a warp 32 ways). Every thread of the block calls it.
+__device__ __forceinline__ void set_domain_bits(const ScoreArgs& a, int32_t sid,
+                                                const uint8_t* ok, const uint8_t* ig,
+                                                uint32_t* bits) {
+  const int64_t N = a.N;
+  const int lane = threadIdx.x & 31;
+  for (int64_t base = 0; base < N; base += blockDim.x) {
+    const int64_t n = base + threadIdx.x;
+    int32_t dom = -1;
+    if (n < N && ok[n] && !ig[n]) dom = a.sp_node_domain[sid * N + n];
+    const unsigned on = __ballot_sync(0xffffffffu, dom >= 0);
+    if (dom < 0) continue;
+    const unsigned peers = __match_any_sync(on, dom >> 5);
+    const unsigned word = __reduce_or_sync(peers, 1u << (dom & 31));
+    if (lane == __ffs(peers) - 1) atomicOr(bits + (dom >> 5), word);
+  }
+}
+
 // weight[c] = log(size + 2) for each ScheduleAnyway slot of pod p (0 for
 // the others), where size counts the domains (d < D) that hold a scored
 // node (ok[n] and not ignored), or the scored nodes themselves for a
@@ -828,11 +1138,7 @@ __device__ __forceinline__ void sp_weights(const ScoreArgs& a, int64_t p, const 
     if (!a.sp_is_hostname[sid]) {
       for (int64_t w = threadIdx.x; w < W; w += blockDim.x) bits[w] = 0;
       __syncthreads();
-      for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
-        if (!ok[n] || ig[n]) continue;
-        const int32_t dom = a.sp_node_domain[sid * N + n];
-        if (dom >= 0) atomicOr(bits + (dom >> 5), 1u << (dom & 31));
-      }
+      set_domain_bits(a, sid, ok, ig, bits);
       __syncthreads();
       int64_t cnt = 0;
       for (int64_t w = threadIdx.x; w < W; w += blockDim.x) cnt += __popc(bits[w]);
