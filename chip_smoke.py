@@ -79,17 +79,18 @@ final ``ok`` line is not printed):
    ``kernels.packing_assign`` must equal ``packing_assign_plain``
    (assignments, the seven state slots, the duals' bits, iterations and
    nodes used; the objective, a float32 sum taken in another order,
-   within rtol 1e-5), and ``packing_start``, the node pass, one
-   ``packing_round`` and ``packing_end`` alone their plain parts, at
-   1024 x 5120 on the SchedulingBasic block cold and warm, on it labeled
-   into 32 slices with ``topology="on"``, on a BinPacking block, on the
-   coupled-heavy SchedulingPodAffinity and TopologySpreading blocks, on
-   the mixed cluster (512 x 2048) and under a profile without the
-   NodeResourcesFit filter; and the dual ascent's log1p on the card must
+   within rtol 1e-5; one launch a solve), at 1024 x 5120 on the
+   SchedulingBasic block cold and warm, on it labeled into 32 slices with
+   ``topology="on"``, on a BinPacking block, on the coupled-heavy
+   SchedulingPodAffinity and TopologySpreading blocks, on the mixed
+   cluster (512 x 2048) and under a profile without the NodeResourcesFit
+   filter, and stopped at 1 and 2 rounds (the stop rule on the device) on
+   four of them and with no pod valid (no round); and the dual ascent's
+   log1p on the card must
    equal the plain version's bits at every count in [0, 1024]; then the
    DynamicResources score term (``dra_checks``): ``filter_score``, the
    ``greedy_scan`` engine, the ``batched_round`` rounds, the packing engine
-   (every launch alone too) and the placement search on both engines (all
+   and the placement search on both engines (all
    nodes, every other node) must equal their plain versions on the
    SchedulingBasic block given a seeded DRA leaf (8 rows of raw scores in
    [0, 64], every pod a signature) and on an encoded prioritized-list batch
@@ -105,18 +106,23 @@ final ``ok`` line is not printed):
    SchedulingBasic batch with and without a DRA leaf, the mixed, affinity
    and spread clusters, and the SchedulingPodAffinity and
    PreferredTopologySpreading cycles (every template variant), and against
-   the sharded plain engine on one batch of each variant and on
-   SchedulingBasic; a tie batch whose first pick must be the first shard's
+   the sharded plain engine on one cut batch of each variant (the full
+   Basic batch's plain run is the unsharded kernel's); a tie batch whose first pick must be the first shard's
    last node; K2 (the sharded ``filter_score`` passes and batched rounds)
    against the unsharded kernels on the SchedulingPodAffinity and
    TopologySpreading cycles and three mixed clusters, and against the
    sharded plain rounds on three of them; K3 (the sharded dry run) against
    the unsharded kernel and the sharded plain version at 5120 x 8 and x
    128; and a routed delta into a sharded resident block against the
-   unsharded block (B5m, timed); then the packing solve over that mesh
-   (K5) against the unsharded kernel and the tiled plain solve, and on a
-   2 x 2 grid of logical tiles K6, K7 and, on the BinPacking batch cut to
-   256 pods with and without 32 slices, K8 (``packing_grid_checks``:
+   unsharded block (B5m, timed); then the preemption evaluator's
+   potential mask with a hard zone spread constraint over that mesh and a
+   2 x 2 grid (``potential_mesh_checks``: exact against the unsharded
+   kernel and the plain version on a batch the shards' own counts would
+   decide otherwise); then the packing solve over that mesh (K5, one
+   launch a solve) against the unsharded kernel and the tiled plain solve,
+   also stopped at 1 and 2 rounds and with no pod valid, and on a 2 x 2
+   grid of logical tiles K6, K7 and, on the BinPacking batch cut to 256
+   pods with and without 32 slices, K8 (``packing_grid_checks``:
    assignments, every pod row's node slots, every tile's duals' bits,
    iterations and nodes used exact against the tiled plain solve and the
    unsharded kernel; the objective within rtol 1e-5; timed beside K5 and
@@ -221,7 +227,7 @@ final ``ok`` line is not printed):
    equal and every preemptor bound; and the extender bridge: the port's
    ``ExtenderServer`` on ``cuda`` and a second on ``cpu`` each hold the
    5000 nodes and 1000 bound pods of SchedulingBasic/5000Nodes (loaded
-   through /cache/nodes and /cache/pods), 256 pods post ``filter`` and
+   through /cache/nodes and /cache/pods), 128 pods post ``filter`` and
    ``prioritize`` with all 5000 node names, some also ``preempt`` and
    ``bind``, one ``filter`` carries full Nodes items: every reply of the
    card's server must equal the cpu server's; requests/s and p50/p99 ms
@@ -256,8 +262,9 @@ line also holds the scan's step split and step floor (``scan_split``);
 ``--time-spread ROOT`` does the same on the PreferredTopologySpreading
 cycle and on the mixed spread cluster under the spread profile;
 ``--time-mesh ROOT`` times its node mesh's greedy, batched and packing
-engines (kernels K1, K2 and K5 at four logical shards) beside its
-unsharded kernels.
+engines (kernels K1, K2 and K5 at four logical shards) and its packing
+solve on a 2 x 2 grid of logical tiles (K8), on the BinPacking block and
+its cut to 256 pods, beside its unsharded kernels (B14 for packing).
 Run any of them on two checkouts in turns (parent, change, change,
 parent) to compare the two on one card within one call. ``--time-dra`` splits the scan's time on
 the SchedulingBasic cycle with a DynamicResources score leaf into the
@@ -1995,25 +2002,19 @@ def _bits_equal(name, got, want) -> int:
     return _equal_or_raise(name, (got.view(torch.int32),), (want.view(torch.int32),))
 
 
-def _packing_equal(name, b, params, lam, weights, results) -> tuple:
-    """``kernels.packing_assign`` against ``packing_assign_plain`` on one
-    batch — assignments, the seven state slots, the duals (bits),
-    iterations and nodes used exactly, the objective within rtol 1e-5 —
-    and each launch alone against its plain part: ``packing_start``, the
-    node pass (``packing_nodes``), one ``packing_round`` from the batch's
-    start, and ``packing_end`` on the plain solve's final state. Returns
-    the kernel's solve."""
+def _packing_equal(name, b, params, lam, weights, results, max_iters=0) -> tuple:
+    """``kernels.packing_assign`` (one launch a solve) against
+    ``packing_assign_plain`` on one batch, stopped at ``max_iters`` rounds
+    (0: the batch's pods, kubetpu's cap) — assignments, the seven state
+    slots, the duals (bits), iterations and nodes used exactly, the
+    objective within rtol 1e-5. Returns the kernel's solve."""
     import torch
 
     from kubetpu_torch import kernels
     from kubetpu_torch.assign import packing as PK
 
-    def note(kernel, err):
-        results[kernel]["cases"].append(name)
-        results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
-
-    got = kernels.packing_assign(b, params, lam, weights)
-    want = PK.packing_assign_plain(b, params, lam, weights)
+    got = kernels.packing_assign(b, params, lam, weights, max_iters)
+    want = PK.packing_assign_plain(b, params, lam, weights, max_iters)
     torch.cuda.synchronize()
     ka, ks, klam, kobj, kit, knu = got
     pa, ps, plam, pobj, pit, pnu = want
@@ -2026,48 +2027,37 @@ def _packing_equal(name, b, params, lam, weights, results) -> tuple:
     if rel > 1e-5:
         raise AssertionError(f"{name}: objective {float(kobj)} against the plain "
                              f"{float(pobj)} (rel {rel})")
-    note("packing_round", err)
-    order, coupled, lam_d = kernels.packing_start(b, params, lam, weights)
-    note("packing_start", _equal_or_raise(
-        f"{name} packing_start", (order, coupled, lam_d.view(torch.int32)),
-        tuple(x.view(torch.int32) if x.dtype == torch.float32 else x
-              for x in PK.packing_prologue_plain(b, lam, weights))))
-    note("packing_nodes", _bits_equal(
-        f"{name} packing_nodes", kernels.packing_nodes(b, params, lam_d, weights),
-        PK.node_penalty(b, b.requested, b.pod_count, lam_d, weights)))
-    start = (b.requested, b.nonzero_requested, b.pod_count, b.node_ports,
-             None if b.spread is None else b.spread.node_count,
-             None if b.podaffinity is None else b.podaffinity.base_sums,
-             None if b.nominated_pod_idx is None else torch.ones(
-                 b.nominated_pod_idx.shape[0], dtype=torch.bool, device=b.device))
-    assign0 = torch.full_like(ka, -1)
-    args = (b, params, start, b.pod_valid, assign0, lam_d, weights, order, coupled)
-    k_st, k_act, k_as, k_lam, k_prog = kernels.packing_round(*args)
-    p_st, p_act, p_as, p_lam, p_prog = PK.packing_round_plain(*args)
-    torch.cuda.synchronize()
-    note("packing_round", max(
-        _engine_err(f"{name} one round", k_as, k_st, p_as, p_st),
-        _equal_or_raise(f"{name} one round's active", (k_act,), (p_act,)),
-        _bits_equal(f"{name} one round's duals", k_lam, p_lam)))
-    if k_prog != bool(p_prog):
-        raise AssertionError(f"{name}: one round's progress {k_prog} != {bool(p_prog)}")
-    end_k = kernels.packing_end(b, params, ps[0], ps[2], pa, p_lam, weights)
-    end_p = PK.packing_epilogue_plain(b, ps[0], ps[2], pa, p_lam, weights)
-    torch.cuda.synchronize()
-    note("packing_end", max(_bits_equal(f"{name} packing_end duals", end_k[0], end_p[0]),
-                            _equal_or_raise(f"{name} packing_end nodes used", end_k[2:],
-                                            end_p[2:])))
-    rel_end = abs(float(end_k[1]) - float(end_p[1])) / max(abs(float(end_p[1])), 1e-30)
-    if rel_end > 1e-5:
-        raise AssertionError(f"{name}: packing_end objective {float(end_k[1])} against "
-                             f"{float(end_p[1])}")
+    cap = f", stopped at {max_iters} rounds" if max_iters else ""
+    results["packing_round"]["cases"].append(name + cap)
+    results["packing_round"]["max_abs_err"] = max(results["packing_round"]["max_abs_err"], err)
     n_valid = int(b.pod_valid.sum().item())
-    log(f"kernels vs plain [{name} packing]: P={b.requests.shape[0]} N={b.alloc.shape[0]} "
-        f"topology {b.topology is not None}: exact ({kit} iterations, "
+    log(f"kernels vs plain [{name} packing{cap}]: P={b.requests.shape[0]} "
+        f"N={b.alloc.shape[0]} topology {b.topology is not None}: exact ({kit} iterations, "
         f"{int((ka[:n_valid] >= 0).sum().item())} of {n_valid} pods placed on {int(knu)} "
-        f"nodes, objective {float(kobj):.6f} against {float(pobj):.6f}, rel {rel:.2e}); "
-        "each launch alone exact")
+        f"nodes, objective {float(kobj):.6f} against {float(pobj):.6f}, rel {rel:.2e})")
     return got
+
+
+def idle_batch(b):
+    """``b`` with no pod valid: the solve runs no round."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(b, pod_valid=torch.zeros_like(b.pod_valid))
+
+
+def packing_round_bytes(b) -> int:
+    """The bytes one round of the solve must move: the node rows it reads
+    (capacity, the running state, pod room, validity, ports), each pod
+    class's verdicts, totals and tie nodes written once, the duals read and
+    written, and the per-pod vectors (admission order and its inverse,
+    pick, admission, active flag, assignment)."""
+    N, R = b.alloc.shape
+    K = b.port_conflict.shape[0]
+    P = b.requests.shape[0]
+    return (N * (3 * R * 8 + 4 + 4 + 1 + K) + scored_pods(b) * N * (1 + 8 + 4) + 2 * 4 * N
+            + P * (4 + 4 + 4 + 4 + 1 + 4))
 
 
 def packing_checks(results) -> dict:
@@ -2077,16 +2067,18 @@ def packing_checks(results) -> dict:
     the 32-slice labeled fleet with ``topology="on"``, the coupled-heavy
     SchedulingPodAffinity and TopologySpreading blocks, the mixed cluster
     (host ports, taints, images; 2000 x 512) and the Basic block under a
-    profile with the NodeResourcesFit filter off; then the dual ascent's
-    log1p on the card for every count in [0, 1024] against the plain
-    version on the CPU. Returns the packing kernels' timings."""
+    profile with the NodeResourcesFit filter off; the stop rule at 1 and 2
+    rounds on the BinPacking, sliced Basic, PodAffinity and
+    TopologySpreading blocks, and on a BinPacking batch with no pod valid
+    (no round); then the dual ascent's log1p on the card for every count in
+    [0, 1024] against the plain version on the CPU. Returns the solve's
+    timing."""
     import torch
 
     from kubetpu_torch import kernels
     from kubetpu_torch.assign import packing as PK
     from kubetpu_torch.framework import config as C
     from kubetpu_torch.framework import runtime as rt
-    from kubetpu_torch.ops.topology import slice_occupancy
     from kubetpu_torch.perf import workloads as W
 
     weights = PK.PackingWeights().tensor("cuda")
@@ -2099,11 +2091,12 @@ def packing_checks(results) -> dict:
     basic = _packing_equal("SchedulingBasic 1024x5120", bb, pb, cold(bb), weights, results)
     _packing_equal("SchedulingBasic warm", bb, pb, basic[2], weights, results)
     bs, ps_ = encode_topology(sliced(cache, SLICES), pending, C.Profile())
-    _packing_equal("SchedulingBasic, 32 slices", bs.device, ps_, cold(bs.device), weights,
-                   results)
     cache_b, pending_b = binpack_case()
     bp, pp = encode(cache_b, pending_b, C.Profile())
     binpack = _packing_equal("BinPacking 1024x5120", bp, pp, cold(bp), weights, results)
+    stops = [("BinPacking 1024x5120", bp, pp), ("SchedulingBasic, 32 slices", bs.device, ps_)]
+    _packing_equal("SchedulingBasic, 32 slices", bs.device, ps_, cold(bs.device), weights,
+                   results)
     for name, (cache_c, pending_c), prof in (
             ("SchedulingPodAffinity 1024x5120", podaffinity_case(), C.Profile()),
             ("TopologySpreading 1024x5120",
@@ -2111,8 +2104,17 @@ def packing_checks(results) -> dict:
             ("mixed 512x2048", mixed_case(seed=1), C.Profile())):
         bc, pc = encode(cache_c, pending_c, prof)
         _packing_equal(name, bc, pc, cold(bc), weights, results)
+        if not name.startswith("mixed"):
+            stops.append((name, bc, pc))
     bn, pn = encode(cache, pending, nofit_profile())
     _packing_equal("SchedulingBasic, fit filter off", bn, pn, cold(bn), weights, results)
+    for name, b, params in stops:
+        for cap in (1, 2):
+            _packing_equal(name, b, params, cold(b), weights, results, max_iters=cap)
+    idle = _packing_equal("BinPacking, no pod valid", idle_batch(bp), pp, cold(bp), weights,
+                          results)
+    if idle[4] != 0:
+        raise AssertionError(f"a batch with no pod valid ran {idle[4]} rounds")
 
     k = torch.arange(0, 1025, dtype=torch.float32)
     ours, cuda = kernels.packing_log1p(k.cuda())
@@ -2124,19 +2126,20 @@ def packing_checks(results) -> dict:
         f"CUDA's log1pf differs at {off_cuda} counts, torch.log1p on the CPU at {off_torch}")
 
     # timings: the whole solve on the BinPacking block (bins open one a
-    # round) and on the Basic block; each launch alone on the Basic block
-    P, N, R = bp.requests.shape[0], bp.alloc.shape[0], bp.alloc.shape[1]
-    K = bp.port_conflict.shape[0]
+    # round) and on the Basic block
+    P, N = bp.requests.shape[0], bp.alloc.shape[0]
     state_bytes = sum(int(x.nbytes) for x in (bp.requested, bp.nonzero_requested,
                                               bp.pod_count, bp.node_ports))
     lam0 = cold(bp)
     iters_bp, iters_basic = binpack[4], basic[4]
-    solve = {
+    return {"packing_round": {
         "ms": cuda_ms(lambda: kernels.packing_assign(bp, pp, lam0, weights), 5),
         "plain_ms": cuda_ms(lambda: PK.packing_assign_plain(bp, pp, lam0, weights), 1),
-        # the batch read once, the assignments, state and duals written once
-        "bytes": rt.batch_nbytes(bp) + 2 * 4 * N + P * 4 + state_bytes,
-        # each round's filter_score float64 work over every pair
+        # the batch read and the outputs written once, and each round's
+        # node rows, class rows, duals and pod vectors
+        "bytes": rt.batch_nbytes(bp) + 2 * 4 * N + P * 4 + state_bytes
+        + iters_bp * packing_round_bytes(bp),
+        # each round's float64 work over one pod a class
         "ops": iters_bp * scored_pods(bp) * N * f64_ops_per_pair(pp, bp),
         "shape": [P, N], "iterations": iters_bp,
         "basic_ms": cuda_ms(lambda: kernels.packing_assign(bb, pb, cold(bb), weights), 5),
@@ -2144,39 +2147,7 @@ def packing_checks(results) -> dict:
                                   1),
         "basic_iterations": iters_basic,
         "filter_score_ms": cuda_ms(lambda: kernels.filter_score(bp, pp), 20),
-    }
-    topo = bs.device.topology
-    solve["node_pass"] = {
-        "ms": cuda_ms(lambda: kernels.packing_nodes(bb, pb, cold(bb), weights), 20),
-        "sliced_ms": cuda_ms(lambda: kernels.packing_nodes(bs.device, ps_, cold(bb), weights),
-                             20),
-        "plain_ms": cuda_ms(lambda: PK.node_penalty(bb, bb.requested, bb.pod_count, cold(bb),
-                                                    weights), 20),
-        "sliced_plain_ms": cuda_ms(lambda: PK.node_penalty(
-            bs.device, bs.device.requested, bs.device.pod_count, cold(bb), weights), 20),
-        "slice_occupancy_plain_ms": cuda_ms(lambda: slice_occupancy(
-            bs.device.requested, bs.device.node_valid, topo.slice_id, topo.num_slices), 20),
-        # the node rows read once, the penalties written once
-        "bytes": N * R * 8 * 2 + N * 4 * 3 + N + 4 * (int(topo.num_slices) + 1),
-        "slices": int(topo.num_slices),
-    }
-    lam_b = cold(bb)
-    end_args = (bb, pb, basic[1][0], basic[1][2], basic[0], basic[2], weights)
-    return {
-        "packing_round": solve,
-        "packing_start": {
-            "ms": cuda_ms(lambda: kernels.packing_start(bb, pb, lam_b, weights), 20),
-            "plain_ms": cuda_ms(lambda: PK.packing_prologue_plain(bb, lam_b, weights), 20),
-            "bytes": P * (1 + 4 + K + 4 + 1) + 2 * 4 * N + 40, "ops": 0, "shape": [P, N],
-        },
-        "packing_end": {
-            "ms": cuda_ms(lambda: kernels.packing_end(*end_args), 20),
-            "plain_ms": cuda_ms(lambda: PK.packing_epilogue_plain(
-                bb, basic[1][0], basic[1][2], basic[0], basic[2], weights), 20),
-            "bytes": N * R * 8 * 3 + N * 4 * 2 + N + P * (4 + 4 + 1) + 2 * 4 * N + 8 + 40,
-            "ops": 0, "shape": [P, N],
-        },
-    }
+    }}
 
 
 # --------------------------------------------------- 3. volumes and DRA
@@ -2337,7 +2308,7 @@ def pv_case(n_nodes=5000, n_pending=1024, zones=("zone-a", "zone-b", "zone-c")):
 def dra_checks(results, basic) -> dict:
     """Phase 3's DynamicResources and volume checks. ``filter_score``, the
     ``greedy_scan`` engine, the ``batched_round`` rounds, the packing
-    engine (``_packing_equal``: every launch alone too) and the placement
+    engine (``_packing_equal``) and the placement
     search (``placement_scan``, and on the batched engine
     ``hypothesis_rows`` + B3 + B6 + ``slice_epilogue``; two placements: all
     nodes, every other node) and the recorder's ``explain_summary`` and
@@ -2456,8 +2427,7 @@ def kernels_phase():
                for k in ("filter_score", "greedy_scan", "batched_round", "scatter_rows",
                          "dry_run_preemption", "explain_summary",
                          "filter_component_masks", "hypothesis_scan", "hypothesis_rows",
-                         "slice_epilogue", "packing_start", "packing_round", "packing_end",
-                         "packing_nodes")}
+                         "slice_epilogue", "packing_round")}
     # (name, batch, params, greedy assignments) for the explain checks
     explain_batches = []
     # the SchedulingBasic cycle: the greedy main path's shapes and timings
@@ -2600,15 +2570,10 @@ def kernels_phase():
          "node rows, engine=batched)"),
         ("slice_epilogue", "kubetpu_torch/kernels/csrc/hypothesis_scan.cu",
          "kubetpu/ops/topology.py:19, :41 (engine=batched)"),
-        ("packing_start", "kubetpu_torch/kernels/csrc/packing_round.cu",
-         "kubetpu/assign/packing.py:187 (_priority_order), :283, :290-294 (the solve's "
-         "start)"),
-        ("packing_round", "kubetpu_torch/kernels/csrc/packing_round.cu",
-         "kubetpu/assign/packing.py:259 (with :146, :198); kubetpu/ops/topology.py:64 "
-         "(slice_occupancy, fused)"),
-        ("packing_end", "kubetpu_torch/kernels/csrc/packing_round.cu",
-         "kubetpu/assign/packing.py:467-499 (equalization prices, objective; "
-         "slice_occupancy fused)"),
+        ("packing_round", "kubetpu_torch/kernels/csrc/packing_round.cu (+ filter_pass.cuh)",
+         "kubetpu/assign/packing.py:259 (the whole solve: :187 _priority_order, the rounds "
+         "with :146, :198 and their filter_score_batch, :467-499 the end); "
+         "kubetpu/ops/topology.py:64 (slice_occupancy, fused)"),
     ):
         tm = timing[name]
         bound_ms, bound_by = _bound(tm["bytes"], tm["ops"])
@@ -2660,15 +2625,10 @@ def kernels_phase():
         f"{gd['bound_ms']:.6f} ms ({gd['bound_by']}); on the batched engine "
         f"{gd['batched_ms']:.3f} ms, plain {gd['batched_plain_ms']:.3f} ms")
     pr = timing["packing_round"]
-    npass = pr["node_pass"]
     log(f"timing [packing_round] whole solve on the BinPacking block ({pr['iterations']} "
-        f"iterations, filter_score alone {pr['filter_score_ms']:.4f} ms a round), on the "
+        f"iterations; filter_score alone {pr['filter_score_ms']:.4f} ms), on the "
         f"SchedulingBasic block {pr['basic_ms']:.4f} ms ({pr['basic_iterations']} "
-        f"iterations), plain {pr['basic_plain_ms']:.4f} ms; node pass alone "
-        f"{npass['ms']:.4f} ms, with slice_occupancy over {npass['slices']} slices "
-        f"{npass['sliced_ms']:.4f} ms, plain {npass['plain_ms']:.4f} / "
-        f"{npass['sliced_plain_ms']:.4f} ms (slice_occupancy alone "
-        f"{npass['slice_occupancy_plain_ms']:.4f} ms)")
+        f"iterations), plain {pr['basic_plain_ms']:.4f} ms")
     k128 = timing["dry_run_preemption"]["k128"]
     log(f"timing [dry_run_preemption] at 5120x128: kernel {k128['ms']:.4f} ms, plain "
         f"{k128['plain_ms']:.4f} ms, bound {k128['bound_ms']:.6f} ms ({k128['bound_by']})")
@@ -2691,6 +2651,9 @@ def kernels_phase():
     mesh4 = node_mesh(4, True)
     mesh_timing = mesh_checks(mesh4, results, mesh_batch_list, (b, params), round_batch_list)
     stamp("phase 3: mesh checks")
+    out[0]["potential_mesh"] = potential_mesh_checks(
+        [("4 shards", mesh4), ("2 x 2 grid", grid_mesh(True))], results)
+    stamp("phase 3: sharded potential mask checks")
     # the packing engine on the node mesh (K5), and the 2 x 2 grid (K6, K7)
     pm_cases = packing_mesh_batches((b, params))
     mesh_timing.update(packing_mesh_checks(mesh4, results, pm_cases))
@@ -2970,16 +2933,16 @@ MESH_KERNELS = (
      "(pick_node across node shards)"),
     ("shard_argmax", "kubetpu_torch/kernels/csrc/greedy_scan.cu (+ exchange.cuh)",
      "kubetpu/parallel/mesh.py:327 (measure_collective_wall)"),
-    ("sharded_packing", "kubetpu_torch/kernels/csrc/packing_round.cu (kt_packing_tile on one "
-     "pod row; + the sharded passes of filter_score.cu, batched_round.cu's shard_combine)",
+    ("sharded_packing", "kubetpu_torch/kernels/csrc/packing_round.cu (one launch a solve on "
+     "each card, one pod row; + filter_pass.cuh, exchange.cuh)",
      "kubetpu/parallel/mesh.py:369 (sharded_packing)"),
     ("tiled_round", "kubetpu_torch/kernels/csrc/batched_round.cu (kt_tiled_round; + the "
      "sharded passes of filter_score.cu)",
      "kubetpu/parallel/mesh.py:352 (sharded_batched with pod_axis=\"pods\")"),
     ("tiled_scan", "kubetpu_torch/kernels/csrc/greedy_scan.cu (+ scan_loop.cuh, exchange.cuh)",
      "kubetpu/parallel/mesh.py:234 (sharded_greedy with pod_axis=\"pods\")"),
-    ("tiled_packing", "kubetpu_torch/kernels/csrc/packing_round.cu (kt_packing_tile; + the "
-     "sharded passes of filter_score.cu, batched_round.cu's shard_combine)",
+    ("tiled_packing", "kubetpu_torch/kernels/csrc/packing_round.cu (one launch a solve on "
+     "each card; + filter_pass.cuh, exchange.cuh)",
      "kubetpu/parallel/mesh.py:369 (sharded_packing with pod_axis=\"pods\")"),
 )
 
@@ -3108,7 +3071,8 @@ def mesh_checks(mesh, results, batches, basic, round_batches) -> dict:
         f"{one:.4f} ms a call (torch.argmax with its read {k4['library_host_ms']:.4f} ms); one "
         f"exchange round trip {k4['exchange_us']:.3f} us; measure_collective_wall "
         f"{k4['collective_wall_s'] * 1e3:.4f} ms")
-    # K1 on every batch
+    # K1 on every batch; the plain engine timed on the first batch it runs on
+    plain_ms = plain_shape = None
     for name, b, params, with_plain in batches:
         sb = M.shard_batch(b, mesh)
         got = kernels.tiled_greedy_scan(sb, params)
@@ -3116,8 +3080,12 @@ def mesh_checks(mesh, results, batches, basic, round_batches) -> dict:
                         kernels.greedy_scan(b, params))
         line = "the unsharded kernel"
         if with_plain:
+            t0 = time.perf_counter()
             plain = greedy_assign_tiled_plain(sb, params)
             torch.cuda.synchronize()
+            if plain_ms is None:
+                plain_ms = 1e3 * (time.perf_counter() - t0)
+                plain_shape = [b.requests.shape[0], b.alloc.shape[0], G]
             err = max(err, _mesh_err(f"{name} sharded_scan vs its plain version", got, plain))
             line += " and the sharded plain engine"
         note("sharded_scan", name, err)
@@ -3133,23 +3101,17 @@ def mesh_checks(mesh, results, batches, basic, round_batches) -> dict:
     note("sharded_scan", "tie across the first shard boundary", 0)
     log(f"mesh [tie batch] first pick node {first} (the first shard's last), every "
         "assignment equal to the unsharded kernel")
-    # K1 timing on the Basic batch, its plain version once
+    # K1 timing on the Basic batch (its full-size plain engine is not run:
+    # the unsharded kernel is held to it at full size, K1 to that kernel)
     b, params = basic
     sb = M.shard_batch(b, mesh)
-    t0 = time.perf_counter()
-    plain = greedy_assign_tiled_plain(sb, params)
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
-    got = kernels.tiled_greedy_scan(sb, params)
-    note("sharded_scan", "SchedulingBasic vs its plain version",
-         _mesh_err("SchedulingBasic sharded_scan vs its plain version", got, plain))
     P, N = b.requests.shape[0], b.alloc.shape[0]
     state_bytes = sum(int(x.nbytes) for x in (b.requested, b.nonzero_requested,
                                               b.pod_count, b.node_ports))
     timing["sharded_scan"] = {
         "ms": cuda_ms(lambda: kernels.tiled_greedy_scan(sb, params), 5),
         "unsharded_ms": cuda_ms(lambda: kernels.greedy_scan(b, params), 5),
-        "plain_ms": plain_ms,
+        "plain_ms": plain_ms, "plain_shape": plain_shape,
         "bytes": rt.batch_nbytes(b) + P * 4 + state_bytes,
         "ops": scored_pods(b) * N * f64_ops_per_pair(params, b), "shape": [P, N, G],
         "exchanges_per_step": 1,
@@ -3287,6 +3249,119 @@ def mesh_checks(mesh, results, batches, basic, round_batches) -> dict:
     return timing
 
 
+def hard_spread_case(n_nodes=5000, n_pending=8):
+    """A cluster where a hard zone spread constraint's verdict needs the
+    global counts: every node nearly full (a 900m filler on 4000m less
+    3000m of capacity), zones z-a / z-b alternating over the first 3840
+    nodes and z-c on the rest (the last quarter of 5120 padded rows: the
+    last shard of four, the second column of two). app=x pods count z-a 12
+    (all below node 1280), z-b 30 (ten in each of the first three
+    quarters), z-c 10. The preemptors (priority 100, app=x, maxSkew 11 over
+    zones) pass z-a (12 + 1 - 10) and z-c, and fail z-b (30 + 1 - 10 = 21);
+    a shard or column that counted alone (z-c absent: minMatch 0, ten z-b
+    pods) would pass its z-b nodes."""
+    from kubetpu_torch.api import wrappers as WR
+
+    def zone(i):
+        return "z-c" if i >= 3840 else ("z-a", "z-b")[i % 2]
+
+    nodes = [WR.make_node(f"hs-{i}", cpu_milli=1000, memory=2**33,
+                          labels={"topology.kubernetes.io/zone": zone(i)})
+             for i in range(n_nodes)]
+    za = [i for i in range(0, 1280) if zone(i) == "z-a"][:12]
+    zb = [i for q in range(3) for i in range(q * 1280, (q + 1) * 1280) if zone(i) == "z-b"][
+        ::64][:30]
+    zc = list(range(3840, n_nodes))[:10]
+    match = set(za) | set(zb) | set(zc)
+    bound = [WR.make_pod(f"fill-{i}", cpu_milli=900, priority=i % 3, node_name=f"hs-{i}",
+                         creation_index=i, labels={"app": "x"} if i in match else {})
+             for i in range(n_nodes)]
+    spread = WR.spread_constraint(11, "topology.kubernetes.io/zone",
+                                  match_labels={"app": "x"})
+    pending = [WR.make_pod(f"pre-{j}", cpu_milli=800, priority=100, creation_index=n_nodes + j,
+                           labels={"app": "x"}, spread=[spread]) for j in range(n_pending)]
+    return _cache_with(nodes, bound), pending
+
+
+def potential_mesh_checks(layouts, results) -> dict:
+    """Item 21 on the card: the potential mask of ``hard_spread_case``'s
+    preemptors over each layout of ``layouts`` (name, mesh: a node mesh or a
+    pods x nodes grid), through the sharded potential mode
+    (``kernels.sharded_potential_mask``, each pod on its pod row's columns),
+    exact against the unsharded kernel and the plain version; and the mask
+    that the shards' own counts give (the plain filters on each shard
+    alone) differs from it, so the batch decides. Returns each layout's
+    times of the last pod's mask (CUDA events): the sharded kernel, the
+    unsharded kernel, the plain version."""
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.framework import config as C
+    from kubetpu_torch.framework import runtime as rt
+    from kubetpu_torch.framework.preemption import (PreemptionEvaluator, _one_pod_view,
+                                                    _potential_of)
+    from kubetpu_torch.parallel import mesh as M
+
+    batch, params = encode_batch_full(*hard_spread_case(), C.Profile())
+    b = batch.device
+    if b.spread is None or not b.spread.has_hard:
+        raise AssertionError("the hard spread case carries no DoNotSchedule constraint")
+    ev = PreemptionEvaluator(batch, params)
+    up = ev._upload(ev._potential_arrays())
+    pods = list(range(batch.num_pods))
+    counts = b.spread.node_count
+    timing = {}
+    for name, mesh in layouts:
+        sb = M.shard_batch(b, mesh)
+        ng, pb = sb.columns, int(sb.shards[0].requests.shape[0])
+        decided = 0
+        for i in pods:
+            r, q = divmod(i, pb)
+            shards = sb.shards[r * ng:(r + 1) * ng]
+            states, local = [], []
+            for s, off in zip(shards, sb.offsets):
+                n = int(s.alloc.shape[0])
+                cut = (up["requested"][off:off + n], up["pod_count"][off:off + n],
+                       up["node_ports"][off:off + n], counts[:, off:off + n].contiguous(),
+                       None)
+                states.append(tuple(None if x is None else x.to(s.device) for x in cut))
+                view = _one_pod_view(s, q)
+                comps = rt.filter_components(view, params, requested=states[-1][0],
+                                             pod_count=states[-1][1], node_ports=states[-1][2],
+                                             spread_counts=states[-1][3])
+                local.append(_potential_of(*comps[:5]))
+            views = [_one_pod_view(s, q) for s in shards]
+
+            def sharded(views=views, row=mesh.row(r), states=states):
+                return kernels.sharded_potential_mask(views, row, params, states,
+                                                      [None] * len(views))
+
+            got = torch.cat([x.to(b.alloc.device) for x in sharded()])
+            unsharded = ev._potential_mask(i, up)
+            plain = ev._potential_mask_plain(i, up)
+            torch.cuda.synchronize()
+            for what, want in (("the unsharded kernel", unsharded),
+                               ("the plain version", plain)):
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{name}: pod {i}'s sharded potential mask differs "
+                                         f"from {what}")
+            decided += int((torch.cat([x.to(got.device) for x in local]) != got).sum())
+        if not decided:
+            raise AssertionError(f"{name}: the shards' own counts give the same masks; the "
+                                 "batch does not test the combine")
+        results["filter_score"]["cases"].append(f"sharded potential mask, hard spread, {name}")
+        timing[name] = {"ms": cuda_ms(sharded, 20),
+                        "unsharded_ms": cuda_ms(lambda: ev._potential_mask(i, up), 20),
+                        "plain_ms": cuda_ms(lambda: ev._potential_mask_plain(i, up), 5)}
+        log(f"mesh [{name}] sharded potential mask with a hard spread constraint exact against "
+            f"the unsharded kernel and the plain version on {len(pods)} pods "
+            f"({int(plain.sum())} potential nodes of the last; {decided} node verdicts a "
+            f"shard's own counts would have given otherwise); the last pod's mask "
+            f"{timing[name]['ms']:.4f} ms, unsharded {timing[name]['unsharded_ms']:.4f} ms, "
+            f"plain {timing[name]['plain_ms']:.4f} ms")
+    return timing
+
+
 def grid_mesh(one_card: bool):
     """A 2 x 2 pods x nodes grid: four logical tiles on cuda:0, or one tile
     a card."""
@@ -3301,8 +3376,8 @@ def grid_mesh(one_card: bool):
 
 def packing_mesh_batches(basic):
     """The batches K5 is held on: (name, batch, params, with the sharded
-    plain solve too): the BinPacking block (bins open one a round; the
-    plain solve too), the SchedulingBasic block (``basic``: its batch and
+    plain solve too): the BinPacking block (bins open one a round), the
+    SchedulingBasic block (``basic``: its batch and
     params) with and without the 32-slice fleet, and the BinPacking batch
     cut to 256 pods with and without the slices (its slices span the shard
     boundaries), where the plain solve runs too."""
@@ -3310,7 +3385,9 @@ def packing_mesh_batches(basic):
 
     out = []
     cache_b, pending_b = binpack_case()
-    out.append(("BinPacking 1024x5120", *encode(cache_b, pending_b, C.Profile()), True))
+    # the full block's plain solve is not repeated: the unsharded kernel is
+    # held to it at full size (packing_checks) and K5 to that kernel here
+    out.append(("BinPacking 1024x5120", *encode(cache_b, pending_b, C.Profile()), False))
     cache, pending = basic_case()
     out.append(("SchedulingBasic 1024x5120", *basic, False))
     bs, ps = encode_topology(sliced(cache, SLICES), pending, C.Profile())
@@ -3343,12 +3420,49 @@ def _packing_mesh_err(name, got, want) -> int:
     return err
 
 
+def packing_stop_checks(layout, kernel, results, name, b, params) -> None:
+    """The stop rule of the solve over ``layout`` (a node mesh or a grid,
+    counted as ``kernel``) on the device: stopped at 1 and 2 rounds against
+    the unsharded kernel and the tiled plain solve stopped alike, and a
+    batch with no pod valid (no round)."""
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.assign import packing as PK
+    from kubetpu_torch.parallel import mesh as M
+
+    weights = PK.PackingWeights().tensor("cuda")
+    for label, batch, caps in ((name, b, (1, 2)), (f"{name}, no pod valid", idle_batch(b),
+                                                   (0,))):
+        sb = M.shard_batch(batch, layout)
+        cold = torch.zeros(batch.alloc.shape[0], dtype=torch.float32, device="cuda")
+        for cap in caps:
+
+            def pieces():
+                return [torch.zeros(s.alloc.shape[0], dtype=torch.float32, device=s.device)
+                        for s in sb.shards]
+
+            got = kernels.tiled_packing_assign(sb, params, pieces(), weights, cap)
+            err = _packing_mesh_err(f"{label} {kernel} stopped at {cap}", got,
+                                    kernels.packing_assign(batch, params, cold, weights, cap))
+            err = max(err, _packing_mesh_err(
+                f"{label} {kernel} stopped at {cap} vs its plain version", got,
+                PK.packing_assign_tiled_plain(sb, params, pieces(), weights, cap)))
+            if cap == 0 and got[4] != 0:
+                raise AssertionError(f"{label} {kernel}: {got[4]} rounds with no pod valid")
+            results[kernel]["cases"].append(f"{label}, stopped at {cap or 'P'}")
+            results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
+            log(f"[{label}] {kernel} stopped at {cap or 'P'} rounds equal to the unsharded "
+                f"kernel and the tiled plain solve ({got[4]} iterations)")
+
+
 def packing_mesh_checks(mesh, results, cases) -> dict:
     """K5 on the node mesh: the sharded solve against the unsharded
     ``packing_assign`` on every batch of ``cases`` (cold duals) and, where
     asked, against ``packing_assign_tiled_plain``; timed with CUDA events
-    beside the unsharded kernel on the full BinPacking block (its plain
-    version once) and on the cut one. Returns K5's timing entry."""
+    beside the unsharded kernel on the full BinPacking block and on the cut
+    one (its plain version once, on the cut block). Returns K5's timing
+    entry."""
     import torch
 
     from kubetpu_torch import kernels
@@ -3399,9 +3513,11 @@ def packing_mesh_checks(mesh, results, cases) -> dict:
             "unsharded_ms": cuda_ms(lambda: kernels.packing_assign(b, params, cold, weights),
                                     3),
             "plain_ms": plain_ms, "iterations": got[4], "batch": name,
-            # the batch read once, assignments, state and duals written
-            # once; each round's filter_score float64 work
-            "bytes": rt.batch_nbytes(b) + 2 * 4 * N + P * 4 + state_bytes,
+            # the batch read and the outputs written once, and each round's
+            # node rows, class rows, duals and pod vectors; each round's
+            # float64 work over one pod a class
+            "bytes": rt.batch_nbytes(b) + 2 * 4 * N + P * 4 + state_bytes
+            + got[4] * packing_round_bytes(b),
             "ops": got[4] * scored_pods(b) * N * f64_ops_per_pair(params, b),
             "shape": [P, N, G],
         }
@@ -3409,6 +3525,10 @@ def packing_mesh_checks(mesh, results, cases) -> dict:
             timing.update(entry)
         else:
             timing["cut"] = entry
+    # the plain solve's time: on the cut block (the full block's is not run)
+    timing["plain_ms"], timing["plain_shape"] = timing["cut"]["plain_ms"], timing["cut"]["shape"]
+    cut_case = next(c for c in cases if c[0] == "BinPacking 256x5120, 32 slices")
+    packing_stop_checks(mesh, "sharded_packing", results, *cut_case[:3])
     cut = timing["cut"]
     log(f"timing [sharded_packing] on the BinPacking batch cut to {cut['shape'][0]} pods "
         f"({cut['iterations']} iterations): kernel {cut['ms']:.4f} ms, unsharded "
@@ -3494,9 +3614,11 @@ def packing_grid_checks(grid, mesh, results, cases, full=None) -> dict:
             "unsharded_ms": cuda_ms(lambda: kernels.packing_assign(b, params, cold, weights),
                                     3),
             "plain_ms": plain_ms, "iterations": got[4], "batch": name,
-            # the batch read once, assignments, state and duals written
-            # once; each round's filter_score float64 work
-            "bytes": rt.batch_nbytes(b) + 2 * 4 * N + P * 4 + state_bytes,
+            # the batch read and the outputs written once, and each round's
+            # node rows, class rows, duals and pod vectors; each round's
+            # float64 work over one pod a class
+            "bytes": rt.batch_nbytes(b) + 2 * 4 * N + P * 4 + state_bytes
+            + got[4] * packing_round_bytes(b),
             "ops": got[4] * scored_pods(b) * N * f64_ops_per_pair(params, b),
             "shape": [P, N] + shape,
         }
@@ -3504,6 +3626,7 @@ def packing_grid_checks(grid, mesh, results, cases, full=None) -> dict:
     timing = timed(*cases[0])
     for case in cases[1:]:
         check(*case)
+    packing_stop_checks(grid, "tiled_packing", results, *cases[-1])
     lines = [("", timing)]
     if full is not None:
         timing["full"] = timed(*full)
@@ -3576,14 +3699,6 @@ def grid_checks(grid, results, batches) -> dict:
             err = max(err, _mesh_err(f"{name} cut tiled scan vs its plain version",
                                      got_c, plain))
             line += f" and, cut to {bc.requests.shape[0]} pods, the tiled plain scan"
-        if name.startswith("SchedulingBasic"):
-            t0 = time.perf_counter()
-            plain_full = greedy_assign_tiled_plain(tb, params)
-            torch.cuda.synchronize()
-            plain_full_ms = 1e3 * (time.perf_counter() - t0)
-            err = max(err, _mesh_err(f"{name} tiled scan vs its plain version", got,
-                                     plain_full))
-            line += " and, in full, the tiled plain scan"
         note("tiled_scan", name, err)
         log(f"mesh [{name}] on the {shape} grid: tiled rounds ({t_rounds[0]} rounds) equal "
             f"to the unsharded kernel and the tiled plain rounds, every pod row's node rows "
@@ -3610,7 +3725,9 @@ def grid_checks(grid, results, batches) -> dict:
             timing["tiled_scan"] = {
                 "ms": cuda_ms(lambda: kernels.tiled_greedy_scan(tb, params), 3),
                 "unsharded_ms": cuda_ms(lambda: kernels.greedy_scan(b, params), 3),
-                "plain_ms": plain_full_ms,
+                # the full-size plain scan is not run (the unsharded kernel
+                # is held to it at full size): the cut's
+                "plain_ms": plain_ms, "plain_shape": [Pc, bc.alloc.shape[0]] + shape,
                 "bytes": rt.batch_nbytes(b) + P * 4 + state_bytes,
                 "ops": scored_pods(b) * N * f64_ops_per_pair(params, b),
                 "shape": [P, N] + shape, "batch": name,
@@ -3659,6 +3776,7 @@ def mesh_kernel_lines(results, timing) -> list:
         }
         for k in ("unsharded_ms", "sharded_ms", "exchange_us", "collective_wall_s",
                   "exchanges_per_step", "rounds", "batch", "cut", "full", "iterations",
+                  "plain_shape",
                   "library_host_ms"):
             if k in tm:
                 line[k] = tm[k]
@@ -4192,11 +4310,11 @@ def _post(url: str, body) -> object:
         return json.loads(resp.read())
 
 
-def bridge_phase(card, n_nodes=5000, n_bound=1000, n_pods=256) -> dict:
+def bridge_phase(card, n_nodes=5000, n_bound=1000, n_pods=128) -> dict:
     """The port's ``ExtenderServer`` on the card, as a real kube-scheduler
     drives it: the 5000 node_default nodes and 1000 bound pod_default pods
     of SchedulingBasic/5000Nodes loaded through /cache/nodes and
-    /cache/pods, then 256 pod_default pods each posting ``filter`` and
+    /cache/pods, then ``n_pods`` pod_default pods each posting ``filter`` and
     ``prioritize`` with every node name, some also ``preempt`` and
     ``bind``, and one ``filter`` in non-cache-capable mode with full Nodes
     items. A second server on ``device="cpu"`` holds the same cache and
@@ -4538,7 +4656,7 @@ def gang_mesh_paths(card, mesh, grid, unsharded: dict) -> dict:
             f"the unsharded {unsharded[key][2]:.1f}")
         runs[f"{key} {label}"] = run
     coalesced = dict(feature_gates=GANG_GATES, topology="off")
-    packing = ("filter_score", "packing_start", "packing_round", "packing_end")
+    packing = ("packing_round",)
     duals: dict = {"ref": {}, "mesh": {}}
     # the recorder is off: the check's plain pods run cycles after the
     # path's launch counts were read
@@ -4577,7 +4695,7 @@ def plain_packing(b, params):
     return out[0], out[1]
 
 
-PACKING = ("filter_score", "packing_start", "packing_round", "packing_end", "explain_summary")
+PACKING = ("packing_round", "explain_summary")
 
 
 def packing_paths(card) -> dict:
@@ -4997,9 +5115,9 @@ def mesh12_paths(card, mesh, grid, unsharded: dict) -> dict:
         label = f"{where} {shape if where == 'mesh' else gshape}"
         for key, case, workload, expected, names in (
                 ("binpack packing", "BinPacking", "1000Nodes_3000Pods", 200 + 3000,
-                 ("filter_score", kernel)),
+                 (kernel,)),
                 ("basic packing", "SchedulingBasic", "5000Nodes_10000Pods", 1000 + 10000,
-                 ("filter_score", kernel, "scatter_rows"))):
+                 (kernel, "scatter_rows"))):
             run = run_path(card, case, workload, "packing", expected, None, names,
                            workload_kw=dict(mesh=m))
             want = unsharded[key]
@@ -5098,6 +5216,8 @@ def mesh_mode() -> int:
     timing.update(grid_checks(grid, results, grid_batches(
         basic, by_name["SchedulingPodAffinity 1024x5120"],
         by_name["TopologySpreading 1024x5120"])))
+    results.setdefault("filter_score", {"cases": [], "max_abs_err": 0})
+    potential_mesh_checks([(f"{mesh.size} shards", mesh), ("2 x 2 grid", grid)], results)
     pm = {c[0]: c[:3] for c in pm_cases}
     timing.update(packing_grid_checks(
         grid, mesh, results, [pm["BinPacking 256x5120"], pm["BinPacking 256x5120, 32 slices"]],
@@ -5173,6 +5293,10 @@ def time_checkout(mode: str, root: str) -> int:
     from kubetpu_torch.framework import config as C
     from kubetpu_torch.perf import workloads as W
 
+    if mode == "mesh":
+        # the libraries the mode launches (the others take most of a build)
+        kernels.SOURCES = tuple(src for src in kernels.SOURCES if src in (
+            "filter_score.cu", "greedy_scan.cu", "batched_round.cu", "packing_round.cu"))
     kernels.build()
     log_build_report(kernels)
     line = {"root": root, "card": card}
@@ -5350,30 +5474,76 @@ def time_mesh(line: dict) -> None:
             raise AssertionError(f"{prefix}: the sharded engine's assignments differ")
         line[prefix + "sharded_ms"] = cuda_ms(lambda: sharded(sb, params), 20)
         line[prefix + "unsharded_ms"] = cuda_ms(lambda: unsharded(b, params), 20)
-    # the packing solve over the node mesh (K5), through the engine's entry
-    # point, on the BinPacking block and on its cut to 256 pods
+    # the packing solve over the node mesh (K5) and the 2 x 2 grid (K8),
+    # through the engine's entry point, and unsharded (B14), on the
+    # BinPacking block and on its cut to 256 pods
     from kubetpu_torch.assign.packing import PackingWeights, packing_assign_device
 
     w = PackingWeights().tensor("cuda")
+    grid = grid_mesh(True)
     for prefix, n_pending, reps in (("binpack_packing_", 1024, 9), ("binpack256_packing_", 256,
                                                                      15)):
         b, params = encode(*binpack_case(n_pending=n_pending), C.Profile())
-        sb = M.shard_batch(b, mesh)
-
-        def lam(sb=sb):
-            return M.ShardedTensor([torch.zeros(s.alloc.shape[0], dtype=torch.float32,
-                                                device=s.device) for s in sb.shards])
-
         cold = torch.zeros(b.alloc.shape[0], dtype=torch.float32, device="cuda")
-        got = packing_assign_device(sb, params, lam(), w)
         want = kernels.packing_assign(b, params, cold, w)
-        if not torch.equal(got[0].to(want[0].device), want[0]) or got[4] != want[4]:
-            raise AssertionError(f"{prefix}: the sharded solve differs from the unsharded one")
-        line[prefix + "sharded_ms"] = cuda_ms(lambda: packing_assign_device(sb, params, lam(),
-                                                                            w), reps)
+        for what, layout in (("sharded", mesh), ("grid", grid)):
+            sb = M.shard_batch(b, layout)
+
+            def lam(sb=sb):
+                return M.ShardedTensor([torch.zeros(s.alloc.shape[0], dtype=torch.float32,
+                                                    device=s.device) for s in sb.shards],
+                                       rows=sb.pod_rows)
+
+            got = packing_assign_device(sb, params, lam(), w)
+            if not torch.equal(got[0].to(want[0].device), want[0]) or got[4] != want[4]:
+                raise AssertionError(f"{prefix}{what}: the solve differs from the unsharded one")
+            line[prefix + what + "_ms"] = cuda_ms(
+                lambda sb=sb, lam=lam: packing_assign_device(sb, params, lam(), w), reps)
+            if n_pending == 1024:
+                # the card's busy time inside a call (every kernel and copy)
+                line[prefix + what + "_device_ms"] = kernel_device_ms(
+                    lambda sb=sb, lam=lam: packing_assign_device(sb, params, lam(), w), ("",),
+                    3)
         line[prefix + "unsharded_ms"] = cuda_ms(lambda: kernels.packing_assign(b, params, cold,
                                                                                w), reps)
-        line[prefix + "iterations"] = got[4]
+        if n_pending == 1024:
+            line[prefix + "unsharded_device_ms"] = kernel_device_ms(
+                lambda: kernels.packing_assign(b, params, cold, w), ("",), 3)
+            if hasattr(kernels, "packing_split"):
+                line[prefix + "split_us"] = packing_split(
+                    b, params, w, cold, [("sharded", M.shard_batch(b, mesh)),
+                                         ("grid", M.shard_batch(b, grid))])
+        line[prefix + "iterations"] = want[4]
+
+
+# the parts of a packing solve (packing_round.cu's kSplit order)
+PACKING_PARTS = ("start", "partials_0_2", "verdicts_3", "normalize_4", "totals_5", "best_6",
+                 "ties_7", "rank_pick_8", "admissions_9", "commit_10", "end")
+
+
+def packing_split(b, params, w, cold, layouts) -> dict:
+    """µs in each part of one packing solve (``kernels.packing_split``:
+    block 0's clock between marks, barrier waits included), unsharded and
+    over each of ``layouts`` (name, sharded batch)."""
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.assign.packing import packing_assign_device
+    from kubetpu_torch.parallel import mesh as M
+
+    out = {}
+    runs = [("unsharded", lambda: kernels.packing_assign(b, params, cold, w))] + [
+        (name, lambda sb=sb: packing_assign_device(sb, params, M.ShardedTensor(
+            [torch.zeros(s.alloc.shape[0], dtype=torch.float32, device=s.device)
+             for s in sb.shards], rows=sb.pod_rows), w)) for name, sb in layouts]
+    for name, fn in runs:
+        kernels.packing_split = torch.zeros(kernels.PACKING_SPLIT, dtype=torch.int64,
+                                            device="cuda")
+        fn()
+        ns = kernels.packing_split.tolist()
+        kernels.packing_split = None
+        out[name] = dict(zip(PACKING_PARTS, (x / 1e3 for x in ns)))
+    return out
 
 
 def kernel_device_ms(fn, kernels: tuple, reps: int):

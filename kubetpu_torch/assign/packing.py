@@ -748,8 +748,9 @@ def packing_assign_device(
     b, params: rt.ScoreParams, lam, weights: torch.Tensor, max_iters: int = 0,
 ):
     """One packing solve. A CUDA batch launches the ``packing_round``
-    kernels (on copies of the node state: the batch's node block, which
-    may be the scheduler's resident block, is never written); a CPU batch
+    kernel, one launch a solve (on copies of the node state: the batch's
+    node block, which may be the scheduler's resident block, is never
+    written); a CPU batch
     runs ``packing_assign_plain``. A sharded batch
     (``parallel.mesh.ShardedBatch``, a node mesh or a pods x nodes grid;
     ``lam`` a ``mesh.ShardedTensor`` of its tiles' pieces) runs the tiled

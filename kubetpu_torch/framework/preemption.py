@@ -216,37 +216,38 @@ class PreemptionEvaluator:
         )
         return _potential_of(static, fit, ports_ok, spread_ok, pa_ok)
 
-    def _dry_run_sharded(self, i: int, pod: t.Pod, arrays: dict):
-        """The dry run of pod ``i`` over the node columns of its pod row:
-        each shard's potential mask (the plain filters in lockstep on CPU
-        shards, kernel B3's potential mode on CUDA ones), then
-        ``ops.preemption.dry_run_preemption_sharded``."""
+    def _potential_shards(self, i: int, shards, mesh, q: int, ups) -> list:
+        """Pod ``i``'s potential mask over the node columns ``shards`` of its
+        pod row (``mesh`` the row's node-axis mesh, ``q`` its row within
+        them, ``ups`` each column's uploaded state): a mask a column, the
+        spread filter's domain sums reduced over the columns (the plain
+        filters in lockstep on CPU shards, kernel B3's sharded potential
+        mode on CUDA ones)."""
         from ..parallel.mesh import run_sharded
 
+        if self._sharded.device.type == "cpu":
+            return run_sharded(
+                [self._potential_steps(s, g, q, up)
+                 for g, (s, up) in enumerate(zip(shards, ups))], mesh)
+        from ..kernels import sharded_potential_mask
+
+        sp = self.spread_counts
+        return sharded_potential_mask(
+            [_one_pod_view(s, q) for s in shards], mesh, self.params,
+            [(up["requested"], up["pod_count"], up["node_ports"],
+              None if sp is None else sp.pieces[g].to(s.device),
+              None if self.pa_sums is None else self.pa_sums.to(s.device))
+             for g, (s, up) in enumerate(zip(shards, ups))],
+            [up.get("nom_active") for up in ups])
+
+    def _dry_run_sharded(self, i: int, pod: t.Pod, arrays: dict):
+        """The dry run of pod ``i`` over the node columns of its pod row:
+        each column's potential mask (``_potential_shards``), then
+        ``ops.preemption.dry_run_preemption_sharded``."""
         sb = self._sharded
         shards, mesh, q = self._pod_row(i)
         ups = self._upload_shards(arrays, shards)
-        if sb.device.type == "cpu":
-            potential = run_sharded(
-                [self._potential_steps(s, g, q, up)
-                 for g, (s, up) in enumerate(zip(shards, ups))], mesh)
-        else:
-            from ..kernels import potential_mask
-
-            sp = shards[0].spread
-            if sp is not None and self.params.filter_spread and sp.has_hard:
-                raise NotImplementedError(
-                    "a hard-spread potential mask under a CUDA mesh is ROADMAP "
-                    "Queue A item 12's remaining part, not yet ported")
-            potential = []
-            for g, (s, up) in enumerate(zip(shards, ups)):
-                with rt.on_device(s.device):
-                    potential.append(potential_mask(
-                        _one_pod_view(s, q), self.params, up["requested"], up["pod_count"],
-                        up["node_ports"], None if self.spread_counts is None
-                        else self.spread_counts.pieces[g].to(s.device),
-                        None if self.pa_sums is None else self.pa_sums.to(s.device),
-                        up.get("nom_active")))
+        potential = self._potential_shards(i, shards, mesh, q, ups)
         shard_args = [
             (s.requests[q], int(pod.priority), up["wants_conf"], pot, s.alloc,
              up["charged_req"], up["charged_cnt"], s.allowed_pods, up["charged_ports"],

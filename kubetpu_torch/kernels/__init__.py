@@ -11,8 +11,10 @@ library also holds the batched engine's ``hypothesis_rows`` and
 ``csrc/dry_run_preemption.cu`` (the preemption victim search), and the
 flight recorder's ``csrc/explain_summary.cu`` and
 ``csrc/filter_component_masks.cu`` (also the extender bridge's per-plugin
-masks), and the packing engine's ``csrc/packing_round.cu`` (its solve's
-start, rounds and end) are compiled at first use, for ``sm_90a``, one ``nvcc`` per source started
+masks), and the packing engine's ``csrc/packing_round.cu`` (its whole
+solve in one launch: the start, the rounds with each one's Filter + Score
+through ``csrc/filter_pass.cuh``, which ``filter_score.cu`` shares, the
+stop rule and the end) are compiled at first use, for ``sm_90a``, one ``nvcc`` per source started
 together, each into a shared library with a plain C interface that
 ``ctypes`` loads. No PyTorch header is compiled, so
 a build takes seconds. Outputs go to ``build/kubetpu_torch_kernels/`` under
@@ -29,10 +31,11 @@ partials inside the kernel through ``csrc/exchange.cuh`` (``greedy_scan.cu``
 two kernels are K2 and K1. K3 is the dry run's cross-shard pick
 (``dry_run_preemption.cu``) and K4 the exchange's argmax probe
 (``greedy_scan.cu``); ``scatter_rows`` runs on each shard's card for the
-routed delta (B5m). K8 is the packing solve over a grid's tiles
-(``packing_round.cu`` ``kt_packing_tile``, with ``shard_combine`` between
-its steps and the rows' per-pod vectors gathered for the rank); on a node
-mesh, one pod row, it is K5.
+routed delta (B5m). K8 is the packing solve over a grid's tiles, one
+cooperative launch a solve on each card holding the card's tiles
+(``packing_round.cu``, the same kernel as the unsharded B14), the tiles
+combining their partials inside it and the cards through the exchange's
+sequence words; on a node mesh, one pod row, it is K5.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else, allocates its outputs with ``torch.empty``, launches on the
@@ -62,6 +65,7 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..framework import config as C
@@ -74,7 +78,8 @@ SOURCES = ("filter_score.cu", "greedy_scan.cu", "batched_round.cu", "scatter_row
 # the libraries that take the ScoreArgs struct (score_common.cuh)
 SCORE_ARGS_LIBS = ("filter_score", "greedy_scan", "batched_round", "explain_summary",
                    "filter_component_masks", "hypothesis_scan", "packing_round")
-HEADERS = ("score_common.cuh", "score_prelaunch.cuh", "scan_loop.cuh", "exchange.cuh")
+HEADERS = ("score_common.cuh", "score_prelaunch.cuh", "filter_pass.cuh", "scan_loop.cuh",
+           "exchange.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kubetpu_torch_kernels"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -92,13 +97,13 @@ launch_counts = {
     "filter_score": 0, "greedy_scan": 0, "batched_round": 0, "scatter_rows": 0,
     "dry_run_preemption": 0, "explain_summary": 0, "filter_component_masks": 0,
     "hypothesis_scan": 0, "hypothesis_rows": 0, "slice_epilogue": 0,
-    "packing_start": 0, "packing_round": 0, "packing_end": 0, "packing_nodes": 0,
-    "packing_log1p": 0,
+    "packing_round": 0, "packing_log1p": 0,
     # the mesh's kernels (K1-K8): one count a shard's (a tile's) block or
-    # step launched. The tiled scan, round and solve count under
-    # "sharded_scan" / "sharded_round" / "sharded_packing" (K1, K2, K5) on a
-    # node mesh (one pod row) and under "tiled_scan" / "tiled_round" /
-    # "tiled_packing" (K7, K6, K8) on a grid
+    # step launched; the packing solve (B14, K5, K8) one a solve on each
+    # card. The tiled scan, round and solve count under "sharded_scan" /
+    # "sharded_round" / "sharded_packing" (K1, K2, K5) on a node mesh (one
+    # pod row) and under "tiled_scan" / "tiled_round" / "tiled_packing"
+    # (K7, K6, K8) on a grid
     "sharded_scan": 0, "sharded_round": 0, "shard_pick": 0, "shard_argmax": 0,
     "sharded_packing": 0, "tiled_round": 0, "tiled_scan": 0, "tiled_packing": 0,
 }
@@ -115,13 +120,14 @@ _ARGTYPES = {
     "filter_component_masks": [ctypes.c_void_p] * 7,
     "hypothesis_scan": [ctypes.c_void_p] * 17 + [ctypes.c_int64] + [ctypes.c_void_p] * 3
     + [ctypes.c_int64] * 2 + [ctypes.c_void_p],
-    "packing_round": [ctypes.c_void_p] * 16 + [ctypes.c_int64] + [ctypes.c_void_p] * 8,
+    "packing_round": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p],
 }
 # the entry points a library has beside its own
 _MORE_ENTRIES = {
     "filter_score": {
-        "kt_filter_score_shard": [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-        + [ctypes.c_int64] + [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p],
+        "kt_filter_score_shard": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_void_p] * 2
+        + [ctypes.c_int64, ctypes.c_void_p],
     },
     "batched_round": {
         "kt_shard_combine": [ctypes.c_void_p] * 2,
@@ -143,11 +149,7 @@ _MORE_ENTRIES = {
         + [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p],
     },
     "packing_round": {
-        "kt_packing_start": [ctypes.c_void_p] * 8,
-        "kt_packing_nodes": [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_void_p] * 3,
-        "kt_packing_end": [ctypes.c_void_p] * 10 + [ctypes.c_int64] + [ctypes.c_void_p] * 4,
         "kt_packing_log1p": [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p],
-        "kt_packing_tile": [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2,
     },
 }
 
@@ -350,8 +352,7 @@ class CombineArgs(ctypes.Structure):
 
     _fields_ = [("src", ctypes.c_void_p * 8), ("dst", ctypes.c_void_p * 8),
                 ("G", ctypes.c_int64), ("n", ctypes.c_int64), ("op", ctypes.c_int64),
-                ("elem", ctypes.c_int64), ("flt", ctypes.c_int64), ("nsrc", ctypes.c_int64),
-                ("piece", ctypes.c_int64)]
+                ("elem", ctypes.c_int64), ("nsrc", ctypes.c_int64), ("piece", ctypes.c_int64)]
 
 
 class TileRound(ctypes.Structure):
@@ -364,17 +365,30 @@ class TileRound(ctypes.Structure):
         ("pod_offset", ctypes.c_int64), ("offset", ctypes.c_int64)]
 
 
-class PackShard(ctypes.Structure):
-    """Mirror of ``struct PackShard`` in csrc/packing_round.cu."""
+class SolveTile(ctypes.Structure):
+    """Mirror of ``struct SolveTile`` in csrc/packing_round.cu."""
 
-    _fields_ = [(name, ctypes.c_void_p) for name in (
-        "mask", "total", "req", "nz", "pc", "ports", "pa_delta", "sp_counts", "active",
-        "assignments", "lam", "w", "order", "coupled", "slice_id")] + [
-        ("S", ctypes.c_int64)] + [(name, ctypes.c_void_p) for name in (
-            "busy", "pen", "stats", "denom", "r", "choice", "acc", "over", "flags", "req0",
-            "pc0", "prio", "endf", "endi", "objective", "nodes_used", "fbest", "fhash",
-            "fcount")] + [
-        ("pod_offset", ctypes.c_int64), ("offset", ctypes.c_int64)]
+    _fields_ = [("a", ScoreArgs), ("af", ScoreArgs)] + [
+        (name, ctypes.c_void_p) for name in ("reps", "class_of")] + [("C", ctypes.c_int64)] + [
+        (name, ctypes.c_void_p) for name in (
+            "mask", "total", "ties", "cstats", "sc", "bits", "mx", "sums_part", "busy", "pen",
+            "lam", "over", "chosen", "endf", "req", "nz", "pc", "ports", "pa_sums", "pa_delta",
+            "sp_counts", "w", "slice_id")] + [("S", ctypes.c_int64)] + [
+        (name, ctypes.c_void_p) for name in (
+            "order", "byorder", "coupled", "active", "assignments", "choice", "acc",
+            "req0", "pc0",
+            "prio", "scal", "objective", "nodes_used")] + [
+        (name, ctypes.c_int64) for name in ("offset", "row", "col")]
+
+
+class SolveSet(ctypes.Structure):
+    """Mirror of ``struct SolveSet`` in csrc/packing_round.cu."""
+
+    _fields_ = [("t", SolveTile * 8), ("PG", ctypes.c_int64), ("NG", ctypes.c_int64),
+                ("local", ctypes.c_int64 * 8)] + [
+        (name, ctypes.c_int64) for name in ("nlocal", "bpt", "cap")] + [
+        (name, ctypes.c_void_p) for name in ("bar", "abort", "out", "split")] + [
+        ("x", Exchange), ("card", ctypes.c_int64)]
 
 
 class PickShard(ctypes.Structure):
@@ -393,7 +407,7 @@ _STRUCT_SIZES = {
     "dry_run_preemption": (("kt_dry_run_preemption_pick_size", PickShard),),
     "batched_round": (("kt_batched_round_combine_size", CombineArgs),
                       ("kt_batched_round_tile_size", TileRound)),
-    "packing_round": (("kt_packing_round_shard_size", PackShard),),
+    "packing_round": (("kt_packing_round_set_size", SolveSet),),
 }
 
 # dynamic shared memory a spread-scoring block takes at most: static and
@@ -775,6 +789,59 @@ def potential_mask(view: rt.DeviceBatch, p: rt.ScoreParams, requested, pod_count
     launch_counts["filter_score"] += 1
     del keep
     return mask[0]
+
+
+def sharded_potential_mask(views, mesh, p: rt.ScoreParams, states, nom_actives):
+    """``potential_mask`` over a node mesh: ``views`` the one-pod views of
+    one pod row's node columns (``mesh`` the row's node-axis mesh),
+    ``states`` each column's ``(requested, pod_count, node_ports (bool),
+    spread_counts, pa_sums)`` (the last two None without their leaves),
+    ``nom_actives`` each column's live nominations (or None). Each shard's
+    partial spread domain sums (``kt_filter_score_shard`` step 0) are summed
+    over the shards (``shard_combine``), so that the spread filter on every
+    shard reads the constraint's global minimum; then each shard's potential
+    pass (step 1). Returns each shard's (N / G,) bool mask, equal to its
+    rows of the unsharded ``potential_mask``."""
+    lib = build()["filter_score"]
+    shards = []
+    sp = views[0].spread
+    for view, (req, pc, ports, sp_counts, pa_sums), nom in zip(views, states, nom_actives):
+        if view.requests.shape[0] != 1:
+            raise ValueError(f"sharded_potential_mask: one-pod views, got "
+                             f"P={view.requests.shape[0]}")
+        dev = view.alloc.device
+        with on_device(dev):
+            a, keep = _score_args(view, p, "potential_mask (sharded)",
+                                  (req, view.nonzero_requested, pc, ports, pa_sums, sp_counts),
+                                  nom_active=nom)
+            sums = None
+            if sp is not None:
+                # the spread domain sums the pass reads: step 0's partials,
+                # then their sum over the shards
+                sums = torch.empty((sp.domain_present.shape[0], sp.domain_present.shape[1] + 1),
+                                   dtype=torch.int64, device=dev)
+                a.sp_sums = sums.data_ptr()
+            mask = torch.empty((1, a.N), dtype=torch.bool, device=dev)
+        shards.append((dev, a, keep, sums, mask))
+
+    def step(k):
+        for dev, a, _, _, mask in shards:
+            with on_device(dev):
+                code = lib.kt_filter_score_shard(
+                    ctypes.byref(a), mask.data_ptr(), None, None, k, 1, None, None, None, 0,
+                    None, None, 1, _raw_stream(dev.index))
+            _raise_on(lib, "filter_score", code, "filter_score (sharded potential)")
+            launch_counts["filter_score"] += 1
+
+    if sp is not None:
+        step(0)
+        parts = []
+        for dev, _, _, sums, _ in shards:
+            with on_device(dev):
+                parts.append(sums.clone())
+        shard_combine(mesh, SUM, parts, [x[3] for x in shards])
+    step(1)
+    return [x[4][0] for x in shards]
 
 
 def greedy_scan(b: rt.DeviceBatch, p: rt.ScoreParams):
@@ -1277,125 +1344,17 @@ def _ptr(x: torch.Tensor | None):
     return None if x is None else x.data_ptr()
 
 
-class _PackingSolve:
-    """One packing solve's launch context: the argument struct (over the
-    running state ``state``, the ``_score_args`` tuple order), the weights,
-    the topology leaf and the scratch the launches share."""
-
-    def __init__(self, b: rt.DeviceBatch, p: rt.ScoreParams, weights: torch.Tensor,
-                 state=None, nom_active: torch.Tensor | None = None):
-        self.b = b
-        self.dev = dev = b.alloc.device
-        P = b.requests.shape[0]
-        if P > 1024:
-            raise ValueError(f"packing_round: P={P} exceeds the sorting block's 1024 pods")
-        self.a, self.keep = _score_args(b, p, "packing_round", state, bits_blocks=P,
-                                        nom_active=nom_active)
-        self.classes = rt.pod_classes(b)   # fixed for the solve
-        N = self.a.N
-        self.w = _check("weights", weights, torch.float32, (10,), dev)
-        self.prio = (None if b.pod_priority is None else
-                     _check("pod_priority", b.pod_priority, torch.int32, (P,), dev))
-        topo = b.topology
-        self.slice_id, self.S = None, 0
-        if topo is not None:
-            self.S = int(topo.num_slices)
-            self.slice_id = _check("topology.slice_id", topo.slice_id, torch.int32, (N,), dev)
-        self.busy = torch.empty((2 * (self.S + 1),), dtype=torch.int32, device=dev)
-        self.lib = build()["packing_round"]
-        self.stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def lam(self, lam: torch.Tensor) -> int:
-        return _check("lam", lam, torch.float32, (self.a.N,), self.dev)
-
-    def start(self, lam: torch.Tensor):
-        """``kt_packing_start``: ``(order, coupled, lam * decay)``."""
-        P, N = self.a.P, self.a.N
-        order = torch.empty((P,), dtype=torch.int32, device=self.dev)
-        coupled = torch.empty((P,), dtype=torch.bool, device=self.dev)
-        lam_out = torch.empty((N,), dtype=torch.float32, device=self.dev)
-        code = self.lib.kt_packing_start(
-            ctypes.byref(self.a), self.prio, self.w, self.lam(lam), lam_out.data_ptr(),
-            order.data_ptr(), coupled.data_ptr(), self.stream)
-        _raise_on(self.lib, "packing_round", code, "packing_start")
-        launch_counts["packing_start"] += 1
-        return order, coupled, lam_out
-
-    def nodes(self, lam: torch.Tensor) -> torch.Tensor:
-        """``kt_packing_nodes``: the (N,) float32 node penalties."""
-        pen = torch.empty((self.a.N,), dtype=torch.float32, device=self.dev)
-        code = self.lib.kt_packing_nodes(
-            ctypes.byref(self.a), self.w, self.lam(lam), self.slice_id, self.S,
-            self.busy.data_ptr(), pen.data_ptr(), self.stream)
-        _raise_on(self.lib, "packing_round", code, "packing_nodes")
-        launch_counts["packing_nodes"] += 1
-        return pen
-
-    def round(self, state, active, assignments, lam, order, coupled, scratch) -> tuple:
-        """``filter_score`` against ``state``, then ``kt_packing_round``,
-        which updates ``state``, ``active``, ``assignments`` and ``lam`` in
-        place. Returns the round's (progress, any pod still active)."""
-        req, nz, pc, ports, pa_sums, sp_counts = state
-        mask, _, total = _launch_filter_score(self.a, self.dev, want_total=True, dynamic=True,
-                                              smem=_smem(self.b), classes=self.classes)
-        pen, stats64, stats32, denom, over, flags = scratch
-        code = self.lib.kt_packing_round(
-            ctypes.byref(self.a), mask.data_ptr(), total.data_ptr(), req.data_ptr(),
-            nz.data_ptr(), pc.data_ptr(), ports.data_ptr(), _ptr(pa_sums), _ptr(sp_counts),
-            active.data_ptr(), assignments.data_ptr(), self.lam(lam), self.w,
-            order.data_ptr(), coupled.data_ptr(), self.slice_id, self.S,
-            self.busy.data_ptr(), pen.data_ptr(), stats64.data_ptr(), stats32.data_ptr(),
-            denom.data_ptr(), over.data_ptr(), flags.data_ptr(), self.stream)
-        _raise_on(self.lib, "packing_round", code)
-        launch_counts["packing_round"] += 1
-        return tuple(bool(v) for v in flags.tolist())
-
-    def scratch(self):
-        P, N, dev = self.a.P, self.a.N, self.dev
-        return (
-            torch.empty((N,), dtype=torch.float32, device=dev),      # pen
-            torch.empty((3, P), dtype=torch.int64, device=dev),      # best, cnt, hash
-            torch.empty((2, P), dtype=torch.int32, device=dev),      # r, choice
-            torch.empty((P,), dtype=torch.float32, device=dev),      # denom
-            torch.empty((N,), dtype=torch.int32, device=dev),        # over
-            torch.empty((2,), dtype=torch.int32, device=dev),        # flags
-        )
-
-    def end(self, requested, pod_count, assignments, lam):
-        """``kt_packing_end``: writes the warm-start prices into ``lam``;
-        returns ``(objective () float32, nodes_used () int32)``."""
-        b, dev, N, R = self.b, self.dev, self.a.N, self.a.R
-        objective = torch.empty((), dtype=torch.float32, device=dev)
-        nodes_used = torch.empty((), dtype=torch.int32, device=dev)
-        code = self.lib.kt_packing_end(
-            ctypes.byref(self.a), b.requested.data_ptr(), b.pod_count.data_ptr(),
-            _check("requested", requested, torch.int64, (N, R), dev),
-            _check("pod_count", pod_count, torch.int32, (N,), dev),
-            _check("assignments", assignments, torch.int32, (self.a.P,), dev),
-            self.prio, self.w, self.lam(lam), self.slice_id, self.S,
-            self.busy.data_ptr(), objective.data_ptr(), nodes_used.data_ptr(), self.stream)
-        _raise_on(self.lib, "packing_round", code, "packing_end")
-        launch_counts["packing_end"] += 1
-        return objective, nodes_used
-
-
-def _packing_state(b: rt.DeviceBatch, state=None):
-    """Copies of the running state in ``_score_args`` order (requested,
-    nonzero, pod_count, node_ports, pa_sums, spread_counts) from the
-    engine's seven-slot ``state``, or from the batch's start; and the live
-    nominations (all, from the start)."""
+def _packing_state(b: rt.DeviceBatch):
+    """Copies of the batch's start state in ``_score_args`` order
+    (requested, nonzero, pod_count, node_ports, pa_sums, spread_counts),
+    and the live nominations (all)."""
     pa, sp = b.podaffinity, b.spread
-    if state is None:
-        nom = (None if b.nominated_pod_idx is None else
-               torch.ones((b.nominated_pod_idx.shape[0],), dtype=torch.bool,
-                          device=b.alloc.device))
-        state = (b.requested, b.nonzero_requested, b.pod_count, b.node_ports,
-                 None if sp is None else sp.node_count,
-                 None if pa is None else pa.base_sums, nom)
-    req, nz, pc, ports, sp_counts, pa_sums, nom = state
+    nom = (None if b.nominated_pod_idx is None else
+           torch.ones((b.nominated_pod_idx.shape[0],), dtype=torch.bool, device=b.alloc.device))
     clone = (lambda x: None if x is None else x.clone())
-    return ((req.clone(), nz.clone(), pc.clone(), ports.clone(), clone(pa_sums),
-             clone(sp_counts)), clone(nom))
+    return ((b.requested.clone(), b.nonzero_requested.clone(), b.pod_count.clone(),
+             b.node_ports.clone(), clone(None if pa is None else pa.base_sums),
+             clone(None if sp is None else sp.node_count)), nom)
 
 
 def _seven(state, nom_active):
@@ -1403,74 +1362,194 @@ def _seven(state, nom_active):
     return (req, nz, pc, ports, sp_counts, pa_sums, nom_active)
 
 
-def packing_start(b: rt.DeviceBatch, p: rt.ScoreParams, lam: torch.Tensor,
-                  weights: torch.Tensor):
-    """The ``packing_start`` kernel alone: ``(order (P,) int32, coupled (P,)
-    bool, lam * decay (N,) float32)``, equal to
-    ``assign.packing.packing_prologue_plain(b, lam, weights)``."""
-    return _PackingSolve(b, p, weights).start(lam)
+class _SolveTile:
+    """One tile's buffers of a packing solve (``SolveTile``): its argument
+    structs (``a``: the tile's pods against its node column over copies of
+    the running state; ``af``: the column with every pod's pod-major
+    leaves, ``a`` itself when the tile holds every pod), its pod classes
+    (``runtime.pod_classes``; a class a pod without them), the class rows,
+    the node and pod vectors and its outputs. ``full`` is the tile's batch
+    with every pod (``b`` on one pod row), ``lam`` its (N,) duals (copied),
+    ``bpt`` the blocks the tile runs on."""
+
+    def __init__(self, b: rt.DeviceBatch, full: rt.DeviceBatch, p: rt.ScoreParams,
+                 lam: torch.Tensor, weights: torch.Tensor, offset: int, row: int, col: int,
+                 bpt: int) -> None:
+        dev = b.alloc.device
+        self.dev = dev
+        run, nom = _packing_state(b)
+        self.state, self.nom_active = run, nom
+        self.a, self.keep = _score_args(b, p, "packing_round", run, nom_active=nom)
+        # the struct points into `full`'s gathered pod leaves: kept alive
+        # with the tile until the launch is done
+        self.full, self.af = full, self.a
+        if full is not b:
+            self.af, self.keep_full = _score_args(full, p, "packing_round", run,
+                                                  nom_active=nom, pod_node=False)
+        Pb, P, N = self.a.P, self.af.P, self.a.N
+        cls = rt.pod_classes(b)
+        if cls is None:
+            class_of = reps = np.arange(Pb, dtype=np.int32)
+        else:
+            class_of, reps = cls.class_of, cls.host_reps()
+        C = len(reps)
+        self.classes = torch.from_numpy(
+            np.concatenate([class_of, reps]).astype(np.int32)).to(dev)
+        i64, i32, f32, u8 = torch.int64, torch.int32, torch.float32, torch.uint8
+
+        def empty(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        sp, topo = b.spread, b.topology
+        cw = 1 if sp is None else max(
+            sp.sig_idx.shape[1] * ((sp.domain_present.shape[1] + 31) // 32), 1)
+        # dynamic shared memory: the spread weights; the group keys of every
+        # pod and class (at most P classes); or the picks and admission
+        # order (4 bytes a pod each) with 8 warps' resource carries
+        self.smem = 8 * max(2 * P, P + 8 * self.a.R,
+                            0 if sp is None else sp.sig_idx.shape[1])
+        self.S = 0 if topo is None else int(topo.num_slices)
+        self.slice_id = None if topo is None else topo.slice_id
+        if self.slice_id is not None:
+            _check("topology.slice_id", self.slice_id, i32, (N,), dev)
+        _check("lam", lam, f32, (N,), dev)
+        self.lam = lam.clone()
+        self.w = weights.to(dev).contiguous()
+        _check("weights", self.w, f32, (10,), dev)
+        prio = full.pod_priority
+        if prio is not None:
+            _check("pod_priority", prio, i32, (P,), dev)
+        req, nz, pc, ports, pa_sums, sp_counts = run
+        self.pa_delta = None if pa_sums is None else torch.empty_like(pa_sums)
+        self.assignments = empty((P,), i32)
+        self.objective = empty((), f32)
+        self.nodes_used = empty((), i32)
+        self.bufs = dict(
+            mask=empty((C, N), u8), total=empty((C, N), i64), ties=empty((C, N), i32),
+            cstats=empty((5, C), i64), sc=empty((2, C), i64), bits=empty((2, C, cw), i64),
+            mx=empty((2, C, 7), i64), busy=empty((3, self.S + 1), i32),
+            pen=empty((N,), f32), over=empty((N,), i32), chosen=empty((N,), i32),
+            endf=empty((2, bpt), f32), order=empty((P,), i32), byorder=empty((P,), i32),
+            coupled=empty((P,), u8), active=empty((P,), u8),
+            choice=empty((P,), i32), acc=empty((P,), i32),
+            scal=empty((5,), i64),
+            sums_part=None if sp is None else empty(
+                (sp.domain_present.shape[0], sp.domain_present.shape[1] + 1), i64))
+        t = self.struct = SolveTile()
+        t.a, t.af = self.a, self.af
+        t.class_of, t.reps = self.classes.data_ptr(), self.classes[Pb:].data_ptr()
+        t.C = C
+        for name, x in self.bufs.items():
+            setattr(t, name, _ptr(x))
+        t.lam, t.w, t.slice_id, t.S = self.lam.data_ptr(), self.w.data_ptr(), \
+            _ptr(self.slice_id), self.S
+        t.req, t.nz, t.pc, t.ports = (x.data_ptr() for x in (req, nz, pc, ports))
+        t.pa_sums, t.pa_delta, t.sp_counts = _ptr(pa_sums), _ptr(self.pa_delta), _ptr(sp_counts)
+        t.assignments = self.assignments.data_ptr()
+        t.objective, t.nodes_used = self.objective.data_ptr(), self.nodes_used.data_ptr()
+        t.req0, t.pc0, t.prio = b.requested.data_ptr(), b.pod_count.data_ptr(), _ptr(prio)
+        t.offset, t.row, t.col = offset, row, col
 
 
-def packing_nodes(b: rt.DeviceBatch, p: rt.ScoreParams, lam: torch.Tensor,
-                  weights: torch.Tensor) -> torch.Tensor:
-    """``packing_round``'s node pass alone (``kt_packing_nodes``, B12's
-    ``slice_occupancy`` fused): the (N,) float32 penalties against the
-    batch's start state, equal to ``assign.packing.node_penalty(b,
-    b.requested, b.pod_count, lam, weights)``."""
-    return _PackingSolve(b, p, weights).nodes(lam)
+_sm_count: dict = {}
+_solve_words: dict = {}
+# when a (PACKING_SPLIT,) int64 tensor on a solve's first card, each solve
+# adds to it the ns its parts took (packing_round.cu's kSplit order: the
+# start, the round's steps 0-2, 3, 4, 5, 6, 7, 8, 9, 10, the end) on block
+# 0's clock; a timing aid, None on every path
+packing_split: "torch.Tensor | None" = None
+PACKING_SPLIT = 11
+# cudaErrorCooperativeLaunchTooLarge: the tiles' blocks cannot all be resident
+_TOO_LARGE = 82
 
 
-def packing_round(b: rt.DeviceBatch, p: rt.ScoreParams, state, active, assignments, lam,
-                  weights, order, coupled):
-    """One round alone: ``filter_score`` then the ``packing_round`` launch,
-    on copies of the engine's seven-slot ``state``, ``active``,
-    ``assignments`` and ``lam``. Returns ``(state, active, assignments,
-    lam, progress)`` as ``assign.packing.packing_round_plain`` does."""
-    run, nom = _packing_state(b, state)
-    solve = _PackingSolve(b, p, weights, run, nom)
-    active, assignments, lam = active.clone(), assignments.clone(), lam.clone()
-    progress, _ = solve.round(run, active, assignments, lam, order, coupled, solve.scratch())
-    return _seven(run, nom), active, assignments, lam, progress
+def _blocks_a_tile(cards: dict) -> int:
+    """The blocks each tile of a solve runs on: the SMs of a card shared by
+    the most tiles that one card holds (one block an SM)."""
+    sms = []
+    for card, tiles in cards.items():
+        if card not in _sm_count:
+            _sm_count[card] = torch.cuda.get_device_properties(card).multi_processor_count
+        sms.append(_sm_count[card] // len(tiles))
+    return max(min(sms), 1)
 
 
-def packing_end(b: rt.DeviceBatch, p: rt.ScoreParams, requested, pod_count, assignments,
-                lam, weights):
-    """The ``packing_end`` kernel alone on a copy of ``lam``: ``(lam,
-    objective, nodes_used)``, equal to
-    ``assign.packing.packing_epilogue_plain`` (the objective within its
-    float32 sum's order)."""
-    lam = lam.clone()
-    objective, nodes_used = _PackingSolve(b, p, weights).end(requested, pod_count,
-                                                              assignments, lam)
-    return lam, objective, nodes_used
+def _solve(tiles: list, cards: dict, PG: int, NG: int, bpt: int, cap: int, mesh, what: str):
+    """Launch a solve (``kt_packing_round``) over ``tiles`` (tile (i, j) at
+    i * NG + j), one cooperative launch on each card of ``cards`` (card ->
+    its tiles' indices), the cards' launches meeting at the mesh's exchange;
+    then read each card's iterations and error flag. Returns the
+    iterations."""
+    lib = build()["packing_round"]
+    base = SolveSet()
+    for i, t in enumerate(tiles):
+        base.t[i] = t.struct
+    base.PG, base.NG, base.bpt, base.cap = PG, NG, bpt, cap
+    order = list(cards)
+    slots, epoch = [], 0
+    if len(order) > 1:
+        ex = _mesh_exchange(mesh)
+        ex.prepare(1)
+        slots = [ex.slots[cards[c][0]].data_ptr() for c in order]
+        epoch = ex.epoch
+    smem = max(t.smem for t in tiles)
+    reads = []
+    for k, card in enumerate(order):
+        words = _solve_words.get(card)
+        if words is None:
+            words = _solve_words[card] = torch.zeros(4, dtype=torch.int64, device=card)
+        st = SolveSet.from_buffer_copy(base)
+        for n, i in enumerate(cards[card]):
+            st.local[n] = i
+        st.nlocal = len(cards[card])
+        w0 = words.data_ptr()
+        st.bar, st.out, st.abort = w0, w0 + 8, w0 + 24
+        x = st.x
+        for h, ptr in enumerate(slots):
+            x.slot[h] = ptr
+        x.G, x.words, x.epoch, x.budget, x.error = len(order), 0, epoch, EXCHANGE_BUDGET, w0 + 28
+        st.card = k
+        if k == 0 and packing_split is not None:
+            st.split = _check("packing_split", packing_split, torch.int64, (PACKING_SPLIT,),
+                              card)
+        with on_device(card):
+            code = lib.kt_packing_round(ctypes.byref(st), smem, _raw_stream(card.index))
+        if code == _TOO_LARGE:
+            raise RuntimeError(
+                f"{what}: {len(cards[card])} tiles x {bpt} blocks of {_SOLVE_THREADS} threads "
+                f"cannot all be resident on {card} (one cooperative launch holds them)")
+        _raise_on(lib, "packing_round", code, what)
+        launch_counts[what] += 1
+        reads.append(words[1:3])
+    got = [r.tolist() for r in reads]
+    if any(err for _, err in got):
+        raise RuntimeError(f"{what}: a barrier or cross-card exchange waited past its budget")
+    return int(got[0][0])
+
+
+# the solve's block (packing_round.cu kThreads)
+_SOLVE_THREADS = 256
 
 
 def packing_assign(b: rt.DeviceBatch, p: rt.ScoreParams, lam: torch.Tensor,
                    weights: torch.Tensor, max_iters: int = 0):
-    """The packing engine on the card: ``packing_start`` once, then each
-    round ``filter_score`` over the whole batch against the round's state
-    and one ``packing_round`` launch, which chooses, admits, prices and
-    commits in place; the host reads the round's two flags (progress, any
-    pod still active). Then ``packing_end``. The batch's node block and
+    """The packing engine on the card (kernel B14): one launch a solve
+    (``kt_packing_round``: the start, the rounds with each one's Filter +
+    Score, the stop rule and the end on the device, every SM's block on the
+    batch), then one read of the iterations. The batch's node block and
     ``lam`` are not written. Returns ``(assignments (P,) int32,
     final_state, lam (N,) float32, objective () float32, iters int,
     nodes_used () int32)``, equal to ``assign.packing.packing_assign_plain``
-    (the objective within its float32 sum's order)."""
-    run, nom = _packing_state(b)
-    solve = _PackingSolve(b, p, weights, run, nom)
-    P = solve.a.P
-    order, coupled, lam = solve.start(lam)
-    active = b.pod_valid.clone()
-    assignments = torch.full((P,), -1, dtype=torch.int32, device=solve.dev)
-    scratch = solve.scratch()
-    cap = max_iters or P
-    iters = 0
-    progress, still = True, bool(torch.any(active))
-    while progress and still and iters < cap:
-        progress, still = solve.round(run, active, assignments, lam, order, coupled, scratch)
-        iters += 1
-    objective, nodes_used = solve.end(run[0], run[2], assignments, lam)
-    return assignments, _seven(run, nom), lam, objective, iters, nodes_used
+    (the objective within its float32 sums' order)."""
+    dev = b.alloc.device
+    _require_cuda(dev, "packing_round")
+    cards = {dev: [0]}
+    bpt = _blocks_a_tile(cards)
+    with on_device(dev):
+        tile = _SolveTile(b, b, p, lam, weights, 0, 0, 0, bpt)
+    iters = _solve([tile], cards, 1, 1, bpt, max_iters or tile.a.P, None, "packing_round")
+    return (tile.assignments, _seven(tile.state, tile.nom_active), tile.lam, tile.objective,
+            iters, tile.nodes_used)
 
 
 def packing_log1p(k: torch.Tensor):
@@ -1756,14 +1835,14 @@ def _before_all(mesh, home: torch.device) -> None:
 
 
 def shard_combine(mesh, op: int, srcs, dsts) -> None:
-    """The mesh's combine (the cross-shard reductions of K2, K5, K6 and K8):
-    element i of every ``srcs[g]`` (shard g's partial, on its device)
-    reduced by ``op`` and written into every ``dsts[g]``, in one launch on
-    the mesh's first card reading and writing the others' memory through
-    peer pointers, ordered after every card's stream and before each reads
-    the results. int32 and int64 partials take every op; float32 ones MAX,
-    MIN and SUM (added in shard order). ``GATHER``: every ``dsts[g]`` takes
-    the ``srcs`` joined in order (each source one piece of the result)."""
+    """The mesh's combine (the cross-shard reductions of K2 and K6, and of
+    the sharded potential mask's spread sums): element i of every
+    ``srcs[g]`` (shard g's partial, on its device) reduced by ``op`` and
+    written into every ``dsts[g]``, in one launch on the mesh's first card
+    reading and writing the others' memory through peer pointers, ordered
+    after every card's stream and before each reads the results. int32 and
+    int64 partials. ``GATHER``: every ``dsts[g]`` takes the ``srcs`` joined
+    in order (each source one piece of the result)."""
     x = srcs[0]
     c = CombineArgs()
     for g, t in enumerate(srcs):
@@ -1773,13 +1852,9 @@ def shard_combine(mesh, op: int, srcs, dsts) -> None:
     c.G, c.n, c.op = len(dsts), dsts[0].numel(), op
     c.nsrc, c.piece = len(srcs), x.numel()
     c.elem = x.element_size()
-    c.flt = int(x.dtype == torch.float32)
-    if (x.dtype not in (torch.int32, torch.int64, torch.float32)
+    if (x.dtype not in (torch.int32, torch.int64)
             or any(t.dtype != x.dtype for t in list(srcs) + list(dsts))):
-        raise ValueError(f"shard_combine: int32, int64 or float32 partials of one dtype, "
-                         f"got {x.dtype}")
-    if c.flt and op not in (MAX, MIN, SUM):
-        raise ValueError("shard_combine: float32 partials take MAX, MIN or SUM")
+        raise ValueError(f"shard_combine: int32 or int64 partials of one dtype, got {x.dtype}")
     if op != GATHER and (len(srcs) != len(dsts) or any(t.numel() != c.n for t in srcs)):
         raise ValueError("shard_combine: one partial a result, of one size")
     home = mesh.devices[0]
@@ -1863,7 +1938,7 @@ def _filter_score_shards(mesh, shards: list, smem: int) -> None:
             with on_device(s.dev):
                 code = lib.kt_filter_score_shard(
                     ctypes.byref(s.a), s.mask.data_ptr(), s.base.data_ptr(),
-                    s.total.data_ptr(), k, _ptr(sc(s) if sc else None),
+                    s.total.data_ptr(), k, 0, _ptr(sc(s) if sc else None),
                     _ptr(bits(s) if bits else None), _ptr(mx(s) if mx else None), smem,
                     *s.classes, torch.cuda.current_stream(s.dev).cuda_stream)
             _raise_on(lib, "filter_score", code, "filter_score (sharded)")
@@ -1910,175 +1985,55 @@ def sharded_filter_score(tiles, mesh, p: rt.ScoreParams):
 # ---------------------------------------------------------------------------
 
 
-class _PackRound(_ShardRound):
-    """One tile's buffers for the tiled packing solve: the sharded round's
-    over the tile's pods (filter_score's scratch, the running state), the
-    pod axis's (``_ShardRound.pod_axis``: every pod's arguments ``af`` and
-    per-pod vectors) and the solve's own (``PackShard``)."""
-
-    def __init__(self, sb, t: int, p: rt.ScoreParams, lam: torch.Tensor,
-                 weights: torch.Tensor) -> None:
-        b = sb.shards[t]
-        run, nom = _packing_state(b)
-        super().__init__(b, p, run, nom)
-        self.pod_axis(sb, t, p, "tiled packing")
-        dev, N = self.dev, self.a.N
-        Pb, P = self.a.P, self.af.P
-        i32, i64, f32 = torch.int32, torch.int64, torch.float32
-        _check("lam", lam, f32, (N,), dev)
-        self.lam = lam.clone()
-        self.w = weights.to(dev).contiguous()
-        _check("weights", self.w, f32, (10,), dev)
-        topo = b.topology
-        self.S = 0 if topo is None else int(topo.num_slices)
-        self.slice_id = None if topo is None else topo.slice_id
-        if self.slice_id is not None:
-            _check("topology.slice_id", self.slice_id, i32, (N,), dev)
-        prio = (self.full if sb.pod_rows > 1 else b).pod_priority
-        if prio is not None:
-            _check("pod_priority", prio, i32, (P,), dev)
-        self.busy = torch.zeros((2 * (self.S + 1),), dtype=i32, device=dev)
-        self.pen = torch.empty((N,), dtype=f32, device=dev)
-        self.stats = torch.zeros((7, Pb), dtype=i64, device=dev)
-        self.denom = torch.empty((Pb,), dtype=f32, device=dev)
-        self.order = torch.empty((P,), dtype=i32, device=dev)
-        self.coupled = torch.empty((P,), dtype=torch.uint8, device=dev)
-        self.over = torch.empty((N,), dtype=i32, device=dev)
-        self.endf = torch.zeros((2,), dtype=f32, device=dev)
-        self.endi = torch.zeros((2,), dtype=i64, device=dev)
-        self.objective = torch.empty((), dtype=f32, device=dev)
-        self.nodes_used = torch.empty((), dtype=i32, device=dev)
-        req, nz, pc, ports, _, sp_counts = self.state
-        h = self.ps = PackShard()
-        h.mask, h.total = self.mask.data_ptr(), self.total.data_ptr()
-        h.req, h.nz, h.pc, h.ports = (x.data_ptr() for x in (req, nz, pc, ports))
-        h.pa_delta, h.sp_counts = _ptr(self.pa_delta), _ptr(sp_counts)
-        h.active, h.assignments = self.active.data_ptr(), self.assignments.data_ptr()
-        h.lam, h.w = self.lam.data_ptr(), self.w.data_ptr()
-        h.order, h.coupled = self.order.data_ptr(), self.coupled.data_ptr()
-        h.slice_id, h.S = _ptr(self.slice_id), self.S
-        for name in ("busy", "pen", "stats", "denom", "r", "over", "flags", "endf", "endi",
-                     "objective", "nodes_used"):
-            setattr(h, name, getattr(self, name).data_ptr())
-        h.choice, h.acc = self.choice.data_ptr(), self.acc.data_ptr()
-        h.req0, h.pc0 = b.requested.data_ptr(), b.pod_count.data_ptr()
-        h.prio = _ptr(prio)
-        # the rank reads the rows' best, hash and tie count joined in pod
-        # order; on one pod row, the row's combined stats in place
-        joined = (self.fstats[0], self.fstats[1], self.fstats[2]) if sb.pod_rows > 1 else (
-            self.stats[1], self.stats[5], self.stats[4])
-        h.fbest, h.fhash, h.fcount = (x.data_ptr() for x in joined)
-        i, j = divmod(t, sb.columns)
-        h.pod_offset, h.offset = sb.pod_offsets[i], sb.offsets[j]
-
-
 def tiled_packing_assign(sb, p: rt.ScoreParams, lam_pieces, weights: torch.Tensor,
                          max_iters: int = 0, rows_out: list | None = None):
     """Kernels K8 and K5, the packing solve over a sharded batch
     (``parallel.mesh.ShardedBatch`` on CUDA devices: a pods x nodes grid,
-    K8, or a node mesh, one pod row, K5): ``packing_round``'s steps on every
-    tile (``kt_packing_tile``) with the mesh's combines between them
-    (``shard_combine``). Each round every pod row's sharded ``filter_score``
-    on its tiles (``_filter_score_shards``); inside each pod row the slice
-    occupancy, the row maxima of |score|, the best utility, the tie counts
-    (sum and each column's prefix) and hashes; across the pod rows the
-    rows' best, hash and tie count joined in pod order (``GATHER``) before
-    the rank over every pod, the picks and the admissions (max over every
-    tile: each column's admissions over every row's choosers), the commit,
-    which every tile applies to its own copy of its column's rows and
-    duals, and each pod row's affinity increments summed over its columns.
-    At the end, inside each pod row (a column counts once), the marginal
-    utility (float32 min), the fragmentation (float32 sum), whether any
-    node was used and the nodes used, and the start and end slice
-    occupancy. The host reads tile 0's two flags a round. ``lam_pieces``:
-    each tile's (N / NG,) float32 duals (not written). Returns
-    ``(assignments (P,) int32 global, final_state, lam, objective ()
-    float32, iters, nodes_used () int32)``, the node slots (pod row 0's)
-    and λ (every tile's) as ``parallel.mesh.ShardedTensor``s, equal to
-    ``assign.packing.packing_assign_tiled_plain`` and to the unsharded
-    ``packing_assign`` (the objective within its float32 sums' order);
-    ``rows_out`` as the plain version's."""
+    K8, or a node mesh, one pod row, K5): one cooperative launch a solve on
+    each card, holding the card's tiles (``kt_packing_round``; the rounds,
+    each with every tile's Filter + Score of its pods against its node
+    column, and the stop rule on the device). Inside each pod row the
+    tiles combine the slice occupancy, the spread terms, the normalize
+    maxima, the row maxima of |score|, the best utility, the tie counts and
+    hashes and, at the end, the marginal utility (float32 min), the
+    fragmentation (float32 sum, in column order), whether any node was used
+    and the nodes used; the picks read every pod row's class rows (each
+    pod's rank over every pod in queue order), each column admits the
+    choosers of every pod row, and every tile commits its column's pods to
+    its own copy of the column's rows and duals. The cards' launches meet
+    at the mesh's exchange; the host reads each card's iterations and error
+    flag once. ``lam_pieces``: each tile's (N / NG,) float32 duals (not
+    written). Returns ``(assignments (P,) int32 global, final_state, lam,
+    objective () float32, iters, nodes_used () int32)``, the node slots
+    (pod row 0's) and λ (every tile's) as ``parallel.mesh.ShardedTensor``s,
+    equal to ``assign.packing.packing_assign_tiled_plain`` and to the
+    unsharded ``packing_assign`` (the objective within its float32 sums'
+    order); ``rows_out`` as the plain version's."""
     from ..assign.batched import _row_slots
     from ..parallel.mesh import ShardedTensor
 
     mesh = sb.mesh
     P, NG, PG = sb.num_pods, sb.columns, sb.pod_rows
-    if P > 1024:
-        raise ValueError(f"packing_round: P={P} exceeds the sorting block's 1024 pods")
+    if PG * NG > 8:
+        raise ValueError(f"tiled packing: {PG * NG} tiles; the solve takes 8")
+    n = int(sb.shards[0].alloc.shape[0])
+    pb = int(sb.shards[0].requests.shape[0])
+    if list(sb.offsets) != [j * n for j in range(NG)] or list(sb.pod_offsets) != [
+            i * pb for i in range(PG)]:
+        raise ValueError("tiled packing: the tiles must be equal blocks of nodes and pods")
+    cards: dict = {}
+    for t, b in enumerate(sb.shards):
+        cards.setdefault(b.alloc.device, []).append(t)
+    bpt = _blocks_a_tile(cards)
     tiles = []
     for t, (b, lam) in enumerate(zip(sb.shards, lam_pieces)):
+        i, j = divmod(t, NG)
         with on_device(b.alloc.device):
-            tiles.append(_PackRound(sb, t, p, lam, weights))
-    rows = [tiles[i * NG:(i + 1) * NG] for i in range(PG)]
-    lib = build()["packing_round"]
-    smem = _smem(sb.shards[0])
-    s0 = tiles[0]
-    topo = s0.slice_id is not None
+            tiles.append(_SolveTile(b, sb.full_tile(t) if PG > 1 else b, p, lam, weights,
+                                    sb.offsets[j], i, j, bpt))
     what = "sharded_packing" if PG == 1 else "tiled_packing"
-
-    def step(k):
-        for s in tiles:
-            with on_device(s.dev):
-                code = lib.kt_packing_tile(ctypes.byref(s.a), ctypes.byref(s.af), k,
-                                           ctypes.byref(s.ps),
-                                           torch.cuda.current_stream(s.dev).cuda_stream)
-            _raise_on(lib, "packing_round", code, f"packing_round (tiled, step {k})")
-            launch_counts[what] += 1
-
-    def in_rows(op, get, put=None):
-        for i, row in enumerate(rows):
-            shard_combine(mesh.row(i), op, [get(s) for s in row], [(put or get)(s) for s in row])
-
-    def over_all(op, get, put):
-        shard_combine(mesh, op, [get(s) for s in tiles], [put(s) for s in tiles])
-
-    step(0)
-    cap = max_iters or P
-    iters = 0
-    progress, still = True, bool(torch.any(s0.active))
-    while progress and still and iters < cap:
-        for i, row in enumerate(rows):
-            _filter_score_shards(mesh.row(i), row, smem)
-        if topo:
-            step(1)
-            in_rows(SUM, lambda s: s.busy[: s.S + 1])
-        step(2)
-        in_rows(MAX, lambda s: s.stats[0])
-        step(3)
-        in_rows(MAX, lambda s: s.stats[1])
-        step(4)
-        in_rows(PREFIX, lambda s: s.stats[2], lambda s: s.stats[6])
-        in_rows(SUM, lambda s: s.stats[2], lambda s: s.stats[4])
-        in_rows(SUM, lambda s: s.stats[3], lambda s: s.stats[5])
-        if PG > 1:
-            # the rows' best, hash and tie count, joined in pod order
-            for k, f in ((1, 0), (5, 1), (4, 2)):
-                shard_combine(mesh, GATHER, [row[0].stats[k] for row in rows],
-                              [s.fstats[f] for s in tiles])
-        step(5)
-        over_all(MAX, lambda s: s.choice[0], lambda s: s.choice[1])
-        step(6)
-        over_all(MAX, lambda s: s.acc[0], lambda s: s.acc[1])
-        for s in tiles:
-            if s.pa_delta is not None:
-                with on_device(s.dev):
-                    s.pa_delta.zero_()
-        step(7)
-        if s0.pa_delta is not None:
-            in_rows(ADD, lambda s: s.pa_delta, lambda s: s.state[4])
-        progress, still = (bool(v) for v in s0.flags.tolist())
-        iters += 1
-    step(8)
-    in_rows(MIN, lambda s: s.endf[0:1])
-    in_rows(SUM, lambda s: s.endf[1:2])
-    in_rows(MAX, lambda s: s.endi[0:1])
-    in_rows(SUM, lambda s: s.endi[1:2])
-    if topo:
-        in_rows(SUM, lambda s: s.busy)
-    step(9)
-    for s in tiles:
-        with on_device(s.dev):
-            torch.cuda.current_stream(s.dev).synchronize()
+    iters = _solve(tiles, cards, PG, NG, bpt, max_iters or P, mesh, what)
+    s0 = tiles[0]
     slots = [[s.state[k] for s in tiles] for k in range(6)]
     if rows_out is not None:
         rows_out.extend(_row_slots(slots[0], slots[1], slots[2], slots[3], slots[5], i, NG)

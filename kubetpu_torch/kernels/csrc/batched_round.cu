@@ -485,8 +485,7 @@ namespace {
 struct CombineArgs {
   const void* src[8];  // each shard's partial (n elements; `piece` for a gather)
   void* dst[8];        // each shard's result
-  int64_t G, n, op, elem;  // elem: 8 (int64) or 4 (int32 or float32) bytes
-  int64_t flt;         // 1: float32 partials (ops max, sum, min)
+  int64_t G, n, op, elem;  // elem: 8 (int64) or 4 (int32) bytes
   int64_t nsrc;        // a gather's sources
   int64_t piece;       // a gather's elements a source
 };
@@ -524,22 +523,7 @@ __device__ __forceinline__ void combine_one(const CombineArgs& c, int64_t i) {
     dst[h][i] = c.op == 5 ? (T)((unsigned long long)dst[h][i] + (unsigned long long)v) : v;
 }
 
-// float32 partials: max, min, or a sum rounded after each shard's addition
-// in shard order
-__device__ __forceinline__ void combine_float(const CombineArgs& c, int64_t i) {
-  const float* const* src = reinterpret_cast<const float* const*>(c.src);
-  float* const* dst = reinterpret_cast<float* const*>(c.dst);
-  float v = src[0][i];
-  for (int64_t h = 1; h < c.G; ++h) {
-    const float w = src[h][i];
-    if (c.op == 0) v = fmaxf(v, w);
-    else if (c.op == 3) v = fminf(v, w);
-    else v = __fadd_rn(v, w);
-  }
-  for (int64_t h = 0; h < c.G; ++h) dst[h][i] = v;
-}
-
-// The mesh's combine (kernels K2, K5, K6's cross-shard reductions): element
+// The mesh's combine (kernels K2's and K6's cross-shard reductions): element
 // i of every shard's partial, reduced, written to every shard's result
 // (peer pointers for other cards). op 0 max, 1 sum (wrapping), 2 or, 3
 // min, 4 exclusive prefix sum in shard order, 5 add the sum into the
@@ -547,9 +531,7 @@ __device__ __forceinline__ void combine_float(const CombineArgs& c, int64_t i) {
 __global__ void shard_combine_kernel(CombineArgs c) {
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < c.n;
        i += (int64_t)gridDim.x * blockDim.x) {
-    if (c.flt)
-      combine_float(c, i);
-    else if (c.elem == 8)
+    if (c.elem == 8)
       combine_one<int64_t>(c, i);
     else
       combine_one<int32_t>(c, i);
@@ -565,8 +547,6 @@ extern "C" int kt_shard_combine(const void* args, void* stream) {
   const CombineArgs c = *static_cast<const CombineArgs*>(args);
   if (c.n <= 0) return 0;
   if (c.G < 1 || c.G > 8 || (c.elem != 4 && c.elem != 8)) return (int)cudaErrorInvalidValue;
-  if (c.flt && (c.elem != 4 || (c.op != 0 && c.op != 1 && c.op != 3)))
-    return (int)cudaErrorInvalidValue;
   if (c.op == 6 && (c.nsrc < 1 || c.nsrc > 8 || c.piece < 1 || c.nsrc * c.piece != c.n))
     return (int)cudaErrorInvalidValue;
   const int64_t blocks = (c.n + 255) / 256;

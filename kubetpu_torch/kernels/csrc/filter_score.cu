@@ -69,7 +69,7 @@
 // row, PodTopologySpread, InterPodAffinity) and NodeResourcesFit or
 // NodePorts fails" against the state given, and no score. The extender
 // leaves play no part in it, as in the reference's filter_components.
-#include "score_common.cuh"
+#include "filter_pass.cuh"
 #include "score_prelaunch.cuh"
 
 namespace {
@@ -95,31 +95,10 @@ __global__ void filter_score_pairs(ScoreArgs a, uint8_t* mask, int64_t* base, in
   const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t p = kRep ? (int64_t)reps[blockIdx.y] : (int64_t)blockIdx.y;
   if (n >= a.N) return;
-  // the victim-independent filters first, then (normal mode) the
-  // dependent ones
-  bool ok = kt::pair_static(a, p, n);
-  if (!potential && ok)
-    ok = kt::pair_extender(a, p, n) &&
-         kt::pair_dependent(a, p, n, a.requested, a.pod_count, a.node_ports);
-  if (ok && with_pa && a.pa_filter)
-    ok = kt::pa_feasible(a, a.pa_sums, kt::pa_escape(a, a.pa_row_total, p), p, n);
-  if (ok && a.sp_filter) ok = kt::sp_feasible(a, a.sp_sums, a.sp_min_match, p, n);
-  if (potential) {
-    mask[p * a.N + n] =
-        ok && !kt::pair_dependent(a, p, n, a.requested, a.pod_count, a.node_ports);
-    return;
-  }
-  mask[p * a.N + n] = ok;
-  base[p * a.N + n] = kt::base_score(a, p, n, a.requested, a.nonzero_requested);
+  kt::pair_pass(a, p, n, with_pa, potential, mask + p * a.N + n,
+                potential ? nullptr : base + p * a.N + n);
 }
 
-// dynamic shared memory: C doubles of slot weights, then the domain bitmap
-// when a.sp_bits is null. `phase` 0: the whole pass. Over a node mesh (each
-// shard's rows), three passes with the shards' partials combined between
-// them: 1 writes this shard's spread-scored counts and domain bitmaps
-// (sc_buf (P,), bits_buf (P, C * W)); 2 takes the combined ones and writes
-// this shard's normalize maxima (mx_buf (P, kNorm)); 3 takes the combined
-// maxima and writes the total.
 // the partial row p of `buf` (W int64 a pod), just written by the block,
 // copied to the other pods of p's class (rep_of (P,) each pod's
 // representative); every thread of the block calls it
@@ -131,9 +110,12 @@ __device__ __forceinline__ void copy_partial(int64_t* buf, int64_t W, int64_t p,
       for (int64_t w = 0; w < W; ++w) buf[q * W + w] = buf[p * W + w];
 }
 
-// kRep: block x normalizes class x's representative, reps[x], as kRep
-// does in filter_score_pairs; the partials of phases 1 and 2 go to every
-// pod of the class (rep_of), the total only to the representative's row.
+// pass (b) (kt::normalize_pass) of block x's pod, `phase` as there, with
+// the partials in pod rows: sc_buf (P,), bits_buf (P, C * ceil(D / 32)),
+// mx_buf (P, kNorm). kRep: block x normalizes class x's representative,
+// reps[x], as kRep does in filter_score_pairs; the partials of phases 1
+// and 2 go to every pod of the class (rep_of), the total only to the
+// representative's row.
 template <bool kRep>
 __global__ void __launch_bounds__(1024)
     filter_score_normalize(ScoreArgs a, const uint8_t* mask, const int64_t* base, int64_t* total,
@@ -143,63 +125,17 @@ __global__ void __launch_bounds__(1024)
   extern __shared__ __align__(16) unsigned char s_dyn[];
   const int64_t p = kRep ? (int64_t)reps[blockIdx.x] : (int64_t)blockIdx.x;
   const int64_t N = a.N;
-  const bool sp_score = a.w_spread && kt::sp_any_soft(a, p);
-  const bool normalize = a.na_raw != nullptr || a.tt_raw != nullptr || a.w_interpod ||
-                         sp_score || a.dra_raw != nullptr;
-  const int64_t row =
-      (a.na_raw != nullptr || a.tt_raw != nullptr) ? (int64_t)a.score_sig[p] * N : 0;
-  const int64_t drow = kt::dra_row(a, p);
-  const uint8_t* m = mask + p * N;
   const int64_t CW = a.sp_C * ((a.sp_D + 31) / 32);
-  double* weight = reinterpret_cast<double*>(s_dyn);
-  if (phase == 1) {
-    if (sp_score) kt::sp_partials(a, p, m, sc_buf + p, bits_buf + p * CW, s_m[0]);
-    if (kRep && sp_score) {
-      copy_partial(sc_buf, 1, p, rep_of, a.P);
-      copy_partial(bits_buf, CW, p, rep_of, a.P);
-    }
-    return;
+  kt::normalize_pass(a, p, mask + p * N, base + p * N, total + p * N, phase,
+                     sc_buf == nullptr ? nullptr : sc_buf + p,
+                     bits_buf == nullptr ? nullptr : bits_buf + p * CW,
+                     mx_buf == nullptr ? nullptr : mx_buf + p * kt::kNorm, s_dyn, s_m);
+  if (!kRep) return;
+  if (phase == 1 && a.w_spread && kt::sp_any_soft(a, p)) {
+    copy_partial(sc_buf, 1, p, rep_of, a.P);
+    copy_partial(bits_buf, CW, p, rep_of, a.P);
   }
-  if (sp_score) {
-    if (phase == 0) {
-      uint32_t* bits = a.sp_bits != nullptr
-                           ? a.sp_bits + p * ((a.sp_D + 31) / 32)
-                           : reinterpret_cast<uint32_t*>(s_dyn + a.sp_C * sizeof(double));
-      kt::sp_weights(a, p, m, bits, weight, s_m[0]);
-    } else {
-      kt::sp_weights_given(a, p, sc_buf[p], bits_buf + p * CW, weight, s_m[0]);
-    }
-  }
-  int64_t mx[kt::kNorm];
-  kt::init_norm(mx);
-  if (normalize && phase != 3) {
-    for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
-      if (!m[n]) continue;
-      const int64_t pa_r = a.w_interpod ? kt::pa_raw(a, a.pa_sums, p, n) : 0;
-      kt::fold_norm(a, row, drow, n, pa_r,
-                    kt::sp_scored_raw(a, sp_score, a.sp_counts, a.sp_sums, weight, p, n), mx);
-    }
-    kt::block_max_norm(a, sp_score, mx, s_m);
-  }
-  if (phase == 2) {
-    if (threadIdx.x == 0)
-      for (int i = 0; i < kt::kNorm; ++i) mx_buf[p * kt::kNorm + i] = mx[i];
-    if (kRep) copy_partial(mx_buf, kt::kNorm, p, rep_of, a.P);
-    return;
-  }
-  if (phase == 3)
-    for (int i = 0; i < kt::kNorm; ++i) mx[i] = mx_buf[p * kt::kNorm + i];
-  for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
-    int64_t s = base[p * N + n];
-    if (normalize) {
-      const bool ok = m[n];
-      const int64_t pa_r = (ok && a.w_interpod) ? kt::pa_raw(a, a.pa_sums, p, n) : 0;
-      const int64_t sp =
-          ok ? kt::sp_scored_raw(a, sp_score, a.sp_counts, a.sp_sums, weight, p, n) : -1;
-      s += kt::norm_terms(a, row, drow, n, ok, pa_r, sp, mx);
-    }
-    total[p * N + n] = s;
-  }
+  if (phase == 2) copy_partial(mx_buf, kt::kNorm, p, rep_of, a.P);
 }
 
 // The (P, W) row buffers that broadcast_rows copies, W bytes a row, each
@@ -386,12 +322,24 @@ extern "C" int kt_filter_score(const ScoreArgs* args, void* mask, void* base, vo
 // the representatives: steps 2 and 3 write their partials (sc and bits;
 // mx) into every pod's row of the class from the same block, and step 4
 // copies the mask and the total rows to the other pods (pass (c)).
+// With `potential` (steps 0 and 1 only, on a one-pod view: the preemption
+// evaluator's mask over a node mesh) step 1's mask is the potential mode's
+// (see kt_filter_score) and `base` is not written; the spread filter's
+// domain sums are step 0's, summed over the shards, so its verdict reads
+// the constraint's global minimum.
 // Returns the cudaError_t of the launches.
 extern "C" int kt_filter_score_shard(const ScoreArgs* args, void* mask, void* base, void* total,
-                                     int step, void* sc, void* bits, void* mx, int64_t smem,
-                                     const void* reps, const void* rep_of, int64_t C,
-                                     void* stream) {
+                                     int step, int potential, void* sc, void* bits, void* mx,
+                                     int64_t smem, const void* reps, const void* rep_of,
+                                     int64_t C, void* stream) {
   ScoreArgs a = *args;
+  if (potential) {
+    if (step > 1) return (int)cudaErrorInvalidValue;
+    a.w_interpod = 0;
+    a.w_spread = 0;
+    a.ext_mask = nullptr;
+    a.ext_score = nullptr;
+  }
   const int pa = a.pa_node_domain != nullptr;
   if (!pa) a.w_interpod = 0;
   const int sp = a.sp_node_domain != nullptr;
@@ -413,7 +361,7 @@ extern "C" int kt_filter_score_shard(const ScoreArgs* args, void* mask, void* ba
   if (step == 1) {
     err = kt::prelaunch(a, pa, sp, s, 2);
     if (err != cudaSuccess) return (int)err;
-    return (int)launch_pairs(a, c, mask, base, pa, 0, s);
+    return (int)launch_pairs(a, c, mask, base, pa, potential, s);
   }
   if (step < 2 || step > 4) return (int)cudaErrorInvalidValue;
   err = launch_normalize(a, c, mask, base, total, step - 1, sc, bits, mx, smem, s);

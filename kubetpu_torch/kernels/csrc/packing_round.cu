@@ -1,83 +1,63 @@
-// packing_round: the packing engine's solve on the card, one round a launch
-// after filter_score has scored the whole batch against the round's state.
+// packing_round: the packing engine's whole solve on the card, one launch a
+// solve on each card (kernel B14 unsharded; K5 over a node mesh, K8 over a
+// pods x nodes grid).
 //
 // Replaces kubetpu/assign/packing.py:259 packing_assign_device (jit, a
 // lax.while_loop of rounds), with :146 _banded_tie_choice, :187
-// _priority_order and :198 _accept_packed, and, fused into the node pass and
-// the epilogue, kubetpu/ops/topology.py:64 slice_occupancy (B12). XLA ran
-// each round as one program. Here:
-//   packing_start (kt_packing_start), one block, once a solve: each pod's
-//       admission rank (a bitonic sort of (-priority, pod) keys), its
-//       coupled flag (host ports, a spread signature or an affinity
-//       update), and lam * decay.
-//   Each round (kt_packing_round), after filter_score:
-//   (a) round_nodes, one block over the nodes: slice_occupancy's busy flag
-//       of every slice from the current requested rows, then each node's
-//       penalty alpha*closed + beta*emptiness + lam + bias (+ the slice
-//       terms).
-//   (b) round_pod_stats, one block per pod: over the pod's feasible row,
-//       the largest |score|, then the best utility, then the tie count at
-//       utility >= best - band and the group hash (the wrapping sum of the
-//       tie row's per-node weights, xor best << 1, in unsigned arithmetic).
-//   (c) round_rank, one block: the rank of each pod within its hash group
-//       in queue order (a bitonic sort of (hash, pod)); r = rank mod ties.
-//   (d) round_pick, one block per pod: the (r+1)-th tie column.
-//   (e) round_accept, one block: sorts (node, admission rank); in each
-//       node's segment the inclusive prefix sums of the requests and the
-//       1-based count are held to the node's free resources and pod room
-//       (when the profile filters on NodeResourcesFit), every chooser
-//       counting, rejected ones too; at most one coupled pod a segment;
-//       then the dual ascent lam = clip(lam + step * log1p(overflow), 0,
-//       alpha * cap_frac) on every node, the first rejection in admission
-//       order, finalize, and the commit of every admitted pod.
-//   packing_end (kt_packing_end), one block, once a solve: the
-//       equalization prices over the start state's node utilities, the
-//       nodes used, and the objective with the slices newly opened
-//       (slice_occupancy at the start and at the end).
+// _priority_order and :198 _accept_packed, the Filter + Score each round
+// reads (kubetpu/framework/runtime.py:1578 filter_score_batch, as
+// filter_score.cu computes it, through filter_pass.cuh), and, fused into
+// the node pass and the end, kubetpu/ops/topology.py:64 slice_occupancy
+// (B12); under a mesh kubetpu/parallel/mesh.py:369 sharded_packing (with
+// pod_axis="pods" on a grid). XLA ran the loop as one program, its stop
+// rule (`cond`: any(active) & progress & (iters < cap)) on the device.
 //
-// Bound: latency. The work that needs the whole card is filter_score's;
-// a round adds five short launches, P blocks at most, and the host reads
-// two flags a round (progress, any pod still active). Several pods land on
-// one node in a round, so the commit updates the state with integer
-// atomics (requested, nonzero, pod count, spread counts, affinity sums):
-// integer sums do not depend on their order. A port bit is only ever set
-// to 1, a nomination only cleared. No float is accumulated by atomics: the
-// overflow counts are int32 atomics, and the objective's float sums are
-// block reductions in a fixed order. P <= 1024: one thread per pod in the
-// sorting blocks.
+// Bound: latency. A round is a chain of a dozen dependent steps, each a
+// reduction over the nodes or over the pods that the next step reads: the
+// Filter + Score of the round's state, the node penalties, each pod's
+// largest |score|, best utility, tie count and hash, the rank in its hash
+// group, the pick, the admissions with the dual ascent, the commit. A host
+// loop paid each step as a launch (about 45 host-ordered launches a round
+// at four shards). Design: ONE cooperative launch a solve on each card,
+// holding every tile of the card (bpt blocks a tile, all co-resident), the
+// round loop and its stop rule inside it; the steps are separated by a
+// grid-wide barrier (card_sync: an arrival counter in device memory), and,
+// where a step reads other cards' partials, by the mesh's exchange
+// (exchange.cuh's sequence words, once a barrier, bounded by
+// EXCHANGE_BUDGET). The host reads once a solve: the iterations and the
+// error word.
 //
-// Under a node mesh (kernel K5, kubetpu/parallel/mesh.py:369
-// sharded_packing) every shard runs the same steps on its own N / G rows
-// (kt_packing_tile, one step a launch), and the host combines the shards'
-// partials between the steps (kt_shard_combine in batched_round.cu), at
-// the points where a round reduces over nodes: the slice occupancy (a
-// slice's nodes may span shards), the row maximum of |score| (as its
-// float bits: |score| >= 0, so they order as the floats do and the max is
-// exact), the best utility, the tie counts (their sum and each shard's
-// prefix, for the pick) and the wrapping sums of the tie weights of the
-// GLOBAL node indices (the xor with best << 1 once, after the sum), the
-// choice, the admissions, the affinity increments, and at the end the
-// marginal utility (float min), whether any node was used, the nodes used
-// and the fragmentation (a float sum, added in shard order). The closed-
-// node bias uses the GLOBAL node index (offset + n). The admission order,
-// coupled flags and every pod-indexed vector are replicated: each shard
-// computes them alike.
+// Pod classes (runtime.PodClasses): two pods of one class have equal
+// Filter + Score rows, so every per-pod statistic of a round depends only
+// on the pod's class and on whether it is still active. The solve keeps one
+// row a class (its first pod's): the verdicts and totals, the largest
+// |score|, the best utility, and the tie nodes in node order with their
+// count and hash. A pod's group key, rank and pick then read its class's
+// row: the rank counts the earlier pods of an equal key (the stable sort
+// of (key, pod) that kubetpu's rank is), the pick is the (rank mod ties)-th
+// tie node. The admissions need no sort either: a chooser of node n is
+// admitted when the requests of the choosers of n up to it in admission
+// order (every chooser counting, rejected ones too) fit n's free
+// resources and pod room, and no earlier chooser of n is coupled when it is.
 //
-// On a pods x nodes grid (kernel K8, sharded_packing with pod_axis="pods")
-// tile (i, j) holds pod row i's P / PG pods against node column j's rows,
-// and every tile runs the same steps (kt_packing_tile). The per-pod
-// statistics (row maximum, best utility, ties, hashes, the pick) are the
-// tile's own pods' and combine over the pod row's columns; the host then
-// joins the rows' best, hash and tie count in pod order (the combine's
-// GATHER), so the rank runs over every pod in queue order. The start, the
-// admissions, the dual ascent, the commit and the end read `full`: the
-// tile's node column with every pod's pod-major leaves. Every tile of a
-// column admits and commits every pod of that column into its own copy of
-// the column's rows and duals, so the copies stay equal down the pod rows;
-// the end's partials combine over each pod row's columns, so a column
-// counts once. On one pod row `full` is the tile itself, the joined
-// vectors are the row's combined statistics in place, and the launches are
-// kernel K5's: no kernel loops over pod rows or reads their count.
+// Under a mesh each tile runs the steps on its own node column; every
+// reduction over nodes combines the partials of the tiles of its pod row,
+// each tile reading them (its pod row's tiles are on this card or on peer
+// cards, read through their pointers) in column order: the slice
+// occupancy, the spread domain sums, the spread-scored counts and bitmaps,
+// the normalize maxima, the row maximum of |score| (its float bits), the
+// best utility, the tie counts and the wrapping sums of the tie weights of
+// the GLOBAL node indices (the xor with best << 1 once, after the sum), the
+// affinity increments, and at the end the marginal utility (float min),
+// whether any node was used, the nodes used and the fragmentation (a
+// float32 sum, in column order). The closed-node bias uses the GLOBAL node
+// index. Every pod-indexed vector (the admission order, coupled flags,
+// keys, picks, active flags, assignments) is replicated: each tile computes
+// it alike over every pod, the picks from every pod row's class rows, so
+// that a pod row's rank runs over every pod in queue order and each column
+// admits the choosers of every pod row; every tile of a column commits its
+// column's admitted pods to its own copy of the column's rows and duals,
+// so the copies stay equal down the pod rows.
 //
 // Float32 rounding: the reference's arithmetic runs through XLA on the
 // CPU, which fuses a multiply into the add that takes it (FMA). This file
@@ -87,18 +67,38 @@
 // The score converts with __ll2float_rn, the utility rounds half to even
 // with __float2ll_rn (as jnp.round; never roundf). log1p of the integer
 // overflow count is XLA's own float32 log of k + 1 (a Cephes polynomial,
-// its multiply-adds fused), not log1pf: the two differ at some counts.
-#include "score_common.cuh"
+// its multiply-adds fused), not log1pf: the two differ at some counts. The
+// objective's float sums are taken in another order than the plain
+// version's (it agrees within rtol 1e-5); every other output is exact.
+#include "exchange.cuh"
+#include "filter_pass.cuh"
 
 namespace {
 
-constexpr int kRowThreads = 256;
-constexpr int kSortThreads = 1024;
+constexpr int kThreads = 256;
+constexpr int kMaxTiles = 8;
 constexpr int64_t kI64Min = -(1LL << 62);  // the reference's I64_MIN
 constexpr float kUtilScale = 1048576.0f;    // 2^20
 
 // the PackingWeights tensor's index order
 enum { kScore, kPrio, kAlpha, kBeta, kStep, kDecay, kBand, kCapFrac, kSliceFrag, kSliceAlign };
+// a class's statistics of the round (SolveTile.cstats rows): its largest
+// |score| over the tile's nodes (float bits, -1 without a feasible node),
+// its best utility there, the pod row's best, the tie count and hash there
+enum { kRmx, kBest, kBestRow, kCnt, kHash, kStats };
+// the parts of a solve that SolveSet.split times (block 0's wall clock
+// from one mark to the next, barrier waits included): the start; each
+// round's partials, penalties, minMatch and row totals (steps 0-2), the
+// verdicts and base scores (3), the normalize pass (4), the totals with
+// the |score| maxima (5), the best utilities (6), the ties (7), the rank
+// and pick (8), the admissions (9), the dual ascent and commit (10); the
+// end
+enum { kSplitStart, kSplit02, kSplit3, kSplit4, kSplit5, kSplit6, kSplit7, kSplit8, kSplit9,
+       kSplit10, kSplitEnd, kSplit };
+
+// SolveTile.scal: the round's progress and whether any pod is still
+// active; at the end, any node used and the nodes used
+enum { kProgress, kStill, kAny, kUsed, kScalars };
 
 using kt::block_reduce;
 using kt::MaxOp;
@@ -134,6 +134,11 @@ __device__ __forceinline__ float block_reduce_f(float v, Op op, float ident, flo
   const float out = s[32];
   __syncthreads();
   return out;
+}
+
+__device__ __forceinline__ int64_t warp_sum(int64_t v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return __shfl_sync(0xffffffffu, v, 0);
 }
 
 // jnp.log1p of a whole-number count k >= 0, as XLA's CPU backend computes
@@ -177,7 +182,7 @@ __device__ float emptiness(const ScoreArgs& a, const int64_t* req, int64_t n) {
 
 // fma(beta, emptiness, alpha * closed) + extra, then the closed-node bias
 // closed * n * (2 * band) fused into the add that takes it; n is the global
-// node index (a shard's rows start at `offset`)
+// node index (a tile's rows start at `offset`)
 __device__ float closed_terms(const ScoreArgs& a, const float* w, const int64_t* req,
                               const int32_t* pc, int64_t n, float extra, int64_t offset) {
   const bool closed = pc[n] == 0 && a.node_valid[n];
@@ -186,40 +191,12 @@ __device__ float closed_terms(const ScoreArgs& a, const float* w, const int64_t*
                    __fadd_rn(base, extra));
 }
 
-// slice_occupancy's busy flags (S + 1 ints, zeroed here) from the rows req;
-// the whole block takes part
-__device__ void slice_busy(const ScoreArgs& a, const int64_t* req, const int32_t* slice_id,
-                           int64_t S, int32_t* busy) {
-  for (int64_t s = threadIdx.x; s <= S; s += blockDim.x) busy[s] = 0;
-  __syncthreads();
-  for (int64_t n = threadIdx.x; n < a.N; n += blockDim.x) {
-    if (!a.node_valid[n]) continue;
-    unsigned long long sum = 0;
-    for (int64_t r = 0; r < a.R; ++r) sum += (unsigned long long)req[n * a.R + r];
-    if ((int64_t)sum > 0) busy[slice_id[n]] = 1;
-  }
-  __syncthreads();
-}
-
-// (a) each node's penalty this round. Over a node mesh (`mode` 1, then 2):
-// 1 writes the shard's busy flags, which the shards' sums combine; 2 reads
-// the combined counts (busy when > 0) and writes the penalties.
-__global__ void __launch_bounds__(kSortThreads, 1)
-round_nodes(ScoreArgs a, const float* w, const float* lam, const int32_t* slice_id, int64_t S,
-            int32_t* busy, float* pen, int mode, int64_t offset) {
-  if (slice_id != nullptr && mode != 2) slice_busy(a, a.requested, slice_id, S, busy);
-  if (mode == 1) return;
-  for (int64_t n = threadIdx.x; n < a.N; n += blockDim.x) {
-    float v = closed_terms(a, w, a.requested, a.pod_count, n, lam[n], offset);
-    if (slice_id != nullptr) {
-      const int32_t sid = slice_id[n];
-      const bool labeled = sid < S;
-      const bool b = busy[sid] != 0;
-      v = __fadd_rn(v, __fsub_rn(__fmul_rn(w[kSliceFrag], labeled && !b ? 1.0f : 0.0f),
-                                 __fmul_rn(w[kSliceAlign], labeled && b ? 1.0f : 0.0f)));
-    }
-    pen[n] = v;
-  }
+// node n is busy for slice_occupancy: valid with a positive request sum
+__device__ __forceinline__ bool node_busy(const ScoreArgs& a, const int64_t* req, int64_t n) {
+  if (!a.node_valid[n]) return false;
+  unsigned long long sum = 0;
+  for (int64_t r = 0; r < a.R; ++r) sum += (unsigned long long)req[n * a.R + r];
+  return (int64_t)sum > 0;
 }
 
 __device__ __forceinline__ int64_t utility(int64_t score, float denom, float w_score, float pen) {
@@ -231,537 +208,738 @@ __device__ __forceinline__ int64_t band_of(const float* w) {
   return __float2ll_rn(__fmul_rn(w[kBand], kUtilScale));
 }
 
-// (b) per-pod largest |score|, best utility, tie count and group hash
-__global__ void round_pod_stats(ScoreArgs a, const uint8_t* mask, const int64_t* total,
-                                const uint8_t* active, const float* pen, const float* w,
-                                int64_t* best_out, int64_t* cnt_out, int64_t* hash_out,
-                                float* denom_out) {
-  __shared__ int64_t s[33];
-  const int64_t p = blockIdx.x;
-  const int64_t N = a.N;
-  if (!active[p]) {
-    if (threadIdx.x == 0) {
-      best_out[p] = kI64Min;
-      cnt_out[p] = 0;
-      hash_out[p] = 0;
-      denom_out[p] = 1.0f;
-    }
-    return;
-  }
-  const uint8_t* m = mask + p * N;
-  const int64_t* t = total + p * N;
-  // |score| >= 0: its float bits order as the floats do
-  int64_t any = 0, rm = 0;
-  for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
-    if (!m[n]) continue;
-    any = 1;
-    const int64_t bits = __float_as_int(fabsf(__ll2float_rn(t[n])));
-    rm = bits > rm ? bits : rm;
-  }
-  any = block_reduce(any, MaxOp(), 0, s);
-  rm = block_reduce(rm, MaxOp(), 0, s);
-  const float denom = fmaxf(__int_as_float((int)rm), 1.0f);
-  const float w_score = w[kScore];
-  int64_t best = kI64Min;
-  for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
-    if (!m[n]) continue;
-    const int64_t u = utility(t[n], denom, w_score, pen[n]);
-    best = u > best ? u : best;
-  }
-  best = block_reduce(best, MaxOp(), kI64Min, s);
-  // best - band in unsigned arithmetic (wraps as XLA's int64 does)
-  const int64_t thr = (int64_t)((unsigned long long)best - (unsigned long long)band_of(w));
-  int64_t cnt = 0, h = 0;
-  if (any) {
-    for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
-      if (!m[n] || utility(t[n], denom, w_score, pen[n]) < thr) continue;
-      ++cnt;
-      h = SumOp()(h, tie_weight(n));
-    }
-  }
-  cnt = block_reduce(cnt, SumOp(), 0, s);
-  h = block_reduce(h, SumOp(), 0, s);
-  if (threadIdx.x == 0) {
-    h = (int64_t)((unsigned long long)h ^ ((unsigned long long)best << 1));
-    best_out[p] = best;
-    cnt_out[p] = any ? cnt : 0;
-    hash_out[p] = any ? h : 0;
-    denom_out[p] = denom;
-  }
+// another tile's partial, written before the last barrier (on this card or
+// a peer's): never from a cached line
+template <typename T>
+__device__ __forceinline__ T ldv(const T* p) {
+  return *reinterpret_cast<const volatile T*>(p);
 }
 
-// (b) over a node mesh, in three steps with the shards' max / sums between
-// them: 1 writes the shard's largest feasible |score| as float bits (-1
-// without a feasible node or for an inactive pod) into rmx; 2, from the
-// combined rmx, the denominator and the shard's best utility (kI64Min
-// without a feasible node) into best; 3, at the combined best, the shard's
-// tie count and the wrapping sum of its tie weights at the GLOBAL node
-// indices (round_rank applies the xor).
-__global__ void shard_pod_stats(ScoreArgs a, const uint8_t* mask, const int64_t* total,
-                                const uint8_t* active, const float* pen, const float* w,
-                                int step, int64_t* rmx, int64_t* best, float* denom_out,
-                                int64_t* cnt_out, int64_t* hash_out, int64_t offset) {
-  __shared__ int64_t s[33];
-  const int64_t p = blockIdx.x;
-  const int64_t N = a.N;
-  const uint8_t* m = mask + p * N;
-  const int64_t* t = total + p * N;
-  const bool act = active[p];
-  if (step == 1) {
-    int64_t any = 0, rm = 0;
-    if (act) {
-      for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
+__device__ __forceinline__ uint64_t ld_acquire_gpu(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// One tile of a solve (mirror of SolveTile in kubetpu_torch/kernels/
+// __init__.py; 8-byte fields). Node-indexed arrays hold the tile's column
+// of N rows, class-indexed ones the tile's C classes, pod-indexed ones all
+// P pods of the solve (each tile's own copy).
+struct SolveTile {
+  ScoreArgs a;              // the tile's Pb pods against its column, over the running state
+  ScoreArgs af;             // its column with every pod's pod-major leaves (one pod row: a)
+  const int32_t* reps;      // (C,) each class's first pod, in the tile
+  const int32_t* class_of;  // (Pb,) each pod's class
+  int64_t C;
+  uint8_t* mask;            // (C, N) each class's verdicts this round
+  int64_t* total;           // (C, N) its base score, then its total
+  int32_t* ties;            // (C, N) its tie nodes this round, in node order
+  int64_t* cstats;          // (kStats, C)
+  int64_t* sc;              // (2, C): spread-scored count, this tile's and the row's
+  int64_t* bits;            // (2, C, CW): spread domain bitmaps, likewise
+  int64_t* mx;              // (2, C, kNorm): normalize maxima, likewise
+  int64_t* sums_part;       // (S, D + 1) this tile's spread domain sums, or null
+  int32_t* busy;            // (3, S + 1): slice flags of the round, the start, the end
+  float* pen;               // (N,)
+  float* lam;               // (N,) the duals, in place
+  int32_t* over;            // (N,) rejected choosers
+  int32_t* chosen;          // (N,) a pod picked the node this round
+  float* endf;              // (2, bpt): each block's least start utility, fragmentation
+  int64_t* req;             // running state: (N, R), (N, R), (N,), (N, K)
+  int64_t* nz;
+  int32_t* pc;
+  uint8_t* ports;
+  int64_t* pa_sums;         // (RA, D) or null
+  int64_t* pa_delta;        // (RA, D) the round's increments on this column, or null
+  int32_t* sp_counts;       // (S, N) or null
+  const float* w;           // (10,)
+  const int32_t* slice_id;  // (N,) or null
+  int64_t S;
+  int32_t* order;           // (P,) admission rank
+  int32_t* byorder;         // (P,) the pod of each admission rank
+  uint8_t* coupled;         // (P,)
+  uint8_t* active;          // (P,)
+  int32_t* assignments;     // (P,) global node indices
+  int32_t* choice;          // (P,) pick of the round (global), -1 none
+  int32_t* acc;             // (P,) admitted, for the pods that chose this column
+  const int64_t* req0;      // the column's start rows
+  const int32_t* pc0;
+  const int32_t* prio;      // (P,) or null
+  int64_t* scal;            // (kScalars,)
+  float* objective;         // ()
+  int32_t* nodes_used;      // ()
+  int64_t offset;           // the tile's first global node
+  int64_t row, col;         // its pod row and node column
+};
+
+// One card's launch (mirror of SolveSet)
+struct SolveSet {
+  SolveTile t[kMaxTiles];   // every tile of the solve, tile (i, j) at i * NG + j
+  int64_t PG, NG;
+  int64_t local[kMaxTiles]; // this card's tiles
+  int64_t nlocal;
+  int64_t bpt;              // blocks a tile
+  int64_t cap;              // iterations at most
+  unsigned long long* bar;  // this card's barrier counter (zeroed by the entry)
+  int32_t* abort;           // set when a peer card timed out (zeroed by the entry)
+  int64_t* out;             // (2,) iterations, error
+  int64_t* split;           // (kSplit,) ns in each part of the solve, or null
+  Exchange x;               // the cards' sequence words, one slot a card (x.G cards)
+  int64_t card;             // this card's slot
+};
+
+// Every block of this card's launch arrives, then waits for all (bounded
+// by the exchange's budget: past it the error word is set). Thread 0
+// fences the block's writes before it arrives (system scope when the mesh
+// spans cards, so that peers may read them). Returns false on every thread
+// when a wait timed out or a peer card did.
+__device__ bool card_sync(const SolveSet& S, int64_t& k, int* flag) {
+  __syncthreads();
+  k += 1;
+  if (threadIdx.x == 0) {
+    if (S.x.G > 1)
+      __threadfence_system();
+    else
+      __threadfence();
+    atomicAdd(S.bar, 1ULL);
+    const unsigned long long want = (unsigned long long)k * gridDim.x;
+    int ok = 1;
+    const long long t0 = clock64();
+    while (ld_acquire_gpu(S.bar) < want) {
+      if (clock64() - t0 > S.x.budget) {
+        ok = 0;
+        atomicExch(S.x.error, 1);
+        atomicExch(S.abort, 1);
+        break;
+      }
+    }
+    __threadfence();
+    *flag = ok && !ldv(S.abort);
+  }
+  __syncthreads();
+  return *flag != 0;
+}
+
+// card_sync, and across the cards of the mesh: block 0 publishes the
+// barrier's sequence and waits for every peer card's, then the card syncs
+// again, so that every block may read what any tile wrote before it.
+__device__ bool mesh_sync(const SolveSet& S, int64_t& k, int64_t& xk, int* flag) {
+  if (!card_sync(S, k, flag)) return false;
+  if (S.x.G <= 1) return true;
+  xk += 1;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    const int64_t want = (S.x.epoch << 32) | xk;
+    kt::st_release_sys(S.x.slot[S.card], want);
+    const long long t0 = clock64();
+    for (int64_t h = 0; h < S.x.G; ++h) {
+      if (h == S.card) continue;
+      while (kt::ld_acquire_sys(S.x.slot[h]) < want) {
+        if (clock64() - t0 > S.x.budget) {
+          atomicExch(S.x.error, 1);
+          atomicExch(S.abort, 1);
+          h = S.x.G;
+          break;
+        }
+      }
+    }
+    __threadfence_system();
+  }
+  return card_sync(S, k, flag);
+}
+
+// class c's group key this round over a pod row (`pr` its NG tiles): its
+// tie hash, summed over the row, xor the row's best utility << 1 when it
+// has a tie node, else 0 (an active pod of the class takes it; kubetpu's
+// rank sorts inactive pods with key 0 too)
+__device__ __forceinline__ int64_t class_key(const SolveTile* pr, int64_t NG, int64_t c) {
+  const int64_t C = pr[0].C;
+  int64_t cnt = 0, h = 0;
+  for (int64_t j = 0; j < NG; ++j) {
+    cnt += ldv(pr[j].cstats + kCnt * C + c);
+    h = SumOp()(h, ldv(pr[j].cstats + kHash * C + c));
+  }
+  if (cnt == 0) return 0;
+  return (int64_t)((unsigned long long)h ^
+                   ((unsigned long long)ldv(pr[0].cstats + kBestRow * C + c) << 1));
+}
+
+// the node column of a global node index (columns are N rows each)
+__device__ __forceinline__ int64_t column_of(int64_t node, int64_t N) { return node / N; }
+
+// the solve of this block's tile; `iters` counts the rounds. Returns false
+// when a wait timed out.
+__device__ bool solve(const SolveSet& S, int64_t& iters, unsigned char* s_dyn) {
+  __shared__ int s_flag;
+  __shared__ int64_t s_red[33];
+  __shared__ float s_f[33];
+  __shared__ int64_t s_m[kt::kNorm][33];
+  __shared__ int32_t s_warp[kThreads / 32];
+  __shared__ int64_t s_base;
+  const int64_t li = blockIdx.x / S.bpt;
+  const int64_t rank = blockIdx.x % S.bpt;
+  const SolveTile& T = S.t[S.local[li]];
+  const ScoreArgs& a = T.a;
+  const ScoreArgs& af = T.af;
+  const int64_t N = a.N, Pb = a.P, P = af.P, C = T.C, R = a.R, K = a.K;
+  const int64_t tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t gtid = rank * blockDim.x + tid, gstride = S.bpt * blockDim.x;
+  const int64_t gwarp = rank * (kThreads / 32) + warp, nwarps = S.bpt * (kThreads / 32);
+  const SolveTile* rowt = S.t + T.row * S.NG;  // this pod row's tiles
+  const float* w = T.w;
+  const bool pa = a.pa_node_domain != nullptr;
+  const bool sp_sums = a.sp_node_domain != nullptr && (a.sp_filter || a.w_spread) && a.sp_S > 0;
+  const bool norm = a.na_raw != nullptr || a.tt_raw != nullptr || a.w_interpod || a.w_spread ||
+                    a.dra_raw != nullptr;
+  const int64_t D1 = a.sp_D + 1, CW = a.sp_C * ((a.sp_D + 31) / 32);
+  const int64_t S1 = T.S + 1;
+  const int64_t band = band_of(w);
+  const float w_score = w[kScore];
+  const float cap_lam = __fmul_rn(w[kAlpha], w[kCapFrac]);
+  int64_t k = 0, xk = 0;
+  // the split's marks: block 0, thread 0, when SolveSet.split is given
+  const bool timing = S.split != nullptr && blockIdx.x == 0 && tid == 0;
+  uint64_t t_mark = 0;
+  auto mark = [&](int part) {
+    if (!timing) return;
+    uint64_t t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    if (part >= 0) S.split[part] += (int64_t)(t - t_mark);
+    t_mark = t;
+  };
+  mark(-1);
+  // the tile of this pod row that holds global node `node`, and pod p's
+  // admission by it
+  auto acc_of = [&](int64_t p, int32_t node) -> bool {
+    return node >= 0 && ldv(rowt[column_of(node, N)].acc + p) != 0;
+  };
+
+  // ---- the start: admission rank, coupled flags, lam * decay, scratch
+  for (int64_t p = gtid; p < P; p += gstride) {
+    const int64_t kp = (af.pod_valid[p] ? -(int64_t)(T.prio ? T.prio[p] : 0) : (1LL << 40)) * P + p;
+    int32_t before = 0;
+    for (int64_t q = 0; q < P; ++q) {
+      const int64_t kq =
+          (af.pod_valid[q] ? -(int64_t)(T.prio ? T.prio[q] : 0) : (1LL << 40)) * P + q;
+      before += kq < kp;
+    }
+    T.order[p] = before;
+    T.byorder[before] = (int32_t)p;
+    bool c = false;
+    for (int64_t kk = 0; kk < K; ++kk) c = c || af.pod_ports[p * K + kk];
+    if (af.sp_pod_match_sig != nullptr)
+      for (int64_t sg = 0; sg < af.sp_S; ++sg) c = c || af.sp_pod_match_sig[p * af.sp_S + sg];
+    if (af.pa_update != nullptr)
+      for (int64_t r = 0; r < af.pa_R; ++r) c = c || af.pa_update[p * af.pa_R + r] != 0;
+    T.coupled[p] = c;
+    T.active[p] = af.pod_valid[p];
+    T.assignments[p] = -1;
+  }
+  for (int64_t n = gtid; n < N; n += gstride) {
+    T.lam[n] = __fmul_rn(T.lam[n], w[kDecay]);
+    T.over[n] = 0;
+    T.chosen[n] = 0;
+  }
+  for (int64_t i = gtid; i < 3 * S1; i += gstride) T.busy[i] = 0;
+  if (sp_sums)
+    for (int64_t i = gtid; i < a.sp_S * D1; i += gstride) T.sums_part[i] = 0;
+  if (gtid < kScalars) T.scal[gtid] = 0;
+  int64_t still = 0;
+  for (int64_t p = tid; p < P; p += blockDim.x) still |= af.pod_valid[p];
+  still = block_reduce(still, MaxOp(), 0, s_red);
+  if (!card_sync(S, k, &s_flag)) return false;
+  mark(kSplitStart);
+
+  bool progress = true;
+  while (progress && still && iters < S.cap) {
+    // ---- 0: this tile's spread domain sums and slice flags
+    if (sp_sums) kt::sp_accumulate(a, T.sp_counts, T.sums_part, rank, S.bpt);
+    if (T.slice_id != nullptr)
+      for (int64_t n = gtid; n < N; n += gstride)
+        if (node_busy(a, T.req, n)) T.busy[T.slice_id[n]] = 1;
+    if ((sp_sums || T.slice_id != nullptr) && !mesh_sync(S, k, xk, &s_flag)) return false;
+    // ---- 1: the row's domain sums, the node penalties (first read at 6)
+    if (sp_sums)
+      for (int64_t i = gtid; i < a.sp_S * D1; i += gstride) {
+        int64_t v = 0;
+        for (int64_t j = 0; j < S.NG; ++j) v += ldv(rowt[j].sums_part + i);
+        a.sp_sums[i] = v;
+      }
+    for (int64_t n = gtid; n < N; n += gstride) {
+      float v = closed_terms(a, w, T.req, T.pc, n, T.lam[n], T.offset);
+      if (T.slice_id != nullptr) {
+        const int32_t sid = T.slice_id[n];
+        const bool labeled = sid < T.S;
+        bool b = false;
+        for (int64_t j = 0; j < S.NG; ++j) b = b || ldv(rowt[j].busy + sid) != 0;
+        v = __fadd_rn(v, __fsub_rn(__fmul_rn(w[kSliceFrag], labeled && !b ? 1.0f : 0.0f),
+                                   __fmul_rn(w[kSliceAlign], labeled && b ? 1.0f : 0.0f)));
+      }
+      T.pen[n] = v;
+    }
+    if (pa)
+      for (int64_t i = gtid; i < a.pa_R * a.pa_D; i += gstride) T.pa_delta[i] = 0;
+    if (sp_sums || pa) {
+      // ---- 2: minMatch, the affinity row totals
+      if (!card_sync(S, k, &s_flag)) return false;
+      if (sp_sums)
+        for (int64_t sg = rank; sg < a.sp_S; sg += S.bpt) {
+          const int64_t mm = kt::sp_min_over_domains(a, a.sp_sums, sg, s_red);
+          if (tid == 0) a.sp_min_match[sg] = mm;
+        }
+      if (pa) kt::pa_row_totals(a, a.pa_sums, a.pa_row_total, gtid, gstride);
+      if (!card_sync(S, k, &s_flag)) return false;
+    }
+    mark(kSplit02);
+    // ---- 3: each class's verdicts and base scores (filter_score's pass (a))
+    for (int64_t i = gtid; i < C * N; i += gstride) {
+      const int64_t c = i / N, n = i - c * N;
+      kt::pair_pass(a, T.reps[c], n, pa, 0, T.mask + i, T.total + i);
+    }
+    if (!card_sync(S, k, &s_flag)) return false;
+    mark(kSplit3);
+    // Steps 4-7 run class c on block c % bpt, so that without other columns
+    // (NG 1) each step reads only its own block's writes: their barriers
+    // join the row's columns.
+    auto row_sync = [&]() -> bool {
+      __syncthreads();
+      return S.NG == 1 || mesh_sync(S, k, xk, &s_flag);
+    };
+    if (norm) {
+      // ---- 4: the normalize pass (pass (b)) in the mesh's three phases
+      if (a.w_spread) {
+        for (int64_t c = rank; c < C; c += S.bpt)
+          kt::normalize_pass(a, T.reps[c], T.mask + c * N, T.total + c * N, T.total + c * N, 1,
+                             T.sc + c, T.bits + c * CW, nullptr, s_dyn, s_m);
+        if (!row_sync()) return false;
+      }
+      for (int64_t c = rank; c < C; c += S.bpt) {
+        if (a.w_spread) {
+          for (int64_t i = tid; i < CW; i += blockDim.x) {
+            int64_t v = 0;
+            for (int64_t j = 0; j < S.NG; ++j) v |= ldv(rowt[j].bits + c * CW + i);
+            T.bits[C * CW + c * CW + i] = v;
+          }
+          if (tid == 0) {
+            int64_t v = 0;
+            for (int64_t j = 0; j < S.NG; ++j) v += ldv(rowt[j].sc + c);
+            T.sc[C + c] = v;
+          }
+          __syncthreads();
+        }
+        kt::normalize_pass(a, T.reps[c], T.mask + c * N, T.total + c * N, T.total + c * N, 2,
+                           T.sc + C + c, T.bits + C * CW + c * CW, T.mx + c * kt::kNorm, s_dyn,
+                           s_m);
+      }
+      if (!row_sync()) return false;
+    }
+    mark(kSplit4);
+    // ---- 5: the totals; each class's largest |score| over this column
+    for (int64_t c = rank; c < C; c += S.bpt) {
+      int64_t* t = T.total + c * N;
+      const uint8_t* m = T.mask + c * N;
+      if (norm) {
+        int64_t* mxr = T.mx + (C + c) * kt::kNorm;
+        if (tid < kt::kNorm) {
+          int64_t v = ldv(rowt[0].mx + c * kt::kNorm + tid);
+          for (int64_t j = 1; j < S.NG; ++j) v = kt::imax(v, ldv(rowt[j].mx + c * kt::kNorm + tid));
+          mxr[tid] = v;
+        }
+        __syncthreads();
+        kt::normalize_pass(a, T.reps[c], m, t, t, 3, T.sc + C + c, T.bits + C * CW + c * CW, mxr,
+                           s_dyn, s_m);
+      }
+      // |score| >= 0: its float bits order as the floats do
+      int64_t any = 0, rm = 0;
+#pragma unroll 4
+      for (int64_t n = tid; n < N; n += blockDim.x) {
         if (!m[n]) continue;
         any = 1;
-        const int64_t bits = __float_as_int(fabsf(__ll2float_rn(t[n])));
-        rm = bits > rm ? bits : rm;
+        rm = kt::imax(rm, __float_as_int(fabsf(__ll2float_rn(t[n]))));
       }
+      any = block_reduce(any, MaxOp(), 0, s_red);
+      rm = block_reduce(rm, MaxOp(), 0, s_red);
+      if (tid == 0) T.cstats[kRmx * C + c] = any ? rm : -1;
     }
-    any = block_reduce(any, MaxOp(), 0, s);
-    rm = block_reduce(rm, MaxOp(), 0, s);
-    if (threadIdx.x == 0) rmx[p] = act && any ? rm : -1;
-    return;
-  }
-  const int64_t rc = rmx[p];
-  const float denom = rc >= 0 ? fmaxf(__int_as_float((int)rc), 1.0f) : 1.0f;
-  const float w_score = w[kScore];
-  if (step == 2) {
-    int64_t b = kI64Min;
-    if (act) {
-      for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
-        if (!m[n]) continue;
-        const int64_t u = utility(t[n], denom, w_score, pen[n]);
-        b = u > b ? u : b;
+    if (!row_sync()) return false;
+    mark(kSplit5);
+    // ---- 6: each class's best utility over this column, at the row's denominator
+    for (int64_t c = rank; c < C; c += S.bpt) {
+      int64_t rc = -1;
+      for (int64_t j = 0; j < S.NG; ++j) rc = kt::imax(rc, ldv(rowt[j].cstats + kRmx * C + c));
+      const float denom = rc >= 0 ? fmaxf(__int_as_float((int)rc), 1.0f) : 1.0f;
+      const int64_t* t = T.total + c * N;
+      const uint8_t* m = T.mask + c * N;
+      int64_t b = kI64Min;
+#pragma unroll 4
+      for (int64_t n = tid; n < N; n += blockDim.x)
+        if (m[n]) b = kt::imax(b, utility(t[n], denom, w_score, T.pen[n]));
+      b = block_reduce(b, MaxOp(), kI64Min, s_red);
+      if (tid == 0) T.cstats[kBest * C + c] = b;
+    }
+    if (!row_sync()) return false;
+    mark(kSplit6);
+    // ---- 7: the row's best; each class's tie nodes, count and hash here
+    for (int64_t c = rank; c < C; c += S.bpt) {
+      int64_t rc = -1, best = kI64Min;
+      for (int64_t j = 0; j < S.NG; ++j) {
+        rc = kt::imax(rc, ldv(rowt[j].cstats + kRmx * C + c));
+        best = kt::imax(best, ldv(rowt[j].cstats + kBest * C + c));
       }
-    }
-    b = block_reduce(b, MaxOp(), kI64Min, s);
-    if (threadIdx.x == 0) {
-      best[p] = b;
-      denom_out[p] = denom;
-    }
-    return;
-  }
-  int64_t cnt = 0, h = 0;
-  if (act && rc >= 0) {
-    const int64_t thr = (int64_t)((unsigned long long)best[p] - (unsigned long long)band_of(w));
-    for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
-      if (!m[n] || utility(t[n], denom, w_score, pen[n]) < thr) continue;
-      ++cnt;
-      h = SumOp()(h, tie_weight(n + offset));
-    }
-  }
-  cnt = block_reduce(cnt, SumOp(), 0, s);
-  h = block_reduce(h, SumOp(), 0, s);
-  if (threadIdx.x == 0) {
-    cnt_out[p] = cnt;
-    hash_out[p] = h;
-  }
-}
-
-// ascending bitonic sort of (key, idx) pairs in shared memory, M a power of
-// two; the whole block takes part
-__device__ __forceinline__ void bitonic_sort(int64_t* key, int32_t* idx, int M) {
-  for (int k = 2; k <= M; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < M; i += blockDim.x) {
-        const int l = i ^ j;
-        if (l > i) {
-          const bool gt = key[i] > key[l] || (key[i] == key[l] && idx[i] > idx[l]);
-          if (((i & k) == 0) == gt) {
-            const int64_t tk = key[i];
-            key[i] = key[l];
-            key[l] = tk;
-            const int32_t ti = idx[i];
-            idx[i] = idx[l];
-            idx[l] = ti;
+      const float denom = rc >= 0 ? fmaxf(__int_as_float((int)rc), 1.0f) : 1.0f;
+      // best - band in unsigned arithmetic (wraps as XLA's int64 does)
+      const int64_t thr = (int64_t)((unsigned long long)best - (unsigned long long)band);
+      const int64_t* t = T.total + c * N;
+      const uint8_t* m = T.mask + c * N;
+      int32_t* ties = T.ties + c * N;
+      int64_t h = 0;
+      if (tid == 0) s_base = 0;
+      __syncthreads();
+      if (rc >= 0) {
+        for (int64_t start = 0; start < N; start += blockDim.x) {
+          const int64_t n = start + tid;
+          const bool tie = n < N && m[n] && utility(t[n], denom, w_score, T.pen[n]) >= thr;
+          const unsigned ballot = __ballot_sync(0xffffffffu, tie);
+          if (lane == 0) s_warp[warp] = __popc(ballot);
+          __syncthreads();
+          int64_t pos = s_base;
+          for (int64_t v = 0; v < warp; ++v) pos += s_warp[v];
+          pos += __popc(ballot & ((1u << lane) - 1));
+          if (tie) {
+            ties[pos] = (int32_t)n;
+            h = SumOp()(h, tie_weight(n + T.offset));
           }
+          __syncthreads();
+          if (tid == 0)
+            for (int v = 0; v < kThreads / 32; ++v) s_base += s_warp[v];
+          __syncthreads();
         }
+      }
+      h = block_reduce(h, SumOp(), 0, s_red);
+      if (tid == 0) {
+        T.cstats[kBestRow * C + c] = best;
+        T.cstats[kCnt * C + c] = s_base;
+        T.cstats[kHash * C + c] = h;
+      }
+    }
+    if (!mesh_sync(S, k, xk, &s_flag)) return false;
+    mark(kSplit7);
+    // ---- 8: each pod's rank in its group (pods of an equal group key
+    // before it, in queue order) and its pick, the (rank mod ties)-th tie
+    // node of its class over its pod row
+    // by a block that ranks a pod: every pod row's class keys, then every
+    // pod's key, staged in the block's dynamic shared memory (8 bytes a
+    // pod and a class)
+    int64_t* s_key = reinterpret_cast<int64_t*>(s_dyn);
+    const bool ranks = rank * (kThreads / 32) < P;
+    if (ranks) {
+      int64_t* s_ckey = s_key + P;
+      for (int64_t i = 0, off = 0; i < S.PG; off += S.t[i * S.NG].C, ++i)
+        for (int64_t c = tid; c < S.t[i * S.NG].C; c += blockDim.x)
+          s_ckey[off + c] = class_key(S.t + i * S.NG, S.NG, c);
+      __syncthreads();
+      for (int64_t q = tid; q < P; q += blockDim.x) {
+        const int64_t i = q / Pb;
+        int64_t off = 0;
+        for (int64_t h = 0; h < i; ++h) off += S.t[h * S.NG].C;
+        s_key[q] = T.active[q] ? s_ckey[off + S.t[i * S.NG].class_of[q % Pb]] : 0;
       }
       __syncthreads();
     }
-  }
-}
-
-__device__ __forceinline__ int pow2_at_least(int64_t P) {
-  int M = 1;
-  while (M < P) M <<= 1;
-  return M;
-}
-
-// inclusive max-scan of s over positions [0, M), M <= blockDim.x (thread i
-// owns position i)
-__device__ __forceinline__ void max_scan(int32_t* s, int M) {
-  const int i = threadIdx.x;
-  for (int off = 1; off < M; off <<= 1) {
-    int32_t v = 0;
-    if (i < M) v = i >= off ? max(s[i], s[i - off]) : s[i];
-    __syncthreads();
-    if (i < M) s[i] = v;
-    __syncthreads();
-  }
-}
-
-// inclusive sum-scan (wrapping) of s over positions [0, M)
-__device__ __forceinline__ void sum_scan(unsigned long long* s, int M) {
-  const int i = threadIdx.x;
-  for (int off = 1; off < M; off <<= 1) {
-    unsigned long long v = 0;
-    if (i < M) v = i >= off ? s[i] + s[i - off] : s[i];
-    __syncthreads();
-    if (i < M) s[i] = v;
-    __syncthreads();
-  }
-}
-
-// the once-a-solve start: admission rank, coupled flags, lam * decay
-__global__ void __launch_bounds__(kSortThreads, 1)
-packing_start(ScoreArgs a, const int32_t* prio, const float* w, const float* lam_in,
-              float* lam_out, int32_t* order, uint8_t* coupled) {
-  __shared__ int64_t s_key[kSortThreads];
-  __shared__ int32_t s_idx[kSortThreads];
-  const int64_t P = a.P;
-  const int M = pow2_at_least(P);
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    int64_t key = INT64_MAX;
-    if (i < P) {
-      const int64_t pr = prio == nullptr ? 0 : prio[i];
-      key = (a.pod_valid[i] ? -pr : (1LL << 40)) * P + i;
-    }
-    s_key[i] = key;
-    s_idx[i] = i;
-  }
-  __syncthreads();
-  bitonic_sort(s_key, s_idx, M);
-  for (int i = threadIdx.x; i < P; i += blockDim.x) order[s_idx[i]] = i;
-  for (int64_t p = threadIdx.x; p < P; p += blockDim.x) {
-    bool c = false;
-    for (int64_t k = 0; k < a.K; ++k) c = c || a.pod_ports[p * a.K + k];
-    if (a.sp_pod_match_sig != nullptr)
-      for (int64_t sg = 0; sg < a.sp_S; ++sg) c = c || a.sp_pod_match_sig[p * a.sp_S + sg];
-    if (a.pa_update != nullptr)
-      for (int64_t row = 0; row < a.pa_R; ++row) c = c || a.pa_update[p * a.pa_R + row] != 0;
-    coupled[p] = c;
-  }
-  for (int64_t n = threadIdx.x; n < a.N; n += blockDim.x)
-    lam_out[n] = __fmul_rn(lam_in[n], w[kDecay]);
-}
-
-// (c) rank of each pod within its hash group, by queue order; r = rank mod
-// ties. Over a node mesh (`best` given) the combined hash takes the best
-// utility's xor here, and cnt is the combined count.
-__global__ void __launch_bounds__(kSortThreads, 1)
-round_rank(ScoreArgs a, const int64_t* hash, const int64_t* cnt, int32_t* r_out,
-           const int64_t* best) {
-  __shared__ int64_t s_key[kSortThreads];
-  __shared__ int32_t s_idx[kSortThreads];
-  __shared__ int32_t s_start[kSortThreads];
-  const int64_t P = a.P;
-  const int M = pow2_at_least(P);
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    // pads sort after every real pod of an equal hash (higher index)
-    int64_t key = INT64_MAX;
-    if (i < P) {
-      key = hash[i];
-      if (best != nullptr)
-        key = cnt[i] > 0 ? (int64_t)((unsigned long long)key ^
-                                     ((unsigned long long)best[i] << 1))
-                         : 0;
-    }
-    s_key[i] = key;
-    s_idx[i] = i;
-  }
-  __syncthreads();
-  bitonic_sort(s_key, s_idx, M);
-  for (int i = threadIdx.x; i < M; i += blockDim.x)
-    s_start[i] = (i == 0 || s_key[i] != s_key[i - 1]) ? i : 0;
-  __syncthreads();
-  max_scan(s_start, M);
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    const int32_t p = s_idx[i];
-    if (p < P) {
-      const int64_t rank = i - s_start[i];
-      const int64_t c = cnt[p];
-      r_out[p] = c > 0 ? (int32_t)(rank % c) : 0;
-    }
-  }
-}
-
-// (d) the (r+1)-th tie column of each pod's row (-1 without a feasible node)
-// Over a node mesh (`before` given: the ties of the shards before this one,
-// `cnt` this shard's own) the shard whose ties cover the (r+1)-th writes
-// its GLOBAL index (offset + n); the others write -1 (the shards' max
-// combines them).
-__global__ void round_pick(ScoreArgs a, const uint8_t* mask, const int64_t* total,
-                           const float* pen, const float* w, const int64_t* best,
-                           const int64_t* cnt, const float* denom, const int32_t* r,
-                           int32_t* choice, const int64_t* before, int64_t offset) {
-  __shared__ int32_t s_warp[kRowThreads / 32];
-  __shared__ int32_t s_base;
-  const int64_t p = blockIdx.x;
-  const int64_t N = a.N;
-  const int64_t target = (int64_t)r[p] + 1 - (before != nullptr ? before[p] : 0);
-  if (cnt[p] == 0 || target < 1 || target > cnt[p]) {
-    if (threadIdx.x == 0) choice[p] = -1;
-    return;
-  }
-  const uint8_t* m = mask + p * N;
-  const int64_t* t = total + p * N;
-  const int64_t thr = (int64_t)((unsigned long long)best[p] - (unsigned long long)band_of(w));
-  const float d = denom[p];
-  const float w_score = w[kScore];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  if (threadIdx.x == 0) s_base = 0;
-  __syncthreads();
-  for (int64_t start = 0; start < N; start += blockDim.x) {
-    const int64_t n = start + threadIdx.x;
-    const bool tie = n < N && m[n] && utility(t[n], d, w_score, pen[n]) >= thr;
-    const unsigned ballot = __ballot_sync(0xffffffffu, tie);
-    if (lane == 0) s_warp[warp] = __popc(ballot);
-    __syncthreads();
-    int64_t before = s_base;
-    for (int v = 0; v < warp; ++v) before += s_warp[v];
-    const int64_t pos = before + __popc(ballot & ((1u << lane) - 1)) + 1;
-    if (tie && pos == target) choice[p] = (int32_t)(n + offset);
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int sum = 0;
-      for (int v = 0; v < nwarps; ++v) sum += s_warp[v];
-      s_base += sum;
-    }
-    __syncthreads();
-    if (s_base >= target) break;
-  }
-}
-
-// (e) priority-ordered multi-admission, the dual ascent, finalize and the
-// commit. Over a node mesh (`offset` the shard's first global node, the
-// choices global): `mode` 1 admits the pods that chose this shard's nodes
-// into acc_io (P,) int32, which the shards' max combines, and runs the dual
-// ascent on the shard's nodes (their overflow is the shard's own); mode 2
-// takes the combined admissions, finds the first rejection in admission
-// order, commits this shard's admitted pods to its rows (pa_sums is then a
-// zeroed delta, which the shards' sums add into every shard's sums), and
-// updates the replicated active flags, nominations, assignments and flags.
-__global__ void __launch_bounds__(kSortThreads, 1)
-round_accept(ScoreArgs a, const int32_t* choice, const int32_t* order, const uint8_t* coupled,
-             const float* w, int64_t* req, int64_t* nz, int32_t* pc, uint8_t* ports,
-             int64_t* pa_sums, int32_t* sp_counts, uint8_t* active, int32_t* assignments,
-             float* lam, int32_t* over, int32_t* flags, int mode, int32_t* acc_io,
-             int64_t offset) {
-  __shared__ int64_t s_key[kSortThreads];
-  __shared__ int32_t s_idx[kSortThreads];
-  __shared__ int32_t s_seg[kSortThreads];
-  __shared__ unsigned long long s_cum[kSortThreads];
-  __shared__ uint8_t s_acc[kSortThreads];
-  __shared__ int64_t s_red[33];
-  const int64_t P = a.P, N = a.N, R = a.R, K = a.K;
-  const int M = pow2_at_least(P);
-  // this shard's row of pod p's choice, -1 when it chose another shard's node
-  auto mine = [&](int64_t p) -> int64_t {
-    const int64_t c = (int64_t)choice[p] - offset;
-    return choice[p] >= 0 && c >= 0 && c < N ? c : -1;
-  };
-  if (mode == 2) {
-    for (int i = threadIdx.x; i < M; i += blockDim.x) s_acc[i] = i < P ? acc_io[i] != 0 : 0;
-  } else {
-    for (int i = threadIdx.x; i < M; i += blockDim.x) {
-      // (node, admission rank): the rank is a permutation, so keys are unique
-      s_key[i] = i < P ? (mine(i) >= 0 ? mine(i) : N) * P + order[i] : INT64_MAX;
-      s_idx[i] = i;
-      s_acc[i] = 0;
-    }
-    for (int64_t n = threadIdx.x; n < N; n += blockDim.x) over[n] = 0;
-    __syncthreads();
-    bitonic_sort(s_key, s_idx, M);
-    // thread i owns sorted position i
-    const int i = threadIdx.x;
-    const bool real = i < P;
-    const int64_t node = real ? s_key[i] / P : N;
-    const int32_t pod = real ? s_idx[i] : 0;
-    if (i < M) s_seg[i] = (i == 0 || !real || node != s_key[i - 1] / P) ? i : 0;
-    __syncthreads();
-    max_scan(s_seg, M);
-    const int seg = i < M ? s_seg[i] : 0;
-    const int32_t seg_pod = i < M ? s_idx[seg] : 0;
-    bool ok = real && node < N;
-    if (a.filter_fit) {
-      // segment-relative inclusive prefix sums of each resource
-      for (int64_t r = 0; r < R; ++r) {
-        if (i < M) s_cum[i] = real ? (unsigned long long)a.requests[pod * R + r] : 0ULL;
-        __syncthreads();
-        sum_scan(s_cum, M);
-        if (ok) {
-          const int64_t within = (int64_t)(s_cum[i] - s_cum[seg]
-                                           + (unsigned long long)a.requests[seg_pod * R + r]);
-          ok = within <= a.alloc[node * R + r] - req[node * R + r];
+    for (int64_t p = gwarp; p < P; p += nwarps) {
+      const int64_t kp = s_key[p];
+      int64_t before = 0;
+      for (int64_t q = lane; q < p; q += 32) before += s_key[q] == kp;
+      before = warp_sum(before);
+      // the pick: lane j < NG reads column j's tie count of the pod's class
+      int32_t pick = -1;
+      if (T.active[p]) {
+        const SolveTile* pr = S.t + (p / Pb) * S.NG;
+        const int64_t pc_ = pr[0].C, c = pr[0].class_of[p % Pb];
+        const int64_t cj = lane < S.NG ? ldv(pr[lane].cstats + kCnt * pc_ + c) : 0;
+        int64_t incl = cj;
+        for (int off = 1; off < 32; off <<= 1) {
+          const int64_t y = __shfl_up_sync(0xffffffffu, incl, off);
+          if (lane >= off) incl += y;
         }
-        __syncthreads();
-      }
-      if (ok) ok = (int64_t)(i - seg + 1) <= (int64_t)a.allowed_pods[node] - pc[node];
-    }
-    // one coupled pod a segment (rejected coupled choosers count too)
-    if (i < M) s_cum[i] = real ? (unsigned long long)coupled[pod] : 0ULL;
-    __syncthreads();
-    sum_scan(s_cum, M);
-    if (ok && coupled[pod]) ok = s_cum[i] - s_cum[seg] + coupled[seg_pod] == 1;
-    if (real) s_acc[pod] = ok;
-    if (real && node < N && !ok) atomicAdd(over + node, 1);
-    __syncthreads();
-    // dual ascent on every node: the overflow is the node's rejected choosers
-    const float step = w[kStep];
-    const float cap = __fmul_rn(w[kAlpha], w[kCapFrac]);
-    for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
-      const float v = __fmaf_rn(step, log1p_count((float)over[n]), lam[n]);
-      lam[n] = fminf(fmaxf(v, 0.0f), cap);
-    }
-    if (mode == 1) {
-      for (int64_t p = threadIdx.x; p < P; p += blockDim.x) acc_io[p] = s_acc[p];
-      return;
-    }
-  }
-  __syncthreads();
-  // the first rejection in admission order
-  int64_t first_rej = P;
-  for (int64_t p = threadIdx.x; p < P; p += blockDim.x)
-    if (active[p] && choice[p] >= 0 && !s_acc[p] && order[p] < first_rej) first_rej = order[p];
-  first_rej = block_reduce(first_rej, MinOp(), P, s_red);
-  int64_t progress = 0, still = 0;
-  for (int64_t p = threadIdx.x; p < P; p += blockDim.x) {
-    if (!active[p]) continue;
-    const int32_t c_global = choice[p];
-    const int64_t c = mine(p);  // the row this shard writes, or none
-    const bool commit = s_acc[p];
-    const bool finalize = c_global < 0 && order[p] < first_rej;
-    if (commit && c >= 0) {
-      for (int64_t r = 0; r < R; ++r) {
-        atomicAdd(reinterpret_cast<unsigned long long*>(req + c * R + r),
-                  (unsigned long long)a.requests[p * R + r]);
-        atomicAdd(reinterpret_cast<unsigned long long*>(nz + c * R + r),
-                  (unsigned long long)a.nonzero_requests[p * R + r]);
-      }
-      atomicAdd(pc + c, 1);
-      for (int64_t k = 0; k < K; ++k)
-        if (a.pod_ports[p * K + k]) ports[c * K + k] = 1;
-      if (pa_sums != nullptr) {
-        for (int64_t row = 0; row < a.pa_R; ++row) {
-          const int32_t dom = a.pa_node_domain[row * N + c];
-          if (dom < 0) continue;
-          atomicAdd(reinterpret_cast<unsigned long long*>(pa_sums + row * a.pa_D + dom),
-                    (unsigned long long)a.pa_update[p * a.pa_R + row]);
+        const int64_t cnt = __shfl_sync(0xffffffffu, incl, 31);
+        if (cnt > 0) {
+          const int64_t r = before % cnt;
+          const bool mine = lane < S.NG && r < incl && r >= incl - cj;
+          if (mine) pick = (int32_t)(ldv(pr[lane].ties + c * N + (r - (incl - cj))) +
+                                     pr[lane].offset);
+          pick = __shfl_sync(0xffffffffu, pick,
+                             __ffs(__ballot_sync(0xffffffffu, mine)) - 1);
         }
       }
-      if (sp_counts != nullptr) {
-        for (int64_t sg = 0; sg < a.sp_S; ++sg)
-          if (a.sp_pod_match_sig[p * a.sp_S + sg] && a.sp_eligible[sg * N + c])
-            atomicAdd(sp_counts + sg * N + c, 1);
+      if (lane == 0) {
+        T.choice[p] = pick;
+        const int64_t n = (int64_t)pick - T.offset;
+        if (pick >= 0 && n >= 0 && n < N) T.chosen[n] = 1;
       }
     }
-    if (commit) {
-      if (a.nom_node != nullptr) {
-        for (int64_t g = 0; g < a.G; ++g)
-          if (a.nom_pod_idx[g] == p) a.nom_active[g] = 0;
+    __syncthreads();
+    if (gtid == 0) {
+      T.scal[kProgress] = 0;
+      T.scal[kStill] = 0;
+    }
+    if (!card_sync(S, k, &s_flag)) return false;
+    mark(kSplit8);
+    // ---- 9: the admissions of the pods that chose this column's nodes,
+    // over every pod row's choosers, and each node's rejected choosers: a
+    // warp a chosen node, its lanes over the pods in admission order, 32 at
+    // a time (the picks and the order staged in the block's shared
+    // memory), its choosers' prefix sums of each resource, count and
+    // coupled count by warp scans, carried over from one 32 to the next (a
+    // resource's carry in shared memory)
+    int32_t* s_choice = reinterpret_cast<int32_t*>(s_dyn);
+    int32_t* s_byorder = s_choice + P;
+    unsigned long long* s_carry = reinterpret_cast<unsigned long long*>(s_byorder + P) +
+                                  warp * R;
+    if (rank * (kThreads / 32) < N) {
+      for (int64_t q = tid; q < P; q += blockDim.x) {
+        s_choice[q] = T.choice[q];
+        s_byorder[q] = T.byorder[q];
       }
-      assignments[p] = c_global;
+      __syncthreads();
     }
-    if (commit || finalize) {
-      active[p] = 0;
-      progress = 1;
-    } else {
-      still = 1;
+    for (int64_t n = gwarp; n < N; n += nwarps) {
+      if (!T.chosen[n]) continue;
+      const int32_t node = (int32_t)(n + T.offset);
+      for (int64_t r = lane; r < R; r += 32) s_carry[r] = 0;
+      __syncwarp();
+      int64_t seen = 0, seen_cpl = 0, rejected = 0;
+      // the sums only grow along the order: once a chooser fails the fit,
+      // every later one does (rejected without its sums)
+      bool unfit = false;
+      for (int64_t base = 0; base < P; base += 32) {
+        const int64_t o = base + lane;
+        const int32_t q = o < P ? s_byorder[o] : 0;
+        const bool match = o < P && s_choice[q] == node;
+        const unsigned mm = __ballot_sync(0xffffffffu, match);
+        if (mm == 0) continue;
+        if (unfit) {
+          if (match) T.acc[q] = 0;
+          rejected += __popc(mm);
+          continue;
+        }
+        const bool cq = match && T.coupled[q];
+        const unsigned mc = __ballot_sync(0xffffffffu, cq);
+        const unsigned upto = lane == 31 ? 0xffffffffu : (2u << lane) - 1;
+        // every chooser of n up to this one in admission order counts,
+        // rejected ones too
+        bool fit = true;
+        if (af.filter_fit) {
+          for (int64_t r = 0; r < R; ++r) {
+            unsigned long long incl =
+                match ? (unsigned long long)af.requests[(int64_t)q * R + r] : 0ULL;
+            for (int off = 1; off < 32; off <<= 1) {
+              const unsigned long long y = __shfl_up_sync(0xffffffffu, incl, off);
+              if (lane >= off) incl += y;
+            }
+            const unsigned long long within = s_carry[r] + incl;
+            fit = fit && (int64_t)within <= af.alloc[n * R + r] - T.req[n * R + r];
+            __syncwarp();
+            if (lane == 31) s_carry[r] = within;
+            __syncwarp();
+          }
+          fit = fit && seen + __popc(mm & upto) <= (int64_t)af.allowed_pods[n] - T.pc[n];
+          unfit = __ballot_sync(0xffffffffu, match && !fit) != 0;
+        }
+        // one coupled pod a node (rejected coupled choosers count too)
+        const bool ok = fit && (!cq || seen_cpl + __popc(mc & upto) == 1);
+        if (match) T.acc[q] = ok;
+        rejected += __popc(__ballot_sync(0xffffffffu, match && !ok));
+        seen += __popc(mm);
+        seen_cpl += __popc(mc);
+      }
+      if (lane == 0) T.over[n] = (int32_t)rejected;
     }
+    if (!mesh_sync(S, k, xk, &s_flag)) return false;
+    mark(kSplit9);
+    // ---- 10: the dual ascent on this column's nodes; the next round's
+    // partials cleared; the first rejection in admission order (each block
+    // over every pod); the commit of every admitted pod of this column to
+    // its rows
+    for (int64_t n = gtid; n < N; n += gstride) {
+      const float v = __fmaf_rn(w[kStep], log1p_count((float)T.over[n]), T.lam[n]);
+      T.lam[n] = fminf(fmaxf(v, 0.0f), cap_lam);
+      T.over[n] = 0;
+      T.chosen[n] = 0;
+    }
+    for (int64_t i = gtid; i < S1; i += gstride) T.busy[i] = 0;
+    if (sp_sums)
+      for (int64_t i = gtid; i < a.sp_S * D1; i += gstride) T.sums_part[i] = 0;
+    // (a pod with a pick is active: the commit below clears its flag, so
+    // the pick alone says it)
+    int64_t first_rej = P;
+    for (int64_t p = tid; p < P; p += blockDim.x)
+      if (T.choice[p] >= 0 && !acc_of(p, T.choice[p]))
+        first_rej = kt::imin(first_rej, (int64_t)T.order[p]);
+    first_rej = block_reduce(first_rej, MinOp(), P, s_red);
+    int64_t prog = 0, left = 0;
+    for (int64_t p = gtid; p < P; p += gstride) {
+      if (!T.active[p]) continue;
+      const int32_t ch = T.choice[p];
+      const bool commit = acc_of(p, ch);
+      const bool finalize = ch < 0 && T.order[p] < first_rej;
+      const int64_t c = (int64_t)ch - T.offset;
+      if (commit && c >= 0 && c < N) {
+        for (int64_t r = 0; r < R; ++r) {
+          atomicAdd(reinterpret_cast<unsigned long long*>(T.req + c * R + r),
+                    (unsigned long long)af.requests[p * R + r]);
+          atomicAdd(reinterpret_cast<unsigned long long*>(T.nz + c * R + r),
+                    (unsigned long long)af.nonzero_requests[p * R + r]);
+        }
+        atomicAdd(T.pc + c, 1);
+        for (int64_t kk = 0; kk < K; ++kk)
+          if (af.pod_ports[p * K + kk]) T.ports[c * K + kk] = 1;
+        if (pa) {
+          for (int64_t r = 0; r < af.pa_R; ++r) {
+            const int32_t dom = af.pa_node_domain[r * N + c];
+            if (dom < 0) continue;
+            atomicAdd(reinterpret_cast<unsigned long long*>(T.pa_delta + r * af.pa_D + dom),
+                      (unsigned long long)af.pa_update[p * af.pa_R + r]);
+          }
+        }
+        if (T.sp_counts != nullptr) {
+          for (int64_t sg = 0; sg < af.sp_S; ++sg)
+            if (af.sp_pod_match_sig[p * af.sp_S + sg] && af.sp_eligible[sg * N + c])
+              atomicAdd(T.sp_counts + sg * N + c, 1);
+        }
+      }
+      if (commit) {
+        if (af.nom_node != nullptr)
+          for (int64_t g = 0; g < af.G; ++g)
+            if (af.nom_pod_idx[g] == p) af.nom_active[g] = 0;
+        T.assignments[p] = ch;
+      }
+      if (commit || finalize) {
+        T.active[p] = 0;
+        prog = 1;
+      } else {
+        left = 1;
+      }
+    }
+    prog = block_reduce(prog, MaxOp(), 0, s_red);
+    left = block_reduce(left, MaxOp(), 0, s_red);
+    if (tid == 0) {
+      if (prog) atomicExch(reinterpret_cast<unsigned long long*>(T.scal + kProgress), 1ULL);
+      if (left) atomicExch(reinterpret_cast<unsigned long long*>(T.scal + kStill), 1ULL);
+    }
+    if (pa) {
+      // the row's affinity increments, into this tile's sums (the next
+      // round clears the increments once every tile has read them)
+      if (!mesh_sync(S, k, xk, &s_flag)) return false;
+      for (int64_t i = gtid; i < a.pa_R * a.pa_D; i += gstride) {
+        int64_t v = 0;
+        for (int64_t j = 0; j < S.NG; ++j) v += ldv(rowt[j].pa_delta + i);
+        T.pa_sums[i] += v;
+      }
+      if (!mesh_sync(S, k, xk, &s_flag)) return false;
+    } else if (!card_sync(S, k, &s_flag)) {
+      return false;
+    }
+    progress = T.scal[kProgress] != 0;
+    still = T.scal[kStill] != 0;
+    iters += 1;
+    mark(kSplit10);
   }
-  progress = block_reduce(progress, MaxOp(), 0, s_red);
-  still = block_reduce(still, MaxOp(), 0, s_red);
-  if (threadIdx.x == 0) {
-    flags[0] = (int32_t)progress;
-    flags[1] = (int32_t)still;
-  }
-}
 
-// the once-a-solve end: equalization prices, nodes used, objective. Over a
-// node mesh (`mode` 1, then 2; `offset` the shard's first global node): 1
-// writes the shard's partials: the least start utility over its used
-// nodes and its fragmentation sum into endf (2,) float32, whether it used a
-// node and its nodes used into endi (2,) int64, and its busy flags at the
-// start and at the end into busy (2 (S + 1),) int32; the shards' min, sum,
-// max and sums combine them. 2 reads the combined partials, writes the
-// shard's equalization prices, and the objective and nodes used (every
-// shard alike).
-__global__ void __launch_bounds__(kSortThreads, 1)
-packing_end(ScoreArgs a, const int64_t* req0, const int32_t* pc0, const int64_t* req,
-            const int32_t* pc, const int32_t* assignments, const int32_t* prio, const float* w,
-            float* lam, const int32_t* slice_id, int64_t S, int32_t* busy, float* objective,
-            int32_t* nodes_used, int mode, float* endf, int64_t* endi, int64_t offset) {
-  __shared__ int64_t s_red[33];
-  __shared__ float s_f[33];
-  const int64_t N = a.N, P = a.P;
-  const float pos_inf = __int_as_float(0x7f800000);
-  float vmin = pos_inf, frag = 0.0f, adm = 0.0f;
-  int64_t any = 0, used_nodes = 0;
-  int32_t* busy0 = busy;
-  int32_t* busy1 = busy + (S + 1);
-  if (mode == 2) {
-    vmin = endf[0];
-    frag = endf[1];
-    any = endi[0];
-    used_nodes = endi[1];
-  } else {
-    for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
+  // ---- the end: this column's partials
+  {
+    const float pos_inf = __int_as_float(0x7f800000);
+    float vmin = pos_inf, frag = 0.0f;
+    int64_t any = 0, used = 0;
+    for (int64_t n = gtid; n < N; n += gstride) {
       const bool valid = a.node_valid[n];
-      if (pc[n] > pc0[n] && valid) {
-        vmin = fminf(vmin, -closed_terms(a, w, req0, pc0, n, 0.0f, offset));
+      if (T.pc[n] > T.pc0[n] && valid) {
+        vmin = fminf(vmin, -closed_terms(a, w, T.req0, T.pc0, n, 0.0f, T.offset));
         any = 1;
       }
-      if (pc[n] > 0 && valid) {
-        ++used_nodes;
-        frag = __fadd_rn(frag, emptiness(a, req, n));
+      if (T.pc[n] > 0 && valid) {
+        ++used;
+        frag = __fadd_rn(frag, emptiness(a, T.req, n));
+      }
+      if (T.slice_id != nullptr) {
+        if (node_busy(a, T.req0, n)) T.busy[S1 + T.slice_id[n]] = 1;
+        if (node_busy(a, T.req, n)) T.busy[2 * S1 + T.slice_id[n]] = 1;
       }
     }
     vmin = block_reduce_f(vmin, FMin(), pos_inf, s_f);
     frag = block_reduce_f(frag, FSum(), 0.0f, s_f);
     any = block_reduce(any, MaxOp(), 0, s_red);
-    used_nodes = block_reduce(used_nodes, SumOp(), 0, s_red);
-    if (slice_id != nullptr) {
-      // busy flags at the start and at the end
-      slice_busy(a, req0, slice_id, S, busy0);
-      slice_busy(a, req, slice_id, S, busy1);
+    used = block_reduce(used, SumOp(), 0, s_red);
+    if (tid == 0) {
+      T.endf[rank] = vmin;
+      T.endf[S.bpt + rank] = frag;
+      if (any) atomicExch(reinterpret_cast<unsigned long long*>(T.scal + kAny), 1ULL);
+      atomicAdd(reinterpret_cast<unsigned long long*>(T.scal + kUsed), (unsigned long long)used);
     }
-    if (mode == 1) {
-      if (threadIdx.x == 0) {
-        endf[0] = vmin;
-        endf[1] = frag;
-        endi[0] = any;
-        endi[1] = used_nodes;
+  }
+  if (!mesh_sync(S, k, xk, &s_flag)) return false;
+  // ---- the row's partials: the prices of this column, the objective
+  {
+    const float pos_inf = __int_as_float(0x7f800000);
+    float vmin = pos_inf;
+    int64_t any = 0;
+    for (int64_t j = 0; j < S.NG; ++j) {
+      any |= ldv(rowt[j].scal + kAny);
+      for (int64_t b = 0; b < S.bpt; ++b) vmin = fminf(vmin, ldv(rowt[j].endf + b));
+    }
+    if (any)
+      for (int64_t n = gtid; n < N; n += gstride) {
+        const float v0 = -closed_terms(a, w, T.req0, T.pc0, n, 0.0f, T.offset);
+        T.lam[n] = fminf(fmaxf(__fsub_rn(v0, vmin), 0.0f), cap_lam);
       }
-      return;
+    if (rank == 0) {
+      float adm = 0.0f;
+      for (int64_t p = tid; p < P; p += blockDim.x) {
+        if (T.assignments[p] < 0 || !af.pod_valid[p]) continue;
+        const float pr = T.prio == nullptr ? 0.0f : (float)T.prio[p];
+        adm = __fadd_rn(adm, __fadd_rn(1.0f, __fmul_rn(w[kPrio], pr)));
+      }
+      adm = block_reduce_f(adm, FSum(), 0.0f, s_f);
+      int64_t newly = 0;
+      if (T.slice_id != nullptr) {
+        // slices opened from fully free: busy at the end, not at the start
+        for (int64_t sl = tid; sl < T.S; sl += blockDim.x) {
+          bool b0 = false, b1 = false;
+          for (int64_t j = 0; j < S.NG; ++j) {
+            b0 = b0 || ldv(rowt[j].busy + S1 + sl) != 0;
+            b1 = b1 || ldv(rowt[j].busy + 2 * S1 + sl) != 0;
+          }
+          newly += b1 && !b0;
+        }
+        newly = block_reduce(newly, SumOp(), 0, s_red);
+      }
+      if (tid == 0) {
+        float frag = 0.0f;
+        int64_t used = 0;
+        for (int64_t j = 0; j < S.NG; ++j) {
+          float fj = 0.0f;
+          for (int64_t b = 0; b < S.bpt; ++b) fj = __fadd_rn(fj, ldv(rowt[j].endf + S.bpt + b));
+          frag = __fadd_rn(frag, fj);
+          used += ldv(rowt[j].scal + kUsed);
+        }
+        float obj = __fsub_rn(__fsub_rn(adm, __fmul_rn(w[kAlpha], (float)used)),
+                              __fmul_rn(w[kBeta], frag));
+        if (T.slice_id != nullptr) obj = __fsub_rn(obj, __fmul_rn(w[kSliceFrag], (float)newly));
+        *T.objective = obj;
+        *T.nodes_used = (int32_t)used;
+      }
     }
   }
-  if (any) {
-    const float cap = __fmul_rn(w[kAlpha], w[kCapFrac]);
-    for (int64_t n = threadIdx.x; n < N; n += blockDim.x) {
-      const float v0 = -closed_terms(a, w, req0, pc0, n, 0.0f, offset);
-      lam[n] = fminf(fmaxf(__fsub_rn(v0, vmin), 0.0f), cap);
-    }
-  }
-  for (int64_t p = threadIdx.x; p < P; p += blockDim.x) {
-    if (assignments[p] < 0 || !a.pod_valid[p]) continue;
-    const float pr = prio == nullptr ? 0.0f : (float)prio[p];
-    adm = __fadd_rn(adm, __fadd_rn(1.0f, __fmul_rn(w[kPrio], pr)));
-  }
-  adm = block_reduce_f(adm, FSum(), 0.0f, s_f);
-  int64_t newly = 0;
-  if (slice_id != nullptr) {
-    // slices opened from fully free: busy at the end, not at the start
-    for (int64_t s = threadIdx.x; s < S; s += blockDim.x) newly += busy1[s] && !busy0[s];
-    newly = block_reduce(newly, SumOp(), 0, s_red);
-  }
-  if (threadIdx.x == 0) {
-    float obj = __fsub_rn(__fsub_rn(adm, __fmul_rn(w[kAlpha], (float)used_nodes)),
-                          __fmul_rn(w[kBeta], frag));
-    if (slice_id != nullptr) obj = __fsub_rn(obj, __fmul_rn(w[kSliceFrag], (float)newly));
-    *objective = obj;
-    *nodes_used = (int32_t)used_nodes;
+  mark(kSplitEnd);
+  return true;
+}
+
+__global__ void __launch_bounds__(kThreads, 1) packing_solve_kernel(const __grid_constant__ SolveSet S) {
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  int64_t iters = 0;
+  const bool ok = solve(S, iters, s_dyn);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    S.out[0] = iters;
+    S.out[1] = ok ? (int64_t)(ldv(S.x.error) != 0) : 1;
   }
 }
 
@@ -774,248 +952,53 @@ __global__ void packing_log1p(const float* k, float* ours, float* cuda, int64_t 
 
 }  // namespace
 
-// Once a solve, before the rounds: order (P,) int32 each pod's admission
-// rank, coupled (P,) uint8 its coupled flag, lam_out (N,) = lam_in * decay.
-// prio (P,) int32 or null (all 0); w the (10,) float32 weights.
-extern "C" int kt_packing_start(const ScoreArgs* args, const void* prio, const void* w,
-                                const void* lam_in, void* lam_out, void* order, void* coupled,
-                                void* stream) {
-  const ScoreArgs a = *args;
-  if (a.P > kSortThreads) return (int)cudaErrorInvalidValue;
+// Launches one card's part of a packing solve on `stream`: `set` (host
+// memory) holds every tile of the solve and this card's (set->local,
+// set->nlocal; at most 8 tiles in all), set->bpt blocks a tile, all in one
+// cooperative launch (they spin on each other at every barrier, so all must
+// be resident). Before the launch the entry zeroes the card's barrier
+// counter, abort word, error word (set->x.error) and output. `smem` is the
+// dynamic shared memory: the spread weights (8 bytes a constraint slot)
+// and, at other steps, the group keys (8 bytes a pod and a class) and the
+// picks with the admission order (8 bytes a pod) and each warp's resource
+// carries (8 bytes a resource); the largest of these. On a mesh of several cards
+// each card's entry is called in turn (without waiting: their launches meet
+// at the exchange). Each tile's running state, duals, assignments,
+// objective and nodes used are written in place; set->out receives the
+// iterations and the error flag (a wait past the budget). Returns
+// cudaErrorCooperativeLaunchTooLarge when the tiles' blocks cannot all be
+// resident on this card, else the cudaError_t of the launch.
+extern "C" int kt_packing_round(const void* set, int64_t smem, void* stream) {
+  const SolveSet& in = *static_cast<const SolveSet*>(set);
+  if (in.nlocal < 1 || in.nlocal > kMaxTiles || in.bpt < 1 || in.PG * in.NG > kMaxTiles)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  packing_start<<<1, kSortThreads, 0, s>>>(
-      a, static_cast<const int32_t*>(prio), static_cast<const float*>(w),
-      static_cast<const float*>(lam_in), static_cast<float*>(lam_out),
-      static_cast<int32_t*>(order), static_cast<uint8_t*>(coupled));
-  return (int)cudaGetLastError();
-}
-
-// The node pass alone, (a): pen (N,) float32 each node's penalty against
-// the state args->requested / args->pod_count and lam (N,); slice_id (N,)
-// int32 or null, S slices, busy (S + 1,) int32 scratch.
-extern "C" int kt_packing_nodes(const ScoreArgs* args, const void* w, const void* lam,
-                                const void* slice_id, int64_t S, void* busy, void* pen,
-                                void* stream) {
-  const ScoreArgs a = *args;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  round_nodes<<<1, kSortThreads, 0, s>>>(a, static_cast<const float*>(w),
-                                          static_cast<const float*>(lam),
-                                          static_cast<const int32_t*>(slice_id), S,
-                                          static_cast<int32_t*>(busy), static_cast<float*>(pen),
-                                          0, 0);
-  return (int)cudaGetLastError();
-}
-
-// One round on `stream`, after filter_score wrote `mask` and `total` (P, N)
-// against the round's state. req / nz / pc / ports / pa_sums / sp_counts are
-// the running state (pa_sums null without affinity rows, sp_counts without
-// a spread leaf), updated in place; active (P,), assignments (P,) and lam
-// (N,) likewise. order and coupled come from kt_packing_start; slice_id /
-// S / busy as for kt_packing_nodes. Scratch: pen (N,) float32, stats64 (3,
-// P) int64, stats32 (2, P) int32, denom (P,) float32, over (N,) int32.
-// flags (2,) int32 receives (progress, any pod still active). Returns the
-// cudaError_t of the launches (0 = all were accepted).
-extern "C" int kt_packing_round(const ScoreArgs* args, const void* mask, const void* total,
-                                void* req, void* nz, void* pc, void* ports, void* pa_sums,
-                                void* sp_counts, void* active, void* assignments, void* lam,
-                                const void* w, const void* order, const void* coupled,
-                                const void* slice_id, int64_t S, void* busy, void* pen,
-                                void* stats64, void* stats32, void* denom, void* over,
-                                void* flags, void* stream) {
-  const ScoreArgs a = *args;
-  if (a.P == 0) return 0;
-  if (a.P > kSortThreads) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* wf = static_cast<const float*>(w);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  const int64_t* t = static_cast<const int64_t*>(total);
-  float* pn = static_cast<float*>(pen);
-  int64_t* best = static_cast<int64_t*>(stats64);
-  int64_t* cnt = best + a.P;
-  int64_t* hash = cnt + a.P;
-  int32_t* r = static_cast<int32_t*>(stats32);
-  int32_t* choice = r + a.P;
-  float* dn = static_cast<float*>(denom);
-  uint8_t* act = static_cast<uint8_t*>(active);
-  round_nodes<<<1, kSortThreads, 0, s>>>(a, wf, static_cast<const float*>(lam),
-                                          static_cast<const int32_t*>(slice_id), S,
-                                          static_cast<int32_t*>(busy), pn, 0, 0);
-  cudaError_t err = cudaGetLastError();
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute((const void*)packing_solve_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, packing_solve_kernel, kThreads,
+                                                        (size_t)smem);
   if (err != cudaSuccess) return (int)err;
-  round_pod_stats<<<(unsigned)a.P, kRowThreads, 0, s>>>(a, m, t, act, pn, wf, best, cnt, hash,
-                                                        dn);
-  err = cudaGetLastError();
+  if ((int64_t)occ * sms < in.bpt * in.nlocal) return (int)cudaErrorCooperativeLaunchTooLarge;
+  err = cudaMemsetAsync(in.bar, 0, sizeof(unsigned long long), s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(in.abort, 0, sizeof(int32_t), s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(in.x.error, 0, sizeof(int32_t), s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(in.out, 0, 2 * sizeof(int64_t), s);
   if (err != cudaSuccess) return (int)err;
-  round_rank<<<1, kSortThreads, 0, s>>>(a, hash, cnt, r, nullptr);
-  err = cudaGetLastError();
+  SolveSet sv = in;
+  void* args[] = {&sv};
+  err = cudaLaunchCooperativeKernel((const void*)packing_solve_kernel,
+                                    dim3((unsigned)(in.bpt * in.nlocal)), dim3(kThreads), args,
+                                    (size_t)smem, s);
   if (err != cudaSuccess) return (int)err;
-  round_pick<<<(unsigned)a.P, kRowThreads, 0, s>>>(a, m, t, pn, wf, best, cnt, dn, r, choice,
-                                                    nullptr, 0);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  round_accept<<<1, kSortThreads, 0, s>>>(
-      a, choice, static_cast<const int32_t*>(order), static_cast<const uint8_t*>(coupled), wf,
-      static_cast<int64_t*>(req), static_cast<int64_t*>(nz), static_cast<int32_t*>(pc),
-      static_cast<uint8_t*>(ports), static_cast<int64_t*>(pa_sums),
-      static_cast<int32_t*>(sp_counts), act, static_cast<int32_t*>(assignments),
-      static_cast<float*>(lam), static_cast<int32_t*>(over), static_cast<int32_t*>(flags), 0,
-      nullptr, 0);
   return (int)cudaGetLastError();
 }
 
-// Once a solve, after the rounds: lam (N,) in place (the equalization
-// prices when any node was used), objective () float32 and nodes_used ()
-// int32. req0 / pc0 are the batch's start rows, req / pc the final state;
-// busy is (2 * (S + 1),) int32 scratch when slice_id is given.
-extern "C" int kt_packing_end(const ScoreArgs* args, const void* req0, const void* pc0,
-                              const void* req, const void* pc, const void* assignments,
-                              const void* prio, const void* w, void* lam, const void* slice_id,
-                              int64_t S, void* busy, void* objective, void* nodes_used,
-                              void* stream) {
-  const ScoreArgs a = *args;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  packing_end<<<1, kSortThreads, 0, s>>>(
-      a, static_cast<const int64_t*>(req0), static_cast<const int32_t*>(pc0),
-      static_cast<const int64_t*>(req), static_cast<const int32_t*>(pc),
-      static_cast<const int32_t*>(assignments), static_cast<const int32_t*>(prio),
-      static_cast<const float*>(w), static_cast<float*>(lam),
-      static_cast<const int32_t*>(slice_id), S, static_cast<int32_t*>(busy),
-      static_cast<float*>(objective), static_cast<int32_t*>(nodes_used), 0, nullptr, nullptr,
-      0);
-  return (int)cudaGetLastError();
-}
-
-namespace {
-
-// One tile's buffers of a tiled solve (kernels K8 and K5); mirror of
-// PackShard in kubetpu_torch/kernels/__init__.py (8-byte fields). Node-
-// indexed arrays hold the tile's column of N / NG rows; stats, denom and
-// mask the tile's Pb = P / PG pods; the other pod-indexed arrays all P.
-struct PackShard {
-  const uint8_t* mask;      // (Pb, N) this round's filter_score of the tile
-  const int64_t* total;
-  int64_t* req;             // running state, the shard's rows
-  int64_t* nz;
-  int32_t* pc;
-  uint8_t* ports;
-  int64_t* pa_delta;        // (RA, D) zeroed before step 7, or null
-  int32_t* sp_counts;       // (S, N) or null
-  uint8_t* active;          // (P,)
-  int32_t* assignments;     // (P,) global node indices
-  float* lam;               // (N,) the shard's duals, in place
-  const float* w;           // (10,)
-  int32_t* order;           // (P,)
-  uint8_t* coupled;         // (P,)
-  const int32_t* slice_id;  // (N,) or null
-  int64_t S;
-  int32_t* busy;            // (2 (S + 1),)
-  float* pen;               // (N,)
-  int64_t* stats;           // (7, Pb): rmx, best, cnt, hash, cnt_all, hash_all, before
-  float* denom;             // (Pb,)
-  int32_t* r;               // (P,)
-  int32_t* choice;          // (2, P): this tile's picks (its pod row), the combined
-  int32_t* acc;             // (2, P): this tile's admissions, the combined ones
-  int32_t* over;            // (N,)
-  int32_t* flags;           // (2,)
-  const int64_t* req0;      // the shard's start rows
-  const int32_t* pc0;
-  const int32_t* prio;      // (P,) or null
-  float* endf;              // (2,)
-  int64_t* endi;            // (2,)
-  float* objective;         // ()
-  int32_t* nodes_used;      // ()
-  const int64_t* fbest;     // (P,) every pod row's best, hash and tie count joined in
-  const int64_t* fhash;     // pod order (on one pod row: stats' rows 1, 5, 4)
-  const int64_t* fcount;
-  int64_t pod_offset;       // the tile's first pod
-  int64_t offset;           // the tile's first global node
-};
-
-}  // namespace
-
-// One step of a tiled solve (kernel K8; on one pod row, a node mesh, kernel
-// K5) on one tile, after its pod row's sharded filter_score wrote `mask`
-// and `total`; the host combines the tiles' partials between the steps.
-// `tile` is the tile's arguments (its Pb pods), `full` its node column with
-// every pod's pod-major leaves (on one pod row, `tile` itself). 0: the
-// start (order, coupled, lam *= decay) over every pod; each round: 1 the
-// tile's busy flags (with a topology leaf); 2 its penalties (from the
-// combined busy counts) and its pods' row maxima of |score| into stats[0];
-// 3 their best utility into stats[1]; 4 their tie counts into stats[2] and
-// hashes into stats[3]; 5 the ranks over every pod (from the joined fbest,
-// fhash, fcount), then its pods' picks (stats[6] the ties before it) into
-// its pod row's part of choice[0]; 6 the admissions of its column's
-// choosers over every pod (from the combined choice[1]) into acc[0], and
-// the dual ascent on its copy of the column's nodes; 7 the commit of every
-// pod of its column (from the combined acc[1]) to its copy; at the end: 8
-// its column's partials into endf, endi and busy; 9 its prices and the
-// objective. Returns the cudaError_t of the launch.
-extern "C" int kt_packing_tile(const ScoreArgs* tile, const ScoreArgs* full, int step,
-                               const void* shard, void* stream) {
-  const ScoreArgs at = *tile;
-  const ScoreArgs af = *full;
-  const PackShard& h = *static_cast<const PackShard*>(shard);
-  if (af.P > kSortThreads) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned Pb = (unsigned)at.P;
-  int64_t *rmx = h.stats, *best = h.stats + at.P, *cnt = h.stats + 2 * at.P,
-          *hash = h.stats + 3 * at.P, *before = h.stats + 6 * at.P;
-  uint8_t* act = h.active + h.pod_offset;
-  switch (step) {
-    case 0:
-      packing_start<<<1, kSortThreads, 0, s>>>(af, h.prio, h.w, h.lam, h.lam, h.order,
-                                               h.coupled);
-      break;
-    case 1:
-      round_nodes<<<1, kSortThreads, 0, s>>>(at, h.w, h.lam, h.slice_id, h.S, h.busy, h.pen, 1,
-                                              h.offset);
-      break;
-    case 2: {
-      round_nodes<<<1, kSortThreads, 0, s>>>(at, h.w, h.lam, h.slice_id, h.S, h.busy, h.pen, 2,
-                                              h.offset);
-      cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-      if (Pb) shard_pod_stats<<<Pb, kRowThreads, 0, s>>>(at, h.mask, h.total, act, h.pen, h.w,
-                                                       1, rmx, best, h.denom, cnt, hash, h.offset);
-      break;
-    }
-    case 3:
-    case 4:
-      if (Pb) shard_pod_stats<<<Pb, kRowThreads, 0, s>>>(at, h.mask, h.total, act, h.pen, h.w,
-                                                       step - 1, rmx, best, h.denom, cnt, hash,
-                                                       h.offset);
-      break;
-    case 5: {
-      if (!af.P) break;
-      round_rank<<<1, kSortThreads, 0, s>>>(af, h.fhash, h.fcount, h.r, h.fbest);
-      cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-      if (Pb) round_pick<<<Pb, kRowThreads, 0, s>>>(at, h.mask, h.total, h.pen, h.w, best, cnt,
-                                                  h.denom, h.r + h.pod_offset,
-                                                  h.choice + h.pod_offset, before, h.offset);
-      break;
-    }
-    case 6:
-    case 7:
-      if (af.P) round_accept<<<1, kSortThreads, 0, s>>>(
-          af, h.choice + af.P, h.order, h.coupled, h.w, h.req, h.nz, h.pc, h.ports, h.pa_delta,
-          h.sp_counts, h.active, h.assignments, h.lam, h.over, h.flags, step - 5,
-          step == 6 ? h.acc : h.acc + af.P, h.offset);
-      break;
-    case 8:
-    case 9:
-      packing_end<<<1, kSortThreads, 0, s>>>(af, h.req0, h.pc0, h.req, h.pc, h.assignments,
-                                              h.prio, h.w, h.lam, h.slice_id, h.S, h.busy,
-                                              h.objective, h.nodes_used, step - 7, h.endf,
-                                              h.endi, h.offset);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int64_t kt_packing_round_shard_size() { return (int64_t)sizeof(PackShard); }
+extern "C" int64_t kt_packing_round_set_size() { return (int64_t)sizeof(SolveSet); }
 
 // The dual ascent's log1p alone, for checking: ours (n,) float32 the
 // kernel's log1p_count of each whole-number count k (n,) float32, and
@@ -1024,7 +1007,7 @@ extern "C" int kt_packing_log1p(const void* k, void* ours, void* cuda, int64_t n
                                 void* stream) {
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  packing_log1p<<<(unsigned)((n + kRowThreads - 1) / kRowThreads), kRowThreads, 0, s>>>(
+  packing_log1p<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
       static_cast<const float*>(k), static_cast<float*>(ours), static_cast<float*>(cuda), n);
   return (int)cudaGetLastError();
 }

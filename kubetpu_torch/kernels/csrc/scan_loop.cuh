@@ -39,9 +39,13 @@
 //   weights take one (sp_weights1);
 // - the owner adds the pod to its node with fire-and-forget atomics (no
 //   load of the old row on the path).
-// A thread owns at most kPer nodes: a block takes N <= kMaxNodes (the
-// wrappers raise above it). The block is 512 threads, one a warp lane of
-// 16 warps.
+// A thread owns at most kPer nodes: a block takes N <= kMaxNodes, 16384
+// nodes (the wrappers raise above it). That is a deviation from kubetpu,
+// whose scan takes any N: the unsharded greedy engine, the placement
+// search and the gang dry run, and each shard of K1 and K7, refuse a
+// larger block, and such a cluster needs a mesh (no scheduler_perf case
+// exceeds 15000 nodes). The block is 512 threads, one a warp lane of 16
+// warps.
 //
 // Under a node mesh (X = MeshShard, greedy_scan.cu's sharded kernel) the
 // block is shard g of G and N is its own rows; the exchange (exchange.cuh)

@@ -14,7 +14,7 @@ hypothesis_scan.cu``), which the placement search and the gang dry run
 launch; the functions here are what a CPU batch runs and what that
 epilogue is held to. ``slice_occupancy`` prices the packing engine's
 slice terms (``assign.packing``); on a CUDA device it runs fused into the
-``packing_round`` kernel's node pass and its ``packing_end`` epilogue
+``packing_round`` kernel's node penalties and its end
 (``kernels/csrc/packing_round.cu``). ``free_slices`` has no caller in the
 port yet (the reference's trace runner reads it).
 """
