@@ -32,8 +32,9 @@ final ``ok`` line is not printed):
    ``feasible_and_scores`` (mask and int64 total), the ``greedy_scan``
    engine must equal ``greedy_assign_plain`` (assignments, final node
    state, spread counts and affinity sums) and the batched engine's
-   ``batched_round`` rounds must equal ``batched_assign_plain`` (the same,
-   and the round count) exactly, on CUDA tensors; then ``scatter_rows``
+   ``batched_round`` solve (one launch a batch) must equal
+   ``batched_assign_plain`` (the same, and the round count) exactly, on
+   CUDA tensors; then ``scatter_rows``
    must equal ``scatter_node_rows_plain`` on a seeded 5120-row resident
    block (1000 dirty rows, 8 boundary rows flipping validity, pads at and
    past N), and a SchedulingBasic resident block after a delta refresh
@@ -60,14 +61,14 @@ final ``ok`` line is not printed):
    batches; then the gang lane (B11-B13): ``placement_scan`` must equal
    ``placement_assign_plain`` (assignments, counts, alignment) on the
    SchedulingBasic block labeled into 32 TPU slices (1000 pods, 33
-   placements: every slice and ``<all>``; the plain search on 2 slices and
-   ``<all>``, phase 4 holds 3) and on the mixed, affinity and
-   spread clusters cut into 8 slices (9 placements, the plain search on 3
+   placements: every slice and ``<all>``; the plain search on 1 slice and
+   ``<all>``, phase 4 holds 2) and on the mixed, affinity and
+   spread clusters cut into 8 slices (9 placements, the plain search on 1
    and ``<all>``; there the batched engine's placement search too:
-   ``hypothesis_rows``, ``filter_score`` + ``batched_round`` once a
-   placement, ``slice_epilogue``), and
+   ``hypothesis_rows``, a ``batched_round`` solve a placement,
+   ``slice_epilogue``), and
    ``gang_dry_run_scan`` must equal ``dry_run_gang_preemption_plain``
-   (counts, alignment; the plain dry run on the first 8) at 32 eviction
+   (counts, alignment; the plain dry run on the first 2) at 32 eviction
    hypotheses on a full 5000-node
    sliced cluster, with freed rows on each victim slice, some more than
    the node holds, and so must the batched engine's dry run on the same
@@ -108,10 +109,11 @@ final ``ok`` line is not printed):
    PreferredTopologySpreading cycles (every template variant), and against
    the sharded plain engine on one cut batch of each variant (the full
    Basic batch's plain run is the unsharded kernel's); a tie batch whose first pick must be the first shard's
-   last node; K2 (the sharded ``filter_score`` passes and batched rounds)
-   against the unsharded kernels on the SchedulingPodAffinity and
+   last node; the sharded ``filter_score`` passes and K2 (the batched
+   solve over the shards) against the unsharded kernels on the
+   SchedulingPodAffinity and
    TopologySpreading cycles and three mixed clusters, and against the
-   sharded plain rounds on three of them; K3 (the sharded dry run) against
+   sharded plain rounds on the first two; K3 (the sharded dry run) against
    the unsharded kernel and the sharded plain version at 5120 x 8 and x
    128; and a routed delta into a sharded resident block against the
    unsharded block (B5m, timed); then the preemption evaluator's
@@ -126,7 +128,19 @@ final ``ok`` line is not printed):
    assignments, every pod row's node slots, every tile's duals' bits,
    iterations and nodes used exact against the tiled plain solve and the
    unsharded kernel; the objective within rtol 1e-5; timed beside K5 and
-   the unsharded kernel); and ``filter_score`` on its pod classes
+   the unsharded kernel); then the batched solve on its own batches
+   (``batched_solve_checks``: B6 unsharded, K2 over the four shards and K6
+   on the grid, each exact against the plain rounds and K2 / K6 against
+   B6 too, every pod row's copy of the node rows equal): the hotspot of
+   ``tests/test_torch_batched_stop.py`` (one pod a round) stopped at 1, 2,
+   11 and P rounds, SchedulingPodAffinity with no pod valid, 1024 pods of
+   64 classes whose tie groups mix classes (stopped at 1, 2 and 6
+   rounds), crafted extender rows whose tie groups collide on one key
+   (key 0 among them, the key of invalid pods), eight pods whose first
+   rejection falls in the grid's second pod row, a nominated
+   PreemptionAsync-shaped batch, SchedulingBasic with extender rows
+   (stopped at 1, 2 and 6 rounds) and with a DRA leaf; and
+   ``filter_score`` on its pod classes
    (``class_checks``; every batch above already runs on its classes):
    exact against its plain version on the BinPacking block (four
    classes), on SchedulingBasic, SchedulingPodAffinity and
@@ -184,10 +198,10 @@ final ``ok`` line is not printed):
    ``GangScheduling/5000Nodes_1000Gangs_3000Pods`` on a fleet labeled into
    32 TPU slices with ``topology="on"`` (placement cycles through
    ``hypothesis_scan``; every gang on one slice; the first placement
-   search's first nine placements equal to ``placement_assign_plain``),
+   search's first two placements equal to ``placement_assign_plain``),
    the former again on the batched
-   engine (placement cycles through ``hypothesis_rows``, ``filter_score``
-   + ``batched_round`` and ``slice_epilogue``), the latter again unlabeled with
+   engine (placement cycles through ``hypothesis_rows``, a ``batched_round``
+   solve a placement and ``slice_epilogue``), the latter again unlabeled with
    ``topology="off"`` (coalesced greedy cycles), and a gang preemption
    scenario at 5000 nodes and 32 slices (16 priority-0 gangs each on a
    slice, priority-10 pods on every other node, then a priority-10 gang
@@ -261,6 +275,12 @@ prints one JSON line; where the checkout has ``csrc/scan_split.cu`` the
 line also holds the scan's step split and step floor (``scan_split``);
 ``--time-spread ROOT`` does the same on the PreferredTopologySpreading
 cycle and on the mixed spread cluster under the spread profile;
+``--time-batched ROOT`` times its batched engine (``time_batched``): B6 on
+the SchedulingPodAffinity, TopologySpreading and BinPacking batches, the
+batched gang placement search (33 placements), and K2 and K6 on
+SchedulingPodAffinity's batch at four logical shards and on the 2 x 2
+grid, each with the card's busy time a call and, where the checkout has
+it, the solve's split into its steps;
 ``--time-mesh ROOT`` times its node mesh's greedy, batched and packing
 engines (kernels K1, K2 and K5 at four logical shards) and its packing
 solve on a 2 x 2 grid of logical tiles (K8), on the BinPacking block and
@@ -270,7 +290,8 @@ parent) to compare the two on one card within one call. ``--time-dra`` splits th
 the SchedulingBasic cycle with a DynamicResources score leaf into the
 normalize pass and the placements the leaf moves (``time_dra``).
 ``--mesh`` runs the node mesh's checks (``mesh_checks``, the packing and
-grid checks, K8 also on the full BinPacking block) and its paths, with
+grid checks, K8 also on the full BinPacking block, the batched solve's
+``batched_solve_checks``) and its paths, with
 SchedulingBasic, SchedulingPodAffinity, PreemptionAsync, the packing
 paths and the 3 x 1000 gangs unsharded first, over one shard a card on
 every visible card (four logical shards when only one is visible), prints the exchange's round trip and
@@ -1595,13 +1616,14 @@ def preemption_check(sched) -> dict:
 # --------------------------------- 3d. the gang lane (B11, B12, B13)
 SLICES = 32
 # the placements a phase-4 path's first placement search is held to the
-# plain search on (the first 3; phase 3 holds 2 slices and <all>), and the
-# gang dry run's hypotheses phase 3 holds to the plain dry run (the first 4
+# plain search on (the first 2; phase 3 holds 1 slice and <all>), and the
+# gang dry run's hypotheses phase 3 holds to the plain dry run (the first 2
 # of 32): each placement and each hypothesis is searched on its own, and
-# the whole plain searches took ~100 s a path and 28 s (PR 14 cut the
-# placements from 5, ~3 s each, to keep the run's time)
-PLAIN_PLACEMENTS = 3
-GANG_PLAIN = 4
+# the whole plain searches took ~100 s a path and 28 s (cut, to keep the
+# run's time, from 5 placements, ~3 s each, then from 3, and from 4
+# hypotheses)
+PLAIN_PLACEMENTS = 2
+GANG_PLAIN = 2
 
 
 def sliced(cache, slices):
@@ -1773,12 +1795,12 @@ def _equal_or_raise(name, got, want) -> int:
 def gang_checks(results) -> dict:
     """Phase 3's gang-lane checks: ``placement_scan`` (B11, B12 fused)
     against ``placement_assign_plain`` on the SchedulingBasic block cut
-    into 32 slices (P = 1000, D = 33; the plain search on 4 slices and
+    into 32 slices (P = 1000, D = 33; the plain search on 1 slice and
     ``<all>``), and on the mixed, affinity and
-    spread clusters cut into 8 slices (D = 9; the plain search on 3 slices
+    spread clusters cut into 8 slices (D = 9; the plain search on 1 slice
     and ``<all>``), there also the batched engine's search;
     ``gang_dry_run_scan`` (B13) against ``dry_run_gang_preemption_plain``
-    (its first 8 hypotheses) at C = 32 on a full sliced cluster
+    (its first GANG_PLAIN hypotheses) at C = 32 on a full sliced cluster
     with freed rows, some clamping at 0, on both engines; the batched
     engine's ``hypothesis_rows`` and ``slice_epilogue`` alone. Exact
     (assignments, counts, alignment, rows). Returns the three kernels'
@@ -1808,10 +1830,10 @@ def gang_checks(results) -> dict:
     b, params = encode_topology(sliced(cache, SLICES), pending, C.Profile())
     masks, _ = slice_masks(b)
     got = got_basic = kernels.placement_scan(b.device, params, masks)
-    # the plain search of 2 slices and <all> (each placement's search is
+    # the plain search of 1 slice and <all> (each placement's search is
     # independent of the others); phase 4's GangScheduling paths hold their
     # first search's first PLAIN_PLACEMENTS placements to the plain one
-    sel = torch.tensor(list(range(2)) + [masks.shape[0] - 1], device=masks.device)
+    sel = torch.tensor([0, masks.shape[0] - 1], device=masks.device)
     want, plain_ms = timed(lambda: placement_assign_plain(b.device, params, masks[sel]))
     note("SchedulingBasic placement",
          _equal_or_raise("placement_scan Basic", tuple(x[sel] for x in got), want))
@@ -1841,8 +1863,8 @@ def gang_checks(results) -> dict:
         cache_m, pending_m = case()
         bm, pm = encode_topology(sliced(cache_m, 8), pending_m, prof)
         mm, _ = slice_masks(bm)
-        # the plain searches of 3 slices and <all> (each placement on its own)
-        part = torch.tensor([0, 1, 2, mm.shape[0] - 1], device=mm.device)
+        # the plain searches of 1 slice and <all> (each placement on its own)
+        part = torch.tensor([0, mm.shape[0] - 1], device=mm.device)
         got = kernels.placement_scan(bm.device, pm, mm)
         want = placement_assign_plain(bm.device, pm, mm[part])
         note(f"{name} placement", _equal_or_raise(
@@ -2552,8 +2574,10 @@ def kernels_phase():
          "kubetpu/framework/runtime.py:1578"),
         ("greedy_scan", "kubetpu_torch/kernels/csrc/greedy_scan.cu",
          "kubetpu/assign/greedy.py:107"),
-        ("batched_round", "kubetpu_torch/kernels/csrc/batched_round.cu",
-         "kubetpu/assign/batched.py:135"),
+        ("batched_round", "kubetpu_torch/kernels/csrc/batched_round.cu (+ filter_pass.cuh, "
+         "solve_sync.cuh)",
+         "kubetpu/assign/batched.py:135 (the whole solve: the rounds with :55, :94 and their "
+         "filter_score_batch)"),
         ("scatter_rows", "kubetpu_torch/kernels/csrc/scatter_rows.cu",
          "kubetpu/framework/runtime.py:240"),
         ("dry_run_preemption", "kubetpu_torch/kernels/csrc/dry_run_preemption.cu",
@@ -2570,7 +2594,8 @@ def kernels_phase():
          "node rows, engine=batched)"),
         ("slice_epilogue", "kubetpu_torch/kernels/csrc/hypothesis_scan.cu",
          "kubetpu/ops/topology.py:19, :41 (engine=batched)"),
-        ("packing_round", "kubetpu_torch/kernels/csrc/packing_round.cu (+ filter_pass.cuh)",
+        ("packing_round", "kubetpu_torch/kernels/csrc/packing_round.cu (+ filter_pass.cuh, "
+         "solve_sync.cuh)",
          "kubetpu/assign/packing.py:259 (the whole solve: :187 _priority_order, the rounds "
          "with :146, :198 and their filter_score_batch, :467-499 the end); "
          "kubetpu/ops/topology.py:64 (slice_occupancy, fused)"),
@@ -2641,10 +2666,12 @@ def kernels_phase():
             f"plain {sp['plain_ms']:.4f} ms, bound {sp['bound_ms']:.6f} ms "
             f"({sp['bound_by']}){glob}")
     # the node mesh: four logical shards on this card (K1, K3, K4, B5m)
+    # (the many-round batches meet the tiled plain rounds in
+    # batched_solve_checks)
     round_batch_list = [
         ("SchedulingPodAffinity 1024x5120", bp, pp, True),
         ("TopologySpreading 1024x5120", *spread["TopologySpreading"], True),
-        ("mixed/least", *mixed_least, True),
+        ("mixed/least", *mixed_least, False),
         ("affinity/default", ba_default, pa_default, False),
         ("spread/spread", *spread["spread/spread"][:2], False),
     ]
@@ -2668,6 +2695,8 @@ def kernels_phase():
     mesh_timing.update(packing_grid_checks(grid4, mesh4, results, [
         c[:3] for c in pm_cases if c[0].startswith("BinPacking 256x5120")]))
     stamp("phase 3: packing-grid checks")
+    batched_solve_checks(results, mesh4, grid4, solve_batches((b, params), (bp, pp)))
+    stamp("phase 3: batched solve checks")
     scan_checks(results, (b, params), mesh4, grid4)
     stamp("phase 3: scan checks")
     out += mesh_kernel_lines(results, mesh_timing)
@@ -2925,8 +2954,8 @@ def class_checks(results, basic, podaffinity, preferred, mesh, grid) -> dict:
 MESH_KERNELS = (
     ("sharded_scan", "kubetpu_torch/kernels/csrc/greedy_scan.cu (tiled_scan_kernel on one "
      "pod row; + scan_loop.cuh, exchange.cuh)", "kubetpu/parallel/mesh.py:234 (sharded_greedy)"),
-    ("sharded_round", "kubetpu_torch/kernels/csrc/batched_round.cu (kt_tiled_round on one pod "
-     "row; + the sharded passes of filter_score.cu)",
+    ("sharded_round", "kubetpu_torch/kernels/csrc/batched_round.cu (one launch a solve on "
+     "each card, one pod row; + filter_pass.cuh, solve_sync.cuh, exchange.cuh)",
      "kubetpu/parallel/mesh.py:352 (sharded_batched)"),
     ("shard_pick", "kubetpu_torch/kernels/csrc/dry_run_preemption.cu",
      "kubetpu/parallel/mesh.py:161 (batch_shardings) with kubetpu/ops/preemption.py:156 "
@@ -2934,15 +2963,15 @@ MESH_KERNELS = (
     ("shard_argmax", "kubetpu_torch/kernels/csrc/greedy_scan.cu (+ exchange.cuh)",
      "kubetpu/parallel/mesh.py:327 (measure_collective_wall)"),
     ("sharded_packing", "kubetpu_torch/kernels/csrc/packing_round.cu (one launch a solve on "
-     "each card, one pod row; + filter_pass.cuh, exchange.cuh)",
+     "each card, one pod row; + filter_pass.cuh, solve_sync.cuh, exchange.cuh)",
      "kubetpu/parallel/mesh.py:369 (sharded_packing)"),
-    ("tiled_round", "kubetpu_torch/kernels/csrc/batched_round.cu (kt_tiled_round; + the "
-     "sharded passes of filter_score.cu)",
+    ("tiled_round", "kubetpu_torch/kernels/csrc/batched_round.cu (one launch a solve on "
+     "each card; + filter_pass.cuh, solve_sync.cuh, exchange.cuh)",
      "kubetpu/parallel/mesh.py:352 (sharded_batched with pod_axis=\"pods\")"),
     ("tiled_scan", "kubetpu_torch/kernels/csrc/greedy_scan.cu (+ scan_loop.cuh, exchange.cuh)",
      "kubetpu/parallel/mesh.py:234 (sharded_greedy with pod_axis=\"pods\")"),
     ("tiled_packing", "kubetpu_torch/kernels/csrc/packing_round.cu (one launch a solve on "
-     "each card; + filter_pass.cuh, exchange.cuh)",
+     "each card; + filter_pass.cuh, solve_sync.cuh, exchange.cuh)",
      "kubetpu/parallel/mesh.py:369 (sharded_packing with pod_axis=\"pods\")"),
 )
 
@@ -3759,6 +3788,172 @@ def grid_batches(basic, podaffinity, spread):
     ]
 
 
+# --------------------------------- 3b6. the batched solve (B6, K2, K6)
+def hotspot_case():
+    """``tests/test_torch_batched_stop.py``'s hotspot: four nodes and twelve
+    pods that fit one of them only (NodeName): one pod binds a round."""
+    from kubetpu_torch.api.wrappers import make_node, make_pod
+    from kubetpu_torch.framework import config as C
+
+    nodes = [make_node(f"n{i}", cpu_milli=10000) for i in range(4)]
+    pending = [make_pod(f"p{j}", cpu_milli=100, node_name="n2", creation_index=j)
+               for j in range(12)]
+    profile = C.Profile(
+        filters=C.PluginSet(enabled=((C.NODE_NAME, 1), (C.NODE_RESOURCES_FIT, 1))),
+        scores=C.PluginSet(enabled=((C.NODE_RESOURCES_FIT, 1),)),
+        default_spread_constraints=())
+    return encode(_cache_with(nodes, []), pending, profile)
+
+
+def crowd_case():
+    """Five identical empty nodes and eight identical pods, one a node: the
+    first rejection (pod 5, rank 5, behind pod 0 on node 0) falls in the
+    second pod row of a 2 x 2 grid."""
+    from kubetpu_torch.api.wrappers import make_node, make_pod
+    from kubetpu_torch.framework import config as C
+
+    nodes = [make_node(f"n{i}", cpu_milli=1000, memory=8 * 1024**3) for i in range(5)]
+    pending = [make_pod(f"p{j}", cpu_milli=600, memory=128 * 1024**2, creation_index=j)
+               for j in range(8)]
+    return encode(_cache_with(nodes, []), pending, C.Profile())
+
+
+def collision_case():
+    """``tests/test_torch_batched_stop.py``'s crafted extender rows (a class
+    a pod) on the card: pods 1, 2 and 6 tie on nodes 1 and 3 at half their
+    tie hash (group key 0, the key of invalid pods 0 and 5, which count in
+    the rank), pods 3 and 4 on node 5 and on nodes 4 and 6 at best scores
+    that give them one nonzero key, pod 7 on nodes 0 and 2; the NodeResourcesFit
+    filter and no score plugin, so a total is its extender score."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from kubetpu_torch.api.wrappers import make_node, make_pod
+    from kubetpu_torch.assign.batched import tie_weights
+    from kubetpu_torch.framework import config as C
+
+    nodes = [make_node(f"n{i}", cpu_milli=4000, memory=8 * 1024**3) for i in range(8)]
+    pending = [make_pod(f"p{j}", cpu_milli=100, memory=64 * 1024**2, creation_index=j)
+               for j in range(8)]
+    profile = C.Profile(filters=C.PluginSet(enabled=((C.NODE_RESOURCES_FIT, 1),)),
+                        scores=C.PluginSet(enabled=()), default_spread_constraints=())
+    b, params = encode(_cache_with(nodes, []), pending, profile)
+    P, N = b.requests.shape[0], b.alloc.shape[0]
+    w = tie_weights(N, "cpu").tolist()
+    mask = np.zeros((P, N), dtype=bool)
+    score = np.zeros((P, N), dtype=np.int64)
+    key = w[5] ^ (100 << 1)
+    for p, ties, best in ((1, [1, 3], (w[1] + w[3]) // 2), (2, [1, 3], (w[1] + w[3]) // 2),
+                          (6, [1, 3], (w[1] + w[3]) // 2), (3, [5], 100),
+                          (4, [4, 6], (key ^ (w[4] + w[6])) >> 1), (7, [0, 2], 7)):
+        mask[p, ties] = True
+        score[p, ties] = best
+    valid = b.pod_valid.clone()
+    valid[[0, 5]] = False
+    dev = b.alloc.device
+    return dataclasses.replace(b, pod_valid=valid, extender_mask=torch.from_numpy(mask).to(dev),
+                               extender_score=torch.from_numpy(score).to(dev)), params
+
+
+def classes_case(n_nodes=500, n_pending=1024, templates=64):
+    """Many pod classes whose tie groups mix classes: node_default nodes,
+    pods of ``templates`` templates taking turns, each with a host port of
+    its own (a class each; the templates score alike until their ports
+    part them), every sixteenth pod asking more than a node has (live with
+    key 0, beside the pods committed before it)."""
+    from kubetpu_torch.api.wrappers import make_pod
+    from kubetpu_torch.perf import workloads as W
+
+    nodes = [W.node_default(i) for i in range(n_nodes)]
+    pending = []
+    for j in range(n_pending):
+        t = j % templates
+        cpu = 100000 if j % 16 == 15 else 100
+        pending.append(make_pod(f"c{j}", namespace="m", cpu_milli=cpu, memory=256 * 1024**2,
+                                host_ports=[9000 + t], creation_index=j))
+    return _cache_with(nodes, []), pending
+
+
+def solve_batches(basic, podaffinity) -> list:
+    """The batches ``batched_solve_checks`` holds the batched solve on:
+    (name, batch, params, the round caps, 0 for P). ``basic`` and
+    ``podaffinity`` are phase 3's (batch, params) at 1024 x 5120."""
+    import dataclasses
+
+    from kubetpu_torch.framework import config as C
+
+    b, params = basic
+    bp, pp = podaffinity
+    cache, pending, nom = preemption_case(n_nodes=1000, n_pending=256, n_nominated=64)
+    bn, pn = encode_batch_full(cache, pending, C.Profile(), nom.entries())
+    return [
+        ("hotspot 16x8", *hotspot_case(), (0, 1, 2, 11)),
+        ("PodAffinity, no pod valid", dataclasses.replace(
+            bp, pod_valid=bp.pod_valid.new_zeros(bp.pod_valid.shape)), pp, (0,)),
+        ("many classes 1024x512", *encode(*classes_case(), C.Profile()), (1, 2, 6)),
+        ("colliding keys (extender rows) 8x8", *collision_case(), (0,)),
+        ("rejection in pod row 1 8x8", *crowd_case(), (0, 1)),
+        ("nominations 256x1024", bn.device, pn, (0,)),
+        ("SchedulingBasic, extender rows", with_extender(b), params, (1, 2, 6)),
+        ("SchedulingBasic, DRA leaf", dra_leaf(b), params, (0,)),
+    ]
+
+
+def batched_solve_checks(results, mesh, grid, batches) -> None:
+    """The batched solve held exactly to the plain rounds on ``batches``
+    (``solve_batches``) at each round cap: B6 unsharded to
+    ``batched_assign_plain``, K2 on ``mesh`` and K6 on ``grid`` to
+    ``batched_assign_tiled_plain`` and to B6 (the assignments, the seven
+    state slots, the rounds, and every pod row's copy of the node rows)."""
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.assign.batched import batched_assign_plain, batched_assign_tiled_plain
+    from kubetpu_torch.parallel import mesh as M
+
+    for k in ("batched_round", "sharded_round", "tiled_round"):
+        results.setdefault(k, {"cases": [], "max_abs_err": 0})
+
+    def note(kernel, case, err):
+        results[kernel]["cases"].append(case)
+        results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
+
+    for name, b, params, caps in batches:
+        seen = []
+        for cap in caps:
+            case = f"{name}, max_rounds {cap or 'P'}"
+            k_rounds, p_rounds = [], []
+            want = kernels.batched_assign(b, params, cap, k_rounds)
+            err = _engine_err(case, *want, *batched_assign_plain(b, params, cap, p_rounds))
+            if k_rounds != p_rounds:
+                raise AssertionError(f"{case}: rounds {k_rounds} != plain {p_rounds}")
+            note("batched_round", case, err)
+            for kernel, layout in (("sharded_round", mesh), ("tiled_round", grid)):
+                sb = M.shard_batch(b, layout)
+                t_rounds, q_rounds, rows = [], [], []
+                got = kernels.tiled_batched_assign(sb, params, cap, t_rounds, rows)
+                err = _mesh_err(f"{case} {kernel} vs batched_round", got, want)
+                err = max(err, _mesh_err(f"{case} {kernel} vs its plain rounds", got,
+                                         batched_assign_tiled_plain(sb, params, cap, q_rounds)))
+                if not t_rounds == q_rounds == k_rounds:
+                    raise AssertionError(f"{case} {kernel}: rounds {t_rounds}, plain "
+                                         f"{q_rounds}, unsharded {k_rounds}")
+                for i, row in enumerate(rows[1:], 1):
+                    for s, (x, y) in enumerate(zip(row, rows[0])):
+                        if x is not None and not torch.equal(_whole(x),
+                                                             _whole(y).to(_whole(x).device)):
+                            raise AssertionError(f"{case} {kernel}: pod row {i}'s state slot "
+                                                 f"{s} differs from pod row 0's")
+                note(kernel, case, err)
+            seen.append(f"{cap or 'P'}: {k_rounds[0]} rounds, "
+                        f"{int((want[0] >= 0).sum().item())} bound")
+        log(f"batched solve [{name}]: exact unsharded, over {mesh.size} shards and on the "
+            f"{list(grid.shape)} grid, to the plain rounds ({'; '.join(seen)})")
+    torch.cuda.synchronize()
+
+
 def mesh_kernel_lines(results, timing) -> list:
     """The mesh kernels' lines of the kernels JSON line."""
     out = []
@@ -4571,12 +4766,11 @@ def gang_paths(card) -> tuple[dict, dict]:
             card, "GangScheduling", "5000Nodes_3Gangs_3000Pods_1000PerGroup", "greedy", 3000,
             greedy_assign_plain, sliced_kernels, check=gang_check(1000, True),
             workload_kw=dict(feature_gates=GANG_GATES, topology="on", slices=SLICES)),
-        # the batched engine's placement search: hypothesis_rows, B3 + B6 a
-        # placement, slice_epilogue
+        # the batched engine's placement search: hypothesis_rows, a B6 solve
+        # a placement (its Filter + Score inside), slice_epilogue
         "gang3 batched": run_path(
             card, "GangScheduling", "5000Nodes_3Gangs_3000Pods_1000PerGroup", "batched", 3000,
-            batched_assign_plain,
-            ("filter_score", "batched_round", "hypothesis_rows", "slice_epilogue"),
+            batched_assign_plain, ("batched_round", "hypothesis_rows", "slice_epilogue"),
             check=gang_check(1000, True),
             workload_kw=dict(feature_gates=GANG_GATES, topology="on", slices=SLICES)),
         "gang1000 greedy": run_path(
@@ -4646,7 +4840,7 @@ def gang_mesh_paths(card, mesh, grid, unsharded: dict) -> dict:
     for key, engine, m, label, names in (
             ("gang3 greedy", "greedy", mesh, f"mesh {shape}", ("filter_score", "hypothesis_scan")),
             ("gang3 batched", "batched", grid, f"grid {gshape}",
-             ("filter_score", "batched_round", "hypothesis_rows", "slice_epilogue"))):
+             ("batched_round", "hypothesis_rows", "slice_epilogue"))):
         run = run_path(card, "GangScheduling", "5000Nodes_3Gangs_3000Pods_1000PerGroup", engine,
                        3000, None, names, check=gang_check(1000, True),
                        workload_kw=dict(mesh=m, **sliced))
@@ -5067,7 +5261,7 @@ def mesh_paths(card, mesh, unsharded: dict) -> dict:
         f"{want[2]:.1f}")
     runs["basic mesh"] = basic
     affinity = run_path(card, "SchedulingPodAffinity", "5000Nodes_5000Pods", "batched",
-                        5000 + 5000, None, ("filter_score", "sharded_round", "scatter_rows"),
+                        5000 + 5000, None, ("sharded_round", "scatter_rows"),
                         workload_kw=dict(mesh=mesh))
     want = unsharded["affinity"]
     if affinity[1] != want[1]:
@@ -5131,13 +5325,15 @@ def mesh12_paths(card, mesh, grid, unsharded: dict) -> dict:
                 f"pod ({len(run[1])} pods), {used} nodes used; {run[2]:.1f} pods/s against "
                 f"the unsharded {want[2]:.1f}")
             runs[f"{key} {where}"] = run
-    for key, case, workload, engine, expected, kernel in (
+    # (the batched solve runs its Filter + Score inside; the tiled scan
+    # after each tile's filter_score)
+    for key, case, workload, engine, expected, kernels_ in (
             ("affinity", "SchedulingPodAffinity", "5000Nodes_5000Pods", "batched", 5000 + 5000,
-             "tiled_round"),
+             ("tiled_round", "scatter_rows")),
             ("basic", "SchedulingBasic", "5000Nodes_10000Pods", "greedy", 1000 + 10000,
-             "tiled_scan")):
-        run = run_path(card, case, workload, engine, expected, None,
-                       ("filter_score", kernel, "scatter_rows"), workload_kw=dict(mesh=grid))
+             ("filter_score", "tiled_scan", "scatter_rows"))):
+        run = run_path(card, case, workload, engine, expected, None, kernels_,
+                       workload_kw=dict(mesh=grid))
         want = unsharded[key]
         _same_bound(f"{case} {engine} on the grid", run, want)
         log(f"[{case} {engine} grid {gshape}] bound map equal to the unsharded run's, pod for "
@@ -5216,6 +5412,8 @@ def mesh_mode() -> int:
     timing.update(grid_checks(grid, results, grid_batches(
         basic, by_name["SchedulingPodAffinity 1024x5120"],
         by_name["TopologySpreading 1024x5120"])))
+    batched_solve_checks(results, mesh, grid, solve_batches(
+        basic, by_name["SchedulingPodAffinity 1024x5120"]))
     results.setdefault("filter_score", {"cases": [], "max_abs_err": 0})
     potential_mesh_checks([(f"{mesh.size} shards", mesh), ("2 x 2 grid", grid)], results)
     pm = {c[0]: c[:3] for c in pm_cases}
@@ -5252,7 +5450,7 @@ def mesh_mode() -> int:
                                     None, names, check=gang_check(1000, True),
                                     workload_kw=sliced)
         for engine, names in (("greedy", ("filter_score", "hypothesis_scan")),
-                              ("batched", ("filter_score", "batched_round", "hypothesis_rows",
+                              ("batched", ("batched_round", "hypothesis_rows",
                                            "slice_epilogue")))}
     runs.update(gang_mesh_paths(card, mesh, grid, gang))
     for k in lines:
@@ -5293,16 +5491,21 @@ def time_checkout(mode: str, root: str) -> int:
     from kubetpu_torch.framework import config as C
     from kubetpu_torch.perf import workloads as W
 
-    if mode == "mesh":
+    if mode in ("mesh", "batched"):
         # the libraries the mode launches (the others take most of a build)
         kernels.SOURCES = tuple(src for src in kernels.SOURCES if src in (
-            "filter_score.cu", "greedy_scan.cu", "batched_round.cu", "packing_round.cu"))
+            "filter_score.cu", "greedy_scan.cu", "batched_round.cu", "packing_round.cu",
+            "hypothesis_scan.cu"))
     kernels.build()
     log_build_report(kernels)
     line = {"root": root, "card": card}
     if mode == "mesh":
         time_mesh(line)
         log(json.dumps({"time_mesh": line}))
+        return 0
+    if mode == "batched":
+        time_batched(line)
+        log(json.dumps({"time_batched": line}))
         return 0
     if mode == "b3":
         time_b3(line)
@@ -5546,6 +5749,77 @@ def packing_split(b, params, w, cold, layouts) -> dict:
     return out
 
 
+def time_batched(line: dict) -> None:
+    """``--time-batched``'s entries of ``line``, for the imported checkout's
+    batched engine: B6 (``kernels.batched_assign``) on the
+    SchedulingPodAffinity, TopologySpreading and BinPacking batches (1024
+    x 5120), one batched gang placement search (``batched_hypotheses``:
+    the SchedulingBasic block of 1000 pods cut into 32 slices, 33
+    placements, one batched solve each), and the batched engine over
+    SchedulingPodAffinity's batch on four logical shards (K2) and on the
+    2 x 2 grid (K6) of cuda:0, each held to the unsharded kernel first.
+    Each: CUDA events around the call (median), the card's busy time a
+    call (``torch.profiler``, every kernel and copy), the rounds, and,
+    where the checkout has ``kernels.batched_split``, µs in each part of
+    one solve (block 0's clock between its marks)."""
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.assign.batched import batched_assign_device
+    from kubetpu_torch.framework import config as C
+    from kubetpu_torch.parallel import mesh as M
+    from kubetpu_torch.perf import workloads as W
+
+    def split(fn) -> dict | None:
+        if not hasattr(kernels, "batched_split"):
+            return None
+        kernels.batched_split = torch.zeros(kernels.BATCHED_SPLIT, dtype=torch.int64,
+                                            device="cuda")
+        fn()
+        ns = kernels.batched_split.tolist()
+        kernels.batched_split = None
+        return dict(zip(BATCHED_PARTS, (x / 1e3 for x in ns)))
+
+    def entry(prefix, fn, reps, rounds):
+        line[prefix + "ms"] = cuda_ms(fn, reps)
+        line[prefix + "device_ms"] = kernel_device_ms(fn, ("",), 3)
+        line[prefix + "rounds"] = rounds
+        line[prefix + "split_us"] = split(fn)
+
+    batches = {
+        "podaffinity": encode(*podaffinity_case(), C.Profile()),
+        "topologyspreading": encode(*topology_case(W.pod_with_topology_spreading),
+                                    C.Profile()),
+        "binpacking": encode(*binpack_case(), C.Profile()),
+    }
+    for name, (b, params) in batches.items():
+        rounds: list = []
+        kernels.batched_assign(b, params, rounds_out=rounds)
+        entry(f"b6_{name}_", lambda b=b, params=params: kernels.batched_assign(b, params), 10,
+              rounds[0])
+    cache, pending = basic_case(n_pending=1000)
+    bg, pg = encode_topology(sliced(cache, SLICES), pending, C.Profile())
+    masks, _ = slice_masks(bg)
+    line["gang_placements"] = int(masks.shape[0])
+    entry("gang_batched_hypotheses_",
+          lambda: kernels.batched_hypotheses(bg.device, pg, masks), 3, None)
+    b, params = batches["podaffinity"]
+    want = kernels.batched_assign(b, params)
+    for prefix, layout in (("k2_4shards_", node_mesh(4, True)), ("k6_2x2_", grid_mesh(True))):
+        sb = M.shard_batch(b, layout)
+        rounds = []
+        got = batched_assign_device(sb, params, rounds_out=rounds)
+        if not torch.equal(got[0].to(want[0].device), want[0]):
+            raise AssertionError(f"--time-batched {prefix}: the sharded engine's assignments "
+                                 "differ from the unsharded kernel's")
+        entry(prefix, lambda sb=sb: batched_assign_device(sb, params), 5, rounds[0])
+
+
+# the parts of a batched solve (batched_round.cu's kSplit order)
+BATCHED_PARTS = ("start", "partials_0_2", "verdicts_3", "normalize_4", "best_5", "ties_6",
+                 "rank_pick_7", "admissions_8", "commit_9", "end")
+
+
 def kernel_device_ms(fn, kernels: tuple, reps: int):
     """Device ms a call of ``fn`` spends in the kernels whose name, in
     lower case, holds one of ``kernels``, from ``torch.profiler`` over
@@ -5768,7 +6042,7 @@ def time_dra() -> int:
 
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] in ("--time-basic", "--time-spread", "--time-mesh",
-                                              "--time-b3"):
+                                              "--time-b3", "--time-batched"):
         return time_checkout(sys.argv[1][len("--time-"):], sys.argv[2])
     if sys.argv[1:] == ["--time-dra"]:
         return time_dra()

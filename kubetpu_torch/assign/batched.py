@@ -14,12 +14,14 @@ as a small number of *rounds* under one ``lax.while_loop``, each round:
    commits, and the rest are rescored next round against the updated state.
 
 On a CUDA batch ``batched_assign_device`` launches the hand-written
-``batched_round`` kernels (``kernels/csrc/batched_round.cu``), one round
-after another from the host; ``batched_assign_plain`` is the plain
-PyTorch version, the reference's round body op for op, which a CPU batch
-runs and the kernels are held to. A sharded batch runs the same rounds
-over its tiles (``batched_assign_tiled_plain``, kernel K6): a pods x nodes
-grid, or a node mesh, which is one pod row.
+``batched_round`` solve (``kernels/csrc/batched_round.cu``): one
+cooperative launch a batch, the rounds and their stop rule on the device,
+read by the host once; ``batched_assign_plain`` is the plain PyTorch
+version, the reference's round body op for op, which a CPU batch runs and
+the kernel is held to. A sharded batch runs the same rounds over its tiles
+(``batched_assign_tiled_plain``; kernel K6, the same solve over the
+tiles, one launch a card): a pods x nodes grid, or a node mesh, which is
+one pod row.
 
 The reference hashes tie rows in uint64. PyTorch has no uint64 ``<<`` or
 comparison, so the hash is int64 here: wrapping multiply, sum, xor and
@@ -436,10 +438,11 @@ def batched_assign_device(
     rounds_out: list | None = None,
 ):
     """Run the batched assignment. A CUDA batch launches the
-    ``batched_round`` kernels; a CPU batch runs ``batched_assign_plain``.
-    A sharded batch (``parallel.mesh.ShardedBatch``, a node mesh or a pods
-    x nodes grid) runs the tiled rounds: kernel K6 on CUDA tiles,
-    ``batched_assign_tiled_plain`` on CPU ones. Same return shape as
+    ``batched_round`` solve (one launch a batch); a CPU batch runs
+    ``batched_assign_plain``. A sharded batch (``parallel.mesh.ShardedBatch``,
+    a node mesh or a pods x nodes grid) runs the tiled rounds: the solve
+    over its tiles on CUDA (kernels K2 and K6, one launch a card),
+    ``batched_assign_tiled_plain`` on CPU tiles. Same return shape as
     ``batched_assign_plain``."""
     from ..parallel.mesh import ShardedBatch
 

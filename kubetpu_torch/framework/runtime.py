@@ -253,15 +253,17 @@ class PodClasses:
     pod a class (its first, the class's representative) and copies its
     rows to the others. Classes are numbered by their first pod; class c's
     pods, ascending, are ``members[class_start[c]:class_start[c + 1]]``.
-    ``reps`` (C,) and ``rep_of`` (P,) int32, each pod's representative, are
-    the kernel's copies on the batch's device (None when every pod is a
-    class of its own, where the kernel needs neither)."""
+    ``reps`` (C,) and ``rep_of`` (P,) int32, each pod's representative, and
+    ``class_idx`` (P,) int32, each pod's class (``class_of``), are the
+    kernels' copies on the batch's device (None when every pod is a class
+    of its own, where the kernels need none)."""
 
     class_of: np.ndarray     # (P,) int32
     class_start: np.ndarray  # (C + 1,) int32
     members: np.ndarray      # (P,) int32
     reps: torch.Tensor | None = None
     rep_of: torch.Tensor | None = None
+    class_idx: torch.Tensor | None = None
 
     @property
     def count(self) -> int:
@@ -359,9 +361,11 @@ def attach_pod_classes(b: DeviceBatch, classes: PodClasses | None,
     if classes.shared:
         if tensors is None:
             tensors = upload_packed({"classes.reps": classes.host_reps(),
-                                     "classes.rep_of": classes.host_rep_of()}, b.device)
+                                     "classes.rep_of": classes.host_rep_of(),
+                                     "classes.class_idx": classes.class_of}, b.device)
         classes = dataclasses.replace(classes, reps=tensors["classes.reps"],
-                                      rep_of=tensors["classes.rep_of"])
+                                      rep_of=tensors["classes.rep_of"],
+                                      class_idx=tensors["classes.class_idx"])
     object.__setattr__(b, "_pod_classes", classes)
     return b
 
@@ -434,6 +438,7 @@ def device_batch_from_numpy(
     if classes is not None and classes.shared:
         arrays["classes.reps"] = classes.host_reps()
         arrays["classes.rep_of"] = classes.host_rep_of()
+        arrays["classes.class_idx"] = classes.class_of
     for name in (NODE_FIELDS if resident is None else ()) + POD_FIELDS:
         a = leaves.get(name)
         if a is None or name in NESTED:

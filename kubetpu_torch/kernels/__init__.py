@@ -11,24 +11,28 @@ library also holds the batched engine's ``hypothesis_rows`` and
 ``csrc/dry_run_preemption.cu`` (the preemption victim search), and the
 flight recorder's ``csrc/explain_summary.cu`` and
 ``csrc/filter_component_masks.cu`` (also the extender bridge's per-plugin
-masks), and the packing engine's ``csrc/packing_round.cu`` (its whole
-solve in one launch: the start, the rounds with each one's Filter + Score
-through ``csrc/filter_pass.cuh``, which ``filter_score.cu`` shares, the
-stop rule and the end) are compiled at first use, for ``sm_90a``, one ``nvcc`` per source started
-together, each into a shared library with a plain C interface that
-``ctypes`` loads. No PyTorch header is compiled, so
+masks), and the packing engine's ``csrc/packing_round.cu`` and the
+batched engine's ``csrc/batched_round.cu`` (each engine's whole solve in
+one cooperative launch: the rounds with each one's Filter + Score through
+``csrc/filter_pass.cuh``, which ``filter_score.cu`` shares, and the stop
+rule, the steps separated by the grid barriers of ``csrc/solve_sync.cuh``)
+are compiled at first use, for ``sm_90a``, one ``nvcc`` per source
+started together, each into a shared library with a plain C interface
+that ``ctypes`` loads. No PyTorch header is compiled, so
 a build takes seconds. Outputs go to ``build/kubetpu_torch_kernels/`` under
 the repository root, keyed by a hash of the sources and flags.
 
 Under a mesh (``parallel.mesh``) more kernels run on the shards, each
 held to a plain version that reduces across the shards explicitly. On a
-pods x nodes grid, K6 runs the batched round's steps on every tile with
-``shard_combine`` between them (``batched_round.cu`` ``kt_tiled_round``,
-after the sharded ``filter_score`` passes of ``filter_score.cu``) and K7
-the scan one node column a block, pod row after pod row, exchanging
-partials inside the kernel through ``csrc/exchange.cuh`` (``greedy_scan.cu``
+pods x nodes grid, K6 is the batched solve over the grid's tiles, one
+cooperative launch a solve on each card holding the card's tiles
+(``batched_round.cu``, the same kernel as the unsharded B6), and K7 the
+scan one node column a block, pod row after pod row, exchanging partials
+inside the kernel through ``csrc/exchange.cuh`` (``greedy_scan.cu``
 ``tiled_scan_kernel``); on a node mesh, the grid of one pod row, the same
-two kernels are K2 and K1. K3 is the dry run's cross-shard pick
+two kernels are K2 and K1. ``shard_combine`` (``batched_round.cu``)
+joins the shards' partials between the sharded ``filter_score`` passes
+of ``filter_score.cu``. K3 is the dry run's cross-shard pick
 (``dry_run_preemption.cu``) and K4 the exchange's argmax probe
 (``greedy_scan.cu``); ``scatter_rows`` runs on each shard's card for the
 routed delta (B5m). K8 is the packing solve over a grid's tiles, one
@@ -65,7 +69,6 @@ import subprocess
 import threading
 from pathlib import Path
 
-import numpy as np
 import torch
 
 from ..framework import config as C
@@ -79,7 +82,7 @@ SOURCES = ("filter_score.cu", "greedy_scan.cu", "batched_round.cu", "scatter_row
 SCORE_ARGS_LIBS = ("filter_score", "greedy_scan", "batched_round", "explain_summary",
                    "filter_component_masks", "hypothesis_scan", "packing_round")
 HEADERS = ("score_common.cuh", "score_prelaunch.cuh", "filter_pass.cuh", "scan_loop.cuh",
-           "exchange.cuh")
+           "exchange.cuh", "solve_sync.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kubetpu_torch_kernels"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -98,12 +101,12 @@ launch_counts = {
     "dry_run_preemption": 0, "explain_summary": 0, "filter_component_masks": 0,
     "hypothesis_scan": 0, "hypothesis_rows": 0, "slice_epilogue": 0,
     "packing_round": 0, "packing_log1p": 0,
-    # the mesh's kernels (K1-K8): one count a shard's (a tile's) block or
-    # step launched; the packing solve (B14, K5, K8) one a solve on each
-    # card. The tiled scan, round and solve count under "sharded_scan" /
-    # "sharded_round" / "sharded_packing" (K1, K2, K5) on a node mesh (one
-    # pod row) and under "tiled_scan" / "tiled_round" / "tiled_packing"
-    # (K7, K6, K8) on a grid
+    # the mesh's kernels (K1-K8): one count a shard's (a tile's) block
+    # launched; the packing and batched solves (B14, K5, K8; B6, K2, K6)
+    # one a solve on each card. The tiled scan and the two solves count
+    # under "sharded_scan" / "sharded_round" / "sharded_packing" (K1, K2,
+    # K5) on a node mesh (one pod row) and under "tiled_scan" /
+    # "tiled_round" / "tiled_packing" (K7, K6, K8) on a grid
     "sharded_scan": 0, "sharded_round": 0, "shard_pick": 0, "shard_argmax": 0,
     "sharded_packing": 0, "tiled_round": 0, "tiled_scan": 0, "tiled_packing": 0,
 }
@@ -113,7 +116,7 @@ _ARGTYPES = {
     "filter_score": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_int64]
     + [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p],
     "greedy_scan": [ctypes.c_void_p] * 13 + [ctypes.c_int64, ctypes.c_void_p],
-    "batched_round": [ctypes.c_void_p] * 15,
+    "batched_round": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p],
     "scatter_rows": [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 14,
     "dry_run_preemption": [ctypes.c_void_p] * 2,
     "explain_summary": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6,
@@ -131,7 +134,6 @@ _MORE_ENTRIES = {
     },
     "batched_round": {
         "kt_shard_combine": [ctypes.c_void_p] * 2,
-        "kt_tiled_round": [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2,
     },
     "greedy_scan": {
         "kt_shard_argmax": [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int,
@@ -352,17 +354,7 @@ class CombineArgs(ctypes.Structure):
 
     _fields_ = [("src", ctypes.c_void_p * 8), ("dst", ctypes.c_void_p * 8),
                 ("G", ctypes.c_int64), ("n", ctypes.c_int64), ("op", ctypes.c_int64),
-                ("elem", ctypes.c_int64), ("nsrc", ctypes.c_int64), ("piece", ctypes.c_int64)]
-
-
-class TileRound(ctypes.Structure):
-    """Mirror of ``struct TileRound`` in csrc/batched_round.cu."""
-
-    _fields_ = [(name, ctypes.c_void_p) for name in (
-        "mask", "total", "req", "nz", "pc", "ports", "pa_delta", "sp_counts", "active",
-        "assignments", "tstats", "fbest", "fhash", "fcount", "r", "choice", "acc",
-        "flags")] + [
-        ("pod_offset", ctypes.c_int64), ("offset", ctypes.c_int64)]
+                ("elem", ctypes.c_int64)]
 
 
 class SolveTile(ctypes.Structure):
@@ -381,14 +373,36 @@ class SolveTile(ctypes.Structure):
         (name, ctypes.c_int64) for name in ("offset", "row", "col")]
 
 
+# the fields of a solve's launch struct after its tiles (SolveSet, BatchSet)
+_SET_FIELDS = [("PG", ctypes.c_int64), ("NG", ctypes.c_int64),
+               ("local", ctypes.c_int64 * 8)] + [
+    (name, ctypes.c_int64) for name in ("nlocal", "bpt", "cap")] + [
+    (name, ctypes.c_void_p) for name in ("bar", "abort", "out", "split")] + [
+    ("x", Exchange), ("card", ctypes.c_int64)]
+
+
 class SolveSet(ctypes.Structure):
     """Mirror of ``struct SolveSet`` in csrc/packing_round.cu."""
 
-    _fields_ = [("t", SolveTile * 8), ("PG", ctypes.c_int64), ("NG", ctypes.c_int64),
-                ("local", ctypes.c_int64 * 8)] + [
-        (name, ctypes.c_int64) for name in ("nlocal", "bpt", "cap")] + [
-        (name, ctypes.c_void_p) for name in ("bar", "abort", "out", "split")] + [
-        ("x", Exchange), ("card", ctypes.c_int64)]
+    _fields_ = [("t", SolveTile * 8)] + _SET_FIELDS
+
+
+class BatchTile(ctypes.Structure):
+    """Mirror of ``struct BatchTile`` in csrc/batched_round.cu."""
+
+    _fields_ = [("a", ScoreArgs), ("af", ScoreArgs)] + [
+        (name, ctypes.c_void_p) for name in ("reps", "class_of")] + [("C", ctypes.c_int64)] + [
+        (name, ctypes.c_void_p) for name in (
+            "mask", "total", "ties", "cstats", "sc", "bits", "mx", "sums_part", "first", "req",
+            "nz", "pc", "ports", "pa_sums", "pa_delta", "sp_counts", "req0", "nz0", "pc0",
+            "ports0", "pa0", "sp0", "active", "assignments", "choice", "acc", "scal")] + [
+        (name, ctypes.c_int64) for name in ("offset", "row", "col")]
+
+
+class BatchSet(ctypes.Structure):
+    """Mirror of ``struct BatchSet`` in csrc/batched_round.cu."""
+
+    _fields_ = [("t", BatchTile * 8)] + _SET_FIELDS
 
 
 class PickShard(ctypes.Structure):
@@ -406,7 +420,7 @@ _STRUCT_SIZES = {
                     ("kt_greedy_scan_argmax_size", ArgmaxShard)),
     "dry_run_preemption": (("kt_dry_run_preemption_pick_size", PickShard),),
     "batched_round": (("kt_batched_round_combine_size", CombineArgs),
-                      ("kt_batched_round_tile_size", TileRound)),
+                      ("kt_batched_round_set_size", BatchSet)),
     "packing_round": (("kt_packing_round_set_size", SolveSet),),
 }
 
@@ -520,11 +534,7 @@ def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str, state=None,
             raise ValueError(f"{where}: params.{name} has {len(v)} entries, R={R}")
     if len(p.shape_y) != B or B < 1:
         raise ValueError(f"{where}: bad RequestedToCapacityRatio shape")
-    params = torch.tensor(
-        list(p.fit_weights) + list(p.balanced_weights)
-        + [int(s) for s in p.is_scalar] + list(p.shape_x) + list(p.shape_y),
-        dtype=i64,
-    ).to(dev, non_blocking=False)
+    params = _params_on(p, dev)
     a.params = params.data_ptr()
     a.P, a.N, a.R, a.K, a.B = P, N, R, K, B
     a.strategy = _STRATEGIES[p.strategy]
@@ -618,6 +628,25 @@ def _score_args(b: rt.DeviceBatch, p: rt.ScoreParams, where: str, state=None,
     if dra is not None:
         a.w_dra = p.w_dra
     return a, keep
+
+
+# each (ScoreParams, device)'s params table on the device, uploaded once
+_params_cache: dict = {}
+
+
+def _params_on(p: rt.ScoreParams, dev: torch.device) -> torch.Tensor:
+    """The kernels' int64 params table of ``p`` (fit and balanced weights,
+    scalar flags, the RequestedToCapacityRatio shape) on ``dev``: uploaded
+    at its first use, then kept (a profile's params are few and never
+    written)."""
+    t = _params_cache.get((p, dev))
+    if t is None:
+        t = _params_cache[(p, dev)] = torch.tensor(
+            list(p.fit_weights) + list(p.balanced_weights)
+            + [int(s) for s in p.is_scalar] + list(p.shape_x) + list(p.shape_y),
+            dtype=torch.int64,
+        ).to(dev, non_blocking=False)
+    return t
 
 
 def _spread_smem(C: int, D: int) -> tuple[int, bool]:
@@ -1084,8 +1113,8 @@ def batched_hypotheses(b: rt.DeviceBatch, p: rt.ScoreParams, masks: torch.Tensor
                        freed_req: torch.Tensor | None = None,
                        freed_count: torch.Tensor | None = None):
     """B11 / B13 on the batched engine: ``hypothesis_rows`` once, the
-    batched engine (``filter_score`` + ``batched_round``) once a
-    hypothesis on its rows, then ``slice_epilogue`` once over the (H, P)
+    batched engine (one ``batched_round`` solve) once a hypothesis on its
+    rows, then ``slice_epilogue`` once over the (H, P)
     assignments. Returns ``(assignments (H, P) int32, counts (H,) int32,
     alignment (H,) int32)``, equal to ``assign.placement.run_hypotheses``
     with the plain batched engine."""
@@ -1107,66 +1136,28 @@ def batched_hypotheses(b: rt.DeviceBatch, p: rt.ScoreParams, masks: torch.Tensor
 
 def batched_assign(b: rt.DeviceBatch, p: rt.ScoreParams, max_rounds: int = 0,
                    rounds_out: list | None = None):
-    """The batched engine on the card: each round launches ``filter_score``
-    over the whole batch against the round's state (affinity included),
-    (its spread domain sums derived afresh from the running counts), then
-    the ``batched_round`` kernels, which choose, accept, commit and update
-    the state in place; the host reads the round's two flags
-    (progress, any pod still active) to decide on the next round. Returns
+    """The batched engine on the card (kernel B6): one launch a solve
+    (``kt_batched_round``: the rounds, each with its Filter + Score of every
+    pod class against the round's state, its choice, admissions and commit,
+    and the stop rule on the device, every SM's block on the batch), then
+    one read of the rounds. The batch's node block is not written. Returns
     ``(assignments (P,) int32, final_state)`` with the seven state slots,
     equal to ``assign.batched.batched_assign_plain(b, p, max_rounds)``;
     ``rounds_out``, when given, receives the number of rounds."""
+    dev = b.alloc.device
+    _require_cuda(dev, "batched_round")
     P = b.requests.shape[0]
     if P > 1024:
-        raise ValueError(f"batched_round: P={P} exceeds the sorting block's 1024 pods")
-    pa = b.podaffinity
-    sp = b.spread
-    state = (
-        b.requested.clone(), b.nonzero_requested.clone(), b.pod_count.clone(),
-        b.node_ports.clone(), None if pa is None else pa.base_sums.clone(),
-        None if sp is None else sp.node_count.clone(),
-    )
-    req, nz, pc, ports, pa_sums, sp_counts = state
-    nom_active = (
-        None if b.nominated_pod_idx is None
-        else torch.ones((b.nominated_pod_idx.shape[0],), dtype=torch.bool,
-                        device=b.alloc.device)
-    )
-    # the state tensors are updated in place, so one argument struct
-    # serves every round's filter_score and batched_round launches
-    a, keep = _score_args(b, p, "batched_round", state, bits_blocks=P,
-                          nom_active=nom_active)
-    smem = _smem(b)
-    classes = rt.pod_classes(b)
-    lib = build()["batched_round"]
-    dev = b.alloc.device
-    active = b.pod_valid.clone()
-    assignments = torch.full((P,), -1, dtype=torch.int32, device=dev)
-    stats64 = torch.empty((3, P), dtype=torch.int64, device=dev)
-    stats32 = torch.empty((2, P), dtype=torch.int32, device=dev)
-    flags = torch.empty((2,), dtype=torch.int32, device=dev)
-    cap = max_rounds or P
-    rounds = 0
-    progress, still = True, bool(torch.any(active))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    while progress and still and rounds < cap:
-        mask, _, total = _launch_filter_score(
-            a, dev, want_total=True, dynamic=True, smem=smem, classes=classes)
-        code = lib.kt_batched_round(
-            ctypes.byref(a), mask.data_ptr(), total.data_ptr(), req.data_ptr(),
-            nz.data_ptr(), pc.data_ptr(), ports.data_ptr(),
-            None if pa_sums is None else pa_sums.data_ptr(),
-            None if sp_counts is None else sp_counts.data_ptr(), active.data_ptr(),
-            assignments.data_ptr(), stats64.data_ptr(), stats32.data_ptr(),
-            flags.data_ptr(), stream)
-        _raise_on(lib, "batched_round", code)
-        launch_counts["batched_round"] += 1
-        progress, still = (bool(v) for v in flags.tolist())
-        rounds += 1
-    del keep
+        raise ValueError(f"batched_round: P={P} exceeds the solve's 1024 pods")
+    cards = {dev: [0]}
+    bpt = _blocks_a_tile(cards)
+    with on_device(dev):
+        tile = _BatchTile(b, b, p, 0, 0, 0, 1)
+    rounds = _solve([tile], cards, 1, 1, bpt, max_rounds or P, None, "batched_round",
+                    "batched_round", batched_split)
     if rounds_out is not None:
         rounds_out.append(rounds)
-    return assignments, (req, nz, pc, ports, sp_counts, pa_sums, nom_active)
+    return tile.assignments, _seven(tile.state, tile.nom_active)
 
 
 def scatter_rows(nodes: rt.DeviceNodeState, idx: torch.Tensor, updates) -> None:
@@ -1339,12 +1330,12 @@ def filter_component_masks(b: rt.DeviceBatch, p: rt.ScoreParams):
     return masks
 
 
-# ------------------------------------------------------------------ packing
+# ------------------------------------- the solves: packing (B14), batched (B6)
 def _ptr(x: torch.Tensor | None):
     return None if x is None else x.data_ptr()
 
 
-def _packing_state(b: rt.DeviceBatch):
+def _start_state(b: rt.DeviceBatch):
     """Copies of the batch's start state in ``_score_args`` order
     (requested, nonzero, pod_count, node_ports, pa_sums, spread_counts),
     and the live nominations (all)."""
@@ -1362,52 +1353,96 @@ def _seven(state, nom_active):
     return (req, nz, pc, ports, sp_counts, pa_sums, nom_active)
 
 
-class _SolveTile:
-    """One tile's buffers of a packing solve (``SolveTile``): its argument
-    structs (``a``: the tile's pods against its node column over copies of
-    the running state; ``af``: the column with every pod's pod-major
-    leaves, ``a`` itself when the tile holds every pod), its pod classes
-    (``runtime.pod_classes``; a class a pod without them), the class rows,
-    the node and pod vectors and its outputs. ``full`` is the tile's batch
-    with every pod (``b`` on one pod row), ``lam`` its (N,) duals (copied),
-    ``bpt`` the blocks the tile runs on."""
+class _TileBase:
+    """What a tile of a solve on the card holds alike in the packing solve
+    (``SolveTile``) and the batched one (``BatchTile``): its running state
+    ``state`` and nominations ``nom_active``; its argument structs (``a``:
+    the tile's pods against its node column over the running state; ``af``:
+    the column with every pod's pod-major leaves, ``a`` itself when the
+    tile holds every pod); its pod classes (``runtime.pod_classes``, on the
+    device; a class a pod without them); and the sizes of its scratch
+    (``parts``: name -> bytes, None for a buffer the batch does not need):
+    the class rows of a round (``stats`` rows of class statistics) and the
+    per-pod vectors of every pod, carved from one allocation by ``fill``.
+    ``full`` is the tile's batch with every pod (``b`` on one pod row)."""
 
-    def __init__(self, b: rt.DeviceBatch, full: rt.DeviceBatch, p: rt.ScoreParams,
-                 lam: torch.Tensor, weights: torch.Tensor, offset: int, row: int, col: int,
-                 bpt: int) -> None:
+    def __init__(self, b: rt.DeviceBatch, full: rt.DeviceBatch, p: rt.ScoreParams, state,
+                 nom_active, offset: int, row: int, col: int, stats: int, what: str) -> None:
         dev = b.alloc.device
         self.dev = dev
-        run, nom = _packing_state(b)
-        self.state, self.nom_active = run, nom
-        self.a, self.keep = _score_args(b, p, "packing_round", run, nom_active=nom)
+        self.state, self.nom_active = state, nom_active
+        self.a, self.keep = _score_args(b, p, what, state, nom_active=nom_active)
         # the struct points into `full`'s gathered pod leaves: kept alive
         # with the tile until the launch is done
         self.full, self.af = full, self.a
         if full is not b:
-            self.af, self.keep_full = _score_args(full, p, "packing_round", run,
-                                                  nom_active=nom, pod_node=False)
+            self.af, self.keep_full = _score_args(full, p, what, state, nom_active=nom_active,
+                                                  pod_node=False)
         Pb, P, N = self.a.P, self.af.P, self.a.N
         cls = rt.pod_classes(b)
-        if cls is None:
-            class_of = reps = np.arange(Pb, dtype=np.int32)
+        if cls is not None and cls.shared:
+            C = cls.count
+            self.class_of = _check("classes.class_idx", cls.class_idx, torch.int32, (Pb,), dev)
+            self.reps = _check("classes.reps", cls.reps, torch.int32, (C,), dev)
+            self.keep_classes = cls
         else:
-            class_of, reps = cls.class_of, cls.host_reps()
-        C = len(reps)
-        self.classes = torch.from_numpy(
-            np.concatenate([class_of, reps]).astype(np.int32)).to(dev)
-        i64, i32, f32, u8 = torch.int64, torch.int32, torch.float32, torch.uint8
-
-        def empty(shape, dtype):
-            return torch.empty(shape, dtype=dtype, device=dev)
-
-        sp, topo = b.spread, b.topology
+            # a class a pod: each pod its own class and representative
+            C = Pb
+            self.identity = torch.arange(Pb, dtype=torch.int32, device=dev)
+            self.class_of = self.reps = self.identity.data_ptr()
+        self.C = C
+        sp = b.spread
         cw = 1 if sp is None else max(
             sp.sig_idx.shape[1] * ((sp.domain_present.shape[1] + 31) // 32), 1)
+        self.spread_slots = 0 if sp is None else sp.sig_idx.shape[1]
+        self.assignments = torch.empty((P,), dtype=torch.int32, device=dev)
+        self.parts = dict(
+            mask=C * N, total=8 * C * N, ties=4 * C * N, cstats=8 * stats * C, sc=16 * C,
+            bits=16 * C * cw, mx=16 * C * 7, active=P, choice=4 * P, acc=4 * P,
+            sums_part=None if sp is None else 8 * sp.domain_present.shape[0] * (
+                sp.domain_present.shape[1] + 1))
+        self.offset, self.row, self.col = offset, row, col
+
+    def fill(self, t) -> None:
+        """The struct fields both solves' tiles have, and every scratch
+        buffer of ``parts`` (its fields by name), carved from one
+        allocation (16-byte aligned; the solve writes each before it reads
+        it)."""
+        t.a, t.af = self.a, self.af
+        t.class_of, t.reps, t.C = self.class_of, self.reps, self.C
+        off, at = 0, {}
+        for name, size in self.parts.items():
+            if size is not None:
+                at[name] = off
+                off += (size + 15) // 16 * 16
+        self.scratch = torch.empty((max(off, 16),), dtype=torch.uint8, device=self.dev)
+        base = self.scratch.data_ptr()
+        for name in self.parts:
+            setattr(t, name, base + at[name] if name in at else None)
+        req, nz, pc, ports, pa_sums, sp_counts = self.state
+        t.req, t.nz, t.pc, t.ports = (x.data_ptr() for x in (req, nz, pc, ports))
+        t.pa_sums, t.sp_counts = _ptr(pa_sums), _ptr(sp_counts)
+        t.assignments = self.assignments.data_ptr()
+        t.offset, t.row, t.col = self.offset, self.row, self.col
+
+
+class _SolveTile(_TileBase):
+    """One tile's buffers of a packing solve (``SolveTile``): the common
+    ones over copies of the batch's start state, its (N,) duals ``lam``
+    (copied), the node vectors and its outputs. ``bpt`` is the blocks the
+    tile runs on."""
+
+    def __init__(self, b: rt.DeviceBatch, full: rt.DeviceBatch, p: rt.ScoreParams,
+                 lam: torch.Tensor, weights: torch.Tensor, offset: int, row: int, col: int,
+                 bpt: int) -> None:
+        super().__init__(b, full, p, *_start_state(b), offset, row, col, 5, "packing_round")
+        dev, P, N = self.dev, self.af.P, self.a.N
+        i32, f32 = torch.int32, torch.float32
+        topo = b.topology
         # dynamic shared memory: the spread weights; the group keys of every
         # pod and class (at most P classes); or the picks and admission
         # order (4 bytes a pod each) with 8 warps' resource carries
-        self.smem = 8 * max(2 * P, P + 8 * self.a.R,
-                            0 if sp is None else sp.sig_idx.shape[1])
+        self.smem = 8 * max(2 * P, P + 8 * self.a.R, self.spread_slots)
         self.S = 0 if topo is None else int(topo.num_slices)
         self.slice_id = None if topo is None else topo.slice_id
         if self.slice_id is not None:
@@ -1419,36 +1454,50 @@ class _SolveTile:
         prio = full.pod_priority
         if prio is not None:
             _check("pod_priority", prio, i32, (P,), dev)
-        req, nz, pc, ports, pa_sums, sp_counts = run
-        self.pa_delta = None if pa_sums is None else torch.empty_like(pa_sums)
-        self.assignments = empty((P,), i32)
-        self.objective = empty((), f32)
-        self.nodes_used = empty((), i32)
-        self.bufs = dict(
-            mask=empty((C, N), u8), total=empty((C, N), i64), ties=empty((C, N), i32),
-            cstats=empty((5, C), i64), sc=empty((2, C), i64), bits=empty((2, C, cw), i64),
-            mx=empty((2, C, 7), i64), busy=empty((3, self.S + 1), i32),
-            pen=empty((N,), f32), over=empty((N,), i32), chosen=empty((N,), i32),
-            endf=empty((2, bpt), f32), order=empty((P,), i32), byorder=empty((P,), i32),
-            coupled=empty((P,), u8), active=empty((P,), u8),
-            choice=empty((P,), i32), acc=empty((P,), i32),
-            scal=empty((5,), i64),
-            sums_part=None if sp is None else empty(
-                (sp.domain_present.shape[0], sp.domain_present.shape[1] + 1), i64))
+        pa_sums = self.state[4]
+        self.objective = torch.empty((), dtype=f32, device=dev)
+        self.nodes_used = torch.empty((), dtype=i32, device=dev)
+        self.parts.update(
+            busy=4 * 3 * (self.S + 1), pen=4 * N, over=4 * N, chosen=4 * N, endf=8 * bpt,
+            order=4 * P, byorder=4 * P, coupled=P, scal=8 * 5,
+            pa_delta=None if pa_sums is None else pa_sums.numel() * 8)
         t = self.struct = SolveTile()
-        t.a, t.af = self.a, self.af
-        t.class_of, t.reps = self.classes.data_ptr(), self.classes[Pb:].data_ptr()
-        t.C = C
-        for name, x in self.bufs.items():
-            setattr(t, name, _ptr(x))
+        self.fill(t)
         t.lam, t.w, t.slice_id, t.S = self.lam.data_ptr(), self.w.data_ptr(), \
             _ptr(self.slice_id), self.S
-        t.req, t.nz, t.pc, t.ports = (x.data_ptr() for x in (req, nz, pc, ports))
-        t.pa_sums, t.pa_delta, t.sp_counts = _ptr(pa_sums), _ptr(self.pa_delta), _ptr(sp_counts)
-        t.assignments = self.assignments.data_ptr()
         t.objective, t.nodes_used = self.objective.data_ptr(), self.nodes_used.data_ptr()
         t.req0, t.pc0, t.prio = b.requested.data_ptr(), b.pod_count.data_ptr(), _ptr(prio)
-        t.offset, t.row, t.col = offset, row, col
+
+
+class _BatchTile(_TileBase):
+    """One tile's buffers of a batched solve (``BatchTile``): the common
+    ones, over running state that the solve copies from the batch's start
+    state before its first round (the nominations all set); each node's
+    first chooser of a round and, when the pod row has other columns
+    (``NG``), the round's affinity increments."""
+
+    def __init__(self, b: rt.DeviceBatch, full: rt.DeviceBatch, p: rt.ScoreParams,
+                 offset: int, row: int, col: int, NG: int) -> None:
+        pa, sp = b.podaffinity, b.spread
+        empty = torch.empty_like
+        state = (empty(b.requested), empty(b.nonzero_requested), empty(b.pod_count),
+                 empty(b.node_ports), None if pa is None else empty(pa.base_sums),
+                 None if sp is None else empty(sp.node_count))
+        nom = None if b.nominated_pod_idx is None else torch.empty(
+            (b.nominated_pod_idx.shape[0],), dtype=torch.bool, device=b.alloc.device)
+        super().__init__(b, full, p, state, nom, offset, row, col, 4, "batched_round")
+        P, N = self.af.P, self.a.N
+        # dynamic shared memory: the spread weights, or the group keys of
+        # every pod and class (at most P classes)
+        self.smem = 8 * max(2 * P, self.spread_slots)
+        self.parts.update(first=4 * N, scal=8 * 2,
+                          pa_delta=None if pa is None or NG == 1 else pa.base_sums.numel() * 8)
+        t = self.struct = BatchTile()
+        self.fill(t)
+        t.req0, t.nz0, t.pc0, t.ports0 = (x.data_ptr() for x in (
+            b.requested, b.nonzero_requested, b.pod_count, b.node_ports))
+        t.pa0 = None if pa is None else pa.base_sums.data_ptr()
+        t.sp0 = None if sp is None else sp.node_count.data_ptr()
 
 
 _sm_count: dict = {}
@@ -1459,6 +1508,10 @@ _solve_words: dict = {}
 # 0's clock; a timing aid, None on every path
 packing_split: "torch.Tensor | None" = None
 PACKING_SPLIT = 11
+# the same for the batched solve (batched_round.cu's kSplit order: the
+# start, the round's steps 0-2, 3, 4, 5, 6, 7, 8, 9, the end)
+batched_split: "torch.Tensor | None" = None
+BATCHED_SPLIT = 10
 # cudaErrorCooperativeLaunchTooLarge: the tiles' blocks cannot all be resident
 _TOO_LARGE = 82
 
@@ -1474,14 +1527,19 @@ def _blocks_a_tile(cards: dict) -> int:
     return max(min(sms), 1)
 
 
-def _solve(tiles: list, cards: dict, PG: int, NG: int, bpt: int, cap: int, mesh, what: str):
-    """Launch a solve (``kt_packing_round``) over ``tiles`` (tile (i, j) at
-    i * NG + j), one cooperative launch on each card of ``cards`` (card ->
-    its tiles' indices), the cards' launches meeting at the mesh's exchange;
-    then read each card's iterations and error flag. Returns the
-    iterations."""
-    lib = build()["packing_round"]
-    base = SolveSet()
+def _solve(tiles: list, cards: dict, PG: int, NG: int, bpt: int, cap: int, mesh, what: str,
+           kind: str = "packing_round", split: "torch.Tensor | None" = None):
+    """Launch a solve (``kind``: ``kt_packing_round`` or
+    ``kt_batched_round``) over ``tiles`` (tile (i, j) at i * NG + j), one
+    cooperative launch on each card of ``cards`` (card -> its tiles'
+    indices), the cards' launches meeting at the mesh's exchange; then read
+    each card's iterations (rounds) and error flag. ``split``: the timing
+    aid's tensor (``packing_split`` / ``batched_split``) or None. Returns
+    the iterations."""
+    lib = build()[kind]
+    Set, nsplit = (SolveSet, PACKING_SPLIT) if kind == "packing_round" else (BatchSet,
+                                                                               BATCHED_SPLIT)
+    base = Set()
     for i, t in enumerate(tiles):
         base.t[i] = t.struct
     base.PG, base.NG, base.bpt, base.cap = PG, NG, bpt, cap
@@ -1498,7 +1556,7 @@ def _solve(tiles: list, cards: dict, PG: int, NG: int, bpt: int, cap: int, mesh,
         words = _solve_words.get(card)
         if words is None:
             words = _solve_words[card] = torch.zeros(4, dtype=torch.int64, device=card)
-        st = SolveSet.from_buffer_copy(base)
+        st = Set.from_buffer_copy(base)
         for n, i in enumerate(cards[card]):
             st.local[n] = i
         st.nlocal = len(cards[card])
@@ -1509,16 +1567,15 @@ def _solve(tiles: list, cards: dict, PG: int, NG: int, bpt: int, cap: int, mesh,
             x.slot[h] = ptr
         x.G, x.words, x.epoch, x.budget, x.error = len(order), 0, epoch, EXCHANGE_BUDGET, w0 + 28
         st.card = k
-        if k == 0 and packing_split is not None:
-            st.split = _check("packing_split", packing_split, torch.int64, (PACKING_SPLIT,),
-                              card)
+        if k == 0 and split is not None:
+            st.split = _check("split", split, torch.int64, (nsplit,), card)
         with on_device(card):
-            code = lib.kt_packing_round(ctypes.byref(st), smem, _raw_stream(card.index))
+            code = getattr(lib, "kt_" + kind)(ctypes.byref(st), smem, _raw_stream(card.index))
         if code == _TOO_LARGE:
             raise RuntimeError(
                 f"{what}: {len(cards[card])} tiles x {bpt} blocks of {_SOLVE_THREADS} threads "
                 f"cannot all be resident on {card} (one cooperative launch holds them)")
-        _raise_on(lib, "packing_round", code, what)
+        _raise_on(lib, kind, code, what)
         launch_counts[what] += 1
         reads.append(words[1:3])
     got = [r.tolist() for r in reads]
@@ -1527,7 +1584,7 @@ def _solve(tiles: list, cards: dict, PG: int, NG: int, bpt: int, cap: int, mesh,
     return int(got[0][0])
 
 
-# the solve's block (packing_round.cu kThreads)
+# the solves' block (packing_round.cu and batched_round.cu kThreads)
 _SOLVE_THREADS = 256
 
 
@@ -1547,7 +1604,8 @@ def packing_assign(b: rt.DeviceBatch, p: rt.ScoreParams, lam: torch.Tensor,
     bpt = _blocks_a_tile(cards)
     with on_device(dev):
         tile = _SolveTile(b, b, p, lam, weights, 0, 0, 0, bpt)
-    iters = _solve([tile], cards, 1, 1, bpt, max_iters or tile.a.P, None, "packing_round")
+    iters = _solve([tile], cards, 1, 1, bpt, max_iters or tile.a.P, None, "packing_round",
+                   split=packing_split)
     return (tile.assignments, _seven(tile.state, tile.nom_active), tile.lam, tile.objective,
             iters, tile.nodes_used)
 
@@ -1805,7 +1863,7 @@ def sharded_dry_run(shard_args, offsets):
 
 
 # the combine's operations (csrc/batched_round.cu shard_combine_kernel)
-MAX, SUM, OR, MIN, PREFIX, ADD, GATHER = range(7)
+MAX, SUM, OR = range(3)
 
 
 def _after_all(mesh, home: torch.device) -> None:
@@ -1835,14 +1893,13 @@ def _before_all(mesh, home: torch.device) -> None:
 
 
 def shard_combine(mesh, op: int, srcs, dsts) -> None:
-    """The mesh's combine (the cross-shard reductions of K2 and K6, and of
-    the sharded potential mask's spread sums): element i of every
-    ``srcs[g]`` (shard g's partial, on its device) reduced by ``op`` and
-    written into every ``dsts[g]``, in one launch on the mesh's first card
-    reading and writing the others' memory through peer pointers, ordered
-    after every card's stream and before each reads the results. int32 and
-    int64 partials. ``GATHER``: every ``dsts[g]`` takes the ``srcs`` joined
-    in order (each source one piece of the result)."""
+    """The mesh's combine (the cross-shard reductions of the sharded
+    filter_score passes and of the sharded potential mask's spread sums):
+    element i of every ``srcs[g]`` (shard g's partial, on its device)
+    reduced by ``op`` (``MAX``, ``SUM`` or ``OR``) and written into every
+    ``dsts[g]``, in one launch on the mesh's first card reading and writing
+    the others' memory through peer pointers, ordered after every card's
+    stream and before each reads the results. int32 and int64 partials."""
     x = srcs[0]
     c = CombineArgs()
     for g, t in enumerate(srcs):
@@ -1850,12 +1907,11 @@ def shard_combine(mesh, op: int, srcs, dsts) -> None:
     for g, t in enumerate(dsts):
         c.dst[g] = t.data_ptr()
     c.G, c.n, c.op = len(dsts), dsts[0].numel(), op
-    c.nsrc, c.piece = len(srcs), x.numel()
     c.elem = x.element_size()
     if (x.dtype not in (torch.int32, torch.int64)
             or any(t.dtype != x.dtype for t in list(srcs) + list(dsts))):
         raise ValueError(f"shard_combine: int32 or int64 partials of one dtype, got {x.dtype}")
-    if op != GATHER and (len(srcs) != len(dsts) or any(t.numel() != c.n for t in srcs)):
+    if len(srcs) != len(dsts) or any(t.numel() != c.n for t in srcs):
         raise ValueError("shard_combine: one partial a result, of one size")
     home = mesh.devices[0]
     lib = build()["batched_round"]
@@ -1868,15 +1924,16 @@ def shard_combine(mesh, op: int, srcs, dsts) -> None:
     _before_all(mesh, home)
 
 
-class _ShardRound:
-    """One shard's buffers for the sharded filter_score and the rounds."""
+class _ShardScore:
+    """One shard's buffers for the sharded filter_score: its arguments over
+    the batch's own state, its (P, N) outputs and the partials the shards
+    combine between its steps."""
 
-    def __init__(self, b: rt.DeviceBatch, p: rt.ScoreParams, state, nom_active) -> None:
+    def __init__(self, b: rt.DeviceBatch, p: rt.ScoreParams) -> None:
         dev = b.alloc.device
         self.b, self.dev = b, dev
-        self.state, self.nom_active = state, nom_active
-        self.a, self.keep = _score_args(b, p, "sharded round", state,
-                                        bits_blocks=b.requests.shape[0], nom_active=nom_active)
+        self.a, self.keep = _score_args(b, p, "sharded filter_score",
+                                        bits_blocks=b.requests.shape[0])
         P, N = self.a.P, self.a.N
         self.classes = _class_args(rt.pod_classes(b), P, dev)
         sp = b.spread
@@ -1895,41 +1952,11 @@ class _ShardRound:
                 (sp.domain_present.shape[0], sp.domain_present.shape[1] + 1), dtype=i64,
                 device=dev)
             self.a.sp_sums = self.sums.data_ptr()
-        self.r = torch.zeros((P,), dtype=torch.int32, device=dev)
-        self.choice = torch.full((2, P), -1, dtype=torch.int32, device=dev)  # mine, combined
-        self.acc = torch.zeros((2, P), dtype=torch.int32, device=dev)
-        self.flags = torch.zeros((2,), dtype=torch.int32, device=dev)
-        self.active = b.pod_valid.clone()
-        self.assignments = torch.full((P,), -1, dtype=torch.int32, device=dev)
-        pa = b.podaffinity
-        self.pa_delta = None if pa is None else torch.zeros_like(pa.base_sums)
-
-    def pod_axis(self, sb, t: int, p: rt.ScoreParams, what: str) -> None:
-        """On a pods x nodes grid: the arguments ``af`` of tile t's node
-        column with every pod's pod-major leaves (``sb.full_tile``, kept
-        alive as long as the struct that points into them), the joined
-        per-pod vectors ``fstats`` (best, hash, tie count) and the per-pod
-        buffers of all P pods. On one pod row the tile holds every pod:
-        ``af`` is ``a``, and nothing else changes."""
-        if sb.pod_rows == 1:
-            self.af = self.a
-            return
-        dev = self.dev
-        self.full = sb.full_tile(t)
-        self.af, self.keep_full = _score_args(self.full, p, what, self.state, bits_blocks=1,
-                                              nom_active=self.nom_active, pod_node=False)
-        P = self.af.P
-        self.fstats = torch.zeros((3, P), dtype=torch.int64, device=dev)
-        self.r = torch.zeros((P,), dtype=torch.int32, device=dev)
-        self.choice = torch.full((2, P), -1, dtype=torch.int32, device=dev)
-        self.acc = torch.zeros((2, P), dtype=torch.int32, device=dev)
-        self.active = self.full.pod_valid.clone()
-        self.assignments = torch.full((P,), -1, dtype=torch.int32, device=dev)
 
 
 def _filter_score_shards(mesh, shards: list, smem: int) -> None:
-    """Kernel K2's first half: every shard's filter_score over its rows,
-    with the spread domain sums, the spread-scored counts and bitmaps and
+    """Every shard's filter_score over its rows (``_ShardScore``), with the
+    spread domain sums, the spread-scored counts and bitmaps and
     the normalize maxima combined over the shards between its steps."""
     lib = build()["filter_score"]
 
@@ -1971,7 +1998,7 @@ def sharded_filter_score(tiles, mesh, p: rt.ScoreParams):
     shards = []
     for b in tiles:
         with on_device(b.alloc.device):
-            shards.append(_ShardRound(b, p, None, None))
+            shards.append(_ShardScore(b, p))
     _filter_score_shards(mesh, shards, _smem(tiles[0]))
     for s in shards:
         with on_device(s.dev):
@@ -2009,22 +2036,10 @@ def tiled_packing_assign(sb, p: rt.ScoreParams, lam_pieces, weights: torch.Tenso
     equal to ``assign.packing.packing_assign_tiled_plain`` and to the
     unsharded ``packing_assign`` (the objective within its float32 sums'
     order); ``rows_out`` as the plain version's."""
-    from ..assign.batched import _row_slots
     from ..parallel.mesh import ShardedTensor
 
-    mesh = sb.mesh
     P, NG, PG = sb.num_pods, sb.columns, sb.pod_rows
-    if PG * NG > 8:
-        raise ValueError(f"tiled packing: {PG * NG} tiles; the solve takes 8")
-    n = int(sb.shards[0].alloc.shape[0])
-    pb = int(sb.shards[0].requests.shape[0])
-    if list(sb.offsets) != [j * n for j in range(NG)] or list(sb.pod_offsets) != [
-            i * pb for i in range(PG)]:
-        raise ValueError("tiled packing: the tiles must be equal blocks of nodes and pods")
-    cards: dict = {}
-    for t, b in enumerate(sb.shards):
-        cards.setdefault(b.alloc.device, []).append(t)
-    bpt = _blocks_a_tile(cards)
+    cards, bpt = _tile_cards(sb, "tiled packing")
     tiles = []
     for t, (b, lam) in enumerate(zip(sb.shards, lam_pieces)):
         i, j = divmod(t, NG)
@@ -2032,161 +2047,90 @@ def tiled_packing_assign(sb, p: rt.ScoreParams, lam_pieces, weights: torch.Tenso
             tiles.append(_SolveTile(b, sb.full_tile(t) if PG > 1 else b, p, lam, weights,
                                     sb.offsets[j], i, j, bpt))
     what = "sharded_packing" if PG == 1 else "tiled_packing"
-    iters = _solve(tiles, cards, PG, NG, bpt, max_iters or P, mesh, what)
+    iters = _solve(tiles, cards, PG, NG, bpt, max_iters or P, sb.mesh, what,
+                   split=packing_split)
     s0 = tiles[0]
+    return (s0.assignments, _tile_slots(tiles, PG, NG, rows_out),
+            ShardedTensor([s.lam for s in tiles], rows=PG), s0.objective, iters, s0.nodes_used)
+
+
+def _tile_cards(sb, what: str) -> tuple[dict, int]:
+    """A sharded batch's tiles by card (card -> the tiles' indices) for a
+    solve, and the blocks a tile: at most 8 tiles, equal blocks of nodes and
+    pods."""
+    NG, PG = sb.columns, sb.pod_rows
+    if PG * NG > 8:
+        raise ValueError(f"{what}: {PG * NG} tiles; the solve takes 8")
+    n = int(sb.shards[0].alloc.shape[0])
+    pb = int(sb.shards[0].requests.shape[0])
+    if list(sb.offsets) != [j * n for j in range(NG)] or list(sb.pod_offsets) != [
+            i * pb for i in range(PG)]:
+        raise ValueError(f"{what}: the tiles must be equal blocks of nodes and pods")
+    cards: dict = {}
+    for t, b in enumerate(sb.shards):
+        cards.setdefault(b.alloc.device, []).append(t)
+    return cards, _blocks_a_tile(cards)
+
+
+def _tile_slots(tiles: list, PG: int, NG: int, rows_out: list | None) -> tuple:
+    """A solve's seven state slots: the node slots of pod row 0's tiles as
+    ``parallel.mesh.ShardedTensor``s, tile 0's affinity sums and
+    nominations; ``rows_out``, when given, receives every pod row's node
+    slots."""
+    from ..assign.batched import _row_slots
+
     slots = [[s.state[k] for s in tiles] for k in range(6)]
     if rows_out is not None:
         rows_out.extend(_row_slots(slots[0], slots[1], slots[2], slots[3], slots[5], i, NG)
                         for i in range(PG))
-    state = _row_slots(slots[0], slots[1], slots[2], slots[3], slots[5], 0, NG) + (
-        s0.state[4], s0.nom_active)
-    return (s0.assignments, state, ShardedTensor([s.lam for s in tiles], rows=PG),
-            s0.objective, iters, s0.nodes_used)
+    return _row_slots(slots[0], slots[1], slots[2], slots[3], slots[5], 0, NG) + (
+        tiles[0].state[4], tiles[0].nom_active)
 
 
 # ---------------------------------------------------------------------------
-# kernels K6 and K7: the batched rounds and the greedy scan on a pods x nodes
+# kernels K6 and K7: the batched solve and the greedy scan on a pods x nodes
 # grid (csrc/batched_round.cu, csrc/greedy_scan.cu); a node mesh is the grid
 # of one pod row (kernels K2 and K1)
 # ---------------------------------------------------------------------------
-
-
-class _TileRound(_ShardRound):
-    """One tile's buffers for the tiled rounds: the sharded round's over the
-    tile's pods (its filter_score scratch, its arguments ``a``) and the
-    arguments ``af`` of its node column with every pod's pod-major leaves,
-    with the per-pod vectors of all P pods (``TileRound``). On one pod row
-    the tile holds every pod: ``af`` is ``a``, and the rank reads the row's
-    combined statistics in place."""
-
-    def __init__(self, sb, t: int, p: rt.ScoreParams) -> None:
-        b = sb.shards[t]
-        dev = b.alloc.device
-        pa, sp = b.podaffinity, b.spread
-        state = (b.requested.clone(), b.nonzero_requested.clone(), b.pod_count.clone(),
-                 b.node_ports.clone(), None if pa is None else pa.base_sums.clone(),
-                 None if sp is None else sp.node_count.clone())
-        nom = (None if b.nominated_pod_idx is None
-               else torch.ones((b.nominated_pod_idx.shape[0],), dtype=torch.bool, device=dev))
-        super().__init__(b, p, state, nom)
-        self.pod_axis(sb, t, p, "tiled round")
-        i, j = divmod(t, sb.columns)
-        self.tstats = torch.zeros((5, self.a.P), dtype=torch.int64, device=dev)
-        # the rank reads the rows' best, hash and tie count joined in pod
-        # order; on one pod row, the row's combined stats in place
-        joined = (self.fstats[0], self.fstats[1], self.fstats[2]) if sb.pod_rows > 1 else (
-            self.tstats[0], self.tstats[2], self.tstats[3])
-        joined = tuple(x.data_ptr() for x in joined)
-        req, nz, pc, ports, _, sp_counts = state
-        h = self.tr = TileRound()
-        h.mask, h.total = self.mask.data_ptr(), self.total.data_ptr()
-        h.req, h.nz, h.pc, h.ports = (x.data_ptr() for x in (req, nz, pc, ports))
-        h.pa_delta, h.sp_counts = _ptr(self.pa_delta), _ptr(sp_counts)
-        for name in ("active", "assignments", "tstats", "r", "choice", "acc", "flags"):
-            setattr(h, name, getattr(self, name).data_ptr())
-        h.fbest, h.fhash, h.fcount = joined
-        h.pod_offset, h.offset = sb.pod_offsets[i], sb.offsets[j]
 
 
 def tiled_batched_assign(sb, p: rt.ScoreParams, max_rounds: int = 0,
                          rounds_out: list | None = None, rows_out: list | None = None):
     """Kernels K6 and K2, the batched engine over a sharded batch
     (``parallel.mesh.ShardedBatch`` on CUDA devices: a pods x nodes grid,
-    K6, or a node mesh, one pod row, K2): each round every pod row's
-    sharded ``filter_score`` on its tiles (``_filter_score_shards`` over
-    the row's node columns), then ``kt_tiled_round``'s steps on every tile
-    with the mesh's combines between them: inside each pod row the best
-    score's max, the tie counts' prefix and sums and the wrapping sums of
-    the tie weights of the global node indices; across the pod rows (a)
-    the rows' best, hash and count joined in pod order (``GATHER``) before
-    the rank over every pod, (b) the picks and the admissions (max over
-    every tile: one pod a node in queue order over every row's choosers),
-    (c) the first rejection over all P (every tile alike), and (d) the
-    commit, which every tile applies to its own copy of its column's rows
-    from every pod's pod-major leaves (gathered once a batch,
-    ``ShardedBatch.full_tile``), so a column's copies stay equal; each pod
-    row's affinity increments sum over its columns. On one pod row there
-    is nothing to join. The host reads tile 0's two flags a round. Returns
+    K6, or a node mesh, one pod row, K2): one cooperative launch a solve on
+    each card, holding the card's tiles (``kt_batched_round``, the kernel
+    of the unsharded engine; the rounds, each with every tile's Filter +
+    Score of its pod classes against its node column, and the stop rule on
+    the device). Inside each pod row the tiles combine the spread terms, the
+    normalize maxima, the best score, the tie counts (their prefix in
+    column order for the pick) and the wrapping sums of the tie weights of
+    the global node indices, and the affinity increments; the ranks run
+    over every pod in queue order from every pod row's class rows, each
+    column admits the choosers of every pod row, and every tile commits
+    its column's pods to its own copy of the column's rows, so a column's
+    copies stay equal. The cards' launches meet at the mesh's exchange; the
+    host reads each card's rounds and error flag once. Returns
     ``(assignments (P,) int32 global, final_state)``, the node slots from
-    pod row 0's tiles, equal to ``assign.batched.batched_assign_tiled_plain(sb,
-    p, max_rounds)``; ``rows_out`` as the plain version's."""
-    from ..assign.batched import _row_slots
-
-    mesh = sb.mesh
+    pod row 0's tiles, equal to
+    ``assign.batched.batched_assign_tiled_plain(sb, p, max_rounds)``;
+    ``rows_out`` as the plain version's."""
     P, NG, PG = sb.num_pods, sb.columns, sb.pod_rows
     if P > 1024:
-        raise ValueError(f"batched_round: P={P} exceeds the sorting block's 1024 pods")
+        raise ValueError(f"batched_round: P={P} exceeds the solve's 1024 pods")
+    cards, bpt = _tile_cards(sb, "tiled batched")
     tiles = []
     for t, b in enumerate(sb.shards):
+        i, j = divmod(t, NG)
         with on_device(b.alloc.device):
-            tiles.append(_TileRound(sb, t, p))
-    rows = [tiles[i * NG:(i + 1) * NG] for i in range(PG)]
-    lib = build()["batched_round"]
-    smem = _smem(sb.shards[0])
+            tiles.append(_BatchTile(b, sb.full_tile(t) if PG > 1 else b, p, sb.offsets[j], i, j,
+                                    NG))
     what = "sharded_round" if PG == 1 else "tiled_round"
-
-    def step(k):
-        for s in tiles:
-            with on_device(s.dev):
-                code = lib.kt_tiled_round(ctypes.byref(s.a), ctypes.byref(s.af), k,
-                                          ctypes.byref(s.tr),
-                                          torch.cuda.current_stream(s.dev).cuda_stream)
-            _raise_on(lib, "batched_round", code, f"batched_round (tiled, step {k})")
-            launch_counts[what] += 1
-
-    def in_rows(op, get, put=None):
-        for i, row in enumerate(rows):
-            shard_combine(mesh.row(i), op, [get(s) for s in row], [(put or get)(s) for s in row])
-
-    def over_all(op, get, put):
-        shard_combine(mesh, op, [get(s) for s in tiles], [put(s) for s in tiles])
-
-    def gather(k, f):
-        shard_combine(mesh, GATHER, [row[0].tstats[k] for row in rows],
-                      [s.fstats[f] for s in tiles])
-
-    cap = max_rounds or P
-    rounds = 0
-    progress, still = True, bool(torch.any(tiles[0].active))
-    while progress and still and rounds < cap:
-        for i, row in enumerate(rows):
-            _filter_score_shards(mesh.row(i), row, smem)
-        step(1)
-        in_rows(MAX, lambda s: s.tstats[0])
-        step(2)
-        in_rows(PREFIX, lambda s: s.tstats[1], lambda s: s.tstats[4])
-        in_rows(SUM, lambda s: s.tstats[1], lambda s: s.tstats[3])
-        in_rows(SUM, lambda s: s.tstats[2])
-        if PG > 1:
-            # the rows' best, hash and tie count, joined in pod order
-            for k, f in ((0, 0), (2, 1), (3, 2)):
-                gather(k, f)
-        step(3)
-        over_all(MAX, lambda s: s.choice[0], lambda s: s.choice[1])
-        step(4)
-        over_all(MAX, lambda s: s.acc[0], lambda s: s.acc[1])
-        for s in tiles:
-            if s.pa_delta is not None:
-                with on_device(s.dev):
-                    s.pa_delta.zero_()
-        step(5)
-        if tiles[0].pa_delta is not None:
-            in_rows(ADD, lambda s: s.pa_delta, lambda s: s.state[4])
-        progress, still = (bool(v) for v in tiles[0].flags.tolist())
-        rounds += 1
-    for s in tiles:
-        with on_device(s.dev):
-            torch.cuda.current_stream(s.dev).synchronize()
+    rounds = _solve(tiles, cards, PG, NG, bpt, max_rounds or P, sb.mesh, what, "batched_round",
+                    batched_split)
     if rounds_out is not None:
         rounds_out.append(rounds)
-    st = [s.state for s in tiles]
-    slots = [[x[k] for x in st] for k in range(6)]
-    if rows_out is not None:
-        rows_out.extend(_row_slots(slots[0], slots[1], slots[2], slots[3], slots[5], i, NG)
-                        for i in range(PG))
-    s0 = tiles[0]
-    return s0.assignments, _row_slots(slots[0], slots[1], slots[2], slots[3], slots[5], 0, NG) + (
-        s0.state[4], s0.nom_active)
+    return tiles[0].assignments, _tile_slots(tiles, PG, NG, rows_out)
 
 
 def tiled_greedy_scan(sb, p: rt.ScoreParams):

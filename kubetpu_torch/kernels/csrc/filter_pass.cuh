@@ -1,9 +1,10 @@
 // The two per-pod passes of filter_score, as device functions: the pair
 // verdict with its base score (filter_score's pass (a)) and the normalize
 // pass of one pod (pass (b), block-wide). filter_score.cu launches them as
-// kernels of their own; the packing solve (packing_round.cu) runs them
-// inside its one launch a solve, on each pod class's first pod, so that
-// both compute the same verdicts and totals by the same code.
+// kernels of their own; the packing and batched solves (packing_round.cu,
+// batched_round.cu) run them inside their one launch a solve, on each pod
+// class's first pod, so that all compute the same verdicts and totals by
+// the same code.
 #pragma once
 
 #include "score_common.cuh"

@@ -10,12 +10,12 @@
 // affinity_filter_pod / :75 affinity_score_pod and kubetpu/ops/spread.py:40
 // spread_filter_pod / :69 spread_score_pod (with :32 _domain_sums) inside
 // them, which XLA fused into one device program. On the main path it is the parallel half
-// of both engines: greedy_scan reads its mask (without the affinity
+// of the greedy engine: greedy_scan reads its mask (without the affinity
 // filter, which moves with every assignment) and base score for every node
-// that no earlier pod of the batch landed on; each batched round scores the
-// whole batch with it against the round's state. The scan's start mask
-// leaves out the affinity and spread filters, which move with every
-// assignment.
+// that no earlier pod of the batch landed on (the batched and packing
+// solves run the same passes inside their launch, through filter_pass.cuh).
+// The scan's start mask leaves out the affinity and spread filters, which
+// move with every assignment.
 //
 // Bound: memory. Per pair the kernel reads a few int64 node rows and the
 // pod's affinity slots, which stay in L2 across the pod axis; what must

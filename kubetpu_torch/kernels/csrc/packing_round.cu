@@ -21,10 +21,10 @@
 // at four shards). Design: ONE cooperative launch a solve on each card,
 // holding every tile of the card (bpt blocks a tile, all co-resident), the
 // round loop and its stop rule inside it; the steps are separated by a
-// grid-wide barrier (card_sync: an arrival counter in device memory), and,
-// where a step reads other cards' partials, by the mesh's exchange
-// (exchange.cuh's sequence words, once a barrier, bounded by
-// EXCHANGE_BUDGET). The host reads once a solve: the iterations and the
+// grid-wide barrier (solve_sync.cuh's card_sync: an arrival counter in
+// device memory), and, where a step reads other cards' partials, by the
+// mesh's exchange (exchange.cuh's sequence words, once a barrier, bounded
+// by EXCHANGE_BUDGET). The host reads once a solve: the iterations and the
 // error word.
 //
 // Pod classes (runtime.PodClasses): two pods of one class have equal
@@ -70,8 +70,8 @@
 // its multiply-adds fused), not log1pf: the two differ at some counts. The
 // objective's float sums are taken in another order than the plain
 // version's (it agrees within rtol 1e-5); every other output is exact.
-#include "exchange.cuh"
 #include "filter_pass.cuh"
+#include "solve_sync.cuh"
 
 namespace {
 
@@ -101,7 +101,10 @@ enum { kSplitStart, kSplit02, kSplit3, kSplit4, kSplit5, kSplit6, kSplit7, kSpli
 enum { kProgress, kStill, kAny, kUsed, kScalars };
 
 using kt::block_reduce;
+using kt::card_sync;
+using kt::ldv;
 using kt::MaxOp;
+using kt::mesh_sync;
 using kt::MinOp;
 using kt::SumOp;
 
@@ -208,19 +211,6 @@ __device__ __forceinline__ int64_t band_of(const float* w) {
   return __float2ll_rn(__fmul_rn(w[kBand], kUtilScale));
 }
 
-// another tile's partial, written before the last barrier (on this card or
-// a peer's): never from a cached line
-template <typename T>
-__device__ __forceinline__ T ldv(const T* p) {
-  return *reinterpret_cast<const volatile T*>(p);
-}
-
-__device__ __forceinline__ uint64_t ld_acquire_gpu(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
 // One tile of a solve (mirror of SolveTile in kubetpu_torch/kernels/
 // __init__.py; 8-byte fields). Node-indexed arrays hold the tile's column
 // of N rows, class-indexed ones the tile's C classes, pod-indexed ones all
@@ -287,65 +277,6 @@ struct SolveSet {
   Exchange x;               // the cards' sequence words, one slot a card (x.G cards)
   int64_t card;             // this card's slot
 };
-
-// Every block of this card's launch arrives, then waits for all (bounded
-// by the exchange's budget: past it the error word is set). Thread 0
-// fences the block's writes before it arrives (system scope when the mesh
-// spans cards, so that peers may read them). Returns false on every thread
-// when a wait timed out or a peer card did.
-__device__ bool card_sync(const SolveSet& S, int64_t& k, int* flag) {
-  __syncthreads();
-  k += 1;
-  if (threadIdx.x == 0) {
-    if (S.x.G > 1)
-      __threadfence_system();
-    else
-      __threadfence();
-    atomicAdd(S.bar, 1ULL);
-    const unsigned long long want = (unsigned long long)k * gridDim.x;
-    int ok = 1;
-    const long long t0 = clock64();
-    while (ld_acquire_gpu(S.bar) < want) {
-      if (clock64() - t0 > S.x.budget) {
-        ok = 0;
-        atomicExch(S.x.error, 1);
-        atomicExch(S.abort, 1);
-        break;
-      }
-    }
-    __threadfence();
-    *flag = ok && !ldv(S.abort);
-  }
-  __syncthreads();
-  return *flag != 0;
-}
-
-// card_sync, and across the cards of the mesh: block 0 publishes the
-// barrier's sequence and waits for every peer card's, then the card syncs
-// again, so that every block may read what any tile wrote before it.
-__device__ bool mesh_sync(const SolveSet& S, int64_t& k, int64_t& xk, int* flag) {
-  if (!card_sync(S, k, flag)) return false;
-  if (S.x.G <= 1) return true;
-  xk += 1;
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    const int64_t want = (S.x.epoch << 32) | xk;
-    kt::st_release_sys(S.x.slot[S.card], want);
-    const long long t0 = clock64();
-    for (int64_t h = 0; h < S.x.G; ++h) {
-      if (h == S.card) continue;
-      while (kt::ld_acquire_sys(S.x.slot[h]) < want) {
-        if (clock64() - t0 > S.x.budget) {
-          atomicExch(S.x.error, 1);
-          atomicExch(S.abort, 1);
-          h = S.x.G;
-          break;
-        }
-      }
-    }
-    __threadfence_system();
-  }
-  return card_sync(S, k, flag);
-}
 
 // class c's group key this round over a pod row (`pr` its NG tiles): its
 // tie hash, summed over the row, xor the row's best utility << 1 when it

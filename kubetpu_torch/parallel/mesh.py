@@ -392,10 +392,20 @@ class ShardedBatch:
         order (the reference's all-gather along ``"pods"``), on tile t's
         device: what the commit reads of every pod. Its (P, N) leaves (the
         extender terms, the spread's ignored rows) are left out: they stay
-        cut on their tiles. On one pod row, the shard itself."""
-        base = self.shards[t]
+        cut on their tiles. On one pod row, the shard itself. A tile on the
+        card of its column's pod row 0 tile shares that tile's, built once
+        a batch (``gathered``): the node leaves are the column's alike."""
         if self.pod_rows == 1:
-            return base
+            return self.shards[t]
+        j = t % self.columns
+        if self.shards[t].device == self.shards[j].device:
+            return self.gathered.shards[j]
+        return self._joined(t)
+
+    def _joined(self, t: int) -> rt.DeviceBatch:
+        """``full_tile(t)`` built: every pod row's pod-major leaves of tile
+        t's column joined on tile t's device."""
+        base = self.shards[t]
         j = t % self.columns
         dev = base.device
 
@@ -430,7 +440,7 @@ class ShardedBatch:
         batch; on one pod row, the batch itself."""
         if self.pod_rows == 1:
             return self
-        return ShardedBatch(tuple(self.full_tile(j) for j in range(self.columns)),
+        return ShardedBatch(tuple(self._joined(j) for j in range(self.columns)),
                             self.offsets, self.mesh.row(0),
                             nominated_node=self.nominated_node)
 
