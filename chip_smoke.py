@@ -31,14 +31,19 @@ final ``ok`` line is not printed):
    cycle at 1024 × 5120 — ``filter_score`` must equal the plain
    ``feasible_and_scores`` (mask and int64 total), the ``greedy_scan``
    engine must equal ``greedy_assign_plain`` (assignments, final node
-   state, spread counts and affinity sums) and the batched engine's
+   state, spread counts and affinity sums; at 1024 x 5120 on
+   SchedulingBasic and PreferredTopologySpreading only, the affinity and
+   spread terms at 512 x 2048) and the batched engine's
    ``batched_round`` solve (one launch a batch) must equal
    ``batched_assign_plain`` (the same, and the round count) exactly, on
    CUDA tensors; then ``scatter_rows``
    must equal ``scatter_node_rows_plain`` on a seeded 5120-row resident
    block (1000 dirty rows, 8 boundary rows flipping validity, pads at and
-   past N), and a SchedulingBasic resident block after a delta refresh
-   must equal a full upload of the same node tensors; then preemption:
+   past N) through a block's launch plan, the delta packed as the cycle
+   packs it, a replaced block's plan must
+   raise and write nothing, and a SchedulingBasic resident block after a
+   delta refresh must equal a full upload of the same node tensors; then
+   preemption:
    ``dry_run_preemption`` must equal ``dry_run_preemption_plain`` (node,
    victims, ok, n_pdb) on seeded 5120-node victim tensors with 8 slots and
    3 PDBs (PreemptionAsync's K) and with 128 slots and 5 PDBs, host ports
@@ -107,7 +112,8 @@ final ``ok`` line is not printed):
    SchedulingBasic batch with and without a DRA leaf, the mixed, affinity
    and spread clusters, and the SchedulingPodAffinity and
    PreferredTopologySpreading cycles (every template variant), and against
-   the sharded plain engine on one cut batch of each variant (the full
+   the sharded plain engine on the mixed spread cluster (``--mesh``: on
+   one cut batch of each variant; the full
    Basic batch's plain run is the unsharded kernel's); a tie batch whose first pick must be the first shard's
    last node; the sharded ``filter_score`` passes and K2 (the batched
    solve over the shards) against the unsharded kernels on the
@@ -187,9 +193,10 @@ final ``ok`` line is not printed):
    node-upload bytes a cycle against the block, the encode cache's hit
    rate and the stage-1 / stage-2 spans. Then SchedulingBasic again with
    ``flight_recorder=False`` (the recorder's on/off pods/s, printed, not
-   gated: the reference's FlightRecorderOverhead); then
-   ``SchedulingBasic/500Nodes`` on the greedy and on the batched engine
-   behind a seeded in-process webhook (filter and prioritize, weight 5,
+   gated: the reference's FlightRecorderOverhead; its bound map must
+   equal the recorder-on run's); then
+   ``SchedulingBasic/500Nodes`` with 400 measured pods on the greedy and
+   on the batched engine behind a seeded in-process webhook (filter and prioritize, weight 5,
    NodeCacheCapable, rejecting ~15% of the nodes for each pod): every pod
    bound, none on a node the webhook rejected for it, the first cycle equal
    to the plain engine with the same extender leaves. Then the gang lane with
@@ -221,7 +228,7 @@ final ``ok`` line is not printed):
    PreBind write for a claim already bound, no pick left assumed, every
    pod on a node its PV allows),
    ``SchedulingWithResourceClaimTemplate``/5000pods_500nodes on the greedy
-   and on the batched engine (5000 bound, every claim allocated on its
+   engine and cut to 1000 pods on the batched engine (5000 and 1000 bound, every claim allocated on its
    pod's node, no device allocated twice, at most 10 claims a node, every
    claim's status written once by PreBind), and the prioritized-list
    scenario at 500 nodes (10 slow devices a node, 2 fast ones on every
@@ -234,7 +241,8 @@ final ``ok`` line is not printed):
    Reserve must reject the scan's in-batch losers, which requeue and
    bind in a later cycle, every fast device taken). Then SchedulingBasic and
    PreferredTopologySpreading run again with ``pipeline=True``: their
-   bound maps must equal the serial runs', pod for pod; last, a seeded
+   bound maps must equal the serial runs', pod for pod (the serial runs
+   hold the plain engine); last, a seeded
    preempt-then-schedule scenario under a stepped clock (500 nodes of four
    priority-0 pods, 256 3-cpu preemptors, 300 default pods) runs on
    ``cuda`` and on ``cpu``: bound maps, victims and nominations must be
@@ -281,6 +289,11 @@ batched gang placement search (33 placements), and K2 and K6 on
 SchedulingPodAffinity's batch at four logical shards and on the 2 x 2
 grid, each with the card's busy time a call and, where the checkout has
 it, the solve's split into its steps;
+``--time-recorder ROOT`` times its flight recorder's explain (B10) on the
+SchedulingBasic batch (one pod class) and with a class a pod, its
+resident block's scatter (B5) of a 1024-slot Basic delta as the cycle
+calls it, ``filter_component_masks`` on the Basic and a 4-pod batch and
+the dry run (B9) at 5120 x 8 and x 128 (``time_recorder``);
 ``--time-mesh ROOT`` times its node mesh's greedy, batched and packing
 engines (kernels K1, K2 and K5 at four logical shards) and its packing
 solve on a 2 x 2 grid of logical tiles (K8), on the BinPacking block and
@@ -688,10 +701,13 @@ def encode(cache, pending, profile):
 
 def cuda_ms(fn, reps: int) -> float:
     """Median ms of ``fn`` over ``reps`` runs, each timed with CUDA events
-    after one warm-up run."""
+    after one warm-up run; one run alone, with no warm-up, when ``reps``
+    is 1 (the plain versions at full size: seconds a run, nothing to
+    warm)."""
     import torch
 
-    fn()
+    if reps > 1:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -777,10 +793,14 @@ def _engine_err(name, ka, ks, pa, ps) -> int:
     return err
 
 
-def check_case(name, b, params, results, batched=True):
+def check_case(name, b, params, results, batched=True, plain_greedy=True):
     """Hold the kernels to their plain versions on one batch: filter_score,
-    the greedy_scan engine and (when ``batched``) the batched_round rounds.
-    Returns the greedy kernel's assignments."""
+    the greedy_scan engine (unless ``plain_greedy`` is false: a batch whose
+    greedy engine is held at full size elsewhere, or at a smaller size on
+    the same terms) and (when ``batched``) the batched_round rounds. The
+    plain greedy run's ms (CUDA events, one run) is kept in
+    ``results["greedy_scan"]["plain_ms_of"][name]``. Returns the greedy
+    kernel's assignments."""
     import torch
 
     from kubetpu_torch import kernels
@@ -801,9 +821,12 @@ def check_case(name, b, params, results, batched=True):
                              f"(max abs err {err_fs})")
     note("filter_score", err_fs)
     ka, ks = kernels.greedy_scan(b, params)
-    pa, ps = greedy_assign_plain(b, params)
-    torch.cuda.synchronize()
-    note("greedy_scan", _engine_err(f"{name} greedy_scan", ka, ks, pa, ps))
+    if plain_greedy:
+        plain_out = []
+        results["greedy_scan"].setdefault("plain_ms_of", {})[name] = cuda_ms(
+            lambda: plain_out.append(greedy_assign_plain(b, params)), 1)
+        pa, ps = plain_out[0]
+        note("greedy_scan", _engine_err(f"{name} greedy_scan", ka, ks, pa, ps))
     n_valid = int(b.pod_valid.sum().item())
     extra = ""
     if batched:
@@ -824,7 +847,8 @@ def check_case(name, b, params, results, batched=True):
         f"R={b.alloc.shape[1]} K={b.port_conflict.shape[0]} affinity rows x domains "
         f"{pa_rows}, spread signatures x domains {sp_sigs}: exact (feasible pairs "
         f"{int(km.sum().item())}, greedy "
-        f"unschedulable {int((ka[:n_valid] < 0).sum().item())}{extra})")
+        f"unschedulable {int((ka[:n_valid] < 0).sum().item())}"
+        f"{'' if plain_greedy else ' (greedy kernel only)'}{extra})")
     return ka
 
 
@@ -909,7 +933,11 @@ def spread_checks(results, scale=1.0):
             template, n_nodes=int(5000 * scale), n_init=int(5000 * scale),
             n_spread=int(1000 * scale), n_pending=int(1024 * scale))
         bt, pt = encode(cache_t, pending_t, C.Profile())
-        check_case(f"{name} {bt.requests.shape[0]}x{bt.alloc.shape[0]}", bt, pt, results)
+        # the greedy engine at this size: PreferredTopologySpreading's in
+        # _spread_timing, and on the main path's first cycles; the spread
+        # terms at 512 x 2048 above
+        check_case(f"{name} {bt.requests.shape[0]}x{bt.alloc.shape[0]}", bt, pt, results,
+                   plain_greedy=False)
         out[name] = (bt, pt)
     return out
 
@@ -940,9 +968,11 @@ def spread_read_nbytes(params, b, kernel) -> int:
     return total
 
 
-def _spread_timing(case, b, params, kernel) -> dict:
+def _spread_timing(case, b, params, kernel, results=None) -> dict:
     """Time one kernel (its engine, for the scan and the rounds) and its
-    plain version on a topology-spreading cycle's batch, with the bound of
+    plain version on a topology-spreading cycle's batch (the greedy
+    engine's one plain run also holds the kernel to it, noted in
+    ``results``), with the bound of
     that work: the batch's bytes that the work reads (``spread_read_nbytes``:
     the (P, N) ``ignored`` rows only where a soft slot is scored) read once
     and the kernel's outputs written once, over HBM bandwidth, against its
@@ -970,7 +1000,12 @@ def _spread_timing(case, b, params, kernel) -> dict:
                 scored_pods(b) * N * per_pair + spread_f64_ops(params, b))
     elif kernel == "greedy_scan":
         out["ms"] = cuda_ms(lambda: kernels.greedy_scan(b, params), 5)
-        out["plain_ms"] = cuda_ms(lambda: greedy_assign_plain(b, params), 1)
+        plain_out = []
+        out["plain_ms"] = cuda_ms(lambda: plain_out.append(greedy_assign_plain(b, params)), 1)
+        ka, ks = kernels.greedy_scan(b, params)
+        _engine_err(f"{case} {P}x{N} greedy_scan", ka, ks, *plain_out[0])
+        if results is not None:
+            results["greedy_scan"]["cases"].append(f"{case} {P}x{N}")
         if scored:
             with bitmaps_in_global():
                 out["bitmaps_in_global_ms"] = cuda_ms(
@@ -1040,16 +1075,60 @@ def _nodes_err(a, b) -> int:
     return max(_max_abs(getattr(a, n), getattr(b, n)) for n in rt.NODE_FIELDS)
 
 
+def basic_delta(cache, pending):
+    """A SchedulingBasic resident block on the card after the cycle's own
+    delta refresh: the first encode uploads the block, the pending pods
+    are then bound onto distinct nodes (1024 dirty rows) and the second
+    encode ships them in its packed upload and scatters them. Returns
+    ``(resident, shipped, first, second)``: ``shipped`` the tensors the
+    block's ``scatter`` took (the delta's ``DELTA_FIELDS`` views among
+    them), ``first`` / ``second`` the two encoded batches."""
+    from kubetpu_torch.framework import config as C
+    from kubetpu_torch.framework import runtime as rt
+
+    resident = rt.ResidentNodeState("cuda")
+    snap = cache.update_snapshot()
+    first = rt.encode_batch(snap, pending, C.Profile(), resident=resident, device="cuda")
+    for j, p in enumerate(pending):
+        cache.add_pod(p.with_node(first.node_names[(7 * j) % first.num_nodes]))
+    snap = cache.update_snapshot(snap)
+    shipped: dict = {}
+    scatter = resident.scatter
+
+    def grab(tensors):
+        shipped.update(tensors)
+        scatter(tensors)
+
+    resident.scatter = grab
+    second = rt.encode_batch(snap, pending, C.Profile(), prev_nt=first.node_tensors,
+                             resident=resident, device="cuda")
+    resident.scatter = scatter
+    return resident, shipped, first, second
+
+
+def _packed(nodes_idx, updates):
+    """``DELTA_FIELDS`` arrays of an index and six update rows (tensors),
+    packed into one buffer on the card as the cycle's upload packs them."""
+    from kubetpu_torch.framework import runtime as rt
+
+    arrays = [nodes_idx, *updates]
+    return rt.upload_packed(dict(zip(rt.DELTA_FIELDS, (a.cpu().numpy() for a in arrays))),
+                            "cuda")
+
+
 def scatter_checks(results) -> dict:
-    """Phase 3's B5 checks: ``scatter_rows`` against
-    ``scatter_node_rows_plain`` on a seeded resident block (exact, every
-    buffer); then a Basic cluster's resident block after a delta refresh
-    (1024 pods bound onto distinct nodes: the scatter path) against a full
-    upload of the same NodeTensors. Returns the timing entry: the kernel,
-    the plain version and six ``index_copy_`` calls on the in-range rows
-    (the library yardstick), and the bytes of the bound: the index read
-    once, the in-range slots' update rows read once and their block rows
-    written once (a pad slot's row is never read)."""
+    """Phase 3's B5 checks, each exact against ``scatter_node_rows_plain``
+    (every buffer): ``scatter_rows`` through a block's launch plan on a
+    seeded resident block, the delta packed as the cycle packs it; a plan
+    of a replaced block raises and writes
+    nothing; then a Basic cluster's resident block after the cycle's delta
+    refresh (1024 pods bound onto distinct nodes) against a full upload of
+    the same NodeTensors. Returns the timing entry: the block's
+    ``scatter`` of that delta (the cycle's call), the plain version and six
+    ``index_copy_`` calls on the in-range rows (the library yardstick) on
+    the same delta, and the bytes of the bound: the index read once, the
+    in-range slots' update rows read once and their block rows written
+    once (a pad slot's row is never read)."""
     import torch
 
     from kubetpu_torch import kernels
@@ -1058,27 +1137,20 @@ def scatter_checks(results) -> dict:
 
     nodes, idx, updates = scatter_block()
     got, want = _clone_nodes(nodes), _clone_nodes(nodes)
-    kernels.scatter_rows(got, idx, updates)
+    kernels.ScatterLaunch(got).scatter(_packed(idx, updates))
     rt.scatter_node_rows_plain(want, idx, updates)
     torch.cuda.synchronize()
     err = _nodes_err(got, want)
     if err or not torch.equal(got.node_valid, want.node_valid):
         raise AssertionError(f"scatter_rows differs from the plain version (max abs err {err})")
     results["scatter_rows"]["cases"].append("seeded block 1024 slots x 5120 rows")
-    log("kernels vs plain [scatter_rows 1024 slots into 5120x3]: exact")
+    log("kernels vs plain [scatter_rows 1024 slots into 5120x3, packed as the cycle packs "
+        "a delta]: exact")
 
     # a delta refresh against a full upload, through the cycle's own path
     cache, pending = basic_case()
-    resident = rt.ResidentNodeState("cuda")
-    snap = cache.update_snapshot()
-    first = rt.encode_batch(snap, pending, C.Profile(), resident=resident, device="cuda")
-    nodes_names = first.node_names
-    for j, p in enumerate(pending):
-        cache.add_pod(p.with_node(nodes_names[(7 * j) % first.num_nodes]))
-    snap = cache.update_snapshot(snap)
     launches = kernels.launch_counts["scatter_rows"]
-    second = rt.encode_batch(snap, pending, C.Profile(), prev_nt=first.node_tensors,
-                             resident=resident, device="cuda")
+    resident, shipped, first, second = basic_delta(cache, pending)
     full = rt.encode_batch(cache.update_snapshot(), pending, C.Profile(), device="cuda")
     torch.cuda.synchronize()
     if kernels.launch_counts["scatter_rows"] != launches + 1:
@@ -1092,23 +1164,43 @@ def scatter_checks(results) -> dict:
     log(f"resident block after a delta refresh ({second.node_upload_bytes} bytes against "
         f"a {second.resident_bytes}-byte block) equals a full upload: exact")
 
-    in_range = (idx >= 0) & (idx < nodes.alloc.shape[0])
-    rows = idx[in_range].long()
-    kept = tuple(u[in_range] for u in updates)
+    # a plan outlived by its block: the next full upload replaces the block
+    stale = resident.plans[0]
+    old = resident.device
+    before = _clone_nodes(old)
+    resident._full_upload(second.node_tensors, second.num_nodes)
+    try:
+        stale.scatter(shipped)
+    except rt.StalePlan:
+        pass
+    else:
+        raise AssertionError("a replaced block's scatter plan did not raise")
+    torch.cuda.synchronize()
+    if _nodes_err(old, before) or not torch.equal(old.node_valid, before.node_valid):
+        raise AssertionError("a replaced block's scatter plan wrote into the block")
+    results["scatter_rows"]["cases"].append("a replaced block's plan raises, no write")
+    log("scatter_rows: a replaced block's plan raises and writes nothing")
+
+    didx = shipped[rt.DELTA_FIELDS[0]]
+    ups = tuple(shipped[n] for n in rt.DELTA_FIELDS[1:])
+    block = resident.device
+    in_range = (didx >= 0) & (didx < block.alloc.shape[0])
+    rows = didx[in_range].long()
+    kept = tuple(u[in_range] for u in ups)
 
     def library():
         for name, u in zip(rt.NODE_FIELDS, kept):
-            getattr(nodes, name).index_copy_(0, rows, u)
+            getattr(block, name).index_copy_(0, rows, u)
 
-    M, R = idx.shape[0], nodes.alloc.shape[1]
+    M, R = didx.shape[0], block.alloc.shape[1]
     row_bytes = 3 * 8 * R + 4 + 4 + 1
     n_in = int(in_range.sum().item())
     bytes_moved = 4 * M + 2 * n_in * row_bytes
     return {
-        "ms": cuda_ms(lambda: kernels.scatter_rows(nodes, idx, updates), 50),
-        "plain_ms": cuda_ms(lambda: rt.scatter_node_rows_plain(nodes, idx, updates), 20),
+        "ms": cuda_ms(lambda: resident.scatter(shipped), 50),
+        "plain_ms": cuda_ms(lambda: rt.scatter_node_rows_plain(block, didx, ups), 20),
         "library_ms": cuda_ms(library, 50),
-        "bytes": bytes_moved, "ops": 0, "shape": [M, nodes.alloc.shape[0]],
+        "bytes": bytes_moved, "ops": 0, "shape": [M, block.alloc.shape[0]],
     }
 
 
@@ -1420,7 +1512,8 @@ def _explain_equal(name, b, params, idx, results) -> dict:
     facts = {
         "pods": n_pods,
         "no_feasible": int((feas == 0).sum().item()),
-        "one_or_two_feasible": int(((feas > 0) & (feas < 3)).sum().item()),
+        "one_feasible": int((feas == 1).sum().item()),
+        "two_feasible": int((feas == 2).sum().item()),
         "unassigned": int((idx[:n_pods] < 0).sum().item()),
         "components": [c is not None for c in km],
     }
@@ -1432,10 +1525,13 @@ def _explain_equal(name, b, params, idx, results) -> dict:
 def explain_checks(results, batches) -> dict:
     """Phase 3's B10 checks on each (name, batch, params, assignments):
     exact; the batches must hold unassigned pods (the saturated one) and
-    rows with no feasible node and with one or two (the extender
+    rows with no feasible node, with one and with two (the extender
     batches), the top-3 edge cases. Returns the Basic batch's timings:
-    both wrappers (explain_summary includes its filter_score launch),
-    their plain versions, and their bounds."""
+    both wrappers, their plain versions, and their bounds; and
+    ``explain_summary`` on the same batch with every pod a class of its
+    own (``singletons_ms``, the webhook paths' shape)."""
+    import dataclasses
+
     from kubetpu_torch import kernels
     from kubetpu_torch.framework import runtime as rt
     from kubetpu_torch.sched.flightrecorder import (
@@ -1443,7 +1539,7 @@ def explain_checks(results, batches) -> dict:
         filter_component_masks_plain,
     )
 
-    seen = {"no_feasible": 0, "one_or_two_feasible": 0, "unassigned": 0}
+    seen = {"no_feasible": 0, "one_feasible": 0, "two_feasible": 0, "unassigned": 0}
     for name, b, params, idx in batches:
         facts = _explain_equal(name, b, params, idx, results)
         for k in seen:
@@ -1455,13 +1551,15 @@ def explain_checks(results, batches) -> dict:
     n_comp = sum(c is not None for c in kernels.filter_component_masks(b, params))
     # explain_summary(b, params, idx): reads the batch and the assignments
     # once, writes 40 bytes a pod (feasible, five counts, top 3, win);
-    # its float64 work is the total's
+    # its float64 work is the total's, on one pod a class (scored_pods)
+    singles = dataclasses.replace(b)
     summary = {
         "ms": cuda_ms(lambda: kernels.explain_summary(b, params, idx), 20),
         "plain_ms": cuda_ms(lambda: explain_summary_plain(b, params, idx), 5),
         "bytes": rt.batch_nbytes(b) + P * 4 + P * (4 + 5 * 4 + 3 * (8 + 4) + 8),
         "ops": scored_pods(b) * N * f64_ops_per_pair(params, b), "shape": [P, N],
-        "filter_score_ms": cuda_ms(lambda: kernels.filter_score(b, params), 20),
+        "classes": scored_pods(b),
+        "singletons_ms": cuda_ms(lambda: kernels.explain_summary(singles, params, idx), 20),
     }
     masks = {
         "ms": cuda_ms(lambda: kernels.filter_component_masks(b, params), 20),
@@ -2441,7 +2539,6 @@ def kernels_phase():
 
     from kubetpu_torch import kernels
     from kubetpu_torch.assign.batched import batched_assign_plain
-    from kubetpu_torch.assign.greedy import greedy_assign_plain
     from kubetpu_torch.framework import config as C
     from kubetpu_torch.framework import runtime as rt
 
@@ -2478,7 +2575,8 @@ def kernels_phase():
     # the SchedulingPodAffinity cycle: the batched main path's shapes
     cache_p, pending_p = podaffinity_case()
     bp, pp = encode(cache_p, pending_p, C.Profile())
-    check_case("SchedulingPodAffinity 1024x5120", bp, pp, results)
+    # its greedy engine is held at 512 x 2048 on the affinity clusters
+    check_case("SchedulingPodAffinity 1024x5120", bp, pp, results, plain_greedy=False)
     # the spread batches, and the TopologySpreading / Preferred cycles
     spread = spread_checks(results)
     explain_batches.append(("spread/spread", *spread["spread/spread"]))
@@ -2510,7 +2608,7 @@ def kernels_phase():
         },
         "greedy_scan": {
             "ms": cuda_ms(lambda: kernels.greedy_scan(b, params), 10),
-            "plain_ms": cuda_ms(lambda: greedy_assign_plain(b, params), 1),
+            "plain_ms": results["greedy_scan"]["plain_ms_of"]["SchedulingBasic 1024x5120"],
             "bytes": in_bytes + P * 4 + state_bytes,
             "ops": (scored_pods(b) * N + rescored) * f64_ops_per_pair(params, b),
             "shape": [P, N],
@@ -2530,7 +2628,8 @@ def kernels_phase():
     timing["filter_score"]["spread_soft"] = _spread_timing(
         "PreferredTopologySpreading", *spread["PreferredTopologySpreading"], "filter_score")
     timing["greedy_scan"]["spread"] = _spread_timing(
-        "PreferredTopologySpreading", *spread["PreferredTopologySpreading"], "greedy_scan")
+        "PreferredTopologySpreading", *spread["PreferredTopologySpreading"], "greedy_scan",
+        results)
     timing["batched_round"]["spread"] = _spread_timing(
         "TopologySpreading", *spread["TopologySpreading"], "batched_round")
     stamp("phase 3: timings of the three pair kernels")
@@ -2552,11 +2651,14 @@ def kernels_phase():
     stamp("phase 3: gang checks")
     timing.update(packing_checks(results))
     stamp("phase 3: packing checks")
+    # K1 against the sharded plain engine (12 s a batch) on spread/spread
+    # only; on every batch against the unsharded kernel, which is held to
+    # the plain engine on each of them above (--mesh runs the three)
     mesh_batch_list = [
         ("SchedulingBasic 1024x5120", b, params, False),
         ("SchedulingBasic with a DRA leaf", dra_leaf(b), params, False),
-        ("mixed/least", *mixed_least, True),
-        ("affinity/default", ba_default, pa_default, True),
+        ("mixed/least", *mixed_least, False),
+        ("affinity/default", ba_default, pa_default, False),
         ("SchedulingPodAffinity 1024x5120", bp, pp, False),
         ("spread/default", *spread["spread/default"][:2], False),
         ("spread/spread", *spread["spread/spread"][:2], True),
@@ -2613,9 +2715,9 @@ def kernels_phase():
         }
         for k in ("podaffinity_ms", "podaffinity_plain_ms", "rounds", "spread",
                   "spread_soft", "nominated", "potential", "k128", "extender",
-                  "filter_score_ms", "gang_dry_run", "iterations", "basic_ms",
-                  "basic_plain_ms", "basic_iterations", "node_pass", "plain_placements",
-                  "dra"):
+                  "filter_score_ms", "classes", "singletons_ms", "gang_dry_run", "iterations",
+                  "basic_ms", "basic_plain_ms", "basic_iterations", "node_pass",
+                  "plain_placements", "dra"):
             if k in tm:
                 line[k] = tm[k]
         out.append(line)
@@ -2636,8 +2738,8 @@ def kernels_phase():
     log(f"timing [filter_score potential mode] on the {pm['batch']} view: kernel "
         f"{pm['ms']:.4f} ms, plain {pm['plain_ms']:.4f} ms")
     es = timing["explain_summary"]
-    log(f"timing [explain_summary] on the SchedulingBasic batch: its filter_score launch "
-        f"alone {es['filter_score_ms']:.4f} ms of the wrapper's {es['ms']:.4f} ms")
+    log(f"timing [explain_summary] on the SchedulingBasic batch: {es['classes']} pod "
+        f"classes {es['ms']:.4f} ms, a class a pod {es['singletons_ms']:.4f} ms")
     hs = timing["hypothesis_scan"]
     log(f"timing [hypothesis_scan] placement on the SchedulingBasic batch, D="
         f"{hs['shape'][2]}: its filter_score launch alone {hs['filter_score_ms']:.4f} ms of "
@@ -2735,7 +2837,8 @@ def released_elsewhere(b, assignments) -> int:
 def scan_checks(results, basic, mesh, grid) -> None:
     """The cases aimed at the scan loop's design (``scan_loop.cuh``), each
     exact against the plain engine (``check_case`` without the batched
-    rounds): two templates interleaved pod by pod (the staged inputs and
+    rounds; the nominated cycle's greedy engine is held in
+    ``preemption_checks``): two templates interleaved pod by pod (the staged inputs and
     the kept verdicts change every step; also K1 on the node mesh and K7
     on the 2 x 2 grid, two pod rows carrying the touched flags, against
     the unsharded kernel); the placements of ``--time-dra``'s batch G
@@ -2767,11 +2870,14 @@ def scan_checks(results, basic, mesh, grid) -> None:
     if owners < 64:
         raise AssertionError(f"batch G's picks fall on {owners} threads' nodes only")
     log(f"kernels vs plain [scattered picks]: on the nodes of {owners} threads")
+    # preemption_checks holds this batch (preemption_case's defaults) to the
+    # plain engine; here the kernel's picks show that it releases
+    # nominations on other threads' nodes
     cache, pending, nom = preemption_case()
     batch, prm = encode_batch_full(cache, pending, C.Profile(), nom.entries())
     bn = batch.device
     kn = check_case("nominations released elsewhere 1024x5120", bn, prm, results,
-                    batched=False)
+                    batched=False, plain_greedy=False)
     moved = released_elsewhere(bn, kn)
     if moved < 1:
         raise AssertionError("no nomination was released on another thread's node")
@@ -4116,6 +4222,7 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
     from kubetpu_torch.assign import placement
     from kubetpu_torch.perf import run_workload
 
+    label = getattr(workload, "name", workload)
     captured: dict = {}
     real_placement = placement.placement_assign_device
 
@@ -4136,11 +4243,16 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
             if plain is None:
                 return out
 
+            kept: list = []
+
             def keep():
                 # the node block is resident and later scatters write into
-                # it: keep this cycle's copy for the plain engine
-                return (dataclasses.replace(b, nodes=_clone_nodes(b.nodes)),
-                        params, out[0].clone())
+                # it: keep this cycle's copy for the plain engine (one copy
+                # a cycle, however many keys it is the first of)
+                if not kept:
+                    kept.append((dataclasses.replace(b, nodes=_clone_nodes(b.nodes)),
+                                 params, out[0].clone()))
+                return kept[0]
 
             if "first" not in captured:
                 captured["first"] = keep()
@@ -4178,14 +4290,16 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
     sched = captured["sched"]
     if (expected is not None and res.bound_total != expected) \
             or res.scheduled != res.measure_pods:
-        raise AssertionError(f"{case}/{workload}: bound {res.bound_total} of {expected} "
+        raise AssertionError(f"{case}/{label}: bound {res.bound_total} of {expected} "
                              f"pods, {res.scheduled} of {res.measure_pods} measured")
     _check_capacity(sched)
     # the run's first cycle, and its first cycles with a spread leaf and
     # with nominations
+    checked: list = []
     for key in ("first", "first_spread", "first_nominated"):
-        if key not in captured:
+        if key not in captured or any(captured[key] is c for c in checked):
             continue
+        checked.append(captured[key])
         b, params, first = captured[key]
         want, _ = plain(b, params)
         torch.cuda.synchronize()
@@ -4200,7 +4314,7 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
         k = min(PLAIN_PLACEMENTS, masks.shape[0])
         _equal_or_raise(f"{case} first placement search", tuple(x[:k] for x in got),
                         placement.placement_assign_plain(b, params, masks[:k], eng))
-        log(f"[{case}/{workload}] first placement search (D={masks.shape[0]}, "
+        log(f"[{case}/{label}] first placement search (D={masks.shape[0]}, "
             f"P={b.requests.shape[0]}): its first {k} placements equal to "
             "placement_assign_plain")
     for i, (b, params, got, state) in enumerate(captured.get("cycles", ())):
@@ -4212,7 +4326,7 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
             "engine: assignments and final state")
     for name in kernel_names:
         if launches[name] < 1:
-            raise AssertionError(f"{case}/{workload}: main path never launched {name}")
+            raise AssertionError(f"{case}/{label}: main path never launched {name}")
     rounds = [c.rounds for c in sched.metrics.cycle_timings]
     extra = check(sched) if check is not None else {}
     if flight_recorder and sched.mesh is not None:
@@ -4223,7 +4337,7 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
         raise AssertionError(f"{case}: the recorder is off but explain_summary launched")
     line = {
         "main_path": {
-            "workload": f"{case}/{workload}", "engine": engine,
+            "workload": f"{case}/{label}", "engine": engine,
             "pipeline": pipeline, "pipeline_replays": res.pipeline_replays,
             "pods_bound": res.bound_total, "pods_per_s": res.throughput,
             "measured_pods": res.scheduled, "measured_s": res.duration_s,
@@ -4262,7 +4376,7 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
     log(json.dumps(line))
     if res.group_cycles:
         gm = res.group_cycle_ms
-        log(f"[{case}/{workload}] {res.group_cycles} group cycles, "
+        log(f"[{case}/{label}] {res.group_cycles} group cycles, "
             f"{res.hypotheses_per_cycle:.1f} placements a cycle: {gm['total']:.3f} ms a "
             f"cycle, of which encode {gm['encode']:.3f} ms and the device call "
             f"{gm['device']:.3f} ms (placement search: "
@@ -4290,7 +4404,7 @@ def run_path(card, case, workload, engine, expected, plain, kernel_names,
             f"{pm['upload']:.3f}, potential mask {pm['potential']:.3f}, dry run "
             f"{pm['dry_run']:.3f}, fetch {pm['fetch']:.3f} ms")
     if engine == "packing":
-        log(f"[{case}/{workload} packing] {res.solver_iters_per_cycle:.2f} solver iterations "
+        log(f"[{case}/{label} packing] {res.solver_iters_per_cycle:.2f} solver iterations "
             f"a cycle, {res.nodes_used_at_steady_state} nodes carry the measured pods")
     return launches, dict(sched.client.bound), res.throughput, res
 
@@ -4434,9 +4548,18 @@ def webhook_queue_mode(seconds: float = 20.0) -> int:
     return 0
 
 
+def _webhook_workload():
+    from kubetpu_torch.perf import workloads as W
+
+    # SchedulingBasic/500Nodes with 400 measured pods, not 1000: each pod
+    # waits on the webhook's two calls (about 14 s a cycle on an H100 host)
+    return W.Workload("500Nodes_400Pods", {"initNodes": 500, "initPods": 500,
+                                           "measurePods": 400})
+
+
 def extender_paths(card, device="cuda") -> dict:
-    """SchedulingBasic/500Nodes on the greedy and on the batched engine,
-    each behind a ``ScriptedWebhook`` (filter and prioritize, weight 5,
+    """SchedulingBasic/500Nodes (400 measured pods) on the greedy and on
+    the batched engine, each behind a ``ScriptedWebhook`` (filter and prioritize, weight 5,
     NodeCacheCapable): every pod bound, none on a node the webhook rejected
     for it, capacity held (``run_path``), and the first cycle's kernel
     assignments equal to the plain engine's on the same batch with the
@@ -4445,6 +4568,7 @@ def extender_paths(card, device="cuda") -> dict:
     from kubetpu_torch.assign.greedy import greedy_assign_plain
     from kubetpu_torch.framework import config as C
 
+    webhook_workload = _webhook_workload()
     runs = {}
     for engine, plain, kern in (
             ("greedy", greedy_assign_plain, "greedy_scan"),
@@ -4468,8 +4592,10 @@ def extender_paths(card, device="cuda") -> dict:
 
             try:
                 runs[f"extender {engine}"] = run_path(
-                    card, "SchedulingBasic", "500Nodes", engine, 500 + 1000, plain,
-                    ("filter_score", kern, "explain_summary"), check=no_rejected_node,
+                    card, "SchedulingBasic", webhook_workload, engine, 500 + 400, plain,
+                    # the batched solve runs its Filter + Score inside its launch
+                    ("filter_score",) * (engine == "greedy") + (kern, "explain_summary"),
+                    check=no_rejected_node,
                     extenders=(cfg,))
             except AssertionError as e:
                 # a pod whose webhook call failed is unschedulable until the
@@ -4906,7 +5032,7 @@ def packing_paths(card) -> dict:
     for engine, plain, names in (
             ("greedy", greedy_assign_plain, ("filter_score", "greedy_scan", "explain_summary")),
             ("batched", batched_assign_plain,
-             ("filter_score", "batched_round", "explain_summary")),
+             ("batched_round", "explain_summary")),
             ("packing", plain_packing, PACKING)):
         run = run_path(card, "BinPacking", "1000Nodes_3000Pods", engine, 200 + 3000, plain,
                        names)
@@ -5153,20 +5279,26 @@ def dra_paths(card) -> list:
     launch counts."""
     from kubetpu_torch.assign.batched import batched_assign_plain
     from kubetpu_torch.assign.greedy import greedy_assign_plain
+    from kubetpu_torch.perf import workloads as W
 
     greedy = ("filter_score", "greedy_scan", "explain_summary")
-    batched = ("filter_score", "batched_round", "explain_summary")
+    batched = ("batched_round", "explain_summary")
     runs = [
         run_path(card, case, "5000Nodes_2000Pods", "greedy", 1000 + 2000,
                  greedy_assign_plain, greedy + ("scatter_rows",), check=pv_check)
         for case in ("SchedulingInTreePVs", "SchedulingCSIPVs")
     ]
     # 500 nodes: every cycle dirties more than half of them, so the node
-    # block ships whole (no scatter_rows)
-    for engine, plain, names in (("greedy", greedy_assign_plain, greedy),
-                                 ("batched", batched_assign_plain, batched)):
-        runs.append(run_path(card, "SchedulingWithResourceClaimTemplate", "5000pods_500nodes",
-                             engine, 2500 + 2500, plain, names, check=claim_check(10)))
+    # block ships whole (no scatter_rows). The batched engine's run is cut
+    # to 1000 pods (its binds take about 2.6 s a cycle)
+    cut = W.Workload("1000pods_500nodes", {"nodesWithDRA": 500, "nodesWithoutDRA": 0,
+                                           "initPods": 500, "measurePods": 500,
+                                           "maxClaimsPerNode": 10})
+    for engine, plain, names, workload, expected in (
+            ("greedy", greedy_assign_plain, greedy, "5000pods_500nodes", 2500 + 2500),
+            ("batched", batched_assign_plain, batched, cut, 500 + 500)):
+        runs.append(run_path(card, "SchedulingWithResourceClaimTemplate", workload,
+                             engine, expected, plain, names, check=claim_check(10)))
     return [run[0] for run in runs] + [prioritized_phase(card, cfg) for cfg in (
         PRIORITIZED, PRIORITIZED_CONTENTION)]
 
@@ -5184,7 +5316,7 @@ def main_path_phase(card: str) -> dict:
     # their node uploads go through scatter_rows. 500 nodes take the full
     # upload every cycle.
     greedy = ("filter_score", "greedy_scan", "scatter_rows", "explain_summary")
-    batched = ("filter_score", "batched_round", "scatter_rows", "explain_summary")
+    batched = ("batched_round", "scatter_rows", "explain_summary")
     runs = {
         "basic": run_path(card, "SchedulingBasic", "5000Nodes_10000Pods", "greedy",
                           1000 + 10000, greedy_assign_plain, greedy, check=steady_deltas),
@@ -5206,9 +5338,13 @@ def main_path_phase(card: str) -> dict:
     }
     # the reference's FlightRecorderOverhead comparison: Basic again with
     # the recorder off (printed, not gated)
+    # (its decisions are the recorder-on run's: its bound map must equal
+    # that run's, and the plain engine is not run again)
     off = run_path(card, "SchedulingBasic", "5000Nodes_10000Pods", "greedy", 1000 + 10000,
-                   greedy_assign_plain, greedy[:3], check=steady_deltas,
-                   flight_recorder=False)
+                   None, greedy[:3], check=steady_deltas, flight_recorder=False)
+    if off[1] != runs["basic"][1]:
+        raise AssertionError("SchedulingBasic with the recorder off bound pods elsewhere than "
+                             "with it on")
     on_pps, off_pps = runs["basic"][2], off[2]
     log(json.dumps({"flight_recorder_overhead": {
         "workload": "SchedulingBasic/5000Nodes_10000Pods", "pods_per_s_on": on_pps,
@@ -5218,8 +5354,8 @@ def main_path_phase(card: str) -> dict:
     for key, case, expected in (("basic", "SchedulingBasic", 1000 + 10000),
                                 ("preferred", "PreferredTopologySpreading", 5000 + 5000)):
         workload = "5000Nodes_10000Pods" if key == "basic" else "5000Nodes_5000Pods"
-        run = run_path(card, case, workload, "greedy", expected, greedy_assign_plain,
-                       greedy, pipeline=True)
+        # held to the serial run pod for pod, which is held to the plain engine
+        run = run_path(card, case, workload, "greedy", expected, None, greedy, pipeline=True)
         bound, serial = run[1], runs[key][1]
         if bound != serial:
             moved = sum(1 for k, v in bound.items() if serial.get(k) != v)
@@ -5430,7 +5566,7 @@ def mesh_mode() -> int:
                           1000 + 10000, greedy_assign_plain, greedy, check=steady_deltas),
         "affinity": run_path(card, "SchedulingPodAffinity", "5000Nodes_5000Pods", "batched",
                              5000 + 5000, batched_assign_plain,
-                             ("filter_score", "batched_round", "scatter_rows",
+                             ("batched_round", "scatter_rows",
                               "explain_summary")),
         "preemption": run_path(card, "PreemptionAsync", "5000Nodes", "greedy", None,
                                greedy_assign_plain,
@@ -5496,6 +5632,10 @@ def time_checkout(mode: str, root: str) -> int:
         kernels.SOURCES = tuple(src for src in kernels.SOURCES if src in (
             "filter_score.cu", "greedy_scan.cu", "batched_round.cu", "packing_round.cu",
             "hypothesis_scan.cu"))
+    if mode == "recorder":
+        kernels.SOURCES = tuple(src for src in kernels.SOURCES if src in (
+            "filter_score.cu", "scatter_rows.cu", "dry_run_preemption.cu",
+            "explain_summary.cu", "filter_component_masks.cu"))
     kernels.build()
     log_build_report(kernels)
     line = {"root": root, "card": card}
@@ -5506,6 +5646,10 @@ def time_checkout(mode: str, root: str) -> int:
     if mode == "batched":
         time_batched(line)
         log(json.dumps({"time_batched": line}))
+        return 0
+    if mode == "recorder":
+        time_recorder(line)
+        log(json.dumps({"time_recorder": line}))
         return 0
     if mode == "b3":
         time_b3(line)
@@ -5815,6 +5959,87 @@ def time_batched(line: dict) -> None:
         entry(prefix, lambda sb=sb: batched_assign_device(sb, params), 5, rounds[0])
 
 
+def kernel_split_us(fn, reps: int) -> dict | None:
+    """Device µs a call of ``fn`` spends in each CUDA kernel it launches
+    (by the kernel's name, its template arguments cut off), from
+    ``torch.profiler`` over ``reps`` calls after a warm-up; None when the
+    trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError as err:
+        log(f"kernel_split_us: torch.profiler failed ({err})")
+        return None
+    out: dict = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total:
+            key = ev.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = key.split("(")[0].split("<")[0].split("::")[-1].strip()[:48]
+            out[name] = out.get(name, 0.0) + ev.self_device_time_total / reps
+    return out or None
+
+
+def time_recorder(line: dict) -> None:
+    """``--time-recorder``'s entries of ``line``, for the imported checkout:
+    B10 (``kernels.explain_summary``) on the SchedulingBasic batch (1024 x
+    5120, one pod class) with the plain greedy engine's assignments, and
+    ``filter_score`` alone on the batch (a checkout whose explain starts
+    with a ``filter_score`` launch spends this in it); B10 on the same
+    batch with every pod a class of its own (C = P, as on the webhook
+    paths); B5 as the cycle calls it, ``ResidentNodeState.scatter`` of a
+    1024-slot Basic delta (1024 rows, pads included, shipped in the
+    cycle's packed upload); ``filter_component_masks`` on the Basic batch
+    and on a 4-pod Basic batch (the bridge's size); and B9
+    (``dry_run_preemption``) at 5120 x 8 (PreemptionAsync's K, its main
+    path launches) and 5120 x 128. Each: CUDA-event median ms a call and
+    the card's busy ms a call (``torch.profiler``, every kernel and copy);
+    the explain's busy µs split by kernel."""
+    import dataclasses
+
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.assign.greedy import greedy_assign_plain
+    from kubetpu_torch.framework import config as C
+
+    def entry(prefix, fn, reps):
+        line[prefix + "ms"] = cuda_ms(fn, reps)
+        line[prefix + "device_ms"] = kernel_device_ms(fn, ("",), 5)
+
+    cache, pending = basic_case()
+    b, params = encode(cache, pending, C.Profile())
+    idx = greedy_assign_plain(b, params)[0].to(torch.int32)
+    torch.cuda.synchronize()
+    entry("b10_basic_", lambda: kernels.explain_summary(b, params, idx), 50)
+    line["b10_basic_split_us"] = kernel_split_us(
+        lambda: kernels.explain_summary(b, params, idx), 5)
+    entry("b3_basic_", lambda: kernels.filter_score(b, params), 50)
+    # a class a pod: a replaced batch carries no pod classes
+    singles = dataclasses.replace(b)
+    entry("b10_singletons_", lambda: kernels.explain_summary(singles, params, idx), 20)
+    line["b10_singletons_split_us"] = kernel_split_us(
+        lambda: kernels.explain_summary(singles, params, idx), 3)
+
+    # a Basic delta through the cycle's own refresh, captured at its scatter
+    resident, shipped, _, _ = basic_delta(cache, pending)
+    line["b5_slots"] = int(shipped["delta.idx"].shape[0])
+    entry("b5_delta_", lambda: resident.scatter(shipped), 200)
+
+    entry("fcm_basic_", lambda: kernels.filter_component_masks(b, params), 50)
+    small, small_params = encode(*basic_case(n_pending=4), C.Profile())
+    entry("fcm_4pods_", lambda: kernels.filter_component_masks(small, small_params), 50)
+    for K in (8, 128):
+        args = victim_tensors(11, 5120, K, 3)
+        entry(f"b9_k{K}_", lambda args=args: kernels.dry_run_preemption(*args), 20)
+
+
 # the parts of a batched solve (batched_round.cu's kSplit order)
 BATCHED_PARTS = ("start", "partials_0_2", "verdicts_3", "normalize_4", "best_5", "ties_6",
                  "rank_pick_7", "admissions_8", "commit_9", "end")
@@ -6042,7 +6267,8 @@ def time_dra() -> int:
 
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] in ("--time-basic", "--time-spread", "--time-mesh",
-                                              "--time-b3", "--time-batched"):
+                                              "--time-b3", "--time-batched",
+                                              "--time-recorder"):
         return time_checkout(sys.argv[1][len("--time-"):], sys.argv[2])
     if sys.argv[1:] == ["--time-dra"]:
         return time_dra()

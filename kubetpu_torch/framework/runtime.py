@@ -546,17 +546,40 @@ def scatter_node_rows_plain(
         getattr(nodes, name).index_copy_(0, rows, u[keep])
 
 
-def scatter_node_rows(
-    nodes: DeviceNodeState, idx: torch.Tensor, updates: Sequence[torch.Tensor]
-) -> None:
-    """Kernel B5 where the block lives: the hand-written ``scatter_rows``
-    kernel for a CUDA block, ``scatter_node_rows_plain`` for a CPU one."""
-    if nodes.alloc.device.type == "cpu":
-        scatter_node_rows_plain(nodes, idx, updates)
-        return
-    from ..kernels import scatter_rows
+class StalePlan(RuntimeError):
+    """A resident block's scatter plan used after the block it was built
+    for was replaced (a full upload)."""
 
-    scatter_rows(nodes, idx, updates)
+
+class ScatterPlan:
+    """Kernel B5's launch plan for one resident node block (one shard's
+    under a mesh), built when the block's buffers are allocated (a full
+    upload). For a block on the card it holds ``kernels.ScatterLaunch``:
+    the six buffers, N and R validated once, so that a delta call checks
+    only the shipped delta and launches once. ``scatter`` raises
+    ``StalePlan``, writing nothing, once the owner has uploaded a new
+    block; for a CPU block it runs ``scatter_node_rows_plain``."""
+
+    def __init__(self, owner: "ResidentNodeState", nodes: DeviceNodeState) -> None:
+        self.owner, self.nodes = owner, nodes
+        self.epoch = owner.epoch
+        self.launch = None
+        if nodes.alloc.device.type == "cuda":
+            from ..kernels import ScatterLaunch
+
+            self.launch = ScatterLaunch(nodes)
+
+    def scatter(self, tensors: Mapping[str, torch.Tensor]) -> None:
+        """Write a shipped delta (``DELTA_FIELDS`` views on the block's
+        device, packed by ``upload_packed``) into the block in place."""
+        if self.epoch != self.owner.epoch:
+            raise StalePlan(f"scatter plan of upload {self.epoch}: the block was replaced by "
+                            f"upload {self.owner.epoch}")
+        if self.launch is None:
+            scatter_node_rows_plain(self.nodes, tensors[DELTA_FIELDS[0]],
+                                    tuple(tensors[n] for n in DELTA_FIELDS[1:]))
+        else:
+            self.launch.scatter(tensors)
 
 
 class _ShardBlock:
@@ -571,14 +594,7 @@ class _ShardBlock:
         return self.owner.shards[self.g]
 
     def scatter(self, tensors: Mapping[str, torch.Tensor]) -> None:
-        _scatter_delta(self.device, tensors)
-
-
-def _scatter_delta(nodes: DeviceNodeState, tensors: Mapping[str, torch.Tensor]) -> None:
-    """Write a shipped delta (``DELTA_FIELDS`` views on the block's device)
-    into ``nodes`` in place: kernel B5."""
-    scatter_node_rows(
-        nodes, tensors[DELTA_FIELDS[0]], tuple(tensors[n] for n in DELTA_FIELDS[1:]))
+        self.owner.plans[self.g].scatter(tensors)
 
 
 class ResidentNodeState:
@@ -629,6 +645,10 @@ class ResidentNodeState:
         self.shards: list[DeviceNodeState] | None = None
         self._nt_token: object | None = None
         self._num_nodes = -1
+        # full uploads so far, and the scatter plan of each shard's block
+        # (one without a mesh), built by each
+        self.epoch = 0
+        self.plans: list[ScatterPlan] = []
         self.last_upload_bytes = 0
         size = 1 if mesh is None else mesh.size
         self.last_upload_bytes_per_shard: list[int] = [0] * size
@@ -676,6 +696,9 @@ class ResidentNodeState:
             self.last_upload_bytes_per_shard = [_node_block_nbytes(b) for b in self.shards]
             self.last_upload_bytes = sum(self.last_upload_bytes_per_shard)
             self.last_rows_per_shard = [per] * self.mesh.size
+        self.epoch += 1
+        self.plans = [ScatterPlan(self, b) for b in (
+            [self.device] if self.mesh is None else self.shards)]
         self._nt_token = nt
         self._num_nodes = num_nodes
         nt.pending_device_rows = set()   # start delta accumulation
@@ -844,8 +867,9 @@ class ResidentNodeState:
 
     def scatter(self, tensors: Mapping[str, torch.Tensor]) -> None:
         """Write a shipped delta (``DELTA_FIELDS`` views on the block's
-        device) into the block in place: kernel B5."""
-        _scatter_delta(self.device, tensors)
+        device) into the block in place: kernel B5, through the block's
+        plan."""
+        self.plans[0].scatter(tensors)
 
 
 class PackingSolverState:

@@ -7,9 +7,12 @@ dry run; it shares ``csrc/scan_loop.cuh`` with ``greedy_scan.cu``; its
 library also holds the batched engine's ``hypothesis_rows`` and
 ``slice_epilogue`` kernels for the same two searches) (all built on
 ``csrc/score_common.cuh``),
-``csrc/scatter_rows.cu`` (the resident node block's dirty-row scatter),
+``csrc/scatter_rows.cu`` (the resident node block's dirty-row scatter,
+driven by a launch plan the block keeps: ``ScatterLaunch``),
 ``csrc/dry_run_preemption.cu`` (the preemption victim search), and the
-flight recorder's ``csrc/explain_summary.cu`` and
+flight recorder's ``csrc/explain_summary.cu`` (``filter_score``'s passes
+on the batch's pod classes, then one pass over (class, node tile) blocks)
+and
 ``csrc/filter_component_masks.cu`` (also the extender bridge's per-plugin
 masks), and the packing engine's ``csrc/packing_round.cu`` and the
 batched engine's ``csrc/batched_round.cu`` (each engine's whole solve in
@@ -46,7 +49,7 @@ anything else, allocates its outputs with ``torch.empty``, launches on the
 current CUDA stream, raises if the launch was refused, and adds one to its
 entry of ``launch_counts``. No wrapper falls back to the plain version: the
 callers (``framework.runtime.filter_score_batch``,
-``framework.runtime.scatter_node_rows``,
+``framework.runtime.ScatterPlan``,
 ``assign.greedy.greedy_assign_device``,
 ``assign.batched.batched_assign_device``,
 ``assign.placement.placement_assign_device``,
@@ -117,9 +120,11 @@ _ARGTYPES = {
     + [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p],
     "greedy_scan": [ctypes.c_void_p] * 13 + [ctypes.c_int64, ctypes.c_void_p],
     "batched_round": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p],
-    "scatter_rows": [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 14,
+    "scatter_rows": [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p],
     "dry_run_preemption": [ctypes.c_void_p] * 2,
-    "explain_summary": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6,
+    "explain_summary": [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p]
+    + [ctypes.c_int] * 2 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
+    + [ctypes.c_void_p] * 6,
     "filter_component_masks": [ctypes.c_void_p] * 7,
     "hypothesis_scan": [ctypes.c_void_p] * 17 + [ctypes.c_int64] + [ctypes.c_void_p] * 3
     + [ctypes.c_int64] * 2 + [ctypes.c_void_p],
@@ -405,6 +410,13 @@ class BatchSet(ctypes.Structure):
     _fields_ = [("t", BatchTile * 8)] + _SET_FIELDS
 
 
+class ScatterPlanArgs(ctypes.Structure):
+    """Mirror of ``struct ScatterPlan`` in csrc/scatter_rows.cu."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "alloc", "req", "nz", "pc", "al", "vd")] + [("N", ctypes.c_int64), ("R", ctypes.c_int64)]
+
+
 class PickShard(ctypes.Structure):
     """Mirror of ``struct PickShard`` in csrc/dry_run_preemption.cu."""
 
@@ -422,6 +434,7 @@ _STRUCT_SIZES = {
     "batched_round": (("kt_batched_round_combine_size", CombineArgs),
                       ("kt_batched_round_set_size", BatchSet)),
     "packing_round": (("kt_packing_round_set_size", SolveSet),),
+    "scatter_rows": (("kt_scatter_rows_plan_size", ScatterPlanArgs),),
 }
 
 # dynamic shared memory a spread-scoring block takes at most: static and
@@ -734,6 +747,25 @@ def _raw_stream(index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
+def _batch_args(b: rt.DeviceBatch, p: rt.ScoreParams) -> ScoreArgs:
+    """The argument struct of ``b`` against its own node state, every
+    nomination charged, a spread bitmap row a pod (``_score_args``), packed
+    at its first use and then kept on the batch object with the tensors it
+    points to: the cycle's ``filter_score`` launch (the greedy engine's),
+    its flight-recorder explain and component masks share one struct. The
+    kernels that take it write only its scratch (the affinity row totals,
+    the spread sums, minMatch and bitmaps), which each launch recomputes
+    before it reads it; every launch is on one stream."""
+    cache = getattr(b, "_kernel_args", None)
+    if cache is None:
+        cache = {}
+        object.__setattr__(b, "_kernel_args", cache)
+    got = cache.get(p)
+    if got is None:
+        got = cache[p] = _score_args(b, p, "filter_score", bits_blocks=b.requests.shape[0])
+    return got[0]
+
+
 def _filter_score(b: rt.DeviceBatch, p: rt.ScoreParams, want_total: bool,
                   dynamic: bool = True, nom_active: torch.Tensor | None = None):
     """Launch ``filter_score``: ``(mask, base, total)``, ``base`` None and
@@ -741,10 +773,14 @@ def _filter_score(b: rt.DeviceBatch, p: rt.ScoreParams, want_total: bool,
     pass runs too), else ``total`` None. Without ``dynamic`` the mask
     leaves out the InterPodAffinity and PodTopologySpread filters (the ones
     that move with each assignment). ``nom_active``: the live nominations
-    (all when None). The batch's pod classes (``runtime.pod_classes``)
-    are scored once a class."""
-    a, keep = _score_args(b, p, "filter_score", bits_blocks=b.requests.shape[0],
-                          nom_active=nom_active)
+    (all when None: the batch's own struct, ``_batch_args``). The batch's
+    pod classes (``runtime.pod_classes``) are scored once a class."""
+    keep = None
+    if nom_active is None:
+        a = _batch_args(b, p)
+    else:
+        a, keep = _score_args(b, p, "filter_score", bits_blocks=b.requests.shape[0],
+                              nom_active=nom_active)
     out = _launch_filter_score(a, b.alloc.device, want_total, dynamic, _smem(b),
                                rt.pod_classes(b))
     del keep
@@ -887,8 +923,8 @@ def greedy_scan(b: rt.DeviceBatch, p: rt.ScoreParams):
         None if b.nominated_pod_idx is None
         else torch.ones((b.nominated_pod_idx.shape[0],), dtype=torch.bool, device=dev)
     )
-    mask0, base0, _ = _filter_score(b, p, want_total=False, dynamic=False,
-                                    nom_active=nom_active)
+    # every nomination charged, as the scan starts
+    mask0, base0, _ = _filter_score(b, p, want_total=False, dynamic=False)
     a, keep = _score_args(b, p, "greedy_scan", bits_blocks=1, nom_active=nom_active)
     lib = build()["greedy_scan"]
     assignments = torch.empty((a.P,), dtype=torch.int32, device=dev)
@@ -1160,36 +1196,81 @@ def batched_assign(b: rt.DeviceBatch, p: rt.ScoreParams, max_rounds: int = 0,
     return tile.assignments, _seven(tile.state, tile.nom_active)
 
 
-def scatter_rows(nodes: rt.DeviceNodeState, idx: torch.Tensor, updates) -> None:
-    """The ``scatter_rows`` kernel: write ``updates`` (six tensors in
-    ``runtime.NODE_FIELDS`` order, one row per entry of ``idx``) into rows
-    ``idx`` of the node block's six buffers, in place; entries of ``idx``
-    outside ``[0, N)`` are dropped. Equal to
-    ``runtime.scatter_node_rows_plain``."""
-    dev = nodes.alloc.device
-    if dev.type != "cuda":
-        raise ValueError(f"scatter_rows: the kernel takes CUDA tensors, block is on {dev}")
-    N, R = nodes.alloc.shape
-    M = idx.shape[0]
-    i64, i32, u8 = torch.int64, torch.int32, torch.bool
-    shapes = {
-        "alloc": (i64, (R,)), "requested": (i64, (R,)),
-        "nonzero_requested": (i64, (R,)), "pod_count": (i32, ()),
-        "allowed_pods": (i32, ()), "node_valid": (u8, ()),
-    }
-    if len(updates) != len(rt.NODE_FIELDS):
-        raise ValueError(f"scatter_rows: {len(updates)} update tensors, expected 6")
-    bufs, ups = [], []
-    for name, u in zip(rt.NODE_FIELDS, updates):
-        dtype, tail = shapes[name]
-        bufs.append(_check(name, getattr(nodes, name), dtype, (N,) + tail, dev))
-        ups.append(_check("update " + name, u, dtype, (M,) + tail, dev))
-    p_idx = _check("idx", idx, i32, (M,), dev)
-    lib = build()["scatter_rows"]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.kt_scatter_rows(M, N, R, p_idx, *ups, *bufs, stream)
-    _raise_on(lib, "scatter_rows", code)
-    launch_counts["scatter_rows"] += 1
+def _r16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+# each node field's dtype and whether its row holds R values
+_NODE_ROWS = {
+    "alloc": (torch.int64, True), "requested": (torch.int64, True),
+    "nonzero_requested": (torch.int64, True), "pod_count": (torch.int32, False),
+    "allowed_pods": (torch.int32, False), "node_valid": (torch.bool, False),
+}
+
+
+class ScatterLaunch:
+    """Kernel B5's launch plan for one node block (``runtime.ScatterPlan``
+    holds one for a block on the card): the block's six buffers, N and R,
+    validated once, as the ``ScatterPlan`` struct the kernel takes, with
+    the entry point and the block's card; and, for each delta size M, the
+    offsets of the six update rows from the index in ``upload_packed``'s
+    layout."""
+
+    def __init__(self, nodes: rt.DeviceNodeState) -> None:
+        dev = nodes.alloc.device
+        _require_cuda(dev, "scatter_rows")
+        N, R = nodes.alloc.shape
+        self.dev, self.R = dev, R
+        self.args = ScatterPlanArgs(*(
+            _check(name, getattr(nodes, name), dtype, (N, R) if wide else (N,), dev)
+            for name, (dtype, wide) in _NODE_ROWS.items()), N, R)
+        # the buffers the struct points to live as long as the plan
+        self.nodes = nodes
+        self.fn = build()["scatter_rows"].kt_scatter_rows
+        self.layouts: dict = {}
+
+    def layout(self, M: int):
+        """The six update rows' byte offsets from the index of an M-slot
+        delta packed by ``runtime.upload_packed`` in ``DELTA_FIELDS`` order
+        (each array from a 16-byte boundary), as the kernel's int64[6]."""
+        got = self.layouts.get(M)
+        if got is None:
+            sizes = [4 * M] + [
+                (8 * M * self.R if wide else M * dtype.itemsize)
+                for dtype, wide in _NODE_ROWS.values()]
+            offs, at = [], 0
+            for size in sizes[:-1]:
+                at += _r16(size)
+                offs.append(at)
+            got = self.layouts[M] = (ctypes.c_int64 * 6)(*offs)
+        return got
+
+    def scatter(self, tensors) -> None:
+        """The ``scatter_rows`` kernel on a shipped delta: ``tensors`` the
+        ``runtime.DELTA_FIELDS`` views of one ``upload_packed`` buffer on
+        the plan's card (the index, then the six update rows, each from a
+        16-byte boundary). Only the delta is checked: the index (int32,
+        (M,)), that the buffer holds every row the layout reads, and that
+        each update view starts where the layout puts it. One launch;
+        entries of the index outside ``[0, N)`` are dropped."""
+        idx = tensors[rt.DELTA_FIELDS[0]]
+        if idx.device != self.dev or idx.dtype != torch.int32 or idx.dim() != 1:
+            raise ValueError(f"scatter_rows: the delta's index is {idx.dtype} "
+                             f"{tuple(idx.shape)} on {idx.device}, the plan takes int32 (M,) "
+                             f"on {self.dev}")
+        M = idx.shape[0]
+        offsets = self.layout(M)
+        base = idx.data_ptr()
+        store = idx.untyped_storage()
+        if base + offsets[5] + M > store.data_ptr() + store.nbytes():
+            raise ValueError(f"scatter_rows: the delta's buffer ends before its "
+                             f"{rt.DELTA_FIELDS[-1]} row")
+        for name, off in zip(rt.DELTA_FIELDS[1:], offsets):
+            if tensors[name].data_ptr() != base + off:
+                raise ValueError(f"scatter_rows: {name} is not where the packed layout puts it")
+        code = self.fn(ctypes.byref(self.args), base, offsets, M, _raw_stream(self.dev.index))
+        _raise_on(_libs["scatter_rows"], "scatter_rows", code)
+        launch_counts["scatter_rows"] += 1
 
 
 def dry_run_preemption(pod_req, pod_prio, wants_conf, potential, alloc, requested,
@@ -1273,35 +1354,72 @@ def _component_flags(b: rt.DeviceBatch, p: rt.ScoreParams) -> list[bool]:
     ]
 
 
+# pass (e) of explain_summary.cu: threads a block (kTileThreads), and the
+# blocks a card's SM should hold over every class's tiles
+_EXPLAIN_THREADS = 128
+_EXPLAIN_BLOCKS_AN_SM = 16
+
+
+def explain_tile_width(C: int, N: int, sms: int) -> int:
+    """The nodes a tile of the explain's pass (e) takes over C classes of N
+    nodes on a card of ``sms`` SMs: tiles enough that the C classes' tiles
+    fill the card (``_EXPLAIN_BLOCKS_AN_SM`` blocks an SM), none narrower
+    than a block's threads."""
+    tiles = max(1, min(-(-N // _EXPLAIN_THREADS), -(-_EXPLAIN_BLOCKS_AN_SM * sms // C)))
+    return -(-N // tiles)
+
+
+def _explain_scratch(C: int, N: int, T: int) -> int:
+    """Bytes of ``kt_explain_summary``'s scratch: the (C, N) mask, the (C,
+    N) int64 base and total, C x T 64-byte partials, C tickets, each from
+    a 16-byte boundary (explain_summary.cu's layout)."""
+    return _r16(C * N) + _r16(8 * C * N) + _r16(64 * C * T) + _r16(4 * C)
+
+
 def explain_summary(b: rt.DeviceBatch, p: rt.ScoreParams, assignments: torch.Tensor):
     """The flight recorder's per-pod summary on the card (B10
-    ``_explain_kernel``): ``filter_score`` (want_total) on ``b``, then the
-    ``explain_summary`` kernel over its mask and total with the engine's
-    ``assignments`` (P,) int32. Returns ``(feasible (P,) int32, reject (five
-    (P,) int32 or None), top_vals (P, k) int64, top_idx (P, k) int32, win
-    (P,) int64)``, k = min(3, N), fresh tensors; equal to
-    ``sched.flightrecorder.explain_summary_plain(b, p, assignments)``."""
+    ``_explain_kernel``): one ``explain_summary`` call on the batch's pod
+    classes (``runtime.pod_classes``; a class a pod without them): the
+    pre-launches, the pair and normalize passes of ``filter_score`` on the
+    classes' representatives into (C, N) rows, then one pass over (class,
+    node tile) blocks that counts, ranks and merges, and writes every pod's
+    summary; ``assignments`` (P,) int32 the engine's. The argument struct
+    is the batch's own (``_batch_args``: packed by the cycle's
+    ``filter_score`` launch when the engine ran one). Returns ``(feasible
+    (P,) int32, reject (five (P,) int32 or None), top_vals (P, k) int64,
+    top_idx (P, k) int32, win (P,) int64)``, k = min(3, N), fresh tensors;
+    equal to ``sched.flightrecorder.explain_summary_plain(b, p,
+    assignments)``."""
     dev = b.alloc.device
-    a, keep = _score_args(b, p, "explain_summary", bits_blocks=b.requests.shape[0])
-    idx = _check("assignments", assignments, torch.int32, (a.P,), dev)
-    mask, _, total = _launch_filter_score(a, dev, want_total=True, dynamic=True,
-                                          smem=_smem(b), classes=rt.pod_classes(b))
+    _require_cuda(dev, "explain_summary")
+    a = _batch_args(b, p)
+    P, N = a.P, a.N
+    idx = _check("assignments", assignments, torch.int32, (P,), dev)
+    classes = rt.pod_classes(b)
+    reps = class_of = None
+    C = P
+    if classes is not None and classes.shared:
+        C = classes.count
+        reps = _check("classes.reps", classes.reps, torch.int32, (C,), dev)
+        class_of = _check("classes.class_idx", classes.class_idx, torch.int32, (P,), dev)
+    if dev not in _sm_count:
+        _sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    TW = explain_tile_width(C, N, _sm_count[dev]) if N else 1
     flags = _component_flags(b, p)
-    k = min(3, a.N)
-    feasible = torch.empty((a.P,), dtype=torch.int32, device=dev)
-    reject = torch.empty((5, a.P), dtype=torch.int32, device=dev)
-    top_vals = torch.empty((a.P, k), dtype=torch.int64, device=dev)
-    top_idx = torch.empty((a.P, k), dtype=torch.int32, device=dev)
-    win = torch.empty((a.P,), dtype=torch.int64, device=dev)
+    k = min(3, N)
+    scratch = torch.empty((_explain_scratch(C, N, -(-N // TW)),), dtype=torch.uint8, device=dev)
+    feasible = torch.empty((P,), dtype=torch.int32, device=dev)
+    reject = torch.empty((5, P), dtype=torch.int32, device=dev)
+    top_vals = torch.empty((P, k), dtype=torch.int64, device=dev)
+    top_idx = torch.empty((P, k), dtype=torch.int32, device=dev)
+    win = torch.empty((P,), dtype=torch.int64, device=dev)
     lib = build()["explain_summary"]
-    stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.kt_explain_summary(
-        ctypes.byref(a), mask.data_ptr(), total.data_ptr(), idx,
-        sum(1 << c for c, on in enumerate(flags) if on), k, feasible.data_ptr(),
-        reject.data_ptr(), top_vals.data_ptr(), top_idx.data_ptr(), win.data_ptr(), stream)
+        ctypes.byref(a), reps, class_of, C, idx, sum(1 << c for c, on in enumerate(flags) if on),
+        k, TW, scratch.data_ptr(), _smem(b), feasible.data_ptr(), reject.data_ptr(),
+        top_vals.data_ptr(), top_idx.data_ptr(), win.data_ptr(), _raw_stream(dev.index))
     _raise_on(lib, "explain_summary", code)
     launch_counts["explain_summary"] += 1
-    del keep
     rejects = tuple(reject[c] if on else None for c, on in enumerate(flags))
     return feasible, rejects, top_vals, top_idx, win
 
@@ -1314,7 +1432,8 @@ def filter_component_masks(b: rt.DeviceBatch, p: rt.ScoreParams):
     ``sched.flightrecorder.filter_component_masks_plain(b, p)``, i.e.
     ``runtime.filter_components(b, p)[:5]``."""
     dev = b.alloc.device
-    a, keep = _score_args(b, p, "filter_component_masks")
+    _require_cuda(dev, "filter_component_masks")
+    a = _batch_args(b, p)
     flags = _component_flags(b, p)
     masks = tuple(
         torch.empty((a.P, a.N), dtype=torch.bool, device=dev) if on else None
@@ -1326,7 +1445,6 @@ def filter_component_masks(b: rt.DeviceBatch, p: rt.ScoreParams):
         ctypes.byref(a), *(None if m is None else m.data_ptr() for m in masks), stream)
     _raise_on(lib, "filter_component_masks", code)
     launch_counts["filter_component_masks"] += 1
-    del keep
     return masks
 
 

@@ -8,10 +8,13 @@ dispatch on the batch's device:
 
 - ``_explain_kernel`` (B10, kubetpu/sched/flightrecorder.py:92): the plain
   PyTorch ``explain_summary_plain`` on the CPU; on CUDA
-  ``kernels.explain_summary`` — a ``filter_score`` launch on the cycle-start
-  batch, then the ``explain_summary`` kernel, one block per pod, reducing
-  the feasible count, the five components' rejection counts, the top 3
-  (score, node) pairs and the winner's score;
+  ``kernels.explain_summary``, which works on the batch's pod classes:
+  ``filter_score``'s passes on each class's representative into (C, N)
+  rows, then one pass over (class, node tile) blocks reducing the
+  feasible count, the five components' rejection counts and the top 3
+  (score, node) pairs, merged per class and written to every pod with its
+  winner's score (``explain_summary_tiled_plain`` is the plain mirror of
+  that decomposition);
 - ``_explain_masks_kernel`` (:146): ``filter_component_masks_plain`` (the
   first five of ``runtime.filter_components``) on the CPU,
   ``kernels.filter_component_masks`` on CUDA. It runs only for cycles with
@@ -121,6 +124,84 @@ def explain_summary_plain(device_batch, params, assignments):
     idx = torch.as_tensor(assignments, device=total.device).long()
     win = total[rows, torch.clamp(idx, min=0)]
     return feasible, reject, top_vals, top_idx, win
+
+
+def _top3_merge(vals, idxs):
+    """The top 3 of each row of (score, node) candidates ``vals`` / ``idxs``
+    (R, M) int64, node -1 an empty slot: higher score first, then the lower
+    node (the masked first-max passes' order, total on distinct nodes).
+    Returns (R, 3) values and nodes, node -1 (and ``_NEG``) where a row has
+    fewer than three candidates."""
+    alive = idxs >= 0
+    big = torch.iinfo(torch.int64).max
+    out_v, out_i = [], []
+    for _ in range(3):
+        best = torch.where(alive, vals, _NEG - 1).max(dim=1).values
+        node = torch.where(alive & (vals == best[:, None]), idxs, big).min(dim=1).values
+        found = node != big
+        out_v.append(torch.where(found, best, _NEG))
+        out_i.append(torch.where(found, node, -1))
+        alive = alive & ~(found[:, None] & (idxs == node[:, None]))
+    return torch.stack(out_v, dim=1), torch.stack(out_i, dim=1)
+
+
+def explain_summary_tiled_plain(device_batch, params, assignments, tile_width: int):
+    """The plain mirror of the ``explain_summary`` kernel's decomposition
+    (``kernels/csrc/explain_summary.cu``), its tile width a parameter: the
+    component verdicts, mask and total of each pod class's representative
+    only (``runtime.pod_classes``; a class a pod without them), as (C, N)
+    rows; each (class, tile of ``tile_width`` nodes)'s partial: its valid
+    nodes' feasible and rejection counts and the top 3 of its feasible
+    nodes (higher score, then lower node); the partials merged in tile
+    order into each class's summary, an empty slot filled with (``_NEG``,
+    node 0); and each pod its class's summary, its ``win`` the class's
+    total at the pod's assignment (node 0 for -1). Equal to
+    ``explain_summary_plain``. The class rows are the representatives'
+    rows of the batch's verdicts and totals: a pod's rows depend on its own
+    leaves only."""
+    from ..framework import runtime as rt
+
+    b = device_batch
+    P, N = b.requests.shape[0], b.alloc.shape[0]
+    classes = rt.pod_classes(b)
+    if classes is not None and classes.shared:
+        reps = torch.as_tensor(classes.host_reps(), dtype=torch.long, device=b.device)
+        class_of = torch.as_tensor(classes.class_of, dtype=torch.long, device=b.device)
+    else:
+        reps = class_of = torch.arange(P, device=b.device)
+    C = len(reps)
+    comps = [None if c is None else c[reps] for c in rt.filter_components(b, params)[:5]]
+    mask, total = rt.feasible_and_scores(b, params)
+    mask, total = mask[reps], total[reps]
+    valid = b.node_valid[None, :]
+    T = max(-(-N // tile_width), 1)
+    pad = T * tile_width - N
+
+    def tiles(x, fill):
+        return torch.nn.functional.pad(x, (0, pad), value=fill).view(C, T, tile_width)
+
+    feas = mask & valid
+    counts = [feas] + [None if c is None else (~c) & valid for c in comps]
+    part_counts = [None if x is None else tiles(x.long(), 0).sum(dim=2) for x in counts]
+    cand = feas & (total > _NEG)
+    nodes = torch.arange(N, device=b.device).expand(C, N)
+    part_v, part_i = _top3_merge(
+        tiles(torch.where(cand, total, _NEG), _NEG).reshape(C * T, tile_width),
+        tiles(torch.where(cand, nodes, -1), -1).reshape(C * T, tile_width))
+    part_v, part_i = part_v.view(C, T, 3), part_i.view(C, T, 3)
+    run_v = torch.full((C, 3), _NEG, dtype=torch.int64, device=b.device)
+    run_i = torch.full((C, 3), -1, dtype=torch.int64, device=b.device)
+    for t in range(T):
+        run_v, run_i = _top3_merge(torch.cat([run_v, part_v[:, t]], dim=1),
+                                   torch.cat([run_i, part_i[:, t]], dim=1))
+    sums = [None if x is None else x.sum(dim=1).to(torch.int32) for x in part_counts]
+    k = min(3, N)
+    top_vals = torch.where(run_i < 0, _NEG, run_v)[class_of, :k]
+    top_idx = torch.clamp(run_i, min=0).to(torch.int32)[class_of, :k]
+    idx = torch.as_tensor(assignments, device=b.device).long()
+    win = total[class_of, torch.clamp(idx, min=0)]
+    reject = tuple(None if r is None else r[class_of] for r in sums[1:])
+    return sums[0][class_of], reject, top_vals, top_idx, win
 
 
 def _explain_kernel(device_batch, params, assignments):

@@ -5,7 +5,7 @@ Modelled on ``tests/test_pipeline.py``:
 
 - ``scatter_node_rows_plain`` (the plain version of the ``scatter_rows``
   kernel) writes exactly what kubetpu's ``_scatter_node_rows`` writes, pad
-  indices dropped; the kernel's wrapper takes CUDA tensors only;
+  indices dropped; the kernel's launch plan takes a CUDA block only;
 - a delta refresh of the resident block equals a full re-encode and ships
   the bytes kubetpu's ships; a clean refresh ships none; the dense-update
   fallback and the incremental reshard on node add and delete behave as
@@ -75,8 +75,8 @@ def test_scatter_plain_equals_kubetpu(seed, n_rows, n_pad):
         *(jnp.asarray(a) for a in block), jnp.asarray(idx),
         *(jnp.asarray(u) for u in updates))
     nodes = prt.DeviceNodeState(*(torch.from_numpy(a.copy()) for a in block))
-    prt.scatter_node_rows(nodes, torch.from_numpy(idx),
-                          tuple(torch.from_numpy(u) for u in updates))
+    prt.scatter_node_rows_plain(nodes, torch.from_numpy(idx),
+                                tuple(torch.from_numpy(u) for u in updates))
     for name, w in zip(prt.NODE_FIELDS, want):
         got = getattr(nodes, name).numpy()
         assert got.dtype == np.asarray(w).dtype, name
@@ -86,14 +86,12 @@ def test_scatter_plain_equals_kubetpu(seed, n_rows, n_pad):
 
 
 def test_scatter_kernel_takes_cuda_tensors_only():
-    """No fallback inside the wrapper: a CPU block is refused (the caller,
-    ``scatter_node_rows``, picks the plain version for CPU blocks)."""
+    """No fallback inside the kernel's launch plan: a CPU block is refused
+    (the block's ``ScatterPlan`` runs the plain version for a CPU block)."""
     nodes = prt.DeviceNodeState(*(torch.from_numpy(a) for a in
                                   _block(np.random.default_rng(3), 8, 2)))
-    idx = torch.zeros(8, dtype=torch.int32)
-    ups = tuple(getattr(nodes, n).clone() for n in prt.NODE_FIELDS)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.scatter_rows(nodes, idx, ups)
+        kernels.ScatterLaunch(nodes)
 
 
 # -------------------------------------------------------------- residency
