@@ -45,9 +45,9 @@ final ``ok`` line is not printed):
    delta refresh must equal a full upload of the same node tensors; then
    preemption:
    ``dry_run_preemption`` must equal ``dry_run_preemption_plain`` (node,
-   victims, ok, n_pdb) on seeded 5120-node victim tensors with 8 slots and
-   3 PDBs (PreemptionAsync's K) and with 128 slots and 5 PDBs, host ports
-   and many equal (priority, start) keys; ``filter_score``, ``greedy_scan``
+   victims, ok, n_pdb) on seeded 5120-node victim tensors with 8 slots
+   (PreemptionAsync's K), 128 and 130 slots, each with 1, 3 or 5 PDBs,
+   host ports and many equal (priority, start) keys; ``filter_score``, ``greedy_scan``
    and ``batched_round`` must equal their plain versions on a
    PreemptionAsync-shaped 1024 x 5120 cycle with 64 nominations (state
    slot 6 included); and ``filter_score``'s potential mode must equal the
@@ -58,12 +58,14 @@ final ``ok`` line is not printed):
    cluster with a seeded ``extender_mask`` (about 30% false, an eighth of
    the rows all false) and ``extender_score`` (raw x 5 x 10); then the
    flight recorder's kernels (B10): ``explain_summary`` must equal
-   ``explain_summary_plain`` and ``filter_component_masks`` must equal
-   ``filter_component_masks_plain`` on the SchedulingBasic cycle with its
-   greedy assignments, the saturated batch (rows with fewer than three
-   feasible nodes, unassigned pods), the mixed, affinity and spread
-   clusters, the 64-nomination PreemptionAsync cycle and the two extender
-   batches; then the gang lane (B11-B13): ``placement_scan`` must equal
+   ``explain_summary_plain``, and ``filter_component_masks`` (packed rows)
+   must equal ``filter_component_masks_rows_plain`` on every row and on
+   the unassigned pods' rows (every seventh pod where none is), on the
+   SchedulingBasic cycle with its greedy assignments, the saturated batch
+   (rows with fewer than three feasible nodes, unassigned pods), the
+   mixed, affinity and spread clusters, the 64-nomination PreemptionAsync
+   cycle and the two extender batches, and on row 0 of a 4-pod Basic
+   batch (the bridge's call); then the gang lane (B11-B13): ``placement_scan`` must equal
    ``placement_assign_plain`` (assignments, counts, alignment) on the
    SchedulingBasic block labeled into 32 TPU slices (1000 pods, 33
    placements: every slice and ``<all>``; the plain search on 1 slice and
@@ -292,8 +294,10 @@ it, the solve's split into its steps;
 ``--time-recorder ROOT`` times its flight recorder's explain (B10) on the
 SchedulingBasic batch (one pod class) and with a class a pod, its
 resident block's scatter (B5) of a 1024-slot Basic delta as the cycle
-calls it, ``filter_component_masks`` on the Basic and a 4-pod batch and
-the dry run (B9) at 5120 x 8 and x 128 (``time_recorder``);
+calls it, ``filter_component_masks`` as its callers take it (the bridge's
+``_components`` on a one-pod request; the recorder's launch and fetch for
+one unschedulable pod of the Basic batch) and the dry run (B9) at
+5120 x 8 and x 128 (``time_recorder``);
 ``--time-mesh ROOT`` times its node mesh's greedy, batched and packing
 engines (kernels K1, K2 and K5 at four logical shards) and its packing
 solve on a 2 x 2 grid of logical tiles (K8), on the BinPacking block and
@@ -1325,8 +1329,8 @@ def preemption_checks(results) -> dict:
     """Phase 3's preemption checks, on CUDA tensors, all exact:
 
     - ``dry_run_preemption`` against ``dry_run_preemption_plain`` on seeded
-      5120-node victim tensors with PreemptionAsync's K = 8 slots and with
-      K = 128, D = 3 and 5 PDBs, host ports;
+      5120-node victim tensors with PreemptionAsync's K = 8 slots, K = 128
+      and K = 130, D = 1, 3 and 5 PDBs, host ports;
     - ``filter_score``, the ``greedy_scan`` engine and the ``batched_round``
       rounds against their plain versions on a PreemptionAsync-shaped
       1024 x 5120 cycle with 64 nominations (B1n in the pair function);
@@ -1349,15 +1353,19 @@ def preemption_checks(results) -> dict:
 
     out = {}
     err = 0
-    for name, (K, D, seed) in (("K=8", (8, 3, 0)), ("K=128", (128, 5, 1))):
+    for name, (K, D, seed) in (("K=8", (8, 3, 0)), ("K=128", (128, 5, 1)),
+                               ("", (8, 1, 2)), ("", (8, 5, 3)), ("", (128, 1, 4)),
+                               ("", (130, 1, 5)), ("", (130, 5, 6))):
         args = victim_tensors(seed, 5120, K, D)
         e, info = _dry_run_equal(f"dry_run_preemption {args[9].shape[0]} nodes x {K} "
                                  f"slots, D={D}", args)
         if info["candidates"] < 1:
-            raise AssertionError(f"dry_run_preemption {name}: the seeded tensors leave "
-                                 "no candidate node")
+            raise AssertionError(f"dry_run_preemption 5120x{K} D={D}: the seeded tensors "
+                                 "leave no candidate node")
         err = max(err, e)
         results["dry_run_preemption"]["cases"].append(f"5120x{K} D={D}")
+        if not name:
+            continue
         bound_ms, bound_by = _bound(dry_run_nbytes(args), 0)
         out[name] = {
             "ms": cuda_ms(lambda: kernels.dry_run_preemption(*args), 20),
@@ -1462,17 +1470,46 @@ def with_extender(b, seed=0, weight=5):
                                extender_score=torch.from_numpy(score).to(dev))
 
 
-def _explain_equal(name, b, params, idx, results) -> dict:
-    """Hold ``explain_summary`` and ``filter_component_masks`` to their
-    plain versions on one batch with the engine's assignments ``idx``;
-    raises unless every output is equal. Returns the summary's facts."""
+def _masks_equal(name, b, params, rows, results) -> tuple:
+    """Hold ``filter_component_masks`` on pod rows ``rows`` (None: all) to
+    ``filter_component_masks_rows_plain``: the packed bits and which
+    components are present; raises unless equal. Returns ``(max abs err,
+    present)``."""
     import torch
 
     from kubetpu_torch import kernels
-    from kubetpu_torch.sched.flightrecorder import (
-        explain_summary_plain,
-        filter_component_masks_plain,
-    )
+    from kubetpu_torch.sched.flightrecorder import filter_component_masks_rows_plain
+
+    got, present = kernels.filter_component_masks(b, params, rows)
+    want, want_present = filter_component_masks_rows_plain(b, params, rows)
+    torch.cuda.synchronize()
+    if present != want_present:
+        raise AssertionError(f"{name}: component masks present {present}, plain "
+                             f"{want_present}")
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: component bits {got.dtype} {tuple(got.shape)}, plain "
+                             f"{want.dtype} {tuple(want.shape)}")
+    err = _max_abs(got, want)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: component bits differ from the plain version "
+                             f"({int((got != want).sum().item())} bytes)")
+    results["filter_component_masks"]["cases"].append(
+        f"{name}, {'all' if rows is None else len(rows)} rows")
+    results["filter_component_masks"]["max_abs_err"] = max(
+        results["filter_component_masks"]["max_abs_err"], err)
+    return err, present
+
+
+def _explain_equal(name, b, params, idx, results) -> dict:
+    """Hold ``explain_summary`` and ``filter_component_masks`` to their
+    plain versions on one batch with the engine's assignments ``idx`` (the
+    masks on every row, and on the unassigned pods' rows, every seventh
+    pod where none is); raises unless every output is equal. Returns the
+    summary's facts."""
+    import torch
+
+    from kubetpu_torch import kernels
+    from kubetpu_torch.sched.flightrecorder import explain_summary_plain
 
     got = kernels.explain_summary(b, params, idx)
     want = explain_summary_plain(b, params, idx)
@@ -1492,21 +1529,9 @@ def _explain_equal(name, b, params, idx, results) -> dict:
     results["explain_summary"]["cases"].append(name)
     results["explain_summary"]["max_abs_err"] = max(
         results["explain_summary"]["max_abs_err"], err)
-    km = kernels.filter_component_masks(b, params)
-    pm = filter_component_masks_plain(b, params)
-    torch.cuda.synchronize()
-    merr = 0
-    for i, (g, w) in enumerate(zip(km, pm)):
-        if (g is None) != (w is None):
-            raise AssertionError(f"{name}: component mask {i} differs in presence")
-        if g is not None:
-            merr = max(merr, _max_abs(g, w))
-            if not torch.equal(g, w):
-                raise AssertionError(f"{name}: component mask {i} differs from the plain "
-                                     "version")
-    results["filter_component_masks"]["cases"].append(name)
-    results["filter_component_masks"]["max_abs_err"] = max(
-        results["filter_component_masks"]["max_abs_err"], merr)
+    unassigned = [i for i, j in enumerate(idx.tolist()) if j < 0]
+    for rows in (None, unassigned or list(range(0, b.requests.shape[0], 7))):
+        _, present = _masks_equal(name, b, params, rows, results)
     n_pods = int(b.pod_valid.sum().item())
     feas = got[0][:n_pods]
     facts = {
@@ -1515,7 +1540,7 @@ def _explain_equal(name, b, params, idx, results) -> dict:
         "one_feasible": int((feas == 1).sum().item()),
         "two_feasible": int((feas == 2).sum().item()),
         "unassigned": int((idx[:n_pods] < 0).sum().item()),
-        "components": [c is not None for c in km],
+        "components": list(present),
     }
     log(f"kernels vs plain [explain, {name}]: explain_summary and "
         f"filter_component_masks exact ({facts})")
@@ -1526,17 +1551,22 @@ def explain_checks(results, batches) -> dict:
     """Phase 3's B10 checks on each (name, batch, params, assignments):
     exact; the batches must hold unassigned pods (the saturated one) and
     rows with no feasible node, with one and with two (the extender
-    batches), the top-3 edge cases. Returns the Basic batch's timings:
-    both wrappers, their plain versions, and their bounds; and
-    ``explain_summary`` on the same batch with every pod a class of its
-    own (``singletons_ms``, the webhook paths' shape)."""
+    batches), the top-3 edge cases. ``filter_component_masks`` is also
+    held on row 0 of a 4-pod Basic batch (the bridge's call). Returns the
+    Basic batch's timings: both wrappers on every row, their plain
+    versions, and their bounds (the masks': the batch read once and the
+    (P, N) packed bytes written; the five (P, N) masks of the parent's
+    design beside it); ``explain_summary`` on the same batch with every
+    pod a class of its own (``singletons_ms``, the webhook paths' shape);
+    and the masks as their callers take them (``masks_calls``)."""
     import dataclasses
 
     from kubetpu_torch import kernels
+    from kubetpu_torch.framework import config as C
     from kubetpu_torch.framework import runtime as rt
     from kubetpu_torch.sched.flightrecorder import (
         explain_summary_plain,
-        filter_component_masks_plain,
+        filter_component_masks_rows_plain,
     )
 
     seen = {"no_feasible": 0, "one_feasible": 0, "two_feasible": 0, "unassigned": 0}
@@ -1546,9 +1576,11 @@ def explain_checks(results, batches) -> dict:
             seen[k] += facts[k]
     if not all(seen.values()):
         raise AssertionError(f"the explain batches miss an edge case: {seen}")
+    small, small_params = encode(*basic_case(n_pending=4), C.Profile())
+    _masks_equal("SchedulingBasic 4 pods", small, small_params, [0], results)
     name, b, params, idx = batches[0]
     P, N = b.requests.shape[0], b.alloc.shape[0]
-    n_comp = sum(c is not None for c in kernels.filter_component_masks(b, params))
+    n_comp = sum(kernels.filter_component_masks(b, params)[1])
     # explain_summary(b, params, idx): reads the batch and the assignments
     # once, writes 40 bytes a pod (feasible, five counts, top 3, win);
     # its float64 work is the total's, on one pod a class (scored_pods)
@@ -1563,10 +1595,50 @@ def explain_checks(results, batches) -> dict:
     }
     masks = {
         "ms": cuda_ms(lambda: kernels.filter_component_masks(b, params), 20),
-        "plain_ms": cuda_ms(lambda: filter_component_masks_plain(b, params), 5),
-        "bytes": rt.batch_nbytes(b) + P * N * n_comp, "ops": 0, "shape": [P, N],
+        "plain_ms": cuda_ms(lambda: filter_component_masks_rows_plain(b, params), 5),
+        "bytes": rt.batch_nbytes(b) + P * N, "ops": 0, "shape": [P, N],
+        "five_masks_bytes": rt.batch_nbytes(b) + P * N * n_comp,
+        "masks_calls": masks_calls(b, params),
     }
     return {"explain_summary": summary, "filter_component_masks": masks}
+
+
+def masks_as_recorder(b, params, rows):
+    """The recorder's component masks for pods ``rows`` as its cycle takes
+    them (``note_cycle`` then ``_resolve_pending``): the launch, the copy
+    into pinned memory and the wait for it. A checkout from before the
+    packed rows computes its five (P, N) masks and copies the rows'
+    ``index_select`` of each."""
+    import inspect
+
+    import torch
+
+    from kubetpu_torch.sched import flightrecorder as FR
+
+    if len(inspect.signature(FR._explain_masks_kernel).parameters) == 3:
+        bits, _ = FR._explain_masks_kernel(b, params, rows)
+        return FR._Fetch((bits,)).get()
+    sel = torch.as_tensor(rows, device=b.device)
+    return FR._Fetch(tuple(None if c is None else c.index_select(0, sel)
+                           for c in FR._explain_masks_kernel(b, params))).get()
+
+
+def masks_calls(b, params) -> dict:
+    """CUDA-event medians (ms) of the component masks as their callers take
+    them: the recorder's launch and fetch for one unschedulable pod of
+    batch ``b`` (``masks_as_recorder``, its last pod's row), and the bridge's
+    ``ExtenderBackend._components`` on a one-pod request's batch (row 0,
+    copied to the host)."""
+    from kubetpu_torch.bridge.server import ExtenderBackend
+    from kubetpu_torch.framework import config as C
+
+    one, one_params = encode(*basic_case(n_pending=1), C.Profile())
+    return {
+        "recorder_ms": cuda_ms(
+            lambda: masks_as_recorder(b, params, [b.requests.shape[0] - 1]), 50),
+        "bridge_ms": cuda_ms(lambda: ExtenderBackend._components(None, one, one_params), 50),
+        "bridge_shape": [one.requests.shape[0], one.alloc.shape[0]],
+    }
 
 
 def extender_checks(results, basic, mixed) -> dict:
@@ -2717,7 +2789,7 @@ def kernels_phase():
                   "spread_soft", "nominated", "potential", "k128", "extender",
                   "filter_score_ms", "classes", "singletons_ms", "gang_dry_run", "iterations",
                   "basic_ms", "basic_plain_ms", "basic_iterations", "node_pass",
-                  "plain_placements", "dra"):
+                  "plain_placements", "dra", "five_masks_bytes", "masks_calls"):
             if k in tm:
                 line[k] = tm[k]
         out.append(line)
@@ -2740,6 +2812,11 @@ def kernels_phase():
     es = timing["explain_summary"]
     log(f"timing [explain_summary] on the SchedulingBasic batch: {es['classes']} pod "
         f"classes {es['ms']:.4f} ms, a class a pod {es['singletons_ms']:.4f} ms")
+    fm = timing["filter_component_masks"]
+    log(f"timing [filter_component_masks] on the SchedulingBasic batch, every row: "
+        f"{fm['ms']:.4f} ms; as the recorder takes one pod's row "
+        f"{fm['masks_calls']['recorder_ms']:.4f} ms, the bridge's _components on a one-pod "
+        f"request {fm['masks_calls']['bridge_ms']:.4f} ms")
     hs = timing["hypothesis_scan"]
     log(f"timing [hypothesis_scan] placement on the SchedulingBasic batch, D="
         f"{hs['shape'][2]}: its filter_score launch alone {hs['filter_score_ms']:.4f} ms of "
@@ -5995,8 +6072,10 @@ def time_recorder(line: dict) -> None:
     batch with every pod a class of its own (C = P, as on the webhook
     paths); B5 as the cycle calls it, ``ResidentNodeState.scatter`` of a
     1024-slot Basic delta (1024 rows, pads included, shipped in the
-    cycle's packed upload); ``filter_component_masks`` on the Basic batch
-    and on a 4-pod Basic batch (the bridge's size); and B9
+    cycle's packed upload); ``filter_component_masks`` as its callers take
+    it: the recorder's launch and fetch for one unschedulable pod of the
+    Basic batch (``masks_as_recorder``) and the bridge's
+    ``ExtenderBackend._components`` on a one-pod request; and B9
     (``dry_run_preemption``) at 5120 x 8 (PreemptionAsync's K, its main
     path launches) and 5120 x 128. Each: CUDA-event median ms a call and
     the card's busy ms a call (``torch.profiler``, every kernel and copy);
@@ -6007,6 +6086,7 @@ def time_recorder(line: dict) -> None:
 
     from kubetpu_torch import kernels
     from kubetpu_torch.assign.greedy import greedy_assign_plain
+    from kubetpu_torch.bridge.server import ExtenderBackend
     from kubetpu_torch.framework import config as C
 
     def entry(prefix, fn, reps):
@@ -6032,9 +6112,10 @@ def time_recorder(line: dict) -> None:
     line["b5_slots"] = int(shipped["delta.idx"].shape[0])
     entry("b5_delta_", lambda: resident.scatter(shipped), 200)
 
-    entry("fcm_basic_", lambda: kernels.filter_component_masks(b, params), 50)
-    small, small_params = encode(*basic_case(n_pending=4), C.Profile())
-    entry("fcm_4pods_", lambda: kernels.filter_component_masks(small, small_params), 50)
+    entry("fcm_recorder_", lambda: masks_as_recorder(b, params, [b.requests.shape[0] - 1]),
+          50)
+    one, one_params = encode(*basic_case(n_pending=1), C.Profile())
+    entry("fcm_bridge_", lambda: ExtenderBackend._components(None, one, one_params), 50)
     for K in (8, 128):
         args = victim_tensors(11, 5120, K, 3)
         entry(f"b9_k{K}_", lambda args=args: kernels.dry_run_preemption(*args), 20)

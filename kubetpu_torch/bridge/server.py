@@ -43,8 +43,9 @@ configuration fails scheduling loudly rather than silently.
 Port of ``kubetpu/bridge/server.py`` (the wire handling is the reference's
 code). The backend takes a ``device`` (default ``"cuda"``): on CUDA the
 ``filter`` and ``preempt`` verbs take their per-plugin masks from the
-``filter_component_masks`` kernel and ``prioritize`` its mask and total from
-``filter_score``; on the CPU the plain ``runtime.filter_components`` /
+``filter_component_masks`` kernel (the request's pod row, packed a bit a
+plugin) and ``prioritize`` its mask and total from ``filter_score``; on the
+CPU the plain ``filter_component_masks_rows_plain`` /
 ``feasible_and_scores`` answer, with the same bodies. The encoded node
 block stays on the device across requests (``prev_nt`` plus a
 ``runtime.ResidentNodeState``), so a request ships its pod and the node
@@ -183,16 +184,18 @@ class ExtenderBackend:
         return batch, params
 
     def _components(self, b, params):
-        """The first pod's five per-plugin Filter masks as host arrays:
-        the ``filter_component_masks`` kernel on CUDA, the plain
-        ``runtime.filter_components`` on the CPU."""
+        """The first pod's five per-plugin Filter masks as host arrays (None
+        where a plugin is absent): its row of packed bits from the
+        ``filter_component_masks`` kernel on CUDA, from the plain
+        ``filter_component_masks_rows_plain`` on the CPU, in one copy."""
         if b.device.type == "cpu":
-            comps = rt.filter_components(b, params)[:5]
+            from ..sched.flightrecorder import filter_component_masks_rows_plain as masks
         else:
-            from ..kernels import filter_component_masks
-
-            comps = filter_component_masks(b, params)
-        return tuple(None if c is None else c[0].cpu().numpy() for c in comps)
+            from ..kernels import filter_component_masks as masks
+        bits, present = masks(b, params, [0])
+        row = bits[0].cpu().numpy()
+        comps = ((row >> np.arange(5, dtype=np.uint8)[:, None]) & 1).astype(bool)
+        return tuple(comps[c] if on else None for c, on in enumerate(present))
 
     def filter(self, args: dict) -> dict:
         """ExtenderArgs → ExtenderFilterResult. Distinguishes resolvable

@@ -72,6 +72,7 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..framework import config as C
@@ -125,7 +126,8 @@ _ARGTYPES = {
     "explain_summary": [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p]
     + [ctypes.c_int] * 2 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
     + [ctypes.c_void_p] * 6,
-    "filter_component_masks": [ctypes.c_void_p] * 7,
+    "filter_component_masks": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+    + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_int64] + [ctypes.c_void_p] * 2,
     "hypothesis_scan": [ctypes.c_void_p] * 17 + [ctypes.c_int64] + [ctypes.c_void_p] * 3
     + [ctypes.c_int64] * 2 + [ctypes.c_void_p],
     "packing_round": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p],
@@ -158,6 +160,11 @@ _MORE_ENTRIES = {
     "packing_round": {
         "kt_packing_log1p": [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p],
     },
+}
+
+# entry points that return an int64 (a size), beside the struct sizes
+_INT64_ENTRIES = {
+    "dry_run_preemption": {"kt_dry_run_preemption_smem": [ctypes.c_int64] * 6},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -232,6 +239,9 @@ def build() -> dict[str, ctypes.CDLL]:
             for entry, argtypes in _MORE_ENTRIES.get(name, {}).items():
                 getattr(lib, entry).argtypes = argtypes
                 getattr(lib, entry).restype = ctypes.c_int
+            for entry, argtypes in _INT64_ENTRIES.get(name, {}).items():
+                getattr(lib, entry).argtypes = argtypes
+                getattr(lib, entry).restype = ctypes.c_int64
             err = getattr(lib, f"kt_{name}_error")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
@@ -320,11 +330,11 @@ class DryRunArgs(ctypes.Structure):
             "pod_req", "wants_conf", "potential", "alloc", "requested",
             "pod_count", "allowed", "port_counts", "v_valid", "v_prio",
             "v_start", "v_req", "v_ports", "v_pdb", "pdb_allowed",
-            "node_idx", "victims", "ok", "n_pdb", "stats", "order",
-            "violating", "budget", "req_s", "ports_s",
+            "node_idx", "victims", "ok", "n_pdb", "best", "parts", "ticket",
         )
     ] + [
-        (name, ctypes.c_int64) for name in ("pod_prio", "N", "K", "R", "Kp", "D")
+        (name, ctypes.c_int64) for name in (
+            "pod_prio", "N", "K", "R", "Kp", "D", "warps", "stage", "smem")
     ]
 
 class Exchange(ctypes.Structure):
@@ -420,9 +430,7 @@ class ScatterPlanArgs(ctypes.Structure):
 class PickShard(ctypes.Structure):
     """Mirror of ``struct PickShard`` in csrc/dry_run_preemption.cu."""
 
-    _fields_ = [("node_idx", ctypes.c_void_p), ("n_pdb", ctypes.c_void_p),
-                ("stats", ctypes.c_void_p), ("N", ctypes.c_int64),
-                ("offset", ctypes.c_int64)]
+    _fields_ = [("best", ctypes.c_void_p), ("offset", ctypes.c_int64)]
 
 
 # the structs whose compiled size each library reports beside its args
@@ -1277,7 +1285,7 @@ def dry_run_preemption(pod_req, pod_prio, wants_conf, potential, alloc, requeste
                        pod_count, allowed, port_counts, v_valid, v_prio, v_start,
                        v_req, v_ports, v_pdb, pdb_allowed):
     """The ``dry_run_preemption`` kernel (B9): the victim search on every
-    node and the pick of one. Same arguments and results as
+    node and the pick of one, in one launch. Same arguments and results as
     ``ops.preemption.dry_run_preemption_plain``: ``(node_idx () int32,
     victims (N, K) bool, ok (N,) bool, n_pdb (N,) int64)``, fresh tensors.
     ``pod_prio`` is an int (or a one-element tensor)."""
@@ -1286,11 +1294,51 @@ def dry_run_preemption(pod_req, pod_prio, wants_conf, potential, alloc, requeste
                     pdb_allowed)[:4]
 
 
+# B9's block: at most this many warps, one a node (dry_run_preemption.cu
+# kMaxWarps), in the dynamic shared memory a block takes without opting in
+# (kDefaultSmem) unless one node needs more; a candidate node's six int64
+# keys
+_DRY_MAX_WARPS = 8
+_DRY_SMEM = 48 * 1024 - 1024
+_CAND_BYTES = 48
+_dry_layouts: dict = {}
+
+
+def dry_run_layout(K: int, R: int, Kp: int, D: int) -> tuple[int, int, int]:
+    """B9's block for K slots, R resources, Kp triples and D PDBs: ``(warps,
+    stage, smem)``, as many nodes (warps) as ``_DRY_SMEM`` holds, at most
+    ``_DRY_MAX_WARPS``, each with its slots' rows staged in shared memory
+    (``stage`` 1); a node that needs more takes a block alone, opting in to
+    more shared memory, and where its staged rows do not fit even then
+    they are read from global memory (``stage`` 0). ``smem`` is the
+    block's dynamic shared memory (``kt_dry_run_preemption_smem``). Raises
+    when a node's ranks and running state alone do not fit a block."""
+    key = (K, R, Kp, D)
+    got = _dry_layouts.get(key)
+    if got is None:
+        size = build()["dry_run_preemption"].kt_dry_run_preemption_smem
+        limit = SHARED_MAX - 1024   # the kernel's static arrays take ~400 bytes
+        one, base = size(K, R, Kp, D, 1, 1), size(K, R, Kp, D, 1, 0)
+        stage = 1 if one <= limit else 0
+        if not stage:
+            base = size(K, R, Kp, D, 0, 0)
+            one = size(K, R, Kp, D, 0, 1)
+            if one > limit:
+                raise ValueError(f"dry_run_preemption: K={K} slots need {one} bytes of shared "
+                                 f"memory for one node, a block has {limit}")
+        warps = max(1, min(_DRY_MAX_WARPS, (_DRY_SMEM - base) // (one - base)))
+        got = _dry_layouts[key] = (warps, stage, size(K, R, Kp, D, stage, warps))
+    return got
+
+
 def _dry_run(pod_req, pod_prio, wants_conf, potential, alloc, requested,
              pod_count, allowed, port_counts, v_valid, v_prio, v_start,
              v_req, v_ports, v_pdb, pdb_allowed):
-    """``dry_run_preemption``, also returning its (4, N) per-node stats
-    (max priority, summed priority, victims, earliest start)."""
+    """``dry_run_preemption``, also returning the chosen node's keys, the
+    (6,) int64 ``best`` (n_pdb, max priority, summed priority, victims,
+    earliest start, node; node -1 for none) that K3 reads. The outputs are
+    views of one allocation: n_pdb, best, the blocks' bests, the ticket,
+    node_idx, victims, ok, each from a 16-byte boundary."""
     dev = potential.device
     if dev.type != "cuda":
         raise ValueError(f"dry_run_preemption: the kernel takes CUDA tensors, got {dev}")
@@ -1315,30 +1363,29 @@ def _dry_run(pod_req, pod_prio, wants_conf, potential, alloc, requested,
     a.v_ports = _check("v_ports", v_ports, torch.int8, (N, K, Kp), dev)
     a.v_pdb = _check("v_pdb", v_pdb, u8, (N, K, D), dev)
     a.pdb_allowed = _check("pdb_allowed", pdb_allowed, i64, (D,), dev)
-    node_idx = torch.empty((), dtype=i32, device=dev)
-    victims = torch.empty((N, K), dtype=u8, device=dev)
-    ok = torch.empty((N,), dtype=u8, device=dev)
-    n_pdb = torch.empty((N,), dtype=i64, device=dev)
-    # scratch, sized from the inputs: (column, node) layouts
-    stats = torch.empty((4, N), dtype=i64, device=dev)
-    order = torch.empty((K, N), dtype=i32, device=dev)
-    violating = torch.empty((K, N), dtype=torch.uint8, device=dev)
-    budget = torch.empty((D, N), dtype=i64, device=dev)
-    req_s = torch.empty((R, N), dtype=i64, device=dev)
-    ports_s = torch.empty((Kp, N), dtype=i32, device=dev)
-    for name, t_ in (("node_idx", node_idx), ("victims", victims), ("ok", ok),
-                     ("n_pdb", n_pdb), ("stats", stats), ("order", order),
-                     ("violating", violating), ("budget", budget),
-                     ("req_s", req_s), ("ports_s", ports_s)):
-        setattr(a, name, t_.data_ptr())
+    warps, stage, smem = dry_run_layout(K, R, Kp, D)
+    blocks = -(-N // warps)
+    sizes = (8 * N, _CAND_BYTES, _CAND_BYTES * blocks, 4, 4, N * K, N)
+    offs = [0]
+    for size in sizes:
+        offs.append(offs[-1] + _r16(size))
+    buf = torch.empty((offs[-1] // 8,), dtype=i64, device=dev)
+    base = buf.data_ptr()
+    a.n_pdb, a.best, a.parts, a.ticket, a.node_idx, a.victims, a.ok = (
+        base + o for o in offs[:-1])
     a.pod_prio = int(pod_prio)
     a.N, a.K, a.R, a.Kp, a.D = N, K, R, Kp, D
+    a.warps, a.stage, a.smem = warps, stage, smem
     lib = build()["dry_run_preemption"]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.kt_dry_run_preemption(ctypes.byref(a), stream)
+    code = lib.kt_dry_run_preemption(ctypes.byref(a), _raw_stream(dev.index))
     _raise_on(lib, "dry_run_preemption", code)
     launch_counts["dry_run_preemption"] += 1
-    return node_idx, victims, ok, n_pdb, stats
+    flags = buf.view(u8)
+    return (buf.view(i32)[offs[4] // 4],
+            flags.as_strided((N, K), (K, 1), offs[5]),
+            flags[offs[6]:offs[6] + N],
+            buf[:N],
+            buf[offs[1] // 8:offs[1] // 8 + 6])
 
 
 def _component_flags(b: rt.DeviceBatch, p: rt.ScoreParams) -> list[bool]:
@@ -1424,28 +1471,102 @@ def explain_summary(b: rt.DeviceBatch, p: rt.ScoreParams, assignments: torch.Ten
     return feasible, rejects, top_vals, top_idx, win
 
 
-def filter_component_masks(b: rt.DeviceBatch, p: rt.ScoreParams):
+# the masks' bits launch (filter_component_masks.cu): its widest tile
+# (kMaxTile), and the narrowest this wrapper asks for
+_MASK_MAX_TILE = 2048
+_MASK_MIN_TILE = 128
+
+
+def mask_tile_width(C: int, N: int, sms: int) -> int:
+    """The nodes a block of the masks' bits launch takes over C classes of
+    N nodes on a card of ``sms`` SMs: tiles enough that the classes' tiles
+    give every SM two blocks, none narrower than ``_MASK_MIN_TILE`` nodes
+    or wider than ``_MASK_MAX_TILE``, a multiple of 16 (one 16-byte
+    store)."""
+    tiles = max(1, min(-(-N // _MASK_MIN_TILE), -(-2 * sms // max(C, 1))))
+    width = -(-max(N, 1) // tiles)
+    return min(_MASK_MAX_TILE, -(-width // 16) * 16)
+
+
+def mask_plan(classes: "rt.PodClasses | None", rows, P: int):
+    """The requested rows of the masks' launch grouped by pod class:
+    ``(plan, C, U, first)``, plan the (2C + 1 + U,) int32 host array the
+    kernel takes (each class's representative pod, the classes' starts
+    into the rows that follow, then each class's output rows in turn), or
+    None when the rows are pods ``first .. first + U - 1`` and no two of
+    them share a class (one row, or a batch without shared classes): class
+    j is then pod ``first + j``, written to row j. ``rows`` host ints in
+    ``[0, P)``, None for all P."""
+    shared = classes is not None and classes.shared
+    if rows is None:
+        if not shared:
+            return None, P, P, 0
+        plan = np.concatenate([classes.host_reps(), classes.class_start, classes.members])
+        return plan.astype(np.int32), classes.count, P, 0
+    U = len(rows)
+    if U and (min(rows) < 0 or max(rows) >= P):
+        raise ValueError(f"filter_component_masks: rows outside [0, {P})")
+    first = int(rows[0]) if U else 0
+    if (U <= 1 or not shared) and all(r == first + i for i, r in enumerate(rows)):
+        return None, U, U, first
+    if U <= 64:
+        # a few rows (the recorder's unschedulable pods, the bridge's one):
+        # plain Python, where numpy's fixed cost a call would dominate
+        groups: dict = {}
+        for u, r in enumerate(rows):
+            groups.setdefault(int(classes.class_of[r]) if shared else int(r), []).append(u)
+        keys = sorted(groups)
+        reps = [int(classes.members[classes.class_start[c]]) if shared else c for c in keys]
+        start = [0]
+        for c in keys:
+            start.append(start[-1] + len(groups[c]))
+        pos = [u for c in keys for u in groups[c]]
+        return np.array(reps + start + pos, dtype=np.int32), len(keys), U, 0
+    rows = np.asarray(rows, dtype=np.int64)
+    key = classes.class_of[rows] if shared else rows
+    uniq, inverse = np.unique(key, return_inverse=True)
+    reps = classes.host_reps()[uniq] if shared else uniq
+    start = np.zeros(len(uniq) + 1, dtype=np.int64)
+    np.cumsum(np.bincount(inverse, minlength=len(uniq)), out=start[1:])
+    pos = np.argsort(inverse, kind="stable")
+    return np.concatenate([reps, start, pos]).astype(np.int32), len(uniq), U, 0
+
+
+def filter_component_masks(b: rt.DeviceBatch, p: rt.ScoreParams, rows=None):
     """The ``filter_component_masks`` kernel (B10 ``_explain_masks_kernel``,
-    and the extender bridge's per-plugin masks): the five (P, N) bool masks
-    ``(static, fit, ports_ok, spread_ok, pa_ok)``, None where the plugin is
-    off or has no work, fit charging every nomination; equal to
-    ``sched.flightrecorder.filter_component_masks_plain(b, p)``, i.e.
-    ``runtime.filter_components(b, p)[:5]``."""
+    and the extender bridge's per-plugin masks) on the pod rows ``rows``
+    (host ints; None: all P): ``(bits (U, N) uint8, present)``, bit c of
+    ``bits[u, n]`` component c of ``runtime.filter_components(b, p)[:5]``
+    (static, fit, ports_ok, spread_ok, pa_ok) for pod ``rows[u]`` at node
+    n, fit charging every nomination, 0 where the component is absent;
+    ``present`` (``_component_flags``) which are present. Each class's
+    work is done once, on its representative (``mask_plan``); one
+    allocation (the plan's device copy, then the bits), one call. Equal to
+    ``sched.flightrecorder.filter_component_masks_rows_plain(b, p, rows)``."""
     dev = b.alloc.device
     _require_cuda(dev, "filter_component_masks")
     a = _batch_args(b, p)
     flags = _component_flags(b, p)
-    masks = tuple(
-        torch.empty((a.P, a.N), dtype=torch.bool, device=dev) if on else None
-        for on in flags
-    )
+    plan, C, U, first = mask_plan(rt.pod_classes(b), rows, a.P)
+    if dev not in _sm_count:
+        _sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    if plan is None:
+        out = torch.empty((U, a.N), dtype=torch.uint8, device=dev)
+        plan_dev = None
+    else:
+        head = _r16(4 * len(plan))
+        buf = torch.empty((head + U * a.N,), dtype=torch.uint8, device=dev)
+        out = buf.as_strided((U, a.N), (a.N, 1), head)
+        plan_dev = buf.data_ptr()
     lib = build()["filter_component_masks"]
-    stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.kt_filter_component_masks(
-        ctypes.byref(a), *(None if m is None else m.data_ptr() for m in masks), stream)
+        ctypes.byref(a), None if plan is None else plan.ctypes.data,
+        0 if plan is None else len(plan), plan_dev, C, U, first,
+        sum(1 << c for c, on in enumerate(flags) if on),
+        mask_tile_width(C, a.N, _sm_count[dev]), out.data_ptr(), _raw_stream(dev.index))
     _raise_on(lib, "filter_component_masks", code)
     launch_counts["filter_component_masks"] += 1
-    return masks
+    return out, tuple(flags)
 
 
 # ------------------------------------- the solves: packing (B14), batched (B6)
@@ -1941,11 +2062,12 @@ def shard_argmax(pieces, mesh, reps: int = 1) -> int:
 
 def sharded_dry_run(shard_args, offsets):
     """Kernel K3 after kernel B9 on each shard: every shard's dry run on
-    its rows (on its card's stream), then one warp on the first shard's
-    card reduces the shards' best nodes by pick_node's order with -global
-    index, reading the other cards' results through peer pointers once
-    their streams are done. Returns ``(node_idx () int32 global, victims,
-    ok, n_pdb)``, the last three ``parallel.mesh.ShardedTensor``s; equal to
+    its rows (on its card's stream), each leaving its best node and that
+    node's five keys, then one warp on the first shard's card reduces the
+    shards' bests by pick_node's order with -global index, reading the
+    other cards' through peer pointers once their streams are done.
+    Returns ``(node_idx () int32 global, victims, ok, n_pdb)``, the last
+    three ``parallel.mesh.ShardedTensor``s; equal to
     ``ops.preemption.dry_run_preemption_sharded``'s plain reduction."""
     from ..parallel.mesh import ShardedTensor
 
@@ -1955,14 +2077,12 @@ def sharded_dry_run(shard_args, offsets):
     for g, args in enumerate(shard_args):
         dev = args[3].device
         with on_device(dev):
-            node_idx, victims, ok, n_pdb, stats = _dry_run(*args)
+            node_idx, victims, ok, n_pdb, best = _dry_run(*args)
             ev = torch.cuda.Event()
             ev.record()
         events.append(ev)
-        outs.append((node_idx, victims, ok, n_pdb, stats))
-        st = structs[g]
-        st.node_idx, st.n_pdb, st.stats = node_idx.data_ptr(), n_pdb.data_ptr(), stats.data_ptr()
-        st.N, st.offset = victims.shape[0], offsets[g]
+        outs.append((victims, ok, n_pdb, best))
+        structs[g].best, structs[g].offset = best.data_ptr(), offsets[g]
     home = shard_args[0][3].device
     lib = build()["dry_run_preemption"]
     with on_device(home):
@@ -1974,10 +2094,10 @@ def sharded_dry_run(shard_args, offsets):
                                          stream.cuda_stream)
         _raise_on(lib, "dry_run_preemption", code, "shard_pick")
         launch_counts["shard_pick"] += 1
-        # the shards' stats are read by the pick: they live until it ran
+        # the shards' bests are read by the pick: they live until it ran
         node.item()
-    return (node, ShardedTensor([o[1] for o in outs]), ShardedTensor([o[2] for o in outs]),
-            ShardedTensor([o[3] for o in outs]))
+    return (node, ShardedTensor([o[0] for o in outs]), ShardedTensor([o[1] for o in outs]),
+            ShardedTensor([o[2] for o in outs]))
 
 
 # the combine's operations (csrc/batched_round.cu shard_combine_kernel)

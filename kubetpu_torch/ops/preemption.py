@@ -206,6 +206,114 @@ def dry_run_preemption_plain(
     return node_idx, victims, ok, n_pdb
 
 
+def dry_run_preemption_ranked_plain(
+    pod_req, pod_prio, wants_conf, potential,
+    alloc, requested, pod_count, allowed, port_counts,
+    v_valid, v_prio, v_start, v_req, v_ports, v_pdb, pdb_allowed,
+    nodes_per_block: int = 8,
+):
+    """The plain mirror of the ``dry_run_preemption`` kernel's decomposition
+    (``kernels/csrc/dry_run_preemption.cu``), for the tests: each slot's
+    importance rank by counting (the slots before it: a lower key, or an
+    equal key and an earlier start, or both equal and a lower slot); each
+    PDB's violation flags from prefix counts of its matched eligible slots
+    over those ranks; the reprieve order by counting too (a violating
+    slot's step is the number of violating slots before it in rank order,
+    another eligible slot's the violating slots' count plus the other
+    eligible slots before it) and the walk over its steps, on the free
+    room (alloc - requested + the eligible slots' requests) and the port
+    counts; the stats; then each block of ``nodes_per_block`` nodes keeps
+    its best ok node by pick_node's refinement, and the blocks' bests merge
+    with ``first_best``. Same arguments and results as
+    ``dry_run_preemption_plain``."""
+    from ..parallel.mesh import first_best
+
+    N, K = v_valid.shape
+    D = pdb_allowed.shape[0]
+    dev = v_valid.device
+    rows = torch.arange(N, device=dev)
+    eligible = v_valid & (v_prio < pod_prio)
+    key = torch.where(eligible, -v_prio, I64_MAX)
+    e64 = eligible.to(torch.int64)
+    n_elig = e64.sum(dim=1)
+    free = alloc - requested + torch.sum(e64[:, :, None] * v_req, dim=1)
+    ports_s = port_counts - torch.sum(
+        e64[:, :, None] * v_ports.to(torch.int64), dim=1).to(port_counts.dtype)
+    cnt = pod_count.to(torch.int64) - n_elig
+
+    def fits(free, ports_s, cnt):
+        ok_r = torch.all((pod_req[None, :] == 0) | (pod_req[None, :] <= free), dim=-1)
+        ok_p = ~torch.any(wants_conf[None, :] & (ports_s > 0), dim=-1)
+        return ok_r & ok_p & (cnt + 1 <= allowed)
+
+    fits_base = fits(free, ports_s, cnt)
+
+    # importance ranks by counting; order[rank] = slot
+    slot = torch.arange(K, device=dev)
+    kj, kk = key[:, None, :], key[:, :, None]
+    sj, sk = v_start[:, None, :], v_start[:, :, None]
+    before = (kj < kk) | ((kj == kk) & (
+        (sj < sk) | ((sj == sk) & (slot[None, None, :] < slot[None, :, None]))))
+    rank = before.sum(dim=2)
+    order = torch.empty_like(rank).scatter_(1, rank, slot.expand(N, K).contiguous())
+
+    # PDB flags by prefix counts over the ranks
+    matched = v_pdb & eligible[:, :, None]
+    m_ord = torch.gather(matched, 1, order[:, :, None].expand(N, K, D))
+    count = torch.cumsum(m_ord.to(torch.int64), dim=1)
+    viol_ord = torch.any(m_ord & (pdb_allowed[None, None, :] - count < 0), dim=2)
+
+    # the reprieve order by counting: the violating slots, then the other
+    # eligible ones, each group in rank order (ineligible slots to a
+    # column past the end)
+    elig_ord = torch.gather(eligible, 1, order)
+    first = elig_ord & viol_ord
+    second = elig_ord & ~viol_ord
+    n_first = first.sum(dim=1, keepdim=True)
+    step = torch.where(first, torch.cumsum(first.to(torch.int64), dim=1) - 1,
+                       n_first + torch.cumsum(second.to(torch.int64), dim=1) - 1)
+    step = torch.where(elig_ord, step, K)
+    rep = torch.full((N, K + 1), -1, dtype=torch.int64, device=dev)
+    rep.scatter_(1, step, torch.where(elig_ord, order, -1))
+
+    # the reprieve: a walk over the steps
+    victims = torch.zeros((N, K), dtype=torch.bool, device=dev)
+    n_pdb_viol = torch.zeros(N, dtype=torch.int64, device=dev)
+    for i in range(K):
+        k = rep[:, i]
+        walk = k >= 0
+        k = torch.clamp(k, min=0)
+        try_free = free - v_req[rows, k]
+        try_ports = ports_s + v_ports[rows, k].to(ports_s.dtype)
+        f = fits(try_free, try_ports, cnt + 1)
+        keep = walk & f
+        free = torch.where(keep[:, None], try_free, free)
+        ports_s = torch.where(keep[:, None], try_ports, ports_s)
+        cnt = cnt + keep.to(torch.int64)
+        victim = walk & ~f
+        victims[rows, k] = victims[rows, k] | victim
+        n_pdb_viol = n_pdb_viol + (victim & (i < n_first[:, 0])).to(torch.int64)
+
+    n_victims = torch.sum(victims, dim=1).to(torch.int64)
+    ok = (n_elig > 0) & fits_base & (n_victims > 0) & potential
+    max_prio = torch.max(torch.where(victims, v_prio, I64_MIN), dim=1).values
+    sum_prio = torch.sum(torch.where(victims, v_prio + PRIO_OFFSET, 0), dim=1)
+    highest = victims & (v_prio == max_prio[:, None])
+    earliest = torch.min(torch.where(highest, v_start, I64_MAX), dim=1).values
+
+    # each block's best, then the merge
+    bests = []
+    for lo in range(0, N, nodes_per_block):
+        hi = min(N, lo + nodes_per_block)
+        j = int(pick_node(ok[lo:hi], n_pdb_viol[lo:hi], max_prio[lo:hi], sum_prio[lo:hi],
+                          n_victims[lo:hi], earliest[lo:hi]))
+        if j >= 0:
+            bests.append((pick_keys(n_pdb_viol, max_prio, sum_prio, n_victims, earliest,
+                                    lo + j), lo + j))
+    node = first_best(bests)
+    return (torch.tensor(node, dtype=torch.int32, device=dev), victims, ok, n_pdb_viol)
+
+
 def dry_run_preemption(*args):
     """The dry run where its tensors live: the hand-written
     ``dry_run_preemption`` kernel on a CUDA device, the plain version on the

@@ -15,11 +15,13 @@ dispatch on the batch's device:
   (score, node) pairs, merged per class and written to every pod with its
   winner's score (``explain_summary_tiled_plain`` is the plain mirror of
   that decomposition);
-- ``_explain_masks_kernel`` (:146): ``filter_component_masks_plain`` (the
-  first five of ``runtime.filter_components``) on the CPU,
-  ``kernels.filter_component_masks`` on CUDA. It runs only for cycles with
-  an unschedulable pod, and only those pods' rows are copied to the host
-  (``_pod_breakdown`` reads no other row).
+- ``_explain_masks_kernel`` (:146): the five per-plugin masks (the first
+  five of ``runtime.filter_components``) of the cycle's unschedulable pods
+  only, packed a bit a component into one (U, N) byte buffer:
+  ``filter_component_masks_rows_plain`` on the CPU,
+  ``kernels.filter_component_masks`` on CUDA (once a pod class). It runs
+  only for cycles with an unschedulable pod; the buffer comes to the host
+  in one copy and ``_pod_breakdown`` reads its bits.
 
 Each cycle's explain is launched on the current stream inside
 ``note_cycle``, before the next cycle's resident-block scatter, so it reads
@@ -85,6 +87,24 @@ def filter_component_masks_plain(device_batch, params):
     from ..framework import runtime as rt
 
     return rt.filter_components(device_batch, params)[:5]
+
+
+def filter_component_masks_rows_plain(device_batch, params, rows=None):
+    """The plain version of the ``filter_component_masks`` kernel:
+    ``filter_component_masks_plain``'s masks of pods ``rows`` (host ints;
+    None: every pod), packed: ``(bits (U, N) uint8, present)``, bit c of
+    ``bits[u, n]`` component c's verdict for pod ``rows[u]`` at node n (0
+    where component c is absent), ``present`` which of the five are."""
+    b = device_batch
+    comps = filter_component_masks_plain(b, params)
+    P, N = b.requests.shape[0], b.alloc.shape[0]
+    idx = (torch.arange(P, device=b.device) if rows is None
+           else torch.as_tensor(np.asarray(rows, dtype=np.int64).reshape(-1), device=b.device))
+    bits = torch.zeros((idx.shape[0], N), dtype=torch.uint8, device=b.device)
+    for c, m in enumerate(comps):
+        if m is not None:
+            bits |= m[idx].to(torch.uint8) << c
+    return bits, tuple(m is not None for m in comps)
 
 
 def explain_summary_plain(device_batch, params, assignments):
@@ -219,15 +239,16 @@ def _explain_kernel(device_batch, params, assignments):
     return explain_summary(device_batch, params, idx)
 
 
-def _explain_masks_kernel(device_batch, params):
-    """The per-component (P, N) masks themselves — computed ONLY for cycles
-    with an unschedulable pod. The plain version on a CPU batch, the
-    ``filter_component_masks`` kernel on a CUDA one."""
+def _explain_masks_kernel(device_batch, params, rows):
+    """The per-component masks of pods ``rows``, packed (``(bits (U, N)
+    uint8, present)``, see ``filter_component_masks_rows_plain``) —
+    computed ONLY for cycles with an unschedulable pod. The plain version
+    on a CPU batch, the ``filter_component_masks`` kernel on a CUDA one."""
     if device_batch.device.type == "cpu":
-        return filter_component_masks_plain(device_batch, params)
+        return filter_component_masks_rows_plain(device_batch, params, rows)
     from ..kernels import filter_component_masks
 
-    return filter_component_masks(device_batch, params)
+    return filter_component_masks(device_batch, params, rows)
 
 
 class _Fetch:
@@ -385,7 +406,7 @@ class FlightRecorder:
         "no rejections". ``assignments``: the engine's assignments as a
         tensor on the batch's device (``idx`` is uploaded when None)."""
         self._resolve_pending()
-        summary = masks = None
+        summary = masks = present = None
         mask_rows: dict[int, int] = {}
         node_names = batch.node_names
         n_real = batch.num_nodes
@@ -406,16 +427,12 @@ class FlightRecorder:
                 if not (0 <= int(idx[k]) < len(node_names))
             ]
             if unsched:
-                # an unschedulable pod in the cycle: also compute the full
-                # per-component masks so its record can name example
-                # rejected nodes (the all-feasible steady state never pays
-                # this), and copy only those pods' rows
-                masks_dev = _explain_masks_kernel(device_batch, params)
-                sel = torch.as_tensor(unsched, device=device_batch.device)
-                masks = _Fetch(tuple(
-                    None if c is None else c.index_select(0, sel)
-                    for c in masks_dev
-                ))
+                # an unschedulable pod in the cycle: also compute the
+                # per-component masks of those pods' rows so their records
+                # can name example rejected nodes (the all-feasible steady
+                # state never pays this), packed into one buffer, one copy
+                bits, present = _explain_masks_kernel(device_batch, params, unsched)
+                masks = _Fetch((bits,))
                 mask_rows = {k: r for r, k in enumerate(unsched)}
             if start is None:
                 self.spans["explain"] += time.perf_counter() - t0
@@ -455,7 +472,7 @@ class FlightRecorder:
             recs.append(rec)
         if summary is not None:
             self._pending.append((
-                summary, masks, mask_rows, recs, node_names, n_real,
+                summary, masks, present, mask_rows, recs, node_names, n_real,
                 [int(idx[k]) for k in range(len(recs))],
             ))
 
@@ -467,10 +484,10 @@ class FlightRecorder:
             p = self._pending.popleft()
         except IndexError:
             return
-        summary, masks, mask_rows, recs, node_names, n_real, js = p
+        summary, masks, present, mask_rows, recs, node_names, n_real, js = p
         t0 = time.perf_counter()
         host = self._fetch_summary(summary)
-        comp_masks = None if masks is None else (masks.get(), mask_rows)
+        comp_masks = None if masks is None else (masks.get()[0], present, mask_rows)
         self.spans["fetch"] += time.perf_counter() - t0
         if summary.start is not None:
             # the masks' copies were recorded after the summary's: wait for
@@ -510,13 +527,15 @@ class FlightRecorder:
             "rejected_by": rejected,
         }
         if comp_masks is not None and not (0 <= j < len(node_names)):
-            # only the unschedulable pods' rows were fetched
-            arrays, rows = comp_masks
+            # only the unschedulable pods' rows were fetched, a bit a
+            # component
+            bits, present, rows = comp_masks
+            row = bits[rows[k]][:n_real]
             examples: dict[str, list[str]] = {}
-            for name, c in zip(_COMPONENT_NAMES, arrays):
-                if c is None or name not in rejected:
+            for c, (name, on) in enumerate(zip(_COMPONENT_NAMES, present)):
+                if not on or name not in rejected:
                     continue
-                ex = np.flatnonzero(~c[rows[k]][:n_real])[:3]
+                ex = np.flatnonzero(((row >> c) & 1) == 0)[:3]
                 examples[name] = [node_names[int(i)] for i in ex]
             out["rejected_examples"] = examples
         top = [

@@ -7,12 +7,18 @@
   nodes, some with none), node-affinity and taint preferences, spread,
   inter-pod affinity, nominations and extender leaves — with assignment
   vectors that hold -1 (``win`` then reads node 0): every array equal,
-  absent components None on both sides.
+  absent components None on both sides. The packed rows of
+  ``filter_component_masks_rows_plain`` (all, some, repeated, many, one
+  of each pod class), unpacked, equal kubetpu's masks at those rows, and
+  the kernel's host plan (``kernels.mask_plan``) writes every row once
+  through a pod of its class.
 - The records: the port's ``Scheduler(device="cpu")`` and kubetpu's
   ``Scheduler(dispatcher_workers=0)`` on a run with unschedulable pods,
   requeues, a preemption and a bind error give the same records (the
   timing fields left out): statuses, breakdowns, rejection counts and
-  examples, top nodes, win margins, requeue hops, nominations, victims.
+  examples, top nodes, win margins, requeue hops, nominations, victims;
+  and cycles whose unschedulable pods are rejected by two or three
+  plugins name the same example nodes.
 - The pipelined cycle's records equal the serial cycle's, and
   ``flight_recorder=False`` leaves the decisions unchanged.
 """
@@ -20,6 +26,7 @@
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import kubetpu  # noqa: F401
 from kubetpu.api.wrappers import make_node, make_pod
@@ -164,6 +171,93 @@ def test_component_masks_plain_equal_reference(case, seed):
             _eq(g, w)
 
 
+ROW_KINDS = ("all", "some", "repeated", "many", "classes")
+
+
+def _rows(kind, pdev, seed):
+    """Host rows of a masks call: all (None), a seeded subset, a subset
+    with rows repeated, every pod three times over in a seeded order (more
+    rows than the plan's small path takes), or one pod of each pod class
+    (each class's representative)."""
+    from kubetpu_torch.framework import runtime as prt
+
+    P = pdev.requests.shape[0]
+    rng = np.random.default_rng(seed + 77)
+    if kind == "all":
+        return None
+    if kind == "some":
+        return sorted(rng.choice(P, size=max(1, P // 3), replace=False).tolist())
+    if kind == "repeated":
+        some = rng.choice(P, size=max(1, P // 4), replace=False).tolist()
+        return some + some[::2] + [some[0]]
+    if kind == "many":
+        return rng.permutation(np.tile(np.arange(P), 3)).tolist()
+    classes = prt.pod_classes(pdev)
+    return list(range(P)) if classes is None else classes.host_reps().tolist()
+
+
+@pytest.mark.parametrize("kind", ROW_KINDS)
+@pytest.mark.parametrize("seed", range(2))
+@pytest.mark.parametrize("case", CASES)
+def test_component_masks_rows_plain_equal_reference(case, seed, kind):
+    """The packed rows of the masks kernel's plain version, unpacked, equal
+    kubetpu's masks at those rows; an absent component's bit is 0."""
+    kdev, kp, pdev, pp = _encoded(case, seed)
+    want = KFR._explain_masks_kernel(kdev, kp)
+    rows = _rows(kind, pdev, seed)
+    bits, present = PFR.filter_component_masks_rows_plain(pdev, pp, rows)
+    P, N = pdev.requests.shape[0], pdev.alloc.shape[0]
+    sel = np.arange(P) if rows is None else np.asarray(rows)
+    assert bits.dtype == torch.uint8 and tuple(bits.shape) == (len(sel), N)
+    bits = bits.numpy()
+    assert present == tuple(w is not None for w in want)
+    for c, w in enumerate(want):
+        got = ((bits >> c) & 1).astype(bool)
+        if w is None:
+            assert not got.any()
+        else:
+            assert np.array_equal(got, np.asarray(w)[sel])
+    assert not (bits >> 5).any()
+
+
+@pytest.mark.parametrize("kind", ROW_KINDS)
+@pytest.mark.parametrize("case", CASES)
+def test_mask_plan_rows_through_their_class(case, kind):
+    """The kernel's host plan (``kernels.mask_plan``): every requested row
+    written once, by a class whose representative's packed row equals the
+    row's own; a class a pod where the batch has none."""
+    from kubetpu_torch import kernels
+    from kubetpu_torch.framework import runtime as prt
+
+    _, _, pdev, pp = _encoded(case, 0)
+    P = pdev.requests.shape[0]
+    rows = _rows(kind, pdev, 0)
+    sel = np.arange(P) if rows is None else np.asarray(rows)
+    classes = prt.pod_classes(pdev)
+    plan, C, U, first = kernels.mask_plan(classes, rows, P)
+    assert U == len(sel)
+    full = PFR.filter_component_masks_rows_plain(pdev, pp)[0].numpy()
+    if plan is None:
+        assert C == U and np.array_equal(sel, first + np.arange(U))
+        assert U == 1 or classes is None or not classes.shared
+        return
+    assert plan.dtype == np.int32 and len(plan) == 2 * C + 1 + U
+    reps, start, pos = plan[:C], plan[C:2 * C + 1], plan[2 * C + 1:]
+    assert start[0] == 0 and start[-1] == U and (np.diff(start) > 0).all()
+    assert sorted(pos.tolist()) == list(range(U))
+    out = np.zeros((U, full.shape[1]), dtype=np.uint8)
+    for j in range(C):
+        for u in pos[start[j]:start[j + 1]]:
+            if classes is not None and classes.shared:
+                assert classes.class_of[sel[u]] == classes.class_of[reps[j]]
+            else:
+                assert sel[u] == reps[j]
+            out[u] = full[reps[j]]
+    assert np.array_equal(out, full[sel])
+    if kind == "classes" and classes is not None and classes.shared:
+        assert C == classes.count
+
+
 def test_explain_dispatch_on_the_cpu_is_the_plain_version():
     _, _, pdev, pp = _encoded("images", 0)
     idx = _idx(0, pdev.requests.shape[0], pdev.alloc.shape[0])
@@ -262,6 +356,57 @@ def test_records_equal_reference(profile):
     assert any(r.get("requeue") for r in got)
     assert ps.flight_recorder.breakdown_failures == 0
     assert ps.flight_recorder.explains >= 1
+
+
+def _rejections_ops(add_node, add_pod):
+    """Nodes each pod class is rejected on by another plugin: tainted ones
+    (the static group), small ones (NodeResourcesFit) and ones whose pod
+    holds host port 8080 (NodePorts); pods that fit nowhere for two or
+    three of those reasons at once, four to a cycle."""
+    from kubetpu.api import types as kt
+
+    for i in range(3):
+        add_node(make_node(f"tainted-{i}", cpu_milli=8000,
+                           taints=(kt.Taint("dedicated", "x"),)))
+        add_node(make_node(f"small-{i}", cpu_milli=500))
+        add_node(make_node(f"port-{i}", cpu_milli=8000))
+        add_pod(make_pod(f"holder-{i}", cpu_milli=100, host_ports=(8080,),
+                         node_name=f"port-{i}", creation_index=i))
+    for j in range(3):
+        add_pod(make_pod(f"web-{j}", cpu_milli=3000, host_ports=(8080,),
+                         creation_index=10 + j))
+    add_pod(make_pod("huge", cpu_milli=50_000, creation_index=20))
+    add_pod(make_pod("sel", cpu_milli=100, node_selector={"zone": "nowhere"},
+                     creation_index=21))
+    add_pod(make_pod("ok", cpu_milli=100, creation_index=22))
+
+
+def test_rejected_examples_equal_reference():
+    """Cycles with several unschedulable pods, each rejected by two or
+    three plugins: the records' rejection counts and example nodes (read
+    from the packed masks of those pods' rows) equal kubetpu's."""
+    kclient, pclient = _Client(), _Client()
+    ks = KScheduler(kclient, profile=KC.Profile(), dispatcher_workers=0,
+                    clock=KFakeClock(), max_batch=4)
+    ps = PScheduler(pclient, profile=to_port(KC.Profile()), device="cpu",
+                    clock=FakeClock(), max_batch=4)
+    _rejections_ops(ks.on_node_add, ks.on_pod_add)
+    _rejections_ops(lambda n: ps.on_node_add(to_port(n)),
+                    lambda p: ps.on_pod_add(to_port(p)))
+    for _ in range(3):
+        ks.schedule_batch()
+        ks.dispatcher.sync()
+        ks._drain_bind_completions()
+        ps.schedule_batch()
+    if ps._inflight is not None:
+        ps._complete_inflight()
+    assert pclient.bound == kclient.bound
+    want, got = _records(ks.flight_recorder), _records(ps.flight_recorder)
+    assert got == want
+    examples = [r["rejected_examples"] for r in got if "rejected_examples" in r]
+    assert len(examples) >= 4
+    assert max(len(e) for e in examples) >= 3
+    assert all(e for ex in examples for e in ex.values())
 
 
 def test_pipelined_records_equal_serial():

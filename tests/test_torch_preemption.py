@@ -4,7 +4,10 @@
   ``dry_run_preemption`` on seeded victim tensors: K in {4, 8, 128} slots, D
   in {1, 5} PDBs, host ports, many equal (priority, start) pairs (the sorts
   must keep slot order), an empty potential mask and a case with no
-  candidate. Node index, victims, ok and n_pdb must be equal.
+  candidate. Node index, victims, ok and n_pdb must be equal. The same for
+  ``dry_run_preemption_ranked_plain``, the mirror of the kernel's
+  decomposition, at K in {4, 8, 128, 130}, with ineligible slots between
+  eligible ones and blocks of 1, 3 and 8 nodes.
 - ``PreemptionEvaluator.preempt`` against kubetpu's on the scenarios of
   ``tests/test_preemption.py`` (each batch encoded by each side's own
   encoder): status, node, victim uids and victim pods, call after call.
@@ -149,6 +152,92 @@ def test_dry_run_equal_keys_keep_slot_order():
     args[7] = np.full(N, 110, dtype=np.int32)
     node, victims, ok, n_pdb = _dry_run_both(tuple(args))
     assert int(node) == 0 and victims.any()
+
+
+def _ranked_both(args, nodes_per_block):
+    """kubetpu's dry run against the port's mirror of the kernel's
+    decomposition (``dry_run_preemption_ranked_plain``): equal outputs."""
+    want = KO.dry_run_preemption(*(
+        jnp.asarray(np.int64(a)) if isinstance(a, int) else jnp.asarray(a)
+        for a in args
+    ))
+    got = PO.dry_run_preemption_ranked_plain(
+        *(a if isinstance(a, int) else torch.from_numpy(a) for a in args),
+        nodes_per_block=nodes_per_block)
+    for name, w, g in zip(("node", "victims", "ok", "n_pdb"), want, got):
+        w = np.asarray(w)
+        g = g.numpy()
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert np.array_equal(g, w), name
+    return got
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("D", [1, 5])
+@pytest.mark.parametrize("K", [4, 8, 128, 130])
+def test_ranked_dry_run_matches_kubetpu(K, D, seed):
+    """The kernel's decomposition (ranks by counting, PDB prefix counts,
+    the reprieve order by counting and its walk, a best a block then the
+    merge) equals kubetpu, blocks of 1, 3 and 8 nodes."""
+    N = 48 if K < 128 else 16
+    node, victims, ok, _ = _ranked_both(victim_tensors(seed, N, K, D), (1, 3, 8)[seed])
+    if int(node) >= 0:
+        assert ok[int(node)] and victims[int(node)].any()
+
+
+def _equal_keys(K, D):
+    """Four nodes whose victims are all equal in (priority, start) and
+    requests, every one in every PDB: slot order decides which are
+    reprieved and which violate."""
+    N = 4
+    args = list(victim_tensors(0, N, K, D))
+    args[9] = np.ones((N, K), dtype=bool)                          # valid
+    args[10] = np.zeros((N, K), dtype=np.int64)                    # priority
+    args[11] = np.zeros((N, K), dtype=np.int64)                    # start
+    args[12] = np.full((N, K, 3), 100, dtype=np.int64)             # requests
+    args[4] = np.full((N, 3), 1000, dtype=np.int64)                # alloc
+    args[5] = np.minimum(args[12].sum(1) + 50, 1000)               # requested
+    args[0] = np.array([400, 400, 400], dtype=np.int64)
+    args[14] = np.ones((N, K, D), dtype=bool)                      # pdb
+    args[15] = np.full(D, 2, dtype=np.int64)
+    args[3] = np.ones(N, dtype=bool)
+    args[2] = np.zeros(4, dtype=bool)
+    args[6] = np.full(N, K, dtype=np.int32)
+    args[7] = np.full(N, 110 + K, dtype=np.int32)
+    return tuple(args)
+
+
+@pytest.mark.parametrize("K", [8, 130])
+def test_ranked_dry_run_equal_keys(K):
+    node, victims, _, n_pdb = _ranked_both(_equal_keys(K, 1), 3)
+    assert int(node) == 0 and victims.any() and int(n_pdb.max()) > 0
+
+
+@pytest.mark.parametrize("K", [8, 128])
+def test_ranked_dry_run_ineligible_between_eligible(K):
+    """Every second slot above the preemptor's priority (never a victim,
+    ordered last) or not valid, the others eligible, with equal keys among
+    them."""
+    args = list(victim_tensors(5, 24, K, 5))
+    odd = np.arange(K) % 2 == 1
+    args[10] = np.where(odd[None, :] & (np.arange(24) % 2 == 0)[:, None], 40, args[10] % 20)
+    args[9] = args[9] | ~odd[None, :]
+    args[9][1::2, 1::2] = False
+    node, victims, _, _ = _ranked_both(tuple(args), 8)
+    assert not victims.numpy()[:, odd].any()
+    assert int(node) >= 0
+
+
+def test_ranked_dry_run_empty_potential_mask():
+    args = list(victim_tensors(3, 32, 8, 1))
+    args[3] = np.zeros(32, dtype=bool)
+    node, _, ok, _ = _ranked_both(tuple(args), 8)
+    assert int(node) == -1 and not ok.any()
+
+
+def test_ranked_dry_run_no_ok_node():
+    node, victims, ok, _ = _ranked_both(victim_tensors(4, 32, 8, 5, pod_prio=0), 3)
+    assert int(node) == -1 and not ok.any() and not victims.any()
 
 
 def test_gang_dry_run_is_a_later_slice():
